@@ -1,0 +1,227 @@
+"""The port's host build and tables against the JAX package's.
+
+``Scene.build`` -> ``WideArrays`` (flat and TLAS, width 4) and
+``ShadeArrays`` must be bit-identical to the JAX package's NumPy build
+(``use_native_build=False``); the bridge must carry the JAX tables across
+bit for bit; options the port has not ported must raise; and the port
+must import and render with JAX blocked."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from vortex_rt_tpu.models import procedural as jproc
+from vortex_rt_tpu.models.scene import Scene as JScene
+from vortex_rt_tpu.ops.shade_lanes import ShadeArrays as JShade
+from vortex_rt_tpu.ops.traverse_wide import WideArrays as JWide
+from vortex_rt_tpu.utils import vecmath as jvm
+from vortex_rt_tpu.utils.config import RTConfig as JCfg
+
+import vortex_rt_tpu_torch as pt
+from vortex_rt_tpu_torch import bridge
+from vortex_rt_tpu_torch.engine.megakernel import CameraArrays, LightArrays
+from vortex_rt_tpu_torch.models import procedural as tproc
+from vortex_rt_tpu_torch.ops.shade_lanes import ShadeArrays as TShade
+from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays as TWide
+from vortex_rt_tpu_torch.utils import vecmath as tvm
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _fill(sc, proc, vm, kind):
+    if kind == "flat":
+        for mesh, refl in proc.cornell_box():
+            sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
+        sc.add_instance(sc.add_mesh(proc.uv_sphere((0, -0.3, 0), 0.35, 8, 12)))
+        sc.add_instance(sc.add_mesh(proc.box((0.45, -0.6, 0.3), 0.25)))
+    else:  # two meshes, three instances (one transformed): TLAS + BLAS
+        s = sc.add_mesh(proc.uv_sphere((0, 0, 0), 1.0, 12, 16))
+        b = sc.add_mesh(proc.box((0.5, 0.3, 0.5), 0.4))
+        sc.add_instance(s)
+        sc.add_instance(b, reflectivity=0.5)
+        sc.add_instance(b, vm.mat4_translate([-1.5, 0.2, 0.4])
+                        @ vm.mat4_rotate([0, 1, 0], 0.6))
+    return sc
+
+
+def build_pair(kind):
+    """(JAX SceneBuffers, port SceneBuffers) of the same scene."""
+    flatten = kind == "flat"
+    jsb = _fill(JScene(), jproc, jvm, kind).build(
+        JCfg(flatten=flatten, bvh_width=4, use_native_build=False))
+    tsb = _fill(pt.Scene(), tproc, tvm, kind).build(
+        pt.RTConfig(flatten=flatten))
+    return jsb, tsb
+
+
+@pytest.fixture(scope="module", params=["flat", "tlas"])
+def pair(request):
+    jsb, tsb = build_pair(request.param)
+    return request.param, jsb, tsb
+
+
+def _same_bits(a, b):
+    a = np.ascontiguousarray(np.asarray(a))
+    b = np.ascontiguousarray(np.asarray(b))
+    assert a.shape == b.shape and a.dtype.itemsize == b.dtype.itemsize
+    np.testing.assert_array_equal(a.view(f"u{a.dtype.itemsize}"),
+                                  b.view(f"u{b.dtype.itemsize}"))
+
+
+def test_scene_buffers_identical(pair):
+    _, jsb, tsb = pair
+    for f in dataclasses.fields(tsb):
+        a, b = getattr(jsb, f.name), getattr(tsb, f.name)
+        if a is None or isinstance(a, bool):
+            assert a == b, f.name
+        else:
+            assert np.asarray(a).dtype == np.asarray(b).dtype, f.name
+            _same_bits(a, b)
+
+
+def test_wide_arrays_identical(pair):
+    kind, jsb, tsb = pair
+    jwa = JWide.from_scene(jsb, width=4)
+    twa = TWide.from_scene(tsb, width=4)
+    assert twa.nodes.dtype == torch.int32
+    _same_bits(jwa.nodes, twa.nodes.numpy())
+    _same_bits(jwa.tri_rows, twa.tri_rows.numpy())
+    for name in ("num_tlas", "max_leaf_tris", "depth", "tri_bits", "width"):
+        assert getattr(jwa, name) == getattr(twa, name), name
+    assert (twa.num_tlas > 0) == (kind == "tlas")
+
+
+def test_shade_arrays_identical(pair):
+    _, jsb, tsb = pair
+    jsa = JShade.from_scene(jsb)
+    tsa = TShade.from_scene(tsb)
+    for name in ("shade_rows", "mat_rows", "inst_shade", "texels"):
+        _same_bits(getattr(jsa, name), getattr(tsa, name).numpy())
+
+
+def test_bridge_round_trip(pair):
+    _, jsb, _ = pair
+    jwa = JWide.from_scene(jsb, width=4)
+    jsa = JShade.from_scene(jsb)
+    twa = bridge.wide_arrays(
+        np.asarray(jwa.nodes), np.asarray(jwa.tri_rows),
+        num_tlas=jwa.num_tlas, max_leaf_tris=jwa.max_leaf_tris,
+        depth=jwa.depth, tri_bits=jwa.tri_bits, width=jwa.width,
+        device="cpu")
+    _same_bits(jwa.nodes, twa.nodes.numpy())
+    _same_bits(jwa.tri_rows, twa.tri_rows.numpy())
+    tsa = bridge.shade_arrays(*(np.asarray(getattr(jsa, n)) for n in (
+        "shade_rows", "mat_rows", "inst_shade", "texels")), device="cpu")
+    for name in ("shade_rows", "mat_rows", "inst_shade", "texels"):
+        _same_bits(getattr(jsa, name), getattr(tsa, name).numpy())
+    # camera and light vectors: the bridge equals the port's own build
+    cam = pt.Camera.look_at([0.3, -0.2, -4], [0, 0.05, 0], [0, 1, 0],
+                            40.0, 1.0)
+    cb = bridge.camera_arrays(*cam.as_arrays(), device="cpu")
+    for a, b in zip(cb, CameraArrays.from_camera(cam, "cpu")):
+        _same_bits(a.numpy(), b.numpy())
+    p = pt.RenderParams(light_pos=(0, 0.8, -0.5))
+    lb = bridge.light_arrays(p.light_pos, p.light_color, p.ambient_color,
+                             p.background_color, device="cpu")
+    for a, b in zip(lb, LightArrays.from_params(p, "cpu")):
+        _same_bits(a.numpy(), b.numpy())
+
+
+def test_bridge_refuses_unported_tables():
+    jsb, _ = build_pair("flat")
+    jwa = JWide.from_scene(jsb, width=4)
+    common = dict(num_tlas=jwa.num_tlas, max_leaf_tris=jwa.max_leaf_tris,
+                  depth=jwa.depth, tri_bits=jwa.tri_bits, device="cpu")
+    nodes, rows = np.asarray(jwa.nodes), np.asarray(jwa.tri_rows)
+    with pytest.raises(NotImplementedError, match="K1"):
+        bridge.wide_arrays(nodes, rows, width=8, **common)
+    with pytest.raises(NotImplementedError, match="fused"):
+        bridge.wide_arrays(nodes, rows, width=4,
+                           fused=np.asarray(jwa.fuse().fused), **common)
+    with pytest.raises(NotImplementedError, match="alpha"):
+        bridge.wide_arrays(nodes, rows, width=4,
+                           alpha_rows=np.zeros((1, 32), np.float32),
+                           **common)
+
+
+@pytest.mark.parametrize("option", ["bvh_width8", "pathtrace", "anyhit",
+                                    "collect_stats", "stage_limit",
+                                    "multi_device"])
+def test_unported_options_raise(option):
+    from vortex_rt_tpu_torch.engine import wavefront as twf
+    from vortex_rt_tpu_torch.engine.shaders import ShaderTable
+
+    if option == "bvh_width8":
+        with pytest.raises(NotImplementedError, match="K1"):
+            pt.RTConfig(bvh_width=8, flatten=True)
+        return
+    _, tsb = build_pair("flat")
+    cfg = pt.RTConfig(flatten=True)
+    cam = pt.Camera.look_at([0.05, 0.02, -3.2], [0, -0.05, 0], [0, 1, 0],
+                            45.0, 1.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if option == "anyhit":
+            pt.WavefrontRenderer.from_buffers(
+                tsb, cfg, ShaderTable(anyhit=lambda *a: None), device="cpu")
+        elif option == "multi_device":
+            pt.WavefrontRenderer.from_buffers(tsb, cfg,
+                                              device=["cpu", "cpu"])
+        elif option == "pathtrace":
+            r = pt.WavefrontRenderer.from_buffers(tsb, cfg, device="cpu")
+            r.render(cam, pt.RenderParams(pathtrace=True), 16, 16)
+        else:
+            r = pt.WavefrontRenderer.from_buffers(tsb, cfg, device="cpu")
+            twf.frame_body(r.wa, r.sa, CameraArrays.from_camera(cam, "cpu"),
+                           LightArrays.from_params(pt.RenderParams(), "cpu"),
+                           16, 16, **{option: True if option ==
+                                      "collect_stats" else 1})
+
+
+_NO_JAX = r"""
+import sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import numpy as np
+import vortex_rt_tpu_torch as pt
+from vortex_rt_tpu_torch.models.procedural import box, cornell_box, uv_sphere
+sc = pt.Scene()
+for mesh, refl in cornell_box():
+    sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
+sc.add_instance(sc.add_mesh(box((0.45, -0.6, 0.3), 0.25)))
+cfg = pt.RTConfig(flatten=True)
+r = pt.WavefrontRenderer.from_scene(sc, cfg, device="cpu")
+cam = pt.Camera.look_at([0.05, 0.02, -3.2], [0, -0.05, 0], [0, 1, 0], 45.0, 1.0)
+img, rays = r.render(cam, pt.RenderParams(light_pos=(0, 0.8, -0.5),
+                                          shadow=True), 16, 16)
+assert img.shape == (16, 16, 3) and np.isfinite(img).all(), img.shape
+assert rays >= 256, rays
+bad = sorted(m for m in sys.modules
+             if m == "vortex_rt_tpu" or m.startswith("vortex_rt_tpu."))
+assert not bad, bad
+print("OK", rays)
+"""
+
+
+def test_port_imports_and_renders_without_jax():
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
+def test_image_io_matches_jax(tmp_path):
+    from vortex_rt_tpu.utils import image as jimg
+    from vortex_rt_tpu_torch.utils import image as timg
+
+    rng = np.random.default_rng(3)
+    img = rng.uniform(-0.2, 1.2, (7, 5, 3)).astype(np.float32)
+    jimg.write_ppm(str(tmp_path / "j.ppm"), img)
+    timg.write_ppm(str(tmp_path / "t.ppm"), img)
+    assert (tmp_path / "j.ppm").read_bytes() == (tmp_path / "t.ppm").read_bytes()
+    back = timg.read_ppm(str(tmp_path / "j.ppm"))
+    np.testing.assert_array_equal(back, jimg.read_ppm(str(tmp_path / "t.ppm")))
+    assert timg.rmse(img, img * 0.5) == jimg.rmse(img, img * 0.5)

@@ -1,0 +1,84 @@
+"""Carry the JAX package's tables across to the port, bit for bit.
+
+The inputs are NumPy arrays (``np.asarray`` of the JAX package's
+``WideArrays.nodes``/``tri_rows`` and its static ints, of
+``ShadeArrays.*``, and of the camera and light vectors); the outputs are
+the port's tables on a given device.  This module imports neither JAX
+nor ``vortex_rt_tpu``: it only reads arrays.
+
+Tables the port cannot walk yet are refused: 8-wide rows, fused rows
+and alpha tables (ROADMAP Queue 2, K1, and Queue 1, item 8).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from vortex_rt_tpu_torch.engine.megakernel import CameraArrays, LightArrays
+from vortex_rt_tpu_torch.ops.shade_lanes import ShadeArrays
+from vortex_rt_tpu_torch.ops.traverse_wide import ROW_WORDS, WideArrays
+
+
+def _as_i32(a: np.ndarray) -> torch.Tensor:
+    """u32/i32 words -> int32 tensor with the same bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.itemsize != 4 or a.dtype.kind not in "ui":
+        raise ValueError(f"expected 32-bit integer words, got {a.dtype}")
+    return torch.from_numpy(a.view(np.int32).copy())
+
+
+def _as_f32(a: np.ndarray) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype != np.float32:
+        raise ValueError(f"expected float32, got {a.dtype}")
+    return torch.from_numpy(a.copy())
+
+
+def wide_arrays(nodes: np.ndarray, tri_rows: np.ndarray, *, num_tlas: int,
+                max_leaf_tris: int, depth: int, tri_bits: int, width: int,
+                device, fused: Optional[np.ndarray] = None,
+                alpha_rows: Optional[np.ndarray] = None) -> WideArrays:
+    """JAX ``WideArrays`` fields -> the port's ``WideArrays``."""
+    if width != 4:
+        raise NotImplementedError(
+            f"width={width}: 8-wide rows wait for kernel K1 (ROADMAP "
+            "Queue 2, K1 trace_packets)")
+    if fused is not None:
+        raise NotImplementedError(
+            "fused node+leaf rows wait for kernel K1 (ROADMAP Queue 2, K1)")
+    if alpha_rows is not None:
+        raise NotImplementedError(
+            "alpha tables: in-loop any-hit is not ported yet (ROADMAP "
+            "Queue 1, item 8)")
+    if nodes.ndim != 2 or nodes.shape[1] != ROW_WORDS:
+        raise ValueError(f"nodes must be (N, {ROW_WORDS}), got {nodes.shape}")
+    return WideArrays(nodes=_as_i32(nodes), tri_rows=_as_f32(tri_rows),
+                      num_tlas=int(num_tlas),
+                      max_leaf_tris=int(max_leaf_tris), depth=int(depth),
+                      tri_bits=int(tri_bits), width=int(width)).to(device)
+
+
+def shade_arrays(shade_rows: np.ndarray, mat_rows: np.ndarray,
+                 inst_shade: np.ndarray, texels: np.ndarray, *,
+                 device) -> ShadeArrays:
+    """JAX ``ShadeArrays`` fields -> the port's ``ShadeArrays``."""
+    return ShadeArrays(shade_rows=_as_f32(shade_rows),
+                       mat_rows=_as_f32(mat_rows),
+                       inst_shade=_as_f32(inst_shade),
+                       texels=_as_i32(texels)).to(device)
+
+
+def camera_arrays(pos, forward, right, up, viewplane, *,
+                  device) -> CameraArrays:
+    return CameraArrays(*(_as_f32(np.asarray(a, np.float32)).to(device)
+                          for a in (pos, forward, right, up, viewplane)))
+
+
+def light_arrays(light_pos, light_color, ambient, background, *,
+                 device) -> LightArrays:
+    return LightArrays(*(_as_f32(np.asarray(a, np.float32)).to(device)
+                         for a in (light_pos, light_color, ambient,
+                                   background)))

@@ -1,0 +1,99 @@
+"""Shader binding table: batch shaders over (R,) lanes (port of
+``vortex_rt_tpu/engine/shaders.py``: the Whitted shaders).
+
+Shader signatures (all inputs/outputs are (R,) lanes):
+
+closest(ctx, sp, ray, payload) -> ClosestOut
+miss(ctx, ray, payload) -> (add_r, add_g, add_b)   [terminates the ray]
+
+The path-traced closest shader and any-hit shaders are not ported yet:
+``ShaderTable(anyhit=...)`` is refused by the renderer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from vortex_rt_tpu_torch.ops.shade_lanes import (
+    ShadeArrays, ShadePoint, diffuse_lighting_lanes, reflect_lanes,
+)
+
+
+class ShaderContext(NamedTuple):
+    """Scene tables + lighting constants handed to every shader."""
+
+    shade: ShadeArrays
+    light_pos: torch.Tensor      # (3,)
+    light_color: torch.Tensor    # (3,)
+    ambient: torch.Tensor        # (3,)
+    background: torch.Tensor     # (3,)
+    max_depth: int
+
+
+class RayLanes(NamedTuple):
+    ox: torch.Tensor; oy: torch.Tensor; oz: torch.Tensor
+    dx: torch.Tensor; dy: torch.Tensor; dz: torch.Tensor
+
+
+class PayloadLanes(NamedTuple):
+    """Per-ray payload: throughput, bounce, pixel and global sample index."""
+
+    throughput: torch.Tensor  # (R,) luminance throughput (RGB in engine)
+    bounce: torch.Tensor      # (R,) i32
+    pixel: torch.Tensor       # (R,) i64 pixel id
+    sample: torch.Tensor      # (R,) i64 global sample index (u32 value)
+
+
+class ClosestOut(NamedTuple):
+    """What a closest-hit shader contributes back to the engine."""
+
+    add_r: torch.Tensor; add_g: torch.Tensor; add_b: torch.Tensor
+    mul_r: torch.Tensor; mul_g: torch.Tensor; mul_b: torch.Tensor
+    spawn: torch.Tensor            # (R,) bool: emit a secondary ray
+    sox: torch.Tensor; soy: torch.Tensor; soz: torch.Tensor
+    sdx: torch.Tensor; sdy: torch.Tensor; sdz: torch.Tensor
+
+
+def default_closest(ctx: ShaderContext, sp: ShadePoint, ray: RayLanes,
+                    payload: PayloadLanes) -> ClosestOut:
+    """Attenuated diffuse + reflective bounce; remaining throughput goes
+    to the environment when not bouncing."""
+    dr, dg, db = diffuse_lighting_lanes(
+        sp, ctx.light_pos, ctx.light_color, ctx.ambient)
+    refl = sp.reflectivity
+    one_m = 1.0 - refl
+    spawn = (refl > 0.0) & (payload.bounce + 1 < ctx.max_depth)
+    zero = torch.zeros_like(refl)
+    bg_r = torch.where(spawn, zero, refl * ctx.background[0])
+    bg_g = torch.where(spawn, zero, refl * ctx.background[1])
+    bg_b = torch.where(spawn, zero, refl * ctx.background[2])
+    rx, ry, rz = reflect_lanes(ray.dx, ray.dy, ray.dz, sp.nx, sp.ny, sp.nz)
+    return ClosestOut(
+        add_r=one_m * dr + bg_r,
+        add_g=one_m * dg + bg_g,
+        add_b=one_m * db + bg_b,
+        mul_r=refl, mul_g=refl, mul_b=refl,
+        spawn=spawn,
+        sox=sp.px + rx * 1e-3, soy=sp.py + ry * 1e-3, soz=sp.pz + rz * 1e-3,
+        sdx=rx, sdy=ry, sdz=rz,
+    )
+
+
+def default_miss(ctx: ShaderContext, ray: RayLanes, payload: PayloadLanes):
+    """Payload color = background, terminate."""
+    r = torch.ones_like(ray.dx)
+    return (ctx.background[0] * r, ctx.background[1] * r,
+            ctx.background[2] * r)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShaderTable:
+    """The shader binding table.  ``anyhit=None`` is the auto-accept fast
+    path, the only one ported so far."""
+
+    closest: Callable = default_closest
+    miss: Callable = default_miss
+    anyhit: Optional[Callable] = None

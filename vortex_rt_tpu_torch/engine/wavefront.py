@@ -1,0 +1,366 @@
+"""Wavefront render engine (port of ``vortex_rt_tpu/engine/wavefront.py``).
+
+A frame is ``spp`` passes over the pixels, one sample per pixel per pass,
+accumulated into three O(n_pix) radiance planes.  Each pass generates
+camera rays in tile-major lane order and runs the bounce pipeline
+(``_wave_pipeline``); every bounce runs, in order:
+
+1. the closest-hit trace of the live rays;
+2. the shadow occlusion trace from the hit points to the light;
+3. shading (``shade_point`` + the closest / miss shaders) with the
+   occlusion result as ``lit``;
+4. spawn of the continuation rays.
+
+Both traces go through ``walk`` — ``ops.packet_walk.trace_packets_walk``
+by default, which launches the CUDA walk on the card and runs its plain
+PyTorch version on CPU tensors.  Pass ``n`` of a frame uses the global
+sample index ``seed * spp + n``, the index the JAX package gives that
+sample in both of its frame layouts, so the port renders the same rays.
+
+Not ported yet, and refused rather than ignored: the merged
+shadow+bounce wave and 8-wide rows (ROADMAP K1), path tracing
+(``pathtrace_closest``), any-hit shaders, per-wave statistics and
+staged profiling, and multi-device rendering.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from vortex_rt_tpu_torch.engine.megakernel import CameraArrays, LightArrays
+from vortex_rt_tpu_torch.engine.shaders import (
+    PayloadLanes, RayLanes, ShaderContext, ShaderTable,
+)
+from vortex_rt_tpu_torch.models.scene import (
+    Camera, RenderParams, Scene, SceneBuffers,
+)
+from vortex_rt_tpu_torch.ops.packet_walk import trace_packets_walk
+from vortex_rt_tpu_torch.ops.shade_lanes import ShadeArrays, shade_point
+from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays
+from vortex_rt_tpu_torch.utils import sampling
+from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT, RTConfig
+
+_U32 = 0xFFFFFFFF
+
+
+def _tile_pixel_ids(q: torch.Tensor, width: int, tile_w: int, tile_h: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tile-major lane index ``q`` -> (px, py) image coordinates, pure
+    integer arithmetic."""
+    lane_n = tile_w * tile_h
+    t = q // lane_n
+    l = q % lane_n
+    ntx = width // tile_w
+    tx = t % ntx
+    ty = t // ntx
+    px = tx * tile_w + l % tile_w
+    py = ty * tile_h + l // tile_w
+    return px, py
+
+
+def _jitter(pix, samp, total_spp: int):
+    """Per-sample sub-pixel offsets (stratified, counter-based);
+    total_spp == 1 keeps exact pixel centers."""
+    if total_spp == 1:
+        return 0.5, 0.5
+    return sampling.stratified_jitter(pix, samp, total_spp, 0)
+
+
+def _camera_from_pix(cam: CameraArrays, width: int, height: int,
+                     pxi, pyi, pix, samp, total_spp: int):
+    """Integer pixel coords + sample ids -> camera ray lanes."""
+    dev = pxi.device
+    px = pxi.to(torch.float32)
+    py = pyi.to(torch.float32)
+    jx, jy = _jitter(pix, samp, total_spp)
+    # divide by 0-dim tensors: true division on every device (a Python
+    # scalar divisor becomes a reciprocal multiply on CUDA)
+    w_t = torch.tensor(float(width), dtype=torch.float32, device=dev)
+    h_t = torch.tensor(float(height), dtype=torch.float32, device=dev)
+    x_ndc = (px + jx) / w_t - 0.5
+    y_ndc = (py + jy) / h_t - 0.5
+    vx = x_ndc * cam.viewplane[0]
+    vy = y_ndc * cam.viewplane[1]
+    dx = vx * cam.right[0] + vy * cam.up[0] + cam.forward[0]
+    dy = vx * cam.right[1] + vy * cam.up[1] + cam.forward[1]
+    dz = vx * cam.right[2] + vy * cam.up[2] + cam.forward[2]
+    inv = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
+    dx, dy, dz = dx * inv, dy * inv, dz * inv
+    r = px.shape[0]
+    ox = cam.pos[0].expand(r).clone()
+    oy = cam.pos[1].expand(r).clone()
+    oz = cam.pos[2].expand(r).clone()
+    return ox, oy, oz, dx, dy, dz
+
+
+def _resolve_tiled(lanes: torch.Tensor, width: int, rows: int,
+                   tile_w: int, tile_h: int) -> torch.Tensor:
+    """(n_pix,) tile-major lanes -> (rows, width) image."""
+    nty, ntx = rows // tile_h, width // tile_w
+    a = lanes.reshape(nty, ntx, tile_h, tile_w)
+    return a.permute(0, 2, 1, 3).reshape(rows, width)
+
+
+def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
+                   table: ShaderTable, light: LightArrays, lanes, pix, samp,
+                   alive, max_depth: int, shadow: bool, walk: Callable):
+    """The bounce pipeline over one lane set: trace, shadow occlusion,
+    shade, spawn — ``max_depth`` waves.  Returns (rad_r, rad_g, rad_b,
+    rays traced, walk steps), the counts as 0-dim int64 tensors."""
+    ox, oy, oz, dx, dy, dz = lanes
+    r = ox.shape[0]
+    dev = ox.device
+    rad_r = torch.zeros(r, dtype=torch.float32, device=dev)
+    rad_g = torch.zeros_like(rad_r)
+    rad_b = torch.zeros_like(rad_r)
+    thr_r = torch.ones_like(rad_r)
+    thr_g = torch.ones_like(rad_r)
+    thr_b = torch.ones_like(rad_r)
+    zero = torch.zeros_like(rad_r)
+    one = torch.ones_like(rad_r)
+    bounce_ct = torch.zeros(r, dtype=torch.int32, device=dev)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    steps = torch.zeros((), dtype=torch.int64, device=dev)
+    n_tri = sa.shade_rows.shape[0]
+    n_inst = sa.inst_shade.shape[0]
+
+    for _ in range(max_depth):
+        rays = rays + alive.sum()
+        h, st = walk(wa, torch.stack([ox, oy, oz], 1),
+                     torch.stack([dx, dy, dz], 1), active=alive)
+        steps = steps + st.sum()
+        dist, bx, by = h.dist, h.bx, h.by
+        hit = alive & (dist < LARGE_FLOAT)
+        miss = alive & ~hit
+        tri_c = h.tri.clamp(0, n_tri - 1).to(torch.int64)
+        inst_c = h.inst.clamp(0, n_inst - 1).to(torch.int64)
+        if shadow:
+            # shadow rays need the hit point only; full shading follows
+            # the occlusion result
+            t_hit = torch.clamp_max(dist, 1e18)
+            hpx, hpy, hpz = (ox + dx * t_hit, oy + dy * t_hit,
+                             oz + dz * t_hit)
+            slx = light.light_pos[0] - hpx
+            sly = light.light_pos[1] - hpy
+            slz = light.light_pos[2] - hpz
+            dist_l = torch.sqrt(slx * slx + sly * sly + slz * slz + 1e-20)
+            sdx, sdy, sdz = slx / dist_l, sly / dist_l, slz / dist_l
+            sh_act = hit
+            rays = rays + sh_act.sum()
+            clamp = dist_l * (1.0 - 1e-3)
+            sh, sh_st = walk(
+                wa,
+                torch.stack([hpx + sdx * 1e-3, hpy + sdy * 1e-3,
+                             hpz + sdz * 1e-3], 1),
+                torch.stack([sdx, sdy, sdz], 1),
+                active=sh_act, t_max=clamp, occlusion=True)
+            steps = steps + sh_st.sum()
+            occluded = sh_act & (sh.dist < clamp)
+        sp = shade_point(sa, ox, oy, oz, dx, dy, dz,
+                         dist, bx, by, 1.0 - bx - by, tri_c, inst_c)
+        if shadow:
+            sp = sp._replace(lit=torch.where(occluded, zero, one))
+        ray = RayLanes(ox, oy, oz, dx, dy, dz)
+        pl = PayloadLanes((thr_r + thr_g + thr_b) * (1.0 / 3.0),
+                          bounce_ct, pix, samp)
+        co = table.closest(ctx, sp, ray, pl)
+        spawn = hit & co.spawn
+        mr, mg, mb = table.miss(ctx, ray, pl)
+
+        rad_r = rad_r + torch.where(hit, thr_r * co.add_r,
+                                    torch.where(miss, thr_r * mr, zero))
+        rad_g = rad_g + torch.where(hit, thr_g * co.add_g,
+                                    torch.where(miss, thr_g * mg, zero))
+        rad_b = rad_b + torch.where(hit, thr_b * co.add_b,
+                                    torch.where(miss, thr_b * mb, zero))
+        thr_r = torch.where(hit, thr_r * co.mul_r, thr_r)
+        thr_g = torch.where(hit, thr_g * co.mul_g, thr_g)
+        thr_b = torch.where(hit, thr_b * co.mul_b, thr_b)
+
+        ox = torch.where(spawn, co.sox, ox)
+        oy = torch.where(spawn, co.soy, oy)
+        oz = torch.where(spawn, co.soz, oz)
+        dx = torch.where(spawn, co.sdx, dx)
+        dy = torch.where(spawn, co.sdy, dy)
+        dz = torch.where(spawn, co.sdz, dz)
+        alive = spawn
+        bounce_ct = torch.where(spawn, bounce_ct + 1, bounce_ct)
+
+    return rad_r, rad_g, rad_b, rays, steps
+
+
+def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
+               light: LightArrays, width: int, height: int,
+               max_depth: int = 2, spp: int = 1,
+               table: Optional[ShaderTable] = None, seed: int = 0,
+               shadow: bool = False, tile_w: int = 16, tile_h: int = 16,
+               walk: Callable = trace_packets_walk,
+               collect_stats: bool = False,
+               stage_limit: Optional[int] = None):
+    """One frame -> ((3, H*W) radiance planes in row-major pixel order,
+    rays traced, walk steps), the counts as 0-dim int64 tensors on the
+    tables' device.  Nothing here waits for the device."""
+    if collect_stats or stage_limit is not None:
+        raise NotImplementedError(
+            "collect_stats/stage_limit: per-wave statistics and staged "
+            "profiling are not ported yet (ROADMAP Queue 1, item 10)")
+    table = table or ShaderTable()
+    if table.anyhit is not None:
+        raise NotImplementedError(
+            "any-hit shaders are not ported yet (ROADMAP Queue 1, item 8)")
+    dev = wa.device
+    ctx = ShaderContext(
+        shade=sa, light_pos=light.light_pos, light_color=light.light_color,
+        ambient=light.ambient, background=light.background,
+        max_depth=max_depth)
+
+    n_pix = width * height
+    rows = height
+    # adaptive tile height: fall back through 8/4/2 so odd frame heights
+    # (1080) still get the tile-major lane order
+    if width % tile_w == 0:
+        for th in (tile_h, 8, 4, 2):
+            if rows % th == 0:
+                tile_h = th
+                break
+    tiled = width % tile_w == 0 and rows % tile_h == 0
+    lane = torch.arange(n_pix, dtype=torch.int64, device=dev)
+    if tiled:
+        pxi, pyi = _tile_pixel_ids(lane, width, tile_w, tile_h)
+        pix = pyi * width + pxi
+    else:
+        pxi, pyi, pix = lane % width, lane // width, lane
+    alive = torch.ones(n_pix, dtype=torch.bool, device=dev)
+
+    acc = [torch.zeros(n_pix, dtype=torch.float32, device=dev)
+           for _ in range(3)]
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    steps = torch.zeros((), dtype=torch.int64, device=dev)
+    for p in range(spp):
+        # global sample index of this pass (u32 arithmetic)
+        samp_val = (((int(seed) & _U32) * spp) + p) & _U32
+        samp = torch.full((n_pix,), samp_val, dtype=torch.int64, device=dev)
+        lanes6 = _camera_from_pix(cam, width, height, pxi, pyi, pix, samp,
+                                  spp)
+        rr, rg, rb, n_rays, n_steps = _wave_pipeline(
+            wa, sa, ctx, table, light, lanes6, pix, samp, alive,
+            max_depth, shadow, walk)
+        acc = [acc[0] + rr, acc[1] + rg, acc[2] + rb]
+        rays = rays + n_rays
+        steps = steps + n_steps
+
+    inv_spp = 1.0 / spp
+    if tiled:
+        img = torch.stack([
+            _resolve_tiled(c * inv_spp, width, rows, tile_w, tile_h)
+            .reshape(n_pix) for c in acc])
+    else:
+        img = torch.stack(acc) * inv_spp
+    return img, rays, steps
+
+
+@dataclasses.dataclass
+class WavefrontRenderer:
+    """Host-facing renderer over tables that live on one device."""
+
+    sb: SceneBuffers
+    wa: WideArrays
+    sa: ShadeArrays
+    config: RTConfig
+    table: ShaderTable
+    walk: Callable = trace_packets_walk
+
+    @property
+    def device(self) -> torch.device:
+        return self.wa.device
+
+    @staticmethod
+    def from_scene(scene: Scene, config: Optional[RTConfig] = None,
+                   table: Optional[ShaderTable] = None, *,
+                   device) -> "WavefrontRenderer":
+        cfg = config or RTConfig()
+        return WavefrontRenderer.from_buffers(scene.build(cfg), cfg, table,
+                                              device=device)
+
+    @staticmethod
+    def from_buffers(sb_host: SceneBuffers, config: Optional[RTConfig] = None,
+                     table: Optional[ShaderTable] = None, *, device,
+                     walk: Callable = trace_packets_walk
+                     ) -> "WavefrontRenderer":
+        """Build the tables on the host and move them to ``device``.
+        ``walk`` is the trace function (the plain PyTorch version,
+        ``trace_packets_walk_ref``, forces the plain route on a card)."""
+        if isinstance(device, (list, tuple)):
+            raise NotImplementedError(
+                "multi-device rendering is not ported yet (ROADMAP Queue "
+                "1, item 11)")
+        device = torch.device(device)
+        cfg = config or RTConfig()
+        table = table or ShaderTable()
+        if table.anyhit is not None:
+            raise NotImplementedError(
+                "any-hit shaders and their alpha tables are not ported yet "
+                "(ROADMAP Queue 1, item 8)")
+        return WavefrontRenderer(
+            sb=sb_host,
+            wa=WideArrays.from_scene(sb_host, width=cfg.bvh_width).to(device),
+            sa=ShadeArrays.from_scene(sb_host).to(device),
+            config=cfg,
+            table=table,
+            walk=walk,
+        )
+
+    def _table_for(self, params: RenderParams) -> ShaderTable:
+        if params.pathtrace:
+            raise NotImplementedError(
+                "pathtrace: the path-traced closest shader and "
+                "cosine_hemisphere are not ported yet (ROADMAP Queue 1, "
+                "item 4, hazard H5)")
+        return self.table
+
+    def _frame(self, cam: Camera, params: RenderParams, w: int, h: int,
+               seed: int):
+        return frame_body(
+            self.wa, self.sa, CameraArrays.from_camera(cam, self.device),
+            LightArrays.from_params(params, self.device), w, h,
+            max_depth=params.max_depth, spp=params.spp,
+            table=self._table_for(params), seed=seed, shadow=params.shadow,
+            tile_w=self.config.tile_w, tile_h=self.config.tile_h,
+            walk=self.walk)
+
+    @staticmethod
+    def _to_image(img: torch.Tensor, w: int, h: int) -> np.ndarray:
+        return img.reshape(3, h, w).permute(1, 2, 0).cpu().numpy()
+
+    def render(self, cam: Camera, params: RenderParams,
+               width: Optional[int] = None, height: Optional[int] = None
+               ) -> Tuple[np.ndarray, int]:
+        """One frame (seed 0) -> ((H, W, 3) float32 image, rays traced)."""
+        w = width or self.config.width
+        h = height or self.config.height
+        img, rays, _ = self._frame(cam, params, w, h, 0)
+        return self._to_image(img, w, h), int(rays.item())
+
+    def render_burst(self, cam: Camera, params: RenderParams,
+                     width: Optional[int] = None,
+                     height: Optional[int] = None,
+                     n_frames: int = 16, seed0: int = 0,
+                     rays_only: bool = False):
+        """Render ``n_frames`` frames (seeds seed0..seed0+n-1) and return
+        (last image, total rays), or only the total ray count with
+        ``rays_only=True``.  Waits for the device once, at the end."""
+        w = width or self.config.width
+        h = height or self.config.height
+        total = torch.zeros((), dtype=torch.int64, device=self.device)
+        img = None
+        for i in range(n_frames):
+            img, rays, _ = self._frame(cam, params, w, h, seed0 + i)
+            total = total + rays
+        n = int(total.item())
+        if rays_only:
+            return n
+        return self._to_image(img, w, h), n

@@ -1,0 +1,357 @@
+"""BVH walk over the 4-wide quantized tables: the CUDA kernel's wrapper
+and its plain PyTorch version (port of
+``vortex_rt_tpu/ops/pallas/packet_walk.py``).
+
+``trace_packets_walk`` is what the frame calls.  For CUDA tensors it
+launches ``csrc/packet_walk.cu`` (one thread per ray) or raises; for CPU
+tensors it runs ``trace_packets_walk_ref``, the plain PyTorch version of
+the same per-ray walk.  There is no fallback between the two.
+
+Semantics (shared with the JAX package's ``trace_packets_pallas``):
+``active`` masks dead rays (they report a miss), ``t_max`` clamps the
+search interval, and ``occlusion=True`` retires a ray at its first hit
+inside the clamp: occluded rays return dist 0.0, the others LARGE_FLOAT.
+The TPU kernel walked the union of a 1024-ray packet's paths; both
+versions here walk each ray's own path, which gives the same hits (the
+closest hit is a min over a ray's own candidates with a lexicographic
+(t, tid) tie-break) up to exact-t ties that pruning by a strict
+``tmin < best_t`` resolves by visit order.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from vortex_rt_tpu_torch.ops.traverse2 import Hits
+from vortex_rt_tpu_torch.ops.traverse_wide import (
+    INST_ROOT, INST_XFORM, LEAF, LEFT_BITS, LEFT_MASK, META, QHI, QLO,
+    WideArrays,
+)
+from vortex_rt_tpu_torch.runtime import kernels
+from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT, MT_EPSILON
+
+MAX_STEPS = 400_000
+_INT_MAX = 2**31 - 1
+# the child sorting network of the TPU kernel (packet_walk.py:148)
+_SORT_NET = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))
+
+
+def stack_entries(wa: WideArrays) -> int:
+    """Stack entries a walk over ``wa`` needs (<= 3 pushes per level)."""
+    return 3 * (int(wa.depth) + 2) + 8
+
+
+def _limit(n: int, device, active, t_max) -> torch.Tensor:
+    """Per-ray search limit: t_max (or LARGE_FLOAT), -1 for dead rays."""
+    limit = (torch.full((n,), LARGE_FLOAT, dtype=torch.float32, device=device)
+             if t_max is None else t_max.to(torch.float32))
+    if active is not None:
+        limit = torch.where(active, limit, torch.full_like(limit, -1.0))
+    return limit.contiguous()
+
+
+def _check(wa: WideArrays, o, d, active, t_max) -> None:
+    dev = wa.nodes.device
+    if wa.width != 4:
+        raise NotImplementedError("the walk reads 4-wide rows only "
+                                  "(ROADMAP Queue 2, K1 trace_packets)")
+    if wa.nodes.dtype != torch.int32 or wa.nodes.dim() != 2 \
+            or wa.nodes.shape[1] != 32 or not wa.nodes.is_contiguous():
+        raise ValueError("nodes must be a contiguous (N, 32) int32 tensor")
+    if wa.tri_rows.dtype != torch.float32 or wa.tri_rows.dim() != 2 \
+            or wa.tri_rows.shape[1] % 16 \
+            or wa.tri_rows.shape[1] < 16 * max(wa.max_leaf_tris, 1) \
+            or not wa.tri_rows.is_contiguous():
+        raise ValueError("tri_rows must be a contiguous (L, 16*k) float32 "
+                         "tensor with k >= max_leaf_tris")
+    if wa.tri_rows.device != dev:
+        raise ValueError("nodes and tri_rows lie on different devices")
+    for name, a in (("o", o), ("d", d)):
+        if a.dtype != torch.float32 or a.dim() != 2 or a.shape[1] != 3:
+            raise ValueError(f"{name} must be an (R, 3) float32 tensor")
+        if a.device != dev:
+            raise ValueError(f"{name} lies on {a.device}, the tables on {dev}")
+    r = o.shape[0]
+    if d.shape[0] != r:
+        raise ValueError("o and d hold different ray counts")
+    if active is not None and (active.dtype != torch.bool
+                               or active.shape != (r,)
+                               or active.device != dev):
+        raise ValueError("active must be an (R,) bool tensor on the "
+                         "tables' device")
+    if t_max is not None and (t_max.dtype != torch.float32
+                              or t_max.shape != (r,)
+                              or t_max.device != dev):
+        raise ValueError("t_max must be an (R,) float32 tensor on the "
+                         "tables' device")
+
+
+def trace_packets_walk(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
+                       active: Optional[torch.Tensor] = None,
+                       t_max: Optional[torch.Tensor] = None,
+                       occlusion: bool = False,
+                       max_steps: int = MAX_STEPS
+                       ) -> Tuple[Hits, torch.Tensor]:
+    """Closest-hit (or bounded occlusion) trace of (R, 3) rays over the
+    4-wide tables.  Returns (Hits, per-ray step counts (R,) int32).
+
+    CUDA tensors launch the hand-written kernel; CPU tensors run the
+    plain PyTorch version."""
+    _check(wa, o, d, active, t_max)
+    if o.device.type == "cpu":
+        return trace_packets_walk_ref(wa, o, d, active, t_max, occlusion,
+                                      max_steps)
+    if o.device.type != "cuda":
+        raise ValueError(f"no walk for device {o.device}")
+    lib = kernels.load("packet_walk")
+    stack_n = stack_entries(wa)
+    cap = int(lib.lib.vrt_packet_walk_stack_max())
+    if stack_n > cap:
+        raise ValueError(f"BVH depth {wa.depth} needs {stack_n} stack "
+                         f"entries; the kernel is compiled for {cap}")
+    r = o.shape[0]
+    if r >= 2**31:
+        raise ValueError("ray count exceeds the kernel's int32 index")
+    if wa.nodes.data_ptr() % 16 or wa.tri_rows.data_ptr() % 16:
+        raise ValueError("the kernel reads table rows as 16-byte vectors: "
+                         "nodes and tri_rows must be 16-byte aligned")
+    dev = o.device
+    o = o.contiguous()
+    d = d.contiguous()
+    limit = _limit(r, dev, active, t_max)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    dist, bx, by, bz = (torch.empty(r, **f32) for _ in range(4))
+    tri, inst, steps = (torch.empty(r, **i32) for _ in range(3))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lib.vrt_packet_walk(
+            wa.nodes.data_ptr(), wa.tri_rows.data_ptr(), o.data_ptr(),
+            d.data_ptr(), limit.data_ptr(), dist.data_ptr(), bx.data_ptr(),
+            by.data_ptr(), bz.data_ptr(), tri.data_ptr(), inst.data_ptr(),
+            steps.data_ptr(), r, wa.nodes.shape[0], wa.tri_rows.shape[0],
+            wa.tri_rows.shape[1], max(int(wa.max_leaf_tris), 1),
+            int(wa.num_tlas), int(wa.tri_bits), stack_n, int(max_steps),
+            int(bool(occlusion)), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"packet_walk launch failed: {lib.error_string(err)} ({err})")
+    if r > 0:
+        kernels.LAUNCHES["packet_walk"] += 1
+    return Hits(dist, bx, by, bz, tri, inst), steps
+
+
+def _rcp(d: torch.Tensor) -> torch.Tensor:
+    """1/d with |d| < 1e-20 clamped to +-1e-20 (the TPU kernel's rcp)."""
+    tiny = torch.where(d < 0, torch.full_like(d, -1e-20),
+                       torch.full_like(d, 1e-20))
+    return 1.0 / torch.where(d.abs() < 1e-20, tiny, d)
+
+
+def trace_packets_walk_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
+                           active: Optional[torch.Tensor] = None,
+                           t_max: Optional[torch.Tensor] = None,
+                           occlusion: bool = False,
+                           max_steps: int = MAX_STEPS
+                           ) -> Tuple[Hits, torch.Tensor]:
+    """Plain PyTorch version of the per-ray walk, on any device.
+
+    All rays step together: each step gathers every live ray's node row,
+    evaluates the internal / leaf / instance paths with masks, and keeps
+    per-ray stacks in an (R, S) tensor.  The same child sorting network
+    and the same arithmetic order as the kernel, so both give the same
+    hits and the same per-ray step counts to the bit."""
+    _check(wa, o, d, active, t_max)
+    dev = o.device
+    r = o.shape[0]
+    limit = _limit(r, dev, active, t_max)
+    nodes = wa.nodes
+    nodes_f = nodes.view(torch.float32)
+    rows = wa.tri_rows
+    rows_i = rows.view(torch.int32)
+    n_nodes, n_rows = nodes.shape[0], rows.shape[0]
+    lmax = max(int(wa.max_leaf_tris), 1)
+    stack_n = stack_entries(wa)
+    eps = MT_EPSILON
+
+    def f32(v):
+        return torch.full((r,), v, dtype=torch.float32, device=dev)
+
+    large = f32(LARGE_FLOAT)
+    ox, oy, oz = (o[:, k].contiguous() for k in range(3))
+    dx, dy, dz = (d[:, k].contiguous() for k in range(3))
+    ivx, ivy, ivz = _rcp(dx), _rcp(dy), _rcp(dz)
+    lox, loy, loz = ox, oy, oz
+    ldx, ldy, ldz = dx, dy, dz
+    lix, liy, liz = ivx, ivy, ivz
+    inst = torch.zeros(r, dtype=torch.int32, device=dev)
+    best_t = limit.clone()
+    bx, by = f32(0.0), f32(0.0)
+    tri = torch.full((r,), _INT_MAX, dtype=torch.int32, device=dev)
+    binst = torch.zeros(r, dtype=torch.int32, device=dev)
+    node = torch.zeros(r, dtype=torch.int64, device=dev)
+    sc = torch.zeros(r, dtype=torch.int64, device=dev)
+    steps = torch.zeros(r, dtype=torch.int32, device=dev)
+    stack = torch.zeros((r, stack_n), dtype=torch.int64, device=dev)
+    alive = limit > 0.0
+
+    while bool(alive.any()):
+        node_c = node.clamp(0, n_nodes - 1)
+        row = nodes[node_c]
+        row_f = nodes_f[node_c]
+        meta = row[:, META]
+        kind = (meta >> 29).clamp(0, 2)
+        nch = (meta >> LEFT_BITS) & 7
+        left = (meta & LEFT_MASK).to(torch.int64)
+        leaf_n = row[:, LEAF]
+        in_tlas = node_c < wa.num_tlas
+        is_int = alive & (kind == 0)
+        is_leaf = alive & (kind == 1)
+        is_inst = alive & (kind == 2)
+
+        # ---- internal: 4 slab tests, near->far sort, push far ----
+        rox = torch.where(in_tlas, ox, lox)
+        roy = torch.where(in_tlas, oy, loy)
+        roz = torch.where(in_tlas, oz, loz)
+        rix = torch.where(in_tlas, ivx, lix)
+        riy = torch.where(in_tlas, ivy, liy)
+        riz = torch.where(in_tlas, ivz, liz)
+        gx, gy, gz = row_f[:, 0], row_f[:, 1], row_f[:, 2]
+        sx, sy, sz = row_f[:, 3], row_f[:, 4], row_f[:, 5]
+        ds, ix = [], []
+        for c in range(4):
+            ql = row[:, QLO + c]
+            qh = row[:, QHI + c]
+
+            def qb(w, sh):
+                return ((w >> sh) & 255).to(torch.float32)
+
+            lx = gx + qb(ql, 0) * sx
+            ly = gy + qb(ql, 8) * sy
+            lz = gz + qb(ql, 16) * sz
+            hx = gx + qb(qh, 0) * sx
+            hy = gy + qb(qh, 8) * sy
+            hz = gz + qb(qh, 16) * sz
+            t1x = (lx - rox) * rix
+            t2x = (hx - rox) * rix
+            t1y = (ly - roy) * riy
+            t2y = (hy - roy) * riy
+            t1z = (lz - roz) * riz
+            t2z = (hz - roz) * riz
+            tmin = torch.maximum(torch.maximum(
+                torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
+                torch.minimum(t1z, t2z))
+            tmax = torch.minimum(torch.minimum(
+                torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
+                torch.maximum(t1z, t2z))
+            hit = (tmax >= tmin) & (tmax > 0.0) & (tmin < best_t) & (c < nch)
+            ds.append(torch.where(hit, tmin, large))
+            ix.append(torch.full((r,), c, dtype=torch.int64, device=dev))
+        for a, b in _SORT_NET:
+            swap = ds[a] > ds[b]
+            ds[a], ds[b] = (torch.where(swap, ds[b], ds[a]),
+                            torch.where(swap, ds[a], ds[b]))
+            ix[a], ix[b] = (torch.where(swap, ix[b], ix[a]),
+                            torch.where(swap, ix[a], ix[b]))
+        for j in (3, 2, 1):
+            do = is_int & (ds[j] < LARGE_FLOAT)
+            slot = sc.clamp(max=stack_n - 1).unsqueeze(1)
+            cur = stack.gather(1, slot).squeeze(1)
+            stack.scatter_(1, slot, torch.where(do, left + ix[j], cur)
+                           .unsqueeze(1))
+            sc = sc + do.to(torch.int64)
+        int_desc = is_int & (ds[0] < LARGE_FLOAT)
+        nxt = torch.where(int_desc, left + ix[0], node)
+
+        # ---- triangle leaf: up to lmax Moller-Trumbore tests ----
+        row_i = left.clamp(0, n_rows - 1)
+        tr = rows[row_i]
+        tr_i = rows_i[row_i]
+        t_b, bx_b, by_b, tri_b, bi_b = best_t, bx, by, tri, binst
+        for c in range(lmax):
+            b0 = 16 * c
+            v0x, v0y, v0z = tr[:, b0 + 0], tr[:, b0 + 1], tr[:, b0 + 2]
+            e1x, e1y, e1z = tr[:, b0 + 3], tr[:, b0 + 4], tr[:, b0 + 5]
+            e2x, e2y, e2z = tr[:, b0 + 6], tr[:, b0 + 7], tr[:, b0 + 8]
+            tid = tr_i[:, b0 + 9]
+            hx_ = ldy * e2z - ldz * e2y
+            hy_ = ldz * e2x - ldx * e2z
+            hz_ = ldx * e2y - ldy * e2x
+            a = e1x * hx_ + e1y * hy_ + e1z * hz_
+            small = a.abs() < eps
+            fba = 1.0 / torch.where(small, torch.ones_like(a), a)
+            sx_ = lox - v0x
+            sy_ = loy - v0y
+            sz_ = loz - v0z
+            w1 = fba * (sx_ * hx_ + sy_ * hy_ + sz_ * hz_)
+            qx = sy_ * e1z - sz_ * e1y
+            qy = sz_ * e1x - sx_ * e1z
+            qz = sx_ * e1y - sy_ * e1x
+            w2 = fba * (ldx * qx + ldy * qy + ldz * qz)
+            t = fba * (e2x * qx + e2y * qy + e2z * qz)
+            ok = (~small & (w1 >= 0.0) & (w1 <= 1.0) & (w2 >= 0.0)
+                  & (w1 + w2 <= 1.0) & (t > eps) & (c < leaf_n) & is_leaf)
+            t = torch.where(ok, t, large)
+            if occlusion:
+                t_b = torch.where(t < t_b, torch.full_like(t_b, -1.0), t_b)
+            else:
+                better = (t < t_b) | ((t == t_b) & (t < LARGE_FLOAT)
+                                      & (tid < tri_b))
+                t_b = torch.where(better, t, t_b)
+                bx_b = torch.where(better, w1, bx_b)
+                by_b = torch.where(better, w2, by_b)
+                tri_b = torch.where(better, tid, tri_b)
+                bi_b = torch.where(better, inst, bi_b)
+        best_t, bx, by, tri, binst = t_b, bx_b, by_b, tri_b, bi_b
+
+        # ---- instance: world ray -> instance space, descend to BLAS ----
+        mm = [row_f[:, INST_XFORM + k] for k in range(12)]
+        nlox = mm[0] * ox + mm[1] * oy + mm[2] * oz + mm[3]
+        nloy = mm[4] * ox + mm[5] * oy + mm[6] * oz + mm[7]
+        nloz = mm[8] * ox + mm[9] * oy + mm[10] * oz + mm[11]
+        nldx = mm[0] * dx + mm[1] * dy + mm[2] * dz
+        nldy = mm[4] * dx + mm[5] * dy + mm[6] * dz
+        nldz = mm[8] * dx + mm[9] * dy + mm[10] * dz
+        lox = torch.where(is_inst, nlox, lox)
+        loy = torch.where(is_inst, nloy, loy)
+        loz = torch.where(is_inst, nloz, loz)
+        ldx = torch.where(is_inst, nldx, ldx)
+        ldy = torch.where(is_inst, nldy, ldy)
+        ldz = torch.where(is_inst, nldz, ldz)
+        lix = torch.where(is_inst, _rcp(nldx), lix)
+        liy = torch.where(is_inst, _rcp(nldy), liy)
+        liz = torch.where(is_inst, _rcp(nldz), liz)
+        inst = torch.where(is_inst, left.to(torch.int32), inst)
+        nxt = torch.where(is_inst, row[:, INST_ROOT].to(torch.int64), nxt)
+
+        # ---- pop when we didn't descend; empty stack ends the ray ----
+        descended = int_desc | is_inst
+        can_pop = sc > 0
+        do_pop = alive & ~descended & can_pop
+        popped = stack.gather(
+            1, (sc - 1).clamp(0, stack_n - 1).unsqueeze(1)).squeeze(1)
+        nxt = torch.where(do_pop, popped, nxt)
+        sc = torch.where(do_pop, sc - 1, sc)
+        steps = steps + alive.to(torch.int32)
+        node = torch.where(alive, nxt, node)
+        alive = alive & (descended | can_pop) & (steps < max_steps)
+        if occlusion:
+            alive = alive & (best_t > 0.0)
+
+    bz = 1.0 - bx - by
+    if occlusion:
+        occluded = (limit > 0.0) & (best_t < 0.0)
+        dist = torch.where(occluded, f32(0.0), large)
+        return Hits(dist, bx, by, bz, torch.zeros_like(tri), binst), steps
+    # a real hit is strictly inside the clamp; unhit rays still carry
+    # their initial t_max and report a miss
+    miss = (best_t < 0.0) | (best_t >= limit)
+    tri = torch.where(miss, torch.zeros_like(tri), tri)
+    if wa.num_tlas == 0 and wa.tri_bits > 0:
+        # flattened build: leaf tids are packed (inst << tri_bits) | tri
+        binst = tri >> wa.tri_bits
+        tri = tri & ((1 << wa.tri_bits) - 1)
+    dist = torch.where(miss, large, best_t)
+    return Hits(dist, bx, by, bz, tri, binst), steps

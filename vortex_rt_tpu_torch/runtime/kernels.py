@@ -1,0 +1,132 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``)
+into a shared library with a plain C interface and loaded with ctypes.
+The build happens at first use, into ``build/torch_kernels/`` at the root
+of the checkout, under a file name keyed by a hash of the source and the
+flags — so an edited source is rebuilt and an unchanged one is reused.
+
+Nothing here runs at import: the CPU-only test machine imports every
+module and has no ``nvcc``.
+
+``LAUNCHES`` counts kernel launches by kernel name.  Each wrapper adds
+one where it launches its kernel and nowhere else, so a caller can reset
+the counts, drive the main path and see which kernels it went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+_PKG_DIR = Path(__file__).resolve().parents[1]
+SRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
+
+# -fmad=false: no a*b+c contraction, so kernels agree with their plain
+# PyTorch versions (and the JAX package) to the bit; no --use_fast_math
+NVCC_FLAGS: Tuple[str, ...] = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-ftz=false", "-prec-div=true", "-prec-sqrt=true",
+    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signature of each kernel library: {function: (argtypes, restype)}
+_SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
+    "packet_walk": {
+        "vrt_packet_walk": ([_P] * 12 + [_I] * 10 + [_P], _I),
+        "vrt_packet_walk_stack_max": ([], _I),
+        "vrt_error_string": ([_I], ctypes.c_char_p),
+    },
+}
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in _SIGNATURES}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@dataclasses.dataclass
+class KernelLibrary:
+    """A built and loaded kernel library."""
+
+    name: str
+    path: Path
+    lib: ctypes.CDLL
+    build_seconds: float  # 0.0 when an up-to-date build was reused
+    build_log: str        # nvcc's output (ptxas register/spill report)
+
+    def error_string(self, err: int) -> str:
+        return self.lib.vrt_error_string(int(err)).decode()
+
+
+_loaded: Dict[str, KernelLibrary] = {}
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "port's CUDA kernels are built from source at first use")
+
+
+def _digest(src: bytes) -> str:
+    h = hashlib.sha256(src)
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def load(name: str) -> KernelLibrary:
+    """Build ``csrc/<name>.cu`` if its build is missing or stale, load
+    it, and declare its C signatures.  Raises on any failure."""
+    with _lock:
+        if name in _loaded:
+            return _loaded[name]
+        if name not in _SIGNATURES:
+            raise KeyError(f"unknown kernel library {name!r}")
+        src_path = SRC_DIR / f"{name}.cu"
+        src = src_path.read_bytes()
+        so = BUILD_DIR / f"{name}-{_digest(src)}.so"
+        seconds, log = 0.0, ""
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src_path)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=900)
+            seconds = time.perf_counter() - t0
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"nvcc failed building {src_path} "
+                    f"(rc {proc.returncode}):\n{log}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        for fn, (argtypes, restype) in _SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = restype
+        kl = KernelLibrary(name=name, path=so, lib=lib,
+                           build_seconds=seconds, build_log=log)
+        _loaded[name] = kl
+        return kl

@@ -1,0 +1,49 @@
+"""Framework configuration (port of ``vortex_rt_tpu/utils/config.py``).
+
+Only the knobs this port reads are carried.  The JAX package's TPU
+tuning knobs (``slab``, ``lanes``, ``packet_size``, ``bounce_packet``,
+``bounce_fronts``, ``bounce_sort_seg``, ``shadow_packet``,
+``fused_rows``, ``pallas_waves``) shape how XLA batches a lockstep loop
+and change no hit; the port walks one ray per GPU thread and has no use
+for them (README, "The PyTorch/CUDA port").
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+# Sentinel "no hit" distance (the reference's LARGE_FLOAT).
+LARGE_FLOAT = 1e30
+
+# Moller-Trumbore epsilon, matching the reference exactly.
+MT_EPSILON = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class RTConfig:
+    """Static knobs of the port's tracer."""
+
+    # ---- acceleration structure ----
+    bvh_width: int = 4          # children per wide-BVH node (4 only so far)
+    max_leaf_tris: int = 4      # leaf size target for the binary BVH
+    sah_bins: int = 8           # bins of the binned-SAH build
+    flatten: bool = False       # ONE world-space BVH over all instances
+
+    # ---- render parameters ----
+    width: int = 256
+    height: int = 256
+    tile_w: int = 16            # pixel tile of the tile-major lane order
+    tile_h: int = 16
+
+    def __post_init__(self):
+        if self.bvh_width != 4:
+            raise NotImplementedError(
+                f"bvh_width={self.bvh_width}: the port walks 4-wide nodes "
+                "only; 8-wide fused rows wait for kernel K1 (ROADMAP "
+                "Queue 2, K1 trace_packets)")
+        if self.max_leaf_tris < 1:
+            raise ValueError("max_leaf_tris must be >= 1")
+
+    def replace(self, **kw: Any) -> "RTConfig":
+        return dataclasses.replace(self, **kw)
