@@ -3,26 +3,46 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version on the card, renders the wavefront main
-path through the kernel, and measures it.  Phases (each raises, and so
-exits non-zero, on failure):
+Builds the port's three CUDA kernels from the sources in this checkout
+(one nvcc per source, all started together), holds each against its
+plain PyTorch version on the card, drives the port's entry points
+through them, and measures them.  Phases (each raises, and so exits
+non-zero, on failure):
 
 1. device: a CUDA device is required; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: builds ``csrc/packet_walk.cu`` and prints the build time;
-3. kernel against plain version: config-2 camera rays at 64x64 on the
+2. build: ``csrc/packet_walk.cu`` (K2), ``csrc/traverse_packet.cu`` (K1)
+   and ``csrc/hbm_walk.cu`` (K7), with their build times;
+3. K2 against its plain version: config-2 camera rays at 64x64 on the
    flat 4-wide build and on a TLAS build (two instances), in four modes
    (closest, 1/3 inactive, half t_max-clamped, shadow-ray occlusion);
-4. one config-2 frame at 64x64 through the kernel and through the plain
-   version: equal ray counts, images within 1e-5, every wave launched;
-5. config 2 at 512x512, spp 2, depth 2, shadow rays: the main path's run
-   (launch counts reset before it), checked against the plain version,
-   then 3 x 16-frame bursts timed after a warm-up (Mrays/s as bench.py
-   defines it) and one primary wave timed through kernel and plain;
-6. the scale scene, ``blob(n=187)`` at 1920x1080, spp 2, depth 2, shadow
-   rays: one frame timed after a warm-up, table bytes, peak memory;
-7. prints the kernels' JSON line and, last, the device JSON line.
+4. one config-2 frame at 64x64 through K2 and through the plain version
+   (4-wide route): equal ray counts, images within 1e-5;
+5. K1 against its plain version: config-2 camera rays at 64x64 on the
+   8-wide fused build, in five modes (the four above and a mixed
+   ``occl_split`` wave of shadow and camera rays);
+6. a 64x64 spp-2 frame at depth 3 (reflective sphere) through K1 and
+   through the plain version: equal ray counts, images within 1e-5, K1
+   launched 5 times per sample pass, one of them the mixed wave;
+7. config 2 as ``bench.py`` renders it (8-wide fused, 512x512, spp 2,
+   depth 2, shadow rays): the main path's run (launch counts reset
+   before it), checked against the plain version; 3 x 16-frame bursts
+   timed after a warm-up (Mrays/s as bench.py defines it); one primary
+   wave timed through K1 and plain.  Then one frame at depth 3 with a
+   reflective sphere (merged wave with live bounce lanes) against the
+   plain route;
+8. config 2 at 512x512 through the 4-wide route (K2's path, launch counts
+   reset before it), against the plain route; one primary wave timed
+   through K2 and plain;
+9. the scale scene, ``blob(n=187)`` at 1920x1080, spp 2, depth 2, shadow
+   rays, 8-wide: one frame timed after a warm-up, table bytes, peak
+   memory;
+10. K7: ``run_walks`` against ``run_walks_ref`` at 29,140 rows (sums
+    equal) for 16-, 96- and 512-byte row fetches, then the probe's entry
+    point (launch counts reset before it) at 29,140 rows (14.2 MiB,
+    L2-resident) and 1,048,576 rows (512 MiB, beyond L2): ns/step and
+    ns/step/walk for k in {1, 4, 8, 16, 32} at each fetch width;
+11. prints the kernels' JSON line and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -35,12 +55,22 @@ import subprocess
 import sys
 import time
 
-KERNEL_SOURCE = "vortex_rt_tpu_torch/csrc/packet_walk.cu"
-REPLACES = "vortex_rt_tpu/ops/pallas/packet_walk.py:66"
+SOURCES = {
+    "packet_walk": ("vortex_rt_tpu_torch/csrc/packet_walk.cu",
+                    "vortex_rt_tpu/ops/pallas/packet_walk.py:66"),
+    "traverse_packet": ("vortex_rt_tpu_torch/csrc/traverse_packet.cu",
+                        "vortex_rt_tpu/ops/traverse_packet.py:202"),
+    "hbm_walk": ("vortex_rt_tpu_torch/csrc/hbm_walk.cu",
+                 "tools/exp_pallas_hbm.py:57"),
+}
 EYE2 = ([0.05, 0.02, -3.2], [0.0, -0.05, 0.0], [0, 1, 0], 45.0, 1.0)
 LIGHT2 = (0.0, 0.8, -0.5)
 REL_TOL = 1e-6
 IMG_ATOL = 1e-5
+K7_ROWS = (29140, 1048576)
+K7_STEPS = 2000
+K7_KS = "1,4,8,16,32"
+K7_WORDS = "4,24,128"  # 16 B, 96 B (K1's internal step), 512 B (TPU row)
 
 
 def _check(ok, msg: str) -> None:
@@ -65,19 +95,27 @@ def _elapsed_ms(fn, reps: int, device) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def _kind(kw) -> str:
+    if kw.get("occl_split", 0):
+        return "mixed"
+    return "occlusion" if kw.get("occlusion", False) else "closest"
+
+
 # ---------------------------------------------------------------- scenes
 
-def config2_scene(flatten: bool = True):
+def config2_scene(width: int = 0, sphere_refl: float = 0.0):
     """BASELINE config 2: Cornell box + sphere (bench.py's bench_scene
-    without the reference teapot asset)."""
+    without the reference teapot asset), flattened; width 0 is the
+    default (8-wide, as bench.py builds it)."""
     from vortex_rt_tpu_torch import RTConfig, Scene
     from vortex_rt_tpu_torch.models.procedural import cornell_box, uv_sphere
 
     sc = Scene()
     for mesh, refl in cornell_box():
         sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
-    sc.add_instance(sc.add_mesh(uv_sphere((0, -0.3, 0), 0.35, 24, 48)))
-    cfg = RTConfig(flatten=flatten)
+    sc.add_instance(sc.add_mesh(uv_sphere((0, -0.3, 0), 0.35, 24, 48)),
+                    reflectivity=sphere_refl)
+    cfg = RTConfig(flatten=True, bvh_width=width)
     return sc.build(cfg), cfg
 
 
@@ -104,6 +142,13 @@ def scale_scene():
     return sc.build(cfg), cfg
 
 
+def config2_camera():
+    """bench.py's camera."""
+    from vortex_rt_tpu_torch import Camera
+
+    return Camera.look_at(*EYE2)
+
+
 def camera_rays(cam, w: int, h: int, device):
     """Pixel-center camera rays of the frame's tile-major lane order."""
     import torch
@@ -122,8 +167,7 @@ def camera_rays(cam, w: int, h: int, device):
 
 # ---------------------------------------------------------------- phases
 
-def compare_hits(label: str, got, want, steps_got, steps_want,
-                 occlusion: bool) -> float:
+def compare_hits(label: str, got, want, steps_got, steps_want) -> float:
     """Kernel hits against plain-version hits; returns the max abs error
     over dist (hit lanes), bx and by."""
     import torch
@@ -143,120 +187,195 @@ def compare_hits(label: str, got, want, steps_got, steps_want,
         if a.numel():
             err = max(err, float((a - b).abs().max()))
     same_steps = torch.equal(steps_got, steps_want)
-    n_hit = int(hit.sum())
-    print(f"  {label}: rays {hit.numel()} {'occluded' if occlusion else 'hit'}"
-          f" {n_hit} max_abs_err {err:.3g} same_steps {same_steps}")
+    print(f"  {label}: rays {hit.numel()} hit/occluded {int(hit.sum())} "
+          f"max_abs_err {err:.3g} same_steps {same_steps}")
     return err
 
 
-def phase_kernel_vs_plain(device, size: int = 64) -> float:
+def walk_cases(wa, device, size: int, mixed: bool):
+    """(mode, o, d, kwargs) of the walk comparisons: camera rays in the
+    closest, 1/3 inactive and half t_max-clamped modes, shadow rays from
+    their hit points in occlusion mode, and (``mixed``) one wave of the
+    shadow rays (occlusion) followed by the camera rays (closest)."""
     import torch
 
-    from vortex_rt_tpu_torch import Camera
-    from vortex_rt_tpu_torch.ops.packet_walk import (
-        trace_packets_walk, trace_packets_walk_ref,
-    )
-    from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays
+    from vortex_rt_tpu_torch.engine.wavefront import default_walk
     from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT
 
-    cam = Camera.look_at(*EYE2)
+    walk = default_walk(wa)
+    cam = config2_camera()
     light = torch.tensor(LIGHT2, dtype=torch.float32, device=device)
+    o, d = camera_rays(cam, size, size, device)
+    n = o.shape[0]
+    base, _ = walk(wa, o, d)
+    hit = base.dist < LARGE_FLOAT
+    _check(bool(hit.any()), "no camera ray hit the scene")
+    lane = torch.arange(n, device=device)
+    t_max = torch.where(hit & (lane % 2 == 0), base.dist * 0.5,
+                        torch.full_like(base.dist, LARGE_FLOAT))
+    hp = o + d * base.dist.clamp_max(1e18).unsqueeze(1)
+    sl = light - hp
+    dist_l = torch.sqrt((sl * sl).sum(1) + 1e-20)
+    sd = sl / dist_l.unsqueeze(1)
+    so, clamp = hp + sd * 1e-3, dist_l * (1.0 - 1e-3)
+    cases = [
+        ("closest", o, d, dict()),
+        ("active", o, d, dict(active=lane % 3 != 0)),
+        ("t_max", o, d, dict(t_max=t_max)),
+        ("shadow", so, sd, dict(active=hit, t_max=clamp, occlusion=True)),
+    ]
+    if mixed:
+        cases.append(("mixed", torch.cat([so, o]), torch.cat([sd, d]), dict(
+            active=torch.cat([hit, lane % 3 != 0]),
+            t_max=torch.cat([clamp, torch.full_like(clamp, LARGE_FLOAT)]),
+            occl_split=n)))
+    return cases
+
+
+def phase_walk_vs_plain(device, scenes, walk, ref, size: int = 64,
+                        mixed: bool = False) -> float:
+    from vortex_rt_tpu_torch import WavefrontRenderer
+
     err = 0.0
-    for label, (sb, cfg) in (("flat", config2_scene()),
-                             ("tlas", tlas_scene())):
-        wa = WideArrays.from_scene(sb, cfg.bvh_width).to(device)
-        o, d = camera_rays(cam, size, size, device)
-        n = o.shape[0]
-        base, base_steps = trace_packets_walk_ref(wa, o, d)
-        hit = base.dist < LARGE_FLOAT
-        _check(bool(hit.any()), f"{label}: no camera ray hit the scene")
-        lane = torch.arange(n, device=device)
-        t_max = torch.where(hit & (lane % 2 == 0), base.dist * 0.5,
-                            torch.full_like(base.dist, LARGE_FLOAT))
-        hp = o + d * base.dist.clamp_max(1e18).unsqueeze(1)
-        sl = light - hp
-        dist_l = torch.sqrt((sl * sl).sum(1) + 1e-20)
-        sd = sl / dist_l.unsqueeze(1)
-        cases = (
-            ("closest", o, d, dict()),
-            ("active", o, d, dict(active=lane % 3 != 0)),
-            ("t_max", o, d, dict(t_max=t_max)),
-            ("shadow", hp + sd * 1e-3, sd,
-             dict(active=hit, t_max=dist_l * (1.0 - 1e-3), occlusion=True)),
-        )
-        for mode, co, cd, kw in cases:
-            k, ks = trace_packets_walk(wa, co, cd, **kw)
+    for label, (sb, cfg) in scenes:
+        wa = WavefrontRenderer.from_buffers(sb, cfg, device=device).wa
+        for mode, co, cd, kw in walk_cases(wa, device, size, mixed):
+            k, ks = walk(wa, co, cd, **kw)
             _sync(device)
-            p, ps = trace_packets_walk_ref(wa, co, cd, **kw)
+            p, ps = ref(wa, co, cd, **kw)
             _sync(device)
-            err = max(err, compare_hits(f"{label}/{mode}", k, p, ks, ps,
-                                        kw.get("occlusion", False)))
+            err = max(err, compare_hits(f"{label}/{mode}", k, p, ks, ps))
     return err
 
 
-def phase_small_frame(device, size: int = 64) -> None:
+def renderer_pair(device, scene, ref):
+    """(kernel-route renderer, plain-route renderer) of a build."""
+    from vortex_rt_tpu_torch import WavefrontRenderer
+
+    sb, cfg = scene
+    rk = WavefrontRenderer.from_buffers(sb, cfg, device=device)
+    return rk, dataclasses.replace(rk, walk=ref)
+
+
+def frame_vs_plain(label, rk, rp, params, size, device):
+    """Render one frame through both routes; returns (image, rays)."""
     import numpy as np
 
-    from vortex_rt_tpu_torch import Camera, RenderParams, WavefrontRenderer
+    img_k, rays_k = rk.render(config2_camera(), params, size, size)
+    _sync(device)
+    img_p, rays_p = rp.render(config2_camera(), params, size, size)
+    _sync(device)
+    _check(rays_k == rays_p, f"{label}: ray counts differ: {rays_k} vs "
+           f"{rays_p}")
+    _check(img_k.shape == (size, size, 3) and np.isfinite(img_k).all(),
+           f"{label}: kernel-route image is not a finite (H, W, 3) image")
+    diff = float(np.abs(img_k - img_p).max())
+    _check(diff <= IMG_ATOL, f"{label}: images differ by {diff} > {IMG_ATOL}")
+    print(f"  {label}: rays {rays_k} image max diff vs plain {diff:.3g}")
+    return img_k, rays_k
+
+
+def phase_small_frame_k2(device, size: int = 64) -> None:
+    from vortex_rt_tpu_torch import RenderParams
     from vortex_rt_tpu_torch.ops.packet_walk import trace_packets_walk_ref
     from vortex_rt_tpu_torch.runtime import kernels
 
-    sb, cfg = config2_scene()
-    rk = WavefrontRenderer.from_buffers(sb, cfg, device=device)
-    rp = dataclasses.replace(rk, walk=trace_packets_walk_ref)
-    cam = Camera.look_at(*EYE2)
+    rk, rp = renderer_pair(device, config2_scene(width=4),
+                           trace_packets_walk_ref)
     p = RenderParams(light_pos=LIGHT2, max_depth=2, shadow=True, spp=2)
     before = kernels.LAUNCHES["packet_walk"]
-    img_k, rays_k = rk.render(cam, p, size, size)
-    _sync(device)
+    frame_vs_plain(f"4-wide {size}x{size} spp2 d2", rk, rp, p, size, device)
     launched = kernels.LAUNCHES["packet_walk"] - before
-    img_p, rays_p = rp.render(cam, p, size, size)
-    _sync(device)
-    _check(rays_k == rays_p, f"ray counts differ: {rays_k} vs {rays_p}")
-    _check(img_k.shape == (size, size, 3) and np.isfinite(img_k).all(),
-           "kernel-route image is not a finite (H, W, 3) image")
-    diff = float(np.abs(img_k - img_p).max())
-    _check(diff <= IMG_ATOL, f"images differ by {diff} > {IMG_ATOL}")
     if device.type == "cuda":
         # primary, shadow-0, bounce-1, shadow-1 per sample pass
-        _check(launched >= 4, f"only {launched} kernel launches per frame")
-    print(f"  {size}x{size} spp2: rays {rays_k} image max diff {diff:.3g} "
-          f"kernel launches {launched}")
+        _check(launched == 4 * p.spp, f"{launched} K2 launches per frame")
+    print(f"  K2 launches per frame {launched}")
+
+
+def phase_small_frame_k1(device, size: int = 64) -> None:
+    from vortex_rt_tpu_torch import RenderParams
+    from vortex_rt_tpu_torch.ops.traverse_packet import (
+        trace_packets, trace_packets_ref,
+    )
+    from vortex_rt_tpu_torch.runtime import kernels
+
+    rk, rp = renderer_pair(device, config2_scene(sphere_refl=0.5),
+                           trace_packets_ref)
+    waves = []
+
+    def walk(*a, **kw):
+        waves.append(_kind(kw))
+        return trace_packets(*a, **kw)
+
+    rk = dataclasses.replace(rk, walk=walk)
+    p = RenderParams(light_pos=LIGHT2, max_depth=3, shadow=True, spp=2)
+    before = kernels.LAUNCHES["traverse_packet"]
+    frame_vs_plain(f"8-wide {size}x{size} spp2 d3", rk, rp, p, size, device)
+    launched = kernels.LAUNCHES["traverse_packet"] - before
+    _check(waves == ["closest", "occlusion", "closest", "mixed",
+                     "occlusion"] * p.spp, f"unexpected waves {waves}")
+    if device.type == "cuda":
+        _check(launched == 5 * p.spp, f"{launched} K1 launches per frame")
+    print(f"  K1 launches per frame {launched}, waves per pass "
+          f"{waves[:5]}")
+
+
+def primary_wave(device, wa, walk, ref, size, reps) -> dict:
+    o, d = camera_rays(config2_camera(), size, size, device)
+    k, ks = walk(wa, o, d)
+    pp, ps = ref(wa, o, d)
+    err = compare_hits(f"primary {size}x{size}", k, pp, ks, ps)
+    ms = _elapsed_ms(lambda: walk(wa, o, d), reps, device)
+    plain_ms = _elapsed_ms(lambda: ref(wa, o, d), 3, device)
+    print(f"  primary wave {size}x{size}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, mean steps per ray "
+          f"{float(ks.float().mean()):.2f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def main_path_run(label, rk, rp, params, size, device, name) -> int:
+    """The path's run with launch counts reset just before and read just
+    after; checked against the plain route.  Returns the launches."""
+    import numpy as np
+
+    from vortex_rt_tpu_torch.runtime import kernels
+
+    kernels.reset_launches()
+    img, rays = rk.render(config2_camera(), params, size, size)
+    _sync(device)
+    launches = dict(kernels.LAUNCHES)
+    if device.type == "cuda":
+        _check(launches[name] > 0, f"{label}: the path launched no {name}")
+    _check(img.shape == (size, size, 3) and np.isfinite(img).all(),
+           f"{label}: image is not a finite (H, W, 3) image")
+    _check(rays >= size * size * params.spp,
+           f"{label}: ray count {rays} below primaries")
+    img_p, rays_p = rp.render(config2_camera(), params, size, size)
+    _check(rays_p == rays, f"{label}: ray count {rays} vs plain {rays_p}")
+    diff = float(np.abs(img - img_p).max())
+    _check(diff <= IMG_ATOL, f"{label}: images differ by {diff}")
+    print(f"  {label}: rays {rays} launches {launches} image max diff vs "
+          f"plain {diff:.3g}")
+    return launches[name]
 
 
 def phase_config2(device, size: int = 512, burst: int = 16, reps: int = 3,
                   wave_reps: int = 20) -> dict:
-    import numpy as np
-
-    from vortex_rt_tpu_torch import Camera, RenderParams, WavefrontRenderer
-    from vortex_rt_tpu_torch.ops.packet_walk import (
-        trace_packets_walk, trace_packets_walk_ref,
+    from vortex_rt_tpu_torch import RenderParams
+    from vortex_rt_tpu_torch.ops.traverse_packet import (
+        trace_packets, trace_packets_ref,
     )
-    from vortex_rt_tpu_torch.runtime import kernels
 
-    sb, cfg = config2_scene()
-    rk = WavefrontRenderer.from_buffers(sb, cfg, device=device)
-    rp = dataclasses.replace(rk, walk=trace_packets_walk_ref)
-    cam = Camera.look_at(*EYE2)
+    rk, rp = renderer_pair(device, config2_scene(), trace_packets_ref)
+    _check(rk.wa.width == 8 and rk.wa.fused is not None
+           and rk.walk is trace_packets,
+           "config 2 is not on bench.py's 8-wide fused route")
     p = RenderParams(light_pos=LIGHT2, max_depth=2, shadow=True, spp=2)
-
-    # ---- the main path's run: counts reset just before, read just after
-    kernels.reset_launches()
-    img, rays = rk.render(cam, p, size, size)
-    _sync(device)
-    launches = dict(kernels.LAUNCHES)
-    _check(launches["packet_walk"] > 0, "the main path launched no kernel")
-    _check(img.shape == (size, size, 3) and np.isfinite(img).all(),
-           "config-2 image is not a finite (H, W, 3) image")
-    _check(rays >= size * size * p.spp, f"ray count {rays} below primaries")
-    img_p, rays_p = rp.render(cam, p, size, size)
-    _check(rays_p == rays, f"ray count {rays} vs plain route {rays_p}")
-    diff = float(np.abs(img - img_p).max())
-    _check(diff <= IMG_ATOL, f"config-2 images differ by {diff}")
-    print(f"  main path: rays {rays} launches {launches} "
-          f"image max diff vs plain {diff:.3g}")
+    launches = main_path_run(f"config 2 {size}x{size} spp2 d2", rk, rp, p,
+                             size, device, "traverse_packet")
 
     # ---- sustained throughput: 3 x 16-frame bursts after a warm-up
+    cam = config2_camera()
     rk.render_burst(cam, p, size, size, n_frames=burst, seed0=0,
                     rays_only=True)
     _sync(device)
@@ -270,20 +389,37 @@ def phase_config2(device, size: int = 512, burst: int = 16, reps: int = 3,
     print(f"  config 2 {size}x{size} spp2 d2 shadow: {total} rays in "
           f"{dt:.4f} s = {mrays:.3f} Mrays/s ({dt * 1e3 / (reps * burst):.3f}"
           f" ms/frame)")
+    wave = primary_wave(device, rk.wa, trace_packets, trace_packets_ref,
+                        size, wave_reps)
 
-    # ---- one primary wave through the kernel and the plain version
-    o, d = camera_rays(cam, size, size, device)
-    k, ks = trace_packets_walk(rk.wa, o, d)
-    pp, ps = trace_packets_walk_ref(rk.wa, o, d)
-    err = compare_hits(f"primary {size}x{size}", k, pp, ks, ps, False)
-    ms = _elapsed_ms(lambda: trace_packets_walk(rk.wa, o, d), wave_reps,
-                     device)
-    plain_ms = _elapsed_ms(lambda: trace_packets_walk_ref(rk.wa, o, d), 3,
-                           device)
-    print(f"  primary wave {size}x{size}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
-    return dict(launches=launches["packet_walk"], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, mrays=mrays)
+    # ---- depth 3, reflective sphere: the merged wave with live lanes
+    rk3, rp3 = renderer_pair(device, config2_scene(sphere_refl=0.5),
+                             trace_packets_ref)
+    p3 = dataclasses.replace(p, max_depth=3)
+    _, rays3 = frame_vs_plain(f"config 2 reflective {size}x{size} spp2 d3",
+                              rk3, rp3, p3, size, device)
+    ms3 = _elapsed_ms(lambda: rk3.render(cam, p3, size, size), 3, device)
+    print(f"  depth-3 frame {ms3:.3f} ms ({rays3} rays)")
+    return dict(launches=launches, mrays=mrays, **wave)
+
+
+def phase_config2_k2(device, size: int = 512, wave_reps: int = 20) -> dict:
+    from vortex_rt_tpu_torch import RenderParams
+    from vortex_rt_tpu_torch.ops.packet_walk import (
+        trace_packets_walk, trace_packets_walk_ref,
+    )
+
+    rk, rp = renderer_pair(device, config2_scene(width=4),
+                           trace_packets_walk_ref)
+    _check(rk.walk is trace_packets_walk, "4-wide build is not on K2")
+    p = RenderParams(light_pos=LIGHT2, max_depth=2, shadow=True, spp=2)
+    launches = main_path_run(f"config 2 4-wide {size}x{size} spp2 d2", rk,
+                             rp, p, size, device, "packet_walk")
+    ms = _elapsed_ms(lambda: rk.render(config2_camera(), p, size, size), 3, device)
+    print(f"  4-wide frame {ms:.3f} ms")
+    wave = primary_wave(device, rk.wa, trace_packets_walk,
+                        trace_packets_walk_ref, size, wave_reps)
+    return dict(launches=launches, **wave)
 
 
 def phase_scale(device, w: int = 1920, h: int = 1080) -> dict:
@@ -310,14 +446,53 @@ def phase_scale(device, w: int = 1920, h: int = 1080) -> dict:
     _check(rays >= w * h * p.spp, f"ray count {rays} below primaries")
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
-    table_bytes = r.wa.nbytes + r.sa.nbytes
-    out = dict(tris=sb.num_tris, nodes=int(r.wa.nodes.shape[0]),
-               leaf_rows=int(r.wa.tri_rows.shape[0]), depth=r.wa.depth,
-               table_bytes=table_bytes, rays=rays, frame_ms=dt * 1e3,
-               mrays=rays / dt / 1e6, peak_bytes=int(peak),
-               host_build_s=build_s)
+    out = dict(tris=sb.num_tris, width=r.wa.width,
+               nodes=int(r.wa.nodes.shape[0]), depth=r.wa.depth,
+               fused_bytes=r.wa.fused.numel() * 4,
+               table_bytes=r.wa.nbytes + r.sa.nbytes, rays=rays,
+               frame_ms=dt * 1e3, mrays=rays / dt / 1e6,
+               peak_bytes=int(peak), host_build_s=build_s)
     print(f"  scale scene {w}x{h} spp2 d2 shadow: {json.dumps(out)}")
     return out
+
+
+def phase_k7(device, check_rows: int = K7_ROWS[0], check_steps: int = 500
+             ) -> dict:
+    import torch
+
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import exp_hbm_walk as hw
+
+    tab = hw.make_table(check_rows, device)
+    err = 0
+    for words in (int(x) for x in K7_WORDS.split(",")):
+        for k in (int(x) for x in K7_KS.split(",")):
+            got = hw.run_walks(tab, check_steps, k, words)
+            want = hw.run_walks_ref(tab, check_steps, k, words)
+            err = max(err, abs(int(got[0]) - int(want[0])))
+            _check(torch.equal(got, want), f"K7 k={k} words={words}: sum "
+                   f"{int(got[0])} vs plain {int(want[0])}")
+    print(f"  run_walks == run_walks_ref at {check_rows} rows, "
+          f"{check_steps} steps, k in {K7_KS}, words in {K7_WORDS}")
+    ms = _elapsed_ms(lambda: hw.run_walks(tab, K7_STEPS, 1), 5, device)
+    plain_ms = _elapsed_ms(lambda: hw.run_walks_ref(tab, K7_STEPS, 1), 2,
+                           device)
+    print(f"  {K7_STEPS} steps k=1, 512-B rows: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms")
+    del tab
+
+    # ---- the probe's entry point: counts reset just before, read after
+    kernels.reset_launches()
+    curves = {}
+    for rows in K7_ROWS:
+        curves[rows] = hw.main(["--rows", str(rows), "--steps",
+                                str(K7_STEPS), "--ks", K7_KS, "--words",
+                                K7_WORDS])
+    _sync(device)
+    launches = kernels.LAUNCHES["hbm_walk"]
+    _check(launches > 0, "the probe launched no hbm_walk")
+    return dict(launches=launches, max_abs_err=float(err), ms=ms,
+                plain_ms=plain_ms, curves=curves)
 
 
 def main() -> int:
@@ -336,34 +511,59 @@ def main() -> int:
           "torch", torch.__version__, "cuda", torch.version.cuda)
     print(smi.stdout.strip())
 
+    from vortex_rt_tpu_torch.ops.packet_walk import (
+        trace_packets_walk, trace_packets_walk_ref,
+    )
+    from vortex_rt_tpu_torch.ops.traverse_packet import (
+        trace_packets, trace_packets_ref,
+    )
     from vortex_rt_tpu_torch.runtime import kernels
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    lib = kernels.load("packet_walk")
-    print(f"phase 2 build: {lib.path.name} in {time.perf_counter() - t0:.2f}"
-          f" s (nvcc {lib.build_seconds:.2f} s)")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line or "stack frame" in line:
-            print("  " + line.strip())
+    libs = kernels.load_all(list(SOURCES))
+    print(f"phase 2 build: {len(libs)} kernels in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, lib in libs.items():
+        print(f"  {lib.path.name}: nvcc {lib.build_seconds:.2f} s")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("    " + line.strip())
 
-    print("phase 3 kernel vs plain version (64x64 rays)")
-    err3 = phase_kernel_vs_plain(device)
-    print("phase 4 frame, kernel vs plain (64x64)")
-    phase_small_frame(device)
-    print("phase 5 config 2 (512x512)")
+    print("phase 3 K2 vs plain version (64x64 rays)")
+    err3 = phase_walk_vs_plain(device, (("flat4", config2_scene(width=4)),
+                                        ("tlas", tlas_scene())),
+                               trace_packets_walk, trace_packets_walk_ref)
+    print("phase 4 4-wide frame, K2 vs plain (64x64)")
+    phase_small_frame_k2(device)
+    print("phase 5 K1 vs plain version (64x64 rays, 8-wide fused)")
+    err5 = phase_walk_vs_plain(device, (("flat8", config2_scene()),),
+                               trace_packets, trace_packets_ref, mixed=True)
+    print("phase 6 8-wide frame at depth 3, K1 vs plain (64x64)")
+    phase_small_frame_k1(device)
+    print("phase 7 config 2 as bench.py renders it (512x512, 8-wide fused)")
     c2 = phase_config2(device)
-    print("phase 6 scale scene (blob n=187, 1920x1080)")
+    print("phase 8 config 2 through the 4-wide route (512x512)")
+    c2k2 = phase_config2_k2(device)
+    print("phase 9 scale scene (blob n=187, 1920x1080, 8-wide fused)")
     sc = phase_scale(device)
+    print("phase 10 K7 chained row-fetch probe")
+    k7 = phase_k7(device)
     print(f"  summary: config2 {c2['mrays']:.3f} Mrays/s, scale "
           f"{sc['mrays']:.3f} Mrays/s, peak {sc['peak_bytes']} B")
 
-    # 7. results
-    print(json.dumps({"kernels": [{
-        "name": "packet_walk", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": c2["launches"],
-        "max_abs_err": max(err3, c2["max_abs_err"]),
-        "ms": c2["ms"], "plain_ms": c2["plain_ms"]}]}))
+    # 11. results
+    rows = []
+    for name, res, err in (
+            ("packet_walk", c2k2, max(err3, c2k2["max_abs_err"])),
+            ("traverse_packet", c2, max(err5, c2["max_abs_err"])),
+            ("hbm_walk", k7, k7["max_abs_err"])):
+        src, replaces = SOURCES[name]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": res["launches"],
+                     "max_abs_err": err,
+                     "ms": res["ms"], "plain_ms": res["plain_ms"]})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

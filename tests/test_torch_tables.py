@@ -1,10 +1,11 @@
 """The port's host build and tables against the JAX package's.
 
-``Scene.build`` -> ``WideArrays`` (flat and TLAS, width 4) and
-``ShadeArrays`` must be bit-identical to the JAX package's NumPy build
-(``use_native_build=False``); the bridge must carry the JAX tables across
-bit for bit; options the port has not ported must raise; and the port
-must import and render with JAX blocked."""
+``Scene.build`` -> ``WideArrays`` (flat and TLAS at width 4, flat at
+width 8 with its fused rows) and ``ShadeArrays`` must be bit-identical
+to the JAX package's NumPy build (``use_native_build=False``); the bridge
+must carry the JAX tables across bit for bit; the width default must
+resolve as the JAX package's; options the port has not ported must
+raise; and the port must import and render with JAX blocked."""
 
 import dataclasses
 import os
@@ -138,15 +139,69 @@ def test_bridge_refuses_unported_tables():
     common = dict(num_tlas=jwa.num_tlas, max_leaf_tris=jwa.max_leaf_tris,
                   depth=jwa.depth, tri_bits=jwa.tri_bits, device="cpu")
     nodes, rows = np.asarray(jwa.nodes), np.asarray(jwa.tri_rows)
-    with pytest.raises(NotImplementedError, match="K1"):
-        bridge.wide_arrays(nodes, rows, width=8, **common)
-    with pytest.raises(NotImplementedError, match="fused"):
-        bridge.wide_arrays(nodes, rows, width=4,
-                           fused=np.asarray(jwa.fuse().fused), **common)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        bridge.wide_arrays(nodes, rows, width=16, **common)
+    with pytest.raises(ValueError, match="fused"):  # wrong row width
+        bridge.wide_arrays(nodes, rows, width=4, fused=nodes, **common)
     with pytest.raises(NotImplementedError, match="alpha"):
         bridge.wide_arrays(nodes, rows, width=4,
                            alpha_rows=np.zeros((1, 32), np.float32),
                            **common)
+
+
+@pytest.fixture(scope="module")
+def wide8_pair():
+    jsb, tsb = build_pair("flat")
+    jcfg = JCfg(flatten=True, use_native_build=False)
+    assert jcfg.bvh_width == 8  # the JAX default on flattened builds
+    return JWide.from_scene(jsb, width=8).fuse(), tsb
+
+
+@pytest.mark.parametrize("route", ["port_build", "bridge"])
+def test_wide8_fused_tables_identical(wide8_pair, route):
+    """Width-8 nodes, leaf rows and fused rows, word for word, through
+    the port's own build and through the bridge."""
+    jwa, tsb = wide8_pair
+    if route == "port_build":
+        twa = TWide.from_scene(tsb, width=8).fuse()
+    else:
+        twa = bridge.wide_arrays(
+            np.asarray(jwa.nodes), np.asarray(jwa.tri_rows),
+            fused=np.asarray(jwa.fused), num_tlas=jwa.num_tlas,
+            max_leaf_tris=jwa.max_leaf_tris, depth=jwa.depth,
+            tri_bits=jwa.tri_bits, width=jwa.width, device="cpu")
+    for name in ("nodes", "tri_rows", "fused"):
+        assert getattr(twa, name).dtype == (torch.float32 if name ==
+                                            "tri_rows" else torch.int32)
+        _same_bits(getattr(jwa, name), getattr(twa, name).numpy())
+    for name in ("num_tlas", "max_leaf_tris", "depth", "tri_bits", "width"):
+        assert getattr(jwa, name) == getattr(twa, name), name
+    assert twa.width == 8 and twa.fused.shape[1] == 32 + twa.tri_rows.shape[1]
+    # the 8-wide collapse has fewer internal nodes than the 4-wide one
+    t4 = TWide.from_scene(tsb, width=4)
+    kind8 = (twa.nodes[:, 22] >> 29) & 7
+    kind4 = (t4.nodes[:, 14] >> 29) & 7
+    assert int((kind8 == 0).sum()) < int((kind4 == 0).sum())
+
+
+def test_renderer_fuses_8wide_builds():
+    _, tsb = build_pair("flat")
+    r = pt.WavefrontRenderer.from_buffers(tsb, pt.RTConfig(flatten=True),
+                                          device="cpu")
+    assert r.wa.width == 8 and r.wa.fused is not None
+    r4 = pt.WavefrontRenderer.from_buffers(
+        tsb, pt.RTConfig(flatten=True, bvh_width=4), device="cpu")
+    assert r4.wa.width == 4 and r4.wa.fused is None
+
+
+@pytest.mark.parametrize("kw", [dict(flatten=True), dict(flatten=False),
+                                dict(flatten=True, bvh_width=4),
+                                dict(flatten=False, bvh_width=4),
+                                dict(flatten=True, bvh_width=8)])
+def test_bvh_width_resolves_as_jax(kw):
+    """The width default resolves as the JAX package's (0 = auto: 8 on
+    flattened builds, else 4)."""
+    assert pt.RTConfig(**kw).bvh_width == JCfg(**kw).bvh_width
 
 
 @pytest.mark.parametrize("option", ["bvh_width8", "pathtrace", "anyhit",
@@ -157,8 +212,12 @@ def test_unported_options_raise(option):
     from vortex_rt_tpu_torch.engine.shaders import ShaderTable
 
     if option == "bvh_width8":
-        with pytest.raises(NotImplementedError, match="K1"):
-            pt.RTConfig(bvh_width=8, flatten=True)
+        # 8-wide needs the flattened build, as in the JAX package; 16-wide
+        # is not ported
+        with pytest.raises(ValueError, match="flatten"):
+            pt.RTConfig(bvh_width=8)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pt.RTConfig(bvh_width=16, flatten=True)
         return
     _, tsb = build_pair("flat")
     cfg = pt.RTConfig(flatten=True)

@@ -6,11 +6,15 @@ package so each module's counterpart is easy to find.  The package
 imports torch and numpy only; it imports nothing from JAX or from
 ``vortex_rt_tpu``.
 
-What this slice covers: the wavefront main path with 4-wide quantized
-BVHs (flat or TLAS+BLAS), Whitted shading with shadow rays, and every
-trace wave through one hand-written CUDA BVH walk
-(``csrc/packet_walk.cu``, bound by ``runtime/kernels.py``).  On CPU
-tensors the walk runs its plain PyTorch version instead.
+What the port covers: the JAX main path as ``bench.py`` runs it —
+flattened builds with 8-wide fused node+leaf rows, every trace wave
+through the hand-written CUDA walk ``csrc/traverse_packet.cu`` (K1),
+including the merged shadow+bounce wave — and the 4-wide route (flat or
+TLAS+BLAS) through ``csrc/packet_walk.cu`` (K2); Whitted shading with
+shadow rays; and the chained row-fetch probe ``tools/exp_hbm_walk.py``
+over ``csrc/hbm_walk.cu`` (K7).  Kernels are built and bound by
+``runtime/kernels.py``.  On CPU tensors each kernel's wrapper runs its
+plain PyTorch version instead.
 """
 
 from __future__ import annotations

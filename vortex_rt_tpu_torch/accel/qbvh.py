@@ -1,5 +1,6 @@
-"""4-wide quantized BVH (QBVH): build + flat SoA device format (port of
-``vortex_rt_tpu/accel/qbvh.py``, NumPy, unchanged).
+"""4/8-wide quantized BVH (QBVH): build + flat SoA device format (port of
+``vortex_rt_tpu/accel/qbvh.py``, NumPy, unchanged; ``width`` defaults
+to 4).
 
 Capability match for the reference's quantized wide acceleration structure:
 

@@ -6,8 +6,9 @@ The inputs are NumPy arrays (``np.asarray`` of the JAX package's
 the port's tables on a given device.  This module imports neither JAX
 nor ``vortex_rt_tpu``: it only reads arrays.
 
-Tables the port cannot walk yet are refused: 8-wide rows, fused rows
-and alpha tables (ROADMAP Queue 2, K1, and Queue 1, item 8).
+4- and 8-wide ``nodes``/``tri_rows`` and the fused node+leaf rows are
+carried; tables the port cannot walk yet are refused: 16-wide rows
+(ROADMAP Queue 1, "Not ported") and alpha tables (Queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -42,23 +43,29 @@ def wide_arrays(nodes: np.ndarray, tri_rows: np.ndarray, *, num_tlas: int,
                 device, fused: Optional[np.ndarray] = None,
                 alpha_rows: Optional[np.ndarray] = None) -> WideArrays:
     """JAX ``WideArrays`` fields -> the port's ``WideArrays``."""
-    if width != 4:
+    if width == 16:
         raise NotImplementedError(
-            f"width={width}: 8-wide rows wait for kernel K1 (ROADMAP "
-            "Queue 2, K1 trace_packets)")
-    if fused is not None:
-        raise NotImplementedError(
-            "fused node+leaf rows wait for kernel K1 (ROADMAP Queue 2, K1)")
+            "width=16: 16-wide rows are not ported (ROADMAP Queue 1, "
+            "'Not ported')")
+    if width not in (4, 8):
+        raise ValueError(f"unsupported BVH width {width}")
     if alpha_rows is not None:
         raise NotImplementedError(
             "alpha tables: in-loop any-hit is not ported yet (ROADMAP "
             "Queue 1, item 8)")
     if nodes.ndim != 2 or nodes.shape[1] != ROW_WORDS:
         raise ValueError(f"nodes must be (N, {ROW_WORDS}), got {nodes.shape}")
+    if fused is not None and (fused.ndim != 2 or fused.shape[0] !=
+                              nodes.shape[0] or fused.shape[1] !=
+                              ROW_WORDS + tri_rows.shape[1]):
+        raise ValueError(f"fused must be (N, {ROW_WORDS} + leaf row "
+                         f"words), got {fused.shape}")
     return WideArrays(nodes=_as_i32(nodes), tri_rows=_as_f32(tri_rows),
                       num_tlas=int(num_tlas),
                       max_leaf_tris=int(max_leaf_tris), depth=int(depth),
-                      tri_bits=int(tri_bits), width=int(width)).to(device)
+                      tri_bits=int(tri_bits), width=int(width),
+                      fused=None if fused is None else _as_i32(fused)
+                      ).to(device)
 
 
 def shade_arrays(shade_rows: np.ndarray, mat_rows: np.ndarray,

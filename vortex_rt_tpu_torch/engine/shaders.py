@@ -97,3 +97,9 @@ class ShaderTable:
     closest: Callable = default_closest
     miss: Callable = default_miss
     anyhit: Optional[Callable] = None
+    # the closest shader's continuation (spawn, sox..sdz, mul) must not
+    # depend on sp.lit for the merged shadow+bounce wave (the occlusion
+    # result then only selects between lit=0/1 terms); set False for a
+    # shader whose spawn reads sp.lit and the frame keeps sequential
+    # shadow -> shade -> bounce waves
+    lit_independent_spawn: bool = True

@@ -11,16 +11,28 @@ camera rays in tile-major lane order and runs the bounce pipeline
    occlusion result as ``lit``;
 4. spawn of the continuation rays.
 
-Both traces go through ``walk`` — ``ops.packet_walk.trace_packets_walk``
-by default, which launches the CUDA walk on the card and runs its plain
-PyTorch version on CPU tensors.  Pass ``n`` of a frame uses the global
-sample index ``seed * spp + n``, the index the JAX package gives that
-sample in both of its frame layouts, so the port renders the same rays.
+Both traces go through ``walk``, chosen by the table width unless given:
+8-wide fused tables (the default for flattened builds, as in the JAX
+package) go to ``ops.traverse_packet.trace_packets`` (K1), 4-wide tables
+to ``ops.packet_walk.trace_packets_walk`` (K2).  Each launches its CUDA
+walk on the card and runs its plain PyTorch version on CPU tensors.
 
-Not ported yet, and refused rather than ignored: the merged
-shadow+bounce wave and 8-wide rows (ROADMAP K1), path tracing
-(``pathtrace_closest``), any-hit shaders, per-wave statistics and
-staged profiling, and multi-device rendering.
+On the K1 route the frame also runs the JAX package's merged wave: from
+bounce 1 on, when a further bounce follows, the shadow occlusion query
+and the next bounce's closest-hit trace run as ONE mixed walk
+(``occl_split``), the closest shader is evaluated at lit=1 and lit=0,
+and the occlusion result selects per lane.  The JAX package does not
+merge at bounce 0 (its shadow packet differs from its bounce packet
+there), so neither does the port.  The 4-wide route keeps the
+sequential pipeline, as the JAX package does on its Pallas route.
+
+Pass ``n`` of a frame uses the global sample index ``seed * spp + n``,
+the index the JAX package gives that sample in both of its frame
+layouts, so the port renders the same rays.
+
+Not ported yet, and refused rather than ignored: path tracing
+(``pathtrace_closest``), any-hit shaders, per-wave statistics and staged
+profiling, and multi-device rendering.
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ from vortex_rt_tpu_torch.models.scene import (
 )
 from vortex_rt_tpu_torch.ops.packet_walk import trace_packets_walk
 from vortex_rt_tpu_torch.ops.shade_lanes import ShadeArrays, shade_point
+from vortex_rt_tpu_torch.ops.traverse_packet import trace_packets
 from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays
 from vortex_rt_tpu_torch.utils import sampling
 from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT, RTConfig
@@ -97,6 +110,11 @@ def _camera_from_pix(cam: CameraArrays, width: int, height: int,
     return ox, oy, oz, dx, dy, dz
 
 
+def default_walk(wa: WideArrays) -> Callable:
+    """The trace function for a table: K1 for 8-wide, K2 for 4-wide."""
+    return trace_packets if wa.width == 8 else trace_packets_walk
+
+
 def _resolve_tiled(lanes: torch.Tensor, width: int, rows: int,
                    tile_w: int, tile_h: int) -> torch.Tensor:
     """(n_pix,) tile-major lanes -> (rows, width) image."""
@@ -109,8 +127,9 @@ def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
                    table: ShaderTable, light: LightArrays, lanes, pix, samp,
                    alive, max_depth: int, shadow: bool, walk: Callable):
     """The bounce pipeline over one lane set: trace, shadow occlusion,
-    shade, spawn — ``max_depth`` waves.  Returns (rad_r, rad_g, rad_b,
-    rays traced, walk steps), the counts as 0-dim int64 tensors."""
+    shade, spawn — ``max_depth`` waves, with the merged shadow+bounce
+    wave on the 8-wide route.  Returns (rad_r, rad_g, rad_b, rays traced,
+    walk steps), the counts as 0-dim int64 tensors."""
     ox, oy, oz, dx, dy, dz = lanes
     r = ox.shape[0]
     dev = ox.device
@@ -127,17 +146,25 @@ def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
     steps = torch.zeros((), dtype=torch.int64, device=dev)
     n_tri = sa.shade_rows.shape[0]
     n_inst = sa.inst_shade.shape[0]
+    pending = None  # this bounce's hits, traced by the previous merged wave
 
-    for _ in range(max_depth):
+    for bounce in range(max_depth):
         rays = rays + alive.sum()
-        h, st = walk(wa, torch.stack([ox, oy, oz], 1),
-                     torch.stack([dx, dy, dz], 1), active=alive)
-        steps = steps + st.sum()
+        if pending is None:
+            h, st = walk(wa, torch.stack([ox, oy, oz], 1),
+                         torch.stack([dx, dy, dz], 1), active=alive)
+            steps = steps + st.sum()
+        else:
+            h, pending = pending, None
         dist, bx, by = h.dist, h.bx, h.by
         hit = alive & (dist < LARGE_FLOAT)
         miss = alive & ~hit
         tri_c = h.tri.clamp(0, n_tri - 1).to(torch.int64)
         inst_c = h.inst.clamp(0, n_inst - 1).to(torch.int64)
+        # the JAX package's merged-wave rule under its default packets
+        # (engine/wavefront.py:572-579): never at bounce 0
+        merge = (shadow and bounce >= 1 and bounce + 1 < max_depth
+                 and table.lit_independent_spawn and wa.width == 8)
         if shadow:
             # shadow rays need the hit point only; full shading follows
             # the occlusion result
@@ -152,23 +179,58 @@ def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
             sh_act = hit
             rays = rays + sh_act.sum()
             clamp = dist_l * (1.0 - 1e-3)
-            sh, sh_st = walk(
-                wa,
-                torch.stack([hpx + sdx * 1e-3, hpy + sdy * 1e-3,
-                             hpz + sdz * 1e-3], 1),
-                torch.stack([sdx, sdy, sdz], 1),
-                active=sh_act, t_max=clamp, occlusion=True)
-            steps = steps + sh_st.sum()
-            occluded = sh_act & (sh.dist < clamp)
+            sh_o = torch.stack([hpx + sdx * 1e-3, hpy + sdy * 1e-3,
+                                hpz + sdz * 1e-3], 1)
+            sh_d = torch.stack([sdx, sdy, sdz], 1)
+            if not merge:
+                sh, sh_st = walk(wa, sh_o, sh_d, active=sh_act, t_max=clamp,
+                                 occlusion=True)
+                steps = steps + sh_st.sum()
+                occluded = sh_act & (sh.dist < clamp)
         sp = shade_point(sa, ox, oy, oz, dx, dy, dz,
                          dist, bx, by, 1.0 - bx - by, tri_c, inst_c)
-        if shadow:
-            sp = sp._replace(lit=torch.where(occluded, zero, one))
         ray = RayLanes(ox, oy, oz, dx, dy, dz)
         pl = PayloadLanes((thr_r + thr_g + thr_b) * (1.0 / 3.0),
                           bounce_ct, pix, samp)
-        co = table.closest(ctx, sp, ray, pl)
-        spawn = hit & co.spawn
+        if merge:
+            # shade at lit=1 and lit=0; the continuation is lit-independent,
+            # so the next bounce's rays are known before the occlusion
+            # result, and both traces run as one mixed wave of 2r lanes
+            co1 = table.closest(ctx, sp._replace(lit=one), ray, pl)
+            co0 = table.closest(ctx, sp._replace(lit=zero), ray, pl)
+            spawn = hit & co1.spawn
+            n_o = torch.stack([torch.where(spawn, co1.sox, ox),
+                               torch.where(spawn, co1.soy, oy),
+                               torch.where(spawn, co1.soz, oz)], 1)
+            n_d = torch.stack([torch.where(spawn, co1.sdx, dx),
+                               torch.where(spawn, co1.sdy, dy),
+                               torch.where(spawn, co1.sdz, dz)], 1)
+            hm, m_st = walk(
+                wa, torch.cat([sh_o, n_o]), torch.cat([sh_d, n_d]),
+                active=torch.cat([sh_act, spawn]),
+                t_max=torch.cat([clamp, torch.full_like(clamp, LARGE_FLOAT)]),
+                occl_split=r)
+            steps = steps + m_st.sum()
+            occluded = sh_act & (hm.dist[:r] < clamp)
+            # the next bounce takes its hits from here (its rays are
+            # counted at the top of the loop, as in the sequential one)
+            pending = type(hm)(*(f[r:] for f in hm))
+
+            def blend(a0, a1):
+                return torch.where(occluded, a0, a1)
+
+            co = co1._replace(
+                add_r=blend(co0.add_r, co1.add_r),
+                add_g=blend(co0.add_g, co1.add_g),
+                add_b=blend(co0.add_b, co1.add_b),
+                mul_r=blend(co0.mul_r, co1.mul_r),
+                mul_g=blend(co0.mul_g, co1.mul_g),
+                mul_b=blend(co0.mul_b, co1.mul_b))
+        else:
+            if shadow:
+                sp = sp._replace(lit=torch.where(occluded, zero, one))
+            co = table.closest(ctx, sp, ray, pl)
+            spawn = hit & co.spawn
         mr, mg, mb = table.miss(ctx, ray, pl)
 
         rad_r = rad_r + torch.where(hit, thr_r * co.add_r,
@@ -198,12 +260,13 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
                max_depth: int = 2, spp: int = 1,
                table: Optional[ShaderTable] = None, seed: int = 0,
                shadow: bool = False, tile_w: int = 16, tile_h: int = 16,
-               walk: Callable = trace_packets_walk,
+               walk: Optional[Callable] = None,
                collect_stats: bool = False,
                stage_limit: Optional[int] = None):
     """One frame -> ((3, H*W) radiance planes in row-major pixel order,
     rays traced, walk steps), the counts as 0-dim int64 tensors on the
-    tables' device.  Nothing here waits for the device."""
+    tables' device.  ``walk`` defaults to ``default_walk(wa)``.  Nothing
+    here waits for the device."""
     if collect_stats or stage_limit is not None:
         raise NotImplementedError(
             "collect_stats/stage_limit: per-wave statistics and staged "
@@ -212,6 +275,7 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
     if table.anyhit is not None:
         raise NotImplementedError(
             "any-hit shaders are not ported yet (ROADMAP Queue 1, item 8)")
+    walk = walk or default_walk(wa)
     dev = wa.device
     ctx = ShaderContext(
         shade=sa, light_pos=light.light_pos, light_color=light.light_color,
@@ -272,7 +336,7 @@ class WavefrontRenderer:
     sa: ShadeArrays
     config: RTConfig
     table: ShaderTable
-    walk: Callable = trace_packets_walk
+    walk: Optional[Callable] = None  # None: default_walk(wa)
 
     @property
     def device(self) -> torch.device:
@@ -289,11 +353,14 @@ class WavefrontRenderer:
     @staticmethod
     def from_buffers(sb_host: SceneBuffers, config: Optional[RTConfig] = None,
                      table: Optional[ShaderTable] = None, *, device,
-                     walk: Callable = trace_packets_walk
+                     walk: Optional[Callable] = None
                      ) -> "WavefrontRenderer":
-        """Build the tables on the host and move them to ``device``.
-        ``walk`` is the trace function (the plain PyTorch version,
-        ``trace_packets_walk_ref``, forces the plain route on a card)."""
+        """Build the tables on the host and move them to ``device``:
+        8-wide builds are fused (the JAX package's default).  ``walk`` is
+        the trace function, ``default_walk`` of the tables when None; a
+        plain PyTorch version (``trace_packets_ref`` for 8-wide,
+        ``trace_packets_walk_ref`` for 4-wide) forces the plain route on
+        a card."""
         if isinstance(device, (list, tuple)):
             raise NotImplementedError(
                 "multi-device rendering is not ported yet (ROADMAP Queue "
@@ -305,13 +372,16 @@ class WavefrontRenderer:
             raise NotImplementedError(
                 "any-hit shaders and their alpha tables are not ported yet "
                 "(ROADMAP Queue 1, item 8)")
+        wa = WideArrays.from_scene(sb_host, width=cfg.bvh_width)
+        if wa.width == 8:
+            wa = wa.fuse()
         return WavefrontRenderer(
             sb=sb_host,
-            wa=WideArrays.from_scene(sb_host, width=cfg.bvh_width).to(device),
+            wa=wa.to(device),
             sa=ShadeArrays.from_scene(sb_host).to(device),
             config=cfg,
             table=table,
-            walk=walk,
+            walk=walk or default_walk(wa),
         )
 
     def _table_for(self, params: RenderParams) -> ShaderTable:

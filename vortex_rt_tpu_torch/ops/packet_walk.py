@@ -53,10 +53,9 @@ def _limit(n: int, device, active, t_max) -> torch.Tensor:
 
 
 def _check(wa: WideArrays, o, d, active, t_max) -> None:
-    dev = wa.nodes.device
     if wa.width != 4:
-        raise NotImplementedError("the walk reads 4-wide rows only "
-                                  "(ROADMAP Queue 2, K1 trace_packets)")
+        raise ValueError("this walk reads 4-wide rows; 8-wide fused "
+                         "tables go to ops.traverse_packet.trace_packets")
     if wa.nodes.dtype != torch.int32 or wa.nodes.dim() != 2 \
             or wa.nodes.shape[1] != 32 or not wa.nodes.is_contiguous():
         raise ValueError("nodes must be a contiguous (N, 32) int32 tensor")
@@ -66,8 +65,14 @@ def _check(wa: WideArrays, o, d, active, t_max) -> None:
             or not wa.tri_rows.is_contiguous():
         raise ValueError("tri_rows must be a contiguous (L, 16*k) float32 "
                          "tensor with k >= max_leaf_tris")
-    if wa.tri_rows.device != dev:
+    if wa.tri_rows.device != wa.nodes.device:
         raise ValueError("nodes and tri_rows lie on different devices")
+    check_rays(wa.nodes.device, o, d, active, t_max)
+
+
+def check_rays(dev, o, d, active, t_max) -> None:
+    """Ray inputs of a walk: (R, 3) float32 o and d, optional (R,) bool
+    ``active`` and (R,) float32 ``t_max``, all on the tables' device."""
     for name, a in (("o", o), ("d", d)):
         if a.dtype != torch.float32 or a.dim() != 2 or a.shape[1] != 3:
             raise ValueError(f"{name} must be an (R, 3) float32 tensor")

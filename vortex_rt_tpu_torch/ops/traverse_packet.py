@@ -1,0 +1,337 @@
+"""8-wide BVH walk over fused node+leaf rows: the CUDA kernel's wrapper
+and its plain PyTorch version (port of
+``vortex_rt_tpu/ops/traverse_packet.py::trace_packets`` on the JAX main
+path's tables: flat 8-wide builds after ``WideArrays.fuse``).
+
+``trace_packets`` is what the frame calls for 8-wide tables.  For CUDA
+tensors it launches ``csrc/traverse_packet.cu`` (one thread per ray) or
+raises; for CPU tensors it runs ``trace_packets_ref``, the plain PyTorch
+version of the same per-ray walk.  There is no fallback between the two.
+
+Semantics (shared with the JAX ``trace_packets``): ``active`` masks dead
+rays (they report a miss), ``t_max`` clamps the search interval,
+``occlusion=True`` retires a ray at its first hit inside the clamp
+(occluded rays return dist 0.0, the others LARGE_FLOAT), and
+``occl_split=k`` runs a mixed wave: rays ``< k`` in occlusion mode, the
+rest closest-hit (the merged shadow+bounce wave of the frame loop).
+Occlusion lanes report bx = by = 0, tri = inst = 0.
+
+The JAX loop walked packets of rays over the union of their paths,
+near-first by the packet-minimum child distance; both versions here walk
+each ray's own path, near-first by the ray's own distance.  That changes
+visit order and step counts, not hits: the closest hit is a min-fold
+over a ray's own candidates with the lexicographic (t, packed tid)
+tie-break, up to exact-t ties that strict ``tmin < best_t`` pruning
+resolves by visit order (ROADMAP hazard H3).  The JAX knobs ``packet``,
+``fronts``, ``lax_sort``, ``array_stack``, ``unroll``, ``bf16_slab`` and
+``stats`` batch XLA's lockstep loop and are not carried; any-hit
+predicates (``alpha_ref``, ``anyhit_pred``) are not ported yet (ROADMAP
+Queue 1, item 8).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from vortex_rt_tpu_torch.ops.packet_walk import _rcp, check_rays
+from vortex_rt_tpu_torch.ops.traverse2 import Hits
+from vortex_rt_tpu_torch.ops.traverse_wide import (
+    LEFT_BITS8, ROW_WORDS, WideArrays, row_layout,
+)
+from vortex_rt_tpu_torch.runtime import kernels
+from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT, MT_EPSILON
+
+MAX_STEPS = 400_000
+WIDTH = 8
+_INT_MAX = 2**31 - 1
+_MISS = -LARGE_FLOAT  # sort key of a culled child (descending sort)
+_QLO, _QHI, _META, _LEAF = row_layout(WIDTH)
+_LEFT_MASK = (1 << LEFT_BITS8) - 1
+# the JAX body's descending sorting network over 8 child slots
+# (traverse_packet.py:100, 19 comparators): swap when d[a] < d[b]
+_SORT_NET8 = ((0, 2), (1, 3), (4, 6), (5, 7), (0, 4), (1, 5), (2, 6),
+              (3, 7), (0, 1), (2, 3), (4, 5), (6, 7), (2, 4), (3, 5),
+              (1, 4), (3, 6), (1, 2), (3, 4), (5, 6))
+
+
+def stack_entries(wa: WideArrays) -> int:
+    """Stack entries a walk over ``wa`` needs: one packed deferred-
+    children entry per descended level, so depth + 4 cannot overflow
+    (the JAX bound, traverse_packet.py:355)."""
+    return int(wa.depth) + 4
+
+
+def _check(wa: WideArrays, o, d, active, t_max, occl_split: int) -> None:
+    if wa.width != WIDTH or wa.fused is None:
+        raise ValueError("trace_packets walks 8-wide fused tables "
+                         "(WideArrays.from_scene(sb, 8).fuse()); 4-wide "
+                         "tables go to ops.packet_walk.trace_packets_walk")
+    if not (wa.num_tlas == 0 and wa.tri_bits > 0):
+        raise ValueError("8-wide fused rows require the flattened build")
+    f = wa.fused
+    lmax = max(int(wa.max_leaf_tris), 1)
+    if f.dtype != torch.int32 or f.dim() != 2 \
+            or (f.shape[1] - ROW_WORDS) % 16 \
+            or f.shape[1] < ROW_WORDS + 16 * lmax \
+            or not f.is_contiguous():
+        raise ValueError("fused must be a contiguous (N, 32 + 16*k) int32 "
+                         "tensor with k >= max_leaf_tris")
+    check_rays(f.device, o, d, active, t_max)
+    if not 0 <= int(occl_split) <= o.shape[0]:
+        raise ValueError(f"occl_split={occl_split} outside [0, {o.shape[0]}]")
+
+
+def _split(r: int, occlusion: bool, occl_split: int) -> int:
+    """Rays [0, split) trace in occlusion mode."""
+    return r if occlusion else int(occl_split)
+
+
+def trace_packets(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
+                  active: Optional[torch.Tensor] = None,
+                  t_max: Optional[torch.Tensor] = None,
+                  occlusion: bool = False, occl_split: int = 0,
+                  max_steps: int = MAX_STEPS
+                  ) -> Tuple[Hits, torch.Tensor]:
+    """Closest-hit, occlusion or mixed trace of (R, 3) rays over the
+    8-wide fused table.  Returns (Hits, per-ray step counts (R,) int32).
+
+    CUDA tensors launch the hand-written kernel; CPU tensors run the
+    plain PyTorch version."""
+    _check(wa, o, d, active, t_max, occl_split)
+    if o.device.type == "cpu":
+        return trace_packets_ref(wa, o, d, active, t_max, occlusion,
+                                 occl_split, max_steps)
+    if o.device.type != "cuda":
+        raise ValueError(f"no walk for device {o.device}")
+    lib = kernels.load("traverse_packet")
+    stack_n = stack_entries(wa)
+    cap = int(lib.lib.vrt_traverse_packet_stack_max())
+    if stack_n > cap:
+        raise ValueError(f"BVH depth {wa.depth} needs {stack_n} stack "
+                         f"entries; the kernel is compiled for {cap}")
+    r = o.shape[0]
+    if r >= 2**31:
+        raise ValueError("ray count exceeds the kernel's int32 index")
+    if wa.fused.data_ptr() % 16:
+        raise ValueError("the kernel reads fused rows as 16-byte vectors: "
+                         "the table must be 16-byte aligned")
+    dev = o.device
+    o = o.contiguous()
+    d = d.contiguous()
+    limit = (torch.full((r,), LARGE_FLOAT, dtype=torch.float32, device=dev)
+             if t_max is None else t_max.contiguous())
+    on = (torch.ones(r, dtype=torch.bool, device=dev) if active is None
+          else active.contiguous())
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    dist, bx, by, bz = (torch.empty(r, **f32) for _ in range(4))
+    tri, inst, steps = (torch.empty(r, **i32) for _ in range(3))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lib.vrt_traverse_packet(
+            wa.fused.data_ptr(), o.data_ptr(), d.data_ptr(),
+            limit.data_ptr(), on.data_ptr(), dist.data_ptr(),
+            bx.data_ptr(), by.data_ptr(), bz.data_ptr(), tri.data_ptr(),
+            inst.data_ptr(), steps.data_ptr(), r, wa.fused.shape[0],
+            wa.fused.shape[1], max(int(wa.max_leaf_tris), 1),
+            int(wa.tri_bits), stack_n, int(max_steps),
+            _split(r, occlusion, occl_split), stream)
+    if err != 0:
+        raise RuntimeError(f"traverse_packet launch failed: "
+                           f"{lib.error_string(err)} ({err})")
+    if r > 0:
+        kernels.LAUNCHES["traverse_packet"] += 1
+    return Hits(dist, bx, by, bz, tri, inst), steps
+
+
+def trace_packets_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
+                      active: Optional[torch.Tensor] = None,
+                      t_max: Optional[torch.Tensor] = None,
+                      occlusion: bool = False, occl_split: int = 0,
+                      max_steps: int = MAX_STEPS
+                      ) -> Tuple[Hits, torch.Tensor]:
+    """Plain PyTorch version of the per-ray 8-wide walk, on any device.
+
+    All rays step together: each step gathers every live ray's fused row,
+    evaluates the internal and leaf paths with masks, and keeps per-ray
+    stacks of packed deferred-children entries in two (R, S) tensors.
+    The same sorting network, stack words and arithmetic order as the
+    kernel, so both give the same hits and the same per-ray step counts
+    to the bit."""
+    _check(wa, o, d, active, t_max, occl_split)
+    dev = o.device
+    r = o.shape[0]
+    occ = torch.arange(r, device=dev) < _split(r, occlusion, occl_split)
+    limit = (torch.full((r,), LARGE_FLOAT, dtype=torch.float32, device=dev)
+             if t_max is None else t_max)
+    on = (torch.ones(r, dtype=torch.bool, device=dev) if active is None
+          else active)
+    fused = wa.fused
+    n_nodes = fused.shape[0]
+    lmax = max(int(wa.max_leaf_tris), 1)
+    stack_n = stack_entries(wa)
+    eps = MT_EPSILON
+
+    def f32(v):
+        return torch.full((r,), v, dtype=torch.float32, device=dev)
+
+    large = f32(LARGE_FLOAT)
+    miss_key = f32(_MISS)
+    ox, oy, oz = (o[:, k].contiguous() for k in range(3))
+    dx, dy, dz = (d[:, k].contiguous() for k in range(3))
+    ivx, ivy, ivz = _rcp(dx), _rcp(dy), _rcp(dz)
+    # dead lanes carry best_t = -LARGE_FLOAT and never walk; a live ray
+    # with a clamp <= 0 cannot find a hit (t > eps) either
+    best_t = torch.where(on, limit, -large)
+    bx, by = f32(0.0), f32(0.0)
+    tri = torch.zeros(r, dtype=torch.int64, device=dev)
+    node = torch.zeros(r, dtype=torch.int64, device=dev)
+    sc = torch.zeros(r, dtype=torch.int64, device=dev)
+    steps = torch.zeros(r, dtype=torch.int32, device=dev)
+    st0 = torch.zeros((r, stack_n), dtype=torch.int64, device=dev)
+    st1 = torch.zeros((r, stack_n), dtype=torch.int64, device=dev)
+    alive = best_t > 0.0
+
+    def qb(w, sh):
+        return ((w >> sh) & 255).to(torch.float32)
+
+    while bool(alive.any()):
+        node_c = node.clamp(0, n_nodes - 1)
+        raw = fused[node_c]
+        row_f = raw.view(torch.float32)
+        row = raw.to(torch.int64) & 0xFFFFFFFF  # the u32 words
+        meta = row[:, _META]
+        kind = meta >> 29
+        nch = (meta >> LEFT_BITS8) & 15
+        left = meta & _LEFT_MASK
+        leaf_n = raw[:, _LEAF].to(torch.int64)
+        is_int = alive & (kind == 0)
+        is_tri = alive & (kind == 1)
+
+        # ---- internal: 8 slab tests, far->near network, push deferred ----
+        gx, gy, gz = row_f[:, 0], row_f[:, 1], row_f[:, 2]
+        sx, sy, sz = row_f[:, 3], row_f[:, 4], row_f[:, 5]
+        ds, ix = [], []
+        for c in range(WIDTH):
+            ql = row[:, _QLO + c]
+            qh = row[:, _QHI + c]
+            lx = gx + qb(ql, 0) * sx
+            ly = gy + qb(ql, 8) * sy
+            lz = gz + qb(ql, 16) * sz
+            hx = gx + qb(qh, 0) * sx
+            hy = gy + qb(qh, 8) * sy
+            hz = gz + qb(qh, 16) * sz
+            t1x = (lx - ox) * ivx
+            t2x = (hx - ox) * ivx
+            t1y = (ly - oy) * ivy
+            t2y = (hy - oy) * ivy
+            t1z = (lz - oz) * ivz
+            t2z = (hz - oz) * ivz
+            tmin = torch.maximum(torch.maximum(
+                torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
+                torch.minimum(t1z, t2z))
+            tmax = torch.minimum(torch.minimum(
+                torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
+                torch.maximum(t1z, t2z))
+            hit = (tmax >= tmin) & (tmax > 0.0) & (tmin < best_t) & (c < nch)
+            ds.append(torch.where(hit, tmin, miss_key))
+            ix.append(torch.full((r,), c, dtype=torch.int64, device=dev))
+        for a, b in _SORT_NET8:
+            swap = ds[a] < ds[b]
+            ds[a], ds[b] = (torch.where(swap, ds[b], ds[a]),
+                            torch.where(swap, ds[a], ds[b]))
+            ix[a], ix[b] = (torch.where(swap, ix[b], ix[a]),
+                            torch.where(swap, ix[a], ix[b]))
+        m = sum((dc > _MISS).to(torch.int64) for dc in ds)
+        descend = is_int & (m >= 1)
+        child = torch.stack(ix, 1).gather(
+            1, (m - 1).clamp(0, WIDTH - 1).unsqueeze(1)).squeeze(1)
+        cnt_def = (m - 1).clamp(0, 7)
+        word0 = (left << 4) | cnt_def
+        word1 = ix[0] & 7
+        for j in range(1, 7):
+            word1 = word1 | ((ix[j] & 7) << (3 * j))
+        push = descend & (cnt_def >= 1)
+        slot = sc.clamp(max=stack_n - 1).unsqueeze(1)
+        st0.scatter_(1, slot, torch.where(
+            push, word0, st0.gather(1, slot).squeeze(1)).unsqueeze(1))
+        st1.scatter_(1, slot, torch.where(
+            push, word1, st1.gather(1, slot).squeeze(1)).unsqueeze(1))
+        sc = sc + push.to(torch.int64)
+        nxt = torch.where(descend, left + child, node)
+
+        # ---- triangle leaf: up to lmax Moller-Trumbore tests over the
+        # row's own slots, folded to the leaf's best, then into the ray's
+        tr = row_f[:, ROW_WORDS:]
+        tr_i = raw[:, ROW_WORDS:].to(torch.int64)
+        t_min, tid_sel = large, torch.full((r,), _INT_MAX, dtype=torch.int64,
+                                           device=dev)
+        w1_sel, w2_sel = f32(0.0), f32(0.0)
+        for c in range(lmax):
+            b0 = 16 * c
+            v0x, v0y, v0z = tr[:, b0 + 0], tr[:, b0 + 1], tr[:, b0 + 2]
+            e1x, e1y, e1z = tr[:, b0 + 3], tr[:, b0 + 4], tr[:, b0 + 5]
+            e2x, e2y, e2z = tr[:, b0 + 6], tr[:, b0 + 7], tr[:, b0 + 8]
+            tid = tr_i[:, b0 + 9]
+            hx_ = dy * e2z - dz * e2y
+            hy_ = dz * e2x - dx * e2z
+            hz_ = dx * e2y - dy * e2x
+            a = e1x * hx_ + e1y * hy_ + e1z * hz_
+            small = a.abs() < eps
+            fba = 1.0 / torch.where(small, torch.ones_like(a), a)
+            sx_ = ox - v0x
+            sy_ = oy - v0y
+            sz_ = oz - v0z
+            w1 = fba * (sx_ * hx_ + sy_ * hy_ + sz_ * hz_)
+            qx = sy_ * e1z - sz_ * e1y
+            qy = sz_ * e1x - sx_ * e1z
+            qz = sx_ * e1y - sy_ * e1x
+            w2 = fba * (dx * qx + dy * qy + dz * qz)
+            t = fba * (e2x * qx + e2y * qy + e2z * qz)
+            ok = (~small & (w1 >= 0.0) & (w1 <= 1.0) & (w2 >= 0.0)
+                  & (w1 + w2 <= 1.0) & (t > eps) & (c < leaf_n))
+            t = torch.where(ok, t, large)
+            better = (t < t_min) | ((t == t_min) & (t < LARGE_FLOAT)
+                                    & (tid < tid_sel))
+            t_min = torch.where(better, t, t_min)
+            tid_sel = torch.where(better, tid, tid_sel)
+            w1_sel = torch.where(better, w1, w1_sel)
+            w2_sel = torch.where(better, w2, w2_sel)
+        occ_hit = is_tri & occ & (t_min < best_t)
+        upd = is_tri & ~occ & (
+            (t_min < best_t) | ((t_min == best_t) & (t_min < LARGE_FLOAT)
+                                & (tid_sel < tri)))
+        best_t = torch.where(upd, t_min, best_t)
+        best_t = torch.where(occ_hit, -large, best_t)
+        bx = torch.where(upd, w1_sel, bx)
+        by = torch.where(upd, w2_sel, by)
+        tri = torch.where(upd, tid_sel, tri)
+
+        # ---- pop when we didn't descend; an empty stack ends the ray ----
+        can_pop = sc > 0
+        do_pop = alive & ~descend & can_pop
+        top_at = (sc - 1).clamp(0, stack_n - 1).unsqueeze(1)
+        top = st0.gather(1, top_at).squeeze(1)
+        c_top = top & 15
+        slot_id = (st1.gather(1, top_at).squeeze(1)
+                   >> (3 * (c_top - 1).clamp(min=0))) & 7
+        partial = do_pop & (c_top > 1)
+        st0.scatter_(1, top_at, torch.where(partial, top - 1, top)
+                     .unsqueeze(1))
+        sc = torch.where(do_pop & (c_top <= 1), sc - 1, sc)
+        nxt = torch.where(do_pop, (top >> 4) + slot_id, nxt)
+        steps = steps + alive.to(torch.int32)
+        node = torch.where(alive, nxt, node)
+        alive = (alive & (descend | can_pop) & (steps < max_steps)
+                 & (~occ | (best_t > 0.0)))
+
+    zero = f32(0.0)
+    d_occ = torch.where(on & (best_t < 0.0), zero, large)
+    d_clo = torch.where((best_t < 0.0) | (best_t >= limit), large, best_t)
+    dist = torch.where(occ, d_occ, d_clo)
+    tri32 = tri.to(torch.int32)
+    tri_out = tri32 & ((1 << wa.tri_bits) - 1)
+    inst_out = tri32 >> wa.tri_bits
+    return Hits(dist, bx, by, 1.0 - bx - by, tri_out, inst_out), steps

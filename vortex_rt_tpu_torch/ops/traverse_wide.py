@@ -1,27 +1,42 @@
-"""4-wide packed node and leaf tables (port of ``WideArrays`` and
-``WideArrays.from_scene`` of ``vortex_rt_tpu/ops/traverse_wide.py``).
+"""4- and 8-wide packed node and leaf tables (port of ``WideArrays``,
+``WideArrays.from_scene`` and ``WideArrays.fuse`` of
+``vortex_rt_tpu/ops/traverse_wide.py``).
 
 The tables are built on the host with NumPy, bit-identical to the JAX
 package's, and held as torch tensors:
 
 * ``nodes`` (N, 32) int32 — one 128-byte row per node, the u32 words
   stored as int32: words 0..2 fp32 origin, 3..5 fp32 power-of-two scale,
-  6..9 / 10..13 per-child quantized lo / hi boxes (3 bytes each), word 14
-  the meta word ``left | nchild << 26 | kind << 29``, word 15 the leaf
-  count; instance nodes carry their inverse transform in words 16..27
-  and their BLAS root in word 28.  Float fields are read through
-  ``nodes.view(torch.float32)``.
-* ``tri_rows`` (L, 16*lmax) float32 — one row per triangle leaf, up to
-  lmax slots of (v0, e1, e2, tid bits, pad) 16 floats.
+  then per-child quantized lo / hi boxes (3 bytes each), the meta word
+  and the leaf count at the offsets of ``row_layout(width)``:
 
-The per-ray walk over these tables is ``ops/packet_walk.py``.  The JAX
-module's per-ray restart-trail engine (``trace_lanes``/``commit``, K3 in
-ROADMAP) and the 8-wide / fused / alpha tables are not ported yet.
+  ========  ======  ======  =====  =====  ===========================
+  width     lo      hi      meta   leaf   meta word
+  ========  ======  ======  =====  =====  ===========================
+  4         6..9    10..13  14     15     left | nchild<<26 | kind<<29
+  8         6..13   14..21  22     23     left | nchild<<25 | kind<<29
+  ========  ======  ======  =====  =====  ===========================
+
+  4-wide instance nodes carry their inverse transform in words 16..27
+  and their BLAS root in word 28 (8-wide builds are flat: no instance
+  nodes).  Float fields are read through ``nodes.view(torch.float32)``.
+* ``tri_rows`` (L, 16*lmax) float32 — one row per triangle leaf, up to
+  lmax slots of (v0, e1, e2, tid bits, pad) 16 floats.  Flat builds pack
+  the tid as ``(inst << tri_bits) | tri``.
+* ``fused`` (N, 32 + 16*lmax) int32, flat builds only (``fuse()``):
+  each node row followed by its own leaf slots (zeros for internal
+  nodes), so one row read serves both node kinds.
+
+The 4-wide walk over ``nodes``/``tri_rows`` is ``ops/packet_walk.py``
+(K2); the 8-wide walk over ``fused`` is ``ops/traverse_packet.py`` (K1).
+The JAX module's per-ray restart-trail engine (``trace_lanes``/``commit``,
+K3 in ROADMAP), 16-wide rows and the alpha tables are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -31,11 +46,27 @@ from vortex_rt_tpu_torch.models.scene import SceneBuffers
 
 WIDTH = 4
 ROW_WORDS = 32
-# meta word layout (word 14): left_first | nchild << 26 | kind << 29
+# 4-wide meta word layout (word 14): left_first | nchild << 26 | kind << 29
 LEFT_BITS = 26
 LEFT_MASK = (1 << LEFT_BITS) - 1
 QLO, QHI, META, LEAF = 6, 10, 14, 15
 INST_XFORM, INST_ROOT = 16, 28
+# 8-wide meta word (word 22): left_first | nchild << 25 | kind << 29
+LEFT_BITS8 = 25
+
+
+def row_layout(width: int):
+    """(qlo_off, qhi_off, meta_off, leaf_off) of a packed node row."""
+    if width == 4:
+        return QLO, QHI, META, LEAF
+    if width == 8:
+        return 6, 14, 22, 23
+    raise ValueError(f"no row layout for width {width}")
+
+
+def left_bits(width: int) -> int:
+    """Bits of left_first in the meta word (nchild sits above them)."""
+    return LEFT_BITS if width == 4 else LEFT_BITS8
 
 
 @dataclasses.dataclass
@@ -49,6 +80,7 @@ class WideArrays:
     depth: int              # max descend depth (TLAS + BLAS)
     tri_bits: int = 0       # flat builds: leaf tids pack (inst << bits) | tri
     width: int = WIDTH
+    fused: Optional[torch.Tensor] = None  # (N, 32 + 16*lmax) int32
 
     @property
     def device(self) -> torch.device:
@@ -56,21 +88,45 @@ class WideArrays:
 
     @property
     def nbytes(self) -> int:
-        return (self.nodes.numel() * self.nodes.element_size()
-                + self.tri_rows.numel() * self.tri_rows.element_size())
+        return sum(t.numel() * t.element_size()
+                   for t in (self.nodes, self.tri_rows, self.fused)
+                   if t is not None)
 
     def to(self, device) -> "WideArrays":
-        return dataclasses.replace(self, nodes=self.nodes.to(device),
-                                   tri_rows=self.tri_rows.to(device))
+        return dataclasses.replace(
+            self, nodes=self.nodes.to(device),
+            tri_rows=self.tri_rows.to(device),
+            fused=None if self.fused is None else self.fused.to(device))
+
+    def fuse(self) -> "WideArrays":
+        """A copy with the fused node+leaf table built (flat builds
+        only), word for word the JAX package's ``WideArrays.fuse``."""
+        if not (self.num_tlas == 0 and self.tri_bits > 0):
+            raise ValueError("fused rows require the flattened build")
+        meta = self.nodes[:, row_layout(self.width)[2]]
+        kind = (meta >> 29) & 7
+        left = (meta & ((1 << left_bits(self.width)) - 1)).to(torch.int64)
+        rows = self.tri_rows.view(torch.int32)
+        is_tris = (kind == qbvh.KIND_TRIS).unsqueeze(1)
+        own = rows[left.clamp(0, rows.shape[0] - 1)]
+        leaf_part = torch.where(is_tris, own, torch.zeros_like(own))
+        return dataclasses.replace(
+            self, fused=torch.cat([self.nodes, leaf_part], 1).contiguous())
 
     @staticmethod
     def from_scene(sb: SceneBuffers, width: int = WIDTH) -> "WideArrays":
-        """Build the tables on the CPU (move them with ``.to(device)``)."""
-        if width != WIDTH:
+        """Build the tables on the CPU (move them with ``.to(device)``).
+        Width 8 needs the flattened build."""
+        if width == 16:
             raise NotImplementedError(
-                f"width={width}: 8-wide fused rows wait for kernel K1 "
-                "(ROADMAP Queue 2, K1 trace_packets)")
+                "width=16: 16-wide rows are not ported (ROADMAP Queue 1, "
+                "'Not ported')")
+        if width not in (4, 8):
+            raise ValueError(f"unsupported BVH width {width}")
         flat = bool(sb.flat)
+        if width == 8 and not flat:
+            raise ValueError("8-wide nodes require the flattened build "
+                             "(RTConfig.flatten)")
         tri_bits = 0
         if flat:
             # ONE world-space BLAS, no TLAS/instance nodes; leaf tids pack
@@ -166,21 +222,23 @@ class WideArrays:
         leaf_row_of = np.zeros(n, np.int64)
         leaf_row_of[leaf_ids] = np.arange(len(leaf_ids))
         left = np.where(is_leaf, leaf_row_of, left)
-        if not ((left >= 0).all() and (left < (1 << LEFT_BITS)).all()):
+        lb = left_bits(width)
+        if not ((left >= 0).all() and (left < (1 << lb)).all()):
             raise ValueError(
-                f"node/leaf pool exceeds the {LEFT_BITS}-bit left_first budget")
+                f"node/leaf pool exceeds the {lb}-bit left_first budget")
 
+        qoff, hoff, moff, loff = row_layout(width)
         nodes = np.zeros((n, ROW_WORDS), np.uint32)
         nodes[:, 0:3] = origin.view(np.uint32)
         nodes[:, 3:6] = scale.view(np.uint32)
         for c in range(width):
-            nodes[:, QLO + c] = (qlo[:, 3 * c] | (qlo[:, 3 * c + 1] << 8)
-                                 | (qlo[:, 3 * c + 2] << 16))
-            nodes[:, QHI + c] = (qhi[:, 3 * c] | (qhi[:, 3 * c + 1] << 8)
-                                 | (qhi[:, 3 * c + 2] << 16))
-        nodes[:, META] = (left.astype(np.uint32)
-                          | (nchild << LEFT_BITS) | (kind << 29))
-        nodes[:, LEAF] = leaf.astype(np.uint32)
+            nodes[:, qoff + c] = (qlo[:, 3 * c] | (qlo[:, 3 * c + 1] << 8)
+                                  | (qlo[:, 3 * c + 2] << 16))
+            nodes[:, hoff + c] = (qhi[:, 3 * c] | (qhi[:, 3 * c + 1] << 8)
+                                  | (qhi[:, 3 * c + 2] << 16))
+        nodes[:, moff] = (left.astype(np.uint32)
+                          | (nchild << lb) | (kind << 29))
+        nodes[:, loff] = leaf.astype(np.uint32)
         if not flat:
             # instance leaves carry their inverse transform + BLAS root
             is_inst = kind == qbvh.KIND_INSTANCE

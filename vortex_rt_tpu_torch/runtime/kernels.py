@@ -24,6 +24,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Tuple
 
@@ -45,6 +46,15 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     "packet_walk": {
         "vrt_packet_walk": ([_P] * 12 + [_I] * 10 + [_P], _I),
         "vrt_packet_walk_stack_max": ([], _I),
+        "vrt_error_string": ([_I], ctypes.c_char_p),
+    },
+    "traverse_packet": {
+        "vrt_traverse_packet": ([_P] * 12 + [_I] * 8 + [_P], _I),
+        "vrt_traverse_packet_stack_max": ([], _I),
+        "vrt_error_string": ([_I], ctypes.c_char_p),
+    },
+    "hbm_walk": {
+        "vrt_hbm_walk": ([_P] + [_I] * 5 + [_P, _P], _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
 }
@@ -72,7 +82,9 @@ class KernelLibrary:
 
 
 _loaded: Dict[str, KernelLibrary] = {}
-_lock = threading.Lock()
+# one lock per library: different libraries build concurrently
+_locks: Dict[str, threading.Lock] = {name: threading.Lock()
+                                     for name in _SIGNATURES}
 
 
 def nvcc_path() -> str:
@@ -97,11 +109,11 @@ def _digest(src: bytes) -> str:
 def load(name: str) -> KernelLibrary:
     """Build ``csrc/<name>.cu`` if its build is missing or stale, load
     it, and declare its C signatures.  Raises on any failure."""
-    with _lock:
+    if name not in _SIGNATURES:
+        raise KeyError(f"unknown kernel library {name!r}")
+    with _locks[name]:
         if name in _loaded:
             return _loaded[name]
-        if name not in _SIGNATURES:
-            raise KeyError(f"unknown kernel library {name!r}")
         src_path = SRC_DIR / f"{name}.cu"
         src = src_path.read_bytes()
         so = BUILD_DIR / f"{name}-{_digest(src)}.so"
@@ -130,3 +142,12 @@ def load(name: str) -> KernelLibrary:
                            build_seconds=seconds, build_log=log)
         _loaded[name] = kl
         return kl
+
+
+def load_all(names=None) -> Dict[str, KernelLibrary]:
+    """Build and load several libraries at once: one nvcc process per
+    source, all started together.  Raises the first build failure."""
+    names = list(_SIGNATURES if names is None else names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        futures = {name: pool.submit(load, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}

@@ -1,0 +1,135 @@
+"""Where a frame's time goes on the card: kernel launches per frame,
+device kernel time per frame against the unprofiled frame time, and the
+kernels that take the most device time.
+
+    python -m vortex_rt_tpu_torch.tools.profile_frames --scene config2
+    python -m vortex_rt_tpu_torch.tools.profile_frames --scene scale \\
+        --frames 3
+
+``config2`` is BASELINE config 2 as ``bench.py`` renders it (Cornell box
+and a 24x48 sphere, 512x512, spp 2, depth 2, shadow rays, flattened
+8-wide fused build); ``scale`` is ``blob(n=187)`` at 1920x1080, spp 2,
+depth 2, shadow rays, 8-wide.
+
+After one warm-up frame, ``--frames`` frames are timed unprofiled (wall
+clock, device-synchronised), then the same number run under
+``torch.profiler`` with CUDA activity.  Device time is the sum of the
+kernel events' self device time (``key_averages()``, entries on the
+CUDA device); launches are their counts.  The busy share is device time
+per frame over unprofiled wall time per frame: the card runs one stream,
+so kernels do not overlap.  Prints a table and, last, one JSON line.
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+CONFIG2_EYE = ([0.05, 0.02, -3.2], [0.0, -0.05, 0.0], [0, 1, 0], 45.0, 1.0)
+CONFIG2_LIGHT = (0.0, 0.8, -0.5)
+TOP = 8  # kernels listed, by device time
+
+
+def build(scene: str, device):
+    """(renderer, camera, params, frame width, frame height)."""
+    from vortex_rt_tpu_torch import (
+        Camera, RenderParams, RTConfig, Scene, WavefrontRenderer,
+    )
+    from vortex_rt_tpu_torch.models import bigscenes, procedural
+
+    sc = Scene()
+    cfg = RTConfig(flatten=True)
+    if scene == "config2":
+        for mesh, refl in procedural.cornell_box():
+            sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
+        sc.add_instance(sc.add_mesh(
+            procedural.uv_sphere((0, -0.3, 0), 0.35, 24, 48)))
+        sb = sc.build(cfg)
+        cam = Camera.look_at(*CONFIG2_EYE)
+        p = RenderParams(light_pos=CONFIG2_LIGHT, max_depth=2, shadow=True,
+                         spp=2)
+        w = h = 512
+    elif scene == "scale":
+        sc.add_instance(sc.add_mesh(bigscenes.blob(n=187)))
+        sb = sc.build(cfg)
+        w, h = 1920, 1080
+        cam = Scene.framing_camera(sb, 45.0, w / h)
+        p = RenderParams(max_depth=2, spp=2, shadow=True)
+    else:
+        raise ValueError(f"unknown scene {scene!r}")
+    return WavefrontRenderer.from_buffers(sb, cfg, device=device), cam, p, w, h
+
+
+def profile(r, cam, p, w: int, h: int, frames: int) -> Dict:
+    """Unprofiled and profiled runs of ``frames`` frames each; see the
+    module docstring."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    r.render_burst(cam, p, w, h, n_frames=1, seed0=0, rays_only=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rays = r.render_burst(cam, p, w, h, n_frames=frames, seed0=1,
+                          rays_only=True)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3 / frames
+
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        r.render_burst(cam, p, w, h, n_frames=frames, seed0=1,
+                       rays_only=True)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not kern:
+        raise RuntimeError("the profiler recorded no device kernel time")
+    dev_us = sum(e.self_device_time_total for e in kern)
+    launches = sum(e.count for e in kern)
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    return dict(
+        frames=frames, rays_per_frame=rays / frames, frame_ms=frame_ms,
+        device_ms_per_frame=dev_us / 1e3 / frames,
+        busy_share=dev_us / 1e3 / frames / frame_ms,
+        launches_per_frame=launches / frames,
+        top=[dict(name=e.key[:120], share=e.self_device_time_total / dev_us,
+                  ms_per_frame=e.self_device_time_total / 1e3 / frames,
+                  launches_per_frame=e.count / frames)
+             for e in kern[:TOP]])
+
+
+def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scene", default="config2",
+                    help="config2, scale, or a comma list")
+    ap.add_argument("--frames", type=int, default=8)
+    a = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_frames: no CUDA device")
+    device = torch.device("cuda", 0)
+    out = []
+    for scene in a.scene.split(","):
+        r, cam, p, w, h = build(scene, device)
+        res = dict(scene=scene, bvh_width=r.wa.width, w=w, h=h,
+                   **profile(r, cam, p, w, h, a.frames))
+        print(f"{scene} {w}x{h} ({r.wa.width}-wide), {a.frames} frames, "
+              f"{torch.cuda.get_device_name(device)}: "
+              f"{res['frame_ms']:.3f} ms/frame unprofiled, "
+              f"{res['device_ms_per_frame']:.3f} ms device time/frame, busy "
+              f"{res['busy_share']:.1%}, {res['launches_per_frame']:.0f} "
+              f"launches/frame")
+        for t in res["top"]:
+            print(f"  {t['share']:6.1%} {t['ms_per_frame']:8.3f} ms "
+                  f"{t['launches_per_frame']:6.0f}x  {t['name']}")
+        out.append(res)
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -3,9 +3,10 @@
 Only the knobs this port reads are carried.  The JAX package's TPU
 tuning knobs (``slab``, ``lanes``, ``packet_size``, ``bounce_packet``,
 ``bounce_fronts``, ``bounce_sort_seg``, ``shadow_packet``,
-``fused_rows``, ``pallas_waves``) shape how XLA batches a lockstep loop
-and change no hit; the port walks one ray per GPU thread and has no use
-for them (README, "The PyTorch/CUDA port").
+``pallas_waves``) shape how XLA batches a lockstep loop and change no
+hit; the port walks one ray per GPU thread and has no use for them
+(README, "The PyTorch/CUDA port").  ``fused_rows`` is not carried
+either: the port always fuses 8-wide flat builds (the JAX default).
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ class RTConfig:
     """Static knobs of the port's tracer."""
 
     # ---- acceleration structure ----
-    bvh_width: int = 4          # children per wide-BVH node (4 only so far)
+    bvh_width: int = 0          # children per wide-BVH node, 4 or 8;
+                                # 0 = auto: 8 on flattened builds, else 4
+                                # (the JAX package's rule)
     max_leaf_tris: int = 4      # leaf size target for the binary BVH
     sah_bins: int = 8           # bins of the binned-SAH build
     flatten: bool = False       # ONE world-space BVH over all instances
@@ -37,11 +40,18 @@ class RTConfig:
     tile_h: int = 16
 
     def __post_init__(self):
-        if self.bvh_width != 4:
+        if self.bvh_width == 0:
+            object.__setattr__(self, "bvh_width", 8 if self.flatten else 4)
+        if self.bvh_width == 16:
             raise NotImplementedError(
-                f"bvh_width={self.bvh_width}: the port walks 4-wide nodes "
-                "only; 8-wide fused rows wait for kernel K1 (ROADMAP "
-                "Queue 2, K1 trace_packets)")
+                "bvh_width=16: 16-wide rows are not ported (ROADMAP Queue "
+                "1, 'Not ported')")
+        if self.bvh_width not in (4, 8):
+            raise ValueError(
+                f"bvh_width must be 0, 4 or 8, got {self.bvh_width}")
+        if self.bvh_width == 8 and not self.flatten:
+            raise ValueError("bvh_width=8 requires flatten=True (no "
+                             "instance-node rows)")
         if self.max_leaf_tris < 1:
             raise ValueError("max_leaf_tris must be >= 1")
 
