@@ -5,9 +5,11 @@
 
 Builds the port's three CUDA kernels from the sources in this checkout
 (one nvcc per source, all started together), holds each against its
-plain PyTorch version on the card, drives the port's entry points
-through them, and measures them.  Phases (each raises, and so exits
-non-zero, on failure):
+plain PyTorch version on the card (hits and per-ray steps identical),
+drives the port's entry points through them, and measures them: kernel
+times are device times from CUDA events, beside each kernel's bound
+(``vortex_rt_tpu_torch/tools/walk_bounds.py``).  Phases (each raises,
+and so exits non-zero, on failure):
 
 1. device: a CUDA device is required; prints the card's name and power
    limit as nvidia-smi reports them;
@@ -28,21 +30,31 @@ non-zero, on failure):
    depth 2, shadow rays): the main path's run (launch counts reset
    before it), checked against the plain version; 3 x 16-frame bursts
    timed after a warm-up (Mrays/s as bench.py defines it); one primary
-   wave timed through K1 and plain.  Then one frame at depth 3 with a
-   reflective sphere (merged wave with live bounce lanes) against the
-   plain route;
+   wave timed through K1 (bare kernel call, CUDA events) and plain, with
+   its bound.  Then one frame at depth 3 with a reflective sphere
+   (merged wave with live bounce lanes) against the plain route;
 8. config 2 at 512x512 through the 4-wide route (K2's path, launch counts
    reset before it), against the plain route; one primary wave timed
-   through K2 and plain;
+   through K2 (CUDA events) and plain, with its bound;
 9. the scale scene, ``blob(n=187)`` at 1920x1080, spp 2, depth 2, shadow
    rays, 8-wide: one frame timed after a warm-up, table bytes, peak
-   memory;
+   memory; then the frame's four waves of one sample pass (primary,
+   shadow 0, bounce 1, shadow 1) captured, K1 checked against the plain
+   version on each and timed per wave (CUDA events), with steps per ray
+   (mean, warp maximum) and the bound;
+9b. K1 against its plain version on the scale scene's depth-9 tree: a
+   crop of ``SCALE_CROP`` camera rays (not a multiple of 32; 4,225
+   blocks of 128, over four times what 132 SMs hold at once at 8 blocks
+   each) and their shadow rays, in four modes (closest, 1/3 inactive,
+   occlusion, mixed);
 10. K7: ``run_walks`` against ``run_walks_ref`` at 29,140 rows (sums
     equal) for 16-, 96- and 512-byte row fetches, then the probe's entry
     point (launch counts reset before it) at 29,140 rows (14.2 MiB,
     L2-resident) and 1,048,576 rows (512 MiB, beyond L2): ns/step and
     ns/step/walk for k in {1, 4, 8, 16, 32} at each fetch width;
-11. prints the kernels' JSON line and, last, the device JSON line.
+11. prints the kernels' JSON line (per kernel: launches on its main-path
+    run and per frame, device time, plain time, bound, what bounds it and
+    the share of the bound) and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -71,6 +83,7 @@ K7_ROWS = (29140, 1048576)
 K7_STEPS = 2000
 K7_KS = "1,4,8,16,32"
 K7_WORDS = "4,24,128"  # 16 B, 96 B (K1's internal step), 512 B (TPU row)
+SCALE_CROP = 4 * 132 * 8 * 128 + 17  # rays of phase 9b
 
 
 def _check(ok, msg: str) -> None:
@@ -93,6 +106,22 @@ def _elapsed_ms(fn, reps: int, device) -> float:
         fn()
     _sync(device)
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` from CUDA events around ``reps`` calls,
+    after a warm-up call."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _kind(kw) -> str:
@@ -168,8 +197,9 @@ def camera_rays(cam, w: int, h: int, device):
 # ---------------------------------------------------------------- phases
 
 def compare_hits(label: str, got, want, steps_got, steps_want) -> float:
-    """Kernel hits against plain-version hits; returns the max abs error
-    over dist (hit lanes), bx and by."""
+    """Kernel hits and per-ray steps against the plain version's (ids,
+    hit split and steps exact, dist/bx/by within REL_TOL); returns the
+    max abs error over dist (hit lanes), bx and by."""
     import torch
 
     from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT
@@ -186,9 +216,10 @@ def compare_hits(label: str, got, want, steps_got, steps_want) -> float:
                f"{label}: {name} differs beyond rel {REL_TOL}")
         if a.numel():
             err = max(err, float((a - b).abs().max()))
-    same_steps = torch.equal(steps_got, steps_want)
+    _check(torch.equal(steps_got, steps_want),
+           f"{label}: per-ray steps differ from the plain version")
     print(f"  {label}: rays {hit.numel()} hit/occluded {int(hit.sum())} "
-          f"max_abs_err {err:.3g} same_steps {same_steps}")
+          f"max_abs_err {err:.3g} same_steps True")
     return err
 
 
@@ -320,17 +351,26 @@ def phase_small_frame_k1(device, size: int = 64) -> None:
           f"{waves[:5]}")
 
 
-def primary_wave(device, wa, walk, ref, size, reps) -> dict:
+def primary_wave(device, wa, timed, ref, work, bound, size, reps) -> dict:
+    """One primary wave: the kernel against its plain version ``ref``
+    (``work`` returns the plain hits, steps and work), timed with CUDA
+    events (``timed`` makes a function of no arguments that launches it)
+    and beside its bound."""
     o, d = camera_rays(config2_camera(), size, size, device)
-    k, ks = walk(wa, o, d)
-    pp, ps = ref(wa, o, d)
+    call = timed(wa, o, d)
+    k, ks = call()
+    pp, ps, wk = work(wa, o, d)
     err = compare_hits(f"primary {size}x{size}", k, pp, ks, ps)
-    ms = _elapsed_ms(lambda: walk(wa, o, d), reps, device)
+    b = bound(wk)
+    # (a CPU rehearsal has no device time)
+    ms = _device_ms(call, reps) if device.type == "cuda" else float("nan")
     plain_ms = _elapsed_ms(lambda: ref(wa, o, d), 3, device)
-    print(f"  primary wave {size}x{size}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, mean steps per ray "
-          f"{float(ks.float().mean()):.2f}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    print(f"  primary wave {size}x{size}: kernel {ms:.4f} ms (device), "
+          f"plain {plain_ms:.4f} ms, mean steps per ray "
+          f"{float(ks.float().mean()):.2f}, bound {b.ms:.4f} ms "
+          f"({b.bound_by}: {b.ops} ops, {b.bytes} B) = {b.ms / ms:.1%}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b.ms,
+                bound_by=b.bound_by)
 
 
 def main_path_run(label, rk, rp, params, size, device, name) -> int:
@@ -363,8 +403,9 @@ def phase_config2(device, size: int = 512, burst: int = 16, reps: int = 3,
                   wave_reps: int = 20) -> dict:
     from vortex_rt_tpu_torch import RenderParams
     from vortex_rt_tpu_torch.ops.traverse_packet import (
-        trace_packets, trace_packets_ref,
+        kernel_call, trace_packets, trace_packets_ref, walk_work,
     )
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
 
     rk, rp = renderer_pair(device, config2_scene(), trace_packets_ref)
     _check(rk.wa.width == 8 and rk.wa.fused is not None
@@ -389,8 +430,10 @@ def phase_config2(device, size: int = 512, burst: int = 16, reps: int = 3,
     print(f"  config 2 {size}x{size} spp2 d2 shadow: {total} rays in "
           f"{dt:.4f} s = {mrays:.3f} Mrays/s ({dt * 1e3 / (reps * burst):.3f}"
           f" ms/frame)")
-    wave = primary_wave(device, rk.wa, trace_packets, trace_packets_ref,
-                        size, wave_reps)
+    timed = (kernel_call if device.type == "cuda"
+             else lambda wa, o, d: lambda: trace_packets(wa, o, d))
+    wave = primary_wave(device, rk.wa, timed, trace_packets_ref, walk_work,
+                        wb.k1_bound, size, wave_reps)
 
     # ---- depth 3, reflective sphere: the merged wave with live lanes
     rk3, rp3 = renderer_pair(device, config2_scene(sphere_refl=0.5),
@@ -400,14 +443,16 @@ def phase_config2(device, size: int = 512, burst: int = 16, reps: int = 3,
                               rk3, rp3, p3, size, device)
     ms3 = _elapsed_ms(lambda: rk3.render(cam, p3, size, size), 3, device)
     print(f"  depth-3 frame {ms3:.3f} ms ({rays3} rays)")
-    return dict(launches=launches, mrays=mrays, **wave)
+    return dict(launches=launches, launches_per_frame=launches, mrays=mrays,
+                **wave)
 
 
 def phase_config2_k2(device, size: int = 512, wave_reps: int = 20) -> dict:
     from vortex_rt_tpu_torch import RenderParams
     from vortex_rt_tpu_torch.ops.packet_walk import (
-        trace_packets_walk, trace_packets_walk_ref,
+        trace_packets_walk, trace_packets_walk_ref, walk_work_4,
     )
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
 
     rk, rp = renderer_pair(device, config2_scene(width=4),
                            trace_packets_walk_ref)
@@ -417,9 +462,12 @@ def phase_config2_k2(device, size: int = 512, wave_reps: int = 20) -> dict:
                              rp, p, size, device, "packet_walk")
     ms = _elapsed_ms(lambda: rk.render(config2_camera(), p, size, size), 3, device)
     print(f"  4-wide frame {ms:.3f} ms")
-    wave = primary_wave(device, rk.wa, trace_packets_walk,
-                        trace_packets_walk_ref, size, wave_reps)
-    return dict(launches=launches, **wave)
+    # K2 has no bare launch: its wrapper call (one fill kernel for the
+    # search limits, then the walk) is what the events time
+    wave = primary_wave(
+        device, rk.wa, lambda wa, o, d: lambda: trace_packets_walk(wa, o, d),
+        trace_packets_walk_ref, walk_work_4, wb.k2_bound, size, wave_reps)
+    return dict(launches=launches, launches_per_frame=launches, **wave)
 
 
 def phase_scale(device, w: int = 1920, h: int = 1080) -> dict:
@@ -453,7 +501,95 @@ def phase_scale(device, w: int = 1920, h: int = 1080) -> dict:
                frame_ms=dt * 1e3, mrays=rays / dt / 1e6,
                peak_bytes=int(peak), host_build_s=build_s)
     print(f"  scale scene {w}x{h} spp2 d2 shadow: {json.dumps(out)}")
+    if device.type == "cuda":
+        out["waves"] = scale_waves(device, r, cam, p, w, h)
+    return out, r
+
+
+def scale_waves(device, r, cam, p, w: int, h: int, reps: int = 10) -> dict:
+    """The four waves of one sample pass of a scale frame: K1 against
+    the plain version on each (hits and steps), and its device time per
+    wave beside the bound."""
+    import torch
+
+    from vortex_rt_tpu_torch.ops.traverse_packet import kernel_call
+    from vortex_rt_tpu_torch.tools import k1_timing
+
+    waves = []
+
+    def capture(wa, o, d, **kw):
+        if len(waves) < len(k1_timing.SCALE_WAVES):
+            waves.append((o.clone(), d.clone(), {
+                k: (v.clone() if torch.is_tensor(v) else v)
+                for k, v in kw.items()}))
+        return r.walk(wa, o, d, **kw)
+
+    dataclasses.replace(r, walk=capture).render_burst(cam, p, w, h,
+                                                      n_frames=1)
+    _check(len(waves) == len(k1_timing.SCALE_WAVES),
+           f"a scale pass made {len(waves)} waves")
+    out = {}
+    for name, (o, d, kw) in zip(k1_timing.SCALE_WAVES, waves):
+        res = k1_timing.time_wave(r.wa, o, d, kw, {"k1": kernel_call}, reps)
+        v = res.pop("versions")["k1"]
+        res.update(ms=v["ms"], bound_share=v["bound_share"])
+        out[name] = res
+        print(f"  scale {name}: {res['rays']} lanes ({res['walking_rays']} "
+              f"walking), steps mean {res['mean_steps']:.3f} warp-max "
+              f"{res['warp_max_steps']:.3f} (SIMT {res['simt_efficiency']:.1%})"
+              f"; K1 {res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+              f"({res['bound_by']}) = {res['bound_share']:.1%}; hits and "
+              f"steps equal the plain version")
+    total = sum(v["ms"] for v in out.values())
+    print(f"  K1 device time per sample pass {total:.4f} ms, per frame "
+          f"{total * p.spp:.4f} ms")
     return out
+
+
+def phase_scale_k1(device, r, w: int = 1920, h: int = 1080) -> float:
+    """K1 against its plain version on the scale scene's tree (renderer
+    ``r``), on a crop of camera rays and their shadow rays."""
+    import torch
+
+    from vortex_rt_tpu_torch import RenderParams, Scene
+    from vortex_rt_tpu_torch.ops.traverse_packet import (
+        trace_packets, trace_packets_ref,
+    )
+    from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT
+
+    sb, wa = r.sb, r.wa
+    _check(wa.depth >= 9, f"scale tree depth {wa.depth} < 9")
+    n = SCALE_CROP if device.type == "cuda" else 4113
+    o, d = camera_rays(Scene.framing_camera(sb, 45.0, w / h), w, h, device)
+    _check(o.shape[0] >= n, f"crop of {n} rays exceeds the frame")
+    a = (o.shape[0] - n) // 2
+    o, d = o[a:a + n].contiguous(), d[a:a + n].contiguous()
+    base, _ = trace_packets_ref(wa, o, d)
+    hit = base.dist < LARGE_FLOAT
+    light = torch.tensor(RenderParams().light_pos, dtype=torch.float32,
+                         device=device)
+    hp = o + d * base.dist.clamp_max(1e18).unsqueeze(1)
+    sl = light - hp
+    dist_l = torch.sqrt((sl * sl).sum(1) + 1e-20)
+    sd = sl / dist_l.unsqueeze(1)
+    so, clamp = hp + sd * 1e-3, dist_l * (1.0 - 1e-3)
+    lane = torch.arange(n, device=device)
+    print(f"  depth {wa.depth}, {n} rays, {int(hit.sum())} camera hits")
+    err = 0.0
+    for mode, co, cd, kw in (
+            ("closest", o, d, dict()),
+            ("active", o, d, dict(active=lane % 3 != 0)),
+            ("shadow", so, sd, dict(active=hit, t_max=clamp,
+                                    occlusion=True)),
+            ("mixed", torch.cat([so, o]), torch.cat([sd, d]), dict(
+                active=torch.cat([hit, lane % 3 != 0]),
+                t_max=torch.cat([clamp, torch.full_like(clamp, LARGE_FLOAT)]),
+                occl_split=n))):
+        k, ks = trace_packets(wa, co, cd, **kw)
+        _sync(device)
+        pp, ps = trace_packets_ref(wa, co, cd, **kw)
+        err = max(err, compare_hits(f"scale/{mode}", k, pp, ks, ps))
+    return err
 
 
 def phase_k7(device, check_rows: int = K7_ROWS[0], check_steps: int = 500
@@ -462,6 +598,7 @@ def phase_k7(device, check_rows: int = K7_ROWS[0], check_steps: int = 500
 
     from vortex_rt_tpu_torch.runtime import kernels
     from vortex_rt_tpu_torch.tools import exp_hbm_walk as hw
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
 
     tab = hw.make_table(check_rows, device)
     err = 0
@@ -474,11 +611,13 @@ def phase_k7(device, check_rows: int = K7_ROWS[0], check_steps: int = 500
                    f"{int(got[0])} vs plain {int(want[0])}")
     print(f"  run_walks == run_walks_ref at {check_rows} rows, "
           f"{check_steps} steps, k in {K7_KS}, words in {K7_WORDS}")
-    ms = _elapsed_ms(lambda: hw.run_walks(tab, K7_STEPS, 1), 5, device)
+    ms = _device_ms(lambda: hw.run_walks(tab, K7_STEPS, 1), 5)
     plain_ms = _elapsed_ms(lambda: hw.run_walks_ref(tab, K7_STEPS, 1), 2,
                            device)
-    print(f"  {K7_STEPS} steps k=1, 512-B rows: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
+    b = wb.k7_bound(check_rows, K7_STEPS, 1, hw.W)
+    print(f"  {K7_STEPS} steps k=1, 512-B rows: kernel {ms:.4f} ms "
+          f"(device), plain {plain_ms:.4f} ms, bound {b.ms:.6f} ms "
+          f"({b.bound_by}; the probe measures latency, not this)")
     del tab
 
     # ---- the probe's entry point: counts reset just before, read after
@@ -491,8 +630,9 @@ def phase_k7(device, check_rows: int = K7_ROWS[0], check_steps: int = 500
     _sync(device)
     launches = kernels.LAUNCHES["hbm_walk"]
     _check(launches > 0, "the probe launched no hbm_walk")
-    return dict(launches=launches, max_abs_err=float(err), ms=ms,
-                plain_ms=plain_ms, curves=curves)
+    return dict(launches=launches, launches_per_frame=None,
+                max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                bound_ms=b.ms, bound_by=b.bound_by, curves=curves)
 
 
 def main() -> int:
@@ -546,7 +686,9 @@ def main() -> int:
     print("phase 8 config 2 through the 4-wide route (512x512)")
     c2k2 = phase_config2_k2(device)
     print("phase 9 scale scene (blob n=187, 1920x1080, 8-wide fused)")
-    sc = phase_scale(device)
+    sc, scale_r = phase_scale(device)
+    print("phase 9b K1 vs plain version on the scale scene's tree")
+    err9 = phase_scale_k1(device, scale_r)
     print("phase 10 K7 chained row-fetch probe")
     k7 = phase_k7(device)
     print(f"  summary: config2 {c2['mrays']:.3f} Mrays/s, scale "
@@ -556,13 +698,18 @@ def main() -> int:
     rows = []
     for name, res, err in (
             ("packet_walk", c2k2, max(err3, c2k2["max_abs_err"])),
-            ("traverse_packet", c2, max(err5, c2["max_abs_err"])),
+            ("traverse_packet", c2, max(err5, err9, c2["max_abs_err"])),
             ("hbm_walk", k7, k7["max_abs_err"])):
         src, replaces = SOURCES[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": res["launches"],
+                     "launches_per_frame": res["launches_per_frame"],
                      "max_abs_err": err,
-                     "ms": res["ms"], "plain_ms": res["plain_ms"]})
+                     "ms": res["ms"], "plain_ms": res["plain_ms"],
+                     "bound_ms": res["bound_ms"],
+                     "bound_by": res["bound_by"],
+                     "bound_share": res["bound_ms"] / res["ms"],
+                     "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,12 +13,13 @@ import pytest
 import torch
 
 import vortex_rt_tpu_torch as pt
+from vortex_rt_tpu_torch.models.bigscenes import blob
 from vortex_rt_tpu_torch.models.procedural import box, cornell_box, uv_sphere
 from vortex_rt_tpu_torch.ops.packet_walk import (
     trace_packets_walk, trace_packets_walk_ref,
 )
 from vortex_rt_tpu_torch.ops.traverse_packet import (
-    trace_packets, trace_packets_ref,
+    kernel_call, trace_packets, trace_packets_ref,
 )
 from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays
 from vortex_rt_tpu_torch.runtime import kernels
@@ -110,6 +111,89 @@ def test_k1_kernel_matches_plain_version(cuda, mode):
         assert torch.equal(a, b)
     assert torch.equal(ks, ps)
     assert bool((k.dist < 1e30).any())
+
+
+@pytest.fixture(scope="module")
+def deep_build():
+    """blob(n=160): 51,200 triangles, an 8-wide tree of depth 9 (the
+    scale scene's depth, where the walk's stack runs deepest)."""
+    sc = pt.Scene()
+    sc.add_instance(sc.add_mesh(blob(n=160)))
+    return sc.build(pt.RTConfig(flatten=True))
+
+
+def _deep_rays(cuda, n):
+    """Rays from a shell of radius 3 towards random points near the
+    blob's centre (most hit), with a third of the lanes inactive."""
+    g = torch.Generator().manual_seed(n)
+    o = torch.nn.functional.normalize(torch.randn(n, 3, generator=g)) * 3.0
+    target = (torch.rand(n, 3, generator=g) - 0.5) * 1.2
+    d = torch.nn.functional.normalize(target - o)
+    t_max = 1.5 + 3.0 * torch.rand(n, generator=g)
+    active = torch.arange(n) % 3 != 1
+    return o.to(cuda), d.to(cuda), active.to(cuda), t_max.to(cuda)
+
+
+@pytest.mark.parametrize("count", ["1", "31", "33", "many_blocks"])
+@pytest.mark.parametrize("mode", ["closest", "occlusion", "occl_split"])
+def test_k1_deep_tree_matches_plain_version(cuda, deep_build, count, mode):
+    """K1 gives the plain version's hits and per-ray steps on a depth-9
+    tree, for ray counts below and past a warp and past what the card
+    holds at once (4,225 blocks of 128: four times 132 SMs x 8 blocks,
+    and one more)."""
+    wa = WideArrays.from_scene(deep_build, 8).fuse().to(cuda)
+    assert wa.depth >= 9
+    n = 4 * 132 * 8 * 128 + 17 if count == "many_blocks" else int(count)
+    o, d, active, t_max = _deep_rays(cuda, n)
+    kw = dict(active=active)
+    if mode == "occlusion":
+        kw.update(t_max=t_max, occlusion=True)
+    elif mode == "occl_split":
+        split = max(n // 3, 1)
+        split += split % 32 == 0  # not a multiple of 32
+        kw.update(t_max=torch.where(torch.arange(n, device=cuda) < split,
+                                    t_max, torch.full_like(t_max, 1e30)),
+                  occl_split=split)
+    before = kernels.LAUNCHES["traverse_packet"]
+    k, ks = trace_packets(wa, o, d, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["traverse_packet"] == before + 1
+    p, ps = trace_packets_ref(wa, o, d, **kw)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert torch.equal(ks, ps)
+    if n > 1:
+        assert bool((p.dist < 1e30).any())
+
+
+def test_k1_rejects_a_tree_deeper_than_its_stack(cuda, deep_build):
+    """The shared-memory stack holds 48 entries (48 KB a block): a tree
+    that needs more raises before any launch."""
+    import dataclasses
+
+    wa = WideArrays.from_scene(deep_build, 8).fuse().to(cuda)
+    o, d, _, _ = _deep_rays(cuda, 64)
+    trace_packets(dataclasses.replace(wa, depth=44), o, d)
+    before = kernels.LAUNCHES["traverse_packet"]
+    with pytest.raises(ValueError, match="stack entries"):
+        trace_packets(dataclasses.replace(wa, depth=45), o, d)
+    assert kernels.LAUNCHES["traverse_packet"] == before
+
+
+def test_k1_kernel_call_relaunches(cuda, deep_build):
+    """The bare launch writes every output on each call: a second launch
+    into the same (overwritten) outputs gives the first one's results."""
+    wa = WideArrays.from_scene(deep_build, 8).fuse().to(cuda)
+    o, d, active, _ = _deep_rays(cuda, 4097)
+    call = kernel_call(wa, o, d, active=active)
+    hits, steps = call()
+    first = [x.clone() for x in (*hits, steps)]
+    for x in (*hits, steps):
+        x.fill_(-7)
+    hits, steps = call()
+    torch.cuda.synchronize()
+    for a, b in zip((*hits, steps), first):
+        assert torch.equal(a, b)
 
 
 def test_k1_frame_matches_plain_route(cuda):

@@ -1,6 +1,7 @@
 """The port's 8-wide walk (``trace_packets`` on CPU tensors, i.e. its
 plain PyTorch version ``trace_packets_ref``) against the JAX package's
-``trace_packets(..., packet=32)`` on fused 8-wide tables.
+``trace_packets(..., packet=32)`` on fused 8-wide tables; then the
+kernel's exact byte decode and the work count behind its bound.
 
 The ``tests/test_wide8.py`` scene (a box, a sphere and a 300-triangle
 random soup as three instances of one flattened build, 462 triangles)
@@ -24,11 +25,19 @@ import numpy as np
 import pytest
 import torch
 
+import vortex_rt_tpu_torch as pt
 from vortex_rt_tpu_torch import bridge
+from vortex_rt_tpu_torch.models.procedural import box, quad, uv_sphere
+from vortex_rt_tpu_torch.ops import traverse_packet as tp
+from vortex_rt_tpu_torch.ops.packet_walk import (
+    trace_packets_walk_ref, walk_work_4,
+)
 from vortex_rt_tpu_torch.ops.traverse_packet import (
     trace_packets, trace_packets_ref,
 )
+from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays
 from vortex_rt_tpu_torch.runtime import kernels
+from vortex_rt_tpu_torch.tools import walk_bounds as wb
 from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -217,3 +226,127 @@ def test_wrapper_rejects_bad_inputs(jax_reference, bad):
         twa = dataclasses.replace(twa, width=4)
     with pytest.raises(ValueError):
         trace_packets(twa, o, d, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("pos", [0, 1, 2, 3])
+def test_qbyte_is_exact_for_every_byte(pos, dtype):
+    """The kernel's byte decode (the byte in the mantissa of 2**23, less
+    2**23) equals the int -> float conversion for all 256 values at each
+    byte position of random u32 words."""
+    rng = np.random.default_rng(pos)
+    words = rng.integers(0, 2**32, size=(256, 8), dtype=np.uint64)
+    sh = 8 * pos
+    words = (words & ~np.uint64(255 << sh)) \
+        | (np.arange(256, dtype=np.uint64)[:, None] << np.uint64(sh))
+    w = torch.from_numpy(words.astype(np.int64))
+    if dtype == torch.int32:  # the raw int32 view of the same words
+        w = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+    got = tp.qbyte(w, sh)
+    want = ((w >> sh) & 255).to(torch.float32)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(got[:, 0], torch.arange(256, dtype=torch.float32))
+
+
+def _three_quads():
+    """Three unit quads facing -z at x = -6, 0 and 6."""
+    sc = pt.Scene()
+    for x in (-6.0, 0.0, 6.0):
+        sc.add_instance(sc.add_mesh(quad(
+            (x - 0.5, -0.5, 0), (x + 0.5, -0.5, 0), (x + 0.5, 0.5, 0),
+            (x - 0.5, 0.5, 0))))
+    return WideArrays.from_scene(sc.build(pt.RTConfig(flatten=True)),
+                                 8).fuse()
+
+
+def test_walk_work_and_bound_match_a_count_by_hand():
+    wa = _three_quads()
+    # the tree: a root with two children, a leaf holding the quad at -6
+    # (2 triangles) and a leaf holding the quads at 0 and 6 (4 triangles)
+    words = wa.fused.to(torch.int64) & 0xFFFFFFFF
+    meta = words[:, tp._META]
+    assert wa.fused.shape == (3, 96)
+    assert (meta >> 29).tolist() == [0, 1, 1]
+    assert int((meta[0] >> 25) & 15) == 2
+    assert words[1:, tp._LEAF].tolist() == [2, 4]
+    # rays down +z at x = -6, 0, 6 (hits), 1.5 (inside the second leaf's
+    # box, between its quads: a miss), above everything (y = 3), and an
+    # inactive one
+    o = torch.tensor([[-6.0, 0.1, -5.0], [0.0, 0.1, -5.0], [6.0, 0.1, -5.0],
+                      [1.5, 0.0, -5.0], [0.0, 3.0, -5.0], [0.0, 0.0, -5.0]])
+    d = torch.tensor([[0.0, 0.0, 1.0]] * 6)
+    active = torch.tensor([True] * 5 + [False])
+    hits, steps, work = tp.walk_work(wa, o, d, active=active)
+    assert (hits.dist[:3] == 5.0).all() and (hits.dist[3:] >= LARGE_FLOAT).all()
+    # every live ray tests the root's 2 children; the first four then
+    # test one leaf each (2, 4, 4 and 4 triangle slots); the fifth stops
+    assert steps.tolist() == [2, 2, 2, 2, 1, 0]
+    assert work.internal.tolist() == [1] * 5 + [0]
+    assert work.child_slots.tolist() == [2] * 5 + [0]
+    assert work.leaf.tolist() == [1, 1, 1, 1, 0, 0]
+    assert work.tri_slots.tolist() == [2, 4, 4, 4, 0, 0]
+    assert work.instance.tolist() == [0] * 6
+    # the rows read: the root's boxes and meta (96 B), each leaf's meta
+    # quarter (16 B) and its triangle slots (40 B each)
+    assert work.row_bytes.tolist() == [96, 16 + 2 * 40, 16 + 4 * 40]
+    b = wb.k1_bound(work)
+    assert b.ops == 37 * 10 + 19 * 5 + 53 * 14  # 1,207
+    # 5 walking rays read 29 B, the inactive one 5 B (flag and t_max);
+    # all write 28 B; each row read once, only the words the walk uses
+    assert b.bytes == 5 * 29 + 5 + 6 * 28 + 96 + 96 + 176  # 686
+    assert b.bound_by == "bytes"
+    assert b.ms == pytest.approx(686 / 3.35e12 * 1e3)
+
+
+def test_bound_of_a_wave_with_no_walking_ray():
+    """A wave whose lanes are all inactive (or clamped to t_max <= 0)
+    reads only flags and t_max and writes misses: 33 B a ray, no row."""
+    wa = _three_quads()
+    o = torch.tensor([[0.0, 0.1, -5.0]] * 7)
+    d = torch.tensor([[0.0, 0.0, 1.0]] * 7)
+    active = torch.tensor([False] * 5 + [True] * 2)
+    t_max = torch.tensor([1e30] * 5 + [0.0, -1.0])
+    hits, steps, work = tp.walk_work(wa, o, d, active=active, t_max=t_max)
+    assert (hits.dist >= LARGE_FLOAT).all() and int(steps.sum()) == 0
+    assert int(work.row_bytes.sum()) == 0
+    b = wb.k1_bound(work)
+    assert (b.ops, b.bytes, b.bound_by) == (0, 7 * (5 + 28), "bytes")
+
+
+@pytest.mark.parametrize("width", [4, 8])
+def test_walk_work_adds_up_to_steps(width):
+    """Every step of a flat walk is an internal or a leaf step, and the
+    counting walk gives the plain walk's hits and steps."""
+    sc = pt.Scene()
+    sc.add_instance(sc.add_mesh(box((0.5, 0.3, 0.5), 0.4)))
+    sc.add_instance(sc.add_mesh(uv_sphere((-0.5, 0, 0), 0.6, 8, 12)))
+    wa = WideArrays.from_scene(sc.build(pt.RTConfig(flatten=True)), width)
+    rng = np.random.default_rng(width)
+    o = torch.from_numpy(rng.uniform(-2, 2, (300, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(
+        torch.from_numpy(rng.normal(size=(300, 3)).astype(np.float32)))
+    if width == 8:
+        wa = wa.fuse()
+        hits, steps, work = tp.walk_work(wa, o, d)
+        want, want_steps = trace_packets_ref(wa, o, d)
+    else:
+        hits, steps, work = walk_work_4(wa, o, d)
+        want, want_steps = trace_packets_walk_ref(wa, o, d)
+    assert torch.equal(steps, want_steps)
+    for a, b in zip(hits, want):
+        assert torch.equal(a, b)
+    assert bool((hits.dist < LARGE_FLOAT).any())
+    assert torch.equal(work.internal + work.leaf, steps.to(torch.int64))
+    assert bool((work.child_slots <= width * work.internal).all())
+    assert bool((work.tri_slots <= wa.max_leaf_tris * work.leaf).all())
+    assert int(work.instance.sum()) == 0
+    # rows are read once each, and no more of a row than it holds
+    visited = work.row_bytes > 0
+    if width == 8:
+        assert bool((work.row_bytes <= wa.fused.shape[1] * 4).all())
+    else:
+        assert work.row_bytes.numel() == (wa.nodes.shape[0]
+                                          + wa.tri_rows.shape[0])
+        assert bool((work.row_bytes[:wa.nodes.shape[0]] <= 128).all())
+    assert 0 < int(visited.sum()) < work.row_bytes.numel()

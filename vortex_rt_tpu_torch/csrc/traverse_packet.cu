@@ -1,4 +1,4 @@
-// traverse_packet.cu — per-ray walk of the 8-wide fused BVH on Hopper.
+// traverse_packet.cu — per-ray walk of the 8-wide fused BVH on Hopper (K1).
 //
 // Replaces the XLA while_loop `trace_packets` of
 // vortex_rt_tpu/ops/traverse_packet.py:202 (loop body :543-894) on the JAX
@@ -9,27 +9,44 @@
 // in occlusion mode, the rest closest-hit: the frame loop's merged
 // shadow+bounce wave).
 //
-// Design.  One thread walks one ray.  The JAX loop walked packets of rays
-// over the union of their paths, near-first by the packet-minimum child
-// distance; only the hits must match, so each thread walks its own path,
-// near-first by its own distance.  Per step the thread reads its fused row
-// (32 node words, then the node's own leaf slots): the meta quarter first,
-// then either the 8 quantized child boxes (slab tests, the JAX 19-comparator
-// descending network, nearest child taken, the others deferred) or the
-// leaf's Moller-Trumbore tests.  Deferred children are kept as the JAX
-// body's packed words for width 8 (traverse_packet.py:634-643):
-// `left << 4 | count` and 7 three-bit sorted slot ids, one entry per
-// descended level, so a stack of depth + 4 entries cannot overflow; a pop
-// takes the nearest deferred child and decrements the count in place until
-// the entry is spent.
+// The walk.  One thread walks one ray over its own path, near-first by its
+// own entry distance.  A step reads the node's fused row (32 node words,
+// then the node's own leaf slots): the meta quarter first, then either the
+// 8 quantized child boxes (slab tests, the JAX 19-comparator descending
+// network, nearest child taken, the others deferred) or the leaf's
+// Moller-Trumbore tests.  Deferred children are kept as the JAX body's
+// packed words for width 8 (traverse_packet.py:634-643): `left << 4 |
+// count` and 7 three-bit sorted slot ids, one entry per descended level,
+// so a stack of depth + 4 entries cannot overflow; a pop takes the nearest
+// deferred child and decrements the count in place until the entry is
+// spent.  Every ray visits the same nodes, and takes the same number of
+// steps, as in the plain PyTorch version (ops/traverse_packet.py).
 //
-// What bounds it on this card: the latency of dependent row fetches.  Each
-// step's row address comes from the previous step, so a warp waits one
-// memory round trip per step; the fused table (14-40 MB at the shipped
-// scenes) stays in the 50 MB L2.  Rows are read as 16-byte uint4 through
-// the read-only path (__ldg), and only the parts a node kind needs.  This
-// first version is simple and correct, not fast: no warp-level
-// cooperation, no ray reordering, no persistent threads.
+// What bounds it on this card: instruction issue.  An internal step is
+// ~840 SASS instructions a warp, of which the FP32 work of the slab tests
+// and the sort is about a third (PERF.md); its row is one 128-B line from
+// L1 or L2 (the table, 14-40 MB at the shipped scenes, stays in the 50 MB
+// L2).  The design, each piece measured against the kernel without it
+// (tools/k1_timing.py):
+// - quantized bytes decode exactly with PRMT + FADD, not an int -> float
+//   conversion: the byte goes into the low mantissa byte of 2^23 and 2^23
+//   is taken off;
+// - the deferred-children stack lives in shared memory, depth + 4 entries
+//   of 8 B per thread, sized at launch, entry e of thread t at
+//   [e * VRT_BLOCK + t] (no bank conflicts), so the kernel keeps no
+//   local-memory stack frame;
+// - while-while: a warp steps internal nodes while any lane is at one,
+//   then leaves while any lane is at one, so a warp whose lanes are split
+//   does not run both branches every step;
+// - a step reads the row's meta quarter first and the child boxes only at
+//   an internal node, which keeps the kernel at 64 registers (8 blocks of
+//   128 threads per SM);
+// - the nearest child comes out of the sorted slot ids packed 3 bits
+//   each (the stack entry's second word) by one shift, not a select per
+//   slot;
+// - one block per 128 rays.  Persistent warps fed 32 rays at a time from
+//   a global counter (Aila & Laine, HPG 2009) walked no faster on the
+//   frame's waves, and refilling idle lanes early walked slower (PERF.md).
 //
 // Numerics match the JAX body and the plain PyTorch version bit for bit:
 // the f32 slab test of `_slab_test` (corners g + f*s), the |d| < 1e-20
@@ -44,23 +61,48 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define VRT_STACK_MAX 64
+// 48 entries x 8 B x 128 threads = 48 KB, the shared memory a block gets
+// without opting in (a depth-44 tree; the shipped ones are 7-9 deep)
+#define VRT_STACK_MAX 48
 #define VRT_LARGE 1e30f
 #define VRT_EPS 1e-6f
 #define VRT_INT_MAX 2147483647
 #define VRT_LEFT_MASK8 ((1u << 25) - 1u)
 #define VRT_ROW_WORDS 32
 #define VRT_BLOCK 128
+#define VRT_STK_STRIDE VRT_BLOCK  // entries between a thread's stack levels
 
 namespace {
+
+struct WalkArgs {
+    const uint4* fused;    // (N, row_words) words
+    const float* o;        // (R, 3)
+    const float* d;        // (R, 3)
+    const float* limit;    // (R,) t_max (LARGE when none)
+    const uint8_t* active;  // (R,) bool
+    float* dist_out;
+    float* bx_out;
+    float* by_out;
+    float* bz_out;
+    int* tri_out;
+    int* inst_out;
+    int* steps_out;
+    int n_rays, n_nodes, row_vec4, lmax, tri_bits, stack_n, max_steps;
+    int occl_split;
+};
 
 __device__ __forceinline__ float rcp_clamped(float d) {
     const float dd = (fabsf(d) < 1e-20f) ? ((d < 0.0f) ? -1e-20f : 1e-20f) : d;
     return 1.0f / dd;
 }
 
-__device__ __forceinline__ float qbyte(uint32_t w, int sh) {
-    return (float)(int)((w >> sh) & 255u);
+// Byte k of w as a float, exactly: the byte becomes the low mantissa byte
+// of 2^23 (0x4B0000bb; selector nibbles k, 5, 6, 7 over the 8 bytes of
+// {0x4B000000, w}) and 2^23 is subtracted.  Equal to (float)b for every
+// byte b, so the corners g + b * s keep their bits.
+__device__ __forceinline__ float qbyte(uint32_t w, uint32_t k) {
+    return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7650u | k))
+        - 8388608.0f;
 }
 
 __device__ __forceinline__ void cswap_desc(float* ds, int* ix, int a, int b) {
@@ -71,56 +113,47 @@ __device__ __forceinline__ void cswap_desc(float* ds, int* ix, int a, int b) {
     }
 }
 
-__global__ void __launch_bounds__(VRT_BLOCK) traverse_packet_kernel(
-        const uint4* __restrict__ fused,   // (N, row_words) words
-        const float* __restrict__ o,       // (R, 3)
-        const float* __restrict__ d,       // (R, 3)
-        const float* __restrict__ limit,   // (R,) t_max (LARGE when none)
-        const uint8_t* __restrict__ active,  // (R,) bool
-        float* __restrict__ dist_out, float* __restrict__ bx_out,
-        float* __restrict__ by_out, float* __restrict__ bz_out,
-        int* __restrict__ tri_out, int* __restrict__ inst_out,
-        int* __restrict__ steps_out,
-        int n_rays, int n_nodes, int row_vec4, int lmax, int tri_bits,
-        int max_steps, int occl_split) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n_rays) return;
+// Pops the nearest deferred child off the stack (sc > 0): its node index.
+__device__ __forceinline__ int pop_deferred(int2* stk, int& sc, int stack_n) {
+    const int at = min(sc - 1, stack_n - 1) * VRT_STK_STRIDE;
+    const int2 top = stk[at];
+    const int c_top = top.x & 15;
+    if (c_top > 1) stk[at].x = top.x - 1; else --sc;
+    return (top.x >> 4) + ((top.y >> (3 * max(c_top - 1, 0))) & 7);
+}
 
-    const float ox = o[3 * i + 0], oy = o[3 * i + 1], oz = o[3 * i + 2];
-    const float dx = d[3 * i + 0], dy = d[3 * i + 1], dz = d[3 * i + 2];
-    const float ivx = rcp_clamped(dx), ivy = rcp_clamped(dy), ivz = rcp_clamped(dz);
-    const float lim = limit[i];
-    const bool on = active[i] != 0;
-    const bool occ = i < occl_split;
-
+// Walks ray i; `stk` is this thread's first stack entry in shared memory.
+__device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
+    const float lim = a.limit[i];
+    const bool on = a.active[i] != 0;
+    const bool occ = i < a.occl_split;
     // best_t doubles as the liveness register: dead lanes carry -LARGE and
     // never walk; an occlusion hit drops it to -LARGE and retires the ray
     float best_t = on ? lim : -VRT_LARGE;
     float bx = 0.0f, by = 0.0f;
-    int tri = 0;
-
-    int st0[VRT_STACK_MAX];   // left << 4 | deferred count
-    int st1[VRT_STACK_MAX];   // 7 x 3-bit sorted slot ids
-    int node = 0, sc = 0, steps = 0;
+    int tri = 0, sc = 0, steps = 0;
     bool alive = best_t > 0.0f;
+    float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+    float ivx = 0.0f, ivy = 0.0f, ivz = 0.0f;
+    const uint4* row = a.fused;
+    uint4 w5 = make_uint4(0u, 0u, 0u, 0u);  // words 20..23: boxes, meta, leaf_n
+    if (alive) {  // a ray that never walks needs no o, d or row
+        ox = a.o[3 * i + 0]; oy = a.o[3 * i + 1]; oz = a.o[3 * i + 2];
+        dx = a.d[3 * i + 0]; dy = a.d[3 * i + 1]; dz = a.d[3 * i + 2];
+        ivx = rcp_clamped(dx); ivy = rcp_clamped(dy); ivz = rcp_clamped(dz);
+        w5 = __ldg(row + 5);
+    }
 
-    while (alive && steps < max_steps) {
-        const int node_c = min(max(node, 0), n_nodes - 1);
-        const uint4* row = fused + (size_t)node_c * row_vec4;
-        const uint4 w5 = __ldg(row + 5);            // words 20..23
-        const uint32_t meta = w5.z;
-        const int kind = (int)(meta >> 29);
-        const int nch = (int)((meta >> 25) & 15u);
-        const int left = (int)(meta & VRT_LEFT_MASK8);
-        const int leaf_n = (int)w5.w;
-
-        int nxt = node;
-        bool descended = false;
-        if (kind == 0) {
-            // ---- internal: 8 slab tests, far->near network, defer ----
+    while (alive) {
+        // ---- while-while: internal steps while any lane is at an
+        // internal node, then leaf steps while any lane is at a leaf
+        while (alive && (w5.z >> 29) == 0u) {
             const uint4 w0 = __ldg(row + 0), w1 = __ldg(row + 1);
             const uint4 w2 = __ldg(row + 2), w3 = __ldg(row + 3);
             const uint4 w4 = __ldg(row + 4);
+            const uint32_t meta = w5.z;
+            const int nch = (int)((meta >> 25) & 15u);
+            const int left = (int)(meta & VRT_LEFT_MASK8);
             const float gx = __uint_as_float(w0.x), gy = __uint_as_float(w0.y);
             const float gz = __uint_as_float(w0.z), sx = __uint_as_float(w0.w);
             const float sy = __uint_as_float(w1.x), sz = __uint_as_float(w1.y);
@@ -131,11 +164,11 @@ __global__ void __launch_bounds__(VRT_BLOCK) traverse_packet_kernel(
 #pragma unroll
             for (int c = 0; c < 8; ++c) {
                 const float lx = gx + qbyte(ql[c], 0) * sx;
-                const float ly = gy + qbyte(ql[c], 8) * sy;
-                const float lz = gz + qbyte(ql[c], 16) * sz;
+                const float ly = gy + qbyte(ql[c], 1) * sy;
+                const float lz = gz + qbyte(ql[c], 2) * sz;
                 const float hx = gx + qbyte(qh[c], 0) * sx;
-                const float hy = gy + qbyte(qh[c], 8) * sy;
-                const float hz = gz + qbyte(qh[c], 16) * sz;
+                const float hy = gy + qbyte(qh[c], 1) * sy;
+                const float hz = gz + qbyte(qh[c], 2) * sz;
                 const float t1x = (lx - ox) * ivx, t2x = (hx - ox) * ivx;
                 const float t1y = (ly - oy) * ivy, t2y = (hy - oy) * ivy;
                 const float t1z = (lz - oz) * ivz, t2z = (hz - oz) * ivz;
@@ -159,111 +192,126 @@ __global__ void __launch_bounds__(VRT_BLOCK) traverse_packet_kernel(
             cswap_desc(ds, ix, 1, 4); cswap_desc(ds, ix, 3, 6);
             cswap_desc(ds, ix, 1, 2); cswap_desc(ds, ix, 3, 4);
             cswap_desc(ds, ix, 5, 6);
-            int m = 0;
+            // the sorted slot ids, 3 bits each: the low 21 bits are the
+            // stack entry's second word
+            int m = 0, perm = 0;
 #pragma unroll
-            for (int c = 0; c < 8; ++c) m += (ds[c] > -VRT_LARGE) ? 1 : 0;
+            for (int c = 0; c < 8; ++c) {
+                m += (ds[c] > -VRT_LARGE) ? 1 : 0;
+                perm |= ix[c] << (3 * c);
+            }
+            int nxt = 0;
             if (m >= 1) {
                 // sorted far -> near: the nearest hit child sits at m - 1
-                int child = ix[0];
-#pragma unroll
-                for (int c = 1; c < 8; ++c) child = (c == m - 1) ? ix[c] : child;
-                nxt = left + child;
-                descended = true;
-                const int cnt_def = m - 1;
-                if (cnt_def >= 1) {
-                    int word1 = ix[0] & 7;
-#pragma unroll
-                    for (int j = 1; j < 7; ++j) word1 |= (ix[j] & 7) << (3 * j);
-                    const int at = min(sc, VRT_STACK_MAX - 1);
-                    st0[at] = (left << 4) | cnt_def;
-                    st1[at] = word1;
+                nxt = left + ((perm >> (3 * (m - 1))) & 7);
+                if (m >= 2) {
+                    stk[min(sc, a.stack_n - 1) * VRT_STK_STRIDE] =
+                        make_int2((left << 4) | (m - 1), perm & 0x1FFFFF);
                     ++sc;
                 }
-            }
-        } else if (kind == 1) {
-            // ---- triangle leaf: up to lmax Moller-Trumbore tests over the
-            // row's own slots, folded to the leaf's best, then the ray's
-            const float4* tr = reinterpret_cast<const float4*>(row) + VRT_ROW_WORDS / 4;
-            float t_min = VRT_LARGE, w1_sel = 0.0f, w2_sel = 0.0f;
-            int tid_sel = VRT_INT_MAX;
-            for (int c = 0; c < lmax; ++c) {
-                const float4 a4 = __ldg(tr + 4 * c + 0);  // v0x v0y v0z e1x
-                const float4 b4 = __ldg(tr + 4 * c + 1);  // e1y e1z e2x e2y
-                const float4 c4 = __ldg(tr + 4 * c + 2);  // e2z tid pad pad
-                const float v0x = a4.x, v0y = a4.y, v0z = a4.z;
-                const float e1x = a4.w, e1y = b4.x, e1z = b4.y;
-                const float e2x = b4.z, e2y = b4.w, e2z = c4.x;
-                const int tid = __float_as_int(c4.y);
-                const float hx_ = dy * e2z - dz * e2y;
-                const float hy_ = dz * e2x - dx * e2z;
-                const float hz_ = dx * e2y - dy * e2x;
-                const float a = e1x * hx_ + e1y * hy_ + e1z * hz_;
-                const float fba = 1.0f / ((fabsf(a) < VRT_EPS) ? 1.0f : a);
-                const float sx_ = ox - v0x, sy_ = oy - v0y, sz_ = oz - v0z;
-                const float w1 = fba * (sx_ * hx_ + sy_ * hy_ + sz_ * hz_);
-                const float qx = sy_ * e1z - sz_ * e1y;
-                const float qy = sz_ * e1x - sx_ * e1z;
-                const float qz = sx_ * e1y - sy_ * e1x;
-                const float w2 = fba * (dx * qx + dy * qy + dz * qz);
-                float t = fba * (e2x * qx + e2y * qy + e2z * qz);
-                const bool ok = (fabsf(a) >= VRT_EPS) && (w1 >= 0.0f) && (w1 <= 1.0f)
-                    && (w2 >= 0.0f) && (w1 + w2 <= 1.0f) && (t > VRT_EPS)
-                    && (c < leaf_n);
-                t = ok ? t : VRT_LARGE;
-                const bool better = (t < t_min)
-                    || ((t == t_min) && (t < VRT_LARGE) && (tid < tid_sel));
-                if (better) {
-                    t_min = t; tid_sel = tid; w1_sel = w1; w2_sel = w2;
-                }
-            }
-            if (occ) {
-                if (t_min < best_t) best_t = -VRT_LARGE;
+            } else if (sc > 0) {
+                nxt = pop_deferred(stk, sc, a.stack_n);  // nothing hit
             } else {
-                const bool upd = (t_min < best_t)
-                    || ((t_min == best_t) && (t_min < VRT_LARGE) && (tid_sel < tri));
-                if (upd) {
-                    best_t = t_min; bx = w1_sel; by = w2_sel; tri = tid_sel;
-                }
+                alive = false;  // empty stack: the ray is done
+            }
+            ++steps;
+            if (steps >= a.max_steps) alive = false;
+            if (alive) {
+                row = a.fused + (size_t)min(max(nxt, 0), a.n_nodes - 1) * a.row_vec4;
+                w5 = __ldg(row + 5);
             }
         }
-        // (flat builds hold no instance nodes; any other kind pops)
-
-        // pop when we didn't descend; the ray ends on an empty stack
-        if (!descended) {
-            if (sc > 0) {
-                const int at = min(sc - 1, VRT_STACK_MAX - 1);
-                const int top = st0[at];
-                const int c_top = top & 15;
-                const int slot = (st1[at] >> (3 * max(c_top - 1, 0))) & 7;
-                nxt = (top >> 4) + slot;
-                if (c_top > 1) {
-                    st0[at] = top - 1;
+        while (alive && (w5.z >> 29) != 0u) {
+            if ((w5.z >> 29) == 1u) {
+                // ---- triangle leaf: the row's leaf_n Moller-Trumbore
+                // tests (slots past leaf_n never win the fold), folded to
+                // the leaf's best, then into the ray's
+                const float4* tr =
+                    reinterpret_cast<const float4*>(row) + VRT_ROW_WORDS / 4;
+                const int n_slots = min(a.lmax, (int)w5.w);
+                float t_min = VRT_LARGE, w1_sel = 0.0f, w2_sel = 0.0f;
+                int tid_sel = VRT_INT_MAX;
+                for (int c = 0; c < n_slots; ++c) {
+                    const float4 a4 = __ldg(tr + 4 * c + 0);  // v0x v0y v0z e1x
+                    const float4 b4 = __ldg(tr + 4 * c + 1);  // e1y e1z e2x e2y
+                    const float4 c4 = __ldg(tr + 4 * c + 2);  // e2z tid pad pad
+                    const float v0x = a4.x, v0y = a4.y, v0z = a4.z;
+                    const float e1x = a4.w, e1y = b4.x, e1z = b4.y;
+                    const float e2x = b4.z, e2y = b4.w, e2z = c4.x;
+                    const int tid = __float_as_int(c4.y);
+                    const float hx_ = dy * e2z - dz * e2y;
+                    const float hy_ = dz * e2x - dx * e2z;
+                    const float hz_ = dx * e2y - dy * e2x;
+                    const float det = e1x * hx_ + e1y * hy_ + e1z * hz_;
+                    const float fba = 1.0f / ((fabsf(det) < VRT_EPS) ? 1.0f : det);
+                    const float sx_ = ox - v0x, sy_ = oy - v0y, sz_ = oz - v0z;
+                    const float w1 = fba * (sx_ * hx_ + sy_ * hy_ + sz_ * hz_);
+                    const float qx = sy_ * e1z - sz_ * e1y;
+                    const float qy = sz_ * e1x - sx_ * e1z;
+                    const float qz = sx_ * e1y - sy_ * e1x;
+                    const float w2 = fba * (dx * qx + dy * qy + dz * qz);
+                    float t = fba * (e2x * qx + e2y * qy + e2z * qz);
+                    const bool ok = (fabsf(det) >= VRT_EPS) && (w1 >= 0.0f)
+                        && (w1 <= 1.0f) && (w2 >= 0.0f) && (w1 + w2 <= 1.0f)
+                        && (t > VRT_EPS);
+                    t = ok ? t : VRT_LARGE;
+                    const bool better = (t < t_min)
+                        || ((t == t_min) && (t < VRT_LARGE) && (tid < tid_sel));
+                    if (better) {
+                        t_min = t; tid_sel = tid; w1_sel = w1; w2_sel = w2;
+                    }
+                }
+                if (occ) {
+                    if (t_min < best_t) best_t = -VRT_LARGE;
                 } else {
-                    --sc;
+                    const bool upd = (t_min < best_t)
+                        || ((t_min == best_t) && (t_min < VRT_LARGE)
+                            && (tid_sel < tri));
+                    if (upd) {
+                        best_t = t_min; bx = w1_sel; by = w2_sel; tri = tid_sel;
+                    }
                 }
-            } else {
-                alive = false;
+            }
+            // (flat builds hold no instance nodes; any other kind pops)
+            int nxt = 0;
+            if (sc > 0) nxt = pop_deferred(stk, sc, a.stack_n);
+            else alive = false;
+            ++steps;
+            if (steps >= a.max_steps || (occ && !(best_t > 0.0f))) alive = false;
+            if (alive) {
+                row = a.fused + (size_t)min(max(nxt, 0), a.n_nodes - 1) * a.row_vec4;
+                w5 = __ldg(row + 5);
             }
         }
-        if (occ && !(best_t > 0.0f)) alive = false;
-        node = nxt;
-        ++steps;
     }
 
-    steps_out[i] = steps;
-    bx_out[i] = bx;
-    by_out[i] = by;
-    bz_out[i] = 1.0f - bx - by;
+    a.steps_out[i] = steps;
+    a.bx_out[i] = bx;
+    a.by_out[i] = by;
+    a.bz_out[i] = 1.0f - bx - by;
     if (occ) {
-        dist_out[i] = (on && best_t < 0.0f) ? 0.0f : VRT_LARGE;
+        a.dist_out[i] = (on && best_t < 0.0f) ? 0.0f : VRT_LARGE;
     } else {
         // a real hit is strictly inside the clamp; unhit rays still carry
         // their initial t_max and report a miss
-        dist_out[i] = (best_t < 0.0f || best_t >= lim) ? VRT_LARGE : best_t;
+        a.dist_out[i] = (best_t < 0.0f || best_t >= lim) ? VRT_LARGE : best_t;
     }
     // leaf tids are packed (inst << tri_bits) | tri; misses carry 0
-    tri_out[i] = tri & ((1 << tri_bits) - 1);
-    inst_out[i] = tri >> tri_bits;
+    a.tri_out[i] = tri & ((1 << a.tri_bits) - 1);
+    a.inst_out[i] = tri >> a.tri_bits;
+}
+
+__global__ void __launch_bounds__(VRT_BLOCK) traverse_packet_kernel(
+        const __grid_constant__ WalkArgs a) {
+    // deferred-children stack: entry e of thread t at
+    // stack_smem[e * VRT_STK_STRIDE + t] as (left << 4 | count, 7 x 3-bit ids)
+    extern __shared__ int2 stack_smem[];
+    const int i = blockIdx.x * VRT_BLOCK + threadIdx.x;
+    if (i < a.n_rays) walk_ray(a, i, stack_smem + threadIdx.x);
+}
+
+size_t stack_bytes(int stack_n) {
+    return (size_t)stack_n * sizeof(int2) * VRT_BLOCK;
 }
 
 }  // namespace
@@ -274,7 +322,7 @@ extern "C" const char* vrt_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }
 
-// Launches the walk on `stream` and returns cudaGetLastError() (0 = ok).
+// Launches the walk on `stream` and returns the first CUDA error (0 = ok).
 // Pointers are device pointers of contiguous tensors; the caller
 // allocates every output.
 extern "C" int vrt_traverse_packet(
@@ -284,18 +332,21 @@ extern "C" int vrt_traverse_packet(
         int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
         int stack_n, int max_steps, int occl_split, void* stream) {
     if (n_rays <= 0) return 0;
-    if (stack_n > VRT_STACK_MAX || row_words < VRT_ROW_WORDS + 16 * lmax
+    if (stack_n < 1 || stack_n > VRT_STACK_MAX
+            || row_words < VRT_ROW_WORDS + 16 * lmax
             || (row_words - VRT_ROW_WORDS) % 16 != 0 || n_nodes <= 0
             || tri_bits <= 0 || tri_bits > 30) {
         return (int)cudaErrorInvalidValue;
     }
-    const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
-    traverse_packet_kernel<<<grid, VRT_BLOCK, 0, (cudaStream_t)stream>>>(
+    const WalkArgs a = {
         (const uint4*)fused, (const float*)o, (const float*)d,
         (const float*)limit, (const uint8_t*)active,
         (float*)dist, (float*)bx, (float*)by, (float*)bz,
         (int*)tri, (int*)inst, (int*)steps,
-        n_rays, n_nodes, row_words / 4, lmax, tri_bits, max_steps,
-        occl_split);
+        n_rays, n_nodes, row_words / 4, lmax, tri_bits, stack_n, max_steps,
+        occl_split};
+    const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
+    traverse_packet_kernel<<<grid, VRT_BLOCK, stack_bytes(stack_n),
+                             (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

@@ -6,6 +6,7 @@ and its plain PyTorch version (port of
 launches ``csrc/packet_walk.cu`` (one thread per ray) or raises; for CPU
 tensors it runs ``trace_packets_walk_ref``, the plain PyTorch version of
 the same per-ray walk.  There is no fallback between the two.
+``walk_work_4`` counts what a walk computes, for its bound.
 
 Semantics (shared with the JAX package's ``trace_packets_pallas``):
 ``active`` masks dead rays (they report a miss), ``t_max`` clamps the
@@ -20,7 +21,7 @@ closest hit is a min over a ray's own candidates with a lexicographic
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,6 +37,46 @@ MAX_STEPS = 400_000
 _INT_MAX = 2**31 - 1
 # the child sorting network of the TPU kernel (packet_walk.py:148)
 _SORT_NET = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))
+# bytes of a triangle slot a leaf test reads: v0, e1, e2 and the tid
+TRI_SLOT_BYTES = 40
+
+
+class WalkWork(NamedTuple):
+    """What a BVH walk computes, per ray ((R,) int64 each), as the plain
+    versions count it: steps at internal nodes and the child slots they
+    test (each node's child count), steps at triangle leaves and the
+    triangle slots they test (each leaf's triangle count), and steps at
+    instance nodes (TLAS builds); and per table row ((rows,) int64), the
+    bytes of it the walk reads (0 for a row no ray visits)."""
+
+    internal: torch.Tensor
+    child_slots: torch.Tensor
+    leaf: torch.Tensor
+    tri_slots: torch.Tensor
+    instance: torch.Tensor
+    row_bytes: torch.Tensor
+
+    @staticmethod
+    def zeros(r: int, rows: int, device) -> "WalkWork":
+        return WalkWork(*(torch.zeros(r, dtype=torch.int64, device=device)
+                          for _ in range(5)),
+                        torch.zeros(rows, dtype=torch.int64, device=device))
+
+    def read(self, row, nbytes, mask) -> None:
+        """Rays in ``mask`` read ``nbytes`` of table row ``row`` (a row
+        read by many rays, or many times, counts once)."""
+        self.row_bytes.scatter_reduce_(0, row[mask], nbytes[mask].to(
+            torch.int64), reduce="amax")
+
+    def add(self, is_int, nch, is_leaf, leaf_slots, is_inst=None) -> None:
+        """Count one lockstep step (masks and counts per ray)."""
+        self.internal.add_(is_int.to(torch.int64))
+        self.child_slots.add_(torch.where(is_int, nch, 0).to(torch.int64))
+        self.leaf.add_(is_leaf.to(torch.int64))
+        self.tri_slots.add_(torch.where(is_leaf, leaf_slots, 0)
+                            .to(torch.int64))
+        if is_inst is not None:
+            self.instance.add_(is_inst.to(torch.int64))
 
 
 def stack_entries(wa: WideArrays) -> int:
@@ -168,6 +209,25 @@ def trace_packets_walk_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     per-ray stacks in an (R, S) tensor.  The same child sorting network
     and the same arithmetic order as the kernel, so both give the same
     hits and the same per-ray step counts to the bit."""
+    hits, steps, _ = _walk_ref(wa, o, d, active, t_max, occlusion,
+                               max_steps, False)
+    return hits, steps
+
+
+def walk_work_4(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
+                active: Optional[torch.Tensor] = None,
+                t_max: Optional[torch.Tensor] = None,
+                occlusion: bool = False, max_steps: int = MAX_STEPS
+                ) -> Tuple[Hits, torch.Tensor, WalkWork]:
+    """The plain 4-wide walk of these rays, with what it computes per
+    ray: (Hits, steps, WalkWork).  ``tools/walk_bounds.py`` turns the
+    work into a bound."""
+    return _walk_ref(wa, o, d, active, t_max, occlusion, max_steps, True)
+
+
+def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
+              max_steps: int, count: bool):
+    """(Hits, steps, WalkWork or None) of the plain 4-wide walk."""
     _check(wa, o, d, active, t_max)
     dev = o.device
     r = o.shape[0]
@@ -201,6 +261,7 @@ def trace_packets_walk_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     steps = torch.zeros(r, dtype=torch.int32, device=dev)
     stack = torch.zeros((r, stack_n), dtype=torch.int64, device=dev)
     alive = limit > 0.0
+    work = WalkWork.zeros(r, n_nodes + n_rows, dev) if count else None
 
     while bool(alive.any()):
         node_c = node.clamp(0, n_nodes - 1)
@@ -310,6 +371,15 @@ def trace_packets_walk_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                 tri_b = torch.where(better, tid, tri_b)
                 bi_b = torch.where(better, inst, bi_b)
         best_t, bx, by, tri, binst = t_b, bx_b, by_b, tri_b, bi_b
+        if count:
+            slots = leaf_n.clamp(0, lmax).to(torch.int64)
+            work.add(is_int, nch, is_leaf, slots, is_inst)
+            # the kernel's reads: a node's meta quarter (words 12..15) at
+            # every step, then its boxes (words 0..11) or its transform
+            # (words 16..31); a leaf's triangle slots in its tri row
+            work.read(node_c, torch.where(is_int, 64, torch.where(
+                is_inst, 80, 16)), alive)
+            work.read(n_nodes + row_i, TRI_SLOT_BYTES * slots, is_leaf)
 
         # ---- instance: world ray -> instance space, descend to BLAS ----
         mm = [row_f[:, INST_XFORM + k] for k in range(12)]
@@ -349,7 +419,8 @@ def trace_packets_walk_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     if occlusion:
         occluded = (limit > 0.0) & (best_t < 0.0)
         dist = torch.where(occluded, f32(0.0), large)
-        return Hits(dist, bx, by, bz, torch.zeros_like(tri), binst), steps
+        return (Hits(dist, bx, by, bz, torch.zeros_like(tri), binst), steps,
+                work)
     # a real hit is strictly inside the clamp; unhit rays still carry
     # their initial t_max and report a miss
     miss = (best_t < 0.0) | (best_t >= limit)
@@ -359,4 +430,4 @@ def trace_packets_walk_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
         binst = tri >> wa.tri_bits
         tri = tri & ((1 << wa.tri_bits) - 1)
     dist = torch.where(miss, large, best_t)
-    return Hits(dist, bx, by, bz, tri, binst), steps
+    return Hits(dist, bx, by, bz, tri, binst), steps, work

@@ -7,6 +7,8 @@ path's tables: flat 8-wide builds after ``WideArrays.fuse``).
 tensors it launches ``csrc/traverse_packet.cu`` (one thread per ray) or
 raises; for CPU tensors it runs ``trace_packets_ref``, the plain PyTorch
 version of the same per-ray walk.  There is no fallback between the two.
+``kernel_call`` is the bare launch, for timing it; ``walk_work`` counts
+what a walk computes, for its bound.
 
 Semantics (shared with the JAX ``trace_packets``): ``active`` masks dead
 rays (they report a miss), ``t_max`` clamps the search interval,
@@ -31,11 +33,13 @@ Queue 1, item 8).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
-from vortex_rt_tpu_torch.ops.packet_walk import _rcp, check_rays
+from vortex_rt_tpu_torch.ops.packet_walk import (
+    TRI_SLOT_BYTES, WalkWork, _rcp, check_rays,
+)
 from vortex_rt_tpu_torch.ops.traverse2 import Hits
 from vortex_rt_tpu_torch.ops.traverse_wide import (
     LEFT_BITS8, ROW_WORDS, WideArrays, row_layout,
@@ -45,6 +49,7 @@ from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT, MT_EPSILON
 
 MAX_STEPS = 400_000
 WIDTH = 8
+_F23 = 0x4B000000  # 2**23 as float32 bits
 _INT_MAX = 2**31 - 1
 _MISS = -LARGE_FLOAT  # sort key of a culled child (descending sort)
 _QLO, _QHI, _META, _LEAF = row_layout(WIDTH)
@@ -54,6 +59,16 @@ _LEFT_MASK = (1 << LEFT_BITS8) - 1
 _SORT_NET8 = ((0, 2), (1, 3), (4, 6), (5, 7), (0, 4), (1, 5), (2, 6),
               (3, 7), (0, 1), (2, 3), (4, 5), (6, 7), (2, 4), (3, 5),
               (1, 4), (3, 6), (1, 2), (3, 4), (5, 6))
+
+
+def qbyte(w: torch.Tensor, sh: int) -> torch.Tensor:
+    """Byte ``sh // 8`` of u32 words ``w`` (int32 or int64) as float32,
+    decoded as the kernel decodes it: the byte becomes the low mantissa
+    byte of 2**23, and 2**23 is subtracted.  Equal to
+    ``((w >> sh) & 255).float()`` for every byte, with no int -> float
+    conversion."""
+    bits = (((w >> sh) & 255) | _F23).to(torch.int32)
+    return bits.view(torch.float32) - 8388608.0
 
 
 def stack_entries(wa: WideArrays) -> int:
@@ -99,12 +114,27 @@ def trace_packets(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
 
     CUDA tensors launch the hand-written kernel; CPU tensors run the
     plain PyTorch version."""
-    _check(wa, o, d, active, t_max, occl_split)
     if o.device.type == "cpu":
         return trace_packets_ref(wa, o, d, active, t_max, occlusion,
                                  occl_split, max_steps)
+    return kernel_call(wa, o, d, active, t_max, occlusion, occl_split,
+                       max_steps)()
+
+
+def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
+                active: Optional[torch.Tensor] = None,
+                t_max: Optional[torch.Tensor] = None,
+                occlusion: bool = False, occl_split: int = 0,
+                max_steps: int = MAX_STEPS
+                ) -> Callable[[], Tuple[Hits, torch.Tensor]]:
+    """The kernel launch of ``trace_packets`` for CUDA tensors, with the
+    inputs checked and the outputs allocated once.  Each call of the
+    returned function launches the kernel into the same outputs and
+    returns them, and does nothing else: CUDA events around many calls
+    time the kernel alone."""
+    _check(wa, o, d, active, t_max, occl_split)
     if o.device.type != "cuda":
-        raise ValueError(f"no walk for device {o.device}")
+        raise ValueError(f"no CUDA walk for device {o.device}")
     lib = kernels.load("traverse_packet")
     stack_n = stack_entries(wa)
     cap = int(lib.lib.vrt_traverse_packet_stack_max())
@@ -128,22 +158,27 @@ def trace_packets(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     i32 = dict(dtype=torch.int32, device=dev)
     dist, bx, by, bz = (torch.empty(r, **f32) for _ in range(4))
     tri, inst, steps = (torch.empty(r, **i32) for _ in range(3))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lib.vrt_traverse_packet(
-            wa.fused.data_ptr(), o.data_ptr(), d.data_ptr(),
-            limit.data_ptr(), on.data_ptr(), dist.data_ptr(),
-            bx.data_ptr(), by.data_ptr(), bz.data_ptr(), tri.data_ptr(),
-            inst.data_ptr(), steps.data_ptr(), r, wa.fused.shape[0],
-            wa.fused.shape[1], max(int(wa.max_leaf_tris), 1),
-            int(wa.tri_bits), stack_n, int(max_steps),
-            _split(r, occlusion, occl_split), stream)
-    if err != 0:
-        raise RuntimeError(f"traverse_packet launch failed: "
-                           f"{lib.error_string(err)} ({err})")
-    if r > 0:
-        kernels.LAUNCHES["traverse_packet"] += 1
-    return Hits(dist, bx, by, bz, tri, inst), steps
+    split = _split(r, occlusion, occl_split)
+
+    def launch() -> Tuple[Hits, torch.Tensor]:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.lib.vrt_traverse_packet(
+                wa.fused.data_ptr(), o.data_ptr(), d.data_ptr(),
+                limit.data_ptr(), on.data_ptr(), dist.data_ptr(),
+                bx.data_ptr(), by.data_ptr(), bz.data_ptr(), tri.data_ptr(),
+                inst.data_ptr(), steps.data_ptr(), r,
+                wa.fused.shape[0], wa.fused.shape[1],
+                max(int(wa.max_leaf_tris), 1), int(wa.tri_bits), stack_n,
+                int(max_steps), split, stream)
+        if err != 0:
+            raise RuntimeError(f"traverse_packet launch failed: "
+                               f"{lib.error_string(err)} ({err})")
+        if r > 0:
+            kernels.LAUNCHES["traverse_packet"] += 1
+        return Hits(dist, bx, by, bz, tri, inst), steps
+
+    return launch
 
 
 def trace_packets_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
@@ -157,9 +192,31 @@ def trace_packets_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     All rays step together: each step gathers every live ray's fused row,
     evaluates the internal and leaf paths with masks, and keeps per-ray
     stacks of packed deferred-children entries in two (R, S) tensors.
-    The same sorting network, stack words and arithmetic order as the
-    kernel, so both give the same hits and the same per-ray step counts
-    to the bit."""
+    The same sorting network, stack words, byte decode and arithmetic
+    order as the kernel, so both give the same hits and the same per-ray
+    step counts to the bit."""
+    hits, steps, _ = _walk_ref(wa, o, d, active, t_max, occlusion,
+                               occl_split, max_steps, False)
+    return hits, steps
+
+
+def walk_work(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
+              active: Optional[torch.Tensor] = None,
+              t_max: Optional[torch.Tensor] = None,
+              occlusion: bool = False, occl_split: int = 0,
+              max_steps: int = MAX_STEPS
+              ) -> Tuple[Hits, torch.Tensor, WalkWork]:
+    """The plain walk of these rays, with what it computes per ray:
+    (Hits, steps, WalkWork of internal steps and their child slots, leaf
+    steps and their triangle slots).  ``tools/walk_bounds.py`` turns the
+    work into a bound."""
+    return _walk_ref(wa, o, d, active, t_max, occlusion, occl_split,
+                     max_steps, True)
+
+
+def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
+              occl_split: int, max_steps: int, count: bool):
+    """(Hits, steps, WalkWork or None) of the plain walk."""
     _check(wa, o, d, active, t_max, occl_split)
     dev = o.device
     r = o.shape[0]
@@ -193,9 +250,7 @@ def trace_packets_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     st0 = torch.zeros((r, stack_n), dtype=torch.int64, device=dev)
     st1 = torch.zeros((r, stack_n), dtype=torch.int64, device=dev)
     alive = best_t > 0.0
-
-    def qb(w, sh):
-        return ((w >> sh) & 255).to(torch.float32)
+    work = WalkWork.zeros(r, n_nodes, dev) if count else None
 
     while bool(alive.any()):
         node_c = node.clamp(0, n_nodes - 1)
@@ -217,12 +272,12 @@ def trace_packets_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
         for c in range(WIDTH):
             ql = row[:, _QLO + c]
             qh = row[:, _QHI + c]
-            lx = gx + qb(ql, 0) * sx
-            ly = gy + qb(ql, 8) * sy
-            lz = gz + qb(ql, 16) * sz
-            hx = gx + qb(qh, 0) * sx
-            hy = gy + qb(qh, 8) * sy
-            hz = gz + qb(qh, 16) * sz
+            lx = gx + qbyte(ql, 0) * sx
+            ly = gy + qbyte(ql, 8) * sy
+            lz = gz + qbyte(ql, 16) * sz
+            hx = gx + qbyte(qh, 0) * sx
+            hy = gy + qbyte(qh, 8) * sy
+            hz = gz + qbyte(qh, 16) * sz
             t1x = (lx - ox) * ivx
             t2x = (hx - ox) * ivx
             t1y = (ly - oy) * ivy
@@ -308,6 +363,14 @@ def trace_packets_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
         bx = torch.where(upd, w1_sel, bx)
         by = torch.where(upd, w2_sel, by)
         tri = torch.where(upd, tid_sel, tri)
+        if count:
+            slots = leaf_n.clamp(0, lmax)
+            work.add(is_int, nch, is_tri, slots)
+            # the kernel's reads: the row's words 20..23 (the last child
+            # boxes, meta, leaf_n) at every step, words 0..19 (the other
+            # boxes) at an internal node, the triangle slots at a leaf
+            work.read(node_c, torch.where(is_int, 96, torch.where(
+                is_tri, 16 + TRI_SLOT_BYTES * slots, 16)), alive)
 
         # ---- pop when we didn't descend; an empty stack ends the ray ----
         can_pop = sc > 0
@@ -334,4 +397,4 @@ def trace_packets_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     tri32 = tri.to(torch.int32)
     tri_out = tri32 & ((1 << wa.tri_bits) - 1)
     inst_out = tri32 >> wa.tri_bits
-    return Hits(dist, bx, by, 1.0 - bx - by, tri_out, inst_out), steps
+    return Hits(dist, bx, by, 1.0 - bx - by, tri_out, inst_out), steps, work

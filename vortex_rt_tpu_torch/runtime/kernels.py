@@ -75,7 +75,8 @@ class KernelLibrary:
     path: Path
     lib: ctypes.CDLL
     build_seconds: float  # 0.0 when an up-to-date build was reused
-    build_log: str        # nvcc's output (ptxas register/spill report)
+    build_log: str        # nvcc's output (ptxas register/spill report),
+                          # kept beside the library for a reused build
 
     def error_string(self, err: int) -> str:
         return self.lib.vrt_error_string(int(err)).decode()
@@ -106,42 +107,58 @@ def _digest(src: bytes) -> str:
     return h.hexdigest()[:16]
 
 
+def _build(src_path: Path) -> Tuple[Path, float, str]:
+    """Compile ``src_path`` unless its build is up to date; returns the
+    library's path, nvcc's seconds (0.0 when reused) and its output."""
+    src = src_path.read_bytes()
+    so = BUILD_DIR / f"{src_path.stem}-{_digest(src)}.so"
+    log_path = so.with_name(so.name + ".log")
+    seconds, log = 0.0, ""
+    if so.exists():
+        if log_path.exists():
+            log = log_path.read_text()
+    else:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src_path)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=900)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed building {src_path} "
+                f"(rc {proc.returncode}):\n{log}")
+        log_path.write_text(log)
+        os.replace(tmp, so)
+    return so, seconds, log
+
+
+def load_file(name: str, src_path: Path) -> KernelLibrary:
+    """Build and load another source of kernel library ``name`` (another
+    version of the kernel, with the same C interface, for comparing the
+    two) with the same flags; not cached here."""
+    so, seconds, log = _build(Path(src_path))
+    lib = ctypes.CDLL(str(so))
+    for fn, (argtypes, restype) in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = restype
+    return KernelLibrary(name=name, path=so, lib=lib, build_seconds=seconds,
+                         build_log=log)
+
+
 def load(name: str) -> KernelLibrary:
     """Build ``csrc/<name>.cu`` if its build is missing or stale, load
     it, and declare its C signatures.  Raises on any failure."""
     if name not in _SIGNATURES:
         raise KeyError(f"unknown kernel library {name!r}")
     with _locks[name]:
-        if name in _loaded:
-            return _loaded[name]
-        src_path = SRC_DIR / f"{name}.cu"
-        src = src_path.read_bytes()
-        so = BUILD_DIR / f"{name}-{_digest(src)}.so"
-        seconds, log = 0.0, ""
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src_path)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=900)
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed building {src_path} "
-                    f"(rc {proc.returncode}):\n{log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        for fn, (argtypes, restype) in _SIGNATURES[name].items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = restype
-        kl = KernelLibrary(name=name, path=so, lib=lib,
-                           build_seconds=seconds, build_log=log)
-        _loaded[name] = kl
-        return kl
+        if name not in _loaded:
+            _loaded[name] = load_file(name, SRC_DIR / f"{name}.cu")
+        return _loaded[name]
 
 
 def load_all(names=None) -> Dict[str, KernelLibrary]:

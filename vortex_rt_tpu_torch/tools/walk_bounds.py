@@ -1,0 +1,109 @@
+"""The least time one H100 could take for a walk (its roofline bound).
+
+A bound is the larger of two times: the bytes the function must move
+(each input read once, each output written once) over the card's memory
+rate, and the FP32 operations it does on these inputs over the card's
+FP32 rate (NVIDIA's data sheet, H100 SXM: 3.35 TB/s of HBM3, 67 TFLOP/s
+FP32 outside the tensor cores; at the full 700 W power limit).  The
+walks' work depends on the data, so the operations are counted from
+what the plain version does on these rays (``WalkWork``), not from the
+most they could need:
+
+- a child slot of an internal step, ``OPS_PER_CHILD`` = 37: 6 FMUL and
+  6 FADD for the corners g + q*s, 6 FSUB and 6 FMUL for the slab
+  distances, 6 min/max of the pairs, 4 min/max folds, 3 comparisons;
+- the child sort of an internal step: one comparison per comparator,
+  ``OPS_SORT8`` = 19 (K1), ``OPS_SORT4`` = 5 (K2);
+- a triangle slot of a leaf step, ``OPS_PER_TRI`` = 53 (Moller-Trumbore
+  in the kernels' op order: 9 for h, 5 for a, 1 test and 1 reciprocal,
+  3 for s, 6 for u, 9 for q, 6 for v, 6 for t, 6 for the five tests,
+  1 for the fold);
+- an instance step (K2's TLAS builds), ``OPS_PER_INSTANCE`` = 36: the
+  4x3 transform of o (18) and d (15) and three reciprocals.
+
+Bytes: per walking ray o and d (24 B), t_max (4 B) and the active flag
+(1 B) in; a ray that takes no step (inactive, or t_max <= 0) needs only
+its flag and t_max (5 B); every ray writes dist, bx, by, bz, tri, inst
+and steps (28 B); of the tables, each row that some ray visits is read
+once, and only the words the walk uses of it (``WalkWork.row_bytes``:
+K1 96 B of an internal row, 16 B of a leaf row's meta and 40 B per
+triangle slot; K2 64 B of an internal node, 16 B of a leaf node, 80 B
+of an instance node, 40 B per triangle slot).  A wave in which no ray
+walks reads none of the tables.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+H100_BYTES_PER_S = 3.35e12
+H100_FP32_OPS_PER_S = 67e12
+
+OPS_PER_CHILD = 37
+OPS_SORT8 = 19
+OPS_SORT4 = 5
+OPS_PER_TRI = 53
+OPS_PER_INSTANCE = 36
+RAY_IN_BYTES = 29
+IDLE_RAY_IN_BYTES = 5
+HIT_OUT_BYTES = 28
+
+
+@dataclasses.dataclass(frozen=True)
+class Bound:
+    ops: int
+    bytes: int
+
+    @property
+    def ops_ms(self) -> float:
+        return self.ops / H100_FP32_OPS_PER_S * 1e3
+
+    @property
+    def bytes_ms(self) -> float:
+        return self.bytes / H100_BYTES_PER_S * 1e3
+
+    @property
+    def ms(self) -> float:
+        return max(self.ops_ms, self.bytes_ms)
+
+    @property
+    def bound_by(self) -> str:
+        return "operations" if self.ops_ms >= self.bytes_ms else "bytes"
+
+
+def walk_ops(work, sort_ops: int) -> int:
+    """FP32 operations of a walk from its per-ray ``WalkWork``."""
+    return int(OPS_PER_CHILD * work.child_slots.sum()
+               + sort_ops * work.internal.sum()
+               + OPS_PER_TRI * work.tri_slots.sum()
+               + OPS_PER_INSTANCE * work.instance.sum())
+
+
+def walk_bound(work, sort_ops: int) -> Bound:
+    """Bound of a walk of ``len(work.internal)`` rays from its
+    ``WalkWork``."""
+    r = int(work.internal.numel())
+    walking = int(((work.internal + work.leaf + work.instance) > 0).sum())
+    return Bound(ops=walk_ops(work, sort_ops),
+                 bytes=(walking * RAY_IN_BYTES
+                        + (r - walking) * IDLE_RAY_IN_BYTES
+                        + r * HIT_OUT_BYTES + int(work.row_bytes.sum())))
+
+
+def k1_bound(work) -> Bound:
+    """K1: the 8-wide walk over the fused table."""
+    return walk_bound(work, OPS_SORT8)
+
+
+def k2_bound(work) -> Bound:
+    """K2: the 4-wide walk over the node and triangle rows."""
+    return walk_bound(work, OPS_SORT4)
+
+
+def k7_bound(rows: int, steps: int, k: int, words: int) -> Bound:
+    """K7: ``steps`` dependent fetches of ``words`` words by each of ``k``
+    walks (at most every row once) and one int32 out; integer work only.
+    The probe measures dependent-fetch latency, so this is not its
+    target."""
+    fetched = min(steps * k, rows) * words * 4
+    return Bound(ops=0, bytes=fetched + 4)
