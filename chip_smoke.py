@@ -35,9 +35,16 @@ and so exits non-zero, on failure):
    (merged wave with live bounce lanes) against the plain route;
 8. config 2 at 512x512 through the 4-wide route (K2's path, launch counts
    reset before it), against the plain route; one primary wave timed
-   through K2 (CUDA events) and plain, with its bound;
+   through K2 (the bare kernel call, CUDA events) and plain, with its
+   bound;
+8b. the native host builder: compiles ``csrc/builder.cpp``, builds the
+   blob and the atrium with it, prints build seconds beside the NumPy
+   build's for the blob, and checks the native-built blob against the
+   NumPy-built one by K1's hits on a crop of camera rays (same hit mask,
+   same ``tri``, ``dist`` within 2e-4 relative).  The phases below use
+   the native builds;
 9. the scale scene, ``blob(n=187)`` at 1920x1080, spp 2, depth 2, shadow
-   rays, 8-wide: one frame timed after a warm-up, table bytes, peak
+   rays, Whitted, 8-wide: one frame timed after a warm-up, table bytes, peak
    memory; then the frame's four waves of one sample pass (primary,
    shadow 0, bounce 1, shadow 1) captured, K1 checked against the plain
    version on each and timed per wave (CUDA events), with steps per ray
@@ -47,13 +54,31 @@ and so exits non-zero, on failure):
    blocks of 128, over four times what 132 SMs hold at once at 8 blocks
    each) and their shadow rays, in four modes (closest, 1/3 inactive,
    occlusion, mixed);
+9c. ladder config 3's render: ``blob(n=187)``, 1920x1080, spp 4, depth 3,
+   shadow rays, path traced, 8-wide fused, host-built (the ladder's
+   on-device LBVH build is not ported): launch counts reset, one frame
+   after a warm-up through ``render_burst(n_frames=1)``; finite image,
+   rays, ms, Mrays/s, peak bytes, 5 K1 launches per sample pass; then
+   the kernel route against the plain route at ``PT_SMALL`` and spp 2
+   (equal ray counts, images within 1e-5); then the five waves of its
+   first sample pass as in 9e;
+9d. ladder config 4: ``atrium()`` (259,594 triangles), 1920x1080, spp 8,
+   depth 3, shadow rays, path traced; the same readings and checks;
+9e. the five waves of one sample pass of config 4 (closest 0, shadow 0,
+   closest 1, merged shadow 1 + closest 2, shadow 2) captured from a
+   frame: K1 against the plain version on each (hits and per-ray steps
+   exact), its device time (CUDA events around the bare launch), live
+   lanes, steps per ray (mean, warp maximum), SIMT efficiency, bound;
+9f. ``render_accum(n_passes=2, spp=2)`` of config 4 at ``PT_SMALL``
+   against the mean of two ``frame_body(total_spp=4)`` frames (1e-6);
 10. K7: ``run_walks`` against ``run_walks_ref`` at 29,140 rows (sums
     equal) for 16-, 96- and 512-byte row fetches, then the probe's entry
     point (launch counts reset before it) at 29,140 rows (14.2 MiB,
     L2-resident) and 1,048,576 rows (512 MiB, beyond L2): ns/step and
     ns/step/walk for k in {1, 4, 8, 16, 32} at each fetch width;
 11. prints the kernels' JSON line (per kernel: launches on its main-path
-    run and per frame, device time, plain time, bound, what bounds it and
+    run and per frame, K1's being config 4's frame with the other paths'
+    counts beside it; device time, plain time, bound, what bounds it and
     the share of the bound) and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package.
@@ -84,6 +109,9 @@ K7_STEPS = 2000
 K7_KS = "1,4,8,16,32"
 K7_WORDS = "4,24,128"  # 16 B, 96 B (K1's internal step), 512 B (TPU row)
 SCALE_CROP = 4 * 132 * 8 * 128 + 17  # rays of phase 9b
+NATIVE_CROP = 512 * 512              # rays of phase 8b's hit comparison
+PT_SMALL = (256, 144)                # frame of the path-traced plain route
+PT_WAVES = ("closest0", "shadow0", "closest1", "merged1", "shadow2")
 
 
 def _check(ok, msg: str) -> None:
@@ -160,13 +188,26 @@ def tlas_scene():
     return sc.build(cfg), cfg
 
 
-def scale_scene():
+def scale_scene(native: bool = True):
     """The ladder's config-3 scene: blob(n=187), 69,938 triangles."""
     from vortex_rt_tpu_torch import RTConfig, Scene
     from vortex_rt_tpu_torch.models.bigscenes import blob
 
     sc = Scene()
     sc.add_instance(sc.add_mesh(blob(n=187)))
+    cfg = RTConfig(flatten=True, use_native_build=native)
+    return sc.build(cfg), cfg
+
+
+def atrium_scene():
+    """The ladder's config-4 scene: atrium(), 259,594 triangles in 29
+    meshes (native build)."""
+    from vortex_rt_tpu_torch import RTConfig, Scene
+    from vortex_rt_tpu_torch.models.bigscenes import atrium
+
+    sc = Scene()
+    for mesh, refl in atrium():
+        sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
     cfg = RTConfig(flatten=True)
     return sc.build(cfg), cfg
 
@@ -288,17 +329,21 @@ def renderer_pair(device, scene, ref):
     return rk, dataclasses.replace(rk, walk=ref)
 
 
-def frame_vs_plain(label, rk, rp, params, size, device):
-    """Render one frame through both routes; returns (image, rays)."""
+def frame_vs_plain(label, rk, rp, params, size, device, cam=None):
+    """Render one frame through both routes; returns (image, rays).
+    ``size`` is the side of a square frame or (w, h); the camera is
+    config 2's unless given."""
     import numpy as np
 
-    img_k, rays_k = rk.render(config2_camera(), params, size, size)
+    w, h = (size, size) if isinstance(size, int) else size
+    cam = cam or config2_camera()
+    img_k, rays_k = rk.render(cam, params, w, h)
     _sync(device)
-    img_p, rays_p = rp.render(config2_camera(), params, size, size)
+    img_p, rays_p = rp.render(cam, params, w, h)
     _sync(device)
     _check(rays_k == rays_p, f"{label}: ray counts differ: {rays_k} vs "
            f"{rays_p}")
-    _check(img_k.shape == (size, size, 3) and np.isfinite(img_k).all(),
+    _check(img_k.shape == (h, w, 3) and np.isfinite(img_k).all(),
            f"{label}: kernel-route image is not a finite (H, W, 3) image")
     diff = float(np.abs(img_k - img_p).max())
     _check(diff <= IMG_ATOL, f"{label}: images differ by {diff} > {IMG_ATOL}")
@@ -450,7 +495,7 @@ def phase_config2(device, size: int = 512, burst: int = 16, reps: int = 3,
 def phase_config2_k2(device, size: int = 512, wave_reps: int = 20) -> dict:
     from vortex_rt_tpu_torch import RenderParams
     from vortex_rt_tpu_torch.ops.packet_walk import (
-        trace_packets_walk, trace_packets_walk_ref, walk_work_4,
+        kernel_call, trace_packets_walk, trace_packets_walk_ref, walk_work_4,
     )
     from vortex_rt_tpu_torch.tools import walk_bounds as wb
 
@@ -462,24 +507,23 @@ def phase_config2_k2(device, size: int = 512, wave_reps: int = 20) -> dict:
                              rp, p, size, device, "packet_walk")
     ms = _elapsed_ms(lambda: rk.render(config2_camera(), p, size, size), 3, device)
     print(f"  4-wide frame {ms:.3f} ms")
-    # K2 has no bare launch: its wrapper call (one fill kernel for the
-    # search limits, then the walk) is what the events time
-    wave = primary_wave(
-        device, rk.wa, lambda wa, o, d: lambda: trace_packets_walk(wa, o, d),
-        trace_packets_walk_ref, walk_work_4, wb.k2_bound, size, wave_reps)
+    timed = (kernel_call if device.type == "cuda"
+             else lambda wa, o, d: lambda: trace_packets_walk(wa, o, d))
+    wave = primary_wave(device, rk.wa, timed, trace_packets_walk_ref,
+                        walk_work_4, wb.k2_bound, size, wave_reps)
     return dict(launches=launches, launches_per_frame=launches, **wave)
 
 
-def phase_scale(device, w: int = 1920, h: int = 1080) -> dict:
+def phase_scale(device, scene, w: int = 1920, h: int = 1080) -> dict:
     import numpy as np
     import torch
 
     from vortex_rt_tpu_torch import RenderParams, Scene, WavefrontRenderer
 
+    sb, cfg = scene
     t0 = time.perf_counter()
-    sb, cfg = scale_scene()
     r = WavefrontRenderer.from_buffers(sb, cfg, device=device)
-    build_s = time.perf_counter() - t0
+    tables_s = time.perf_counter() - t0
     cam = Scene.framing_camera(sb, 45.0, w / h)
     p = RenderParams(max_depth=2, spp=2, shadow=True)
     if device.type == "cuda":
@@ -499,26 +543,29 @@ def phase_scale(device, w: int = 1920, h: int = 1080) -> dict:
                fused_bytes=r.wa.fused.numel() * 4,
                table_bytes=r.wa.nbytes + r.sa.nbytes, rays=rays,
                frame_ms=dt * 1e3, mrays=rays / dt / 1e6,
-               peak_bytes=int(peak), host_build_s=build_s)
+               peak_bytes=int(peak), tables_s=tables_s)
     print(f"  scale scene {w}x{h} spp2 d2 shadow: {json.dumps(out)}")
     if device.type == "cuda":
         out["waves"] = scale_waves(device, r, cam, p, w, h)
     return out, r
 
 
-def scale_waves(device, r, cam, p, w: int, h: int, reps: int = 10) -> dict:
-    """The four waves of one sample pass of a scale frame: K1 against
-    the plain version on each (hits and steps), and its device time per
-    wave beside the bound."""
+def scale_waves(device, r, cam, p, w: int, h: int, reps: int = 10,
+                names=None, label: str = "scale") -> dict:
+    """The waves of the first sample pass of a frame (``names``; the
+    Whitted scale frame's four unless given): K1 against the plain
+    version on each (hits and steps), and its device time per wave beside
+    the bound."""
     import torch
 
     from vortex_rt_tpu_torch.ops.traverse_packet import kernel_call
     from vortex_rt_tpu_torch.tools import k1_timing
 
+    names = names or k1_timing.SCALE_WAVES
     waves = []
 
     def capture(wa, o, d, **kw):
-        if len(waves) < len(k1_timing.SCALE_WAVES):
+        if len(waves) < len(names):
             waves.append((o.clone(), d.clone(), {
                 k: (v.clone() if torch.is_tensor(v) else v)
                 for k, v in kw.items()}))
@@ -526,16 +573,22 @@ def scale_waves(device, r, cam, p, w: int, h: int, reps: int = 10) -> dict:
 
     dataclasses.replace(r, walk=capture).render_burst(cam, p, w, h,
                                                       n_frames=1)
-    _check(len(waves) == len(k1_timing.SCALE_WAVES),
-           f"a scale pass made {len(waves)} waves")
+    _check(len(waves) == len(names),
+           f"a {label} pass made {len(waves)} waves")
     out = {}
-    for name, (o, d, kw) in zip(k1_timing.SCALE_WAVES, waves):
+    for name, (o, d, kw) in zip(names, waves):
+        want = ("mixed" if name.startswith("merged") else "occlusion"
+                if name.startswith("shadow") else "closest")
+        _check(_kind(kw) == want, f"{label} {name} is a {_kind(kw)} wave")
         res = k1_timing.time_wave(r.wa, o, d, kw, {"k1": kernel_call}, reps)
         v = res.pop("versions")["k1"]
-        res.update(ms=v["ms"], bound_share=v["bound_share"])
+        res.update(ms=v["ms"], bound_share=v["bound_share"],
+                   live=int(kw["active"].sum()) if "active" in kw
+                   else o.shape[0])
         out[name] = res
-        print(f"  scale {name}: {res['rays']} lanes ({res['walking_rays']} "
-              f"walking), steps mean {res['mean_steps']:.3f} warp-max "
+        print(f"  {label} {name}: {res['rays']} lanes ({res['live']} live, "
+              f"{res['walking_rays']} walking), steps mean "
+              f"{res['mean_steps']:.3f} warp-max "
               f"{res['warp_max_steps']:.3f} (SIMT {res['simt_efficiency']:.1%})"
               f"; K1 {res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
               f"({res['bound_by']}) = {res['bound_share']:.1%}; hits and "
@@ -590,6 +643,148 @@ def phase_scale_k1(device, r, w: int = 1920, h: int = 1080) -> float:
         pp, ps = trace_packets_ref(wa, co, cd, **kw)
         err = max(err, compare_hits(f"scale/{mode}", k, pp, ks, ps))
     return err
+
+
+def phase_native_build(device, w: int = 1920, h: int = 1080):
+    """Build the native host builder and the two scale scenes with it;
+    returns ((blob buffers, config), (atrium buffers, config))."""
+    import torch
+
+    from vortex_rt_tpu_torch import Scene, WavefrontRenderer
+    from vortex_rt_tpu_torch.ops.traverse_packet import trace_packets
+    from vortex_rt_tpu_torch.runtime import native
+    from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT
+
+    native.load()
+    print(f"  csrc/builder.cpp: {native.cxx_path()} "
+          f"{' '.join(native.CXX_FLAGS)} in {native.build_seconds:.2f} s")
+    timed = {}
+    for name, make in (("blob native", scale_scene),
+                       ("blob numpy", lambda: scale_scene(native=False)),
+                       ("atrium native", atrium_scene)):
+        t0 = time.perf_counter()
+        timed[name] = make()
+        sb = timed[name][0]
+        print(f"  {name}: {sb.num_tris} triangles, "
+              f"{sb.bvh_left.shape[0]} binary nodes, scene assembly and "
+              f"build {time.perf_counter() - t0:.3f} s")
+    # the native tree against the NumPy tree, by what camera rays hit
+    sb = timed["blob native"][0]
+    o, d = camera_rays(Scene.framing_camera(sb, 45.0, w / h), w, h, device)
+    n = min(NATIVE_CROP, o.shape[0])
+    a0 = (o.shape[0] - n) // 2
+    o, d = o[a0:a0 + n].contiguous(), d[a0:a0 + n].contiguous()
+    hits = [trace_packets(WavefrontRenderer.from_buffers(
+        *timed[name], device=device).wa, o, d)[0]
+        for name in ("blob native", "blob numpy")]
+    a, b = hits
+    hit = b.dist < LARGE_FLOAT
+    _check(bool(hit.any()) and not bool(hit.all()),
+           "the crop does not hold both hits and misses")
+    _check(torch.equal(a.dist < LARGE_FLOAT, hit),
+           "native and NumPy builds: hit masks differ")
+    _check(torch.equal(a.tri[hit], b.tri[hit]),
+           "native and NumPy builds: hit triangles differ")
+    _check(torch.allclose(a.dist[hit], b.dist[hit], rtol=2e-4, atol=0.0),
+           "native and NumPy builds: dist differs beyond 2e-4 relative")
+    rel = float(((a.dist[hit] - b.dist[hit]).abs() / b.dist[hit]).max())
+    print(f"  native vs NumPy build of the blob: {n} camera rays, "
+          f"{int(hit.sum())} hits, same mask and tri, dist max rel diff "
+          f"{rel:.3g}")
+    return timed["blob native"], timed["atrium native"]
+
+
+def phase_pathtraced(device, label: str, scene, spp: int, w: int = 1920,
+                     h: int = 1080):
+    """A ladder path-traced config at full width through K1, then the
+    kernel route against the plain route at ``PT_SMALL``.  Returns
+    (readings, renderer, camera, params)."""
+    import numpy as np
+    import torch
+
+    from vortex_rt_tpu_torch import RenderParams, Scene, WavefrontRenderer
+    from vortex_rt_tpu_torch.ops.traverse_packet import (
+        trace_packets, trace_packets_ref,
+    )
+    from vortex_rt_tpu_torch.runtime import kernels
+
+    sb, cfg = scene
+    t0 = time.perf_counter()
+    r = WavefrontRenderer.from_buffers(sb, cfg, device=device)
+    tables_s = time.perf_counter() - t0
+    _check(r.wa.width == 8 and r.wa.fused is not None
+           and r.walk is trace_packets, f"{label} is not on the K1 route")
+    cam = Scene.framing_camera(sb, 45.0, w / h)
+    p = RenderParams(max_depth=3, spp=spp, shadow=True, pathtrace=True)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    # warm-up frame; its image is the one checked
+    img, _ = r.render_burst(cam, p, w, h, n_frames=1, seed0=100)
+    _check(img.shape == (h, w, 3) and np.isfinite(img).all()
+           and float(img.std()) > 0.0,
+           f"{label}: image is not a finite, non-constant (H, W, 3) image")
+    _sync(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rays = r.render_burst(cam, p, w, h, n_frames=1, seed0=200, rays_only=True)
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    _check(rays >= 2 * w * h * spp, f"{label}: {rays} rays, under two per "
+           f"sample")
+    if device.type == "cuda":
+        # closest 0, shadow 0, closest 1, merged shadow 1 + closest 2,
+        # shadow 2 per sample pass
+        _check(launches == {**{k: 0 for k in launches},
+                            "traverse_packet": 5 * spp},
+               f"{label}: launches {launches}, expected {5 * spp} of K1")
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+    out = dict(tris=sb.num_tris, nodes=int(r.wa.nodes.shape[0]),
+               depth=r.wa.depth, fused_bytes=r.wa.fused.numel() * 4,
+               table_bytes=r.wa.nbytes + r.sa.nbytes, tables_s=tables_s,
+               rays=rays, rays_per_sample=rays / (w * h * spp),
+               frame_ms=dt * 1e3, mrays=rays / dt / 1e6,
+               peak_bytes=int(peak),
+               k1_launches=launches["traverse_packet"])
+    print(f"  {label} {w}x{h} spp{spp} d3 shadow pathtrace: "
+          f"{json.dumps(out)}")
+    sw, sh = PT_SMALL if device.type == "cuda" else (32, 18)
+    frame_vs_plain(
+        f"{label} {sw}x{sh} spp2 d3", r,
+        dataclasses.replace(r, walk=trace_packets_ref),
+        dataclasses.replace(p, spp=2), (sw, sh), device, cam=cam)
+    return out, r, cam, p
+
+
+def phase_render_accum(device, r, cam, p, size=PT_SMALL) -> None:
+    """``render_accum(n_passes=2, spp=2)`` is the mean of the two passes'
+    ``frame_body(total_spp=4)`` frames."""
+    import numpy as np
+
+    from vortex_rt_tpu_torch.engine import wavefront as wf
+    from vortex_rt_tpu_torch.engine.megakernel import (
+        CameraArrays, LightArrays,
+    )
+
+    w, h = size
+    p = dataclasses.replace(p, spp=2)
+    acc, rays = r.render_accum(cam, p, w, h, n_passes=2, seed0=5)
+    frames = [wf.frame_body(
+        r.wa, r.sa, CameraArrays.from_camera(cam, device),
+        LightArrays.from_params(p, device), w, h, max_depth=p.max_depth,
+        spp=p.spp, table=r._table_for(p), seed=5 + i, shadow=p.shadow,
+        tile_w=r.config.tile_w, tile_h=r.config.tile_h, walk=r.walk,
+        total_spp=2 * p.spp) for i in range(2)]
+    mean = ((frames[0][0] + frames[1][0]) * 0.5).reshape(3, h, w)
+    diff = float(np.abs(acc - mean.permute(1, 2, 0).cpu().numpy()).max())
+    _check(acc.shape == (h, w, 3) and np.isfinite(acc).all(),
+           "render_accum: not a finite (H, W, 3) image")
+    _check(diff <= 1e-6, f"render_accum differs from the mean of its "
+           f"passes' frames by {diff}")
+    _check(rays == int(frames[0][1] + frames[1][1]),
+           "render_accum: ray count is not the sum of its passes'")
+    print(f"  render_accum {w}x{h} n_passes 2 spp 2: rays {rays}, max diff "
+          f"vs the mean of two frame_body(total_spp=4) frames {diff:.3g}")
 
 
 def phase_k7(device, check_rows: int = K7_ROWS[0], check_steps: int = 500
@@ -685,16 +880,41 @@ def main() -> int:
     c2 = phase_config2(device)
     print("phase 8 config 2 through the 4-wide route (512x512)")
     c2k2 = phase_config2_k2(device)
-    print("phase 9 scale scene (blob n=187, 1920x1080, 8-wide fused)")
-    sc, scale_r = phase_scale(device)
+    print("phase 8b native host builder (csrc/builder.cpp)")
+    blob_scene, atr_scene = phase_native_build(device)
+    print("phase 9 scale scene (blob n=187, 1920x1080, Whitted, 8-wide fused)")
+    sc, scale_r = phase_scale(device, blob_scene)
     print("phase 9b K1 vs plain version on the scale scene's tree")
     err9 = phase_scale_k1(device, scale_r)
+    del scale_r
+    print("phase 9c ladder config 3's render (blob n=187, host-built: the "
+          "ladder's on-device LBVH build is not ported)")
+    c3, r3, cam3, p3 = phase_pathtraced(device, "config 3", blob_scene, 4)
+    c3["waves"] = scale_waves(device, r3, cam3, p3, 1920, 1080,
+                              names=PT_WAVES, label="config 3")
+    del r3
+    print("phase 9d ladder config 4 (atrium)")
+    c4, r4, cam4, p4 = phase_pathtraced(device, "config 4", atr_scene, 8)
+    print("phase 9e the five waves of one sample pass of config 4")
+    c4["waves"] = scale_waves(device, r4, cam4, p4, 1920, 1080,
+                              names=PT_WAVES, label="config 4")
+    print("phase 9f render_accum (config 4's scene)")
+    phase_render_accum(device, r4, cam4, p4)
+    del r4
     print("phase 10 K7 chained row-fetch probe")
     k7 = phase_k7(device)
     print(f"  summary: config2 {c2['mrays']:.3f} Mrays/s, scale "
-          f"{sc['mrays']:.3f} Mrays/s, peak {sc['peak_bytes']} B")
+          f"{sc['mrays']:.3f} Mrays/s, peak {sc['peak_bytes']} B; config 3 "
+          f"{c3['frame_ms']:.3f} ms/frame {c3['mrays']:.3f} Mrays/s, config "
+          f"4 {c4['frame_ms']:.3f} ms/frame {c4['mrays']:.3f} Mrays/s, peak "
+          f"{c4['peak_bytes']} B")
 
-    # 11. results
+    # 11. results.  K1's launches are config 4's frame (this slice's
+    # main path); the earlier paths' counts stand beside it
+    c2.update(launches=c4["k1_launches"],
+              launches_per_frame=c4["k1_launches"], launches_by_path={
+        "config2": c2["launches"], "config3": c3["k1_launches"],
+        "config4": c4["k1_launches"]})
     rows = []
     for name, res, err in (
             ("packet_walk", c2k2, max(err3, c2k2["max_abs_err"])),
@@ -704,6 +924,7 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": res["launches"],
                      "launches_per_frame": res["launches_per_frame"],
+                     "launches_by_path": res.get("launches_by_path"),
                      "max_abs_err": err,
                      "ms": res["ms"], "plain_ms": res["plain_ms"],
                      "bound_ms": res["bound_ms"],

@@ -16,7 +16,8 @@ import vortex_rt_tpu_torch as pt
 from vortex_rt_tpu_torch.models.bigscenes import blob
 from vortex_rt_tpu_torch.models.procedural import box, cornell_box, uv_sphere
 from vortex_rt_tpu_torch.ops.packet_walk import (
-    trace_packets_walk, trace_packets_walk_ref,
+    kernel_call as k2_kernel_call, trace_packets_walk,
+    trace_packets_walk_ref,
 )
 from vortex_rt_tpu_torch.ops.traverse_packet import (
     kernel_call, trace_packets, trace_packets_ref,
@@ -215,6 +216,65 @@ def test_k1_frame_matches_plain_route(cuda):
     img_p, rays_p = rp.render(cam, p, 48, 32)
     assert rays_k == rays_p
     np.testing.assert_allclose(img_k, img_p, atol=1e-5)
+
+
+@pytest.mark.parametrize("shadow", [False, True])
+def test_pathtraced_frame_matches_plain_route(cuda, shadow):
+    """A 64x64 path-traced frame at depth 3 (mirror sphere, diffuse
+    bounces, Russian roulette): the K1 route and the plain route run the
+    same shading on the same device, so ray counts are equal and images
+    agree to 1e-5."""
+    import dataclasses
+
+    import numpy as np
+
+    sc = pt.Scene()
+    for mesh, refl in cornell_box():
+        sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
+    sc.add_instance(sc.add_mesh(uv_sphere((0, -0.3, 0), 0.35, 8, 12)),
+                    reflectivity=0.5)
+    sc.add_instance(sc.add_mesh(box((0.45, -0.6, 0.3), 0.25)))
+    cfg = pt.RTConfig(flatten=True)
+    rk = pt.WavefrontRenderer.from_buffers(sc.build(cfg), cfg, device=cuda)
+    rp = dataclasses.replace(rk, walk=trace_packets_ref)
+    cam = pt.Camera.look_at([0.05, 0.02, -3.2], [0, -0.05, 0], [0, 1, 0],
+                            45.0, 1.0)
+    p = pt.RenderParams(light_pos=(0, 0.8, -0.5), shadow=shadow, spp=2,
+                        max_depth=3, pathtrace=True)
+    before = kernels.LAUNCHES["traverse_packet"]
+    img_k, rays_k = rk.render(cam, p, 64, 64)
+    assert kernels.LAUNCHES["traverse_packet"] == before + (
+        5 if shadow else 3) * p.spp
+    img_p, rays_p = rp.render(cam, p, 64, 64)
+    assert rays_k == rays_p and rays_k > 2 * 64 * 64 * p.spp
+    assert np.isfinite(img_k).all()
+    np.testing.assert_allclose(img_k, img_p, atol=1e-5)
+    acc_k, arays_k = rk.render_accum(cam, p, 64, 64, n_passes=2)
+    acc_p, arays_p = rp.render_accum(cam, p, 64, 64, n_passes=2)
+    assert arays_k == arays_p
+    np.testing.assert_allclose(acc_k, acc_p, atol=1e-5)
+
+
+def test_k2_kernel_call_relaunches(cuda):
+    """K2's bare launch writes every output on each call."""
+    wa = WideArrays.from_scene(_scene(True)).to(cuda)
+    o, d = _rays(cuda, 4097)
+    call = k2_kernel_call(wa, o, d, active=torch.arange(4097, device=cuda)
+                          % 5 != 0)
+    before = kernels.LAUNCHES["packet_walk"]
+    hits, steps = call()
+    first = [x.clone() for x in (*hits, steps)]
+    for x in (*hits, steps):
+        x.fill_(-7)
+    hits, steps = call()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["packet_walk"] == before + 2
+    for a, b in zip((*hits, steps), first):
+        assert torch.equal(a, b)
+    ref, ref_steps = trace_packets_walk_ref(
+        wa, o, d, active=torch.arange(4097, device=cuda) % 5 != 0)
+    for a, b in zip((*hits, steps), (*ref, ref_steps)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("k", [1, 4, 8, 16, 32])

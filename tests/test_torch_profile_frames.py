@@ -16,6 +16,19 @@ def test_config2_is_bench_frame():
     assert r.sb.num_tris > 24 * 48  # the box and the 24x48 sphere
 
 
+@pytest.mark.parametrize("scene,spp,tris", [("config3", 4, 69_938),
+                                            ("config4", 8, 259_594)])
+def test_ladder_pathtraced_frames(scene, spp, tris):
+    """The scale ladder's configs 3 and 4: 1920x1080, depth 3, shadow
+    rays, path traced, on the K1 route."""
+    r, cam, p, w, h = pf.build(scene, "cpu")
+    assert (w, h, p.spp, p.max_depth, p.shadow, p.pathtrace) == (
+        1920, 1080, spp, 3, True, True)
+    assert r.sb.num_tris == tris
+    assert r.walk is trace_packets
+    assert r.wa.width == 8 and r.wa.fused is not None
+
+
 def test_unknown_scene_is_refused():
     with pytest.raises(ValueError, match="unknown scene"):
         pf.build("teapot", "cpu")

@@ -52,7 +52,7 @@ def _build(S, proc, Mat, vm, cfg):
 @pytest.fixture(scope="module")
 def inputs():
     jsb = _build(JScene, jproc, JMat, jvm, JCfg(use_native_build=False))
-    tsb = _build(pt.Scene, tproc, TMat, tvm, pt.RTConfig())
+    tsb = _build(pt.Scene, tproc, TMat, tvm, pt.RTConfig(use_native_build=False))
     rng = np.random.default_rng(11)
     f = np.float32
     o = rng.normal(0, 1, (N, 3)).astype(f)

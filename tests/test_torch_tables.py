@@ -56,7 +56,7 @@ def build_pair(kind):
     jsb = _fill(JScene(), jproc, jvm, kind).build(
         JCfg(flatten=flatten, bvh_width=4, use_native_build=False))
     tsb = _fill(pt.Scene(), tproc, tvm, kind).build(
-        pt.RTConfig(flatten=flatten))
+        pt.RTConfig(flatten=flatten, use_native_build=False))
     return jsb, tsb
 
 
@@ -204,9 +204,8 @@ def test_bvh_width_resolves_as_jax(kw):
     assert pt.RTConfig(**kw).bvh_width == JCfg(**kw).bvh_width
 
 
-@pytest.mark.parametrize("option", ["bvh_width8", "pathtrace", "anyhit",
-                                    "collect_stats", "stage_limit",
-                                    "multi_device"])
+@pytest.mark.parametrize("option", ["bvh_width8", "anyhit", "collect_stats",
+                                    "stage_limit", "multi_device"])
 def test_unported_options_raise(option):
     from vortex_rt_tpu_torch.engine import wavefront as twf
     from vortex_rt_tpu_torch.engine.shaders import ShaderTable
@@ -230,9 +229,6 @@ def test_unported_options_raise(option):
         elif option == "multi_device":
             pt.WavefrontRenderer.from_buffers(tsb, cfg,
                                               device=["cpu", "cpu"])
-        elif option == "pathtrace":
-            r = pt.WavefrontRenderer.from_buffers(tsb, cfg, device="cpu")
-            r.render(cam, pt.RenderParams(pathtrace=True), 16, 16)
         else:
             r = pt.WavefrontRenderer.from_buffers(tsb, cfg, device="cpu")
             twf.frame_body(r.wa, r.sa, CameraArrays.from_camera(cam, "cpu"),

@@ -256,8 +256,8 @@ def _three_quads():
         sc.add_instance(sc.add_mesh(quad(
             (x - 0.5, -0.5, 0), (x + 0.5, -0.5, 0), (x + 0.5, 0.5, 0),
             (x - 0.5, 0.5, 0))))
-    return WideArrays.from_scene(sc.build(pt.RTConfig(flatten=True)),
-                                 8).fuse()
+    cfg = pt.RTConfig(flatten=True, use_native_build=False)
+    return WideArrays.from_scene(sc.build(cfg), 8).fuse()
 
 
 def test_walk_work_and_bound_match_a_count_by_hand():
@@ -321,7 +321,8 @@ def test_walk_work_adds_up_to_steps(width):
     sc = pt.Scene()
     sc.add_instance(sc.add_mesh(box((0.5, 0.3, 0.5), 0.4)))
     sc.add_instance(sc.add_mesh(uv_sphere((-0.5, 0, 0), 0.6, 8, 12)))
-    wa = WideArrays.from_scene(sc.build(pt.RTConfig(flatten=True)), width)
+    cfg = pt.RTConfig(flatten=True, use_native_build=False)
+    wa = WideArrays.from_scene(sc.build(cfg), width)
     rng = np.random.default_rng(width)
     o = torch.from_numpy(rng.uniform(-2, 2, (300, 3)).astype(np.float32))
     d = torch.nn.functional.normalize(

@@ -86,7 +86,8 @@ def test_frame_matches_jax_pallas_waves(monkeypatch, flatten, spp, w, h):
         walks.append(kw.get("occlusion", False))
         return trace_packets_walk(*a, **kw)
 
-    tcfg = pt.RTConfig(flatten=flatten, bvh_width=4)
+    tcfg = pt.RTConfig(flatten=flatten, bvh_width=4,
+                       use_native_build=False)
     tr = pt.WavefrontRenderer.from_buffers(_fill(pt.Scene(), tproc)
                                            .build(tcfg), tcfg,
                                            device="cpu", walk=walk)
@@ -154,7 +155,7 @@ def _main_path_frame(monkeypatch, spp, depth, merged,
         walks.append(_kind(kw))
         return trace_packets(*a, **kw)
 
-    tcfg = pt.RTConfig(flatten=True)
+    tcfg = pt.RTConfig(flatten=True, use_native_build=False)
     tsb = _fill(pt.Scene(), tproc, sphere_refl=0.5).build(tcfg)
     tr = pt.WavefrontRenderer.from_buffers(
         tsb, tcfg, TTable(lit_independent_spawn=lit_independent_spawn),
@@ -182,7 +183,7 @@ def _main_path_frame(monkeypatch, spp, depth, merged,
 
 
 def test_render_burst_counts_every_frame():
-    tcfg = pt.RTConfig(flatten=True)
+    tcfg = pt.RTConfig(flatten=True, use_native_build=False)
     r = pt.WavefrontRenderer.from_buffers(_fill(pt.Scene(), tproc)
                                           .build(tcfg), tcfg, device="cpu")
     cam = pt.Camera.look_at(*EYE)

@@ -11,8 +11,10 @@ flattened builds with 8-wide fused node+leaf rows, every trace wave
 through the hand-written CUDA walk ``csrc/traverse_packet.cu`` (K1),
 including the merged shadow+bounce wave — and the 4-wide route (flat or
 TLAS+BLAS) through ``csrc/packet_walk.cu`` (K2); Whitted shading with
-shadow rays; and the chained row-fetch probe ``tools/exp_hbm_walk.py``
-over ``csrc/hbm_walk.cu`` (K7).  Kernels are built and bound by
+shadow rays and the path-traced frame (``RenderParams(pathtrace=True)``,
+``render_accum``); the native host BVH builder (``runtime/native.py``);
+and the chained row-fetch probe ``tools/exp_hbm_walk.py`` over
+``csrc/hbm_walk.cu`` (K7).  Kernels are built and bound by
 ``runtime/kernels.py``.  On CPU tensors each kernel's wrapper runs its
 plain PyTorch version instead.
 """

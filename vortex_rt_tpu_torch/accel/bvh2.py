@@ -1,7 +1,8 @@
 """Binary BVH: host-side binned-SAH builder over SoA triangle buffers
 (port of ``vortex_rt_tpu/accel/bvh2.py``: the NumPy builder, unchanged,
-so both packages build bit-identical trees; the native C++ builder is
-not ported yet).
+so both packages build bit-identical trees with it, and
+``build_bvh2_auto``, which picks the native C++ builder of
+``runtime/native.py`` when asked).
 
 Top-down binned SAH with BINS=8 over all 3 axes, cost =
 leftArea*leftCount + rightArea*rightCount, leaf when no improving split.
@@ -209,3 +210,22 @@ def build_bvh2_aabbs(
         tri_count=np.asarray(tri_count, np.int32),
         tri_idx=order,
     )
+
+
+def build_bvh2_auto(
+    v0: np.ndarray,
+    v1: np.ndarray,
+    v2: np.ndarray,
+    max_leaf_tris: int = 4,
+    sah_bins: int = 8,
+    prefer_native: bool = True,
+) -> BVH2:
+    """Build with the native C++ builder (``csrc/builder.cpp``) when
+    ``prefer_native``, else with the NumPy implementation.  Same
+    algorithm either way.  A native build that cannot be compiled or
+    loaded raises: there is no fallback to NumPy."""
+    if prefer_native:
+        from vortex_rt_tpu_torch.runtime.native import build_bvh2_native
+
+        return build_bvh2_native(v0, v1, v2, max_leaf_tris, sah_bins)
+    return build_bvh2(v0, v1, v2, max_leaf_tris, sah_bins)

@@ -1,13 +1,14 @@
 """Shader binding table: batch shaders over (R,) lanes (port of
-``vortex_rt_tpu/engine/shaders.py``: the Whitted shaders).
+``vortex_rt_tpu/engine/shaders.py``: the Whitted shaders and the
+path-traced closest shader).
 
 Shader signatures (all inputs/outputs are (R,) lanes):
 
 closest(ctx, sp, ray, payload) -> ClosestOut
 miss(ctx, ray, payload) -> (add_r, add_g, add_b)   [terminates the ray]
 
-The path-traced closest shader and any-hit shaders are not ported yet:
-``ShaderTable(anyhit=...)`` is refused by the renderer.
+Any-hit shaders are not ported yet: ``ShaderTable(anyhit=...)`` is
+refused by the renderer.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from vortex_rt_tpu_torch.ops.shade_lanes import (
     ShadeArrays, ShadePoint, diffuse_lighting_lanes, reflect_lanes,
 )
+from vortex_rt_tpu_torch.utils import sampling
 
 
 class ShaderContext(NamedTuple):
@@ -79,6 +81,64 @@ def default_closest(ctx: ShaderContext, sp: ShadePoint, ray: RayLanes,
         spawn=spawn,
         sox=sp.px + rx * 1e-3, soy=sp.py + ry * 1e-3, soz=sp.pz + rz * 1e-3,
         sdx=rx, sdy=ry, sdz=rz,
+    )
+
+
+def pathtrace_closest(ctx: ShaderContext, sp: ShadePoint, ray: RayLanes,
+                      payload: PayloadLanes) -> ClosestOut:
+    """Path-traced closest hit: next-event-estimated direct light
+    (shadow-gated via sp.lit, same as the Whitted shader), then a sampled
+    continuation — a mirror ray where reflectivity > 0, else a
+    cosine-weighted diffuse bounce with the albedo as throughput weight
+    (BRDF*cos/pdf == albedo for Lambertian).
+
+    Randoms are counter-based (utils.sampling) on (pixel, global sample
+    index, bounce): frame seeds fold into ``payload.sample``, so
+    ``render_accum`` (k passes x s spp) draws the sample set of one
+    spp = k*s frame.  The ambient term fires only at the primary hit (it
+    approximates the indirect light the later bounces compute).  The
+    continuation does not read ``sp.lit``."""
+    zero3 = torch.zeros(3, dtype=torch.float32, device=sp.px.device)
+    dr, dg, db = diffuse_lighting_lanes(sp, ctx.light_pos, ctx.light_color,
+                                        zero3)
+    one = torch.ones_like(sp.px)
+    zero = torch.zeros_like(sp.px)
+    amb = torch.where(payload.bounce == 0, one, zero)
+    dr = dr + amb * ctx.ambient[0] * sp.color_r
+    dg = dg + amb * ctx.ambient[1] * sp.color_g
+    db = db + amb * ctx.ambient[2] * sp.color_b
+
+    refl = sp.reflectivity
+    mirror = refl > 0.0
+    u1, u2 = sampling.sample2(payload.pixel, payload.sample, payload.bounce,
+                              0, dim=1)
+    hx, hy, hz = sampling.cosine_hemisphere(sp.nx, sp.ny, sp.nz, u1, u2)
+    rx, ry, rz = reflect_lanes(ray.dx, ray.dy, ray.dz, sp.nx, sp.ny, sp.nz)
+    sdx = torch.where(mirror, rx, hx)
+    sdy = torch.where(mirror, ry, hy)
+    sdz = torch.where(mirror, rz, hz)
+    mul_r = torch.where(mirror, refl, sp.color_r)
+    mul_g = torch.where(mirror, refl, sp.color_g)
+    mul_b = torch.where(mirror, refl, sp.color_b)
+    spawn = payload.bounce + 1 < ctx.max_depth
+    # Russian roulette from the second bounce on: survive with p = max
+    # throughput component (clipped), compensate by 1/p.  Counter-based
+    # draw (dim=2), so every route replays the same kill decisions.
+    u3, _ = sampling.sample2(payload.pixel, payload.sample, payload.bounce,
+                             0, dim=2)
+    p_srv = torch.clamp(torch.maximum(mul_r, torch.maximum(mul_g, mul_b)),
+                        0.1, 0.95)
+    rr = payload.bounce >= 1
+    survive = ~rr | (u3 < p_srv)
+    inv_p = torch.where(rr, 1.0 / p_srv, one)
+    one_m = 1.0 - refl
+    return ClosestOut(
+        add_r=one_m * dr, add_g=one_m * dg, add_b=one_m * db,
+        mul_r=mul_r * inv_p, mul_g=mul_g * inv_p, mul_b=mul_b * inv_p,
+        spawn=spawn & survive,
+        sox=sp.px + sdx * 1e-3, soy=sp.py + sdy * 1e-3,
+        soz=sp.pz + sdz * 1e-3,
+        sdx=sdx, sdy=sdy, sdz=sdz,
     )
 
 

@@ -30,9 +30,14 @@ Pass ``n`` of a frame uses the global sample index ``seed * spp + n``,
 the index the JAX package gives that sample in both of its frame
 layouts, so the port renders the same rays.
 
-Not ported yet, and refused rather than ignored: path tracing
-(``pathtrace_closest``), any-hit shaders, per-wave statistics and staged
-profiling, and multi-device rendering.
+``RenderParams(pathtrace=True)`` swaps the Whitted closest shader for
+``pathtrace_closest`` (sampled diffuse bounces, Russian roulette); its
+continuation does not read ``lit``, so the merged wave applies.
+``render_accum`` averages ``n_passes`` frames stratified over
+``spp * n_passes`` samples per pixel.
+
+Not ported yet, and refused rather than ignored: any-hit shaders,
+per-wave statistics and staged profiling, and multi-device rendering.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ import torch
 
 from vortex_rt_tpu_torch.engine.megakernel import CameraArrays, LightArrays
 from vortex_rt_tpu_torch.engine.shaders import (
-    PayloadLanes, RayLanes, ShaderContext, ShaderTable,
+    PayloadLanes, RayLanes, ShaderContext, ShaderTable, pathtrace_closest,
 )
 from vortex_rt_tpu_torch.models.scene import (
     Camera, RenderParams, Scene, SceneBuffers,
@@ -262,11 +267,15 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
                shadow: bool = False, tile_w: int = 16, tile_h: int = 16,
                walk: Optional[Callable] = None,
                collect_stats: bool = False,
-               stage_limit: Optional[int] = None):
+               stage_limit: Optional[int] = None,
+               total_spp: Optional[int] = None):
     """One frame -> ((3, H*W) radiance planes in row-major pixel order,
     rays traced, walk steps), the counts as 0-dim int64 tensors on the
-    tables' device.  ``walk`` defaults to ``default_walk(wa)``.  Nothing
-    here waits for the device."""
+    tables' device.  ``walk`` defaults to ``default_walk(wa)``.
+    ``total_spp`` is the stratification denominator, ``spp`` unless
+    given: accumulation passes (``render_accum``) spread ``spp`` samples
+    per pass over ``spp * n_passes`` strata.  Nothing here waits for the
+    device."""
     if collect_stats or stage_limit is not None:
         raise NotImplementedError(
             "collect_stats/stage_limit: per-wave statistics and staged "
@@ -282,6 +291,7 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
         ambient=light.ambient, background=light.background,
         max_depth=max_depth)
 
+    total_spp = spp if total_spp is None else total_spp
     n_pix = width * height
     rows = height
     # adaptive tile height: fall back through 8/4/2 so odd frame heights
@@ -309,7 +319,7 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
         samp_val = (((int(seed) & _U32) * spp) + p) & _U32
         samp = torch.full((n_pix,), samp_val, dtype=torch.int64, device=dev)
         lanes6 = _camera_from_pix(cam, width, height, pxi, pyi, pix, samp,
-                                  spp)
+                                  total_spp)
         rr, rg, rb, n_rays, n_steps = _wave_pipeline(
             wa, sa, ctx, table, light, lanes6, pix, samp, alive,
             max_depth, shadow, walk)
@@ -325,6 +335,31 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
     else:
         img = torch.stack(acc) * inv_spp
     return img, rays, steps
+
+
+def render_accum(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
+                 light: LightArrays, width: int, height: int,
+                 n_passes: int = 4, seed0: int = 0, max_depth: int = 2,
+                 spp: int = 1, table: Optional[ShaderTable] = None,
+                 shadow: bool = False, tile_w: int = 16, tile_h: int = 16,
+                 walk: Optional[Callable] = None):
+    """Progressive accumulation: the average of ``n_passes`` frames with
+    seeds ``seed0 + i``, stratified over ``spp * n_passes`` samples per
+    pixel.  Returns ((H, W, 3) image tensor, total rays, total steps).
+    Each pass keeps one sample per pixel in flight, so memory stays that
+    of one frame.  Nothing here waits for the device."""
+    dev = wa.device
+    img = torch.zeros((3, width * height), dtype=torch.float32, device=dev)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    steps = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(n_passes):
+        f_img, f_rays, f_steps = frame_body(
+            wa, sa, cam, light, width, height, max_depth=max_depth, spp=spp,
+            table=table, seed=seed0 + i, shadow=shadow, tile_w=tile_w,
+            tile_h=tile_h, walk=walk, total_spp=spp * n_passes)
+        img, rays, steps = img + f_img, rays + f_rays, steps + f_steps
+    out = (img * (1.0 / n_passes)).reshape(3, height, width)
+    return out.permute(1, 2, 0), rays, steps
 
 
 @dataclasses.dataclass
@@ -385,11 +420,10 @@ class WavefrontRenderer:
         )
 
     def _table_for(self, params: RenderParams) -> ShaderTable:
-        if params.pathtrace:
-            raise NotImplementedError(
-                "pathtrace: the path-traced closest shader and "
-                "cosine_hemisphere are not ported yet (ROADMAP Queue 1, "
-                "item 4, hazard H5)")
+        """``params.pathtrace`` swaps the Whitted closest shader for the
+        path-traced one unless the user installed a custom table."""
+        if params.pathtrace and self.table == ShaderTable():
+            return ShaderTable(closest=pathtrace_closest)
         return self.table
 
     def _frame(self, cam: Camera, params: RenderParams, w: int, h: int,
@@ -434,3 +468,23 @@ class WavefrontRenderer:
         if rays_only:
             return n
         return self._to_image(img, w, h), n
+
+    def render_accum(self, cam: Camera, params: RenderParams,
+                     width: Optional[int] = None,
+                     height: Optional[int] = None,
+                     n_passes: int = 4, seed0: int = 0
+                     ) -> Tuple[np.ndarray, int]:
+        """Progressive high-spp render: averages ``n_passes`` frames of
+        ``params.spp`` samples each (stratified over the product) without
+        multiplying the lanes in flight.  Returns (image, rays); waits
+        for the device once, at the end."""
+        w = width or self.config.width
+        h = height or self.config.height
+        img, rays, _ = render_accum(
+            self.wa, self.sa, CameraArrays.from_camera(cam, self.device),
+            LightArrays.from_params(params, self.device), w, h,
+            n_passes=n_passes, seed0=seed0, max_depth=params.max_depth,
+            spp=params.spp, table=self._table_for(params),
+            shadow=params.shadow, tile_w=self.config.tile_w,
+            tile_h=self.config.tile_h, walk=self.walk)
+        return img.cpu().numpy(), int(rays.item())

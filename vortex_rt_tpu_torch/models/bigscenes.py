@@ -1,9 +1,14 @@
 """Large procedural scenes for the scale ladder (port of
-``vortex_rt_tpu/models/bigscenes.py``: ``parametric_mesh`` and ``blob``,
-unchanged).
+``vortex_rt_tpu/models/bigscenes.py``: ``parametric_mesh``, ``blob`` and
+``atrium`` with its parts, unchanged, so both packages make the same
+triangles).
 
 ``blob(n=187)`` is the ladder's config-3 stand-in for the Stanford bunny
-(~69k tris): a sphere displaced by low-frequency sinusoids, vectorized.
+(~69k tris): a sphere displaced by low-frequency sinusoids.  ``atrium()``
+is its config-4 stand-in for Sponza (~260k tris): a hall with two
+colonnades, a checker-textured floor, relief walls and a ceiling.
+``textured_atrium`` and ``wavy_grid`` are not ported yet (they feed
+any-hit and refit).
 """
 
 from __future__ import annotations
@@ -104,3 +109,103 @@ def blob(center=(0.0, 0.0, 0.0), radius: float = 1.0, n: int = 187,
             c[2] + r * sin_t * np.sin(phi)], axis=-1)
 
     return parametric_mesh(f, n, n, material=material)
+
+
+# ---------------------------------------------------------------------------
+# Config 4 stand-in: Sponza-class architectural hall (~260k tris)
+# ---------------------------------------------------------------------------
+
+def _checker(n=8, c0=0xC8C0B0, c1=0x504840, cell=8) -> np.ndarray:
+    yy, xx = np.meshgrid(np.arange(n * cell), np.arange(n * cell),
+                         indexing="ij")
+    return np.where(((xx // cell) + (yy // cell)) % 2 == 0,
+                    c0, c1).astype(np.uint32)
+
+
+def fluted_column(pos, height: float = 3.0, radius: float = 0.3,
+                  nu: int = 96, nv: int = 64,
+                  material: Optional[Material] = None) -> MeshData:
+    """Classical column: fluted shaft with entasis (slight taper bulge).
+    2*nu*nv tris."""
+    p = np.asarray(pos, np.float32)
+
+    def f(u, v):
+        phi = u * 2 * np.pi
+        y = v * height
+        # 20 flutes + entasis profile
+        r = radius * (1.0 - 0.18 * v) * (1.0 + 0.04 * np.cos(20.0 * phi))
+        return np.stack([p[0] + r * np.cos(phi),
+                         p[1] + y,
+                         p[2] + r * np.sin(phi)], axis=-1)
+
+    return parametric_mesh(f, nu, nv, material=material)
+
+
+def bumpy_slab(center, size, nu: int, nv: int, axis: str = "y",
+               bump: float = 0.0, material: Optional[Material] = None,
+               uv_scale=(8.0, 8.0)) -> MeshData:
+    """Subdivided rectangular slab (floor/wall/ceiling) with optional
+    low-amplitude relief so the geometry is not a trivial two-triangle
+    plane.  2*nu*nv tris."""
+    c = np.asarray(center, np.float32)
+    s = np.asarray(size, np.float32)
+
+    def f(u, v):
+        a = (u - 0.5) * s[0]
+        b = (v - 0.5) * s[1]
+        h = bump * np.sin(17.0 * u * np.pi) * np.sin(13.0 * v * np.pi)
+        if axis == "y":
+            return np.stack([c[0] + a, c[1] + h, c[2] + b], axis=-1)
+        if axis == "z":
+            return np.stack([c[0] + a, c[1] + b, c[2] + h], axis=-1)
+        return np.stack([c[0] + h, c[1] + b, c[2] + a], axis=-1)
+
+    return parametric_mesh(f, nu, nv, material=material, smooth=bump > 0,
+                           uv_scale=uv_scale)
+
+
+def atrium(n_cols: int = 12, target_tris: int = 260_000):
+    """Sponza-class hall (BASELINE config 4 stand-in): a long atrium with
+    two colonnades, textured floor, relief walls and a ceiling.  Returns
+    a list of (MeshData, reflectivity) like models.procedural.cornell_box.
+
+    Workload character matches Sponza's: most primary rays end on the
+    floor/walls, colonnade rays traverse long occluded corridors, and
+    the repeated columns make the TLAS non-trivial (each column is its
+    own instance-able mesh here, but packed as distinct meshes so the
+    triangle pool really holds ~target_tris unique triangles, like the
+    reference scene).
+    """
+    floor_mat = Material(diffuse=(0.9, 0.87, 0.8), diffuse_tex=_checker())
+    wall_mat = Material(diffuse=(0.75, 0.72, 0.65))
+    col_mat = Material(diffuse=(0.82, 0.8, 0.75))
+
+    hall_l, hall_w, hall_h = 24.0, 10.0, 6.0
+    meshes = []
+
+    # budget: ~35% slabs, ~65% columns
+    slab_tris = int(target_tris * 0.35)
+    per_slab = slab_tris // 5
+    n_slab = max(int(np.sqrt(per_slab / 2)), 8)
+
+    def slab(center, size, axis, mat, bump=0.02):
+        meshes.append((bumpy_slab(center, size, n_slab, n_slab, axis=axis,
+                                  bump=bump, material=mat), 0.0))
+
+    slab((0, 0, 0), (hall_l, hall_w), "y", floor_mat, bump=0.0)      # floor
+    slab((0, hall_h, 0), (hall_l, hall_w), "y", wall_mat)            # ceiling
+    slab((0, hall_h / 2, -hall_w / 2), (hall_l, hall_h), "z", wall_mat)
+    slab((0, hall_h / 2, hall_w / 2), (hall_l, hall_h), "z", wall_mat)
+    slab((-hall_l / 2, hall_h / 2, 0), (hall_w, hall_h), "x", wall_mat)
+
+    col_tris = target_tris - sum(m.num_tris for m, _ in meshes)
+    per_col = col_tris // (2 * n_cols)
+    nu = max(int(np.sqrt(per_col / 2 * 1.5)), 24)
+    nv = max(per_col // (2 * nu), 16)
+    xs = np.linspace(-hall_l / 2 + 1.5, hall_l / 2 - 1.5, n_cols)
+    for x in xs:
+        for z in (-hall_w / 2 + 1.2, hall_w / 2 - 1.2):
+            meshes.append((fluted_column((x, 0.0, z), height=hall_h * 0.8,
+                                         radius=0.35, nu=nu, nv=nv,
+                                         material=col_mat), 0.0))
+    return meshes

@@ -4,8 +4,9 @@
 Host-side NumPy, as in the JAX package: ``Scene.build`` packs per-mesh
 triangle/material/texture data into global buffers with running offsets
 and builds the binary BVHs; :class:`SceneBuffers` is the packed result.
-The builds are bit-identical to the JAX package's NumPy builder
-(``RTConfig(use_native_build=False)`` there).
+The BLAS builds go to the native C++ builder by default, as in the JAX
+package; with ``RTConfig(use_native_build=False)`` on both sides the
+builds are bit-identical to the JAX package's NumPy builder.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from vortex_rt_tpu_torch.accel.bvh2 import (
-    BVH2, build_bvh2, build_bvh2_aabbs,
+    BVH2, build_bvh2_aabbs, build_bvh2_auto,
 )
 from vortex_rt_tpu_torch.utils import vecmath as vm
 from vortex_rt_tpu_torch.utils.config import RTConfig
@@ -144,7 +145,7 @@ class RenderParams:
     spp: int = 1
     max_depth: int = 2
     shadow: bool = False     # occlusion-tested direct lighting (shadow rays)
-    pathtrace: bool = False  # sampled diffuse bounces (not ported yet)
+    pathtrace: bool = False  # sampled diffuse bounces (path-traced GI)
 
 
 @dataclasses.dataclass
@@ -288,9 +289,10 @@ class Scene:
             allv0 = np.concatenate(tri_arrays["v0"]).astype(np.float32)
             allv1 = np.concatenate(tri_arrays["v1"]).astype(np.float32)
             allv2 = np.concatenate(tri_arrays["v2"]).astype(np.float32)
-            b = build_bvh2(allv0, allv1, allv2,
-                           max_leaf_tris=cfg.max_leaf_tris,
-                           sah_bins=cfg.sah_bins)
+            b = build_bvh2_auto(
+                allv0, allv1, allv2,
+                max_leaf_tris=cfg.max_leaf_tris, sah_bins=cfg.sah_bins,
+                prefer_native=cfg.use_native_build)
             bvh_min, bvh_max = b.node_min, b.node_max
             bvh_left = b.left_first.astype(np.int32)
             bvh_count = b.tri_count
@@ -305,9 +307,10 @@ class Scene:
             mesh_bvh_root = []
             node_cursor = 0
             for mesh in meshes:
-                b = build_bvh2(mesh.v0, mesh.v1, mesh.v2,
-                               max_leaf_tris=cfg.max_leaf_tris,
-                               sah_bins=cfg.sah_bins)
+                b = build_bvh2_auto(
+                    mesh.v0, mesh.v1, mesh.v2,
+                    max_leaf_tris=cfg.max_leaf_tris, sah_bins=cfg.sah_bins,
+                    prefer_native=cfg.use_native_build)
                 mesh_bvh_root.append(node_cursor)
                 node_pools.append(b)
                 node_cursor += b.num_nodes

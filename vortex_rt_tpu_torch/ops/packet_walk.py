@@ -6,7 +6,8 @@ and its plain PyTorch version (port of
 launches ``csrc/packet_walk.cu`` (one thread per ray) or raises; for CPU
 tensors it runs ``trace_packets_walk_ref``, the plain PyTorch version of
 the same per-ray walk.  There is no fallback between the two.
-``walk_work_4`` counts what a walk computes, for its bound.
+``kernel_call`` is the bare launch, for timing it; ``walk_work_4`` counts
+what a walk computes, for its bound.
 
 Semantics (shared with the JAX package's ``trace_packets_pallas``):
 ``active`` masks dead rays (they report a miss), ``t_max`` clamps the
@@ -21,7 +22,7 @@ closest hit is a min over a ray's own candidates with a lexicographic
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -145,12 +146,25 @@ def trace_packets_walk(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
 
     CUDA tensors launch the hand-written kernel; CPU tensors run the
     plain PyTorch version."""
-    _check(wa, o, d, active, t_max)
     if o.device.type == "cpu":
         return trace_packets_walk_ref(wa, o, d, active, t_max, occlusion,
                                       max_steps)
+    return kernel_call(wa, o, d, active, t_max, occlusion, max_steps)()
+
+
+def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
+                active: Optional[torch.Tensor] = None,
+                t_max: Optional[torch.Tensor] = None,
+                occlusion: bool = False, max_steps: int = MAX_STEPS
+                ) -> Callable[[], Tuple[Hits, torch.Tensor]]:
+    """The kernel launch of ``trace_packets_walk`` for CUDA tensors, with
+    the inputs checked and the search limits and outputs made once.  Each
+    call of the returned function launches the kernel into the same
+    outputs and returns them, and does nothing else: CUDA events around
+    many calls time the kernel alone."""
+    _check(wa, o, d, active, t_max)
     if o.device.type != "cuda":
-        raise ValueError(f"no walk for device {o.device}")
+        raise ValueError(f"no CUDA walk for device {o.device}")
     lib = kernels.load("packet_walk")
     stack_n = stack_entries(wa)
     cap = int(lib.lib.vrt_packet_walk_stack_max())
@@ -171,22 +185,27 @@ def trace_packets_walk(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     i32 = dict(dtype=torch.int32, device=dev)
     dist, bx, by, bz = (torch.empty(r, **f32) for _ in range(4))
     tri, inst, steps = (torch.empty(r, **i32) for _ in range(3))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lib.vrt_packet_walk(
-            wa.nodes.data_ptr(), wa.tri_rows.data_ptr(), o.data_ptr(),
-            d.data_ptr(), limit.data_ptr(), dist.data_ptr(), bx.data_ptr(),
-            by.data_ptr(), bz.data_ptr(), tri.data_ptr(), inst.data_ptr(),
-            steps.data_ptr(), r, wa.nodes.shape[0], wa.tri_rows.shape[0],
-            wa.tri_rows.shape[1], max(int(wa.max_leaf_tris), 1),
-            int(wa.num_tlas), int(wa.tri_bits), stack_n, int(max_steps),
-            int(bool(occlusion)), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"packet_walk launch failed: {lib.error_string(err)} ({err})")
-    if r > 0:
-        kernels.LAUNCHES["packet_walk"] += 1
-    return Hits(dist, bx, by, bz, tri, inst), steps
+
+    def launch() -> Tuple[Hits, torch.Tensor]:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.lib.vrt_packet_walk(
+                wa.nodes.data_ptr(), wa.tri_rows.data_ptr(), o.data_ptr(),
+                d.data_ptr(), limit.data_ptr(), dist.data_ptr(),
+                bx.data_ptr(), by.data_ptr(), bz.data_ptr(), tri.data_ptr(),
+                inst.data_ptr(), steps.data_ptr(), r, wa.nodes.shape[0],
+                wa.tri_rows.shape[0], wa.tri_rows.shape[1],
+                max(int(wa.max_leaf_tris), 1), int(wa.num_tlas),
+                int(wa.tri_bits), stack_n, int(max_steps),
+                int(bool(occlusion)), stream)
+        if err != 0:
+            raise RuntimeError(f"packet_walk launch failed: "
+                               f"{lib.error_string(err)} ({err})")
+        if r > 0:
+            kernels.LAUNCHES["packet_walk"] += 1
+        return Hits(dist, bx, by, bz, tri, inst), steps
+
+    return launch
 
 
 def _rcp(d: torch.Tensor) -> torch.Tensor:

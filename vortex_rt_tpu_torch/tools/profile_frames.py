@@ -5,11 +5,15 @@ kernels that take the most device time.
     python -m vortex_rt_tpu_torch.tools.profile_frames --scene config2
     python -m vortex_rt_tpu_torch.tools.profile_frames --scene scale \\
         --frames 3
+    python -m vortex_rt_tpu_torch.tools.profile_frames \\
+        --scene config3,config4 --frames 2
 
 ``config2`` is BASELINE config 2 as ``bench.py`` renders it (Cornell box
 and a 24x48 sphere, 512x512, spp 2, depth 2, shadow rays, flattened
 8-wide fused build); ``scale`` is ``blob(n=187)`` at 1920x1080, spp 2,
-depth 2, shadow rays, 8-wide.
+depth 2, shadow rays, 8-wide.  ``config3`` and ``config4`` are the scale
+ladder's path-traced frames at 1920x1080, depth 3, shadow rays:
+``blob(n=187)`` at spp 4 (host-built) and ``atrium()`` at spp 8.
 
 After one warm-up frame, ``--frames`` frames are timed unprofiled (wall
 clock, device-synchronised), then the same number run under
@@ -32,7 +36,7 @@ import torch
 
 CONFIG2_EYE = ([0.05, 0.02, -3.2], [0.0, -0.05, 0.0], [0, 1, 0], 45.0, 1.0)
 CONFIG2_LIGHT = (0.0, 0.8, -0.5)
-TOP = 8  # kernels listed, by device time
+TOP = 12  # kernels listed, by device time
 
 
 def build(scene: str, device):
@@ -54,12 +58,20 @@ def build(scene: str, device):
         p = RenderParams(light_pos=CONFIG2_LIGHT, max_depth=2, shadow=True,
                          spp=2)
         w = h = 512
-    elif scene == "scale":
-        sc.add_instance(sc.add_mesh(bigscenes.blob(n=187)))
+    elif scene in ("scale", "config3", "config4"):
+        if scene == "config4":
+            for mesh, refl in bigscenes.atrium():
+                sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
+        else:
+            sc.add_instance(sc.add_mesh(bigscenes.blob(n=187)))
         sb = sc.build(cfg)
         w, h = 1920, 1080
         cam = Scene.framing_camera(sb, 45.0, w / h)
-        p = RenderParams(max_depth=2, spp=2, shadow=True)
+        p = {"scale": RenderParams(max_depth=2, spp=2, shadow=True),
+             "config3": RenderParams(max_depth=3, spp=4, shadow=True,
+                                     pathtrace=True),
+             "config4": RenderParams(max_depth=3, spp=8, shadow=True,
+                                     pathtrace=True)}[scene]
     else:
         raise ValueError(f"unknown scene {scene!r}")
     return WavefrontRenderer.from_buffers(sb, cfg, device=device), cam, p, w, h
@@ -106,7 +118,8 @@ def profile(r, cam, p, w: int, h: int, frames: int) -> Dict:
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scene", default="config2",
-                    help="config2, scale, or a comma list")
+                    help="config2, scale, config3, config4, or a comma "
+                    "list")
     ap.add_argument("--frames", type=int, default=8)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():

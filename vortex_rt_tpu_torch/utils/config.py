@@ -32,6 +32,9 @@ class RTConfig:
     max_leaf_tris: int = 4      # leaf size target for the binary BVH
     sah_bins: int = 8           # bins of the binned-SAH build
     flatten: bool = False       # ONE world-space BVH over all instances
+    use_native_build: bool = True  # csrc/builder.cpp (compiled at first
+                                # use; raises if that fails); False = the
+                                # NumPy builder
 
     # ---- render parameters ----
     width: int = 256

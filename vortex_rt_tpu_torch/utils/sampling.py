@@ -99,3 +99,33 @@ def stratified_jitter(pixel, sample, total_spp: int, seed
     u, v = sample2(pixel, sample, 0, seed, dim=7)
     inv_g = 1.0 / g
     return (cx + u) * inv_g, (cy + v) * inv_g
+
+
+def cosine_hemisphere(nx, ny, nz, u1, u2
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Cosine-weighted direction about the (unit) normal.
+
+    Branch-free Frisvad-style orthonormal basis; returns (dx, dy, dz).
+    pdf = cos(theta)/pi, so Lambertian throughput weight is exactly the
+    albedo (BRDF * cos / pdf = albedo).  The JAX function's order of
+    operations, in float32; sin and cos are the device's (they differ
+    from XLA's in the last bits)."""
+    # ONB (handles nz ~ -1 via the sign trick)
+    sign = torch.where(nz >= 0.0, torch.ones_like(nz), -torch.ones_like(nz))
+    a = -1.0 / (sign + nz)
+    b = nx * ny * a
+    t1x = 1.0 + sign * nx * nx * a
+    t1y = sign * b
+    t1z = -sign * nx
+    t2x = b
+    t2y = sign + ny * ny * a
+    t2z = -ny
+    r = torch.sqrt(u1)
+    # float32(2 pi), as the JAX package rounds it
+    phi = 6.2831854820251465 * u2
+    x = r * torch.cos(phi)
+    y = r * torch.sin(phi)
+    z = torch.sqrt(torch.clamp_min(1.0 - u1, 0.0))
+    return (x * t1x + y * t2x + z * nx,
+            x * t1y + y * t2y + z * ny,
+            x * t1z + y * t2z + z * nz)
