@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels from the sources in this checkout
-(one nvcc per source, all started together), holds each against its
-plain PyTorch version on the card (hits and per-ray steps identical),
+Builds the port's seven CUDA kernel libraries from the sources in this
+checkout (one nvcc per source, all started together), holds each kernel
+against its plain PyTorch version on the card (hits and per-ray steps
+identical; every word of the LBVH build's and refit's outputs equal),
 drives the port's entry points through them, and measures them: kernel
 times are device times from CUDA events, beside each kernel's bound
 (``vortex_rt_tpu_torch/tools/walk_bounds.py``).  Phases (each raises,
@@ -13,8 +14,10 @@ and so exits non-zero, on failure):
 
 1. device: a CUDA device is required; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: ``csrc/packet_walk.cu`` (K2), ``csrc/traverse_packet.cu`` (K1)
-   and ``csrc/hbm_walk.cu`` (K7), with their build times;
+2. build: ``csrc/packet_walk.cu`` (K2), ``csrc/traverse_packet.cu`` (K1),
+   ``csrc/hbm_walk.cu`` (K7) and the four of the on-device LBVH build and
+   refit (K5: ``csrc/lbvh_karras.cu``, ``lbvh_collapse.cu``,
+   ``lbvh_refit.cu``, ``lbvh_pack.cu``), with their build times;
 3. K2 against its plain version: config-2 camera rays at 64x64 on the
    flat 4-wide build and on a TLAS build (two instances), in four modes
    (closest, 1/3 inactive, half t_max-clamped, shadow-ray occlusion);
@@ -55,8 +58,8 @@ and so exits non-zero, on failure):
    each) and their shadow rays, in four modes (closest, 1/3 inactive,
    occlusion, mixed);
 9c. ladder config 3's render: ``blob(n=187)``, 1920x1080, spp 4, depth 3,
-   shadow rays, path traced, 8-wide fused, host-built (the ladder's
-   on-device LBVH build is not ported): launch counts reset, one frame
+   shadow rays, path traced, 8-wide fused, host-built (phase 11b renders
+   it from the tree built on the card): launch counts reset, one frame
    after a warm-up through ``render_burst(n_frames=1)``; finite image,
    rays, ms, Mrays/s, peak bytes, 5 K1 launches per sample pass; then
    the kernel route against the plain route at ``PT_SMALL`` and spp 2
@@ -76,10 +79,43 @@ and so exits non-zero, on failure):
     point (launch counts reset before it) at 29,140 rows (14.2 MiB,
     L2-resident) and 1,048,576 rows (512 MiB, beyond L2): ns/step and
     ns/step/walk for k in {1, 4, 8, 16, 32} at each fetch width;
-11. prints the kernels' JSON line (per kernel: launches on its main-path
+11a. K5, each LBVH kernel against its plain version on the card: Morton
+    codes and the Karras tree (A), the collapse (B), the bottom-up boxes
+    (C), the pack (D), on ``uv_sphere``, ``random_soup(2000)`` and a
+    100k-triangle ``wavy_grid(n=225)``, widths 4 and 8, leaf 4 and 8,
+    full and compact pools, flat and (4-wide) TLAS layouts: every integer
+    field and every output word equal, and a second launch gives the
+    same words;
+11b. ladder row 3 on a tree built on the card
+    (``tools/bench_ladder.config3``): K1 over the 1080p camera rays finds
+    the same hit mask, triangle ids and distances to the bit as over the
+    host-built tree; then the row's frame (spp 4, depth 3, path traced)
+    with its ray count beside phase 9c's, and the difference of the same
+    frame from both trees; then the four LBVH kernels against their plain
+    versions at this path's shapes (the row's mesh, the full pool, fused
+    rows), word for word;
+11c. ladder row 5 at full width (``tools/bench_ladder.config5``):
+    ``wavy_grid(n=708)``, 999,698 triangles, 1920x1080, spp 2, depth 2,
+    shadow rays, Whitted, light (0, 14, 0), flat 8-wide, leaf 4; the
+    topology built on the card, ``compact_plan``, then refit + repack +
+    fused rows and a frame at four moved times after a warm-up, with no
+    host build and no copy to the host inside the refit.  The t = 0
+    frame equals the frame from the native host-built tree within 1e-5
+    with equal ray counts; on a crop of camera rays K1 over the refit
+    tree gives the plain walk's hits and steps; build, refit and frame
+    times, pool sizes and peak bytes are printed; each LBVH kernel is
+    held against its plain version at this path's shapes (999,700
+    triangles, the compact plan, fused rows) word for word, and timed
+    there (CUDA events around its wrapper; its kernels alone from the
+    profiler beside that) beside its plain version and its bound;
+12. prints the kernels' JSON line (per kernel: launches on its main-path
     run and per frame, K1's being config 4's frame with the other paths'
-    counts beside it; device time, plain time, bound, what bounds it and
-    the share of the bound) and, last, the device JSON line.
+    counts beside it, the LBVH kernels' being row 5's run, one per
+    ``__global__`` function launched, per frame from the counts over the
+    run's refits; the largest difference from the plain version that the
+    phases above measured; device time by CUDA events, plain time, bound,
+    what bounds it and the share of the bound) and, last, the device JSON
+    line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -99,6 +135,22 @@ SOURCES = {
                         "vortex_rt_tpu/ops/traverse_packet.py:202"),
     "hbm_walk": ("vortex_rt_tpu_torch/csrc/hbm_walk.cu",
                  "tools/exp_pallas_hbm.py:57"),
+    "lbvh_karras": ("vortex_rt_tpu_torch/csrc/lbvh_karras.cu",
+                    "vortex_rt_tpu/accel/lbvh.py:112"),
+    "lbvh_collapse": ("vortex_rt_tpu_torch/csrc/lbvh_collapse.cu",
+                      "vortex_rt_tpu/accel/lbvh.py:326"),
+    "lbvh_refit": ("vortex_rt_tpu_torch/csrc/lbvh_refit.cu",
+                   "vortex_rt_tpu/accel/lbvh.py:284"),
+    "lbvh_pack": ("vortex_rt_tpu_torch/csrc/lbvh_pack.cu",
+                  "vortex_rt_tpu/accel/lbvh.py:466"),
+}
+LBVH_KERNELS = ("lbvh_karras", "lbvh_collapse", "lbvh_refit", "lbvh_pack")
+# the __global__ functions of each LBVH library, as the profiler names them
+LBVH_KERNEL_NAMES = {
+    "lbvh_karras": ("morton_kernel", "karras_kernel"),
+    "lbvh_collapse": ("parents_kernel", "expand_kernel", "assign_kernel"),
+    "lbvh_refit": ("refit_boxes_kernel",),
+    "lbvh_pack": ("pack_nodes_kernel", "pack_leaves_kernel"),
 }
 EYE2 = ([0.05, 0.02, -3.2], [0.0, -0.05, 0.0], [0, 1, 0], 45.0, 1.0)
 LIGHT2 = (0.0, 0.8, -0.5)
@@ -109,6 +161,7 @@ K7_STEPS = 2000
 K7_KS = "1,4,8,16,32"
 K7_WORDS = "4,24,128"  # 16 B, 96 B (K1's internal step), 512 B (TPU row)
 SCALE_CROP = 4 * 132 * 8 * 128 + 17  # rays of phase 9b
+REFIT_CROP = 132 * 8 * 128 + 17      # rays of phase 11c's walk check
 NATIVE_CROP = 512 * 512              # rays of phase 8b's hit comparison
 PT_SMALL = (256, 144)                # frame of the path-traced plain route
 PT_WAVES = ("closest0", "shadow0", "closest1", "merged1", "shadow2")
@@ -150,6 +203,26 @@ def _device_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _profiled_kernel_ms(fn, reps: int, names) -> dict:
+    """Device time per call of ``fn`` of each kernel in ``names`` (matched
+    in the kernel's name), from ``torch.profiler`` over ``reps`` calls
+    after a warm-up: the kernels alone, without the fills and library
+    calls a wrapper makes around them or the gaps between launches."""
+    import torch
+
+    from vortex_rt_tpu_torch.tools.profile_frames import (
+        kernel_events, ms_by_name,
+    )
+
+    fn()
+    torch.cuda.synchronize()
+    ms = ms_by_name(kernel_events(lambda: [fn() for _ in range(reps)]),
+                    names, reps)
+    _check(all(v > 0.0 for v in ms.values()),
+           f"the profiler recorded no device time for some of {names}: {ms}")
+    return ms
 
 
 def _kind(kw) -> str:
@@ -787,6 +860,360 @@ def phase_render_accum(device, r, cam, p, size=PT_SMALL) -> None:
           f"vs the mean of two frame_body(total_spp=4) frames {diff:.3g}")
 
 
+def lbvh_test_meshes(big: bool = True):
+    """(name, v0, v1, v2) of phase 11a: a sphere, a soup and (``big``) a
+    100k-triangle grid, as float32 NumPy arrays."""
+    import numpy as np
+
+    from vortex_rt_tpu_torch.models.bigscenes import wavy_grid
+    from vortex_rt_tpu_torch.models.procedural import random_soup, uv_sphere
+
+    meshes = [("uv_sphere", uv_sphere((0, 0, 0), 1.0, 16, 32)),
+              ("random_soup(2000)", random_soup(np.random.default_rng(5),
+                                                2000))]
+    if big:
+        meshes.append(("wavy_grid(n=225)", wavy_grid(n=225)))
+    return [(name, m.v0, m.v1, m.v2) for name, m in meshes]
+
+
+def _same_bits(label: str, got, want) -> float:
+    """Tensors (or tuples of them) equal bit for bit.  Returns the largest
+    absolute difference of two output words (as integers), which is 0
+    when the check passes."""
+    import torch
+
+    if torch.is_tensor(got):
+        got, want = (got,), (want,)
+    _check(len(got) == len(want), f"{label}: {len(got)} vs {len(want)} "
+           f"outputs")
+    err = 0
+    for k, (a, b) in enumerate(zip(got, want)):
+        if a is None or b is None:
+            _check(a is None and b is None, f"{label}[{k}]: one is missing")
+            continue
+        _check(a.shape == b.shape and a.dtype == b.dtype,
+               f"{label}[{k}]: {a.dtype}{tuple(a.shape)} vs "
+               f"{b.dtype}{tuple(b.shape)}")
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        n = int((a != b).sum())
+        err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
+                           .abs().max()))
+        _check(n == 0, f"{label}[{k}]: {n} of {a.numel()} words differ "
+               f"(by at most {err})")
+    return float(err)
+
+
+def lbvh_vs_plain(label: str, v0, v1, v2, width: int, leaf: int, plans,
+                  checked: dict, err: dict):
+    """Each LBVH kernel against its plain version on the triangles ``v0,
+    v1, v2`` (padded, on the card): Morton codes and the Karras tree (A),
+    the collapse (B), the bottom-up boxes (C), and the pack (D) once per
+    entry of ``plans`` -- ``plans(topo)`` gives (name, ``_pack_rows``
+    options) pairs.  Every integer field and every output word equal,
+    and a second launch gives the same words.  Adds the wrapper calls
+    made to ``checked`` and folds the largest word difference into
+    ``err``, both by library name.  Returns the topology."""
+    import torch
+
+    from vortex_rt_tpu_torch.accel import lbvh
+
+    def fold(name, calls, *diffs):
+        checked[name] += calls
+        err[name] = max(err[name], *diffs)
+
+    l = v0.shape[0]
+    smin, smax = lbvh._scene_box(v0, v1, v2)
+    codes = lbvh.morton_codes(v0, v1, v2, smin, smax)
+    e0 = _same_bits(f"{label} morton", codes,
+                    lbvh.morton_codes_ref(v0, v1, v2, smin, smax))
+    lcodes, order = torch.sort(codes, stable=True)
+    tree = lbvh._karras(lcodes, l)
+    fold("lbvh_karras", 3, e0,
+         _same_bits(f"{label} karras", tree, lbvh._karras_ref(lcodes, l)),
+         _same_bits(f"{label} karras again", lbvh._karras(lcodes, l), tree))
+    col = lbvh._collapse_wide(*tree, l, leaf, width)
+    fold("lbvh_collapse", 2,
+         _same_bits(f"{label} collapse", col,
+                    lbvh._collapse_wide_ref(*tree, l, leaf, width)),
+         _same_bits(f"{label} collapse again",
+                    lbvh._collapse_wide(*tree, l, leaf, width), col))
+    (surv, ch_old, arity, base, newid, row_lo, row_cnt, leaf_newid,
+     parent) = col
+    topo = lbvh.LBVHTopo(
+        order=order.to(torch.int32), lchild=tree[0], rchild=tree[1],
+        surv=surv, ch_old=ch_old, arity=arity, base=base, newid=newid,
+        row_lo=row_lo, row_cnt=row_cnt, leaf_newid=leaf_newid, lo=tree[2],
+        hi=tree[3], parent=parent)
+    boxes = lbvh._refit_boxes(topo, v0, v1, v2)
+    fold("lbvh_refit", 2,
+         _same_bits(f"{label} refit boxes", boxes,
+                    lbvh._refit_boxes_ref(topo, v0, v1, v2)),
+         _same_bits(f"{label} refit boxes again",
+                    lbvh._refit_boxes(topo, v0, v1, v2), boxes))
+    for name, kw in plans(topo):
+        kw = dict(kw, leaf_size=leaf, width=width)
+        got = lbvh._pack_rows(topo, *boxes, v0, v1, v2, **kw)
+        fold("lbvh_pack", 2,
+             _same_bits(f"{label} pack {name}", got,
+                        lbvh._pack_rows_ref(topo, *boxes, v0, v1, v2, **kw)),
+             _same_bits(f"{label} pack {name} again",
+                        lbvh._pack_rows(topo, *boxes, v0, v1, v2, **kw), got))
+    return topo
+
+
+def phase_lbvh_kernels(device, meshes, checked: dict, err: dict) -> None:
+    """Phase 11a: ``lbvh_vs_plain`` on each mesh at widths 4 and 8, leaf 4
+    and 8, full and compact pools, flat and (4-wide) TLAS layouts."""
+    import torch
+
+    from vortex_rt_tpu_torch.accel import lbvh
+
+    for name, *verts in meshes:
+        for width, leaf in ((4, 4), (8, 4), (8, 8), (4, 8)):
+            v0, v1, v2 = (torch.from_numpy(v).to(device)
+                          for v in lbvh.pad_tris(*verts, leaf))
+            sizes = []
+
+            def plans(topo):
+                pool_rows, leaf_rows, surv_idx = lbvh.compact_plan(topo)
+                sizes[:] = [pool_rows, leaf_rows, int(topo.surv.sum())]
+                for pools, kw in (("full", dict()), ("compact", dict(
+                        pool_rows=pool_rows, leaf_rows=leaf_rows,
+                        surv_idx=surv_idx))):
+                    for tlas in ((False, True) if width == 4 else (False,)):
+                        yield (f"{pools} tlas={tlas}",
+                               dict(kw, tlas=tlas, fused=not tlas))
+
+            lbvh_vs_plain(f"{name} w{width} l{leaf}", v0, v1, v2, width,
+                          leaf, plans, checked, err)
+            print(f"  {name} w{width} l{leaf}: T {v0.shape[0]}, pool "
+                  f"{sizes[0]} leaf rows {sizes[1]} survivors {sizes[2]}: "
+                  f"morton, karras, collapse, refit boxes and pack (full and "
+                  f"compact pools) equal their plain versions word for "
+                  f"word; relaunches give the same words")
+
+
+def phase_config3_device_tree(device, host_c3: dict, checked: dict,
+                              err: dict) -> dict:
+    """Phase 11b: ladder row 3 on a tree built on the card (the tool's
+    entry point, launch counts reset before and read after); then each
+    LBVH kernel against its plain version at this path's shapes (the
+    row's mesh, 8-wide, leaf 4, the full pool with fused rows)."""
+    import torch
+
+    from vortex_rt_tpu_torch.accel import lbvh
+    from vortex_rt_tpu_torch.models import bigscenes
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import bench_ladder
+    from vortex_rt_tpu_torch.utils.config import RTConfig
+
+    kernels.reset_launches()
+    rec = bench_ladder.config3(device)
+    _sync(device)
+    launches = dict(kernels.LAUNCHES)
+    print(f"  {json.dumps(rec)}")
+    h = rec["hits"]
+    _check(h["same_mask"] and h["same_tri"] and h["same_dist"],
+           f"device-built tree: camera-ray hits differ from the host-built "
+           f"tree's: {h}")
+    _check(rec["parity_ok"], "config 3 on the device-built tree failed")
+    if device.type == "cuda":
+        for name in LBVH_KERNELS + ("traverse_packet",):
+            _check(launches[name] > 0, f"config 3's device build launched "
+                   f"no {name}")
+    print(f"  device-built tree: build {rec['lbvh_build_ms']:.4f} ms, "
+          f"{h['rays']} camera rays, {h['hits']} hits, same mask, tri and "
+          f"dist as over the host-built tree; mean steps per ray "
+          f"{h['mean_steps_device_tree']:.3f} (host-built "
+          f"{h['mean_steps_host_tree']:.3f}); frame {rec['ms_per_frame']:.3f}"
+          f" ms, {rec['rays_per_frame']} rays (phase 9c, host-built: "
+          f"{host_c3['frame_ms']:.3f} ms, {host_c3['rays']} rays); same "
+          f"seed-0 frame from both trees: {rec['rays_device_tree']} vs "
+          f"{rec['rays_host_tree']} rays, image max diff "
+          f"{rec['image_max_abs_vs_host_tree']:.3g}; launches {launches}")
+    rec["launches"] = launches
+
+    cfg = RTConfig(flatten=True)
+    sb = bench_ladder._single_mesh(bigscenes.blob(n=187), cfg)
+    verts = bench_ladder._device_verts(sb, cfg.max_leaf_tris, device)
+    before = dict(err)
+    lbvh_vs_plain("config 3", *verts, cfg.bvh_width, cfg.max_leaf_tris,
+                  lambda topo: [("full fused", dict(fused=True))], checked,
+                  err)
+    _check(rec["pool_rows"] == 2 * verts[0].shape[0] - 1,
+           f"config 3's pool has {rec['pool_rows']} rows, not the full "
+           f"pool of {verts[0].shape[0]} triangles")
+    print(f"  the four LBVH kernels at config 3's shapes (T "
+          f"{verts[0].shape[0]}, {cfg.bvh_width}-wide, leaf "
+          f"{cfg.max_leaf_tris}, full pool of {rec['pool_rows']} rows, fused"
+          f" rows) equal their plain versions word for word: largest word "
+          f"difference { {k: err[k] for k in LBVH_KERNELS} } (before this "
+          f"phase { {k: before[k] for k in LBVH_KERNELS} })")
+    return rec
+
+
+def phase_config5(device, checked: dict, err: dict, grid: int = 708,
+                  res=(1920, 1080), reps: int = 20) -> dict:
+    """Phase 11c: ladder row 5 at full width.  The main path's run (the
+    tool's entry points, launch counts reset before and read after), the
+    refit tree's walk against the plain walk on a crop, and each LBVH
+    kernel at this path's shapes (the compact plan, fused rows): held
+    against its plain version word for word, then timed beside it and
+    its bound."""
+    import torch
+
+    from vortex_rt_tpu_torch.accel import lbvh
+    from vortex_rt_tpu_torch.ops.traverse_packet import (
+        trace_packets, trace_packets_ref,
+    )
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import bench_ladder
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    st = bench_ladder.setup_config5(device, grid)
+    setup_s = time.perf_counter() - t0
+    build_launches = dict(kernels.LAUNCHES)
+    rec = bench_ladder.config5(device, grid, res, state=st)
+    _sync(device)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    rec.update(setup_s=setup_s, peak_bytes=int(peak))
+    print(f"  {json.dumps(rec)}")
+    _check(rec["parity_ok"], f"config 5: the t = 0 frame differs from the "
+           f"host-built tree's by {rec['parity_max_abs']} (rays "
+           f"{rec['rays_t0']} vs {rec['rays_host_tree']})")
+    n_refits = len(bench_ladder.MOVED_TS) + 2   # warm-up, moved, t = 0 again
+    per_frame = {k: (launches[k] - build_launches[k]) / n_refits
+                 for k in LBVH_KERNELS}
+    if cuda:
+        # two topology builds, each morton + karras, parents + expand +
+        # assign, refit_boxes, pack_nodes + pack_leaves
+        want = {"lbvh_karras": 4, "lbvh_collapse": 6, "lbvh_refit": 2,
+                "lbvh_pack": 4}
+        _check(all(build_launches[k] == v for k, v in want.items()),
+               f"config 5 build launches {build_launches}, expected {want}")
+        _check(per_frame == {"lbvh_karras": 0, "lbvh_collapse": 0,
+                             "lbvh_refit": 1, "lbvh_pack": 2}
+               and launches["traverse_packet"] > 0,
+               f"config 5 launches {launches}, per refit frame {per_frame}")
+    print(f"  config 5 {rec['res']}: build {rec['lbvh_build_ms']:.4f} ms, "
+          f"refit {rec['refit_ms']:.4f} ms (median of "
+          f"{len(bench_ladder.MOVED_TS)}), {rec['ms_per_frame']:.3f} ms/frame,"
+          f" frame + refit {rec['frame_plus_refit_ms']:.3f} ms, "
+          f"{rec['mrays']:.3f} Mrays/s, pool {rec['refit_pool_rows']} leaf "
+          f"rows {rec['refit_leaf_rows']}, peak {rec['peak_bytes']} B; host "
+          f"scene and tables {setup_s:.2f} s; launches {launches}")
+
+    # ---- the refit tree's walk against the plain walk on a crop
+    w, h = res
+    wa = st.refit_frame(bench_ladder.MOVED_TS[-1])
+    o, d = camera_rays(bench_ladder.camera5(st.sb, w, h), w, h, device)
+    n = min(REFIT_CROP if cuda else 1041, o.shape[0])
+    a0 = (o.shape[0] - n) // 2
+    o, d = o[a0:a0 + n].contiguous(), d[a0:a0 + n].contiguous()
+    k, ks = trace_packets(wa, o, d)
+    _sync(device)
+    pp, ps = trace_packets_ref(wa, o, d)
+    walk_err = compare_hits("refit tree/closest", k, pp, ks, ps)
+    hk, hs = trace_packets(st.host_wa, o, d)
+    print(f"  steps per ray on the crop: refit LBVH tree mean "
+          f"{float(ks.float().mean()):.3f} max {int(ks.max())}, host-built "
+          f"SAH tree (rest mesh) mean {float(hs.float().mean()):.3f} (the "
+          f"walk's stack holds {wa.depth + 4} entries)")
+    del hk
+
+    # ---- each kernel against its plain version at this path's shapes:
+    # the rest mesh, so the tree is the one the run above built
+    leaf, width = st.cfg.max_leaf_tris, st.cfg.bvh_width
+    plan = dict(pool_rows=st.pool_rows, leaf_rows=st.leaf_rows,
+                surv_idx=st.surv_idx, fused=width == 8)
+    before = dict(err)
+    topo = lbvh_vs_plain("config 5", *st.verts, width, leaf,
+                         lambda topo: [("compact fused", plan)], checked, err)
+    _same_bits("config 5: the topology built again", tuple(topo),
+               tuple(st.topo))
+    print(f"  the four LBVH kernels at config 5's shapes (T "
+          f"{st.verts[0].shape[0]}, {width}-wide, leaf {leaf}, pool "
+          f"{st.pool_rows} leaf rows {st.leaf_rows} survivor rows "
+          f"{st.surv_idx.shape[0]}, fused rows) equal their plain versions "
+          f"word for word, and the topology equals the run's: largest word "
+          f"difference { {k: err[k] for k in LBVH_KERNELS} } (before this "
+          f"phase { {k: before[k] for k in LBVH_KERNELS} })")
+    del topo
+
+    # ---- each kernel at this shape: device time, plain time, bound
+    v0, v1, v2 = st.moved(bench_ladder.MOVED_TS[-1])
+    topo, l = st.topo, v0.shape[0]
+    plan.update(leaf_size=leaf, width=width)
+    smin, smax = lbvh._scene_box(v0, v1, v2)
+    lcodes = torch.sort(lbvh.morton_codes(v0, v1, v2, smin, smax),
+                        stable=True)[0]
+    tree = (topo.lchild, topo.rchild, topo.lo, topo.hi)
+    boxes = lbvh._refit_boxes(topo, v0, v1, v2)
+    calls = {
+        "lbvh_karras": (
+            lambda: (lbvh.morton_codes(v0, v1, v2, smin, smax),
+                     lbvh._karras(lcodes, l)),
+            lambda: (lbvh.morton_codes_ref(v0, v1, v2, smin, smax),
+                     lbvh._karras_ref(lcodes, l))),
+        "lbvh_collapse": (
+            lambda: lbvh._collapse_wide(*tree, l, leaf, width),
+            lambda: lbvh._collapse_wide_ref(*tree, l, leaf, width)),
+        "lbvh_refit": (
+            lambda: lbvh._refit_boxes(topo, v0, v1, v2),
+            lambda: lbvh._refit_boxes_ref(topo, v0, v1, v2)),
+        "lbvh_pack": (
+            lambda: lbvh._pack_rows(topo, *boxes, v0, v1, v2, **plan),
+            lambda: lbvh._pack_rows_ref(topo, *boxes, v0, v1, v2, **plan)),
+    }
+    bounds = wb.lbvh_bounds(l, width, leaf, st.pool_rows, st.leaf_rows,
+                            st.surv_idx.shape[0], width == 8)
+    rows = {}
+    for name, (call, plain) in calls.items():
+        # ms: the whole wrapper by CUDA events, as the walks' rows are
+        # timed: its kernels with the fills and prefix sums around them.
+        # kernel_ms: the library's kernels alone, from the profiler
+        ms = _device_ms(call, reps) if cuda else float("nan")
+        parts = (_profiled_kernel_ms(call, reps, LBVH_KERNEL_NAMES[name])
+                 if cuda else {})
+        plain_ms = _elapsed_ms(plain, 2 if cuda else 1, device)
+        b = bounds[name]
+        rows[name] = dict(launches=launches[name],
+                          launches_per_frame=per_frame[name],
+                          launches_by_path={"config5_build": build_launches[name],
+                                            "config5": launches[name]},
+                          ms=ms, kernel_ms=parts, plain_ms=plain_ms,
+                          bound_ms=b.ms, bound_by=b.bound_by)
+        print(f"  {name} at T {l}: {ms:.4f} ms (CUDA events around the "
+              f"wrapper, mean of {reps}: its kernels, fills and prefix "
+              f"sums), bound {b.ms:.4f} ms ({b.bytes} B) = {b.ms / ms:.1%}; "
+              f"kernels alone {sum(parts.values()):.4f} ms (profiler: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+              + f"); plain {plain_ms:.3f} ms")
+    if cuda:
+        # what the pack costs without the fused rows: it then writes only
+        # nodes and tri_rows, the tables the 8-wide walk does not read
+        unfused = dict(plan, fused=False)
+        parts = _profiled_kernel_ms(
+            lambda: lbvh._pack_rows(topo, *boxes, v0, v1, v2, **unfused),
+            reps, LBVH_KERNEL_NAMES["lbvh_pack"])
+        rec["pack_unfused_kernel_ms"] = sum(parts.values())
+        print(f"  lbvh_pack without the fused rows (nodes and tri_rows only,"
+              f" {128 * st.pool_rows + 64 * leaf * st.leaf_rows} B of "
+              f"stores): kernels alone {sum(parts.values()):.4f} ms "
+              f"(profiler: " + ", ".join(f"{k} {v:.4f}"
+                                         for k, v in parts.items()) + ")")
+    rec.update(kernels=rows, walk_err=walk_err,
+               launches_k1=launches["traverse_packet"])
+    return rec
+
+
 def phase_k7(device, check_rows: int = K7_ROWS[0], check_steps: int = 500
              ) -> dict:
     import torch
@@ -887,8 +1314,8 @@ def main() -> int:
     print("phase 9b K1 vs plain version on the scale scene's tree")
     err9 = phase_scale_k1(device, scale_r)
     del scale_r
-    print("phase 9c ladder config 3's render (blob n=187, host-built: the "
-          "ladder's on-device LBVH build is not ported)")
+    print("phase 9c ladder config 3's render (blob n=187, host-built; phase "
+          "11b renders it from the tree built on the card)")
     c3, r3, cam3, p3 = phase_pathtraced(device, "config 3", blob_scene, 4)
     c3["waves"] = scale_waves(device, r3, cam3, p3, 1920, 1080,
                               names=PT_WAVES, label="config 3")
@@ -903,23 +1330,48 @@ def main() -> int:
     del r4
     print("phase 10 K7 chained row-fetch probe")
     k7 = phase_k7(device)
+    print("phase 11a K5: LBVH kernels vs their plain versions")
+    lbvh_checked = {k: 0 for k in LBVH_KERNELS}
+    lbvh_err = {k: 0.0 for k in LBVH_KERNELS}
+    phase_lbvh_kernels(device, lbvh_test_meshes(), lbvh_checked, lbvh_err)
+    print("phase 11b ladder config 3 on the tree built on the card")
+    c3d = phase_config3_device_tree(device, c3, lbvh_checked, lbvh_err)
+    print("phase 11c ladder config 5 (wavy_grid n=708, refit every frame)")
+    c5 = phase_config5(device, lbvh_checked, lbvh_err)
     print(f"  summary: config2 {c2['mrays']:.3f} Mrays/s, scale "
           f"{sc['mrays']:.3f} Mrays/s, peak {sc['peak_bytes']} B; config 3 "
           f"{c3['frame_ms']:.3f} ms/frame {c3['mrays']:.3f} Mrays/s, config "
           f"4 {c4['frame_ms']:.3f} ms/frame {c4['mrays']:.3f} Mrays/s, peak "
           f"{c4['peak_bytes']} B")
 
-    # 11. results.  K1's launches are config 4's frame (this slice's
-    # main path); the earlier paths' counts stand beside it
+    print(f"  config 3 on the device-built tree "
+          f"{c3d['ms_per_frame']:.3f} ms/frame (build "
+          f"{c3d['lbvh_build_ms']:.4f} ms); config 5 "
+          f"{c5['ms_per_frame']:.3f} ms/frame + refit {c5['refit_ms']:.4f} "
+          f"ms, build {c5['lbvh_build_ms']:.4f} ms, peak "
+          f"{c5['peak_bytes']} B")
+
+    # 12. results.  K1's launches are config 4's frame; the other paths'
+    # counts stand beside it.  The LBVH kernels' are config 5's run
     c2.update(launches=c4["k1_launches"],
               launches_per_frame=c4["k1_launches"], launches_by_path={
         "config2": c2["launches"], "config3": c3["k1_launches"],
-        "config4": c4["k1_launches"]})
+        "config4": c4["k1_launches"],
+        "config3_device_tree": c3d["launches"]["traverse_packet"],
+        "config5": c5["launches_k1"]})
+    for name in LBVH_KERNELS:
+        _check(lbvh_checked[name] > 0, f"phases 11a-11c checked no {name}")
+        c5["kernels"][name]["launches_by_path"]["config3_device_tree"] = \
+            c3d["launches"][name]
     rows = []
     for name, res, err in (
             ("packet_walk", c2k2, max(err3, c2k2["max_abs_err"])),
-            ("traverse_packet", c2, max(err5, err9, c2["max_abs_err"])),
-            ("hbm_walk", k7, k7["max_abs_err"])):
+            ("traverse_packet", c2, max(err5, err9, c5["walk_err"],
+                                        c2["max_abs_err"])),
+            ("hbm_walk", k7, k7["max_abs_err"]),
+            # the largest word difference phases 11a-11c measured
+            *((name, c5["kernels"][name], lbvh_err[name])
+              for name in LBVH_KERNELS)):
         src, replaces = SOURCES[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": res["launches"],
@@ -930,7 +1382,12 @@ def main() -> int:
                      "bound_ms": res["bound_ms"],
                      "bound_by": res["bound_by"],
                      "bound_share": res["bound_ms"] / res["ms"],
-                     "library_ms": None})
+                     "library_ms": None,
+                     # every ms is by CUDA events: around the bare launch
+                     # for the walks, around the wrapper for the LBVH rows
+                     "ms_source": ("cuda_events_wrapper" if "kernel_ms" in res
+                                   else "cuda_events_launch"),
+                     **{k: res[k] for k in ("kernel_ms",) if k in res}})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the 4-wide walk (K2), the 8-wide fused walk (K1) and the chained
-row-fetch probe (K7).
+card: the 4-wide walk (K2), the 8-wide fused walk (K1), the chained
+row-fetch probe (K7) and the four kernels of the on-device LBVH build and
+refit (K5).
 
 Needs a CUDA device and nvcc; skips without a card.  It imports neither
 JAX nor the JAX package, so it also runs on a machine without JAX — with
@@ -13,8 +14,11 @@ import pytest
 import torch
 
 import vortex_rt_tpu_torch as pt
-from vortex_rt_tpu_torch.models.bigscenes import blob
-from vortex_rt_tpu_torch.models.procedural import box, cornell_box, uv_sphere
+from vortex_rt_tpu_torch.accel import lbvh
+from vortex_rt_tpu_torch.models.bigscenes import blob, wavy_grid
+from vortex_rt_tpu_torch.models.procedural import (
+    box, cornell_box, random_soup, uv_sphere,
+)
 from vortex_rt_tpu_torch.ops.packet_walk import (
     kernel_call as k2_kernel_call, trace_packets_walk,
     trace_packets_walk_ref,
@@ -287,3 +291,137 @@ def test_k7_kernel_matches_plain_version(cuda, k, words):
     assert kernels.LAUNCHES["hbm_walk"] == before + 1
     assert torch.equal(got, hw.run_walks_ref(tab, 300, k, words))
 
+
+
+# ---- K5: the on-device LBVH build and refit, kernel by kernel
+
+def _lbvh_mesh(name):
+    import numpy as np
+
+    if name == "uv_sphere":
+        return uv_sphere((0, 0, 0), 1.0, 16, 32)
+    if name == "random_soup":
+        return random_soup(np.random.default_rng(5), 2000)
+    return wavy_grid(n=100)   # 19,602 triangles
+
+
+def _words(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _assert_same(got, want):
+    got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.dtype == b.dtype and torch.equal(_words(a), _words(b))
+
+
+@pytest.mark.parametrize("width,leaf", [(4, 4), (8, 4), (8, 8), (4, 8)])
+@pytest.mark.parametrize("mesh", ["uv_sphere", "random_soup", "wavy_grid"])
+def test_lbvh_kernels_match_plain_versions(cuda, mesh, width, leaf):
+    """Morton + Karras (A), collapse (B), bottom-up boxes (C) and pack
+    (D, full and compact pools, flat and TLAS) on the card: every integer
+    field and every output word equals the plain version's."""
+    m = _lbvh_mesh(mesh)
+    v0, v1, v2 = (torch.from_numpy(v).to(cuda)
+                  for v in lbvh.pad_tris(m.v0, m.v1, m.v2, leaf))
+    l = v0.shape[0]
+    before = dict(kernels.LAUNCHES)
+    smin, smax = lbvh._scene_box(v0, v1, v2)
+    codes = lbvh.morton_codes(v0, v1, v2, smin, smax)
+    _assert_same(codes, lbvh.morton_codes_ref(v0, v1, v2, smin, smax))
+    lcodes, order = torch.sort(codes, stable=True)
+    tree = lbvh._karras(lcodes, l)
+    _assert_same(tree, lbvh._karras_ref(lcodes, l))
+    assert kernels.LAUNCHES["lbvh_karras"] == before["lbvh_karras"] + 2
+    col = lbvh._collapse_wide(*tree, l, leaf, width)
+    _assert_same(col, lbvh._collapse_wide_ref(*tree, l, leaf, width))
+    # parents, expand, assign
+    assert kernels.LAUNCHES["lbvh_collapse"] == before["lbvh_collapse"] + 3
+    surv, ch_old, arity, base, newid, row_lo, row_cnt, leaf_newid, par = col
+    topo = lbvh.LBVHTopo(
+        order=order.to(torch.int32), lchild=tree[0], rchild=tree[1],
+        surv=surv, ch_old=ch_old, arity=arity, base=base, newid=newid,
+        row_lo=row_lo, row_cnt=row_cnt, leaf_newid=leaf_newid, lo=tree[2],
+        hi=tree[3], parent=par)
+    boxes = lbvh._refit_boxes(topo, v0, v1, v2)
+    _assert_same(boxes, lbvh._refit_boxes_ref(topo, v0, v1, v2))
+    assert kernels.LAUNCHES["lbvh_refit"] == before["lbvh_refit"] + 1
+    pool_rows, leaf_rows, surv_idx = lbvh.compact_plan(topo)
+    n = 0
+    for kw in (dict(), dict(pool_rows=pool_rows, leaf_rows=leaf_rows,
+                            surv_idx=surv_idx)):
+        for tlas in ((False, True) if width == 4 else (False,)):
+            kw2 = dict(kw, leaf_size=leaf, width=width, tlas=tlas,
+                       fused=not tlas)
+            got = lbvh._pack_rows(topo, *boxes, v0, v1, v2, **kw2)
+            n += 2   # pack_nodes, pack_leaves
+            _assert_same(got, lbvh._pack_rows_ref(topo, *boxes, v0, v1, v2,
+                                                  **kw2))
+            # a second launch gives the same words
+            _assert_same(lbvh._pack_rows(topo, *boxes, v0, v1, v2, **kw2),
+                         got)
+            n += 2
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lbvh_pack"] == before["lbvh_pack"] + n
+
+
+@pytest.mark.parametrize("width", [4, 8])
+def test_lbvh_build_and_refit_walk_like_the_plain_build(cuda, width):
+    """``build_lbvh_topo`` and a compact ``refit_lbvh`` of moved vertices
+    on the card against the same calls on the CPU (plain versions): the
+    same tables; the walk over them finds the CPU walk's hits."""
+    m = _lbvh_mesh("random_soup")
+    host = [torch.from_numpy(v) for v in lbvh.pad_tris(m.v0, m.v1, m.v2, 4)]
+    dev = [v.to(cuda) for v in host]
+    lb_d, topo_d = lbvh.build_lbvh_topo(*dev, leaf_size=4, width=width)
+    lb_h, topo_h = lbvh.build_lbvh_topo(*host, leaf_size=4, width=width)
+    for a, b in zip(topo_d, topo_h):
+        assert torch.equal(a.cpu(), b)
+    plan_d, plan_h = lbvh.compact_plan(topo_d), lbvh.compact_plan(topo_h)
+    assert plan_d[:2] == plan_h[:2] and torch.equal(plan_d[2].cpu(), plan_h[2])
+    moved_h = [v + 0.25 * torch.sin(v.flip(1)) for v in host]
+    moved_d = [v.to(cuda) for v in moved_h]
+    for lb_a, lb_b in ((lb_d, lb_h), (
+            lbvh.refit_lbvh(topo_d, *moved_d, width=width,
+                            pool_rows=plan_d[0], leaf_rows=plan_d[1],
+                            surv_idx=plan_d[2]),
+            lbvh.refit_lbvh(topo_h, *moved_h, width=width,
+                            pool_rows=plan_h[0], leaf_rows=plan_h[1],
+                            surv_idx=plan_h[2]))):
+        assert (lb_a.fused is None) == (width == 4)
+        for name in ("nodes", "tri_rows") + (("fused",) if width == 8 else ()):
+            assert torch.equal(_words(getattr(lb_a, name)).cpu(),
+                               _words(getattr(lb_b, name))), name
+    wa_d = lbvh.wide_arrays_from_lbvh(lb_d, 4, width=width)
+    wa_h = lbvh.wide_arrays_from_lbvh(lb_h, 4, width=width)
+    g = torch.Generator().manual_seed(1)
+    o = (torch.rand(3001, 3, generator=g) - 0.5) * 28.0
+    d = torch.nn.functional.normalize(torch.randn(3001, 3, generator=g))
+    walk = trace_packets if width == 8 else trace_packets_walk
+    k, _ = walk(wa_d, o.to(cuda), d.to(cuda))
+    p, _ = walk(wa_h, o, d)
+    assert bool((p.dist < 1e30).any())
+    for a, b in zip(k, p):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_lbvh_refit_copies_nothing_to_the_host(cuda):
+    """A compact refit makes no device-to-host copy: it runs under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    m = _lbvh_mesh("uv_sphere")
+    v = [torch.from_numpy(x).to(cuda) for x in lbvh.pad_tris(m.v0, m.v1,
+                                                             m.v2, 4)]
+    _, topo = lbvh.build_lbvh_topo(*v, width=8)
+    pool_rows, leaf_rows, surv_idx = lbvh.compact_plan(topo)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lb = lbvh.refit_lbvh(topo, *v, width=8, pool_rows=pool_rows,
+                             leaf_rows=leaf_rows, surv_idx=surv_idx)
+        wa = lbvh.wide_arrays_from_lbvh(lb, 4, width=8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert wa.fused.shape == (pool_rows, 32 + 64)

@@ -1,0 +1,433 @@
+"""The port's on-device LBVH build and refit (``accel/lbvh.py``, plain
+PyTorch versions on the CPU) against the JAX package's, on the same
+vertices from seeded NumPy generators: tolerance 0 everywhere — every
+``LBVHTopo`` field equal, ``nodes`` equal word for word, ``tri_rows``
+equal bit for bit.
+
+The JAX side runs with ``jax.disable_jit()``: jitted, ``_karras`` alone
+compiles 95 unrolled whole-array steps for every new triangle count
+(about a minute).  The jitted programs, which may fuse and contract what
+op-by-op execution does not (hazard H2), are compared once, as the ladder
+runs them: ``test_jitted_jax_*`` on the soup at width 8, leaf 4.
+
+The one place the packages can differ is the scale exponent (hazard H7):
+XLA:CPU's ``log2`` rounds ``log2(x)`` to k for x one ulp above 2**k
+(for k >= 3 and k <= -6), so its ``ceil`` gives a scale half the port's (the port reads the exponent
+from the float's bits).  ``test_h7_exponent_case`` builds a scene that
+hits it and checks that only the scale of that node differs and that no
+hit changes; no other scene here has such a node.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vortex_rt_tpu.accel import lbvh as jl
+from vortex_rt_tpu.models import bigscenes as jbig
+from vortex_rt_tpu.models import procedural as jproc
+from vortex_rt_tpu_torch import bridge
+from vortex_rt_tpu_torch.accel import lbvh as tl
+from vortex_rt_tpu_torch.models import bigscenes as tbig
+from vortex_rt_tpu_torch.models import procedural as tproc
+from vortex_rt_tpu_torch.ops.packet_walk import trace_packets_walk_ref
+from vortex_rt_tpu_torch.ops.traverse_packet import trace_packets_ref
+from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT
+
+SCENES = ("uv_sphere", "random_soup")
+SHAPES = ((4, 4), (8, 4), (8, 8), (4, 8))  # (width, leaf)
+
+
+def _mesh(scene):
+    if scene == "uv_sphere":
+        return tproc.uv_sphere((0, 0, 0), 1.0, 8, 16)   # 224 triangles
+    return tproc.random_soup(np.random.default_rng(3), 500)
+
+
+def _bits(a):
+    """Any array or tensor as int32 words (floats by their bits)."""
+    a = a.numpy() if torch.is_tensor(a) else np.asarray(a)
+    if a.dtype == np.bool_:
+        return a.astype(np.int32)
+    return np.ascontiguousarray(a).view(np.int32) if a.itemsize == 4 else a
+
+
+def _same(a, b, what):
+    a, b = _bits(a), _bits(b)
+    assert a.shape == b.shape, (what, a.shape, b.shape)
+    assert (a == b).all(), (what, int((a != b).sum()), "words differ")
+
+
+@pytest.fixture(scope="module")
+def built():
+    """``built(scene, width, leaf)`` -> (padded vertices, JAX (nodes,
+    topo), port (nodes, topo)); each case is built once per module."""
+    cache = {}
+
+    def get(scene, width, leaf):
+        key = (scene, width, leaf)
+        if key not in cache:
+            m = _mesh(scene)
+            v = tl.pad_tris(m.v0, m.v1, m.v2, leaf)
+            with jax.disable_jit():
+                j = jl.build_lbvh_topo(*(jnp.asarray(x) for x in v),
+                                       leaf_size=leaf, width=width)
+            t = tl.build_lbvh_topo(*(torch.from_numpy(x) for x in v),
+                                   leaf_size=leaf, width=width)
+            cache[key] = (v, j, t)
+        return cache[key]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def jitted():
+    """The soup at width 8, leaf 4 through the jitted JAX build and a
+    jitted refit of the moved vertices -> (vertices, moved vertices, JAX
+    (nodes, topo), JAX refit nodes)."""
+    m = _mesh("random_soup")
+    v = tl.pad_tris(m.v0, m.v1, m.v2, 4)
+    w = _moved(v)
+    jlb, jtopo = jl.build_lbvh_topo(*(jnp.asarray(x) for x in v),
+                                    leaf_size=4, width=8)
+    jre = jl.refit_lbvh(jtopo, *(jnp.asarray(x) for x in w), leaf_size=4,
+                        width=8)
+    return v, w, (jlb, jtopo), jre
+
+
+def _carry(jtopo):
+    return bridge.lbvh_topo(device="cpu", **{
+        f: np.asarray(getattr(jtopo, f)) for f in jtopo._fields})
+
+
+def _moved(v, shift=0.37):
+    """The vertices pushed along a smooth field (new boxes everywhere)."""
+    def move(a):
+        out = a.copy()
+        out[:, 1] += np.float32(shift) * np.sin(a[:, 0] * np.float32(1.3))
+        out[:, 0] += np.float32(0.11)
+        return out
+    return tuple(move(a) for a in v)
+
+
+@pytest.mark.parametrize("n", [1, 7, 4096])
+def test_morton3d_equals_jax(n):
+    rng = np.random.default_rng(n)
+    x, y, z = (rng.uniform(-0.1, 1.1, n).astype(np.float32) for _ in range(3))
+    want = np.asarray(jl.morton3d(jnp.asarray(x), jnp.asarray(y),
+                                  jnp.asarray(z)))
+    got = tl.morton3d(*(torch.from_numpy(a) for a in (x, y, z)))
+    _same(want, got, "morton3d")
+
+
+@pytest.mark.parametrize("width,leaf", SHAPES)
+@pytest.mark.parametrize("scene", SCENES)
+def test_topology_equals_jax(built, scene, width, leaf):
+    _, (_, jtopo), (_, ttopo) = built(scene, width, leaf)
+    for f in jtopo._fields:
+        _same(getattr(jtopo, f), getattr(ttopo, f), f)
+    # parent, the port's extra field, is the inverse of the child lists
+    par = ttopo.parent.numpy()
+    for ch in (ttopo.lchild.numpy(), ttopo.rchild.numpy()):
+        assert (par[ch] == np.arange(len(ch))).all()
+
+
+@pytest.mark.parametrize("width,leaf", SHAPES)
+@pytest.mark.parametrize("scene", SCENES)
+def test_build_tables_equal_jax(built, scene, width, leaf):
+    _, (jlb, _), (tlb, _) = built(scene, width, leaf)
+    _same(jlb.nodes, tlb.nodes, "nodes")
+    _same(jlb.tri_rows, tlb.tri_rows, "tri_rows")
+    assert int(jlb.num_leaves) == int(tlb.num_leaves)
+
+
+def test_jitted_jax_topology_equals_the_port(jitted, built):
+    _, _, (_, jtopo), _ = jitted
+    _, _, (_, ttopo) = built("random_soup", 8, 4)
+    for f in jtopo._fields:
+        _same(getattr(jtopo, f), getattr(ttopo, f), f)
+
+
+def test_jitted_jax_build_tables_equal_the_port(jitted, built):
+    _, _, (jlb, _), _ = jitted
+    _, _, (tlb, _) = built("random_soup", 8, 4)
+    _same(jlb.nodes, tlb.nodes, "nodes")
+    _same(jlb.tri_rows, tlb.tri_rows, "tri_rows")
+
+
+def test_jitted_jax_refit_equals_the_port(jitted, built):
+    _, w, _, jre = jitted
+    _, _, (_, ttopo) = built("random_soup", 8, 4)
+    tre = tl.refit_lbvh(ttopo, *(torch.from_numpy(x) for x in w),
+                        leaf_size=4, width=8)
+    _same(jre.nodes, tre.nodes, "nodes")
+    _same(jre.tri_rows, tre.tri_rows, "tri_rows")
+
+
+@pytest.mark.parametrize("pools", ["full", "compact"])
+@pytest.mark.parametrize("width,leaf,tlas", [(4, 4, False), (8, 4, False),
+                                            (4, 4, True)])
+@pytest.mark.parametrize("scene", SCENES)
+def test_refit_on_carried_topology_equals_jax(built, scene, width, leaf,
+                                              tlas, pools):
+    v, (_, jtopo), _ = built(scene, width, leaf)
+    ttopo = _carry(jtopo)
+    w = _moved(v)
+    jkw, tkw = {}, {}
+    if pools == "compact":
+        jp, jr, js = jl.compact_plan(jtopo, pad=32)
+        tp, tr, ts = tl.compact_plan(ttopo, pad=32)
+        assert (jp, jr) == (tp, tr)
+        _same(js, ts, "surv_idx")
+        jkw = dict(pool_rows=jp, leaf_rows=jr, surv_idx=js)
+        tkw = dict(pool_rows=tp, leaf_rows=tr, surv_idx=ts)
+    with jax.disable_jit():
+        jlb = jl.refit_lbvh(jtopo, *(jnp.asarray(x) for x in w),
+                            leaf_size=leaf, width=width, tlas=tlas, **jkw)
+    tlb = tl.refit_lbvh(ttopo, *(torch.from_numpy(x) for x in w),
+                        leaf_size=leaf, width=width, tlas=tlas, **tkw)
+    _same(jlb.nodes, tlb.nodes, "nodes")
+    _same(jlb.tri_rows, tlb.tri_rows, "tri_rows")
+
+
+@pytest.mark.parametrize("width", [4, 8])
+def test_wide_arrays_and_fused_rows_equal_jax(built, width):
+    """``wide_arrays_from_lbvh`` of a refit against the JAX package's,
+    and its fused rows against ``.fuse()`` there: written by the refit
+    itself at width 8, by ``WideArrays.fuse`` at width 4."""
+    v, (jlb, _), (_, ttopo) = built("random_soup", width, 4)
+    jwa = jl.wide_arrays_from_lbvh(jlb, 4, width=width)
+    tlb = tl.refit_lbvh(ttopo, *(torch.from_numpy(x) for x in v),
+                        leaf_size=4, width=width)
+    assert (tlb.fused is None) == (width == 4)
+    twa = tl.wide_arrays_from_lbvh(tlb, 4, width=width)
+    assert (twa.num_tlas, twa.tri_bits, twa.max_leaf_tris, twa.depth,
+            twa.width) == (jwa.num_tlas, jwa.tri_bits, jwa.max_leaf_tris,
+                           jwa.depth, jwa.width)
+    _same(jwa.fuse().fused, (twa if width == 8 else twa.fuse()).fused,
+          "fused")
+
+
+def _brute_force(o, d, v0, v1, v2, eps=1e-6):
+    """Closest Moller-Trumbore hit of every ray over every triangle, in
+    float64 -> (dist, tri); LARGE_FLOAT / -1 on a miss."""
+    o, d = o[:, None, :].astype(np.float64), d[:, None, :].astype(np.float64)
+    a = v0[None].astype(np.float64)
+    e1, e2 = v1[None] - a, v2[None] - a
+    h = np.cross(d, e2)
+    det = (e1 * h).sum(-1)
+    ok = np.abs(det) > eps
+    inv = 1.0 / np.where(ok, det, 1.0)
+    s = o - a
+    u = inv * (s * h).sum(-1)
+    q = np.cross(s, e1)
+    w = inv * (d * q).sum(-1)
+    t = inv * (e2 * q).sum(-1)
+    ok &= (u >= 0) & (u <= 1) & (w >= 0) & (u + w <= 1) & (t > eps)
+    t = np.where(ok, t, np.inf)
+    tri = t.argmin(1)
+    best = t[np.arange(t.shape[0]), tri]
+    return (np.where(np.isfinite(best), best, LARGE_FLOAT),
+            np.where(np.isfinite(best), tri, -1))
+
+
+def _rays(n, seed):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-14, 14, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d
+
+
+@pytest.mark.parametrize("leaf", [4, 8])
+def test_walks_give_brute_force_hits_at_both_widths(leaf):
+    """The port's counterpart of ``tests/test_lbvh8.py``: the 8-wide
+    fused walk and the 4-wide walk over device-built trees of one soup
+    find the same hits, and they are the brute-force hits."""
+    m = _mesh("random_soup")
+    v = tuple(torch.from_numpy(x) for x in tl.pad_tris(m.v0, m.v1, m.v2, leaf))
+    wa8 = tl.wide_arrays_from_lbvh(
+        tl.build_lbvh(*v, leaf_size=leaf, width=8), leaf, width=8)
+    wa4 = tl.wide_arrays_from_lbvh(
+        tl.build_lbvh(*v, leaf_size=leaf, width=4), leaf, width=4)
+    assert wa8.width == 8 and wa8.depth == 22 and wa4.depth == 32
+
+    def n_internal(wa):
+        meta = wa.nodes[:, 6 + 2 * wa.width]
+        return int(((meta != 0) & ((meta >> 29) == 0)).sum())
+
+    assert n_internal(wa8) < n_internal(wa4)
+    o, d = _rays(384, 11)
+    h8, s8 = trace_packets_ref(wa8, torch.from_numpy(o), torch.from_numpy(d))
+    h4, s4 = trace_packets_walk_ref(wa4, torch.from_numpy(o),
+                                    torch.from_numpy(d))
+    assert torch.equal(h4.dist, h8.dist) and torch.equal(h4.tri, h8.tri)
+    assert int(s8.sum()) < int(s4.sum())
+    dist, tri = _brute_force(o, d, m.v0, m.v1, m.v2)
+    hit = dist < LARGE_FLOAT
+    assert hit.any() and not hit.all()
+    assert ((h8.dist.numpy() < LARGE_FLOAT) == hit).all()
+    assert (h8.tri.numpy()[hit] == tri[hit]).all()
+    np.testing.assert_allclose(h8.dist.numpy()[hit], dist[hit], rtol=1e-4)
+
+
+@pytest.mark.parametrize("width", [4, 8])
+def test_bounds_count_each_input_and_output_once(built, width):
+    """``walk_bounds.lbvh_bounds`` against the bytes of the tensors that
+    go into and come out of each step, on a compact plan."""
+    from vortex_rt_tpu_torch.tools.walk_bounds import lbvh_bounds
+
+    v, _, (_, topo) = built("random_soup", width, 4)
+    v = [torch.from_numpy(x) for x in v]
+    l = v[0].shape[0]
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    smin, smax = tl._scene_box(*v)
+    codes = tl.morton_codes(*v, smin, smax)
+    tree = tl._karras(torch.sort(codes, stable=True)[0], l)
+    col = tl._collapse_wide(*tree, l, 4, width)
+    boxes = tl._refit_boxes(topo, *v)
+    pool, rows, surv_idx = tl.compact_plan(topo, pad=32)
+    packed = tl._pack_rows(topo, *boxes, *v, 4, width, pool_rows=pool,
+                           leaf_rows=rows, surv_idx=surv_idx,
+                           fused=width == 8)
+    b = lbvh_bounds(l, width, 4, pool, rows, surv_idx.shape[0], width == 8)
+    assert b["lbvh_karras"].bytes == (nbytes(*v, smin, smax, codes)
+                                      + nbytes(codes, *tree))
+    assert b["lbvh_collapse"].bytes == nbytes(*tree, *col)
+    assert b["lbvh_refit"].bytes == nbytes(*v, topo.order, topo.lchild,
+                                           topo.rchild, *boxes)
+    s = surv_idx.shape[0]
+    per_survivor = nbytes(surv_idx) + s * (1 + 12 + 4 * width)
+    assert b["lbvh_pack"].bytes == (
+        per_survivor + nbytes(*boxes) // (2 * l - 1) * min(2 * l - 1, pool)
+        + 12 * rows + nbytes(topo.order, *v)
+        + nbytes(*(t for t in packed if t is not None)))
+    assert all(x.bound_by == "bytes" for x in b.values())
+
+
+def test_refit_follows_the_moved_geometry():
+    m = tproc.uv_sphere((0, 0, 0), 1.0, 10, 14)
+    v = [torch.from_numpy(x) for x in tl.pad_tris(m.v0, m.v1, m.v2, 4)]
+    _, topo = tl.build_lbvh_topo(*v, leaf_size=4, width=8)
+    o = torch.tensor([[0.0, 0.0, -5.0]]).repeat(32, 1)
+    d = torch.tensor([[0.0, 0.0, 1.0]]).repeat(32, 1)
+    for shift in (0.0, 2.0):
+        lb = tl.refit_lbvh(topo, *(x + shift for x in v), leaf_size=4,
+                           width=8)
+        hits, _ = trace_packets_ref(tl.wide_arrays_from_lbvh(lb, 4, width=8),
+                                    o, d)
+        if shift == 0.0:
+            np.testing.assert_allclose(hits.dist.numpy(), 4.0, atol=0.05)
+        else:
+            assert bool((hits.dist == LARGE_FLOAT).all())
+
+
+def test_h7_exponent_case():
+    """A root whose x extent over 255 is one ulp above 2**3: XLA:CPU's
+    ``ceil(log2(.))`` gives 3 there (it is right at 2**0 .. 2**2), the
+    exact exponent is 4."""
+    two_k = np.float32(8.0)
+    ext = np.float32(255.0) * two_k
+    while ext / np.float32(255.0) <= two_k:
+        ext = np.nextafter(ext, np.float32(np.inf))
+    assert ext / np.float32(255.0) == np.nextafter(two_k, np.float32(16.0))
+    rng = np.random.default_rng(9)
+    n = 200
+    v0 = rng.uniform(100.0, 1900.0, (n, 3)).astype(np.float32)
+    v1 = v0 + rng.normal(0, 8.0, (n, 3)).astype(np.float32)
+    v2 = v0 + rng.normal(0, 8.0, (n, 3)).astype(np.float32)
+    v0[0, 0], v0[1, 0] = 0.0, ext        # the scene's x range is [0, ext]
+    with jax.disable_jit():
+        jlb, jtopo = jl.build_lbvh_topo(*(jnp.asarray(x) for x in
+                                          (v0, v1, v2)), width=8)
+    tlb, ttopo = tl.build_lbvh_topo(*(torch.from_numpy(x) for x in
+                                      (v0, v1, v2)), width=8)
+    for f in jtopo._fields:
+        _same(getattr(jtopo, f), getattr(ttopo, f), f)
+    _same(jlb.tri_rows, tlb.tri_rows, "tri_rows")
+    jn, tn = _bits(jlb.nodes), _bits(tlb.nodes)
+    rows = np.nonzero((jn != tn).any(1))[0]
+    assert rows.tolist() == [0], rows      # only the root differs
+    js, ts = (a[0, 3:6].view(np.float32) for a in (jn, tn))
+    assert (js[0], ts[0]) == (8.0, 16.0) and (js[1:] == ts[1:]).all()
+    assert (jn[0, 0:3] == tn[0, 0:3]).all() and jn[0, 22] == tn[0, 22]
+    # the looser scale changes no hit
+    o, d = _rays(256, 2)
+    o = o * np.float32(70.0) + np.float32(950.0)
+    aim = ((v0 + v1 + v2) / np.float32(3.0))[:128] - o[:128]
+    d[:128] = aim / np.linalg.norm(aim, axis=-1, keepdims=True)
+    twa = tl.wide_arrays_from_lbvh(tlb, 4, width=8)
+    jwa = bridge.wide_arrays(
+        np.asarray(jlb.nodes), np.asarray(jlb.tri_rows), num_tlas=0,
+        max_leaf_tris=4, depth=22, tri_bits=twa.tri_bits, width=8,
+        device="cpu").fuse()
+    ht, _ = trace_packets_ref(twa, torch.from_numpy(o), torch.from_numpy(d))
+    hj, _ = trace_packets_ref(jwa, torch.from_numpy(o), torch.from_numpy(d))
+    assert bool((ht.dist < LARGE_FLOAT).any())
+    for a, b in zip(ht, hj):
+        assert torch.equal(a, b)
+
+
+def test_scale_exponent_is_exact():
+    ks = np.arange(-126, 128)
+    p = (2.0 ** ks.astype(np.float64)).astype(np.float32)
+    rnd = np.exp(np.random.default_rng(0).uniform(-60, 60, 20000)
+                 ).astype(np.float32)
+    x = np.concatenate([p, np.nextafter(p, np.float32(np.inf))[:-1],
+                        np.nextafter(p, np.float32(0))[1:], rnd])
+    m, e = np.frexp(x.astype(np.float64))    # x = m * 2**e, m in [0.5, 1)
+    want = np.clip(np.where(m == 0.5, e - 1, e), -126, 127)
+    got = tl.scale_exponent(torch.from_numpy(x)).numpy()
+    assert (got == want).all()
+
+
+def test_staleness_and_surface_area_equal_jax(built):
+    v, (jlb, jtopo), (tlb, ttopo) = built("uv_sphere", 4, 4)
+    assert tl.tree_surface_area(tlb.nodes) == jl.tree_surface_area(jlb.nodes)
+    w = _moved(v, shift=0.9)
+    with jax.disable_jit():
+        want = jl.refit_staleness(jtopo, *(jnp.asarray(x) for x in w))
+    got = tl.refit_staleness(ttopo, *(torch.from_numpy(x) for x in w))
+    assert got == want and 0.5 < got < 4.0
+
+
+@pytest.mark.parametrize("t,leaf", [(10, 4), (12, 4), (13, 8)])
+def test_pad_tris(t, leaf):
+    rng = np.random.default_rng(t)
+    v = [rng.normal(size=(t, 3)).astype(np.float32) for _ in range(3)]
+    for a, b in zip(jl.pad_tris(*v, leaf), tl.pad_tris(*v, leaf)):
+        assert a.shape[0] % leaf == 0
+        _same(a, b, "pad_tris")
+
+
+@pytest.mark.parametrize("n,t", [(24, 0.0), (9, 0.7)])
+def test_wavy_grid_equals_jax(n, t):
+    a, b = jbig.wavy_grid(n=n, t=t), tbig.wavy_grid(n=n, t=t)
+    assert a.num_tris == 2 * (n - 1) ** 2
+    for f in ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2"):
+        _same(getattr(a, f), getattr(b, f), f)
+
+
+def test_random_soup_equals_jax():
+    a = jproc.random_soup(np.random.default_rng(4), 100)
+    b = tproc.random_soup(np.random.default_rng(4), 100)
+    for f in ("v0", "v1", "v2"):
+        _same(getattr(a, f), getattr(b, f), f)
+
+
+def test_refused_options():
+    v = [torch.zeros(16, 3)] * 3
+    with pytest.raises(NotImplementedError, match="9b"):
+        tl.build_lbvh_topo(*v, method="sah")
+    with pytest.raises(ValueError):
+        tl.build_lbvh_topo(*v, method="median")
+    with pytest.raises(ValueError, match="smaller than one leaf"):
+        tl.build_lbvh_topo(*(x[:4] for x in v))
+    v = [torch.rand(16, 3) for _ in range(3)]
+    _, topo = tl.build_lbvh_topo(*v, width=8)
+    with pytest.raises(ValueError, match="4-wide only"):
+        tl.refit_lbvh(topo, *v, width=8, tlas=True)

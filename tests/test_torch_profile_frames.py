@@ -29,6 +29,19 @@ def test_ladder_pathtraced_frames(scene, spp, tris):
     assert r.wa.width == 8 and r.wa.fused is not None
 
 
+def test_config5_is_the_ladder_refit_scene():
+    """The animated mesh: the ladder tool's scene (small here), frame and
+    light, on the K1 route."""
+    st, cam, p, w, h = pf.build_refit("cpu", grid=10)
+    assert (w, h, p.spp, p.max_depth, p.shadow, p.pathtrace) == (
+        1920, 1080, 2, 2, True, False)
+    assert tuple(p.light_pos) == (0.0, 14.0, 0.0)
+    assert st.sb.num_tris == 2 * 9 * 9
+    assert st.r.walk is trace_packets
+    wa = st.refit_frame(0.2)
+    assert wa.width == 8 and wa.fused is not None and wa.depth == 22
+
+
 def test_unknown_scene_is_refused():
     with pytest.raises(ValueError, match="unknown scene"):
         pf.build("teapot", "cpu")

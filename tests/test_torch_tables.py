@@ -254,6 +254,19 @@ img, rays = r.render(cam, pt.RenderParams(light_pos=(0, 0.8, -0.5),
                                           shadow=True), 16, 16)
 assert img.shape == (16, 16, 3) and np.isfinite(img).all(), img.shape
 assert rays >= 256, rays
+# the on-device LBVH build and refit, and the ladder tool over them
+import torch
+from vortex_rt_tpu_torch.accel import lbvh
+from vortex_rt_tpu_torch.tools import bench_ladder
+m = uv_sphere((0, 0, 0), 1.0, 8, 16)
+v = [torch.from_numpy(x) for x in lbvh.pad_tris(m.v0, m.v1, m.v2, 4)]
+lb, topo = lbvh.build_lbvh_topo(*v, width=8)
+pool_rows, leaf_rows, surv_idx = lbvh.compact_plan(topo, pad=32)
+lb = lbvh.refit_lbvh(topo, *v, width=8, pool_rows=pool_rows,
+                     leaf_rows=leaf_rows, surv_idx=surv_idx)
+assert lb.fused.shape == (pool_rows, 96), lb.fused.shape
+rec = bench_ladder.config5("cpu", grid=8, res=(8, 8))
+assert rec["parity_ok"], rec
 bad = sorted(m for m in sys.modules
              if m == "vortex_rt_tpu" or m.startswith("vortex_rt_tpu."))
 assert not bad, bad

@@ -13,7 +13,10 @@ including the merged shadow+bounce wave — and the 4-wide route (flat or
 TLAS+BLAS) through ``csrc/packet_walk.cu`` (K2); Whitted shading with
 shadow rays and the path-traced frame (``RenderParams(pathtrace=True)``,
 ``render_accum``); the native host BVH builder (``runtime/native.py``);
-and the chained row-fetch probe ``tools/exp_hbm_walk.py`` over
+the on-device LBVH build and per-frame refit for moving meshes
+(``accel/lbvh.py`` over ``csrc/lbvh_karras.cu``, ``lbvh_collapse.cu``,
+``lbvh_refit.cu`` and ``lbvh_pack.cu``, K5) with the ladder's rows 3 and 5
+(``tools/bench_ladder.py``); and the chained row-fetch probe ``tools/exp_hbm_walk.py`` over
 ``csrc/hbm_walk.cu`` (K7).  Kernels are built and bound by
 ``runtime/kernels.py``.  On CPU tensors each kernel's wrapper runs its
 plain PyTorch version instead.

@@ -1,0 +1,877 @@
+"""On-device LBVH: Morton sort + Karras hierarchy + wide collapse + refit
++ packed emit (port of ``vortex_rt_tpu/accel/lbvh.py``, K5).
+
+The tree is built and refit where the vertices live, with no host round
+trip, so a scene whose vertices move is re-bounded every frame (ladder
+config 5) and a static one can be built on the device (ladder config 3).
+
+Pipeline (``build_lbvh_topo``):
+
+1. 30-bit Morton codes of the triangle centroids over the scene box;
+2. a stable sort by code (``torch.sort``, as the JAX package calls
+   ``jnp.argsort``);
+3. the Karras 2012 binary radix tree over all triangles, ties broken by
+   index;
+4. subtree-cut leaves: every maximal Karras subtree of at most
+   ``leaf_size`` triangles becomes one wide leaf (a contiguous Morton
+   range);
+5. the collapse to 4- or 8-wide nodes: above the cut, internals at depth
+   % 2 (or 3) == 0 survive and adopt their grandchildren (or
+   great-grandchildren); ids come from two exclusive prefix sums
+   (``torch.cumsum``, as ``jnp.cumsum`` there);
+6. bottom-up boxes of every binary node;
+7. quantize and pack into the traversal tables of
+   ``ops/traverse_wide.py`` (``nodes``, ``tri_rows`` and, at width 8,
+   the fused rows the 8-wide walk reads).
+
+``refit_lbvh`` keeps the topology (steps 1-5) and redoes steps 6-7: the
+per-frame update.  With ``compact_plan`` it runs only over the pool rows,
+leaf rows and survivors the collapse assigned, and copies nothing to the
+host.
+
+Every step has two versions.  On CUDA tensors it launches a hand-written
+kernel (``csrc/lbvh_karras.cu``, ``lbvh_collapse.cu``, ``lbvh_refit.cu``,
+``lbvh_pack.cu``, built by ``runtime/kernels.py``) or raises; on CPU
+tensors it runs the plain PyTorch version (``*_ref``), which is the JAX
+arithmetic in torch ops, sparse-table refit included.  There is no
+fallback between the two.  All integer fields equal the JAX package's,
+and so do the packed words: the scale exponent ``ceil(log2(extent /
+255))`` is taken from the float's bits in both versions (ROADMAP hazard
+H7).
+
+``method="sah"`` (the JAX package's measured and not adopted sweep-SAH
+tree) is not ported: ROADMAP Queue 1, item 9b.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from vortex_rt_tpu_torch.accel.qbvh import (
+    KIND_INSTANCE, KIND_INTERNAL, KIND_TRIS,
+)
+from vortex_rt_tpu_torch.ops.traverse_wide import (
+    INST_ROOT, INST_XFORM, ROW_WORDS, WideArrays, fuse_rows, left_bits,
+    row_layout,
+)
+from vortex_rt_tpu_torch.runtime import kernels
+
+_I32 = torch.int32
+_I64 = torch.int64
+_F32 = torch.float32
+
+
+@dataclasses.dataclass
+class LBVHNodes:
+    """Packed traversal arrays for a single-mesh LBVH scene."""
+
+    nodes: torch.Tensor       # (pool [+1 TLAS root], 32) int32 node records
+    tri_rows: torch.Tensor    # (rows, 16*leaf) f32: one leaf per row
+    num_leaves: torch.Tensor  # 0-dim: leaf rows in use
+    fused: Optional[torch.Tensor] = None  # (pool, 32 + 16*leaf) int32
+
+
+class LBVHTopo(NamedTuple):
+    """Fixed topology for the refit path.  Node-id convention: Karras
+    internals 0..T-2, triangle leaves (T-1)+j.  The fields are the JAX
+    package's, int32 (``surv`` bool), plus ``parent``, which the
+    bottom-up refit kernel climbs."""
+
+    order: torch.Tensor       # (T,) Morton triangle permutation
+    lchild: torch.Tensor      # (T-1,) Karras left child (old ids)
+    rchild: torch.Tensor      # (T-1,)
+    surv: torch.Tensor        # (T-1,) bool: survives the wide collapse
+    ch_old: torch.Tensor      # (T-1, width) old ids of wide children (-1)
+    arity: torch.Tensor       # (T-1,)
+    base: torch.Tensor        # (T-1,) new id of first wide child
+    newid: torch.Tensor       # (2T-1,) new id of surviving/cut nodes
+    row_lo: torch.Tensor      # (T,) first sorted-tri slot of leaf row j
+    row_cnt: torch.Tensor     # (T,) tri count of leaf row j (0 = unused)
+    leaf_newid: torch.Tensor  # (T,) wide-pool id of leaf row j (-1 unused)
+    lo: torch.Tensor          # (T-1,) Karras internal leaf-range start
+    hi: torch.Tensor          # (T-1,) inclusive range end
+    parent: torch.Tensor      # (2T-1,) binary parent (old ids; root: 0)
+
+
+def _cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"no LBVH build for device {t.device}")
+    return False
+
+
+MAX_TRIS = 1 << 26  # the depth bound of wide_arrays_from_lbvh holds below
+
+
+def _check_verts(v0, v1, v2) -> int:
+    """The triangle count of three (T, 3) float32 tensors on one device."""
+    for v in (v0, v1, v2):
+        if (v.dtype != _F32 or v.dim() != 2 or v.shape[1] != 3
+                or v.shape != v0.shape or v.device != v0.device):
+            raise ValueError("vertices must be three (T, 3) float32 tensors "
+                             "on one device")
+    if not 2 <= v0.shape[0] < MAX_TRIS:
+        raise ValueError(f"the LBVH takes 2 to {MAX_TRIS - 1} triangles, got "
+                         f"{v0.shape[0]}")
+    return int(v0.shape[0])
+
+
+def _check_i32(dev, **arrays) -> None:
+    """Each ``name=(tensor, shape)``: contiguous int32 (``surv``: bool) of
+    that shape on ``dev``, so a kernel may take its pointer."""
+    for name, (a, shape) in arrays.items():
+        want = torch.bool if name == "surv" else _I32
+        if (a.dtype != want or tuple(a.shape) != shape or a.device != dev
+                or not a.is_contiguous()):
+            raise ValueError(
+                f"{name} must be a contiguous {want} tensor of shape {shape} "
+                f"on {dev}, got {a.dtype}{tuple(a.shape)} on {a.device}")
+
+
+def _check_topo(topo: "LBVHTopo", l: int, dev) -> int:
+    """Check the topology against ``l`` triangles; returns its width."""
+    width = int(topo.ch_old.shape[-1])
+    i, n = (l - 1,), (2 * l - 1,)
+    _check_i32(dev, order=(topo.order, (l,)), lchild=(topo.lchild, i),
+               rchild=(topo.rchild, i), surv=(topo.surv, i),
+               ch_old=(topo.ch_old, (l - 1, width)), arity=(topo.arity, i),
+               base=(topo.base, i), newid=(topo.newid, n),
+               row_lo=(topo.row_lo, (l,)), row_cnt=(topo.row_cnt, (l,)),
+               leaf_newid=(topo.leaf_newid, (l,)), lo=(topo.lo, i),
+               hi=(topo.hi, i), parent=(topo.parent, n))
+    return width
+
+
+def _launch(lib: kernels.KernelLibrary, fn: str, dev, *args,
+            n_kernels: int = 1) -> None:
+    """Call C entry point ``fn`` on the current stream of ``dev``; raises
+    on a launch error and counts the ``n_kernels`` kernels it launches."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib.lib, fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: {lib.error_string(err)} "
+                           f"({err})")
+    kernels.LAUNCHES[lib.name] += n_kernels
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """u32 words held in int64 -> int32 with the same bits."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 2**31, x - 2**32, x).to(_I32)
+
+
+# --------------------------------------------------------- Morton codes
+
+def _expand_bits(v: torch.Tensor) -> torch.Tensor:
+    """Spread the low 10 bits of v (int64) so there are 2 zero bits
+    between each."""
+    v = (v * 0x00010001) & 0xFF0000FF
+    v = (v * 0x00000101) & 0x0F00F00F
+    v = (v * 0x00000011) & 0xC30C30C3
+    v = (v * 0x00000005) & 0x49249249
+    return v
+
+
+def morton3d(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor
+             ) -> torch.Tensor:
+    """30-bit Morton code (int32) of coordinates in [0, 1)."""
+    def q(c):
+        return (c * 1024.0).clamp(0.0, 1023.0).to(_I64)
+
+    return (_expand_bits(q(x)) * 4 + _expand_bits(q(y)) * 2
+            + _expand_bits(q(z))).to(_I32)
+
+
+def _scene_box(v0, v1, v2):
+    tmin = torch.minimum(torch.minimum(v0, v1), v2)
+    tmax = torch.maximum(torch.maximum(v0, v1), v2)
+    return tmin.amin(0), tmax.amax(0)
+
+
+def morton_codes_ref(v0, v1, v2, smin, smax) -> torch.Tensor:
+    """Plain version: codes of the centroids over the box [smin, smax]."""
+    three = torch.tensor(3.0, dtype=_F32, device=v0.device)
+    cen = (v0 + v1 + v2) / three  # (a 0-dim divisor: true division)
+    ext = (smax - smin).clamp_min(1e-30)
+    n = (cen - smin) / ext
+    return morton3d(n[:, 0], n[:, 1], n[:, 2])
+
+
+def morton_codes(v0, v1, v2, smin, smax) -> torch.Tensor:
+    """(T,) int32 Morton codes of the triangle centroids."""
+    t = _check_verts(v0, v1, v2)
+    if not _cuda(v0):
+        return morton_codes_ref(v0, v1, v2, smin, smax)
+    lib = kernels.load("lbvh_karras")
+    v0, v1, v2 = (v.contiguous() for v in (v0, v1, v2))
+    smin, smax = smin.contiguous(), smax.contiguous()
+    for b in (smin, smax):
+        if b.dtype != _F32 or tuple(b.shape) != (3,) or b.device != v0.device:
+            raise ValueError("the scene box is two (3,) float32 tensors on "
+                             "the vertices' device")
+    codes = torch.empty(t, dtype=_I32, device=v0.device)
+    _launch(lib, "vrt_lbvh_morton", v0.device, v0.data_ptr(), v1.data_ptr(),
+            v2.data_ptr(), smin.data_ptr(), smax.data_ptr(), t,
+            codes.data_ptr())
+    return codes
+
+
+# ------------------------------------------------------------- Karras
+
+def _clz32(x: torch.Tensor) -> torch.Tensor:
+    """Leading zeros of 0 <= x < 2**32 as a 32-bit word (exact: the
+    float64 exponent of x is its bit length)."""
+    return 32 - torch.frexp(x.to(torch.float64))[1].to(_I64)
+
+
+def _karras_ref(lcodes: torch.Tensor, l: int):
+    """Plain version: the JAX package's fixed-step vectorized searches
+    (31 doubling steps, 32 + 32 bisection steps over every node)."""
+    dev = lcodes.device
+    codes = lcodes.to(_I64)
+    i_idx = torch.arange(l - 1, dtype=_I64, device=dev)
+
+    def delta(i, j):
+        valid = (j >= 0) & (j < l)
+        jj = j.clamp(0, l - 1)
+        x = codes[i] ^ codes[jj]
+        d = torch.where(x == 0, 32 + _clz32(i ^ jj), _clz32(x))
+        return torch.where(valid, d, -1)
+
+    d_plus = delta(i_idx, i_idx + 1)
+    d_minus = delta(i_idx, i_idx - 1)
+    d = torch.where(d_plus >= d_minus, 1, -1).to(_I64)
+    delta_min = delta(i_idx, i_idx - d)
+
+    lmax_s = torch.full((l - 1,), 2, dtype=_I64, device=dev)
+    for _ in range(31):
+        grow = delta(i_idx, i_idx + lmax_s * d) > delta_min
+        lmax_s = torch.where(grow, (lmax_s * 2).clamp_max(2**28), lmax_s)
+    ln = torch.zeros(l - 1, dtype=_I64, device=dev)
+    step = lmax_s
+    for _ in range(32):
+        step = step // 2
+        ok = (step > 0) & (delta(i_idx, i_idx + (ln + step) * d) > delta_min)
+        ln = torch.where(ok, ln + step, ln)
+    j_end = i_idx + ln * d
+
+    delta_node = delta(i_idx, j_end)
+    s = torch.zeros(l - 1, dtype=_I64, device=dev)
+    step = ln
+    for _ in range(32):
+        step = (step + 1) // 2
+        cand = s + step
+        ok = (cand < ln) & (delta(i_idx, i_idx + cand * d) > delta_node)
+        s = torch.where(ok, cand, s)
+        step = torch.where(step > 1, step, 0)
+    gamma = i_idx + s * d + d.clamp_max(0)
+
+    lo = torch.minimum(i_idx, j_end)
+    hi = torch.maximum(i_idx, j_end)
+    lchild = torch.where(lo == gamma, (l - 1) + gamma, gamma)
+    rchild = torch.where(hi == gamma + 1, (l - 1) + gamma + 1, gamma + 1)
+    return tuple(a.to(_I32) for a in (lchild, rchild, lo, hi))
+
+
+def _karras(lcodes: torch.Tensor, l: int):
+    """Karras 2012 ranges and splits over the sorted codes ->
+    (lchild, rchild, lo, hi), (l-1,) int32 old ids (internal k in
+    [0, l-1), leaf j at (l-1)+j)."""
+    if not _cuda(lcodes):
+        return _karras_ref(lcodes, l)
+    lib = kernels.load("lbvh_karras")
+    dev = lcodes.device
+    lcodes = lcodes.contiguous()
+    _check_i32(dev, lcodes=(lcodes, (l,)))
+    out = [torch.empty(l - 1, dtype=_I32, device=dev) for _ in range(4)]
+    _launch(lib, "vrt_lbvh_karras", dev, lcodes.data_ptr(), l,
+            *(a.data_ptr() for a in out))
+    return tuple(out)
+
+
+# ------------------------------------------------------------ collapse
+
+def _parents_ref(lchild, rchild, l: int) -> torch.Tensor:
+    i_idx = torch.arange(l - 1, dtype=_I32, device=lchild.device)
+    parent = torch.zeros(2 * l - 1, dtype=_I32, device=lchild.device)
+    parent[lchild.to(_I64)] = i_idx
+    parent[rchild.to(_I64)] = i_idx
+    return parent
+
+
+def _collapse_wide_ref(lchild, rchild, lo, hi, l: int, max_leaf: int,
+                       width: int = 4):
+    """Plain version of the subtree cut and depth-stride collapse."""
+    dev = lchild.device
+    n_nodes = 2 * l - 1
+    lchild, rchild, lo, hi = (a.to(_I64) for a in (lchild, rchild, lo, hi))
+    i_idx = torch.arange(l - 1, dtype=_I64, device=dev)
+    parent = _parents_ref(lchild, rchild, l).to(_I64)
+
+    size_int = hi - lo + 1
+    leafish = size_int <= max_leaf
+
+    # top-down depth sweep over internal nodes
+    depth = torch.zeros(l - 1, dtype=_I64, device=dev)
+    ready = i_idx == 0
+    p = parent[: l - 1]
+    it = 0
+    while not bool(ready.all()) and it < 192:
+        can = ready[p] & ~ready & (i_idx != 0)
+        depth = torch.where(can, depth[p] + 1, depth)
+        ready = ready | can
+        it += 1
+
+    stride = 2 if width == 4 else 3
+    surv = ~leafish & ((depth % stride) == 0)
+
+    def is_lf(c):
+        return (c >= l - 1) | leafish[c.clamp(0, l - 2)]
+
+    is_leaf_l = is_lf(lchild)
+    is_leaf_r = is_lf(rchild)
+    lc_s = lchild.clamp(0, l - 2)
+    rc_s = rchild.clamp(0, l - 2)
+    a_left = torch.where(is_leaf_l, 1, 2)
+    a_right = torch.where(is_leaf_r, 1, 2)
+    arity4 = a_left + a_right
+    none = torch.full_like(lchild, -1)
+
+    left0 = torch.where(is_leaf_l, lchild, lchild[lc_s])
+    left1 = torch.where(is_leaf_l, none, rchild[lc_s])
+    right0 = torch.where(is_leaf_r, rchild, lchild[rc_s])
+    right1 = torch.where(is_leaf_r, none, rchild[rc_s])
+
+    def slot4(t):
+        li = left0 if t == 0 else left1
+        u = t - a_left
+        ri = torch.where(u == 0, right0, torch.where(u == 1, right1, none))
+        return torch.where(t < a_left, li,
+                           torch.where(t < arity4, ri, none))
+
+    ch4 = torch.stack([slot4(t) for t in range(4)], 1)
+
+    if width == 4:
+        ch_old, arity = ch4, arity4
+    else:
+        a_l8 = torch.where(is_leaf_l, 1, arity4[lc_s])
+        a_r8 = torch.where(is_leaf_r, 1, arity4[rc_s])
+        arity = a_l8 + a_r8
+        ch4_l = ch4[lc_s]
+        ch4_r = ch4[rc_s]
+
+        def sel4(m, t):
+            return m.gather(1, t.clamp(0, 3).unsqueeze(1)).squeeze(1)
+
+        def slot8(t):
+            tt = torch.full_like(lchild, t)
+            lt = torch.where(is_leaf_l, lchild if t == 0 else none,
+                             sel4(ch4_l, tt))
+            u = tt - a_l8
+            rt = torch.where(is_leaf_r, torch.where(u == 0, rchild, none),
+                             sel4(ch4_r, u))
+            return torch.where(tt < a_l8, lt,
+                               torch.where(tt < arity, rt, none))
+
+        ch_old = torch.stack([slot8(t) for t in range(8)], 1)
+
+    # new ids: root = 0; survivor children get contiguous slots after an
+    # exclusive prefix sum of survivor arities
+    contrib = torch.where(surv, arity, 0)
+    base = 1 + torch.cumsum(contrib, 0) - contrib
+
+    newid = torch.full((n_nodes + 1,), -1, dtype=_I64, device=dev)
+    newid[0] = 0
+    for t in range(width):
+        idx = ch_old[:, t]
+        ok = surv & (idx >= 0)
+        # (index n_nodes is a spare slot: the JAX scatter's mode="drop")
+        newid[torch.where(ok, idx, n_nodes)] = torch.where(ok, base + t, -1)
+    newid = newid[:n_nodes]
+
+    # leaf rows: one per maximal leafish node, numbered by a prefix sum
+    # in node-id order
+    max_int = leafish & ~leafish[parent[: l - 1].clamp(0, l - 2)]
+    max_tri = ~leafish[parent[l - 1:].clamp(0, l - 2)]
+    is_max = torch.cat([max_int, max_tri])
+    row_of = torch.cumsum(is_max.to(_I64), 0) - 1
+    node_lo = torch.cat([lo, torch.arange(l, dtype=_I64, device=dev)])
+    node_cnt = torch.cat([size_int, torch.ones(l, dtype=_I64, device=dev)])
+    tgt = torch.where(is_max, row_of, l)
+
+    def rows(fill, val):
+        out = torch.full((l + 1,), fill, dtype=_I64, device=dev)
+        out[tgt] = torch.where(is_max, val, fill)
+        return out[:l].to(_I32)
+
+    return (surv, ch_old.to(_I32), arity.to(_I32), base.to(_I32),
+            newid.to(_I32), rows(0, node_lo), rows(0, node_cnt),
+            rows(-1, newid), parent.to(_I32))
+
+
+def _collapse_wide(lchild, rchild, lo, hi, l: int, max_leaf: int,
+                   width: int = 4):
+    """Subtree cut + depth-stride collapse of the binary Karras tree ->
+    (surv, ch_old, arity, base, newid, row_lo, row_cnt, leaf_newid,
+    parent); see ``LBVHTopo``."""
+    if width not in (4, 8):
+        raise ValueError(f"unsupported BVH width {width}")
+    if not _cuda(lchild):
+        return _collapse_wide_ref(lchild, rchild, lo, hi, l, max_leaf, width)
+    lib = kernels.load("lbvh_collapse")
+    dev = lchild.device
+    lchild, rchild, lo, hi = (a.contiguous() for a in (lchild, rchild, lo, hi))
+    _check_i32(dev, lchild=(lchild, (l - 1,)), rchild=(rchild, (l - 1,)),
+               lo=(lo, (l - 1,)), hi=(hi, (l - 1,)))
+    n_nodes = 2 * l - 1
+
+    def i32(*shape):
+        return torch.empty(shape, dtype=_I32, device=dev)
+
+    parent, surv = i32(n_nodes), torch.empty(l - 1, dtype=torch.bool,
+                                             device=dev)
+    ch_old, arity, contrib, is_max = (i32(l - 1, width), i32(l - 1),
+                                      i32(l - 1), i32(n_nodes))
+    # two kernels back to back: parents, then depth / cut / expansion
+    _launch(lib, "vrt_lbvh_collapse_expand", dev, lchild.data_ptr(),
+            rchild.data_ptr(), lo.data_ptr(), hi.data_ptr(), l, max_leaf,
+            width, parent.data_ptr(), surv.data_ptr(), ch_old.data_ptr(),
+            arity.data_ptr(), contrib.data_ptr(), is_max.data_ptr(),
+            n_kernels=2)
+    base = 1 + torch.cumsum(contrib, 0, dtype=_I32) - contrib
+    row_of = torch.cumsum(is_max, 0, dtype=_I32) - 1
+    newid = torch.full((n_nodes,), -1, dtype=_I32, device=dev)
+    row_lo = torch.zeros(l, dtype=_I32, device=dev)
+    row_cnt = torch.zeros(l, dtype=_I32, device=dev)
+    leaf_newid = torch.full((l,), -1, dtype=_I32, device=dev)
+    _launch(lib, "vrt_lbvh_collapse_assign", dev, surv.data_ptr(),
+            ch_old.data_ptr(), base.data_ptr(), lo.data_ptr(),
+            hi.data_ptr(), row_of.data_ptr(), l, max_leaf, width,
+            newid.data_ptr(), row_lo.data_ptr(), row_cnt.data_ptr(),
+            leaf_newid.data_ptr())
+    return (surv, ch_old, arity, base, newid, row_lo, row_cnt, leaf_newid,
+            parent)
+
+
+# ---------------------------------------------------------- refit boxes
+
+def _leaf_boxes(v0, v1, v2, order):
+    """Per-triangle boxes in sorted order (the Karras leaves)."""
+    tmin = torch.minimum(torch.minimum(v0, v1), v2)
+    tmax = torch.maximum(torch.maximum(v0, v1), v2)
+    o = order.to(_I64)
+    return tmin[o], tmax[o]
+
+
+def _range_refit(lmin, lmax, lo, hi):
+    """Internal-node boxes as range min/max over the sorted leaf boxes,
+    from a sparse table of power-of-two windows (the JAX package's
+    refit; the plain version's only)."""
+    l = lmin.shape[0]
+    k_top = int(np.floor(np.log2(max(l, 2))))
+    mins, maxs, offs = [lmin], [lmax], [0]
+    for k in range(1, k_top + 1):
+        h = 1 << (k - 1)
+        prev_min, prev_max = mins[-1], maxs[-1]
+        m = l - (1 << k) + 1
+        if m <= 0:
+            break
+        offs.append(offs[-1] + prev_min.shape[0])
+        mins.append(torch.minimum(prev_min[:m], prev_min[h:h + m]))
+        maxs.append(torch.maximum(prev_max[:m], prev_max[h:h + m]))
+    tmin, tmax = torch.cat(mins), torch.cat(maxs)
+    off_arr = torch.tensor(offs, dtype=_I64, device=lmin.device)
+    lo, hi = lo.to(_I64), hi.to(_I64)
+    k = 31 - _clz32(hi - lo + 1)               # floor(log2(len))
+    base = off_arr[k]
+    ia = base + lo
+    ib = base + hi - (1 << k) + 1
+    return (torch.minimum(tmin[ia], tmin[ib]),
+            torch.maximum(tmax[ia], tmax[ib]))
+
+
+def _refit_boxes_ref(topo: LBVHTopo, v0, v1, v2):
+    lmin, lmax = _leaf_boxes(v0, v1, v2, topo.order)
+    imin, imax = _range_refit(lmin, lmax, topo.lo, topo.hi)
+    return torch.cat([imin, lmin]), torch.cat([imax, lmax])
+
+
+def _refit_boxes(topo: LBVHTopo, v0, v1, v2):
+    """Boxes of every binary node -> ((2T-1, 3) bmin, bmax) in old ids:
+    internals 0..T-2, sorted leaves after."""
+    l = _check_verts(v0, v1, v2)
+    _check_topo(topo, l, v0.device)
+    if not _cuda(v0):
+        return _refit_boxes_ref(topo, v0, v1, v2)
+    lib = kernels.load("lbvh_refit")
+    dev = v0.device
+    v0, v1, v2 = (v.contiguous() for v in (v0, v1, v2))
+    bmin = torch.empty((2 * l - 1, 3), dtype=_F32, device=dev)
+    bmax = torch.empty((2 * l - 1, 3), dtype=_F32, device=dev)
+    arrived = torch.zeros(l - 1, dtype=_I32, device=dev)
+    _launch(lib, "vrt_lbvh_refit_boxes", dev, v0.data_ptr(), v1.data_ptr(),
+            v2.data_ptr(), topo.order.data_ptr(), topo.lchild.data_ptr(),
+            topo.rchild.data_ptr(), topo.parent.data_ptr(), l,
+            arrived.data_ptr(), bmin.data_ptr(), bmax.data_ptr())
+    return bmin, bmax
+
+
+# ----------------------------------------------------------------- pack
+
+def scale_exponent(x: torch.Tensor) -> torch.Tensor:
+    """clip(ceil(log2(x)), -126, 127) of positive normal float32 ``x``,
+    exactly, from the float's bits: the exponent field, plus one when
+    any mantissa bit is set (no ``log2``: hazard H7)."""
+    bits = x.contiguous().view(_I32)
+    e = ((bits >> 23) & 255) - 127 + ((bits & 0x7FFFFF) != 0).to(_I32)
+    return e.clamp(-126, 127)
+
+
+def _pack_wide(topo: LBVHTopo, bmin, bmax, l: int, leaf_size: int,
+               root_offset: int = 0, width: int = 4, pool_rows: int = 0,
+               surv_idx=None, leaf_rows: int = 0) -> torch.Tensor:
+    """Plain version: quantize and scatter the wide records (old boxes ->
+    new-id pool), (pool, 32) int32.  e = ceil(log2(extent / 255)); every
+    child box is widened by one quantization step."""
+    dev = bmin.device
+    w = width
+    lb = left_bits(w)
+    qoff, hoff, moff, loff = row_layout(w)
+    n_nodes = pool_rows if pool_rows else 2 * l - 1
+    if surv_idx is not None:
+        si = surv_idx.to(_I64).clamp(0, l - 2)
+        pad_row = surv_idx < 0
+        surv = topo.surv[si] & ~pad_row
+        ch_old = torch.where(pad_row[:, None], -1, topo.ch_old[si].to(_I64))
+        arity, base, sid_rows = topo.arity[si], topo.base[si], topo.newid[si]
+    else:
+        surv, ch_old, arity, base = (topo.surv, topo.ch_old.to(_I64),
+                                     topo.arity, topo.base)
+        sid_rows = topo.newid[: l - 1]
+    arity, base, sid_rows = (a.to(_I64) for a in (arity, base, sid_rows))
+    ch_s = ch_old.clamp(0, 2 * l - 2)
+    cmin, cmax = bmin[ch_s], bmax[ch_s]          # (S, w, 3)
+    present = (ch_old >= 0)[..., None]
+    inf = torch.tensor(float("inf"), dtype=_F32, device=dev)
+    org = torch.where(present, cmin, inf).amin(1)
+    top = torch.where(present, cmax, -inf).amax(1)
+    extent = (top - org).clamp_min(1e-30)
+    q255 = torch.tensor(255.0, dtype=_F32, device=dev)
+    e = scale_exponent(extent / q255)
+    scale = ((e + 127) << 23).view(_F32)
+
+    def qpack(b, lo_side):
+        q = (b - org[:, None, :]) / scale[:, None, :]
+        q = torch.floor(q) - 1 if lo_side else torch.ceil(q) + 1
+        q = q.clamp(0, 255).to(_I64)
+        return q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16)
+
+    srec = torch.zeros((surv.shape[0], ROW_WORDS), dtype=_I64, device=dev)
+    srec[:, 0:3] = org.contiguous().view(_I32).to(_I64)
+    srec[:, 3:6] = scale.contiguous().view(_I32).to(_I64)
+    has = ch_old >= 0
+    srec[:, qoff:qoff + w] = torch.where(has, qpack(cmin, True), 0)
+    srec[:, hoff:hoff + w] = torch.where(has, qpack(cmax, False), 0)
+    srec[:, moff] = ((base + root_offset) | (arity << lb)
+                     | (KIND_INTERNAL << 29))
+    # (row n_nodes is a spare slot: the JAX scatter's mode="drop")
+    rec = torch.zeros((n_nodes + 1, ROW_WORDS), dtype=_I64, device=dev)
+    ok = surv & (sid_rows >= 0) & (sid_rows < n_nodes)
+    rec[torch.where(ok, sid_rows, n_nodes)] = torch.where(
+        ok[:, None], srec, 0)
+
+    lr = leaf_rows if leaf_rows else l
+    lrec = torch.zeros((lr, ROW_WORDS), dtype=_I64, device=dev)
+    lrec[:, moff] = (torch.arange(lr, dtype=_I64, device=dev) | (1 << lb)
+                     | (KIND_TRIS << 29))
+    lrec[:, loff] = topo.row_cnt[:lr].to(_I64)
+    lid = topo.leaf_newid[:lr].to(_I64)
+    used = (lid >= 0) & (lid < n_nodes)
+    rec[torch.where(used, lid, n_nodes)] = torch.where(
+        used[:, None], lrec, 0)
+    return _wrap32(rec[:n_nodes])
+
+
+def _leaf_rows(v0, v1, v2, order, row_lo, row_cnt, l: int,
+               leaf_size: int = 4, n_rows: int = 0) -> torch.Tensor:
+    """Plain version: (rows, 16*leaf_size) packed leaf rows; row j holds
+    the ``row_cnt[j]`` triangles at sorted slots ``row_lo[j]``.. as (v0,
+    e1, e2, tid bits); empty slots are zero-area (tid -1)."""
+    if n_rows:
+        l = n_rows
+        row_lo, row_cnt = row_lo[:n_rows], row_cnt[:n_rows]
+    dev = v0.device
+    t = v0.shape[0]
+    k = torch.arange(leaf_size, dtype=_I64, device=dev)
+    idx = (row_lo.to(_I64)[:, None] + k[None, :]).clamp(0, t - 1)
+    tid = order[idx]                             # (l, leaf) global ids
+    valid = k[None, :] < row_cnt[:, None]
+    tid64 = tid.to(_I64)
+    sv0 = v0[tid64]
+    se1 = v1[tid64] - sv0
+    se2 = v2[tid64] - sv0
+    zero = ~valid[..., None]
+    sv0, se1, se2 = (torch.where(zero, 0.0, a) for a in (sv0, se1, se2))
+    tids = torch.where(valid, tid, -1).to(_I32).view(_F32)
+    rows = torch.zeros((l, leaf_size, 16), dtype=_F32, device=dev)
+    rows[..., 0:3] = sv0
+    rows[..., 3:6] = se1
+    rows[..., 6:9] = se2
+    rows[..., 9] = tids
+    return rows.reshape(l, 16 * leaf_size)
+
+
+def _tlas_root(device) -> torch.Tensor:
+    """The one-node TLAS wrapper: an identity instance whose BLAS root
+    is row 1."""
+    tlas = np.zeros((1, ROW_WORDS), np.uint32)
+    tlas[0, 14] = np.uint32(KIND_INSTANCE) << 29
+    tlas[0, INST_XFORM:INST_ROOT] = np.array(
+        [1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0], np.float32).view(np.uint32)
+    tlas[0, INST_ROOT] = 1
+    return torch.from_numpy(tlas.view(np.int32)).to(device)
+
+
+def _pack_rows_ref(topo: LBVHTopo, bmin, bmax, v0, v1, v2,
+                   leaf_size: int = 4, width: int = 4, tlas: bool = False,
+                   pool_rows: int = 0, leaf_rows: int = 0, surv_idx=None,
+                   fused: bool = False):
+    """Plain version of ``_pack_rows``."""
+    l = v0.shape[0]
+    blas = _pack_wide(topo, bmin, bmax, l, leaf_size,
+                      root_offset=1 if tlas else 0, width=width,
+                      pool_rows=pool_rows, surv_idx=surv_idx,
+                      leaf_rows=leaf_rows)
+    nodes = torch.cat([_tlas_root(blas.device), blas]) if tlas else blas
+    rows = _leaf_rows(v0, v1, v2, topo.order, topo.row_lo, topo.row_cnt, l,
+                      leaf_size=leaf_size, n_rows=leaf_rows)
+    return nodes, rows, fuse_rows(nodes, rows, width) if fused else None
+
+
+def _pack_rows(topo: LBVHTopo, bmin, bmax, v0, v1, v2, leaf_size: int = 4,
+               width: int = 4, tlas: bool = False, pool_rows: int = 0,
+               leaf_rows: int = 0, surv_idx=None, fused: bool = False):
+    """Quantize, pack and scatter -> (nodes, tri_rows, fused or None):
+    the survivor records and the leaf records at their new ids, the
+    triangle rows, and (``fused``, flat layout only) the fused
+    node+leaf rows, word for word ``WideArrays.fuse()`` of the two."""
+    if tlas and width != 4:
+        raise ValueError("the TLAS wrapper is 4-wide only")
+    if fused and tlas:
+        raise ValueError("fused rows require the flat layout")
+    l = _check_verts(v0, v1, v2)
+    dev = v0.device
+    if _check_topo(topo, l, dev) != width:
+        raise ValueError(f"the topology was collapsed to width "
+                         f"{topo.ch_old.shape[-1]}, not {width}")
+    pool = pool_rows if pool_rows else 2 * l - 1
+    lr = leaf_rows if leaf_rows else l
+    off = 1 if tlas else 0
+    if not (1 <= lr <= l and 1 <= pool
+            and pool + off <= 1 << left_bits(width) and leaf_size >= 1):
+        raise ValueError(f"pool_rows {pool} / leaf_rows {lr} outside what "
+                         f"{l} triangles and a {left_bits(width)}-bit child "
+                         f"index allow")
+    for b in (bmin, bmax):
+        if (b.dtype != _F32 or tuple(b.shape) != (2 * l - 1, 3)
+                or b.device != dev or not b.is_contiguous()):
+            raise ValueError("bmin and bmax must be contiguous (2T-1, 3) "
+                             "float32 tensors on the vertices' device")
+    if not _cuda(v0):
+        return _pack_rows_ref(topo, bmin, bmax, v0, v1, v2, leaf_size,
+                              width, tlas, pool_rows, leaf_rows, surv_idx,
+                              fused)
+    lib = kernels.load("lbvh_pack")
+    v0, v1, v2 = (v.contiguous() for v in (v0, v1, v2))
+    if surv_idx is not None:
+        surv_idx = surv_idx.contiguous()
+        _check_i32(dev, surv_idx=(surv_idx, (surv_idx.shape[0],)))
+    nodes = torch.zeros((pool + off, ROW_WORDS), dtype=_I32, device=dev)
+    if tlas:
+        nodes[0] = _tlas_root(dev)[0]
+    rows = torch.empty((lr, 16 * leaf_size), dtype=_F32, device=dev)
+    fz = (torch.zeros((pool, ROW_WORDS + 16 * leaf_size), dtype=_I32,
+                      device=dev) if fused else None)
+    n_surv = l - 1 if surv_idx is None else surv_idx.shape[0]
+    # two kernels back to back: survivor records (when there is a
+    # survivor row), then leaf records and triangle rows
+    _launch(lib, "vrt_lbvh_pack_rows", dev, topo.surv.data_ptr(),
+            topo.ch_old.data_ptr(), topo.arity.data_ptr(),
+            topo.base.data_ptr(), topo.newid.data_ptr(),
+            0 if surv_idx is None else surv_idx.data_ptr(),
+            n_surv, bmin.data_ptr(), bmax.data_ptr(), topo.order.data_ptr(),
+            topo.row_lo.data_ptr(), topo.row_cnt.data_ptr(),
+            topo.leaf_newid.data_ptr(), v0.data_ptr(), v1.data_ptr(),
+            v2.data_ptr(), l, width, leaf_size, off, pool, lr,
+            nodes.data_ptr(), rows.data_ptr(),
+            0 if fz is None else fz.data_ptr(),
+            n_kernels=2 if n_surv > 0 else 1)
+    return nodes, rows, fz
+
+
+# --------------------------------------------------------- entry points
+
+def build_lbvh_topo(v0: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor,
+                    leaf_size: int = 4, method: str = "karras",
+                    width: int = 4) -> Tuple[LBVHNodes, LBVHTopo]:
+    """Device BVH build over (T, 3) float32 vertices -> (LBVHNodes,
+    LBVHTopo), on the vertices' device.  ``leaf_size`` is the maximum
+    triangles per wide leaf.  8-wide tables come with their fused rows
+    (the port always fuses them: they are what the 8-wide walk reads)."""
+    if method == "sah":
+        raise NotImplementedError(
+            "method='sah': the sweep-SAH tree (_sah_sweep_tree) is not "
+            "ported yet (ROADMAP Queue 1, item 9b)")
+    if method != "karras":
+        raise ValueError(f"unknown LBVH method {method!r}")
+    l = _check_verts(v0, v1, v2)
+    if l <= leaf_size:
+        raise ValueError("scene smaller than one leaf")
+    smin, smax = _scene_box(v0, v1, v2)
+    codes = morton_codes(v0, v1, v2, smin, smax)
+    lcodes, order = torch.sort(codes, stable=True)
+    order = order.to(_I32)
+    lchild, rchild, lo, hi = _karras(lcodes, l)
+    (surv, ch_old, arity, base, newid, row_lo, row_cnt, leaf_newid,
+     parent) = _collapse_wide(lchild, rchild, lo, hi, l, leaf_size,
+                              width=width)
+    topo = LBVHTopo(order=order, lchild=lchild, rchild=rchild, surv=surv,
+                    ch_old=ch_old, arity=arity, base=base, newid=newid,
+                    row_lo=row_lo, row_cnt=row_cnt, leaf_newid=leaf_newid,
+                    lo=lo, hi=hi, parent=parent)
+    return refit_lbvh(topo, v0, v1, v2, leaf_size=leaf_size,
+                      width=width), topo
+
+
+def compact_sizes(topo: LBVHTopo, pad: int = 256) -> Tuple[int, int]:
+    """Exact pool bounds for the compact refit path: (pool_rows,
+    leaf_rows) the collapse assigned, padded up to ``pad`` (and, for a
+    mesh smaller than the padding, capped at the full pools' sizes).
+    Copies two numbers to the host, once per topology build."""
+    pool = max(int(topo.newid.max()), int(topo.leaf_newid.max())) + 1
+    rows = int((topo.row_cnt > 0).sum())
+    l = topo.order.shape[0]
+
+    def up(v):
+        return ((v + pad - 1) // pad) * pad
+
+    return min(up(pool), 2 * l - 1), min(up(max(rows, 1)), l)
+
+
+def compact_plan(topo: LBVHTopo, pad: int = 256
+                 ) -> Tuple[int, int, torch.Tensor]:
+    """``compact_sizes`` and the survivor list of the compacted repack:
+    (pool_rows, leaf_rows, surv_idx), surv_idx the (S,) int32 ids of the
+    binary internals that survive the collapse, -1 padded to a ``pad``
+    multiple.  Built once per topology, reused every refit."""
+    pool_rows, leaf_rows = compact_sizes(topo, pad=pad)
+    ids = torch.nonzero(topo.surv).squeeze(1).to(_I32)
+    n = max(((ids.shape[0] + pad - 1) // pad) * pad, pad)
+    out = torch.full((n,), -1, dtype=_I32, device=ids.device)
+    out[: ids.shape[0]] = ids
+    return pool_rows, leaf_rows, out
+
+
+def refit_lbvh(topo: LBVHTopo, v0, v1, v2, leaf_size: int = 4,
+               tlas: bool = False, width: int = 4, pool_rows: int = 0,
+               leaf_rows: int = 0, surv_idx=None) -> LBVHNodes:
+    """Keep the topology, recompute the boxes, requantize and repack: the
+    per-frame update of a moving mesh.  ``tlas=False`` emits the flat
+    single-tree layout; ``tlas=True`` prepends the one-node TLAS wrapper
+    (4-wide only).  ``pool_rows``, ``leaf_rows`` and ``surv_idx`` (from
+    ``compact_plan``) emit the compact pools.  8-wide tables come with
+    their fused rows.  Nothing is copied to the host."""
+    bmin, bmax = _refit_boxes(topo, v0, v1, v2)
+    nodes, rows, fz = _pack_rows(topo, bmin, bmax, v0, v1, v2, leaf_size,
+                                 width, tlas, pool_rows, leaf_rows, surv_idx,
+                                 fused=width == 8)
+    return LBVHNodes(nodes=nodes, tri_rows=rows,
+                     num_leaves=(topo.row_cnt > 0).sum(), fused=fz)
+
+
+def build_lbvh(v0, v1, v2, leaf_size: int = 4, width: int = 4
+               ) -> LBVHNodes:
+    """Device BVH build over triangles (T, 3) x 3 -> packed wide pool."""
+    return build_lbvh_topo(v0, v1, v2, leaf_size=leaf_size, width=width)[0]
+
+
+def wide_arrays_from_lbvh(lb: LBVHNodes, leaf_size: int = 4,
+                          tlas: bool = False, width: int = 4) -> WideArrays:
+    """Wrap a device-built LBVH as traversal-ready ``WideArrays``.  The
+    flat layout reports triangle ids directly (one implicit instance 0).
+    ``depth`` is a bound, not the tree's depth: the binary Karras depth
+    is at most the augmented key's length (32 + 26 bits under 2**26
+    leaves), and the collapse divides it by 2 (width 4) or 3 (width 8)."""
+    t = int(lb.tri_rows.shape[0])
+    return WideArrays(
+        nodes=lb.nodes, tri_rows=lb.tri_rows,
+        num_tlas=1 if tlas else 0,
+        tri_bits=0 if tlas else max(
+            int(np.ceil(np.log2(max(t * leaf_size, 2)))), 1),
+        max_leaf_tris=leaf_size,
+        depth=32 if width == 4 else 22,
+        width=width, fused=lb.fused)
+
+
+def tree_surface_area(nodes, width: int = 4) -> float:
+    """Total dequantized child-box surface area of a packed node pool:
+    the SAH-cost proxy behind ``refit_staleness`` (host-side)."""
+    n = nodes.detach().cpu().numpy().view(np.uint32)
+    scale = n[:, 3:6].view(np.float32)
+    meta = n[:, row_layout(width)[2]]
+    nch = (meta >> left_bits(width)) & (7 if width == 4 else 15)
+    total = 0.0
+    for c in range(width):
+        ql = n[:, 6 + c]
+        qh = n[:, 6 + width + c]
+        lo = np.stack([(ql >> s) & 255 for s in (0, 8, 16)], -1)
+        hi = np.stack([(qh >> s) & 255 for s in (0, 8, 16)], -1)
+        ext = np.maximum((hi.astype(np.int64) - lo) * scale, 0.0)
+        area = 2.0 * (ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2]
+                      + ext[:, 0] * ext[:, 2])
+        total += float(area[nch > c].sum())
+    return total
+
+
+def refit_staleness(topo: LBVHTopo, v0, v1, v2, leaf_size: int = 4
+                    ) -> float:
+    """Refit-quality ratio >= 1.0: summed node area of the refit tree on
+    the current geometry over a fresh rebuild's.  About 1.0 while the
+    motion preserves the Morton clustering; rebuild the topology when it
+    passes about 1.5."""
+    refit = refit_lbvh(topo, v0, v1, v2, leaf_size=leaf_size)
+    fresh = build_lbvh(v0, v1, v2, leaf_size=leaf_size)
+    return tree_surface_area(refit.nodes) / max(
+        tree_surface_area(fresh.nodes), 1e-30)
+
+
+def pad_tris(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
+             leaf_size: int = 4):
+    """Pad the triangle soup to a leaf_size multiple with degenerate
+    copies of the last triangle's first vertex (zero-area: never hit)."""
+    pad = (-v0.shape[0]) % leaf_size
+    if pad == 0:
+        return v0, v1, v2
+    p = np.repeat(v0[-1:], pad, axis=0)
+    return (np.concatenate([v0, p]), np.concatenate([v1, p]),
+            np.concatenate([v2, p]))
+
+
+def build_wide_from_tris(sb, leaf_size: int = 4, width: int = 4, *,
+                         device) -> WideArrays:
+    """Scene buffers -> traversal-ready ``WideArrays`` via the on-device
+    build, on ``device``; 8-wide tables come fused.  For scenes of one
+    identity instance (the build works in triangle space)."""
+    if not (sb.inst_transform.shape[0] == 1
+            and np.allclose(sb.inst_transform[0], np.eye(4))):
+        raise ValueError("LBVH direct build needs a single identity instance")
+    v0, v1, v2 = (torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                  for v in pad_tris(sb.v0, sb.v1, sb.v2, leaf_size))
+    lb = build_lbvh(v0, v1, v2, leaf_size=leaf_size, width=width)
+    return wide_arrays_from_lbvh(lb, leaf_size, width=width)

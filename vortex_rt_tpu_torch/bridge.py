@@ -7,7 +7,8 @@ the port's tables on a given device.  This module imports neither JAX
 nor ``vortex_rt_tpu``: it only reads arrays.
 
 4- and 8-wide ``nodes``/``tri_rows`` and the fused node+leaf rows are
-carried; tables the port cannot walk yet are refused: 16-wide rows
+carried, and the LBVH topology (``lbvh_topo``: the arrays of the JAX
+package's ``LBVHTopo``), so both packages can refit one tree; tables the port cannot walk yet are refused: 16-wide rows
 (ROADMAP Queue 1, "Not ported") and alpha tables (Queue 1, item 8).
 """
 
@@ -18,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vortex_rt_tpu_torch.accel.lbvh import LBVHTopo, _parents_ref
 from vortex_rt_tpu_torch.engine.megakernel import CameraArrays, LightArrays
 from vortex_rt_tpu_torch.ops.shade_lanes import ShadeArrays
 from vortex_rt_tpu_torch.ops.traverse_wide import ROW_WORDS, WideArrays
@@ -66,6 +68,24 @@ def wide_arrays(nodes: np.ndarray, tri_rows: np.ndarray, *, num_tlas: int,
                       tri_bits=int(tri_bits), width=int(width),
                       fused=None if fused is None else _as_i32(fused)
                       ).to(device)
+
+
+def lbvh_topo(*, order, lchild, rchild, surv, ch_old, arity, base, newid,
+              row_lo, row_cnt, leaf_newid, lo, hi, device) -> LBVHTopo:
+    """JAX ``LBVHTopo`` fields (``topo._asdict()`` as NumPy arrays) -> the
+    port's ``LBVHTopo``, so both packages can refit the same topology.
+    ``parent``, which only the port keeps, is derived from the children."""
+    ints = {k: torch.from_numpy(np.array(v, dtype=np.int32))
+            for k, v in dict(order=order, lchild=lchild, rchild=rchild,
+                             ch_old=ch_old, arity=arity, base=base,
+                             newid=newid, row_lo=row_lo, row_cnt=row_cnt,
+                             leaf_newid=leaf_newid, lo=lo, hi=hi).items()}
+    surv_t = torch.from_numpy(np.array(surv, dtype=np.bool_))
+    parent = _parents_ref(ints["lchild"], ints["rchild"],
+                          ints["order"].shape[0])
+    return LBVHTopo(surv=surv_t, parent=parent,
+                    **ints)._replace(**{k: v.to(device) for k, v in dict(
+                        ints, surv=surv_t, parent=parent).items()})
 
 
 def shade_arrays(shade_rows: np.ndarray, mat_rows: np.ndarray,

@@ -1,14 +1,15 @@
 """Large procedural scenes for the scale ladder (port of
-``vortex_rt_tpu/models/bigscenes.py``: ``parametric_mesh``, ``blob`` and
-``atrium`` with its parts, unchanged, so both packages make the same
-triangles).
+``vortex_rt_tpu/models/bigscenes.py``: ``parametric_mesh``, ``blob``,
+``atrium`` with its parts and ``wavy_grid``, unchanged, so both packages
+make the same triangles).
 
 ``blob(n=187)`` is the ladder's config-3 stand-in for the Stanford bunny
 (~69k tris): a sphere displaced by low-frequency sinusoids.  ``atrium()``
 is its config-4 stand-in for Sponza (~260k tris): a hall with two
 colonnades, a checker-textured floor, relief walls and a ceiling.
-``textured_atrium`` and ``wavy_grid`` are not ported yet (they feed
-any-hit and refit).
+``wavy_grid(n=708)`` is its config-5 mesh: a 1M-triangle heightfield whose
+vertices the refit path moves every frame.  ``textured_atrium`` is not
+ported yet (it feeds any-hit).
 """
 
 from __future__ import annotations
@@ -209,3 +210,27 @@ def atrium(n_cols: int = 12, target_tris: int = 260_000):
                                          radius=0.35, nu=nu, nv=nv,
                                          material=col_mat), 0.0))
     return meshes
+
+
+# ---------------------------------------------------------------------------
+# Config 5 ingredient: animated 1M-tri heightfield
+# ---------------------------------------------------------------------------
+
+def wavy_grid(n: int = 708, extent: float = 20.0, t: float = 0.0,
+              amp: float = 0.8,
+              material: Optional[Material] = None) -> MeshData:
+    """Animated heightfield: 2*(n-1)^2 tris (n=708 -> 1.0M), height a
+    smooth function of (x, z, t) so per-frame refit/rebuild (BASELINE
+    config 5) has real motion.  Vertices move only in y, so an LBVH
+    refit (topology kept, boxes recomputed) stays a good tree."""
+
+    def f(u, v):
+        x = (u - 0.5) * extent
+        z = (v - 0.5) * extent
+        y = amp * (np.sin(0.8 * x + 1.7 * t) * np.cos(0.6 * z - 1.3 * t)
+                   + 0.4 * np.sin(2.3 * x - 0.9 * t + 1.0)
+                   * np.sin(1.9 * z + 0.7 * t))
+        return np.stack([x, y, z], axis=-1)
+
+    return parametric_mesh(f, n - 1, n - 1, material=material,
+                           uv_scale=(8.0, 8.0))

@@ -1,5 +1,6 @@
 """Procedural test geometry (port of ``vortex_rt_tpu/models/procedural.py``:
-``quad``, ``box``, ``uv_sphere`` and ``cornell_box``, unchanged).
+``quad``, ``box``, ``uv_sphere``, ``random_soup`` and ``cornell_box``,
+unchanged).
 
 The reference ships binary OBJ assets (teapot/sphere/torus/... under
 tests/regression/raytracing/assets).  We generate equivalent geometry
@@ -93,6 +94,15 @@ def uv_sphere(center, radius: float, n_theta: int = 16, n_phi: int = 32,
                      np.stack(n0), np.stack(n1), np.stack(n2),
                      np.stack(t0), np.stack(t1), np.stack(t2),
                      materials=[material] if material else None)
+
+
+def random_soup(rng: np.random.Generator, n_tris: int, extent: float = 10.0,
+                tri_size: float = 1.0) -> MeshData:
+    """Random triangle soup — the stress input for traversal property tests."""
+    base = rng.uniform(-extent, extent, (n_tris, 3)).astype(np.float32)
+    e1 = rng.normal(0, tri_size, (n_tris, 3)).astype(np.float32)
+    e2 = rng.normal(0, tri_size, (n_tris, 3)).astype(np.float32)
+    return make_mesh(base, base + e1, base + e2)
 
 
 def cornell_box(reflective_sphere: bool = True):

@@ -69,6 +69,20 @@ def left_bits(width: int) -> int:
     return LEFT_BITS if width == 4 else LEFT_BITS8
 
 
+def fuse_rows(nodes: torch.Tensor, tri_rows: torch.Tensor,
+              width: int) -> torch.Tensor:
+    """(N, 32 + 16*lmax) int32: each node row of a flat build followed by
+    its own leaf slots (zeros for internal nodes)."""
+    meta = nodes[:, row_layout(width)[2]]
+    kind = (meta >> 29) & 7
+    left = (meta & ((1 << left_bits(width)) - 1)).to(torch.int64)
+    rows = tri_rows.view(torch.int32)
+    is_tris = (kind == qbvh.KIND_TRIS).unsqueeze(1)
+    own = rows[left.clamp(0, rows.shape[0] - 1)]
+    leaf_part = torch.where(is_tris, own, torch.zeros_like(own))
+    return torch.cat([nodes, leaf_part], 1).contiguous()
+
+
 @dataclasses.dataclass
 class WideArrays:
     """Packed wide TLAS+BLAS pool + slot-ordered triangle rows."""
@@ -103,15 +117,8 @@ class WideArrays:
         only), word for word the JAX package's ``WideArrays.fuse``."""
         if not (self.num_tlas == 0 and self.tri_bits > 0):
             raise ValueError("fused rows require the flattened build")
-        meta = self.nodes[:, row_layout(self.width)[2]]
-        kind = (meta >> 29) & 7
-        left = (meta & ((1 << left_bits(self.width)) - 1)).to(torch.int64)
-        rows = self.tri_rows.view(torch.int32)
-        is_tris = (kind == qbvh.KIND_TRIS).unsqueeze(1)
-        own = rows[left.clamp(0, rows.shape[0] - 1)]
-        leaf_part = torch.where(is_tris, own, torch.zeros_like(own))
         return dataclasses.replace(
-            self, fused=torch.cat([self.nodes, leaf_part], 1).contiguous())
+            self, fused=fuse_rows(self.nodes, self.tri_rows, self.width))
 
     @staticmethod
     def from_scene(sb: SceneBuffers, width: int = WIDTH) -> "WideArrays":

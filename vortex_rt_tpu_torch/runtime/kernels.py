@@ -9,8 +9,9 @@ flags — so an edited source is rebuilt and an unchanged one is reused.
 Nothing here runs at import: the CPU-only test machine imports every
 module and has no ``nvcc``.
 
-``LAUNCHES`` counts kernel launches by kernel name.  Each wrapper adds
-one where it launches its kernel and nowhere else, so a caller can reset
+``LAUNCHES`` counts kernel launches by library name.  Each wrapper adds
+one per ``__global__`` function it launches (an LBVH entry point may
+launch two), where it launches and nowhere else, so a caller can reset
 the counts, drive the main path and see which kernels it went through.
 """
 
@@ -55,6 +56,26 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     },
     "hbm_walk": {
         "vrt_hbm_walk": ([_P] + [_I] * 5 + [_P, _P], _I),
+        "vrt_error_string": ([_I], ctypes.c_char_p),
+    },
+    # the on-device LBVH build and refit (accel/lbvh.py)
+    "lbvh_karras": {
+        "vrt_lbvh_morton": ([_P] * 5 + [_I] + [_P] * 2, _I),
+        "vrt_lbvh_karras": ([_P, _I] + [_P] * 5, _I),
+        "vrt_error_string": ([_I], ctypes.c_char_p),
+    },
+    "lbvh_collapse": {
+        "vrt_lbvh_collapse_expand": ([_P] * 4 + [_I] * 3 + [_P] * 7, _I),
+        "vrt_lbvh_collapse_assign": ([_P] * 6 + [_I] * 3 + [_P] * 5, _I),
+        "vrt_error_string": ([_I], ctypes.c_char_p),
+    },
+    "lbvh_refit": {
+        "vrt_lbvh_refit_boxes": ([_P] * 7 + [_I] + [_P] * 4, _I),
+        "vrt_error_string": ([_I], ctypes.c_char_p),
+    },
+    "lbvh_pack": {
+        "vrt_lbvh_pack_rows": ([_P] * 6 + [_I] + [_P] * 9 + [_I] * 6
+                               + [_P] * 4, _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -1,0 +1,345 @@
+"""Ladder rows 3 and 5 on the port (port of ``tools/bench_ladder.py``
+``_scale_cfg(lbvh=True)`` and ``config5``): the two rows that need the
+on-device LBVH build and refit (``accel/lbvh.py``).
+
+    python -m vortex_rt_tpu_torch.tools.bench_ladder --configs 3,5
+
+- **row 5**, the animated mesh: ``wavy_grid(n=708)`` (999,698 triangles),
+  1920x1080, spp 2, depth 2, shadow rays, Whitted, light (0, 14, 0), flat
+  8-wide, leaf 4.  The topology is built once on the device; each frame
+  ripples the vertices, refits, repacks and writes the fused rows
+  (``refit_frame``), then renders through ``render_burst(n_frames=1)``:
+  four moved frames after a warm-up.
+- **row 3**: ``blob(n=187)``, 1920x1080, spp 4, depth 3, shadow rays,
+  path traced, on a tree built on the device (``--lbvh karras``; the JAX
+  ladder's default there, ``ploc``, is not ported yet: ROADMAP Queue 1,
+  item 9b).
+
+Build and refit times are medians of CUDA-event times around the calls
+after a warm-up (wall time on the CPU; row 5's refit is the median of its
+four frames'); frame times are wall times of one frame per call after a
+warm-up frame, as the JAX ladder times its heavy rows.  There is no jit,
+so no compile/run split.  The JAX rows' parity against the golden oracle
+is here a check against the host-built tree of
+the same mesh: row 5 renders its t = 0 frame from both (images within
+1e-5, ray counts equal); row 3 traces the camera rays over both (same
+hit mask, triangle ids and distances to the bit) and prints the
+difference of the two path-traced frames.  One JSON line per row.
+
+``--grid``, ``--blob`` and ``--res`` shrink the meshes and the frame
+(the CPU tests run row 5 on ``wavy_grid(n=24)`` at 32x32).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from vortex_rt_tpu_torch.accel import lbvh
+from vortex_rt_tpu_torch.engine.wavefront import WavefrontRenderer
+from vortex_rt_tpu_torch.models import bigscenes
+from vortex_rt_tpu_torch.models.scene import (
+    Camera, RenderParams, Scene, SceneBuffers,
+)
+from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays
+from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT, RTConfig
+
+IMG_ATOL = 1e-5
+LIGHT5 = (0.0, 14.0, 0.0)
+MOVED_TS = (0.1, 0.2, 0.3, 0.4)  # the four timed refit frames
+
+
+def timed_ms(fn: Callable[[], object], device, reps: int = 1) -> List[float]:
+    """Per-call times of ``fn`` in ms: CUDA events around each call on a
+    card, wall time on the CPU."""
+    out = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def ripple(v: torch.Tensor, t: float) -> torch.Tensor:
+    """Rest vertices ``v`` with the ripple field at time ``t``, less the
+    field at 0, added to their heights.  The difference is taken first
+    (the JAX tool adds, then subtracts), so t = 0 gives the rest mesh
+    back to the bit and its frame can be held against the host-built
+    tree's."""
+    def field(t_):
+        return (0.3 * torch.sin(0.7 * v[:, 0] + 2.1 * t_)
+                * torch.cos(0.5 * v[:, 2] - 1.3 * t_))
+
+    out = v.clone()
+    out[:, 1] = v[:, 1] + (field(t) - field(0.0))
+    return out
+
+
+@dataclasses.dataclass
+class RefitScene:
+    """Row 5's state: the host-built renderer (shading tables, and the
+    tree the t = 0 frame is checked against), the rest vertices on the
+    device, the topology and its compact plan."""
+
+    sb: SceneBuffers
+    cfg: RTConfig
+    r: WavefrontRenderer
+    host_wa: WideArrays
+    verts: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    topo: lbvh.LBVHTopo
+    pool_rows: int
+    leaf_rows: int
+    surv_idx: torch.Tensor
+    build_ms: float
+
+    def moved(self, t: float):
+        """The three vertex arrays at time ``t``."""
+        return tuple(ripple(v, t) for v in self.verts)
+
+    def refit_frame(self, t: float) -> WideArrays:
+        """Ripple, refit, repack, fused rows: one frame's tree."""
+        lb = lbvh.refit_lbvh(
+            self.topo, *self.moved(t), leaf_size=self.cfg.max_leaf_tris,
+            width=self.cfg.bvh_width, pool_rows=self.pool_rows,
+            leaf_rows=self.leaf_rows, surv_idx=self.surv_idx)
+        return lbvh.wide_arrays_from_lbvh(lb, self.cfg.max_leaf_tris,
+                                          width=self.cfg.bvh_width)
+
+
+def _single_mesh(mesh, cfg: RTConfig) -> SceneBuffers:
+    sc = Scene()
+    sc.add_instance(sc.add_mesh(mesh))
+    return sc.build(cfg)
+
+
+def _device_verts(sb: SceneBuffers, leaf: int, device):
+    return tuple(torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                 for v in lbvh.pad_tris(sb.v0, sb.v1, sb.v2, leaf))
+
+
+def setup_config5(device, grid: int = 708,
+                  cfg: Optional[RTConfig] = None) -> RefitScene:
+    """Build row 5's scene on the host (shading tables and the reference
+    tree), then its topology on ``device``: twice, the second build
+    timed."""
+    device = torch.device(device)
+    cfg = cfg or RTConfig(flatten=True)
+    sb = _single_mesh(bigscenes.wavy_grid(n=grid), cfg)
+    r = WavefrontRenderer.from_buffers(sb, cfg, device=device)
+    verts = _device_verts(sb, cfg.max_leaf_tris, device)
+
+    def build():
+        return lbvh.build_lbvh_topo(*verts, leaf_size=cfg.max_leaf_tris,
+                                    width=cfg.bvh_width)[1]
+
+    build()
+    topo = None
+
+    def timed_build():
+        nonlocal topo
+        topo = build()
+
+    build_ms = timed_ms(timed_build, device)[0]
+    pool_rows, leaf_rows, surv_idx = lbvh.compact_plan(topo)
+    return RefitScene(sb=sb, cfg=cfg, r=r, host_wa=r.wa, verts=verts,
+                      topo=topo, pool_rows=pool_rows, leaf_rows=leaf_rows,
+                      surv_idx=surv_idx, build_ms=build_ms)
+
+
+def camera5(sb: SceneBuffers, w: int, h: int) -> Camera:
+    return Scene.framing_camera(sb, 45.0, w / h)
+
+
+def params5() -> RenderParams:
+    return RenderParams(max_depth=2, spp=2, shadow=True, light_pos=LIGHT5)
+
+
+def bench_frames(r: WavefrontRenderer, cam, params, w: int, h: int,
+                 n_timed: int = 2) -> dict:
+    """One frame per call, after a warm-up frame (wall time)."""
+    r.render_burst(cam, params, w, h, n_frames=1, seed0=100, rays_only=True)
+    t0 = time.perf_counter()
+    total = 0
+    for i in range(n_timed):
+        total += r.render_burst(cam, params, w, h, n_frames=1,
+                                seed0=200 + i, rays_only=True)
+    dt = time.perf_counter() - t0
+    return dict(rays_per_frame=total // n_timed, mrays=total / dt / 1e6,
+                ms_per_frame=dt * 1e3 / n_timed)
+
+
+def config5(device, grid: int = 708, res=(1920, 1080),
+            state: Optional[RefitScene] = None) -> dict:
+    """Row 5.  ``state`` is a scene ``setup_config5`` already built."""
+    device = torch.device(device)
+    w, h = res
+    st = state or setup_config5(device, grid)
+    rec = dict(config=5, scene=f"wavy_grid(n={grid})", tris=st.sb.num_tris,
+               res=f"{w}x{h}", spp=2, depth=2, shadow=True, pathtrace=False,
+               bvh_width=st.cfg.bvh_width, max_leaf_tris=st.cfg.max_leaf_tris,
+               lbvh="karras", lbvh_build_ms=st.build_ms,
+               refit_pool_rows=st.pool_rows, refit_leaf_rows=st.leaf_rows,
+               survivors=int(st.topo.surv.sum()))
+    r, cam, p = st.r, camera5(st.sb, w, h), params5()
+    # warm-up: the t = 0 tree and a frame on it
+    r.wa = st.refit_frame(0.0)
+    r.render_burst(cam, p, w, h, n_frames=1, seed0=100, rays_only=True)
+    refit_ms, frame_s, total = [], 0.0, 0
+    for i, t in enumerate(MOVED_TS):
+        def step(t=t):
+            r.wa = st.refit_frame(t)
+        refit_ms += timed_ms(step, device)
+        t0 = time.perf_counter()
+        total += r.render_burst(cam, p, w, h, n_frames=1, seed0=200 + i,
+                                rays_only=True)
+        frame_s += time.perf_counter() - t0
+    n = len(MOVED_TS)
+    rec.update(refit_ms=statistics.median(refit_ms),
+               fused_bytes=r.wa.fused.numel() * 4,
+               rays_per_frame=total // n, mrays=total / frame_s / 1e6,
+               ms_per_frame=frame_s * 1e3 / n)
+    rec["frame_plus_refit_ms"] = rec["ms_per_frame"] + rec["refit_ms"]
+
+    # the t = 0 refit tree bounds the rest mesh: its frame against the
+    # host-built tree's
+    r.wa = st.refit_frame(0.0)
+    img, rays = r.render(cam, p, w, h)
+    img_h, rays_h = dataclasses.replace(r, wa=st.host_wa).render(cam, p, w, h)
+    diff = float(np.abs(img - img_h).max())
+    rec.update(parity_max_abs=diff, rays_t0=rays, rays_host_tree=rays_h,
+               parity_ok=bool(diff <= IMG_ATOL and rays == rays_h
+                              and np.isfinite(img).all()))
+    return rec
+
+
+def camera_hits_equal(wa_a: WideArrays, wa_b: WideArrays, cam, w: int, h: int,
+                      walk) -> dict:
+    """Pixel-center camera rays over two trees of one mesh: the same hit
+    mask, triangle ids and distances to the bit?"""
+    from vortex_rt_tpu_torch.engine import wavefront as wf
+    from vortex_rt_tpu_torch.engine.megakernel import CameraArrays
+
+    dev = wa_a.device
+    lane = torch.arange(w * h, dtype=torch.int64, device=dev)
+    pxi, pyi = wf._tile_pixel_ids(lane, w, 16, 8 if h % 16 else 16)
+    pix = pyi * w + pxi
+    ox, oy, oz, dx, dy, dz = wf._camera_from_pix(
+        CameraArrays.from_camera(cam, dev), w, h, pxi, pyi, pix,
+        torch.zeros_like(pix), 1)
+    o, d = torch.stack([ox, oy, oz], 1), torch.stack([dx, dy, dz], 1)
+    (a, sa), (b, sb_) = walk(wa_a, o, d), walk(wa_b, o, d)
+    hit = b.dist < LARGE_FLOAT
+    return dict(
+        rays=int(hit.numel()), hits=int(hit.sum()),
+        same_mask=bool(torch.equal(a.dist < LARGE_FLOAT, hit)),
+        same_tri=bool(torch.equal(a.tri[hit], b.tri[hit])),
+        same_dist=bool(torch.equal(a.dist, b.dist)),
+        mean_steps_device_tree=float(sa.float().mean()),
+        mean_steps_host_tree=float(sb_.float().mean()))
+
+
+def config3(device, method: str = "karras", blob_n: int = 187,
+            res=(1920, 1080)) -> dict:
+    if method == "ploc":
+        raise NotImplementedError(
+            "--lbvh ploc: the PLOC build (accel/ploc.py, K4) is not "
+            "ported yet (ROADMAP Queue 1, item 9b); use --lbvh karras")
+    if method != "karras":
+        raise ValueError(f"unknown --lbvh {method!r}")
+    device = torch.device(device)
+    w, h = res
+    cfg = RTConfig(flatten=True)
+    sb = _single_mesh(bigscenes.blob(n=blob_n), cfg)
+    r = WavefrontRenderer.from_buffers(sb, cfg, device=device)
+    host_wa = r.wa
+    rec = dict(config=3, scene=f"blob(n={blob_n})", tris=sb.num_tris,
+               res=f"{w}x{h}", spp=4, depth=3, shadow=True, pathtrace=True,
+               bvh_width=cfg.bvh_width, max_leaf_tris=cfg.max_leaf_tris,
+               lbvh=method)
+
+    wa = None
+
+    def build():
+        nonlocal wa
+        wa = lbvh.build_wide_from_tris(sb, leaf_size=cfg.max_leaf_tris,
+                                       width=cfg.bvh_width, device=device)
+
+    build()  # warm-up
+    rec["lbvh_build_ms"] = statistics.median(timed_ms(build, device, 3))
+    rec["pool_rows"] = int(wa.nodes.shape[0])
+    r.wa = wa
+    cam = Scene.framing_camera(sb, 45.0, w / h)
+    p = RenderParams(max_depth=3, spp=4, shadow=True, pathtrace=True)
+    rec.update(bench_frames(r, cam, p, w, h))
+    rec["hits"] = camera_hits_equal(wa, host_wa, cam, w, h, r.walk)
+    img, rays = r.render(cam, p, w, h)
+    img_h, rays_h = dataclasses.replace(r, wa=host_wa).render(cam, p, w, h)
+    rec.update(rays_device_tree=rays, rays_host_tree=rays_h,
+               image_max_abs_vs_host_tree=float(np.abs(img - img_h).max()),
+               parity_ok=bool(rec["hits"]["same_mask"]
+                              and rec["hits"]["same_tri"]
+                              and rec["hits"]["same_dist"]
+                              and np.isfinite(img).all()))
+    return rec
+
+
+def _gpu_line() -> Optional[str]:
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    return out.stdout.strip() if out.returncode == 0 else None
+
+
+def main(argv=None) -> List[dict]:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--configs", default="3,5")
+    ap.add_argument("--lbvh", default="karras",
+                    help="row 3's on-device build: karras (ploc is not "
+                         "ported yet)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--grid", type=int, default=708,
+                    help="row 5's wavy_grid(n)")
+    ap.add_argument("--blob", type=int, default=187, help="row 3's blob(n)")
+    ap.add_argument("--res", default="1920x1080")
+    a = ap.parse_args(argv)
+    res = tuple(int(x) for x in a.res.split("x"))
+    fns = {3: lambda: config3(a.device, a.lbvh, a.blob, res),
+           5: lambda: config5(a.device, a.grid, res)}
+    gpu = _gpu_line() if a.device.startswith("cuda") else None
+    out = []
+    for c in (int(x) for x in a.configs.split(",")):
+        if c not in fns:
+            raise NotImplementedError(
+                f"ladder row {c}: only rows 3 and 5 are ported (ROADMAP "
+                f"Queue 1, item 7)")
+        rec = fns[c]()
+        rec["gpu"] = gpu
+        print(json.dumps(rec), flush=True)
+        out.append(rec)
+    return out
+
+
+if __name__ == "__main__":
+    sys.exit(0 if all(r["parity_ok"] for r in main()) else 1)

@@ -7,6 +7,8 @@ kernels that take the most device time.
         --frames 3
     python -m vortex_rt_tpu_torch.tools.profile_frames \\
         --scene config3,config4 --frames 2
+    python -m vortex_rt_tpu_torch.tools.profile_frames --scene config5 \\
+        --frames 4
 
 ``config2`` is BASELINE config 2 as ``bench.py`` renders it (Cornell box
 and a 24x48 sphere, 512x512, spp 2, depth 2, shadow rays, flattened
@@ -14,6 +16,10 @@ and a 24x48 sphere, 512x512, spp 2, depth 2, shadow rays, flattened
 depth 2, shadow rays, 8-wide.  ``config3`` and ``config4`` are the scale
 ladder's path-traced frames at 1920x1080, depth 3, shadow rays:
 ``blob(n=187)`` at spp 4 (host-built) and ``atrium()`` at spp 8.
+``config5`` is the ladder's animated mesh (``tools/bench_ladder.py``:
+``wavy_grid(n=708)``, 1920x1080, spp 2, depth 2, shadow rays): every
+frame ripples the vertices, refits and repacks the tree on the card, and
+renders, so its split shows the refit beside the frame.
 
 After one warm-up frame, ``--frames`` frames are timed unprofiled (wall
 clock, device-synchronised), then the same number run under
@@ -30,13 +36,16 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 CONFIG2_EYE = ([0.05, 0.02, -3.2], [0.0, -0.05, 0.0], [0, 1, 0], 45.0, 1.0)
 CONFIG2_LIGHT = (0.0, 0.8, -0.5)
 TOP = 12  # kernels listed, by device time
+# kernels reported by name even below the top: the walk and the refit's
+WATCHED = ("traverse_packet_kernel", "refit_boxes_kernel",
+           "pack_nodes_kernel", "pack_leaves_kernel")
 
 
 def build(scene: str, device):
@@ -77,38 +86,78 @@ def build(scene: str, device):
     return WavefrontRenderer.from_buffers(sb, cfg, device=device), cam, p, w, h
 
 
-def profile(r, cam, p, w: int, h: int, frames: int) -> Dict:
-    """Unprofiled and profiled runs of ``frames`` frames each; see the
-    module docstring."""
+def build_refit(device, grid: int = 708):
+    """``config5``: (the ladder tool's refit scene, camera, params, frame
+    width, frame height)."""
+    from vortex_rt_tpu_torch.tools import bench_ladder
+
+    w, h = 1920, 1080
+    st = bench_ladder.setup_config5(device, grid)
+    return st, bench_ladder.camera5(st.sb, w, h), bench_ladder.params5(), w, h
+
+
+def kernel_events(run: Callable[[], object]) -> list:
+    """``run()`` under ``torch.profiler`` with CUDA activity -> the
+    ``key_averages()`` entries on the CUDA device that have device time,
+    longest first.  Raises when the profiler recorded none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    r.render_burst(cam, p, w, h, n_frames=1, seed0=0, rays_only=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rays = r.render_burst(cam, p, w, h, n_frames=frames, seed0=1,
-                          rays_only=True)
-    torch.cuda.synchronize()
-    frame_ms = (time.perf_counter() - t0) * 1e3 / frames
-
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
-        r.render_burst(cam, p, w, h, n_frames=frames, seed0=1,
-                       rays_only=True)
+        run()
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not kern:
         raise RuntimeError("the profiler recorded no device kernel time")
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    return kern
+
+
+def ms_by_name(kern: list, names: Sequence[str], per: int) -> Dict[str, float]:
+    """Device ms per ``per`` runs of the kernels whose name contains each
+    of ``names``, from ``kernel_events``' entries."""
+    return {name: sum(e.self_device_time_total for e in kern
+                      if name in e.key) / 1e3 / per for name in names}
+
+
+def profile(r, cam, p, w: int, h: int, frames: int,
+            before_frame: Optional[Callable[[int], None]] = None) -> Dict:
+    """Unprofiled and profiled runs of ``frames`` frames each; see the
+    module docstring.  ``before_frame(i)`` runs before frame i, inside
+    the timed and the profiled region (the refit of a moving mesh); the
+    frames are then rendered one call each."""
+    def run():
+        if before_frame is None:
+            return r.render_burst(cam, p, w, h, n_frames=frames, seed0=1,
+                                  rays_only=True)
+        rays = 0
+        for i in range(frames):
+            before_frame(i)
+            rays += r.render_burst(cam, p, w, h, n_frames=1, seed0=1 + i,
+                                   rays_only=True)
+        return rays
+
+    if before_frame is not None:
+        before_frame(0)
+    r.render_burst(cam, p, w, h, n_frames=1, seed0=0, rays_only=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rays = run()
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3 / frames
+
+    kern = kernel_events(run)
     dev_us = sum(e.self_device_time_total for e in kern)
     launches = sum(e.count for e in kern)
-    kern.sort(key=lambda e: -e.self_device_time_total)
     return dict(
         frames=frames, rays_per_frame=rays / frames, frame_ms=frame_ms,
         device_ms_per_frame=dev_us / 1e3 / frames,
         busy_share=dev_us / 1e3 / frames / frame_ms,
         launches_per_frame=launches / frames,
+        watched=ms_by_name(kern, WATCHED, frames),
         top=[dict(name=e.key[:120], share=e.self_device_time_total / dev_us,
                   ms_per_frame=e.self_device_time_total / 1e3 / frames,
                   launches_per_frame=e.count / frames)
@@ -118,8 +167,8 @@ def profile(r, cam, p, w: int, h: int, frames: int) -> Dict:
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scene", default="config2",
-                    help="config2, scale, config3, config4, or a comma "
-                    "list")
+                    help="config2, scale, config3, config4, config5, or a "
+                    "comma list")
     ap.add_argument("--frames", type=int, default=8)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -127,9 +176,17 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     device = torch.device("cuda", 0)
     out = []
     for scene in a.scene.split(","):
-        r, cam, p, w, h = build(scene, device)
+        hook = None
+        if scene == "config5":
+            st, cam, p, w, h = build_refit(device)
+            r = st.r
+
+            def hook(i, st=st, r=r):
+                r.wa = st.refit_frame(0.1 * (i + 1))
+        else:
+            r, cam, p, w, h = build(scene, device)
         res = dict(scene=scene, bvh_width=r.wa.width, w=w, h=h,
-                   **profile(r, cam, p, w, h, a.frames))
+                   **profile(r, cam, p, w, h, a.frames, hook))
         print(f"{scene} {w}x{h} ({r.wa.width}-wide), {a.frames} frames, "
               f"{torch.cuda.get_device_name(device)}: "
               f"{res['frame_ms']:.3f} ms/frame unprofiled, "
@@ -139,6 +196,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
         for t in res["top"]:
             print(f"  {t['share']:6.1%} {t['ms_per_frame']:8.3f} ms "
                   f"{t['launches_per_frame']:6.0f}x  {t['name']}")
+        print("  by name, ms/frame: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in res["watched"].items()))
         out.append(res)
     print(json.dumps(out))
     return out

@@ -1,4 +1,5 @@
-"""The least time one H100 could take for a walk (its roofline bound).
+"""The least time one H100 could take for a walk or for a step of the
+on-device LBVH build (its roofline bound).
 
 A bound is the larger of two times: the bytes the function must move
 (each input read once, each output written once) over the card's memory
@@ -30,6 +31,14 @@ K1 96 B of an internal row, 16 B of a leaf row's meta and 40 B per
 triangle slot; K2 64 B of an internal node, 16 B of a leaf node, 80 B
 of an instance node, 40 B per triangle slot).  A wave in which no ray
 walks reads none of the tables.
+
+The LBVH kernels (``lbvh_bounds``) do integer and min/max work only, a
+few operations per word moved, so their bound is their bytes: every
+input array of the function read once and every output array written
+once, at the sizes the call is given (T triangles, the pool and leaf rows
+of the tables it writes).  Arrays that one kernel of a function writes
+for the next (the collapse's two kernels around ``torch.cumsum``) and
+scratch arrays are not inputs or outputs, so they are not counted.
 """
 
 from __future__ import annotations
@@ -107,3 +116,30 @@ def k7_bound(rows: int, steps: int, k: int, words: int) -> Bound:
     target."""
     fetched = min(steps * k, rows) * words * 4
     return Bound(ops=0, bytes=fetched + 4)
+
+
+def lbvh_bounds(t: int, width: int, leaf: int, pool_rows: int,
+                leaf_rows: int, surv_rows: int, fused: bool) -> dict:
+    """Bounds of the four LBVH kernels for ``t`` (padded) triangles, by
+    kernel library name.  ``pool_rows`` and ``leaf_rows`` size the tables
+    the pack writes, ``surv_rows`` is the length of the survivor list it
+    runs over (``t - 1`` without a compact plan)."""
+    n = 2 * t - 1
+    i = t - 1
+    karras = (36 * t + 24 + 4 * t          # morton: vertices, box in; codes out
+              + 4 * t + 16 * i)            # karras: codes in; 4 arrays out
+    # lchild, rchild, lo, hi in; surv (1 B), ch_old, arity, base (l-1,),
+    # newid, parent (2l-1,), row_lo, row_cnt, leaf_newid (l,) out.  What
+    # the kernels hand each other around the prefix sums is not counted
+    collapse = 16 * i + i + 4 * width * i + 8 * i + 8 * n + 12 * t
+    # vertices, order, lchild, rchild in; bmin, bmax (2l-1, 3) out.  The
+    # parent array and the arrival counters of the climb are not counted
+    refit = 36 * t + 4 * t + 8 * i + 24 * n
+    row_words = 32 + 16 * leaf
+    pack = (4 * surv_rows + (13 + 4 * width) * surv_rows  # survivors in
+            + 24 * min(n, pool_rows)                      # child boxes in
+            + 12 * leaf_rows + 4 * t + 36 * t             # rows, order, verts
+            + 128 * pool_rows + 64 * leaf * leaf_rows     # nodes, tri_rows out
+            + (4 * row_words * pool_rows if fused else 0))
+    return {"lbvh_karras": Bound(0, karras), "lbvh_collapse": Bound(0, collapse),
+            "lbvh_refit": Bound(0, refit), "lbvh_pack": Bound(0, pack)}
