@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's seven CUDA kernel libraries from the sources in this
+Builds the port's ten CUDA kernel libraries from the sources in this
 checkout (one nvcc per source, all started together), holds each kernel
 against its plain PyTorch version on the card (hits and per-ray steps
-identical; every word of the LBVH build's and refit's outputs equal),
+identical; every word of the LBVH and PLOC builds' and refits' outputs
+equal),
 drives the port's entry points through them, and measures them: kernel
 times are device times from CUDA events, beside each kernel's bound
 (``vortex_rt_tpu_torch/tools/walk_bounds.py``).  Phases (each raises,
@@ -15,9 +16,12 @@ and so exits non-zero, on failure):
 1. device: a CUDA device is required; prints the card's name and power
    limit as nvidia-smi reports them;
 2. build: ``csrc/packet_walk.cu`` (K2), ``csrc/traverse_packet.cu`` (K1),
-   ``csrc/hbm_walk.cu`` (K7) and the four of the on-device LBVH build and
+   ``csrc/hbm_walk.cu`` (K7), the four of the on-device LBVH build and
    refit (K5: ``csrc/lbvh_karras.cu``, ``lbvh_collapse.cu``,
-   ``lbvh_refit.cu``, ``lbvh_pack.cu``), with their build times;
+   ``lbvh_refit.cu``, ``lbvh_pack.cu``) and the three of the PLOC build
+   and level refit (K4: ``csrc/ploc_merge.cu``, ``ploc_collapse.cu``,
+   ``ploc_refit.cu``; its leaf rows are ``lbvh_pack.cu``'s leaf kernel
+   reading explicit triangle ids), with their build times;
 3. K2 against its plain version: config-2 camera rays at 64x64 on the
    flat 4-wide build and on a TLAS build (two instances), in four modes
    (closest, 1/3 inactive, half t_max-clamped, shadow-ray occlusion);
@@ -86,8 +90,9 @@ and so exits non-zero, on failure):
     full and compact pools, flat and (4-wide) TLAS layouts: every integer
     field and every output word equal, and a second launch gives the
     same words;
-11b. ladder row 3 on a tree built on the card
-    (``tools/bench_ladder.config3``): K1 over the 1080p camera rays finds
+11b. ladder row 3 on a Karras tree built on the card
+    (``tools/bench_ladder.config3(method="karras")``): K1 over the 1080p
+    camera rays finds
     the same hit mask, triangle ids and distances to the bit as over the
     host-built tree; then the row's frame (spp 4, depth 3, path traced)
     with its ray count beside phase 9c's, and the difference of the same
@@ -108,14 +113,39 @@ and so exits non-zero, on failure):
     triangles, the compact plan, fused rows) word for word, and timed
     there (CUDA events around its wrapper; its kernels alone from the
     profiler beside that) beside its plain version and its bound;
-12. prints the kernels' JSON line (per kernel: launches on its main-path
+12a. K4, each PLOC kernel against its plain version on the card: the
+    merge rounds (K4a), the remap and collapse (K4b), the leaf-row boxes
+    and the refit climb over moved vertices (K4c), the pack from explicit
+    leaf ids (K4d), on phase 11a's three meshes at widths 4 and 8, leaf 4
+    and 8, radius 16, and on the grid also at radius 8: every output word
+    equal (every ``PLOCTopo`` field, ``n_int`` and ``n_levels``), a
+    second launch the same words, the refit at the build's vertices the
+    build's tables;
+12b. ladder row 3 as the ladder defines it (``tools/bench_ladder.config3``,
+    PLOC, radius 16; launch counts reset before and read after): build
+    ms, rounds, pool and leaf rows, the tree's real depth, K1 over the
+    1080p camera rays with the host-built tree's hits to the bit, the
+    row's frame and the seed-0 frame from both trees; then K1 over the
+    camera rays on the PLOC, Karras and host SAH trees (hits equal, mean
+    and largest steps per ray), and on the five waves of a sample pass
+    over the PLOC tree as 9c times them; then the K4 kernels against their plain
+    versions at this path's shapes, and timed there (CUDA events around
+    each wrapper, plain time, bytes bound);
+12c. PLOC at config 5's mesh (phase 11c's 999,700 triangles, 8-wide,
+    leaf 4): build ms and rounds, ``refit_ploc`` at t = 0 against the
+    build's words, the refit per frame with config 5's ripple, K1 steps
+    over the PLOC, Karras and SAH trees on phase 11c's crop and on shadow
+    rays towards the light (hits equal), the K4 kernels against their
+    plain versions at this size, and timed there;
+13. prints the kernels' JSON line (per kernel: launches on its main-path
     run and per frame, K1's being config 4's frame with the other paths'
-    counts beside it, the LBVH kernels' being row 5's run, one per
-    ``__global__`` function launched, per frame from the counts over the
-    run's refits; the largest difference from the plain version that the
-    phases above measured; device time by CUDA events, plain time, bound,
-    what bounds it and the share of the bound) and, last, the device JSON
-    line.
+    counts beside it, the LBVH kernels' being row 5's run, the PLOC
+    kernels' row 3's (six builds: a warm-up and five timed), with config
+    5's build and refit beside them, one per ``__global__`` function
+    launched, per frame from the counts over the run's refits; the
+    largest difference from the plain version that the phases above
+    measured; device time by CUDA events, plain time, bound, what bounds
+    it and the share of the bound) and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -143,8 +173,28 @@ SOURCES = {
                    "vortex_rt_tpu/accel/lbvh.py:284"),
     "lbvh_pack": ("vortex_rt_tpu_torch/csrc/lbvh_pack.cu",
                   "vortex_rt_tpu/accel/lbvh.py:466"),
+    "ploc_merge": ("vortex_rt_tpu_torch/csrc/ploc_merge.cu",
+                   "vortex_rt_tpu/accel/ploc.py:89"),
+    "ploc_collapse": ("vortex_rt_tpu_torch/csrc/ploc_collapse.cu",
+                      "vortex_rt_tpu/accel/ploc.py:223"),
+    "ploc_refit": ("vortex_rt_tpu_torch/csrc/ploc_refit.cu",
+                   "vortex_rt_tpu/accel/ploc.py:316"),
+    # lbvh_pack.cu's survivor records, and its leaf kernel in its
+    # explicit-ids mode
+    "ploc_pack": ("vortex_rt_tpu_torch/csrc/lbvh_pack.cu",
+                  "vortex_rt_tpu/accel/ploc.py:335"),
 }
 LBVH_KERNELS = ("lbvh_karras", "lbvh_collapse", "lbvh_refit", "lbvh_pack")
+PLOC_KERNELS = ("ploc_merge", "ploc_collapse", "ploc_refit", "ploc_pack")
+# the __global__ functions of each K4 function, as the profiler names them
+PLOC_KERNEL_NAMES = {
+    "ploc_merge": ("nn_kernel", "mutual_kernel", "plan_kernel",
+                   "write_kernel"),
+    "ploc_collapse": ("remap_kernel", "expand_kernel", "assign_kernel"),
+    "ploc_refit": ("boxes_kernel",),
+    "ploc_refit_climb": ("boxes_kernel",),
+    "ploc_pack": ("pack_nodes_kernel", "pack_leaves_kernel"),
+}
 # the __global__ functions of each LBVH library, as the profiler names them
 LBVH_KERNEL_NAMES = {
     "lbvh_karras": ("morton_kernel", "karras_kernel"),
@@ -165,11 +215,17 @@ REFIT_CROP = 132 * 8 * 128 + 17      # rays of phase 11c's walk check
 NATIVE_CROP = 512 * 512              # rays of phase 8b's hit comparison
 PT_SMALL = (256, 144)                # frame of the path-traced plain route
 PT_WAVES = ("closest0", "shadow0", "closest1", "merged1", "shadow2")
+_T0 = time.perf_counter()  # the script's start, for the phase titles
 
 
 def _check(ok, msg: str) -> None:
     if not ok:
         raise RuntimeError(msg)
+
+
+def _phase(title: str) -> None:
+    """Print a phase's title with the seconds since the script started."""
+    print(f"{title} [{time.perf_counter() - _T0:.1f} s]")
 
 
 def _sync(device) -> None:
@@ -1009,7 +1065,7 @@ def phase_config3_device_tree(device, host_c3: dict, checked: dict,
     from vortex_rt_tpu_torch.utils.config import RTConfig
 
     kernels.reset_launches()
-    rec = bench_ladder.config3(device)
+    rec = bench_ladder.config3(device, method="karras")
     _sync(device)
     launches = dict(kernels.LAUNCHES)
     print(f"  {json.dumps(rec)}")
@@ -1027,7 +1083,8 @@ def phase_config3_device_tree(device, host_c3: dict, checked: dict,
           f"dist as over the host-built tree; mean steps per ray "
           f"{h['mean_steps_device_tree']:.3f} (host-built "
           f"{h['mean_steps_host_tree']:.3f}); frame {rec['ms_per_frame']:.3f}"
-          f" ms, {rec['rays_per_frame']} rays (phase 9c, host-built: "
+          f" ms, {rec['rays_per_frame']} rays, host-built tree's timed in "
+          f"turns {rec['ms_per_frame_host_tree']:.3f} ms (phase 9c: "
           f"{host_c3['frame_ms']:.3f} ms, {host_c3['rays']} rays); same "
           f"seed-0 frame from both trees: {rec['rays_device_tree']} vs "
           f"{rec['rays_host_tree']} rays, image max diff "
@@ -1211,6 +1268,432 @@ def phase_config5(device, checked: dict, err: dict, grid: int = 708,
                                          for k, v in parts.items()) + ")")
     rec.update(kernels=rows, walk_err=walk_err,
                launches_k1=launches["traverse_packet"])
+    return rec, st
+
+
+def ploc_vs_plain(label: str, v0, v1, v2, width: int, leaf: int,
+                  radius: int, checked: dict, err: dict):
+    """Each K4 kernel against its plain version on the triangles ``v0,
+    v1, v2`` (padded, on the card): the merge rounds (K4a), the remap and
+    collapse (K4b), the leaf-row boxes and the refit climb over moved
+    vertices (K4c), and the pack from explicit leaf ids (K4d).  Every
+    output word equal (every ``PLOCTopo`` field, ``n_int`` and
+    ``n_levels`` among them), a second launch gives the same words, and
+    the refit at the build's vertices gives the build's tables.  Adds the
+    wrapper calls made to ``checked`` and folds the largest word
+    difference into ``err``, both by kernel row name.  Returns (nodes,
+    topology, the merge's live counts)."""
+    import torch
+
+    from vortex_rt_tpu_torch.accel import lbvh, ploc
+
+    def fold(name, calls, *diffs):
+        checked[name] += calls
+        err[name] = max(err[name], *diffs)
+
+    l = v0.shape[0]
+    order, cmin0, cmax0, tids0 = ploc.seed_clusters(v0, v1, v2, leaf)
+    live = []
+    merged = ploc._ploc_merge(cmin0, cmax0, tids0, l, l, leaf, radius, live)
+    fold("ploc_merge", 2,
+         _same_bits(f"{label} merge", merged, ploc._ploc_merge_ref(
+             cmin0, cmax0, tids0, l, l, leaf, radius)),
+         _same_bits(f"{label} merge again", ploc._ploc_merge(
+             cmin0, cmax0, tids0, l, l, leaf, radius), merged))
+    lk, rk, lvl, bmn, bmx, row_tids, row_cnt, n_int, _ = merged
+    rm = ploc._remap_ploc(lk, rk, lvl, bmn, bmx, n_int, l)
+    col = ploc._collapse_ploc(rm[0], rm[1], rm[5], n_int, l, width)
+    fold("ploc_collapse", 4,
+         _same_bits(f"{label} remap", rm, ploc._remap_ploc_ref(
+             lk, rk, lvl, bmn, bmx, n_int, l)),
+         _same_bits(f"{label} collapse", col, ploc._collapse_ploc_ref(
+             rm[0], rm[1], rm[5], n_int, l, width)),
+         _same_bits(f"{label} remap and collapse again",
+                    (*ploc._remap_ploc(lk, rk, lvl, bmn, bmx, n_int, l),
+                     *ploc._collapse_ploc(rm[0], rm[1], rm[5], n_int, l,
+                                          width)), (*rm, *col)))
+    rows = ploc._row_boxes(v0, v1, v2, order, row_tids, row_cnt)
+    fold("ploc_refit", 2,
+         _same_bits(f"{label} row boxes", rows, ploc._row_boxes_ref(
+             v0, v1, v2, order, row_tids, row_cnt)),
+         _same_bits(f"{label} row boxes again", ploc._row_boxes(
+             v0, v1, v2, order, row_tids, row_cnt), rows))
+    lb, pt = ploc.build_ploc_topo(v0, v1, v2, leaf_size=leaf, width=width,
+                                  radius=radius)
+    _same_bits(f"{label} the build's topology", (
+        *pt.topo[:8], pt.topo.row_cnt, pt.topo.parent, pt.leaf_tids,
+        pt.level, pt.n_int), (
+        order, *rm[:2], *col[:5], row_cnt, rm[5], row_tids, rm[2], n_int))
+    moved = tuple(v + 0.25 * torch.sin(v.flip(1)) for v in (v0, v1, v2))
+    boxes = ploc._refit_boxes_ploc(pt, *moved)
+    fold("ploc_refit", 2,
+         _same_bits(f"{label} refit boxes", boxes,
+                    ploc._refit_boxes_ploc_ref(pt, *moved)),
+         _same_bits(f"{label} refit boxes again",
+                    ploc._refit_boxes_ploc(pt, *moved), boxes))
+    kw = dict(leaf_size=leaf, width=width, fused=width == 8,
+              leaf_tids=pt.leaf_tids)
+    got = lbvh._pack_rows(pt.topo, *boxes, *moved, **kw)
+    fold("ploc_pack", 2,
+         _same_bits(f"{label} pack", got,
+                    lbvh._pack_rows_ref(pt.topo, *boxes, *moved, **kw)),
+         _same_bits(f"{label} pack again",
+                    lbvh._pack_rows(pt.topo, *boxes, *moved, **kw), got))
+    re0 = ploc.refit_ploc(pt, v0, v1, v2, leaf_size=leaf, width=width)
+    _same_bits(f"{label} refit at the build's vertices",
+               (re0.nodes, re0.tri_rows, re0.fused),
+               (lb.nodes, lb.tri_rows, lb.fused))
+    return lb, pt, live
+
+
+def phase_ploc_kernels(device, meshes, checked: dict, err: dict) -> None:
+    """Phase 12a: ``ploc_vs_plain`` on each mesh at widths 4 and 8, leaf 4
+    and 8, radius 16, and on the last mesh also at radius 8."""
+    import torch
+
+    from vortex_rt_tpu_torch.accel import lbvh
+
+    for k, (name, *verts) in enumerate(meshes):
+        shapes = [(4, 4, 16), (8, 4, 16), (8, 8, 16), (4, 8, 16)]
+        if k == len(meshes) - 1:
+            shapes.append((8, 4, 8))
+        for width, leaf, radius in shapes:
+            v0, v1, v2 = (torch.from_numpy(v).to(device)
+                          for v in lbvh.pad_tris(*verts, leaf))
+            _, pt, live = ploc_vs_plain(
+                f"{name} w{width} l{leaf} r{radius}", v0, v1, v2, width,
+                leaf, radius, checked, err)
+            print(f"  {name} w{width} l{leaf} r{radius}: T {v0.shape[0]}, "
+                  f"{int(pt.n_levels)} rounds, {int(pt.n_int)} internals, "
+                  f"{int((pt.topo.row_cnt > 0).sum())} leaf rows, depth "
+                  f"{int(pt.wide_depth)}: merge, remap, collapse, row boxes, "
+                  f"refit and pack equal their plain versions word for word;"
+                  f" relaunches give the same words")
+
+
+def ploc_times(v, width: int, leaf: int, radius: int, pt, live, reps: int,
+               device) -> dict:
+    """Each K4 function at these shapes: CUDA-event time around its
+    wrapper (mean of ``reps`` after a warm-up), the plain version's wall
+    time, and the bytes bound (``walk_bounds.ploc_bounds``).  The merge's
+    time includes the host's read of the live count after each round.
+    ``ploc_refit`` is the build's leaf-row boxes (the main path's call);
+    ``ploc_refit_climb`` the refit's boxes of the whole tree."""
+    from vortex_rt_tpu_torch.accel import lbvh, ploc
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
+
+    v0, v1, v2 = v
+    l = v0.shape[0]
+    order, cmin0, cmax0, tids0 = ploc.seed_clusters(v0, v1, v2, leaf)
+    merged = ploc._ploc_merge(cmin0, cmax0, tids0, l, l, leaf, radius)
+    lk, rk, lvl, bmn, bmx, row_tids, row_cnt, n_int, _ = merged
+
+    def collapse(remap, coll):
+        rm = remap(lk, rk, lvl, bmn, bmx, n_int, l)
+        return coll(rm[0], rm[1], rm[5], n_int, l, width)
+
+    boxes = ploc._refit_boxes_ploc(pt, v0, v1, v2)
+    kw = dict(leaf_size=leaf, width=width, fused=width == 8,
+              leaf_tids=pt.leaf_tids)
+    calls = {
+        "ploc_merge": (
+            lambda: ploc._ploc_merge(cmin0, cmax0, tids0, l, l, leaf, radius),
+            lambda: ploc._ploc_merge_ref(cmin0, cmax0, tids0, l, l, leaf,
+                                         radius)),
+        "ploc_collapse": (
+            lambda: collapse(ploc._remap_ploc, ploc._collapse_ploc),
+            lambda: collapse(ploc._remap_ploc_ref, ploc._collapse_ploc_ref)),
+        "ploc_refit": (
+            lambda: ploc._row_boxes(v0, v1, v2, order, row_tids, row_cnt),
+            lambda: ploc._row_boxes_ref(v0, v1, v2, order, row_tids,
+                                        row_cnt)),
+        "ploc_refit_climb": (
+            lambda: ploc._refit_boxes_ploc(pt, v0, v1, v2),
+            lambda: ploc._refit_boxes_ploc_ref(pt, v0, v1, v2)),
+        "ploc_pack": (
+            lambda: lbvh._pack_rows(pt.topo, *boxes, v0, v1, v2, **kw),
+            lambda: lbvh._pack_rows_ref(pt.topo, *boxes, v0, v1, v2, **kw)),
+    }
+    bounds = wb.ploc_bounds(l, width, leaf, live)
+    bounds["ploc_refit_climb"] = bounds["ploc_refit"]
+    bounds["ploc_refit"] = bounds["ploc_refit_rows"]
+    out = {}
+    for name, (call, plain) in calls.items():
+        # (a CPU rehearsal has no device time)
+        cuda = device.type == "cuda"
+        ms = _device_ms(call, reps) if cuda else float("nan")
+        parts, other = {}, []
+        if cuda:
+            # its kernels alone, and the rest of the device time (the
+            # prefix sums and fills around them), from the profiler
+            from vortex_rt_tpu_torch.tools.profile_frames import (
+                kernel_events, ms_by_name,
+            )
+
+            names = PLOC_KERNEL_NAMES[name]
+            kern = kernel_events(lambda: [call() for _ in range(reps)])
+            parts = ms_by_name(kern, names, reps)
+            other = [(e.key[:48], e.self_device_time_total / 1e3 / reps)
+                     for e in kern if not any(n in e.key for n in names)][:3]
+        plain_ms = _elapsed_ms(plain, 1, device)
+        b = bounds[name]
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b.ms,
+                         bound_by=b.bound_by, bound_bytes=b.bytes,
+                         kernel_ms=parts, other_ms=other)
+        print(f"  {name} at T {l}: {ms:.4f} ms (CUDA events around the "
+              f"wrapper, mean of {reps}), bound {b.ms:.4f} ms ({b.bytes} B)"
+              f" = {b.ms / ms:.1%}; kernels alone "
+              f"{sum(parts.values()):.4f} ms (profiler: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+              + "; besides them " + ", ".join(f"{k} {v:.4f}"
+                                              for k, v in other)
+              + f"); plain {plain_ms:.3f} ms")
+    return out
+
+
+def three_tree_steps(label: str, trees: dict, o, d, ref: str, **kw) -> dict:
+    """K1 over each tree of ``trees`` (name -> WideArrays of one mesh) on
+    the rays ``o, d``: hits equal to tree ``ref``'s to the bit (mask,
+    ``tri``, ``dist``), and steps per ray (mean, max) on each."""
+    import torch
+
+    from vortex_rt_tpu_torch.ops.traverse_packet import trace_packets
+    from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT
+
+    res, out = {}, {}
+    for name, wa in trees.items():
+        res[name] = trace_packets(wa, o, d, **kw)
+    want = res[ref][0]
+    for name, (h, st) in res.items():
+        _check(torch.equal(h.dist < LARGE_FLOAT, want.dist < LARGE_FLOAT)
+               and torch.equal(h.tri, want.tri)
+               and torch.equal(h.dist, want.dist),
+               f"{label}: hits over the {name} tree differ from the {ref} "
+               f"tree's")
+        out[name] = dict(mean=float(st.float().mean()), max=int(st.max()))
+    hits = int((want.dist < LARGE_FLOAT).sum())
+    print(f"  {label}: {o.shape[0]} rays, {hits} hit/occluded, the same "
+          f"mask, tri and dist over every tree; steps per ray "
+          + ", ".join(f"{k} mean {v['mean']:.3f} max {v['max']}"
+                      for k, v in out.items())
+          + "; ratio to " + ref + " " + ", ".join(
+              f"{k} {v['mean'] / out[ref]['mean']:.3f}x"
+              for k, v in out.items() if k != ref))
+    return dict(rays=int(o.shape[0]), hits=hits, steps=out)
+
+
+def phase_config3_ploc(device, host_c3: dict, checked: dict, err: dict,
+                       reps: int = 10, blob_n: int = 187,
+                       res=(1920, 1080)) -> dict:
+    """Phase 12b: ladder row 3 as the ladder defines it, the tree built
+    on the card by PLOC (the tool's entry point, launch counts reset
+    before and read after); K1 over the 1080p camera rays on the PLOC,
+    Karras and host SAH trees (hits equal, steps) and on the five waves of
+    a sample pass over the PLOC tree; the K4 kernels against their plain
+    versions at this path's shapes, then timed."""
+    from vortex_rt_tpu_torch.accel import lbvh, ploc
+    from vortex_rt_tpu_torch.engine.wavefront import WavefrontRenderer
+    from vortex_rt_tpu_torch.models import bigscenes
+    from vortex_rt_tpu_torch.models.scene import Scene
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import bench_ladder
+    from vortex_rt_tpu_torch.utils.config import RTConfig
+
+    kernels.reset_launches()
+    rec = bench_ladder.config3(device, blob_n=blob_n, res=res)
+    _sync(device)
+    launches = dict(kernels.LAUNCHES)
+    print(f"  {json.dumps(rec)}")
+    _check(rec["lbvh"] == "ploc", "bench_ladder row 3 did not build by PLOC")
+    h = rec["hits"]
+    _check(h["same_mask"] and h["same_tri"] and h["same_dist"],
+           f"PLOC tree: camera-ray hits differ from the host-built tree's: "
+           f"{h}")
+    _check(rec["parity_ok"], "config 3 on the PLOC tree failed")
+    if device.type == "cuda":
+        for name in PLOC_KERNELS + ("lbvh_karras", "traverse_packet"):
+            _check(launches[name] > 0, f"config 3's PLOC build launched no "
+                   f"{name}")
+        _check(launches["lbvh_collapse"] == launches["lbvh_refit"]
+               == launches["lbvh_pack"] == 0,
+               f"config 3's PLOC path launched Karras kernels: {launches}")
+    print(f"  PLOC tree (radius {rec['ploc_radius']}): build "
+          f"{rec['lbvh_build_ms']:.4f} ms (median of 5), {rec['ploc_rounds']}"
+          f" rounds, pool {rec['pool_rows']} rows, {rec['leaf_rows']} leaf "
+          f"rows, {rec['internals']} internals, depth {rec['tree_depth']} "
+          f"(walk stack for {rec['walk_depth']}); {h['rays']} camera rays, "
+          f"{h['hits']} hits, same mask, tri and dist as the host-built tree;"
+          f" steps mean {h['mean_steps_device_tree']:.3f} max "
+          f"{h['max_steps_device_tree']} (host {h['mean_steps_host_tree']:.3f}"
+          f" max {h['max_steps_host_tree']}); frame {rec['ms_per_frame']:.3f}"
+          f" ms, {rec['mrays']:.3f} Mrays/s, {rec['rays_per_frame']} rays, "
+          f"host-built tree's timed in turns "
+          f"{rec['ms_per_frame_host_tree']:.3f} ms (turns "
+          f"{rec['ms_per_frame_turns']}; phase 9c: "
+          f"{host_c3['frame_ms']:.3f} ms); seed-0 "
+          f"frame {rec['rays_device_tree']} vs {rec['rays_host_tree']} rays,"
+          f" image max diff {rec['image_max_abs_vs_host_tree']:.3g}; "
+          f"launches {launches}")
+    rec["launches"] = launches
+
+    cfg = RTConfig(flatten=True)
+    sb = bench_ladder._single_mesh(bigscenes.blob(n=blob_n), cfg)
+    leaf, width = cfg.max_leaf_tris, cfg.bvh_width
+    verts = bench_ladder._device_verts(sb, leaf, device)
+    lb, pt = ploc.build_ploc_topo(*verts, leaf_size=leaf, width=width)
+    trees = {"sah": WavefrontRenderer.from_buffers(sb, cfg, device=device).wa,
+             "ploc": ploc.wide_arrays_from_ploc(lb, pt, leaf, width),
+             "karras": lbvh.build_wide_from_tris(sb, leaf_size=leaf,
+                                                 width=width, device=device)}
+    w, hh = res
+    o, d = camera_rays(Scene.framing_camera(sb, 45.0, w / hh), w, hh, device)
+    rec["steps"] = three_tree_steps("config 3 camera rays", trees, o, d,
+                                    "sah")
+    if device.type == "cuda":
+        # K1 on the five waves of a sample pass over the PLOC tree, beside
+        # phase 9c's over the host-built tree
+        from vortex_rt_tpu_torch.models.scene import RenderParams
+
+        r = WavefrontRenderer.from_buffers(sb, cfg, device=device)
+        r.wa = trees["ploc"]
+        rec["waves"] = scale_waves(
+            device, r, Scene.framing_camera(sb, 45.0, w / hh),
+            RenderParams(max_depth=3, spp=4, shadow=True, pathtrace=True),
+            w, hh, reps=5, names=PT_WAVES, label="config 3 PLOC tree")
+        del r
+    del trees, o, d
+    before = dict(err)
+    _, pt2, live = ploc_vs_plain("config 3", *verts, width, leaf, 16,
+                                 checked, err)
+    print(f"  the K4 kernels at config 3's shapes (T {verts[0].shape[0]}, "
+          f"{width}-wide, leaf {leaf}, radius 16, fused rows) equal their "
+          f"plain versions word for word: largest word difference "
+          f"{ {k: err[k] for k in PLOC_KERNELS} } (before this phase "
+          f"{ {k: before[k] for k in PLOC_KERNELS} })")
+    rec["times"] = ploc_times(verts, width, leaf, 16, pt2, live, reps, device)
+    rec["live"] = live
+    return rec
+
+
+def phase_config5_ploc(device, st, checked: dict, err: dict,
+                       reps: int = 5, res=(1920, 1080)) -> dict:
+    """Phase 12c: the PLOC build and refit at config 5's mesh (phase 11c's
+    ``st``: wavy_grid(n=708), 999,700 triangles, 8-wide, leaf 4): build
+    time and rounds, the refit at t = 0 against the build's tables, the
+    refit time per frame with config 5's ripple, K1 steps over the PLOC,
+    Karras and host SAH trees on phase 11c's crop and on shadow rays
+    (hits equal), and the K4 kernels against their plain versions at this
+    size, then timed."""
+    import statistics
+
+    import torch
+
+    from vortex_rt_tpu_torch.accel import ploc
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import bench_ladder
+    from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT
+
+    leaf, width = st.cfg.max_leaf_tris, st.cfg.bvh_width
+    verts = st.verts
+    l = verts[0].shape[0]
+    kernels.reset_launches()
+    lb, pt = ploc.build_ploc_topo(*verts, leaf_size=leaf, width=width)
+    _sync(device)
+    build_launches = {k: kernels.LAUNCHES[k] for k in PLOC_KERNELS}
+    built = {}
+
+    def build():
+        built["r"] = ploc.build_ploc_topo(*verts, leaf_size=leaf,
+                                          width=width)
+
+    build_ms = statistics.median(bench_ladder.timed_ms(build, device, 5))
+    wa = ploc.wide_arrays_from_ploc(lb, pt, leaf, width)
+    re0 = ploc.refit_ploc(pt, *verts, leaf_size=leaf, width=width)
+    err_t0 = _same_bits("config 5 PLOC refit at t = 0",
+                        (re0.nodes, re0.tri_rows, re0.fused),
+                        (lb.nodes, lb.tri_rows, lb.fused))
+    del re0, built
+    kernels.reset_launches()
+    refit_ms = []
+    for t in bench_ladder.MOVED_TS:
+        refit_ms += bench_ladder.timed_ms(
+            lambda t=t: ploc.refit_ploc(pt, *st.moved(t), leaf_size=leaf,
+                                        width=width), device)
+    _sync(device)
+    refit_launches = {k: kernels.LAUNCHES[k] / len(bench_ladder.MOVED_TS)
+                      for k in PLOC_KERNELS + ("lbvh_pack",)}
+    rec = dict(tris=l, build_ms=build_ms, rounds=int(pt.n_levels),
+               internals=int(pt.n_int),
+               leaf_rows=int((pt.topo.row_cnt > 0).sum()),
+               tree_depth=int(pt.wide_depth), walk_depth=wa.depth,
+               refit_ms=statistics.median(refit_ms), refit_ms_all=refit_ms,
+               refit_t0_err=err_t0, build_launches=build_launches,
+               refit_launches=refit_launches)
+    if device.type == "cuda":
+        _check(refit_launches["ploc_refit"] == 1
+               and refit_launches["ploc_pack"] == 2
+               and refit_launches["lbvh_pack"] == 0
+               and refit_launches["ploc_merge"] == 0,
+               f"PLOC refit launches per frame {refit_launches}")
+    print(f"  PLOC at T {l}: build {build_ms:.4f} ms (median of 5, CUDA "
+          f"events), {rec['rounds']} rounds, {rec['internals']} internals, "
+          f"{rec['leaf_rows']} leaf rows, depth {rec['tree_depth']} (walk "
+          f"stack for {wa.depth}); refit + repack + fused rows at t = 0 "
+          f"equals the build word for word; refit with the ripple "
+          f"{rec['refit_ms']:.4f} ms (median of {len(refit_ms)}: "
+          + ", ".join(f"{x:.4f}" for x in refit_ms) + f"); build launches "
+          f"{build_launches}, per refit {refit_launches}")
+
+    # ---- K1 over the three trees on phase 11c's crop and shadow rays
+    w, h = res
+    o, d = camera_rays(bench_ladder.camera5(st.sb, w, h), w, h, device)
+    n = min(REFIT_CROP, o.shape[0])
+    a0 = (o.shape[0] - n) // 2
+    o, d = o[a0:a0 + n].contiguous(), d[a0:a0 + n].contiguous()
+    trees = {"sah": st.host_wa, "ploc": wa, "karras": st.refit_frame(0.0)}
+    rec["crop"] = three_tree_steps("config 5 crop, camera rays", trees, o, d,
+                                   "sah")
+    from vortex_rt_tpu_torch.ops.traverse_packet import trace_packets
+
+    hit, _ = trace_packets(st.host_wa, o, d)
+    live_lane = hit.dist < LARGE_FLOAT
+    p = o + d * torch.where(live_lane, hit.dist * 0.9999, 0.0)[:, None]
+    light = torch.tensor(bench_ladder.LIGHT5, dtype=torch.float32,
+                         device=device)
+    to_l = light - p
+    dist_l = to_l.norm(dim=1)
+    sd = (to_l / dist_l[:, None]).contiguous()
+    rec["shadow"] = three_tree_steps(
+        "config 5 crop, shadow rays", trees, p.contiguous(), sd, "sah",
+        occlusion=True, active=live_lane, t_max=dist_l.contiguous())
+    del trees, o, d, p, sd
+
+    before = dict(err)
+    _, pt2, live = ploc_vs_plain("config 5", *verts, width, leaf, 16,
+                                 checked, err)
+    rec["live"] = live
+    _same_bits("config 5: the PLOC topology built again",
+               (*pt2.topo, *pt2[1:]), (*pt.topo, *pt[1:]))
+    print(f"  the K4 kernels at config 5's mesh (T {l}) equal their plain "
+          f"versions word for word, and the topology equals the first "
+          f"build's: largest word difference "
+          f"{ {k: err[k] for k in PLOC_KERNELS} } (before this phase "
+          f"{ {k: before[k] for k in PLOC_KERNELS} })")
+    rec["times"] = ploc_times(verts, width, leaf, 16, pt, live, reps, device)
+    if device.type == "cuda":
+        # the merge's three prefix sums at a first round's size: in the
+        # layout it uses (one 1-D scan over three rows end to end), along
+        # the rows of a (3, m) tensor, and down the columns of (m, 3)
+        flat = torch.ones(3 * l, dtype=torch.int32, device=device)
+        rows, cols = flat.view(3, l), flat.view(l, 3)
+        rec["cumsum_ms"] = {name: _device_ms(
+            lambda a=a, dim=dim: torch.cumsum(a, dim, dtype=torch.int32),
+            reps) for name, a, dim in (("flat_3m", flat, 0),
+                                       ("rows_3xm_dim1", rows, 1),
+                                       ("cols_mx3_dim0", cols, 0))}
+        print(f"  torch.cumsum of the merge's three counts at m = {l} (CUDA "
+              f"events, mean of {reps}): " + ", ".join(
+                  f"{k} {v:.4f} ms" for k, v in rec["cumsum_ms"].items()))
     return rec
 
 
@@ -1283,7 +1766,7 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = kernels.load_all(list(SOURCES))
+    libs = kernels.load_all()
     print(f"phase 2 build: {len(libs)} kernels in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, lib in libs.items():
@@ -1292,52 +1775,63 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print("    " + line.strip())
 
-    print("phase 3 K2 vs plain version (64x64 rays)")
+    _phase("phase 3 K2 vs plain version (64x64 rays)")
     err3 = phase_walk_vs_plain(device, (("flat4", config2_scene(width=4)),
                                         ("tlas", tlas_scene())),
                                trace_packets_walk, trace_packets_walk_ref)
-    print("phase 4 4-wide frame, K2 vs plain (64x64)")
+    _phase("phase 4 4-wide frame, K2 vs plain (64x64)")
     phase_small_frame_k2(device)
-    print("phase 5 K1 vs plain version (64x64 rays, 8-wide fused)")
+    _phase("phase 5 K1 vs plain version (64x64 rays, 8-wide fused)")
     err5 = phase_walk_vs_plain(device, (("flat8", config2_scene()),),
                                trace_packets, trace_packets_ref, mixed=True)
-    print("phase 6 8-wide frame at depth 3, K1 vs plain (64x64)")
+    _phase("phase 6 8-wide frame at depth 3, K1 vs plain (64x64)")
     phase_small_frame_k1(device)
-    print("phase 7 config 2 as bench.py renders it (512x512, 8-wide fused)")
+    _phase("phase 7 config 2 as bench.py renders it (512x512, 8-wide fused)")
     c2 = phase_config2(device)
-    print("phase 8 config 2 through the 4-wide route (512x512)")
+    _phase("phase 8 config 2 through the 4-wide route (512x512)")
     c2k2 = phase_config2_k2(device)
-    print("phase 8b native host builder (csrc/builder.cpp)")
+    _phase("phase 8b native host builder (csrc/builder.cpp)")
     blob_scene, atr_scene = phase_native_build(device)
-    print("phase 9 scale scene (blob n=187, 1920x1080, Whitted, 8-wide fused)")
+    _phase("phase 9 scale scene (blob n=187, 1920x1080, Whitted, 8-wide fused)")
     sc, scale_r = phase_scale(device, blob_scene)
-    print("phase 9b K1 vs plain version on the scale scene's tree")
+    _phase("phase 9b K1 vs plain version on the scale scene's tree")
     err9 = phase_scale_k1(device, scale_r)
     del scale_r
-    print("phase 9c ladder config 3's render (blob n=187, host-built; phase "
+    _phase("phase 9c ladder config 3's render (blob n=187, host-built; phase "
           "11b renders it from the tree built on the card)")
     c3, r3, cam3, p3 = phase_pathtraced(device, "config 3", blob_scene, 4)
     c3["waves"] = scale_waves(device, r3, cam3, p3, 1920, 1080,
                               names=PT_WAVES, label="config 3")
     del r3
-    print("phase 9d ladder config 4 (atrium)")
+    _phase("phase 9d ladder config 4 (atrium)")
     c4, r4, cam4, p4 = phase_pathtraced(device, "config 4", atr_scene, 8)
-    print("phase 9e the five waves of one sample pass of config 4")
+    _phase("phase 9e the five waves of one sample pass of config 4")
     c4["waves"] = scale_waves(device, r4, cam4, p4, 1920, 1080,
                               names=PT_WAVES, label="config 4")
-    print("phase 9f render_accum (config 4's scene)")
+    _phase("phase 9f render_accum (config 4's scene)")
     phase_render_accum(device, r4, cam4, p4)
     del r4
-    print("phase 10 K7 chained row-fetch probe")
+    _phase("phase 10 K7 chained row-fetch probe")
     k7 = phase_k7(device)
-    print("phase 11a K5: LBVH kernels vs their plain versions")
+    _phase("phase 11a K5: LBVH kernels vs their plain versions")
     lbvh_checked = {k: 0 for k in LBVH_KERNELS}
     lbvh_err = {k: 0.0 for k in LBVH_KERNELS}
     phase_lbvh_kernels(device, lbvh_test_meshes(), lbvh_checked, lbvh_err)
-    print("phase 11b ladder config 3 on the tree built on the card")
+    _phase("phase 11b ladder config 3 on the tree built on the card")
     c3d = phase_config3_device_tree(device, c3, lbvh_checked, lbvh_err)
-    print("phase 11c ladder config 5 (wavy_grid n=708, refit every frame)")
-    c5 = phase_config5(device, lbvh_checked, lbvh_err)
+    _phase("phase 11c ladder config 5 (wavy_grid n=708, refit every frame)")
+    c5, st5 = phase_config5(device, lbvh_checked, lbvh_err)
+    _phase("phase 12a K4: PLOC kernels vs their plain versions")
+    ploc_checked = {k: 0 for k in PLOC_KERNELS}
+    ploc_err = {k: 0.0 for k in PLOC_KERNELS}
+    phase_ploc_kernels(device, lbvh_test_meshes(), ploc_checked, ploc_err)
+    _phase("phase 12b ladder config 3 as the ladder defines it (PLOC tree "
+          "built on the card)")
+    c3p = phase_config3_ploc(device, c3, ploc_checked, ploc_err)
+    _phase("phase 12c PLOC at config 5's mesh (wavy_grid n=708)")
+    c5p = phase_config5_ploc(device, st5, ploc_checked, ploc_err)
+    del st5
+    _phase("phase 13 results")
     print(f"  summary: config2 {c2['mrays']:.3f} Mrays/s, scale "
           f"{sc['mrays']:.3f} Mrays/s, peak {sc['peak_bytes']} B; config 3 "
           f"{c3['frame_ms']:.3f} ms/frame {c3['mrays']:.3f} Mrays/s, config "
@@ -1350,8 +1844,13 @@ def main() -> int:
           f"{c5['ms_per_frame']:.3f} ms/frame + refit {c5['refit_ms']:.4f} "
           f"ms, build {c5['lbvh_build_ms']:.4f} ms, peak "
           f"{c5['peak_bytes']} B")
+    print(f"  config 3 on the PLOC tree {c3p['ms_per_frame']:.3f} ms/frame "
+          f"(build {c3p['lbvh_build_ms']:.4f} ms, {c3p['ploc_rounds']} "
+          f"rounds, depth {c3p['tree_depth']}); PLOC at config 5's mesh: "
+          f"build {c5p['build_ms']:.4f} ms, {c5p['rounds']} rounds, depth "
+          f"{c5p['tree_depth']}, refit {c5p['refit_ms']:.4f} ms")
 
-    # 12. results.  K1's launches are config 4's frame; the other paths'
+    # 13. results.  K1's launches are config 4's frame; the other paths'
     # counts stand beside it.  The LBVH kernels' are config 5's run
     c2.update(launches=c4["k1_launches"],
               launches_per_frame=c4["k1_launches"], launches_by_path={
@@ -1388,6 +1887,36 @@ def main() -> int:
                      "ms_source": ("cuda_events_wrapper" if "kernel_ms" in res
                                    else "cuda_events_launch"),
                      **{k: res[k] for k in ("kernel_ms",) if k in res}})
+    # the K4 rows: launches and times on row 3's path (config 3, T 69,940;
+    # six builds: a warm-up and five timed), config 5's beside them
+    for name in PLOC_KERNELS:
+        _check(ploc_checked[name] > 0, f"phases 12a-12c checked no {name}")
+        t3, t5 = c3p["times"][name], c5p["times"][name]
+        src, replaces = SOURCES[name]
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": c3p["launches"][name],
+               "kernels": list(PLOC_KERNEL_NAMES[name]),
+               "launches_per_frame": None,
+               "launches_by_path": {
+                   "config3_ploc": c3p["launches"][name],
+                   "config5_ploc_build": c5p["build_launches"][name],
+                   "config5_ploc_refit_per_frame":
+                       c5p["refit_launches"][name]},
+               "max_abs_err": ploc_err[name], "ms": t3["ms"],
+               "plain_ms": t3["plain_ms"], "bound_ms": t3["bound_ms"],
+               "bound_by": t3["bound_by"],
+               "bound_share": t3["bound_ms"] / t3["ms"], "library_ms": None,
+               "ms_source": "cuda_events_wrapper",
+               "kernel_ms": t3["kernel_ms"],
+               "config5": {k: t5[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "kernel_ms")}}
+        if name == "ploc_refit":
+            row["refit_climb"] = {
+                "config3": {k: c3p["times"]["ploc_refit_climb"][k]
+                            for k in ("ms", "plain_ms", "bound_ms")},
+                "config5": {k: c5p["times"]["ploc_refit_climb"][k]
+                            for k in ("ms", "plain_ms", "bound_ms")}}
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

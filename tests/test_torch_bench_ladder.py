@@ -100,15 +100,32 @@ def test_cli_row5_small(capsys):
 
 
 def test_row3_hits_equal_host_tree():
-    rec = bl.config3("cpu", blob_n=10, res=(16, 16))
+    rec = bl.config3("cpu", method="karras", blob_n=10, res=(16, 16))
     assert rec["parity_ok"] and rec["hits"]["hits"] > 0
     assert rec["rays_device_tree"] == rec["rays_host_tree"]
     assert rec["image_max_abs_vs_host_tree"] == 0.0
 
 
+def test_row3_ploc_hits_equal_host_tree(capsys):
+    """Row 3 as the ladder defines it: the tree built by PLOC (the
+    default), at blob(n=10), 16x16."""
+    recs = bl.main(["--configs", "3", "--device", "cpu", "--blob", "10",
+                    "--res", "16x16"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == recs[0] and line["lbvh"] == "ploc"
+    assert line["ploc_radius"] == 16 and line["ploc_rounds"] > 0
+    assert 2 <= line["tree_depth"] <= line["walk_depth"] == 22
+    assert line["leaf_rows"] > 0 and line["lbvh_build_ms"] > 0.0
+    h = line["hits"]
+    assert line["parity_ok"] and h["hits"] > 0
+    assert h["same_mask"] and h["same_tri"] and h["same_dist"]
+    assert h["max_steps_device_tree"] >= h["mean_steps_device_tree"] > 0
+    assert line["rays_device_tree"] == line["rays_host_tree"]
+    assert line["image_max_abs_vs_host_tree"] == 0.0
+
+
 @pytest.mark.parametrize("argv,exc", [
-    (["--configs", "3", "--lbvh", "ploc", "--device", "cpu"],
-     NotImplementedError),
+    (["--configs", "3", "--lbvh", "sah", "--device", "cpu"], ValueError),
     (["--configs", "4", "--device", "cpu"], NotImplementedError),
     (["--configs", "3", "--lbvh", "median", "--device", "cpu"], ValueError),
 ])

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the 4-wide walk (K2), the 8-wide fused walk (K1), the chained
-row-fetch probe (K7) and the four kernels of the on-device LBVH build and
-refit (K5).
+row-fetch probe (K7), the four kernels of the on-device LBVH build and
+refit (K5) and those of the on-device PLOC build and level refit (K4).
 
 Needs a CUDA device and nvcc; skips without a card.  It imports neither
 JAX nor the JAX package, so it also runs on a machine without JAX — with
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import vortex_rt_tpu_torch as pt
-from vortex_rt_tpu_torch.accel import lbvh
+from vortex_rt_tpu_torch.accel import lbvh, ploc
 from vortex_rt_tpu_torch.models.bigscenes import blob, wavy_grid
 from vortex_rt_tpu_torch.models.procedural import (
     box, cornell_box, random_soup, uv_sphere,
@@ -425,3 +425,110 @@ def test_lbvh_refit_copies_nothing_to_the_host(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert wa.fused.shape == (pool_rows, 32 + 64)
+
+
+# ---- K4: the on-device PLOC build and level refit, kernel by kernel
+
+def _ploc_stages(v, leaf, width, radius=16):
+    """Each K4 kernel against its plain version on the card, stage by
+    stage, every output word equal; returns the build's topology."""
+    v0, v1, v2 = v
+    l = v0.shape[0]
+    before = dict(kernels.LAUNCHES)
+    order, cmin0, cmax0, tids0 = ploc.seed_clusters(v0, v1, v2, leaf)
+    live = []
+    merged = ploc._ploc_merge(cmin0, cmax0, tids0, l, l, leaf, radius, live)
+    _assert_same(merged, ploc._ploc_merge_ref(cmin0, cmax0, tids0, l, l,
+                                              leaf, radius))
+    # each round's live count, then the last
+    assert int(merged[-1]) == len(live) - 1 > 0 and live[-1] == 1
+    # nn, mutual, plan, write a round
+    assert kernels.LAUNCHES["ploc_merge"] == (before["ploc_merge"]
+                                              + 4 * (len(live) - 1))
+    lk, rk, lvl, bmn, bmx, row_tids, row_cnt, n_int, _ = merged
+    rm = ploc._remap_ploc(lk, rk, lvl, bmn, bmx, n_int, l)
+    _assert_same(rm, ploc._remap_ploc_ref(lk, rk, lvl, bmn, bmx, n_int, l))
+    col = ploc._collapse_ploc(rm[0], rm[1], rm[5], n_int, l, width)
+    _assert_same(col, ploc._collapse_ploc_ref(rm[0], rm[1], rm[5], n_int,
+                                              l, width))
+    # remap, expand, assign
+    assert kernels.LAUNCHES["ploc_collapse"] == before["ploc_collapse"] + 3
+    _assert_same(ploc._row_boxes(v0, v1, v2, order, row_tids, row_cnt),
+                 ploc._row_boxes_ref(v0, v1, v2, order, row_tids, row_cnt))
+    assert kernels.LAUNCHES["ploc_refit"] == before["ploc_refit"] + 1
+    return ploc.build_ploc_topo(*v, leaf_size=leaf, width=width,
+                                radius=radius)
+
+
+@pytest.mark.parametrize("width,leaf,radius", [(4, 4, 16), (8, 4, 16),
+                                               (8, 8, 16), (8, 4, 8)])
+@pytest.mark.parametrize("mesh", ["uv_sphere", "random_soup", "wavy_grid"])
+def test_ploc_kernels_match_plain_versions(cuda, mesh, width, leaf, radius):
+    """The merge rounds (K4a), the remap and collapse (K4b), the row boxes
+    and the refit climb (K4c) and the pack from explicit leaf ids (K4d)
+    on the card: every output word equals the plain version's, a second
+    launch gives the same words, and the refit at the build's vertices
+    gives the build's tables."""
+    m = _lbvh_mesh(mesh)
+    v = [torch.from_numpy(x).to(cuda)
+         for x in lbvh.pad_tris(m.v0, m.v1, m.v2, leaf)]
+    lb, pt_ = _ploc_stages(v, leaf, width, radius)
+    moved = [x + 0.25 * torch.sin(x.flip(1)) for x in v]
+    before = dict(kernels.LAUNCHES)
+    boxes = ploc._refit_boxes_ploc(pt_, *moved)
+    _assert_same(boxes, ploc._refit_boxes_ploc_ref(pt_, *moved))
+    _assert_same(ploc._refit_boxes_ploc(pt_, *moved), boxes)
+    assert kernels.LAUNCHES["ploc_refit"] == before["ploc_refit"] + 2
+    kw = dict(leaf_size=leaf, width=width, fused=width == 8,
+              leaf_tids=pt_.leaf_tids)
+    got = lbvh._pack_rows(pt_.topo, *boxes, *moved, **kw)
+    _assert_same(got, lbvh._pack_rows_ref(pt_.topo, *boxes, *moved, **kw))
+    _assert_same(lbvh._pack_rows(pt_.topo, *boxes, *moved, **kw), got)
+    # survivor records and leaf rows, twice
+    assert kernels.LAUNCHES["ploc_pack"] == before["ploc_pack"] + 4
+    assert kernels.LAUNCHES["lbvh_pack"] == before["lbvh_pack"]
+    re0 = ploc.refit_ploc(pt_, *v, leaf_size=leaf, width=width)
+    for name in ("nodes", "tri_rows", "fused"):
+        a, b = getattr(re0, name), getattr(lb, name)
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(_words(a), _words(b)), name
+
+
+@pytest.mark.parametrize("width", [4, 8])
+def test_ploc_build_walks_like_the_plain_build(cuda, width):
+    """``build_ploc_topo`` on the card against the same call on the CPU:
+    every topology field and table word equal; the walk over the card's
+    tree finds the CPU walk's hits."""
+    m = _lbvh_mesh("random_soup")
+    host = [torch.from_numpy(v) for v in lbvh.pad_tris(m.v0, m.v1, m.v2, 4)]
+    dev = [v.to(cuda) for v in host]
+    lb_d, pt_d = ploc.build_ploc_topo(*dev, leaf_size=4, width=width)
+    lb_h, pt_h = ploc.build_ploc_topo(*host, leaf_size=4, width=width)
+    for a, b in zip((*pt_d.topo, *pt_d[1:]), (*pt_h.topo, *pt_h[1:])):
+        assert torch.equal(a.cpu(), b)
+    for name in ("nodes", "tri_rows") + (("fused",) if width == 8 else ()):
+        assert torch.equal(_words(getattr(lb_d, name)).cpu(),
+                           _words(getattr(lb_h, name))), name
+    wa_d = ploc.wide_arrays_from_ploc(lb_d, pt_d, 4, width)
+    wa_h = ploc.wide_arrays_from_ploc(lb_h, pt_h, 4, width)
+    assert wa_d.depth == wa_h.depth
+    g = torch.Generator().manual_seed(1)
+    o = (torch.rand(3001, 3, generator=g) - 0.5) * 28.0
+    d = torch.nn.functional.normalize(torch.randn(3001, 3, generator=g))
+    walk = trace_packets if width == 8 else trace_packets_walk
+    k, _ = walk(wa_d, o.to(cuda), d.to(cuda))
+    p, _ = walk(wa_h, o, d)
+    assert bool((p.dist < 1e30).any())
+    for a, b in zip(k, p):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_ploc_stack_capacities_match_the_kernels(cuda):
+    """The stack sizes the PLOC depth check uses are the kernels' own."""
+    from vortex_rt_tpu_torch.ops import packet_walk, traverse_packet
+
+    assert traverse_packet.STACK_MAX == int(
+        kernels.load("traverse_packet").lib.vrt_traverse_packet_stack_max())
+    assert packet_walk.STACK_MAX == int(
+        kernels.load("packet_walk").lib.vrt_packet_walk_stack_max())

@@ -280,19 +280,23 @@ def test_render_accum_matches_jax(pair):
     assert trays == int(jrays)
     _close(timg, jimg)
     # the mean of the passes' frames, each stratified over spp * n_passes
-    frames = [twf.frame_body(
-        tr.wa, tr.sa, CameraArrays.from_camera(cam, "cpu"),
-        LightArrays.from_params(p, "cpu"), W, H, max_depth=3, spp=2,
-        table=tr._table_for(p), seed=3 + i, shadow=True, total_spp=4)
-        for i in range(2)]
-    mean = ((frames[0][0] + frames[1][0]) * 0.5).reshape(3, H, W)
-    np.testing.assert_allclose(timg, mean.permute(1, 2, 0).numpy(), rtol=0,
-                               atol=1e-6)
-    assert trays == int(frames[0][1] + frames[1][1])
-    # stratified over 4, not over 2: not the mean of two plain frames
-    plain = [tr.render_burst(cam, p, W, H, n_frames=1, seed0=3 + i)[0]
-             for i in range(2)]
-    assert float(np.abs(timg - (plain[0] + plain[1]) * 0.5).max()) > 1e-4
+    def frames(**kw):
+        return [twf.frame_body(
+            tr.wa, tr.sa, CameraArrays.from_camera(cam, "cpu"),
+            LightArrays.from_params(p, "cpu"), W, H, max_depth=3, spp=2,
+            table=tr._table_for(p), seed=3 + i, shadow=True, **kw)
+            for i in range(2)]
+
+    def mean(fr):
+        m = ((fr[0][0] + fr[1][0]) * 0.5).reshape(3, H, W)
+        return m.permute(1, 2, 0).numpy()
+
+    strat = frames(total_spp=4)
+    np.testing.assert_allclose(timg, mean(strat), rtol=0, atol=1e-6)
+    assert trays == int(strat[0][1] + strat[1][1])
+    # stratified over 4, not over 2: not the mean of the plain seed-3 and
+    # seed-4 frames
+    assert float(np.abs(timg - mean(frames())).max()) > 1e-4
 
 
 def test_pathtraced_frame_matches_golden_replay(pair):
@@ -320,11 +324,10 @@ def test_pathtrace_entry_points_and_custom_table(pair):
     assert dataclasses.replace(tr, table=custom)._table_for(p) is custom
     img, rays = tr.render(cam, p, 16, 16)
     burst, brays = tr.render_burst(cam, p, 16, 16, n_frames=2)
-    one = tr.render_burst(cam, p, 16, 16, n_frames=1, seed0=1)[0]
     acc, arays = tr.render_accum(cam, p, 16, 16, n_passes=2)
     for im in (img, burst, acc):
         assert im.shape == (16, 16, 3) and np.isfinite(im).all()
-    np.testing.assert_array_equal(burst, one)  # the last frame's image
+    np.testing.assert_array_equal(burst, img)  # render()'s seed-0 image
     assert rays >= 2 * 256 and brays > rays and arays > rays
 
 

@@ -267,6 +267,11 @@ lb = lbvh.refit_lbvh(topo, *v, width=8, pool_rows=pool_rows,
 assert lb.fused.shape == (pool_rows, 96), lb.fused.shape
 rec = bench_ladder.config5("cpu", grid=8, res=(8, 8))
 assert rec["parity_ok"], rec
+# the on-device PLOC build and level refit
+from vortex_rt_tpu_torch.accel import ploc
+lb, ptopo = ploc.build_ploc_topo(*v, width=8)
+lb = ploc.refit_ploc(ptopo, *v, width=8)
+assert lb.fused.shape == (2 * v[0].shape[0] - 1, 96), lb.fused.shape
 bad = sorted(m for m in sys.modules
              if m == "vortex_rt_tpu" or m.startswith("vortex_rt_tpu."))
 assert not bad, bad

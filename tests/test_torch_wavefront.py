@@ -195,6 +195,28 @@ def test_render_burst_counts_every_frame():
     img, rays2 = r.render_burst(cam, p, 16, 16, n_frames=3)
     assert rays2 == rays and img.shape == (16, 16, 3)
     assert np.isfinite(img).all()
-    # frames with different seeds jitter differently
-    one, _ = r.render_burst(cam, p, 16, 16, n_frames=1, seed0=0)
-    assert not np.array_equal(one, img)
+    # the image is render()'s seed-0 frame, as in the JAX package,
+    # whatever seed0 is
+    one, _ = r.render(cam, p, 16, 16)
+    assert np.array_equal(one, img)
+    later, _ = r.render_burst(cam, p, 16, 16, n_frames=2, seed0=7)
+    assert np.array_equal(one, later)
+
+
+def test_render_burst_image_equals_jax():
+    """``render_burst(n_frames=3, seed0=5)`` returns the JAX method's
+    image (its seed-0 ``render``) and the burst's total rays."""
+    jcfg = JCfg(flatten=True, use_native_build=False)
+    jr = jwf.WavefrontRenderer.from_buffers(_fill(JScene(), jproc)
+                                            .build(jcfg), jcfg)
+    tcfg = pt.RTConfig(flatten=True, use_native_build=False)
+    tr = pt.WavefrontRenderer.from_buffers(_fill(pt.Scene(), tproc)
+                                           .build(tcfg), tcfg, device="cpu")
+    kw = dict(light_pos=LIGHT, max_depth=2, shadow=True, spp=1)
+    jimg, jrays = jr.render_burst(JCam.look_at(*EYE), JParams(**kw), 16, 16,
+                                  n_frames=3, seed0=5)
+    timg, trays = tr.render_burst(pt.Camera.look_at(*EYE),
+                                  pt.RenderParams(**kw), 16, 16,
+                                  n_frames=3, seed0=5)
+    assert trays == jrays
+    np.testing.assert_allclose(timg, np.asarray(jimg), atol=1e-5)

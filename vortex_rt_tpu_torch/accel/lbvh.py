@@ -148,16 +148,19 @@ def _check_topo(topo: "LBVHTopo", l: int, dev) -> int:
 
 
 def _launch(lib: kernels.KernelLibrary, fn: str, dev, *args,
-            n_kernels: int = 1) -> None:
+            n_kernels: int = 1, counts=None) -> None:
     """Call C entry point ``fn`` on the current stream of ``dev``; raises
-    on a launch error and counts the ``n_kernels`` kernels it launches."""
+    on a launch error and counts the ``n_kernels`` kernels it launches
+    under the library's name (or ``counts``, {count name: kernels}, when
+    one entry point launches kernels counted apart)."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib.lib, fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: {lib.error_string(err)} "
                            f"({err})")
-    kernels.LAUNCHES[lib.name] += n_kernels
+    for name, n in (counts or {lib.name: n_kernels}).items():
+        kernels.LAUNCHES[name] += n
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -186,6 +189,15 @@ def morton3d(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor
 
     return (_expand_bits(q(x)) * 4 + _expand_bits(q(y)) * 2
             + _expand_bits(q(z))).to(_I32)
+
+
+def _half_area(mn: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
+    """Half the surface area of the boxes [mn, mx] (..., 3), evaluated as
+    the JAX package evaluates it: (e0*e1 + e1*e2) + e2*e0 over the
+    extents clamped at 0 (the PLOC merge cost; ``csrc/ploc_merge.cu``
+    keeps the same order)."""
+    e = (mx - mn).clamp_min(0.0)
+    return e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2] + e[..., 2] * e[..., 0]
 
 
 def _scene_box(v0, v1, v2):
@@ -599,17 +611,23 @@ def _pack_wide(topo: LBVHTopo, bmin, bmax, l: int, leaf_size: int,
 
 
 def _leaf_rows(v0, v1, v2, order, row_lo, row_cnt, l: int,
-               leaf_size: int = 4, n_rows: int = 0) -> torch.Tensor:
+               leaf_size: int = 4, n_rows: int = 0,
+               leaf_tids=None) -> torch.Tensor:
     """Plain version: (rows, 16*leaf_size) packed leaf rows; row j holds
-    the ``row_cnt[j]`` triangles at sorted slots ``row_lo[j]``.. as (v0,
-    e1, e2, tid bits); empty slots are zero-area (tid -1)."""
+    the ``row_cnt[j]`` triangles at sorted slots ``row_lo[j]``.. (or, with
+    ``leaf_tids`` (l, leaf_size), at the slots ``leaf_tids[j]``: the PLOC
+    rows, ``ploc._rows_from_tids``) as (v0, e1, e2, tid bits); empty
+    slots are zero-area (tid -1)."""
     if n_rows:
         l = n_rows
         row_lo, row_cnt = row_lo[:n_rows], row_cnt[:n_rows]
     dev = v0.device
     t = v0.shape[0]
     k = torch.arange(leaf_size, dtype=_I64, device=dev)
-    idx = (row_lo.to(_I64)[:, None] + k[None, :]).clamp(0, t - 1)
+    if leaf_tids is not None:
+        idx = leaf_tids[:l].to(_I64).clamp(0, t - 1)
+    else:
+        idx = (row_lo.to(_I64)[:, None] + k[None, :]).clamp(0, t - 1)
     tid = order[idx]                             # (l, leaf) global ids
     valid = k[None, :] < row_cnt[:, None]
     tid64 = tid.to(_I64)
@@ -641,7 +659,7 @@ def _tlas_root(device) -> torch.Tensor:
 def _pack_rows_ref(topo: LBVHTopo, bmin, bmax, v0, v1, v2,
                    leaf_size: int = 4, width: int = 4, tlas: bool = False,
                    pool_rows: int = 0, leaf_rows: int = 0, surv_idx=None,
-                   fused: bool = False):
+                   fused: bool = False, leaf_tids=None):
     """Plain version of ``_pack_rows``."""
     l = v0.shape[0]
     blas = _pack_wide(topo, bmin, bmax, l, leaf_size,
@@ -650,17 +668,24 @@ def _pack_rows_ref(topo: LBVHTopo, bmin, bmax, v0, v1, v2,
                       leaf_rows=leaf_rows)
     nodes = torch.cat([_tlas_root(blas.device), blas]) if tlas else blas
     rows = _leaf_rows(v0, v1, v2, topo.order, topo.row_lo, topo.row_cnt, l,
-                      leaf_size=leaf_size, n_rows=leaf_rows)
+                      leaf_size=leaf_size, n_rows=leaf_rows,
+                      leaf_tids=leaf_tids)
     return nodes, rows, fuse_rows(nodes, rows, width) if fused else None
 
 
 def _pack_rows(topo: LBVHTopo, bmin, bmax, v0, v1, v2, leaf_size: int = 4,
                width: int = 4, tlas: bool = False, pool_rows: int = 0,
-               leaf_rows: int = 0, surv_idx=None, fused: bool = False):
+               leaf_rows: int = 0, surv_idx=None, fused: bool = False,
+               leaf_tids=None):
     """Quantize, pack and scatter -> (nodes, tri_rows, fused or None):
     the survivor records and the leaf records at their new ids, the
     triangle rows, and (``fused``, flat layout only) the fused
-    node+leaf rows, word for word ``WideArrays.fuse()`` of the two."""
+    node+leaf rows, word for word ``WideArrays.fuse()`` of the two.
+    ``leaf_tids`` ((l, leaf_size) int32 sorted slots, -1 padded) gives
+    each leaf row its triangles explicitly, as PLOC forms them
+    (``accel/ploc.py``): the leaf kernel then reads them instead of the
+    Morton range ``row_lo``.., and the call's launches, survivor records
+    and leaf rows, count as ``ploc_pack`` (K4d), not as ``lbvh_pack``."""
     if tlas and width != 4:
         raise ValueError("the TLAS wrapper is 4-wide only")
     if fused and tlas:
@@ -686,12 +711,15 @@ def _pack_rows(topo: LBVHTopo, bmin, bmax, v0, v1, v2, leaf_size: int = 4,
     if not _cuda(v0):
         return _pack_rows_ref(topo, bmin, bmax, v0, v1, v2, leaf_size,
                               width, tlas, pool_rows, leaf_rows, surv_idx,
-                              fused)
+                              fused, leaf_tids)
     lib = kernels.load("lbvh_pack")
     v0, v1, v2 = (v.contiguous() for v in (v0, v1, v2))
     if surv_idx is not None:
         surv_idx = surv_idx.contiguous()
         _check_i32(dev, surv_idx=(surv_idx, (surv_idx.shape[0],)))
+    if leaf_tids is not None:
+        leaf_tids = leaf_tids.contiguous()
+        _check_i32(dev, leaf_tids=(leaf_tids, (l, leaf_size)))
     nodes = torch.zeros((pool + off, ROW_WORDS), dtype=_I32, device=dev)
     if tlas:
         nodes[0] = _tlas_root(dev)[0]
@@ -701,17 +729,20 @@ def _pack_rows(topo: LBVHTopo, bmin, bmax, v0, v1, v2, leaf_size: int = 4,
     n_surv = l - 1 if surv_idx is None else surv_idx.shape[0]
     # two kernels back to back: survivor records (when there is a
     # survivor row), then leaf records and triangle rows
+    n_nodes = 1 if n_surv > 0 else 0
+    counts = {"lbvh_pack" if leaf_tids is None else "ploc_pack":
+              n_nodes + 1}
     _launch(lib, "vrt_lbvh_pack_rows", dev, topo.surv.data_ptr(),
             topo.ch_old.data_ptr(), topo.arity.data_ptr(),
             topo.base.data_ptr(), topo.newid.data_ptr(),
             0 if surv_idx is None else surv_idx.data_ptr(),
             n_surv, bmin.data_ptr(), bmax.data_ptr(), topo.order.data_ptr(),
             topo.row_lo.data_ptr(), topo.row_cnt.data_ptr(),
+            0 if leaf_tids is None else leaf_tids.data_ptr(),
             topo.leaf_newid.data_ptr(), v0.data_ptr(), v1.data_ptr(),
             v2.data_ptr(), l, width, leaf_size, off, pool, lr,
             nodes.data_ptr(), rows.data_ptr(),
-            0 if fz is None else fz.data_ptr(),
-            n_kernels=2 if n_surv > 0 else 1)
+            0 if fz is None else fz.data_ptr(), counts=counts)
     return nodes, rows, fz
 
 

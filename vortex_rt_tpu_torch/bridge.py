@@ -7,8 +7,9 @@ the port's tables on a given device.  This module imports neither JAX
 nor ``vortex_rt_tpu``: it only reads arrays.
 
 4- and 8-wide ``nodes``/``tri_rows`` and the fused node+leaf rows are
-carried, and the LBVH topology (``lbvh_topo``: the arrays of the JAX
-package's ``LBVHTopo``), so both packages can refit one tree; tables the port cannot walk yet are refused: 16-wide rows
+carried, and the LBVH and PLOC topologies (``lbvh_topo``, ``ploc_topo``:
+the arrays of the JAX package's ``LBVHTopo`` and ``PLOCTopo``), so both
+packages can refit one tree; tables the port cannot walk yet are refused: 16-wide rows
 (ROADMAP Queue 1, "Not ported") and alpha tables (Queue 1, item 8).
 """
 
@@ -19,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vortex_rt_tpu_torch.accel import ploc
 from vortex_rt_tpu_torch.accel.lbvh import LBVHTopo, _parents_ref
 from vortex_rt_tpu_torch.engine.megakernel import CameraArrays, LightArrays
 from vortex_rt_tpu_torch.ops.shade_lanes import ShadeArrays
@@ -86,6 +88,34 @@ def lbvh_topo(*, order, lchild, rchild, surv, ch_old, arity, base, newid,
     return LBVHTopo(surv=surv_t, parent=parent,
                     **ints)._replace(**{k: v.to(device) for k, v in dict(
                         ints, surv=surv_t, parent=parent).items()})
+
+
+def ploc_topo(*, topo: dict, leaf_tids, level, n_int, n_levels,
+              device) -> ploc.PLOCTopo:
+    """JAX ``PLOCTopo`` fields as NumPy arrays (``topo`` the dict of its
+    ``LBVHTopo``'s fields) -> the port's ``PLOCTopo``, so both packages
+    can refit one PLOC tree.  ``parent`` is derived from the live
+    internals' children, and ``wide_depth`` from the parents, as the
+    port's build computes them (the plain versions)."""
+    n = int(np.asarray(n_int))
+    width = int(np.asarray(topo["ch_old"]).shape[-1])
+    ints = {k: torch.from_numpy(np.array(topo[k], dtype=np.int32))
+            for k in LBVHTopo._fields if k not in ("surv", "parent")}
+    l = ints["order"].shape[0]
+    parent = ploc._ploc_parents_ref(ints["lchild"], ints["rchild"], n, l)
+    max_depth = ploc._collapse_ploc_ref(ints["lchild"], ints["rchild"],
+                                        parent, n, l, width)[-1]
+    lt = LBVHTopo(surv=torch.from_numpy(np.array(topo["surv"], np.bool_)),
+                  parent=parent, **ints)
+    lt = LBVHTopo(*(a.to(device) for a in lt))
+    return ploc.PLOCTopo(
+        topo=lt,
+        leaf_tids=torch.from_numpy(np.array(leaf_tids, np.int32)).to(device),
+        level=torch.from_numpy(np.array(level, np.int32)).to(device),
+        n_int=torch.tensor(n, dtype=torch.int32, device=device),
+        n_levels=torch.tensor(int(np.asarray(n_levels)), dtype=torch.int32,
+                              device=device),
+        wide_depth=ploc.wide_depth_of(max_depth, width).to(device))
 
 
 def shade_arrays(shade_rows: np.ndarray, mat_rows: np.ndarray,

@@ -18,7 +18,12 @@
 //   left | arity << 26 (width 4) or 25 (width 8) | kind << 29.
 // pack_leaves_kernel: one thread per leaf row.  It writes the row's
 //   triangles (v0, e1, e2, global triangle id; empty slots zero with id
-//   -1) and the leaf record at the row's new id.
+//   -1) and the leaf record at the row's new id.  Slot c of row j is the
+//   sorted triangle row_lo[j] + c (a Morton range, K5), or, when
+//   `leaf_tids` is given, leaf_tids[j][c]: the explicit triangle sets of
+//   a PLOC tree (kernel K4d; replaces `_rows_from_tids` of
+//   vortex_rt_tpu/accel/ploc.py:335, which gathers whole (l, leaf, 9)
+//   slabs and sets the row columns one by one).
 // Both write `nodes` (+ `tri_rows`) and, when `fused` is given, the fused
 // (pool, 32 + 16 * leaf) table the 8-wide walk reads: a node's record,
 // then its own triangle row if it is a leaf.  The caller zeroes nodes and
@@ -128,6 +133,7 @@ __global__ void pack_nodes_kernel(const unsigned char* __restrict__ surv,
 __global__ void pack_leaves_kernel(const int* __restrict__ order,
                                    const int* __restrict__ row_lo,
                                    const int* __restrict__ row_cnt,
+                                   const int* __restrict__ leaf_tids,
                                    const int* __restrict__ leaf_newid,
                                    const float* __restrict__ v0, const float* __restrict__ v1,
                                    const float* __restrict__ v2, int t, int width,
@@ -145,7 +151,8 @@ __global__ void pack_leaves_kernel(const int* __restrict__ order,
                       ? (uint4*)(fused + (long long)lid * fused_words + kRowWords)
                       : nullptr;
     for (int c = 0; c < leaf_size; ++c) {
-        const long long tid = order[min(max(first + c, 0), t - 1)];
+        const int slot = leaf_tids ? leaf_tids[(long long)j * leaf_size + c] : first + c;
+        const long long tid = order[min(max(slot, 0), t - 1)];
         const bool valid = c < cnt;
         float w[9];
 #pragma unroll
@@ -197,6 +204,8 @@ extern "C" const char* vrt_error_string(int err) {
 // pack_nodes_kernel then pack_leaves_kernel on `stream`.
 // Topology (int32; surv bytes 0/1): surv, arity, base (l-1,), ch_old
 // (l-1, width), newid (2l-1,), order, row_lo, row_cnt, leaf_newid (l,);
+// leaf_tids (l, leaf_size) sorted slots of each leaf row (-1 padded), or
+// null for the Morton ranges row_lo..;
 // surv_idx (n_surv,) the survivors' ids, -1 padded, or null for all l-1
 // internals (then n_surv = l-1).  Boxes bmin, bmax (2l-1, 3) float32;
 // vertices v0, v1, v2 (l, 3) float32.  Outputs, 16-byte aligned: nodes
@@ -209,7 +218,8 @@ extern "C" int vrt_lbvh_pack_rows(const void* surv, const void* ch_old, const vo
                                   const void* base, const void* newid, const void* surv_idx,
                                   int n_surv, const void* bmin, const void* bmax,
                                   const void* order, const void* row_lo, const void* row_cnt,
-                                  const void* leaf_newid, const void* v0, const void* v1,
+                                  const void* leaf_tids, const void* leaf_newid,
+                                  const void* v0, const void* v1,
                                   const void* v2, int l, int width, int leaf_size,
                                   int root_offset, int pool_rows, int leaf_rows, void* nodes,
                                   void* tri_rows, void* fused, void* stream) {
@@ -237,7 +247,8 @@ extern "C" int vrt_lbvh_pack_rows(const void* surv, const void* ch_old, const vo
         }
     }
     pack_leaves_kernel<<<blocks(leaf_rows), kBlock, 0, s>>>(
-        (const int*)order, (const int*)row_lo, (const int*)row_cnt, (const int*)leaf_newid,
+        (const int*)order, (const int*)row_lo, (const int*)row_cnt, (const int*)leaf_tids,
+        (const int*)leaf_newid,
         (const float*)v0, (const float*)v1, (const float*)v2, l, width, leaf_size, root_offset,
         pool_rows, leaf_rows, (unsigned*)nodes, (unsigned*)tri_rows, (unsigned*)fused, fw);
     return (int)cudaGetLastError();

@@ -455,19 +455,21 @@ class WavefrontRenderer:
                      n_frames: int = 16, seed0: int = 0,
                      rays_only: bool = False):
         """Render ``n_frames`` frames (seeds seed0..seed0+n-1) and return
-        (last image, total rays), or only the total ray count with
-        ``rays_only=True``.  Waits for the device once, at the end."""
+        (image, total rays), or only the total ray count with
+        ``rays_only=True``.  The image is the seed-0 frame of ``render``,
+        whatever ``seed0`` and ``n_frames`` are, as the JAX package's
+        method returns it.  The burst waits for the device once, at the
+        end."""
         w = width or self.config.width
         h = height or self.config.height
         total = torch.zeros((), dtype=torch.int64, device=self.device)
-        img = None
         for i in range(n_frames):
-            img, rays, _ = self._frame(cam, params, w, h, seed0 + i)
+            _, rays, _ = self._frame(cam, params, w, h, seed0 + i)
             total = total + rays
         n = int(total.item())
         if rays_only:
             return n
-        return self._to_image(img, w, h), n
+        return self.render(cam, params, w, h)[0], n
 
     def render_accum(self, cam: Camera, params: RenderParams,
                      width: Optional[int] = None,

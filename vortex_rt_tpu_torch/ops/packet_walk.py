@@ -35,6 +35,9 @@ from vortex_rt_tpu_torch.runtime import kernels
 from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT, MT_EPSILON
 
 MAX_STEPS = 400_000
+# stack entries the kernel holds (VRT_STACK_MAX of csrc/packet_walk.cu; the
+# library reports it and kernel_call refuses a deeper tree)
+STACK_MAX = 128
 _INT_MAX = 2**31 - 1
 # the child sorting network of the TPU kernel (packet_walk.py:148)
 _SORT_NET = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))

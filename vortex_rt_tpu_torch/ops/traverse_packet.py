@@ -48,6 +48,9 @@ from vortex_rt_tpu_torch.runtime import kernels
 from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT, MT_EPSILON
 
 MAX_STEPS = 400_000
+# stack entries the kernel holds (VRT_STACK_MAX of csrc/traverse_packet.cu; the
+# library reports it and kernel_call refuses a deeper tree)
+STACK_MAX = 48
 WIDTH = 8
 _F23 = 0x4B000000  # 2**23 as float32 bits
 _INT_MAX = 2**31 - 1

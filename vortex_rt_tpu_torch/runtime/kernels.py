@@ -9,10 +9,12 @@ flags — so an edited source is rebuilt and an unchanged one is reused.
 Nothing here runs at import: the CPU-only test machine imports every
 module and has no ``nvcc``.
 
-``LAUNCHES`` counts kernel launches by library name.  Each wrapper adds
-one per ``__global__`` function it launches (an LBVH entry point may
-launch two), where it launches and nowhere else, so a caller can reset
-the counts, drive the main path and see which kernels it went through.
+``LAUNCHES`` counts kernel launches by library name (and ``ploc_pack``,
+``lbvh_pack``'s two kernels in their PLOC mode).  Each wrapper adds one per
+``__global__`` function it launches (an LBVH or PLOC entry point may
+launch several), where it launches and nowhere else, so a caller can
+reset the counts, drive the main path and see which kernels it went
+through.
 """
 
 from __future__ import annotations
@@ -74,13 +76,31 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
     "lbvh_pack": {
-        "vrt_lbvh_pack_rows": ([_P] * 6 + [_I] + [_P] * 9 + [_I] * 6
+        "vrt_lbvh_pack_rows": ([_P] * 6 + [_I] + [_P] * 10 + [_I] * 6
                                + [_P] * 4, _I),
+        "vrt_error_string": ([_I], ctypes.c_char_p),
+    },
+    # the on-device PLOC build and level refit (accel/ploc.py)
+    "ploc_merge": {
+        "vrt_ploc_round_plan": ([_P] * 4 + [_I] * 5 + [_P] * 5, _I),
+        "vrt_ploc_round_write": ([_P] * 13 + [_I] * 4 + [_P] * 10, _I),
+        "vrt_error_string": ([_I], ctypes.c_char_p),
+    },
+    "ploc_collapse": {
+        "vrt_ploc_remap": ([_P] * 6 + [_I] + [_P] * 7, _I),
+        "vrt_ploc_collapse_expand": ([_P] * 4 + [_I] * 2 + [_P] * 6, _I),
+        "vrt_ploc_collapse_assign": ([_P] * 3 + [_I] * 2 + [_P] * 2, _I),
+        "vrt_error_string": ([_I], ctypes.c_char_p),
+    },
+    "ploc_refit": {
+        "vrt_ploc_boxes": ([_P] * 6 + [_I] * 2 + [_P] * 7, _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
 }
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in _SIGNATURES}
+# launch counts: one per kernel library, and "ploc_pack", lbvh_pack's
+# survivor records and the leaf rows it writes from explicit triangle ids
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*_SIGNATURES, "ploc_pack")}
 
 
 def reset_launches() -> None:

@@ -1,6 +1,6 @@
 """Ladder rows 3 and 5 on the port (port of ``tools/bench_ladder.py``
-``_scale_cfg(lbvh=True)`` and ``config5``): the two rows that need the
-on-device LBVH build and refit (``accel/lbvh.py``).
+``_scale_cfg(lbvh=True)`` and ``config5``): the two rows that need an
+on-device build (``accel/ploc.py``, ``accel/lbvh.py``) and refit.
 
     python -m vortex_rt_tpu_torch.tools.bench_ladder --configs 3,5
 
@@ -11,20 +11,23 @@ on-device LBVH build and refit (``accel/lbvh.py``).
   (``refit_frame``), then renders through ``render_burst(n_frames=1)``:
   four moved frames after a warm-up.
 - **row 3**: ``blob(n=187)``, 1920x1080, spp 4, depth 3, shadow rays,
-  path traced, on a tree built on the device (``--lbvh karras``; the JAX
-  ladder's default there, ``ploc``, is not ported yet: ROADMAP Queue 1,
-  item 9b).
+  path traced, on a tree built on the device: by PLOC (radius 16), the
+  JAX ladder's default there (``--lbvh ploc``), or the Karras LBVH
+  (``--lbvh karras``).
 
 Build and refit times are medians of CUDA-event times around the calls
 after a warm-up (wall time on the CPU; row 5's refit is the median of its
 four frames'); frame times are wall times of one frame per call after a
-warm-up frame, as the JAX ladder times its heavy rows.  There is no jit,
+warm-up frame, as the JAX ladder times its heavy rows (row 3 times its
+frame on the device-built and on the host-built tree the same way, in
+turns).  There is no jit,
 so no compile/run split.  The JAX rows' parity against the golden oracle
 is here a check against the host-built tree of
 the same mesh: row 5 renders its t = 0 frame from both (images within
 1e-5, ray counts equal); row 3 traces the camera rays over both (same
-hit mask, triangle ids and distances to the bit) and prints the
-difference of the two path-traced frames.  One JSON line per row.
+hit mask, triangle ids and distances to the bit; mean and largest steps
+per ray on both) and prints the difference of the two path-traced
+frames.  One JSON line per row.
 
 ``--grid``, ``--blob`` and ``--res`` shrink the meshes and the frame
 (the CPU tests run row 5 on ``wavy_grid(n=24)`` at 32x32).
@@ -44,7 +47,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from vortex_rt_tpu_torch.accel import lbvh
+from vortex_rt_tpu_torch.accel import lbvh, ploc
 from vortex_rt_tpu_torch.engine.wavefront import WavefrontRenderer
 from vortex_rt_tpu_torch.models import bigscenes
 from vortex_rt_tpu_torch.models.scene import (
@@ -253,16 +256,15 @@ def camera_hits_equal(wa_a: WideArrays, wa_b: WideArrays, cam, w: int, h: int,
         same_tri=bool(torch.equal(a.tri[hit], b.tri[hit])),
         same_dist=bool(torch.equal(a.dist, b.dist)),
         mean_steps_device_tree=float(sa.float().mean()),
-        mean_steps_host_tree=float(sb_.float().mean()))
+        mean_steps_host_tree=float(sb_.float().mean()),
+        max_steps_device_tree=int(sa.max()), max_steps_host_tree=int(sb_.max()))
 
 
-def config3(device, method: str = "karras", blob_n: int = 187,
-            res=(1920, 1080)) -> dict:
-    if method == "ploc":
-        raise NotImplementedError(
-            "--lbvh ploc: the PLOC build (accel/ploc.py, K4) is not "
-            "ported yet (ROADMAP Queue 1, item 9b); use --lbvh karras")
-    if method != "karras":
+def config3(device, method: str = "ploc", blob_n: int = 187,
+            res=(1920, 1080), radius: int = 16) -> dict:
+    """Row 3 on a tree built on ``device`` by ``method`` (``ploc`` with
+    ``radius``, or ``karras``)."""
+    if method not in ("ploc", "karras"):
         raise ValueError(f"unknown --lbvh {method!r}")
     device = torch.device(device)
     w, h = res
@@ -274,21 +276,48 @@ def config3(device, method: str = "karras", blob_n: int = 187,
                res=f"{w}x{h}", spp=4, depth=3, shadow=True, pathtrace=True,
                bvh_width=cfg.bvh_width, max_leaf_tris=cfg.max_leaf_tris,
                lbvh=method)
+    if method == "ploc":
+        rec["ploc_radius"] = radius
 
-    wa = None
+    wa, ptopo = None, None
 
     def build():
-        nonlocal wa
-        wa = lbvh.build_wide_from_tris(sb, leaf_size=cfg.max_leaf_tris,
-                                       width=cfg.bvh_width, device=device)
+        nonlocal wa, ptopo
+        if method == "karras":
+            wa = lbvh.build_wide_from_tris(sb, leaf_size=cfg.max_leaf_tris,
+                                           width=cfg.bvh_width, device=device)
+            return
+        verts = _device_verts(sb, cfg.max_leaf_tris, device)
+        lb, ptopo = ploc.build_ploc_topo(*verts, leaf_size=cfg.max_leaf_tris,
+                                         width=cfg.bvh_width, radius=radius)
+        wa = ploc.wide_arrays_from_ploc(lb, ptopo, cfg.max_leaf_tris,
+                                        cfg.bvh_width)
 
     build()  # warm-up
-    rec["lbvh_build_ms"] = statistics.median(timed_ms(build, device, 3))
+    rec["lbvh_build_ms"] = statistics.median(timed_ms(build, device, 5))
     rec["pool_rows"] = int(wa.nodes.shape[0])
-    r.wa = wa
+    if ptopo is not None:
+        rec.update(ploc_rounds=int(ptopo.n_levels),
+                   leaf_rows=int((ptopo.topo.row_cnt > 0).sum()),
+                   internals=int(ptopo.n_int),
+                   tree_depth=int(ptopo.wide_depth), walk_depth=wa.depth)
     cam = Scene.framing_camera(sb, 45.0, w / h)
     p = RenderParams(max_depth=3, spp=4, shadow=True, pathtrace=True)
-    rec.update(bench_frames(r, cam, p, w, h))
+    # the frame on the device-built tree and on the host-built tree, timed
+    # the same way, in turns (device, host, host, device)
+    turns = {"device": [], "host": []}
+    for name in ("device", "host", "host", "device"):
+        r.wa = wa if name == "device" else host_wa
+        turns[name].append(bench_frames(r, cam, p, w, h))
+    r.wa = wa
+    dev, host = turns["device"], turns["host"]
+    rec.update(rays_per_frame=dev[0]["rays_per_frame"],
+               mrays=statistics.mean(x["mrays"] for x in dev),
+               ms_per_frame=statistics.mean(x["ms_per_frame"] for x in dev),
+               ms_per_frame_host_tree=statistics.mean(x["ms_per_frame"]
+                                                      for x in host),
+               ms_per_frame_turns={k: [x["ms_per_frame"] for x in v]
+                                   for k, v in turns.items()})
     rec["hits"] = camera_hits_equal(wa, host_wa, cam, w, h, r.walk)
     img, rays = r.render(cam, p, w, h)
     img_h, rays_h = dataclasses.replace(r, wa=host_wa).render(cam, p, w, h)
@@ -315,9 +344,9 @@ def _gpu_line() -> Optional[str]:
 def main(argv=None) -> List[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--configs", default="3,5")
-    ap.add_argument("--lbvh", default="karras",
-                    help="row 3's on-device build: karras (ploc is not "
-                         "ported yet)")
+    ap.add_argument("--lbvh", default="ploc",
+                    help="row 3's on-device build: ploc (radius 16, the "
+                         "ladder's) or karras")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--grid", type=int, default=708,
                     help="row 5's wavy_grid(n)")

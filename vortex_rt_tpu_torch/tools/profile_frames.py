@@ -46,6 +46,7 @@ TOP = 12  # kernels listed, by device time
 # kernels reported by name even below the top: the walk and the refit's
 WATCHED = ("traverse_packet_kernel", "refit_boxes_kernel",
            "pack_nodes_kernel", "pack_leaves_kernel")
+PROFILE_TRIES = 3  # sessions kernel_events tries before it gives up
 
 
 def build(scene: str, device):
@@ -99,19 +100,27 @@ def build_refit(device, grid: int = 708):
 def kernel_events(run: Callable[[], object]) -> list:
     """``run()`` under ``torch.profiler`` with CUDA activity -> the
     ``key_averages()`` entries on the CUDA device that have device time,
-    longest first.  Raises when the profiler recorded none."""
+    longest first.  A profiler session now and then records no device
+    activity at all after many sessions in one process; ``run()`` is then
+    profiled again, up to ``PROFILE_TRIES`` times in all.  Raises when none
+    recorded any."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    if not kern:
-        raise RuntimeError("the profiler recorded no device kernel time")
+    for _ in range(PROFILE_TRIES):
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if kern:
+            break
+    else:
+        raise RuntimeError(f"the profiler recorded no device kernel time in "
+                           f"{PROFILE_TRIES} sessions")
     kern.sort(key=lambda e: -e.self_device_time_total)
     return kern
 

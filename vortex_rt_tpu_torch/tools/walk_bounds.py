@@ -32,7 +32,9 @@ triangle slot; K2 64 B of an internal node, 16 B of a leaf node, 80 B
 of an instance node, 40 B per triangle slot).  A wave in which no ray
 walks reads none of the tables.
 
-The LBVH kernels (``lbvh_bounds``) do integer and min/max work only, a
+The LBVH and PLOC kernels (``lbvh_bounds``, ``ploc_bounds``) do integer
+and min/max work (the PLOC window costs: 11 FP32 operations per pair,
+under 2% of the bytes time), a
 few operations per word moved, so their bound is their bytes: every
 input array of the function read once and every output array written
 once, at the sizes the call is given (T triangles, the pool and leaf rows
@@ -143,3 +145,35 @@ def lbvh_bounds(t: int, width: int, leaf: int, pool_rows: int,
             + (4 * row_words * pool_rows if fused else 0))
     return {"lbvh_karras": Bound(0, karras), "lbvh_collapse": Bound(0, collapse),
             "lbvh_refit": Bound(0, refit), "lbvh_pack": Bound(0, pack)}
+
+
+def ploc_bounds(t: int, width: int, leaf: int, live) -> dict:
+    """Bounds of the K4 functions for ``t`` (padded) triangles: the merge
+    loop (``ploc_merge``), the remap and collapse (``ploc_collapse``),
+    the refit's boxes with the climb (``ploc_refit``), the build's leaf
+    row boxes (``ploc_refit_rows``) and the pack from explicit leaf ids
+    (``ploc_pack``, full pools, fused at width 8).  ``live`` is what
+    ``_ploc_merge`` gives back in it: the live cluster count at the start
+    of each round, then the count the loop ended with.  A round reads
+    every live cluster's state (box 24 B,
+    count and internal id 8 B, ids 4 * leaf B) once and writes the
+    survivors' once; each output of the loop (the records, (t-1) x 36 B,
+    and the leaf rows, t x (4 * leaf + 4) B) is written once."""
+    n = 2 * t - 1
+    i = t - 1
+    state = 32 + 4 * leaf
+    live = [int(m) for m in live]
+    merge = (state * (sum(live[:-1]) + sum(live[1:]))
+             + 36 * i + (4 * leaf + 4) * t)
+    # lk, rk, lvl, bmn, bmx in; lchild, rchild, level, imin, imax (l-1,),
+    # parent (2l-1,), surv (1 B), ch_old, arity, base (l-1,), newid (2l-1,)
+    # out.  contrib, which the kernels hand each other, is not counted
+    collapse = 36 * i + 36 * i + 4 * n + i + 4 * width * i + 8 * i + 4 * n
+    rows_in = 36 * t + 4 * t + 4 * leaf * t + 4 * t   # verts, order, ids, counts
+    refit = rows_in + 8 * i + 24 * n                  # + lchild, rchild; boxes
+    rows = rows_in + 24 * t
+    pack = (lbvh_bounds(t, width, leaf, n, t, i, width == 8)["lbvh_pack"].bytes
+            + 4 * leaf * t)
+    return {"ploc_merge": Bound(0, merge), "ploc_collapse": Bound(0, collapse),
+            "ploc_refit": Bound(0, refit), "ploc_refit_rows": Bound(0, rows),
+            "ploc_pack": Bound(0, pack)}
