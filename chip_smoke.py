@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's ten CUDA kernel libraries from the sources in this
+Builds the port's eleven CUDA kernel libraries from the sources in this
 checkout (one nvcc per source, all started together), holds each kernel
 against its plain PyTorch version on the card (hits and per-ray steps
 identical; every word of the LBVH and PLOC builds' and refits' outputs
@@ -15,7 +15,8 @@ and so exits non-zero, on failure):
 
 1. device: a CUDA device is required; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: ``csrc/packet_walk.cu`` (K2), ``csrc/traverse_packet.cu`` (K1),
+2. build: ``csrc/packet_walk.cu`` (K2), ``csrc/traverse_packet.cu`` (K1;
+   both include ``csrc/alpha_test.cuh``), ``csrc/traverse_wide.cu`` (K3),
    ``csrc/hbm_walk.cu`` (K7), the four of the on-device LBVH build and
    refit (K5: ``csrc/lbvh_karras.cu``, ``lbvh_collapse.cu``,
    ``lbvh_refit.cu``, ``lbvh_pack.cu``) and the three of the PLOC build
@@ -137,7 +138,37 @@ and so exits non-zero, on failure):
     over the PLOC, Karras and SAH trees on phase 11c's crop and on shadow
     rays towards the light (hits equal), the K4 kernels against their
     plain versions at this size, and timed there;
-13. prints the kernels' JSON line (per kernel: launches on its main-path
+13c. ladder row 6 (``tools/bench_ladder.setup6/frames6``):
+    ``textured_atrium()`` flat 8-wide, ``alpha_test_anyhit(0.30)`` inside
+    K1, spp 2, depth 2, shadow rays, 512x512 and 1920x1080 frames (a
+    warm-up and two timed each), launch counts reset before: K1's alpha
+    mode 8 launches a frame, no K3, no K1 without alpha; ms/frame,
+    Mrays/s, peak and table bytes; then a 512x512 frame of the same scene
+    on the 4-wide TLAS build through K2's alpha mode (8 launches, equal
+    ray count);
+13a. K3 against its plain version: the cutout scene (TLAS) at 128x128,
+    auto-accept and a suspension loop of mixed CONT / ACCEPT / TERM
+    actions, and a 96x96 crop of the textured atrium's TLAS build,
+    auto-accept and three rounds of the alpha test's own actions: every
+    state field (hits, pending hits, trail, stack, ``nodes_visited``,
+    ``tri_tests``) equal; then K3's first suspension round of the parity
+    frame's primary wave (73,728 lanes) timed by the profiler's kernel
+    time (CUDA events around the bare launch beside it: they read the
+    host's pace of a launch longer than the kernel) beside its plain
+    version and its bound, the relaunched state checked again;
+13b. K1's and K2's alpha modes against their plain versions on row 6's
+    tables (512x512 camera rays, their shadow rays, and for K1 a mixed
+    wave): hits and per-ray steps equal; each primary wave timed in
+    alpha mode and without alpha beside its bound; K1's times without
+    alpha on config 2's and the scale scene's primary waves re-read;
+13d. row 6's gate (``bench_ladder.parity6``): the 192x192 frame in the
+    walk against the suspension engine (``RTConfig(packet_size=0)`` on
+    the TLAS build, K3 + ``commit``), launch counts reset before: RMSE
+    below 1e-4, equal ray counts, K3's launches (its rounds); then
+    ``render(mode="chunked")`` at 128x128 on the TLAS build with the
+    default shaders, its compacted pool traced by K3, against the same
+    frame traced by the plain walk (within 1e-5, equal ray counts);
+14. prints the kernels' JSON line (per kernel: launches on its main-path
     run and per frame, K1's being config 4's frame with the other paths'
     counts beside it, the LBVH kernels' being row 5's run, the PLOC
     kernels' row 3's (six builds: a warm-up and five timed), with config
@@ -145,7 +176,11 @@ and so exits non-zero, on failure):
     launched, per frame from the counts over the run's refits; the
     largest difference from the plain version that the phases above
     measured; device time by CUDA events, plain time, bound, what bounds
-    it and the share of the bound) and, last, the device JSON line.
+    it and the share of the bound; ``traverse_wide``'s launches the parity
+    frame's, the chunked frame's beside them, the alpha modes' the row-6
+    frames'; ``traverse_packet_alpha``
+    and ``packet_walk_alpha`` are K1's and K2's alpha instantiations, with
+    their time without alpha beside) and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -183,6 +218,14 @@ SOURCES = {
     # explicit-ids mode
     "ploc_pack": ("vortex_rt_tpu_torch/csrc/lbvh_pack.cu",
                   "vortex_rt_tpu/accel/ploc.py:335"),
+    # K3, and the alpha-cutout instantiations of K1 and K2 (the JAX
+    # in-loop alpha test of trace_packets)
+    "traverse_wide": ("vortex_rt_tpu_torch/csrc/traverse_wide.cu",
+                      "vortex_rt_tpu/ops/traverse_wide.py:640"),
+    "traverse_packet_alpha": ("vortex_rt_tpu_torch/csrc/traverse_packet.cu",
+                              "vortex_rt_tpu/ops/traverse_packet.py:723"),
+    "packet_walk_alpha": ("vortex_rt_tpu_torch/csrc/packet_walk.cu",
+                          "vortex_rt_tpu/ops/traverse_packet.py:723"),
 }
 LBVH_KERNELS = ("lbvh_karras", "lbvh_collapse", "lbvh_refit", "lbvh_pack")
 PLOC_KERNELS = ("ploc_merge", "ploc_collapse", "ploc_refit", "ploc_pack")
@@ -1697,6 +1740,424 @@ def phase_config5_ploc(device, st, checked: dict, err: dict,
     return rec
 
 
+# ------------------------------------------------ any-hit path (13a-13d)
+
+def cutout_scene(flatten: bool = False):
+    """The any-hit test scene: two checkered quads and a dark quad before a
+    sphere, a box and two instances of a triangle soup (TLAS over several
+    BLASes unless flattened)."""
+    import numpy as np
+
+    from vortex_rt_tpu_torch import RTConfig, Scene
+    from vortex_rt_tpu_torch.models.procedural import (
+        box, quad, random_soup, uv_sphere,
+    )
+    from vortex_rt_tpu_torch.models.scene import Material
+    from vortex_rt_tpu_torch.utils import vecmath as vm
+
+    yy, xx = np.meshgrid(np.arange(12), np.arange(12), indexing="ij")
+    tex = np.where(((xx // 3) + (yy // 3)) % 2 == 0, 0xFFFFFF,
+                   0x101010).astype(np.uint32)
+    sc = Scene()
+    for mesh in (
+            quad((-1.5, -1.5, 0), (1.5, -1.5, 0), (1.5, 1.5, 0),
+                 (-1.5, 1.5, 0), Material(diffuse=(1, 1, 1), diffuse_tex=tex)),
+            quad((-2, -2, 1.0), (2, -2, 1.0), (2, 2, 1.0), (-2, 2, 1.0),
+                 Material(diffuse=(1, 1, 1), diffuse_tex=tex)),
+            quad((-0.5, -0.5, 1.7), (0.5, -0.5, 1.7), (0.5, 0.5, 1.7),
+                 (-0.5, 0.5, 1.7), Material(diffuse=(0.1, 0.1, 0.1))),
+            uv_sphere((0, 0, 2.6), 0.8, 10, 14), box((1.2, 1.0, 2.4), 0.5)):
+        sc.add_instance(sc.add_mesh(mesh))
+    ms = sc.add_mesh(random_soup(np.random.default_rng(0), 3000, extent=2.0,
+                                 tri_size=0.3))
+    sc.add_instance(ms, vm.mat4_translate([0.5, 0, 4]))
+    sc.add_instance(ms, vm.mat4_translate([-1, 0.5, 5])
+                    @ vm.mat4_rotate([0, 1, 0], 0.5))
+    return sc.build(RTConfig(flatten=flatten))
+
+
+def pool_lanes(cam, w: int, h: int, spp: int, device):
+    """The ray lanes of a pool frame's first wave (every sample of every
+    pixel, a pixel's samples adjacent, tile-major): what the suspension
+    engine's primary wave traces."""
+    import torch
+
+    from vortex_rt_tpu_torch.engine import wavefront as wf
+    from vortex_rt_tpu_torch.engine.megakernel import CameraArrays
+
+    lane = torch.arange(w * h * spp, dtype=torch.int64, device=device)
+    q = lane // spp
+    pxi, pyi = wf._tile_pixel_ids(q, w, 16, 16)
+    return wf._camera_from_pix(CameraArrays.from_camera(cam, device), w, h,
+                               pxi, pyi, pyi * w + pxi, lane % spp, spp)
+
+
+def compare_states(label: str, got, want) -> float:
+    """Every WideState field of K3 against the plain version's: equal to
+    the bit.  Returns the largest difference (0.0)."""
+    import torch
+
+    for name, a, b in zip(got._fields, got, want):
+        _check(torch.equal(a, b), f"{label}: state field {name} differs "
+               f"from the plain version")
+    return 0.0
+
+
+def k3_loop(label, wa, lanes, device, action_fn, rounds: int = 1000) -> int:
+    """K3 and its plain version from a fresh state through up to
+    ``rounds`` suspension rounds (``action_fn(state)`` the commit
+    actions), every state equal; returns the rounds run."""
+    from vortex_rt_tpu_torch.ops import traverse_wide as tw
+
+    st = sr = None
+    for k in range(rounds):
+        _, st, _ = tw.trace_lanes(wa, *lanes, state=st, suspend=True)
+        _sync(device)
+        _, sr, _ = tw.trace_lanes_ref(wa, *lanes, state=sr, suspend=True)
+        compare_states(f"{label} round {k}", st, sr)
+        if not bool(st.suspended.any()):
+            return k
+        act = action_fn(st)
+        st, sr = tw.commit(st, act), tw.commit(sr, act)
+    return rounds
+
+
+def alpha_actions(wa, sa, lanes, table):
+    """The commit actions of ``table``'s any-hit shader at each suspended
+    lane's pending hit, as the frame's pool computes them."""
+    import torch
+
+    from vortex_rt_tpu_torch.engine.shaders import (
+        PayloadLanes, RayLanes, ShaderContext,
+    )
+    from vortex_rt_tpu_torch.ops.shade_lanes import shade_point
+
+    def act(st):
+        sp = shade_point(
+            sa, *lanes, st.pend_t, st.pend_bx, st.pend_by,
+            1.0 - st.pend_bx - st.pend_by,
+            st.pend_tri.clamp(0, sa.shade_rows.shape[0] - 1).long(),
+            st.pend_inst.clamp(0, sa.inst_shade.shape[0] - 1).long())
+        z = torch.zeros_like(st.tri)
+        a = table.anyhit(ShaderContext(sa, *(None,) * 4, 2), sp,
+                         RayLanes(*lanes), PayloadLanes(z, z, z, z))
+        return torch.where(st.suspended, a.to(torch.int32), 0)
+
+    return act
+
+
+def phase_k3(device, atrium6_tlas, cam6, table6, size: int = 128,
+             crop: int = 96, parity: int = 192) -> dict:
+    """13a: K3 against its plain version, then K3 timed at the parity
+    frame's first wave beside its plain version and its bound."""
+    import torch
+
+    from vortex_rt_tpu_torch import Camera, WavefrontRenderer
+    from vortex_rt_tpu_torch.ops import traverse_wide as tw
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
+    from vortex_rt_tpu_torch.utils.config import COMMIT_TERM
+
+    # the cutout scene: auto-accept, then a suspension loop of mixed
+    # actions (the near quad rejected, every 17th lane TERMinated)
+    from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays
+
+    wa = WideArrays.from_scene(cutout_scene()).to(device)
+    cam = Camera.look_at([0.15, -0.1, -3.0], [0, 0, 1], [0, 1, 0], 50.0,
+                         1.0)
+    lanes = pool_lanes(cam, size, size, 1, device)
+    h, st, _ = tw.trace_lanes(wa, *lanes)
+    _sync(device)
+    hr, sr, _ = tw.trace_lanes_ref(wa, *lanes)
+    compare_states("cutout/auto", st, sr)
+    lane = torch.arange(lanes[0].shape[0], device=device)
+
+    def mixed(s):
+        a = torch.where(s.pend_inst == 0, 0, torch.where(
+            lane % 17 == 0, COMMIT_TERM, 1)).to(torch.int32)
+        return torch.where(s.suspended, a, 0)
+
+    rounds = k3_loop("cutout/suspend", wa, lanes, device, mixed)
+    print(f"  cutout (TLAS, {wa.nodes.shape[0]} nodes, depth {wa.depth}): "
+          f"{lanes[0].shape[0]} rays, auto-accept mean steps "
+          f"{float(st.nodes_visited.float().mean()):.3f}, "
+          f"{int((h.dist < 1e30).sum())} hits; suspension loop {rounds} "
+          f"rounds; every state field equals the plain version's")
+
+    # a crop of the textured atrium's TLAS build: auto-accept and three
+    # rounds of the alpha test's own actions
+    r4 = atrium6_tlas
+    wa6 = r4.wa
+    crop_lanes = pool_lanes(cam6, crop, crop, 1, device)
+    h, st, _ = tw.trace_lanes(wa6, *crop_lanes)
+    _sync(device)
+    _, sr, _ = tw.trace_lanes_ref(wa6, *crop_lanes)
+    compare_states("atrium/auto", st, sr)
+    k3_loop("atrium/suspend", wa6, crop_lanes, device,
+            alpha_actions(wa6, r4.sa, crop_lanes, table6), rounds=3)
+    print(f"  textured atrium TLAS ({wa6.nodes.shape[0]} nodes, depth "
+          f"{wa6.depth}): {crop_lanes[0].shape[0]} rays, mean steps "
+          f"{float(st.nodes_visited.float().mean()):.3f} (max "
+          f"{int(st.nodes_visited.max())}); auto-accept and 3 suspension "
+          f"rounds equal the plain version's")
+
+    # timed: the first suspension round of the parity frame's primary wave
+    lanes = pool_lanes(cam6, parity, parity, 2, device)
+    call = (tw.kernel_call(wa6, *lanes, suspend=True)
+            if device.type == "cuda" else
+            lambda: tw.walk_lanes(wa6, *lanes, suspend=True))
+    st_k = call()
+    st_w, work = tw.lanes_work(wa6, *lanes, suspend=True)
+    compare_states("atrium/parity round 0", st_k, st_w)
+    b = wb.k3_bound(work)
+    # (a CPU rehearsal has no device time).  K3's time is the profiler's
+    # kernel time: the kernel (~25 us) is shorter than its launch's host
+    # work (43 state fields a side), so CUDA events around the bare launch
+    # read the host's pace; they stand beside it
+    cuda = device.type == "cuda"
+    events_ms = _device_ms(call, 10) if cuda else float("nan")
+    ms = (_profiled_kernel_ms(call, 10, ["traverse_wide"])
+          ["traverse_wide"] if cuda else float("nan"))
+    # the timed relaunches wrote the same state again
+    compare_states("atrium/parity round 0, relaunched", call(), st_w)
+    plain_ms = _elapsed_ms(lambda: tw.trace_lanes_ref(wa6, *lanes,
+                                                      suspend=True), 1,
+                           device)
+    steps = st_k.nodes_visited.float()
+    warp_max = steps.reshape(-1, 32).max(1).values.mean() \
+        if steps.numel() % 32 == 0 else steps.max()
+    print(f"  K3 first suspension round of the parity frame's primary wave "
+          f"({lanes[0].shape[0]} lanes, {int(st_k.suspended.sum())} "
+          f"suspended): {ms:.4f} ms (device, the profiler's kernel time; "
+          f"CUDA events around the launch {events_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms; "
+          f"steps mean {float(steps.mean()):.3f} warp-max "
+          f"{float(warp_max):.3f}; bound {b.ms:.4f} ms ({b.bound_by}: "
+          f"{b.ops} ops, {b.bytes} B) = {b.ms / ms:.1%}")
+    return dict(max_abs_err=0.0, ms=ms, events_ms=events_ms,
+                plain_ms=plain_ms, bound_ms=b.ms,
+                bound_by=b.bound_by, lanes=lanes[0].shape[0],
+                mean_steps=float(steps.mean()), cutout_rounds=rounds)
+
+
+def phase_alpha_walks(device, r6, r6_tlas, cam6, c2, sc, size: int = 512
+                      ) -> dict:
+    """13b: K1's and K2's alpha modes against their plain versions on
+    row 6's tables (512x512 camera rays, their shadow rays, a mixed wave),
+    timed beside the walks without alpha and their bounds; K1's times
+    without alpha at config 2 and the scale scene re-read."""
+    import torch
+
+    from vortex_rt_tpu_torch.ops import packet_walk as pw
+    from vortex_rt_tpu_torch.ops import traverse_packet as tp
+    from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays
+    from vortex_rt_tpu_torch.tools import k1_timing
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
+    from vortex_rt_tpu_torch.tools.bench_ladder import ALPHA6, LIGHT6
+    from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT
+
+    o, d = camera_rays(cam6, size, size, device)
+    n = o.shape[0]
+    err = {"k1": 0.0, "k2": 0.0}
+    for name, r, walk, ref in (
+            ("k1", r6, tp.trace_packets, tp.trace_packets_ref),
+            ("k2", r6_tlas, pw.trace_packets_walk,
+             pw.trace_packets_walk_ref)):
+        wa = r.wa
+        base, _ = walk(wa, o, d, alpha_ref=ALPHA6)
+        hit = base.dist < LARGE_FLOAT
+        light = torch.tensor(LIGHT6, dtype=torch.float32, device=device)
+        hp = o + d * base.dist.clamp_max(1e18).unsqueeze(1)
+        sl = light - hp
+        dist_l = torch.sqrt((sl * sl).sum(1) + 1e-20)
+        sd = sl / dist_l.unsqueeze(1)
+        so, clamp = hp + sd * 1e-3, dist_l * (1.0 - 1e-3)
+        cases = [("closest", o, d, {}),
+                 ("shadow", so, sd, dict(active=hit, t_max=clamp,
+                                         occlusion=True))]
+        if name == "k1":
+            cases.append(("mixed", torch.cat([so, o]), torch.cat([sd, d]),
+                          dict(active=torch.cat([hit, hit]),
+                               t_max=torch.cat([clamp, torch.full_like(
+                                   clamp, LARGE_FLOAT)]), occl_split=n)))
+        for mode, co, cd, kw in cases:
+            k, ks = walk(wa, co, cd, alpha_ref=ALPHA6, **kw)
+            _sync(device)
+            pp, ps = ref(wa, co, cd, alpha_ref=ALPHA6, **kw)
+            err[name] = max(err[name], compare_hits(
+                f"{name} alpha/{mode}", k, pp, ks, ps))
+    # K1: the primary wave in alpha mode against the same rays over the
+    # same scene's fused table without alpha fields (the walk without alpha)
+    plain_wa = WideArrays.from_scene(r6.sb, width=8).fuse().to(device)
+    if device.type != "cuda":  # (a CPU rehearsal has no device time)
+        return {"traverse_packet_alpha": dict(max_abs_err=err["k1"]),
+                "packet_walk_alpha": dict(max_abs_err=err["k2"])}
+    k1a = k1_timing.time_wave(r6.wa, o, d, dict(alpha_ref=ALPHA6),
+                              {"k1": tp.kernel_call}, 20)
+    k1n = k1_timing.time_wave(plain_wa, o, d, {}, {"k1": tp.kernel_call}, 20)
+    a_ms, n_ms = k1a["versions"]["k1"]["ms"], k1n["versions"]["k1"]["ms"]
+    _, _, work = tp.walk_work(r6.wa, o, d, alpha_ref=ALPHA6)
+    print(f"  K1 primary wave {size}x{size}: alpha {a_ms:.4f} ms (steps mean "
+          f"{k1a['mean_steps']:.3f}, {int(work.alpha_tests.sum())} alpha "
+          f"tests, bound {k1a['bound_ms']:.4f} ms ({k1a['bound_by']}) = "
+          f"{k1a['bound_ms'] / a_ms:.1%}); without alpha {n_ms:.4f} ms (steps "
+          f"mean {k1n['mean_steps']:.3f}): x{a_ms / n_ms:.3f}; fused rows "
+          f"{r6.wa.fused.shape[1] * 4} B with alpha, "
+          f"{plain_wa.fused.shape[1] * 4} B without")
+    k1_plain_ms = _elapsed_ms(lambda: tp.trace_packets_ref(
+        r6.wa, o, d, alpha_ref=ALPHA6), 1, device)
+    # K2: the same rays over the TLAS build
+    call = pw.kernel_call(r6_tlas.wa, o, d, alpha_ref=ALPHA6)
+    call()
+    k2_ms = _device_ms(call, 20)
+    k2n_ms = _device_ms(pw.kernel_call(r6_tlas.wa, o, d), 20)
+    _, k2_steps, k2_work = pw.walk_work_4(r6_tlas.wa, o, d,
+                                          alpha_ref=ALPHA6)
+    k2b = wb.k2_bound(k2_work)
+    k2_plain_ms = _elapsed_ms(lambda: pw.trace_packets_walk_ref(
+        r6_tlas.wa, o, d, alpha_ref=ALPHA6), 1, device)
+    print(f"  K2 primary wave {size}x{size} (TLAS): alpha {k2_ms:.4f} ms (steps "
+          f"mean {float(k2_steps.float().mean()):.3f}), without alpha "
+          f"{k2n_ms:.4f} ms; bound {k2b.ms:.4f} ms ({k2b.bound_by}) = "
+          f"{k2b.ms / k2_ms:.1%}; plain {k2_plain_ms:.4f} ms")
+    prim = next(iter(sc.get("waves", {}).values()), {})
+    print(f"  K1 without alpha, re-read: config 2 primary wave "
+          f"{c2['ms']:.4f} ms, scale primary wave "
+          f"{prim.get('ms', float('nan')):.4f} ms (PERF.md's kernel table "
+          f"holds the earlier readings)")
+    return {
+        "traverse_packet_alpha": dict(
+            max_abs_err=err["k1"], ms=a_ms, plain_ms=k1_plain_ms,
+            bound_ms=k1a["bound_ms"], bound_by=k1a["bound_by"],
+            no_alpha_ms=n_ms),
+        "packet_walk_alpha": dict(
+            max_abs_err=err["k2"], ms=k2_ms, plain_ms=k2_plain_ms,
+            bound_ms=k2b.ms, bound_by=k2b.bound_by, no_alpha_ms=k2n_ms)}
+
+
+def phase_row6(device, target_tris: int = 260_000, n_cols: int = 12,
+               res=(512, 512), res_hd=(1920, 1080)) -> tuple:
+    """13c: ladder row 6 through the tool's entry points, launch counts
+    reset before and read after: the 512x512 and 1080p frames through K1's
+    alpha mode (no K3); then a 512x512 frame of the same scene on the
+    4-wide TLAS build through K2's alpha mode."""
+    import numpy as np
+    import torch
+
+    from vortex_rt_tpu_torch import RTConfig, WavefrontRenderer
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import bench_ladder
+
+    t0 = time.perf_counter()
+    sc6, r, cam, p, table = bench_ladder.setup6(device, target_tris, n_cols)
+    build_s = time.perf_counter() - t0
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    rec = bench_ladder.frames6(r, cam, p, res, res_hd)
+    _sync(device)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    frames = 6  # a warm-up and two timed frames at each size
+    _check(not cuda or launches["traverse_packet_alpha"] == 8 * frames,
+           f"row 6 launched K1's alpha mode {launches['traverse_packet_alpha']}"
+           f" times for {frames} frames (4 waves a pass, spp 2)")
+    _check(launches["traverse_wide"] == 0 and launches["traverse_packet"] == 0
+           and launches["packet_walk_alpha"] == 0,
+           f"row 6's frames launched other walks: {launches}")
+    w, h = res
+    img, rays = r.render(cam, p, w, h)
+    _check(img.shape == (h, w, 3) and np.isfinite(img).all()
+           and rays >= w * h * p.spp, "row 6 image is not finite")
+    rec.update(peak_bytes=int(peak), build_s=build_s,
+               k1_alpha_launches=launches["traverse_packet_alpha"],
+               k1_alpha_launches_per_frame=launches["traverse_packet_alpha"]
+               // frames)
+    print(f"  row 6: {json.dumps(rec)}")
+    # the 4-wide TLAS route of the same scene and shader (K2 alpha)
+    cfg4 = RTConfig()
+    r4 = WavefrontRenderer.from_buffers(sc6.build(cfg4), cfg4, table,
+                                        device=device)
+    r4.render(cam, p, 64, 64)  # warm-up
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    img4, rays4 = r4.render(cam, p, w, h)
+    ms4 = (time.perf_counter() - t0) * 1e3
+    launches4 = dict(kernels.LAUNCHES)
+    _check(not cuda or (launches4["packet_walk_alpha"] == 8
+                        and launches4["traverse_wide"] == 0),
+           f"the 4-wide alpha frame launched {launches4}")
+    _check(rays4 == rays and np.isfinite(img4).all(),
+           f"the 4-wide row-6 frame traced {rays4} rays, the 8-wide {rays}")
+    # (two trees of one scene: an exact-t tie may resolve differently)
+    off = int((np.abs(img4 - img).max(-1) > IMG_ATOL).sum())
+    print(f"  4-wide TLAS route (K2 alpha): {ms4:.3f} ms a {w}x{h} frame, "
+          f"{rays4} rays (8-wide {rays}), K2 alpha launches "
+          f"{launches4['packet_walk_alpha']}, {off} pixels differ from the "
+          f"8-wide frame by more than {IMG_ATOL}")
+    rec.update(k2_alpha_launches=launches4["packet_walk_alpha"],
+               tlas_frame_ms=ms4)
+    return rec, sc6, r, r4, cam, p, table
+
+
+def phase_parity6(device, sc6, r, cam, p, table, size: int = 192) -> dict:
+    """13d: row 6's gate, the 192x192 frame against the suspension engine
+    (K3 on the TLAS build), launch counts reset before."""
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import bench_ladder
+
+    kernels.reset_launches()
+    rec = bench_ladder.parity6(sc6, r, cam, p, table, size)
+    _sync(device)
+    launches = dict(kernels.LAUNCHES)
+    _check(device.type != "cuda"
+           or launches["traverse_wide"] == rec["k3_launches"] > 0,
+           f"the suspension frame launched K3 {launches['traverse_wide']} "
+           f"times")
+    _check(rec["parity_ok"], f"row 6 parity failed: {json.dumps(rec)}")
+    print(f"  row 6 parity: {json.dumps(rec)}")
+    return dict(rec, launches=launches["traverse_wide"])
+
+
+def phase_chunked(device, r_tlas, cam, p, size: int = 128) -> dict:
+    """13d: ``render(mode="chunked")``, the JAX host-orchestrated frame,
+    on row 6's TLAS build with the default shaders and no shadows: the
+    compacted pool traced by K3 (launch counts reset before), against the
+    same frame traced by the plain walk.  Images within 1e-5, equal ray
+    counts."""
+    import numpy as np
+
+    from vortex_rt_tpu_torch.engine import wavefront as wf
+    from vortex_rt_tpu_torch.engine.shaders import ShaderTable
+    from vortex_rt_tpu_torch.ops import traverse_wide as tw
+    from vortex_rt_tpu_torch.runtime import kernels
+
+    r = dataclasses.replace(r_tlas, table=ShaderTable())
+    p = dataclasses.replace(p, shadow=False)
+    kernels.reset_launches()
+    img, rays = r.render(cam, p, size, size, mode="chunked")
+    _sync(device)
+    launches = kernels.LAUNCHES["traverse_wide"]
+    real = wf.walk_lanes
+    wf.walk_lanes = lambda *a, **kw: tw.trace_lanes_ref(*a, **kw)[1]
+    try:
+        img_p, rays_p = r.render(cam, p, size, size, mode="chunked")
+    finally:
+        wf.walk_lanes = real
+    err = float(np.abs(img - img_p).max())
+    _check(img.shape == (size, size, 3) and np.isfinite(img).all(),
+           "the chunked frame is not a finite image")
+    _check(device.type != "cuda" or launches > 0,
+           "the chunked frame launched no K3")
+    _check(rays == rays_p and err <= 1e-5,
+           f"chunked frame: rays {rays} vs plain {rays_p}, max abs err "
+           f"{err}")
+    print(f"  chunked frame {size}x{size} spp {p.spp} depth {p.max_depth}: "
+          f"{rays} rays, {launches} K3 launches, max abs err {err} against "
+          f"the plain walk's frame")
+    return dict(rays=rays, launches=launches, max_abs_err=err)
+
+
 def phase_k7(device, check_rows: int = K7_ROWS[0], check_steps: int = 500
              ) -> dict:
     import torch
@@ -1831,7 +2292,19 @@ def main() -> int:
     _phase("phase 12c PLOC at config 5's mesh (wavy_grid n=708)")
     c5p = phase_config5_ploc(device, st5, ploc_checked, ploc_err)
     del st5
-    _phase("phase 13 results")
+    _phase("phase 13c ladder row 6 (textured atrium, alpha cutout in K1)")
+    row6, sc6, r6, r6_tlas, cam6, p6, table6 = phase_row6(device)
+    _phase("phase 13a K3 vs plain version (cutout scene, atrium TLAS crop)")
+    k3 = phase_k3(device, r6_tlas, cam6, table6)
+    _phase("phase 13b K1 and K2 alpha modes vs plain versions (row 6)")
+    alpha = phase_alpha_walks(device, r6, r6_tlas, cam6, c2, sc)
+    _phase("phase 13d row 6 parity against the suspension engine (K3), "
+           "and the chunked frame")
+    par6 = phase_parity6(device, sc6, r6, cam6, p6, table6)
+    del r6
+    chunked = phase_chunked(device, r6_tlas, cam6, p6)
+    del r6_tlas
+    _phase("phase 14 results")
     print(f"  summary: config2 {c2['mrays']:.3f} Mrays/s, scale "
           f"{sc['mrays']:.3f} Mrays/s, peak {sc['peak_bytes']} B; config 3 "
           f"{c3['frame_ms']:.3f} ms/frame {c3['mrays']:.3f} Mrays/s, config "
@@ -1917,6 +2390,41 @@ def main() -> int:
                 "config5": {k: c5p["times"]["ploc_refit_climb"][k]
                             for k in ("ms", "plain_ms", "bound_ms")}}
         rows.append(row)
+    # the any-hit path: K3's launches are the parity frame's (13d), the
+    # alpha modes' the row-6 frames' (13c)
+    for name, res, launches, per_frame in (
+            ("traverse_wide", k3, par6["launches"], par6["launches"]),
+            ("traverse_packet_alpha", alpha["traverse_packet_alpha"],
+             row6["k1_alpha_launches"], row6["k1_alpha_launches_per_frame"]),
+            ("packet_walk_alpha", alpha["packet_walk_alpha"],
+             row6["k2_alpha_launches"], row6["k2_alpha_launches"])):
+        src, replaces = SOURCES[name]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches,
+                     "launches_per_frame": per_frame,
+                     "launches_by_path": ({"parity6": launches,
+                                           "chunked": chunked["launches"]}
+                                          if name == "traverse_wide"
+                                          else None),
+                     "max_abs_err": (max(res["max_abs_err"],
+                                         chunked["max_abs_err"])
+                                     if name == "traverse_wide"
+                                     else res["max_abs_err"]),
+                     "ms": res["ms"],
+                     "plain_ms": res["plain_ms"],
+                     "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+                     "bound_share": res["bound_ms"] / res["ms"],
+                     "library_ms": None,
+                     "ms_source": ("profiler_kernel" if "events_ms" in res
+                                   else "cuda_events_launch"),
+                     **{k: res[k] for k in ("no_alpha_ms", "events_ms")
+                        if k in res}})
+    print(f"  row 6: {row6['ms_per_frame']:.3f} ms/frame at 512x512 "
+          f"({row6['mrays']:.3f} Mrays/s), {row6['ms_per_frame_hd']:.3f} "
+          f"ms/frame at 1080p ({row6['mrays_hd']:.3f} Mrays/s), peak "
+          f"{row6['peak_bytes']} B; parity RMSE {par6['parity_rmse']:.3g} "
+          f"with {par6['k3_launches']} K3 launches; chunked frame "
+          f"{chunked['launches']} K3 launches")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """The port's ladder tool (``tools/bench_ladder.py``) on the CPU at a small
-size: row 5's recipe on ``wavy_grid(n=24)`` at 32x32.  The t = 0 frame and
+size: row 5's recipe on ``wavy_grid(n=24)`` at 32x32 (and rows 3 and 6
+through the tool's command line).  The t = 0 frame and
 one moved frame, rendered from the port's on-device build + per-frame
 refit, against the frames the JAX package renders from its own
 ``build_lbvh_topo`` / ``refit_lbvh`` tree of the same vertices: equal ray
@@ -122,6 +123,22 @@ def test_row3_ploc_hits_equal_host_tree(capsys):
     assert h["max_steps_device_tree"] >= h["mean_steps_device_tree"] > 0
     assert line["rays_device_tree"] == line["rays_host_tree"]
     assert line["image_max_abs_vs_host_tree"] == 0.0
+
+
+def test_row6_small_on_cpu(capsys):
+    """Row 6 as the tool runs it, small: a textured atrium of about 4,000
+    triangles through the alpha test in the walk (fused rows of 512 B),
+    and its parity frame against the suspension engine on the TLAS
+    build: the same image (RMSE 0: the same hits) and ray count."""
+    recs = bl.main(["--configs", "6", "--device", "cpu", "--atrium", "3000",
+                    "--atrium-cols", "2", "--res", "32x18", "--res6",
+                    "16x16", "--parity-res", "16"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == recs[0] and line["config"] == 6 and line["anyhit"]
+    assert line["parity_ok"] and line["parity_rmse"] == 0.0
+    assert line["rays_parity"] == line["rays_suspension"] > 16 * 16 * 2
+    assert line["fused_bytes"] % 512 == 0 and line["alpha"] == 0.30
+    assert line["rays_per_frame_hd"] > line["rays_per_frame"] > 0
 
 
 @pytest.mark.parametrize("argv,exc", [

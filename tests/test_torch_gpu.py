@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the 4-wide walk (K2), the 8-wide fused walk (K1), the chained
-row-fetch probe (K7), the four kernels of the on-device LBVH build and
-refit (K5) and those of the on-device PLOC build and level refit (K4).
+card: the 4-wide walk (K2), the 8-wide fused walk (K1), both in their
+alpha-cutout modes, the per-ray walk with any-hit suspension (K3), the
+chained row-fetch probe (K7), the four kernels of the on-device LBVH build
+and refit (K5) and those of the on-device PLOC build and level refit (K4).
 
 Needs a CUDA device and nvcc; skips without a card.  It imports neither
 JAX nor the JAX package, so it also runs on a machine without JAX — with
@@ -9,6 +10,8 @@ JAX nor the JAX package, so it also runs on a machine without JAX — with
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -532,3 +535,183 @@ def test_ploc_stack_capacities_match_the_kernels(cuda):
         kernels.load("traverse_packet").lib.vrt_traverse_packet_stack_max())
     assert packet_walk.STACK_MAX == int(
         kernels.load("packet_walk").lib.vrt_packet_walk_stack_max())
+
+
+# ---- K3 (the per-ray walk with any-hit suspension) and the alpha modes
+# of K1 and K2
+
+def _cutout(flatten, width=0):
+    """Checkered and dark quads before a sphere, a box and two instances
+    of a triangle soup (a TLAS over several BLASes when not flattened)."""
+    import numpy as np
+
+    from vortex_rt_tpu_torch.models.procedural import quad
+    from vortex_rt_tpu_torch.models.scene import Material
+    from vortex_rt_tpu_torch.utils import vecmath as vm
+
+    yy, xx = np.meshgrid(np.arange(12), np.arange(12), indexing="ij")
+    tex = np.where(((xx // 3) + (yy // 3)) % 2 == 0, 0xFFFFFF,
+                   0x101010).astype(np.uint32)
+    sc = pt.Scene()
+    for mesh in (
+            quad((-1.5, -1.5, 0), (1.5, -1.5, 0), (1.5, 1.5, 0),
+                 (-1.5, 1.5, 0), Material(diffuse=(1, 1, 1), diffuse_tex=tex)),
+            quad((-2, -2, 1.0), (2, -2, 1.0), (2, 2, 1.0), (-2, 2, 1.0),
+                 Material(diffuse=(1, 1, 1), diffuse_tex=tex)),
+            quad((-0.5, -0.5, 1.7), (0.5, -0.5, 1.7), (0.5, 0.5, 1.7),
+                 (-0.5, 0.5, 1.7), Material(diffuse=(0.1, 0.1, 0.1))),
+            uv_sphere((0, 0, 2.6), 0.8, 10, 14), box((1.2, 1.0, 2.4), 0.5)):
+        sc.add_instance(sc.add_mesh(mesh))
+    import numpy.random as npr
+
+    ms = sc.add_mesh(random_soup(npr.default_rng(0), 2000, extent=2.0,
+                                 tri_size=0.3))
+    sc.add_instance(ms, vm.mat4_translate([0.5, 0, 4]))
+    sc.add_instance(ms, vm.mat4_translate([-1, 0.5, 5])
+                    @ vm.mat4_rotate([0, 1, 0], 0.5))
+    return sc.build(pt.RTConfig(flatten=flatten, bvh_width=width))
+
+
+def _camera_lanes(device, n):
+    from vortex_rt_tpu_torch.engine import wavefront as wf
+    from vortex_rt_tpu_torch.engine.megakernel import CameraArrays
+
+    cam = pt.Camera.look_at([0.15, -0.1, -3.0], [0, 0, 1], [0, 1, 0], 50.0,
+                            1.0)
+    lane = torch.arange(n * n, device=device)
+    pxi, pyi = wf._tile_pixel_ids(lane, n, 16, 16)
+    return wf._camera_from_pix(CameraArrays.from_camera(cam, device), n, n,
+                               pxi, pyi, pyi * n + pxi,
+                               torch.zeros_like(lane), 1)
+
+
+def _same_state(a, b):
+    for name, x, y in zip(a._fields, a, b):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("suspend", [False, True])
+def test_k3_matches_plain_version(cuda, suspend):
+    """K3 against its plain version on a TLAS build: every state field
+    (hits, pending hits, trail, stack, steps and triangle tests) equal,
+    in auto-accept and through a suspension loop of mixed actions."""
+    from vortex_rt_tpu_torch.ops import traverse_wide as tw
+
+    wa = WideArrays.from_scene(_cutout(False)).to(cuda)
+    lanes = _camera_lanes(cuda, 96)
+    before = kernels.LAUNCHES["traverse_wide"]
+    st = sr = None
+    rounds = 0
+    while True:
+        h, st, _ = tw.trace_lanes(wa, *lanes, state=st, suspend=suspend)
+        torch.cuda.synchronize()
+        hr, sr, _ = tw.trace_lanes_ref(wa, *lanes, state=sr, suspend=suspend)
+        _same_state(st, sr)
+        _same_state(h, hr)
+        if not suspend or not bool(st.suspended.any()):
+            break
+        lane = torch.arange(st.tri.shape[0], device=cuda)
+        act = torch.where(st.pend_inst == 0, 0, torch.where(
+            lane % 17 == 0, 2, 1)).to(torch.int32)
+        st, sr = tw.commit(st, act), tw.commit(sr, act)
+        rounds += 1
+    assert kernels.LAUNCHES["traverse_wide"] == before + rounds + 1
+    assert bool(st.done.all()) and int((h.dist < 1e30).sum()) > 0
+    if suspend:
+        assert rounds >= 2
+
+
+def test_k3_kernel_call_relaunches(cuda):
+    """K3's bare launch reads its input state and writes its output state
+    on each call: relaunching gives the same words."""
+    from vortex_rt_tpu_torch.ops import traverse_wide as tw
+
+    wa = WideArrays.from_scene(_cutout(False)).to(cuda)
+    lanes = _camera_lanes(cuda, 33)
+    call = tw.kernel_call(wa, *lanes, suspend=True)
+    st = call()
+    first = [x.clone() for x in st]
+    for x in st:
+        x.zero_()
+    st = call()
+    torch.cuda.synchronize()
+    for a, b in zip(st, first):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["k1/closest", "k1/occlusion",
+                                  "k1/occl_split", "k2tlas/closest",
+                                  "k2tlas/occlusion", "k2flat/closest"])
+def test_alpha_walks_match_plain_version(cuda, case):
+    """K1's and K2's alpha instantiations against their plain versions:
+    hits and per-ray steps equal; the launches count as the alpha mode."""
+    walk_name, mode = case.split("/")
+    flat = walk_name != "k2tlas"
+    width = 8 if walk_name == "k1" else 4
+    sb = _cutout(flat, width)
+    wa = WideArrays.from_scene(sb, width=width)
+    if width == 8:
+        wa = wa.fuse()
+    wa = wa.with_alpha(sb).to(cuda)
+    lanes = _camera_lanes(cuda, 80)
+    o, d = torch.stack(lanes[:3], 1), torch.stack(lanes[3:], 1)
+    n = o.shape[0]
+    t = torch.full((n,), 6.0, device=cuda)
+    kw = {"closest": {}, "occlusion": dict(t_max=t, occlusion=True),
+          "occl_split": dict(t_max=torch.where(
+              torch.arange(n, device=cuda) < n // 2, t,
+              torch.full_like(t, 1e30)), occl_split=n // 2)}[mode]
+    walk, ref, name = ((trace_packets, trace_packets_ref,
+                        "traverse_packet_alpha") if width == 8 else
+                       (trace_packets_walk, trace_packets_walk_ref,
+                        "packet_walk_alpha"))
+    before = kernels.LAUNCHES[name]
+    hk, sk = walk(wa, o, d, alpha_ref=0.35, **kw)
+    torch.cuda.synchronize()
+    hp, sp = ref(wa, o, d, alpha_ref=0.35, **kw)
+    assert kernels.LAUNCHES[name] == before + 1
+    for a, b in zip((*hk, sk), (*hp, sp)):
+        assert torch.equal(a, b)
+    h0, _ = walk(wa, o, d, **kw)
+    assert bool((h0.dist != hk.dist).any())  # the cutout rejects hits
+
+
+@pytest.mark.parametrize("route", ["alpha_k1", "alpha_k2", "suspension"])
+def test_anyhit_frames_match_plain_route(cuda, route, monkeypatch):
+    """Any-hit frames through the kernels against the plain route: the
+    alpha test inside K1 (flattened) and K2 (TLAS), and the suspension
+    engine (K3, packet_size=0, TLAS)."""
+    import numpy as np
+
+    from vortex_rt_tpu_torch.engine import wavefront as wf
+    from vortex_rt_tpu_torch.engine.shaders import (
+        ShaderTable, alpha_test_anyhit,
+    )
+    from vortex_rt_tpu_torch.ops import traverse_wide as tw
+
+    flat = route == "alpha_k1"
+    cfg = pt.RTConfig(flatten=flat,
+                      packet_size=0 if route == "suspension" else 256)
+    table = ShaderTable(anyhit=alpha_test_anyhit(0.35))
+    rk = pt.WavefrontRenderer.from_buffers(_cutout(flat), cfg, table,
+                                           device=cuda)
+    cam = pt.Camera.look_at([0.15, -0.1, -3.0], [0, 0, 1], [0, 1, 0], 50.0,
+                            1.0)
+    p = pt.RenderParams(light_pos=(0.5, 1.5, -1.0), max_depth=2, spp=2,
+                        shadow=True)
+    kernels.reset_launches()
+    img_k, rays_k = rk.render(cam, p, 64, 64)
+    launches = dict(kernels.LAUNCHES)
+    if route == "suspension":
+        monkeypatch.setattr(wf, "walk_lanes", lambda *a, **kw:
+                            tw.trace_lanes_ref(*a, **kw)[1])
+        rp = rk
+        assert launches["traverse_wide"] > 4
+    else:
+        ref = trace_packets_ref if flat else trace_packets_walk_ref
+        rp = dataclasses.replace(rk, walk=ref)
+        name = "traverse_packet_alpha" if flat else "packet_walk_alpha"
+        assert launches[name] > 0 and launches["traverse_wide"] == 0
+    img_p, rays_p = rp.render(cam, p, 64, 64)
+    assert rays_k == rays_p
+    np.testing.assert_allclose(img_k, img_p, atol=1e-5)

@@ -143,10 +143,16 @@ def test_bridge_refuses_unported_tables():
         bridge.wide_arrays(nodes, rows, width=16, **common)
     with pytest.raises(ValueError, match="fused"):  # wrong row width
         bridge.wide_arrays(nodes, rows, width=4, fused=nodes, **common)
-    with pytest.raises(NotImplementedError, match="alpha"):
+    # alpha tables are carried now, but only whole: rows and pool together,
+    # the rows (L, 8*k) beside tri_rows (L, 16*k)
+    with pytest.raises(ValueError, match="alpha"):
         bridge.wide_arrays(nodes, rows, width=4,
                            alpha_rows=np.zeros((1, 32), np.float32),
                            **common)
+    with pytest.raises(ValueError, match="alpha"):
+        bridge.wide_arrays(nodes, rows, width=4,
+                           alpha_rows=np.zeros((1, 32), np.float32),
+                           alpha_pool=np.zeros(4, np.float32), **common)
 
 
 @pytest.fixture(scope="module")
@@ -224,8 +230,13 @@ def test_unported_options_raise(option):
                             45.0, 1.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if option == "anyhit":
+            # any-hit shaders run now; an arbitrary stateless predicate
+            # inside the walk of a flattened build does not (item 8b)
+            from vortex_rt_tpu_torch.engine.shaders import stateless_anyhit
+
             pt.WavefrontRenderer.from_buffers(
-                tsb, cfg, ShaderTable(anyhit=lambda *a: None), device="cpu")
+                tsb, cfg, ShaderTable(anyhit=stateless_anyhit(
+                    lambda u, v, a: a > 0.5)), device="cpu")
         elif option == "multi_device":
             pt.WavefrontRenderer.from_buffers(tsb, cfg,
                                               device=["cpu", "cpu"])

@@ -16,7 +16,10 @@ shadow rays and the path-traced frame (``RenderParams(pathtrace=True)``,
 the on-device LBVH build and per-frame refit for moving meshes
 (``accel/lbvh.py`` over ``csrc/lbvh_karras.cu``, ``lbvh_collapse.cu``,
 ``lbvh_refit.cu`` and ``lbvh_pack.cu``, K5) with the ladder's rows 3 and 5
-(``tools/bench_ladder.py``); and the chained row-fetch probe ``tools/exp_hbm_walk.py`` over
+(``tools/bench_ladder.py``); any-hit shaders — the alpha cutout tested
+inside K1 and K2, every other shader through the per-ray walk with
+suspension ``csrc/traverse_wide.cu`` (K3) — with ladder row 6; and the
+chained row-fetch probe ``tools/exp_hbm_walk.py`` over
 ``csrc/hbm_walk.cu`` (K7).  Kernels are built and bound by
 ``runtime/kernels.py``.  On CPU tensors each kernel's wrapper runs its
 plain PyTorch version instead.

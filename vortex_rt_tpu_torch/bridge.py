@@ -6,11 +6,13 @@ The inputs are NumPy arrays (``np.asarray`` of the JAX package's
 the port's tables on a given device.  This module imports neither JAX
 nor ``vortex_rt_tpu``: it only reads arrays.
 
-4- and 8-wide ``nodes``/``tri_rows`` and the fused node+leaf rows are
-carried, and the LBVH and PLOC topologies (``lbvh_topo``, ``ploc_topo``:
-the arrays of the JAX package's ``LBVHTopo`` and ``PLOCTopo``), so both
-packages can refit one tree; tables the port cannot walk yet are refused: 16-wide rows
-(ROADMAP Queue 1, "Not ported") and alpha tables (Queue 1, item 8).
+4- and 8-wide ``nodes``/``tri_rows``, the fused node+leaf rows and the
+alpha-cutout tables (``alpha_rows``, ``alpha_pool``) are carried, and the
+LBVH and PLOC topologies (``lbvh_topo``, ``ploc_topo``: the arrays of the
+JAX package's ``LBVHTopo`` and ``PLOCTopo``), so both packages can refit
+one tree, and a per-ray walk's state (``wide_state``: the JAX
+``WideState``), so a walk the JAX package suspended can resume in the
+port; 16-wide rows are refused (ROADMAP Queue 1, "Not ported").
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ from vortex_rt_tpu_torch.accel import ploc
 from vortex_rt_tpu_torch.accel.lbvh import LBVHTopo, _parents_ref
 from vortex_rt_tpu_torch.engine.megakernel import CameraArrays, LightArrays
 from vortex_rt_tpu_torch.ops.shade_lanes import ShadeArrays
-from vortex_rt_tpu_torch.ops.traverse_wide import ROW_WORDS, WideArrays
+from vortex_rt_tpu_torch.ops.traverse_wide import (
+    ROW_WORDS, WideArrays, WideState, state_dtype,
+)
 
 
 def _as_i32(a: np.ndarray) -> torch.Tensor:
@@ -45,7 +49,8 @@ def _as_f32(a: np.ndarray) -> torch.Tensor:
 def wide_arrays(nodes: np.ndarray, tri_rows: np.ndarray, *, num_tlas: int,
                 max_leaf_tris: int, depth: int, tri_bits: int, width: int,
                 device, fused: Optional[np.ndarray] = None,
-                alpha_rows: Optional[np.ndarray] = None) -> WideArrays:
+                alpha_rows: Optional[np.ndarray] = None,
+                alpha_pool: Optional[np.ndarray] = None) -> WideArrays:
     """JAX ``WideArrays`` fields -> the port's ``WideArrays``."""
     if width == 16:
         raise NotImplementedError(
@@ -53,23 +58,57 @@ def wide_arrays(nodes: np.ndarray, tri_rows: np.ndarray, *, num_tlas: int,
             "'Not ported')")
     if width not in (4, 8):
         raise ValueError(f"unsupported BVH width {width}")
-    if alpha_rows is not None:
-        raise NotImplementedError(
-            "alpha tables: in-loop any-hit is not ported yet (ROADMAP "
-            "Queue 1, item 8)")
     if nodes.ndim != 2 or nodes.shape[1] != ROW_WORDS:
         raise ValueError(f"nodes must be (N, {ROW_WORDS}), got {nodes.shape}")
+    if (alpha_rows is None) != (alpha_pool is None):
+        raise ValueError("alpha_rows and alpha_pool come together")
+    alpha_words = 0
+    if alpha_rows is not None:
+        if (alpha_rows.ndim != 2 or alpha_rows.shape[0] != tri_rows.shape[0]
+                or alpha_rows.shape[1] * 2 != tri_rows.shape[1]
+                or alpha_pool.ndim != 1):
+            raise ValueError(f"alpha_rows must be (L, 8*k) beside tri_rows "
+                             f"(L, 16*k) and alpha_pool 1-D, got "
+                             f"{alpha_rows.shape}, {alpha_pool.shape}")
+        alpha_words = alpha_rows.shape[1]
     if fused is not None and (fused.ndim != 2 or fused.shape[0] !=
                               nodes.shape[0] or fused.shape[1] !=
-                              ROW_WORDS + tri_rows.shape[1]):
-        raise ValueError(f"fused must be (N, {ROW_WORDS} + leaf row "
-                         f"words), got {fused.shape}")
+                              ROW_WORDS + tri_rows.shape[1] + alpha_words):
+        raise ValueError(f"fused must be (N, {ROW_WORDS} + leaf row words "
+                         f"(+ alpha words)), got {fused.shape}")
     return WideArrays(nodes=_as_i32(nodes), tri_rows=_as_f32(tri_rows),
                       num_tlas=int(num_tlas),
                       max_leaf_tris=int(max_leaf_tris), depth=int(depth),
                       tri_bits=int(tri_bits), width=int(width),
-                      fused=None if fused is None else _as_i32(fused)
-                      ).to(device)
+                      fused=None if fused is None else _as_i32(fused),
+                      alpha_rows=(None if alpha_rows is None
+                                  else _as_f32(alpha_rows)),
+                      alpha_pool=(None if alpha_pool is None
+                                  else _as_f32(alpha_pool))).to(device)
+
+
+def wide_state(*, device, steps=None, **fields) -> WideState:
+    """JAX ``WideState`` fields (``state._asdict()`` as NumPy arrays) ->
+    the port's ``WideState``.  The JAX loop counter ``steps`` has no
+    counterpart (the port counts steps per ray) and is dropped."""
+    del steps
+    missing = set(WideState._fields) - set(fields)
+    extra = set(fields) - set(WideState._fields)
+    if missing or extra:
+        raise ValueError(f"WideState fields: missing {sorted(missing)}, "
+                         f"unknown {sorted(extra)}")
+    out = {}
+    for name in WideState._fields:
+        a = np.ascontiguousarray(fields[name])
+        dt = state_dtype(name)
+        if dt == torch.float32:
+            t = _as_f32(a)
+        elif dt == torch.bool:
+            t = torch.from_numpy(a.astype(np.bool_))
+        else:
+            t = _as_i32(a)
+        out[name] = t.to(device)
+    return WideState(**out)
 
 
 def lbvh_topo(*, order, lchild, rchild, surv, ch_old, arity, base, newid,

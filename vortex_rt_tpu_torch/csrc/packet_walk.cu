@@ -24,6 +24,15 @@
 // This first version is simple and correct, not fast: no warp-level
 // cooperation, no ray reordering, no persistent threads.
 //
+// Alpha mode (`vrt_packet_walk_alpha`, the kernel's ALPHA = true
+// instantiation): a candidate that passes Moller-Trumbore is kept only if
+// its surface alpha is not below the threshold (alpha_test.cuh), read from
+// the leaf's alpha row `alpha_rows[left]` (32 B a slot) and the alpha pool.
+// The TPU kernel refused any-hit, and the JAX frame ran its 4-wide alpha
+// waves through the XLA `trace_packets(alpha_ref)` (engine/wavefront.py:
+// 384-390, traverse_packet.py:1057-1085); this is that test in this walk.
+// The ALPHA = false instantiation is the walk above, unchanged.
+//
 // Numerics match the JAX body and the plain PyTorch version bit for bit:
 // the same arithmetic order, the |d| < 1e-20 reciprocal clamp, the
 // |a| < eps Moller-Trumbore guard, and no contraction into FMA (built with
@@ -34,6 +43,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "alpha_test.cuh"
 
 #define VRT_STACK_MAX 128
 #define VRT_LARGE 1e30f
@@ -52,6 +63,17 @@ __device__ __forceinline__ float qbyte(uint32_t w, int sh) {
     return (float)(int)((w >> sh) & 255u);
 }
 
+// Alpha-mode inputs (ALPHA = true only): the (L, alpha_words) alpha rows,
+// the pool and its length, and the threshold.
+struct AlphaArgs {
+    const float4* rows;
+    int row_vec4;
+    const float* pool;
+    int n_pool;
+    float thr;
+};
+
+template <bool ALPHA>
 __global__ void __launch_bounds__(VRT_BLOCK) packet_walk_kernel(
         const uint4* __restrict__ nodes,   // (N, 32) words = 8 uint4 per row
         const float4* __restrict__ rows,   // (L, row_words) floats
@@ -63,7 +85,8 @@ __global__ void __launch_bounds__(VRT_BLOCK) packet_walk_kernel(
         int* __restrict__ tri_out, int* __restrict__ inst_out,
         int* __restrict__ steps_out,
         int n_rays, int n_nodes, int n_rows, int row_vec4, int lmax,
-        int num_tlas, int tri_bits, int max_steps, int occlusion) {
+        int num_tlas, int tri_bits, int max_steps, int occlusion,
+        const AlphaArgs alpha) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n_rays) return;
 
@@ -181,9 +204,15 @@ __global__ void __launch_bounds__(VRT_BLOCK) packet_walk_kernel(
                 const float qz = sx_ * e1y - sy_ * e1x;
                 const float w2 = fba * (ldx * qx + ldy * qy + ldz * qz);
                 float t = fba * (e2x * qx + e2y * qy + e2z * qz);
-                const bool ok = (fabsf(a) >= VRT_EPS) && (w1 >= 0.0f) && (w1 <= 1.0f)
+                bool ok = (fabsf(a) >= VRT_EPS) && (w1 >= 0.0f) && (w1 <= 1.0f)
                     && (w2 >= 0.0f) && (w1 + w2 <= 1.0f) && (t > VRT_EPS)
                     && (c < leaf_n);
+                if (ALPHA && ok) {
+                    const float4* al = alpha.rows + (size_t)row_i * alpha.row_vec4
+                        + 2 * c;
+                    ok = vrt_alpha_keep(__ldg(al), __ldg(al + 1), w1, w2,
+                                        alpha.pool, alpha.n_pool, alpha.thr);
+                }
                 t = ok ? t : VRT_LARGE;
                 if (occlusion) {
                     if (t < best_t) best_t = -1.0f;
@@ -281,12 +310,42 @@ extern "C" int vrt_packet_walk(
         return (int)cudaErrorInvalidValue;
     }
     const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
-    packet_walk_kernel<<<grid, VRT_BLOCK, 0, (cudaStream_t)stream>>>(
+    packet_walk_kernel<false><<<grid, VRT_BLOCK, 0, (cudaStream_t)stream>>>(
         (const uint4*)nodes, (const float4*)rows, (const float*)o,
         (const float*)d, (const float*)limit,
         (float*)dist, (float*)bx, (float*)by, (float*)bz,
         (int*)tri, (int*)inst, (int*)steps,
         n_rays, n_nodes, n_rows, row_words / 4, lmax, num_tlas, tri_bits,
-        max_steps, occlusion);
+        max_steps, occlusion, AlphaArgs{nullptr, 0, nullptr, 0, 0.0f});
+    return (int)cudaGetLastError();
+}
+
+// The alpha mode: as vrt_packet_walk, with the (n_rows, alpha_words) alpha
+// rows (8 words a slot), the alpha pool of n_pool floats and the
+// threshold `thr`.
+extern "C" int vrt_packet_walk_alpha(
+        const void* nodes, const void* rows, const void* o, const void* d,
+        const void* limit, void* dist, void* bx, void* by, void* bz,
+        void* tri, void* inst, void* steps, const void* alpha_rows,
+        const void* alpha_pool,
+        int n_rays, int n_nodes, int n_rows, int row_words, int lmax,
+        int num_tlas, int tri_bits, int stack_n, int max_steps, int occlusion,
+        int alpha_words, int n_pool, float thr, void* stream) {
+    if (n_rays <= 0) return 0;
+    if (stack_n > VRT_STACK_MAX || row_words % 16 != 0 || lmax * 16 > row_words
+            || n_nodes <= 0 || n_rows <= 0 || alpha_words % 4 != 0
+            || lmax * 8 > alpha_words || n_pool <= 0) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
+    packet_walk_kernel<true><<<grid, VRT_BLOCK, 0, (cudaStream_t)stream>>>(
+        (const uint4*)nodes, (const float4*)rows, (const float*)o,
+        (const float*)d, (const float*)limit,
+        (float*)dist, (float*)bx, (float*)by, (float*)bz,
+        (int*)tri, (int*)inst, (int*)steps,
+        n_rays, n_nodes, n_rows, row_words / 4, lmax, num_tlas, tri_bits,
+        max_steps, occlusion,
+        AlphaArgs{(const float4*)alpha_rows, alpha_words / 4,
+                  (const float*)alpha_pool, n_pool, thr});
     return (int)cudaGetLastError();
 }

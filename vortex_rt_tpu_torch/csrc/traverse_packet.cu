@@ -48,6 +48,16 @@
 //   a global counter (Aila & Laine, HPG 2009) walked no faster on the
 //   frame's waves, and refilling idle lanes early walked slower (PERF.md).
 //
+// Alpha mode (`vrt_traverse_packet_alpha`, the kernel's ALPHA = true
+// instantiation): the fused rows carry each leaf's alpha fields after its
+// triangle slots (WideArrays.with_alpha), and a candidate that passes
+// Moller-Trumbore is kept only if its surface alpha is not below the
+// threshold (alpha_test.cuh: one 32-B read from the row in hand and one
+// 4-B read from the alpha pool per candidate).  This replaces the in-loop
+// `alpha_ref` of the JAX body (:723-761).  The ALPHA = false instantiation
+// is the walk above, unchanged: the main path's kernel, its steps and its
+// launches are those of the build without alpha.
+//
 // Numerics match the JAX body and the plain PyTorch version bit for bit:
 // the f32 slab test of `_slab_test` (corners g + f*s), the |d| < 1e-20
 // reciprocal clamp of `_rcp_lane`, Moller-Trumbore in the op order of the
@@ -60,6 +70,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "alpha_test.cuh"
 
 // 48 entries x 8 B x 128 threads = 48 KB, the shared memory a block gets
 // without opting in (a depth-44 tree; the shipped ones are 7-9 deep)
@@ -89,6 +101,11 @@ struct WalkArgs {
     int* steps_out;
     int n_rays, n_nodes, row_vec4, lmax, tri_bits, stack_n, max_steps;
     int occl_split;
+    // alpha mode only: the pool, its length, the float4 offset of a row's
+    // alpha fields, and the threshold
+    const float* alpha_pool;
+    int n_pool, alpha_vec4;
+    float alpha_thr;
 };
 
 __device__ __forceinline__ float rcp_clamped(float d) {
@@ -123,6 +140,7 @@ __device__ __forceinline__ int pop_deferred(int2* stk, int& sc, int stack_n) {
 }
 
 // Walks ray i; `stk` is this thread's first stack entry in shared memory.
+template <bool ALPHA>
 __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
     const float lim = a.limit[i];
     const bool on = a.active[i] != 0;
@@ -251,9 +269,15 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
                     const float qz = sx_ * e1y - sy_ * e1x;
                     const float w2 = fba * (dx * qx + dy * qy + dz * qz);
                     float t = fba * (e2x * qx + e2y * qy + e2z * qz);
-                    const bool ok = (fabsf(det) >= VRT_EPS) && (w1 >= 0.0f)
+                    bool ok = (fabsf(det) >= VRT_EPS) && (w1 >= 0.0f)
                         && (w1 <= 1.0f) && (w2 >= 0.0f) && (w1 + w2 <= 1.0f)
                         && (t > VRT_EPS);
+                    if (ALPHA && ok) {
+                        const float4* al = reinterpret_cast<const float4*>(row)
+                            + a.alpha_vec4 + 2 * c;
+                        ok = vrt_alpha_keep(__ldg(al), __ldg(al + 1), w1, w2,
+                                            a.alpha_pool, a.n_pool, a.alpha_thr);
+                    }
                     t = ok ? t : VRT_LARGE;
                     const bool better = (t < t_min)
                         || ((t == t_min) && (t < VRT_LARGE) && (tid < tid_sel));
@@ -301,13 +325,14 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
     a.inst_out[i] = tri >> a.tri_bits;
 }
 
+template <bool ALPHA>
 __global__ void __launch_bounds__(VRT_BLOCK) traverse_packet_kernel(
         const __grid_constant__ WalkArgs a) {
     // deferred-children stack: entry e of thread t at
     // stack_smem[e * VRT_STK_STRIDE + t] as (left << 4 | count, 7 x 3-bit ids)
     extern __shared__ int2 stack_smem[];
     const int i = blockIdx.x * VRT_BLOCK + threadIdx.x;
-    if (i < a.n_rays) walk_ray(a, i, stack_smem + threadIdx.x);
+    if (i < a.n_rays) walk_ray<ALPHA>(a, i, stack_smem + threadIdx.x);
 }
 
 size_t stack_bytes(int stack_n) {
@@ -344,9 +369,39 @@ extern "C" int vrt_traverse_packet(
         (float*)dist, (float*)bx, (float*)by, (float*)bz,
         (int*)tri, (int*)inst, (int*)steps,
         n_rays, n_nodes, row_words / 4, lmax, tri_bits, stack_n, max_steps,
-        occl_split};
+        occl_split, nullptr, 0, 0, 0.0f};
     const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
-    traverse_packet_kernel<<<grid, VRT_BLOCK, stack_bytes(stack_n),
-                             (cudaStream_t)stream>>>(a);
+    traverse_packet_kernel<false><<<grid, VRT_BLOCK, stack_bytes(stack_n),
+                                    (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// The alpha mode: as vrt_traverse_packet over fused rows of
+// 32 + 24 * slots words (slots triangle slots, then their alpha fields),
+// with the alpha pool of n_pool floats and the threshold `thr`.
+extern "C" int vrt_traverse_packet_alpha(
+        const void* fused, const void* o, const void* d, const void* limit,
+        const void* active, void* dist, void* bx, void* by, void* bz,
+        void* tri, void* inst, void* steps, const void* alpha_pool,
+        int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
+        int stack_n, int max_steps, int occl_split, int n_pool, int slots,
+        float thr, void* stream) {
+    if (n_rays <= 0) return 0;
+    if (stack_n < 1 || stack_n > VRT_STACK_MAX || slots < lmax || lmax < 1
+            || row_words != VRT_ROW_WORDS + 24 * slots
+            || n_nodes <= 0 || n_pool <= 0 || tri_bits <= 0 || tri_bits > 30) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const WalkArgs a = {
+        (const uint4*)fused, (const float*)o, (const float*)d,
+        (const float*)limit, (const uint8_t*)active,
+        (float*)dist, (float*)bx, (float*)by, (float*)bz,
+        (int*)tri, (int*)inst, (int*)steps,
+        n_rays, n_nodes, row_words / 4, lmax, tri_bits, stack_n, max_steps,
+        occl_split, (const float*)alpha_pool, n_pool,
+        (VRT_ROW_WORDS + 16 * slots) / 4, thr};
+    const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
+    traverse_packet_kernel<true><<<grid, VRT_BLOCK, stack_bytes(stack_n),
+                                   (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

@@ -1,14 +1,21 @@
 """Shader binding table: batch shaders over (R,) lanes (port of
-``vortex_rt_tpu/engine/shaders.py``: the Whitted shaders and the
-path-traced closest shader).
+``vortex_rt_tpu/engine/shaders.py``: the Whitted shaders, the
+path-traced closest shader and the any-hit shaders).
 
 Shader signatures (all inputs/outputs are (R,) lanes):
 
 closest(ctx, sp, ray, payload) -> ClosestOut
 miss(ctx, ray, payload) -> (add_r, add_g, add_b)   [terminates the ray]
+anyhit(ctx, sp, ray, payload) -> (R,) int32 commit action
+    (COMMIT_CONT / COMMIT_ACCEPT / COMMIT_TERM at the candidate hit
+    ``sp``; None in the table means every hit is accepted)
 
-Any-hit shaders are not ported yet: ``ShaderTable(anyhit=...)`` is
-refused by the renderer.
+``alpha_test_anyhit(thr)`` and ``stateless_anyhit(pred)`` carry markers
+(``alpha_threshold``, ``inline_predicate``) that tell the renderer the
+decision is a pure function of the candidate: the alpha test then runs
+inside K1 / K2 (``alpha_ref``).  Every any-hit shader also runs through
+the suspension protocol of the per-ray walk (K3), which is what an
+unmarked (possibly stateful) shader always takes.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from vortex_rt_tpu_torch.ops.shade_lanes import (
     ShadeArrays, ShadePoint, diffuse_lighting_lanes, reflect_lanes,
 )
 from vortex_rt_tpu_torch.utils import sampling
+from vortex_rt_tpu_torch.utils.config import COMMIT_ACCEPT, COMMIT_CONT
 
 
 class ShaderContext(NamedTuple):
@@ -149,10 +157,61 @@ def default_miss(ctx: ShaderContext, ray: RayLanes, payload: PayloadLanes):
             ctx.background[2] * r)
 
 
+def _luminance(sp: ShadePoint) -> torch.Tensor:
+    return 0.2126 * sp.color_r + 0.7152 * sp.color_g + 0.0722 * sp.color_b
+
+
+def alpha_test_anyhit(threshold: float = 0.5):
+    """Texture alpha cutout: the candidate hit's alpha is the luminance of
+    its surface colour (``sp.color_*``, the point-sampled texel at the
+    candidate's uv, or the material's diffuse colour); below
+    ``threshold`` the hit is rejected (COMMIT_CONT: the walk goes on past
+    the surface), else accepted.
+
+    Marked with ``alpha_threshold``: the renderer evaluates this exact
+    test inside K1 or K2 (``alpha_ref``) over the ``with_alpha`` tables,
+    with the same accepted hits; through the per-ray engine
+    (``RTConfig(packet_size=0)``) it runs this callable by suspension."""
+
+    def shader(ctx: ShaderContext, sp: ShadePoint, ray: RayLanes,
+               payload: PayloadLanes) -> torch.Tensor:
+        keep = ~(_luminance(sp) < threshold)
+        return torch.where(keep, COMMIT_ACCEPT, COMMIT_CONT).to(torch.int32)
+
+    shader.alpha_threshold = float(threshold)
+    return shader
+
+
+def stateless_anyhit(pred: Callable, name: str = "stateless"):
+    """Any-hit shader from a stateless per-candidate predicate
+    ``pred(u, v, alpha) -> keep`` over the candidate's interpolated uv
+    (``uv1*bx + uv2*by + uv0*bz``) and surface alpha (the luminance
+    ``alpha_test_anyhit`` reads): keep=False rejects the candidate
+    (COMMIT_CONT), keep=True accepts it.  ``pred`` takes and returns
+    torch tensors, elementwise.
+
+    Marked with ``inline_predicate``.  The JAX package inlines the
+    predicate into its traversal loop; a CUDA kernel cannot take an
+    arbitrary Python callable, so the port runs it through the
+    suspension protocol of the per-ray walk (K3, TLAS builds), which
+    accepts the same hits, and refuses it on flattened builds (ROADMAP
+    Queue 1, item 8b)."""
+
+    def shader(ctx: ShaderContext, sp: ShadePoint, ray: RayLanes,
+               payload: PayloadLanes) -> torch.Tensor:
+        keep = pred(sp.u, sp.v, _luminance(sp))
+        return torch.where(keep, COMMIT_ACCEPT, COMMIT_CONT).to(torch.int32)
+
+    shader.inline_predicate = pred
+    shader.__name__ = f"stateless_anyhit_{name}"
+    return shader
+
+
 @dataclasses.dataclass(frozen=True)
 class ShaderTable:
-    """The shader binding table.  ``anyhit=None`` is the auto-accept fast
-    path, the only one ported so far."""
+    """The shader binding table.  ``anyhit=None`` accepts every hit (the
+    reference's shipped any-hit shader) and keeps the walk free of
+    suspension."""
 
     closest: Callable = default_closest
     miss: Callable = default_miss

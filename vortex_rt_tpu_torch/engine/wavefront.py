@@ -36,14 +36,35 @@ continuation does not read ``lit``, so the merged wave applies.
 ``render_accum`` averages ``n_passes`` frames stratified over
 ``spp * n_passes`` samples per pixel.
 
-Not ported yet, and refused rather than ignored: any-hit shaders,
-per-wave statistics and staged profiling, and multi-device rendering.
+Any-hit shaders (``ShaderTable.anyhit``) take one of two routes:
+
+* ``alpha_test_anyhit`` (marked ``alpha_threshold``) stays on the route
+  above: ``from_buffers`` builds the ``with_alpha`` tables and every wave
+  runs K1 or K2 in alpha mode (``alpha_ref``), shadow rays included;
+* every other any-hit shader, and every frame with
+  ``RTConfig(packet_size=0)``, takes the pool path, the JAX monolithic
+  frame: all samples of all pixels in one pool of lanes, each wave traced
+  by the per-ray walk (``ops/traverse_wide.walk_lanes``, K3), with a
+  host loop of suspension rounds when an any-hit shader is bound (walk to
+  the next candidate, ``shade_point`` at it, the shader, ``commit``),
+  shadow rays as closest-hit traces clamped at the light.  The suspension
+  protocol needs the TLAS build; ``stateless_anyhit`` on a flattened
+  build is refused (ROADMAP Queue 1, item 8b: the JAX package inlines
+  its predicate into the walk, which a CUDA kernel cannot take).
+
+``render(mode="chunked")`` is the JAX host-orchestrated frame: the pool
+compacted live-first before each bounce and only its live prefix traced
+(K3), default shaders without shadows.
+
+Not ported yet, and refused rather than ignored: per-wave statistics and
+staged profiling, and multi-device rendering.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+import warnings
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,10 +78,13 @@ from vortex_rt_tpu_torch.models.scene import (
 )
 from vortex_rt_tpu_torch.ops.packet_walk import trace_packets_walk
 from vortex_rt_tpu_torch.ops.shade_lanes import ShadeArrays, shade_point
+from vortex_rt_tpu_torch.ops.traverse2 import Hits
 from vortex_rt_tpu_torch.ops.traverse_packet import trace_packets
-from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays
+from vortex_rt_tpu_torch.ops.traverse_wide import (
+    WideArrays, commit, init_state_lanes, lanes_hits, walk_lanes,
+)
 from vortex_rt_tpu_torch.utils import sampling
-from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT, RTConfig
+from vortex_rt_tpu_torch.utils.config import COMMIT_CONT, LARGE_FLOAT, RTConfig
 
 _U32 = 0xFFFFFFFF
 
@@ -121,20 +145,109 @@ def default_walk(wa: WideArrays) -> Callable:
 
 
 def _resolve_tiled(lanes: torch.Tensor, width: int, rows: int,
-                   tile_w: int, tile_h: int) -> torch.Tensor:
-    """(n_pix,) tile-major lanes -> (rows, width) image."""
+                   tile_w: int, tile_h: int, spp: int = 1) -> torch.Tensor:
+    """(n_pix * spp,) tile-major lanes (a pixel's samples adjacent) ->
+    (rows, width) image, the samples averaged."""
     nty, ntx = rows // tile_h, width // tile_w
-    a = lanes.reshape(nty, ntx, tile_h, tile_w)
+    if spp > 1:
+        a = lanes.reshape(nty, ntx, tile_h, tile_w, spp).mean(-1)
+    else:
+        a = lanes.reshape(nty, ntx, tile_h, tile_w)
     return a.permute(0, 2, 1, 3).reshape(rows, width)
+
+
+def _inline_alpha(table: ShaderTable, wa: WideArrays) -> Optional[float]:
+    """Threshold of an alpha-test any-hit the walks can run inside K1 or
+    K2 (``alpha_test_anyhit``'s marker, with the ``with_alpha`` tables),
+    else None."""
+    thr = getattr(table.anyhit, "alpha_threshold", None)
+    if thr is not None and wa.alpha_rows is not None:
+        return float(thr)
+    return None
+
+
+def _route(table: ShaderTable, wa: WideArrays, packet: int):
+    """('walk', alpha_ref) for the wave route through K1 / K2, or
+    ('pool', None) for the per-ray walk (K3); raises for what no route
+    runs."""
+    alpha = _inline_alpha(table, wa)
+    if packet != 0 and (table.anyhit is None or alpha is not None):
+        return "walk", alpha
+    if (table.anyhit is not None and wa.tri_bits and alpha is None
+            and getattr(table.anyhit, "inline_predicate", None) is not None):
+        raise NotImplementedError(
+            "stateless_anyhit on a flattened build: its predicate runs "
+            "inside the walk in the JAX package, and a CUDA kernel "
+            "cannot take an arbitrary Python callable (ROADMAP Queue 1, "
+            "item 8b); build with RTConfig(flatten=False) to run it "
+            "through the suspension engine")
+    if wa.width != 4:
+        raise ValueError("the per-ray walk (packet_size=0, or an "
+                         "any-hit shader without an alpha marker) needs "
+                         "4-wide tables: RTConfig(bvh_width=4)")
+    if table.anyhit is not None and wa.tri_bits:
+        raise ValueError("any-hit suspension needs the TLAS build "
+                         "(RTConfig(flatten=False)): flattened builds "
+                         "pack instance ids into leaf ids")
+    return "pool", None
+
+
+def _trace_pool(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
+                table: ShaderTable, lanes, alive: torch.Tensor, payload,
+                t_clamp: Optional[torch.Tensor] = None
+                ) -> Tuple[Hits, torch.Tensor]:
+    """Trace every pool ray with the per-ray walk (K3).  Dead lanes start
+    done (a search limit of -1).  ``t_clamp`` bounds each ray's search
+    (shadow rays).  With an any-hit shader the walk runs in rounds: K3
+    to each ray's next candidate, ``shade_point`` there, the shader's
+    actions, ``commit``, until no ray is suspended (one 1-byte read a
+    round).  Returns (Hits, total steps as a 0-dim tensor); a dead lane's
+    ``dist`` is -1."""
+    ox, oy, oz, dx, dy, dz = lanes
+    clamp = (torch.full_like(ox, LARGE_FLOAT) if t_clamp is None
+             else t_clamp)
+    st = init_state_lanes(ox, oy, oz, dx, dy, dz)
+    st = st._replace(best_t=torch.where(alive, clamp,
+                                        torch.full_like(clamp, -1.0)),
+                     done=~alive)
+    visited0 = st.nodes_visited
+    if table.anyhit is None:
+        st = walk_lanes(wa, ox, oy, oz, dx, dy, dz, state=st)
+        return lanes_hits(wa, st), (st.nodes_visited - visited0).sum()
+    n_tri = sa.shade_rows.shape[0]
+    n_inst = sa.inst_shade.shape[0]
+    ray = RayLanes(ox, oy, oz, dx, dy, dz)
+    pl = PayloadLanes(*payload)
+    while True:
+        st = walk_lanes(wa, ox, oy, oz, dx, dy, dz, state=st,
+                        suspend=True)
+        if not bool(st.suspended.any()):
+            break
+        sp = shade_point(
+            sa, ox, oy, oz, dx, dy, dz, st.pend_t, st.pend_bx, st.pend_by,
+            1.0 - st.pend_bx - st.pend_by,
+            st.pend_tri.clamp(0, n_tri - 1).to(torch.int64),
+            st.pend_inst.clamp(0, n_inst - 1).to(torch.int64))
+        action = table.anyhit(ctx, sp, ray, pl)
+        st = commit(st, torch.where(st.suspended, action.to(torch.int32),
+                                    COMMIT_CONT))
+    if not bool(st.done.all()):
+        raise RuntimeError("the per-ray walk stopped at its step cap")
+    return lanes_hits(wa, st), (st.nodes_visited - visited0).sum()
 
 
 def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
                    table: ShaderTable, light: LightArrays, lanes, pix, samp,
-                   alive, max_depth: int, shadow: bool, walk: Callable):
+                   alive, max_depth: int, shadow: bool,
+                   walk: Optional[Callable],
+                   alpha_ref: Optional[float] = None, pool: bool = False):
     """The bounce pipeline over one lane set: trace, shadow occlusion,
     shade, spawn — ``max_depth`` waves, with the merged shadow+bounce
-    wave on the 8-wide route.  Returns (rad_r, rad_g, rad_b, rays traced,
-    walk steps), the counts as 0-dim int64 tensors."""
+    wave on the 8-wide route.  Traces go through ``walk`` (with
+    ``alpha_ref`` when given), or through ``_trace_pool`` (the per-ray
+    walk, any-hit by suspension) when ``pool``.  Returns (rad_r, rad_g,
+    rad_b, rays traced, walk steps), the counts as 0-dim int64
+    tensors."""
     ox, oy, oz, dx, dy, dz = lanes
     r = ox.shape[0]
     dev = ox.device
@@ -152,13 +265,27 @@ def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
     n_tri = sa.shade_rows.shape[0]
     n_inst = sa.inst_shade.shape[0]
     pending = None  # this bounce's hits, traced by the previous merged wave
+    akw = {} if alpha_ref is None else {"alpha_ref": alpha_ref}
+
+    def trace(o, d, act, t_max=None, **kw):
+        """One wave through the walk, or through the pool; the pool's
+        payload is this bounce's (read when called)."""
+        if pool:
+            payload = ((thr_r + thr_g + thr_b) * (1.0 / 3.0), bounce_ct,
+                        pix, samp)
+            lanes6 = tuple(c.contiguous() for c in (*o.unbind(1),
+                                                    *d.unbind(1)))
+            return _trace_pool(wa, sa, ctx, table, lanes6, act, payload,
+                               t_clamp=t_max)
+        h, st = walk(wa, o, d, active=act, t_max=t_max, **kw, **akw)
+        return h, st.sum()
 
     for bounce in range(max_depth):
         rays = rays + alive.sum()
         if pending is None:
-            h, st = walk(wa, torch.stack([ox, oy, oz], 1),
-                         torch.stack([dx, dy, dz], 1), active=alive)
-            steps = steps + st.sum()
+            h, n_steps = trace(torch.stack([ox, oy, oz], 1),
+                               torch.stack([dx, dy, dz], 1), alive)
+            steps = steps + n_steps
         else:
             h, pending = pending, None
         dist, bx, by = h.dist, h.bx, h.by
@@ -169,7 +296,8 @@ def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
         # the JAX package's merged-wave rule under its default packets
         # (engine/wavefront.py:572-579): never at bounce 0
         merge = (shadow and bounce >= 1 and bounce + 1 < max_depth
-                 and table.lit_independent_spawn and wa.width == 8)
+                 and table.lit_independent_spawn and wa.width == 8
+                 and not pool)
         if shadow:
             # shadow rays need the hit point only; full shading follows
             # the occlusion result
@@ -188,9 +316,11 @@ def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
                                 hpz + sdz * 1e-3], 1)
             sh_d = torch.stack([sdx, sdy, sdz], 1)
             if not merge:
-                sh, sh_st = walk(wa, sh_o, sh_d, active=sh_act, t_max=clamp,
-                                 occlusion=True)
-                steps = steps + sh_st.sum()
+                # (the pool traces them closest-hit, clamped: any hit
+                # inside the clamp occludes)
+                sh, sh_steps = trace(sh_o, sh_d, sh_act, t_max=clamp,
+                                     occlusion=True)
+                steps = steps + sh_steps
                 occluded = sh_act & (sh.dist < clamp)
         sp = shade_point(sa, ox, oy, oz, dx, dy, dz,
                          dist, bx, by, 1.0 - bx - by, tri_c, inst_c)
@@ -210,12 +340,12 @@ def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
             n_d = torch.stack([torch.where(spawn, co1.sdx, dx),
                                torch.where(spawn, co1.sdy, dy),
                                torch.where(spawn, co1.sdz, dz)], 1)
-            hm, m_st = walk(
-                wa, torch.cat([sh_o, n_o]), torch.cat([sh_d, n_d]),
-                active=torch.cat([sh_act, spawn]),
+            hm, m_steps = trace(
+                torch.cat([sh_o, n_o]), torch.cat([sh_d, n_d]),
+                torch.cat([sh_act, spawn]),
                 t_max=torch.cat([clamp, torch.full_like(clamp, LARGE_FLOAT)]),
                 occl_split=r)
-            steps = steps + m_st.sum()
+            steps = steps + m_steps
             occluded = sh_act & (hm.dist[:r] < clamp)
             # the next bounce takes its hits from here (its rays are
             # counted at the top of the loop, as in the sequential one)
@@ -268,22 +398,22 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
                walk: Optional[Callable] = None,
                collect_stats: bool = False,
                stage_limit: Optional[int] = None,
-               total_spp: Optional[int] = None):
+               total_spp: Optional[int] = None, packet: int = 256):
     """One frame -> ((3, H*W) radiance planes in row-major pixel order,
     rays traced, walk steps), the counts as 0-dim int64 tensors on the
     tables' device.  ``walk`` defaults to ``default_walk(wa)``.
     ``total_spp`` is the stratification denominator, ``spp`` unless
     given: accumulation passes (``render_accum``) spread ``spp`` samples
-    per pass over ``spp * n_passes`` strata.  Nothing here waits for the
-    device."""
+    per pass over ``spp * n_passes`` strata.  ``packet=0``, or an
+    any-hit shader the walks cannot run inside, takes the pool path (see
+    the module docstring).  Nothing here waits for the device, except
+    the pool path's suspension rounds (one read a round)."""
     if collect_stats or stage_limit is not None:
         raise NotImplementedError(
             "collect_stats/stage_limit: per-wave statistics and staged "
             "profiling are not ported yet (ROADMAP Queue 1, item 10)")
     table = table or ShaderTable()
-    if table.anyhit is not None:
-        raise NotImplementedError(
-            "any-hit shaders are not ported yet (ROADMAP Queue 1, item 8)")
+    route, alpha_ref = _route(table, wa, packet)
     walk = walk or default_walk(wa)
     dev = wa.device
     ctx = ShaderContext(
@@ -302,6 +432,10 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
                 tile_h = th
                 break
     tiled = width % tile_w == 0 and rows % tile_h == 0
+    if route == "pool":
+        return _pool_frame(wa, sa, ctx, table, cam, light, width, height,
+                           max_depth, spp, seed, shadow, tile_w, tile_h,
+                           tiled, total_spp)
     lane = torch.arange(n_pix, dtype=torch.int64, device=dev)
     if tiled:
         pxi, pyi = _tile_pixel_ids(lane, width, tile_w, tile_h)
@@ -322,7 +456,7 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
                                   total_spp)
         rr, rg, rb, n_rays, n_steps = _wave_pipeline(
             wa, sa, ctx, table, light, lanes6, pix, samp, alive,
-            max_depth, shadow, walk)
+            max_depth, shadow, walk, alpha_ref=alpha_ref)
         acc = [acc[0] + rr, acc[1] + rg, acc[2] + rb]
         rays = rays + n_rays
         steps = steps + n_steps
@@ -337,12 +471,49 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
     return img, rays, steps
 
 
+def _pool_frame(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
+                table: ShaderTable, cam: CameraArrays, light: LightArrays,
+                width: int, height: int, max_depth: int, spp: int,
+                seed: int, shadow: bool, tile_w: int, tile_h: int,
+                tiled: bool, total_spp: int):
+    """The monolithic pool frame (the JAX ``frame_body``'s pool branch):
+    the ``spp`` samples of every pixel folded into one pool of lanes, a
+    pixel's samples adjacent, lane k's sample index ``seed * spp + k %
+    spp``; one bounce pipeline over the pool, every wave through the
+    per-ray walk; the samples averaged per pixel."""
+    dev = wa.device
+    n_pix = width * height
+    n_real = n_pix * spp
+    lane = torch.arange(n_real, dtype=torch.int64, device=dev)
+    samp = ((int(seed) & _U32) * spp + lane % spp) & _U32
+    q = lane // spp
+    if tiled:
+        pxi, pyi = _tile_pixel_ids(q, width, tile_w, tile_h)
+        pix = pyi * width + pxi
+    else:
+        pxi, pyi, pix = q % width, q // width, q
+    lanes6 = _camera_from_pix(cam, width, height, pxi, pyi, pix, samp,
+                              total_spp)
+    alive = torch.ones(n_real, dtype=torch.bool, device=dev)
+    rr, rg, rb, rays, steps = _wave_pipeline(
+        wa, sa, ctx, table, light, lanes6, pix, samp, alive, max_depth,
+        shadow, None, pool=True)
+    if tiled:
+        img = torch.stack([
+            _resolve_tiled(c, width, height, tile_w, tile_h, spp)
+            .reshape(n_pix) for c in (rr, rg, rb)])
+    else:
+        img = torch.stack([c.reshape(n_pix, spp).mean(1)
+                           for c in (rr, rg, rb)])
+    return img, rays, steps
+
+
 def render_accum(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
                  light: LightArrays, width: int, height: int,
                  n_passes: int = 4, seed0: int = 0, max_depth: int = 2,
                  spp: int = 1, table: Optional[ShaderTable] = None,
                  shadow: bool = False, tile_w: int = 16, tile_h: int = 16,
-                 walk: Optional[Callable] = None):
+                 walk: Optional[Callable] = None, packet: int = 256):
     """Progressive accumulation: the average of ``n_passes`` frames with
     seeds ``seed0 + i``, stratified over ``spp * n_passes`` samples per
     pixel.  Returns ((H, W, 3) image tensor, total rays, total steps).
@@ -356,10 +527,119 @@ def render_accum(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
         f_img, f_rays, f_steps = frame_body(
             wa, sa, cam, light, width, height, max_depth=max_depth, spp=spp,
             table=table, seed=seed0 + i, shadow=shadow, tile_w=tile_w,
-            tile_h=tile_h, walk=walk, total_spp=spp * n_passes)
+            tile_h=tile_h, walk=walk, total_spp=spp * n_passes,
+            packet=packet)
         img, rays, steps = img + f_img, rays + f_rays, steps + f_steps
     out = (img * (1.0 / n_passes)).reshape(3, height, width)
     return out.permute(1, 2, 0), rays, steps
+
+
+class _Pool(NamedTuple):
+    """The chunked frame's pool: rays, liveness, radiance, throughput,
+    bounce, pixel and the lane's slot in the pixel-major order."""
+
+    ox: torch.Tensor; oy: torch.Tensor; oz: torch.Tensor
+    dx: torch.Tensor; dy: torch.Tensor; dz: torch.Tensor
+    alive: torch.Tensor
+    rad_r: torch.Tensor; rad_g: torch.Tensor; rad_b: torch.Tensor
+    thr: torch.Tensor
+    bounce: torch.Tensor
+    pix: torch.Tensor
+    slot: torch.Tensor
+
+
+def _gen_pool(cam: CameraArrays, width: int, height: int, spp: int
+              ) -> _Pool:
+    """Pixel-major camera rays of every sample (lane k: pixel k // spp,
+    sample index k % spp), all live."""
+    n_real = width * height * spp
+    dev = cam.pos.device
+    lane = torch.arange(n_real, dtype=torch.int64, device=dev)
+    samp = lane % spp
+    pix = lane // spp
+    ox, oy, oz, dx, dy, dz = _camera_from_pix(
+        cam, width, height, pix % width, pix // width, pix, samp, spp)
+    zero = torch.zeros(n_real, dtype=torch.float32, device=dev)
+    return _Pool(ox, oy, oz, dx, dy, dz,
+                 torch.ones(n_real, dtype=torch.bool, device=dev),
+                 zero, zero.clone(), zero.clone(), torch.ones_like(zero),
+                 torch.zeros(n_real, dtype=torch.int32, device=dev), pix,
+                 lane)
+
+
+def _compact_pool(pool: _Pool) -> _Pool:
+    """Live lanes first, in order (a stable sort on liveness)."""
+    order = torch.argsort((~pool.alive).to(torch.int8), stable=True)
+    return _Pool(*(a[order] for a in pool))
+
+
+def _split_pool(pool: _Pool, n_alive: int):
+    """The live prefix's ray lanes, the part of the pool a wave traces."""
+    return tuple(a[:n_alive].contiguous() for a in pool[:6]), \
+        pool.alive[:n_alive]
+
+
+def _trace_prefix(wa: WideArrays, pool: _Pool, n_alive: int) -> Hits:
+    """Closest hits of the live prefix by the per-ray walk; the rest of
+    the pool reports a miss."""
+    lanes, alive = _split_pool(pool, n_alive)
+    st = init_state_lanes(*lanes)
+    st = st._replace(best_t=torch.where(alive, st.best_t,
+                                        torch.full_like(st.best_t, -1.0)),
+                     done=~alive)
+    h = lanes_hits(wa, walk_lanes(wa, *lanes, state=st))
+    r = pool.ox.shape[0]
+
+    def pad(a, fill):
+        return torch.cat([a, torch.full((r - n_alive,), fill, dtype=a.dtype,
+                                        device=a.device)])
+
+    return Hits(dist=pad(h.dist, LARGE_FLOAT), bx=pad(h.bx, 0.0),
+                by=pad(h.by, 0.0), bz=pad(h.bz, 1.0), tri=pad(h.tri, 0),
+                inst=pad(h.inst, 0))
+
+
+def _shade_pool_default(sa: ShadeArrays, light: LightArrays,
+                        max_depth: int, pool: _Pool, h: Hits) -> _Pool:
+    """Default-table shading of the whole pool (as the JAX program: one
+    luminance throughput, the pixel id as the sample index)."""
+    ctx = ShaderContext(
+        shade=sa, light_pos=light.light_pos, light_color=light.light_color,
+        ambient=light.ambient, background=light.background,
+        max_depth=max_depth)
+    table = ShaderTable()
+    hit = pool.alive & (h.dist < LARGE_FLOAT)
+    miss = pool.alive & ~hit
+    n_tri, n_inst = sa.shade_rows.shape[0], sa.inst_shade.shape[0]
+    sp = shade_point(sa, pool.ox, pool.oy, pool.oz, pool.dx, pool.dy,
+                     pool.dz, h.dist, h.bx, h.by, 1.0 - h.bx - h.by,
+                     h.tri.clamp(0, n_tri - 1).to(torch.int64),
+                     h.inst.clamp(0, n_inst - 1).to(torch.int64))
+    ray = RayLanes(pool.ox, pool.oy, pool.oz, pool.dx, pool.dy, pool.dz)
+    thr = pool.thr
+    pl = PayloadLanes(thr, pool.bounce, pool.pix, pool.pix)
+    co = table.closest(ctx, sp, ray, pl)
+    mr, mg, mb = table.miss(ctx, ray, pl)
+    zero = torch.zeros_like(thr)
+    rad = [c + torch.where(hit, thr * a, torch.where(miss, thr * m, zero))
+           for c, a, m in ((pool.rad_r, co.add_r, mr),
+                           (pool.rad_g, co.add_g, mg),
+                           (pool.rad_b, co.add_b, mb))]
+    spawn = hit & co.spawn
+    return _Pool(
+        torch.where(spawn, co.sox, pool.ox), torch.where(spawn, co.soy, pool.oy),
+        torch.where(spawn, co.soz, pool.oz), torch.where(spawn, co.sdx, pool.dx),
+        torch.where(spawn, co.sdy, pool.dy), torch.where(spawn, co.sdz, pool.dz),
+        spawn, *rad, torch.where(hit, thr * co.mul_r, thr),
+        torch.where(spawn, pool.bounce + 1, pool.bounce), pool.pix,
+        pool.slot)
+
+
+def _resolve(pool: _Pool, n_pix: int, spp: int) -> torch.Tensor:
+    """(n_pix, 3) image: lanes back to slot order, samples averaged."""
+    inv = torch.argsort(pool.slot, stable=True)
+    return torch.stack([c[inv].reshape(n_pix, spp).mean(1)
+                        for c in (pool.rad_r, pool.rad_g, pool.rad_b)], -1)
 
 
 @dataclasses.dataclass
@@ -391,11 +671,13 @@ class WavefrontRenderer:
                      walk: Optional[Callable] = None
                      ) -> "WavefrontRenderer":
         """Build the tables on the host and move them to ``device``:
-        8-wide builds are fused (the JAX package's default).  ``walk`` is
-        the trace function, ``default_walk`` of the tables when None; a
-        plain PyTorch version (``trace_packets_ref`` for 8-wide,
-        ``trace_packets_walk_ref`` for 4-wide) forces the plain route on
-        a card."""
+        8-wide builds are fused (the JAX package's default), and a marked
+        any-hit shader (``alpha_test_anyhit``, ``stateless_anyhit``) gets
+        the ``with_alpha`` tables.  ``walk`` is the trace function,
+        ``default_walk`` of the tables when None; a plain PyTorch version
+        (``trace_packets_ref`` for 8-wide, ``trace_packets_walk_ref`` for
+        4-wide) forces the plain route on a card.  A shader and build no
+        route runs (``frame_body``'s routing) raise here."""
         if isinstance(device, (list, tuple)):
             raise NotImplementedError(
                 "multi-device rendering is not ported yet (ROADMAP Queue "
@@ -403,13 +685,14 @@ class WavefrontRenderer:
         device = torch.device(device)
         cfg = config or RTConfig()
         table = table or ShaderTable()
-        if table.anyhit is not None:
-            raise NotImplementedError(
-                "any-hit shaders and their alpha tables are not ported yet "
-                "(ROADMAP Queue 1, item 8)")
         wa = WideArrays.from_scene(sb_host, width=cfg.bvh_width)
         if wa.width == 8:
             wa = wa.fuse()
+        if (getattr(table.anyhit, "alpha_threshold", None) is not None
+                or getattr(table.anyhit, "inline_predicate", None)
+                is not None):
+            wa = wa.with_alpha(sb_host)
+        _route(table, wa, cfg.packet_size)
         return WavefrontRenderer(
             sb=sb_host,
             wa=wa.to(device),
@@ -434,20 +717,63 @@ class WavefrontRenderer:
             max_depth=params.max_depth, spp=params.spp,
             table=self._table_for(params), seed=seed, shadow=params.shadow,
             tile_w=self.config.tile_w, tile_h=self.config.tile_h,
-            walk=self.walk)
+            walk=self.walk, packet=self.config.packet_size)
 
     @staticmethod
     def _to_image(img: torch.Tensor, w: int, h: int) -> np.ndarray:
         return img.reshape(3, h, w).permute(1, 2, 0).cpu().numpy()
 
     def render(self, cam: Camera, params: RenderParams,
-               width: Optional[int] = None, height: Optional[int] = None
-               ) -> Tuple[np.ndarray, int]:
-        """One frame (seed 0) -> ((H, W, 3) float32 image, rays traced)."""
+               width: Optional[int] = None, height: Optional[int] = None,
+               mode: str = "auto") -> Tuple[np.ndarray, int]:
+        """One frame (seed 0) -> ((H, W, 3) float32 image, rays traced).
+
+        ``mode``: "fused" (= "auto") is ``frame_body``; "chunked" is the
+        JAX host-orchestrated frame (``_render_chunked``), which shades
+        with the default table and no shadows only: other tables or
+        shadows warn and render fused, as the JAX method does."""
         w = width or self.config.width
         h = height or self.config.height
+        if mode not in ("auto", "fused", "chunked"):
+            raise ValueError(f"unknown render mode {mode!r}")
+        if mode == "chunked":
+            if self._table_for(params) != ShaderTable() or params.shadow:
+                warnings.warn(
+                    "mode='chunked' supports only the default shader table "
+                    "without shadows; falling back to mode='fused'",
+                    stacklevel=2)
+            else:
+                return self._render_chunked(cam, params, w, h)
         img, rays, _ = self._frame(cam, params, w, h, 0)
         return self._to_image(img, w, h), int(rays.item())
+
+    def _render_chunked(self, cam: Camera, params: RenderParams, w: int,
+                        h: int) -> Tuple[np.ndarray, int]:
+        """The JAX ``_render_chunked``: a pixel-major pool of every sample,
+        compacted live-first before each bounce (carrying each lane's
+        slot), the live prefix traced by the per-ray walk (auto-accept),
+        shaded with the default table, and resolved by slot.  The JAX
+        method traces the prefix in 4096-lane chunks; the port's pool
+        runs whole.  Waits for the device once a bounce (the live
+        count)."""
+        light = LightArrays.from_params(params, self.device)
+        pool = _gen_pool(CameraArrays.from_camera(cam, self.device), w, h,
+                         params.spp)
+        n_alive = w * h * params.spp
+        nrays = 0
+        for bounce in range(params.max_depth):
+            if bounce > 0:
+                pool = _compact_pool(pool)
+            nrays += n_alive
+            if n_alive == 0:
+                break
+            hits = _trace_prefix(self.wa, pool, n_alive)
+            pool = _shade_pool_default(self.sa, light, params.max_depth,
+                                       pool, hits)
+            if bounce + 1 < params.max_depth:
+                n_alive = int(pool.alive.sum().item())
+        img = _resolve(pool, w * h, params.spp)
+        return img.reshape(h, w, 3).cpu().numpy(), nrays
 
     def render_burst(self, cam: Camera, params: RenderParams,
                      width: Optional[int] = None,
@@ -488,5 +814,6 @@ class WavefrontRenderer:
             n_passes=n_passes, seed0=seed0, max_depth=params.max_depth,
             spp=params.spp, table=self._table_for(params),
             shadow=params.shadow, tile_w=self.config.tile_w,
-            tile_h=self.config.tile_h, walk=self.walk)
+            tile_h=self.config.tile_h, walk=self.walk,
+            packet=self.config.packet_size)
         return img.cpu().numpy(), int(rays.item())

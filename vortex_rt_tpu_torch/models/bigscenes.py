@@ -8,8 +8,10 @@ make the same triangles).
 is its config-4 stand-in for Sponza (~260k tris): a hall with two
 colonnades, a checker-textured floor, relief walls and a ceiling.
 ``wavy_grid(n=708)`` is its config-5 mesh: a 1M-triangle heightfield whose
-vertices the refit path moves every frame.  ``textured_atrium`` is not
-ported yet (it feeds any-hit).
+vertices the refit path moves every frame.  ``textured_atrium`` is the
+atrium with the reference's texture assets (ladder config 6, the alpha
+cutout any-hit row); where the assets are absent it falls back to the
+procedural checker, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -195,6 +197,74 @@ def atrium(n_cols: int = 12, target_tris: int = 260_000):
 
     slab((0, 0, 0), (hall_l, hall_w), "y", floor_mat, bump=0.0)      # floor
     slab((0, hall_h, 0), (hall_l, hall_w), "y", wall_mat)            # ceiling
+    slab((0, hall_h / 2, -hall_w / 2), (hall_l, hall_h), "z", wall_mat)
+    slab((0, hall_h / 2, hall_w / 2), (hall_l, hall_h), "z", wall_mat)
+    slab((-hall_l / 2, hall_h / 2, 0), (hall_w, hall_h), "x", wall_mat)
+
+    col_tris = target_tris - sum(m.num_tris for m, _ in meshes)
+    per_col = col_tris // (2 * n_cols)
+    nu = max(int(np.sqrt(per_col / 2 * 1.5)), 24)
+    nv = max(per_col // (2 * nu), 16)
+    xs = np.linspace(-hall_l / 2 + 1.5, hall_l / 2 - 1.5, n_cols)
+    for x in xs:
+        for z in (-hall_w / 2 + 1.2, hall_w / 2 - 1.2):
+            meshes.append((fluted_column((x, 0.0, z), height=hall_h * 0.8,
+                                         radius=0.35, nu=nu, nv=nv,
+                                         material=col_mat), 0.0))
+    return meshes
+
+
+def textured_atrium(n_cols: int = 12, target_tris: int = 260_000,
+                    assets: Optional[str] = None):
+    """The atrium with texture images on every surface: floor, walls,
+    ceiling accents and columns each take a texture from the directory
+    ``assets`` (the reference renderer's raytracing test assets:
+    ``bricks.png``, ``ceramic.png``, ``flower.png``, ``blue.png`` and
+    the Sponza floor and column textures), so the texel pool holds
+    several multi-texel textures.  Ladder config 6's scene.
+
+    A texture that is missing or unreadable, or every texture when
+    ``assets`` is None, falls back to the procedural checker, as the JAX
+    package does on a tree without the reference checkout; the meshes,
+    materials and triangle counts do not change."""
+    import os
+
+    from vortex_rt_tpu_torch.io.obj import load_texture
+
+    def tex(*names):
+        for nm in names if assets is not None else ():
+            p = os.path.join(assets, nm)
+            if os.path.exists(p):
+                try:
+                    return load_texture(p)
+                except (OSError, ValueError):
+                    continue
+        return _checker()
+
+    floor_tex = tex("Sponza/textures/sponza_floor_a_diff.png",
+                    "ceramic.png")
+    wall_tex = tex("bricks.png")
+    col_tex = tex("Sponza/textures/sponza_column_a_diff.png",
+                  "ceramic.png")
+    accent_tex = tex("flower.png", "blue.png")
+
+    floor_mat = Material(diffuse=(1.0, 1.0, 1.0), diffuse_tex=floor_tex)
+    wall_mat = Material(diffuse=(1.0, 1.0, 1.0), diffuse_tex=wall_tex)
+    col_mat = Material(diffuse=(1.0, 1.0, 1.0), diffuse_tex=col_tex)
+    accent_mat = Material(diffuse=(1.0, 1.0, 1.0), diffuse_tex=accent_tex)
+
+    hall_l, hall_w, hall_h = 24.0, 10.0, 6.0
+    meshes = []
+    slab_tris = int(target_tris * 0.35)
+    per_slab = slab_tris // 5
+    n_slab = max(int(np.sqrt(per_slab / 2)), 8)
+
+    def slab(center, size, axis, mat, bump=0.02):
+        meshes.append((bumpy_slab(center, size, n_slab, n_slab, axis=axis,
+                                  bump=bump, material=mat), 0.0))
+
+    slab((0, 0, 0), (hall_l, hall_w), "y", floor_mat, bump=0.0)
+    slab((0, hall_h, 0), (hall_l, hall_w), "y", accent_mat)
     slab((0, hall_h / 2, -hall_w / 2), (hall_l, hall_h), "z", wall_mat)
     slab((0, hall_h / 2, hall_w / 2), (hall_l, hall_h), "z", wall_mat)
     slab((-hall_l / 2, hall_h / 2, 0), (hall_w, hall_h), "x", wall_mat)

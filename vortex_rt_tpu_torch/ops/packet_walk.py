@@ -13,6 +13,11 @@ Semantics (shared with the JAX package's ``trace_packets_pallas``):
 ``active`` masks dead rays (they report a miss), ``t_max`` clamps the
 search interval, and ``occlusion=True`` retires a ray at its first hit
 inside the clamp: occluded rays return dist 0.0, the others LARGE_FLOAT.
+``alpha_ref=thr`` (the tables of ``WideArrays.with_alpha``) rejects every
+candidate whose surface alpha is below ``thr`` before it counts, as the
+JAX ``trace_packets(alpha_ref=thr)`` does on 4-wide tables (the Pallas
+kernel had no any-hit mode); CUDA tensors launch the kernel's alpha
+instantiation, counted as ``packet_walk_alpha``.
 The TPU kernel walked the union of a 1024-ray packet's paths; both
 versions here walk each ray's own path, which gives the same hits (the
 closest hit is a min over a ray's own candidates with a lexicographic
@@ -49,21 +54,25 @@ class WalkWork(NamedTuple):
     """What a BVH walk computes, per ray ((R,) int64 each), as the plain
     versions count it: steps at internal nodes and the child slots they
     test (each node's child count), steps at triangle leaves and the
-    triangle slots they test (each leaf's triangle count), and steps at
-    instance nodes (TLAS builds); and per table row ((rows,) int64), the
-    bytes of it the walk reads (0 for a row no ray visits)."""
+    triangle slots they test (each leaf's triangle count), steps at
+    instance nodes (TLAS builds), and alpha tests (candidates that
+    passed Moller-Trumbore in an alpha-mode walk); and per table row
+    ((rows,) int64), the bytes of it the walk reads (0 for a row no ray
+    visits).  An alpha-mode walk's rows include the alpha pool's
+    entries, 4 B each."""
 
     internal: torch.Tensor
     child_slots: torch.Tensor
     leaf: torch.Tensor
     tri_slots: torch.Tensor
     instance: torch.Tensor
+    alpha_tests: torch.Tensor
     row_bytes: torch.Tensor
 
     @staticmethod
     def zeros(r: int, rows: int, device) -> "WalkWork":
         return WalkWork(*(torch.zeros(r, dtype=torch.int64, device=device)
-                          for _ in range(5)),
+                          for _ in range(6)),
                         torch.zeros(rows, dtype=torch.int64, device=device))
 
     def read(self, row, nbytes, mask) -> None:
@@ -81,6 +90,58 @@ class WalkWork(NamedTuple):
                             .to(torch.int64))
         if is_inst is not None:
             self.instance.add_(is_inst.to(torch.int64))
+
+
+# bytes of a leaf slot's alpha fields (uv triple, texture offset and size)
+ALPHA_SLOT_BYTES = 32
+
+
+def alpha_fields(rows_f: torch.Tensor, c: int):
+    """Slot ``c``'s alpha fields of gathered alpha rows (R, 8*k) float32:
+    (u0, v0, u1, v1, u2, v2) float lanes, then the texture offset and
+    ``tw << 16 | th`` as int lanes."""
+    b = 8 * c
+    ints = rows_f.view(torch.int32)
+    return ([rows_f[:, b + j] for j in range(6)]
+            + [ints[:, b + 6].to(torch.int64), ints[:, b + 7].to(torch.int64)])
+
+
+def alpha_keep(f, w1, w2, pool: torch.Tensor, thr: float):
+    """The plain version of ``csrc/alpha_test.cuh``: keep a candidate at
+    barycentrics (w1, w2) unless its surface alpha is below ``thr``; the
+    pool index and the pool read for every lane (the caller masks).
+    Returns (keep, pool index).  The JAX body's operations in its order
+    (traverse_packet.py:723-761); ``%`` is floored, as jnp's."""
+    u0, v0, u1, v1, u2, v2, toff, twh = f
+    bz = 1.0 - w1 - w2
+    u = u1 * w1 + u2 * w2 + u0 * bz
+    v = v1 * w1 + v2 * w2 + v0 * bz
+    tw = (twh >> 16).clamp_min(1)
+    th = (twh & 0xFFFF).clamp_min(1)
+    iu = torch.floor(u * tw.to(torch.float32)).to(torch.int64) % tw
+    iv = torch.floor(v * th.to(torch.float32)).to(torch.int64) % th
+    idx = (toff + iu + iv * tw).clamp(0, pool.shape[0] - 1)
+    thr_t = torch.tensor(thr, dtype=torch.float32, device=pool.device)
+    return ~(pool[idx] < thr_t), idx
+
+
+def check_alpha(wa: WideArrays) -> None:
+    """An alpha-mode walk needs the tables of ``WideArrays.with_alpha``."""
+    if wa.alpha_rows is None or wa.alpha_pool is None:
+        raise ValueError("alpha_ref needs the alpha tables: "
+                         "WideArrays.with_alpha(sb)")
+    k = wa.tri_rows.shape[1] // 16
+    if (wa.alpha_rows.dtype != torch.float32
+            or wa.alpha_rows.shape != (wa.tri_rows.shape[0], 8 * k)
+            or not wa.alpha_rows.is_contiguous()
+            or wa.alpha_pool.dtype != torch.float32
+            or wa.alpha_pool.dim() != 1 or wa.alpha_pool.numel() < 1
+            or wa.alpha_rows.device != wa.nodes.device
+            or wa.alpha_pool.device != wa.nodes.device):
+        raise ValueError("alpha_rows must be a contiguous (L, 8*k) float32 "
+                         "tensor beside tri_rows (L, 16*k) and alpha_pool a "
+                         "non-empty (P,) float32 tensor, on the tables' "
+                         "device")
 
 
 def stack_entries(wa: WideArrays) -> int:
@@ -142,7 +203,8 @@ def trace_packets_walk(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                        active: Optional[torch.Tensor] = None,
                        t_max: Optional[torch.Tensor] = None,
                        occlusion: bool = False,
-                       max_steps: int = MAX_STEPS
+                       max_steps: int = MAX_STEPS,
+                       alpha_ref: Optional[float] = None
                        ) -> Tuple[Hits, torch.Tensor]:
     """Closest-hit (or bounded occlusion) trace of (R, 3) rays over the
     4-wide tables.  Returns (Hits, per-ray step counts (R,) int32).
@@ -151,14 +213,16 @@ def trace_packets_walk(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     plain PyTorch version."""
     if o.device.type == "cpu":
         return trace_packets_walk_ref(wa, o, d, active, t_max, occlusion,
-                                      max_steps)
-    return kernel_call(wa, o, d, active, t_max, occlusion, max_steps)()
+                                      max_steps, alpha_ref)
+    return kernel_call(wa, o, d, active, t_max, occlusion, max_steps,
+                       alpha_ref)()
 
 
 def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                 active: Optional[torch.Tensor] = None,
                 t_max: Optional[torch.Tensor] = None,
-                occlusion: bool = False, max_steps: int = MAX_STEPS
+                occlusion: bool = False, max_steps: int = MAX_STEPS,
+                alpha_ref: Optional[float] = None
                 ) -> Callable[[], Tuple[Hits, torch.Tensor]]:
     """The kernel launch of ``trace_packets_walk`` for CUDA tensors, with
     the inputs checked and the search limits and outputs made once.  Each
@@ -166,6 +230,8 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     outputs and returns them, and does nothing else: CUDA events around
     many calls time the kernel alone."""
     _check(wa, o, d, active, t_max)
+    if alpha_ref is not None:
+        check_alpha(wa)
     if o.device.type != "cuda":
         raise ValueError(f"no CUDA walk for device {o.device}")
     lib = kernels.load("packet_walk")
@@ -189,23 +255,33 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     dist, bx, by, bz = (torch.empty(r, **f32) for _ in range(4))
     tri, inst, steps = (torch.empty(r, **i32) for _ in range(3))
 
+    # the closure holds the tensors (not only their addresses), so the
+    # inputs made here live as long as the launcher
+    tensors = (wa.nodes, wa.tri_rows, o, d, limit, dist, bx, by, bz, tri,
+               inst, steps)
+    sizes = (r, wa.nodes.shape[0], wa.tri_rows.shape[0],
+             wa.tri_rows.shape[1], max(int(wa.max_leaf_tris), 1),
+             int(wa.num_tlas), int(wa.tri_bits), stack_n, int(max_steps),
+             int(bool(occlusion)))
+    name = "packet_walk" if alpha_ref is None else "packet_walk_alpha"
+
     def launch() -> Tuple[Hits, torch.Tensor]:
+        common = [t.data_ptr() for t in tensors]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.lib.vrt_packet_walk(
-                wa.nodes.data_ptr(), wa.tri_rows.data_ptr(), o.data_ptr(),
-                d.data_ptr(), limit.data_ptr(), dist.data_ptr(),
-                bx.data_ptr(), by.data_ptr(), bz.data_ptr(), tri.data_ptr(),
-                inst.data_ptr(), steps.data_ptr(), r, wa.nodes.shape[0],
-                wa.tri_rows.shape[0], wa.tri_rows.shape[1],
-                max(int(wa.max_leaf_tris), 1), int(wa.num_tlas),
-                int(wa.tri_bits), stack_n, int(max_steps),
-                int(bool(occlusion)), stream)
+            if alpha_ref is None:
+                err = lib.lib.vrt_packet_walk(*common, *sizes, stream)
+            else:
+                err = lib.lib.vrt_packet_walk_alpha(
+                    *common, wa.alpha_rows.data_ptr(),
+                    wa.alpha_pool.data_ptr(), *sizes,
+                    wa.alpha_rows.shape[1], wa.alpha_pool.shape[0],
+                    float(alpha_ref), stream)
         if err != 0:
             raise RuntimeError(f"packet_walk launch failed: "
                                f"{lib.error_string(err)} ({err})")
         if r > 0:
-            kernels.LAUNCHES["packet_walk"] += 1
+            kernels.LAUNCHES[name] += 1
         return Hits(dist, bx, by, bz, tri, inst), steps
 
     return launch
@@ -222,7 +298,8 @@ def trace_packets_walk_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                            active: Optional[torch.Tensor] = None,
                            t_max: Optional[torch.Tensor] = None,
                            occlusion: bool = False,
-                           max_steps: int = MAX_STEPS
+                           max_steps: int = MAX_STEPS,
+                           alpha_ref: Optional[float] = None
                            ) -> Tuple[Hits, torch.Tensor]:
     """Plain PyTorch version of the per-ray walk, on any device.
 
@@ -232,25 +309,31 @@ def trace_packets_walk_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     and the same arithmetic order as the kernel, so both give the same
     hits and the same per-ray step counts to the bit."""
     hits, steps, _ = _walk_ref(wa, o, d, active, t_max, occlusion,
-                               max_steps, False)
+                               max_steps, False, alpha_ref)
     return hits, steps
 
 
 def walk_work_4(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                 active: Optional[torch.Tensor] = None,
                 t_max: Optional[torch.Tensor] = None,
-                occlusion: bool = False, max_steps: int = MAX_STEPS
+                occlusion: bool = False, max_steps: int = MAX_STEPS,
+                alpha_ref: Optional[float] = None
                 ) -> Tuple[Hits, torch.Tensor, WalkWork]:
     """The plain 4-wide walk of these rays, with what it computes per
     ray: (Hits, steps, WalkWork).  ``tools/walk_bounds.py`` turns the
-    work into a bound."""
-    return _walk_ref(wa, o, d, active, t_max, occlusion, max_steps, True)
+    work into a bound.  Its rows are the nodes, then the triangle rows,
+    and in alpha mode the alpha rows and the alpha pool's entries."""
+    return _walk_ref(wa, o, d, active, t_max, occlusion, max_steps, True,
+                     alpha_ref)
 
 
 def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
-              max_steps: int, count: bool):
+              max_steps: int, count: bool, alpha_ref: Optional[float] = None):
     """(Hits, steps, WalkWork or None) of the plain 4-wide walk."""
     _check(wa, o, d, active, t_max)
+    alpha = alpha_ref is not None
+    if alpha:
+        check_alpha(wa)
     dev = o.device
     r = o.shape[0]
     limit = _limit(r, dev, active, t_max)
@@ -283,7 +366,9 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
     steps = torch.zeros(r, dtype=torch.int32, device=dev)
     stack = torch.zeros((r, stack_n), dtype=torch.int64, device=dev)
     alive = limit > 0.0
-    work = WalkWork.zeros(r, n_nodes + n_rows, dev) if count else None
+    n_pool = wa.alpha_pool.shape[0] if alpha else 0
+    work = (WalkWork.zeros(r, n_nodes + n_rows * (2 if alpha else 1)
+                           + n_pool, dev) if count else None)
 
     while bool(alive.any()):
         node_c = node.clamp(0, n_nodes - 1)
@@ -357,6 +442,8 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
         row_i = left.clamp(0, n_rows - 1)
         tr = rows[row_i]
         tr_i = rows_i[row_i]
+        ar = wa.alpha_rows[row_i] if alpha else None
+        n_alpha = torch.zeros(r, dtype=torch.int64, device=dev)
         t_b, bx_b, by_b, tri_b, bi_b = best_t, bx, by, tri, binst
         for c in range(lmax):
             b0 = 16 * c
@@ -381,6 +468,14 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
             t = fba * (e2x * qx + e2y * qy + e2z * qz)
             ok = (~small & (w1 >= 0.0) & (w1 <= 1.0) & (w2 >= 0.0)
                   & (w1 + w2 <= 1.0) & (t > eps) & (c < leaf_n) & is_leaf)
+            if alpha:
+                keep, idx = alpha_keep(alpha_fields(ar, c), w1, w2,
+                                       wa.alpha_pool, alpha_ref)
+                if count:
+                    n_alpha += ok.to(torch.int64)
+                    work.read(n_nodes + 2 * n_rows + idx,
+                              torch.full_like(idx, 4), ok)
+                ok = ok & keep
             t = torch.where(ok, t, large)
             if occlusion:
                 t_b = torch.where(t < t_b, torch.full_like(t_b, -1.0), t_b)
@@ -402,6 +497,11 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
             work.read(node_c, torch.where(is_int, 64, torch.where(
                 is_inst, 80, 16)), alive)
             work.read(n_nodes + row_i, TRI_SLOT_BYTES * slots, is_leaf)
+            if alpha:
+                # the alpha fields of the slots whose candidates it tests
+                work.alpha_tests.add_(n_alpha)
+                work.read(n_nodes + n_rows + row_i, ALPHA_SLOT_BYTES * n_alpha,
+                          is_leaf & (n_alpha > 0))
 
         # ---- instance: world ray -> instance space, descend to BLAS ----
         mm = [row_f[:, INST_XFORM + k] for k in range(12)]

@@ -26,9 +26,18 @@ over a ray's own candidates with the lexicographic (t, packed tid)
 tie-break, up to exact-t ties that strict ``tmin < best_t`` pruning
 resolves by visit order (ROADMAP hazard H3).  The JAX knobs ``packet``,
 ``fronts``, ``lax_sort``, ``array_stack``, ``unroll``, ``bf16_slab`` and
-``stats`` batch XLA's lockstep loop and are not carried; any-hit
-predicates (``alpha_ref``, ``anyhit_pred``) are not ported yet (ROADMAP
-Queue 1, item 8).
+``stats`` batch XLA's lockstep loop and are not carried.
+
+``alpha_ref=thr`` is the JAX in-walk alpha-cutout any-hit over the tables
+of ``WideArrays.with_alpha`` (the fused rows then carry each leaf's alpha
+fields after its triangle slots): a Moller-Trumbore candidate whose
+surface alpha is below ``thr`` is rejected before the fold, in closest,
+occlusion and ``occl_split`` modes.  CUDA tensors launch the kernel's
+alpha instantiation (counted as ``traverse_packet_alpha``; the walk
+without alpha is unchanged).  The JAX ``anyhit_pred``, an arbitrary
+traced predicate, cannot enter a CUDA kernel: the frame runs such
+shaders through the suspension engine (K3) on TLAS builds and refuses
+them on flattened builds (ROADMAP Queue 1, item 8b).
 """
 
 from __future__ import annotations
@@ -38,7 +47,8 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from vortex_rt_tpu_torch.ops.packet_walk import (
-    TRI_SLOT_BYTES, WalkWork, _rcp, check_rays,
+    ALPHA_SLOT_BYTES, TRI_SLOT_BYTES, WalkWork, _rcp, alpha_fields,
+    alpha_keep, check_alpha, check_rays,
 )
 from vortex_rt_tpu_torch.ops.traverse2 import Hits
 from vortex_rt_tpu_torch.ops.traverse_wide import (
@@ -81,6 +91,17 @@ def stack_entries(wa: WideArrays) -> int:
     return int(wa.depth) + 4
 
 
+def alpha_offset(wa: WideArrays) -> int:
+    """Word offset of a fused row's alpha fields: after its triangle
+    slots.  Raises unless the fused rows carry them."""
+    check_alpha(wa)
+    k = wa.tri_rows.shape[1] // 16
+    if wa.fused is None or wa.fused.shape[1] != ROW_WORDS + 24 * k:
+        raise ValueError("alpha_ref needs fused rows that carry the alpha "
+                         "fields (WideArrays.with_alpha on a fused table)")
+    return ROW_WORDS + 16 * k
+
+
 def _check(wa: WideArrays, o, d, active, t_max, occl_split: int) -> None:
     if wa.width != WIDTH or wa.fused is None:
         raise ValueError("trace_packets walks 8-wide fused tables "
@@ -91,11 +112,11 @@ def _check(wa: WideArrays, o, d, active, t_max, occl_split: int) -> None:
     f = wa.fused
     lmax = max(int(wa.max_leaf_tris), 1)
     if f.dtype != torch.int32 or f.dim() != 2 \
-            or (f.shape[1] - ROW_WORDS) % 16 \
+            or (f.shape[1] - ROW_WORDS) % 8 \
             or f.shape[1] < ROW_WORDS + 16 * lmax \
             or not f.is_contiguous():
-        raise ValueError("fused must be a contiguous (N, 32 + 16*k) int32 "
-                         "tensor with k >= max_leaf_tris")
+        raise ValueError("fused must be a contiguous (N, 32 + 16*k) or (N, "
+                         "32 + 24*k) int32 tensor with k >= max_leaf_tris")
     check_rays(f.device, o, d, active, t_max)
     if not 0 <= int(occl_split) <= o.shape[0]:
         raise ValueError(f"occl_split={occl_split} outside [0, {o.shape[0]}]")
@@ -110,25 +131,28 @@ def trace_packets(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                   active: Optional[torch.Tensor] = None,
                   t_max: Optional[torch.Tensor] = None,
                   occlusion: bool = False, occl_split: int = 0,
-                  max_steps: int = MAX_STEPS
+                  max_steps: int = MAX_STEPS,
+                  alpha_ref: Optional[float] = None
                   ) -> Tuple[Hits, torch.Tensor]:
     """Closest-hit, occlusion or mixed trace of (R, 3) rays over the
-    8-wide fused table.  Returns (Hits, per-ray step counts (R,) int32).
+    8-wide fused table, with the alpha cutout when ``alpha_ref`` is
+    given.  Returns (Hits, per-ray step counts (R,) int32).
 
     CUDA tensors launch the hand-written kernel; CPU tensors run the
     plain PyTorch version."""
     if o.device.type == "cpu":
         return trace_packets_ref(wa, o, d, active, t_max, occlusion,
-                                 occl_split, max_steps)
+                                 occl_split, max_steps, alpha_ref)
     return kernel_call(wa, o, d, active, t_max, occlusion, occl_split,
-                       max_steps)()
+                       max_steps, alpha_ref)()
 
 
 def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                 active: Optional[torch.Tensor] = None,
                 t_max: Optional[torch.Tensor] = None,
                 occlusion: bool = False, occl_split: int = 0,
-                max_steps: int = MAX_STEPS
+                max_steps: int = MAX_STEPS,
+                alpha_ref: Optional[float] = None
                 ) -> Callable[[], Tuple[Hits, torch.Tensor]]:
     """The kernel launch of ``trace_packets`` for CUDA tensors, with the
     inputs checked and the outputs allocated once.  Each call of the
@@ -136,6 +160,8 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     returns them, and does nothing else: CUDA events around many calls
     time the kernel alone."""
     _check(wa, o, d, active, t_max, occl_split)
+    if alpha_ref is not None:
+        alpha_offset(wa)
     if o.device.type != "cuda":
         raise ValueError(f"no CUDA walk for device {o.device}")
     lib = kernels.load("traverse_packet")
@@ -162,23 +188,30 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     dist, bx, by, bz = (torch.empty(r, **f32) for _ in range(4))
     tri, inst, steps = (torch.empty(r, **i32) for _ in range(3))
     split = _split(r, occlusion, occl_split)
+    # the closure holds the tensors (not only their addresses), so the
+    # inputs made here live as long as the launcher
+    tensors = (wa.fused, o, d, limit, on, dist, bx, by, bz, tri, inst, steps)
+    sizes = (r, wa.fused.shape[0], wa.fused.shape[1],
+             max(int(wa.max_leaf_tris), 1), int(wa.tri_bits), stack_n,
+             int(max_steps), split)
+    name = "traverse_packet" if alpha_ref is None else "traverse_packet_alpha"
 
     def launch() -> Tuple[Hits, torch.Tensor]:
+        ptrs = [t.data_ptr() for t in tensors]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.lib.vrt_traverse_packet(
-                wa.fused.data_ptr(), o.data_ptr(), d.data_ptr(),
-                limit.data_ptr(), on.data_ptr(), dist.data_ptr(),
-                bx.data_ptr(), by.data_ptr(), bz.data_ptr(), tri.data_ptr(),
-                inst.data_ptr(), steps.data_ptr(), r,
-                wa.fused.shape[0], wa.fused.shape[1],
-                max(int(wa.max_leaf_tris), 1), int(wa.tri_bits), stack_n,
-                int(max_steps), split, stream)
+            if alpha_ref is None:
+                err = lib.lib.vrt_traverse_packet(*ptrs, *sizes, stream)
+            else:
+                err = lib.lib.vrt_traverse_packet_alpha(
+                    *ptrs, wa.alpha_pool.data_ptr(), *sizes,
+                    wa.alpha_pool.shape[0], wa.tri_rows.shape[1] // 16,
+                    float(alpha_ref), stream)
         if err != 0:
             raise RuntimeError(f"traverse_packet launch failed: "
                                f"{lib.error_string(err)} ({err})")
         if r > 0:
-            kernels.LAUNCHES["traverse_packet"] += 1
+            kernels.LAUNCHES[name] += 1
         return Hits(dist, bx, by, bz, tri, inst), steps
 
     return launch
@@ -188,7 +221,8 @@ def trace_packets_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                       active: Optional[torch.Tensor] = None,
                       t_max: Optional[torch.Tensor] = None,
                       occlusion: bool = False, occl_split: int = 0,
-                      max_steps: int = MAX_STEPS
+                      max_steps: int = MAX_STEPS,
+                      alpha_ref: Optional[float] = None
                       ) -> Tuple[Hits, torch.Tensor]:
     """Plain PyTorch version of the per-ray 8-wide walk, on any device.
 
@@ -199,7 +233,7 @@ def trace_packets_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     order as the kernel, so both give the same hits and the same per-ray
     step counts to the bit."""
     hits, steps, _ = _walk_ref(wa, o, d, active, t_max, occlusion,
-                               occl_split, max_steps, False)
+                               occl_split, max_steps, False, alpha_ref)
     return hits, steps
 
 
@@ -207,20 +241,25 @@ def walk_work(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
               active: Optional[torch.Tensor] = None,
               t_max: Optional[torch.Tensor] = None,
               occlusion: bool = False, occl_split: int = 0,
-              max_steps: int = MAX_STEPS
+              max_steps: int = MAX_STEPS,
+              alpha_ref: Optional[float] = None
               ) -> Tuple[Hits, torch.Tensor, WalkWork]:
     """The plain walk of these rays, with what it computes per ray:
     (Hits, steps, WalkWork of internal steps and their child slots, leaf
-    steps and their triangle slots).  ``tools/walk_bounds.py`` turns the
-    work into a bound."""
+    steps and their triangle slots, alpha tests).  ``tools/walk_bounds.py``
+    turns the work into a bound.  In alpha mode the rows are the fused
+    rows, then the alpha pool's entries."""
     return _walk_ref(wa, o, d, active, t_max, occlusion, occl_split,
-                     max_steps, True)
+                     max_steps, True, alpha_ref)
 
 
 def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
-              occl_split: int, max_steps: int, count: bool):
+              occl_split: int, max_steps: int, count: bool,
+              alpha_ref: Optional[float] = None):
     """(Hits, steps, WalkWork or None) of the plain walk."""
     _check(wa, o, d, active, t_max, occl_split)
+    alpha = alpha_ref is not None
+    a_off = alpha_offset(wa) if alpha else 0
     dev = o.device
     r = o.shape[0]
     occ = torch.arange(r, device=dev) < _split(r, occlusion, occl_split)
@@ -253,7 +292,8 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
     st0 = torch.zeros((r, stack_n), dtype=torch.int64, device=dev)
     st1 = torch.zeros((r, stack_n), dtype=torch.int64, device=dev)
     alive = best_t > 0.0
-    work = WalkWork.zeros(r, n_nodes, dev) if count else None
+    work = (WalkWork.zeros(r, n_nodes + (wa.alpha_pool.shape[0] if alpha
+                                         else 0), dev) if count else None)
 
     while bool(alive.any()):
         node_c = node.clamp(0, n_nodes - 1)
@@ -324,6 +364,8 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
         # row's own slots, folded to the leaf's best, then into the ray's
         tr = row_f[:, ROW_WORDS:]
         tr_i = raw[:, ROW_WORDS:].to(torch.int64)
+        ar = row_f[:, a_off:] if alpha else None
+        n_alpha = torch.zeros(r, dtype=torch.int64, device=dev)
         t_min, tid_sel = large, torch.full((r,), _INT_MAX, dtype=torch.int64,
                                            device=dev)
         w1_sel, w2_sel = f32(0.0), f32(0.0)
@@ -350,6 +392,14 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
             t = fba * (e2x * qx + e2y * qy + e2z * qz)
             ok = (~small & (w1 >= 0.0) & (w1 <= 1.0) & (w2 >= 0.0)
                   & (w1 + w2 <= 1.0) & (t > eps) & (c < leaf_n))
+            if alpha:
+                keep, idx = alpha_keep(alpha_fields(ar, c), w1, w2,
+                                       wa.alpha_pool, alpha_ref)
+                if count:
+                    tested = ok & is_tri
+                    n_alpha += tested.to(torch.int64)
+                    work.read(n_nodes + idx, torch.full_like(idx, 4), tested)
+                ok = ok & keep
             t = torch.where(ok, t, large)
             better = (t < t_min) | ((t == t_min) & (t < LARGE_FLOAT)
                                     & (tid < tid_sel))
@@ -373,7 +423,9 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
             # boxes, meta, leaf_n) at every step, words 0..19 (the other
             # boxes) at an internal node, the triangle slots at a leaf
             work.read(node_c, torch.where(is_int, 96, torch.where(
-                is_tri, 16 + TRI_SLOT_BYTES * slots, 16)), alive)
+                is_tri, 16 + TRI_SLOT_BYTES * slots
+                + ALPHA_SLOT_BYTES * n_alpha, 16)), alive)
+            work.alpha_tests.add_(n_alpha)
 
         # ---- pop when we didn't descend; an empty stack ends the ray ----
         can_pop = sc > 0

@@ -3,14 +3,18 @@
 Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface and loaded with ctypes.
 The build happens at first use, into ``build/torch_kernels/`` at the root
-of the checkout, under a file name keyed by a hash of the source and the
-flags — so an edited source is rebuilt and an unchanged one is reused.
+of the checkout, under a file name keyed by a hash of the source, of every
+header it includes from ``csrc/`` (``#include "..."``, followed through
+the headers' own includes) and of the flags — so an edited source or
+header is rebuilt and an unchanged one is reused.
 
 Nothing here runs at import: the CPU-only test machine imports every
 module and has no ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by library name (and ``ploc_pack``,
-``lbvh_pack``'s two kernels in their PLOC mode).  Each wrapper adds one per
+``lbvh_pack``'s two kernels in their PLOC mode, and
+``traverse_packet_alpha`` and ``packet_walk_alpha``, the alpha-cutout
+instantiations of K1 and K2).  Each wrapper adds one per
 ``__global__`` function it launches (an LBVH or PLOC entry point may
 launch several), where it launches and nowhere else, so a caller can
 reset the counts, drive the main path and see which kernels it went
@@ -23,6 +27,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,17 +48,24 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each kernel library: {function: (argtypes, restype)}
 _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     "packet_walk": {
         "vrt_packet_walk": ([_P] * 12 + [_I] * 10 + [_P], _I),
+        "vrt_packet_walk_alpha": ([_P] * 14 + [_I] * 12 + [_F, _P], _I),
         "vrt_packet_walk_stack_max": ([], _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
     "traverse_packet": {
         "vrt_traverse_packet": ([_P] * 12 + [_I] * 8 + [_P], _I),
+        "vrt_traverse_packet_alpha": ([_P] * 13 + [_I] * 10 + [_F, _P], _I),
         "vrt_traverse_packet_stack_max": ([], _I),
+        "vrt_error_string": ([_I], ctypes.c_char_p),
+    },
+    # K3, the per-ray walk with any-hit suspension (ops/traverse_wide.py)
+    "traverse_wide": {
+        "vrt_traverse_wide": ([_P] * 10 + [_I] * 8 + [_P], _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
     "hbm_walk": {
@@ -99,8 +111,10 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
 }
 
 # launch counts: one per kernel library, and "ploc_pack", lbvh_pack's
-# survivor records and the leaf rows it writes from explicit triangle ids
-LAUNCHES: Dict[str, int] = {name: 0 for name in (*_SIGNATURES, "ploc_pack")}
+# survivor records and the leaf rows it writes from explicit triangle ids,
+# and the alpha-cutout instantiations of K1 and K2
+LAUNCHES: Dict[str, int] = {name: 0 for name in (
+    *_SIGNATURES, "ploc_pack", "traverse_packet_alpha", "packet_walk_alpha")}
 
 
 def reset_launches() -> None:
@@ -142,8 +156,30 @@ def nvcc_path() -> str:
         "port's CUDA kernels are built from source at first use")
 
 
-def _digest(src: bytes) -> str:
-    h = hashlib.sha256(src)
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def includes(src_path: Path) -> List[Path]:
+    """The headers ``src_path`` includes with ``#include "..."``, and
+    theirs, resolved beside the including file; a missing header is
+    left to nvcc to report."""
+    found: List[Path] = []
+    todo = [Path(src_path)]
+    while todo:
+        cur = todo.pop()
+        for name in _INCLUDE.findall(cur.read_bytes()):
+            hdr = (cur.parent / name.decode()).resolve()
+            if hdr.exists() and hdr not in found:
+                found.append(hdr)
+                todo.append(hdr)
+    return sorted(found)
+
+
+def _digest(src_path: Path) -> str:
+    """Hash of a source, every header it includes, and the flags."""
+    h = hashlib.sha256(Path(src_path).read_bytes())
+    for hdr in includes(src_path):
+        h.update(b"\0" + hdr.name.encode() + b"\0" + hdr.read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -151,8 +187,7 @@ def _digest(src: bytes) -> str:
 def _build(src_path: Path) -> Tuple[Path, float, str]:
     """Compile ``src_path`` unless its build is up to date; returns the
     library's path, nvcc's seconds (0.0 when reused) and its output."""
-    src = src_path.read_bytes()
-    so = BUILD_DIR / f"{src_path.stem}-{_digest(src)}.so"
+    so = BUILD_DIR / f"{src_path.stem}-{_digest(src_path)}.so"
     log_path = so.with_name(so.name + ".log")
     seconds, log = 0.0, ""
     if so.exists():

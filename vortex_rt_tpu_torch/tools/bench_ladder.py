@@ -1,8 +1,9 @@
-"""Ladder rows 3 and 5 on the port (port of ``tools/bench_ladder.py``
-``_scale_cfg(lbvh=True)`` and ``config5``): the two rows that need an
-on-device build (``accel/ploc.py``, ``accel/lbvh.py``) and refit.
+"""Ladder rows 3, 5 and 6 on the port (port of ``tools/bench_ladder.py``
+``_scale_cfg(lbvh=True)``, ``config5`` and ``config6``): the two rows that
+need an on-device build (``accel/ploc.py``, ``accel/lbvh.py``) and refit,
+and the alpha-cutout any-hit row.
 
-    python -m vortex_rt_tpu_torch.tools.bench_ladder --configs 3,5
+    python -m vortex_rt_tpu_torch.tools.bench_ladder --configs 3,5,6
 
 - **row 5**, the animated mesh: ``wavy_grid(n=708)`` (999,698 triangles),
   1920x1080, spp 2, depth 2, shadow rays, Whitted, light (0, 14, 0), flat
@@ -29,7 +30,18 @@ hit mask, triangle ids and distances to the bit; mean and largest steps
 per ray on both) and prints the difference of the two path-traced
 frames.  One JSON line per row.
 
-``--grid``, ``--blob`` and ``--res`` shrink the meshes and the frame
+- **row 6**, textured alpha-cutout any-hit: ``textured_atrium()``
+  (259,594 triangles; the procedural checker stands in for absent
+  texture assets), flat 8-wide, leaf 4, ``alpha_test_anyhit(0.30)`` tested
+  inside K1 (``alpha_ref``), the camera ``framing_camera(sb, 45.0, 1.0)``,
+  light (0, 8, 0), spp 2, depth 2, shadow rays: frames at 512x512 and
+  1920x1080 (one per call after a warm-up, as above); then the parity of
+  a 192x192 frame against the per-ray suspension engine
+  (``RTConfig(packet_size=0)`` on the TLAS build, K3 and ``commit``):
+  RMSE below 1e-4, as the JAX row's gate, and equal ray counts.
+
+``--grid``, ``--blob``, ``--res``, ``--res6``, ``--atrium``,
+``--atrium-cols`` and ``--parity-res`` shrink the meshes and the frames
 (the CPU tests run row 5 on ``wavy_grid(n=24)`` at 32x32).
 """
 
@@ -48,6 +60,7 @@ import numpy as np
 import torch
 
 from vortex_rt_tpu_torch.accel import lbvh, ploc
+from vortex_rt_tpu_torch.engine.shaders import ShaderTable, alpha_test_anyhit
 from vortex_rt_tpu_torch.engine.wavefront import WavefrontRenderer
 from vortex_rt_tpu_torch.models import bigscenes
 from vortex_rt_tpu_torch.models.scene import (
@@ -58,6 +71,9 @@ from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT, RTConfig
 
 IMG_ATOL = 1e-5
 LIGHT5 = (0.0, 14.0, 0.0)
+LIGHT6 = (0.0, 8.0, 0.0)
+ALPHA6 = 0.30         # row 6's alpha_test_anyhit threshold
+PARITY6_RMSE = 1e-4   # the JAX row's gate against the suspension engine
 MOVED_TS = (0.1, 0.2, 0.3, 0.4)  # the four timed refit frames
 
 
@@ -330,6 +346,87 @@ def config3(device, method: str = "ploc", blob_n: int = 187,
     return rec
 
 
+def atrium6(target_tris: int = 260_000, n_cols: int = 12):
+    """Row 6's scene: the textured atrium."""
+    sc = Scene()
+    for mesh, refl in bigscenes.textured_atrium(n_cols=n_cols,
+                                                target_tris=target_tris):
+        sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
+    return sc
+
+
+def params6() -> RenderParams:
+    return RenderParams(max_depth=2, spp=2, shadow=True, light_pos=LIGHT6)
+
+
+def setup6(device, target_tris: int = 260_000, n_cols: int = 12):
+    """Row 6's scene, its flat 8-wide renderer with the alpha test, camera
+    and parameters: (scene, renderer, camera, params, table)."""
+    sc = atrium6(target_tris, n_cols)
+    cfg = RTConfig(flatten=True)
+    table = ShaderTable(anyhit=alpha_test_anyhit(ALPHA6))
+    r = WavefrontRenderer.from_buffers(sc.build(cfg), cfg, table,
+                                       device=torch.device(device))
+    return sc, r, Scene.framing_camera(r.sb, 45.0, 1.0), params6(), table
+
+
+def frames6(r: WavefrontRenderer, cam, p, res=(512, 512),
+            res_hd=(1920, 1080)) -> dict:
+    """Row 6's frames at ``res`` and ``res_hd`` (one per call after a
+    warm-up)."""
+    rec = dict(config=6, scene="atrium_tex+alpha-anyhit",
+               tris=r.sb.num_tris, res=f"{res[0]}x{res[1]}", spp=p.spp,
+               depth=p.max_depth, shadow=p.shadow, anyhit=True, alpha=ALPHA6,
+               bvh_width=r.config.bvh_width,
+               max_leaf_tris=r.config.max_leaf_tris,
+               fused_bytes=r.wa.fused.numel() * 4,
+               table_bytes=r.wa.nbytes + r.sa.nbytes)
+    rec.update(bench_frames(r, cam, p, *res))
+    hd = bench_frames(r, cam, p, *res_hd)
+    rec.update(res_hd=f"{res_hd[0]}x{res_hd[1]}",
+               rays_per_frame_hd=hd["rays_per_frame"], mrays_hd=hd["mrays"],
+               ms_per_frame_hd=hd["ms_per_frame"])
+    return rec
+
+
+def parity6(sc: Scene, r: WavefrontRenderer, cam, p, table,
+            parity_res: int = 192) -> dict:
+    """Row 6's gate: the ``parity_res`` frame in the walk against the
+    per-ray suspension engine on the TLAS build (``packet_size=0``): RMSE
+    below 1e-4 and equal ray counts.  ``k3_launches`` counts the
+    suspension frame's K3 launches (its rounds, over all waves; 0 on the
+    CPU, whose walk is the plain version)."""
+    from vortex_rt_tpu_torch.runtime import kernels
+
+    img, rays = r.render(cam, p, parity_res, parity_res)
+    slow_cfg = RTConfig(packet_size=0)
+    r_slow = WavefrontRenderer.from_buffers(sc.build(slow_cfg), slow_cfg,
+                                            table, device=r.device)
+    before = kernels.LAUNCHES["traverse_wide"]
+    t0 = time.perf_counter()
+    img_slow, rays_slow = r_slow.render(cam, p, parity_res, parity_res)
+    slow_ms = (time.perf_counter() - t0) * 1e3
+    rmse = float(np.sqrt(((img - img_slow) ** 2).mean()))
+    return dict(parity_res=f"{parity_res}x{parity_res}", parity_rmse=rmse,
+                parity_vs="per-ray suspension engine (TLAS, packet_size=0)",
+                rays_parity=rays, rays_suspension=rays_slow,
+                suspension_ms=slow_ms,
+                k3_launches=kernels.LAUNCHES["traverse_wide"] - before,
+                parity_ok=bool(rmse < PARITY6_RMSE and rays == rays_slow
+                               and np.isfinite(img).all()))
+
+
+def config6(device, res=(512, 512), res_hd=(1920, 1080), parity_res=192,
+            target_tris: int = 260_000, n_cols: int = 12) -> dict:
+    """Row 6: the in-walk alpha test on the flat 8-wide build at ``res``
+    and ``res_hd``, and the ``parity_res`` frame against the suspension
+    engine on the TLAS build."""
+    sc, r, cam, p, table = setup6(device, target_tris, n_cols)
+    rec = frames6(r, cam, p, res, res_hd)
+    rec.update(parity6(sc, r, cam, p, table, parity_res))
+    return rec
+
+
 def _gpu_line() -> Optional[str]:
     try:
         out = subprocess.run(
@@ -352,16 +449,27 @@ def main(argv=None) -> List[dict]:
                     help="row 5's wavy_grid(n)")
     ap.add_argument("--blob", type=int, default=187, help="row 3's blob(n)")
     ap.add_argument("--res", default="1920x1080")
+    ap.add_argument("--res6", default="512x512",
+                    help="row 6's first frame (its second is --res)")
+    ap.add_argument("--parity-res", type=int, default=192,
+                    help="row 6's parity frame side")
+    ap.add_argument("--atrium", type=int, default=260_000,
+                    help="row 6's textured_atrium(target_tris)")
+    ap.add_argument("--atrium-cols", type=int, default=12,
+                    help="row 6's textured_atrium(n_cols)")
     a = ap.parse_args(argv)
     res = tuple(int(x) for x in a.res.split("x"))
+    res6 = tuple(int(x) for x in a.res6.split("x"))
     fns = {3: lambda: config3(a.device, a.lbvh, a.blob, res),
-           5: lambda: config5(a.device, a.grid, res)}
+           5: lambda: config5(a.device, a.grid, res),
+           6: lambda: config6(a.device, res6, res, a.parity_res, a.atrium,
+                              a.atrium_cols)}
     gpu = _gpu_line() if a.device.startswith("cuda") else None
     out = []
     for c in (int(x) for x in a.configs.split(",")):
         if c not in fns:
             raise NotImplementedError(
-                f"ladder row {c}: only rows 3 and 5 are ported (ROADMAP "
+                f"ladder row {c}: only rows 3, 5 and 6 are ported (ROADMAP "
                 f"Queue 1, item 7)")
         rec = fns[c]()
         rec["gpu"] = gpu

@@ -9,6 +9,8 @@ kernels that take the most device time.
         --scene config3,config4 --frames 2
     python -m vortex_rt_tpu_torch.tools.profile_frames --scene config5 \\
         --frames 4
+    python -m vortex_rt_tpu_torch.tools.profile_frames \\
+        --scene config6,config6hd --frames 4
 
 ``config2`` is BASELINE config 2 as ``bench.py`` renders it (Cornell box
 and a 24x48 sphere, 512x512, spp 2, depth 2, shadow rays, flattened
@@ -19,7 +21,10 @@ ladder's path-traced frames at 1920x1080, depth 3, shadow rays:
 ``config5`` is the ladder's animated mesh (``tools/bench_ladder.py``:
 ``wavy_grid(n=708)``, 1920x1080, spp 2, depth 2, shadow rays): every
 frame ripples the vertices, refits and repacks the tree on the card, and
-renders, so its split shows the refit beside the frame.
+renders, so its split shows the refit beside the frame.  ``config6`` and
+``config6hd`` are ladder row 6 at 512x512 and 1920x1080: the textured
+atrium with ``alpha_test_anyhit(0.30)`` tested inside K1, spp 2, depth 2,
+shadow rays.
 
 After one warm-up frame, ``--frames`` frames are timed unprofiled (wall
 clock, device-synchronised), then the same number run under
@@ -45,7 +50,7 @@ CONFIG2_LIGHT = (0.0, 0.8, -0.5)
 TOP = 12  # kernels listed, by device time
 # kernels reported by name even below the top: the walk and the refit's
 WATCHED = ("traverse_packet_kernel", "refit_boxes_kernel",
-           "pack_nodes_kernel", "pack_leaves_kernel")
+           "pack_nodes_kernel", "pack_leaves_kernel", "traverse_wide_kernel")
 PROFILE_TRIES = 3  # sessions kernel_events tries before it gives up
 
 
@@ -82,6 +87,12 @@ def build(scene: str, device):
                                      pathtrace=True),
              "config4": RenderParams(max_depth=3, spp=8, shadow=True,
                                      pathtrace=True)}[scene]
+    elif scene in ("config6", "config6hd"):
+        from vortex_rt_tpu_torch.tools import bench_ladder
+
+        _, r, cam, p, _ = bench_ladder.setup6(device)
+        w, h = (512, 512) if scene == "config6" else (1920, 1080)
+        return r, cam, p, w, h
     else:
         raise ValueError(f"unknown scene {scene!r}")
     return WavefrontRenderer.from_buffers(sb, cfg, device=device), cam, p, w, h
@@ -176,8 +187,8 @@ def profile(r, cam, p, w: int, h: int, frames: int,
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scene", default="config2",
-                    help="config2, scale, config3, config4, config5, or a "
-                    "comma list")
+                    help="config2, scale, config3, config4, config5, "
+                    "config6, config6hd, or a comma list")
     ap.add_argument("--frames", type=int, default=8)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -19,8 +19,11 @@ most they could need:
   in the kernels' op order: 9 for h, 5 for a, 1 test and 1 reciprocal,
   3 for s, 6 for u, 9 for q, 6 for v, 6 for t, 6 for the five tests,
   1 for the fold);
-- an instance step (K2's TLAS builds), ``OPS_PER_INSTANCE`` = 36: the
-  4x3 transform of o (18) and d (15) and three reciprocals.
+- an instance step (K2's and K3's TLAS builds), ``OPS_PER_INSTANCE`` =
+  36: the 4x3 transform of o (18) and d (15) and three reciprocals;
+- an alpha test (K1's and K2's alpha mode, per candidate that passed
+  Moller-Trumbore), ``OPS_PER_ALPHA`` = 17: 2 for bz, 5 each for u and
+  v, 2 products by the texture's sides, 2 floors, 1 comparison.
 
 Bytes: per walking ray o and d (24 B), t_max (4 B) and the active flag
 (1 B) in; a ray that takes no step (inactive, or t_max <= 0) needs only
@@ -29,8 +32,17 @@ and steps (28 B); of the tables, each row that some ray visits is read
 once, and only the words the walk uses of it (``WalkWork.row_bytes``:
 K1 96 B of an internal row, 16 B of a leaf row's meta and 40 B per
 triangle slot; K2 64 B of an internal node, 16 B of a leaf node, 80 B
-of an instance node, 40 B per triangle slot).  A wave in which no ray
-walks reads none of the tables.
+of an instance node, 40 B per triangle slot; in alpha mode 32 B of
+alpha fields per slot whose candidate is tested and 4 B per alpha-pool
+entry read).  A wave in which no ray walks reads none of the tables.
+
+K3 (``k3_bound``), per launch: every ray reads its world ray (24 B) and
+its whole walk state and writes the state back (``STATE_BYTES`` = 166 B
+each way: 41 words and 2 flags), whether or not it steps; of the tables,
+each row a ray visits is read once, and only the words K3 uses of it
+(``lanes_work``, K2's convention: 16 B of meta at every step, then 48 B
+of child boxes at an internal node or 64 B of transform and BLAS root at
+an instance node, and 40 B per triangle slot of a leaf's row).
 
 The LBVH and PLOC kernels (``lbvh_bounds``, ``ploc_bounds``) do integer
 and min/max work (the PLOC window costs: 11 FP32 operations per pair,
@@ -55,9 +67,12 @@ OPS_SORT8 = 19
 OPS_SORT4 = 5
 OPS_PER_TRI = 53
 OPS_PER_INSTANCE = 36
+OPS_PER_ALPHA = 17
 RAY_IN_BYTES = 29
 IDLE_RAY_IN_BYTES = 5
 HIT_OUT_BYTES = 28
+WORLD_RAY_BYTES = 24
+STATE_BYTES = 41 * 4 + 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,7 +102,8 @@ def walk_ops(work, sort_ops: int) -> int:
     return int(OPS_PER_CHILD * work.child_slots.sum()
                + sort_ops * work.internal.sum()
                + OPS_PER_TRI * work.tri_slots.sum()
-               + OPS_PER_INSTANCE * work.instance.sum())
+               + OPS_PER_INSTANCE * work.instance.sum()
+               + OPS_PER_ALPHA * work.alpha_tests.sum())
 
 
 def walk_bound(work, sort_ops: int) -> Bound:
@@ -109,6 +125,15 @@ def k1_bound(work) -> Bound:
 def k2_bound(work) -> Bound:
     """K2: the 4-wide walk over the node and triangle rows."""
     return walk_bound(work, OPS_SORT4)
+
+
+def k3_bound(work) -> Bound:
+    """K3: one launch of the per-ray walk over the 4-wide tables, from
+    the ``WalkWork`` of ``ops/traverse_wide.lanes_work``."""
+    r = int(work.internal.numel())
+    return Bound(ops=walk_ops(work, OPS_SORT4),
+                 bytes=r * (WORLD_RAY_BYTES + 2 * STATE_BYTES)
+                 + int(work.row_bytes.sum()))
 
 
 def k7_bound(rows: int, steps: int, k: int, words: int) -> Bound:

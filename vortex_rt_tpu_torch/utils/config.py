@@ -1,12 +1,17 @@
 """Framework configuration (port of ``vortex_rt_tpu/utils/config.py``).
 
-Only the knobs this port reads are carried.  The JAX package's TPU
-tuning knobs (``slab``, ``lanes``, ``packet_size``, ``bounce_packet``,
-``bounce_fronts``, ``bounce_sort_seg``, ``shadow_packet``,
-``pallas_waves``) shape how XLA batches a lockstep loop and change no
-hit; the port walks one ray per GPU thread and has no use for them
-(README, "The PyTorch/CUDA port").  ``fused_rows`` is not carried
-either: the port always fuses 8-wide flat builds (the JAX default).
+Only the knobs this port reads are carried.  ``packet_size`` is carried
+with one meaning of the JAX knob only: 0 selects the per-ray engine (the
+pool path: ``ops/traverse_wide.trace_lanes``, K3, with any-hit
+suspension), and any other value keeps the default route (K1 or K2 over
+whole waves); the port walks one ray per GPU thread, so the packet size
+itself has no meaning.  The JAX package's other TPU tuning knobs
+(``slab``, ``lanes``, ``bounce_packet``, ``bounce_fronts``,
+``bounce_sort_seg``, ``shadow_packet``, ``pallas_waves``) shape how XLA
+batches a lockstep loop and change no hit; the port's pool runs whole
+and has no use for them (README, "The PyTorch/CUDA port").
+``fused_rows`` is not carried either: the port always fuses 8-wide flat
+builds (the JAX default).
 """
 
 from __future__ import annotations
@@ -19,6 +24,11 @@ LARGE_FLOAT = 1e30
 
 # Moller-Trumbore epsilon, matching the reference exactly.
 MT_EPSILON = 1e-6
+
+# Commit actions of an any-hit shader (the JAX package's VX_RT_COMMIT_*).
+COMMIT_CONT = 0    # reject the pending hit, resume the walk
+COMMIT_ACCEPT = 1  # accept the pending hit, resume the walk
+COMMIT_TERM = 2    # end the ray
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +45,11 @@ class RTConfig:
     use_native_build: bool = True  # csrc/builder.cpp (compiled at first
                                 # use; raises if that fails); False = the
                                 # NumPy builder
+
+    # ---- wavefront engine ----
+    packet_size: int = 256      # 0 = the per-ray engine for every wave
+                                # (K3, any-hit by suspension); any other
+                                # value = K1 / K2 over whole waves
 
     # ---- render parameters ----
     width: int = 256
@@ -55,6 +70,8 @@ class RTConfig:
         if self.bvh_width == 8 and not self.flatten:
             raise ValueError("bvh_width=8 requires flatten=True (no "
                              "instance-node rows)")
+        if self.packet_size < 0:
+            raise ValueError("packet_size must be >= 0")
         if self.max_leaf_tris < 1:
             raise ValueError("max_leaf_tris must be >= 1")
 
