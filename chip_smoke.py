@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's eleven CUDA kernel libraries from the sources in this
+Builds the port's thirteen CUDA kernel libraries from the sources in this
 checkout (one nvcc per source, all started together), holds each kernel
 against its plain PyTorch version on the card (hits and per-ray steps
 identical; every word of the LBVH and PLOC builds' and refits' outputs
@@ -19,10 +19,12 @@ and so exits non-zero, on failure):
    both include ``csrc/alpha_test.cuh``), ``csrc/traverse_wide.cu`` (K3),
    ``csrc/hbm_walk.cu`` (K7), the four of the on-device LBVH build and
    refit (K5: ``csrc/lbvh_karras.cu``, ``lbvh_collapse.cu``,
-   ``lbvh_refit.cu``, ``lbvh_pack.cu``) and the three of the PLOC build
+   ``lbvh_refit.cu``, ``lbvh_pack.cu``), the three of the PLOC build
    and level refit (K4: ``csrc/ploc_merge.cu``, ``ploc_collapse.cu``,
    ``ploc_refit.cu``; its leaf rows are ``lbvh_pack.cu``'s leaf kernel
-   reading explicit triangle ids), with their build times;
+   reading explicit triangle ids), the megakernel's binary walk (K6,
+   ``csrc/traverse2.cu``) and the sweep-SAH tree (``csrc/lbvh_sah.cu``),
+   with their build times;
 3. K2 against its plain version: config-2 camera rays at 64x64 on the
    flat 4-wide build and on a TLAS build (two instances), in four modes
    (closest, 1/3 inactive, half t_max-clamped, shadow-ray occlusion);
@@ -168,7 +170,37 @@ and so exits non-zero, on failure):
     ``render(mode="chunked")`` at 128x128 on the TLAS build with the
     default shaders, its compacted pool traced by K3, against the same
     frame traced by the plain walk (within 1e-5, equal ray counts);
-14. prints the kernels' JSON line (per kernel: launches on its main-path
+12d. the sweep-SAH tree (``build_lbvh_topo(method="sah")``) at config
+    3's mesh (69,940 triangles, 8-wide, leaf 4; launch counts reset
+    before one build): build ms, levels, the real wide depth; the tree's
+    kernels against ``_sah_sweep_tree_ref`` on the same sorted leaf boxes
+    (the plain version run on the card), lchild, rchild, lo and hi word
+    for word; the sweep timed (CUDA events) beside its bound and the
+    plain version, each of its kernels by the profiler beside its bound;
+    then K1 over config 3's 1080p camera rays on the host SAH, Karras,
+    PLOC and sweep-SAH trees: hits equal to the bit, steps per ray;
+12e. the same at config 5's mesh (999,700 triangles), K1 on phase 11c's
+    crop over the host SAH, Karras and sweep-SAH trees;
+15a. MK-A, the megakernel engine (``MegakernelRenderer``, K6 each wave)
+    on config 2's scene in the TLAS layout with the sphere at
+    reflectivity 0.6, 512x512, spp 4 (threefry jitter), depth 3: launch
+    counts reset before three timed frames after a warm-up; ms a frame,
+    Mrays/s, rays, peak bytes, 12 K6 launches a frame, the pool's binary
+    depth beside K6's 64 stack entries; then a 64x64 spp-2 frame on the
+    card against the same frame on the CPU (equal rays, within 1e-5);
+15b. MK-B, the megakernel engine on ``atrium()``'s TLAS over 29 BLASes
+    (host-built), 1920x1080, spp 1, depth 2 (the CLI's ``-m atrium -w
+    1920 -H 1080 --engine megakernel``): the same readings, 2 K6
+    launches a frame (the second wave has no live lane, no instance
+    reflects);
+15c. K6 against its plain version (run on the card) on MK-A's three
+    waves (the bounce waves with their live masks), MK-B's primary wave
+    and 67,601 random rays over transformed instances (all live and a
+    third dead, stack depth 64 and 4: the clamped overflow): hits and
+    per-ray counts equal; K6 timed (the profiler's kernel time, CUDA
+    events beside) on MK-A's primary and first bounce waves and MK-B's
+    primary wave, beside the plain version and ``k6_bound``;
+16. prints the kernels' JSON line (per kernel: launches on its main-path
     run and per frame, K1's being config 4's frame with the other paths'
     counts beside it, the LBVH kernels' being row 5's run, the PLOC
     kernels' row 3's (six builds: a warm-up and five timed), with config
@@ -180,7 +212,10 @@ and so exits non-zero, on failure):
     frame's, the chunked frame's beside them, the alpha modes' the row-6
     frames'; ``traverse_packet_alpha``
     and ``packet_walk_alpha`` are K1's and K2's alpha instantiations, with
-    their time without alpha beside) and, last, the device JSON line.
+    their time without alpha beside; ``traverse2``'s launches MK-A's
+    timed frames', its time on MK-A's primary wave; ``lbvh_sah``'s the
+    launches of one build at config 3's mesh, its time the whole
+    sweep's, each kernel's beside) and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -226,6 +261,11 @@ SOURCES = {
                               "vortex_rt_tpu/ops/traverse_packet.py:723"),
     "packet_walk_alpha": ("vortex_rt_tpu_torch/csrc/packet_walk.cu",
                           "vortex_rt_tpu/ops/traverse_packet.py:723"),
+    # K6, the megakernel's binary TLAS+BLAS walk, and the sweep-SAH tree
+    "traverse2": ("vortex_rt_tpu_torch/csrc/traverse2.cu",
+                  "vortex_rt_tpu/ops/traverse2.py:143"),
+    "lbvh_sah": ("vortex_rt_tpu_torch/csrc/lbvh_sah.cu",
+                 "vortex_rt_tpu/accel/lbvh.py:170"),
 }
 LBVH_KERNELS = ("lbvh_karras", "lbvh_collapse", "lbvh_refit", "lbvh_pack")
 PLOC_KERNELS = ("ploc_merge", "ploc_collapse", "ploc_refit", "ploc_pack")
@@ -332,10 +372,13 @@ def _kind(kw) -> str:
 
 # ---------------------------------------------------------------- scenes
 
-def config2_scene(width: int = 0, sphere_refl: float = 0.0):
+def config2_scene(width: int = 0, sphere_refl: float = 0.0,
+                  flatten: bool = True):
     """BASELINE config 2: Cornell box + sphere (bench.py's bench_scene
     without the reference teapot asset), flattened; width 0 is the
-    default (8-wide, as bench.py builds it)."""
+    default (8-wide, as bench.py builds it).  ``flatten=False`` keeps the
+    TLAS layout (instances over BLASes, 4-wide), as the megakernel
+    engine renders it."""
     from vortex_rt_tpu_torch import RTConfig, Scene
     from vortex_rt_tpu_torch.models.procedural import cornell_box, uv_sphere
 
@@ -344,7 +387,7 @@ def config2_scene(width: int = 0, sphere_refl: float = 0.0):
         sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
     sc.add_instance(sc.add_mesh(uv_sphere((0, -0.3, 0), 0.35, 24, 48)),
                     reflectivity=sphere_refl)
-    cfg = RTConfig(flatten=True, bvh_width=width)
+    cfg = RTConfig(flatten=flatten, bvh_width=width)
     return sc.build(cfg), cfg
 
 
@@ -371,16 +414,38 @@ def scale_scene(native: bool = True):
     return sc.build(cfg), cfg
 
 
-def atrium_scene():
+def atrium_scene(flatten: bool = True):
     """The ladder's config-4 scene: atrium(), 259,594 triangles in 29
-    meshes (native build)."""
+    meshes (native build); ``flatten=False`` keeps the TLAS over the 29
+    BLASes, as the CLI builds it for the megakernel engine."""
     from vortex_rt_tpu_torch import RTConfig, Scene
     from vortex_rt_tpu_torch.models.bigscenes import atrium
 
     sc = Scene()
     for mesh, refl in atrium():
         sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
-    cfg = RTConfig(flatten=True)
+    cfg = RTConfig(flatten=flatten)
+    return sc.build(cfg), cfg
+
+
+def instances_scene():
+    """Transformed instances: a box under a translation, a sphere under a
+    translation and a scale, the box again rotated and scaled, the sphere
+    again under the same transform (exact ties between instances)."""
+    from vortex_rt_tpu_torch import RTConfig, Scene
+    from vortex_rt_tpu_torch.models.procedural import box, uv_sphere
+    from vortex_rt_tpu_torch.utils import vecmath as vm
+
+    sc = Scene()
+    mb = sc.add_mesh(box((0, 0, 0), 1.0))
+    ms = sc.add_mesh(uv_sphere((0, 0, 0), 1.0, 16, 24))
+    sphere_at = vm.mat4_translate([3, 0, 0]) @ vm.mat4_scale(1.5)
+    sc.add_instance(mb, vm.mat4_translate([-3, 0, 0]))
+    sc.add_instance(ms, sphere_at)
+    sc.add_instance(mb, vm.mat4_translate([0, 3, 0])
+                    @ vm.mat4_rotate([0, 0, 1], 0.6) @ vm.mat4_scale(0.7))
+    sc.add_instance(ms, sphere_at)
+    cfg = RTConfig()
     return sc.build(cfg), cfg
 
 
@@ -2158,6 +2223,374 @@ def phase_chunked(device, r_tlas, cam, p, size: int = 128) -> dict:
     return dict(rays=rays, launches=launches, max_abs_err=err)
 
 
+# ------------------------------------- the sweep-SAH tree (12d, 12e)
+
+SAH_KERNEL_NAMES = ("tiles_kernel", "carry_kernel", "cost_kernel",
+                    "split_kernel", "assign_kernel")
+
+
+def sah_phase(device, label: str, verts, width: int, leaf: int, trees: dict,
+              o, d, reps: int = 5, **walk_kw) -> dict:
+    """The sweep-SAH build over ``verts`` (Morton-sorted leaves, the
+    tree's kernels, the LBVH collapse, refit and pack; launch counts
+    reset before one build and read after): build ms, levels, the real
+    wide depth; the tree's kernels against ``_sah_sweep_tree_ref`` on the
+    same leaf boxes (run on the card: torch ops), word for word; each
+    kernel's device time (profiler) beside its bound, the whole sweep's
+    by CUDA events and the plain version's; then K1 over the sweep-SAH
+    tree and ``trees`` (name -> WideArrays, the first the reference) on
+    the rays ``o, d``: hits equal to the bit, steps per ray."""
+    import statistics
+
+    from vortex_rt_tpu_torch.accel import lbvh
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import bench_ladder
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
+
+    cuda = device.type == "cuda"
+    l = verts[0].shape[0]
+    kernels.reset_launches()
+    lb, topo = lbvh.build_lbvh_topo(*verts, leaf_size=leaf, method="sah",
+                                    width=width)
+    _sync(device)
+    launches = dict(kernels.LAUNCHES)
+    if cuda:
+        _check(launches["lbvh_sah"] > 0 and launches["lbvh_karras"] == 1
+               and launches["lbvh_collapse"] == 3,
+               f"{label}: the sweep-SAH build launched {launches}")
+    build_ms = statistics.median(bench_ladder.timed_ms(
+        lambda: lbvh.build_lbvh_topo(*verts, leaf_size=leaf, method="sah",
+                                     width=width), device, reps))
+    wa = lbvh.wide_arrays_from_lbvh(lb, leaf, width=width)
+    lmin, lmax = lbvh._leaf_boxes(*verts, topo.order)
+    got = lbvh._sah_sweep_tree(lmin, lmax, l)
+    levels = got[-1]
+    want = lbvh._sah_sweep_tree_ref(lmin, lmax, l)
+    _check(levels == want[-1], f"{label}: {levels} levels, the plain "
+           f"version {want[-1]}")
+    err = _same_bits(f"{label}: sweep-SAH tree vs plain", got[:4], want[:4])
+    _same_bits(f"{label}: the build's children vs the sweep's",
+               (topo.lchild, topo.rchild, topo.lo, topo.hi), got[:4])
+    sweep = lambda: lbvh._sah_sweep_tree(lmin, lmax, l)  # noqa: E731
+    plain_ms = _elapsed_ms(lambda: lbvh._sah_sweep_tree_ref(lmin, lmax, l),
+                           1, device)
+    bounds = wb.sah_bounds(l, levels)
+    rec = dict(tris=l, levels=levels, build_ms=build_ms,
+               launches=launches["lbvh_sah"],
+               launches_per_level=launches["lbvh_sah"] / levels,
+               wide_depth=int(lb.wide_depth), walk_depth=wa.depth,
+               max_abs_err=err, plain_ms=plain_ms,
+               bound_ms=bounds["lbvh_sah"].ms,
+               bound_by=bounds["lbvh_sah"].bound_by)
+    if cuda:
+        rec["ms"] = _device_ms(sweep, reps)
+        kms = _profiled_kernel_ms(sweep, reps, SAH_KERNEL_NAMES)
+        rec["kernel_ms"] = kms
+        rec["kernel_bound_ms"] = {k: bounds[k].ms for k in SAH_KERNEL_NAMES}
+        rec["kernels_ms_sum"] = sum(kms.values())
+    else:
+        rec["ms"] = _elapsed_ms(sweep, 1, device)
+    print(f"  {label}: T {l}, {width}-wide, leaf {leaf}: sweep-SAH build "
+          f"{build_ms:.4f} ms (median of {reps}, CUDA events: Morton "
+          f"codes and sort, {levels} levels of the sweep, the LBVH "
+          f"collapse, refit and pack), {rec['launches']} lbvh_sah launches "
+          f"({rec['launches_per_level']:.0f} a level), wide depth "
+          f"{rec['wide_depth']} (walk stack for {wa.depth}); the sweep's "
+          f"kernels equal the plain version word for word; the sweep "
+          f"{rec['ms']:.4f} ms (CUDA events) against its bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
+          f"{plain_ms:.4f} ms"
+          + ("; kernels (profiler, per sweep): " + ", ".join(
+              f"{k} {v:.4f} ms (bound {bounds[k].ms:.4f})"
+              for k, v in rec["kernel_ms"].items()) if cuda else ""))
+    rec["steps"] = three_tree_steps(
+        f"{label} rays", {**trees, "sah_sweep": wa}, o, d,
+        next(iter(trees)), **walk_kw)
+    return rec
+
+
+def phase_sah_config3(device, reps: int = 5, blob_n: int = 187,
+                      res=(1920, 1080)) -> dict:
+    """Phase 12d: the sweep-SAH tree at config 3's mesh (blob n=187,
+    69,940 triangles, 8-wide, leaf 4), K1 on config 3's 1080p camera
+    rays over the host SAH, sweep-SAH, Karras and PLOC trees."""
+    from vortex_rt_tpu_torch.accel import lbvh, ploc
+    from vortex_rt_tpu_torch.engine.wavefront import WavefrontRenderer
+    from vortex_rt_tpu_torch.models import bigscenes
+    from vortex_rt_tpu_torch.models.scene import Scene
+    from vortex_rt_tpu_torch.tools import bench_ladder
+    from vortex_rt_tpu_torch.utils.config import RTConfig
+
+    cfg = RTConfig(flatten=True)
+    sb = bench_ladder._single_mesh(bigscenes.blob(n=blob_n), cfg)
+    leaf, width = cfg.max_leaf_tris, cfg.bvh_width
+    verts = bench_ladder._device_verts(sb, leaf, device)
+    plb, pt = ploc.build_ploc_topo(*verts, leaf_size=leaf, width=width)
+    trees = {"sah_host": WavefrontRenderer.from_buffers(sb, cfg,
+                                                        device=device).wa,
+             "karras": lbvh.build_wide_from_tris(sb, leaf_size=leaf,
+                                                 width=width, device=device),
+             "ploc": ploc.wide_arrays_from_ploc(plb, pt, leaf, width)}
+    w, h = res
+    o, d = camera_rays(Scene.framing_camera(sb, 45.0, w / h), w, h, device)
+    return sah_phase(device, "config 3's mesh", verts, width, leaf, trees,
+                     o, d, reps)
+
+
+def phase_sah_config5(device, st, reps: int = 5, res=(1920, 1080)) -> dict:
+    """Phase 12e: the sweep-SAH tree at config 5's mesh (phase 11c's
+    ``st``: 999,700 triangles, 8-wide, leaf 4), K1 on phase 11c's crop of
+    camera rays over the host SAH, sweep-SAH and Karras trees."""
+    from vortex_rt_tpu_torch.tools import bench_ladder
+
+    w, h = res
+    o, d = camera_rays(bench_ladder.camera5(st.sb, w, h), w, h, device)
+    n = min(REFIT_CROP, o.shape[0])
+    a0 = (o.shape[0] - n) // 2
+    o, d = o[a0:a0 + n].contiguous(), d[a0:a0 + n].contiguous()
+    trees = {"sah_host": st.host_wa, "karras": st.refit_frame(0.0)}
+    return sah_phase(device, "config 5's mesh", st.verts,
+                     st.cfg.bvh_width, st.cfg.max_leaf_tris, trees, o, d,
+                     reps)
+
+
+# ------------------------------------- the megakernel engine (15a-15c)
+
+def pool_depth(ta) -> int:
+    """Levels of the merged TLAS+BLAS pool from the TLAS root to the
+    deepest leaf of the deepest BLAS an instance enters (the binary walk
+    pushes at most one far child a level)."""
+    import numpy as np
+
+    kind = ta.kind.cpu().numpy()
+    left = ta.left.cpu().numpy()
+    root = ta.inst_root.cpu().numpy()
+    frontier, depth = np.zeros(1, np.int64), 0
+    while frontier.size:
+        depth += 1
+        k, lft = kind[frontier], left[frontier]
+        inner = lft[k == 0]
+        enter = root[np.clip(lft[k == 1], 0, root.shape[0] - 1)]
+        frontier = np.unique(np.concatenate([inner, inner + 1, enter]))
+    return depth
+
+
+def k6_vs_plain(label: str, ta, o, d, active=None,
+                stack_depth: int = 64) -> float:
+    """K6 against ``trace_rays_ref`` (run on the card: torch ops) on the
+    same rays: hits, per-ray counts and steps equal to the bit."""
+    from vortex_rt_tpu_torch.ops import traverse2 as t2
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT
+
+    before = kernels.LAUNCHES["traverse2"]
+    hits, perf = t2.trace_rays(ta, o, d, stack_depth=stack_depth,
+                               active=active)
+    _sync(o.device)
+    if o.device.type == "cuda":
+        _check(kernels.LAUNCHES["traverse2"] == before + 1,
+               f"{label}: K6 not launched once")
+    ph, pp = t2.trace_rays_ref(ta, o, d, stack_depth=stack_depth,
+                               active=active)
+    err = _same_bits(f"{label}: K6 vs plain", (*hits, *perf), (*ph, *pp))
+    live = o.shape[0] if active is None else int(active.sum())
+    print(f"  {label}: {o.shape[0]} rays ({live} live), stack depth "
+          f"{stack_depth}, {int((hits.dist < LARGE_FLOAT).sum())} hits; K6 "
+          f"equals the plain version (hits, nodes_visited, tri_tests, steps "
+          f"{int(perf.steps)}); steps per live ray mean "
+          f"{float(perf.nodes_visited.float().sum()) / max(live, 1):.3f}")
+    return err
+
+
+def k6_times(label: str, ta, o, d, active=None, reps: int = 10) -> dict:
+    """K6's time on these rays: the profiler's kernel time (the launch
+    alone, CUDA events around it beside), the plain version's and the
+    bound of the work they need (``k6_bound``)."""
+    from vortex_rt_tpu_torch.ops import traverse2 as t2
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
+
+    call = t2.kernel_call(ta, o, d, active=active)
+    b = wb.k6_bound(t2.rays_work(ta, o, d, active=active))
+    events_ms = _device_ms(call, reps)
+    ms = _profiled_kernel_ms(call, reps, ["traverse2_kernel"])[
+        "traverse2_kernel"]
+    plain_ms = _elapsed_ms(lambda: t2.trace_rays_ref(ta, o, d,
+                                                     active=active),
+                           1, o.device)
+    print(f"  {label}: K6 {ms:.4f} ms (profiler's kernel time, mean of "
+          f"{reps}; CUDA events around the launch {events_ms:.4f} ms), "
+          f"plain {plain_ms:.4f} ms; bound {b.ms:.4f} ms ({b.bound_by}: "
+          f"{b.bytes} B, {b.ops} operations), {b.ms / ms:.1%} of it")
+    return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+                bound_ms=b.ms, bound_by=b.bound_by, bound_bytes=b.bytes,
+                bound_ops=b.ops, rays=int(o.shape[0]))
+
+
+def megakernel_frames(device, label: str, sb, cam, p, w: int, h: int,
+                      reps: int) -> dict:
+    """The megakernel engine's entry point on a frame: launch counts reset
+    before ``reps`` timed frames (after a warm-up) and read after; ms a
+    frame (wall, synchronised), Mrays/s, rays, peak bytes, K6 launches a
+    frame; a finite image of the right shape."""
+    import torch
+
+    from vortex_rt_tpu_torch.engine.megakernel import MegakernelRenderer
+    from vortex_rt_tpu_torch.runtime import kernels
+
+    r = MegakernelRenderer.from_buffers(sb, device=device)
+    out = [r.frame(cam, p, w, h)]
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    ms = _elapsed_ms(lambda: out.__setitem__(0, r.frame(cam, p, w, h)),
+                     reps, device)
+    launches = kernels.LAUNCHES["traverse2"]
+    img, rays = out[0]
+    rays = int(rays)
+    _check(tuple(img.shape) == (h, w, 3) and bool(torch.isfinite(img).all()),
+           f"{label}: the image is not finite or not {h}x{w}x3")
+    _check(rays >= w * h * p.spp, f"{label}: {rays} rays")
+    rec = dict(ms_per_frame=ms, rays_per_frame=rays,
+               mrays=rays / (ms * 1e3), k6_launches=launches,
+               k6_launches_per_frame=launches / reps,
+               pool_depth=pool_depth(r.ta), table_bytes=r.ta.nbytes,
+               scene_bytes=r.st.nbytes)
+    if device.type == "cuda":
+        _check(launches == reps * p.spp * p.max_depth,
+               f"{label}: {launches} K6 launches in {reps} frames, not "
+               f"{reps * p.spp * p.max_depth}")
+        rec["peak_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    print(f"  {label}: {w}x{h}, spp {p.spp}, depth {p.max_depth}: "
+          f"{ms:.3f} ms a frame (mean of {reps} after a warm-up), "
+          f"{rec['mrays']:.3f} Mrays/s, {rays} rays a frame, K6 "
+          f"{rec['k6_launches_per_frame']:g} launches a frame, peak "
+          f"{rec.get('peak_bytes')} B, pool {r.ta.kind.shape[0]} nodes "
+          f"({rec['table_bytes']} B), binary depth (TLAS + deepest BLAS) "
+          f"{rec['pool_depth']} beside K6's stack of 64")
+    _check(rec["pool_depth"] <= 64, f"{label}: the pool is "
+           f"{rec['pool_depth']} levels deep, past K6's 64 stack entries")
+    return rec
+
+
+def megakernel_waves(r, cam, p, w: int, h: int):
+    """The rays and live masks of the first sample pass's waves, as
+    ``render_megakernel`` makes them (the first jitter split at spp > 1)."""
+    import torch
+
+    from vortex_rt_tpu_torch.engine import megakernel as mk
+    from vortex_rt_tpu_torch.utils import prng
+
+    dev = r.device
+    jitter = None
+    if p.spp > 1:
+        _, k2 = prng.split(prng.prng_key(0))
+        jitter = prng.uniform(k2, (h, w, 2), dev)
+    cama = mk.CameraArrays.from_camera(cam, dev)
+    light = mk.LightArrays.from_params(p, dev)
+    o, d = mk.generate_camera_rays(cama, w, h, jitter)
+    n = w * h
+    rad = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    thr = torch.ones(n, dtype=torch.float32, device=dev)
+    act = torch.ones(n, dtype=torch.bool, device=dev)
+    waves = []
+    for bounce in range(p.max_depth):
+        waves.append((o, d, act))
+        o, d, rad, thr, act, _ = mk.trace_wave(r.ta, r.st, light, o, d, rad,
+                                               thr, act, bounce, p.max_depth)
+    return waves
+
+
+def phase_megakernel(device, mk_reps: int = 3, size=512,
+                     hd=(1920, 1080)) -> dict:
+    """Phases 15a-15c: MK-A, MK-B, and K6 against its plain version and
+    timed."""
+    import dataclasses as dc
+
+    import torch
+
+    from vortex_rt_tpu_torch import Camera, RenderParams, Scene
+    from vortex_rt_tpu_torch.engine.megakernel import MegakernelRenderer
+    from vortex_rt_tpu_torch.ops.traverse2 import TraversalArrays
+
+    _phase("phase 15a MK-A: the megakernel engine on config 2's TLAS scene "
+           f"({size}x{size}, spp 4, depth 3, mirror sphere)")
+    sb_a, _ = config2_scene(sphere_refl=0.6, flatten=False)
+    cam_a = config2_camera()
+    p_a = RenderParams(light_pos=LIGHT2, max_depth=3, spp=4)
+    mk_a = megakernel_frames(device, "MK-A", sb_a, cam_a, p_a, size, size,
+                             mk_reps)
+    # the kernel route against the plain route (CPU) on a small frame
+    small = 64
+    ra = MegakernelRenderer.from_buffers(sb_a, device=device)
+    img_k, n_k = ra.render(cam_a, dc.replace(p_a, spp=2), small, small)
+    img_p, n_p = MegakernelRenderer.from_buffers(sb_a, device="cpu").render(
+        cam_a, dc.replace(p_a, spp=2), small, small)
+    diff = float(abs(img_k - img_p).max())
+    _check(n_k == n_p and diff <= IMG_ATOL,
+           f"MK-A {small}x{small} spp 2: {n_k} vs {n_p} rays, image diff "
+           f"{diff}")
+    print(f"  MK-A at {small}x{small}, spp 2: the card's frame equals the "
+          f"CPU's ({n_k} rays both, image max diff {diff:.3g})")
+    mk_a["plain_frame_diff"] = diff
+
+    _phase("phase 15b MK-B: the megakernel engine on the atrium's TLAS "
+           f"({hd[0]}x{hd[1]}, spp 1, depth 2; the CLI's -m atrium "
+           "--engine megakernel)")
+    t0 = time.perf_counter()
+    sb_b, _ = atrium_scene(flatten=False)
+    build_s = time.perf_counter() - t0
+    w, h = hd
+    cam_b = Scene.framing_camera(sb_b, 45.0, w / h, zoom=1.0)
+    p_b = RenderParams(spp=1, max_depth=2)
+    mk_b = megakernel_frames(device, "MK-B", sb_b, cam_b, p_b, w, h,
+                             mk_reps)
+    mk_b["host_build_s"] = build_s
+    rb = MegakernelRenderer.from_buffers(sb_b, device=device)
+    waves_b = megakernel_waves(rb, cam_b, p_b, w, h)
+    live_b = [int(a.sum()) for _, _, a in waves_b]
+    mk_b["live_per_wave"] = live_b
+    print(f"  MK-B: host build (native, TLAS over 29 BLASes) {build_s:.2f} s;"
+          f" live lanes per wave {live_b} (no instance reflects, so the "
+          f"second wave's K6 launch has no live lane: every thread reads "
+          f"its flag and writes the initial record)")
+
+    _phase("phase 15c K6 vs its plain version, and timed")
+    err = 0.0
+    waves_a = megakernel_waves(ra, cam_a, p_a, size, size)
+    for k, (o, d, act) in enumerate(waves_a):
+        err = max(err, k6_vs_plain(f"MK-A wave {k}", ra.ta, o, d,
+                                   None if k == 0 else act))
+    o, d, _ = waves_b[0]
+    err = max(err, k6_vs_plain("MK-B primary wave", rb.ta, o, d))
+    sb_i, _ = instances_scene()
+    ta_i = TraversalArrays.from_scene(sb_i).to(device)
+    g = torch.Generator().manual_seed(5)
+    n = 132 * 128 * 4 + 17
+    oi = ((torch.rand(n, 3, generator=g) - 0.5) * 12).to(device)
+    di = torch.nn.functional.normalize(torch.randn(n, 3, generator=g))
+    di = di.to(device)
+    act_i = torch.arange(n, device=device) % 3 != 1
+    for active in (None, act_i):
+        for depth in (64, 4):  # 4: the stack overflows, clamped as in JAX
+            err = max(err, k6_vs_plain("transformed instances", ta_i, oi,
+                                       di, active, depth))
+    print(f"  binary depth of the transformed-instances pool "
+          f"{pool_depth(ta_i)} beside K6's stack of 64")
+    times = {}
+    if device.type == "cuda":
+        o, d, _ = waves_a[0]
+        times["mk_a_primary"] = k6_times("MK-A primary wave", ra.ta, o, d)
+        o, d, act = waves_a[1]
+        times["mk_a_bounce1"] = k6_times("MK-A wave 1 (bounce)", ra.ta, o, d,
+                                         act)
+        o, d, _ = waves_b[0]
+        times["mk_b_primary"] = k6_times("MK-B primary wave", rb.ta, o, d,
+                                         reps=5)
+    del waves_a, waves_b, ra, rb
+    return dict(mk_a=mk_a, mk_b=mk_b, max_abs_err=err, times=times)
+
+
 def phase_k7(device, check_rows: int = K7_ROWS[0], check_steps: int = 500
              ) -> dict:
     import torch
@@ -2291,6 +2724,11 @@ def main() -> int:
     c3p = phase_config3_ploc(device, c3, ploc_checked, ploc_err)
     _phase("phase 12c PLOC at config 5's mesh (wavy_grid n=708)")
     c5p = phase_config5_ploc(device, st5, ploc_checked, ploc_err)
+    _phase("phase 12d the sweep-SAH tree at config 3's mesh (blob n=187)")
+    sah3 = phase_sah_config3(device)
+    _phase("phase 12e the sweep-SAH tree at config 5's mesh (wavy_grid "
+           "n=708)")
+    sah5 = phase_sah_config5(device, st5)
     del st5
     _phase("phase 13c ladder row 6 (textured atrium, alpha cutout in K1)")
     row6, sc6, r6, r6_tlas, cam6, p6, table6 = phase_row6(device)
@@ -2304,7 +2742,8 @@ def main() -> int:
     del r6
     chunked = phase_chunked(device, r6_tlas, cam6, p6)
     del r6_tlas
-    _phase("phase 14 results")
+    mk = phase_megakernel(device)
+    _phase("phase 16 results")
     print(f"  summary: config2 {c2['mrays']:.3f} Mrays/s, scale "
           f"{sc['mrays']:.3f} Mrays/s, peak {sc['peak_bytes']} B; config 3 "
           f"{c3['frame_ms']:.3f} ms/frame {c3['mrays']:.3f} Mrays/s, config "
@@ -2425,6 +2864,59 @@ def main() -> int:
           f"{row6['peak_bytes']} B; parity RMSE {par6['parity_rmse']:.3g} "
           f"with {par6['k3_launches']} K3 launches; chunked frame "
           f"{chunked['launches']} K3 launches")
+    # K6: launches are MK-A's timed frames' (12 a frame), MK-B's beside
+    # them; its time the profiler's kernel time on MK-A's primary wave
+    t6 = mk["times"]["mk_a_primary"]
+    src, replaces = SOURCES["traverse2"]
+    rows.append({"name": "traverse2", "route": "cuda", "source": src,
+                 "replaces": replaces,
+                 "launches": mk["mk_a"]["k6_launches"],
+                 "launches_per_frame": mk["mk_a"]["k6_launches_per_frame"],
+                 "launches_by_path": {
+                     "mk_a": mk["mk_a"]["k6_launches"],
+                     "mk_b": mk["mk_b"]["k6_launches"]},
+                 "max_abs_err": mk["max_abs_err"], "ms": t6["ms"],
+                 "plain_ms": t6["plain_ms"], "bound_ms": t6["bound_ms"],
+                 "bound_by": t6["bound_by"],
+                 "bound_share": t6["bound_ms"] / t6["ms"],
+                 # no one PyTorch call walks a BVH
+                 "library_ms": None, "ms_source": "profiler_kernel",
+                 "events_ms": t6["events_ms"],
+                 "other_waves": {k: {f: v[f] for f in (
+                     "ms", "events_ms", "plain_ms", "bound_ms", "rays")}
+                     for k, v in mk["times"].items() if k != "mk_a_primary"}})
+    # the sweep-SAH tree: launches of one build at config 3's mesh (five a
+    # level); its time the whole sweep's by CUDA events, each kernel's by
+    # the profiler beside; config 5's mesh beside
+    src, replaces = SOURCES["lbvh_sah"]
+    rows.append({"name": "lbvh_sah", "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": sah3["launches"],
+                 "kernels": list(SAH_KERNEL_NAMES),
+                 "launches_per_frame": None,
+                 "launches_by_path": {"config3_sah_build": sah3["launches"],
+                                      "config5_sah_build": sah5["launches"]},
+                 "max_abs_err": max(sah3["max_abs_err"], sah5["max_abs_err"]),
+                 "ms": sah3["ms"], "plain_ms": sah3["plain_ms"],
+                 "bound_ms": sah3["bound_ms"], "bound_by": sah3["bound_by"],
+                 "bound_share": sah3["bound_ms"] / sah3["ms"],
+                 # no one PyTorch call builds a tree (torch.cumsum between
+                 # the kernels is the jnp.cumsum of the JAX loop)
+                 "library_ms": None, "ms_source": "cuda_events_wrapper",
+                 "kernel_ms": sah3["kernel_ms"],
+                 "kernel_bound_ms": sah3["kernel_bound_ms"],
+                 "levels": sah3["levels"],
+                 "config5": {k: sah5[k] for k in (
+                     "ms", "plain_ms", "bound_ms", "kernel_ms", "levels",
+                     "build_ms")}})
+    print(f"  megakernel: MK-A {mk['mk_a']['ms_per_frame']:.3f} ms/frame "
+          f"{mk['mk_a']['mrays']:.3f} Mrays/s {mk['mk_a']['rays_per_frame']} "
+          f"rays, peak {mk['mk_a'].get('peak_bytes')} B; MK-B "
+          f"{mk['mk_b']['ms_per_frame']:.3f} ms/frame "
+          f"{mk['mk_b']['mrays']:.3f} Mrays/s {mk['mk_b']['rays_per_frame']} "
+          f"rays, peak {mk['mk_b'].get('peak_bytes')} B; sweep-SAH builds "
+          f"{sah3['build_ms']:.4f} ms ({sah3['levels']} levels, wide depth "
+          f"{sah3['wide_depth']}) and {sah5['build_ms']:.4f} ms "
+          f"({sah5['levels']} levels, wide depth {sah5['wide_depth']})")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

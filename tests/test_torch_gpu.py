@@ -2,7 +2,9 @@
 card: the 4-wide walk (K2), the 8-wide fused walk (K1), both in their
 alpha-cutout modes, the per-ray walk with any-hit suspension (K3), the
 chained row-fetch probe (K7), the four kernels of the on-device LBVH build
-and refit (K5) and those of the on-device PLOC build and level refit (K4).
+and refit (K5) and those of the on-device PLOC build and level refit (K4),
+the binary TLAS+BLAS walk of the megakernel (K6) and the sweep-SAH tree's
+kernels.
 
 Needs a CUDA device and nvcc; skips without a card.  It imports neither
 JAX nor the JAX package, so it also runs on a machine without JAX — with
@@ -715,3 +717,125 @@ def test_anyhit_frames_match_plain_route(cuda, route, monkeypatch):
     img_p, rays_p = rp.render(cam, p, 64, 64)
     assert rays_k == rays_p
     np.testing.assert_allclose(img_k, img_p, atol=1e-5)
+
+
+# ---------------------------------------------- K6 and the megakernel
+
+def _tlas_pool():
+    from vortex_rt_tpu_torch.ops.traverse2 import TraversalArrays
+    from vortex_rt_tpu_torch.utils import vecmath as vm
+
+    sc = pt.Scene()
+    mb = sc.add_mesh(box((0, 0, 0), 1.0))
+    ms = sc.add_mesh(uv_sphere((0, 0, 0), 1.0, 8, 12))
+    sc.add_instance(mb, vm.mat4_translate([-3, 0, 0]))
+    sc.add_instance(ms, vm.mat4_translate([3, 0, 0]) @ vm.mat4_scale(1.5))
+    sc.add_instance(mb, vm.mat4_translate([0, 3, 0])
+                    @ vm.mat4_rotate([0, 0, 1], 0.6) @ vm.mat4_scale(0.7))
+    sc.add_instance(sc.add_mesh(random_soup(
+        __import__("numpy").random.default_rng(1), 400, extent=2.0)))
+    return TraversalArrays.from_scene(sc.build(pt.RTConfig()))
+
+
+@pytest.mark.parametrize("stack_depth", [64, 4])
+def test_k6_matches_plain_version(cuda, stack_depth):
+    """K6 against trace_rays_ref: hits, per-ray counts and steps equal,
+    with a third of the rays inactive; at stack_depth 4 the stack
+    overflows (the clamped push and pop of the JAX arrays)."""
+    from vortex_rt_tpu_torch.ops import traverse2 as t2
+
+    ta = _tlas_pool().to(cuda)
+    g = torch.Generator().manual_seed(3)
+    n = 5000
+    o = ((torch.rand(n, 3, generator=g) - 0.5) * 12).to(cuda)
+    d = torch.nn.functional.normalize(torch.randn(n, 3, generator=g)).to(cuda)
+    live = torch.arange(n, device=cuda) % 3 != 1
+    for active in (None, live):
+        before = kernels.LAUNCHES["traverse2"]
+        k, kp = t2.trace_rays(ta, o, d, stack_depth=stack_depth,
+                              active=active)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["traverse2"] == before + 1
+        p, pp = t2.trace_rays_ref(ta, o, d, stack_depth=stack_depth,
+                                  active=active)
+        for a, b in zip((*k, *kp), (*p, *pp)):
+            assert torch.equal(a, b)
+        assert bool((k.dist < 1e30).any())
+
+
+def test_k6_kernel_call_relaunches(cuda):
+    """Relaunches through kernel_call after other allocations give the
+    same records: the launcher holds its inputs and outputs."""
+    from vortex_rt_tpu_torch.ops import traverse2 as t2
+
+    ta = _tlas_pool().to(cuda)
+    g = torch.Generator().manual_seed(4)
+    o = ((torch.rand(3000, 3, generator=g) - 0.5) * 12).to(cuda)
+    d = torch.nn.functional.normalize(torch.randn(3000, 3, generator=g))
+    launch = t2.kernel_call(ta, o, d.to(cuda))
+    first = [a.clone() for a in launch()]
+    del o, d
+    junk = [torch.full((1 << 20,), 7.0, device=cuda) for _ in range(8)]
+    again = launch()
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    del junk
+
+
+def test_megakernel_frame_matches_cpu_frame(cuda):
+    """A 48x48 frame at spp 2, depth 3 (mirror sphere) on the card
+    against the same frame on the CPU: equal ray counts, pixels within
+    1e-5 (elementwise torch ops may round differently on the two
+    devices), K6 launched once a wave."""
+    from vortex_rt_tpu_torch.engine.megakernel import MegakernelRenderer
+
+    sb = _scene(False)
+    cam = pt.Camera.look_at([0.11, 0.07, -3.2], [0.02, -0.01, 0], [0, 1, 0],
+                            45.0, 1.0)
+    p = pt.RenderParams(light_pos=(0, 0.8, -0.5), max_depth=3, spp=2)
+    kernels.reset_launches()
+    img, n = MegakernelRenderer.from_buffers(sb, device=cuda).render(
+        cam, p, 48, 48)
+    assert kernels.LAUNCHES["traverse2"] == 6
+    ref, n_ref = MegakernelRenderer.from_buffers(sb, device="cpu").render(
+        cam, p, 48, 48)
+    assert n == n_ref > 2 * 48 * 48
+    assert float(abs(img - ref).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("mesh", ["random_soup", "wavy_grid"])
+def test_sah_kernels_match_plain_version(cuda, mesh):
+    """The sweep-SAH tree's kernels against _sah_sweep_tree_ref (run on
+    the card too: it is torch ops on any device): lchild, rchild, lo, hi
+    and the level count equal, on a mesh past one tile of positions and
+    on one past the carry kernel's one tile a thread (1,096 tiles of
+    1,024); then, on the soup, the build's tables against the plain
+    build's on the CPU, word for word."""
+    import numpy as np
+
+    m = (random_soup(np.random.default_rng(2), 3001) if mesh == "random_soup"
+         else wavy_grid(n=750))
+    v = lbvh.pad_tris(m.v0, m.v1, m.v2, 4)
+    vd = [torch.from_numpy(a).to(cuda) for a in v]
+    vc = [torch.from_numpy(a) for a in v]
+    l = vd[0].shape[0]
+    order = torch.randperm(l, generator=torch.Generator().manual_seed(1))
+    order = order.to(torch.int32)
+    before = kernels.LAUNCHES["lbvh_sah"]
+    got = lbvh._sah_sweep_tree(*lbvh._leaf_boxes(*vd, order.to(cuda)), l)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lbvh_sah"] == before + 5 * got[-1]
+    want = lbvh._sah_sweep_tree_ref(
+        *lbvh._leaf_boxes(*vd, order.to(cuda)), l)
+    assert got[-1] == want[-1]
+    for a, b in zip(got[:4], want[:4]):
+        assert torch.equal(a, b)
+    if mesh != "random_soup":
+        return
+    lb, topo = lbvh.build_lbvh_topo(*vd, method="sah", width=8)
+    lbc, topoc = lbvh.build_lbvh_topo(*vc, method="sah", width=8)
+    for a, b in zip(topo, topoc):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(lb.fused.cpu(), lbc.fused)
+    assert lb.wide_depth == lbc.wide_depth

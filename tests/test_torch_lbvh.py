@@ -421,8 +421,6 @@ def test_random_soup_equals_jax():
 
 def test_refused_options():
     v = [torch.zeros(16, 3)] * 3
-    with pytest.raises(NotImplementedError, match="9b"):
-        tl.build_lbvh_topo(*v, method="sah")
     with pytest.raises(ValueError):
         tl.build_lbvh_topo(*v, method="median")
     with pytest.raises(ValueError, match="smaller than one leaf"):
@@ -431,3 +429,169 @@ def test_refused_options():
     _, topo = tl.build_lbvh_topo(*v, width=8)
     with pytest.raises(ValueError, match="4-wide only"):
         tl.refit_lbvh(topo, *v, width=8, tlas=True)
+
+
+# ------------------------------------------------- the sweep-SAH tree
+
+# The meshes of the sweep-SAH checks, made from seeded NumPy alone, run in
+# this process and in the JAX subprocess: a 300-triangle soup, and a
+# regular grid of 12 x 12 squares (corner heights 0 or 0.5 in a checker
+# pattern, so no box is flat: a flat box's scale exponent is hazard H7)
+# with every triangle twice, where equal boxes and mirror-symmetric
+# splits give equal costs (the argmin's ties).
+_SAH_MESHES = r"""
+import numpy as np
+
+
+def sah_meshes():
+    rng = np.random.default_rng(17)
+    base = rng.uniform(-10, 10, (300, 3)).astype(np.float32)
+    soup = tuple(base + rng.normal(size=(300, 3)).astype(np.float32)
+                 for _ in range(3))
+    g = np.arange(12, dtype=np.float32)
+    x, y = (a.ravel() for a in np.meshgrid(g, g))
+
+    def corner(px, py):
+        return np.stack([px, py, np.float32(0.5) * ((px + py) % 2)], 1)
+
+    p00, p10 = corner(x, y), corner(x + 1, y)
+    p11, p01 = corner(x + 1, y + 1), corner(x, y + 1)
+    tri = (np.concatenate([p00, p00]), np.concatenate([p10, p11]),
+           np.concatenate([p11, p01]))
+    ties = tuple(np.concatenate([a, a]).astype(np.float32) for a in tri)
+    return {"soup": soup, "ties": ties}
+"""
+
+# jitted, in an interpreter with XLA_FLAGS=--xla_cpu_max_isa=AVX (no FMA
+# contraction of the cost's products and sums, hazard H2): _sah_sweep_tree
+# over each mesh's Morton-sorted leaf boxes, and build_lbvh_topo(
+# method="sah") at widths 4 and 8
+_SAH_REFERENCE = _SAH_MESHES + r"""
+import sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+from vortex_rt_tpu.accel import lbvh as jl
+
+out = {}
+sweep = jax.jit(jl._sah_sweep_tree, static_argnums=2)
+for name, v in sah_meshes().items():
+    v = [jnp.asarray(a) for a in v]
+    for w in (4, 8):
+        lb, topo = jl.build_lbvh_topo(*v, leaf_size=4, method="sah", width=w)
+        for k, a in topo._asdict().items():
+            out[f"{name}/{w}/topo/{k}"] = np.asarray(a)
+        out[f"{name}/{w}/nodes"] = np.asarray(lb.nodes)
+        out[f"{name}/{w}/tri_rows"] = np.asarray(lb.tri_rows)
+    lmin, lmax = jl._leaf_boxes(*v, topo.order)
+    for k, a in zip(("lchild", "rchild", "lo", "hi"),
+                    sweep(lmin, lmax, v[0].shape[0])):
+        out[f"{name}/sweep/{k}"] = np.asarray(a)
+np.savez(sys.argv[1], **out)
+"""
+SAH_MESHES = ("soup", "ties")
+
+
+@pytest.fixture(scope="module")
+def sah_reference(tmp_path_factory):
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = tmp_path_factory.mktemp("sah") / "jax_sah.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_cpu_max_isa=AVX")
+    proc = subprocess.run([sys.executable, "-c", _SAH_REFERENCE, str(path)],
+                          cwd=repo, env=env, capture_output=True, text=True,
+                          timeout=900)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _sah_mesh(name):
+    ns = {}
+    exec(_SAH_MESHES, ns)
+    return [torch.from_numpy(a) for a in ns["sah_meshes"]()[name]]
+
+
+@pytest.mark.parametrize("mesh", SAH_MESHES)
+def test_sah_sweep_tree_equals_jax(sah_reference, mesh):
+    """``_sah_sweep_tree`` over the JAX build's sorted leaf boxes: lchild,
+    rchild, lo and hi equal word for word; ``levels`` is the loop's count,
+    one more than the deepest internal's depth."""
+    ref = sah_reference
+    v = _sah_mesh(mesh)
+    order = torch.from_numpy(ref[f"{mesh}/4/topo/order"])
+    lmin, lmax = tl._leaf_boxes(*v, order)
+    l = v[0].shape[0]
+    *got, levels = tl._sah_sweep_tree(lmin, lmax, l)
+    for k, a in zip(("lchild", "rchild", "lo", "hi"), got):
+        _same(ref[f"{mesh}/sweep/{k}"], a, k)
+    # every internal's range splits into two non-empty halves
+    lo, hi = got[2].numpy(), got[3].numpy()
+    assert (hi > lo).all()
+    depth = np.zeros(l - 1, np.int64)
+    for k in range(l - 1):  # ids grow level by level: parents come first
+        for c in (got[0][k], got[1][k]):
+            if c < l - 1:
+                depth[c] = depth[k] + 1
+    assert levels == depth.max() + 1
+
+
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("mesh", SAH_MESHES)
+def test_sah_build_equals_jax(sah_reference, mesh, width):
+    """``build_lbvh_topo(method="sah")``: every ``LBVHTopo`` field, the
+    node words and the triangle rows equal the JAX build's; the nodes
+    carry the collapsed tree's real depth."""
+    ref = sah_reference
+    v = _sah_mesh(mesh)
+    lb, topo = tl.build_lbvh_topo(*v, leaf_size=4, method="sah", width=width)
+    for k in ref_fields(ref, f"{mesh}/{width}/topo/"):
+        _same(ref[f"{mesh}/{width}/topo/{k}"], getattr(topo, k), k)
+    _same(ref[f"{mesh}/{width}/nodes"], lb.nodes, "nodes")
+    _same(ref[f"{mesh}/{width}/tri_rows"], lb.tri_rows, "tri_rows")
+    wa = tl.wide_arrays_from_lbvh(lb, 4, width=width)
+    assert lb.wide_depth is not None and wa.depth >= lb.wide_depth >= 2
+
+
+def ref_fields(ref, prefix):
+    return [k[len(prefix):] for k in ref if k.startswith(prefix)]
+
+
+def test_sah_tree_walks_to_brute_force_hits():
+    """K1's and K2's plain walks over the sweep-SAH tree find the hits of
+    the Karras tree over the same soup (ids equal, distances within
+    1e-6 relative: the trees group the triangles differently)."""
+    v = _sah_mesh("soup")
+    rng = np.random.default_rng(5)
+    o = torch.from_numpy(rng.uniform(-12, 12, (256, 3)).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(256, 3)).astype(np.float32))
+    d = d / d.norm(dim=1, keepdim=True)
+    for width, walk in ((8, trace_packets_ref), (4, trace_packets_walk_ref)):
+        hits = []
+        for method in ("sah", "karras"):
+            lb, _ = tl.build_lbvh_topo(*v, leaf_size=4, method=method,
+                                       width=width)
+            wa = tl.wide_arrays_from_lbvh(lb, 4, width=width)
+            hits.append(walk(wa, o, d)[0])
+        a, b = hits
+        assert torch.equal(a.tri, b.tri)
+        assert torch.allclose(a.dist, b.dist, rtol=1e-6)
+        assert int((a.dist < LARGE_FLOAT).sum()) > 10
+
+
+def test_deep_sah_tree_is_refused():
+    """A tree deeper than the card's walk holds raises where it is
+    wrapped (ROADMAP H8), at both widths."""
+    v = _sah_mesh("soup")
+    for width in (4, 8):
+        lb, _ = tl.build_lbvh_topo(*v, leaf_size=4, method="sah",
+                                   width=width)
+        deep = tl.LBVHNodes(nodes=lb.nodes, tri_rows=lb.tri_rows,
+                            num_leaves=lb.num_leaves, fused=lb.fused,
+                            wide_depth=60)
+        with pytest.raises(ValueError, match="stack entries"):
+            tl.wide_arrays_from_lbvh(deep, 4, width=width)

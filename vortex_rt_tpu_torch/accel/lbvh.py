@@ -39,8 +39,14 @@ and so do the packed words: the scale exponent ``ceil(log2(extent /
 255))`` is taken from the float's bits in both versions (ROADMAP hazard
 H7).
 
-``method="sah"`` (the JAX package's measured and not adopted sweep-SAH
-tree) is not ported: ROADMAP Queue 1, item 9b.
+``method="sah"`` replaces step 3 with the JAX package's sweep-SAH tree
+(measured there and not adopted): every contiguous range of the sorted
+triangles splits at its SAH-cheapest position within its middle half, one
+level of ranges at a time (``_sah_sweep_tree``; its kernels are
+``csrc/lbvh_sah.cu``, ``_sah_sweep_tree_ref`` its plain version).  Its
+depth is not bounded by the key's length: the build reports the collapsed
+tree's real depth (``LBVHNodes.wide_depth``), and ``wide_arrays_from_lbvh``
+takes it and refuses a tree deeper than the walk's stack (ROADMAP H8).
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ import torch
 from vortex_rt_tpu_torch.accel.qbvh import (
     KIND_INSTANCE, KIND_INTERNAL, KIND_TRIS,
 )
+from vortex_rt_tpu_torch.ops import packet_walk, traverse_packet
 from vortex_rt_tpu_torch.ops.traverse_wide import (
     INST_ROOT, INST_XFORM, ROW_WORDS, WideArrays, fuse_rows, left_bits,
     row_layout,
@@ -73,6 +80,9 @@ class LBVHNodes:
     tri_rows: torch.Tensor    # (rows, 16*leaf) f32: one leaf per row
     num_leaves: torch.Tensor  # 0-dim: leaf rows in use
     fused: Optional[torch.Tensor] = None  # (pool, 32 + 16*leaf) int32
+    # the collapsed tree's depth (root = 1), where it is not bounded by
+    # the Morton key's length: the sweep-SAH build sets it
+    wide_depth: Optional[int] = None
 
 
 class LBVHTopo(NamedTuple):
@@ -307,7 +317,158 @@ def _karras(lcodes: torch.Tensor, l: int):
     return tuple(out)
 
 
-# ------------------------------------------------------------ collapse
+# ------------------------------------------------------ sweep-SAH tree
+
+SAH_MAX_LEVELS = 96      # the JAX loop's cap
+_SAH_INVALID = 3e38      # the cost of a position no range may split at
+
+
+def _seg_scan_ref(box: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """Inclusive segmented scan of (l, 6) boxes (min xyz, max xyz) over
+    positions 0..l-1, each position's range starting at ``start``: the
+    doubling steps of an associative scan (min and max are exact in any
+    order)."""
+    l = box.shape[0]
+    pos = torch.arange(l, dtype=_I64, device=box.device)
+    k = 1
+    while k < l:
+        prev = torch.cat([box[:k], box[:-k]])
+        joined = torch.cat([torch.minimum(prev[:, :3], box[:, :3]),
+                            torch.maximum(prev[:, 3:], box[:, 3:])], 1)
+        box = torch.where((pos - k >= start).unsqueeze(1), joined, box)
+        k *= 2
+    return box
+
+
+def _sah_sweep_tree_ref(lmin: torch.Tensor, lmax: torch.Tensor, l: int):
+    """Plain version of ``_sah_sweep_tree``: the JAX level body in torch
+    ops, on any device."""
+    dev = lmin.device
+    pos = torch.arange(l, dtype=_I64, device=dev)
+    leaf = torch.cat([lmin, lmax], 1)
+    inv = torch.full((l,), _SAH_INVALID, dtype=_F32, device=dev)
+    seg_lo = torch.zeros(l, dtype=_I64, device=dev)
+    seg_hi = torch.full((l,), l - 1, dtype=_I64, device=dev)
+    node = torch.zeros(l, dtype=_I64, device=dev)
+    next_id = 1
+    out = torch.zeros((4, l), dtype=_I64, device=dev)  # slot l-1 drops
+    levels = 0
+    while levels < SAH_MAX_LEVELS:
+        levels += 1
+        length = seg_hi - seg_lo + 1
+        active = length > 1
+        pre = _seg_scan_ref(leaf, seg_lo)
+        rev = (l - 1) - seg_hi.flip(0)
+        suf = _seg_scan_ref(leaf.flip(0), rev).flip(0)
+        sa_pre = _half_area(pre[:, :3], pre[:, 3:])
+        sa_suf = _half_area(suf[:, :3], suf[:, 3:])
+        sa_next = torch.cat([sa_suf[1:], torch.zeros(1, dtype=_F32,
+                                                     device=dev)])
+        cnt_l = (pos - seg_lo + 1).to(_F32)
+        cnt_r = (seg_hi - pos).to(_F32)
+        cost = sa_pre * cnt_l + sa_next * cnt_r
+        minside = torch.clamp_min(length // 4, 1).to(_F32)
+        valid = (active & (pos < seg_hi) & (cnt_l >= minside)
+                 & (cnt_r >= minside))
+        cost = torch.where(valid, cost, inv)
+        # each range's cheapest position, the lower one on equal cost
+        seg_min = inv.clone().scatter_reduce(0, seg_lo, cost, "amin")
+        cand = torch.where(cost == seg_min[seg_lo], pos, l)
+        split = torch.full((l,), l, dtype=_I64, device=dev).scatter_reduce(
+            0, seg_lo, cand, "amin")[seg_lo]
+
+        rep = (pos == seg_lo) & active
+        left_int = split > seg_lo
+        right_int = seg_hi > split + 1
+        contrib = torch.where(rep, left_int.to(_I64) + right_int.to(_I64), 0)
+        base = next_id + torch.cumsum(contrib, 0) - contrib
+        lid = torch.where(left_int, base, (l - 1) + seg_lo)
+        rid = torch.where(right_int, base + left_int.to(_I64),
+                          (l - 1) + seg_hi)
+        m = torch.where(rep, node, l - 1)
+        for k, val in enumerate((lid, rid, seg_lo, seg_hi)):
+            out[k, m] = torch.where(rep, val, 0)
+        left = pos <= split
+        lid_all, rid_all = lid[seg_lo], rid[seg_lo]
+        seg_lo, seg_hi, node = (
+            torch.where(active, torch.where(left, seg_lo, split + 1), seg_lo),
+            torch.where(active, torch.where(left, split, seg_hi), seg_hi),
+            torch.where(active, torch.where(left, lid_all, rid_all), node))
+        next_id += int(contrib.sum())
+        if not bool((seg_hi > seg_lo).any()):
+            break
+    lch, rch, nlo, nhi = (out[k, :l - 1].to(_I32) for k in range(4))
+    return lch, rch, nlo, nhi, levels
+
+
+def _sah_sweep_tree(lmin: torch.Tensor, lmax: torch.Tensor, l: int):
+    """The sweep-SAH binary tree over ``l`` Morton-sorted leaf boxes
+    ((l, 3) float32 each) -> (lchild, rchild, lo, hi, levels): the
+    children and leaf ranges in the Karras id layout (internal k in
+    [0, l-1), root 0, leaf j at (l-1)+j), as the JAX ``_sah_sweep_tree``
+    gives them, and the levels the loop ran (the deepest internal sits at
+    binary depth ``levels - 1``).  CUDA tensors run ``csrc/lbvh_sah.cu``,
+    five kernels and a ``torch.cumsum`` a level, and read one flag a
+    level; CPU tensors run ``_sah_sweep_tree_ref``."""
+    for b in (lmin, lmax):
+        if (b.dtype != _F32 or tuple(b.shape) != (l, 3)
+                or b.device != lmin.device):
+            raise ValueError(f"leaf boxes must be two ({l}, 3) float32 "
+                             f"tensors on one device")
+    if l < 2:
+        raise ValueError("the sweep-SAH tree needs two leaves")
+    if not _cuda(lmin):
+        return _sah_sweep_tree_ref(lmin, lmax, l)
+    lib = kernels.load("lbvh_sah")
+    dev = lmin.device
+    lmin, lmax = lmin.contiguous(), lmax.contiguous()
+    nt = (l + 1023) // 1024
+
+    def i32(*shape, fill=None):
+        if fill is None:
+            return torch.empty(shape, dtype=_I32, device=dev)
+        return torch.full(shape, fill, dtype=_I32, device=dev)
+
+    seg_lo, seg_hi, node = i32(l, fill=0), i32(l, fill=l - 1), i32(l, fill=0)
+    pre = torch.empty((l, 6), dtype=_F32, device=dev)
+    suf = torch.empty((l, 6), dtype=_F32, device=dev)
+    agg_box = torch.empty((2, nt, 6), dtype=_F32, device=dev)
+    agg_pos, agg_lo = i32(2, nt), i32(2, nt)
+    keys = torch.empty(l, dtype=_I64, device=dev)
+    contrib = i32(l)
+    nxt = [i32(1, fill=1), i32(1)]
+    out = [i32(l - 1, fill=0) for _ in range(4)]
+    flags = i32(SAH_MAX_LEVELS, fill=0)
+    levels = 0
+    while levels < SAH_MAX_LEVELS:
+        _launch(lib, "vrt_sah_split", dev, lmin.data_ptr(), lmax.data_ptr(),
+                seg_lo.data_ptr(), seg_hi.data_ptr(), pre.data_ptr(),
+                suf.data_ptr(), agg_box.data_ptr(), agg_pos.data_ptr(),
+                agg_lo.data_ptr(), keys.data_ptr(), contrib.data_ptr(), l,
+                n_kernels=4)
+        incl = torch.cumsum(contrib, 0, dtype=_I32)
+        _launch(lib, "vrt_sah_assign", dev, keys.data_ptr(),
+                incl.data_ptr(), contrib.data_ptr(), nxt[0].data_ptr(),
+                nxt[1].data_ptr(), seg_lo.data_ptr(), seg_hi.data_ptr(),
+                node.data_ptr(), *(a.data_ptr() for a in out),
+                flags.data_ptr() + 4 * levels, l)
+        nxt.reverse()
+        levels += 1
+        if not int(flags[levels - 1]):
+            break
+    return (*out, levels)
+
+
+def wide_depth_of(max_depth, width: int):
+    """The collapsed tree's depth in the host builder's count (root = 1,
+    leaf rows counted) from its deepest internal's binary depth D: the
+    deepest survivor sits at the last multiple of the stride <= D, and
+    its children are leaves."""
+    stride = 2 if width == 4 else 3
+    return max_depth // stride + 2
+
+
+# ------------------------------------------------------------- collapse
 
 def _parents_ref(lchild, rchild, l: int) -> torch.Tensor:
     i_idx = torch.arange(l - 1, dtype=_I32, device=lchild.device)
@@ -754,12 +915,12 @@ def build_lbvh_topo(v0: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor,
     """Device BVH build over (T, 3) float32 vertices -> (LBVHNodes,
     LBVHTopo), on the vertices' device.  ``leaf_size`` is the maximum
     triangles per wide leaf.  8-wide tables come with their fused rows
-    (the port always fuses them: they are what the 8-wide walk reads)."""
-    if method == "sah":
-        raise NotImplementedError(
-            "method='sah': the sweep-SAH tree (_sah_sweep_tree) is not "
-            "ported yet (ROADMAP Queue 1, item 9b)")
-    if method != "karras":
+    (the port always fuses them: they are what the 8-wide walk reads).
+    ``method``: 'karras' (the default) is the radix tree over the Morton
+    codes; 'sah' splits every contiguous Morton range at its sweep-SAH
+    cheapest position instead (``_sah_sweep_tree``), and its nodes carry
+    the collapsed tree's real depth (``wide_depth``)."""
+    if method not in ("karras", "sah"):
         raise ValueError(f"unknown LBVH method {method!r}")
     l = _check_verts(v0, v1, v2)
     if l <= leaf_size:
@@ -768,7 +929,12 @@ def build_lbvh_topo(v0: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor,
     codes = morton_codes(v0, v1, v2, smin, smax)
     lcodes, order = torch.sort(codes, stable=True)
     order = order.to(_I32)
-    lchild, rchild, lo, hi = _karras(lcodes, l)
+    levels = 0
+    if method == "sah":
+        lchild, rchild, lo, hi, levels = _sah_sweep_tree(
+            *_leaf_boxes(v0, v1, v2, order), l)
+    else:
+        lchild, rchild, lo, hi = _karras(lcodes, l)
     (surv, ch_old, arity, base, newid, row_lo, row_cnt, leaf_newid,
      parent) = _collapse_wide(lchild, rchild, lo, hi, l, leaf_size,
                               width=width)
@@ -776,8 +942,11 @@ def build_lbvh_topo(v0: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor,
                     ch_old=ch_old, arity=arity, base=base, newid=newid,
                     row_lo=row_lo, row_cnt=row_cnt, leaf_newid=leaf_newid,
                     lo=lo, hi=hi, parent=parent)
-    return refit_lbvh(topo, v0, v1, v2, leaf_size=leaf_size,
-                      width=width), topo
+    lb = refit_lbvh(topo, v0, v1, v2, leaf_size=leaf_size, width=width)
+    if method == "sah":
+        lb = dataclasses.replace(lb, wide_depth=wide_depth_of(levels - 1,
+                                                              width))
+    return lb, topo
 
 
 def compact_sizes(topo: LBVHTopo, pad: int = 256) -> Tuple[int, int]:
@@ -838,16 +1007,27 @@ def wide_arrays_from_lbvh(lb: LBVHNodes, leaf_size: int = 4,
     flat layout reports triangle ids directly (one implicit instance 0).
     ``depth`` is a bound, not the tree's depth: the binary Karras depth
     is at most the augmented key's length (32 + 26 bits under 2**26
-    leaves), and the collapse divides it by 2 (width 4) or 3 (width 8)."""
+    leaves), and the collapse divides it by 2 (width 4) or 3 (width 8).
+    A tree whose depth that does not bound (the sweep-SAH tree) carries
+    its real depth in ``lb.wide_depth``: ``depth`` is then the larger of
+    the two, and a tree the card's walk cannot hold raises here rather
+    than overflowing its stack (ROADMAP H8)."""
     t = int(lb.tri_rows.shape[0])
-    return WideArrays(
+    bound = 32 if width == 4 else 22
+    depth = bound if lb.wide_depth is None else max(bound,
+                                                    int(lb.wide_depth))
+    wa = WideArrays(
         nodes=lb.nodes, tri_rows=lb.tri_rows,
         num_tlas=1 if tlas else 0,
         tri_bits=0 if tlas else max(
             int(np.ceil(np.log2(max(t * leaf_size, 2)))), 1),
-        max_leaf_tris=leaf_size,
-        depth=32 if width == 4 else 22,
-        width=width, fused=lb.fused)
+        max_leaf_tris=leaf_size, depth=depth, width=width, fused=lb.fused)
+    walk = traverse_packet if width == 8 else packet_walk
+    if walk.stack_entries(wa) > walk.STACK_MAX:
+        raise ValueError(f"the tree is {depth} levels deep; a {width}-wide "
+                         f"walk on the card holds {walk.STACK_MAX} stack "
+                         f"entries, it needs {walk.stack_entries(wa)}")
+    return wa
 
 
 def tree_surface_area(nodes, width: int = 4) -> float:

@@ -58,7 +58,7 @@ import torch
 from vortex_rt_tpu_torch.accel.lbvh import (
     LBVHNodes, LBVHTopo, _check_i32, _check_verts, _cuda, _half_area,
     _launch, _pack_rows, _scene_box, morton_codes, pad_tris,
-    wide_arrays_from_lbvh,
+    wide_arrays_from_lbvh, wide_depth_of,
 )
 from vortex_rt_tpu_torch.ops import packet_walk, traverse_packet
 from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays
@@ -469,15 +469,6 @@ def _collapse_ploc(lchild, rchild, parent, n_int, l: int, width: int):
     _launch(lib, "vrt_ploc_collapse_assign", dev, surv.data_ptr(),
             ch_old.data_ptr(), base.data_ptr(), l, width, newid.data_ptr())
     return surv, ch_old, arity, base, newid, max_depth
-
-
-def wide_depth_of(max_depth: torch.Tensor, width: int) -> torch.Tensor:
-    """The collapsed tree's depth in the host builder's count (root = 1,
-    leaf rows counted) from its deepest internal's binary depth D: the
-    deepest survivor sits at the last multiple of the stride <= D, and
-    its children are leaves."""
-    stride = 2 if width == 4 else 3
-    return max_depth // stride + 2
 
 
 # ------------------------------------------------------------------ K4c

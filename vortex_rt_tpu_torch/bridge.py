@@ -12,7 +12,9 @@ LBVH and PLOC topologies (``lbvh_topo``, ``ploc_topo``: the arrays of the
 JAX package's ``LBVHTopo`` and ``PLOCTopo``), so both packages can refit
 one tree, and a per-ray walk's state (``wide_state``: the JAX
 ``WideState``), so a walk the JAX package suspended can resume in the
-port; 16-wide rows are refused (ROADMAP Queue 1, "Not ported").
+port, and the merged TLAS+BLAS pool of the binary walk
+(``traversal_arrays``: the JAX ``TraversalArrays``), so both packages walk
+one pool; 16-wide rows are refused (ROADMAP Queue 1, "Not ported").
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from vortex_rt_tpu_torch.accel import ploc
 from vortex_rt_tpu_torch.accel.lbvh import LBVHTopo, _parents_ref
 from vortex_rt_tpu_torch.engine.megakernel import CameraArrays, LightArrays
 from vortex_rt_tpu_torch.ops.shade_lanes import ShadeArrays
+from vortex_rt_tpu_torch.ops.traverse2 import TraversalArrays
 from vortex_rt_tpu_torch.ops.traverse_wide import (
     ROW_WORDS, WideArrays, WideState, state_dtype,
 )
@@ -155,6 +158,22 @@ def ploc_topo(*, topo: dict, leaf_tids, level, n_int, n_levels,
         n_levels=torch.tensor(int(np.asarray(n_levels)), dtype=torch.int32,
                               device=device),
         wide_depth=ploc.wide_depth_of(max_depth, width).to(device))
+
+
+def traversal_arrays(*, nmin, nmax, left, count, kind, tri_idx, v0, v1, v2,
+                     inst_inv, inst_root, inst_refl, max_leaf_tris, num_tlas,
+                     device) -> TraversalArrays:
+    """JAX ``TraversalArrays`` fields (``dataclasses.asdict`` as NumPy
+    arrays and ints) -> the port's ``TraversalArrays``."""
+    ints = dict(left=left, count=count, kind=kind, tri_idx=tri_idx,
+                inst_root=inst_root)
+    floats = dict(nmin=nmin, nmax=nmax, v0=v0, v1=v1, v2=v2,
+                  inst_inv=inst_inv, inst_refl=inst_refl)
+    return TraversalArrays(
+        **{k: _as_i32(np.asarray(v)) for k, v in ints.items()},
+        **{k: _as_f32(np.asarray(v)) for k, v in floats.items()},
+        max_leaf_tris=int(max_leaf_tris),
+        num_tlas=int(num_tlas)).to(device)
 
 
 def shade_arrays(shade_rows: np.ndarray, mat_rows: np.ndarray,

@@ -54,7 +54,7 @@ import torch
 
 from vortex_rt_tpu_torch.accel import qbvh
 from vortex_rt_tpu_torch.models.scene import SceneBuffers
-from vortex_rt_tpu_torch.ops.traverse2 import Hits
+from vortex_rt_tpu_torch.ops.traverse2 import Hits, PerfCounters
 from vortex_rt_tpu_torch.runtime import kernels
 from vortex_rt_tpu_torch.utils.config import (
     COMMIT_ACCEPT, COMMIT_TERM, LARGE_FLOAT, MT_EPSILON,
@@ -457,15 +457,6 @@ def init_state(r: int, o: torch.Tensor, d: torch.Tensor,
     """``init_state_lanes`` of (R, 3) origins and directions."""
     return init_state_lanes(o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
                             d[:, 2], t_max)
-
-
-class PerfCounters(NamedTuple):
-    """Per-ray steps and triangle tests so far, and the steps of the
-    longest walk in this call (the lockstep loop's iterations)."""
-
-    nodes_visited: torch.Tensor
-    tri_tests: torch.Tensor
-    steps: torch.Tensor
 
 
 def lanes_hits(wa: WideArrays, st: WideState) -> Hits:

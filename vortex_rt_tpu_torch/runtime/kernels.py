@@ -68,6 +68,11 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
         "vrt_traverse_wide": ([_P] * 10 + [_I] * 8 + [_P], _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
+    # K6, the binary TLAS+BLAS walk of the megakernel (ops/traverse2.py)
+    "traverse2": {
+        "vrt_traverse2": ([_P] * 15 + [_I] * 9 + [_F, _P], _I),
+        "vrt_error_string": ([_I], ctypes.c_char_p),
+    },
     "hbm_walk": {
         "vrt_hbm_walk": ([_P] + [_I] * 5 + [_P, _P], _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
@@ -90,6 +95,12 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     "lbvh_pack": {
         "vrt_lbvh_pack_rows": ([_P] * 6 + [_I] + [_P] * 10 + [_I] * 6
                                + [_P] * 4, _I),
+        "vrt_error_string": ([_I], ctypes.c_char_p),
+    },
+    # a level of the sweep-SAH tree (accel/lbvh.py, method="sah")
+    "lbvh_sah": {
+        "vrt_sah_split": ([_P] * 11 + [_I, _P], _I),
+        "vrt_sah_assign": ([_P] * 13 + [_I, _P], _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
     # the on-device PLOC build and level refit (accel/ploc.py)

@@ -11,6 +11,8 @@ kernels that take the most device time.
         --frames 4
     python -m vortex_rt_tpu_torch.tools.profile_frames \\
         --scene config6,config6hd --frames 4
+    python -m vortex_rt_tpu_torch.tools.profile_frames --scene mk_a,mk_b \\
+        --frames 4
 
 ``config2`` is BASELINE config 2 as ``bench.py`` renders it (Cornell box
 and a 24x48 sphere, 512x512, spp 2, depth 2, shadow rays, flattened
@@ -24,7 +26,11 @@ frame ripples the vertices, refits and repacks the tree on the card, and
 renders, so its split shows the refit beside the frame.  ``config6`` and
 ``config6hd`` are ladder row 6 at 512x512 and 1920x1080: the textured
 atrium with ``alpha_test_anyhit(0.30)`` tested inside K1, spp 2, depth 2,
-shadow rays.
+shadow rays.  ``mk_a`` and ``mk_b`` are the megakernel engine (K6 each
+wave, ``engine/megakernel.py``): config 2's scene in the TLAS layout with
+the sphere at reflectivity 0.6, 512x512, spp 4, depth 3; and
+``atrium()``'s TLAS over 29 BLASes at 1920x1080, spp 1, depth 2 (the
+CLI's ``-m atrium --engine megakernel``).
 
 After one warm-up frame, ``--frames`` frames are timed unprofiled (wall
 clock, device-synchronised), then the same number run under
@@ -50,8 +56,24 @@ CONFIG2_LIGHT = (0.0, 0.8, -0.5)
 TOP = 12  # kernels listed, by device time
 # kernels reported by name even below the top: the walk and the refit's
 WATCHED = ("traverse_packet_kernel", "refit_boxes_kernel",
-           "pack_nodes_kernel", "pack_leaves_kernel", "traverse_wide_kernel")
+           "pack_nodes_kernel", "pack_leaves_kernel", "traverse_wide_kernel",
+           "traverse2_kernel")
 PROFILE_TRIES = 3  # sessions kernel_events tries before it gives up
+
+
+class MegakernelFrames:
+    """The megakernel engine behind ``profile``'s frame call: frames one
+    call each, seeds ``seed0`` on; returns the rays."""
+
+    def __init__(self, r) -> None:
+        self.r = r
+
+    def render_burst(self, cam, p, w: int, h: int, n_frames: int = 1,
+                     seed0: int = 0, rays_only: bool = True) -> int:
+        rays = 0
+        for i in range(n_frames):
+            rays += int(self.r.frame(cam, p, w, h, seed=seed0 + i)[1])
+        return rays
 
 
 def build(scene: str, device):
@@ -87,6 +109,28 @@ def build(scene: str, device):
                                      pathtrace=True),
              "config4": RenderParams(max_depth=3, spp=8, shadow=True,
                                      pathtrace=True)}[scene]
+    elif scene in ("mk_a", "mk_b"):
+        from vortex_rt_tpu_torch.engine.megakernel import MegakernelRenderer
+
+        if scene == "mk_a":
+            for mesh, refl in procedural.cornell_box():
+                sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
+            sc.add_instance(sc.add_mesh(
+                procedural.uv_sphere((0, -0.3, 0), 0.35, 24, 48)),
+                reflectivity=0.6)
+            sb = sc.build(RTConfig())
+            cam = Camera.look_at(*CONFIG2_EYE)
+            p = RenderParams(light_pos=CONFIG2_LIGHT, max_depth=3, spp=4)
+            w = h = 512
+        else:
+            for mesh, refl in bigscenes.atrium():
+                sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
+            sb = sc.build(RTConfig())
+            w, h = 1920, 1080
+            cam = Scene.framing_camera(sb, 45.0, w / h, zoom=1.0)
+            p = RenderParams(spp=1, max_depth=2)
+        r = MegakernelRenderer.from_buffers(sb, device=device)
+        return MegakernelFrames(r), cam, p, w, h
     elif scene in ("config6", "config6hd"):
         from vortex_rt_tpu_torch.tools import bench_ladder
 
@@ -188,7 +232,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scene", default="config2",
                     help="config2, scale, config3, config4, config5, "
-                    "config6, config6hd, or a comma list")
+                    "config6, config6hd, mk_a, mk_b, or a comma list")
     ap.add_argument("--frames", type=int, default=8)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -205,9 +249,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
                 r.wa = st.refit_frame(0.1 * (i + 1))
         else:
             r, cam, p, w, h = build(scene, device)
-        res = dict(scene=scene, bvh_width=r.wa.width, w=w, h=h,
+        # the megakernel walks a binary tree
+        width = r.wa.width if hasattr(r, "wa") else 2
+        res = dict(scene=scene, bvh_width=width, w=w, h=h,
                    **profile(r, cam, p, w, h, a.frames, hook))
-        print(f"{scene} {w}x{h} ({r.wa.width}-wide), {a.frames} frames, "
+        print(f"{scene} {w}x{h} ({width}-wide), {a.frames} frames, "
               f"{torch.cuda.get_device_name(device)}: "
               f"{res['frame_ms']:.3f} ms/frame unprofiled, "
               f"{res['device_ms_per_frame']:.3f} ms device time/frame, busy "

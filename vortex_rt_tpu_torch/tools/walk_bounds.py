@@ -44,6 +44,28 @@ each row a ray visits is read once, and only the words K3 uses of it
 of child boxes at an internal node or 64 B of transform and BLAS root at
 an instance node, and 40 B per triangle slot of a leaf's row).
 
+K6 (``k6_bound``), the binary TLAS+BLAS walk over float boxes: a child
+box test costs ``OPS_PER_BOX`` = 25 (6 FSUB and 6 FMUL for the slab
+distances, 6 min/max of the pairs, 4 min/max folds, 3 comparisons), an
+internal step adds one comparison for the near child, a triangle slot
+``OPS_PER_TRI`` + 6 (the two edges from the vertices), an instance step
+``OPS_PER_INSTANCE``.  Bytes: a walking ray's o and d (24 B) in, every
+ray's active flag (1 B) in and its record (dist, bx, by, bz, tri, inst,
+nodes_visited, tri_tests: 32 B) out; of the tables, each entry some ray
+reads once (``ops/traverse2.rays_work``: 12 B of a visited node's kind,
+left and count, 24 B of a child's box, 4 B of a leaf slot's triangle id,
+36 B of a tested triangle's vertices, 52 B of an entered instance's 3x4
+inverse transform and BLAS root).
+
+The sweep-SAH tree (``sah_bounds``) runs ``levels`` levels over ``l``
+positions.  Its least work a level: every position's leaf box (24 B) and
+range state (seg_lo, seg_hi, node: 12 B) read, the state written back
+(12 B), and ``OPS_SAH`` = 41 operations (6 min/max for each of the two
+box scans, 11 for each half area, 3 for the cost, 4 comparisons for the
+middle-half window); the tree (lchild, rchild, lo, hi: 16 B an internal)
+written once.  Beside it, each of its kernels' own reads and writes a
+level (``SAH_KERNEL_BYTES``).
+
 The LBVH and PLOC kernels (``lbvh_bounds``, ``ploc_bounds``) do integer
 and min/max work (the PLOC window costs: 11 FP32 operations per pair,
 under 2% of the bytes time), a
@@ -73,6 +95,16 @@ IDLE_RAY_IN_BYTES = 5
 HIT_OUT_BYTES = 28
 WORLD_RAY_BYTES = 24
 STATE_BYTES = 41 * 4 + 2
+OPS_PER_BOX = 25
+K6_OUT_BYTES = 32
+OPS_SAH = 41
+# bytes a position of each sweep-SAH kernel reads and writes a level: the
+# in-tile scans (box and range in, two scanned boxes and the key's reset
+# out), the cost (two scanned boxes and the ranges in, a key), the split
+# (the range in, the count out), the move (the range, node and sums in,
+# the range and node out); the carry scan reads and writes 32 B a tile
+SAH_KERNEL_BYTES = {"tiles_kernel": 32 + 48 + 8, "cost_kernel": 48 + 12 + 8,
+                    "split_kernel": 8 + 4, "assign_kernel": 12 + 8 + 12}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +166,30 @@ def k3_bound(work) -> Bound:
     return Bound(ops=walk_ops(work, OPS_SORT4),
                  bytes=r * (WORLD_RAY_BYTES + 2 * STATE_BYTES)
                  + int(work.row_bytes.sum()))
+
+
+def k6_bound(work) -> Bound:
+    """K6: the binary TLAS+BLAS walk, from the ``WalkWork`` of
+    ``ops/traverse2.rays_work``."""
+    r = int(work.internal.numel())
+    walking = int(((work.internal + work.leaf + work.instance) > 0).sum())
+    ops = int(OPS_PER_BOX * work.child_slots.sum() + work.internal.sum()
+              + (OPS_PER_TRI + 6) * work.tri_slots.sum()
+              + OPS_PER_INSTANCE * work.instance.sum())
+    return Bound(ops=ops, bytes=walking * WORLD_RAY_BYTES
+                 + r * (1 + K6_OUT_BYTES) + int(work.row_bytes.sum()))
+
+
+def sah_bounds(l: int, levels: int) -> dict:
+    """Bounds of the sweep-SAH tree over ``l`` leaf boxes in ``levels``
+    levels: the whole tree (``lbvh_sah``) and each kernel's reads and
+    writes (``SAH_KERNEL_BYTES``; ``carry_kernel`` 32 B a tile)."""
+    out = {"lbvh_sah": Bound(ops=OPS_SAH * l * levels,
+                             bytes=48 * l * levels + 16 * (l - 1))}
+    for name, b in SAH_KERNEL_BYTES.items():
+        out[name] = Bound(0, b * l * levels)
+    out["carry_kernel"] = Bound(0, 32 * 2 * ((l + 1023) // 1024) * levels)
+    return out
 
 
 def k7_bound(rows: int, steps: int, k: int, words: int) -> Bound:
