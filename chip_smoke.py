@@ -271,8 +271,7 @@ LBVH_KERNELS = ("lbvh_karras", "lbvh_collapse", "lbvh_refit", "lbvh_pack")
 PLOC_KERNELS = ("ploc_merge", "ploc_collapse", "ploc_refit", "ploc_pack")
 # the __global__ functions of each K4 function, as the profiler names them
 PLOC_KERNEL_NAMES = {
-    "ploc_merge": ("nn_kernel", "mutual_kernel", "plan_kernel",
-                   "write_kernel"),
+    "ploc_merge": ("merge_grid_kernel", "merge_tail_kernel"),
     "ploc_collapse": ("remap_kernel", "expand_kernel", "assign_kernel"),
     "ploc_refit": ("boxes_kernel",),
     "ploc_refit_climb": ("boxes_kernel",),
@@ -285,6 +284,15 @@ LBVH_KERNEL_NAMES = {
     "lbvh_refit": ("refit_boxes_kernel",),
     "lbvh_pack": ("pack_nodes_kernel", "pack_leaves_kernel"),
 }
+# the redesigned kernels' readings before their redesign (PERF.md's
+# kernel table; CUDA events around the wrapper, ms, NVIDIA H100 80GB HBM3
+# at 700 W), printed beside this run's
+EARLIER_MS = {"lbvh_pack": {"config5": 0.6296},
+              "ploc_merge": {"config3": 8.2440, "config5": 7.2190},
+              "ploc_pack": {"config3": 0.1332, "config5": 1.1697}}
+EARLIER = ("before the redesign: row 3's PLOC build 6.4-12.96 ms, K4a 216 / "
+           "228 launches a build and a host read a round, config 5's refit "
+           "+ repack 1.5097-2.2055 ms")
 EYE2 = ([0.05, 0.02, -3.2], [0.0, -0.05, 0.0], [0, 1, 0], 45.0, 1.0)
 LIGHT2 = (0.0, 0.8, -0.5)
 REL_TOL = 1e-6
@@ -1355,10 +1363,12 @@ def phase_config5(device, checked: dict, err: dict, grid: int = 708,
                                             "config5": launches[name]},
                           ms=ms, kernel_ms=parts, plain_ms=plain_ms,
                           bound_ms=b.ms, bound_by=b.bound_by)
+        was = EARLIER_MS.get(name, {}).get("config5")
         print(f"  {name} at T {l}: {ms:.4f} ms (CUDA events around the "
               f"wrapper, mean of {reps}: its kernels, fills and prefix "
-              f"sums), bound {b.ms:.4f} ms ({b.bytes} B) = {b.ms / ms:.1%}; "
-              f"kernels alone {sum(parts.values()):.4f} ms (profiler: "
+              f"sums), bound {b.ms:.4f} ms ({b.bytes} B) = {b.ms / ms:.1%}"
+              + (f" (before: {was} ms = {b.ms / was:.1%})" if was else "")
+              + f"; kernels alone {sum(parts.values()):.4f} ms (profiler: "
               + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
               + f"); plain {plain_ms:.3f} ms")
     if cuda:
@@ -1374,6 +1384,8 @@ def phase_config5(device, checked: dict, err: dict, grid: int = 708,
               f"stores): kernels alone {sum(parts.values()):.4f} ms "
               f"(profiler: " + ", ".join(f"{k} {v:.4f}"
                                          for k, v in parts.items()) + ")")
+    print(f"  config 5's refit + repack {rec['refit_ms']:.4f} ms a frame "
+          f"({EARLIER})")
     rec.update(kernels=rows, walk_err=walk_err,
                launches_k1=launches["traverse_packet"])
     return rec, st
@@ -1479,14 +1491,17 @@ def phase_ploc_kernels(device, meshes, checked: dict, err: dict) -> None:
                   f" relaunches give the same words")
 
 
-def ploc_times(v, width: int, leaf: int, radius: int, pt, live, reps: int,
-               device) -> dict:
+def ploc_times(label: str, v, width: int, leaf: int, radius: int, pt, live,
+               reps: int, device) -> dict:
     """Each K4 function at these shapes: CUDA-event time around its
     wrapper (mean of ``reps`` after a warm-up), the plain version's wall
-    time, and the bytes bound (``walk_bounds.ploc_bounds``).  The merge's
-    time includes the host's read of the live count after each round.
+    time, and the bytes bound (``walk_bounds.ploc_bounds``).
     ``ploc_refit`` is the build's leaf-row boxes (the main path's call);
-    ``ploc_refit_climb`` the refit's boxes of the whole tree."""
+    ``ploc_refit_climb`` the refit's boxes of the whole tree.  The merge
+    loop is also timed with its tail block from other live counts than
+    ``tail_size`` (the grid alone down to one cluster, and a quarter of
+    T), and each time printed beside its reading before the redesign at
+    ``label``."""
     from vortex_rt_tpu_torch.accel import lbvh, ploc
     from vortex_rt_tpu_torch.tools import walk_bounds as wb
 
@@ -1548,14 +1563,29 @@ def ploc_times(v, width: int, leaf: int, radius: int, pt, live, reps: int,
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b.ms,
                          bound_by=b.bound_by, bound_bytes=b.bytes,
                          kernel_ms=parts, other_ms=other)
+        was = EARLIER_MS.get(name, {}).get(label)
         print(f"  {name} at T {l}: {ms:.4f} ms (CUDA events around the "
               f"wrapper, mean of {reps}), bound {b.ms:.4f} ms ({b.bytes} B)"
-              f" = {b.ms / ms:.1%}; kernels alone "
+              f" = {b.ms / ms:.1%}"
+              + (f" (before: {was} ms = {b.ms / was:.1%})" if was else "")
+              + "; kernels alone "
               f"{sum(parts.values()):.4f} ms (profiler: "
               + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
               + "; besides them " + ", ".join(f"{k} {v:.4f}"
                                               for k, v in other)
               + f"); plain {plain_ms:.3f} ms")
+    if device.type == "cuda":
+        t = ploc.tail_size(leaf)
+        tails = {f"T={t}": t, f"T/4={t // 4}": t // 4, "grid only (T=2)": 2}
+        out["ploc_merge"]["tail_ms"] = {k: _device_ms(
+            lambda n=n: ploc._merge_on_card(cmin0, cmax0, tids0, l, l, leaf,
+                                            radius, n), reps)
+            for k, n in tails.items()}
+        print(f"  ploc_merge by the live count where the tail block takes "
+              f"over (CUDA events around the launch and its fills, mean of "
+              f"{reps}): " + ", ".join(
+                  f"{k} {v:.4f} ms" for k, v in
+                  out["ploc_merge"]["tail_ms"].items()))
     return out
 
 
@@ -1678,9 +1708,29 @@ def phase_config3_ploc(device, host_c3: dict, checked: dict, err: dict,
           f"plain versions word for word: largest word difference "
           f"{ {k: err[k] for k in PLOC_KERNELS} } (before this phase "
           f"{ {k: before[k] for k in PLOC_KERNELS} })")
-    rec["times"] = ploc_times(verts, width, leaf, 16, pt2, live, reps, device)
+    rec["times"] = ploc_times("config3", verts, width, leaf, 16, pt2, live,
+                              reps, device)
     rec["live"] = live
     return rec
+
+
+def merge_reads_nothing(verts, leaf: int, radius: int = 16) -> None:
+    """The merge loop without ``live`` under
+    ``torch.cuda.set_sync_debug_mode("error")``: a copy to the host
+    raises."""
+    import torch
+
+    from vortex_rt_tpu_torch.accel import ploc
+
+    l = verts[0].shape[0]
+    _, cmin0, cmax0, tids0 = ploc.seed_clusters(*verts, leaf)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ploc._ploc_merge(cmin0, cmax0, tids0, l, l, leaf, radius)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def phase_config5_ploc(device, st, checked: dict, err: dict,
@@ -1730,14 +1780,19 @@ def phase_config5_ploc(device, st, checked: dict, err: dict,
     _sync(device)
     refit_launches = {k: kernels.LAUNCHES[k] / len(bench_ladder.MOVED_TS)
                       for k in PLOC_KERNELS + ("lbvh_pack",)}
+    if device.type == "cuda":
+        merge_reads_nothing(verts, leaf)
     rec = dict(tris=l, build_ms=build_ms, rounds=int(pt.n_levels),
                internals=int(pt.n_int),
                leaf_rows=int((pt.topo.row_cnt > 0).sum()),
                tree_depth=int(pt.wide_depth), walk_depth=wa.depth,
                refit_ms=statistics.median(refit_ms), refit_ms_all=refit_ms,
                refit_t0_err=err_t0, build_launches=build_launches,
-               refit_launches=refit_launches)
+               refit_launches=refit_launches, merge_host_reads=0)
     if device.type == "cuda":
+        _check(build_launches["ploc_merge"] == 2,
+               f"K4a: {build_launches['ploc_merge']} launches a build, "
+               f"expected 2")
         _check(refit_launches["ploc_refit"] == 1
                and refit_launches["ploc_pack"] == 2
                and refit_launches["lbvh_pack"] == 0
@@ -1750,7 +1805,8 @@ def phase_config5_ploc(device, st, checked: dict, err: dict,
           f"equals the build word for word; refit with the ripple "
           f"{rec['refit_ms']:.4f} ms (median of {len(refit_ms)}: "
           + ", ".join(f"{x:.4f}" for x in refit_ms) + f"); build launches "
-          f"{build_launches}, per refit {refit_launches}")
+          f"{build_launches} (K4a {build_launches['ploc_merge']}, no host "
+          f"read in the merge), per refit {refit_launches}; {EARLIER}")
 
     # ---- K1 over the three trees on phase 11c's crop and shadow rays
     w, h = res
@@ -1787,21 +1843,8 @@ def phase_config5_ploc(device, st, checked: dict, err: dict,
           f"build's: largest word difference "
           f"{ {k: err[k] for k in PLOC_KERNELS} } (before this phase "
           f"{ {k: before[k] for k in PLOC_KERNELS} })")
-    rec["times"] = ploc_times(verts, width, leaf, 16, pt, live, reps, device)
-    if device.type == "cuda":
-        # the merge's three prefix sums at a first round's size: in the
-        # layout it uses (one 1-D scan over three rows end to end), along
-        # the rows of a (3, m) tensor, and down the columns of (m, 3)
-        flat = torch.ones(3 * l, dtype=torch.int32, device=device)
-        rows, cols = flat.view(3, l), flat.view(l, 3)
-        rec["cumsum_ms"] = {name: _device_ms(
-            lambda a=a, dim=dim: torch.cumsum(a, dim, dtype=torch.int32),
-            reps) for name, a, dim in (("flat_3m", flat, 0),
-                                       ("rows_3xm_dim1", rows, 1),
-                                       ("cols_mx3_dim0", cols, 0))}
-        print(f"  torch.cumsum of the merge's three counts at m = {l} (CUDA "
-              f"events, mean of {reps}): " + ", ".join(
-                  f"{k} {v:.4f} ms" for k, v in rec["cumsum_ms"].items()))
+    rec["times"] = ploc_times("config5", verts, width, leaf, 16, pt, live,
+                              reps, device)
     return rec
 
 
@@ -2716,6 +2759,11 @@ def main() -> int:
     _phase("phase 11c ladder config 5 (wavy_grid n=708, refit every frame)")
     c5, st5 = phase_config5(device, lbvh_checked, lbvh_err)
     _phase("phase 12a K4: PLOC kernels vs their plain versions")
+    for name in ("ploc_merge", "lbvh_pack"):
+        print(f"  {name} (redesigned), ptxas: " + "; ".join(
+            line.split("ptxas info    : ")[-1].strip()
+            for line in libs[name].build_log.splitlines()
+            if "registers" in line or "spill" in line))
     ploc_checked = {k: 0 for k in PLOC_KERNELS}
     ploc_err = {k: 0.0 for k in PLOC_KERNELS}
     phase_ploc_kernels(device, lbvh_test_meshes(), ploc_checked, ploc_err)

@@ -447,9 +447,10 @@ def _ploc_stages(v, leaf, width, radius=16):
                                               leaf, radius))
     # each round's live count, then the last
     assert int(merged[-1]) == len(live) - 1 > 0 and live[-1] == 1
-    # nn, mutual, plan, write a round
-    assert kernels.LAUNCHES["ploc_merge"] == (before["ploc_merge"]
-                                              + 4 * (len(live) - 1))
+    # the cooperative grid when the first round is above the tail, then
+    # the tail block: at most two launches a loop, whatever its rounds
+    assert kernels.LAUNCHES["ploc_merge"] == (
+        before["ploc_merge"] + 1 + (l > ploc.tail_size(leaf)))
     lk, rk, lvl, bmn, bmx, row_tids, row_cnt, n_int, _ = merged
     rm = ploc._remap_ploc(lk, rk, lvl, bmn, bmx, n_int, l)
     _assert_same(rm, ploc._remap_ploc_ref(lk, rk, lvl, bmn, bmx, n_int, l))
@@ -463,6 +464,122 @@ def _ploc_stages(v, leaf, width, radius=16):
     assert kernels.LAUNCHES["ploc_refit"] == before["ploc_refit"] + 1
     return ploc.build_ploc_topo(*v, leaf_size=leaf, width=width,
                                 radius=radius)
+
+
+def _merge_mesh(name):
+    """Meshes for the merge: ``identical`` is 5,000 copies of one triangle
+    (every cost ties: one mutual pair a round until round 128, then the
+    even/odd fallback); ``wavy_grid`` has more clusters than the tail
+    holds at every leaf size, ``uv_sphere`` fewer."""
+    import numpy as np
+
+    if name == "identical":
+        v0 = np.zeros((5000, 3), np.float32)
+        v1, v2 = v0.copy(), v0.copy()
+        v1[:, 0], v2[:, 1] = 1.0, 1.0
+        return v0, v1, v2
+    m = _lbvh_mesh(name)
+    return m.v0, m.v1, m.v2
+
+
+@pytest.mark.parametrize("mesh,radius,leaf", [
+    ("uv_sphere", 16, 4), ("uv_sphere", 1, 1), ("random_soup", 16, 8),
+    ("wavy_grid", 16, 4), ("wavy_grid", 1, 8), ("wavy_grid", 16, 1),
+    ("identical", 16, 4), ("identical", 1, 8)])
+def test_ploc_merge_matches_plain_version(cuda, mesh, radius, leaf):
+    """K4a, the whole merge loop on the card, against ``_ploc_merge_ref``
+    word for word in all nine outputs and in ``live``: with the tail
+    alone (the first round at or below T), with both phases, and with
+    the grid phase alone down to one cluster (``tail`` 2); one or two
+    launches a loop."""
+    v0, v1, v2 = (torch.from_numpy(x).to(cuda)
+                  for x in lbvh.pad_tris(*_merge_mesh(mesh), leaf))
+    l = v0.shape[0]
+    t = ploc.tail_size(leaf)
+    assert (l > t) == (mesh in ("wavy_grid", "identical"))
+    _, cmin0, cmax0, tids0 = ploc.seed_clusters(v0, v1, v2, leaf)
+    live_ref = []
+    want = ploc._ploc_merge_ref(cmin0, cmax0, tids0, l, l, leaf, radius,
+                                live_ref)
+    if mesh == "identical":
+        assert int(want[8]) > 128   # the fallback's rounds ran
+    before = kernels.LAUNCHES["ploc_merge"]
+    live = []
+    got = ploc._ploc_merge(cmin0, cmax0, tids0, l, l, leaf, radius, live)
+    _assert_same(got, want)
+    assert live == live_ref
+    assert kernels.LAUNCHES["ploc_merge"] == before + 1 + (l > t)
+    out, state = ploc._merge_on_card(cmin0, cmax0, tids0, l, l, leaf, radius,
+                                     2)
+    _assert_same(out, want[:7])
+    assert ploc.decode_round_log(state.tolist()) == live_ref
+
+
+def test_ploc_merge_reads_nothing_back(cuda):
+    """Without ``live`` the merge loop makes no copy to the host: it runs
+    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    v = [torch.from_numpy(x).to(cuda)
+         for x in lbvh.pad_tris(*_merge_mesh("wavy_grid"), 4)]
+    l = v[0].shape[0]
+    _, cmin0, cmax0, tids0 = ploc.seed_clusters(*v, 4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ploc._ploc_merge(cmin0, cmax0, tids0, l, l, 4, 16)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _assert_same(got, ploc._ploc_merge_ref(cmin0, cmax0, tids0, l, l, 4, 16))
+
+
+def _poisoned(monkeypatch, call):
+    """``call()`` with every ``torch.empty`` block it takes full of 0xFF
+    bytes, so a word the kernels leave unwritten reads -1 and fails the
+    comparison; ``torch.zeros`` and ``torch.full`` raise (no fill)."""
+    empty = torch.empty
+
+    def poisoned(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        t.view(torch.uint8).fill_(255)
+        return t
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a fill in the pack")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "empty", poisoned)
+        mp.setattr(torch, "zeros", refused)
+        mp.setattr(torch, "full", refused)
+        return call()
+
+
+@pytest.mark.parametrize("width,leaf", [(4, 4), (8, 4), (8, 8), (4, 8)])
+@pytest.mark.parametrize("mesh", ["random_soup", "wavy_grid"])
+def test_pack_writes_every_word(cuda, monkeypatch, mesh, width, leaf):
+    """``_pack_rows`` allocates its outputs unfilled and writes every
+    word: into memory poisoned with 0xFF words it equals
+    ``_pack_rows_ref`` word for word, with full and compact pools, flat
+    and TLAS layouts (width 4), and from explicit leaf ids (PLOC, full
+    pools)."""
+    m = _lbvh_mesh(mesh)
+    v = [torch.from_numpy(x).to(cuda)
+         for x in lbvh.pad_tris(m.v0, m.v1, m.v2, leaf)]
+    moved = [x + 0.25 * torch.sin(x.flip(1)) for x in v]
+    _, topo = lbvh.build_lbvh_topo(*v, leaf_size=leaf, width=width)
+    boxes = lbvh._refit_boxes(topo, *moved)
+    pool_rows, leaf_rows, surv_idx = lbvh.compact_plan(topo)
+    cases = []
+    for kw in (dict(), dict(pool_rows=pool_rows, leaf_rows=leaf_rows,
+                            surv_idx=surv_idx)):
+        for tlas in ((False, True) if width == 4 else (False,)):
+            cases.append((topo, boxes, dict(kw, tlas=tlas, fused=not tlas)))
+    _, pt_ = ploc.build_ploc_topo(*v, leaf_size=leaf, width=width)
+    cases.append((pt_.topo, ploc._refit_boxes_ploc(pt_, *moved),
+                  dict(fused=width == 8, leaf_tids=pt_.leaf_tids)))
+    for tp_, bx, kw in cases:
+        kw = dict(kw, leaf_size=leaf, width=width)
+        got = _poisoned(monkeypatch,
+                        lambda: lbvh._pack_rows(tp_, *bx, *moved, **kw))
+        _assert_same(got, lbvh._pack_rows_ref(tp_, *bx, *moved, **kw))
 
 
 @pytest.mark.parametrize("width,leaf,radius", [(4, 4, 16), (8, 4, 16),

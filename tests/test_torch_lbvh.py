@@ -81,6 +81,23 @@ def built():
     return get
 
 
+def assert_dense_ids(topo):
+    """The collapse's new ids of the survivors and of the used leaf rows
+    are 0 .. n_used - 1, each once, n_used = base + arity of the last
+    internal when it survives; the used leaf rows are the first ones.
+    The pack's kernels rely on it: they write every row below n_used
+    from its one record and zero the pool rows from n_used on."""
+    l = topo.order.shape[0]
+    used = topo.row_cnt > 0
+    ids = torch.cat([topo.newid[: l - 1][topo.surv],
+                     topo.leaf_newid[used]]).sort().values
+    n_used = int(topo.base[l - 2]) + (int(topo.arity[l - 2])
+                                      if bool(topo.surv[l - 2]) else 0)
+    assert torch.equal(ids.long(), torch.arange(n_used))
+    assert torch.equal(topo.leaf_newid >= 0, used)
+    assert not bool(used[int(used.sum()):].any())
+
+
 @pytest.fixture(scope="module")
 def jitted():
     """The soup at width 8, leaf 4 through the jitted JAX build and a
@@ -131,6 +148,15 @@ def test_topology_equals_jax(built, scene, width, leaf):
     par = ttopo.parent.numpy()
     for ch in (ttopo.lchild.numpy(), ttopo.rchild.numpy()):
         assert (par[ch] == np.arange(len(ch))).all()
+
+
+@pytest.mark.parametrize("width,leaf", SHAPES)
+@pytest.mark.parametrize("scene", SCENES)
+def test_new_ids_are_a_dense_prefix(built, scene, width, leaf):
+    """Which pool rows the pack's records reach (``assert_dense_ids``),
+    on the topology that equals the JAX package's."""
+    _, _, (_, topo) = built(scene, width, leaf)
+    assert_dense_ids(topo)
 
 
 @pytest.mark.parametrize("width,leaf", SHAPES)

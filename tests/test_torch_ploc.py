@@ -17,6 +17,7 @@ the port's.
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -37,11 +38,20 @@ from vortex_rt_tpu_torch.ops.packet_walk import trace_packets_walk_ref
 from vortex_rt_tpu_torch.ops.traverse_packet import trace_packets_ref
 from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT
 
-from tests.test_torch_lbvh import _bits, _brute_force, _moved, _rays, _same
+from tests.test_torch_lbvh import (
+    _bits, _brute_force, _moved, _rays, _same, assert_dense_ids,
+)
 
 SCENES = ("uv_sphere", "random_soup")
 SHAPES = ((4, 4), (8, 4), (8, 8))  # (width, leaf)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MERGE_CU = os.path.join(REPO, "vortex_rt_tpu_torch", "csrc", "ploc_merge.cu")
+
+
+def _cu_constant(name):
+    """An integer constant of the merge kernel's source."""
+    with open(MERGE_CU) as f:
+        return int(re.search(rf"\b{name} = (\d+)", f.read()).group(1))
 
 
 def _mesh(scene):
@@ -322,3 +332,76 @@ def test_bounds_count_each_input_and_output_once(built, width):
     assert b["ploc_refit_rows"].bytes == nbytes(*v, order, tt.leaf_tids,
                                                 tt.topo.row_cnt, *rows)
     assert all(x.bound_by == "bytes" for x in b.values())
+
+
+@pytest.mark.parametrize("width,leaf", SHAPES)
+@pytest.mark.parametrize("scene", SCENES)
+def test_new_ids_are_a_dense_prefix(built, scene, width, leaf):
+    """The PLOC collapse's new ids and leaf rows as the pack's kernels
+    rely on them (``test_torch_lbvh.assert_dense_ids``): the full pools'
+    unused rows are the tail from n_used on."""
+    _, _, (_, tt) = built(scene, width, leaf)
+    assert_dense_ids(tt.topo)
+
+
+def test_tail_size_fills_one_block_shared_memory():
+    """T, the live count from which one block runs the merge's rounds:
+    the most clusters of the tail kernel's words (its ``kTailWords`` a
+    cluster and ``lmax`` id slots) that ``TAIL_SMEM`` holds."""
+    words = _cu_constant("kTailWords")
+    assert 4 * words == 44
+    for lmax in (1, 2, 4, 8, 16):
+        t = tp.tail_size(lmax)
+        per = 4 * (words + lmax)
+        assert t * per <= tp.TAIL_SMEM < (t + 1) * per
+    assert (tp.tail_size(1), tp.tail_size(4), tp.tail_size(8)) == (
+        4821, 3857, 3045)
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_round_log_decodes_to_the_plain_live_counts(scene):
+    """``decode_round_log`` over state words laid out as the kernels
+    leave them (the final counters and the log where
+    ``csrc/ploc_merge.cu`` puts them, every other word junk) gives the
+    plain merge's ``live``; and a loop stopped by the round cap."""
+    assert (tp._ST_CTR, tp._ST_FINAL, tp._ST_LOG) == tuple(
+        _cu_constant(n) for n in ("kCtr", "kFinal", "kLog"))
+    m = _mesh(scene)
+    v = [torch.from_numpy(x) for x in tl.pad_tris(m.v0, m.v1, m.v2, 4)]
+    l = v[0].shape[0]
+    _, cmin0, cmax0, tids0 = tp.seed_clusters(*v, 4)
+    live = []
+    out = tp._ploc_merge(cmin0, cmax0, tids0, l, l, 4, 16, live)
+    rounds = int(out[8])
+
+    def state(log, final, n_int):
+        s = [-7] * (tp._ST_LOG + tp.round_cap(l))
+        s[tp._ST_LOG:tp._ST_LOG + len(log)] = log
+        s[tp._ST_FINAL:tp._ST_FINAL + 3] = [final, n_int, len(log)]
+        return s
+
+    assert tp.decode_round_log(state(live[:-1], live[-1],
+                                     int(out[7]))) == live
+    assert len(live) == rounds + 1
+    assert tp.decode_round_log(state([9, 7, 5], 4, 3)) == [9, 7, 5, 4]
+
+
+def test_merge_rounds_stamps_each_phase():
+    """``tools/merge_rounds``: the stamped copy of the merge kernel stamps
+    a grid round's start and its three barriers and each tail round (the
+    patch points exist in the source), and the stamps decode into each
+    round's phase times."""
+    from vortex_rt_tpu_torch.tools import merge_rounds as mr
+
+    s = mr.stamped_source()
+    assert s.count("stamp(g, it, ") == 6
+    assert "__launch_bounds__(kTile, 4)" in mr.stamped_source(4)
+    ts = torch.tensor([[0, 10_000, 13_000, 20_000],
+                       [20_000, 30_000, 32_000, 40_000],
+                       [40_000, 0, 0, 0], [45_000, 0, 0, 0]])
+    got = mr.rounds([9000, 5000, 3000, 1], ts, tail=4000)
+    assert got["grid"] == [dict(m=9000, a=10.0, b=3.0, c=7.0),
+                           dict(m=5000, a=10.0, b=2.0, c=8.0)]
+    assert got["tail"] == [dict(m=3000, us=5.0)]
+    assert (got["rounds"], got["grid_rounds"], got["grid_us"],
+            got["tail_us"]) == (3, 2, 40.0, 5.0)

@@ -881,18 +881,18 @@ def _pack_rows(topo: LBVHTopo, bmin, bmax, v0, v1, v2, leaf_size: int = 4,
     if leaf_tids is not None:
         leaf_tids = leaf_tids.contiguous()
         _check_i32(dev, leaf_tids=(leaf_tids, (l, leaf_size)))
-    nodes = torch.zeros((pool + off, ROW_WORDS), dtype=_I32, device=dev)
+    # unfilled: the kernels write every word, the pool rows no record
+    # reaches among them (row 0 of the TLAS layout is written here)
+    nodes = torch.empty((pool + off, ROW_WORDS), dtype=_I32, device=dev)
     if tlas:
         nodes[0] = _tlas_root(dev)[0]
     rows = torch.empty((lr, 16 * leaf_size), dtype=_F32, device=dev)
-    fz = (torch.zeros((pool, ROW_WORDS + 16 * leaf_size), dtype=_I32,
+    fz = (torch.empty((pool, ROW_WORDS + 16 * leaf_size), dtype=_I32,
                       device=dev) if fused else None)
     n_surv = l - 1 if surv_idx is None else surv_idx.shape[0]
-    # two kernels back to back: survivor records (when there is a
-    # survivor row), then leaf records and triangle rows
-    n_nodes = 1 if n_surv > 0 else 0
-    counts = {"lbvh_pack" if leaf_tids is None else "ploc_pack":
-              n_nodes + 1}
+    # two kernels back to back: survivor records and the zero rows, then
+    # leaf records and triangle rows
+    counts = {"lbvh_pack" if leaf_tids is None else "ploc_pack": 2}
     _launch(lib, "vrt_lbvh_pack_rows", dev, topo.surv.data_ptr(),
             topo.ch_old.data_ptr(), topo.arity.data_ptr(),
             topo.base.data_ptr(), topo.newid.data_ptr(),

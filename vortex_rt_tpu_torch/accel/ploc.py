@@ -16,10 +16,12 @@ Pipeline (``build_ploc_topo``):
 
 1. Morton codes over the scene box and a stable sort (``lbvh.morton_codes``
    and ``torch.sort``, as ``build_lbvh_topo``);
-2. the merge loop (``_ploc_merge``, K4a): one round is three kernels,
-   one ``torch.cumsum`` of 3m counts and a fourth kernel over the live
-   clusters only, and the host reads the live count (4 bytes) after each
-   round; it stops at one cluster or at the JAX package's round cap;
+2. the merge loop (``_ploc_merge``, K4a), whole on the card: a
+   cooperative grid runs the rounds while more than ``tail_size(leaf)``
+   clusters live, then one block runs the rest with the clusters in its
+   shared memory; a round runs over the live clusters only, and the loop
+   stops at one cluster or at the JAX package's round cap.  Nothing is
+   read back unless the caller asks for the round log (``live``);
 3. creation order -> the packer's ids (``_remap_ploc``; root = 0) and
    the parent of every node, then the collapse (``_collapse_ploc``,
    K4b), which also gives the tree's real wide depth (ROADMAP H8);
@@ -69,6 +71,14 @@ _I64 = torch.int64
 _F32 = torch.float32
 _BIG = 3e38           # the JAX package's "no neighbour" cost (not inf)
 DEPTH_CAP = 256       # the JAX collapse's depth propagation rounds
+# the merge's state words (csrc/ploc_merge.cu): the rounds run, the
+# any-merge flags, the fallback flag and the counters of the two round
+# parities, then the final counters [live, internals, rounds], then the
+# round log (the live count at the start of each round)
+_ST_CTR, _ST_FINAL, _ST_LOG = 4, 12, 16
+# shared memory one block may take on the card (the H100's 227 KB), less
+# what the merge's tail kernel declares for itself
+TAIL_SMEM = 232_448 - 1_024
 
 
 class PLOCTopo(NamedTuple):
@@ -222,6 +232,63 @@ def _ploc_merge_ref(cmin, cmax, tids, m0: int, l: int, lmax: int,
             torch.tensor(it, dtype=_I32, device=dev))
 
 
+def tail_size(lmax: int) -> int:
+    """T: the live count at and below which the merge's rounds run in
+    one block with the clusters in its shared memory: ``TAIL_SMEM`` over
+    44 + 4 * lmax B a cluster (box, count, internal id and id list, then
+    the list's home, the nearest neighbour and the plan bits)."""
+    return TAIL_SMEM // (44 + 4 * lmax)
+
+
+def decode_round_log(state: List[int]) -> List[int]:
+    """``live`` from the merge's state words (host ints): the live count
+    at the start of each round, then the count the loop stopped at."""
+    rounds = state[_ST_FINAL + 2]
+    return list(state[_ST_LOG:_ST_LOG + rounds]) + [state[_ST_FINAL]]
+
+
+def _merge_buffers(cmin0, cmax0, tids0, m0: int, l: int, lmax: int):
+    """What ``vrt_ploc_merge`` starts from -> (work, state, the seven
+    record and leaf-row outputs): the m0 start clusters in the first
+    cluster buffer (count 1, internal id -1, home = position), the id
+    lists, the first counters [m0, 0, 0], and the output words no round
+    writes (zero; -1 ids)."""
+    dev = cmin0.device
+    tiles = (l + 255) // 256
+    # two cluster buffers [cmin (l, 3) | cmax (l, 3) | cnt | nid | home],
+    # the id lists by home, nn, code, the tile totals and offsets
+    work = torch.empty(20 * l + l * lmax + 9 * tiles, dtype=_I32, device=dev)
+    work[: 3 * l].view(_F32).view(l, 3).copy_(cmin0)
+    work[3 * l: 6 * l].view(_F32).view(l, 3).copy_(cmax0)
+    work[6 * l: 7 * l].fill_(1)
+    work[7 * l: 8 * l].fill_(-1)
+    torch.arange(l, dtype=_I32, device=dev, out=work[8 * l: 9 * l])
+    work[18 * l: 18 * l + l * lmax].view(l, lmax).copy_(tids0)
+    state = torch.zeros(_ST_LOG + round_cap(l), dtype=_I32, device=dev)
+    state[_ST_CTR:_ST_CTR + 1].fill_(m0)
+    lk = torch.zeros(l - 1, dtype=_I32, device=dev)
+    rk, lvl = torch.zeros_like(lk), torch.zeros_like(lk)
+    bmn = torch.zeros((l - 1, 3), dtype=_F32, device=dev)
+    bmx = torch.zeros_like(bmn)
+    row_tids = torch.full((l, lmax), -1, dtype=_I32, device=dev)
+    row_cnt = torch.zeros(l, dtype=_I32, device=dev)
+    return work, state, (lk, rk, lvl, bmn, bmx, row_tids, row_cnt)
+
+
+def _merge_on_card(cmin0, cmax0, tids0, m0: int, l: int, lmax: int,
+                   radius: int, tail: int):
+    """One call of ``vrt_ploc_merge`` with the tail from ``tail`` clusters
+    down -> (the seven record and leaf-row outputs, the state words on the
+    card).  ``_ploc_merge`` passes ``tail_size(lmax)``."""
+    lib = kernels.load("ploc_merge")
+    work, state, out = _merge_buffers(cmin0, cmax0, tids0, m0, l, lmax)
+    # the cooperative grid only when the first round is above the tail
+    _launch(lib, "vrt_ploc_merge", cmin0.device, work.data_ptr(),
+            state.data_ptr(), *(a.data_ptr() for a in out), m0, l, lmax,
+            radius, round_cap(l), tail, n_kernels=2 if m0 > tail else 1)
+    return out, state
+
+
 def _ploc_merge(cmin0, cmax0, tids0, m0: int, l: int, lmax: int,
                 radius: int, live: Optional[List[int]] = None):
     """The PLOC merge loop over ``m0`` clusters in Morton order: boxes
@@ -232,11 +299,11 @@ def _ploc_merge(cmin0, cmax0, tids0, m0: int, l: int, lmax: int,
     ``row_tids`` (l, lmax), ``row_cnt`` (l,); ``n_int`` and ``n_levels``
     (0-dim int32).  ``live``, when given, receives each round's live
     cluster count and then the count the loop ended with (1, or more when
-    it stopped at the round cap)."""
+    it stopped at the round cap).  On the card the loop makes no copy to
+    the host; ``live`` costs one."""
     if not _cuda(cmin0):
         return _ploc_merge_ref(cmin0, cmax0, tids0, m0, l, lmax, radius,
                                live)
-    lib = kernels.load("ploc_merge")
     dev = cmin0.device
     for name, a, shape in (("cmin0", cmin0, (l, 3)), ("cmax0", cmax0, (l, 3))):
         if a.dtype != _F32 or tuple(a.shape) != shape or a.device != dev:
@@ -246,59 +313,13 @@ def _ploc_merge(cmin0, cmax0, tids0, m0: int, l: int, lmax: int,
     if not (1 <= radius and 1 <= lmax and 1 <= m0 <= l):
         raise ValueError(f"radius {radius}, leaf {lmax}, m0 {m0} out of "
                          f"range")
-    # ping-pong cluster state: boxes, counts, id lists, internal ids
-    cmn = [cmin0.contiguous().clone(), torch.empty_like(cmin0)]
-    cmx = [cmax0.contiguous().clone(), torch.empty_like(cmax0)]
-    cnt = [torch.ones(l, dtype=_I32, device=dev),
-           torch.empty(l, dtype=_I32, device=dev)]
-    tid = [tids0.clone(), torch.empty_like(tids0)]
-    nid = [torch.full((l,), -1, dtype=_I32, device=dev),
-           torch.empty(l, dtype=_I32, device=dev)]
-    # per round: [live count, internals so far, leaf rows so far, any
-    # mutual merge], current and next
-    state = torch.tensor([[m0, 0, 0, 0], [0, 0, 0, 0]], dtype=_I32,
-                         device=dev)
-    nn = torch.empty(l, dtype=_I32, device=dev)
-    code = torch.empty(l, dtype=_I32, device=dev)
-    scan = torch.empty(3 * l, dtype=_I32, device=dev)
-    lk = torch.zeros(l - 1, dtype=_I32, device=dev)
-    rk, lvl = torch.zeros_like(lk), torch.zeros_like(lk)
-    bmn = torch.zeros((l - 1, 3), dtype=_F32, device=dev)
-    bmx = torch.zeros_like(bmn)
-    row_tids = torch.full((l, lmax), -1, dtype=_I32, device=dev)
-    row_cnt = torch.zeros(l, dtype=_I32, device=dev)
-    m, it, cur = int(m0), 0, 0
-    cap = round_cap(l)
-    while m > 1 and it < cap:
-        if live is not None:
-            live.append(m)
-        nxt = 1 - cur
-        st_cur, st_nxt = state[cur], state[nxt]
-        # nearest neighbours, the mutual test, the round's plan
-        _launch(lib, "vrt_ploc_round_plan", dev, cmn[cur].data_ptr(),
-                cmx[cur].data_ptr(), cnt[cur].data_ptr(),
-                nid[cur].data_ptr(), m, l, lmax, radius, it,
-                st_cur.data_ptr(), nn.data_ptr(), code.data_ptr(),
-                scan.data_ptr(), n_kernels=3)
-        incl = torch.cumsum(scan[: 3 * m], 0, dtype=_I32)
-        # records, leaf rows, the merged clusters, compaction
-        _launch(lib, "vrt_ploc_round_write", dev, cmn[cur].data_ptr(),
-                cmx[cur].data_ptr(), cnt[cur].data_ptr(),
-                tid[cur].data_ptr(), nid[cur].data_ptr(),
-                cmn[nxt].data_ptr(), cmx[nxt].data_ptr(),
-                cnt[nxt].data_ptr(), tid[nxt].data_ptr(),
-                nid[nxt].data_ptr(), nn.data_ptr(), code.data_ptr(),
-                incl.data_ptr(), m, l, lmax, it, st_cur.data_ptr(),
-                st_nxt.data_ptr(), lk.data_ptr(), rk.data_ptr(),
-                lvl.data_ptr(), bmn.data_ptr(), bmx.data_ptr(),
-                row_tids.data_ptr(), row_cnt.data_ptr())
-        cur, it = nxt, it + 1
-        m = int(state[cur, 0])      # the one copy to the host a round
+    if l < 2:
+        raise ValueError(f"the merge takes 2 or more clusters, got {l}")
+    out, state = _merge_on_card(cmin0, cmax0, tids0, int(m0), l, lmax, radius,
+                                tail_size(lmax))
     if live is not None:
-        live.append(m)
-    return (lk, rk, lvl, bmn, bmx, row_tids, row_cnt,
-            state[cur, 1].clone(),
-            torch.tensor(it, dtype=_I32, device=dev))
+        live.extend(decode_round_log(state.tolist()))
+    return (*out, state[_ST_FINAL + 1].clone(), state[_ST_FINAL + 2].clone())
 
 
 # ------------------------------------------------------------------ K4b

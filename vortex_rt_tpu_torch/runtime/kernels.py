@@ -105,8 +105,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     },
     # the on-device PLOC build and level refit (accel/ploc.py)
     "ploc_merge": {
-        "vrt_ploc_round_plan": ([_P] * 4 + [_I] * 5 + [_P] * 5, _I),
-        "vrt_ploc_round_write": ([_P] * 13 + [_I] * 4 + [_P] * 10, _I),
+        "vrt_ploc_merge": ([_P] * 9 + [_I] * 6 + [_P], _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
     "ploc_collapse": {
