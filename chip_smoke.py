@@ -88,7 +88,8 @@ and so exits non-zero, on failure):
     ns/step/walk for k in {1, 4, 8, 16, 32} at each fetch width;
 11a. K5, each LBVH kernel against its plain version on the card: Morton
     codes and the Karras tree (A), the collapse (B), the bottom-up boxes
-    (C), the pack (D), on ``uv_sphere``, ``random_soup(2000)`` and a
+    (C; its plan's records too, and its counters zero after its
+    launches), the pack (D), on ``uv_sphere``, ``random_soup(2000)`` and a
     100k-triangle ``wavy_grid(n=225)``, widths 4 and 8, leaf 4 and 8,
     full and compact pools, flat and (4-wide) TLAS layouts: every integer
     field and every output word equal, and a second launch gives the
@@ -115,9 +116,12 @@ and so exits non-zero, on failure):
     held against its plain version at this path's shapes (999,700
     triangles, the compact plan, fused rows) word for word, and timed
     there (CUDA events around its wrapper; its kernels alone from the
-    profiler beside that) beside its plain version and its bound;
+    profiler beside that) beside its plain version and its bound; the
+    refit's plan (once a topology) timed; the device operations one refit
+    + repack issues (profiler), none a fill or a reduction;
 12a. K4, each PLOC kernel against its plain version on the card: the
-    merge rounds (K4a), the remap and collapse (K4b), the leaf-row boxes
+    merge rounds (K4a), the remap and collapse in one launch (K4b), the
+    leaf-row boxes
     and the refit climb over moved vertices (K4c), the pack from explicit
     leaf ids (K4d), on phase 11a's three meshes at widths 4 and 8, leaf 4
     and 8, radius 16, and on the grid also at radius 8: every output word
@@ -175,7 +179,8 @@ and so exits non-zero, on failure):
     before one build): build ms, levels, the real wide depth; the tree's
     kernels against ``_sah_sweep_tree_ref`` on the same sorted leaf boxes
     (the plain version run on the card), lchild, rchild, lo and hi word
-    for word; the sweep timed (CUDA events) beside its bound and the
+    for word, and K5 C's boxes over the tree and its plan against theirs;
+    the sweep timed (CUDA events) beside its bound and the
     plain version, each of its kernels by the profiler beside its bound;
     then K1 over config 3's 1080p camera rays on the host SAH, Karras,
     PLOC and sweep-SAH trees: hits equal to the bit, steps per ray;
@@ -272,7 +277,7 @@ PLOC_KERNELS = ("ploc_merge", "ploc_collapse", "ploc_refit", "ploc_pack")
 # the __global__ functions of each K4 function, as the profiler names them
 PLOC_KERNEL_NAMES = {
     "ploc_merge": ("merge_grid_kernel", "merge_tail_kernel"),
-    "ploc_collapse": ("remap_kernel", "expand_kernel", "assign_kernel"),
+    "ploc_collapse": ("remap_collapse_kernel",),
     "ploc_refit": ("boxes_kernel",),
     "ploc_refit_climb": ("boxes_kernel",),
     "ploc_pack": ("pack_nodes_kernel", "pack_leaves_kernel"),
@@ -281,18 +286,23 @@ PLOC_KERNEL_NAMES = {
 LBVH_KERNEL_NAMES = {
     "lbvh_karras": ("morton_kernel", "karras_kernel"),
     "lbvh_collapse": ("parents_kernel", "expand_kernel", "assign_kernel"),
-    "lbvh_refit": ("refit_boxes_kernel",),
+    "lbvh_refit": ("refit_tile_kernel",),
     "lbvh_pack": ("pack_nodes_kernel", "pack_leaves_kernel"),
 }
 # the redesigned kernels' readings before their redesign (PERF.md's
 # kernel table; CUDA events around the wrapper, ms, NVIDIA H100 80GB HBM3
 # at 700 W), printed beside this run's
 EARLIER_MS = {"lbvh_pack": {"config5": 0.6296},
+              "lbvh_refit": {"config5": 0.2038},
               "ploc_merge": {"config3": 8.2440, "config5": 7.2190},
+              "ploc_collapse": {"config3": 0.2801, "config5": 0.3037},
               "ploc_pack": {"config3": 0.1332, "config5": 1.1697}}
-EARLIER = ("before the redesign: row 3's PLOC build 6.4-12.96 ms, K4a 216 / "
-           "228 launches a build and a host read a round, config 5's refit "
-           "+ repack 1.5097-2.2055 ms")
+EARLIER = ("before the redesigns: row 3's PLOC build 6.4-12.96 ms with the "
+           "merge's host loop, 2.0-3.0 ms with K4b in three kernels; K4a 216 "
+           "/ 228 launches a build and a host read a round; K4b 3 kernels, 3 "
+           "fills, a torch.cumsum and 2 elementwise ops a build; config 5's "
+           "refit + repack 1.5097-2.2055 ms before the pack's redesign, "
+           "1.3219-1.5783 ms with the whole-tree refit climb")
 EYE2 = ([0.05, 0.02, -3.2], [0.0, -0.05, 0.0], [0, 1, 0], 45.0, 1.0)
 LIGHT2 = (0.0, 0.8, -0.5)
 REL_TOL = 1e-6
@@ -1123,6 +1133,7 @@ def lbvh_vs_plain(label: str, v0, v1, v2, width: int, leaf: int, plans,
                     lbvh._refit_boxes_ref(topo, v0, v1, v2)),
          _same_bits(f"{label} refit boxes again",
                     lbvh._refit_boxes(topo, v0, v1, v2), boxes))
+    plan_vs_plain(label, topo)
     for name, kw in plans(topo):
         kw = dict(kw, leaf_size=leaf, width=width)
         got = lbvh._pack_rows(topo, *boxes, v0, v1, v2, **kw)
@@ -1132,6 +1143,22 @@ def lbvh_vs_plain(label: str, v0, v1, v2, width: int, leaf: int, plans,
              _same_bits(f"{label} pack {name} again",
                         lbvh._pack_rows(topo, *boxes, v0, v1, v2, **kw), got))
     return topo
+
+
+def plan_vs_plain(label: str, topo) -> None:
+    """On the card, the refit kernel's plan of ``topo`` (made by its first
+    refit): its records equal their plain version's word for word, and
+    its counters are all zero after the launches."""
+    from vortex_rt_tpu_torch.accel import lbvh
+    from vortex_rt_tpu_torch.runtime import kernels
+
+    plan = lbvh.topo_state(topo).plan
+    if plan is not None:
+        tile = kernels.load("lbvh_refit").lib.vrt_lbvh_refit_tile()
+        _same_bits(f"{label} refit plan", plan.rec,
+                   lbvh._refit_records_ref(topo, tile // 2, plan.gstart))
+        n = int(plan.arrived.count_nonzero())
+        _check(n == 0, f"{label}: {n} refit counters left non-zero")
 
 
 def phase_lbvh_kernels(device, meshes, checked: dict, err: dict) -> None:
@@ -1266,8 +1293,8 @@ def phase_config5(device, checked: dict, err: dict, grid: int = 708,
                  for k in LBVH_KERNELS}
     if cuda:
         # two topology builds, each morton + karras, parents + expand +
-        # assign, refit_boxes, pack_nodes + pack_leaves
-        want = {"lbvh_karras": 4, "lbvh_collapse": 6, "lbvh_refit": 2,
+        # assign, the refit's plan and climb, pack_nodes + pack_leaves
+        want = {"lbvh_karras": 4, "lbvh_collapse": 6, "lbvh_refit": 4,
                 "lbvh_pack": 4}
         _check(all(build_launches[k] == v for k, v in want.items()),
                f"config 5 build launches {build_launches}, expected {want}")
@@ -1372,6 +1399,24 @@ def phase_config5(device, checked: dict, err: dict, grid: int = 708,
               + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
               + f"); plain {plain_ms:.3f} ms")
     if cuda:
+        # the refit's plan, made by a topology's first refit (a topology
+        # with another parent array is another topology)
+        from vortex_rt_tpu_torch.tools.profile_frames import (
+            kernel_events, ms_by_name,
+        )
+
+        fresh = topo._replace(parent=topo.parent.clone())
+        r = rows["lbvh_refit"]
+        r["plan_kernel_ms"] = ms_by_name(kernel_events(
+            lambda: lbvh._refit_boxes(fresh, v0, v1, v2)),
+            ("refit_plan_kernel",), 1)["refit_plan_kernel"]
+        tile = kernels.load("lbvh_refit").lib.vrt_lbvh_refit_tile()
+        r["plan_ms"] = _device_ms(lambda: lbvh._refit_plan(topo, tile), 5)
+        print(f"  lbvh_refit's plan, once a topology (its first refit): "
+              f"{r['plan_ms']:.4f} ms (CUDA events around _refit_plan, mean "
+              f"of 5: torch ops and refit_plan_kernel, "
+              f"{r['plan_kernel_ms']:.4f} ms by the profiler)")
+        del fresh
         # what the pack costs without the fused rows: it then writes only
         # nodes and tri_rows, the tables the 8-wide walk does not read
         unfused = dict(plan, fused=False)
@@ -1384,11 +1429,35 @@ def phase_config5(device, checked: dict, err: dict, grid: int = 708,
               f"stores): kernels alone {sum(parts.values()):.4f} ms "
               f"(profiler: " + ", ".join(f"{k} {v:.4f}"
                                          for k, v in parts.items()) + ")")
+    if cuda:
+        # the device operations one refit + repack issues: its kernels and
+        # whatever the wrappers enqueue around them (fills, reductions)
+        kw = {k: plan[k] for k in ("pool_rows", "leaf_rows", "surv_idx",
+                                   "leaf_size", "width")}
+        ops = kernel_events(lambda: lbvh.refit_lbvh(topo, v0, v1, v2, **kw))
+        names = [f"{e.key[:40]} x{e.count}" for e in ops]
+        rec["refit_device_ops"] = sum(e.count for e in ops)
+        _check(not any(w in e.key.lower() for e in ops
+                       for w in ("fill", "reduce")),
+               f"config 5's refit frame fills or reduces: {names}")
+        print(f"  a refit + repack frame issues {rec['refit_device_ops']} "
+              f"device operations (profiler): " + ", ".join(names)
+              + " (the whole-tree climb also issued its counters' fill, "
+              "and the leaf-row count's compare and sum)")
     print(f"  config 5's refit + repack {rec['refit_ms']:.4f} ms a frame "
           f"({EARLIER})")
     rec.update(kernels=rows, walk_err=walk_err,
                launches_k1=launches["traverse_packet"])
     return rec, st
+
+
+def remap_collapse_ref(lk, rk, lvl, bmn, bmx, n_int, l: int, width: int):
+    """K4b's plain version: the plain remap, then the plain collapse."""
+    from vortex_rt_tpu_torch.accel import ploc
+
+    rm = ploc._remap_ploc_ref(lk, rk, lvl, bmn, bmx, n_int, l)
+    return (*rm, *ploc._collapse_ploc_ref(rm[0], rm[1], rm[5], n_int, l,
+                                          width))
 
 
 def ploc_vs_plain(label: str, v0, v1, v2, width: int, leaf: int,
@@ -1421,17 +1490,14 @@ def ploc_vs_plain(label: str, v0, v1, v2, width: int, leaf: int,
          _same_bits(f"{label} merge again", ploc._ploc_merge(
              cmin0, cmax0, tids0, l, l, leaf, radius), merged))
     lk, rk, lvl, bmn, bmx, row_tids, row_cnt, n_int, _ = merged
-    rm = ploc._remap_ploc(lk, rk, lvl, bmn, bmx, n_int, l)
-    col = ploc._collapse_ploc(rm[0], rm[1], rm[5], n_int, l, width)
-    fold("ploc_collapse", 4,
-         _same_bits(f"{label} remap", rm, ploc._remap_ploc_ref(
-             lk, rk, lvl, bmn, bmx, n_int, l)),
-         _same_bits(f"{label} collapse", col, ploc._collapse_ploc_ref(
-             rm[0], rm[1], rm[5], n_int, l, width)),
+    out = ploc._remap_collapse_ploc(lk, rk, lvl, bmn, bmx, n_int, l, width)
+    fold("ploc_collapse", 2,
+         _same_bits(f"{label} remap and collapse", out, remap_collapse_ref(
+             lk, rk, lvl, bmn, bmx, n_int, l, width)),
          _same_bits(f"{label} remap and collapse again",
-                    (*ploc._remap_ploc(lk, rk, lvl, bmn, bmx, n_int, l),
-                     *ploc._collapse_ploc(rm[0], rm[1], rm[5], n_int, l,
-                                          width)), (*rm, *col)))
+                    ploc._remap_collapse_ploc(lk, rk, lvl, bmn, bmx, n_int,
+                                              l, width), out))
+    rm, col = out[:6], out[6:]
     rows = ploc._row_boxes(v0, v1, v2, order, row_tids, row_cnt)
     fold("ploc_refit", 2,
          _same_bits(f"{label} row boxes", rows, ploc._row_boxes_ref(
@@ -1510,11 +1576,7 @@ def ploc_times(label: str, v, width: int, leaf: int, radius: int, pt, live,
     order, cmin0, cmax0, tids0 = ploc.seed_clusters(v0, v1, v2, leaf)
     merged = ploc._ploc_merge(cmin0, cmax0, tids0, l, l, leaf, radius)
     lk, rk, lvl, bmn, bmx, row_tids, row_cnt, n_int, _ = merged
-
-    def collapse(remap, coll):
-        rm = remap(lk, rk, lvl, bmn, bmx, n_int, l)
-        return coll(rm[0], rm[1], rm[5], n_int, l, width)
-
+    rec = (lk, rk, lvl, bmn, bmx, n_int, l, width)
     boxes = ploc._refit_boxes_ploc(pt, v0, v1, v2)
     kw = dict(leaf_size=leaf, width=width, fused=width == 8,
               leaf_tids=pt.leaf_tids)
@@ -1523,9 +1585,8 @@ def ploc_times(label: str, v, width: int, leaf: int, radius: int, pt, live,
             lambda: ploc._ploc_merge(cmin0, cmax0, tids0, l, l, leaf, radius),
             lambda: ploc._ploc_merge_ref(cmin0, cmax0, tids0, l, l, leaf,
                                          radius)),
-        "ploc_collapse": (
-            lambda: collapse(ploc._remap_ploc, ploc._collapse_ploc),
-            lambda: collapse(ploc._remap_ploc_ref, ploc._collapse_ploc_ref)),
+        "ploc_collapse": (lambda: ploc._remap_collapse_ploc(*rec),
+                          lambda: remap_collapse_ref(*rec)),
         "ploc_refit": (
             lambda: ploc._row_boxes(v0, v1, v2, order, row_tids, row_cnt),
             lambda: ploc._row_boxes_ref(v0, v1, v2, order, row_tids,
@@ -1563,6 +1624,15 @@ def ploc_times(label: str, v, width: int, leaf: int, radius: int, pt, live,
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b.ms,
                          bound_by=b.bound_by, bound_bytes=b.bytes,
                          kernel_ms=parts, other_ms=other)
+        if cuda:
+            # the host's time a call: the wrapper's pace when it is longer
+            # than its kernels'
+            _sync(device)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                call()
+            out[name]["host_ms"] = (time.perf_counter() - t0) * 1e3 / reps
+            _sync(device)
         was = EARLIER_MS.get(name, {}).get(label)
         print(f"  {name} at T {l}: {ms:.4f} ms (CUDA events around the "
               f"wrapper, mean of {reps}), bound {b.ms:.4f} ms ({b.bytes} B)"
@@ -1573,7 +1643,9 @@ def ploc_times(label: str, v, width: int, leaf: int, radius: int, pt, live,
               + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
               + "; besides them " + ", ".join(f"{k} {v:.4f}"
                                               for k, v in other)
-              + f"); plain {plain_ms:.3f} ms")
+              + f"); plain {plain_ms:.3f} ms"
+              + (f"; host {out[name]['host_ms']:.4f} ms a call" if cuda
+                 else ""))
     if device.type == "cuda":
         t = ploc.tail_size(leaf)
         tails = {f"T={t}": t, f"T/4={t // 4}": t // 4, "grid only (T=2)": 2}
@@ -1655,6 +1727,9 @@ def phase_config3_ploc(device, host_c3: dict, checked: dict, err: dict,
         _check(launches["lbvh_collapse"] == launches["lbvh_refit"]
                == launches["lbvh_pack"] == 0,
                f"config 3's PLOC path launched Karras kernels: {launches}")
+        # a build: the merge's grid and tail, one remap + collapse
+        _check(2 * launches["ploc_collapse"] == launches["ploc_merge"],
+               f"config 3: K4b launched more than once a build: {launches}")
     print(f"  PLOC tree (radius {rec['ploc_radius']}): build "
           f"{rec['lbvh_build_ms']:.4f} ms (median of 5), {rec['ploc_rounds']}"
           f" rounds, pool {rec['pool_rows']} rows, {rec['leaf_rows']} leaf "
@@ -1790,9 +1865,11 @@ def phase_config5_ploc(device, st, checked: dict, err: dict,
                refit_t0_err=err_t0, build_launches=build_launches,
                refit_launches=refit_launches, merge_host_reads=0)
     if device.type == "cuda":
-        _check(build_launches["ploc_merge"] == 2,
-               f"K4a: {build_launches['ploc_merge']} launches a build, "
-               f"expected 2")
+        _check(build_launches["ploc_merge"] == 2
+               and build_launches["ploc_collapse"] == 1,
+               f"K4a, K4b: {build_launches['ploc_merge']}, "
+               f"{build_launches['ploc_collapse']} launches a build, "
+               f"expected 2, 1")
         _check(refit_launches["ploc_refit"] == 1
                and refit_launches["ploc_pack"] == 2
                and refit_launches["lbvh_pack"] == 0
@@ -2312,6 +2389,10 @@ def sah_phase(device, label: str, verts, width: int, leaf: int, trees: dict,
     _check(levels == want[-1], f"{label}: {levels} levels, the plain "
            f"version {want[-1]}")
     err = _same_bits(f"{label}: sweep-SAH tree vs plain", got[:4], want[:4])
+    # K5 C on this tree, whose node ids are not in their ranges
+    _same_bits(f"{label}: refit boxes vs plain", lbvh._refit_boxes(
+        topo, *verts), lbvh._refit_boxes_ref(topo, *verts))
+    plan_vs_plain(label, topo)
     _same_bits(f"{label}: the build's children vs the sweep's",
                (topo.lchild, topo.rchild, topo.lo, topo.hi), got[:4])
     sweep = lambda: lbvh._sah_sweep_tree(lmin, lmax, l)  # noqa: E731
@@ -2759,11 +2840,15 @@ def main() -> int:
     _phase("phase 11c ladder config 5 (wavy_grid n=708, refit every frame)")
     c5, st5 = phase_config5(device, lbvh_checked, lbvh_err)
     _phase("phase 12a K4: PLOC kernels vs their plain versions")
-    for name in ("ploc_merge", "lbvh_pack"):
+    for name in ("ploc_merge", "lbvh_pack", "lbvh_refit", "ploc_collapse"):
         print(f"  {name} (redesigned), ptxas: " + "; ".join(
             line.split("ptxas info    : ")[-1].strip()
             for line in libs[name].build_log.splitlines()
             if "registers" in line or "spill" in line))
+    tile = libs["lbvh_refit"].lib.vrt_lbvh_refit_tile()
+    print(f"  lbvh_refit: blocks of at most {tile} sorted leaves (treelets of "
+          f"at most {tile // 2}), {24 * (2 * tile - 1)} B of dynamic shared "
+          f"memory a block (a box a leaf and an inner node)")
     ploc_checked = {k: 0 for k in PLOC_KERNELS}
     ploc_err = {k: 0.0 for k in PLOC_KERNELS}
     phase_ploc_kernels(device, lbvh_test_meshes(), ploc_checked, ploc_err)

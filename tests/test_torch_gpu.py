@@ -353,7 +353,9 @@ def test_lbvh_kernels_match_plain_versions(cuda, mesh, width, leaf):
         hi=tree[3], parent=par)
     boxes = lbvh._refit_boxes(topo, v0, v1, v2)
     _assert_same(boxes, lbvh._refit_boxes_ref(topo, v0, v1, v2))
-    assert kernels.LAUNCHES["lbvh_refit"] == before["lbvh_refit"] + 1
+    # the topology's first refit: its plan, then the climb
+    assert kernels.LAUNCHES["lbvh_refit"] == before["lbvh_refit"] + 2
+    assert not bool(lbvh.topo_state(topo).plan.arrived.any())
     pool_rows, leaf_rows, surv_idx = lbvh.compact_plan(topo)
     n = 0
     for kw in (dict(), dict(pool_rows=pool_rows, leaf_rows=leaf_rows,
@@ -434,6 +436,26 @@ def test_lbvh_refit_copies_nothing_to_the_host(cuda):
 
 # ---- K4: the on-device PLOC build and level refit, kernel by kernel
 
+def chain_records(l, n, device="cpu"):
+    """The merge's records (lk, rk, lvl, bmn, bmx, n_int) of a chain: ``n``
+    internals over leaf rows 0..n, internal k joining internal k-1 (leaf
+    rows 0 and 1 for k = 0) and leaf row k+1, so the last created, the
+    root, sits n-1 levels above the first; rows n+1.. are dead.  Boxes
+    from a seeded NumPy generator."""
+    import numpy as np
+
+    k = torch.arange(l - 1, dtype=torch.int32)
+    lk = torch.where(k == 0, l - 1, -k)
+    rk = l - 1 + k + 1
+    live = k < n
+    box = torch.from_numpy(np.random.default_rng(n).uniform(
+        -1, 1, (l - 1, 3)).astype(np.float32))
+    rec = (torch.where(live, lk, 0), torch.where(live, rk, 0),
+           torch.where(live, k, 0), box - 1, box + 1,
+           torch.tensor(n, dtype=torch.int32))
+    return tuple(a.to(device).contiguous() for a in rec)
+
+
 def _ploc_stages(v, leaf, width, radius=16):
     """Each K4 kernel against its plain version on the card, stage by
     stage, every output word equal; returns the build's topology."""
@@ -452,18 +474,24 @@ def _ploc_stages(v, leaf, width, radius=16):
     assert kernels.LAUNCHES["ploc_merge"] == (
         before["ploc_merge"] + 1 + (l > ploc.tail_size(leaf)))
     lk, rk, lvl, bmn, bmx, row_tids, row_cnt, n_int, _ = merged
-    rm = ploc._remap_ploc(lk, rk, lvl, bmn, bmx, n_int, l)
-    _assert_same(rm, ploc._remap_ploc_ref(lk, rk, lvl, bmn, bmx, n_int, l))
-    col = ploc._collapse_ploc(rm[0], rm[1], rm[5], n_int, l, width)
-    _assert_same(col, ploc._collapse_ploc_ref(rm[0], rm[1], rm[5], n_int,
-                                              l, width))
-    # remap, expand, assign
-    assert kernels.LAUNCHES["ploc_collapse"] == before["ploc_collapse"] + 3
+    _assert_same(ploc._remap_collapse_ploc(lk, rk, lvl, bmn, bmx, n_int, l,
+                                           width),
+                 _remap_collapse_ref(lk, rk, lvl, bmn, bmx, n_int, l, width))
+    # the remap and the collapse: one cooperative launch
+    assert kernels.LAUNCHES["ploc_collapse"] == before["ploc_collapse"] + 1
     _assert_same(ploc._row_boxes(v0, v1, v2, order, row_tids, row_cnt),
                  ploc._row_boxes_ref(v0, v1, v2, order, row_tids, row_cnt))
     assert kernels.LAUNCHES["ploc_refit"] == before["ploc_refit"] + 1
     return ploc.build_ploc_topo(*v, leaf_size=leaf, width=width,
                                 radius=radius)
+
+
+def _remap_collapse_ref(lk, rk, lvl, bmn, bmx, n_int, l, width):
+    """The plain remap, then the plain collapse: the one-launch K4b's
+    plain version."""
+    rm = ploc._remap_ploc_ref(lk, rk, lvl, bmn, bmx, n_int, l)
+    return (*rm, *ploc._collapse_ploc_ref(rm[0], rm[1], rm[5], n_int, l,
+                                          width))
 
 
 def _merge_mesh(name):
@@ -534,21 +562,23 @@ def test_ploc_merge_reads_nothing_back(cuda):
 def _poisoned(monkeypatch, call):
     """``call()`` with every ``torch.empty`` block it takes full of 0xFF
     bytes, so a word the kernels leave unwritten reads -1 and fails the
-    comparison; ``torch.zeros`` and ``torch.full`` raise (no fill)."""
+    comparison; ``torch.zeros``, ``torch.full`` and ``torch.cumsum`` raise
+    (no fill, no prefix sum around the kernels)."""
     empty = torch.empty
 
     def poisoned(*args, **kwargs):
         t = empty(*args, **kwargs)
-        t.view(torch.uint8).fill_(255)
+        t.reshape(-1).view(torch.uint8).fill_(255)
         return t
 
     def refused(*args, **kwargs):
-        raise AssertionError("a fill in the pack")
+        raise AssertionError("a fill or a prefix sum around the kernels")
 
     with monkeypatch.context() as mp:
         mp.setattr(torch, "empty", poisoned)
         mp.setattr(torch, "zeros", refused)
         mp.setattr(torch, "full", refused)
+        mp.setattr(torch, "cumsum", refused)
         return call()
 
 
@@ -644,6 +674,144 @@ def test_ploc_build_walks_like_the_plain_build(cuda, width):
     assert bool((p.dist < 1e30).any())
     for a, b in zip(k, p):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("width,leaf,radius", [
+    (4, 1, 16), (8, 4, 16), (8, 8, 1), (4, 8, 1), (8, 1, 1), (4, 4, 16)])
+def test_ploc_remap_collapse_writes_every_word(cuda, monkeypatch, width,
+                                               leaf, radius):
+    """The one-launch K4b into memory poisoned with 0xFF words, no fill
+    and no prefix sum around it: every output equals the plain remap and
+    collapse word for word, on the merge's records of the grid (at leaf
+    4 and 8 many internals are dead: n_int < l-1); one launch."""
+    v = [torch.from_numpy(x).to(cuda)
+         for x in lbvh.pad_tris(*_merge_mesh("wavy_grid"), leaf)]
+    l = v[0].shape[0]
+    _, cmin0, cmax0, tids0 = ploc.seed_clusters(*v, leaf)
+    rec = ploc._ploc_merge(cmin0, cmax0, tids0, l, l, leaf, radius)
+    lk, rk, lvl, bmn, bmx, _, _, n_int, _ = rec
+    assert (int(n_int) < l - 1) == (leaf > 1)
+    before = kernels.LAUNCHES["ploc_collapse"]
+    got = _poisoned(monkeypatch, lambda: ploc._remap_collapse_ploc(
+        lk, rk, lvl, bmn, bmx, n_int, l, width))
+    assert kernels.LAUNCHES["ploc_collapse"] == before + 1
+    _assert_same(got, _remap_collapse_ref(lk, rk, lvl, bmn, bmx, n_int, l,
+                                          width))
+
+
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("l,n", [(300, 297), (300_000, 299_998)])
+def test_ploc_remap_collapse_of_a_deep_chain(cuda, monkeypatch, l, n, width):
+    """The one-launch K4b on a chain deeper than the JAX propagation's
+    256 rounds (``chain_records``), into poisoned memory: the depth is
+    DEPTH_CAP + 1 and every word but ``newid`` equals the plain
+    version's.  Past the cap the unreached internals count as depth 0 and
+    all survive, so a node may be the wide child of two survivors, and
+    which of the two ids lands depends on the order of the writes (in the
+    JAX scatter as here): every claimed node holds one of its claims,
+    every other node -1, the root 0.  At 300,000 leaf rows the grid's
+    blocks own more than one chunk of nodes each."""
+    rec = chain_records(l, n, cuda)
+    got = _poisoned(monkeypatch,
+                    lambda: ploc._remap_collapse_ploc(*rec, l, width))
+    want = _remap_collapse_ref(*rec, l, width)
+    assert int(got[-1]) == ploc.DEPTH_CAP + 1
+    _assert_same(got[:10] + got[11:], want[:10] + want[11:])
+    surv, ch_old, base, newid = got[6], got[7].long(), got[9], got[10]
+    idx = ch_old[surv]
+    val = base[surv][:, None] + torch.arange(width, device=cuda)
+    ok = idx >= 0
+    idx, val = idx[ok], val[ok]
+    claimed = torch.zeros_like(newid, dtype=torch.bool)
+    claimed[idx] = True
+    assert int(claimed.sum()) < idx.numel()   # some nodes claimed twice
+    held = torch.zeros_like(newid, dtype=torch.bool)
+    held[idx[newid[idx] == val]] = True
+    assert torch.equal(held, claimed)
+    assert int(newid[0]) == 0 and bool((newid[1:][~claimed[1:]] == -1).all())
+
+
+def _refit_case(case):
+    """Vertices on the CPU for the refit's checks: random triangles just
+    below, at and just above one block of 256 sorted leaves and at many
+    blocks; 200 copies each of 31 triangles (most Morton codes repeat);
+    config 5's 999,700-triangle grid."""
+    import numpy as np
+
+    if case == "config5":
+        m = wavy_grid(n=708)
+        return [torch.from_numpy(x) for x in lbvh.pad_tris(m.v0, m.v1,
+                                                           m.v2, 4)]
+    rng = np.random.default_rng(7)
+    if case == "duplicates":
+        tri = rng.uniform(-5, 5, (3, 31, 3)).astype(np.float32)
+        return [torch.from_numpy(np.tile(t, (200, 1))) for t in tri]
+    c = rng.uniform(-20, 20, (case, 3)).astype(np.float32)
+    return [torch.from_numpy(c + rng.normal(size=(case, 3)).astype(
+        np.float32)) for _ in range(3)]
+
+
+@pytest.mark.parametrize("method", ["karras", "sah"])
+@pytest.mark.parametrize("case", [255, 256, 257, 5000, 20_481,
+                                  "duplicates", "config5"])
+def test_refit_tiles_match_plain_version(cuda, case, method):
+    """K5 C, the blocks of treelets and the climbs above them, against
+    ``_refit_boxes_ref`` (the sparse-table range refit) word for word on
+    Karras and sweep-SAH trees, at the build's vertices and at moved ones,
+    one launch each; its counters are all zero after every call, and a
+    relaunch after other allocations gives the same words (the launch
+    names its own buffers).  The plan's records and depths, made with the
+    build's refit, equal their plain version's (``_refit_records_ref``);
+    its blocks partition the leaves, at most a tile each."""
+    tile = kernels.load("lbvh_refit").lib.vrt_lbvh_refit_tile()
+    v = [x.to(cuda) for x in _refit_case(case)]
+    _, topo = lbvh.build_lbvh_topo(*v, method=method, width=8)
+    st = lbvh.topo_state(topo)
+    plan = st.plan
+    _assert_same(plan.rec, lbvh._refit_records_ref(topo, tile // 2,
+                                                   plan.gstart))
+    first, last = plan.blocks[:, 0], plan.blocks[:, 1]
+    assert int(first[0]) == 0 and int(last[-1]) == v[0].shape[0] - 1
+    assert torch.equal(first[1:], last[:-1] + 1)
+    assert int((last - first).max()) < tile
+    moved = [x + 0.25 * torch.sin(x.flip(1)) for x in v]
+    for verts in (v, moved):
+        before = kernels.LAUNCHES["lbvh_refit"]
+        got = lbvh._refit_boxes(topo, *verts)
+        assert kernels.LAUNCHES["lbvh_refit"] == before + 1
+        assert lbvh.topo_state(topo).plan is plan
+        assert not bool(plan.arrived.any())
+        _assert_same(got, lbvh._refit_boxes_ref(topo, *verts))
+    junk = torch.empty(8 << 20, dtype=torch.int32, device=cuda).fill_(-1)
+    _assert_same(lbvh._refit_boxes(topo, *moved), got)
+    assert not bool(plan.arrived.any())
+    del junk
+
+
+def test_refit_after_a_failed_launch_starts_from_a_new_plan(cuda,
+                                                            monkeypatch):
+    """A refit whose launch raises drops the topology's plan and its
+    counters; the next refit makes new ones (two launches) and
+    gives the plain version's words."""
+    v = [x.to(cuda) for x in _refit_case(5000)]
+    _, topo = lbvh.build_lbvh_topo(*v, width=8)
+    old = lbvh.topo_state(topo).plan
+
+    def failed(*args, **kwargs):
+        raise RuntimeError("vrt_lbvh_refit_boxes launch failed")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(lbvh, "_launch", failed)
+        with pytest.raises(RuntimeError):
+            lbvh._refit_boxes(topo, *v)
+    assert lbvh.topo_state(topo).plan is None
+    before = kernels.LAUNCHES["lbvh_refit"]
+    got = lbvh._refit_boxes(topo, *v)
+    assert kernels.LAUNCHES["lbvh_refit"] == before + 2
+    st = lbvh.topo_state(topo)
+    assert st.plan is not None and st.plan is not old
+    assert not bool(st.plan.arrived.any())
+    _assert_same(got, lbvh._refit_boxes_ref(topo, *v))
 
 
 def test_ploc_stack_capacities_match_the_kernels(cuda):

@@ -621,3 +621,173 @@ def test_deep_sah_tree_is_refused():
                             wide_depth=60)
         with pytest.raises(ValueError, match="stack entries"):
             tl.wide_arrays_from_lbvh(deep, 4, width=width)
+
+
+# ------------------------------------ the refit climb's tiles (K5 C)
+
+def _plain_tree(method, l, dups, seed=0):
+    """The port's plain Karras or sweep-SAH tree over ``l`` sorted leaves
+    -> (lchild, rchild, lo, hi) int64: Karras over sorted random codes,
+    the sweep over random leaf boxes; ``dups`` draws from 6 values, so
+    most codes and boxes repeat."""
+    rng = np.random.default_rng(seed)
+    if method == "karras":
+        codes = np.sort(rng.integers(0, 6 if dups else 2**30, l))
+        tree = tl._karras_ref(torch.from_numpy(codes.astype(np.int32)), l)
+    else:
+        c = rng.integers(0, 6, (l, 3)) if dups else rng.uniform(-9, 9, (l, 3))
+        c = torch.from_numpy(c.astype(np.float32))
+        tree = tl._sah_sweep_tree_ref(c - 0.5, c + 0.5, l)[:4]
+    return tuple(a.long() for a in tree)
+
+
+def _child_range(c, lo, hi, l):
+    leaf = c >= l - 1
+    ci = c.clamp(max=l - 2)
+    return (torch.where(leaf, c - (l - 1), lo[ci]),
+            torch.where(leaf, c - (l - 1), hi[ci]))
+
+
+@pytest.mark.parametrize("dups", [False, True])
+@pytest.mark.parametrize("method", ["karras", "sah"])
+@pytest.mark.parametrize("l", [2, 3, 7, 33, 100, 257, 333])
+def test_split_gaps_key_the_internal_nodes(method, l, dups):
+    """The refit kernel's shared slot key: an internal node's split gap,
+    the last sorted position of its left child, lies in its own range
+    [lo, hi - 1], and the gaps of all internals are 0 .. l-2, each once,
+    on Karras and sweep-SAH trees alike.  A thread arriving from either
+    child [a, b] finds it as the kernel does: b when a == lo (the left
+    child), else a - 1."""
+    lchild, rchild, lo, hi = _plain_tree(method, l, dups)
+    la, lb = _child_range(lchild, lo, hi, l)
+    ra, rb = _child_range(rchild, lo, hi, l)
+    gap = lb
+    assert bool(((lo <= gap) & (gap < hi)).all())
+    assert torch.equal(gap.sort().values, torch.arange(l - 1))
+    assert torch.equal(la, lo) and torch.equal(rb, hi)
+    assert not bool((ra == lo).any())
+    assert torch.equal(torch.where(la == lo, lb, la - 1), gap)
+    assert torch.equal(torch.where(ra == lo, rb, ra - 1), gap)
+
+
+def _tile_model(topo, v, tile, seed):
+    """A model of ``csrc/lbvh_refit.cu`` over its plan (``_refit_plan``,
+    CPU: ``_refit_records_ref``): each block of treelets (maximal subtrees
+    of at most ``tile`` leaves) joins its inner nodes deepest first from
+    their records' child slots (leaf positions and gaps from the block's
+    first leaf); then the treelets' roots, in a random order (any
+    interleaving of the kernel's climbs is one of these: a climb never
+    waits), climb with the plan's counters, the second arriver at a node
+    joining it.  -> (bmin, bmax, plan, the counters afterwards)."""
+    l = v[0].shape[0]
+    n = l - 1
+    lmin, lmax = tl._leaf_boxes(*v, topo.order)
+    plan = tl._refit_plan(topo, tile)
+    rec = plan.rec.tolist()
+    arrived = plan.arrived.tolist()
+    lc, rc, par = (t.tolist() for t in (topo.lchild, topo.rchild,
+                                        topo.parent))
+    bmin = torch.full((2 * l - 1, 3), float("nan"))
+    bmax = bmin.clone()
+    bmin[n:], bmax[n:] = lmin, lmax
+    roots = []
+    rows = plan.roots.tolist()
+    for t0, t1, rb, re in plan.blocks.tolist():
+        assert t1 - t0 < tile
+        box = {}
+
+        def child(ref):
+            if ref & tl._LEAF_REF:
+                j = t0 + (ref & 0x3FF)
+                assert t0 <= j <= t1
+                return lmin[j], lmax[j]
+            return box[ref]      # a deeper node of this block: joined
+
+        loc = [(i, r) for i, r in enumerate(rec[t0:t1]) if r[0] >= 0]
+        for i, r in sorted(loc, key=lambda ir: -(ir[1][1] >> 22)):
+            (a0, a1), (b0, b1) = child(r[1] & 0x7FF), child(r[1] >> 11 & 0x7FF)
+            box[i] = (torch.minimum(a0, b0), torch.maximum(a1, b1))
+            bmin[r[0]], bmax[r[0]] = box[i]
+        for root, slot in rows[rb:re]:
+            b = child(slot)
+            assert torch.equal(bmin[root], b[0]) and torch.equal(bmax[root],
+                                                                 b[1])
+            if root != 0:
+                roots.append(root)
+    for k in np.random.default_rng(seed).permutation(len(roots)).tolist():
+        node = roots[k]
+        mn, mx = bmin[node].clone(), bmax[node].clone()
+        p = par[node]
+        while True:
+            arrived[p] += 1
+            if arrived[p] == 1:
+                break
+            arrived[p] = 0
+            sib = rc[p] if lc[p] == node else lc[p]
+            mn, mx = torch.minimum(mn, bmin[sib]), torch.maximum(mx, bmax[sib])
+            bmin[p], bmax[p] = mn, mx
+            if p == 0:
+                break
+            node, p = p, par[p]
+    return bmin, bmax, plan, arrived
+
+
+@pytest.mark.parametrize("tile", [4, 16, 64])
+@pytest.mark.parametrize("method", ["karras", "sah"])
+def test_tile_model_equals_the_range_refit(method, tile):
+    """The kernel's treelets and climbs, modelled on the CPU over its
+    plan for a 500-triangle soup (treelets of at most 4 to 64 leaves:
+    tens of them, packed into blocks of at most as many), give
+    ``_refit_boxes_ref``'s boxes bit for bit and leave every counter zero.
+    The plan: the blocks partition the sorted leaves; every internal has
+    one record; a treelet's inner child is one deeper than its parent."""
+    m = _mesh("random_soup")
+    v = [torch.from_numpy(x) for x in tl.pad_tris(m.v0, m.v1, m.v2, 4)]
+    _, topo = tl.build_lbvh_topo(*v, method=method)
+    w = [torch.from_numpy(x) for x in _moved([x.numpy() for x in v])]
+    bmin, bmax, plan, arrived = _tile_model(topo, w, tile, seed=tile)
+    want = tl._refit_boxes_ref(topo, *w)
+    _same(bmin, want[0], "bmin")
+    _same(bmax, want[1], "bmax")
+    assert not any(arrived) and not bool(plan.arrived.any())
+    l = w[0].shape[0]
+    first, last = plan.blocks[:, 0], plan.blocks[:, 1]
+    assert int(first[0]) == 0 and int(last[-1]) == l - 1
+    assert torch.equal(first[1:], last[:-1] + 1)
+    assert torch.equal(plan.blocks[1:, 2], plan.blocks[:-1, 3])
+    ids = plan.rec[:, 0] & (tl._TOP - 1)
+    assert torch.equal(ids.sort().values, torch.arange(l - 1,
+                                                       dtype=torch.int32))
+    # an inner child's record is one deeper than its parent's
+    rec = plan.rec.long()
+    by_id = torch.empty_like(rec)
+    by_id[rec[:, 0] & (tl._TOP - 1)] = rec
+    small = by_id[:, 0] >= 0            # (bit 31: above the treelets)
+    par = topo.parent[1: l - 1].long()
+    inner = small[1:] & small[par]
+    assert torch.equal((by_id[1:, 1] >> 22)[inner],
+                       (by_id[par, 1] >> 22)[inner] + 1)
+
+
+def test_topo_state_is_made_once_and_goes_with_the_topology():
+    """``topo_state``: one per topology, made at its build's refit; its
+    leaf-row count is the one ``LBVHNodes`` used to compute a frame
+    (same value and dtype), returned by every refit; the entry goes when
+    the topology's arrays do."""
+    import gc
+
+    m = _mesh("uv_sphere")
+    v = [torch.from_numpy(x) for x in tl.pad_tris(m.v0, m.v1, m.v2, 4)]
+    lb, topo = tl.build_lbvh_topo(*v, width=8)
+    st = tl.topo_state(topo)
+    assert tl.topo_state(topo) is st and st.plan is None   # (CPU: none)
+    want = (topo.row_cnt > 0).sum()
+    assert st.num_leaves.dtype == want.dtype and torch.equal(st.num_leaves,
+                                                             want)
+    re = tl.refit_lbvh(topo, *v, width=8)
+    assert lb.num_leaves is st.num_leaves and re.num_leaves is st.num_leaves
+    key = id(topo.parent)
+    assert key in tl._TOPO_STATE
+    del topo
+    gc.collect()
+    assert key not in tl._TOPO_STATE

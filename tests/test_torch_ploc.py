@@ -38,6 +38,7 @@ from vortex_rt_tpu_torch.ops.packet_walk import trace_packets_walk_ref
 from vortex_rt_tpu_torch.ops.traverse_packet import trace_packets_ref
 from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT
 
+from tests.test_torch_gpu import chain_records
 from tests.test_torch_lbvh import (
     _bits, _brute_force, _moved, _rays, _same, assert_dense_ids,
 )
@@ -297,6 +298,26 @@ def test_depth_is_the_real_depth_and_a_deep_tree_raises(built):
 
 
 @pytest.mark.parametrize("width", [4, 8])
+def test_remap_collapse_of_a_chain_deeper_than_the_cap(width):
+    """``_remap_collapse_ploc`` (the plain remap, then the plain collapse)
+    on a chain of 297 internals over 298 of 300 leaf rows: the dead rows
+    are zero, the collapse's fields equal the JAX ``_collapse_ploc``'s,
+    and the deepest internal, 296 levels down, past the propagation's
+    256 rounds, makes the depth DEPTH_CAP + 1."""
+    l, n = 300, 297
+    out = tp._remap_collapse_ploc(*chain_records(l, n), l, width)
+    assert int(out[-1]) == tp.DEPTH_CAP + 1
+    for a in out[:5]:
+        assert not bool(a[n:].any())
+    with jax.disable_jit():
+        want = jp._collapse_ploc(jnp.asarray(out[0].numpy()),
+                                 jnp.asarray(out[1].numpy()), jnp.int32(n),
+                                 l, width)
+    for k, (a, b) in enumerate(zip(want, out[6:11])):
+        _same(a, b, f"collapse field {k}")
+
+
+@pytest.mark.parametrize("width", [4, 8])
 def test_bounds_count_each_input_and_output_once(built, width):
     """``walk_bounds.ploc_bounds`` against the bytes of the tensors that
     go into and come out of each K4 function, the merge's summed over
@@ -313,8 +334,8 @@ def test_bounds_count_each_input_and_output_once(built, width):
     order, cmin0, cmax0, tids0 = tp.seed_clusters(*v, 4)
     live = []
     merged = tp._ploc_merge(cmin0, cmax0, tids0, l, l, 4, 16, live)
-    rm = tp._remap_ploc(*merged[:5], merged[7], l)
-    col = tp._collapse_ploc(rm[0], rm[1], rm[5], merged[7], l, width)
+    out = tp._remap_collapse_ploc(*merged[:5], merged[7], l, width)
+    rm, col = out[:6], out[6:]
     rows = tp._row_boxes(*v, order, merged[5], merged[6])
     refit = tp._refit_boxes_ploc(tt, *v)
     b = ploc_bounds(l, width, 4, live)

@@ -52,7 +52,8 @@ takes it and refuses a tree deeper than the walk's stack (ROADMAP H8).
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+import weakref
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -675,9 +676,168 @@ def _refit_boxes_ref(topo: LBVHTopo, v0, v1, v2):
     return torch.cat([imin, lmin]), torch.cat([imax, lmax])
 
 
+class RefitPlan(NamedTuple):
+    """The refit kernel's plan of a topology (``csrc/lbvh_refit.cu``),
+    made at its first refit on the card.  Treelets are the maximal
+    subtrees of at most half a tile of leaves (they partition the sorted
+    leaves); a block takes the treelets that start in its half tile of
+    leaves, less than a tile in all.  The fields: by split gap (the last
+    sorted position of a node's left child; one internal per gap) the
+    node's record, (T-1, 2) int32; the blocks as (first leaf, last leaf,
+    first and end row of their roots) rows; the treelets' roots as (id,
+    slot in the block) rows; the first leaf of each treelet root's block
+    by node id (-1 elsewhere; the records' input); the climb's arrival
+    counters, (T-1,) int32, zero before and after every launch."""
+
+    rec: torch.Tensor
+    blocks: torch.Tensor
+    roots: torch.Tensor
+    gstart: torch.Tensor
+    arrived: torch.Tensor
+
+
+@dataclasses.dataclass
+class _TopoState:
+    """What the refit keeps of a topology between frames: the leaf-row
+    count ``LBVHNodes`` reports, and on the card the refit kernel's plan."""
+
+    num_leaves: torch.Tensor
+    plan: Optional[RefitPlan] = None
+
+
+# by the identity of the topology's ``parent`` array (a topology's arrays
+# are never written after its build); an entry goes with its array
+_TOPO_STATE: Dict[int, _TopoState] = {}
+
+
+def topo_state(topo: LBVHTopo) -> _TopoState:
+    """The refit state of ``topo``, made at its first refit."""
+    key = id(topo.parent)
+    st = _TOPO_STATE.get(key)
+    if st is None:
+        st = _TopoState(num_leaves=(topo.row_cnt > 0).sum())
+        _TOPO_STATE[key] = st
+        weakref.finalize(topo.parent, _TOPO_STATE.pop, key, None)
+    return st
+
+
+_TOP = 1 << 31       # a plan record's bit: the node is above the treelets
+_LEAF_REF = 1 << 10  # a record's child slot that is a leaf
+
+
+def _refit_records_ref(topo: LBVHTopo, cap: int, gstart: torch.Tensor):
+    """Plain version of ``refit_plan_kernel`` for treelets of at most
+    ``cap`` leaves, in blocks whose first leaves ``gstart`` ((T-1,)) gives
+    by treelet root -> rec (T-1, 2) int32.  The record of the node with
+    split gap g is its id and, when the node lies in a treelet, its
+    children as slots of its block (a leaf's position from the block's
+    first, bit 10 set, or an inner node's gap from it) in bits 0-10 and
+    11-21 and its depth below the treelet's root from bit 22; above the
+    treelets, its id with bit 31 set."""
+    l = topo.order.shape[0]
+    n = l - 1
+    lc, rc, par = topo.lchild.long(), topo.rchild.long(), topo.parent.long()
+    lo, hi = topo.lo.long(), topo.hi.long()
+    ids = torch.arange(n, device=lc.device)
+
+    def end(c):      # a child's last position (a leaf's is its own)
+        return torch.where(c >= n, c - n, hi[c.clamp(max=n - 1)])
+
+    small = hi - lo < cap                # a treelet's node
+    depth = torch.zeros(n, dtype=_I64, device=lc.device)
+    root = ids.clone()                   # the highest small ancestor
+    up = (root != 0) & small[par[root]] & small
+    while bool(up.any()):
+        root = torch.where(up, par[root], root)
+        depth += up.long()
+        up = (root != 0) & small[par[root]] & small
+    t0 = gstart.long()[root]
+    gap = end(lc)
+
+    def slot(c):
+        return torch.where(c >= n, (c - n - t0) | _LEAF_REF,
+                           gap[c.clamp(max=n - 1)] - t0)
+
+    rec = torch.empty((n, 2), dtype=_I64, device=lc.device)
+    rec[gap, 0] = ids | torch.where(small, 0, _TOP)
+    rec[gap, 1] = torch.where(small, slot(lc) | slot(rc) << 11
+                              | depth << 22, 0)
+    return _wrap32(rec)
+
+
+def _refit_plan(topo: LBVHTopo, tile: int) -> RefitPlan:
+    """The refit kernel's plan of ``topo`` for blocks of at most ``tile``
+    leaves, on the topology's device with no copy to the host: the
+    treelets (at most ``cap = tile // 2`` leaves) by their first leaves;
+    block k takes the treelets that start in leaves [k cap, (k+1) cap)
+    (every whole window holds a start, and its treelets end less than a
+    tile from the window's start; the last, partial one may hold none:
+    an empty block); then the records from ``refit_plan_kernel`` (CUDA;
+    counted as an ``lbvh_refit`` launch) or ``_refit_records_ref`` (CPU),
+    and zeroed counters."""
+    l = topo.order.shape[0]
+    n = l - 1
+    dev = topo.lchild.device
+    cap = tile // 2
+    lo, hi, par = topo.lo.long(), topo.hi.long(), topo.parent.long()
+    pos = torch.arange(l, device=dev)
+    first = torch.cat([lo, pos])         # by node id, leaves after
+    last = torch.cat([hi, pos])
+    small = last - first < cap
+    ids = torch.arange(2 * l - 1, device=dev)
+    is_root = small & ((ids == 0) | ~small[par])
+    # by leaf: the root of the treelet that starts there (the treelets
+    # partition the leaves), and the treelets' order.  (Each scatter sends
+    # what it does not keep to spare slots past the end, one each: no copy
+    # to the host for a count, and no two writes to one slot.)
+    root_at = torch.full((3 * l - 1,), -1, dtype=_I64, device=dev)
+    root_at[torch.where(is_root, first, l + ids)] = torch.where(is_root, ids,
+                                                                -1)
+    root_at = root_at[:l]
+    start = root_at >= 0
+    rank = torch.cumsum(start, 0) - 1    # the treelet's row, at its start
+    roots = torch.full((2 * l,), -1, dtype=_I64, device=dev)
+    roots[torch.where(start, rank, l + pos)] = root_at
+    roots = roots[:l]
+    # each row's first leaf, ascending (l past the treelets), and each
+    # block's first row: the first treelet that starts at or after k cap
+    nb = -(-l // cap)
+    rf = torch.where(roots >= 0, first[roots.clamp(min=0)], l)
+    rf = torch.cat([rf, rf.new_full((1,), l)])
+    edge = torch.searchsorted(
+        rf, (torch.arange(nb + 1, device=dev) * cap).clamp(max=l))
+    blocks = torch.stack([rf[edge[:-1]], rf[edge[1:]] - 1, edge[:-1],
+                          edge[1:]], 1).to(_I32)
+    rf = rf[:l]
+    g0 = blocks[:, 0].long()[(rf // cap).clamp(max=nb - 1)]
+    gap = last[topo.lchild.long()[roots.clamp(0, n - 1)]]
+    slot = torch.where(roots >= n, (rf - g0) | _LEAF_REF, gap - g0)
+    inner = (roots >= 0) & (roots < n)
+    gstart = torch.full((n + l,), -1, dtype=_I32, device=dev)
+    gstart[torch.where(inner, roots, n + pos)] = torch.where(inner, g0,
+                                                             -1).to(_I32)
+    gstart = gstart[:n]
+    if _cuda(topo.lchild):
+        rec = torch.empty((n, 2), dtype=_I32, device=dev)
+        _launch(kernels.load("lbvh_refit"), "vrt_lbvh_refit_plan", dev,
+                topo.lchild.data_ptr(), topo.rchild.data_ptr(),
+                topo.parent.data_ptr(), topo.lo.data_ptr(),
+                topo.hi.data_ptr(), l, cap, gstart.data_ptr(),
+                rec.data_ptr())
+    else:
+        rec = _refit_records_ref(topo, cap, gstart)
+    return RefitPlan(rec=rec, blocks=blocks,
+                     roots=torch.stack([roots, slot], 1).to(_I32),
+                     gstart=gstart,
+                     arrived=torch.zeros(n, dtype=_I32, device=dev))
+
+
 def _refit_boxes(topo: LBVHTopo, v0, v1, v2):
     """Boxes of every binary node -> ((2T-1, 3) bmin, bmax) in old ids:
-    internals 0..T-2, sorted leaves after."""
+    internals 0..T-2, sorted leaves after.  On the card the first refit
+    of a topology also makes the kernel's plan (``_refit_plan``), kept in
+    ``topo_state``; a later one is one launch, with no fill.  A launch
+    that fails drops the plan, so the next refit makes a new one."""
     l = _check_verts(v0, v1, v2)
     _check_topo(topo, l, v0.device)
     if not _cuda(v0):
@@ -687,11 +847,21 @@ def _refit_boxes(topo: LBVHTopo, v0, v1, v2):
     v0, v1, v2 = (v.contiguous() for v in (v0, v1, v2))
     bmin = torch.empty((2 * l - 1, 3), dtype=_F32, device=dev)
     bmax = torch.empty((2 * l - 1, 3), dtype=_F32, device=dev)
-    arrived = torch.zeros(l - 1, dtype=_I32, device=dev)
-    _launch(lib, "vrt_lbvh_refit_boxes", dev, v0.data_ptr(), v1.data_ptr(),
-            v2.data_ptr(), topo.order.data_ptr(), topo.lchild.data_ptr(),
-            topo.rchild.data_ptr(), topo.parent.data_ptr(), l,
-            arrived.data_ptr(), bmin.data_ptr(), bmax.data_ptr())
+    st = topo_state(topo)
+    if st.plan is None:
+        st.plan = _refit_plan(topo, lib.lib.vrt_lbvh_refit_tile())
+    plan = st.plan
+    try:
+        _launch(lib, "vrt_lbvh_refit_boxes", dev, v0.data_ptr(),
+                v1.data_ptr(), v2.data_ptr(), topo.order.data_ptr(),
+                topo.lchild.data_ptr(), topo.rchild.data_ptr(),
+                topo.parent.data_ptr(), l, plan.rec.data_ptr(),
+                plan.blocks.data_ptr(), plan.roots.data_ptr(),
+                plan.blocks.shape[0], plan.arrived.data_ptr(),
+                bmin.data_ptr(), bmax.data_ptr())
+    except RuntimeError:
+        st.plan = None
+        raise
     return bmin, bmax
 
 
@@ -992,7 +1162,7 @@ def refit_lbvh(topo: LBVHTopo, v0, v1, v2, leaf_size: int = 4,
                                  width, tlas, pool_rows, leaf_rows, surv_idx,
                                  fused=width == 8)
     return LBVHNodes(nodes=nodes, tri_rows=rows,
-                     num_leaves=(topo.row_cnt > 0).sum(), fused=fz)
+                     num_leaves=topo_state(topo).num_leaves, fused=fz)
 
 
 def build_lbvh(v0, v1, v2, leaf_size: int = 4, width: int = 4

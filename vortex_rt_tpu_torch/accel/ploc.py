@@ -22,9 +22,9 @@ Pipeline (``build_ploc_topo``):
    shared memory; a round runs over the live clusters only, and the loop
    stops at one cluster or at the JAX package's round cap.  Nothing is
    read back unless the caller asks for the round log (``live``);
-3. creation order -> the packer's ids (``_remap_ploc``; root = 0) and
-   the parent of every node, then the collapse (``_collapse_ploc``,
-   K4b), which also gives the tree's real wide depth (ROADMAP H8);
+3. creation order -> the packer's ids (root = 0) and the parent of
+   every node, then the collapse, which also gives the tree's real wide
+   depth (ROADMAP H8): ``_remap_collapse_ploc`` (K4b), one launch;
 4. the leaf-row boxes (``_row_boxes``, K4c) beside the merge's internal
    boxes, and the pack (``lbvh._pack_rows`` with ``leaf_tids``: the
    survivor records by K5's kernel, the leaf rows from the explicit ids
@@ -59,7 +59,7 @@ import torch
 
 from vortex_rt_tpu_torch.accel.lbvh import (
     LBVHNodes, LBVHTopo, _check_i32, _check_verts, _cuda, _half_area,
-    _launch, _pack_rows, _scene_box, morton_codes, pad_tris,
+    _launch, _pack_rows, _scene_box, morton_codes, pad_tris, topo_state,
     wide_arrays_from_lbvh, wide_depth_of,
 )
 from vortex_rt_tpu_torch.ops import packet_walk, traverse_packet
@@ -337,6 +337,9 @@ def _ploc_parents_ref(lchild, rchild, n_int: int, l: int) -> torch.Tensor:
 
 
 def _remap_ploc_ref(lk, rk, lvl, bmn, bmx, n_int, l: int):
+    """Plain version of the remap: creation order -> the packer's old ids
+    (old = n_int-1-k; dead rows n_int.. zero) -> (lchild, rchild, level,
+    imin, imax, parent)."""
     dev = lk.device
     n = int(n_int)
     kk = torch.arange(l - 1, dtype=_I64, device=dev)
@@ -355,29 +358,6 @@ def _remap_ploc_ref(lk, rk, lvl, bmn, bmx, n_int, l: int):
     rchild = put(remap(rk), (), _I32)
     return (lchild, rchild, put(lvl, (), _I32), put(bmn, (3,), _F32),
             put(bmx, (3,), _F32), _ploc_parents_ref(lchild, rchild, n, l))
-
-
-def _remap_ploc(lk, rk, lvl, bmn, bmx, n_int, l: int):
-    """Creation order -> the packer's old ids (old = n_int-1-k: the root,
-    created last, is 0; dead rows n_int.. stay zero) -> (lchild, rchild,
-    level, imin, imax, parent); ``parent`` (2l-1,) as ``LBVHTopo`` keeps
-    it (unused leaf rows and the root: 0)."""
-    if not _cuda(lk):
-        return _remap_ploc_ref(lk, rk, lvl, bmn, bmx, n_int, l)
-    lib = kernels.load("ploc_collapse")
-    dev = lk.device
-    _check_i32(dev, lk=(lk, (l - 1,)), rk=(rk, (l - 1,)),
-               lvl=(lvl, (l - 1,)), n_int=(n_int, ()))
-    bmn, bmx = bmn.contiguous(), bmx.contiguous()
-    out = [torch.empty(l - 1, dtype=_I32, device=dev) for _ in range(3)]
-    imin = torch.empty((l - 1, 3), dtype=_F32, device=dev)
-    imax = torch.empty_like(imin)
-    parent = torch.zeros(2 * l - 1, dtype=_I32, device=dev)
-    _launch(lib, "vrt_ploc_remap", dev, lk.data_ptr(), rk.data_ptr(),
-            lvl.data_ptr(), bmn.data_ptr(), bmx.data_ptr(),
-            n_int.data_ptr(), l, *(a.data_ptr() for a in out),
-            imin.data_ptr(), imax.data_ptr(), parent.data_ptr())
-    return (*out, imin, imax, parent)
 
 
 def _collapse_ploc_ref(lchild, rchild, parent, n_int, l: int, width: int):
@@ -461,35 +441,46 @@ def _collapse_ploc_ref(lchild, rchild, parent, n_int, l: int, width: int):
             torch.tensor(max_depth, dtype=_I32, device=dev))
 
 
-def _collapse_ploc(lchild, rchild, parent, n_int, l: int, width: int):
-    """Depth-stride wide collapse of the PLOC binary tree (internals
-    0..n_int-1, root 0; leaf row j at (l-1)+j) -> (surv, ch_old, arity,
-    base, newid) as the JAX package's ``_collapse_ploc``, and the
-    deepest live internal's binary depth (0-dim int32; DEPTH_CAP + 1
-    when the JAX propagation would not reach it)."""
+def _remap_collapse_ploc(lk, rk, lvl, bmn, bmx, n_int, l: int, width: int):
+    """The merge's records in creation order -> the packer's old ids and
+    the depth-stride wide collapse: (lchild, rchild, level, imin, imax,
+    parent) as ``_remap_ploc_ref`` gives them (old = n_int-1-k: the root,
+    created last, is 0; dead rows n_int.. zero; ``parent`` (2l-1,) as
+    ``LBVHTopo`` keeps it, unused leaf rows and the root 0), then (surv,
+    ch_old, arity, base, newid) as the JAX package's ``_collapse_ploc``
+    and the deepest live internal's binary depth (0-dim int32;
+    DEPTH_CAP + 1 when the JAX propagation would not reach it), as
+    ``_collapse_ploc_ref`` gives them.  On the card one cooperative
+    launch writes every word of outputs allocated unfilled."""
     if width not in (4, 8):
         raise ValueError(f"unsupported BVH width {width}")
-    if not _cuda(lchild):
-        return _collapse_ploc_ref(lchild, rchild, parent, n_int, l, width)
+    if not _cuda(lk):
+        rm = _remap_ploc_ref(lk, rk, lvl, bmn, bmx, n_int, l)
+        return (*rm, *_collapse_ploc_ref(rm[0], rm[1], rm[5], n_int, l,
+                                         width))
     lib = kernels.load("ploc_collapse")
-    dev = lchild.device
-    _check_i32(dev, lchild=(lchild, (l - 1,)), rchild=(rchild, (l - 1,)),
-               parent=(parent, (2 * l - 1,)), n_int=(n_int, ()))
-    n_nodes = 2 * l - 1
-    surv = torch.empty(l - 1, dtype=torch.bool, device=dev)
-    ch_old = torch.empty((l - 1, width), dtype=_I32, device=dev)
-    arity = torch.empty(l - 1, dtype=_I32, device=dev)
-    contrib = torch.empty(l - 1, dtype=_I32, device=dev)
-    max_depth = torch.zeros((), dtype=_I32, device=dev)
-    _launch(lib, "vrt_ploc_collapse_expand", dev, lchild.data_ptr(),
-            rchild.data_ptr(), parent.data_ptr(), n_int.data_ptr(), l,
-            width, surv.data_ptr(), ch_old.data_ptr(), arity.data_ptr(),
-            contrib.data_ptr(), max_depth.data_ptr())
-    base = 1 + torch.cumsum(contrib, 0, dtype=_I32) - contrib
-    newid = torch.full((n_nodes,), -1, dtype=_I32, device=dev)
-    _launch(lib, "vrt_ploc_collapse_assign", dev, surv.data_ptr(),
-            ch_old.data_ptr(), base.data_ptr(), l, width, newid.data_ptr())
-    return surv, ch_old, arity, base, newid, max_depth
+    dev = lk.device
+    _check_i32(dev, lk=(lk, (l - 1,)), rk=(rk, (l - 1,)),
+               lvl=(lvl, (l - 1,)), n_int=(n_int, ()))
+    bmn, bmx = bmn.contiguous(), bmx.contiguous()
+    n, m = l - 1, 2 * l - 1
+
+    def i32(*shape):
+        return torch.empty(shape, dtype=_I32, device=dev)
+
+    lchild, rchild, level, arity, base = (i32(n) for _ in range(5))
+    imin, imax = (torch.empty((n, 3), dtype=_F32, device=dev)
+                  for _ in range(2))
+    parent, newid, ch_old, max_depth = i32(m), i32(m), i32(n, width), i32()
+    surv = torch.empty(n, dtype=torch.bool, device=dev)
+    out = (lchild, rchild, level, imin, imax, parent, surv, ch_old, arity,
+           base, newid, max_depth)
+    totals = i32((n + 255) // 256)   # a block's survivors' arities
+    _launch(lib, "vrt_ploc_remap_collapse", dev, lk.data_ptr(),
+            rk.data_ptr(), lvl.data_ptr(), bmn.data_ptr(), bmx.data_ptr(),
+            n_int.data_ptr(), l, width, *(a.data_ptr() for a in out),
+            totals.data_ptr())
+    return out
 
 
 # ------------------------------------------------------------------ K4c
@@ -601,7 +592,7 @@ def _pack(ptopo: PLOCTopo, bmin, bmax, v0, v1, v2, leaf_size: int,
                                  width, fused=width == 8,
                                  leaf_tids=ptopo.leaf_tids)
     return LBVHNodes(nodes=nodes, tri_rows=rows,
-                     num_leaves=(topo.row_cnt > 0).sum(), fused=fz)
+                     num_leaves=topo_state(topo).num_leaves, fused=fz)
 
 
 def seed_clusters(v0, v1, v2, leaf_size: int):
@@ -639,10 +630,9 @@ def build_ploc_topo(v0: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor,
     order, tmin, tmax, tids0 = seed_clusters(v0, v1, v2, leaf_size)
     (lk, rk, lvl, bmn, bmx, row_tids, row_cnt, n_int,
      n_levels) = _ploc_merge(tmin, tmax, tids0, l, l, leaf_size, radius)
-    lchild, rchild, level, imin, imax, parent = _remap_ploc(
-        lk, rk, lvl, bmn, bmx, n_int, l)
-    surv, ch_old, arity, base, newid, max_depth = _collapse_ploc(
-        lchild, rchild, parent, n_int, l, width)
+    (lchild, rchild, level, imin, imax, parent, surv, ch_old, arity, base,
+     newid, max_depth) = _remap_collapse_ploc(lk, rk, lvl, bmn, bmx, n_int,
+                                              l, width)
     zi = torch.zeros(l, dtype=_I32, device=dev)
     topo = LBVHTopo(order=order, lchild=lchild, rchild=rchild, surv=surv,
                     ch_old=ch_old, arity=arity, base=base, newid=newid,

@@ -89,7 +89,10 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
     "lbvh_refit": {
-        "vrt_lbvh_refit_boxes": ([_P] * 7 + [_I] + [_P] * 4, _I),
+        "vrt_lbvh_refit_plan": ([_P] * 5 + [_I] * 2 + [_P] * 3, _I),
+        "vrt_lbvh_refit_boxes": ([_P] * 7 + [_I] + [_P] * 3 + [_I]
+                                 + [_P] * 4, _I),
+        "vrt_lbvh_refit_tile": ([], _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
     "lbvh_pack": {
@@ -109,9 +112,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
     "ploc_collapse": {
-        "vrt_ploc_remap": ([_P] * 6 + [_I] + [_P] * 7, _I),
-        "vrt_ploc_collapse_expand": ([_P] * 4 + [_I] * 2 + [_P] * 6, _I),
-        "vrt_ploc_collapse_assign": ([_P] * 3 + [_I] * 2 + [_P] * 2, _I),
+        "vrt_ploc_remap_collapse": ([_P] * 6 + [_I] * 2 + [_P] * 14, _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
     "ploc_refit": {

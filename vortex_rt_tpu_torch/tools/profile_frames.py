@@ -55,7 +55,7 @@ CONFIG2_EYE = ([0.05, 0.02, -3.2], [0.0, -0.05, 0.0], [0, 1, 0], 45.0, 1.0)
 CONFIG2_LIGHT = (0.0, 0.8, -0.5)
 TOP = 12  # kernels listed, by device time
 # kernels reported by name even below the top: the walk and the refit's
-WATCHED = ("traverse_packet_kernel", "refit_boxes_kernel",
+WATCHED = ("traverse_packet_kernel", "refit_tile_kernel",
            "pack_nodes_kernel", "pack_leaves_kernel", "traverse_wide_kernel",
            "traverse2_kernel")
 PROFILE_TRIES = 3  # sessions kernel_events tries before it gives up
