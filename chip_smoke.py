@@ -86,10 +86,11 @@ and so exits non-zero, on failure):
     point (launch counts reset before it) at 29,140 rows (14.2 MiB,
     L2-resident) and 1,048,576 rows (512 MiB, beyond L2): ns/step and
     ns/step/walk for k in {1, 4, 8, 16, 32} at each fetch width;
-11a. K5, each LBVH kernel against its plain version on the card: Morton
-    codes and the Karras tree (A), the collapse (B), the bottom-up boxes
-    (C; its plan's records too, and its counters zero after its
-    launches), the pack (D), on ``uv_sphere``, ``random_soup(2000)`` and a
+11a. K5, each LBVH kernel against its plain version on the card: the
+    scene box, Morton codes and the Karras tree (A), the collapse with the
+    refit plan in one launch (B; the plan against ``_refit_plan`` and its
+    records against ``_refit_records_ref``), the bottom-up boxes over
+    that plan (C; its counters zero after its launches), the pack (D), on ``uv_sphere``, ``random_soup(2000)`` and a
     100k-triangle ``wavy_grid(n=225)``, widths 4 and 8, leaf 4 and 8,
     full and compact pools, flat and (4-wide) TLAS layouts: every integer
     field and every output word equal, and a second launch gives the
@@ -112,13 +113,18 @@ and so exits non-zero, on failure):
     frame equals the frame from the native host-built tree within 1e-5
     with equal ray counts; on a crop of camera rays K1 over the refit
     tree gives the plain walk's hits and steps; build, refit and frame
-    times, pool sizes and peak bytes are printed; each LBVH kernel is
+    times (the build a median of ``bench_ladder.BUILD_REPS``, one launch
+    of K5 B and of K5 C's refit a build), pool sizes and peak bytes are
+    printed; each LBVH kernel is
     held against its plain version at this path's shapes (999,700
     triangles, the compact plan, fused rows) word for word, and timed
     there (CUDA events around its wrapper; its kernels alone from the
-    profiler beside that) beside its plain version and its bound; the
-    refit's plan (once a topology) timed; the device operations one refit
-    + repack issues (profiler), none a fill or a reduction;
+    profiler beside that: the box + codes and Karras kernels apart)
+    beside its plain version and its bound; the refit's plan of a
+    topology made elsewhere timed; the device operations of K5 A's and K5
+    B's wrappers (one each) and of a whole build, none a fill, scan,
+    search or scatter outside the sort; those of one refit + repack, none
+    a fill or a reduction;
 12a. K4, each PLOC kernel against its plain version on the card: the
     merge rounds (K4a), the remap and collapse in one launch (K4b), the
     leaf-row boxes
@@ -284,15 +290,17 @@ PLOC_KERNEL_NAMES = {
 }
 # the __global__ functions of each LBVH library, as the profiler names them
 LBVH_KERNEL_NAMES = {
-    "lbvh_karras": ("morton_kernel", "karras_kernel"),
-    "lbvh_collapse": ("parents_kernel", "expand_kernel", "assign_kernel"),
+    "lbvh_karras": ("box_morton_kernel", "karras_kernel"),
+    "lbvh_collapse": ("collapse_kernel",),
     "lbvh_refit": ("refit_tile_kernel",),
     "lbvh_pack": ("pack_nodes_kernel", "pack_leaves_kernel"),
 }
 # the redesigned kernels' readings before their redesign (PERF.md's
 # kernel table; CUDA events around the wrapper, ms, NVIDIA H100 80GB HBM3
 # at 700 W), printed beside this run's
-EARLIER_MS = {"lbvh_pack": {"config5": 0.6296},
+EARLIER_MS = {"lbvh_karras": {"config5": 0.0801},
+              "lbvh_collapse": {"config5": 0.2362},
+              "lbvh_pack": {"config5": 0.6296},
               "lbvh_refit": {"config5": 0.2038},
               "ploc_merge": {"config3": 8.2440, "config5": 7.2190},
               "ploc_collapse": {"config3": 0.2801, "config5": 0.3037},
@@ -302,7 +310,10 @@ EARLIER = ("before the redesigns: row 3's PLOC build 6.4-12.96 ms with the "
            "/ 228 launches a build and a host read a round; K4b 3 kernels, 3 "
            "fills, a torch.cumsum and 2 elementwise ops a build; config 5's "
            "refit + repack 1.5097-2.2055 ms before the pack's redesign, "
-           "1.3219-1.5783 ms with the whole-tree refit climb")
+           "1.3219-1.5783 ms with the whole-tree refit climb; config 5's "
+           "LBVH build 3.02-3.13 ms with K5 B in three kernels, two "
+           "torch.cumsum and four fills and the refit plan's torch ops at "
+           "the first refit, K5 A's scene box in six torch ops")
 EYE2 = ([0.05, 0.02, -3.2], [0.0, -0.05, 0.0], [0, 1, 0], 45.0, 1.0)
 LIGHT2 = (0.0, 0.8, -0.5)
 REL_TOL = 1e-6
@@ -1089,13 +1100,14 @@ def _same_bits(label: str, got, want) -> float:
 def lbvh_vs_plain(label: str, v0, v1, v2, width: int, leaf: int, plans,
                   checked: dict, err: dict):
     """Each LBVH kernel against its plain version on the triangles ``v0,
-    v1, v2`` (padded, on the card): Morton codes and the Karras tree (A),
-    the collapse (B), the bottom-up boxes (C), and the pack (D) once per
-    entry of ``plans`` -- ``plans(topo)`` gives (name, ``_pack_rows``
-    options) pairs.  Every integer field and every output word equal,
-    and a second launch gives the same words.  Adds the wrapper calls
-    made to ``checked`` and folds the largest word difference into
-    ``err``, both by library name.  Returns the topology."""
+    v1, v2`` (padded, on the card): the scene box, Morton codes and the
+    Karras tree (A), the collapse with the refit plan (B), the bottom-up
+    boxes over that plan (C), and the pack (D) once per entry of
+    ``plans`` -- ``plans(topo)`` gives (name, ``_pack_rows`` options)
+    pairs.  Every integer field and every output word equal, and a
+    second launch gives the same words.  Adds the wrapper calls made to
+    ``checked`` and folds the largest word difference into ``err``, both
+    by library name.  Returns the topology."""
     import torch
 
     from vortex_rt_tpu_torch.accel import lbvh
@@ -1105,21 +1117,20 @@ def lbvh_vs_plain(label: str, v0, v1, v2, width: int, leaf: int, plans,
         err[name] = max(err[name], *diffs)
 
     l = v0.shape[0]
-    smin, smax = lbvh._scene_box(v0, v1, v2)
-    codes = lbvh.morton_codes(v0, v1, v2, smin, smax)
-    e0 = _same_bits(f"{label} morton", codes,
-                    lbvh.morton_codes_ref(v0, v1, v2, smin, smax))
-    lcodes, order = torch.sort(codes, stable=True)
+    got = lbvh.scene_codes(v0, v1, v2)
+    e0 = _same_bits(f"{label} box and codes", got,
+                    lbvh.scene_codes_ref(v0, v1, v2))
+    lcodes, order = torch.sort(got[0], stable=True)
     tree = lbvh._karras(lcodes, l)
     fold("lbvh_karras", 3, e0,
          _same_bits(f"{label} karras", tree, lbvh._karras_ref(lcodes, l)),
          _same_bits(f"{label} karras again", lbvh._karras(lcodes, l), tree))
-    col = lbvh._collapse_wide(*tree, l, leaf, width)
-    fold("lbvh_collapse", 2,
-         _same_bits(f"{label} collapse", col,
-                    lbvh._collapse_wide_ref(*tree, l, leaf, width)),
-         _same_bits(f"{label} collapse again",
-                    lbvh._collapse_wide(*tree, l, leaf, width), col))
+    made, again = [], []
+    col = lbvh._collapse_wide(*tree, l, leaf, width, state=made)
+    e1 = _same_bits(f"{label} collapse", col,
+                    lbvh._collapse_wide_ref(*tree, l, leaf, width))
+    e2 = _same_bits(f"{label} collapse again", lbvh._collapse_wide(
+        *tree, l, leaf, width, state=again), col)
     (surv, ch_old, arity, base, newid, row_lo, row_cnt, leaf_newid,
      parent) = col
     topo = lbvh.LBVHTopo(
@@ -1127,13 +1138,21 @@ def lbvh_vs_plain(label: str, v0, v1, v2, width: int, leaf: int, plans,
         surv=surv, ch_old=ch_old, arity=arity, base=base, newid=newid,
         row_lo=row_lo, row_cnt=row_cnt, leaf_newid=leaf_newid, lo=tree[2],
         hi=tree[3], parent=parent)
+    e3 = plan_vs_plain(label, topo, made[0])
+    fold("lbvh_collapse", 2, e1, e2, e3, _same_bits(
+        f"{label} plan again", tuple(again[0].plan or ()),
+        tuple(made[0].plan or ())))
+    lbvh.topo_state(topo, made[0])
     boxes = lbvh._refit_boxes(topo, v0, v1, v2)
     fold("lbvh_refit", 2,
          _same_bits(f"{label} refit boxes", boxes,
                     lbvh._refit_boxes_ref(topo, v0, v1, v2)),
          _same_bits(f"{label} refit boxes again",
                     lbvh._refit_boxes(topo, v0, v1, v2), boxes))
-    plan_vs_plain(label, topo)
+    if made[0].plan is not None:
+        n = int(made[0].plan.arrived.count_nonzero())
+        _check(n == 0, f"{label}: {n} refit counters left non-zero after "
+               f"the refits")
     for name, kw in plans(topo):
         kw = dict(kw, leaf_size=leaf, width=width)
         got = lbvh._pack_rows(topo, *boxes, v0, v1, v2, **kw)
@@ -1145,20 +1164,30 @@ def lbvh_vs_plain(label: str, v0, v1, v2, width: int, leaf: int, plans,
     return topo
 
 
-def plan_vs_plain(label: str, topo) -> None:
-    """On the card, the refit kernel's plan of ``topo`` (made by its first
-    refit): its records equal their plain version's word for word, and
-    its counters are all zero after the launches."""
+def plan_vs_plain(label: str, topo, made) -> float:
+    """On the card, the refit state the collapse made of ``topo``
+    (``made``): its plan equals ``_refit_plan``'s (torch ops and
+    ``refit_plan_kernel``) and its records ``_refit_records_ref``'s word
+    for word, its counters are zero, its leaf-row count is the used rows'.
+    Returns the largest word difference (0)."""
     from vortex_rt_tpu_torch.accel import lbvh
     from vortex_rt_tpu_torch.runtime import kernels
 
-    plan = lbvh.topo_state(topo).plan
-    if plan is not None:
-        tile = kernels.load("lbvh_refit").lib.vrt_lbvh_refit_tile()
-        _same_bits(f"{label} refit plan", plan.rec,
-                   lbvh._refit_records_ref(topo, tile // 2, plan.gstart))
-        n = int(plan.arrived.count_nonzero())
-        _check(n == 0, f"{label}: {n} refit counters left non-zero")
+    want = (topo.row_cnt > 0).sum()
+    _check(made.num_leaves.dtype == want.dtype
+           and int(made.num_leaves) == int(want),
+           f"{label}: the collapse counts {int(made.num_leaves)} leaf rows, "
+           f"not {int(want)}")
+    if made.plan is None:   # (the CPU route makes none)
+        return 0.0
+    n = int(made.plan.arrived.count_nonzero())
+    _check(n == 0, f"{label}: {n} refit counters left non-zero")
+    tile = kernels.load("lbvh_refit").lib.vrt_lbvh_refit_tile()
+    ref = lbvh._refit_plan(topo, tile)
+    e = _same_bits(f"{label} refit plan", tuple(made.plan), tuple(ref))
+    return max(e, _same_bits(f"{label} refit records", made.plan.rec,
+                             lbvh._refit_records_ref(topo, tile // 2,
+                                                     ref.gstart)))
 
 
 def phase_lbvh_kernels(device, meshes, checked: dict, err: dict) -> None:
@@ -1188,8 +1217,9 @@ def phase_lbvh_kernels(device, meshes, checked: dict, err: dict) -> None:
                           leaf, plans, checked, err)
             print(f"  {name} w{width} l{leaf}: T {v0.shape[0]}, pool "
                   f"{sizes[0]} leaf rows {sizes[1]} survivors {sizes[2]}: "
-                  f"morton, karras, collapse, refit boxes and pack (full and "
-                  f"compact pools) equal their plain versions word for "
+                  f"box and codes, karras, collapse and refit plan, refit "
+                  f"boxes and pack (full and compact pools) equal their "
+                  f"plain versions word for "
                   f"word; relaunches give the same words")
 
 
@@ -1292,17 +1322,20 @@ def phase_config5(device, checked: dict, err: dict, grid: int = 708,
     per_frame = {k: (launches[k] - build_launches[k]) / n_refits
                  for k in LBVH_KERNELS}
     if cuda:
-        # two topology builds, each morton + karras, parents + expand +
-        # assign, the refit's plan and climb, pack_nodes + pack_leaves
-        want = {"lbvh_karras": 4, "lbvh_collapse": 6, "lbvh_refit": 4,
-                "lbvh_pack": 4}
+        # the topology builds (a warm-up and the timed ones), each box +
+        # codes and karras, the collapse with the refit plan, the refit
+        # over that plan, pack_nodes + pack_leaves
+        b = bench_ladder.BUILD_REPS + 1
+        want = {"lbvh_karras": 2 * b, "lbvh_collapse": b, "lbvh_refit": b,
+                "lbvh_pack": 2 * b}
         _check(all(build_launches[k] == v for k, v in want.items()),
                f"config 5 build launches {build_launches}, expected {want}")
         _check(per_frame == {"lbvh_karras": 0, "lbvh_collapse": 0,
                              "lbvh_refit": 1, "lbvh_pack": 2}
                and launches["traverse_packet"] > 0,
                f"config 5 launches {launches}, per refit frame {per_frame}")
-    print(f"  config 5 {rec['res']}: build {rec['lbvh_build_ms']:.4f} ms, "
+    print(f"  config 5 {rec['res']}: build {rec['lbvh_build_ms']:.4f} ms "
+          f"(median of {bench_ladder.BUILD_REPS}), "
           f"refit {rec['refit_ms']:.4f} ms (median of "
           f"{len(bench_ladder.MOVED_TS)}), {rec['ms_per_frame']:.3f} ms/frame,"
           f" frame + refit {rec['frame_plus_refit_ms']:.3f} ms, "
@@ -1351,16 +1384,13 @@ def phase_config5(device, checked: dict, err: dict, grid: int = 708,
     v0, v1, v2 = st.moved(bench_ladder.MOVED_TS[-1])
     topo, l = st.topo, v0.shape[0]
     plan.update(leaf_size=leaf, width=width)
-    smin, smax = lbvh._scene_box(v0, v1, v2)
-    lcodes = torch.sort(lbvh.morton_codes(v0, v1, v2, smin, smax),
-                        stable=True)[0]
+    lcodes = torch.sort(lbvh.scene_codes(v0, v1, v2)[0], stable=True)[0]
     tree = (topo.lchild, topo.rchild, topo.lo, topo.hi)
     boxes = lbvh._refit_boxes(topo, v0, v1, v2)
     calls = {
         "lbvh_karras": (
-            lambda: (lbvh.morton_codes(v0, v1, v2, smin, smax),
-                     lbvh._karras(lcodes, l)),
-            lambda: (lbvh.morton_codes_ref(v0, v1, v2, smin, smax),
+            lambda: (lbvh.scene_codes(v0, v1, v2), lbvh._karras(lcodes, l)),
+            lambda: (lbvh.scene_codes_ref(v0, v1, v2),
                      lbvh._karras_ref(lcodes, l))),
         "lbvh_collapse": (
             lambda: lbvh._collapse_wide(*tree, l, leaf, width),
@@ -1372,8 +1402,9 @@ def phase_config5(device, checked: dict, err: dict, grid: int = 708,
             lambda: lbvh._pack_rows(topo, *boxes, v0, v1, v2, **plan),
             lambda: lbvh._pack_rows_ref(topo, *boxes, v0, v1, v2, **plan)),
     }
+    tile = kernels.load("lbvh_refit").lib.vrt_lbvh_refit_tile() if cuda else 256
     bounds = wb.lbvh_bounds(l, width, leaf, st.pool_rows, st.leaf_rows,
-                            st.surv_idx.shape[0], width == 8)
+                            st.surv_idx.shape[0], width == 8, tile)
     rows = {}
     for name, (call, plain) in calls.items():
         # ms: the whole wrapper by CUDA events, as the walks' rows are
@@ -1392,15 +1423,17 @@ def phase_config5(device, checked: dict, err: dict, grid: int = 708,
                           bound_ms=b.ms, bound_by=b.bound_by)
         was = EARLIER_MS.get(name, {}).get("config5")
         print(f"  {name} at T {l}: {ms:.4f} ms (CUDA events around the "
-              f"wrapper, mean of {reps}: its kernels, fills and prefix "
-              f"sums), bound {b.ms:.4f} ms ({b.bytes} B) = {b.ms / ms:.1%}"
+              f"wrapper, mean of {reps}: its kernels and whatever it "
+              f"enqueues around them), bound {b.ms:.4f} ms ({b.bytes} B) = "
+              f"{b.ms / ms:.1%}"
               + (f" (before: {was} ms = {b.ms / was:.1%})" if was else "")
               + f"; kernels alone {sum(parts.values()):.4f} ms (profiler: "
               + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
               + f"); plain {plain_ms:.3f} ms")
     if cuda:
-        # the refit's plan, made by a topology's first refit (a topology
-        # with another parent array is another topology)
+        # the refit's plan of a topology made elsewhere (a topology with
+        # another parent array is another topology), at its first refit;
+        # a build's comes from its collapse
         from vortex_rt_tpu_torch.tools.profile_frames import (
             kernel_events, ms_by_name,
         )
@@ -1410,13 +1443,50 @@ def phase_config5(device, checked: dict, err: dict, grid: int = 708,
         r["plan_kernel_ms"] = ms_by_name(kernel_events(
             lambda: lbvh._refit_boxes(fresh, v0, v1, v2)),
             ("refit_plan_kernel",), 1)["refit_plan_kernel"]
-        tile = kernels.load("lbvh_refit").lib.vrt_lbvh_refit_tile()
         r["plan_ms"] = _device_ms(lambda: lbvh._refit_plan(topo, tile), 5)
-        print(f"  lbvh_refit's plan, once a topology (its first refit): "
-              f"{r['plan_ms']:.4f} ms (CUDA events around _refit_plan, mean "
-              f"of 5: torch ops and refit_plan_kernel, "
-              f"{r['plan_kernel_ms']:.4f} ms by the profiler)")
+        print(f"  lbvh_refit's plan of a topology not built here (bridge, "
+              f"its first refit): {r['plan_ms']:.4f} ms (CUDA events around "
+              f"_refit_plan, mean of 5: torch ops and refit_plan_kernel, "
+              f"{r['plan_kernel_ms']:.4f} ms by the profiler); a build's "
+              f"plan comes from its collapse")
         del fresh
+        # the device operations of K5 A and K5 B, and of a whole build
+        front = {"scene_codes": lambda: lbvh.scene_codes(v0, v1, v2),
+                 "_karras": lambda: lbvh._karras(lcodes, l),
+                 "_collapse_wide": lambda: lbvh._collapse_wide(
+                     *tree, l, leaf, width, state=[])}
+        for fn_name, fn in front.items():
+            ops = kernel_events(fn)
+            names = [f"{e.key[:40]} x{e.count}" for e in ops]
+            _check(sum(e.count for e in ops) == 1,
+                   f"{fn_name} enqueues {names}, not one launch")
+        build = kernel_events(lambda: lbvh.build_lbvh_topo(
+            *st.verts, leaf_size=leaf, width=width))
+        names = [f"{e.key[:48]} x{e.count}" for e in build]
+        rec["build_device_ops"] = sum(e.count for e in build)
+        rec["build_device_op_names"] = names
+        # less the sort's own operations (torch.sort and the order's cast,
+        # as the build enqueues them), the build is its six kernels
+        codes0 = lbvh.scene_codes(*st.verts)[0]
+        left = {e.key: e.count for e in build}
+        for e in kernel_events(lambda: torch.sort(codes0, stable=True)[1].to(
+                torch.int32)):
+            left[e.key] = left.get(e.key, 0) - e.count
+        ours = {k: v for k, v in left.items() if v}
+        want = ("box_morton_kernel", "karras_kernel", "collapse_kernel",
+                "refit_tile_kernel", "pack_nodes_kernel", "pack_leaves_kernel")
+        _check(sorted(ours.values()) == [1] * len(want)
+               and all(any(w in k for k in ours) for w in want),
+               f"config 5's build enqueues more than its six kernels and the "
+               f"sort's operations: {ours}")
+        rec["build_sort_ops"] = rec["build_device_ops"] - len(want)
+        print(f"  scene_codes, _karras and _collapse_wide enqueue one device "
+              f"operation each; a build enqueues {rec['build_device_ops']} "
+              f"(profiler), its six kernels and {rec['build_sort_ops']} of "
+              f"the sort: " + ", ".join(names) + " (before: K5 B three "
+              "kernels, two torch.cumsum and four fills, the plan's ~20 "
+              "torch ops and its kernel at the first refit, the box's six "
+              "torch ops)")
         # what the pack costs without the fused rows: it then writes only
         # nodes and tri_rows, the tables the 8-wide walk does not read
         unfused = dict(plan, fused=False)
@@ -2375,8 +2445,11 @@ def sah_phase(device, label: str, verts, width: int, leaf: int, trees: dict,
     _sync(device)
     launches = dict(kernels.LAUNCHES)
     if cuda:
+        # box + codes (no Karras), the collapse with the refit plan, the
+        # refit over it
         _check(launches["lbvh_sah"] > 0 and launches["lbvh_karras"] == 1
-               and launches["lbvh_collapse"] == 3,
+               and launches["lbvh_collapse"] == 1
+               and launches["lbvh_refit"] == 1,
                f"{label}: the sweep-SAH build launched {launches}")
     build_ms = statistics.median(bench_ladder.timed_ms(
         lambda: lbvh.build_lbvh_topo(*verts, leaf_size=leaf, method="sah",
@@ -2392,7 +2465,7 @@ def sah_phase(device, label: str, verts, width: int, leaf: int, trees: dict,
     # K5 C on this tree, whose node ids are not in their ranges
     _same_bits(f"{label}: refit boxes vs plain", lbvh._refit_boxes(
         topo, *verts), lbvh._refit_boxes_ref(topo, *verts))
-    plan_vs_plain(label, topo)
+    plan_vs_plain(label, topo, lbvh.topo_state(topo))
     _same_bits(f"{label}: the build's children vs the sweep's",
                (topo.lchild, topo.rchild, topo.lo, topo.hi), got[:4])
     sweep = lambda: lbvh._sah_sweep_tree(lmin, lmax, l)  # noqa: E731
@@ -2840,7 +2913,8 @@ def main() -> int:
     _phase("phase 11c ladder config 5 (wavy_grid n=708, refit every frame)")
     c5, st5 = phase_config5(device, lbvh_checked, lbvh_err)
     _phase("phase 12a K4: PLOC kernels vs their plain versions")
-    for name in ("ploc_merge", "lbvh_pack", "lbvh_refit", "ploc_collapse"):
+    for name in ("ploc_merge", "lbvh_pack", "lbvh_refit", "ploc_collapse",
+                 "lbvh_karras", "lbvh_collapse"):
         print(f"  {name} (redesigned), ptxas: " + "; ".join(
             line.split("ptxas info    : ")[-1].strip()
             for line in libs[name].build_log.splitlines()

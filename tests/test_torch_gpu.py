@@ -14,6 +14,7 @@ JAX nor the JAX package, so it also runs on a machine without JAX — with
 """
 
 import dataclasses
+import functools
 
 import pytest
 import torch
@@ -326,35 +327,37 @@ def _assert_same(got, want):
 @pytest.mark.parametrize("width,leaf", [(4, 4), (8, 4), (8, 8), (4, 8)])
 @pytest.mark.parametrize("mesh", ["uv_sphere", "random_soup", "wavy_grid"])
 def test_lbvh_kernels_match_plain_versions(cuda, mesh, width, leaf):
-    """Morton + Karras (A), collapse (B), bottom-up boxes (C) and pack
-    (D, full and compact pools, flat and TLAS) on the card: every integer
-    field and every output word equals the plain version's."""
+    """Box + Morton + Karras (A), collapse (B), bottom-up boxes (C) and
+    pack (D, full and compact pools, flat and TLAS) on the card: every
+    integer field and every output word equals the plain version's."""
     m = _lbvh_mesh(mesh)
     v0, v1, v2 = (torch.from_numpy(v).to(cuda)
                   for v in lbvh.pad_tris(m.v0, m.v1, m.v2, leaf))
     l = v0.shape[0]
     before = dict(kernels.LAUNCHES)
-    smin, smax = lbvh._scene_box(v0, v1, v2)
-    codes = lbvh.morton_codes(v0, v1, v2, smin, smax)
-    _assert_same(codes, lbvh.morton_codes_ref(v0, v1, v2, smin, smax))
+    codes, smin, smax = lbvh.scene_codes(v0, v1, v2)
+    _assert_same((codes, smin, smax), lbvh.scene_codes_ref(v0, v1, v2))
     lcodes, order = torch.sort(codes, stable=True)
     tree = lbvh._karras(lcodes, l)
     _assert_same(tree, lbvh._karras_ref(lcodes, l))
+    # box and codes, Karras
     assert kernels.LAUNCHES["lbvh_karras"] == before["lbvh_karras"] + 2
-    col = lbvh._collapse_wide(*tree, l, leaf, width)
+    made = []
+    col = lbvh._collapse_wide(*tree, l, leaf, width, state=made)
     _assert_same(col, lbvh._collapse_wide_ref(*tree, l, leaf, width))
-    # parents, expand, assign
-    assert kernels.LAUNCHES["lbvh_collapse"] == before["lbvh_collapse"] + 3
+    # one launch, the refit plan made in it
+    assert kernels.LAUNCHES["lbvh_collapse"] == before["lbvh_collapse"] + 1
     surv, ch_old, arity, base, newid, row_lo, row_cnt, leaf_newid, par = col
     topo = lbvh.LBVHTopo(
         order=order.to(torch.int32), lchild=tree[0], rchild=tree[1],
         surv=surv, ch_old=ch_old, arity=arity, base=base, newid=newid,
         row_lo=row_lo, row_cnt=row_cnt, leaf_newid=leaf_newid, lo=tree[2],
         hi=tree[3], parent=par)
+    assert lbvh.topo_state(topo, made[0]) is made[0]
     boxes = lbvh._refit_boxes(topo, v0, v1, v2)
     _assert_same(boxes, lbvh._refit_boxes_ref(topo, v0, v1, v2))
-    # the topology's first refit: its plan, then the climb
-    assert kernels.LAUNCHES["lbvh_refit"] == before["lbvh_refit"] + 2
+    # the topology's first refit: the climb alone, over the collapse's plan
+    assert kernels.LAUNCHES["lbvh_refit"] == before["lbvh_refit"] + 1
     assert not bool(lbvh.topo_state(topo).plan.arrived.any())
     pool_rows, leaf_rows, surv_idx = lbvh.compact_plan(topo)
     n = 0
@@ -562,8 +565,9 @@ def test_ploc_merge_reads_nothing_back(cuda):
 def _poisoned(monkeypatch, call):
     """``call()`` with every ``torch.empty`` block it takes full of 0xFF
     bytes, so a word the kernels leave unwritten reads -1 and fails the
-    comparison; ``torch.zeros``, ``torch.full`` and ``torch.cumsum`` raise
-    (no fill, no prefix sum around the kernels)."""
+    comparison; ``torch.zeros``, ``torch.full``, ``torch.cumsum`` and
+    ``torch.searchsorted`` raise (no fill, no prefix sum or search around
+    the kernels)."""
     empty = torch.empty
 
     def poisoned(*args, **kwargs):
@@ -579,6 +583,7 @@ def _poisoned(monkeypatch, call):
         mp.setattr(torch, "zeros", refused)
         mp.setattr(torch, "full", refused)
         mp.setattr(torch, "cumsum", refused)
+        mp.setattr(torch, "searchsorted", refused)
         return call()
 
 
@@ -812,6 +817,107 @@ def test_refit_after_a_failed_launch_starts_from_a_new_plan(cuda,
     assert st.plan is not None and st.plan is not old
     assert not bool(st.plan.arrived.any())
     _assert_same(got, lbvh._refit_boxes_ref(topo, *v))
+
+
+@functools.lru_cache(maxsize=None)
+def _front_case(case):
+    """Vertices on the CPU for K5 A and K5 B: two and three random
+    triangles, the refit's cases (``_refit_case``), and 5,000 triangles
+    whose vertices are all one point (a scene box of no extent: the
+    1e-30 clamp, every code 0)."""
+    import numpy as np
+
+    if case in (2, 3):
+        rng = np.random.default_rng(case)
+        return [torch.from_numpy(rng.normal(size=(case, 3)).astype(
+            np.float32)) for _ in range(3)]
+    if case == "equal":
+        p = torch.full((5000, 3), 1.25)
+        return [p, p, p]
+    return _refit_case(case)
+
+
+@pytest.mark.parametrize("method", ["karras", "sah"])
+@pytest.mark.parametrize("case", [2, 3, 255, 256, 257, 5000, 20_481,
+                                  "config5", "duplicates", "equal"])
+@pytest.mark.parametrize("width,leaf", [(4, 1), (8, 1), (4, 4), (8, 4),
+                                        (4, 8), (8, 8)])
+def test_lbvh_front_writes_every_word(cuda, monkeypatch, width, leaf, case,
+                                      method):
+    """K5 A (the scene box and codes in one launch, then Karras) and K5 B
+    (the collapse with the refit plan, one launch) into memory poisoned
+    with 0xFF words, with no fill, prefix sum or search around them: the
+    box, codes and tree equal ``scene_codes_ref`` and ``_karras_ref``, the
+    topology ``_collapse_wide_ref``, the plan ``_refit_plan`` (its torch
+    ops and ``refit_plan_kernel``) and ``_refit_records_ref``, the
+    leaf-row count the used rows, word for word; a relaunch gives the same
+    words; the plan drives a refit of moved vertices in one launch to the
+    plain version's boxes, and leaves its counters zero.  Karras and
+    sweep-SAH trees (``config5`` is config 5's 999,700 triangles)."""
+    tile = kernels.load("lbvh_refit").lib.vrt_lbvh_refit_tile()
+    v = [x.to(cuda) for x in _front_case(case)]
+    l = v[0].shape[0]
+    before = dict(kernels.LAUNCHES)
+    got = _poisoned(monkeypatch, lambda: lbvh.scene_codes(*v))
+    _assert_same(got, lbvh.scene_codes_ref(*v))
+    lcodes, order = torch.sort(got[0], stable=True)
+    order = order.to(torch.int32)
+    if method == "karras":
+        tree = _poisoned(monkeypatch, lambda: lbvh._karras(lcodes, l))
+        _assert_same(tree, lbvh._karras_ref(lcodes, l))
+    else:
+        tree = lbvh._sah_sweep_tree(*lbvh._leaf_boxes(*v, order), l)[:4]
+    assert (kernels.LAUNCHES["lbvh_karras"] - before["lbvh_karras"]
+            == (2 if method == "karras" else 1))
+    made = []
+    col = _poisoned(monkeypatch, lambda: lbvh._collapse_wide(
+        *tree, l, leaf, width, state=made))
+    assert kernels.LAUNCHES["lbvh_collapse"] == before["lbvh_collapse"] + 1
+    _assert_same(col, lbvh._collapse_wide_ref(*tree, l, leaf, width))
+    topo = lbvh.LBVHTopo(order, tree[0], tree[1], *col[:8], tree[2],
+                         tree[3], col[8])
+    st = made[0]
+    assert st.num_leaves.dtype == torch.int64
+    assert int(st.num_leaves) == int((col[6] > 0).sum())
+    want = lbvh._refit_plan(topo, tile)
+    _assert_same(tuple(st.plan), tuple(want))
+    _assert_same(st.plan.rec, lbvh._refit_records_ref(topo, tile // 2,
+                                                      want.gstart))
+    again = []
+    _assert_same(lbvh._collapse_wide(*tree, l, leaf, width, state=again), col)
+    _assert_same(tuple(again[0].plan), tuple(st.plan))
+    assert lbvh.topo_state(topo, st) is st
+    moved = [x + 0.25 * torch.sin(x.flip(1)) for x in v]
+    n = kernels.LAUNCHES["lbvh_refit"]
+    _assert_same(lbvh._refit_boxes(topo, *moved),
+                 lbvh._refit_boxes_ref(topo, *moved))
+    assert kernels.LAUNCHES["lbvh_refit"] == n + 1
+    assert not bool(st.plan.arrived.any())
+
+
+@pytest.mark.parametrize("width", [4, 8])
+def test_lbvh_build_enqueues_no_fill_or_scan(cuda, monkeypatch, width):
+    """``build_lbvh_topo`` (Karras) into 0xFF-poisoned memory with
+    ``torch.zeros``, ``torch.full``, ``torch.cumsum`` and
+    ``torch.searchsorted`` refused: K5 A in two launches, K5 B in one,
+    the refit in one over the build's plan, the pack in two; the topology
+    and the tables equal the plain build's on the CPU."""
+    host = _front_case(5000)
+    before = dict(kernels.LAUNCHES)
+    lb, topo = _poisoned(monkeypatch, lambda: lbvh.build_lbvh_topo(
+        *(x.to(cuda) for x in host), width=width))
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in (
+        "lbvh_karras", "lbvh_collapse", "lbvh_refit", "lbvh_pack")} == {
+        "lbvh_karras": 2, "lbvh_collapse": 1, "lbvh_refit": 1,
+        "lbvh_pack": 2}
+    lb_h, topo_h = lbvh.build_lbvh_topo(*host, width=width)
+    for a, b in zip(topo, topo_h):
+        assert torch.equal(a.cpu(), b)
+    for name in ("nodes", "tri_rows") + (("fused",) if width == 8 else ()):
+        assert torch.equal(_words(getattr(lb, name)).cpu(),
+                           _words(getattr(lb_h, name))), name
+    assert int(lb.num_leaves) == int(lb_h.num_leaves)
 
 
 def test_ploc_stack_capacities_match_the_kernels(cuda):

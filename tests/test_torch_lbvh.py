@@ -311,8 +311,7 @@ def test_bounds_count_each_input_and_output_once(built, width):
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    smin, smax = tl._scene_box(*v)
-    codes = tl.morton_codes(*v, smin, smax)
+    codes, smin, smax = tl.scene_codes(*v)
     tree = tl._karras(torch.sort(codes, stable=True)[0], l)
     col = tl._collapse_wide(*tree, l, 4, width)
     boxes = tl._refit_boxes(topo, *v)
@@ -320,10 +319,13 @@ def test_bounds_count_each_input_and_output_once(built, width):
     packed = tl._pack_rows(topo, *boxes, *v, 4, width, pool_rows=pool,
                            leaf_rows=rows, surv_idx=surv_idx,
                            fused=width == 8)
-    b = lbvh_bounds(l, width, 4, pool, rows, surv_idx.shape[0], width == 8)
+    b = lbvh_bounds(l, width, 4, pool, rows, surv_idx.shape[0], width == 8,
+                    16)
     assert b["lbvh_karras"].bytes == (nbytes(*v, smin, smax, codes)
                                       + nbytes(codes, *tree))
-    assert b["lbvh_collapse"].bytes == nbytes(*tree, *col)
+    plan = tl._refit_plan(topo, 16)   # (the collapse's own on the card)
+    assert b["lbvh_collapse"].bytes == nbytes(
+        *tree, *col, tl.topo_state(topo).num_leaves, *plan)
     assert b["lbvh_refit"].bytes == nbytes(*v, topo.order, topo.lchild,
                                            topo.rchild, *boxes)
     s = surv_idx.shape[0]
@@ -791,3 +793,276 @@ def test_topo_state_is_made_once_and_goes_with_the_topology():
     del topo
     gc.collect()
     assert key not in tl._TOPO_STATE
+
+
+# -------------------------- the collapse's one launch (K5 B), modelled
+
+class _Once(list):
+    """An output array of the model: each word written once."""
+
+    def __init__(self, n):
+        super().__init__([None] * n)
+
+    def put(self, i, v):
+        assert self[i] is None, f"word {i} written twice"
+        self[i] = int(v)
+
+
+def _collapse_model(tree, l, max_leaf, width, cap, grid=3, chunk=8):
+    """A model of ``csrc/lbvh_collapse.cu``'s phases over the plain tree
+    ``tree`` (lchild, rchild, lo, hi): blocks own runs of ``chunk``-item
+    chunks in three orders (internals, nodes, sorted positions) and sum
+    the counts of the blocks before them; every output word is written
+    once.  -> (the collapse's nine arrays, the plan's (rec, blocks,
+    roots, gstart, arrived), the leaf-row count, the binary depth of
+    every internal, the three numberings)."""
+    lch, rch, lo, hi = (t.tolist() for t in tree)
+    n, nodes, nb = l - 1, 2 * l - 1, -(-l // cap)
+    stride = 2 if width == 4 else 3
+
+    def size(x):
+        return 1 if x >= n else hi[x] - lo[x] + 1
+
+    def leafish(x):
+        return size(x) <= max_leaf
+
+    def small(x):
+        return size(x) <= cap
+
+    def end(c):
+        return c - n if c >= n else hi[c]
+
+    def run(b, count):      # the items of block b's chunks (past count too)
+        chunks = -(-count // chunk)
+        per = -(-chunks // grid)
+        c0 = min(b * per, chunks)
+        return [range(c * chunk, (c + 1) * chunk)
+                for c in range(c0, min(c0 + per, chunks))]
+
+    def is_max(x):
+        return (x >= n or leafish(x)) and not leafish(parent[x])
+
+    def is_lf(c):
+        return c >= n or leafish(c)
+
+    def expand(x):
+        out = []
+        for c in (lch[x], rch[x]):
+            if is_lf(c):
+                out.append(c)
+            elif width == 4:
+                out += [lch[c], rch[c]]
+            else:
+                out += expand4(c)
+        return out
+
+    def expand4(x):
+        return [c for k in (lch[x], rch[x])
+                for c in ([k] if is_lf(k) else [lch[k], rch[k]])]
+
+    parent, tpar, start = _Once(nodes), _Once(nodes), _Once(l)
+    surv, ch_old, arity, base = _Once(n), _Once(n * width), _Once(n), _Once(n)
+    newid, row_lo, row_cnt, leaf_newid = (_Once(nodes), _Once(l), _Once(l),
+                                          _Once(l))
+    rec, blocks, roots = _Once(2 * n), _Once(4 * nb), _Once(2 * l)
+    gstart, arrived, row_of = _Once(n), _Once(n), _Once(nodes)
+    aux, root_at, wmin = [None] * n, _Once(l), _Once(nb)
+    totals = [[0] * grid for _ in range(3)]
+
+    # 1. parents, treelet parents, treelet starts, counters
+    for x in range(n):
+        tp = x if small(x) else -1
+        for c in (lch[x], rch[x]):
+            parent.put(c, x)
+            tpar.put(c, tp)
+        start.put(end(lch[x]) + 1, tp < 0)
+        arrived.put(x, 0)
+    parent.put(0, 0)
+    tpar.put(0, -1)
+    start.put(0, 1)
+
+    # 2. the walks; the treelet roots' first leaves and block windows
+    for x in range(n):
+        p, d = x, 0
+        if small(x):
+            while tpar[p] >= 0:
+                p, d = tpar[p], d + 1
+        if not small(x) or p == x:
+            p = x
+            while p != 0:
+                p, d = parent[p], d + 1
+            aux[x] = (x, d)
+        else:
+            aux[x] = (p, d)
+        if small(x) and tpar[x] < 0:
+            root_at.put(lo[x], x)
+            if lo[x] % cap == 0:
+                wmin.put(lo[x] // cap, lo[x])
+            m = (lo[x] // cap + 1) * cap
+            if m <= hi[x]:
+                wmin.put(m // cap, hi[x] + 1)
+    for b in range(grid):
+        for ch in run(b, nodes):
+            totals[1][b] += sum(is_max(i) for i in ch if i < nodes)
+        for ch in run(b, l):
+            for j in ch:
+                if j >= l:
+                    continue
+                totals[2][b] += start[j]
+                if tpar[n + j] < 0:
+                    root_at.put(j, n + j)
+                    if j % cap == 0:
+                        wmin.put(j // cap, j)
+
+    # 3a. per internal
+    depth = [0] * n
+    for x in range(n):
+        r, y = aux[x]
+        inner = small(x) and r != x
+        depth[x] = y + aux[r][1] if inner else y
+        sv = not leafish(x) and depth[x] % stride == 0
+        e = expand(x)
+        for k in range(width):
+            ch_old.put(x * width + k, e[k] if k < len(e) else -1)
+        surv.put(x, sv)
+        arity.put(x, len(e))
+        if x == 0:
+            newid.put(0, 0)
+        elif not sv and not is_max(x):
+            newid.put(x, -1)
+        q = end(lch[x])
+        if not small(x):
+            rec.put(2 * q, x | tl._TOP)
+            rec.put(2 * q + 1, 0)
+            gstart.put(x, -1)
+            continue
+        root = r if inner else x
+        t0 = wmin[lo[root] // cap]
+
+        def slot(c):
+            return (c - n - t0) | tl._LEAF_REF if c >= n else end(lch[c]) - t0
+
+        rec.put(2 * q, x)
+        rec.put(2 * q + 1, slot(lch[x]) | slot(rch[x]) << 11
+                | (y if inner else 0) << 22)
+        gstart.put(x, -1 if inner else t0)
+    for b in range(grid):
+        totals[0][b] = sum(arity[x] for ch in run(b, n) for x in ch
+                           if x < n and surv[x])
+
+    # 3b, 3c: the leaf rows by node, the treelets' rows by position
+    n_rows, n_roots = sum(totals[1]), sum(totals[2])
+    rows, ranks = [], []
+    for b in range(grid):
+        r = sum(totals[1][:b])
+        for ch in run(b, nodes):
+            for i in ch:
+                m = i < nodes and is_max(i)
+                if m:
+                    row_lo.put(r, lo[i] if i < n else i - n)
+                    row_cnt.put(r, size(i))
+                    row_of.put(i, r)
+                    rows.append(r)
+                if n_rows <= i < l:
+                    row_lo.put(i, 0)
+                    row_cnt.put(i, 0)
+                    leaf_newid.put(i, -1)
+                if n <= i < nodes and not m:
+                    newid.put(i, -1)
+                r += m
+        r = sum(totals[2][:b])
+        for ch in run(b, l):
+            for p in ch:
+                st = p < l and start[p]
+                if st:
+                    root, t0 = root_at[p], wmin[p // cap]
+                    roots.put(2 * r, root)
+                    roots.put(2 * r + 1, (p - t0) | tl._LEAF_REF if root >= n
+                              else end(lch[root]) - t0)
+                    ranks.append(r)
+                if n_roots <= p < l:
+                    roots.put(2 * p, -1)
+                    roots.put(2 * p + 1, -1)
+                if p < l and p % cap == 0:
+                    k = p // cap
+                    blocks.put(4 * k, wmin[k])
+                    blocks.put(4 * k + 2, r)
+                    if k > 0:
+                        blocks.put(4 * (k - 1) + 1, wmin[k] - 1)
+                        blocks.put(4 * (k - 1) + 3, r)
+                    if k == nb - 1:
+                        blocks.put(4 * k + 1, l - 1)
+                        blocks.put(4 * k + 3, n_roots)
+                r += bool(st)
+
+    # 4. the numbering
+    bases = []
+    for b in range(grid):
+        off = 1 + sum(totals[0][:b])
+        for ch in run(b, n):
+            for x in ch:
+                if x >= n:
+                    continue
+                base.put(x, off)
+                bases.append(off)
+                if surv[x]:
+                    for t in range(arity[x]):
+                        c = ch_old[x * width + t]
+                        newid.put(c, off + t)
+                        if is_lf(c):
+                            leaf_newid.put(row_of[c], off + t)
+                    off += arity[x]
+
+    def i32(a, *shape):
+        assert None not in a
+        return torch.tensor(a, dtype=torch.int32).reshape(*shape)
+
+    cols = (i32(surv, n).bool(), i32(ch_old, n, width), i32(arity, n),
+            i32(base, n), i32(newid, nodes), i32(row_lo, l), i32(row_cnt, l),
+            i32(leaf_newid, l), i32(parent, nodes))
+    plan = tl.RefitPlan(rec=tl._wrap32(torch.tensor(rec).reshape(n, 2)),
+                        blocks=i32(blocks, nb, 4), roots=i32(roots, l, 2),
+                        gstart=i32(gstart, n), arrived=i32(arrived, n))
+    return cols, plan, n_rows, depth, (bases, rows, ranks)
+
+
+@pytest.mark.parametrize("dups", [False, True])
+@pytest.mark.parametrize("method", ["karras", "sah"])
+@pytest.mark.parametrize("l", [2, 3, 7, 33, 100, 257, 333])
+def test_collapse_phases_model_the_plain_versions(method, l, dups):
+    """The collapse's one launch, modelled phase by phase on Karras and
+    sweep-SAH trees (3 blocks of 8-item chunks; treelets of at most 4 and
+    128 leaves; widths 4 and 8, leaves of 1 and 4): every word written
+    once; each block's offset plus its own scan gives ``torch.cumsum``'s
+    numbering (survivor arities, leaf rows, treelet starts); the depth
+    below a treelet's root plus the root's is the depth of the walk to the
+    tree's root; the topology equals ``_collapse_wide_ref``'s and the plan
+    ``_refit_plan``'s (CPU path) word for word."""
+    tree = tuple(a.int() for a in _plain_tree(method, l, dups))
+    lc, rc, lo, hi = tree
+    par = tl._parents_ref(lc, rc, l).tolist()
+    walk = []
+    for x in range(l - 1):
+        d = 0
+        while x != 0:
+            x, d = par[x], d + 1
+        walk.append(d)
+    for width, leaf in ((4, 1), (8, 4)):
+        want = tl._collapse_wide_ref(*tree, l, leaf, width)
+        topo = tl.LBVHTopo(torch.arange(l, dtype=torch.int32), lc, rc,
+                           *want[:8], lo, hi, want[8])
+        for cap in (4, 128):
+            cols, plan, n_rows, depth, (bases, rows, ranks) = _collapse_model(
+                tree, l, leaf, width, cap)
+            for a, b in zip(cols, want):
+                _same(a, b, "collapse")
+            assert depth == walk
+            contrib = torch.where(want[0], want[2], 0)
+            assert bases == (1 + torch.cumsum(contrib, 0) - contrib).tolist()
+            assert rows == list(range(int((want[6] > 0).sum())))
+            assert n_rows == len(rows)
+            ref = tl._refit_plan(topo, 2 * cap)
+            starts = (ref.roots[:, 0] >= 0).sum()
+            assert ranks == list(range(int(starts)))
+            for f in ("rec", "blocks", "roots", "gstart", "arrived"):
+                _same(getattr(plan, f), getattr(ref, f), f)

@@ -7,7 +7,8 @@ config 5) and a static one can be built on the device (ladder config 3).
 
 Pipeline (``build_lbvh_topo``):
 
-1. 30-bit Morton codes of the triangle centroids over the scene box;
+1. the scene box, and 30-bit Morton codes of the triangle centroids over
+   it;
 2. a stable sort by code (``torch.sort``, as the JAX package calls
    ``jnp.argsort``);
 3. the Karras 2012 binary radix tree over all triangles, ties broken by
@@ -17,8 +18,9 @@ Pipeline (``build_lbvh_topo``):
    range);
 5. the collapse to 4- or 8-wide nodes: above the cut, internals at depth
    % 2 (or 3) == 0 survive and adopt their grandchildren (or
-   great-grandchildren); ids come from two exclusive prefix sums
-   (``torch.cumsum``, as ``jnp.cumsum`` there);
+   great-grandchildren); ids come from two exclusive prefix sums (on the
+   card inside the collapse's one launch, which also makes the refit
+   kernel's plan of the topology);
 6. bottom-up boxes of every binary node;
 7. quantize and pack into the traversal tables of
    ``ops/traverse_wide.py`` (``nodes``, ``tri_rows`` and, at width 8,
@@ -212,9 +214,13 @@ def _half_area(mn: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
 
 
 def _scene_box(v0, v1, v2):
+    """Plain version of the scene box: the (3,) min and max over every
+    vertex.  A zero of either sign comes out as +0 (x + 0.0), so the box's
+    words do not depend on the order of the reduction; the codes do not
+    depend on the sign of a zero."""
     tmin = torch.minimum(torch.minimum(v0, v1), v2)
     tmax = torch.maximum(torch.maximum(v0, v1), v2)
-    return tmin.amin(0), tmax.amax(0)
+    return tmin.amin(0) + 0.0, tmax.amax(0) + 0.0
 
 
 def morton_codes_ref(v0, v1, v2, smin, smax) -> torch.Tensor:
@@ -226,23 +232,31 @@ def morton_codes_ref(v0, v1, v2, smin, smax) -> torch.Tensor:
     return morton3d(n[:, 0], n[:, 1], n[:, 2])
 
 
-def morton_codes(v0, v1, v2, smin, smax) -> torch.Tensor:
-    """(T,) int32 Morton codes of the triangle centroids."""
+def scene_codes_ref(v0, v1, v2):
+    """Plain version of ``scene_codes``."""
+    smin, smax = _scene_box(v0, v1, v2)
+    return morton_codes_ref(v0, v1, v2, smin, smax), smin, smax
+
+
+def scene_codes(v0, v1, v2):
+    """The scene box and the Morton codes of the triangle centroids over it
+    -> (codes (T,) int32, smin, smax (3,) float32).  CUDA tensors: one
+    cooperative launch (``box_morton_kernel``: the box, then the codes);
+    CPU tensors: ``scene_codes_ref``."""
     t = _check_verts(v0, v1, v2)
     if not _cuda(v0):
-        return morton_codes_ref(v0, v1, v2, smin, smax)
+        return scene_codes_ref(v0, v1, v2)
     lib = kernels.load("lbvh_karras")
+    dev = v0.device
     v0, v1, v2 = (v.contiguous() for v in (v0, v1, v2))
-    smin, smax = smin.contiguous(), smax.contiguous()
-    for b in (smin, smax):
-        if b.dtype != _F32 or tuple(b.shape) != (3,) or b.device != v0.device:
-            raise ValueError("the scene box is two (3,) float32 tensors on "
-                             "the vertices' device")
-    codes = torch.empty(t, dtype=_I32, device=v0.device)
-    _launch(lib, "vrt_lbvh_morton", v0.device, v0.data_ptr(), v1.data_ptr(),
-            v2.data_ptr(), smin.data_ptr(), smax.data_ptr(), t,
+    box = torch.empty((2, 3), dtype=_F32, device=dev)
+    part = torch.empty(6 * lib.lib.vrt_lbvh_box_blocks(t), dtype=_F32,
+                       device=dev)
+    codes = torch.empty(t, dtype=_I32, device=dev)
+    _launch(lib, "vrt_lbvh_box_morton", dev, v0.data_ptr(), v1.data_ptr(),
+            v2.data_ptr(), t, part.data_ptr(), box.data_ptr(),
             codes.data_ptr())
-    return codes
+    return codes, box[0], box[1]
 
 
 # ------------------------------------------------------------- Karras
@@ -590,45 +604,51 @@ def _collapse_wide_ref(lchild, rchild, lo, hi, l: int, max_leaf: int,
 
 
 def _collapse_wide(lchild, rchild, lo, hi, l: int, max_leaf: int,
-                   width: int = 4):
-    """Subtree cut + depth-stride collapse of the binary Karras tree ->
+                   width: int = 4, state: Optional[list] = None):
+    """Subtree cut + depth-stride collapse of the binary tree ->
     (surv, ch_old, arity, base, newid, row_lo, row_cnt, leaf_newid,
-    parent); see ``LBVHTopo``."""
+    parent); see ``LBVHTopo``.  CUDA tensors: one cooperative launch
+    (``csrc/lbvh_collapse.cu``), which also makes the refit kernel's plan
+    of the topology (treelets of at most half the refit's tile) and its
+    leaf-row count; CPU tensors: ``_collapse_wide_ref``.  ``state``, a
+    list, receives the topology's refit state (``_TopoState``: the count,
+    and on the card the plan) for ``topo_state``."""
     if width not in (4, 8):
         raise ValueError(f"unsupported BVH width {width}")
     if not _cuda(lchild):
-        return _collapse_wide_ref(lchild, rchild, lo, hi, l, max_leaf, width)
+        out = _collapse_wide_ref(lchild, rchild, lo, hi, l, max_leaf, width)
+        if state is not None:
+            state.append(_TopoState(num_leaves=(out[6] > 0).sum()))
+        return out
     lib = kernels.load("lbvh_collapse")
+    cap = kernels.load("lbvh_refit").lib.vrt_lbvh_refit_tile() // 2
     dev = lchild.device
     lchild, rchild, lo, hi = (a.contiguous() for a in (lchild, rchild, lo, hi))
     _check_i32(dev, lchild=(lchild, (l - 1,)), rchild=(rchild, (l - 1,)),
                lo=(lo, (l - 1,)), hi=(hi, (l - 1,)))
-    n_nodes = 2 * l - 1
+    n, n_nodes = l - 1, 2 * l - 1
 
     def i32(*shape):
         return torch.empty(shape, dtype=_I32, device=dev)
 
-    parent, surv = i32(n_nodes), torch.empty(l - 1, dtype=torch.bool,
-                                             device=dev)
-    ch_old, arity, contrib, is_max = (i32(l - 1, width), i32(l - 1),
-                                      i32(l - 1), i32(n_nodes))
-    # two kernels back to back: parents, then depth / cut / expansion
-    _launch(lib, "vrt_lbvh_collapse_expand", dev, lchild.data_ptr(),
+    # unfilled: the launch writes every word
+    parent, newid = i32(n_nodes), i32(n_nodes)
+    surv = torch.empty(n, dtype=torch.bool, device=dev)
+    ch_old, arity, base = i32(n, width), i32(n), i32(n)
+    row_lo, row_cnt, leaf_newid = i32(l), i32(l), i32(l)
+    num_leaves = torch.empty((), dtype=_I64, device=dev)
+    plan = RefitPlan(rec=i32(n, 2), blocks=i32(-(-l // cap), 4),
+                     roots=i32(l, 2), gstart=i32(n), arrived=i32(n))
+    scratch = i32(lib.lib.vrt_lbvh_collapse_scratch(l, cap))
+    _launch(lib, "vrt_lbvh_collapse", dev, lchild.data_ptr(),
             rchild.data_ptr(), lo.data_ptr(), hi.data_ptr(), l, max_leaf,
-            width, parent.data_ptr(), surv.data_ptr(), ch_old.data_ptr(),
-            arity.data_ptr(), contrib.data_ptr(), is_max.data_ptr(),
-            n_kernels=2)
-    base = 1 + torch.cumsum(contrib, 0, dtype=_I32) - contrib
-    row_of = torch.cumsum(is_max, 0, dtype=_I32) - 1
-    newid = torch.full((n_nodes,), -1, dtype=_I32, device=dev)
-    row_lo = torch.zeros(l, dtype=_I32, device=dev)
-    row_cnt = torch.zeros(l, dtype=_I32, device=dev)
-    leaf_newid = torch.full((l,), -1, dtype=_I32, device=dev)
-    _launch(lib, "vrt_lbvh_collapse_assign", dev, surv.data_ptr(),
-            ch_old.data_ptr(), base.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), row_of.data_ptr(), l, max_leaf, width,
-            newid.data_ptr(), row_lo.data_ptr(), row_cnt.data_ptr(),
-            leaf_newid.data_ptr())
+            width, cap, parent.data_ptr(), surv.data_ptr(), ch_old.data_ptr(),
+            arity.data_ptr(), base.data_ptr(), newid.data_ptr(),
+            row_lo.data_ptr(), row_cnt.data_ptr(), leaf_newid.data_ptr(),
+            num_leaves.data_ptr(), *(a.data_ptr() for a in plan),
+            scratch.data_ptr())
+    if state is not None:
+        state.append(_TopoState(num_leaves=num_leaves, plan=plan))
     return (surv, ch_old, arity, base, newid, row_lo, row_cnt, leaf_newid,
             parent)
 
@@ -678,14 +698,16 @@ def _refit_boxes_ref(topo: LBVHTopo, v0, v1, v2):
 
 class RefitPlan(NamedTuple):
     """The refit kernel's plan of a topology (``csrc/lbvh_refit.cu``),
-    made at its first refit on the card.  Treelets are the maximal
-    subtrees of at most half a tile of leaves (they partition the sorted
-    leaves); a block takes the treelets that start in its half tile of
-    leaves, less than a tile in all.  The fields: by split gap (the last
-    sorted position of a node's left child; one internal per gap) the
-    node's record, (T-1, 2) int32; the blocks as (first leaf, last leaf,
-    first and end row of their roots) rows; the treelets' roots as (id,
-    slot in the block) rows; the first leaf of each treelet root's block
+    made on the card by the collapse of the topology's build, or at its
+    first refit (``_refit_plan``) for a topology made elsewhere.
+    Treelets are the maximal subtrees of at most half a tile of leaves
+    (they partition the sorted leaves); a block takes the treelets that
+    start in its half tile of leaves, less than a tile in all.  The
+    fields: by split gap (the last sorted position of a node's left
+    child; one internal per gap) the node's record, (T-1, 2) int32; the
+    blocks as (first leaf, last leaf, first and end row of their roots)
+    rows; the treelets' roots as (id, slot in the block) rows, (T, 2),
+    (-1, -1) past the last; the first leaf of each treelet root's block
     by node id (-1 elsewhere; the records' input); the climb's arrival
     counters, (T-1,) int32, zero before and after every launch."""
 
@@ -699,7 +721,8 @@ class RefitPlan(NamedTuple):
 @dataclasses.dataclass
 class _TopoState:
     """What the refit keeps of a topology between frames: the leaf-row
-    count ``LBVHNodes`` reports, and on the card the refit kernel's plan."""
+    count ``LBVHNodes`` reports, and on the card the refit kernel's plan
+    (made by the build's collapse, or at the first refit)."""
 
     num_leaves: torch.Tensor
     plan: Optional[RefitPlan] = None
@@ -710,12 +733,15 @@ class _TopoState:
 _TOPO_STATE: Dict[int, _TopoState] = {}
 
 
-def topo_state(topo: LBVHTopo) -> _TopoState:
-    """The refit state of ``topo``, made at its first refit."""
+def topo_state(topo: LBVHTopo,
+               made: Optional[_TopoState] = None) -> _TopoState:
+    """The refit state of ``topo``: ``made`` (its build's, from
+    ``_collapse_wide``) where a topology has none yet, else one made here
+    at its first refit."""
     key = id(topo.parent)
     st = _TOPO_STATE.get(key)
     if st is None:
-        st = _TopoState(num_leaves=(topo.row_cnt > 0).sum())
+        st = made or _TopoState(num_leaves=(topo.row_cnt > 0).sum())
         _TOPO_STATE[key] = st
         weakref.finalize(topo.parent, _TOPO_STATE.pop, key, None)
     return st
@@ -812,6 +838,7 @@ def _refit_plan(topo: LBVHTopo, tile: int) -> RefitPlan:
     g0 = blocks[:, 0].long()[(rf // cap).clamp(max=nb - 1)]
     gap = last[topo.lchild.long()[roots.clamp(0, n - 1)]]
     slot = torch.where(roots >= n, (rf - g0) | _LEAF_REF, gap - g0)
+    slot = torch.where(roots >= 0, slot, -1)
     inner = (roots >= 0) & (roots < n)
     gstart = torch.full((n + l,), -1, dtype=_I32, device=dev)
     gstart[torch.where(inner, roots, n + pos)] = torch.where(inner, g0,
@@ -834,10 +861,11 @@ def _refit_plan(topo: LBVHTopo, tile: int) -> RefitPlan:
 
 def _refit_boxes(topo: LBVHTopo, v0, v1, v2):
     """Boxes of every binary node -> ((2T-1, 3) bmin, bmax) in old ids:
-    internals 0..T-2, sorted leaves after.  On the card the first refit
-    of a topology also makes the kernel's plan (``_refit_plan``), kept in
-    ``topo_state``; a later one is one launch, with no fill.  A launch
-    that fails drops the plan, so the next refit makes a new one."""
+    internals 0..T-2, sorted leaves after.  On the card a refit is one
+    launch, with no fill, over the kernel's plan kept in ``topo_state``:
+    the build's (``build_lbvh_topo``), or one the first refit makes
+    (``_refit_plan``) for a topology made elsewhere.  A launch that fails
+    drops the plan, so the next refit makes a new one."""
     l = _check_verts(v0, v1, v2)
     _check_topo(topo, l, v0.device)
     if not _cuda(v0):
@@ -1095,8 +1123,7 @@ def build_lbvh_topo(v0: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor,
     l = _check_verts(v0, v1, v2)
     if l <= leaf_size:
         raise ValueError("scene smaller than one leaf")
-    smin, smax = _scene_box(v0, v1, v2)
-    codes = morton_codes(v0, v1, v2, smin, smax)
+    codes = scene_codes(v0, v1, v2)[0]
     lcodes, order = torch.sort(codes, stable=True)
     order = order.to(_I32)
     levels = 0
@@ -1105,13 +1132,15 @@ def build_lbvh_topo(v0: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor,
             *_leaf_boxes(v0, v1, v2, order), l)
     else:
         lchild, rchild, lo, hi = _karras(lcodes, l)
+    made = []
     (surv, ch_old, arity, base, newid, row_lo, row_cnt, leaf_newid,
      parent) = _collapse_wide(lchild, rchild, lo, hi, l, leaf_size,
-                              width=width)
+                              width=width, state=made)
     topo = LBVHTopo(order=order, lchild=lchild, rchild=rchild, surv=surv,
                     ch_old=ch_old, arity=arity, base=base, newid=newid,
                     row_lo=row_lo, row_cnt=row_cnt, leaf_newid=leaf_newid,
                     lo=lo, hi=hi, parent=parent)
+    topo_state(topo, made[0])   # the plan belongs to these arrays (H15)
     lb = refit_lbvh(topo, v0, v1, v2, leaf_size=leaf_size, width=width)
     if method == "sah":
         lb = dataclasses.replace(lb, wide_depth=wide_depth_of(levels - 1,

@@ -14,7 +14,7 @@ quantized packer (``accel/lbvh.py``), so the walks read the same format.
 
 Pipeline (``build_ploc_topo``):
 
-1. Morton codes over the scene box and a stable sort (``lbvh.morton_codes``
+1. Morton codes over the scene box and a stable sort (``lbvh.scene_codes``
    and ``torch.sort``, as ``build_lbvh_topo``);
 2. the merge loop (``_ploc_merge``, K4a), whole on the card: a
    cooperative grid runs the rounds while more than ``tail_size(leaf)``
@@ -59,7 +59,7 @@ import torch
 
 from vortex_rt_tpu_torch.accel.lbvh import (
     LBVHNodes, LBVHTopo, _check_i32, _check_verts, _cuda, _half_area,
-    _launch, _pack_rows, _scene_box, morton_codes, pad_tris, topo_state,
+    _launch, _pack_rows, pad_tris, scene_codes, topo_state,
     wide_arrays_from_lbvh, wide_depth_of,
 )
 from vortex_rt_tpu_torch.ops import packet_walk, traverse_packet
@@ -601,9 +601,7 @@ def seed_clusters(v0, v1, v2, leaf_size: int):
     order, with its box and its id list (its sorted slot, then -1; the
     refit re-gathers moved vertices through ``order``)."""
     l = v0.shape[0]
-    smin, smax = _scene_box(v0, v1, v2)
-    order = torch.sort(morton_codes(v0, v1, v2, smin, smax),
-                       stable=True)[1].to(_I32)
+    order = torch.sort(scene_codes(v0, v1, v2)[0], stable=True)[1].to(_I32)
     o = order.to(_I64)
     tmin = torch.minimum(torch.minimum(v0, v1), v2)[o]
     tmax = torch.maximum(torch.maximum(v0, v1), v2)[o]

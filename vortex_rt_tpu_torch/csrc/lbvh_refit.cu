@@ -17,8 +17,10 @@
 // dependent read of the topology and a fenced global atomic that waits on
 // the stores before it, the climb's divergence serialises each warp, and
 // the last thread to reach the root climbs the tree's whole depth.  So the
-// work is split by a plan made once per topology (refit_plan_kernel and
-// accel/lbvh.py::_refit_plan, kept with the topology):
+// work is split by a plan made once per topology and kept with it: by the
+// collapse of the topology's build (csrc/lbvh_collapse.cu), or for a
+// topology made elsewhere by refit_plan_kernel and
+// accel/lbvh.py::_refit_plan at its first refit:
 //
 // treelets: the maximal subtrees of at most kTile/2 leaves.  They
 //   partition the sorted leaves into ranges; a block takes consecutive

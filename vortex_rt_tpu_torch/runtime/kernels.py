@@ -79,13 +79,14 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     },
     # the on-device LBVH build and refit (accel/lbvh.py)
     "lbvh_karras": {
-        "vrt_lbvh_morton": ([_P] * 5 + [_I] + [_P] * 2, _I),
+        "vrt_lbvh_box_morton": ([_P] * 3 + [_I] + [_P] * 4, _I),
+        "vrt_lbvh_box_blocks": ([_I], _I),
         "vrt_lbvh_karras": ([_P, _I] + [_P] * 5, _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
     "lbvh_collapse": {
-        "vrt_lbvh_collapse_expand": ([_P] * 4 + [_I] * 3 + [_P] * 7, _I),
-        "vrt_lbvh_collapse_assign": ([_P] * 6 + [_I] * 3 + [_P] * 5, _I),
+        "vrt_lbvh_collapse": ([_P] * 4 + [_I] * 4 + [_P] * 17, _I),
+        "vrt_lbvh_collapse_scratch": ([_I, _I], ctypes.c_longlong),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
     "lbvh_refit": {

@@ -73,8 +73,8 @@ few operations per word moved, so their bound is their bytes: every
 input array of the function read once and every output array written
 once, at the sizes the call is given (T triangles, the pool and leaf rows
 of the tables it writes).  Arrays that one kernel of a function writes
-for the next (the collapse's two kernels around ``torch.cumsum``) and
-scratch arrays are not inputs or outputs, so they are not counted.
+for the next and scratch arrays (the collapse's, the scene box's parts)
+are not inputs or outputs, so they are not counted.
 """
 
 from __future__ import annotations
@@ -202,19 +202,24 @@ def k7_bound(rows: int, steps: int, k: int, words: int) -> Bound:
 
 
 def lbvh_bounds(t: int, width: int, leaf: int, pool_rows: int,
-                leaf_rows: int, surv_rows: int, fused: bool) -> dict:
+                leaf_rows: int, surv_rows: int, fused: bool,
+                tile: int) -> dict:
     """Bounds of the four LBVH kernels for ``t`` (padded) triangles, by
     kernel library name.  ``pool_rows`` and ``leaf_rows`` size the tables
     the pack writes, ``surv_rows`` is the length of the survivor list it
-    runs over (``t - 1`` without a compact plan)."""
+    runs over (``t - 1`` without a compact plan); ``tile`` is the refit's
+    (its plan's blocks take the treelets of ``tile // 2`` leaves)."""
     n = 2 * t - 1
     i = t - 1
-    karras = (36 * t + 24 + 4 * t          # morton: vertices, box in; codes out
+    karras = (36 * t + 24 + 4 * t          # box, codes: vertices in; box, codes out
               + 4 * t + 16 * i)            # karras: codes in; 4 arrays out
     # lchild, rchild, lo, hi in; surv (1 B), ch_old, arity, base (l-1,),
-    # newid, parent (2l-1,), row_lo, row_cnt, leaf_newid (l,) out.  What
-    # the kernels hand each other around the prefix sums is not counted
-    collapse = 16 * i + i + 4 * width * i + 8 * i + 8 * n + 12 * t
+    # newid, parent (2l-1,), row_lo, row_cnt, leaf_newid (l,) and the
+    # leaf-row count (8 B) out; the refit plan out: rec (l-1, 2), blocks
+    # (ceil(l / (tile / 2)), 4), roots (l, 2), gstart and the climb's
+    # counters (l-1,).  The launch's scratch is not counted
+    collapse = (16 * i + i + 4 * width * i + 8 * i + 8 * n + 12 * t + 8
+                + 8 * i + 16 * -(-t // (tile // 2)) + 8 * t + 8 * i)
     # vertices, order, lchild, rchild in; bmin, bmax (2l-1, 3) out.  The
     # parent array and the arrival counters of the climb are not counted
     refit = 36 * t + 4 * t + 8 * i + 24 * n
@@ -253,7 +258,8 @@ def ploc_bounds(t: int, width: int, leaf: int, live) -> dict:
     rows_in = 36 * t + 4 * t + 4 * leaf * t + 4 * t   # verts, order, ids, counts
     refit = rows_in + 8 * i + 24 * n                  # + lchild, rchild; boxes
     rows = rows_in + 24 * t
-    pack = (lbvh_bounds(t, width, leaf, n, t, i, width == 8)["lbvh_pack"].bytes
+    pack = (lbvh_bounds(t, width, leaf, n, t, i, width == 8,
+                        tile=2)["lbvh_pack"].bytes   # (the pack's alone)
             + 4 * leaf * t)
     return {"ploc_merge": Bound(0, merge), "ploc_collapse": Bound(0, collapse),
             "ploc_refit": Bound(0, refit), "ploc_refit_rows": Bound(0, rows),
