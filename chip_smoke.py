@@ -205,12 +205,22 @@ and so exits non-zero, on failure):
     launches a frame (the second wave has no live lane, no instance
     reflects);
 15c. K6 against its plain version (run on the card) on MK-A's three
-    waves (the bounce waves with their live masks), MK-B's primary wave
-    and 67,601 random rays over transformed instances (all live and a
-    third dead, stack depth 64 and 4: the clamped overflow): hits and
-    per-ray counts equal; K6 timed (the profiler's kernel time, CUDA
-    events beside) on MK-A's primary and first bounce waves and MK-B's
-    primary wave, beside the plain version and ``k6_bound``;
+    waves (the bounce waves with their live masks), MK-B's primary wave,
+    67,601 random rays over transformed instances (all live and a third
+    dead, stack depth 64 and 4: the clamped overflow) and 20,000 rays
+    through ``chain_pool(100)``, a pool 102 levels deep (stack depth 64
+    and 4, walks that defer 100 leaves): hits and per-ray counts equal;
+    K6 timed (CUDA events around the launch, the profiler's kernel time
+    and the launches it recorded beside) on MK-A's
+    primary and first bounce waves and MK-B's primary wave, beside the
+    plain version and ``k6_bound``, with the bytes K6's packed records
+    make it fetch;
+15d. K2 on the atrium's 4-wide TLAS build (MK-B's scene) at 1920x1080,
+    2,073,600 camera rays: checked against the plain version on a strided
+    crop of 66,891 rays through the wrapper and on the whole wave through
+    the bare launch (hits and steps equal), timed (CUDA events around the
+    bare launch) beside the plain version on the crop and ``k2_bound`` of
+    the whole wave;
 16. prints the kernels' JSON line (per kernel: launches on its main-path
     run and per frame, K1's being config 4's frame with the other paths'
     counts beside it, the LBVH kernels' being row 5's run, the PLOC
@@ -218,8 +228,10 @@ and so exits non-zero, on failure):
     5's build and refit beside them, one per ``__global__`` function
     launched, per frame from the counts over the run's refits; the
     largest difference from the plain version that the phases above
-    measured; device time by CUDA events, plain time, bound, what bounds
-    it and the share of the bound; ``traverse_wide``'s launches the parity
+    measured; device time by CUDA events (K2's 1080p wave of 15d beside
+    its config-2 wave), plain time, bound, what bounds it and the share
+    of the bound;
+    ``traverse_wide``'s launches the parity
     frame's, the chunked frame's beside them, the alpha modes' the row-6
     frames'; ``traverse_packet_alpha``
     and ``packet_walk_alpha`` are K1's and K2's alpha instantiations, with
@@ -305,6 +317,14 @@ EARLIER_MS = {"lbvh_karras": {"config5": 0.0801},
               "ploc_merge": {"config3": 8.2440, "config5": 7.2190},
               "ploc_collapse": {"config3": 0.2801, "config5": 0.3037},
               "ploc_pack": {"config3": 0.1332, "config5": 1.1697}}
+# K6's and K2's readings before their redesign (local-memory stacks, the
+# JAX arrays' layout for K6), as this script times them: CUDA events
+# around the bare launch, ms, the mean of two turns of
+# tools/walk_timing.py (NVIDIA H100 80GB HBM3 at 700 W; PERF.md's kernel
+# table), printed beside this run's
+EARLIER_WALK_MS = {"mk_a_primary": 0.0629, "mk_a_bounce1": 0.0614,
+                   "mk_b_primary": 0.2575, "k2_config2_primary": 0.0656,
+                   "k2_atrium_tlas_1080p": 0.3756}
 EARLIER = ("before the redesigns: row 3's PLOC build 6.4-12.96 ms with the "
            "merge's host loop, 2.0-3.0 ms with K4b in three kernels; K4a 216 "
            "/ 228 launches a build and a host read a round; K4b 3 kernels, 3 "
@@ -777,6 +797,8 @@ def phase_config2_k2(device, size: int = 512, wave_reps: int = 20) -> dict:
              else lambda wa, o, d: lambda: trace_packets_walk(wa, o, d))
     wave = primary_wave(device, rk.wa, timed, trace_packets_walk_ref,
                         walk_work_4, wb.k2_bound, size, wave_reps)
+    print(f"  K2 before its redesign (PERF.md): "
+          f"{EARLIER_WALK_MS['k2_config2_primary']:.4f} ms on this wave")
     return dict(launches=launches, launches_per_frame=launches, **wave)
 
 
@@ -2599,28 +2621,41 @@ def k6_vs_plain(label: str, ta, o, d, active=None,
     return err
 
 
-def k6_times(label: str, ta, o, d, active=None, reps: int = 10) -> dict:
-    """K6's time on these rays: the profiler's kernel time (the launch
-    alone, CUDA events around it beside), the plain version's and the
-    bound of the work they need (``k6_bound``)."""
+def k6_times(label: str, ta, o, d, active=None, reps: int = 10,
+             earlier=None) -> dict:
+    """K6's time on these rays: CUDA events around the bare launch (the
+    profiler's kernel time beside, with the launches it recorded: late in
+    this run a session records only some of them), the plain version's
+    and the bound of the work they need (``k6_bound``)."""
     from vortex_rt_tpu_torch.ops import traverse2 as t2
     from vortex_rt_tpu_torch.tools import walk_bounds as wb
+    from vortex_rt_tpu_torch.tools.profile_frames import kernel_events
 
     call = t2.kernel_call(ta, o, d, active=active)
-    b = wb.k6_bound(t2.rays_work(ta, o, d, active=active))
-    events_ms = _device_ms(call, reps)
-    ms = _profiled_kernel_ms(call, reps, ["traverse2_kernel"])[
-        "traverse2_kernel"]
+    work = t2.rays_work(ta, o, d, active=active)
+    b = wb.k6_bound(work)
+    fetch = wb.k6_record_bytes(work, ta.kind.shape[0], ta.tri_idx.shape[0])
+    ms = _device_ms(call, reps)
+    call()
+    _sync(o.device)
+    prof = [e for e in kernel_events(lambda: [call() for _ in range(reps)])
+            if "traverse2_kernel" in e.key]
+    profiler_ms = sum(e.self_device_time_total for e in prof) / 1e3 / reps
+    recorded = sum(e.count for e in prof)
     plain_ms = _elapsed_ms(lambda: t2.trace_rays_ref(ta, o, d,
                                                      active=active),
                            1, o.device)
-    print(f"  {label}: K6 {ms:.4f} ms (profiler's kernel time, mean of "
-          f"{reps}; CUDA events around the launch {events_ms:.4f} ms), "
-          f"plain {plain_ms:.4f} ms; bound {b.ms:.4f} ms ({b.bound_by}: "
-          f"{b.bytes} B, {b.ops} operations), {b.ms / ms:.1%} of it")
-    return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
-                bound_ms=b.ms, bound_by=b.bound_by, bound_bytes=b.bytes,
-                bound_ops=b.ops, rays=int(o.shape[0]))
+    print(f"  {label}: K6 {ms:.4f} ms (CUDA events around the launch, mean "
+          f"of {reps}; the profiler {profiler_ms:.4f} ms a launch, "
+          f"{recorded} of {reps} launches recorded), plain {plain_ms:.4f} "
+          f"ms; bound {b.ms:.4f} ms ({b.bound_by}: {b.bytes} B, {b.ops} "
+          f"operations), {b.ms / ms:.1%} of it; the records fetch {fetch} B"
+          + ("" if earlier is None
+             else f"; before its redesign {earlier:.4f} ms"))
+    return dict(ms=ms, profiler_ms=profiler_ms, profiler_launches=recorded,
+                plain_ms=plain_ms, bound_ms=b.ms, bound_by=b.bound_by,
+                bound_bytes=b.bytes, bound_ops=b.ops, rays=int(o.shape[0]),
+                fetch_bytes=fetch)
 
 
 def megakernel_frames(device, label: str, sb, cam, p, w: int, h: int,
@@ -2670,34 +2705,6 @@ def megakernel_frames(device, label: str, sb, cam, p, w: int, h: int,
     return rec
 
 
-def megakernel_waves(r, cam, p, w: int, h: int):
-    """The rays and live masks of the first sample pass's waves, as
-    ``render_megakernel`` makes them (the first jitter split at spp > 1)."""
-    import torch
-
-    from vortex_rt_tpu_torch.engine import megakernel as mk
-    from vortex_rt_tpu_torch.utils import prng
-
-    dev = r.device
-    jitter = None
-    if p.spp > 1:
-        _, k2 = prng.split(prng.prng_key(0))
-        jitter = prng.uniform(k2, (h, w, 2), dev)
-    cama = mk.CameraArrays.from_camera(cam, dev)
-    light = mk.LightArrays.from_params(p, dev)
-    o, d = mk.generate_camera_rays(cama, w, h, jitter)
-    n = w * h
-    rad = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    thr = torch.ones(n, dtype=torch.float32, device=dev)
-    act = torch.ones(n, dtype=torch.bool, device=dev)
-    waves = []
-    for bounce in range(p.max_depth):
-        waves.append((o, d, act))
-        o, d, rad, thr, act, _ = mk.trace_wave(r.ta, r.st, light, o, d, rad,
-                                               thr, act, bounce, p.max_depth)
-    return waves
-
-
 def phase_megakernel(device, mk_reps: int = 3, size=512,
                      hd=(1920, 1080)) -> dict:
     """Phases 15a-15c: MK-A, MK-B, and K6 against its plain version and
@@ -2709,6 +2716,7 @@ def phase_megakernel(device, mk_reps: int = 3, size=512,
     from vortex_rt_tpu_torch import Camera, RenderParams, Scene
     from vortex_rt_tpu_torch.engine.megakernel import MegakernelRenderer
     from vortex_rt_tpu_torch.ops.traverse2 import TraversalArrays
+    from vortex_rt_tpu_torch.tools.walk_timing import megakernel_waves
 
     _phase("phase 15a MK-A: the megakernel engine on config 2's TLAS scene "
            f"({size}x{size}, spp 4, depth 3, mirror sphere)")
@@ -2774,18 +2782,93 @@ def phase_megakernel(device, mk_reps: int = 3, size=512,
                                        di, active, depth))
     print(f"  binary depth of the transformed-instances pool "
           f"{pool_depth(ta_i)} beside K6's stack of 64")
+    from vortex_rt_tpu_torch.ops.traverse2 import chain_pool
+
+    ta_c = chain_pool(100, device)
+    nc = 20000
+    yz = torch.rand(nc, 2, generator=g) * 1.8 - 0.9
+    oc = torch.stack([torch.full((nc,), -1.0), yz[:, 0], yz[:, 1]], 1)
+    dc = torch.nn.functional.normalize(
+        torch.tensor([1.0, 0.0, 0.0]) + 1e-3 * torch.randn(nc, 3, generator=g))
+    for depth in (64, 4):
+        err = max(err, k6_vs_plain("chain_pool(100), 102 levels", ta_c,
+                                   oc.to(device), dc.to(device),
+                                   torch.arange(nc, device=device) % 5 != 2,
+                                   depth))
     times = {}
     if device.type == "cuda":
         o, d, _ = waves_a[0]
-        times["mk_a_primary"] = k6_times("MK-A primary wave", ra.ta, o, d)
+        times["mk_a_primary"] = k6_times(
+            "MK-A primary wave", ra.ta, o, d,
+            earlier=EARLIER_WALK_MS["mk_a_primary"])
         o, d, act = waves_a[1]
-        times["mk_a_bounce1"] = k6_times("MK-A wave 1 (bounce)", ra.ta, o, d,
-                                         act)
+        times["mk_a_bounce1"] = k6_times(
+            "MK-A wave 1 (bounce)", ra.ta, o, d, act,
+            earlier=EARLIER_WALK_MS["mk_a_bounce1"])
         o, d, _ = waves_b[0]
-        times["mk_b_primary"] = k6_times("MK-B primary wave", rb.ta, o, d,
-                                         reps=5)
+        times["mk_b_primary"] = k6_times(
+            "MK-B primary wave", rb.ta, o, d, reps=5,
+            earlier=EARLIER_WALK_MS["mk_b_primary"])
     del waves_a, waves_b, ra, rb
-    return dict(mk_a=mk_a, mk_b=mk_b, max_abs_err=err, times=times)
+    _phase("phase 15d K2 on the atrium's 4-wide TLAS build at "
+           f"{w}x{h}")
+    k2_hd = phase_k2_atrium(device, sb_b, cam_b, w, h)
+    return dict(mk_a=mk_a, mk_b=mk_b, max_abs_err=err, times=times,
+                k2_hd=k2_hd)
+
+
+def phase_k2_atrium(device, sb, cam, w: int, h: int, crop: int = 31,
+                    reps: int = 10) -> dict:
+    """15d: K2 on ``sb``'s 4-wide TLAS build (``RTConfig()``), the
+    frame's camera rays: hits and steps against the plain version on
+    every ``crop``-th ray, the whole wave timed (CUDA events around the
+    bare launch) beside ``k2_bound`` and the plain version on the crop."""
+    import torch
+
+    from vortex_rt_tpu_torch import RTConfig, WavefrontRenderer
+    from vortex_rt_tpu_torch.ops import packet_walk as pw
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
+
+    cfg = RTConfig()
+    r = WavefrontRenderer.from_buffers(sb, cfg, device=device)
+    _check(r.walk is pw.trace_packets_walk and r.wa.width == 4
+           and r.wa.num_tlas > 0, "the atrium's TLAS build is not on K2")
+    o, d = camera_rays(cam, w, h, device)
+    oc, dc = o[::crop].contiguous(), d[::crop].contiguous()
+    before = kernels.LAUNCHES["packet_walk"]
+    k, ks = pw.trace_packets_walk(r.wa, oc, dc)
+    _sync(device)
+    if device.type == "cuda":
+        _check(kernels.LAUNCHES["packet_walk"] == before + 1,
+               "15d: K2 not launched once")
+    pp, ps = pw.trace_packets_walk_ref(r.wa, oc, dc)
+    err = compare_hits(f"atrium TLAS {w}x{h}, 1 ray in {crop}", k, pp,
+                       ks, ps)
+    plain_ms = _elapsed_ms(lambda: pw.trace_packets_walk_ref(r.wa, oc, dc),
+                           1, device)
+    whole, steps, work = pw.walk_work_4(r.wa, o, d)
+    b = wb.k2_bound(work)
+    rec = dict(max_abs_err=err, rays=int(o.shape[0]), crop_rays=int(
+        oc.shape[0]), plain_ms_crop=plain_ms, bound_ms=b.ms,
+        bound_by=b.bound_by, depth=int(r.wa.depth),
+        stack_entries=pw.stack_entries(r.wa),
+        mean_steps=float(steps.float().mean()))
+    if device.type == "cuda":
+        call = pw.kernel_call(r.wa, o, d)
+        hits, ksteps = call()
+        _check(all(torch.equal(x, y) for x, y in zip(
+            (*hits, ksteps), (*whole, steps))), "15d: K2's hits or steps "
+            "on the whole wave differ from the plain version's")
+        rec["ms"] = _device_ms(call, reps)
+        print(f"  K2 {w}x{h} wave ({rec['rays']} rays, depth {rec['depth']}, "
+              f"{rec['stack_entries']} stack entries a ray): {rec['ms']:.4f} "
+              f"ms (CUDA events; before its redesign "
+              f"{EARLIER_WALK_MS['k2_atrium_tlas_1080p']:.4f}), bound "
+              f"{b.ms:.4f} ms ({b.bound_by}) = {b.ms / rec['ms']:.1%}; mean "
+              f"steps {rec['mean_steps']:.3f}; plain {plain_ms:.4f} ms on the "
+              f"{rec['crop_rays']}-ray crop")
+    return rec
 
 
 def phase_k7(device, check_rows: int = K7_ROWS[0], check_steps: int = 500
@@ -2982,8 +3065,12 @@ def main() -> int:
         c5["kernels"][name]["launches_by_path"]["config3_device_tree"] = \
             c3d["launches"][name]
     rows = []
+    c2k2["other_waves"] = {"atrium_tlas_1080p": {
+        k: mk["k2_hd"].get(k) for k in ("ms", "plain_ms_crop", "bound_ms",
+                                        "bound_by", "rays", "mean_steps")}}
     for name, res, err in (
-            ("packet_walk", c2k2, max(err3, c2k2["max_abs_err"])),
+            ("packet_walk", c2k2, max(err3, c2k2["max_abs_err"],
+                                      mk["k2_hd"]["max_abs_err"])),
             ("traverse_packet", c2, max(err5, err9, c5["walk_err"],
                                         c2["max_abs_err"])),
             ("hbm_walk", k7, k7["max_abs_err"]),
@@ -3005,7 +3092,8 @@ def main() -> int:
                      # for the walks, around the wrapper for the LBVH rows
                      "ms_source": ("cuda_events_wrapper" if "kernel_ms" in res
                                    else "cuda_events_launch"),
-                     **{k: res[k] for k in ("kernel_ms",) if k in res}})
+                     **{k: res[k] for k in ("kernel_ms", "other_waves")
+                        if k in res}})
     # the K4 rows: launches and times on row 3's path (config 3, T 69,940;
     # six builds: a warm-up and five timed), config 5's beside them
     for name in PLOC_KERNELS:
@@ -3072,7 +3160,8 @@ def main() -> int:
           f"with {par6['k3_launches']} K3 launches; chunked frame "
           f"{chunked['launches']} K3 launches")
     # K6: launches are MK-A's timed frames' (12 a frame), MK-B's beside
-    # them; its time the profiler's kernel time on MK-A's primary wave
+    # them; its time by CUDA events around the launch on MK-A's primary
+    # wave
     t6 = mk["times"]["mk_a_primary"]
     src, replaces = SOURCES["traverse2"]
     rows.append({"name": "traverse2", "route": "cuda", "source": src,
@@ -3087,10 +3176,13 @@ def main() -> int:
                  "bound_by": t6["bound_by"],
                  "bound_share": t6["bound_ms"] / t6["ms"],
                  # no one PyTorch call walks a BVH
-                 "library_ms": None, "ms_source": "profiler_kernel",
-                 "events_ms": t6["events_ms"],
+                 "library_ms": None, "ms_source": "cuda_events_launch",
+                 "profiler_ms": t6["profiler_ms"],
+                 "profiler_launches": t6["profiler_launches"],
+                 "fetch_bytes": t6["fetch_bytes"],
                  "other_waves": {k: {f: v[f] for f in (
-                     "ms", "events_ms", "plain_ms", "bound_ms", "rays")}
+                     "ms", "profiler_ms", "profiler_launches", "plain_ms",
+                     "bound_ms", "rays", "fetch_bytes")}
                      for k, v in mk["times"].items() if k != "mk_a_primary"}})
     # the sweep-SAH tree: launches of one build at config 3's mesh (five a
     # level); its time the whole sweep's by CUDA events, each kernel's by

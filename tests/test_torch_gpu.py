@@ -3,7 +3,8 @@ card: the 4-wide walk (K2), the 8-wide fused walk (K1), both in their
 alpha-cutout modes, the per-ray walk with any-hit suspension (K3), the
 chained row-fetch probe (K7), the four kernels of the on-device LBVH build
 and refit (K5) and those of the on-device PLOC build and level refit (K4),
-the binary TLAS+BLAS walk of the megakernel (K6) and the sweep-SAH tree's
+the binary TLAS+BLAS walk of the megakernel (K6, over its packed records,
+on a pool past its 64-entry stack too) and the sweep-SAH tree's
 kernels.
 
 Needs a CUDA device and nvcc; skips without a card.  It imports neither
@@ -285,6 +286,49 @@ def test_k2_kernel_call_relaunches(cuda):
         wa, o, d, active=torch.arange(4097, device=cuda) % 5 != 0)
     for a, b in zip((*hits, steps), (*ref, ref_steps)):
         assert torch.equal(a, b)
+
+
+def test_k2_at_its_stack_cap(cuda):
+    """K2's shared-memory stack holds 48 packed entries (48 KB a block):
+    a TLAS tree taken at depth 44 walks as the plain version does; one
+    level more raises before any launch."""
+    wa = WideArrays.from_scene(_scene(False)).to(cuda)
+    o, d = _rays(cuda, 4097)
+    at_cap = dataclasses.replace(wa, depth=44)
+    k, ks = trace_packets_walk(at_cap, o, d)
+    torch.cuda.synchronize()
+    p, ps = trace_packets_walk_ref(at_cap, o, d)
+    for a, b in zip((*k, ks), (*p, ps)):
+        assert torch.equal(a, b)
+    before = kernels.LAUNCHES["packet_walk"]
+    with pytest.raises(ValueError, match="stack entries"):
+        trace_packets_walk(dataclasses.replace(wa, depth=45), o, d)
+    assert kernels.LAUNCHES["packet_walk"] == before
+
+
+@pytest.mark.parametrize("occlusion", [False, True])
+def test_k2_tlas_instance_descents(cuda, occlusion):
+    """K2 on a TLAS build of translated, rotated and scaled instances
+    (two of them the same sphere under one transform) against the plain
+    version, 135,185 rays (past what the card holds at once), a fifth
+    inactive and a quarter at t_max = LARGE_FLOAT, the largest a walk
+    takes: hits and per-ray steps equal."""
+    wa = WideArrays.from_scene(_instances_scene(), width=4).to(cuda)
+    assert wa.num_tlas > 0 and wa.width == 4
+    n = 132 * 8 * 128 + 17
+    g = torch.Generator().manual_seed(6)
+    o = ((torch.rand(n, 3, generator=g) - 0.5) * 12).to(cuda)
+    d = torch.nn.functional.normalize(torch.randn(n, 3, generator=g)).to(cuda)
+    lane = torch.arange(n, device=cuda)
+    t_max = torch.where(lane % 4 == 0, torch.full((n,), 1e30, device=cuda),
+                        torch.full((n,), 9.0, device=cuda))
+    kw = dict(active=lane % 5 != 2, t_max=t_max, occlusion=occlusion)
+    k, ks = trace_packets_walk(wa, o, d, **kw)
+    torch.cuda.synchronize()
+    p, ps = trace_packets_walk_ref(wa, o, d, **kw)
+    for a, b in zip((*k, ks), (*p, ps)):
+        assert torch.equal(a, b)
+    assert bool((p.dist < 1e30).any()) and int(ps.max()) > 4
 
 
 @pytest.mark.parametrize("k", [1, 4, 8, 16, 32])
@@ -1112,8 +1156,7 @@ def test_anyhit_frames_match_plain_route(cuda, route, monkeypatch):
 
 # ---------------------------------------------- K6 and the megakernel
 
-def _tlas_pool():
-    from vortex_rt_tpu_torch.ops.traverse2 import TraversalArrays
+def _instances_scene():
     from vortex_rt_tpu_torch.utils import vecmath as vm
 
     sc = pt.Scene()
@@ -1123,9 +1166,16 @@ def _tlas_pool():
     sc.add_instance(ms, vm.mat4_translate([3, 0, 0]) @ vm.mat4_scale(1.5))
     sc.add_instance(mb, vm.mat4_translate([0, 3, 0])
                     @ vm.mat4_rotate([0, 0, 1], 0.6) @ vm.mat4_scale(0.7))
+    sc.add_instance(ms, vm.mat4_translate([3, 0, 0]) @ vm.mat4_scale(1.5))
     sc.add_instance(sc.add_mesh(random_soup(
         __import__("numpy").random.default_rng(1), 400, extent=2.0)))
-    return TraversalArrays.from_scene(sc.build(pt.RTConfig()))
+    return sc.build(pt.RTConfig())
+
+
+def _tlas_pool():
+    from vortex_rt_tpu_torch.ops.traverse2 import TraversalArrays
+
+    return TraversalArrays.from_scene(_instances_scene())
 
 
 @pytest.mark.parametrize("stack_depth", [64, 4])
@@ -1156,7 +1206,8 @@ def test_k6_matches_plain_version(cuda, stack_depth):
 
 def test_k6_kernel_call_relaunches(cuda):
     """Relaunches through kernel_call after other allocations give the
-    same records: the launcher holds its inputs and outputs."""
+    same records: the launcher holds its inputs, the packed records and
+    its outputs."""
     from vortex_rt_tpu_torch.ops import traverse2 as t2
 
     ta = _tlas_pool().to(cuda)
@@ -1165,13 +1216,41 @@ def test_k6_kernel_call_relaunches(cuda):
     d = torch.nn.functional.normalize(torch.randn(3000, 3, generator=g))
     launch = t2.kernel_call(ta, o, d.to(cuda))
     first = [a.clone() for a in launch()]
-    del o, d
+    del o, d, ta  # the packed records live on in the launcher's closure
     junk = [torch.full((1 << 20,), 7.0, device=cuda) for _ in range(8)]
     again = launch()
     torch.cuda.synchronize()
     for a, b in zip(first, again):
         assert torch.equal(a, b)
     del junk
+
+
+@pytest.mark.parametrize("stack_depth", [64, 4])
+def test_k6_past_its_stack(cuda, stack_depth):
+    """K6 on ``chain_pool(100)``, a pool 102 levels deep whose walks defer
+    100 leaves: its stack keeps min(stack_depth, 64) entries and
+    overflows as the plain version's does (hits, counts, steps equal),
+    a fifth of the rays inactive."""
+    from vortex_rt_tpu_torch.ops import traverse2 as t2
+
+    ta = t2.chain_pool(100, cuda)
+    assert ta.walk_tables().depth == t2.STACK_MAX == int(
+        kernels.load("traverse2").lib.vrt_traverse2_stack_max())
+    n = 20000
+    g = torch.Generator().manual_seed(7)
+    yz = torch.rand(n, 2, generator=g) * 1.8 - 0.9
+    o = torch.stack([torch.full((n,), -1.0), yz[:, 0], yz[:, 1]], 1)
+    d = torch.nn.functional.normalize(
+        torch.tensor([1.0, 0.0, 0.0]) + 1e-3 * torch.randn(n, 3, generator=g))
+    o, d = o.to(cuda), d.to(cuda)
+    active = torch.arange(n, device=cuda) % 5 != 2
+    k, kp = t2.trace_rays(ta, o, d, stack_depth=stack_depth, active=active)
+    torch.cuda.synchronize()
+    p, pp = t2.trace_rays_ref(ta, o, d, stack_depth=stack_depth,
+                              active=active)
+    for a, b in zip((*k, *kp), (*p, *pp)):
+        assert torch.equal(a, b)
+    assert int(pp.steps) == 202 and bool((p.dist < 1e30).any())
 
 
 def test_megakernel_frame_matches_cpu_frame(cuda):

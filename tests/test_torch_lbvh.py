@@ -625,6 +625,25 @@ def test_deep_sah_tree_is_refused():
             tl.wide_arrays_from_lbvh(deep, 4, width=width)
 
 
+def test_width4_refusal_reads_k2s_cap():
+    """At width 4 the refusal reads K2's cap of packed entries (depth + 4
+    of 48): a sweep-SAH tree 44 levels deep is taken, 45 refused."""
+    from vortex_rt_tpu_torch.ops import packet_walk as pw
+
+    lb, _ = tl.build_lbvh_topo(*_sah_mesh("soup"), leaf_size=4,
+                               method="sah", width=4)
+    cap = pw.STACK_MAX - 4
+
+    def deep(levels):
+        return tl.LBVHNodes(nodes=lb.nodes, tri_rows=lb.tri_rows,
+                            num_leaves=lb.num_leaves, fused=lb.fused,
+                            wide_depth=levels)
+
+    assert tl.wide_arrays_from_lbvh(deep(cap), 4, width=4).depth == cap
+    with pytest.raises(ValueError, match=f"holds {pw.STACK_MAX} stack"):
+        tl.wide_arrays_from_lbvh(deep(cap + 1), 4, width=4)
+
+
 # ------------------------------------ the refit climb's tiles (K5 C)
 
 def _plain_tree(method, l, dups, seed=0):

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from vortex_rt_tpu_torch import bridge
+from vortex_rt_tpu_torch.ops import packet_walk as pw
 from vortex_rt_tpu_torch.ops.packet_walk import (
     trace_packets_walk, trace_packets_walk_ref,
 )
@@ -193,3 +194,26 @@ def test_wrapper_rejects_bad_inputs(case, bad):
         twa = dataclasses.replace(twa, nodes=twa.nodes.to(torch.int64))
     with pytest.raises(ValueError):
         trace_packets_walk(twa, o, d, **kw)
+
+
+def test_kernel_stack_entries_against_its_refusal(case):
+    """The kernel keeps one packed entry per descended level: depth + 4
+    entries of its 48 (``STACK_MAX``; the first version kept 3 * (depth
+    + 2) + 8 of 128).  ``kernel_call`` takes a tree at the cap (it then
+    refuses only because the tensors lie on the CPU) and refuses one
+    level more before anything else; the plain walk is unchanged by
+    ``depth`` while its own stack holds the tree."""
+    twa = case["twa"]
+    assert pw.STACK_MAX == 48
+    assert pw.stack_entries(twa) == int(twa.depth) + 4 <= pw.STACK_MAX
+    o, d = torch.from_numpy(case["o"]), torch.from_numpy(case["d"])
+    at_cap = dataclasses.replace(twa, depth=pw.STACK_MAX - 4)
+    assert pw.check_stack(at_cap) == pw.STACK_MAX
+    with pytest.raises(ValueError, match="no CUDA walk"):
+        pw.kernel_call(at_cap, o, d)
+    deeper = dataclasses.replace(twa, depth=pw.STACK_MAX - 3)
+    with pytest.raises(ValueError, match="stack entries"):
+        pw.kernel_call(deeper, o, d)
+    a, sa = trace_packets_walk_ref(twa, o[:512], d[:512])
+    b, sb = trace_packets_walk_ref(at_cap, o[:512], d[:512])
+    assert all(torch.equal(x, y) for x, y in zip((*a, sa), (*b, sb)))

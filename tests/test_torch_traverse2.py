@@ -16,7 +16,13 @@ The JAX side runs jitted in a subprocess with
 ``XLA_FLAGS=--xla_cpu_max_isa=AVX`` (no FMA contraction, ROADMAP hazard
 H2); its tables come over through ``bridge.traversal_arrays``, and the
 port's own ``TraversalArrays.from_scene`` of the same scene built by the
-port must equal them."""
+port must equal them.
+
+K6 reads packed records (``pack_walk_tables``): each record must hold
+the words of the arrays it was packed from, and the plain walk over the
+records alone (``trace_records_ref``, K6's reads and stack length) must
+give the JAX records too; past 64 levels (``chain_pool``) it must give
+``trace_rays_ref``'s."""
 
 import dataclasses
 import os
@@ -232,8 +238,12 @@ def test_traversal_arrays_equal_jax(jax_reference, port_scenes, scene):
 def test_rays_work_counts_each_row_once(jax_reference):
     """``rays_work``, the input of ``k6_bound``: one step per visited
     node, two boxes per internal step, the leaves' slots, and each table
-    entry's bytes once; the bound grows with the walk."""
-    from vortex_rt_tpu_torch.tools.walk_bounds import k6_bound
+    entry's bytes once; the bound grows with the walk.  The bytes K6's
+    records make it fetch: the bound's rays, a 64-B record per visited
+    node and a 48-B record per tested slot."""
+    from vortex_rt_tpu_torch.tools.walk_bounds import (
+        k6_bound, k6_record_bytes,
+    )
 
     ref = jax_reference
     ta = _tables(ref, "instances")
@@ -253,6 +263,10 @@ def test_rays_work_counts_each_row_once(jax_reference):
     half = k6_bound(t2.rays_work(ta, o[:256], d[:256]))
     assert b.ops > half.ops > 0 and b.bytes > half.bytes > 0
     assert b.ms == max(b.ops_ms, b.bytes_ms)
+    t = ta.tri_idx.shape[0]
+    assert k6_record_bytes(work, p, t) == (
+        b.bytes - int(rb.sum()) + 64 * int((rb[:p] > 0).sum())
+        + 48 * int((rb[2 * p:2 * p + t] > 0).sum()))
 
 
 def test_refuses_bad_arguments(jax_reference):
@@ -266,3 +280,111 @@ def test_refuses_bad_arguments(jax_reference):
         t2.trace_rays(ta, o.double(), o)
     with pytest.raises(ValueError, match="no CUDA walk"):
         t2.kernel_call(ta, o, o)
+
+
+def _pool_levels(kind, left, root) -> int:
+    """Levels of a pool from node 0 (instance leaves enter their BLAS)."""
+    frontier, levels = np.zeros(1, np.int64), 0
+    while frontier.size:
+        levels += 1
+        k, lft = kind[frontier], left[frontier]
+        inner = np.clip(lft[k == t2.KIND_INTERNAL], 0, kind.size - 2)
+        enter = root[np.clip(lft[k == t2.KIND_INSTANCE], 0, root.size - 1)]
+        frontier = np.unique(np.concatenate([inner, inner + 1, enter]))
+    return levels
+
+
+@pytest.mark.parametrize("scene", ("soup", "instances", "camera"))
+def test_walk_tables_hold_the_arrays_words(jax_reference, scene):
+    """``pack_walk_tables`` of the JAX package's arrays: each node record
+    holds its node's kind and count, its left word clamped as the walk
+    clamps it, an internal node's children's boxes and an instance
+    node's inverse-transform rows and BLAS root, word for word (every
+    instance, the rotated and scaled ones included, is an instance
+    node's); each slot record its triangle's v0, v1 - v0, v2 - v0 and
+    clamped id; ``depth`` is the pool's levels."""
+    ref = {k: jax_reference[f"{scene}/ta/{k}"] for k in FIELDS}
+    wt = t2.pack_walk_tables(_tables(jax_reference, scene))
+    rec, tri = wt.nodes.numpy(), wt.tris.numpy()
+    kind, left, count = ref["kind"], ref["left"], ref["count"]
+    p, n_inst = kind.size, ref["inst_root"].size
+    assert rec.shape == (p, t2.NODE_WORDS) and rec.dtype == np.int32
+    _same(rec[:, 0], kind, "kind")
+    _same(rec[:, 2], count, "count")
+    f32 = lambda a: np.ascontiguousarray(a, np.float32).view(np.int32)
+    inner = kind == t2.KIND_INTERNAL
+    l = np.clip(left, 0, p - 2)
+    boxes = np.concatenate([ref["nmin"][l], ref["nmax"][l],
+                            ref["nmin"][l + 1], ref["nmax"][l + 1]], 1)
+    _same(rec[inner, 1], l[inner], "internal left")
+    _same(rec[inner, 4:], f32(boxes)[inner], "child boxes")
+    inst = kind == t2.KIND_INSTANCE
+    iid = np.clip(left, 0, n_inst - 1)
+    _same(rec[inst, 1], iid[inst], "instance id")
+    _same(rec[inst, 3], ref["inst_root"][iid][inst], "BLAS root")
+    _same(rec[inst, 4:], f32(ref["inst_inv"][iid, :3, :].reshape(p, 12))[
+        inst], "inverse transform rows")
+    assert set(rec[inst, 1]) == set(range(n_inst))
+    leaf = ~inner & ~inst
+    _same(rec[leaf, 1], left[leaf], "first slot")
+    assert not rec[~inst, 3].any() and not rec[leaf, 4:].any()
+    tid = np.clip(ref["tri_idx"], 0, ref["v0"].shape[0] - 1)
+    v0 = ref["v0"][tid]
+    assert tri.shape == (tid.size, t2.TRI_WORDS)
+    _same(tri[:, :9], f32(np.concatenate(
+        [v0, ref["v1"][tid] - v0, ref["v2"][tid] - v0], 1)), "v0, e1, e2")
+    _same(tri[:, 9], tid, "triangle id")
+    assert not tri[:, 10:].any()
+    assert wt.depth == _pool_levels(kind, left, ref["inst_root"]) > 2
+    assert wt.max_leaf_tris == ref["max_leaf_tris"]
+    assert wt.num_tlas == ref["num_tlas"]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_records_walk_equals_jax(jax_reference, case):
+    """The plain walk over K6's records alone, with K6's stack of
+    min(stack_depth, depth) entries: the JAX hits, per-ray counts and
+    steps to the bit, the 4-entry overflow included."""
+    ref = jax_reference
+    wt = t2.pack_walk_tables(_tables(ref, SCENE_OF[case]))
+    o, d = (torch.from_numpy(ref[f"{case}/{k}"]) for k in ("o", "d"))
+    depth = 4 if case == "overflow" else 64
+    assert min(depth, wt.depth) < 64  # K6's stack is cut to the pool
+    hits, perf = t2.trace_records_ref(wt, o, d, stack_depth=depth)
+    for k in t2.Hits._fields:
+        _same(getattr(hits, k), ref[f"{case}/hit/{k}"], f"{case} {k}")
+    for k in t2.PerfCounters._fields:
+        _same(getattr(perf, k), ref[f"{case}/perf/{k}"], f"{case} {k}")
+
+
+def _chain_rays(n: int, seed: int):
+    """Rays along +x (a little off) through chain_pool's square: those
+    through y < z miss every triangle and walk the whole chain."""
+    g = torch.Generator().manual_seed(seed)
+    yz = torch.rand(n, 2, generator=g) * 1.8 - 0.9
+    o = torch.stack([torch.full((n,), -1.0), yz[:, 0], yz[:, 1]], 1)
+    d = torch.nn.functional.normalize(
+        torch.tensor([1.0, 0.0, 0.0]) + 1e-3 * torch.randn(n, 3, generator=g))
+    return o, d
+
+
+@pytest.mark.parametrize("depth", (64, 4))
+def test_records_walk_past_the_stack(depth):
+    """``chain_pool(100)``: 102 levels (``depth`` caps at 64), walks
+    that defer 100 leaves.  The records walk equals ``trace_rays_ref``
+    on lanes that overflow a 64-entry stack, inactive lanes included."""
+    ta = t2.chain_pool(100)
+    wt = ta.walk_tables()
+    assert wt.depth == t2.STACK_MAX and ta.walk_tables() is wt
+    o, d = _chain_rays(300, 1)
+    live = torch.arange(300) % 5 != 2
+    want, want_p = t2.trace_rays_ref(ta, o, d, stack_depth=depth,
+                                     active=live)
+    got, got_p = t2.trace_records_ref(wt, o, d, stack_depth=depth,
+                                      active=live)
+    for a, b, k in zip((*got, *got_p), (*want, *want_p),
+                       t2.Hits._fields + t2.PerfCounters._fields):
+        _same(a, b, k)
+    miss = live & (o[:, 1] < o[:, 2] - 0.01)
+    assert int((want_p.nodes_visited[miss] == 202).sum()) > 100
+    assert int((want.dist < LARGE_FLOAT).sum()) > 50

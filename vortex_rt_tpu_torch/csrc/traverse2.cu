@@ -19,20 +19,36 @@
 // stack[min(sp, D-1)] while sp keeps counting, a pop reads
 // stack[min(max(sp-1, 0), D-1)] (the JAX gather clamps its index).
 //
-// Design.  One thread walks one ray to its end; its stack (stack_depth <=
-// 64 ints) lives in local memory, the rest of its state in registers.  The
-// tables are read as the JAX arrays are laid out (boxes (P, 3), kind, left
-// and count (P,), vertices (V, 3), inverse transforms (I, 4, 4)), a few
-// scalar loads a step.  The JAX loop steps every lane under one global
-// `max_steps`, and a lane that is done is frozen; one thread walking its
-// ray under a cap of its own is the same walk, so the per-ray
-// `nodes_visited` and `tri_tests` equal the JAX lane's.  A ray whose
-// `active` flag is 0 takes no step and keeps the initial record.
-//
 // What bounds it on this card: the latency of dependent loads (a step's
-// node comes from the last step's loads) and divergence (a warp runs until
-// its longest ray ends).  This first version is simple and right, not
-// fast; no library call computes a stack walk.
+// node comes from the last step's loads; ~200 ns a round in L2) and
+// divergence (a warp runs until its longest ray ends).  The design:
+// - one record read a step.  The tables are packed once per scene
+//   (ops/traverse2.py, pack_walk_tables): a 64-B record a pool node,
+//   64-B aligned, holding its kind, left (clamped as the walk clamps it)
+//   and count, and at an internal node both children's boxes, at an
+//   instance node its 3x4 inverse transform and BLAS root.  The next
+//   node's four 16-B vectors are requested together at the end of a step,
+//   so an internal or instance step waits for one round of loads, not for
+//   the kind and then the boxes or the instance;
+// - a leaf slot's record (48 B: v0, e1 = v1 - v0, e2 = v2 - v0, the
+//   clamped triangle id) sits in slot order: a leaf reads contiguous
+//   records, with no triangle-id indirection (e1 and e2 are the float32
+//   differences the walk itself takes, so the same bits);
+// - the stack lives in shared memory, entry e of thread t at
+//   [e * VRT_BLOCK + t] (no bank conflicts), min(D, the pool's levels)
+//   entries, sized at launch: a walk never holds more entries than the
+//   pool has levels, so the clamp min(sp, D-1) is the same clamp as
+//   min(sp, entries-1) (ops/traverse2.py), and the kernel keeps no
+//   local-memory stack frame;
+// - while-while: a warp steps internal nodes while any lane is at one,
+//   then leaves and instances while any lane is at one, so a warp whose
+//   lanes are split does not run every branch each step.
+// One thread walks one ray to its end under a cap of its own; the JAX loop
+// steps every lane under one global `max_steps` and freezes a lane that
+// is done, which is the same walk, so the per-ray `nodes_visited` and
+// `tri_tests` equal the JAX lane's.  A ray whose `active` flag is 0 takes
+// no step and keeps the initial record.  No library call computes a stack
+// walk.
 //
 // Numerics match the JAX body and the plain PyTorch version bit for bit:
 // every 3-term dot product as (a0*b0 + a1*b1) + a2*b2, true divisions for
@@ -51,25 +67,21 @@
 #define VRT_INT_MAX 2147483647
 #define VRT_STACK_MAX 64
 #define VRT_BLOCK 128
-#define VRT_POP (-1)
+#define VRT_STK_STRIDE VRT_BLOCK  // ints between a thread's stack entries
 
 enum { KIND_INTERNAL = 0, KIND_INSTANCE = 1, KIND_TRIS = 2 };
 
 namespace {
 
 struct WalkArgs {
-    const float* nmin; const float* nmax;   // (P, 3)
-    const int* left; const int* count; const int* kind;  // (P,)
-    const int* tri_idx;                     // (T,)
-    const float* v0; const float* v1; const float* v2;  // (V, 3)
-    const float* inst_inv;                  // (I, 4, 4)
-    const int* inst_root;                   // (I,)
+    const int4* nodes;      // (P, 16) words: 4 int4 a record
+    const float4* tris;     // (S, 12) words: 3 float4 a record
     const float* o; const float* d;         // (R, 3)
     const uint8_t* active;                  // (R,) bool or null
     float* dist; float* bx; float* by; float* bz;
     int* tri; int* inst; int* visited; int* tests;
-    int n_rays, n_pool, n_slots, n_tris, n_inst, lmax, num_tlas;
-    int stack_depth, max_steps;
+    int n_rays, n_pool, n_slots, lmax, num_tlas;
+    int stack_n, max_steps;  // stack_n = min(D, levels) entries
     float t_max;
 };
 
@@ -84,130 +96,183 @@ __device__ __forceinline__ float safe_rcp(float d) {
 }
 
 // ray_aabb of the JAX package: t_enter on a hit, VRT_LARGE on a miss
-__device__ __forceinline__ float slab(const float* nmin, const float* nmax,
-                                      int c, float ox, float oy, float oz,
+__device__ __forceinline__ float slab(float mnx, float mny, float mnz,
+                                      float mxx, float mxy, float mxz,
+                                      float ox, float oy, float oz,
                                       float ix, float iy, float iz,
                                       bool& hit) {
-    float t1x = (nmin[3 * c] - ox) * ix, t2x = (nmax[3 * c] - ox) * ix;
-    float t1y = (nmin[3 * c + 1] - oy) * iy, t2y = (nmax[3 * c + 1] - oy) * iy;
-    float t1z = (nmin[3 * c + 2] - oz) * iz, t2z = (nmax[3 * c + 2] - oz) * iz;
-    float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
-                       fminf(t1z, t2z));
-    float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                       fmaxf(t1z, t2z));
+    const float t1x = (mnx - ox) * ix, t2x = (mxx - ox) * ix;
+    const float t1y = (mny - oy) * iy, t2y = (mxy - oy) * iy;
+    const float t1z = (mnz - oz) * iz, t2z = (mxz - oz) * iz;
+    const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
+                             fminf(t1z, t2z));
+    const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
+                             fmaxf(t1z, t2z));
     hit = (tmax >= tmin) && (tmax > 0.0f);
     return hit ? tmin : VRT_LARGE;
 }
 
-__global__ void __launch_bounds__(VRT_BLOCK)
-traverse2_kernel(const WalkArgs a) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= a.n_rays) return;
-    const float ox = a.o[3 * i], oy = a.o[3 * i + 1], oz = a.o[3 * i + 2];
-    const float dx = a.d[3 * i], dy = a.d[3 * i + 1], dz = a.d[3 * i + 2];
-    const float wix = safe_rcp(dx), wiy = safe_rcp(dy), wiz = safe_rcp(dz);
-    float lox = ox, loy = oy, loz = oz, ldx = dx, ldy = dy, ldz = dz;
-    float lix = wix, liy = wiy, liz = wiz;
+// A node's record: the header (kind, left, count, BLAS root) and 12 words
+// of child boxes or instance rows, requested together.
+struct Record {
+    int4 h;
+    float4 b0, b1, b2;
+};
+
+__device__ __forceinline__ Record fetch(const WalkArgs& a, int nd) {
+    const int4* r = a.nodes + 4 * (size_t)nd;
+    Record rec;
+    rec.h = __ldg(r);
+    const int4 x = __ldg(r + 1), y = __ldg(r + 2), z = __ldg(r + 3);
+    rec.b0 = make_float4(__int_as_float(x.x), __int_as_float(x.y),
+                         __int_as_float(x.z), __int_as_float(x.w));
+    rec.b1 = make_float4(__int_as_float(y.x), __int_as_float(y.y),
+                         __int_as_float(y.z), __int_as_float(y.w));
+    rec.b2 = make_float4(__int_as_float(z.x), __int_as_float(z.y),
+                         __int_as_float(z.z), __int_as_float(z.w));
+    return rec;
+}
+
+// Walks ray i; `stk` is this thread's first stack entry in shared memory.
+__device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int* stk) {
     float best_t = a.t_max, bx = 0.0f, by = 0.0f;
     int tri = 0, best_inst = 0, inst = 0, visited = 0, tests = 0;
-    const int D = a.stack_depth;
-    int stack[VRT_STACK_MAX];
-    int sp = 0, node = 0;
-    bool live = a.active == nullptr || a.active[i] != 0;
-    while (live && visited < a.max_steps) {
-        const int nd = clampi(node, 0, a.n_pool - 1);
-        const int kind = a.kind[nd];
-        const int lft = a.left[nd];
-        int nxt = VRT_POP;
-        if (kind == KIND_INTERNAL) {
+    bool live = (a.active == nullptr || a.active[i] != 0) && a.max_steps > 0;
+    float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+    float wix = 0.0f, wiy = 0.0f, wiz = 0.0f;
+    int nd = 0, sp = 0;
+    Record rec;
+    if (live) {  // a ray that never walks needs no o, d or record
+        ox = a.o[3 * i]; oy = a.o[3 * i + 1]; oz = a.o[3 * i + 2];
+        dx = a.d[3 * i]; dy = a.d[3 * i + 1]; dz = a.d[3 * i + 2];
+        wix = safe_rcp(dx); wiy = safe_rcp(dy); wiz = safe_rcp(dz);
+        rec = fetch(a, 0);
+    }
+    float lox = ox, loy = oy, loz = oz, ldx = dx, ldy = dy, ldz = dz;
+    float lix = wix, liy = wiy, liz = wiz;
+    const int top = a.stack_n - 1;
+
+    while (live) {
+        // ---- while-while: internal steps while any lane is at an
+        // internal node, then leaf and instance steps
+        while (live && rec.h.x == KIND_INTERNAL) {
             const bool tlas = nd < a.num_tlas;
             const float rx = tlas ? ox : lox, ry = tlas ? oy : loy,
                         rz = tlas ? oz : loz;
             const float ix = tlas ? wix : lix, iy = tlas ? wiy : liy,
                         iz = tlas ? wiz : liz;
-            const int l = clampi(lft, 0, a.n_pool - 2), r = l + 1;
+            const int l = rec.h.y, r = l + 1;  // clamped by the packer
             bool hl, hr;
-            const float tl = slab(a.nmin, a.nmax, l, rx, ry, rz, ix, iy, iz, hl);
-            const float tr = slab(a.nmin, a.nmax, r, rx, ry, rz, ix, iy, iz, hr);
+            const float tl = slab(rec.b0.x, rec.b0.y, rec.b0.z, rec.b0.w,
+                                  rec.b1.x, rec.b1.y, rx, ry, rz, ix, iy, iz,
+                                  hl);
+            const float tr = slab(rec.b1.z, rec.b1.w, rec.b2.x, rec.b2.y,
+                                  rec.b2.z, rec.b2.w, rx, ry, rz, ix, iy, iz,
+                                  hr);
             hl = hl && (tl <= best_t);
             hr = hr && (tr <= best_t);
             const bool l_first = tl <= tr;
+            int nxt;
             if (hl && hr) {
                 nxt = l_first ? l : r;
-                stack[sp < D - 1 ? sp : D - 1] = l_first ? r : l;
+                stk[min(sp, top) * VRT_STK_STRIDE] = l_first ? r : l;
                 ++sp;
             } else if (hl) {
                 nxt = l;
             } else if (hr) {
                 nxt = r;
+            } else if (sp > 0) {
+                --sp;
+                nxt = stk[min(sp, top) * VRT_STK_STRIDE];
+            } else {
+                nxt = 0;
+                live = false;
             }
-        } else if (kind == KIND_INSTANCE) {
-            const int iid = clampi(lft, 0, a.n_inst - 1);
-            const float* m = a.inst_inv + 16 * iid;
-            lox = (m[0] * ox + m[1] * oy) + m[2] * oz + m[3];
-            loy = (m[4] * ox + m[5] * oy) + m[6] * oz + m[7];
-            loz = (m[8] * ox + m[9] * oy) + m[10] * oz + m[11];
-            ldx = (m[0] * dx + m[1] * dy) + m[2] * dz;
-            ldy = (m[4] * dx + m[5] * dy) + m[6] * dz;
-            ldz = (m[8] * dx + m[9] * dy) + m[10] * dz;
-            lix = safe_rcp(ldx); liy = safe_rcp(ldy); liz = safe_rcp(ldz);
-            inst = iid;
-            nxt = a.inst_root[iid];
-        } else if (kind == KIND_TRIS) {
-            const int cnt = a.count[nd];
-            const int n = cnt < a.lmax ? cnt : a.lmax;
-            float t_min = VRT_LARGE, w1_sel = 0.0f, w2_sel = 0.0f;
-            int tid_sel = VRT_INT_MAX;
-            for (int j = 0; j < n; ++j) {
-                const int slot = clampi(lft + j, 0, a.n_slots - 1);
-                const int tid = clampi(a.tri_idx[slot], 0, a.n_tris - 1);
-                const float* p0 = a.v0 + 3 * tid;
-                const float* p1 = a.v1 + 3 * tid;
-                const float* p2 = a.v2 + 3 * tid;
-                const float e1x = p1[0] - p0[0], e1y = p1[1] - p0[1],
-                            e1z = p1[2] - p0[2];
-                const float e2x = p2[0] - p0[0], e2y = p2[1] - p0[1],
-                            e2z = p2[2] - p0[2];
-                const float hx = ldy * e2z - ldz * e2y;
-                const float hy = ldz * e2x - ldx * e2z;
-                const float hz = ldx * e2y - ldy * e2x;
-                const float av = (e1x * hx + e1y * hy) + e1z * hz;
-                const bool small = fabsf(av) < VRT_EPS;
-                const float f = 1.0f / (small ? 1.0f : av);
-                const float sx = lox - p0[0], sy = loy - p0[1],
-                            sz = loz - p0[2];
-                const float w1 = f * ((sx * hx + sy * hy) + sz * hz);
-                const float qx = sy * e1z - sz * e1y;
-                const float qy = sz * e1x - sx * e1z;
-                const float qz = sx * e1y - sy * e1x;
-                const float w2 = f * ((ldx * qx + ldy * qy) + ldz * qz);
-                float t = f * ((e2x * qx + e2y * qy) + e2z * qz);
-                const bool ok = !small && w1 >= 0.0f && w1 <= 1.0f
-                                && w2 >= 0.0f && w1 + w2 <= 1.0f
-                                && t > VRT_EPS;
-                t = ok ? t : VRT_LARGE;
-                // the smallest t, then the smallest triangle id
-                if (t < t_min || (t == t_min && tid < tid_sel)) {
-                    t_min = t; tid_sel = tid; w1_sel = w1; w2_sel = w2;
+            ++visited;
+            if (visited >= a.max_steps) live = false;
+            if (live) {
+                nd = clampi(nxt, 0, a.n_pool - 1);
+                rec = fetch(a, nd);
+            }
+        }
+        while (live && rec.h.x != KIND_INTERNAL) {
+            bool jump = false;
+            int nxt = 0;
+            if (rec.h.x == KIND_INSTANCE) {
+                // rows 0-2 of the inverse transform, in the record
+                const float4 m0 = rec.b0, m1 = rec.b1, m2 = rec.b2;
+                lox = (m0.x * ox + m0.y * oy) + m0.z * oz + m0.w;
+                loy = (m1.x * ox + m1.y * oy) + m1.z * oz + m1.w;
+                loz = (m2.x * ox + m2.y * oy) + m2.z * oz + m2.w;
+                ldx = (m0.x * dx + m0.y * dy) + m0.z * dz;
+                ldy = (m1.x * dx + m1.y * dy) + m1.z * dz;
+                ldz = (m2.x * dx + m2.y * dy) + m2.z * dz;
+                lix = safe_rcp(ldx); liy = safe_rcp(ldy); liz = safe_rcp(ldz);
+                inst = rec.h.y;  // clamped by the packer
+                nxt = rec.h.w;
+                jump = true;
+            } else if (rec.h.x == KIND_TRIS) {
+                const int cnt = rec.h.z;
+                const int n = cnt < a.lmax ? cnt : a.lmax;
+                float t_min = VRT_LARGE, w1_sel = 0.0f, w2_sel = 0.0f;
+                int tid_sel = VRT_INT_MAX;
+                for (int j = 0; j < n; ++j) {
+                    const float4* sr =
+                        a.tris + 3 * (size_t)clampi(rec.h.y + j, 0,
+                                                    a.n_slots - 1);
+                    const float4 p = __ldg(sr), q = __ldg(sr + 1),
+                                 s = __ldg(sr + 2);
+                    const float v0x = p.x, v0y = p.y, v0z = p.z;
+                    const float e1x = p.w, e1y = q.x, e1z = q.y;
+                    const float e2x = q.z, e2y = q.w, e2z = s.x;
+                    const int tid = __float_as_int(s.y);
+                    const float hx = ldy * e2z - ldz * e2y;
+                    const float hy = ldz * e2x - ldx * e2z;
+                    const float hz = ldx * e2y - ldy * e2x;
+                    const float av = (e1x * hx + e1y * hy) + e1z * hz;
+                    const bool small = fabsf(av) < VRT_EPS;
+                    const float f = 1.0f / (small ? 1.0f : av);
+                    const float sx = lox - v0x, sy = loy - v0y, sz = loz - v0z;
+                    const float w1 = f * ((sx * hx + sy * hy) + sz * hz);
+                    const float qx = sy * e1z - sz * e1y;
+                    const float qy = sz * e1x - sx * e1z;
+                    const float qz = sx * e1y - sy * e1x;
+                    const float w2 = f * ((ldx * qx + ldy * qy) + ldz * qz);
+                    float t = f * ((e2x * qx + e2y * qy) + e2z * qz);
+                    const bool ok = !small && w1 >= 0.0f && w1 <= 1.0f
+                                    && w2 >= 0.0f && w1 + w2 <= 1.0f
+                                    && t > VRT_EPS;
+                    t = ok ? t : VRT_LARGE;
+                    // the smallest t, then the smallest triangle id
+                    if (t < t_min || (t == t_min && tid < tid_sel)) {
+                        t_min = t; tid_sel = tid; w1_sel = w1; w2_sel = w2;
+                    }
+                }
+                const bool closer = t_min < best_t;
+                const bool tie = t_min == best_t && t_min < VRT_LARGE
+                                 && (inst < best_inst
+                                     || (inst == best_inst && tid_sel < tri));
+                if (closer || tie) {
+                    best_t = t_min; bx = w1_sel; by = w2_sel;
+                    tri = tid_sel; best_inst = inst;
+                }
+                tests += cnt;
+            }
+            ++visited;
+            if (!jump) {  // a leaf (or an unknown kind) pops
+                if (sp > 0) {
+                    --sp;
+                    nxt = stk[min(sp, top) * VRT_STK_STRIDE];
+                } else {
+                    live = false;
                 }
             }
-            const bool closer = t_min < best_t;
-            const bool tie = t_min == best_t && t_min < VRT_LARGE
-                             && (inst < best_inst
-                                 || (inst == best_inst && tid_sel < tri));
-            if (closer || tie) {
-                best_t = t_min; bx = w1_sel; by = w2_sel;
-                tri = tid_sel; best_inst = inst;
+            if (visited >= a.max_steps) live = false;
+            if (live) {
+                nd = clampi(nxt, 0, a.n_pool - 1);
+                rec = fetch(a, nd);
             }
-            tests += cnt;
         }
-        ++visited;
-        if (nxt == VRT_POP) {
-            if (sp <= 0) break;
-            --sp;
-            nxt = stack[sp < D - 1 ? sp : D - 1];
-        }
-        node = nxt;
     }
     a.dist[i] = best_t; a.bx[i] = bx; a.by[i] = by;
     a.bz[i] = (1.0f - bx) - by;
@@ -215,45 +280,51 @@ traverse2_kernel(const WalkArgs a) {
     a.visited[i] = visited; a.tests[i] = tests;
 }
 
+__global__ void __launch_bounds__(VRT_BLOCK)
+traverse2_kernel(const __grid_constant__ WalkArgs a) {
+    // the stack: entry e of thread t at stack_smem[e * VRT_STK_STRIDE + t]
+    extern __shared__ int stack_smem[];
+    const int i = blockIdx.x * VRT_BLOCK + threadIdx.x;
+    if (i < a.n_rays) walk_ray(a, i, stack_smem + threadIdx.x);
+}
+
 }  // namespace
+
+extern "C" int vrt_traverse2_stack_max(void) { return VRT_STACK_MAX; }
 
 extern "C" const char* vrt_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }
 
 // Launches the walk on `stream` and returns the first CUDA error (0 = ok).
+// `nodes` (n_pool, 16) and `tris` (n_slots, 12) are the packed records;
 // `out` is a host array of the 8 output pointers (dist, bx, by, bz, tri,
 // inst, nodes_visited, tri_tests), each (R,); the caller allocates them.
+// `stack_depth` is the JAX stack's D, `stack_n` the entries the kernel
+// keeps: min(D, the pool's levels).
 extern "C" int vrt_traverse2(
-        const void* nmin, const void* nmax, const void* left,
-        const void* count, const void* kind, const void* tri_idx,
-        const void* v0, const void* v1, const void* v2,
-        const void* inst_inv, const void* inst_root,
-        const void* o, const void* d, const void* active,
-        void* const* out, int n_rays, int n_pool, int n_slots, int n_tris,
-        int n_inst, int lmax, int num_tlas, int stack_depth, int max_steps,
-        float t_max, void* stream) {
+        const void* nodes, const void* tris, const void* o, const void* d,
+        const void* active, void* const* out, int n_rays, int n_pool,
+        int n_slots, int lmax, int num_tlas, int stack_depth, int stack_n,
+        int max_steps, float t_max, void* stream) {
     if (n_rays <= 0) return 0;
-    if (n_pool < 2 || n_slots < 1 || n_tris < 1 || n_inst < 1 || lmax < 1
-            || stack_depth < 1 || stack_depth > VRT_STACK_MAX) {
+    if (n_pool < 2 || n_slots < 1 || lmax < 1 || stack_depth < 1
+            || stack_depth > VRT_STACK_MAX || stack_n < 1
+            || stack_n > stack_depth) {
         return (int)cudaErrorInvalidValue;
     }
     WalkArgs a;
-    a.nmin = (const float*)nmin; a.nmax = (const float*)nmax;
-    a.left = (const int*)left; a.count = (const int*)count;
-    a.kind = (const int*)kind; a.tri_idx = (const int*)tri_idx;
-    a.v0 = (const float*)v0; a.v1 = (const float*)v1; a.v2 = (const float*)v2;
-    a.inst_inv = (const float*)inst_inv; a.inst_root = (const int*)inst_root;
+    a.nodes = (const int4*)nodes; a.tris = (const float4*)tris;
     a.o = (const float*)o; a.d = (const float*)d;
     a.active = (const uint8_t*)active;
     a.dist = (float*)out[0]; a.bx = (float*)out[1]; a.by = (float*)out[2];
     a.bz = (float*)out[3]; a.tri = (int*)out[4]; a.inst = (int*)out[5];
     a.visited = (int*)out[6]; a.tests = (int*)out[7];
     a.n_rays = n_rays; a.n_pool = n_pool; a.n_slots = n_slots;
-    a.n_tris = n_tris; a.n_inst = n_inst; a.lmax = lmax;
-    a.num_tlas = num_tlas; a.stack_depth = stack_depth;
+    a.lmax = lmax; a.num_tlas = num_tlas; a.stack_n = stack_n;
     a.max_steps = max_steps; a.t_max = t_max;
     const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
-    traverse2_kernel<<<grid, VRT_BLOCK, 0, (cudaStream_t)stream>>>(a);
+    const size_t smem = (size_t)stack_n * sizeof(int) * VRT_BLOCK;
+    traverse2_kernel<<<grid, VRT_BLOCK, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

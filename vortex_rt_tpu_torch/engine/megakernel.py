@@ -4,7 +4,8 @@ ray batch, wave after wave.  The simplest correct device renderer, and the
 baseline the JAX package measured its wavefront engine against.
 
 Each wave is one walk of the binary TLAS+BLAS pool (``ops/traverse2.py``:
-K6 on the card, ``csrc/traverse2.cu``) and the closest-hit shader body in
+K6 on the card, ``csrc/traverse2.cu``, over records packed once when the
+renderer is made) and the closest-hit shader body in
 torch ops (``ops/shade.py``).  The JAX wave traces every lane and masks
 the dead ones out of the image; here the live mask goes to the walk, so a
 dead lane takes no step, and the images and ray counts stay the JAX
@@ -174,9 +175,11 @@ class MegakernelRenderer:
     def from_buffers(sb_host: SceneBuffers, config: Optional[RTConfig] = None,
                      device="cuda") -> "MegakernelRenderer":
         cfg = config or RTConfig()
+        ta = TraversalArrays.from_scene(sb_host).to(device)
+        if ta.device.type == "cuda":
+            ta.walk_tables()  # K6's records, packed once with the scene
         return MegakernelRenderer(
-            st=SceneTensors.from_scene(sb_host, device),
-            ta=TraversalArrays.from_scene(sb_host).to(device), config=cfg)
+            st=SceneTensors.from_scene(sb_host, device), ta=ta, config=cfg)
 
     def frame(self, cam: Camera, params: RenderParams, width: int,
               height: int, seed: int = 0):

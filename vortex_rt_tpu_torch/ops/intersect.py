@@ -1,7 +1,8 @@
 """Intersection primitives as plain torch functions (port of
 ``vortex_rt_tpu/ops/intersect.py``).
 
-* :func:`moller_trumbore` — EPSILON = 1e-6, reject |a| < eps, w1 in
+* :func:`moller_trumbore` (``moller_trumbore_edges`` from a corner and
+  two edges) — EPSILON = 1e-6, reject |a| < eps, w1 in
   [0, 1], w2 >= 0, w1 + w2 <= 1, t > eps; barycentrics bx = w1, by = w2,
   bz = 1 - w1 - w2;
 * :func:`ray_aabb` — the slab test: returns t_enter, hit iff t_exit >=
@@ -41,8 +42,13 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def moller_trumbore(o, d, v0, v1, v2, eps: float = MT_EPSILON):
     """Batched Moller-Trumbore.  Returns (t, w1, w2); t = LARGE_FLOAT on
     a miss."""
-    e1 = v1 - v0
-    e2 = v2 - v0
+    return moller_trumbore_edges(o, d, v0, v1 - v0, v2 - v0, eps)
+
+
+def moller_trumbore_edges(o, d, v0, e1, e2, eps: float = MT_EPSILON):
+    """``moller_trumbore`` of the triangle with corner ``v0`` and edges
+    ``e1 = v1 - v0``, ``e2 = v2 - v0`` (float32 differences, as K6's
+    triangle records store them)."""
     h = cross(d, e2)
     a = dot(e1, h)
     small = a.abs() < eps

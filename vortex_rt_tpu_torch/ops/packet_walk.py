@@ -3,15 +3,19 @@ and its plain PyTorch version (port of
 ``vortex_rt_tpu/ops/pallas/packet_walk.py``).
 
 ``trace_packets_walk`` is what the frame calls.  For CUDA tensors it
-launches ``csrc/packet_walk.cu`` (one thread per ray) or raises; for CPU
+launches ``csrc/packet_walk.cu`` (K2: one thread per ray, K1's design at
+width 4; ``stack_entries`` packed deferred-children entries a ray, at
+most ``STACK_MAX``) or raises; for CPU
 tensors it runs ``trace_packets_walk_ref``, the plain PyTorch version of
 the same per-ray walk.  There is no fallback between the two.
 ``kernel_call`` is the bare launch, for timing it; ``walk_work_4`` counts
 what a walk computes, for its bound.
 
 Semantics (shared with the JAX package's ``trace_packets_pallas``):
-``active`` masks dead rays (they report a miss), ``t_max`` clamps the
-search interval, and ``occlusion=True`` retires a ray at its first hit
+``active`` masks dead rays (they report a miss), ``t_max`` (at most
+LARGE_FLOAT: past it the plain version folds a missed candidate into the
+record, which no kernel does) clamps the search interval, and
+``occlusion=True`` retires a ray at its first hit
 inside the clamp: occluded rays return dist 0.0, the others LARGE_FLOAT.
 ``alpha_ref=thr`` (the tables of ``WideArrays.with_alpha``) rejects every
 candidate whose surface alpha is below ``thr`` before it counts, as the
@@ -40,9 +44,10 @@ from vortex_rt_tpu_torch.runtime import kernels
 from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT, MT_EPSILON
 
 MAX_STEPS = 400_000
-# stack entries the kernel holds (VRT_STACK_MAX of csrc/packet_walk.cu; the
-# library reports it and kernel_call refuses a deeper tree)
-STACK_MAX = 128
+# packed stack entries the kernel holds (VRT_STACK_MAX of
+# csrc/packet_walk.cu: 48 KB a block; the library reports it and
+# kernel_call refuses a deeper tree)
+STACK_MAX = 48
 _INT_MAX = 2**31 - 1
 # the child sorting network of the TPU kernel (packet_walk.py:148)
 _SORT_NET = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))
@@ -145,8 +150,20 @@ def check_alpha(wa: WideArrays) -> None:
 
 
 def stack_entries(wa: WideArrays) -> int:
-    """Stack entries a walk over ``wa`` needs (<= 3 pushes per level)."""
-    return 3 * (int(wa.depth) + 2) + 8
+    """Stack entries the kernel's walk over ``wa`` needs: one packed
+    deferred-children entry per descended level, so depth + 4 cannot
+    overflow (``depth`` counts the TLAS and BLAS levels of a path)."""
+    return int(wa.depth) + 4
+
+
+def check_stack(wa: WideArrays) -> int:
+    """The kernel's stack entries for ``wa``; raises when they pass its
+    cap, ``STACK_MAX`` (ROADMAP H8: a clamped push would lose hits)."""
+    n = stack_entries(wa)
+    if n > STACK_MAX:
+        raise ValueError(f"BVH depth {wa.depth} needs {n} stack entries; "
+                         f"the kernel is compiled for {STACK_MAX}")
+    return n
 
 
 def _limit(n: int, device, active, t_max) -> torch.Tensor:
@@ -232,14 +249,14 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     _check(wa, o, d, active, t_max)
     if alpha_ref is not None:
         check_alpha(wa)
+    stack_n = check_stack(wa)
     if o.device.type != "cuda":
         raise ValueError(f"no CUDA walk for device {o.device}")
     lib = kernels.load("packet_walk")
-    stack_n = stack_entries(wa)
     cap = int(lib.lib.vrt_packet_walk_stack_max())
-    if stack_n > cap:
-        raise ValueError(f"BVH depth {wa.depth} needs {stack_n} stack "
-                         f"entries; the kernel is compiled for {cap}")
+    if cap != STACK_MAX:
+        raise RuntimeError(f"the kernel holds {cap} stack entries, "
+                           f"ops/packet_walk.py says {STACK_MAX}")
     r = o.shape[0]
     if r >= 2**31:
         raise ValueError("ray count exceeds the kernel's int32 index")
@@ -343,7 +360,8 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
     rows_i = rows.view(torch.int32)
     n_nodes, n_rows = nodes.shape[0], rows.shape[0]
     lmax = max(int(wa.max_leaf_tris), 1)
-    stack_n = stack_entries(wa)
+    # up to 3 separate pushes a level (the kernel packs them in one entry)
+    stack_n = 3 * (int(wa.depth) + 2) + 8
     eps = MT_EPSILON
 
     def f32(v):

@@ -70,7 +70,8 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     },
     # K6, the binary TLAS+BLAS walk of the megakernel (ops/traverse2.py)
     "traverse2": {
-        "vrt_traverse2": ([_P] * 15 + [_I] * 9 + [_F, _P], _I),
+        "vrt_traverse2": ([_P] * 6 + [_I] * 8 + [_F, _P], _I),
+        "vrt_traverse2_stack_max": ([], _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
     "hbm_walk": {

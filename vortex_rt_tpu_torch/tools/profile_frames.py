@@ -58,7 +58,7 @@ TOP = 12  # kernels listed, by device time
 WATCHED = ("traverse_packet_kernel", "refit_tile_kernel",
            "pack_nodes_kernel", "pack_leaves_kernel", "traverse_wide_kernel",
            "traverse2_kernel")
-PROFILE_TRIES = 3  # sessions kernel_events tries before it gives up
+PROFILE_TRIES = 5  # sessions kernel_events tries before it gives up
 
 
 class MegakernelFrames:
@@ -156,14 +156,16 @@ def kernel_events(run: Callable[[], object]) -> list:
     """``run()`` under ``torch.profiler`` with CUDA activity -> the
     ``key_averages()`` entries on the CUDA device that have device time,
     longest first.  A profiler session now and then records no device
-    activity at all after many sessions in one process; ``run()`` is then
-    profiled again, up to ``PROFILE_TRIES`` times in all.  Raises when none
-    recorded any."""
+    activity at all after many sessions in one process (three in a row
+    once, in chip_smoke's phase 11c); ``run()`` is then profiled again
+    after a pause of a second a try, up to ``PROFILE_TRIES`` times in
+    all.  Raises when none recorded any."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    for _ in range(PROFILE_TRIES):
+    for attempt in range(PROFILE_TRIES):
+        time.sleep(attempt)
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
             run()

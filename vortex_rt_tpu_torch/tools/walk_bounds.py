@@ -180,6 +180,19 @@ def k6_bound(work) -> Bound:
                  + r * (1 + K6_OUT_BYTES) + int(work.row_bytes.sum()))
 
 
+def k6_record_bytes(work, n_pool: int, n_slots: int) -> int:
+    """The bytes K6's packed records (``ops/traverse2.pack_walk_tables``)
+    make a walk fetch, from the same ``rays_work``: each visited node's
+    64-B record and each tested slot's 48-B record once, a walking ray's
+    o and d, every ray's flag and record."""
+    rows = work.row_bytes
+    r = int(work.internal.numel())
+    walking = int(((work.internal + work.leaf + work.instance) > 0).sum())
+    return int(64 * (rows[:n_pool] > 0).sum()
+               + 48 * (rows[2 * n_pool:2 * n_pool + n_slots] > 0).sum()
+               + walking * WORLD_RAY_BYTES + r * (1 + K6_OUT_BYTES))
+
+
 def sah_bounds(l: int, levels: int) -> dict:
     """Bounds of the sweep-SAH tree over ``l`` leaf boxes in ``levels``
     levels: the whole tree (``lbvh_sah``) and each kernel's reads and

@@ -1,0 +1,425 @@
+"""Time K6 (the megakernel's binary TLAS+BLAS walk) and K2 (the 4-wide
+walk) on the card, for the copy of the port at ``--root`` (this checkout
+by default, or another tree of it, to compare the two in turns: run the
+tool once per tree, alternating, in one call).
+
+Waves, each captured from a real frame of that tree's renderer:
+
+- K6: MK-A's primary wave and its first bounce wave (config 2's scene in
+  the TLAS layout, sphere at reflectivity 0.6, 512x512, spp 4, depth 3;
+  the first sample pass, the bounce wave with its live mask) and MK-B's
+  primary wave (``atrium()``'s TLAS over 29 BLASes, 1920x1080); and K6's
+  device time in MK-A's whole frame of 12 launches (the profiler);
+- K2: config 2's 4-wide 512x512 primary wave (flattened, ``bvh_width=4``),
+  its frame's 8 waves (each timed, and summed; and K2's time in whole
+  frames by the profiler); ladder row 6's primary wave on
+  the textured atrium's 4-wide TLAS build in alpha mode (512x512); and
+  the atrium's 4-wide TLAS build (MK-B's scene) at 1920x1080, 2,073,600
+  rays;
+- K1, unchanged, for the spread: config 2's 8-wide primary wave.
+
+Each wave is timed by the profiler's kernel time (mean of ``--reps``
+launches of the bare ``kernel_call`` after a warm-up; CUDA events around
+them beside, which a launch shorter than its host call does not time),
+beside its bound (``tools/walk_bounds``:
+``k6_bound`` from ``rays_work``, ``k2_bound`` / ``k1_bound`` from the
+plain walk's work) and, where the tree packs K6's records, the bytes
+those records make the walk fetch (each visited node's 64-B record and
+each tested slot's 48-B record once, and the rays in and out).  Each
+wave's outputs (hits, steps, counters) are hashed, so two trees' runs
+show whether they gave the same records.  Prints each kernel's ptxas line
+(registers, stack frame, spills), MK-B's peak device memory (the
+renderer made and one frame) and, last, one JSON line with the card's
+name and power limit.
+
+``--variants`` (this tree only) also builds copies of ``traverse2.cu`` and
+``packet_walk.cu`` with one design piece changed each (``VARIANTS``: K6
+with its registers bounded for 8 or 7 blocks an SM, its stack in local
+memory, the boxes' loads made to wait for the header, one loop over all
+kinds instead of while-while, or one of its two loops a single step an
+iteration; K2 with int -> float byte decoding, its stack in local
+memory, while-while instead of its one loop, or either of its steps
+repeated while any lane is at such a node), holds each to the kernel's
+outputs (the hashes) and times it beside the kernel in turns on the same
+waves, and on the sum of config 2's 8 waves.
+
+    python vortex_rt_tpu_torch/tools/walk_timing.py [--root DIR]
+        [--reps 20] [--frames 4] [--variants] [--out FILE]
+
+(run as a file, so that the package imported is the one at ``--root``).
+Needs the card; the kernels build under ``DIR/build/torch_kernels/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+EYE2 = ([0.05, 0.02, -3.2], [0.0, -0.05, 0.0], [0, 1, 0], 45.0, 1.0)
+LIGHT2 = (0.0, 0.8, -0.5)
+HD = (1920, 1080)
+KERNEL = {"traverse2": "traverse2_kernel", "packet_walk": "packet_walk_kernel",
+          "traverse_packet": "traverse_packet_kernel"}
+_ONE_LOOP_K6 = [("while (live && rec.h.x == KIND_INTERNAL) {",
+                 "if (live && rec.h.x == KIND_INTERNAL) {"),
+                ("while (live && rec.h.x != KIND_INTERNAL) {",
+                 "if (live && rec.h.x != KIND_INTERNAL) {")]
+# K2 steps an internal node, then a leaf or instance node, an iteration
+_WHILE_K2 = [("if ((w3.z >> 29) == 0u) {",
+              "while (alive && (w3.z >> 29) == 0u) {"),
+             ("if (alive && (w3.z >> 29) != 0u) {",
+              "while (alive && (w3.z >> 29) != 0u) {")]
+
+
+def _local_stack(ty: str):
+    return [("#define VRT_STK_STRIDE VRT_BLOCK", "#define VRT_STK_STRIDE 1"),
+            (f"extern __shared__ {ty} stack_smem[];",
+             f"{ty} stack_smem[VRT_STACK_MAX];"),
+            ("stack_smem + threadIdx.x", "stack_smem")]
+
+
+# copies with one design piece taken back: (library, [(text, new text)])
+VARIANTS = {
+    "k6_regs64": ("traverse2", [(
+        "__launch_bounds__(VRT_BLOCK)\ntraverse2_kernel",
+        "__launch_bounds__(VRT_BLOCK, 8)\ntraverse2_kernel")]),
+    "k6_regs72": ("traverse2", [(
+        "__launch_bounds__(VRT_BLOCK)\ntraverse2_kernel",
+        "__launch_bounds__(VRT_BLOCK, 7)\ntraverse2_kernel")]),
+    "k6_local_stack": ("traverse2", _local_stack("int")),
+    # the boxes' addresses depend on the header's kind (>= 0): two rounds
+    "k6_two_rounds": ("traverse2", [(
+        "const int4 x = __ldg(r + 1), y = __ldg(r + 2), z = __ldg(r + 3);",
+        "const int4* rb = r + (rec.h.x >> 31);\n"
+        "    const int4 x = __ldg(rb + 1), y = __ldg(rb + 2), "
+        "z = __ldg(rb + 3);")]),
+    "k6_one_loop": ("traverse2", _ONE_LOOP_K6),
+    "k6_leaf_if": ("traverse2", _ONE_LOOP_K6[1:]),
+    "k6_internal_if": ("traverse2", _ONE_LOOP_K6[:1]),
+    "k2_i2f": ("packet_walk", [(
+        "return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7650u | k))\n"
+        "        - 8388608.0f;",
+        "return (float)(int)((w >> (8 * k)) & 255u);")]),
+    "k2_local_stack": ("packet_walk", _local_stack("int2")),
+    "k2_while_while": ("packet_walk", _WHILE_K2),
+    "k2_internal_while": ("packet_walk", _WHILE_K2[:1]),
+    "k2_leaf_while": ("packet_walk", _WHILE_K2[1:]),
+}
+
+
+def _events_ms(torch, fn, reps: int) -> float:
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _variant_libs(kernels) -> dict:
+    """Build ``VARIANTS`` from this tree's sources under
+    ``build/walk_variants/`` (headers copied beside): {name: library}."""
+    import shutil
+
+    out_dir = kernels.BUILD_DIR.parent / "walk_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for hdr in kernels.SRC_DIR.glob("*.cuh"):
+        shutil.copy(hdr, out_dir / hdr.name)
+    libs = {}
+    for name, (lib, edits) in VARIANTS.items():
+        text = (kernels.SRC_DIR / f"{lib}.cu").read_text()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: {old!r} is not in {lib}.cu once")
+            text = text.replace(old, new)
+        src = out_dir / f"{name}.cu"
+        src.write_text(text)
+        libs[name] = kernels.load_file(lib, src)
+    return libs
+
+
+def _through(kernels, name: str, lib, make):
+    """``make()`` with kernel library ``name`` taken from ``lib``: a
+    launcher made so keeps that library."""
+    saved = kernels._loaded.get(name)
+    kernels._loaded[name] = lib
+    try:
+        return make()
+    finally:
+        if saved is None:
+            kernels._loaded.pop(name)
+        else:
+            kernels._loaded[name] = saved
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _ptxas(log: str) -> str:
+    return " | ".join(ln.split("ptxas info    : ")[-1].strip()
+                      for ln in log.splitlines()
+                      if "registers" in ln or "stack frame" in ln
+                      or "spill" in ln)
+
+
+def _capture(r, cam, p, w: int, h: int):
+    """The walk calls of one frame of wavefront renderer ``r``:
+    [(o, d, kwargs)]."""
+    import torch
+
+    waves = []
+    walk = r.walk
+
+    def capture(wa, o, d, **kw):
+        waves.append((o.clone(), d.clone(), {
+            k: (v.clone() if torch.is_tensor(v) else v)
+            for k, v in kw.items()}))
+        return walk(wa, o, d, **kw)
+
+    dataclasses.replace(r, walk=capture).render(cam, p, w, h)
+    torch.cuda.synchronize()
+    return waves
+
+
+def megakernel_waves(r, cam, p, w: int, h: int):
+    """The first sample pass's waves of megakernel renderer ``r`` as
+    ``render_megakernel`` makes them: [(o, d, live mask)]."""
+    import torch
+
+    from vortex_rt_tpu_torch.engine import megakernel as mk
+    from vortex_rt_tpu_torch.utils import prng
+
+    dev = r.device
+    jitter = None
+    if p.spp > 1:
+        _, k2 = prng.split(prng.prng_key(0))
+        jitter = prng.uniform(k2, (h, w, 2), dev)
+    light = mk.LightArrays.from_params(p, dev)
+    o, d = mk.generate_camera_rays(mk.CameraArrays.from_camera(cam, dev), w,
+                                   h, jitter)
+    n = w * h
+    rad = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    thr = torch.ones(n, dtype=torch.float32, device=dev)
+    act = torch.ones(n, dtype=torch.bool, device=dev)
+    waves = []
+    for bounce in range(p.max_depth):
+        waves.append((o, d, act))
+        o, d, rad, thr, act, _ = mk.trace_wave(r.ta, r.st, light, o, d, rad,
+                                               thr, act, bounce, p.max_depth)
+    return waves
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--frames", type=int, default=4)
+    ap.add_argument("--variants", action="store_true",
+                    help="also time VARIANTS (this tree only)")
+    ap.add_argument("--out", default=None, help="write the JSON line here too")
+    args = ap.parse_args(argv)
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    import torch
+
+    from vortex_rt_tpu_torch import (
+        Camera, RenderParams, RTConfig, Scene, WavefrontRenderer,
+    )
+    from vortex_rt_tpu_torch.engine.megakernel import MegakernelRenderer
+    from vortex_rt_tpu_torch.models import bigscenes, procedural
+    from vortex_rt_tpu_torch.ops import packet_walk as pw
+    from vortex_rt_tpu_torch.ops import traverse2 as t2
+    from vortex_rt_tpu_torch.ops import traverse_packet as tp
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import bench_ladder
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
+    from vortex_rt_tpu_torch.tools.profile_frames import (
+        kernel_events, ms_by_name,
+    )
+
+    if not Path(t2.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {t2.__file__}, not the tree at {root}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip().splitlines()[0]
+    libs = kernels.load_all(["traverse2", "packet_walk", "traverse_packet"])
+    packs = hasattr(t2, "pack_walk_tables")
+    out = {"root": str(root), "card": card, "packed_k6": packs,
+           "reps": args.reps,
+           "ptxas": {n: _ptxas(lib.build_log) for n, lib in libs.items()},
+           "k6": {}, "k2": {}, "k1": {}}
+    variants = _variant_libs(kernels) if args.variants else {}
+    for n, lib in variants.items():
+        out["ptxas"][n] = _ptxas(lib.build_log)
+    for n, line in out["ptxas"].items():
+        print(f"{n}: {line}", file=sys.stderr)
+
+    def timed(lib_name, make, res_of):
+        """The kernel and each variant of library ``lib_name``: held to
+        the kernel's outputs, then timed in turns (forwards, backwards):
+        {version: {ms (profiler), events_ms, ...}}, the kernel's first
+        outputs."""
+        calls = {"kernel": make()}
+        first = calls["kernel"]()
+        want = _digest(res_of(first))
+        for n, lib in variants.items():
+            if VARIANTS[n][0] == lib_name:
+                calls[n] = _through(kernels, lib_name, lib, make)
+                got = _digest(res_of(calls[n]()))
+                if got != want:
+                    raise RuntimeError(f"{n}: outputs differ from the kernel")
+        kname = KERNEL[lib_name]
+        times = {n: dict(ms=[], events_ms=[]) for n in calls}
+        for n in list(calls) + list(reversed(list(calls))):
+            call = calls[n]
+            call()
+            torch.cuda.synchronize()
+            times[n]["ms"].append(ms_by_name(kernel_events(
+                lambda: [call() for _ in range(args.reps)]), [kname],
+                args.reps)[kname])
+            times[n]["events_ms"].append(_events_ms(torch, call, args.reps))
+        rec = {n: dict(ms=sum(t["ms"]) / 2, events_ms=sum(t["events_ms"]) / 2,
+                       turns=t["ms"]) for n, t in times.items()}
+        return rec, first
+
+    def k6_wave(label, ta, o, d, active):
+        versions, res = timed("traverse2", lambda: t2.kernel_call(
+            ta, o, d, active=active), lambda r: r)
+        work = t2.rays_work(ta, o, d, active=active)
+        b = wb.k6_bound(work)
+        rec = dict(rays=int(o.shape[0]),
+                   live=int(o.shape[0] if active is None else active.sum()),
+                   **versions.pop("kernel"), bound_ms=b.ms,
+                   bound_by=b.bound_by, bound_bytes=b.bytes,
+                   mean_steps=float(res[6].float().mean()),
+                   digest=_digest(res), variants=versions)
+        if packs:
+            rec["fetch_bytes"] = wb.k6_record_bytes(
+                work, ta.kind.shape[0], ta.tri_idx.shape[0])
+        out["k6"][label] = rec
+        print(f"K6 {label}: {rec}", file=sys.stderr)
+
+    def walk_wave(kind, label, wa, o, d, kw):
+        mod, work_fn, bound_fn = ((pw, pw.walk_work_4, wb.k2_bound)
+                                  if kind == "k2" else
+                                  (tp, tp.walk_work, wb.k1_bound))
+        versions, (hits, steps) = timed(
+            "packet_walk" if kind == "k2" else "traverse_packet",
+            lambda: mod.kernel_call(wa, o, d, **kw), lambda r: (*r[0], r[1]))
+        _, _, work = work_fn(wa, o, d, **kw)
+        b = bound_fn(work)
+        rec = dict(rays=int(o.shape[0]), **versions.pop("kernel"),
+                   bound_ms=b.ms, bound_by=b.bound_by, bound_bytes=b.bytes,
+                   mean_steps=float(steps.float().mean()),
+                   digest=_digest((*hits, steps)), variants=versions)
+        out[kind][label] = rec
+        print(f"{kind.upper()} {label}: {rec}", file=sys.stderr)
+
+    # ---- K6: MK-A and MK-B
+    sc = Scene()
+    for mesh, refl in procedural.cornell_box():
+        sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
+    sc.add_instance(sc.add_mesh(procedural.uv_sphere((0, -0.3, 0), 0.35, 24,
+                                                     48)), reflectivity=0.6)
+    sb_a = sc.build(RTConfig())
+    cam2 = Camera.look_at(*EYE2)
+    p_a = RenderParams(light_pos=LIGHT2, max_depth=3, spp=4)
+    ra = MegakernelRenderer.from_buffers(sb_a, device=dev)
+    waves = megakernel_waves(ra, cam2, p_a, 512, 512)
+    k6_wave("mk_a_primary", ra.ta, waves[0][0], waves[0][1], None)
+    k6_wave("mk_a_bounce1", ra.ta, *waves[1])
+    del waves
+    ra.frame(cam2, p_a, 512, 512)
+    torch.cuda.synchronize()
+    ev = kernel_events(lambda: [ra.frame(cam2, p_a, 512, 512)
+                                for _ in range(args.frames)])
+    out["k6"]["mk_a_frame_ms"] = ms_by_name(
+        ev, ["traverse2_kernel"], args.frames)["traverse2_kernel"]
+    out["k6"]["mk_a_frame_launches"] = sum(
+        e.count for e in ev if "traverse2_kernel" in e.key) / args.frames
+    sc = Scene()
+    for mesh, refl in bigscenes.atrium():
+        sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
+    sb_b = sc.build(RTConfig())
+    camb = Scene.framing_camera(sb_b, 45.0, HD[0] / HD[1], zoom=1.0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rb = MegakernelRenderer.from_buffers(sb_b, device=dev)
+    rb.frame(camb, RenderParams(spp=1, max_depth=2), *HD)
+    torch.cuda.synchronize()
+    out["mk_b_peak_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+    out["k6_arrays_bytes"] = rb.ta.nbytes
+    if packs:
+        out["k6_records_bytes"] = rb.ta.walk_tables().nbytes
+    o, d, _ = megakernel_waves(rb, camb, RenderParams(spp=1, max_depth=1),
+                               *HD)[0]
+    k6_wave("mk_b_primary", rb.ta, o, d, None)
+    del ra, rb, o, d
+
+    # ---- K2: config 2 4-wide, row 6 TLAS alpha, the 1080p atrium TLAS
+    sc = Scene()
+    for mesh, refl in procedural.cornell_box():
+        sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
+    sc.add_instance(sc.add_mesh(procedural.uv_sphere((0, -0.3, 0), 0.35, 24,
+                                                     48)))
+    p2 = RenderParams(light_pos=LIGHT2, max_depth=2, shadow=True, spp=2)
+    for kind, width in (("k1", 0), ("k2", 4)):  # the 4-wide one stays
+        cfg = RTConfig(flatten=True, bvh_width=width)
+        r2 = WavefrontRenderer.from_buffers(sc.build(cfg), cfg, device=dev)
+        waves = _capture(r2, cam2, p2, 512, 512)
+        walk_wave(kind, "config2_primary", r2.wa, *waves[0])
+    for k, wave in enumerate(waves[1:], 1):
+        walk_wave("k2", f"config2_wave{k}", r2.wa, *wave)
+    out["k2"]["config2_waves_ms"] = {
+        n: sum(v["ms"] if n == "kernel" else v["variants"][n]["ms"]
+               for k, v in out["k2"].items() if k.startswith("config2_w")
+               or k == "config2_primary")
+        for n in ["kernel", *out["k2"]["config2_primary"]["variants"]]}
+    del waves
+    r2.render(cam2, p2, 512, 512)
+    torch.cuda.synchronize()
+    ev = kernel_events(lambda: [r2.render(cam2, p2, 512, 512)
+                                for _ in range(args.frames)])
+    out["k2"]["config2_frame_ms"] = ms_by_name(
+        ev, ["packet_walk_kernel"], args.frames)["packet_walk_kernel"]
+    out["k2"]["config2_frame_launches"] = sum(
+        e.count for e in ev if "packet_walk_kernel" in e.key) / args.frames
+    sc6, _, cam6, p6, table = bench_ladder.setup6(dev)
+    cfg = RTConfig()
+    r6 = WavefrontRenderer.from_buffers(sc6.build(cfg), cfg, table,
+                                        device=dev)
+    o, d, kw = _capture(r6, cam6, p6, 512, 512)[0]
+    walk_wave("k2", "row6_tlas_alpha_primary", r6.wa, o, d, kw)
+    del r6, sc6
+    rh = WavefrontRenderer.from_buffers(sb_b, cfg, device=dev)
+    o, d, kw = _capture(rh, camb, RenderParams(spp=1, max_depth=1), *HD)[0]
+    walk_wave("k2", "atrium_tlas_1080p_primary", rh.wa, o, d, kw)
+    out["atrium_tlas_depth"] = int(rh.wa.depth)
+    out["atrium_tlas_stack_entries"] = pw.stack_entries(rh.wa)
+    line = json.dumps(out)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
