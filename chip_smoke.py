@@ -163,11 +163,16 @@ and so exits non-zero, on failure):
     actions, and a 96x96 crop of the textured atrium's TLAS build,
     auto-accept and three rounds of the alpha test's own actions: every
     state field (hits, pending hits, trail, stack, ``nodes_visited``,
-    ``tri_tests``) equal; then K3's first suspension round of the parity
-    frame's primary wave (73,728 lanes) timed by the profiler's kernel
-    time (CUDA events around the bare launch beside it: they read the
-    host's pace of a launch longer than the kernel) beside its plain
-    version and its bound, the relaunched state checked again;
+    ``tri_tests``) equal, through ``trace_lanes`` (a copy walked) and
+    in place on a state of its own (the pool path's rounds); then K3's
+    first suspension round of the parity frame's primary wave (73,728
+    lanes), in place as the pool path runs it, timed by the profiler's
+    kernel time with the state put back before each launch (CUDA events
+    around launches on fresh states made beforehand beside it, in its
+    place where the profiler records no launch: they read the host's
+    pace of a launch) beside its plain version, its bound (what a walking
+    lane reads and changes; the first version's every-lane figure beside)
+    and its blocks an SM, the relaunched state checked again;
 13b. K1's and K2's alpha modes against their plain versions on row 6's
     tables (512x512 camera rays, their shadow rays, and for K1 a mixed
     wave): hits and per-ray steps equal; each primary wave timed in
@@ -182,12 +187,17 @@ and so exits non-zero, on failure):
     frame traced by the plain walk (within 1e-5, equal ray counts);
 12d. the sweep-SAH tree (``build_lbvh_topo(method="sah")``) at config
     3's mesh (69,940 triangles, 8-wide, leaf 4; launch counts reset
-    before one build): build ms, levels, the real wide depth; the tree's
-    kernels against ``_sah_sweep_tree_ref`` on the same sorted leaf boxes
-    (the plain version run on the card), lchild, rchild, lo and hi word
-    for word, and K5 C's boxes over the tree and its plan against theirs;
-    the sweep timed (CUDA events) beside its bound and the
-    plain version, each of its kernels by the profiler beside its bound;
+    before one build: one ``lbvh_sah`` launch): build ms, levels, the
+    real wide depth; the tree's kernel against ``_sah_sweep_tree_ref`` on
+    the same sorted leaf boxes (the plain version run on the card),
+    lchild, rchild, lo, hi and the live positions of each level word for
+    word, and K5 C's boxes over the tree and its plan against theirs; one
+    launch (the wrapper's count) and one read to the host a sweep
+    (PyTorch's warnings on synchronising operations); the sweep timed
+    (CUDA events; its kernel by the profiler) beside its bound (a live
+    position's box each level; the first version's every-position figure
+    beside) and
+    the plain version;
     then K1 over config 3's 1080p camera rays on the host SAH, Karras,
     PLOC and sweep-SAH trees: hits equal to the bit, steps per ray;
 12e. the same at config 5's mesh (999,700 triangles), K1 on phase 11c's
@@ -232,13 +242,14 @@ and so exits non-zero, on failure):
     its config-2 wave), plain time, bound, what bounds it and the share
     of the bound;
     ``traverse_wide``'s launches the parity
-    frame's, the chunked frame's beside them, the alpha modes' the row-6
-    frames'; ``traverse_packet_alpha``
+    frame's (its suspension rounds, in place), the chunked frame's beside
+    them, the alpha modes' the row-6 frames'; ``traverse_packet_alpha``
     and ``packet_walk_alpha`` are K1's and K2's alpha instantiations, with
     their time without alpha beside; ``traverse2``'s launches MK-A's
     timed frames', its time on MK-A's primary wave; ``lbvh_sah``'s the
-    launches of one build at config 3's mesh, its time the whole
-    sweep's, each kernel's beside) and, last, the device JSON line.
+    launch of one build at config 3's mesh, its time the whole sweep's,
+    the kernel's beside, its host reads and device operations) and, last,
+    the device JSON line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -247,6 +258,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -393,24 +405,74 @@ def _device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _profiled_kernel_ms(fn, reps: int, names) -> dict:
-    """Device time per call of ``fn`` of each kernel in ``names`` (matched
-    in the kernel's name), from ``torch.profiler`` over ``reps`` calls
-    after a warm-up: the kernels alone, without the fills and library
-    calls a wrapper makes around them or the gaps between launches."""
+def _host_syncs(fn) -> int:
+    """The operations of ``fn()`` that make the host wait for the device
+    (reads to the host among them), counted by PyTorch's warnings on
+    synchronising CUDA operations."""
+    import warnings
+
     import torch
 
-    from vortex_rt_tpu_torch.tools.profile_frames import (
-        kernel_events, ms_by_name,
-    )
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _json_safe(x):
+    """``x`` with every NaN or infinite float (a reading not measured)
+    made None, so that the line is strict JSON."""
+    if isinstance(x, dict):
+        return {k: _json_safe(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_json_safe(v) for v in x]
+    if isinstance(x, float) and not math.isfinite(x):
+        return None
+    return x
+
+
+def _kernel_events(run) -> list:
+    """``profile_frames.kernel_events(run)`` for a reading beside the
+    checks: [] (not measured) where every profiler session recorded no
+    device activity, which sessions late in one process do now and then
+    (PERF.md section 7); the correctness checks never rest on it."""
+    from vortex_rt_tpu_torch.tools.profile_frames import kernel_events
+
+    try:
+        return kernel_events(run)
+    except RuntimeError as e:
+        if "recorded no device kernel time" not in str(e):
+            raise
+        print(f"  (not measured: {e})")
+        return []
+
+
+def _profiled_kernel_ms(fn, reps: int, names) -> dict:
+    """Device time per launch of each kernel in ``names`` (matched in the
+    kernel's name; each launches once a call of ``fn``), from
+    ``torch.profiler`` over ``reps`` calls after a warm-up: the kernels
+    alone, without the fills and library calls a wrapper makes around
+    them or the gaps between launches.  The mean over the launches the
+    session recorded (a late session may record part of them); NaN, not
+    measured, where it recorded none."""
+    import torch
 
     fn()
     torch.cuda.synchronize()
-    ms = ms_by_name(kernel_events(lambda: [fn() for _ in range(reps)]),
-                    names, reps)
-    _check(all(v > 0.0 for v in ms.values()),
-           f"the profiler recorded no device time for some of {names}: {ms}")
-    return ms
+    ev = _kernel_events(lambda: [fn() for _ in range(reps)])
+    out = {}
+    for name in names:
+        hit = [e for e in ev if name in e.key]
+        n = sum(e.count for e in hit)
+        out[name] = (sum(e.self_device_time_total for e in hit) / 1e3 / n
+                     if n else float("nan"))
+    return out
 
 
 def _kind(kw) -> str:
@@ -1462,7 +1524,7 @@ def phase_config5(device, checked: dict, err: dict, grid: int = 708,
 
         fresh = topo._replace(parent=topo.parent.clone())
         r = rows["lbvh_refit"]
-        r["plan_kernel_ms"] = ms_by_name(kernel_events(
+        r["plan_kernel_ms"] = ms_by_name(_kernel_events(
             lambda: lbvh._refit_boxes(fresh, v0, v1, v2)),
             ("refit_plan_kernel",), 1)["refit_plan_kernel"]
         r["plan_ms"] = _device_ms(lambda: lbvh._refit_plan(topo, tile), 5)
@@ -1702,12 +1764,10 @@ def ploc_times(label: str, v, width: int, leaf: int, radius: int, pt, live,
         if cuda:
             # its kernels alone, and the rest of the device time (the
             # prefix sums and fills around them), from the profiler
-            from vortex_rt_tpu_torch.tools.profile_frames import (
-                kernel_events, ms_by_name,
-            )
+            from vortex_rt_tpu_torch.tools.profile_frames import ms_by_name
 
             names = PLOC_KERNEL_NAMES[name]
-            kern = kernel_events(lambda: [call() for _ in range(reps)])
+            kern = _kernel_events(lambda: [call() for _ in range(reps)])
             parts = ms_by_name(kern, names, reps)
             other = [(e.key[:48], e.self_device_time_total / 1e3 / reps)
                      for e in kern if not any(n in e.key for n in names)][:3]
@@ -2081,21 +2141,26 @@ def compare_states(label: str, got, want) -> float:
 
 
 def k3_loop(label, wa, lanes, device, action_fn, rounds: int = 1000) -> int:
-    """K3 and its plain version from a fresh state through up to
-    ``rounds`` suspension rounds (``action_fn(state)`` the commit
+    """K3 through ``trace_lanes`` (a copy of the state walked, the input
+    unchanged), K3 in place on a state of its own (``walk_lanes``, the
+    pool path's rounds) and the plain version from a fresh state through
+    up to ``rounds`` suspension rounds (``action_fn(state)`` the commit
     actions), every state equal; returns the rounds run."""
     from vortex_rt_tpu_torch.ops import traverse_wide as tw
 
     st = sr = None
+    si = tw.init_state_lanes(*lanes)
     for k in range(rounds):
         _, st, _ = tw.trace_lanes(wa, *lanes, state=st, suspend=True)
+        si = tw.walk_lanes(wa, *lanes, state=si, suspend=True)
         _sync(device)
         _, sr, _ = tw.trace_lanes_ref(wa, *lanes, state=sr, suspend=True)
         compare_states(f"{label} round {k}", st, sr)
+        compare_states(f"{label} round {k}, in place", si, sr)
         if not bool(st.suspended.any()):
             return k
         act = action_fn(st)
-        st, sr = tw.commit(st, act), tw.commit(sr, act)
+        st, sr, si = tw.commit(st, act), tw.commit(sr, act), tw.commit(si, act)
     return rounds
 
 
@@ -2129,8 +2194,9 @@ def phase_k3(device, atrium6_tlas, cam6, table6, size: int = 128,
     frame's first wave beside its plain version and its bound."""
     import torch
 
-    from vortex_rt_tpu_torch import Camera, WavefrontRenderer
+    from vortex_rt_tpu_torch import Camera
     from vortex_rt_tpu_torch.ops import traverse_wide as tw
+    from vortex_rt_tpu_torch.runtime import kernels
     from vortex_rt_tpu_torch.tools import walk_bounds as wb
     from vortex_rt_tpu_torch.utils.config import COMMIT_TERM
 
@@ -2177,42 +2243,80 @@ def phase_k3(device, atrium6_tlas, cam6, table6, size: int = 128,
           f"{int(st.nodes_visited.max())}); auto-accept and 3 suspension "
           f"rounds equal the plain version's")
 
-    # timed: the first suspension round of the parity frame's primary wave
-    lanes = pool_lanes(cam6, parity, parity, 2, device)
-    call = (tw.kernel_call(wa6, *lanes, suspend=True)
-            if device.type == "cuda" else
-            lambda: tw.walk_lanes(wa6, *lanes, suspend=True))
-    st_k = call()
-    st_w, work = tw.lanes_work(wa6, *lanes, suspend=True)
-    compare_states("atrium/parity round 0", st_k, st_w)
-    b = wb.k3_bound(work)
-    # (a CPU rehearsal has no device time).  K3's time is the profiler's
-    # kernel time: the kernel (~25 us) is shorter than its launch's host
-    # work (43 state fields a side), so CUDA events around the bare launch
-    # read the host's pace; they stand beside it
+    # timed: the first suspension round of the parity frame's primary wave,
+    # in place as the pool path runs it: the profiler's kernel time with
+    # the state put back before each launch (copies it keeps apart); CUDA
+    # events around launches on fresh states made beforehand beside it
     cuda = device.type == "cuda"
-    events_ms = _device_ms(call, 10) if cuda else float("nan")
-    ms = (_profiled_kernel_ms(call, 10, ["traverse_wide"])
+    lanes = pool_lanes(cam6, parity, parity, 2, device)
+    fresh = tw.init_state_lanes(*lanes)
+    st_w, work = tw.lanes_work(wa6, *lanes, state=fresh, suspend=True)
+    reps = 10
+    states = [tw.WideState(*(a.clone() for a in fresh))
+              for _ in range(reps + 1)]
+    calls = [tw.kernel_call(wa6, *lanes, state=s, suspend=True) if cuda
+             else (lambda s=s: tw.walk_lanes(wa6, *lanes, state=s,
+                                             suspend=True))
+             for s in states]
+    st_k = calls[0]()
+    compare_states("atrium/parity round 0", st_k, st_w)
+
+    def in_place():
+        for a, f in zip(states[0], fresh):
+            a.copy_(f)
+        return calls[0]()
+
+    events_ms = float("nan")
+    if cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for c in calls[1:]:
+            c()
+        end.record()
+        end.synchronize()
+        events_ms = start.elapsed_time(end) / reps
+        for s in states[1:]:
+            compare_states("atrium/parity round 0, fresh states", s, st_w)
+    b = wb.k3_bound(work, fresh, st_w, suspend=True)
+    b_all = wb.k3_bound(work)
+    # (a CPU rehearsal has no device time).  K3's time is the profiler's
+    # kernel time: the kernel (~35 us) is not much longer than its
+    # launch's host work (43 state pointers), so CUDA events around the
+    # launches read the host's pace; they stand beside it, and in its
+    # place where the profiler recorded no launch
+    ms = (_profiled_kernel_ms(in_place, 10, ["traverse_wide"])
           ["traverse_wide"] if cuda else float("nan"))
+    ms_source = "profiler_kernel"
+    if cuda and ms != ms:   # the profiler recorded no launch
+        ms, ms_source = events_ms, "cuda_events_in_place"
     # the timed relaunches wrote the same state again
-    compare_states("atrium/parity round 0, relaunched", call(), st_w)
+    compare_states("atrium/parity round 0, relaunched", in_place(), st_w)
     plain_ms = _elapsed_ms(lambda: tw.trace_lanes_ref(wa6, *lanes,
                                                       suspend=True), 1,
                            device)
     steps = st_k.nodes_visited.float()
     warp_max = steps.reshape(-1, 32).max(1).values.mean() \
         if steps.numel() % 32 == 0 else steps.max()
+    # blocks of 128 an SM (the occupancy calculator, at the registers
+    # ptxas gave the kernel)
+    per_sm = (kernels.load("traverse_wide").lib
+              .vrt_traverse_wide_blocks_per_sm() if cuda else None)
     print(f"  K3 first suspension round of the parity frame's primary wave "
           f"({lanes[0].shape[0]} lanes, {int(st_k.suspended.sum())} "
-          f"suspended): {ms:.4f} ms (device, the profiler's kernel time; "
-          f"CUDA events around the launch {events_ms:.4f} ms), plain "
+          f"suspended): {ms:.4f} ms in place ({ms_source}; CUDA events "
+          f"around launches on fresh states {events_ms:.4f} ms), plain "
           f"{plain_ms:.4f} ms; "
           f"steps mean {float(steps.mean()):.3f} warp-max "
           f"{float(warp_max):.3f}; bound {b.ms:.4f} ms ({b.bound_by}: "
-          f"{b.ops} ops, {b.bytes} B) = {b.ms / ms:.1%}")
-    return dict(max_abs_err=0.0, ms=ms, events_ms=events_ms,
-                plain_ms=plain_ms, bound_ms=b.ms,
-                bound_by=b.bound_by, lanes=lanes[0].shape[0],
+          f"{b.ops} ops, {b.bytes} B) = {b.ms / ms:.1%}; the first "
+          f"version's figure (every lane's whole state) {b_all.ms:.4f} ms; "
+          f"blocks of 128 an SM {per_sm}")
+    return dict(max_abs_err=0.0, ms=ms, ms_source=ms_source,
+                blocks_per_sm=per_sm,
+                events_ms=events_ms, plain_ms=plain_ms, bound_ms=b.ms,
+                bound_by=b.bound_by, bound_every_lane_ms=b_all.ms,
+                lanes=lanes[0].shape[0],
                 mean_steps=float(steps.mean()), cutout_rounds=rounds)
 
 
@@ -2416,7 +2520,7 @@ def phase_chunked(device, r_tlas, cam, p, size: int = 128) -> dict:
     _sync(device)
     launches = kernels.LAUNCHES["traverse_wide"]
     real = wf.walk_lanes
-    wf.walk_lanes = lambda *a, **kw: tw.trace_lanes_ref(*a, **kw)[1]
+    wf.walk_lanes = (lambda *a, **kw: tw.trace_lanes_ref(*a, **kw)[1])
     try:
         img_p, rays_p = r.render(cam, p, size, size, mode="chunked")
     finally:
@@ -2437,21 +2541,24 @@ def phase_chunked(device, r_tlas, cam, p, size: int = 128) -> dict:
 
 # ------------------------------------- the sweep-SAH tree (12d, 12e)
 
-SAH_KERNEL_NAMES = ("tiles_kernel", "carry_kernel", "cost_kernel",
-                    "split_kernel", "assign_kernel")
+SAH_KERNEL_NAMES = ("sweep_kernel",)
 
 
 def sah_phase(device, label: str, verts, width: int, leaf: int, trees: dict,
               o, d, reps: int = 5, **walk_kw) -> dict:
     """The sweep-SAH build over ``verts`` (Morton-sorted leaves, the
-    tree's kernels, the LBVH collapse, refit and pack; launch counts
-    reset before one build and read after): build ms, levels, the real
-    wide depth; the tree's kernels against ``_sah_sweep_tree_ref`` on the
-    same leaf boxes (run on the card: torch ops), word for word; each
-    kernel's device time (profiler) beside its bound, the whole sweep's
-    by CUDA events and the plain version's; then K1 over the sweep-SAH
-    tree and ``trees`` (name -> WideArrays, the first the reference) on
-    the rays ``o, d``: hits equal to the bit, steps per ray."""
+    tree's one cooperative launch, the LBVH collapse, refit and pack;
+    launch counts reset before one build and read after): build ms,
+    levels, the real wide depth; the tree's kernel against
+    ``_sah_sweep_tree_ref`` on the same leaf boxes (run on the card: torch
+    ops), word for word, its live counts a level too; one launch and one
+    read to the host a sweep (the profiler's device-to-host copies); the
+    kernel's device time (profiler) and the whole sweep's by CUDA events
+    beside its bound (the live positions of each level, and every
+    position's, the earlier figure) and the plain version's; then K1
+    over the sweep-SAH tree and ``trees`` (name -> WideArrays, the first
+    the reference) on the rays ``o, d``: hits equal to the bit, steps per
+    ray."""
     import statistics
 
     from vortex_rt_tpu_torch.accel import lbvh
@@ -2467,9 +2574,9 @@ def sah_phase(device, label: str, verts, width: int, leaf: int, trees: dict,
     _sync(device)
     launches = dict(kernels.LAUNCHES)
     if cuda:
-        # box + codes (no Karras), the collapse with the refit plan, the
-        # refit over it
-        _check(launches["lbvh_sah"] > 0 and launches["lbvh_karras"] == 1
+        # box + codes (no Karras), the sweep, the collapse with the refit
+        # plan, the refit over it
+        _check(launches["lbvh_sah"] == 1 and launches["lbvh_karras"] == 1
                and launches["lbvh_collapse"] == 1
                and launches["lbvh_refit"] == 1,
                f"{label}: the sweep-SAH build launched {launches}")
@@ -2478,11 +2585,14 @@ def sah_phase(device, label: str, verts, width: int, leaf: int, trees: dict,
                                      width=width), device, reps))
     wa = lbvh.wide_arrays_from_lbvh(lb, leaf, width=width)
     lmin, lmax = lbvh._leaf_boxes(*verts, topo.order)
-    got = lbvh._sah_sweep_tree(lmin, lmax, l)
+    live_k, live = [], []
+    got = lbvh._sah_sweep_tree(lmin, lmax, l, live=live_k)
     levels = got[-1]
-    want = lbvh._sah_sweep_tree_ref(lmin, lmax, l)
+    want = lbvh._sah_sweep_tree_ref(lmin, lmax, l, live=live)
     _check(levels == want[-1], f"{label}: {levels} levels, the plain "
            f"version {want[-1]}")
+    _check(live_k == live, f"{label}: the kernel's live counts a level "
+           f"differ from the plain version's")
     err = _same_bits(f"{label}: sweep-SAH tree vs plain", got[:4], want[:4])
     # K5 C on this tree, whose node ids are not in their ranges
     _same_bits(f"{label}: refit boxes vs plain", lbvh._refit_boxes(
@@ -2493,35 +2603,54 @@ def sah_phase(device, label: str, verts, width: int, leaf: int, trees: dict,
     sweep = lambda: lbvh._sah_sweep_tree(lmin, lmax, l)  # noqa: E731
     plain_ms = _elapsed_ms(lambda: lbvh._sah_sweep_tree_ref(lmin, lmax, l),
                            1, device)
-    bounds = wb.sah_bounds(l, levels)
+    bound = wb.sah_bounds(l, levels, live)
     rec = dict(tris=l, levels=levels, build_ms=build_ms,
                launches=launches["lbvh_sah"],
-               launches_per_level=launches["lbvh_sah"] / levels,
                wide_depth=int(lb.wide_depth), walk_depth=wa.depth,
-               max_abs_err=err, plain_ms=plain_ms,
-               bound_ms=bounds["lbvh_sah"].ms,
-               bound_by=bounds["lbvh_sah"].bound_by)
+               max_abs_err=err, plain_ms=plain_ms, bound_ms=bound.ms,
+               bound_by=bound.bound_by, live_positions=sum(live),
+               bound_every_position_ms=wb.sah_bounds(l, levels).ms)
     if cuda:
         rec["ms"] = _device_ms(sweep, reps)
-        kms = _profiled_kernel_ms(sweep, reps, SAH_KERNEL_NAMES)
-        rec["kernel_ms"] = kms
-        rec["kernel_bound_ms"] = {k: bounds[k].ms for k in SAH_KERNEL_NAMES}
-        rec["kernels_ms_sum"] = sum(kms.values())
+        # a sweep's launches (the wrapper's count) and reads to the host
+        # (PyTorch's warnings on synchronising operations)
+        n0 = kernels.LAUNCHES["lbvh_sah"]
+        rec["host_reads"] = _host_syncs(sweep)
+        rec["kernel_launches"] = kernels.LAUNCHES["lbvh_sah"] - n0
+        _check(rec["host_reads"] == 1 and rec["kernel_launches"] == 1,
+               f"{label}: a sweep made {rec['host_reads']} reads to the "
+               f"host and {rec['kernel_launches']} launches")
+        # the kernel's time a launch by the profiler (a session late in
+        # the run may record part of the launches: the mean of those it
+        # did), and the device operations it recorded a sweep
+        ev = _kernel_events(lambda: [sweep() for _ in range(reps)])
+        kern = [e for e in ev if "sweep_kernel" in e.key]
+        n = sum(e.count for e in kern)
+        rec["kernel_ms"] = {"sweep_kernel": sum(
+            e.self_device_time_total for e in kern) / 1e3 / n
+            if n else float("nan")}
+        rec["profiled_sweeps"] = f"{n} of {reps}"
+        rec["device_ops"] = (sum(e.count for e in ev) / n if n
+                             else float("nan"))
     else:
         rec["ms"] = _elapsed_ms(sweep, 1, device)
     print(f"  {label}: T {l}, {width}-wide, leaf {leaf}: sweep-SAH build "
           f"{build_ms:.4f} ms (median of {reps}, CUDA events: Morton "
           f"codes and sort, {levels} levels of the sweep, the LBVH "
-          f"collapse, refit and pack), {rec['launches']} lbvh_sah launches "
-          f"({rec['launches_per_level']:.0f} a level), wide depth "
+          f"collapse, refit and pack), {rec['launches']} lbvh_sah launch "
+          f"and {rec.get('host_reads')} read to the host a sweep "
+          f"({rec.get('device_ops')} device operations a sweep the profiler "
+          f"recorded, {rec.get('profiled_sweeps')} sweeps), wide depth "
           f"{rec['wide_depth']} (walk stack for {wa.depth}); the sweep's "
           f"kernels equal the plain version word for word; the sweep "
           f"{rec['ms']:.4f} ms (CUDA events) against its bound "
-          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
-          f"{plain_ms:.4f} ms"
-          + ("; kernels (profiler, per sweep): " + ", ".join(
-              f"{k} {v:.4f} ms (bound {bounds[k].ms:.4f})"
-              for k, v in rec["kernel_ms"].items()) if cuda else ""))
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+          f"{rec['live_positions']} live positions over the levels; every "
+          f"position at every level {rec['bound_every_position_ms']:.4f} "
+          f"ms), plain {plain_ms:.4f} ms"
+          + ("; the kernel (profiler, per sweep): " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in rec["kernel_ms"].items())
+             if cuda else ""))
     rec["steps"] = three_tree_steps(
         f"{label} rays", {**trees, "sah_sweep": wa}, o, d,
         next(iter(trees)), **walk_kw)
@@ -2629,7 +2758,6 @@ def k6_times(label: str, ta, o, d, active=None, reps: int = 10,
     and the bound of the work they need (``k6_bound``)."""
     from vortex_rt_tpu_torch.ops import traverse2 as t2
     from vortex_rt_tpu_torch.tools import walk_bounds as wb
-    from vortex_rt_tpu_torch.tools.profile_frames import kernel_events
 
     call = t2.kernel_call(ta, o, d, active=active)
     work = t2.rays_work(ta, o, d, active=active)
@@ -2638,10 +2766,11 @@ def k6_times(label: str, ta, o, d, active=None, reps: int = 10,
     ms = _device_ms(call, reps)
     call()
     _sync(o.device)
-    prof = [e for e in kernel_events(lambda: [call() for _ in range(reps)])
+    prof = [e for e in _kernel_events(lambda: [call() for _ in range(reps)])
             if "traverse2_kernel" in e.key]
-    profiler_ms = sum(e.self_device_time_total for e in prof) / 1e3 / reps
     recorded = sum(e.count for e in prof)
+    profiler_ms = (sum(e.self_device_time_total for e in prof) / 1e3
+                   / recorded if recorded else float("nan"))
     plain_ms = _elapsed_ms(lambda: t2.trace_rays_ref(ta, o, d,
                                                      active=active),
                            1, o.device)
@@ -2997,7 +3126,7 @@ def main() -> int:
     c5, st5 = phase_config5(device, lbvh_checked, lbvh_err)
     _phase("phase 12a K4: PLOC kernels vs their plain versions")
     for name in ("ploc_merge", "lbvh_pack", "lbvh_refit", "ploc_collapse",
-                 "lbvh_karras", "lbvh_collapse"):
+                 "lbvh_karras", "lbvh_collapse", "lbvh_sah", "traverse_wide"):
         print(f"  {name} (redesigned), ptxas: " + "; ".join(
             line.split("ptxas info    : ")[-1].strip()
             for line in libs[name].build_log.splitlines()
@@ -3149,10 +3278,10 @@ def main() -> int:
                      "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
                      "bound_share": res["bound_ms"] / res["ms"],
                      "library_ms": None,
-                     "ms_source": ("profiler_kernel" if "events_ms" in res
-                                   else "cuda_events_launch"),
-                     **{k: res[k] for k in ("no_alpha_ms", "events_ms")
-                        if k in res}})
+                     "ms_source": res.get("ms_source", "cuda_events_launch"),
+                     **{k: res[k] for k in (
+                         "no_alpha_ms", "events_ms", "bound_every_lane_ms",
+                         "blocks_per_sm") if k in res}})
     print(f"  row 6: {row6['ms_per_frame']:.3f} ms/frame at 512x512 "
           f"({row6['mrays']:.3f} Mrays/s), {row6['ms_per_frame_hd']:.3f} "
           f"ms/frame at 1080p ({row6['mrays_hd']:.3f} Mrays/s), peak "
@@ -3184,9 +3313,9 @@ def main() -> int:
                      "ms", "profiler_ms", "profiler_launches", "plain_ms",
                      "bound_ms", "rays", "fetch_bytes")}
                      for k, v in mk["times"].items() if k != "mk_a_primary"}})
-    # the sweep-SAH tree: launches of one build at config 3's mesh (five a
-    # level); its time the whole sweep's by CUDA events, each kernel's by
-    # the profiler beside; config 5's mesh beside
+    # the sweep-SAH tree: launches of one build at config 3's mesh (one
+    # cooperative launch); its time the whole sweep's by CUDA events, the
+    # kernel's by the profiler beside; config 5's mesh beside
     src, replaces = SOURCES["lbvh_sah"]
     rows.append({"name": "lbvh_sah", "route": "cuda", "source": src,
                  "replaces": replaces, "launches": sah3["launches"],
@@ -3198,15 +3327,17 @@ def main() -> int:
                  "ms": sah3["ms"], "plain_ms": sah3["plain_ms"],
                  "bound_ms": sah3["bound_ms"], "bound_by": sah3["bound_by"],
                  "bound_share": sah3["bound_ms"] / sah3["ms"],
-                 # no one PyTorch call builds a tree (torch.cumsum between
-                 # the kernels is the jnp.cumsum of the JAX loop)
+                 # no one PyTorch call builds a tree
                  "library_ms": None, "ms_source": "cuda_events_wrapper",
                  "kernel_ms": sah3["kernel_ms"],
-                 "kernel_bound_ms": sah3["kernel_bound_ms"],
                  "levels": sah3["levels"],
+                 "host_reads": sah3["host_reads"],
+                 "device_ops": sah3["device_ops"],
+                 "bound_every_position_ms": sah3["bound_every_position_ms"],
                  "config5": {k: sah5[k] for k in (
                      "ms", "plain_ms", "bound_ms", "kernel_ms", "levels",
-                     "build_ms")}})
+                     "build_ms", "host_reads", "device_ops",
+                     "bound_every_position_ms")}})
     print(f"  megakernel: MK-A {mk['mk_a']['ms_per_frame']:.3f} ms/frame "
           f"{mk['mk_a']['mrays']:.3f} Mrays/s {mk['mk_a']['rays_per_frame']} "
           f"rays, peak {mk['mk_a'].get('peak_bytes')} B; MK-B "
@@ -3216,7 +3347,7 @@ def main() -> int:
           f"{sah3['build_ms']:.4f} ms ({sah3['levels']} levels, wide depth "
           f"{sah3['wide_depth']}) and {sah5['build_ms']:.4f} ms "
           f"({sah5['levels']} levels, wide depth {sah5['wide_depth']})")
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps(_json_safe({"kernels": rows})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

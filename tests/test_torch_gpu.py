@@ -1059,19 +1059,24 @@ def test_k3_matches_plain_version(cuda, suspend):
 
 
 def test_k3_kernel_call_relaunches(cuda):
-    """K3's bare launch reads its input state and writes its output state
-    on each call: relaunching gives the same words."""
+    """K3's bare launch walks the state its closure names, in place, on
+    each call: with the input state put back, relaunching gives the same
+    words in the same tensors."""
     from vortex_rt_tpu_torch.ops import traverse_wide as tw
 
     wa = WideArrays.from_scene(_cutout(False)).to(cuda)
     lanes = _camera_lanes(cuda, 33)
-    call = tw.kernel_call(wa, *lanes, suspend=True)
+    st0 = tw.init_state_lanes(*lanes)
+    fresh = [x.clone() for x in st0]
+    call = tw.kernel_call(wa, *lanes, state=st0, suspend=True)
     st = call()
+    assert st is st0
     first = [x.clone() for x in st]
-    for x in st:
-        x.zero_()
+    for x, f in zip(st, fresh):
+        x.copy_(f)
     st = call()
     torch.cuda.synchronize()
+    assert st is st0
     for a, b in zip(st, first):
         assert torch.equal(a, b)
 
@@ -1276,12 +1281,12 @@ def test_megakernel_frame_matches_cpu_frame(cuda):
 
 @pytest.mark.parametrize("mesh", ["random_soup", "wavy_grid"])
 def test_sah_kernels_match_plain_version(cuda, mesh):
-    """The sweep-SAH tree's kernels against _sah_sweep_tree_ref (run on
+    """The sweep-SAH tree's kernel against _sah_sweep_tree_ref (run on
     the card too: it is torch ops on any device): lchild, rchild, lo, hi
-    and the level count equal, on a mesh past one tile of positions and
-    on one past the carry kernel's one tile a thread (1,096 tiles of
-    1,024); then, on the soup, the build's tables against the plain
-    build's on the CPU, word for word."""
+    and the level count equal, one launch a sweep, on a mesh past one
+    sub-tile of positions and on one of 1,096 sub-tiles of 1,024 (more
+    than the grid's blocks); then, on the soup, the build's tables
+    against the plain build's on the CPU, word for word."""
     import numpy as np
 
     m = (random_soup(np.random.default_rng(2), 3001) if mesh == "random_soup"
@@ -1295,7 +1300,7 @@ def test_sah_kernels_match_plain_version(cuda, mesh):
     before = kernels.LAUNCHES["lbvh_sah"]
     got = lbvh._sah_sweep_tree(*lbvh._leaf_boxes(*vd, order.to(cuda)), l)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["lbvh_sah"] == before + 5 * got[-1]
+    assert kernels.LAUNCHES["lbvh_sah"] == before + 1
     want = lbvh._sah_sweep_tree_ref(
         *lbvh._leaf_boxes(*vd, order.to(cuda)), l)
     assert got[-1] == want[-1]
@@ -1309,3 +1314,148 @@ def test_sah_kernels_match_plain_version(cuda, mesh):
         assert torch.equal(a.cpu(), b)
     assert torch.equal(lb.fused.cpu(), lbc.fused)
     assert lb.wide_depth == lbc.wide_depth
+
+
+@pytest.mark.parametrize("l", [2, 3, 1023, 1024, 1025, 2049, "config3",
+                               "soup3m"])
+@pytest.mark.parametrize("dups", [False, True])
+def test_sah_sweep_sizes_match_plain_version(cuda, l, dups):
+    """The sweep's one cooperative launch at sizes around its sub-tile of
+    1,024 positions, at config 3's mesh (blob n=187, 69,940 triangles)
+    and at 3,000,000 triangles of a random soup, both Morton-sorted
+    (``dups`` there: every box rounded to a coarse grid, so most costs
+    tie); at the soup a block's range state (12 B a position,
+    about 11,400 positions a block) does not fit in its shared memory
+    beside the other block of its SM, so it lives in global memory.
+    The grid is one block a sub-tile up to two blocks an SM; lchild,
+    rchild, lo, hi, the level count and the live positions of each
+    level equal the plain version's word for word."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    if l in ("config3", "soup3m"):
+        m = (blob(n=187) if l == "config3" else
+             random_soup(np.random.default_rng(7), 3_000_000))
+        v = [torch.from_numpy(a).to(cuda)
+             for a in lbvh.pad_tris(m.v0, m.v1, m.v2, 4)]
+        _, order = torch.sort(lbvh.scene_codes(*v)[0], stable=True)
+        lmin, lmax = lbvh._leaf_boxes(*v, order.to(torch.int32))
+        if dups:
+            lmin, lmax = (torch.round(b * (5 / 16)) for b in (lmin, lmax))
+        l = lmin.shape[0]
+    else:
+        c = rng.integers(0, 6, (l, 3)) if dups else rng.uniform(-9, 9, (l, 3))
+        c = torch.from_numpy(c.astype(np.float32)).to(cuda)
+        lmin, lmax = c - 0.5, c + 0.5
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert kernels.load("lbvh_sah").lib.vrt_sah_blocks(l) == min(
+        -(-l // 1024), 2 * sms)
+    live_k, live = [], []
+    got = lbvh._sah_sweep_tree(lmin, lmax, l, live=live_k)
+    want = lbvh._sah_sweep_tree_ref(lmin, lmax, l, live=live)
+    assert got[-1] == want[-1] and live_k == live
+    for a, b in zip(got[:4], want[:4]):
+        assert torch.equal(a, b)
+
+
+def test_sah_sweep_reads_the_host_once(cuda):
+    """A sweep at config 3's mesh is one kernel launch and one copy to the
+    host (the level count with the live counts), as the profiler records
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    m = blob(n=187)
+    v = [torch.from_numpy(a).to(cuda)
+         for a in lbvh.pad_tris(m.v0, m.v1, m.v2, 4)]
+    _, order = torch.sort(lbvh.scene_codes(*v)[0], stable=True)
+    lmin, lmax = lbvh._leaf_boxes(*v, order.to(torch.int32))
+    l = lmin.shape[0]
+    lbvh._sah_sweep_tree(lmin, lmax, l)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lbvh._sah_sweep_tree(lmin, lmax, l)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    assert sum(e.count for e in ev if "DtoH" in e.key) == 1
+    assert sum(e.count for e in ev if "sweep_kernel" in e.key) == 1
+
+
+def _k3_loop_states(cuda, wa, lanes, rounds=1000):
+    """K3 through ``trace_lanes`` (a copy of the state walked), K3 in
+    place on a state of its own (``walk_lanes``, the pool path's rounds)
+    and the plain version through a suspension loop of mixed actions:
+    yields the three states of each round."""
+    from vortex_rt_tpu_torch.ops import traverse_wide as tw
+
+    lane = torch.arange(lanes[0].shape[0], device=cuda)
+    st = sr = None
+    si = tw.init_state_lanes(*lanes)
+    for _ in range(rounds):
+        _, st, _ = tw.trace_lanes(wa, *lanes, state=st, suspend=True)
+        si = tw.walk_lanes(wa, *lanes, state=si, suspend=True)
+        torch.cuda.synchronize()
+        _, sr, _ = tw.trace_lanes_ref(wa, *lanes, state=sr, suspend=True)
+        yield st, si, sr
+        if not bool(st.suspended.any()):
+            return
+        act = torch.where(st.pend_inst == 0, 0, torch.where(
+            lane % 17 == 0, 2, torch.where(lane % 5 == 0, 1, 0)))
+        act = torch.where(st.suspended, act.to(torch.int32), 0)
+        st, sr, si = tw.commit(st, act), tw.commit(sr, act), tw.commit(si, act)
+
+
+def test_k3_in_place_matches_out_of_place(cuda):
+    """K3 in place on the pool's own state (``walk_lanes``) against K3 on
+    a copy (``trace_lanes``, whose input stays as it was) and the plain
+    version, every state field, through a suspension loop of mixed
+    CONT / ACCEPT / TERM actions on a TLAS build."""
+    wa = WideArrays.from_scene(_cutout(False)).to(cuda)
+    lanes = _camera_lanes(cuda, 96)
+    rounds = 0
+    for st, si, sr in _k3_loop_states(cuda, wa, lanes):
+        _same_state(st, sr)
+        _same_state(si, sr)
+        rounds += 1
+    assert rounds >= 3 and bool(st.done.all())
+
+
+def test_k3_pass_through_lanes_untouched(cuda):
+    """In place, a lane that is done or suspended at entry keeps every
+    byte of its state: lanes marked so mid-loop, their other fields
+    filled with garbage bits, come out bit for bit as they went in, and
+    the walking lanes equal the plain version's."""
+    from vortex_rt_tpu_torch.ops import traverse_wide as tw
+
+    wa = WideArrays.from_scene(_cutout(False)).to(cuda)
+    lanes = _camera_lanes(cuda, 64)
+    loop = _k3_loop_states(cuda, wa, lanes)
+    next(loop)
+    _, si, _ = next(loop)   # every lane suspended or done
+    lane = torch.arange(si.tri.shape[0], device=cuda)
+    # resumed past its candidate, or ended; a third of the lanes parked
+    si = tw.commit(si, torch.where(lane % 7 == 0, 2, 0).to(torch.int32))
+    parked = (lane % 3 == 0) & ~si.done
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def poison(name, a):
+        if a.dtype == torch.bool:
+            return (a | parked) if name == "done" else a.clone()
+        junk = torch.randint(-2**31, 2**31 - 1, a.shape, generator=gen,
+                             device=cuda, dtype=torch.int32).view(a.dtype)
+        return torch.where(parked, junk, a)
+
+    st = tw.WideState(*(poison(n, a) for n, a in zip(si._fields, si)))
+    want = tw.trace_lanes_ref(wa, *lanes, state=st, suspend=True)[1]
+    before = [a.clone() for a in st]
+    got = tw.walk_lanes(wa, *lanes, state=st, suspend=True)
+    torch.cuda.synchronize()
+    assert got is st
+    pass_through = parked | si.done
+    assert bool(pass_through.any()) and bool((~pass_through).any())
+    for name, a, b, w in zip(st._fields, got, before, want):
+        bits = (a.view(torch.int32) if a.dtype != torch.bool else a)
+        old = (b.view(torch.int32) if b.dtype != torch.bool else b)
+        assert torch.equal(bits[pass_through], old[pass_through]), name
+        ref = (w.view(torch.int32) if w.dtype != torch.bool else w)
+        assert torch.equal(bits, ref), name

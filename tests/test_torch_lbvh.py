@@ -568,6 +568,40 @@ def test_sah_sweep_tree_equals_jax(sah_reference, mesh):
     assert levels == depth.max() + 1
 
 
+@pytest.mark.parametrize("mesh", SAH_MESHES)
+def test_sah_live_counts_match_brute_force(mesh):
+    """The plain sweep's live positions a level (what ``sah_bounds``
+    counts and the kernel reports) against a brute-force count from the
+    tree it built: an internal node at binary depth d holds hi - lo + 1
+    positions in a range longer than one at level d.  The bound is a
+    live position's 24-B box and 41 operations a level, the tree written
+    once (the first version's figure: 48 B every position at every level);
+    exact
+    integers."""
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
+
+    v = _sah_mesh(mesh)
+    l = v[0].shape[0]
+    _, order = torch.sort(tl.scene_codes(*v)[0], stable=True)
+    live = []
+    lch, rch, lo, hi, levels = tl._sah_sweep_tree_ref(
+        *tl._leaf_boxes(*v, order.to(torch.int32)), l, live=live)
+    depth = np.zeros(l - 1, np.int64)
+    lch, rch = lch.numpy(), rch.numpy()
+    for k in range(l - 1):   # ids are allocated level by level
+        for c in (lch[k], rch[k]):
+            if c < l - 1:
+                depth[c] = depth[k] + 1
+    brute = np.bincount(depth, weights=(hi - lo + 1).numpy(),
+                        minlength=levels).astype(np.int64)
+    assert live == brute.tolist() and len(live) == levels
+    assert live[0] == l and all(a >= b for a, b in zip(live, live[1:]))
+    b = wb.sah_bounds(l, levels, live)
+    assert (b.ops, b.bytes) == (41 * sum(live), 24 * sum(live) + 16 * (l - 1))
+    every = wb.sah_bounds(l, levels)
+    assert every.bytes == 48 * l * levels + 16 * (l - 1) > b.bytes
+
+
 @pytest.mark.parametrize("width", [4, 8])
 @pytest.mark.parametrize("mesh", SAH_MESHES)
 def test_sah_build_equals_jax(sah_reference, mesh, width):

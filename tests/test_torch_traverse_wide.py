@@ -366,3 +366,159 @@ def test_per_ray_walk_refusals(jax_reference):
               if k != "tri_tests"}
     with pytest.raises(ValueError, match="tri_tests"):
         bridge.wide_state(device="cpu", **fields)
+
+
+# ---- the pool path's in-place walk (no JAX: the port against itself)
+
+def _pool_renderer():
+    """A TLAS scene (two quads in front of a box and a sphere) through the
+    suspension engine, with an any-hit predicate that rejects part of
+    every surface."""
+    import vortex_rt_tpu_torch as pt
+    from vortex_rt_tpu_torch.engine.shaders import (
+        ShaderTable, stateless_anyhit,
+    )
+    from vortex_rt_tpu_torch.models.procedural import box, quad, uv_sphere
+
+    sc = pt.Scene()
+    def square(cx, cy, z, h):
+        return quad((cx - h, cy - h, z), (cx + h, cy - h, z),
+                    (cx + h, cy + h, z), (cx - h, cy + h, z))
+
+    for mesh in (square(0, 0, 0.5, 0.6), square(0.2, 0.1, 1.0, 0.6),
+                 box((0, 0, 2.0), 0.6), uv_sphere((0.4, -0.3, 1.6), 0.4,
+                                                   6, 8)):
+        sc.add_instance(sc.add_mesh(mesh))
+    cfg = pt.RTConfig(packet_size=0, use_native_build=False)
+    table = ShaderTable(anyhit=stateless_anyhit(
+        lambda u, v, a: (u + v) > 0.7, "diag"))
+    r = pt.WavefrontRenderer.from_buffers(sc.build(cfg), cfg, table,
+                                          device="cpu")
+    cam = pt.Camera.look_at([0.1, 0.05, -2.5], [0, 0, 1], [0, 1, 0], 50.0,
+                            1.0)
+    return r, cam, pt.RenderParams(max_depth=1, spp=1)
+
+
+def test_pool_walks_in_place_like_out_of_place(monkeypatch):
+    """``_trace_pool`` walks its own state in place (``walk_lanes``, K3's
+    contract on the card): its hits, step total, image and ray count
+    equal those of the same frame with every round walking a copy of
+    the state, round for round; the step total is not zero, so the
+    count it starts from (``visited0``) does not alias the walked state.
+    Exact equality: the same plain walk either way."""
+    from vortex_rt_tpu_torch.engine import wavefront as wf
+
+    r, cam, p = _pool_renderer()
+    real_pool, real_walk = wf._trace_pool, wf.walk_lanes
+    runs = {}
+    for mode in ("in_place", "out_of_place"):
+        got, in_place = [], []
+
+        def pool(*a, **kw):
+            got.append(real_pool(*a, **kw))
+            return got[-1]
+
+        def walk(*a, state, **kw):
+            if mode == "out_of_place":
+                state = tw.WideState(*(x.clone() for x in state))
+            out = real_walk(*a, state=state, **kw)
+            in_place.append(out is state)
+            return out
+
+        monkeypatch.setattr(wf, "_trace_pool", pool)
+        monkeypatch.setattr(wf, "walk_lanes", walk)
+        img, rays = r.render(cam, p, 12, 12)
+        runs[mode] = (img, rays, got)
+        # the walks write the state they are given, in several
+        # suspension rounds
+        assert all(in_place) and len(in_place) > 2 * len(got) > 0
+    (img_i, rays_i, got_i), (img_o, rays_o, got_o) = (
+        runs["in_place"], runs["out_of_place"])
+    assert rays_i == rays_o and np.array_equal(img_i, img_o)
+    assert len(got_i) == len(got_o) > 0
+    for (hi, si), (ho, so) in zip(got_i, got_o):
+        assert int(si) == int(so) > 0
+        for a, b in zip(hi, ho):
+            assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+
+
+def test_walk_lanes_in_place_contract():
+    """``trace_lanes`` leaves its input state unchanged; ``walk_lanes``
+    writes the state it is given and returns it, with ``trace_lanes``'
+    every field, over a suspension loop, and from no state walks a fresh
+    one as ``trace_lanes`` does; it refuses a state whose fields share
+    storage."""
+    from vortex_rt_tpu_torch.engine import wavefront as wf
+    from vortex_rt_tpu_torch.engine.megakernel import CameraArrays
+
+    r, cam, _ = _pool_renderer()
+    n = 10
+    lane = torch.arange(n * n)
+    pxi, pyi = wf._tile_pixel_ids(lane, n, n, n)
+    lanes = wf._camera_from_pix(CameraArrays.from_camera(cam, "cpu"), n, n,
+                                pxi, pyi, pyi * n + pxi,
+                                torch.zeros_like(lane), 1)
+    st = tw.init_state_lanes(*lanes)
+    si = tw.init_state_lanes(*lanes)
+    for k in range(50):
+        before = [a.clone() for a in st]
+        _, st_next, _ = tw.trace_lanes(r.wa, *lanes, state=st, suspend=True)
+        for a, b in zip(st, before):
+            assert torch.equal(a, b)
+        out = tw.walk_lanes(r.wa, *lanes, state=si, suspend=True)
+        assert out is si
+        for name, a, b in zip(tw.WideState._fields, si, st_next):
+            assert torch.equal(a, b), (k, name)
+        if not bool(st_next.suspended.any()):
+            break
+        act = torch.where(lane % 3 == 0, COMMIT_ACCEPT, COMMIT_CONT)
+        act = torch.where(lane % 11 == 0, COMMIT_TERM, act).to(torch.int32)
+        st, si = tw.commit(st_next, act), tw.commit(si, act)
+    assert k >= 2 and bool(st_next.done.all())
+    fresh = tw.walk_lanes(r.wa, *lanes)
+    for a, b in zip(fresh, tw.trace_lanes(r.wa, *lanes)[1]):
+        assert torch.equal(a, b)
+    shared = si._replace(tri_tests=si.nodes_visited)
+    with pytest.raises(ValueError, match="distinct"):
+        tw.walk_lanes(r.wa, *lanes, state=shared)
+
+
+def test_k3_bound_counts_walking_lanes_and_changed_fields():
+    """``tools/walk_bounds.k3_bound`` given the walk's states: a lane
+    that takes no step costs its 2 flag bytes; one that steps its world
+    ray (24 B), the 29 + 3 words a suspending walk reads, its flags and
+    the fields whose bytes changed (counted here lane by lane in NumPy);
+    both under the every-lane figure, the second round (after a commit that
+    ends some lanes) with fewer walking lanes.  Exact integers."""
+    from vortex_rt_tpu_torch.engine import wavefront as wf
+    from vortex_rt_tpu_torch.engine.megakernel import CameraArrays
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
+
+    r, cam, _ = _pool_renderer()
+    n = 10
+    lane = torch.arange(n * n)
+    pxi, pyi = wf._tile_pixel_ids(lane, n, n, n)
+    lanes = wf._camera_from_pix(CameraArrays.from_camera(cam, "cpu"), n, n,
+                                pxi, pyi, pyi * n + pxi,
+                                torch.zeros_like(lane), 1)
+    st0 = tw.init_state_lanes(*lanes)
+    st1, work1 = tw.lanes_work(r.wa, *lanes, state=st0, suspend=True)
+    act = torch.where(lane % 2 == 0, COMMIT_TERM, COMMIT_CONT)
+    st1c = tw.commit(st1, act.to(torch.int32))
+    st2, work2 = tw.lanes_work(r.wa, *lanes, state=st1c, suspend=True)
+    counts = []
+    for before, after, work in ((st0, st1, work1), (st1c, st2, work2)):
+        walking = ((work.internal + work.leaf + work.instance) > 0).numpy()
+        changed = 0
+        for a, b in zip(before, after):
+            ab = a.numpy().view(np.uint8).reshape(n * n, -1)
+            bb = b.numpy().view(np.uint8).reshape(n * n, -1)
+            changed += int((ab != bb).any(1)[walking].sum()) * ab.shape[1]
+        k = int(walking.sum())
+        want = ((n * n - k) * 2 + k * (24 + 4 * 32 + 2) + changed
+                + int(work.row_bytes.sum()))
+        b = wb.k3_bound(work, before, after, suspend=True)
+        assert b.bytes == want < wb.k3_bound(work).bytes
+        assert b.ops == wb.k3_bound(work).ops
+        counts.append(k)
+    assert counts[0] == n * n > counts[1] > 0

@@ -44,8 +44,9 @@ H7).
 ``method="sah"`` replaces step 3 with the JAX package's sweep-SAH tree
 (measured there and not adopted): every contiguous range of the sorted
 triangles splits at its SAH-cheapest position within its middle half, one
-level of ranges at a time (``_sah_sweep_tree``; its kernels are
-``csrc/lbvh_sah.cu``, ``_sah_sweep_tree_ref`` its plain version).  Its
+level of ranges at a time (``_sah_sweep_tree``; its kernel is
+``csrc/lbvh_sah.cu``, every level in one cooperative launch,
+``_sah_sweep_tree_ref`` its plain version).  Its
 depth is not bounded by the key's length: the build reports the collapsed
 tree's real depth (``LBVHNodes.wide_depth``), and ``wide_arrays_from_lbvh``
 takes it and refuses a tree deeper than the walk's stack (ROADMAP H8).
@@ -355,9 +356,11 @@ def _seg_scan_ref(box: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
     return box
 
 
-def _sah_sweep_tree_ref(lmin: torch.Tensor, lmax: torch.Tensor, l: int):
+def _sah_sweep_tree_ref(lmin: torch.Tensor, lmax: torch.Tensor, l: int,
+                        live: Optional[list] = None):
     """Plain version of ``_sah_sweep_tree``: the JAX level body in torch
-    ops, on any device."""
+    ops, on any device.  ``live``, when given, gets the number of
+    positions in ranges longer than one at the start of each level."""
     dev = lmin.device
     pos = torch.arange(l, dtype=_I64, device=dev)
     leaf = torch.cat([lmin, lmax], 1)
@@ -372,6 +375,8 @@ def _sah_sweep_tree_ref(lmin: torch.Tensor, lmax: torch.Tensor, l: int):
         levels += 1
         length = seg_hi - seg_lo + 1
         active = length > 1
+        if live is not None:
+            live.append(int(active.sum()))
         pre = _seg_scan_ref(leaf, seg_lo)
         rev = (l - 1) - seg_hi.flip(0)
         suf = _seg_scan_ref(leaf.flip(0), rev).flip(0)
@@ -416,15 +421,18 @@ def _sah_sweep_tree_ref(lmin: torch.Tensor, lmax: torch.Tensor, l: int):
     return lch, rch, nlo, nhi, levels
 
 
-def _sah_sweep_tree(lmin: torch.Tensor, lmax: torch.Tensor, l: int):
+def _sah_sweep_tree(lmin: torch.Tensor, lmax: torch.Tensor, l: int,
+                    live: Optional[list] = None):
     """The sweep-SAH binary tree over ``l`` Morton-sorted leaf boxes
     ((l, 3) float32 each) -> (lchild, rchild, lo, hi, levels): the
     children and leaf ranges in the Karras id layout (internal k in
     [0, l-1), root 0, leaf j at (l-1)+j), as the JAX ``_sah_sweep_tree``
     gives them, and the levels the loop ran (the deepest internal sits at
-    binary depth ``levels - 1``).  CUDA tensors run ``csrc/lbvh_sah.cu``,
-    five kernels and a ``torch.cumsum`` a level, and read one flag a
-    level; CPU tensors run ``_sah_sweep_tree_ref``."""
+    binary depth ``levels - 1``).  ``live``, when given, gets the number
+    of positions in ranges longer than one at the start of each level.
+    CUDA tensors run ``csrc/lbvh_sah.cu``: every level in one cooperative
+    launch, then one read of the level count (with the live counts) to
+    the host; CPU tensors run ``_sah_sweep_tree_ref``."""
     for b in (lmin, lmax):
         if (b.dtype != _F32 or tuple(b.shape) != (l, 3)
                 or b.device != lmin.device):
@@ -433,45 +441,26 @@ def _sah_sweep_tree(lmin: torch.Tensor, lmax: torch.Tensor, l: int):
     if l < 2:
         raise ValueError("the sweep-SAH tree needs two leaves")
     if not _cuda(lmin):
-        return _sah_sweep_tree_ref(lmin, lmax, l)
+        return _sah_sweep_tree_ref(lmin, lmax, l, live)
     lib = kernels.load("lbvh_sah")
     dev = lmin.device
     lmin, lmax = lmin.contiguous(), lmax.contiguous()
-    nt = (l + 1023) // 1024
-
-    def i32(*shape, fill=None):
-        if fill is None:
-            return torch.empty(shape, dtype=_I32, device=dev)
-        return torch.full(shape, fill, dtype=_I32, device=dev)
-
-    seg_lo, seg_hi, node = i32(l, fill=0), i32(l, fill=l - 1), i32(l, fill=0)
-    pre = torch.empty((l, 6), dtype=_F32, device=dev)
-    suf = torch.empty((l, 6), dtype=_F32, device=dev)
-    agg_box = torch.empty((2, nt, 6), dtype=_F32, device=dev)
-    agg_pos, agg_lo = i32(2, nt), i32(2, nt)
-    keys = torch.empty(l, dtype=_I64, device=dev)
-    contrib = i32(l)
-    nxt = [i32(1, fill=1), i32(1)]
-    out = [i32(l - 1, fill=0) for _ in range(4)]
-    flags = i32(SAH_MAX_LEVELS, fill=0)
-    levels = 0
-    while levels < SAH_MAX_LEVELS:
-        _launch(lib, "vrt_sah_split", dev, lmin.data_ptr(), lmax.data_ptr(),
-                seg_lo.data_ptr(), seg_hi.data_ptr(), pre.data_ptr(),
-                suf.data_ptr(), agg_box.data_ptr(), agg_pos.data_ptr(),
-                agg_lo.data_ptr(), keys.data_ptr(), contrib.data_ptr(), l,
-                n_kernels=4)
-        incl = torch.cumsum(contrib, 0, dtype=_I32)
-        _launch(lib, "vrt_sah_assign", dev, keys.data_ptr(),
-                incl.data_ptr(), contrib.data_ptr(), nxt[0].data_ptr(),
-                nxt[1].data_ptr(), seg_lo.data_ptr(), seg_hi.data_ptr(),
-                node.data_ptr(), *(a.data_ptr() for a in out),
-                flags.data_ptr() + 4 * levels, l)
-        nxt.reverse()
-        levels += 1
-        if not int(flags[levels - 1]):
-            break
-    return (*out, levels)
+    with torch.cuda.device(dev):
+        blocks = lib.lib.vrt_sah_blocks(l)
+    if blocks <= 0:
+        raise RuntimeError(f"vrt_sah_blocks failed: "
+                           f"{lib.error_string(-blocks)} ({-blocks})")
+    scratch = torch.empty(lib.lib.vrt_sah_scratch(l, blocks), dtype=_I32,
+                          device=dev)
+    out = torch.empty((4, l - 1), dtype=_I32, device=dev)
+    _launch(lib, "vrt_sah_sweep", dev, lmin.data_ptr(), lmax.data_ptr(), l,
+            blocks, *(a.data_ptr() for a in out), scratch.data_ptr())
+    at = lib.lib.vrt_sah_live_offset(l, blocks)
+    counts = scratch[at:at + SAH_MAX_LEVELS + 2].tolist()   # the one read
+    levels = counts[-1]
+    if live is not None:
+        live.extend(counts[:levels])
+    return (*out.unbind(0), levels)
 
 
 def wide_depth_of(max_depth, width: int):

@@ -15,23 +15,33 @@
 // shader can accept or reject it (`commit`) and the walk resume past it
 // (the lexicographic (t, tid) barrier at the leaf it stopped in).
 //
-// Design.  One thread walks one ray.  It reads its (R,) SoA WideState at
-// entry (43 fields, pointers in the launch's argument struct) and writes
-// it back at exit, so a suspended ray resumes exactly where it stopped, and
-// a lane that is done or suspended passes through.  The trail (8 u32 words)
-// and the stack (5 ints) live in registers: every access is an unrolled
-// loop of selects over compile-time indices, as the JAX helpers are, never
-// a dynamic index into a local array.  A step reads the node's meta quarter
-// (16 B) first, then the child boxes (48 B), or the instance transform and
-// BLAS root (64 B), or the leaf's triangle row (40 B a slot).  Each ray
-// visits the nodes the JAX lane visits, in the same order, so its
+// Design.  One thread walks one ray, in place on its (R,) SoA WideState
+// (43 fields, pointers in the launch's argument struct), so a suspended
+// ray resumes exactly where it stopped.  A lane that is done or suspended
+// at entry reads its two flag bytes and nothing more; a lane that walks
+// reads only the fields the walk reads (not bx, by or the pending hit; the
+// barrier only when suspending, the best hit's ids only when not) and
+// writes only the fields its walk changed: the local ray and instance
+// after an instance step, the best hit after a closer one, the pending hit
+// at a suspension, the trail words up to the deepest level it could have
+// touched, the stack when it pushed, popped or cleared it.  Late
+// suspension rounds, where most lanes are done, then move almost no state.
+// A caller whose input state must stay as it was (`trace_lanes`) walks a
+// copy.
+// The trail (8 u32 words) and the stack (5 ints) live in registers: every
+// access is an unrolled loop of selects over compile-time indices, as the
+// JAX helpers are, never a dynamic index into a local array.  A step
+// issues its row's loads in one round: the meta quarter and the child
+// boxes (64 B, four 16-B loads), and for a TLAS node (an internal or
+// instance node) the transform and BLAS root too (the whole 128-B row);
+// a leaf step then reads its triangle row (40 B a slot).  Each ray visits
+// the nodes the JAX lane visits, in the same order, so its
 // `nodes_visited` and `tri_tests` equal the JAX lane's.
 //
 // What bounds it on this card: the latency of dependent row fetches, as K2
 // (one step's node index comes from the previous step), and divergence: a
-// warp runs until its longest ray suspends or ends.  This first version is
-// simple and right, not fast; the path that needs speed (alpha cutouts)
-// tests them inside K1 and K2 instead and runs no K3.
+// warp runs until its longest ray suspends or ends; in late rounds, the
+// state a lane moves.
 //
 // The JAX loop caps its iterations over all lanes (`max_steps`); here the
 // cap is per ray, on `nodes_visited`, and no walk reaches it.
@@ -78,12 +88,15 @@ struct WalkArgs {
     const float4* rows;    // (L, row_words) floats
     const float* ox; const float* oy; const float* oz;  // world rays (R,)
     const float* dx; const float* dy; const float* dz;
-    void* in[F_COUNT];     // the state read at entry
-    void* out[F_COUNT];    // the state written at exit (may equal in)
+    void* st[F_COUNT];     // the state, read at entry and updated in place
     int n_rays, n_nodes, n_rows, row_vec4, lmax, num_tlas, suspend, max_steps;
 };
 
 struct Lane {
+    // what the walk changed, for the store: the instance and local ray,
+    // the best hit, the stack, the triangle-test count
+    bool entered, hit, stk, tested;
+    int trail_top;    // the deepest trail word the walk may have changed
     int node, level;
     uint32_t tr[VRT_TRAIL_WORDS];
     int s0, s1, s2, s3, s4, scount;
@@ -109,8 +122,9 @@ __device__ __forceinline__ void st(void* const* f, int k, int i, T v) {
     reinterpret_cast<T*>(f[k])[i] = v;
 }
 
+// Loads the fields the walk reads.
 __device__ void load_lane(const WalkArgs& a, int i, Lane& L) {
-    void* const* f = a.in;
+    void* const* f = a.st;
     L.node = ld<int>(f, F_NODE, i); L.level = ld<int>(f, F_LEVEL, i);
 #pragma unroll
     for (int w = 0; w < VRT_TRAIL_WORDS; ++w) L.tr[w] = ld<uint32_t>(f, F_TR0 + w, i);
@@ -123,46 +137,59 @@ __device__ void load_lane(const WalkArgs& a, int i, Lane& L) {
     L.ldy = ld<float>(f, F_LDY, i); L.ldz = ld<float>(f, F_LDZ, i);
     L.lix = ld<float>(f, F_LIX, i); L.liy = ld<float>(f, F_LIY, i);
     L.liz = ld<float>(f, F_LIZ, i);
-    L.best_t = ld<float>(f, F_BEST_T, i); L.bx = ld<float>(f, F_BX, i);
-    L.by = ld<float>(f, F_BY, i); L.tri = ld<int>(f, F_TRI, i);
-    L.best_inst = ld<int>(f, F_BEST_INST, i);
-    L.bar_t = ld<float>(f, F_BAR_T, i); L.bar_tid = ld<int>(f, F_BAR_TID, i);
-    L.bar_leaf = ld<int>(f, F_BAR_LEAF, i);
-    L.pend_t = ld<float>(f, F_PEND_T, i); L.pend_bx = ld<float>(f, F_PEND_BX, i);
-    L.pend_by = ld<float>(f, F_PEND_BY, i); L.pend_tri = ld<int>(f, F_PEND_TRI, i);
-    L.pend_inst = ld<int>(f, F_PEND_INST, i);
-    L.suspended = ld<uint8_t>(f, F_SUSPENDED, i) != 0;
-    L.done = ld<uint8_t>(f, F_DONE, i) != 0;
+    L.best_t = ld<float>(f, F_BEST_T, i);
+    if (!a.suspend) {
+        L.tri = ld<int>(f, F_TRI, i);
+        L.best_inst = ld<int>(f, F_BEST_INST, i);
+    }
+    if (a.suspend) {
+        L.bar_t = ld<float>(f, F_BAR_T, i); L.bar_tid = ld<int>(f, F_BAR_TID, i);
+        L.bar_leaf = ld<int>(f, F_BAR_LEAF, i);
+    }
     L.visited = ld<int>(f, F_NODES_VISITED, i);
     L.tri_tests = ld<int>(f, F_TRI_TESTS, i);
+    L.entered = L.hit = L.stk = L.tested = false;
+    L.trail_top = -1;
+#pragma unroll
+    for (int w = 0; w < VRT_TRAIL_WORDS; ++w) L.trail_top = L.tr[w] ? w : L.trail_top;
+    L.trail_top = max(L.trail_top, L.level >> 3);
 }
 
+// Stores the fields the walk changed.
 __device__ void store_lane(const WalkArgs& a, int i, const Lane& L) {
-    void* const* f = a.out;
+    void* const* f = a.st;
     st<int>(f, F_NODE, i, L.node); st<int>(f, F_LEVEL, i, L.level);
 #pragma unroll
-    for (int w = 0; w < VRT_TRAIL_WORDS; ++w) st<uint32_t>(f, F_TR0 + w, i, L.tr[w]);
-    st<int>(f, F_S0, i, L.s0); st<int>(f, F_S1, i, L.s1);
-    st<int>(f, F_S2, i, L.s2); st<int>(f, F_S3, i, L.s3);
-    st<int>(f, F_S4, i, L.s4); st<int>(f, F_SCOUNT, i, L.scount);
-    st<int>(f, F_INST, i, L.inst);
-    st<float>(f, F_LOX, i, L.lox); st<float>(f, F_LOY, i, L.loy);
-    st<float>(f, F_LOZ, i, L.loz); st<float>(f, F_LDX, i, L.ldx);
-    st<float>(f, F_LDY, i, L.ldy); st<float>(f, F_LDZ, i, L.ldz);
-    st<float>(f, F_LIX, i, L.lix); st<float>(f, F_LIY, i, L.liy);
-    st<float>(f, F_LIZ, i, L.liz);
-    st<float>(f, F_BEST_T, i, L.best_t); st<float>(f, F_BX, i, L.bx);
-    st<float>(f, F_BY, i, L.by); st<int>(f, F_TRI, i, L.tri);
-    st<int>(f, F_BEST_INST, i, L.best_inst);
-    st<float>(f, F_BAR_T, i, L.bar_t); st<int>(f, F_BAR_TID, i, L.bar_tid);
-    st<int>(f, F_BAR_LEAF, i, L.bar_leaf);
-    st<float>(f, F_PEND_T, i, L.pend_t); st<float>(f, F_PEND_BX, i, L.pend_bx);
-    st<float>(f, F_PEND_BY, i, L.pend_by); st<int>(f, F_PEND_TRI, i, L.pend_tri);
-    st<int>(f, F_PEND_INST, i, L.pend_inst);
-    st<uint8_t>(f, F_SUSPENDED, i, L.suspended ? 1 : 0);
-    st<uint8_t>(f, F_DONE, i, L.done ? 1 : 0);
+    for (int w = 0; w < VRT_TRAIL_WORDS; ++w) {
+        if (w <= L.trail_top) st<uint32_t>(f, F_TR0 + w, i, L.tr[w]);
+    }
+    if (L.stk) {
+        st<int>(f, F_S0, i, L.s0); st<int>(f, F_S1, i, L.s1);
+        st<int>(f, F_S2, i, L.s2); st<int>(f, F_S3, i, L.s3);
+        st<int>(f, F_S4, i, L.s4); st<int>(f, F_SCOUNT, i, L.scount);
+    }
+    if (L.entered) {
+        st<int>(f, F_INST, i, L.inst);
+        st<float>(f, F_LOX, i, L.lox); st<float>(f, F_LOY, i, L.loy);
+        st<float>(f, F_LOZ, i, L.loz); st<float>(f, F_LDX, i, L.ldx);
+        st<float>(f, F_LDY, i, L.ldy); st<float>(f, F_LDZ, i, L.ldz);
+        st<float>(f, F_LIX, i, L.lix); st<float>(f, F_LIY, i, L.liy);
+        st<float>(f, F_LIZ, i, L.liz);
+    }
+    if (L.hit) {
+        st<float>(f, F_BEST_T, i, L.best_t); st<float>(f, F_BX, i, L.bx);
+        st<float>(f, F_BY, i, L.by); st<int>(f, F_TRI, i, L.tri);
+        st<int>(f, F_BEST_INST, i, L.best_inst);
+    }
+    if (L.suspended) {
+        st<float>(f, F_PEND_T, i, L.pend_t); st<float>(f, F_PEND_BX, i, L.pend_bx);
+        st<float>(f, F_PEND_BY, i, L.pend_by); st<int>(f, F_PEND_TRI, i, L.pend_tri);
+        st<int>(f, F_PEND_INST, i, L.pend_inst);
+        st<uint8_t>(f, F_SUSPENDED, i, L.suspended ? 1 : 0);
+    }
+    if (L.done) st<uint8_t>(f, F_DONE, i, L.done ? 1 : 0);
     st<int>(f, F_NODES_VISITED, i, L.visited);
-    st<int>(f, F_TRI_TESTS, i, L.tri_tests);
+    if (L.tested) st<int>(f, F_TRI_TESTS, i, L.tri_tests);
 }
 
 __device__ __forceinline__ float rcp_clamped(float d) {
@@ -223,16 +250,19 @@ __device__ __forceinline__ int trail_find_parent(const uint32_t (&tr)[VRT_TRAIL_
 __device__ __forceinline__ void stack_push(Lane& L, int entry) {
     L.s4 = L.s3; L.s3 = L.s2; L.s2 = L.s1; L.s1 = L.s0; L.s0 = entry;
     L.scount = min(L.scount + 1, 5);
+    L.stk = true;
 }
 
 __device__ __forceinline__ int stack_pop(Lane& L) {
     const int e = L.s0;
     L.s0 = L.s1; L.s1 = L.s2; L.s2 = L.s3; L.s3 = L.s4; L.s4 = 0;
     L.scount -= 1;
+    L.stk = true;
     return e;
 }
 
 __device__ void walk(const WalkArgs& a, int i, Lane& L) {
+    if (L.done || L.suspended || L.visited >= a.max_steps) return;
     const float ox = a.ox[i], oy = a.oy[i], oz = a.oz[i];
     const float dx = a.dx[i], dy = a.dy[i], dz = a.dz[i];
     const float ivx = rcp_clamped(dx), ivy = rcp_clamped(dy), ivz = rcp_clamped(dz);
@@ -240,21 +270,27 @@ __device__ void walk(const WalkArgs& a, int i, Lane& L) {
     while (!L.done && !L.suspended && L.visited < a.max_steps) {
         const int node = min(max(L.node, 0), a.n_nodes - 1);
         const uint4* nrow = a.nodes + (size_t)node * 8;
-        const uint4 w3 = __ldg(nrow + 3);            // words 12..15
+        const bool in_tlas = node < a.num_tlas;
+        // one round of loads: the meta quarter with the child boxes, and a
+        // TLAS node's transform and BLAS root
+        const uint4 w0 = __ldg(nrow + 0), w1 = __ldg(nrow + 1);
+        const uint4 w2 = __ldg(nrow + 2), w3 = __ldg(nrow + 3);
+        uint4 w4 = w3, w5 = w3, w6 = w3, w7 = w3;
+        if (in_tlas) {
+            w4 = __ldg(nrow + 4); w5 = __ldg(nrow + 5);
+            w6 = __ldg(nrow + 6); w7 = __ldg(nrow + 7);
+        }
         const uint32_t meta = w3.z;
         const uint32_t kind = meta >> 29;
         const int nch = (int)((meta >> 26) & 7u);
         const int left = (int)(meta & VRT_LEFT_MASK);
         const int leaf_data = (int)w3.w;
-        const bool in_tlas = node < a.num_tlas;
 
         int nxt = L.node;
         int level = L.level;
         bool want_pop = false;
         if (kind == 0u) {
             // ---- internal: 4 slab tests, the 5-swap far -> near network
-            const uint4 w0 = __ldg(nrow + 0), w1 = __ldg(nrow + 1);
-            const uint4 w2 = __ldg(nrow + 2);
             const float gx = __uint_as_float(w0.x), gy = __uint_as_float(w0.y);
             const float gz = __uint_as_float(w0.z), sx = __uint_as_float(w0.w);
             const float sy = __uint_as_float(w1.x), sz = __uint_as_float(w1.y);
@@ -314,6 +350,7 @@ __device__ void walk(const WalkArgs& a, int i, Lane& L) {
                 if (pos >= 3) stack_push(L, left + ix[2]);
                 if (remaining == 1) trail_set(L.tr, L.level, (uint32_t)VRT_WIDTH);
                 level = L.level + 1;
+                L.trail_top = max(L.trail_top, level >> 3);
             } else {
                 want_pop = true;
             }
@@ -360,6 +397,7 @@ __device__ void walk(const WalkArgs& a, int i, Lane& L) {
                 }
             }
             L.tri_tests += leaf_data;
+            L.tested = true;
             if (a.suspend) {
                 if (t_min < VRT_LARGE) {
                     // stop at the candidate, the stack cleared
@@ -369,6 +407,7 @@ __device__ void walk(const WalkArgs& a, int i, Lane& L) {
                     L.suspended = true;
                     L.s0 = L.s1 = L.s2 = L.s3 = L.s4 = 0;
                     L.scount = 0;
+                    L.stk = true;
                 } else {
                     want_pop = true;
                 }
@@ -380,13 +419,12 @@ __device__ void walk(const WalkArgs& a, int i, Lane& L) {
                 if (closer || tie_better) {
                     L.best_t = t_min; L.bx = w1_sel; L.by = w2_sel;
                     L.tri = tid_sel; L.best_inst = L.inst;
+                    L.hit = true;
                 }
                 want_pop = true;
             }
         } else if (kind == 2u) {
             // ---- instance: world ray -> object space, on to the BLAS root
-            const uint4 w4 = __ldg(nrow + 4), w5 = __ldg(nrow + 5);
-            const uint4 w6 = __ldg(nrow + 6), w7 = __ldg(nrow + 7);
             const float m0 = __uint_as_float(w4.x), m1 = __uint_as_float(w4.y);
             const float m2 = __uint_as_float(w4.z), m3 = __uint_as_float(w4.w);
             const float m4 = __uint_as_float(w5.x), m5 = __uint_as_float(w5.y);
@@ -403,6 +441,7 @@ __device__ void walk(const WalkArgs& a, int i, Lane& L) {
             L.liy = rcp_clamped(L.ldy);
             L.liz = rcp_clamped(L.ldz);
             L.inst = left;
+            L.entered = true;
             nxt = (int)w7.x;
         }
 
@@ -434,11 +473,16 @@ __device__ void walk(const WalkArgs& a, int i, Lane& L) {
     }
 }
 
+// A lane that is done or suspended at entry touches nothing but its two
+// flags.
 __global__ void __launch_bounds__(VRT_BLOCK) traverse_wide_kernel(
         const __grid_constant__ WalkArgs a) {
     const int i = blockIdx.x * VRT_BLOCK + threadIdx.x;
     if (i >= a.n_rays) return;
     Lane L;
+    L.suspended = ld<uint8_t>(a.st, F_SUSPENDED, i) != 0;
+    L.done = ld<uint8_t>(a.st, F_DONE, i) != 0;
+    if (L.suspended || L.done) return;
     load_lane(a, i, L);
     walk(a, i, L);
     store_lane(a, i, L);
@@ -451,13 +495,13 @@ extern "C" const char* vrt_error_string(int err) {
 }
 
 // Launches the walk on `stream` and returns the first CUDA error (0 = ok).
-// `st_in` and `st_out` are host arrays of the 43 WideState fields' device
-// pointers, in WideState's order; the caller allocates every output.
+// `state` is a host array of the 43 WideState fields' device pointers, in
+// WideState's order, which the walk updates in place (distinct fields).
 extern "C" int vrt_traverse_wide(
         const void* nodes, const void* rows,
         const void* ox, const void* oy, const void* oz,
         const void* dx, const void* dy, const void* dz,
-        void* const* st_in, void* const* st_out,
+        void* const* state,
         int n_rays, int n_nodes, int n_rows, int row_words, int lmax,
         int num_tlas, int suspend, int max_steps, void* stream) {
     if (n_rays <= 0) return 0;
@@ -470,14 +514,19 @@ extern "C" int vrt_traverse_wide(
     a.rows = (const float4*)rows;
     a.ox = (const float*)ox; a.oy = (const float*)oy; a.oz = (const float*)oz;
     a.dx = (const float*)dx; a.dy = (const float*)dy; a.dz = (const float*)dz;
-    for (int k = 0; k < F_COUNT; ++k) {
-        a.in[k] = st_in[k];
-        a.out[k] = st_out[k];
-    }
+    for (int k = 0; k < F_COUNT; ++k) a.st[k] = state[k];
     a.n_rays = n_rays; a.n_nodes = n_nodes; a.n_rows = n_rows;
     a.row_vec4 = row_words / 4; a.lmax = lmax; a.num_tlas = num_tlas;
     a.suspend = suspend; a.max_steps = max_steps;
     const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
     traverse_wide_kernel<<<grid, VRT_BLOCK, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
+}
+
+// Blocks of the kernel an SM holds, or minus a CUDA error.
+extern "C" int vrt_traverse_wide_blocks_per_sm() {
+    int n = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, traverse_wide_kernel, VRT_BLOCK, 0);
+    return err == cudaSuccess ? n : -(int)err;
 }

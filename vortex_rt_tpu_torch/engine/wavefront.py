@@ -201,7 +201,9 @@ def _trace_pool(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
     (shadow rays).  With an any-hit shader the walk runs in rounds: K3
     to each ray's next candidate, ``shade_point`` there, the shader's
     actions, ``commit``, until no ray is suspended (one 1-byte read a
-    round).  Returns (Hits, total steps as a 0-dim tensor); a dead lane's
+    round).  The walk updates the pool's own state in place (on a card, a
+    lane that is done or suspended passes a round by reading its two
+    flags).  Returns (Hits, total steps as a 0-dim tensor); a dead lane's
     ``dist`` is -1."""
     ox, oy, oz, dx, dy, dz = lanes
     clamp = (torch.full_like(ox, LARGE_FLOAT) if t_clamp is None
@@ -210,7 +212,7 @@ def _trace_pool(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
     st = st._replace(best_t=torch.where(alive, clamp,
                                         torch.full_like(clamp, -1.0)),
                      done=~alive)
-    visited0 = st.nodes_visited
+    visited0 = st.nodes_visited.clone()   # (the walks write the state)
     if table.anyhit is None:
         st = walk_lanes(wa, ox, oy, oz, dx, dy, dz, state=st)
         return lanes_hits(wa, st), (st.nodes_visited - visited0).sum()

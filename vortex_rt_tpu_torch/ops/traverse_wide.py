@@ -527,8 +527,8 @@ def trace_lanes(wa: WideArrays, ox, oy, oz, dx, dy, dz,
     lanes = (ox, oy, oz, dx, dy, dz)
     if state is None:
         state = init_state_lanes(*lanes, t_max)
-    st = walk_lanes(wa, *lanes, state=state, suspend=suspend,
-                    max_steps=max_steps)
+    st = walk_lanes(wa, *lanes, state=WideState(*(a.clone() for a in state)),
+                    suspend=suspend, max_steps=max_steps)
     return lanes_hits(wa, st), st, _perf(state, st)
 
 
@@ -536,14 +536,22 @@ def walk_lanes(wa: WideArrays, ox, oy, oz, dx, dy, dz,
                state: Optional[WideState] = None, suspend: bool = False,
                max_steps: int = MAX_LANE_STEPS, t_max: float = LARGE_FLOAT
                ) -> WideState:
-    """The walk of ``trace_lanes`` alone: only its new state (on a card,
-    one K3 launch and nothing else).  The pool path's suspension rounds
-    call this."""
+    """The walk of ``trace_lanes`` alone, in place: it writes ``state`` (a
+    fresh one if None) and returns it (on a card, one K3 launch and
+    nothing else: a lane that is done or suspended reads its two flags
+    and nothing more, a lane that walks writes only the fields it
+    changed).  The pool path's suspension rounds call this on the state
+    they own; its fields must be distinct tensors."""
+    lanes = (ox, oy, oz, dx, dy, dz)
+    if state is None:
+        state = init_state_lanes(*lanes, t_max)
+    if ox.shape[0] and len({a.data_ptr() for a in state}) != len(state):
+        raise ValueError("an in-place walk needs distinct state fields")
     if ox.device.type == "cpu":
-        lanes = (ox, oy, oz, dx, dy, dz)
-        if state is None:
-            state = init_state_lanes(*lanes, t_max)
-        return _lanes_ref(wa, lanes, state, suspend, max_steps, False)[0]
+        new = _lanes_ref(wa, lanes, state, suspend, max_steps, False)[0]
+        for a, b in zip(state, new):
+            a.copy_(b)
+        return state
     return kernel_call(wa, ox, oy, oz, dx, dy, dz, state, suspend, max_steps,
                        t_max)()
 
@@ -551,11 +559,11 @@ def walk_lanes(wa: WideArrays, ox, oy, oz, dx, dy, dz,
 def kernel_call(wa: WideArrays, ox, oy, oz, dx, dy, dz,
                 state: Optional[WideState] = None, suspend: bool = False,
                 max_steps: int = MAX_LANE_STEPS, t_max: float = LARGE_FLOAT):
-    """The K3 launch of ``trace_lanes`` for CUDA tensors, inputs checked
-    and the output state allocated once.  Each call of the returned
-    function launches the kernel from ``state`` into the same output
-    state and returns that state, and launches nothing else, so CUDA
-    events around many calls time the kernel."""
+    """The K3 launch of ``walk_lanes`` for CUDA tensors, inputs checked.
+    Each call of the returned function walks ``state`` (a fresh one if
+    None) in place and returns it, and launches nothing else; a timing
+    loop puts the input state back between calls (``copy_``), or CUDA
+    events around many calls time walks of an already walked state."""
     lanes = (ox, oy, oz, dx, dy, dz)
     if state is None:
         state = init_state_lanes(*lanes, t_max)
@@ -569,22 +577,21 @@ def kernel_call(wa: WideArrays, ox, oy, oz, dx, dy, dz,
     if wa.nodes.data_ptr() % 16 or wa.tri_rows.data_ptr() % 16:
         raise ValueError("the kernel reads table rows as 16-byte vectors: "
                          "nodes and tri_rows must be 16-byte aligned")
+    if not all(a.is_contiguous() for a in state):
+        raise ValueError("an in-place walk needs a contiguous state")
     lanes = tuple(a.contiguous() for a in lanes)
-    st_in = WideState(*(a.contiguous() for a in state))
-    st_out = WideState(*(torch.empty_like(a) for a in st_in))
     ptr_t = ctypes.c_void_p * len(WideState._fields)
     dev = ox.device
 
     def launch() -> WideState:
-        # the closure holds st_in and st_out: their addresses are taken
-        # here, at each launch, never kept past the tensors
-        p_in = ptr_t(*(a.data_ptr() for a in st_in))
-        p_out = ptr_t(*(a.data_ptr() for a in st_out))
+        # the closure holds the state and the lanes: their addresses are
+        # taken here, at each launch, never kept past the tensors
+        ptrs = ptr_t(*(a.data_ptr() for a in state))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.lib.vrt_traverse_wide(
                 wa.nodes.data_ptr(), wa.tri_rows.data_ptr(),
-                *(a.data_ptr() for a in lanes), p_in, p_out, r,
+                *(a.data_ptr() for a in lanes), ptrs, r,
                 wa.nodes.shape[0], wa.tri_rows.shape[0],
                 wa.tri_rows.shape[1], max(int(wa.max_leaf_tris), 1),
                 int(wa.num_tlas), int(bool(suspend)), int(max_steps), stream)
@@ -593,7 +600,7 @@ def kernel_call(wa: WideArrays, ox, oy, oz, dx, dy, dz,
                                f"{lib.error_string(err)} ({err})")
         if r > 0:
             kernels.LAUNCHES["traverse_wide"] += 1
-        return st_out
+        return state
 
     return launch
 

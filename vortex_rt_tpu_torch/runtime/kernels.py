@@ -65,7 +65,8 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     },
     # K3, the per-ray walk with any-hit suspension (ops/traverse_wide.py)
     "traverse_wide": {
-        "vrt_traverse_wide": ([_P] * 10 + [_I] * 8 + [_P], _I),
+        "vrt_traverse_wide": ([_P] * 9 + [_I] * 8 + [_P], _I),
+        "vrt_traverse_wide_blocks_per_sm": ([], _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
     # K6, the binary TLAS+BLAS walk of the megakernel (ops/traverse2.py)
@@ -102,10 +103,13 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
                                + [_P] * 4, _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
-    # a level of the sweep-SAH tree (accel/lbvh.py, method="sah")
+    # the sweep-SAH tree, every level in one launch (accel/lbvh.py,
+    # method="sah")
     "lbvh_sah": {
-        "vrt_sah_split": ([_P] * 11 + [_I, _P], _I),
-        "vrt_sah_assign": ([_P] * 13 + [_I, _P], _I),
+        "vrt_sah_blocks": ([_I], _I),
+        "vrt_sah_scratch": ([_I, _I], ctypes.c_longlong),
+        "vrt_sah_live_offset": ([_I, _I], ctypes.c_longlong),
+        "vrt_sah_sweep": ([_P, _P, _I, _I] + [_P] * 5 + [_P], _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
     # the on-device PLOC build and level refit (accel/ploc.py)

@@ -36,13 +36,21 @@ of an instance node, 40 B per triangle slot; in alpha mode 32 B of
 alpha fields per slot whose candidate is tested and 4 B per alpha-pool
 entry read).  A wave in which no ray walks reads none of the tables.
 
-K3 (``k3_bound``), per launch: every ray reads its world ray (24 B) and
-its whole walk state and writes the state back (``STATE_BYTES`` = 166 B
-each way: 41 words and 2 flags), whether or not it steps; of the tables,
-each row a ray visits is read once, and only the words K3 uses of it
+K3 (``k3_bound``), per launch, given the walk's state before and after
+it: a ray done or suspended at entry reads its two flags (2 B); a ray
+that steps reads its world ray (24 B) and the fields the walk reads
+(``K3_READ_WORDS`` = 29 words: node, level, the 8 trail words, the 5
+stack entries and their count, the instance, the 9 floats of the local
+ray, best_t, nodes_visited, tri_tests; then the best hit's 2 ids without
+suspension or the barrier's 3 words with it; and the 2 flags), and
+writes the fields whose bits the walk changed; of the tables, each row a
+ray visits is read once, and only the words K3 uses of it
 (``lanes_work``, K2's convention: 16 B of meta at every step, then 48 B
 of child boxes at an internal node or 64 B of transform and BLAS root at
-an instance node, and 40 B per triangle slot of a leaf's row).
+an instance node, and 40 B per triangle slot of a leaf's row).  Without
+the states, the first version's figure: every ray reads its world ray
+and its whole state and writes the state back (``STATE_BYTES`` = 166 B
+each way: 41 words and the 2 flags), walking or not.
 
 K6 (``k6_bound``), the binary TLAS+BLAS walk over float boxes: a child
 box test costs ``OPS_PER_BOX`` = 25 (6 FSUB and 6 FMUL for the slab
@@ -58,13 +66,15 @@ left and count, 24 B of a child's box, 4 B of a leaf slot's triangle id,
 inverse transform and BLAS root).
 
 The sweep-SAH tree (``sah_bounds``) runs ``levels`` levels over ``l``
-positions.  Its least work a level: every position's leaf box (24 B) and
-range state (seg_lo, seg_hi, node: 12 B) read, the state written back
-(12 B), and ``OPS_SAH`` = 41 operations (6 min/max for each of the two
+positions.  Its least work a level, for each position in a range longer
+than one (``live``, the plain version's count at the start of each
+level): its leaf box read (24 B; the range state of a position can stay
+on chip), and ``OPS_SAH`` = 41 operations (6 min/max for each of the two
 box scans, 11 for each half area, 3 for the cost, 4 comparisons for the
 middle-half window); the tree (lchild, rchild, lo, hi: 16 B an internal)
-written once.  Beside it, each of its kernels' own reads and writes a
-level (``SAH_KERNEL_BYTES``).
+written once.  Without ``live``, the first version's figure: every
+position at every level, its box and range state (seg_lo, seg_hi, node:
+12 B) read and the state written back (``SAH_BYTES_EVERY`` = 48 B).
 
 The LBVH and PLOC kernels (``lbvh_bounds``, ``ploc_bounds``) do integer
 and min/max work (the PLOC window costs: 11 FP32 operations per pair,
@@ -98,13 +108,10 @@ STATE_BYTES = 41 * 4 + 2
 OPS_PER_BOX = 25
 K6_OUT_BYTES = 32
 OPS_SAH = 41
-# bytes a position of each sweep-SAH kernel reads and writes a level: the
-# in-tile scans (box and range in, two scanned boxes and the key's reset
-# out), the cost (two scanned boxes and the ranges in, a key), the split
-# (the range in, the count out), the move (the range, node and sums in,
-# the range and node out); the carry scan reads and writes 32 B a tile
-SAH_KERNEL_BYTES = {"tiles_kernel": 32 + 48 + 8, "cost_kernel": 48 + 12 + 8,
-                    "split_kernel": 8 + 4, "assign_kernel": 12 + 8 + 12}
+SAH_BOX_BYTES = 24
+SAH_BYTES_EVERY = 48
+FLAG_BYTES = 2
+K3_READ_WORDS = 29
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,13 +166,29 @@ def k2_bound(work) -> Bound:
     return walk_bound(work, OPS_SORT4)
 
 
-def k3_bound(work) -> Bound:
+def k3_bound(work, before=None, after=None, suspend: bool = False
+             ) -> Bound:
     """K3: one launch of the per-ray walk over the 4-wide tables, from
-    the ``WalkWork`` of ``ops/traverse_wide.lanes_work``."""
+    the ``WalkWork`` of ``ops/traverse_wide.lanes_work`` and the
+    ``WideState`` before and after it (``suspend``: the launch's mode);
+    without the states, the first version's figure."""
+    import torch
+
     r = int(work.internal.numel())
+    if before is None:
+        lanes = r * (WORLD_RAY_BYTES + 2 * STATE_BYTES)
+    else:
+        walking = (work.internal + work.leaf + work.instance) > 0
+        n = int(walking.sum())
+        read = 4 * (K3_READ_WORDS + (3 if suspend else 2)) + FLAG_BYTES
+        written = 0
+        for a, b in zip(before, after):
+            if a.dtype == torch.float32:   # bits, not values
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            written += int(((a != b) & walking).sum()) * a.element_size()
+        lanes = (r - n) * FLAG_BYTES + n * (WORLD_RAY_BYTES + read) + written
     return Bound(ops=walk_ops(work, OPS_SORT4),
-                 bytes=r * (WORLD_RAY_BYTES + 2 * STATE_BYTES)
-                 + int(work.row_bytes.sum()))
+                 bytes=lanes + int(work.row_bytes.sum()))
 
 
 def k6_bound(work) -> Bound:
@@ -193,16 +216,16 @@ def k6_record_bytes(work, n_pool: int, n_slots: int) -> int:
                + walking * WORLD_RAY_BYTES + r * (1 + K6_OUT_BYTES))
 
 
-def sah_bounds(l: int, levels: int) -> dict:
-    """Bounds of the sweep-SAH tree over ``l`` leaf boxes in ``levels``
-    levels: the whole tree (``lbvh_sah``) and each kernel's reads and
-    writes (``SAH_KERNEL_BYTES``; ``carry_kernel`` 32 B a tile)."""
-    out = {"lbvh_sah": Bound(ops=OPS_SAH * l * levels,
-                             bytes=48 * l * levels + 16 * (l - 1))}
-    for name, b in SAH_KERNEL_BYTES.items():
-        out[name] = Bound(0, b * l * levels)
-    out["carry_kernel"] = Bound(0, 32 * 2 * ((l + 1023) // 1024) * levels)
-    return out
+def sah_bounds(l: int, levels: int, live=None) -> Bound:
+    """Bound of the sweep-SAH tree over ``l`` leaf boxes in ``levels``
+    levels; ``live`` the positions in ranges longer than one at the start
+    of each level (``_sah_sweep_tree_ref(..., live=[])``), or None for
+    the first version's figure."""
+    if live is None:
+        n = l * levels
+        return Bound(ops=OPS_SAH * n, bytes=SAH_BYTES_EVERY * n + 16 * (l - 1))
+    n = sum(int(x) for x in live[:levels])
+    return Bound(ops=OPS_SAH * n, bytes=SAH_BOX_BYTES * n + 16 * (l - 1))
 
 
 def k7_bound(rows: int, steps: int, k: int, words: int) -> Bound:

@@ -16,7 +16,17 @@ Waves, each captured from a real frame of that tree's renderer:
   the textured atrium's 4-wide TLAS build in alpha mode (512x512); and
   the atrium's 4-wide TLAS build (MK-B's scene) at 1920x1080, 2,073,600
   rays;
-- K1, unchanged, for the spread: config 2's 8-wide primary wave.
+- K1, unchanged, for the spread: config 2's 8-wide primary wave;
+- K3 (``--parts k3``), on ladder row 6's scene (the textured atrium,
+  ``alpha_test_anyhit(0.30)``) in the 4-wide TLAS build: the first
+  suspension round of the 192x192 parity frame's primary wave (73,728
+  lanes), launched as that tree's pool path launches it (in place where
+  the tree's K3 walks in place, the state put back before each launch by
+  copies the profiler keeps apart; else out of place);
+  then whole pool frames (``RTConfig(packet_size=0)``) at 192x192 (row
+  6's gate) and 512x512: their K3 launches, K3's summed kernel time
+  (profiler) and the frame's wall time (host clock, host-paced); each
+  frame's image hashed.
 
 Each wave is timed by the profiler's kernel time (mean of ``--reps``
 launches of the bare ``kernel_call`` after a warm-up; CUDA events around
@@ -32,8 +42,11 @@ show whether they gave the same records.  Prints each kernel's ptxas line
 renderer made and one frame) and, last, one JSON line with the card's
 name and power limit.
 
-``--variants`` (this tree only) also builds copies of ``traverse2.cu`` and
-``packet_walk.cu`` with one design piece changed each (``VARIANTS``: K6
+``--variants`` (this tree only) also builds copies of ``traverse2.cu``,
+``packet_walk.cu`` and ``traverse_wide.cu`` with one design piece changed
+each (``VARIANTS``: K3 with its row's loads in two rounds (the meta
+quarter, then the boxes or the transform), or its registers bounded for
+5 or 6 blocks an SM; K6
 with its registers bounded for 8 or 7 blocks an SM, its stack in local
 memory, the boxes' loads made to wait for the header, one loop over all
 kinds instead of while-while, or one of its two loops a single step an
@@ -44,7 +57,8 @@ outputs (the hashes) and times it beside the kernel in turns on the same
 waves, and on the sum of config 2's 8 waves.
 
     python vortex_rt_tpu_torch/tools/walk_timing.py [--root DIR]
-        [--reps 20] [--frames 4] [--variants] [--out FILE]
+        [--parts k6,k2,k3] [--reps 20] [--frames 4] [--variants]
+        [--out FILE]
 
 (run as a file, so that the package imported is the one at ``--root``).
 Needs the card; the kernels build under ``DIR/build/torch_kernels/``.
@@ -64,7 +78,10 @@ EYE2 = ([0.05, 0.02, -3.2], [0.0, -0.05, 0.0], [0, 1, 0], 45.0, 1.0)
 LIGHT2 = (0.0, 0.8, -0.5)
 HD = (1920, 1080)
 KERNEL = {"traverse2": "traverse2_kernel", "packet_walk": "packet_walk_kernel",
-          "traverse_packet": "traverse_packet_kernel"}
+          "traverse_packet": "traverse_packet_kernel",
+          "traverse_wide": "traverse_wide_kernel"}
+PART_LIBS = {"k6": ("traverse2",), "k2": ("packet_walk", "traverse_packet"),
+             "k3": ("traverse_wide",)}
 _ONE_LOOP_K6 = [("while (live && rec.h.x == KIND_INTERNAL) {",
                  "if (live && rec.h.x == KIND_INTERNAL) {"),
                 ("while (live && rec.h.x != KIND_INTERNAL) {",
@@ -109,6 +126,32 @@ VARIANTS = {
     "k2_while_while": ("packet_walk", _WHILE_K2),
     "k2_internal_while": ("packet_walk", _WHILE_K2[:1]),
     "k2_leaf_while": ("packet_walk", _WHILE_K2[1:]),
+    # the meta quarter first, then the boxes or the transform and root
+    "k3_two_rounds": ("traverse_wide", [
+        ("""const uint4 w0 = __ldg(nrow + 0), w1 = __ldg(nrow + 1);
+        const uint4 w2 = __ldg(nrow + 2), w3 = __ldg(nrow + 3);
+        uint4 w4 = w3, w5 = w3, w6 = w3, w7 = w3;
+        if (in_tlas) {
+            w4 = __ldg(nrow + 4); w5 = __ldg(nrow + 5);
+            w6 = __ldg(nrow + 6); w7 = __ldg(nrow + 7);
+        }""", "const uint4 w3 = __ldg(nrow + 3);"),
+        ("""// ---- internal: 4 slab tests, the 5-swap far -> near network
+""", """// ---- internal: 4 slab tests, the 5-swap far -> near network
+            const uint4 w0 = __ldg(nrow + 0), w1 = __ldg(nrow + 1);
+            const uint4 w2 = __ldg(nrow + 2);
+"""),
+        ("""// ---- instance: world ray -> object space, on to the BLAS root
+""", """// ---- instance: world ray -> object space, on to the BLAS root
+            const uint4 w4 = __ldg(nrow + 4), w5 = __ldg(nrow + 5);
+            const uint4 w6 = __ldg(nrow + 6), w7 = __ldg(nrow + 7);
+""")]),
+    # registers bounded for 5 or 6 blocks of 128 an SM (102 or 85)
+    "k3_blocks5": ("traverse_wide", [(
+        "__global__ void __launch_bounds__(VRT_BLOCK) traverse_wide_kernel(",
+        "__global__ void __launch_bounds__(VRT_BLOCK, 5) traverse_wide_kernel(")]),
+    "k3_blocks6": ("traverse_wide", [(
+        "__global__ void __launch_bounds__(VRT_BLOCK) traverse_wide_kernel(",
+        "__global__ void __launch_bounds__(VRT_BLOCK, 6) traverse_wide_kernel(")]),
 }
 
 
@@ -125,17 +168,20 @@ def _events_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _variant_libs(kernels) -> dict:
-    """Build ``VARIANTS`` from this tree's sources under
-    ``build/walk_variants/`` (headers copied beside): {name: library}."""
+def _variant_libs(kernels, libs=None) -> dict:
+    """Build ``VARIANTS`` (of the libraries ``libs``, all by default) from
+    this tree's sources under ``build/walk_variants/`` (headers copied
+    beside): {name: library}."""
     import shutil
 
     out_dir = kernels.BUILD_DIR.parent / "walk_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     for hdr in kernels.SRC_DIR.glob("*.cuh"):
         shutil.copy(hdr, out_dir / hdr.name)
-    libs = {}
+    built = {}
     for name, (lib, edits) in VARIANTS.items():
+        if libs is not None and lib not in libs:
+            continue
         text = (kernels.SRC_DIR / f"{lib}.cu").read_text()
         for old, new in edits:
             if text.count(old) != 1:
@@ -143,13 +189,16 @@ def _variant_libs(kernels) -> dict:
             text = text.replace(old, new)
         src = out_dir / f"{name}.cu"
         src.write_text(text)
-        libs[name] = kernels.load_file(lib, src)
-    return libs
+        built[name] = kernels.load_file(lib, src)
+    return built
 
 
 def _through(kernels, name: str, lib, make):
-    """``make()`` with kernel library ``name`` taken from ``lib``: a
-    launcher made so keeps that library."""
+    """``make()`` with kernel library ``name`` taken from ``lib`` (None:
+    the tree's own) for every load during it: a launcher made so keeps
+    that library."""
+    if lib is None:
+        return make()
     saved = kernels._loaded.get(name)
     kernels._loaded[name] = lib
     try:
@@ -159,6 +208,22 @@ def _through(kernels, name: str, lib, make):
             kernels._loaded.pop(name)
         else:
             kernels._loaded[name] = saved
+
+
+def pool_lanes(cam, w: int, h: int, spp: int, dev):
+    """The ray lanes of a pool frame's first wave (every sample of every
+    pixel, a pixel's samples adjacent, tile-major), as the suspension
+    engine's primary wave traces them."""
+    import torch
+
+    from vortex_rt_tpu_torch.engine import wavefront as wf
+    from vortex_rt_tpu_torch.engine.megakernel import CameraArrays
+
+    lane = torch.arange(w * h * spp, dtype=torch.int64, device=dev)
+    q = lane // spp
+    pxi, pyi = wf._tile_pixel_ids(q, w, 16, 16)
+    return wf._camera_from_pix(CameraArrays.from_camera(cam, dev), w, h,
+                               pxi, pyi, pyi * w + pxi, lane % spp, spp)
 
 
 def _digest(tensors) -> str:
@@ -225,6 +290,8 @@ def megakernel_waves(r, cam, p, w: int, h: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--parts", default="k6,k2,k3",
+                    help="k6 (MK-A, MK-B), k2 (with K1's wave), k3")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--frames", type=int, default=4)
     ap.add_argument("--variants", action="store_true",
@@ -235,16 +302,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(root))
     import torch
 
-    from vortex_rt_tpu_torch import (
-        Camera, RenderParams, RTConfig, Scene, WavefrontRenderer,
-    )
-    from vortex_rt_tpu_torch.engine.megakernel import MegakernelRenderer
-    from vortex_rt_tpu_torch.models import bigscenes, procedural
     from vortex_rt_tpu_torch.ops import packet_walk as pw
     from vortex_rt_tpu_torch.ops import traverse2 as t2
     from vortex_rt_tpu_torch.ops import traverse_packet as tp
     from vortex_rt_tpu_torch.runtime import kernels
-    from vortex_rt_tpu_torch.tools import bench_ladder
     from vortex_rt_tpu_torch.tools import walk_bounds as wb
     from vortex_rt_tpu_torch.tools.profile_frames import (
         kernel_events, ms_by_name,
@@ -259,13 +320,15 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip().splitlines()[0]
-    libs = kernels.load_all(["traverse2", "packet_walk", "traverse_packet"])
+    parts = args.parts.split(",")
+    lib_names = [n for p in parts for n in PART_LIBS[p]]
+    libs = kernels.load_all(lib_names)
     packs = hasattr(t2, "pack_walk_tables")
     out = {"root": str(root), "card": card, "packed_k6": packs,
-           "reps": args.reps,
+           "reps": args.reps, "parts": parts,
            "ptxas": {n: _ptxas(lib.build_log) for n, lib in libs.items()},
-           "k6": {}, "k2": {}, "k1": {}}
-    variants = _variant_libs(kernels) if args.variants else {}
+           "k6": {}, "k2": {}, "k1": {}, "k3": {}}
+    variants = _variant_libs(kernels, lib_names) if args.variants else {}
     for n, lib in variants.items():
         out["ptxas"][n] = _ptxas(lib.build_log)
     for n, line in out["ptxas"].items():
@@ -332,7 +395,34 @@ def main(argv=None) -> int:
         out[kind][label] = rec
         print(f"{kind.upper()} {label}: {rec}", file=sys.stderr)
 
-    # ---- K6: MK-A and MK-B
+    if "k3" in parts:
+        k3_part(args, out, dev, timed, variants)
+    if "k6" in parts:
+        k6_part(args, out, dev, k6_wave)
+    if "k2" in parts:
+        k2_part(args, out, dev, walk_wave)
+    line = json.dumps(out)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    print(line)
+    return 0
+
+
+def k6_part(args, out, dev, k6_wave) -> None:
+    """K6 on MK-A's and MK-B's waves, and in MK-A's frames."""
+    import torch
+
+    from vortex_rt_tpu_torch import Camera, RenderParams, RTConfig, Scene
+    from vortex_rt_tpu_torch.engine.megakernel import MegakernelRenderer
+    from vortex_rt_tpu_torch.models import bigscenes, procedural
+    from vortex_rt_tpu_torch.ops import traverse2 as t2
+    from vortex_rt_tpu_torch.tools.profile_frames import (
+        kernel_events, ms_by_name,
+    )
+
+    packs = hasattr(t2, "pack_walk_tables")
     sc = Scene()
     for mesh, refl in procedural.cornell_box():
         sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
@@ -370,9 +460,25 @@ def main(argv=None) -> int:
     o, d, _ = megakernel_waves(rb, camb, RenderParams(spp=1, max_depth=1),
                                *HD)[0]
     k6_wave("mk_b_primary", rb.ta, o, d, None)
-    del ra, rb, o, d
 
-    # ---- K2: config 2 4-wide, row 6 TLAS alpha, the 1080p atrium TLAS
+
+def k2_part(args, out, dev, walk_wave) -> None:
+    """K2 on config 2's 4-wide waves and frames, row 6's TLAS primary
+    wave in alpha mode and the atrium's TLAS at 1080p; K1 on config 2's
+    primary wave."""
+    import torch
+
+    from vortex_rt_tpu_torch import (
+        Camera, RenderParams, RTConfig, Scene, WavefrontRenderer,
+    )
+    from vortex_rt_tpu_torch.models import bigscenes, procedural
+    from vortex_rt_tpu_torch.ops import packet_walk as pw
+    from vortex_rt_tpu_torch.tools import bench_ladder
+    from vortex_rt_tpu_torch.tools.profile_frames import (
+        kernel_events, ms_by_name,
+    )
+
+    cam2 = Camera.look_at(*EYE2)
     sc = Scene()
     for mesh, refl in procedural.cornell_box():
         sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
@@ -407,18 +513,111 @@ def main(argv=None) -> int:
     o, d, kw = _capture(r6, cam6, p6, 512, 512)[0]
     walk_wave("k2", "row6_tlas_alpha_primary", r6.wa, o, d, kw)
     del r6, sc6
+    sc = Scene()
+    for mesh, refl in bigscenes.atrium():
+        sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
+    sb_b = sc.build(RTConfig())
+    camb = Scene.framing_camera(sb_b, 45.0, HD[0] / HD[1], zoom=1.0)
     rh = WavefrontRenderer.from_buffers(sb_b, cfg, device=dev)
     o, d, kw = _capture(rh, camb, RenderParams(spp=1, max_depth=1), *HD)[0]
     walk_wave("k2", "atrium_tlas_1080p_primary", rh.wa, o, d, kw)
     out["atrium_tlas_depth"] = int(rh.wa.depth)
     out["atrium_tlas_stack_entries"] = pw.stack_entries(rh.wa)
-    line = json.dumps(out)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        with open(args.out, "a") as f:
-            f.write(line + "\n")
-    print(line)
-    return 0
+
+
+def k3_part(args, out, dev, timed, variants) -> None:
+    """K3's readings on row 6's scene in the 4-wide TLAS build: the
+    parity frame's first suspension round, and whole pool frames."""
+    import inspect
+    import time
+
+    import torch
+
+    from vortex_rt_tpu_torch import RTConfig, WavefrontRenderer
+    from vortex_rt_tpu_torch.ops import traverse_wide as tw
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import bench_ladder
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
+    from vortex_rt_tpu_torch.tools.profile_frames import (
+        kernel_events, ms_by_name,
+    )
+
+    kname = KERNEL["traverse_wide"]
+    sc6, _, cam6, p6, table = bench_ladder.setup6(dev)
+    cfg = RTConfig()
+    wa6 = WavefrontRenderer.from_buffers(sc6.build(cfg), cfg, table,
+                                         device=dev).wa
+    lanes = pool_lanes(cam6, 192, 192, 2, dev)
+    fresh = tw.init_state_lanes(*lanes)
+    # this tree's K3 walks the state it is given (the pool path's rounds);
+    # an earlier tree's wrote a new state, leaving its input as it was
+    probe = tw.init_state_lanes(*lanes)
+    in_place = tw.kernel_call(wa6, *lanes, state=probe, suspend=True)() \
+        is probe
+
+    def first_round():
+        si = tw.init_state_lanes(*lanes)
+        call = tw.kernel_call(wa6, *lanes, state=si, suspend=True)
+        if not in_place:
+            return call
+
+        def run():
+            for a, f in zip(si, fresh):
+                a.copy_(f)
+            return call()
+        return run
+
+    rec, st = timed("traverse_wide", first_round, lambda r: tuple(r))
+    if in_place:   # (events around the put-back copies and the launch)
+        for r in rec.values():
+            r["events_with_copies_ms"] = r.pop("events_ms")
+    res = dict(lanes=int(lanes[0].shape[0]), in_place=in_place,
+               suspended=int(st.suspended.sum()),
+               mean_steps=float(st.nodes_visited.float().mean()),
+               **rec.pop("kernel"), variants=rec, digest=_digest(st))
+    st_w, work = tw.lanes_work(wa6, *lanes, state=fresh, suspend=True)
+    bounds = {"bound_every_lane": wb.k3_bound(work)}
+    if "before" in inspect.signature(wb.k3_bound).parameters:
+        bounds["bound"] = wb.k3_bound(work, fresh, st_w, suspend=True)
+    for k, b in bounds.items():
+        res[f"{k}_ms"], res[f"{k}_by"] = b.ms, b.bound_by
+    if in_place:
+        lib = kernels.load("traverse_wide").lib
+        res["blocks_per_sm"] = lib.vrt_traverse_wide_blocks_per_sm()
+    out["k3"]["parity_first_round"] = res
+    print(f"K3 parity first round: {res}", file=sys.stderr)
+    del work, st_w
+
+    slow_cfg = RTConfig(packet_size=0)
+    r_slow = WavefrontRenderer.from_buffers(sc6.build(slow_cfg), slow_cfg,
+                                            table, device=dev)
+    for label, size in (("parity_frame_192", 192), ("pool_frame_512", 512)):
+        frame = {}
+        for n in ["kernel", *variants]:
+            lib = variants.get(n)
+
+            def render():
+                return _through(kernels, "traverse_wide", lib,
+                                lambda: r_slow.render(cam6, p6, size, size))
+
+            img, rays = render()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            ev = kernel_events(render)
+            frame[n] = dict(
+                k3_ms=sum(e.self_device_time_total for e in ev
+                          if kname in e.key) / 1e3,
+                launches=sum(e.count for e in ev if kname in e.key),
+                wall_ms=wall, rays=int(rays),
+                digest=_digest([torch.from_numpy(img)]))
+        if any(v["digest"] != frame["kernel"]["digest"]
+               for v in frame.values()):
+            raise RuntimeError(f"{label}: a variant's image differs")
+        out["k3"][label] = frame
+        print(f"K3 {label}: {frame}", file=sys.stderr)
 
 
 if __name__ == "__main__":
