@@ -127,8 +127,8 @@ and so exits non-zero, on failure):
     a fill or a reduction;
 12a. K4, each PLOC kernel against its plain version on the card: the
     merge rounds (K4a), the remap and collapse in one launch (K4b), the
-    leaf-row boxes
-    and the refit climb over moved vertices (K4c), the pack from explicit
+    leaf-row boxes and two refits in a row over moved vertices, each one
+    launch into unfilled outputs (K4c), the pack from explicit
     leaf ids (K4d), on phase 11a's three meshes at widths 4 and 8, leaf 4
     and 8, radius 16, and on the grid also at radius 8: every output word
     equal (every ``PLOCTopo`` field, ``n_int`` and ``n_levels``), a
@@ -1614,12 +1614,48 @@ def remap_collapse_ref(lk, rk, lvl, bmn, bmx, n_int, l: int, width: int):
                                           width))
 
 
+def _no_fills(call, refuse: bool = True):
+    """``call()`` with every ``torch.empty`` block it takes full of 0xFF
+    bytes, so that a word the kernels leave unwritten differs from the
+    plain version's, and (``refuse``) with ``torch.zeros``, ``torch.full``
+    and their ``_like`` forms refused: a fill around the kernels
+    raises."""
+    import torch
+
+    saved = {n: getattr(torch, n) for n in ("empty", "empty_like", "zeros",
+                                            "zeros_like", "full",
+                                            "full_like")}
+
+    def poisoned(make):
+        def made(*args, **kwargs):
+            t = make(*args, **kwargs)
+            t.reshape(-1).view(torch.uint8).fill_(255)
+            return t
+        return made
+
+    def refused(*args, **kwargs):
+        raise RuntimeError("a fill around the kernels")
+
+    try:
+        torch.empty = poisoned(saved["empty"])
+        torch.empty_like = poisoned(saved["empty_like"])
+        for n in ("zeros", "zeros_like", "full", "full_like"):
+            if refuse:
+                setattr(torch, n, refused)
+        return call()
+    finally:
+        for n, f in saved.items():
+            setattr(torch, n, f)
+
+
 def ploc_vs_plain(label: str, v0, v1, v2, width: int, leaf: int,
                   radius: int, checked: dict, err: dict):
     """Each K4 kernel against its plain version on the triangles ``v0,
     v1, v2`` (padded, on the card): the merge rounds (K4a), the remap and
-    collapse (K4b), the leaf-row boxes and the refit climb over moved
-    vertices (K4c), and the pack from explicit leaf ids (K4d).  Every
+    collapse (K4b), the leaf-row boxes and the refit over moved vertices
+    (K4c: two refits in a row, each one launch into unfilled outputs, the
+    second with no fill around it, the climb's counters zero after each),
+    and the pack from explicit leaf ids (K4d).  Every
     output word equal (every ``PLOCTopo`` field, ``n_int`` and
     ``n_levels`` among them), a second launch gives the same words, and
     the refit at the build's vertices gives the build's tables.  Adds the
@@ -1629,6 +1665,7 @@ def ploc_vs_plain(label: str, v0, v1, v2, width: int, leaf: int,
     import torch
 
     from vortex_rt_tpu_torch.accel import lbvh, ploc
+    from vortex_rt_tpu_torch.runtime import kernels
 
     def fold(name, calls, *diffs):
         checked[name] += calls
@@ -1660,17 +1697,37 @@ def ploc_vs_plain(label: str, v0, v1, v2, width: int, leaf: int,
              v0, v1, v2, order, row_tids, row_cnt), rows))
     lb, pt = ploc.build_ploc_topo(v0, v1, v2, leaf_size=leaf, width=width,
                                   radius=radius)
+    cuda = v0.device.type == "cuda"
     _same_bits(f"{label} the build's topology", (
         *pt.topo[:8], pt.topo.row_cnt, pt.topo.parent, pt.leaf_tids,
         pt.level, pt.n_int), (
         order, *rm[:2], *col[:5], row_cnt, rm[5], row_tids, rm[2], n_int))
     moved = tuple(v + 0.25 * torch.sin(v.flip(1)) for v in (v0, v1, v2))
-    boxes = ploc._refit_boxes_ploc(pt, *moved)
+
+    def refit(first):
+        # on the card: one launch into unfilled outputs; no fill around
+        # it, but for the climb's counters at a topology's first refit
+        before = kernels.LAUNCHES["ploc_refit"]
+        out = (_no_fills(lambda: ploc._refit_boxes_ploc(pt, *moved),
+                         refuse=not first) if cuda
+               else ploc._refit_boxes_ploc(pt, *moved))
+        _sync(v0.device)
+        _check(not cuda or kernels.LAUNCHES["ploc_refit"] == before + 1,
+               f"{label}: a refit frame's boxes took "
+               f"{kernels.LAUNCHES['ploc_refit'] - before} launches, "
+               f"expected 1")
+        if cuda:
+            arrived = lbvh.topo_state(pt.topo).ploc_arrived
+            _check(not bool(arrived.any()),
+                   f"{label}: the refit left its counters set")
+        return out
+
+    # two refits in a row: the counters reset themselves
+    boxes = refit(True)
     fold("ploc_refit", 2,
          _same_bits(f"{label} refit boxes", boxes,
                     ploc._refit_boxes_ploc_ref(pt, *moved)),
-         _same_bits(f"{label} refit boxes again",
-                    ploc._refit_boxes_ploc(pt, *moved), boxes))
+         _same_bits(f"{label} refit boxes again", refit(False), boxes))
     kw = dict(leaf_size=leaf, width=width, fused=width == 8,
               leaf_tids=pt.leaf_tids)
     got = lbvh._pack_rows(pt.topo, *boxes, *moved, **kw)
@@ -1760,7 +1817,7 @@ def ploc_times(label: str, v, width: int, leaf: int, radius: int, pt, live,
         # (a CPU rehearsal has no device time)
         cuda = device.type == "cuda"
         ms = _device_ms(call, reps) if cuda else float("nan")
-        parts, other = {}, []
+        parts, other, ops = {}, [], float("nan")
         if cuda:
             # its kernels alone, and the rest of the device time (the
             # prefix sums and fills around them), from the profiler
@@ -1771,11 +1828,19 @@ def ploc_times(label: str, v, width: int, leaf: int, radius: int, pt, live,
             parts = ms_by_name(kern, names, reps)
             other = [(e.key[:48], e.self_device_time_total / 1e3 / reps)
                      for e in kern if not any(n in e.key for n in names)][:3]
+            # device operations a call (kernels, fills, copies); not
+            # measured where the session recorded none, and a late session
+            # may record part of them: a refit frame's boxes are at most
+            # its one kernel, and nothing else
+            ops = sum(e.count for e in kern) / reps if kern else float("nan")
+            _check(name != "ploc_refit_climb" or (not other and not ops > 1),
+                   f"{label}: a refit frame's boxes took {ops} device "
+                   f"operations: {other}")
         plain_ms = _elapsed_ms(plain, 1, device)
         b = bounds[name]
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b.ms,
                          bound_by=b.bound_by, bound_bytes=b.bytes,
-                         kernel_ms=parts, other_ms=other)
+                         kernel_ms=parts, other_ms=other, device_ops=ops)
         if cuda:
             # the host's time a call: the wrapper's pace when it is longer
             # than its kernels'
@@ -1799,6 +1864,8 @@ def ploc_times(label: str, v, width: int, leaf: int, radius: int, pt, live,
               + (f"; host {out[name]['host_ms']:.4f} ms a call" if cuda
                  else ""))
     if device.type == "cuda":
+        print(f"  a refit frame's device operations at T {l}: "
+              f"{out['ploc_refit_climb']['device_ops']}")
         t = ploc.tail_size(leaf)
         tails = {f"T={t}": t, f"T/4={t // 4}": t // 4, "grid only (T=2)": 2}
         out["ploc_merge"]["tail_ms"] = {k: _device_ms(
@@ -2366,6 +2433,15 @@ def phase_alpha_walks(device, r6, r6_tlas, cam6, c2, sc, size: int = 512
             pp, ps = ref(wa, co, cd, alpha_ref=ALPHA6, **kw)
             err[name] = max(err[name], compare_hits(
                 f"{name} alpha/{mode}", k, pp, ks, ps))
+    # K1: a 1-in-31 crop of row 6's 1080p primary wave (66,891 rays)
+    oh, dh = camera_rays(cam6, 1920, 1080, device)
+    oh, dh = oh[::31].contiguous(), dh[::31].contiguous()
+    k, ks = tp.trace_packets(r6.wa, oh, dh, alpha_ref=ALPHA6)
+    _sync(device)
+    pp, ps = tp.trace_packets_ref(r6.wa, oh, dh, alpha_ref=ALPHA6)
+    err["k1"] = max(err["k1"], compare_hits(
+        "k1 alpha/closest 1080p crop", k, pp, ks, ps))
+    del oh, dh, k, ks, pp, ps
     # K1: the primary wave in alpha mode against the same rays over the
     # same scene's fused table without alpha fields (the walk without alpha)
     plain_wa = WideArrays.from_scene(r6.sb, width=8).fuse().to(device)
@@ -2377,9 +2453,12 @@ def phase_alpha_walks(device, r6, r6_tlas, cam6, c2, sc, size: int = 512
     k1n = k1_timing.time_wave(plain_wa, o, d, {}, {"k1": tp.kernel_call}, 20)
     a_ms, n_ms = k1a["versions"]["k1"]["ms"], k1n["versions"]["k1"]["ms"]
     _, _, work = tp.walk_work(r6.wa, o, d, alpha_ref=ALPHA6)
+    every = wb.k1_bound(work, lookups=False)
     print(f"  K1 primary wave {size}x{size}: alpha {a_ms:.4f} ms (steps mean "
-          f"{k1a['mean_steps']:.3f}, {int(work.alpha_tests.sum())} alpha "
-          f"tests, bound {k1a['bound_ms']:.4f} ms ({k1a['bound_by']}) = "
+          f"{k1a['mean_steps']:.3f}, {int(work.alpha_lookups.sum())} alpha "
+          f"tests made of {int(work.alpha_tests.sum())} candidates, "
+          f"bound {k1a['bound_ms']:.4f} ms ({k1a['bound_by']}; every "
+          f"candidate tested {every.ms:.4f} ms) = "
           f"{k1a['bound_ms'] / a_ms:.1%}); without alpha {n_ms:.4f} ms (steps "
           f"mean {k1n['mean_steps']:.3f}): x{a_ms / n_ms:.3f}; fused rows "
           f"{r6.wa.fused.shape[1] * 4} B with alpha, "
@@ -2409,7 +2488,9 @@ def phase_alpha_walks(device, r6, r6_tlas, cam6, c2, sc, size: int = 512
         "traverse_packet_alpha": dict(
             max_abs_err=err["k1"], ms=a_ms, plain_ms=k1_plain_ms,
             bound_ms=k1a["bound_ms"], bound_by=k1a["bound_by"],
-            no_alpha_ms=n_ms),
+            no_alpha_ms=n_ms, bound_every_ms=every.ms,
+            alpha_tests=int(work.alpha_tests.sum()),
+            alpha_lookups=int(work.alpha_lookups.sum())),
         "packet_walk_alpha": dict(
             max_abs_err=err["k2"], ms=k2_ms, plain_ms=k2_plain_ms,
             bound_ms=k2b.ms, bound_by=k2b.bound_by, no_alpha_ms=k2n_ms)}
@@ -3247,11 +3328,12 @@ def main() -> int:
                "config5": {k: t5[k] for k in ("ms", "plain_ms", "bound_ms",
                                               "kernel_ms")}}
         if name == "ploc_refit":
+            keys = ("ms", "plain_ms", "bound_ms", "kernel_ms", "device_ops")
             row["refit_climb"] = {
-                "config3": {k: c3p["times"]["ploc_refit_climb"][k]
-                            for k in ("ms", "plain_ms", "bound_ms")},
-                "config5": {k: c5p["times"]["ploc_refit_climb"][k]
-                            for k in ("ms", "plain_ms", "bound_ms")}}
+                "config3": {k: c3p["times"]["ploc_refit_climb"].get(k)
+                            for k in keys},
+                "config5": {k: c5p["times"]["ploc_refit_climb"].get(k)
+                            for k in keys}}
         rows.append(row)
     # the any-hit path: K3's launches are the parity frame's (13d), the
     # alpha modes' the row-6 frames' (13c)
@@ -3281,7 +3363,8 @@ def main() -> int:
                      "ms_source": res.get("ms_source", "cuda_events_launch"),
                      **{k: res[k] for k in (
                          "no_alpha_ms", "events_ms", "bound_every_lane_ms",
-                         "blocks_per_sm") if k in res}})
+                         "blocks_per_sm", "bound_every_ms", "alpha_tests",
+                         "alpha_lookups") if k in res}})
     print(f"  row 6: {row6['ms_per_frame']:.3f} ms/frame at 512x512 "
           f"({row6['mrays']:.3f} Mrays/s), {row6['ms_per_frame_hd']:.3f} "
           f"ms/frame at 1080p ({row6['mrays_hd']:.3f} Mrays/s), peak "

@@ -1459,3 +1459,128 @@ def test_k3_pass_through_lanes_untouched(cuda):
         assert torch.equal(bits[pass_through], old[pass_through]), name
         ref = (w.view(torch.int32) if w.dtype != torch.bool else w)
         assert torch.equal(bits, ref), name
+
+
+# ---- K1's alpha classes and K4c's refit in one launch
+
+def _coincident_cutout():
+    """A checkered quad twice at one place (coincident triangles under
+    other ids), a dark quad (always cut out) and a checkered one before
+    it, a white quad, a sphere and a box behind: flat 8-wide fused rows
+    with the alpha fields."""
+    import numpy as np
+
+    from vortex_rt_tpu_torch.models.procedural import quad
+    from vortex_rt_tpu_torch.models.scene import Material
+
+    yy, xx = np.meshgrid(np.arange(12), np.arange(12), indexing="ij")
+    tex = np.where(((xx // 3) + (yy // 3)) % 2 == 0, 0xFFFFFF,
+                   0x101010).astype(np.uint32)
+    sc = pt.Scene()
+    checker = sc.add_mesh(quad((-2, -2, 1.0), (2, -2, 1.0), (2, 2, 1.0),
+                               (-2, 2, 1.0),
+                               Material(diffuse=(1, 1, 1), diffuse_tex=tex)))
+    sc.add_instance(checker)
+    sc.add_instance(checker)
+    for mesh in (
+            quad((-1.5, -1.5, 0), (1.5, -1.5, 0), (1.5, 1.5, 0),
+                 (-1.5, 1.5, 0), Material(diffuse=(1, 1, 1), diffuse_tex=tex)),
+            quad((-0.5, -0.5, -0.5), (0.5, -0.5, -0.5), (0.5, 0.5, -0.5),
+                 (-0.5, 0.5, -0.5), Material(diffuse=(0.1, 0.1, 0.1))),
+            quad((-3, -3, 2.0), (3, -3, 2.0), (3, 3, 2.0), (-3, 3, 2.0),
+                 Material(diffuse=(1, 1, 1))),
+            uv_sphere((0, 0, 2.6), 0.8, 10, 14), box((1.2, 1.0, 2.4), 0.5)):
+        sc.add_instance(sc.add_mesh(mesh))
+    sb = sc.build(pt.RTConfig(flatten=True))
+    return WideArrays.from_scene(sb, width=8).fuse().with_alpha(sb)
+
+
+@pytest.mark.parametrize("mode", ["closest", "occlusion", "occl_split"])
+def test_alpha_classes_keep_the_plain_hits(cuda, mode):
+    """K1's alpha mode, which skips the test of a slot its classes find
+    kept or cut out wherever its triangle is hit, against its plain
+    version, which tests every candidate, where coincident triangles
+    under other ids are cut out and nearer cut-out candidates lie before
+    kept ones: hits and steps equal in closest, occlusion and mixed
+    waves; the kernel tests fewer candidates than pass Moller-Trumbore."""
+    wa = _coincident_cutout().to(cuda)
+    lanes = _camera_lanes(cuda, 96)
+    o, d = torch.stack(lanes[:3], 1), torch.stack(lanes[3:], 1)
+    n = o.shape[0]
+    t = torch.full((n,), 6.0, device=cuda)
+    kw = {"closest": {}, "occlusion": dict(t_max=t, occlusion=True),
+          "occl_split": dict(t_max=torch.where(
+              torch.arange(n, device=cuda) < n // 2, t,
+              torch.full_like(t, 1e30)), occl_split=n // 2)}[mode]
+    before = kernels.LAUNCHES["traverse_packet_alpha"]
+    hk, sk = trace_packets(wa, o, d, alpha_ref=0.35, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["traverse_packet_alpha"] == before + 1
+    from vortex_rt_tpu_torch.ops.traverse_packet import walk_work
+
+    hp, sp, work = walk_work(wa, o, d, alpha_ref=0.35, **kw)
+    for a, b in zip((*hk, sk), (*hp, sp)):
+        assert torch.equal(a, b)
+    assert 0 < int(work.alpha_lookups.sum()) < int(work.alpha_tests.sum())
+
+
+def _ploc_case(name):
+    m = _lbvh_mesh(name)
+    return [torch.from_numpy(x) for x in lbvh.pad_tris(m.v0, m.v1, m.v2, 4)]
+
+
+@pytest.mark.parametrize("mesh", ["uv_sphere", "random_soup", "wavy_grid"])
+def test_ploc_refit_twice_matches_plain_version(cuda, mesh):
+    """K4c on the card: ``refit_ploc`` twice in a row on moved vertices
+    equals the plain refit (boxes, nodes, rows, fused rows), each refit
+    one K4c launch, the climb's counters (made at the first refit) zero
+    after each and kept."""
+    v = _ploc_case(mesh)
+    vc = [x.to(cuda) for x in v]
+    _, ptc = ploc.build_ploc_topo(*vc, leaf_size=4, width=8)
+    assert lbvh.topo_state(ptc.topo).ploc_arrived is None
+    _, ptp = ploc.build_ploc_topo(*v, leaf_size=4, width=8)
+    for k in range(2):
+        moved = [x + 0.25 * k * torch.sin(x.flip(1)) + 0.1 for x in v]
+        before = kernels.LAUNCHES["ploc_refit"]
+        boxes = ploc._refit_boxes_ploc(ptc, *(x.to(cuda) for x in moved))
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["ploc_refit"] == before + 1
+        arrived = lbvh.topo_state(ptc.topo).ploc_arrived
+        assert not bool(arrived.any())
+        _assert_same(tuple(b.cpu() for b in boxes),
+                     ploc._refit_boxes_ploc_ref(ptp, *moved))
+        got = ploc.refit_ploc(ptc, *(x.to(cuda) for x in moved), width=8)
+        want = ploc.refit_ploc(ptp, *moved, width=8)
+        for name in ("nodes", "tri_rows", "fused"):
+            assert torch.equal(_words(getattr(got, name)).cpu(),
+                               _words(getattr(want, name))), name
+    assert lbvh.topo_state(ptc.topo).ploc_arrived is arrived
+
+
+def test_ploc_refit_after_a_failed_launch_starts_from_new_counters(
+        cuda, monkeypatch):
+    """A K4c refit whose launch raises drops the topology's climb
+    counters; the next refit makes new zero ones (one launch) and gives
+    the plain version's words."""
+    v = [x.to(cuda) for x in _ploc_case("wavy_grid")]
+    _, ptopo = ploc.build_ploc_topo(*v, leaf_size=4, width=8)
+    ploc._refit_boxes_ploc(ptopo, *v)
+    old = lbvh.topo_state(ptopo.topo).ploc_arrived
+    assert old is not None
+
+    def failed(*args, **kwargs):
+        raise RuntimeError("vrt_ploc_boxes launch failed")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(ploc, "_launch", failed)
+        with pytest.raises(RuntimeError):
+            ploc._refit_boxes_ploc(ptopo, *v)
+    assert lbvh.topo_state(ptopo.topo).ploc_arrived is None
+    before = kernels.LAUNCHES["ploc_refit"]
+    got = ploc._refit_boxes_ploc(ptopo, *v)
+    assert kernels.LAUNCHES["ploc_refit"] == before + 1
+    arrived = lbvh.topo_state(ptopo.topo).ploc_arrived
+    assert arrived is not None and arrived is not old
+    assert not bool(arrived.any())
+    _assert_same(got, ploc._refit_boxes_ploc_ref(ptopo, *v))

@@ -711,10 +711,13 @@ class RefitPlan(NamedTuple):
 class _TopoState:
     """What the refit keeps of a topology between frames: the leaf-row
     count ``LBVHNodes`` reports, and on the card the refit kernel's plan
-    (made by the build's collapse, or at the first refit)."""
+    (made by the build's collapse, or at the first refit); for a PLOC
+    topology the PLOC refit's climb counters instead (made zero at its
+    first refit)."""
 
     num_leaves: torch.Tensor
     plan: Optional[RefitPlan] = None
+    ploc_arrived: Optional[torch.Tensor] = None
 
 
 # by the identity of the topology's ``parent`` array (a topology's arrays

@@ -32,7 +32,10 @@ Pipeline (``build_ploc_topo``):
 
 ``refit_ploc`` keeps the topology and recomputes every box (K4c: the
 leaf rows reduce over their triangle ids, then climb the parents with
-one arrival counter per internal) before the same pack.
+one arrival counter per internal, kept with the topology and reset by
+the second arriver; the kernel writes the zeros of the internals never
+created, so a refit frame is one launch into unfilled outputs) before
+the same pack.
 
 Every step has two versions.  On CUDA tensors it launches a hand-written
 kernel (``csrc/ploc_merge.cu``, ``ploc_collapse.cu``, ``ploc_refit.cu``
@@ -503,7 +506,8 @@ def _box_launch(v0, v1, v2, order, leaf_tids, row_cnt, bmin, bmax,
                 climb=None) -> None:
     """One launch of ``csrc/ploc_refit.cu``: leaf-row boxes into
     ``bmin``/``bmax`` at row offset 0 (``climb`` None) or l-1 with the
-    climb over ``climb`` = (lchild, rchild, parent)."""
+    climb over ``climb`` = (lchild, rchild, parent, n_int, arrived), the
+    zeros of the internals never created written too."""
     l = v0.shape[0]
     lmax = leaf_tids.shape[1]
     lib = kernels.load("ploc_refit")
@@ -511,15 +515,10 @@ def _box_launch(v0, v1, v2, order, leaf_tids, row_cnt, bmin, bmax,
     v0, v1, v2 = (v.contiguous() for v in (v0, v1, v2))
     _check_i32(dev, order=(order, (l,)), leaf_tids=(leaf_tids, (l, lmax)),
                row_cnt=(row_cnt, (l,)))
-    if climb is None:
-        ptrs, arrived = (0, 0, 0), None
-    else:
-        ptrs = tuple(a.data_ptr() for a in climb)
-        arrived = torch.zeros(l - 1, dtype=_I32, device=dev)
+    ptrs = (0,) * 5 if climb is None else tuple(a.data_ptr() for a in climb)
     _launch(lib, "vrt_ploc_boxes", dev, v0.data_ptr(), v1.data_ptr(),
             v2.data_ptr(), order.data_ptr(), leaf_tids.data_ptr(),
-            row_cnt.data_ptr(), l, lmax, *ptrs,
-            0 if arrived is None else arrived.data_ptr(), bmin.data_ptr(),
+            row_cnt.data_ptr(), l, lmax, *ptrs, bmin.data_ptr(),
             bmax.data_ptr())
 
 
@@ -568,18 +567,31 @@ def _refit_boxes_ploc(ptopo: PLOCTopo, v0, v1, v2):
     """Boxes of every node -> ((2l-1, 3) bmin, bmax) in old ids
     (internals, dead ones zero; then the leaf rows): the plain version
     sweeps by creation level as the JAX package does, the kernel climbs
-    the parents; min and max make both equal to the bit."""
+    the parents, in one launch into outputs allocated unfilled; min and
+    max make both equal to the bit.  The climb's counters are made zero
+    at a topology's first refit and kept in ``topo_state``: the kernel
+    leaves them zero.  A launch that raises drops them, so the next
+    refit starts from new zeros (ROADMAP hazard H18)."""
     l = _check_verts(v0, v1, v2)
     topo = ptopo.topo
     if not _cuda(v0):
         return _refit_boxes_ploc_ref(ptopo, v0, v1, v2)
-    _check_i32(v0.device, lchild=(topo.lchild, (l - 1,)),
+    dev = v0.device
+    _check_i32(dev, lchild=(topo.lchild, (l - 1,)),
                rchild=(topo.rchild, (l - 1,)),
-               parent=(topo.parent, (2 * l - 1,)))
-    bmin = torch.zeros((2 * l - 1, 3), dtype=_F32, device=v0.device)
-    bmax = torch.zeros_like(bmin)
-    _box_launch(v0, v1, v2, topo.order, ptopo.leaf_tids, topo.row_cnt,
-                bmin, bmax, climb=(topo.lchild, topo.rchild, topo.parent))
+               parent=(topo.parent, (2 * l - 1,)), n_int=(ptopo.n_int, ()))
+    st = topo_state(topo)
+    if st.ploc_arrived is None:
+        st.ploc_arrived = torch.zeros(l - 1, dtype=_I32, device=dev)
+    bmin = torch.empty((2 * l - 1, 3), dtype=_F32, device=dev)
+    bmax = torch.empty_like(bmin)
+    try:
+        _box_launch(v0, v1, v2, topo.order, ptopo.leaf_tids, topo.row_cnt,
+                    bmin, bmax, climb=(topo.lchild, topo.rchild, topo.parent,
+                                       ptopo.n_int, st.ploc_arrived))
+    except RuntimeError:
+        st.ploc_arrived = None
+        raise
     return bmin, bmax
 
 

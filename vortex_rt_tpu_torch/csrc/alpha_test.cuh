@@ -19,8 +19,12 @@
 
 // Floored modulo, as Python's and jnp's `%`: C's `%` truncates toward
 // zero, so a negative or wrapped texel coordinate would pick another
-// texel (ROADMAP hazard H10).
+// texel (ROADMAP hazard H10).  A side that is a power of two (every
+// texture of the shipped scenes) takes a mask, the same value for every
+// int in two's complement: the walks are paced by instruction issue, and
+// the two integer divisions cost some forty instructions each.
 __device__ __forceinline__ int vrt_floor_mod(int x, int m) {
+    if ((m & (m - 1)) == 0) return x & (m - 1);
     return ((x % m) + m) % m;
 }
 

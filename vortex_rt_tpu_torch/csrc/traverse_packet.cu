@@ -52,11 +52,21 @@
 // instantiation): the fused rows carry each leaf's alpha fields after its
 // triangle slots (WideArrays.with_alpha), and a candidate that passes
 // Moller-Trumbore is kept only if its surface alpha is not below the
-// threshold (alpha_test.cuh: one 32-B read from the row in hand and one
-// 4-B read from the alpha pool per candidate).  This replaces the in-loop
-// `alpha_ref` of the JAX body (:723-761).  The ALPHA = false instantiation
-// is the walk above, unchanged: the main path's kernel, its steps and its
-// launches are those of the build without alpha.
+// threshold (alpha_test.cuh: a 32-B read from the row in hand, then a
+// dependent 4-B read from the alpha pool).  This replaces the in-loop
+// `alpha_ref` of the JAX body (:723-761).  A test is a chain of two
+// dependent L2 trips, so the walk skips those whose answer is known: a
+// slot whose every reachable texel keeps (cuts) is kept (cut out)
+// untested, by the 2-bit classes `alpha_classes` makes once a table and
+// threshold (ops/traverse_packet.py).  Every other candidate that passes
+// Moller-Trumbore is tested; the plain walk tests every one, so its hits
+// check the classes.  (Testing only the
+// candidates that could win the leaf's fold and the ray's, and stopping
+// an occlusion ray at its first kept candidate, bought nothing: most
+// candidates lie before the ray's hit, PERF.md section 6.)  The
+// ALPHA = false instantiation is the walk above, unchanged: the main
+// path's kernel, its steps and its launches are those of the build
+// without alpha.
 //
 // Numerics match the JAX body and the plain PyTorch version bit for bit:
 // the f32 slab test of `_slab_test` (corners g + f*s), the |d| < 1e-20
@@ -102,10 +112,13 @@ struct WalkArgs {
     int n_rays, n_nodes, row_vec4, lmax, tri_bits, stack_n, max_steps;
     int occl_split;
     // alpha mode only: the pool, its length, the float4 offset of a row's
-    // alpha fields, and the threshold
+    // alpha fields, the threshold, and each row's slot classes (2 bits a
+    // slot: 0 test, 1 kept and 2 cut out wherever the triangle is hit;
+    // null: every slot is tested)
     const float* alpha_pool;
     int n_pool, alpha_vec4;
     float alpha_thr;
+    const uint32_t* alpha_cls;
 };
 
 __device__ __forceinline__ float rcp_clamped(float d) {
@@ -154,6 +167,7 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
     float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
     float ivx = 0.0f, ivy = 0.0f, ivz = 0.0f;
     const uint4* row = a.fused;
+    int node = 0;  // (its index: the alpha mode's slot classes)
     uint4 w5 = make_uint4(0u, 0u, 0u, 0u);  // words 20..23: boxes, meta, leaf_n
     if (alive) {  // a ray that never walks needs no o, d or row
         ox = a.o[3 * i + 0]; oy = a.o[3 * i + 1]; oz = a.o[3 * i + 2];
@@ -235,7 +249,8 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
             ++steps;
             if (steps >= a.max_steps) alive = false;
             if (alive) {
-                row = a.fused + (size_t)min(max(nxt, 0), a.n_nodes - 1) * a.row_vec4;
+                node = min(max(nxt, 0), a.n_nodes - 1);
+                row = a.fused + (size_t)node * a.row_vec4;
                 w5 = __ldg(row + 5);
             }
         }
@@ -247,6 +262,8 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
                 const float4* tr =
                     reinterpret_cast<const float4*>(row) + VRT_ROW_WORDS / 4;
                 const int n_slots = min(a.lmax, (int)w5.w);
+                const uint32_t cls_w =
+                    ALPHA && a.alpha_cls != nullptr ? __ldg(a.alpha_cls + node) : 0u;
                 float t_min = VRT_LARGE, w1_sel = 0.0f, w2_sel = 0.0f;
                 int tid_sel = VRT_INT_MAX;
                 for (int c = 0; c < n_slots; ++c) {
@@ -272,7 +289,9 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
                     bool ok = (fabsf(det) >= VRT_EPS) && (w1 >= 0.0f)
                         && (w1 <= 1.0f) && (w2 >= 0.0f) && (w1 + w2 <= 1.0f)
                         && (t > VRT_EPS);
-                    if (ALPHA && ok) {
+                    const uint32_t cls = (cls_w >> (2 * c)) & 3u;
+                    if (ALPHA && ok && cls == 2u) ok = false;  // cut out anywhere
+                    if (ALPHA && ok && cls == 0u) {
                         const float4* al = reinterpret_cast<const float4*>(row)
                             + a.alpha_vec4 + 2 * c;
                         ok = vrt_alpha_keep(__ldg(al), __ldg(al + 1), w1, w2,
@@ -303,7 +322,8 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
             ++steps;
             if (steps >= a.max_steps || (occ && !(best_t > 0.0f))) alive = false;
             if (alive) {
-                row = a.fused + (size_t)min(max(nxt, 0), a.n_nodes - 1) * a.row_vec4;
+                node = min(max(nxt, 0), a.n_nodes - 1);
+                row = a.fused + (size_t)node * a.row_vec4;
                 w5 = __ldg(row + 5);
             }
         }
@@ -369,7 +389,7 @@ extern "C" int vrt_traverse_packet(
         (float*)dist, (float*)bx, (float*)by, (float*)bz,
         (int*)tri, (int*)inst, (int*)steps,
         n_rays, n_nodes, row_words / 4, lmax, tri_bits, stack_n, max_steps,
-        occl_split, nullptr, 0, 0, 0.0f};
+        occl_split, nullptr, 0, 0, 0.0f, nullptr};
     const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
     traverse_packet_kernel<false><<<grid, VRT_BLOCK, stack_bytes(stack_n),
                                     (cudaStream_t)stream>>>(a);
@@ -378,18 +398,22 @@ extern "C" int vrt_traverse_packet(
 
 // The alpha mode: as vrt_traverse_packet over fused rows of
 // 32 + 24 * slots words (slots triangle slots, then their alpha fields),
-// with the alpha pool of n_pool floats and the threshold `thr`.
+// with the alpha pool of n_pool floats, the threshold `thr` and the rows'
+// slot classes for it (n_nodes uint32, slots <= 16; null: test every
+// slot).
 extern "C" int vrt_traverse_packet_alpha(
         const void* fused, const void* o, const void* d, const void* limit,
         const void* active, void* dist, void* bx, void* by, void* bz,
         void* tri, void* inst, void* steps, const void* alpha_pool,
+        const void* alpha_cls,
         int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
         int stack_n, int max_steps, int occl_split, int n_pool, int slots,
         float thr, void* stream) {
     if (n_rays <= 0) return 0;
     if (stack_n < 1 || stack_n > VRT_STACK_MAX || slots < lmax || lmax < 1
             || row_words != VRT_ROW_WORDS + 24 * slots
-            || n_nodes <= 0 || n_pool <= 0 || tri_bits <= 0 || tri_bits > 30) {
+            || n_nodes <= 0 || n_pool <= 0 || tri_bits <= 0 || tri_bits > 30
+            || (alpha_cls != nullptr && slots > 16)) {
         return (int)cudaErrorInvalidValue;
     }
     const WalkArgs a = {
@@ -399,7 +423,7 @@ extern "C" int vrt_traverse_packet_alpha(
         (int*)tri, (int*)inst, (int*)steps,
         n_rays, n_nodes, row_words / 4, lmax, tri_bits, stack_n, max_steps,
         occl_split, (const float*)alpha_pool, n_pool,
-        (VRT_ROW_WORDS + 16 * slots) / 4, thr};
+        (VRT_ROW_WORDS + 16 * slots) / 4, thr, (const uint32_t*)alpha_cls};
     const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
     traverse_packet_kernel<true><<<grid, VRT_BLOCK, stack_bytes(stack_n),
                                    (cudaStream_t)stream>>>(a);

@@ -61,10 +61,11 @@ class WalkWork(NamedTuple):
     test (each node's child count), steps at triangle leaves and the
     triangle slots they test (each leaf's triangle count), steps at
     instance nodes (TLAS builds), and alpha tests (candidates that
-    passed Moller-Trumbore in an alpha-mode walk); and per table row
+    passed Moller-Trumbore in an alpha-mode walk); per table row
     ((rows,) int64), the bytes of it the walk reads (0 for a row no ray
-    visits).  An alpha-mode walk's rows include the alpha pool's
-    entries, 4 B each."""
+    visits); and the alpha tests the kernel makes (K1's: the candidates
+    of slots its classes leave to the test; K2 tests every candidate).  An alpha-mode walk's rows
+    include the alpha pool's entries, 4 B each."""
 
     internal: torch.Tensor
     child_slots: torch.Tensor
@@ -73,12 +74,16 @@ class WalkWork(NamedTuple):
     instance: torch.Tensor
     alpha_tests: torch.Tensor
     row_bytes: torch.Tensor
+    alpha_lookups: torch.Tensor
 
     @staticmethod
     def zeros(r: int, rows: int, device) -> "WalkWork":
-        return WalkWork(*(torch.zeros(r, dtype=torch.int64, device=device)
-                          for _ in range(6)),
-                        torch.zeros(rows, dtype=torch.int64, device=device))
+        def per_ray():
+            return torch.zeros(r, dtype=torch.int64, device=device)
+
+        return WalkWork(*(per_ray() for _ in range(6)),
+                        torch.zeros(rows, dtype=torch.int64, device=device),
+                        per_ray())
 
     def read(self, row, nbytes, mask) -> None:
         """Rays in ``mask`` read ``nbytes`` of table row ``row`` (a row
@@ -518,6 +523,7 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
             if alpha:
                 # the alpha fields of the slots whose candidates it tests
                 work.alpha_tests.add_(n_alpha)
+                work.alpha_lookups.add_(n_alpha)  # (K2 has no classes)
                 work.read(n_nodes + n_rows + row_i, ALPHA_SLOT_BYTES * n_alpha,
                           is_leaf & (n_alpha > 0))
 

@@ -32,7 +32,12 @@ resolves by visit order (ROADMAP hazard H3).  The JAX knobs ``packet``,
 of ``WideArrays.with_alpha`` (the fused rows then carry each leaf's alpha
 fields after its triangle slots): a Moller-Trumbore candidate whose
 surface alpha is below ``thr`` is rejected before the fold, in closest,
-occlusion and ``occl_split`` modes.  CUDA tensors launch the kernel's
+occlusion and ``occl_split`` modes.  The plain version tests every
+candidate; the kernel skips the test of a slot that ``alpha_classes``
+finds kept or cut out wherever its triangle is hit, which changes no
+hit and no step (``walk_work`` counts both the tests the kernel makes,
+``alpha_lookups``, and the candidates, ``alpha_tests``).  CUDA tensors
+launch the kernel's
 alpha instantiation (counted as ``traverse_packet_alpha``; the walk
 without alpha is unchanged).  The JAX ``anyhit_pred``, an arbitrary
 traced predicate, cannot enter a CUDA kernel: the frame runs such
@@ -102,6 +107,106 @@ def alpha_offset(wa: WideArrays) -> int:
     return ROW_WORDS + 16 * k
 
 
+# the slot classes of alpha_classes (2 bits a slot of a fused row)
+CLS_TEST, CLS_KEPT, CLS_CUT = 0, 1, 2
+# the classes' texel boxes: a slot's uv triangle spans at most this many
+# texels along an axis (times its largest |uv|), so that the walk's float32
+# uv interpolation lands within _CLS_MARGIN of a texel coordinate of the
+# triangle's corners (its rounding: about 1e-6 of that span)
+_CLS_SPAN = 2048.0
+_CLS_MARGIN = 2.0**-8
+
+
+def alpha_classes(wa: WideArrays, thr: float) -> Optional[torch.Tensor]:
+    """(N,) int32 on the table's device (None for rows of more than 16
+    slots: every slot is then tested): for each fused row, 2 bits a slot
+    (slot c at bits 2c, 2c+1): ``CLS_KEPT`` (1) where every texel the
+    slot's triangle can sample keeps its candidate (``!(alpha < thr)``),
+    ``CLS_CUT`` (2) where none does, else ``CLS_TEST`` (0).  The texels a
+    triangle can sample: the box of its three uv corners' texel
+    coordinates, widened by ``_CLS_MARGIN`` texels (the walk's rounding
+    stays within it while the span is under ``_CLS_SPAN`` texels) and
+    moved into the texture by whole sides (the floored modulo), or the
+    texture's whole range along an axis where it wraps there.  A 1x1
+    texture (an untextured material) is always kept or always cut.
+    Exact: the walk looks up a texel of that box, so a classed slot gives
+    the test's answer without it.  Made once per table and threshold
+    with torch ops (a few per texture; the textures' table is read to the
+    host) and kept with ``wa``, as K6's records are with their arrays:
+    the port never edits a table in place, and an edit after the first
+    alpha walk would keep stale classes (ROADMAP hazard H17)."""
+    kept = wa.__dict__.setdefault("_alpha_classes", {})
+    if float(thr) not in kept:
+        f = wa.fused
+        n, k = f.shape[0], wa.tri_rows.shape[1] // 16
+        kept[float(thr)] = (None if k > 16 else _classes(
+            f, alpha_offset(wa), n, k, wa.alpha_pool, thr))
+    return kept[float(thr)]
+
+
+def _classes(f, a_off: int, n: int, k: int, pool, thr: float):
+    dev = f.device
+    words = f[:, a_off:a_off + 8 * k].reshape(n, k, 8)
+    uv = words[..., :6].contiguous().view(torch.float32).double()
+    toff = words[..., 6].long()
+    twh = words[..., 7].long()
+    tw = (twh >> 16).clamp_min(1)
+    th = (twh & 0xFFFF).clamp_min(1)
+    keep = ~(pool < torch.tensor(thr, dtype=torch.float32, device=dev))
+
+    def texels(c, side):
+        """The texel range [lo, hi] of corners c (n, k, 3) along an axis
+        of ``side`` texels, after the floored modulo (the whole side
+        where the range wraps)."""
+        lo = torch.floor(c.amin(-1) * side - _CLS_MARGIN)
+        hi = torch.floor(c.amax(-1) * side + _CLS_MARGIN)
+        fit = (torch.isfinite(c).all(-1)
+               & (c.abs().amax(-1) * side <= _CLS_SPAN))
+        lo = torch.where(fit, lo, 0.0)
+        hi = torch.where(fit, hi, 0.0)
+        shift = torch.floor(lo / side) * side
+        lo, hi = lo - shift, hi - shift
+        fit = fit & (hi <= side - 1)
+        return (torch.where(fit, lo, 0).long(),
+                torch.where(fit, hi, side - 1).long())
+
+    ulo, uhi = texels(uv[..., 0::2], tw.double())
+    vlo, vhi = texels(uv[..., 1::2], th.double())
+    # each texture's summed-area table of kept texels, one flat array
+    tex, inv = torch.unique(torch.stack([toff, tw, th], -1).reshape(-1, 3),
+                            dim=0, return_inverse=True)
+    sat, base = [], []
+    at = 0
+    for t_off, t_w, t_h in tex.tolist():
+        base.append(at)
+        s2 = torch.zeros((t_h + 1, t_w + 1), dtype=torch.int64, device=dev)
+        if 0 <= t_off and t_off + t_w * t_h <= pool.shape[0]:
+            m = keep[t_off:t_off + t_w * t_h].reshape(t_h, t_w).long()
+            s2[1:, 1:] = m.cumsum(0).cumsum(1)
+        sat.append(s2.reshape(-1))
+        at += (t_h + 1) * (t_w + 1)
+    sat = torch.cat(sat)
+    ok_tex = ((tex[:, 0] >= 0)
+              & (tex[:, 0] + tex[:, 1] * tex[:, 2] <= pool.shape[0]))
+    inv = inv.reshape(n, k)
+    b0 = torch.tensor(base, dtype=torch.int64, device=dev)[inv]
+    w1 = tw + 1
+
+    def corner(v, u):
+        return sat[b0 + v * w1 + u]
+
+    kept = (corner(vhi + 1, uhi + 1) - corner(vlo, uhi + 1)
+            - corner(vhi + 1, ulo) + corner(vlo, ulo))
+    area = (uhi - ulo + 1) * (vhi - vlo + 1)
+    cls = torch.where(kept == area, CLS_KEPT,
+                      torch.where(kept == 0, CLS_CUT, CLS_TEST))
+    cls = torch.where(ok_tex[inv], cls, CLS_TEST)
+    shift = 2 * torch.arange(k, dtype=torch.int64, device=dev)
+    packed = (cls << shift).sum(-1)
+    return torch.where(packed >= 2**31, packed - 2**32,
+                       packed).to(torch.int32)
+
+
 def _check(wa: WideArrays, o, d, active, t_max, occl_split: int) -> None:
     if wa.width != WIDTH or wa.fused is None:
         raise ValueError("trace_packets walks 8-wide fused tables "
@@ -161,7 +266,7 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     time the kernel alone."""
     _check(wa, o, d, active, t_max, occl_split)
     if alpha_ref is not None:
-        alpha_offset(wa)
+        classes = alpha_classes(wa, alpha_ref)
     if o.device.type != "cuda":
         raise ValueError(f"no CUDA walk for device {o.device}")
     lib = kernels.load("traverse_packet")
@@ -204,7 +309,8 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                 err = lib.lib.vrt_traverse_packet(*ptrs, *sizes, stream)
             else:
                 err = lib.lib.vrt_traverse_packet_alpha(
-                    *ptrs, wa.alpha_pool.data_ptr(), *sizes,
+                    *ptrs, wa.alpha_pool.data_ptr(),
+                    0 if classes is None else classes.data_ptr(), *sizes,
                     wa.alpha_pool.shape[0], wa.tri_rows.shape[1] // 16,
                     float(alpha_ref), stream)
         if err != 0:
@@ -246,7 +352,8 @@ def walk_work(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
               ) -> Tuple[Hits, torch.Tensor, WalkWork]:
     """The plain walk of these rays, with what it computes per ray:
     (Hits, steps, WalkWork of internal steps and their child slots, leaf
-    steps and their triangle slots, alpha tests).  ``tools/walk_bounds.py``
+    steps and their triangle slots, the alpha tests the kernel makes and
+    the candidates that passed Moller-Trumbore).  ``tools/walk_bounds.py``
     turns the work into a bound.  In alpha mode the rows are the fused
     rows, then the alpha pool's entries."""
     return _walk_ref(wa, o, d, active, t_max, occlusion, occl_split,
@@ -260,6 +367,9 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
     _check(wa, o, d, active, t_max, occl_split)
     alpha = alpha_ref is not None
     a_off = alpha_offset(wa) if alpha else 0
+    # the kernel's classes, for its count of tests only: the hits come
+    # from testing every candidate
+    classes = alpha_classes(wa, alpha_ref) if alpha and count else None
     dev = o.device
     r = o.shape[0]
     occ = torch.arange(r, device=dev) < _split(r, occlusion, occl_split)
@@ -365,7 +475,10 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
         tr = row_f[:, ROW_WORDS:]
         tr_i = raw[:, ROW_WORDS:].to(torch.int64)
         ar = row_f[:, a_off:] if alpha else None
+        cls_w = (None if classes is None
+                 else classes[node_c].to(torch.int64) & 0xFFFFFFFF)
         n_alpha = torch.zeros(r, dtype=torch.int64, device=dev)
+        n_looked = torch.zeros(r, dtype=torch.int64, device=dev)
         t_min, tid_sel = large, torch.full((r,), _INT_MAX, dtype=torch.int64,
                                            device=dev)
         w1_sel, w2_sel = f32(0.0), f32(0.0)
@@ -396,9 +509,14 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
                 keep, idx = alpha_keep(alpha_fields(ar, c), w1, w2,
                                        wa.alpha_pool, alpha_ref)
                 if count:
+                    # the kernel looks up the candidates of the slots its
+                    # classes leave to the test (every slot, without them)
                     tested = ok & is_tri
                     n_alpha += tested.to(torch.int64)
-                    work.read(n_nodes + idx, torch.full_like(idx, 4), tested)
+                    looked = tested if cls_w is None else (
+                        tested & (((cls_w >> (2 * c)) & 3) == CLS_TEST))
+                    n_looked += looked.to(torch.int64)
+                    work.read(n_nodes + idx, torch.full_like(idx, 4), looked)
                 ok = ok & keep
             t = torch.where(ok, t, large)
             better = (t < t_min) | ((t == t_min) & (t < LARGE_FLOAT)
@@ -421,11 +539,15 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
             work.add(is_int, nch, is_tri, slots)
             # the kernel's reads: the row's words 20..23 (the last child
             # boxes, meta, leaf_n) at every step, words 0..19 (the other
-            # boxes) at an internal node, the triangle slots at a leaf
+            # boxes) at an internal node, the triangle slots at a leaf and
+            # in alpha mode the row's slot classes (4 B) and the alpha
+            # fields of each candidate the kernel tests
             work.read(node_c, torch.where(is_int, 96, torch.where(
                 is_tri, 16 + TRI_SLOT_BYTES * slots
-                + ALPHA_SLOT_BYTES * n_alpha, 16)), alive)
+                + ALPHA_SLOT_BYTES * n_looked + (4 if alpha else 0), 16)),
+                alive)
             work.alpha_tests.add_(n_alpha)
+            work.alpha_lookups.add_(n_looked)
 
         # ---- pop when we didn't descend; an empty stack ends the ray ----
         can_pop = sc > 0

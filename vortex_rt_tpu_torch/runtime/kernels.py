@@ -59,7 +59,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     },
     "traverse_packet": {
         "vrt_traverse_packet": ([_P] * 12 + [_I] * 8 + [_P], _I),
-        "vrt_traverse_packet_alpha": ([_P] * 13 + [_I] * 10 + [_F, _P], _I),
+        "vrt_traverse_packet_alpha": ([_P] * 14 + [_I] * 10 + [_F, _P], _I),
         "vrt_traverse_packet_stack_max": ([], _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
@@ -122,7 +122,7 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
     "ploc_refit": {
-        "vrt_ploc_boxes": ([_P] * 6 + [_I] * 2 + [_P] * 7, _I),
+        "vrt_ploc_boxes": ([_P] * 6 + [_I] * 2 + [_P] * 8, _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -9,7 +9,12 @@ calls (Karras, 8-wide, leaf 4, as ladder rows 3 and 5 build); with
 Morton-sorted leaf boxes: CUDA events around each call, median of
 ``--builds``; its kernels' device time, its device operations and its
 device-to-host copies a call by the profiler; its levels and a digest of
-its words) and whole ``build_lbvh_topo(method="sah")`` calls.
+its words) and whole ``build_lbvh_topo(method="sah")`` calls; with
+``--parts ploc_boxes``, K4c (``ploc_part``): the PLOC build's leaf-row
+boxes, a refit frame's boxes (CUDA events around each call, median of
+``--builds``; the kernels' device time and the device operations a call
+by the profiler), whole ``refit_ploc`` and ``build_ploc_topo`` calls,
+and digests of the boxes.
 
 Meshes: ladder row 3's (``blob(n=187)``, 69,938 triangles) and row 5's
 (``wavy_grid(n=708)``, 999,698 triangles), padded to leaf multiples; the
@@ -26,7 +31,7 @@ ptxas line of each library it builds and one JSON line with the card's
 name and power limit.
 
     python vortex_rt_tpu_torch/tools/build_timing.py [--root DIR]
-        [--parts front,sweep] [--reps 20] [--builds 10] [--variants]
+        [--parts front,sweep,ploc_boxes] [--reps 20] [--builds 10] [--variants]
 
 (run as a file, so that the package imported is the one at ``--root``).
 
@@ -208,6 +213,73 @@ def sweep_part(args, torch, dev, out: dict) -> None:
         del v, lmin, lmax, order, mesh
 
 
+def ploc_part(args, torch, dev, out: dict) -> None:
+    """K4c at ladder row 3's and row 5's meshes (PLOC, radius 16, 8-wide,
+    leaf 4): the build's leaf-row boxes, a refit frame's boxes at moved
+    vertices (twice in a row), whole ``refit_ploc`` and
+    ``build_ploc_topo`` calls."""
+    from vortex_rt_tpu_torch.accel import lbvh, ploc
+    from vortex_rt_tpu_torch.models import bigscenes
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools.profile_frames import kernel_events
+
+    out["ptxas"]["ploc_refit"] = _ptxas(kernels.load("ploc_refit").build_log)
+
+    def profiled(fn):
+        ev = kernel_events(lambda: [fn() for _ in range(args.reps)])
+        return {"device_ops": sum(e.count for e in ev) / args.reps,
+                "kernels_ms": {e.key[:48]: e.self_device_time_total / 1e3
+                               / args.reps for e in ev}}
+
+    for name, mesh in (("config3", bigscenes.blob(n=187)),
+                       ("config5", bigscenes.wavy_grid(n=708))):
+        v = [torch.from_numpy(a).to(dev)
+             for a in lbvh.pad_tris(mesh.v0, mesh.v1, mesh.v2, 4)]
+        moved = [x + 0.25 * torch.sin(x.flip(1)) for x in v]
+        l = v[0].shape[0]
+        lb, pt = ploc.build_ploc_topo(*v, leaf_size=4, width=8, radius=16)
+        topo = pt.topo
+
+        def rows():
+            return ploc._row_boxes(*v, topo.order, pt.leaf_tids,
+                                   topo.row_cnt)
+
+        def refit_boxes():
+            return ploc._refit_boxes_ploc(pt, *moved)
+
+        def refit():
+            return ploc.refit_ploc(pt, *moved, leaf_size=4, width=8)
+
+        def build():
+            return ploc.build_ploc_topo(*v, leaf_size=4, width=8, radius=16)
+
+        first, second = refit_boxes(), refit_boxes()
+        torch.cuda.synchronize()
+        rec = {"tris": l, "live_rows": int((topo.row_cnt > 0).sum()),
+               "rows_ms": _events_ms(torch, rows, args.reps),
+               "rows": profiled(rows),
+               "rows_digest": _digest(rows()),
+               "refit_boxes_ms_each": _each_ms(torch, refit_boxes,
+                                               args.builds),
+               "refit_boxes": profiled(refit_boxes),
+               "refit_digest": _digest(first),
+               "refit_twice_same": _digest(second) == _digest(first),
+               "refit_ploc_ms_each": _each_ms(torch, refit, args.builds),
+               "refit_ploc": profiled(refit),
+               "build_ms_each": _each_ms(torch, build, args.builds),
+               "build": profiled(build)}
+        for k in ("refit_boxes", "refit_ploc", "build"):
+            rec[f"{k}_ms"] = statistics.median(rec[f"{k}_ms_each"])
+        out[f"ploc_{name}"] = rec
+        print(f"K4c {name} T {l}: rows {rec['rows_ms']:.4f} ms "
+              f"({rec['rows']}), refit boxes median "
+              f"{rec['refit_boxes_ms']:.4f} ms ({rec['refit_boxes']}), "
+              f"refit_ploc {rec['refit_ploc_ms']:.4f} ms, build "
+              f"{rec['build_ms']:.4f} ms ({rec['build']['device_ops']:.0f} "
+              f"device operations)", file=sys.stderr)
+        del v, moved, lb, pt, topo, first, second
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
@@ -244,6 +316,8 @@ def main(argv=None) -> int:
     parts = args.parts.split(",")
     if "sweep" in parts:
         sweep_part(args, torch, dev, out)
+    if "ploc_boxes" in parts:
+        ploc_part(args, torch, dev, out)
     if "front" not in parts:
         print(json.dumps(out))
         return 0

@@ -21,9 +21,13 @@ most they could need:
   1 for the fold);
 - an instance step (K2's and K3's TLAS builds), ``OPS_PER_INSTANCE`` =
   36: the 4x3 transform of o (18) and d (15) and three reciprocals;
-- an alpha test (K1's and K2's alpha mode, per candidate that passed
-  Moller-Trumbore), ``OPS_PER_ALPHA`` = 17: 2 for bz, 5 each for u and
-  v, 2 products by the texture's sides, 2 floors, 1 comparison.
+- an alpha test (K1's and K2's alpha mode, per candidate tested: in K1
+  each candidate of a slot that is not kept or cut out wherever its
+  triangle is hit (its classes; ``WalkWork.alpha_lookups``); in K2, and
+  in the first figure of K1 (``k1_bound(lookups=False)``), every
+  candidate that passed Moller-Trumbore), ``OPS_PER_ALPHA`` = 17: 2 for bz, 5 each
+  for u and v, 2 products by the texture's sides, 2 floors, 1
+  comparison.
 
 Bytes: per walking ray o and d (24 B), t_max (4 B) and the active flag
 (1 B) in; a ray that takes no step (inactive, or t_max <= 0) needs only
@@ -34,7 +38,8 @@ K1 96 B of an internal row, 16 B of a leaf row's meta and 40 B per
 triangle slot; K2 64 B of an internal node, 16 B of a leaf node, 80 B
 of an instance node, 40 B per triangle slot; in alpha mode 32 B of
 alpha fields per slot whose candidate is tested and 4 B per alpha-pool
-entry read).  A wave in which no ray walks reads none of the tables.
+entry read, and in K1 4 B of slot classes per leaf step).  A wave in
+which no ray walks reads none of the tables.
 
 K3 (``k3_bound``), per launch, given the walk's state before and after
 it: a ray done or suspended at entry reads its two flags (2 B); a ray
@@ -136,29 +141,33 @@ class Bound:
         return "operations" if self.ops_ms >= self.bytes_ms else "bytes"
 
 
-def walk_ops(work, sort_ops: int) -> int:
-    """FP32 operations of a walk from its per-ray ``WalkWork``."""
+def walk_ops(work, sort_ops: int, lookups: bool = False) -> int:
+    """FP32 operations of a walk from its per-ray ``WalkWork``: the alpha
+    tests the kernel makes (``work.alpha_lookups``) or every candidate's
+    (``work.alpha_tests``)."""
+    tests = work.alpha_lookups if lookups else work.alpha_tests
     return int(OPS_PER_CHILD * work.child_slots.sum()
                + sort_ops * work.internal.sum()
                + OPS_PER_TRI * work.tri_slots.sum()
                + OPS_PER_INSTANCE * work.instance.sum()
-               + OPS_PER_ALPHA * work.alpha_tests.sum())
+               + OPS_PER_ALPHA * tests.sum())
 
 
-def walk_bound(work, sort_ops: int) -> Bound:
+def walk_bound(work, sort_ops: int, lookups: bool = False) -> Bound:
     """Bound of a walk of ``len(work.internal)`` rays from its
     ``WalkWork``."""
     r = int(work.internal.numel())
     walking = int(((work.internal + work.leaf + work.instance) > 0).sum())
-    return Bound(ops=walk_ops(work, sort_ops),
+    return Bound(ops=walk_ops(work, sort_ops, lookups),
                  bytes=(walking * RAY_IN_BYTES
                         + (r - walking) * IDLE_RAY_IN_BYTES
                         + r * HIT_OUT_BYTES + int(work.row_bytes.sum())))
 
 
-def k1_bound(work) -> Bound:
-    """K1: the 8-wide walk over the fused table."""
-    return walk_bound(work, OPS_SORT8)
+def k1_bound(work, lookups: bool = True) -> Bound:
+    """K1: the 8-wide walk over the fused table; in alpha mode the tests
+    it makes (``lookups=False``: every candidate's, the first figure)."""
+    return walk_bound(work, OPS_SORT8, lookups)
 
 
 def k2_bound(work) -> Bound:

@@ -43,9 +43,12 @@ renderer made and one frame) and, last, one JSON line with the card's
 name and power limit.
 
 ``--variants`` (this tree only) also builds copies of ``traverse2.cu``,
-``packet_walk.cu`` and ``traverse_wide.cu`` with one design piece changed
-each (``VARIANTS``: K3 with its row's loads in two rounds (the meta
-quarter, then the boxes or the transform), or its registers bounded for
+``packet_walk.cu``, ``traverse_wide.cu`` and ``traverse_packet.cu`` with
+one design piece changed each (``VARIANTS``: K1's alpha mode without its
+slot classes, with the floored modulo by divisions, or, for timing
+only, with every slot kept (the rows' cost); K3 with its row's loads in
+two rounds (the meta quarter, then the boxes or the transform), or its
+registers bounded for
 5 or 6 blocks an SM; K6
 with its registers bounded for 8 or 7 blocks an SM, its stack in local
 memory, the boxes' loads made to wait for the header, one loop over all
@@ -57,7 +60,7 @@ outputs (the hashes) and times it beside the kernel in turns on the same
 waves, and on the sum of config 2's 8 waves.
 
     python vortex_rt_tpu_torch/tools/walk_timing.py [--root DIR]
-        [--parts k6,k2,k3] [--reps 20] [--frames 4] [--variants]
+        [--parts k6,k2,k3,k1a] [--reps 20] [--frames 4] [--variants]
         [--out FILE]
 
 (run as a file, so that the package imported is the one at ``--root``).
@@ -81,7 +84,9 @@ KERNEL = {"traverse2": "traverse2_kernel", "packet_walk": "packet_walk_kernel",
           "traverse_packet": "traverse_packet_kernel",
           "traverse_wide": "traverse_wide_kernel"}
 PART_LIBS = {"k6": ("traverse2",), "k2": ("packet_walk", "traverse_packet"),
-             "k3": ("traverse_wide",)}
+             "k3": ("traverse_wide",), "k1a": ("traverse_packet",)}
+# variants whose outputs differ from the kernel's by design (timing copies)
+TIMING_ONLY = {"k1a_rows"}
 _ONE_LOOP_K6 = [("while (live && rec.h.x == KIND_INTERNAL) {",
                  "if (live && rec.h.x == KIND_INTERNAL) {"),
                 ("while (live && rec.h.x != KIND_INTERNAL) {",
@@ -145,6 +150,22 @@ VARIANTS = {
             const uint4 w4 = __ldg(nrow + 4), w5 = __ldg(nrow + 5);
             const uint4 w6 = __ldg(nrow + 6), w7 = __ldg(nrow + 7);
 """)]),
+    # K1's alpha mode: no slot classes (every candidate tested)
+    "k1a_no_classes": ("traverse_packet", [(
+        "ALPHA && a.alpha_cls != nullptr ? __ldg(a.alpha_cls + node) : 0u;",
+        "0u;")]),
+    # the floored modulo by two divisions for every texture side (the
+    # header before its power-of-two mask, inlined into the copy)
+    "k1a_div_mod": ("traverse_packet", [(
+        '#include "alpha_test.cuh"', lambda: (
+            Path(__file__).resolve().parents[1] / "csrc" / "alpha_test.cuh"
+        ).read_text().replace(
+            "    if ((m & (m - 1)) == 0) return x & (m - 1);\n", ""))]),
+    # timing only (its hits are the walk's without alpha): every slot
+    # kept, no alpha test, over the same 512-B rows
+    "k1a_rows": ("traverse_packet", [(
+        "const uint32_t cls = (cls_w >> (2 * c)) & 3u;",
+        "const uint32_t cls = 1u;")]),
     # registers bounded for 5 or 6 blocks of 128 an SM (102 or 85)
     "k3_blocks5": ("traverse_wide", [(
         "__global__ void __launch_bounds__(VRT_BLOCK) traverse_wide_kernel(",
@@ -186,7 +207,7 @@ def _variant_libs(kernels, libs=None) -> dict:
         for old, new in edits:
             if text.count(old) != 1:
                 raise RuntimeError(f"{name}: {old!r} is not in {lib}.cu once")
-            text = text.replace(old, new)
+            text = text.replace(old, new() if callable(new) else new)
         src = out_dir / f"{name}.cu"
         src.write_text(text)
         built[name] = kernels.load_file(lib, src)
@@ -291,7 +312,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--parts", default="k6,k2,k3",
-                    help="k6 (MK-A, MK-B), k2 (with K1's wave), k3")
+                    help="k6 (MK-A, MK-B), k2 (with K1's wave), k3, k1a "
+                         "(K1's alpha mode)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--frames", type=int, default=4)
     ap.add_argument("--variants", action="store_true",
@@ -327,26 +349,30 @@ def main(argv=None) -> int:
     out = {"root": str(root), "card": card, "packed_k6": packs,
            "reps": args.reps, "parts": parts,
            "ptxas": {n: _ptxas(lib.build_log) for n, lib in libs.items()},
-           "k6": {}, "k2": {}, "k1": {}, "k3": {}}
+           "k6": {}, "k2": {}, "k1": {}, "k3": {}, "k1a": {}}
     variants = _variant_libs(kernels, lib_names) if args.variants else {}
     for n, lib in variants.items():
         out["ptxas"][n] = _ptxas(lib.build_log)
     for n, line in out["ptxas"].items():
         print(f"{n}: {line}", file=sys.stderr)
 
-    def timed(lib_name, make, res_of):
+    def timed(lib_name, make, res_of, with_variants=True):
         """The kernel and each variant of library ``lib_name``: held to
-        the kernel's outputs, then timed in turns (forwards, backwards):
+        the kernel's outputs (a ``TIMING_ONLY`` copy's digest is kept
+        beside), then timed in turns (forwards, backwards):
         {version: {ms (profiler), events_ms, ...}}, the kernel's first
         outputs."""
         calls = {"kernel": make()}
         first = calls["kernel"]()
         want = _digest(res_of(first))
+        digests = {}
         for n, lib in variants.items():
-            if VARIANTS[n][0] == lib_name:
+            if VARIANTS[n][0] == lib_name and with_variants:
                 calls[n] = _through(kernels, lib_name, lib, make)
                 got = _digest(res_of(calls[n]()))
-                if got != want:
+                if n in TIMING_ONLY:
+                    digests[n] = got
+                elif got != want:
                     raise RuntimeError(f"{n}: outputs differ from the kernel")
         kname = KERNEL[lib_name]
         times = {n: dict(ms=[], events_ms=[]) for n in calls}
@@ -360,6 +386,8 @@ def main(argv=None) -> int:
             times[n]["events_ms"].append(_events_ms(torch, call, args.reps))
         rec = {n: dict(ms=sum(t["ms"]) / 2, events_ms=sum(t["events_ms"]) / 2,
                        turns=t["ms"]) for n, t in times.items()}
+        for n, dg in digests.items():
+            rec[n]["digest"] = dg
         return rec, first
 
     def k6_wave(label, ta, o, d, active):
@@ -395,6 +423,8 @@ def main(argv=None) -> int:
         out[kind][label] = rec
         print(f"{kind.upper()} {label}: {rec}", file=sys.stderr)
 
+    if "k1a" in parts:
+        k1a_part(args, out, dev, timed)
     if "k3" in parts:
         k3_part(args, out, dev, timed, variants)
     if "k6" in parts:
@@ -408,6 +438,107 @@ def main(argv=None) -> int:
             f.write(line + "\n")
     print(line)
     return 0
+
+
+def _ptxas_entries(log: str) -> dict:
+    """ptxas's registers, stack frame and spills by kernel entry (the
+    mangled name shortened: ``<...>`` for a template argument)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            name = (name.replace("ILb1EE", "<true>").replace("ILb0EE", "<false>")
+                    .replace("_Z", "").lstrip("0123456789N"))
+            out[name] = []
+        elif name and ("registers" in ln or "stack frame" in ln):
+            out[name].append(ln.split("ptxas info    : ")[-1].strip())
+    return {k: " | ".join(v) for k, v in out.items()}
+
+
+def k1a_part(args, out, dev, timed) -> None:
+    """K1's alpha mode on ladder row 6's waves (the textured atrium, flat
+    8-wide, ``alpha_test_anyhit(0.30)``) at 512x512 (the first sample
+    pass's closest, shadow, bounce and second shadow waves, and the
+    mixed wave of its shadow and primary rays) and its 1080p primary
+    wave; the same rays over the scene's fused table without alpha
+    fields (the walk without alpha, 384-B rows); K1 without alpha on
+    config 2's 8-wide primary wave.  Each beside its bound (``k1_bound``,
+    the tests the kernel makes, and the first figure with every candidate
+    tested) and its alpha tests (made, and every candidate)."""
+    import torch
+
+    from vortex_rt_tpu_torch import Camera, RenderParams, RTConfig, Scene
+    from vortex_rt_tpu_torch import WavefrontRenderer
+    from vortex_rt_tpu_torch.models import procedural
+    from vortex_rt_tpu_torch.ops import traverse_packet as tp
+    from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import bench_ladder
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
+    from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT
+
+    lib = kernels.load("traverse_packet")
+    out["k1a"]["ptxas_entries"] = _ptxas_entries(lib.build_log)
+    lookups = "lookups" in wb.k1_bound.__code__.co_varnames
+    sc6, r6, cam6, p6, _ = bench_ladder.setup6(dev)
+    plain_wa = WideArrays.from_scene(r6.sb, width=8).fuse().to(dev)
+    out["k1a"].update(row_bytes_alpha=r6.wa.fused.shape[1] * 4,
+                      row_bytes_plain=plain_wa.fused.shape[1] * 4,
+                      stack_entries=tp.stack_entries(r6.wa))
+
+    def wave(label, wa, o, d, kw, with_variants=True):
+        versions, (hits, steps) = timed(
+            "traverse_packet", lambda: tp.kernel_call(wa, o, d, **kw),
+            lambda r: (*r[0], r[1]), with_variants)
+        _, _, work = tp.walk_work(wa, o, d, **kw)
+        b = wb.k1_bound(work)
+        rec = dict(rays=int(o.shape[0]), **versions.pop("kernel"),
+                   bound_ms=b.ms, bound_by=b.bound_by,
+                   mean_steps=float(steps.float().mean()),
+                   digest=_digest((*hits, steps)), variants=versions)
+        if "alpha_ref" in kw:
+            rec.update(alpha_tests=int(work.alpha_tests.sum()))
+            if lookups:
+                b0 = wb.k1_bound(work, lookups=False)
+                rec.update(alpha_lookups=int(work.alpha_lookups.sum()),
+                           bound_every_ms=b0.ms, bound_every_by=b0.bound_by)
+        out["k1a"][label] = rec
+        print(f"K1a {label}: {rec}", file=sys.stderr)
+
+    waves = _capture(r6, cam6, p6, 512, 512)
+    (o0, d0, k0), (o1, d1, k1), (o2, d2, k2), (o3, d3, k3) = waves[:4]
+    n = o0.shape[0]
+    cases = {"row6_512_closest": (o0, d0, k0), "row6_512_shadow": (o1, d1, k1),
+             "row6_512_bounce": (o2, d2, k2), "row6_512_shadow1": (o3, d3, k3)}
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    act0, act1 = (ones if kw.get("active") is None else kw["active"]
+                  for kw in (k0, k1))
+    cases["row6_512_mixed"] = (
+        torch.cat([o1, o0]), torch.cat([d1, d0]),
+        dict(alpha_ref=k0["alpha_ref"], active=torch.cat([act1, act0]),
+             t_max=torch.cat([k1["t_max"], torch.full_like(
+                 k1["t_max"], LARGE_FLOAT)]), occl_split=n))
+    del waves
+    ohd, dhd, khd = _capture(r6, cam6, p6, 1920, 1080)[0]
+    cases["row6_1080p_closest"] = (ohd, dhd, khd)
+    for label, (o, d, kw) in cases.items():
+        wave(label, r6.wa, o, d, kw)
+        if label in ("row6_512_closest", "row6_512_shadow",
+                     "row6_1080p_closest"):
+            plain = {k: v for k, v in kw.items() if k != "alpha_ref"}
+            wave(f"{label}_no_alpha", plain_wa, o, d, plain, False)
+    del cases
+    cam2 = Camera.look_at(*EYE2)
+    sc = Scene()
+    for mesh, refl in procedural.cornell_box():
+        sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
+    sc.add_instance(sc.add_mesh(procedural.uv_sphere((0, -0.3, 0), 0.35, 24,
+                                                     48)))
+    cfg = RTConfig(flatten=True)
+    r2 = WavefrontRenderer.from_buffers(sc.build(cfg), cfg, device=dev)
+    o, d, kw = _capture(r2, cam2, RenderParams(
+        light_pos=LIGHT2, max_depth=2, shadow=True, spp=2), 512, 512)[0]
+    wave("config2_primary", r2.wa, o, d, kw, False)
 
 
 def k6_part(args, out, dev, k6_wave) -> None:
