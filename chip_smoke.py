@@ -231,6 +231,35 @@ and so exits non-zero, on failure):
     the bare launch (hits and steps equal), timed (CUDA events around the
     bare launch) beside the plain version on the crop and ``k2_bound`` of
     the whole wave;
+17a. ladder config 3 through the CLI and the OBJ loader: ``blob(n=187)``
+    written to an OBJ (a v, vn and vt line a corner, %.9g) and read back
+    (every array equal; seconds printed), ``cli.main`` at 1920x1080, spp
+    4, depth 3, shadow rays, path traced (20 K1 launches), its image
+    within 1e-5 of the same frame rendered from the mesh in memory, equal
+    rays; the CLI's ms (table build included) and the frame's alone;
+17b. the CLI's ``--perf`` at config 2's shape (cornell, 512x512, depth 2,
+    shadow rays): 4 launches of K1's counting instantiation; then
+    ``perf_trace`` on the renderer the CLI builds and on its 4-wide
+    build (K2's counting instantiation), every wave captured: hits,
+    steps and per-ray internal and instance steps equal ``walk_work`` /
+    ``walk_work_4`` word for word, the counters equal the plain sums and
+    maxima, ``perf_trace`` equal to the CLI's printed lines; each wave's
+    default and STATS kernels timed in turns (CUDA events; the
+    profiler's kernel time on the primary wave); one alpha wave of row 6's scene at 192x192
+    through K1's and K2's counting instantiations; ptxas lines of both
+    instantiations;
+17c. the CLI's ``--scope-out`` at config 2's shape: the JSON parses, its
+    spans tile one timeline, their labels equal ``frame_profile``'s;
+    per-stage ms;
+17d. the CLI's ``--compare`` on cornell at 256x256, depth 2 (PASS), and
+    MK-B through the CLI (``-m atrium --engine megakernel``, 2 K6
+    launches);
+17e. the RT-unit facade (``engine/rtu.py``) on the atrium's 4-wide TLAS
+    build: the reference's persistent kernel loop over 512x512 camera
+    rays, an any-hit handler rejecting odd triangle ids; closest hits
+    equal the pool path's (``walk_lanes`` rounds, same action) to the
+    bit; rays/s, rounds, K3 launches; the device API (``dev_open``,
+    copy, start, ready_wait, dump_perf) once;
 16. prints the kernels' JSON line (per kernel: launches on its main-path
     run and per frame, K1's being config 4's frame with the other paths'
     counts beside it, the LBVH kernels' being row 5's run, the PLOC
@@ -248,8 +277,11 @@ and so exits non-zero, on failure):
     their time without alpha beside; ``traverse2``'s launches MK-A's
     timed frames', its time on MK-A's primary wave; ``lbvh_sah``'s the
     launch of one build at config 3's mesh, its time the whole sweep's,
-    the kernel's beside, its host reads and device operations) and, last,
-    the device JSON line.
+    the kernel's beside, its host reads and device operations;
+    ``traverse_packet_stats`` and ``packet_walk_stats`` the counting
+    instantiations' launches on the CLI's and ``perf_trace``'s paths,
+    their time on the CLI's config-2 primary wave beside the default
+    instantiation's) and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -301,6 +333,12 @@ SOURCES = {
                   "vortex_rt_tpu/ops/traverse2.py:143"),
     "lbvh_sah": ("vortex_rt_tpu_torch/csrc/lbvh_sah.cu",
                  "vortex_rt_tpu/accel/lbvh.py:170"),
+    # the counting instantiations of K1 and K2: the PacketStats the JAX
+    # loop carries (stats=True)
+    "traverse_packet_stats": ("vortex_rt_tpu_torch/csrc/traverse_packet.cu",
+                              "vortex_rt_tpu/ops/traverse_packet.py:1181"),
+    "packet_walk_stats": ("vortex_rt_tpu_torch/csrc/packet_walk.cu",
+                          "vortex_rt_tpu/ops/traverse_packet.py:1181"),
 }
 LBVH_KERNELS = ("lbvh_karras", "lbvh_collapse", "lbvh_refit", "lbvh_pack")
 PLOC_KERNELS = ("ploc_merge", "ploc_collapse", "ploc_refit", "ploc_pack")
@@ -3024,7 +3062,7 @@ def phase_megakernel(device, mk_reps: int = 3, size=512,
            f"{w}x{h}")
     k2_hd = phase_k2_atrium(device, sb_b, cam_b, w, h)
     return dict(mk_a=mk_a, mk_b=mk_b, max_abs_err=err, times=times,
-                k2_hd=k2_hd)
+                k2_hd=k2_hd, atrium_tlas=sb_b)
 
 
 def phase_k2_atrium(device, sb, cam, w: int, h: int, crop: int = 31,
@@ -3122,6 +3160,539 @@ def phase_k7(device, check_rows: int = K7_ROWS[0], check_steps: int = 500
     return dict(launches=launches, launches_per_frame=None,
                 max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
                 bound_ms=b.ms, bound_by=b.bound_by, curves=curves)
+
+
+# ---------------------------- the host API surface and the CLI (17a-17e)
+
+def run_cli(argv, device) -> tuple:
+    """``cli.main(argv)`` with its standard output captured (and echoed,
+    indented) and the float images it writes recorded: (text, {path:
+    (H, W, 3) float32 image}).  On a card the CLI runs on its default
+    device; a CPU rehearsal passes ``--device cpu``."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from vortex_rt_tpu_torch import cli
+    from vortex_rt_tpu_torch.utils import image
+
+    images = {}
+    orig = image.write_ppm
+
+    def record(path, img):
+        images[str(path)] = np.asarray(img, np.float32).copy()
+        orig(path, img)
+
+    image.write_ppm = record
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(argv) + (["--device", "cpu"]
+                                        if device.type == "cpu" else []))
+    finally:
+        image.write_ppm = orig
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print("  cli| " + (line if len(line) < 300 else line[:300] + " ..."))
+    _check(rc == 0, f"cli.main({argv}) returned {rc}")
+    return text, images
+
+
+def cli_numbers(text: str) -> tuple:
+    """(ms, rays, Mrays/s) of the CLI's ``rendered ...`` line."""
+    import re
+
+    m = re.search(r"engine=\S+: ([\d.]+) ms, (\d+) rays, ([\d.]+) Mrays/s",
+                  text)
+    _check(m is not None, "the CLI printed no 'rendered' line")
+    return float(m.group(1)), int(m.group(2)), float(m.group(3))
+
+
+def write_obj(path: str, mesh) -> None:
+    """A mesh's triangles as an OBJ: a v, vn and vt line a corner, every
+    float by %.9g (which reads back to the same float32), then the faces."""
+    import numpy as np
+
+    v, n, uv = (np.stack(c, 1).reshape(-1, k).tolist() for c, k in (
+        ((mesh.v0, mesh.v1, mesh.v2), 3), ((mesh.n0, mesh.n1, mesh.n2), 3),
+        ((mesh.uv0, mesh.uv1, mesh.uv2), 2)))
+    with open(path, "w") as f:
+        f.write("# written by chip_smoke.py: one v/vn/vt a corner\n")
+        f.write("\n".join("v %.9g %.9g %.9g" % tuple(x) for x in v) + "\n")
+        f.write("\n".join("vn %.9g %.9g %.9g" % tuple(x) for x in n) + "\n")
+        f.write("\n".join("vt %.9g %.9g" % tuple(x) for x in uv) + "\n")
+        f.write("\n".join(
+            "f {0}/{0}/{0} {1}/{1}/{1} {2}/{2}/{2}".format(
+                3 * k + 1, 3 * k + 2, 3 * k + 3)
+            for k in range(len(v) // 3)) + "\n")
+
+
+def phase_cli_config3(device, w: int = 1920, h: int = 1080,
+                      blob_n: int = 187) -> dict:
+    """17a: ladder config 3's render through the CLI and the OBJ loader:
+    blob(n) written to an OBJ, read back (every array equal), rendered by
+    ``cli.main`` at spp 4, depth 3, shadow rays, path traced (launch
+    counts reset before), and held against the same frame rendered by
+    ``WavefrontRenderer`` from the mesh in memory."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from vortex_rt_tpu_torch import (
+        RenderParams, RTConfig, Scene, WavefrontRenderer,
+    )
+    from vortex_rt_tpu_torch.io.obj import load_obj
+    from vortex_rt_tpu_torch.models.bigscenes import blob
+    from vortex_rt_tpu_torch.runtime import kernels
+
+    mesh = blob(n=blob_n)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "blob.obj")
+        t0 = time.perf_counter()
+        write_obj(path, mesh)
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = load_obj(path)
+        load_s = time.perf_counter() - t0
+        for f in ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2"):
+            _check(np.array_equal(getattr(back, f), getattr(mesh, f)),
+                   f"the OBJ's {f} differs from the mesh's")
+        out = os.path.join(tmp, "cli.ppm")
+        kernels.reset_launches()
+        text, images = run_cli(["-m", path, "-w", str(w), "-H", str(h),
+                                "-s", "4", "-d", "3", "--shadow",
+                                "--pathtrace", "-o", out], device)
+        _sync(device)
+        launches = dict(kernels.LAUNCHES)
+        img_cli = images[out]
+    cli_ms, cli_rays, cli_mrays = cli_numbers(text)
+    cuda = device.type == "cuda"
+    _check(not cuda or launches["traverse_packet"] == 20,
+           f"the CLI's config-3 frame launched {launches}")
+    sc = Scene()
+    sc.add_instance(sc.add_mesh(mesh))
+    cfg = RTConfig(flatten=True)
+    sb = sc.build(cfg)
+    r = WavefrontRenderer.from_buffers(sb, cfg, device=device)
+    cam = Scene.framing_camera(sb, 45.0, w / h)
+    p = RenderParams(spp=4, max_depth=3, shadow=True, pathtrace=True)
+    img, rays = r.render(cam, p, w, h)
+    diff = float(np.abs(img_cli - np.clip(img, 0, 1)).max())
+    _check(rays == cli_rays and diff <= IMG_ATOL,
+           f"the CLI's frame ({cli_rays} rays) differs from the in-memory "
+           f"frame ({rays} rays) by {diff}")
+    frame_ms = _elapsed_ms(lambda: r.render(cam, p, w, h), 2, device)
+    print(f"  OBJ: {mesh.num_tris} triangles, {size} B, written in "
+          f"{write_s:.3f} s, loaded in {load_s:.3f} s (every array equal)")
+    print(f"  the CLI's frame: {cli_ms:.1f} ms as the CLI times it (the "
+          f"renderer's tables built and moved to the card, then the "
+          f"frame), {cli_rays} rays, {cli_mrays:.2f} Mrays/s; the frame "
+          f"alone (render, image read back) {frame_ms:.3f} ms = "
+          f"{rays / frame_ms / 1e3:.3f} Mrays/s; K1 launches "
+          f"{launches['traverse_packet']}; image max diff vs the in-memory "
+          f"frame {diff:.3g}")
+    return dict(obj_bytes=size, obj_write_s=write_s, obj_load_s=load_s,
+                cli_ms=cli_ms, cli_mrays=cli_mrays, rays=rays,
+                frame_ms=frame_ms, mrays=rays / frame_ms / 1e3,
+                k1_launches=launches["traverse_packet"], max_abs_err=diff)
+
+
+def _plain_stats(steps, work) -> dict:
+    """A wave's counters from the plain walk's per-ray steps and work."""
+    import torch
+
+    from vortex_rt_tpu_torch.ops.traverse_packet import WARP
+
+    s = steps.to(torch.int64)
+    pad = torch.cat([s, s.new_zeros((-len(s)) % WARP)])
+    return dict(steps=int(s.max()),
+                packet_steps=int(pad.reshape(-1, WARP).max(1).values.sum()),
+                ray_steps=int(s.sum()), int_steps=int(work.internal.sum()),
+                tri_steps=int(work.leaf.sum()),
+                ins_steps=int(work.instance.sum()))
+
+
+def _kernel_ms_pair(call_d, call_s, reps: int, name: str,
+                    profile: bool = True) -> dict:
+    """The default and the STATS instantiation of one wave timed in turns
+    (default, stats, stats, default): CUDA events around the bare launch,
+    and with ``profile`` the profiler's kernel time (every kernel whose
+    name holds ``name``; NaN, not measured, without)."""
+    ev = {"default": [], "stats": []}
+    prof = {"default": [], "stats": []}
+    for which in ("default", "stats", "stats", "default"):
+        call = call_d if which == "default" else call_s
+        ev[which].append(_device_ms(call, reps))
+        prof[which].append(_profiled_kernel_ms(call, reps, [name])[name]
+                           if profile else float("nan"))
+    return {k: dict(ms=sum(ev[k]) / 2, profiler_ms=sum(prof[k]) / 2)
+            for k in ev}
+
+
+def stats_vs_plain(label: str, r, cam, p, size: int, device,
+                   reps: int = 20) -> dict:
+    """``perf_trace`` of one frame through the walks' counting
+    instantiations, its waves captured: per wave, the hits, steps and
+    per-ray internal and instance steps equal the plain walk's
+    (``walk_work`` / ``walk_work_4``) word for word, and the counters
+    equal the plain sums and maxima; each wave's default and STATS
+    kernels timed in turns (CUDA events; the profiler's kernel time
+    beside on the primary wave)."""
+    import torch
+
+    from vortex_rt_tpu_torch.ops import packet_walk as pw
+    from vortex_rt_tpu_torch.ops import traverse_packet as tp
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
+
+    k1 = r.wa.width == 8
+    work_fn = tp.walk_work if k1 else pw.walk_work_4
+    call_fn = tp.kernel_call if k1 else pw.kernel_call
+    kname = "traverse_packet_kernel" if k1 else "packet_walk_kernel"
+    waves = []
+    walk = r.walk
+
+    def capture(wa, o, d, **kw):
+        res = walk(wa, o, d, **kw)
+        waves.append((o.clone(), d.clone(), {
+            k: (v.clone() if torch.is_tensor(v) else v)
+            for k, v in kw.items()}, res))
+        return res
+
+    r.walk = capture
+    kernels.reset_launches()
+    try:
+        perf = r.perf_trace(cam, p, size, size)
+    finally:
+        r.walk = walk
+    _sync(device)
+    launches = dict(kernels.LAUNCHES)  # (before the timing launches)
+    names = [f"{k}{b}" for b in range(p.max_depth)
+             for k in (("trace", "shadow") if p.shadow else ("trace",))]
+    _check(len(waves) == len(names) * p.spp,
+           f"{label}: {len(waves)} waves for {names}")
+    stats_lib = "traverse_packet_stats" if k1 else "packet_walk_stats"
+    _check(device.type != "cuda" or launches[stats_lib] == len(waves),
+           f"{label}: perf_trace launched {launches}")
+    out = {"perf": perf, "waves": {}, "launches": launches}
+    err = 0.0
+    for name, (o, d, kw, (hk, sk, kinds)) in zip(names, waves):
+        _check(kw.pop("stats") is True, f"{label} {name} did not count")
+        hp, sp, work = work_fn(r.wa, o, d, **kw)
+        compare_hits(f"{label} {name}", hk, hp, sk, sp)
+        _check(torch.equal(kinds.internal, work.internal.to(torch.int32))
+               and torch.equal(kinds.instance,
+                               work.instance.to(torch.int32)),
+               f"{label} {name}: per-ray step kinds differ from walk_work")
+        want = _plain_stats(sp, work)
+        got = perf[name]
+        err = max(err, max(abs(got[k] - v) for k, v in want.items()))
+        _check(all(got[k] == v for k, v in want.items()),
+               f"{label} {name}: {got} against the plain {want}")
+        rec = dict(counters=got, live=int(kw["active"].sum()))
+        if name == "trace0" and device.type == "cuda":
+            t = _kernel_ms_pair(call_fn(r.wa, o, d, **kw),
+                                call_fn(r.wa, o, d, stats=True, **kw),
+                                reps, kname)
+            b = (wb.k1_bound if k1 else wb.k2_bound)(work)
+            rec.update(default=t["default"], stats=t["stats"],
+                       plain_ms=_elapsed_ms(
+                           lambda: work_fn(r.wa, o, d, **kw), 1, device),
+                       bound_ms=b.ms, bound_by=b.bound_by)
+        elif device.type == "cuda":
+            rec.update(_kernel_ms_pair(call_fn(r.wa, o, d, **kw),
+                                       call_fn(r.wa, o, d, stats=True, **kw),
+                                       reps, kname, profile=False))
+        out["waves"][name] = rec
+        print(f"  {label} {name}: {rec['live']} live rays, counters {got} "
+              f"= the plain walk's; default "
+              f"{rec.get('default', {}).get('ms', float('nan')):.4f} ms "
+              f"(profiler {rec.get('default', {}).get('profiler_ms', float('nan')):.4f}),"
+              f" STATS {rec.get('stats', {}).get('ms', float('nan')):.4f} ms "
+              f"(profiler {rec.get('stats', {}).get('profiler_ms', float('nan')):.4f})")
+    out["max_abs_err"] = err
+    return out
+
+
+def alpha_stats_vs_plain(label: str, r, cam, size: int, device) -> float:
+    """One alpha-mode wave (camera rays of ``cam``) through the counting
+    instantiation against ``walk_work``'s counts, word for word."""
+    import torch
+
+    from vortex_rt_tpu_torch.ops import packet_walk as pw
+    from vortex_rt_tpu_torch.ops import traverse_packet as tp
+    from vortex_rt_tpu_torch.tools.bench_ladder import ALPHA6
+
+    k1 = r.wa.width == 8
+    o, d = camera_rays(cam, size, size, device)
+    walk = tp.trace_packets if k1 else pw.trace_packets_walk
+    work_fn = tp.walk_work if k1 else pw.walk_work_4
+    hk, sk, kinds = walk(r.wa, o, d, alpha_ref=ALPHA6, stats=True)
+    _sync(device)
+    hp, sp, work = work_fn(r.wa, o, d, alpha_ref=ALPHA6)
+    err = compare_hits(label, hk, hp, sk, sp)
+    _check(torch.equal(kinds.internal, work.internal.to(torch.int32))
+           and torch.equal(kinds.instance, work.instance.to(torch.int32)),
+           f"{label}: per-ray step kinds differ from walk_work")
+    print(f"  {label}: {size}x{size} rays, counters "
+          f"{_plain_stats(sp, work)} equal the plain walk's")
+    return err
+
+
+def phase_cli_perf(device, r6, r6_tlas, cam6, size: int = 512,
+                   alpha_size: int = 192) -> dict:
+    """17b: the CLI's --perf on the card (config 2's shape: cornell,
+    512x512, depth 2, shadow rays), then ``perf_trace`` on the renderer
+    the CLI builds, and on its 4-wide build, each wave's counters held to
+    the plain walk's; one alpha wave of row 6's scene through K1's and
+    K2's counting instantiations."""
+    import ast
+    import os
+    import tempfile
+
+    from vortex_rt_tpu_torch import (
+        RenderParams, RTConfig, Scene, WavefrontRenderer, cli,
+    )
+    from vortex_rt_tpu_torch.runtime import kernels
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launches()
+        text, _ = run_cli(["-m", "cornell", "-w", str(size), "-H",
+                           str(size), "-d", "2", "--shadow", "--perf",
+                           "-o", os.path.join(tmp, "o.ppm")], device)
+        _sync(device)
+        launches_cli = dict(kernels.LAUNCHES)
+    printed = {}
+    for line in text.splitlines():
+        if line.startswith("PERF.trace: "):
+            k, v = line[len("PERF.trace: "):].split("=", 1)
+            printed[k] = ast.literal_eval(v)
+    cuda = device.type == "cuda"
+    _check(not cuda or launches_cli["traverse_packet_stats"] == 4,
+           f"the CLI's --perf launched {launches_cli}")
+    sb = cli.build_scene("cornell").build(RTConfig(flatten=True))
+    cam = Scene.framing_camera(sb, 45.0, 1.0)
+    p = RenderParams(max_depth=2, shadow=True)
+    out = {"cli_launches": launches_cli["traverse_packet_stats"],
+           "cli_k1_launches": launches_cli["traverse_packet"]}
+    for key, cfg in (("k1", RTConfig(flatten=True)),
+                     ("k2", RTConfig(flatten=True, bvh_width=4))):
+        r = WavefrontRenderer.from_buffers(sb, cfg, device=device)
+        out[key] = stats_vs_plain(f"{key} ({r.wa.width}-wide)", r, cam, p,
+                                  size, device)
+    _check(out["k1"]["perf"] == printed,
+           "perf_trace on the CLI's renderer differs from the CLI's "
+           "PERF.trace lines")
+    err = max(out["k1"]["max_abs_err"], out["k2"]["max_abs_err"])
+    out["alpha_err"] = max(
+        alpha_stats_vs_plain("row 6 alpha wave, K1", r6, cam6, alpha_size,
+                             device),
+        alpha_stats_vs_plain("row 6 alpha wave, K2 (TLAS)", r6_tlas, cam6,
+                             alpha_size, device))
+    out["max_abs_err"] = max(err, out["alpha_err"])
+    if cuda:
+        for name in ("traverse_packet", "packet_walk"):
+            log = kernels.load(name).build_log
+            print(f"  {name} ptxas (default <.., false>, STATS <.., true>):")
+            for line in log.splitlines():
+                if ("Compiling entry" in line or "registers" in line
+                        or "stack frame" in line):
+                    print("    " + line.split("ptxas info    : ")[-1].strip())
+    print(f"  the CLI's --perf: {out['cli_launches']} launches of K1's "
+          f"counting instantiation, {out['cli_k1_launches']} of K1; "
+          f"perf_trace equals the CLI's PERF.trace lines")
+    return out
+
+
+def phase_cli_scope(device, size: int = 512, n_frames: int = 4) -> dict:
+    """17c: --scope-out on config 2's shape: the JSON parses, its spans
+    tile one timeline and their labels equal ``frame_profile``'s."""
+    import os
+    import tempfile
+
+    from vortex_rt_tpu_torch import (
+        RenderParams, RTConfig, Scene, WavefrontRenderer, cli,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scope.json")
+        run_cli(["-m", "cornell", "-w", str(size), "-H", str(size), "-d",
+                 "2", "--shadow", "--scope-out", path, "-o",
+                 os.path.join(tmp, "o.ppm")], device)
+        with open(path) as f:
+            evs = json.load(f)["traceEvents"]
+    spans = sorted((e for e in evs if e["ph"] == "X"), key=lambda e: e["ts"])
+    for a, b in zip(spans, spans[1:]):
+        _check(abs(a["ts"] + a["dur"] - b["ts"]) < 1e-6,
+               "the scope's spans do not tile its timeline")
+    cfg = RTConfig(flatten=True)
+    sb = cli.build_scene("cornell").build(cfg)
+    r = WavefrontRenderer.from_buffers(sb, cfg, device=device)
+    prof = r.frame_profile(Scene.framing_camera(sb, 45.0, 1.0),
+                           RenderParams(max_depth=2, shadow=True), size,
+                           size, n_frames=n_frames)
+    labels = [e["name"] for e in spans]
+    _check(labels == [x["stage"] for x in prof],
+           f"scope stages {labels} differ from frame_profile's")
+    counters = {e["name"] for e in evs if e["ph"] == "C"}
+    print("  scope stages (ms): " + ", ".join(
+        f"{e['name']} {e['dur'] / 1e3:.2f}" for e in spans))
+    print("  frame_profile (ms): " + ", ".join(
+        f"{x['stage']} {x['ms']:.2f}" for x in prof)
+          + f"; counter tracks {sorted(counters)}")
+    return dict(scope_ms={e["name"]: e["dur"] / 1e3 for e in spans},
+                profile=prof)
+
+
+def phase_cli_compare(device, hd=(1920, 1080)) -> dict:
+    """17d: --compare on cornell at 256x256, depth 2 (PASS against the
+    golden oracle), then MK-B through the CLI (atrium, --engine
+    megakernel, spp 1, depth 2)."""
+    import os
+    import tempfile
+
+    from vortex_rt_tpu_torch.runtime import kernels
+
+    with tempfile.TemporaryDirectory() as tmp:
+        text, _ = run_cli(["-m", "cornell", "-w", "256", "-H", "256", "-d",
+                           "2", "--compare", "-o",
+                           os.path.join(tmp, "c.ppm")], device)
+        line = next((ln for ln in text.splitlines()
+                     if ln.startswith("COMPARE:")), "")
+        _check("PASS" in line, f"--compare did not pass: {line!r}")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        text, _ = run_cli(["-m", "atrium", "-w", str(hd[0]), "-H",
+                           str(hd[1]), "-d", "2", "--engine", "megakernel",
+                           "-o", os.path.join(tmp, "mk.ppm")], device)
+        call_s = time.perf_counter() - t0
+        _sync(device)
+        launches = dict(kernels.LAUNCHES)
+    ms, rays, mrays = cli_numbers(text)
+    _check(device.type != "cuda" or launches["traverse2"] == 2,
+           f"MK-B through the CLI launched {launches}")
+    print(f"  MK-B through the CLI: {ms:.1f} ms as the CLI times it (the "
+          f"records packed on the card, then the frame), {rays} rays, "
+          f"{mrays:.2f} Mrays/s; the whole call with the host build "
+          f"{call_s:.2f} s; K6 launches {launches['traverse2']}")
+    return dict(compare=line, mk_b_cli_ms=ms, mk_b_rays=rays,
+                mk_b_mrays=mrays, mk_b_call_s=call_s,
+                k6_launches=launches["traverse2"])
+
+
+def phase_rtu(device, sb, size: int = 512) -> dict:
+    """17e: the RT-unit facade on the atrium's 4-wide TLAS build: the
+    reference's persistent kernel loop over ``size``^2 camera rays with an
+    any-hit handler that rejects odd triangle ids (CONT) and accepts the
+    others; the closest hits (mask, distance, triangle and instance ids)
+    equal the pool path's (``walk_lanes`` rounds with the same action) to
+    the bit.  Then the device API once: dev_open, copy, start,
+    ready_wait, dump_perf."""
+    import numpy as np
+    import torch
+
+    from vortex_rt_tpu_torch import Scene
+    from vortex_rt_tpu_torch.engine import rtu
+    from vortex_rt_tpu_torch.golden.renderer import generate_rays
+    from vortex_rt_tpu_torch.ops.packet_walk import trace_packets_walk
+    from vortex_rt_tpu_torch.ops.traverse_wide import (
+        WideArrays, commit, init_state_lanes, lanes_hits, walk_lanes,
+    )
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.runtime.device import (
+        VX_DCR_BASE_RTX_TLAS_PTR, dev_open,
+    )
+    from vortex_rt_tpu_torch.utils.config import (
+        COMMIT_ACCEPT, COMMIT_CONT, LARGE_FLOAT,
+    )
+
+    wa = WideArrays.from_scene(sb, width=4).to(device)
+    o, d = generate_rays(Scene.framing_camera(sb, 45.0, 1.0), size, size)
+    n = size * size
+    unit = rtu.RTUnit(wa, lanes=n, anyhit=True, queue_capacity=n)
+    dist = np.full(n, np.nan, np.float32)
+    tri = np.full(n, -1, np.int64)
+    inst = np.full(n, -1, np.int64)
+    rounds, any_rounds = 0, 0
+    kernels.reset_launches()
+    _sync(device)
+    t0 = time.perf_counter()
+    unit.trace_ray(o, d, payload_addr=np.arange(n))
+    while True:
+        work = unit.get_work()
+        if work.size == 0:
+            break
+        rounds += 1
+        ty, _ = rtu.decode_work(work)
+        if int(ty[0]) == rtu.SHADER_ANY:
+            any_rounds += 1
+            odd = unit.get_attr(work, rtu.VX_RT_HIT_TRI_IDX) % 2 == 1
+            unit.commit(work[odd], rtu.VX_RT_COMMIT_CONT)
+            unit.commit(work[~odd], rtu.VX_RT_COMMIT_ACCEPT)
+            continue
+        pay = unit.get_attr(work, rtu.VX_RT_RAY_PAYLOAD_ADDR)
+        if int(ty[0]) == rtu.SHADER_CLOSEST:
+            dist[pay] = unit.get_attr(work, rtu.VX_RT_HIT_DIST)
+            tri[pay] = unit.get_attr(work, rtu.VX_RT_HIT_TRI_IDX)
+            inst[pay] = unit.get_attr(work, rtu.VX_RT_HIT_BLAS_IDX)
+        else:
+            dist[pay] = LARGE_FLOAT
+        unit.commit(work, rtu.VX_RT_COMMIT_TERM)
+        _check(rounds < 10_000, "the RT unit's loop did not drain")
+    _sync(device)
+    dt = time.perf_counter() - t0
+    k3 = kernels.LAUNCHES["traverse_wide"]
+    _check(unit.active_rays() == 0 and not np.isnan(dist).any(),
+           "the RT unit's loop left rays without a result")
+    _check(device.type != "cuda" or k3 > 0, "the RT unit launched no K3")
+    # the pool path: walk_lanes rounds, the same action on the suspended
+    ot = torch.as_tensor(o, device=device)
+    dt_ = torch.as_tensor(d, device=device)
+    lanes = tuple(a[:, k].contiguous() for a in (ot, dt_) for k in range(3))
+    st = init_state_lanes(*lanes)
+    pool_rounds = 0
+    while True:
+        st = walk_lanes(wa, *lanes, state=st, suspend=True)
+        pool_rounds += 1
+        if not bool(st.suspended.any()):
+            break
+        act = torch.where(st.pend_tri % 2 == 1, COMMIT_CONT, COMMIT_ACCEPT)
+        st = commit(st, torch.where(st.suspended, act, COMMIT_CONT)
+                    .to(torch.int32))
+    h = lanes_hits(wa, st)
+    hd = h.dist.cpu().numpy()
+    hit = hd < LARGE_FLOAT
+    _check(np.array_equal(hit, dist < LARGE_FLOAT)
+           and np.array_equal(hd[hit].view(np.int32),
+                              dist[hit].view(np.int32))
+           and np.array_equal(h.tri.cpu().numpy()[hit], tri[hit])
+           and np.array_equal(h.inst.cpu().numpy()[hit], inst[hit]),
+           "the RT unit's closest hits differ from the pool path's")
+    print(f"  RT unit: {n} rays on the atrium's TLAS in {dt:.3f} s = "
+          f"{n / dt / 1e6:.3f} Mrays/s (host clock, loop to drain), "
+          f"{rounds} get_work rounds ({any_rounds} any-hit), {k3} K3 "
+          f"launches; {int(hit.sum())} closest hits equal the pool path's "
+          f"({pool_rounds} walk_lanes rounds) to the bit")
+    # the device API (vortex.h) once
+    dev = dev_open(None if device.type == "cuda" else "cpu")
+    _check(dev.platform == "gpu" or device.type != "cuda",
+           f"dev_open() opened {dev.platform}")
+    dev.copy_to_dev("o", o)
+    dev.copy_to_dev("d", d)
+    dev.dcr_write(VX_DCR_BASE_RTX_TLAS_PTR, "tlas")
+    dev.upload_kernel("trace", lambda a, b: trace_packets_walk(wa, a, b))
+    dev.start("trace", dev.buffer("o"), dev.buffer("d"))
+    hits, _ = dev.ready_wait()
+    _check(bool((hits.dist < LARGE_FLOAT).any()), "the device API's trace hit "
+           "nothing")
+    perf = dev.dump_perf()
+    print(f"  device API: {dev.platform}, dump_perf {perf}")
+    return dict(rays=n, seconds=dt, rays_per_s=n / dt, rounds=rounds,
+                any_rounds=any_rounds, k3_launches=k3,
+                pool_rounds=pool_rounds, dump_perf=perf)
 
 
 def main() -> int:
@@ -3239,10 +3810,22 @@ def main() -> int:
     _phase("phase 13d row 6 parity against the suspension engine (K3), "
            "and the chunked frame")
     par6 = phase_parity6(device, sc6, r6, cam6, p6, table6)
-    del r6
     chunked = phase_chunked(device, r6_tlas, cam6, p6)
-    del r6_tlas
     mk = phase_megakernel(device)
+    _phase("phase 17a ladder config 3 through the CLI and the OBJ loader "
+           "(blob n=187 written to an OBJ, 1920x1080, spp 4, depth 3)")
+    cli3 = phase_cli_config3(device)
+    _phase("phase 17b the CLI's --perf on the card: per-wave statistics "
+           "through K1's and K2's counting instantiations")
+    perf17 = phase_cli_perf(device, r6, r6_tlas, cam6)
+    del r6, r6_tlas
+    _phase("phase 17c the CLI's --scope-out and frame_profile")
+    scope17 = phase_cli_scope(device)
+    _phase("phase 17d the CLI's --compare, and MK-B through the CLI")
+    cmp17 = phase_cli_compare(device)
+    _phase("phase 17e the RT-unit facade and the device API (the atrium's "
+           "4-wide TLAS, 512x512)")
+    rtu17 = phase_rtu(device, mk.pop("atrium_tlas"))
     _phase("phase 16 results")
     print(f"  summary: config2 {c2['mrays']:.3f} Mrays/s, scale "
           f"{sc['mrays']:.3f} Mrays/s, peak {sc['peak_bytes']} B; config 3 "
@@ -3269,7 +3852,7 @@ def main() -> int:
         "config2": c2["launches"], "config3": c3["k1_launches"],
         "config4": c4["k1_launches"],
         "config3_device_tree": c3d["launches"]["traverse_packet"],
-        "config5": c5["launches_k1"]})
+        "config5": c5["launches_k1"], "cli_config3": cli3["k1_launches"]})
     for name in LBVH_KERNELS:
         _check(lbvh_checked[name] > 0, f"phases 11a-11c checked no {name}")
         c5["kernels"][name]["launches_by_path"]["config3_device_tree"] = \
@@ -3348,7 +3931,8 @@ def main() -> int:
                      "replaces": replaces, "launches": launches,
                      "launches_per_frame": per_frame,
                      "launches_by_path": ({"parity6": launches,
-                                           "chunked": chunked["launches"]}
+                                           "chunked": chunked["launches"],
+                                           "rtu": rtu17["k3_launches"]}
                                           if name == "traverse_wide"
                                           else None),
                      "max_abs_err": (max(res["max_abs_err"],
@@ -3430,6 +4014,46 @@ def main() -> int:
           f"{sah3['build_ms']:.4f} ms ({sah3['levels']} levels, wide depth "
           f"{sah3['wide_depth']}) and {sah5['build_ms']:.4f} ms "
           f"({sah5['levels']} levels, wide depth {sah5['wide_depth']})")
+    # the counting instantiations of K1 and K2: times on the primary wave
+    # of the CLI's config-2 frame (cornell, 512x512), the default
+    # instantiation's beside; bound the walk's
+    for name, key, by_path in (
+            ("traverse_packet_stats", "k1", {
+                "cli_perf": perf17["cli_launches"],
+                "perf_trace_8wide": perf17["k1"]["launches"][
+                    "traverse_packet_stats"]}),
+            ("packet_walk_stats", "k2", {
+                "perf_trace_4wide": perf17["k2"]["launches"][
+                    "packet_walk_stats"]})):
+        w0 = perf17[key]["waves"]["trace0"]
+        src, replaces = SOURCES[name]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces,
+                     "launches": sum(by_path.values()),
+                     "launches_per_frame": 4,
+                     "launches_by_path": by_path,
+                     "max_abs_err": perf17["max_abs_err"],
+                     "ms": w0["stats"]["ms"],
+                     "default_ms": w0["default"]["ms"],
+                     "profiler_ms": w0["stats"]["profiler_ms"],
+                     "default_profiler_ms": w0["default"]["profiler_ms"],
+                     "plain_ms": w0["plain_ms"], "bound_ms": w0["bound_ms"],
+                     "bound_by": w0["bound_by"],
+                     "bound_share": w0["bound_ms"] / w0["stats"]["ms"],
+                     # counters of a walk: no one PyTorch call walks a BVH
+                     "library_ms": None, "ms_source": "cuda_events_launch",
+                     "other_waves": {k: {f: v.get(f) for f in (
+                         "default", "stats", "live")}
+                         for k, v in perf17[key]["waves"].items()
+                         if k != "trace0"}})
+    print(f"  CLI: config 3 from an OBJ {cli3['frame_ms']:.3f} ms/frame "
+          f"({cli3['mrays']:.3f} Mrays/s; the CLI's own reading "
+          f"{cli3['cli_ms']:.1f} ms with its table build), OBJ load "
+          f"{cli3['obj_load_s']:.3f} s; MK-B through the CLI "
+          f"{cmp17['mk_b_cli_ms']:.1f} ms; RT unit "
+          f"{rtu17['rays_per_s'] / 1e6:.3f} Mrays/s, {rtu17['rounds']} "
+          f"rounds, {rtu17['k3_launches']} K3 launches; scope stages "
+          f"{scope17['scope_ms']}")
     print(json.dumps(_json_safe({"kernels": rows})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

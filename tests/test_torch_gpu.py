@@ -1584,3 +1584,69 @@ def test_ploc_refit_after_a_failed_launch_starts_from_new_counters(
     assert arrived is not None and arrived is not old
     assert not bool(arrived.any())
     _assert_same(got, ploc._refit_boxes_ploc_ref(ptopo, *v))
+
+
+# ---- the counting instantiations of K1 and K2 (per-wave statistics)
+
+@pytest.mark.parametrize("case", ["k1", "k1_alpha", "k1_occlusion",
+                                  "k2flat", "k2tlas", "k2tlas_alpha",
+                                  "k2tlas_occlusion"])
+def test_stats_walks_match_walk_work(cuda, case):
+    """The STATS instantiations of K1 and K2 (plain and alpha) on a 64x64
+    wave: each ray's internal and instance steps equal the plain walk's
+    ``walk_work`` counts, and the hits and steps equal the default
+    instantiation's and the plain version's."""
+    from vortex_rt_tpu_torch.ops.packet_walk import walk_work_4
+    from vortex_rt_tpu_torch.ops.traverse_packet import walk_work
+
+    width = 8 if case.startswith("k1") else 4
+    flat = not case.startswith("k2tlas")
+    sb = _cutout(flat, width)
+    wa = WideArrays.from_scene(sb, width=width)
+    if width == 8:
+        wa = wa.fuse()
+    if case.endswith("alpha"):
+        wa = wa.with_alpha(sb)
+    wa = wa.to(cuda)
+    lanes = _camera_lanes(cuda, 64)
+    o, d = torch.stack(lanes[:3], 1), torch.stack(lanes[3:], 1)
+    n = o.shape[0]
+    kw = dict(active=torch.arange(n, device=cuda) % 5 != 2)
+    if case.endswith("alpha"):
+        kw["alpha_ref"] = 0.35
+    if case.endswith("occlusion"):
+        kw.update(t_max=torch.full((n,), 6.0, device=cuda), occlusion=True)
+    walk, work_fn = ((trace_packets, walk_work) if width == 8
+                     else (trace_packets_walk, walk_work_4))
+    name = "traverse_packet_stats" if width == 8 else "packet_walk_stats"
+    plain = ("traverse_packet" if width == 8 else "packet_walk") + (
+        "_alpha" if case.endswith("alpha") else "")
+    before = dict(kernels.LAUNCHES)
+    hs, ss, kinds = walk(wa, o, d, stats=True, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before[name] + 1
+    assert kernels.LAUNCHES[plain] == before[plain]
+    hd, sd = walk(wa, o, d, **kw)
+    hp, sp, work = work_fn(wa, o, d, **kw)
+    for a, b, c in zip((*hs, ss), (*hd, sd), (*hp, sp)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(kinds.internal, work.internal.to(torch.int32))
+    assert torch.equal(kinds.instance, work.instance.to(torch.int32))
+    assert torch.equal(ss - kinds.internal - kinds.instance,
+                       work.leaf.to(torch.int32))
+    assert bool((kinds.instance > 0).any()) == (not flat)
+
+
+def test_cli_runs_on_the_card_by_default(cuda, tmp_path, capsys):
+    """``cli.main`` with no --device renders on the card: K1 on the
+    wavefront frame and K1's counting instantiation for --perf."""
+    from vortex_rt_tpu_torch import cli
+
+    kernels.reset_launches()
+    rc = cli.main(["-m", "cornell", "-w", "64", "-H", "64", "-d", "2",
+                   "--shadow", "--perf", "--compare",
+                   "-o", str(tmp_path / "o.ppm")])
+    out = capsys.readouterr().out
+    assert rc == 0 and "PASS" in out and "PERF.trace: trace0=" in out
+    assert kernels.LAUNCHES["traverse_packet"] > 0
+    assert kernels.LAUNCHES["traverse_packet_stats"] == 4

@@ -228,6 +228,20 @@ def test_unported_options_raise(option):
     cfg = pt.RTConfig(flatten=True)
     cam = pt.Camera.look_at([0.05, 0.02, -3.2], [0, -0.05, 0], [0, 1, 0],
                             45.0, 1.0)
+    if option in ("collect_stats", "stage_limit"):
+        # ported since ROADMAP Queue 1 item 10d: the per-wave statistics
+        # and the stage cut run (tests/test_torch_stats.py holds them to
+        # the plain walk and to JAX); here they no longer raise
+        r = pt.WavefrontRenderer.from_buffers(tsb, cfg, device="cpu")
+        out = twf.frame_body(
+            r.wa, r.sa, CameraArrays.from_camera(cam, "cpu"),
+            LightArrays.from_params(pt.RenderParams(), "cpu"), 16, 16,
+            **{option: True if option == "collect_stats" else 1})
+        if option == "collect_stats":
+            assert set(out[3]) == {"trace0", "trace1"}
+        else:
+            assert int(out[1]) == 16 * 16  # the camera rays only
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if option == "anyhit":
             # any-hit shaders run now; an arbitrary stateless predicate
@@ -241,11 +255,7 @@ def test_unported_options_raise(option):
             pt.WavefrontRenderer.from_buffers(tsb, cfg,
                                               device=["cpu", "cpu"])
         else:
-            r = pt.WavefrontRenderer.from_buffers(tsb, cfg, device="cpu")
-            twf.frame_body(r.wa, r.sa, CameraArrays.from_camera(cam, "cpu"),
-                           LightArrays.from_params(pt.RenderParams(), "cpu"),
-                           16, 16, **{option: True if option ==
-                                      "collect_stats" else 1})
+            raise AssertionError(f"unknown option {option}")
 
 
 _NO_JAX = r"""

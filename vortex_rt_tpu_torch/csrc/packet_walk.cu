@@ -55,6 +55,14 @@
 // 384-390, traverse_packet.py:1057-1085); this is that test in this walk.
 // The ALPHA = false instantiation is the walk above, unchanged.
 //
+// Statistics (`vrt_packet_walk_stats`, `vrt_packet_walk_alpha_stats`: the
+// STATS = true instantiations of either mode) replace the PacketStats the
+// JAX loop carries (traverse_packet.py:179-199): each thread also writes
+// its ray's counts of internal and of instance steps (int32); its leaf
+// steps are its steps less both, and the wave's counters are reductions
+// over the per-ray counts (ops/packet_walk.py).  With STATS = false the
+// counts are compiled out and the kernel is the one above.
+//
 // Numerics match the JAX body and the plain PyTorch version bit for bit:
 // the same arithmetic order, the |d| < 1e-20 reciprocal clamp, the
 // |a| < eps Moller-Trumbore guard, and no contraction into FMA (built with
@@ -101,6 +109,9 @@ struct WalkArgs {
     const float* alpha_pool;
     int n_pool;
     float alpha_thr;
+    // STATS only: each ray's internal and instance steps, (R,) int32
+    int* int_out;
+    int* ins_out;
 };
 
 __device__ __forceinline__ float rcp_clamped(float d) {
@@ -135,12 +146,13 @@ __device__ __forceinline__ int pop_deferred(int2* stk, int& sc, int stack_n) {
 }
 
 // Walks ray i; `stk` is this thread's first stack entry in shared memory.
-template <bool ALPHA>
+template <bool ALPHA, bool STATS>
 __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
     // best_t doubles as the liveness/clamp register: dead rays enter with
     // -1 and never walk; in occlusion mode a hit sets it to -1
     float best_t = a.limit[i], bx = 0.0f, by = 0.0f;
     int tri = 2147483647, binst = 0, inst = 0, sc = 0, steps = 0;
+    int n_int = 0, n_ins = 0;  // STATS: internal and instance steps
     bool alive = best_t > 0.0f && a.max_steps > 0;
     float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
     float ivx = 0.0f, ivy = 0.0f, ivz = 0.0f;
@@ -226,6 +238,7 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
                 alive = false;  // empty stack: the ray is done
             }
             ++steps;
+            if (STATS) ++n_int;
             if (steps >= a.max_steps) alive = false;
             if (alive) {
                 node_c = min(max(nxt, 0), a.n_nodes - 1);
@@ -306,6 +319,7 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
                 inst = left;
                 nxt = (int)w7.x;
                 descended = true;
+                if (STATS) ++n_ins;
             }
             // a leaf pops; the ray ends on an empty stack
             if (!descended) {
@@ -325,6 +339,10 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
 
     const float lim = a.limit[i];
     a.steps_out[i] = steps;
+    if (STATS) {
+        a.int_out[i] = n_int;
+        a.ins_out[i] = n_ins;
+    }
     a.bx_out[i] = bx;
     a.by_out[i] = by;
     a.bz_out[i] = 1.0f - bx - by;
@@ -350,14 +368,14 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
     }
 }
 
-template <bool ALPHA>
+template <bool ALPHA, bool STATS>
 __global__ void __launch_bounds__(VRT_BLOCK) packet_walk_kernel(
         const __grid_constant__ WalkArgs a) {
     // deferred-children stack: entry e of thread t at
     // stack_smem[e * VRT_STK_STRIDE + t] as (left << 2 | count, 3 x 2-bit ids)
     extern __shared__ int2 stack_smem[];
     const int i = blockIdx.x * VRT_BLOCK + threadIdx.x;
-    if (i < a.n_rays) walk_ray<ALPHA>(a, i, stack_smem + threadIdx.x);
+    if (i < a.n_rays) walk_ray<ALPHA, STATS>(a, i, stack_smem + threadIdx.x);
 }
 
 size_t stack_bytes(int stack_n) {
@@ -376,7 +394,26 @@ WalkArgs walk_args(const void* nodes, const void* rows, const void* o,
         (float*)dist, (float*)bx, (float*)by, (float*)bz,
         (int*)tri, (int*)inst, (int*)steps,
         n_rays, n_nodes, n_rows, row_words / 4, lmax, num_tlas, tri_bits,
-        stack_n, max_steps, occlusion, nullptr, 0, nullptr, 0, 0.0f};
+        stack_n, max_steps, occlusion, nullptr, 0, nullptr, 0, 0.0f,
+        nullptr, nullptr};
+}
+
+bool walk_sizes_ok(int n_nodes, int n_rows, int row_words, int lmax,
+                   int stack_n) {
+    return stack_n >= 1 && stack_n <= VRT_STACK_MAX && row_words % 16 == 0
+        && lmax >= 1 && lmax * 16 <= row_words && n_nodes > 0 && n_rows > 0;
+}
+
+bool alpha_sizes_ok(int lmax, int alpha_words, int n_pool) {
+    return alpha_words % 4 == 0 && lmax * 8 <= alpha_words && n_pool > 0;
+}
+
+template <bool ALPHA, bool STATS>
+int launch(const WalkArgs& a, int stack_n, void* stream) {
+    const int grid = (a.n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
+    packet_walk_kernel<ALPHA, STATS><<<grid, VRT_BLOCK, stack_bytes(stack_n),
+                                       (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -398,19 +435,14 @@ extern "C" int vrt_packet_walk(
         int num_tlas, int tri_bits, int stack_n, int max_steps, int occlusion,
         void* stream) {
     if (n_rays <= 0) return 0;
-    if (stack_n < 1 || stack_n > VRT_STACK_MAX || row_words % 16 != 0
-            || lmax < 1 || lmax * 16 > row_words || n_nodes <= 0
-            || n_rows <= 0) {
+    if (!walk_sizes_ok(n_nodes, n_rows, row_words, lmax, stack_n)) {
         return (int)cudaErrorInvalidValue;
     }
     const WalkArgs a = walk_args(
         nodes, rows, o, d, limit, dist, bx, by, bz, tri, inst, steps, n_rays,
         n_nodes, n_rows, row_words, lmax, num_tlas, tri_bits, stack_n,
         max_steps, occlusion);
-    const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
-    packet_walk_kernel<false><<<grid, VRT_BLOCK, stack_bytes(stack_n),
-                                (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    return launch<false, false>(a, stack_n, stream);
 }
 
 // The alpha mode: as vrt_packet_walk, with the (n_rows, alpha_words) alpha
@@ -425,10 +457,8 @@ extern "C" int vrt_packet_walk_alpha(
         int num_tlas, int tri_bits, int stack_n, int max_steps, int occlusion,
         int alpha_words, int n_pool, float thr, void* stream) {
     if (n_rays <= 0) return 0;
-    if (stack_n < 1 || stack_n > VRT_STACK_MAX || row_words % 16 != 0
-            || lmax < 1 || lmax * 16 > row_words || n_nodes <= 0
-            || n_rows <= 0 || alpha_words % 4 != 0 || lmax * 8 > alpha_words
-            || n_pool <= 0) {
+    if (!walk_sizes_ok(n_nodes, n_rows, row_words, lmax, stack_n)
+            || !alpha_sizes_ok(lmax, alpha_words, n_pool)) {
         return (int)cudaErrorInvalidValue;
     }
     WalkArgs a = walk_args(
@@ -440,8 +470,57 @@ extern "C" int vrt_packet_walk_alpha(
     a.alpha_pool = (const float*)alpha_pool;
     a.n_pool = n_pool;
     a.alpha_thr = thr;
-    const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
-    packet_walk_kernel<true><<<grid, VRT_BLOCK, stack_bytes(stack_n),
-                               (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    return launch<true, false>(a, stack_n, stream);
+}
+
+// The counting instantiations: as vrt_packet_walk and
+// vrt_packet_walk_alpha, and each ray's internal and instance steps into
+// `int_steps` and `ins_steps` ((n_rays,) int32 each).
+extern "C" int vrt_packet_walk_stats(
+        const void* nodes, const void* rows, const void* o, const void* d,
+        const void* limit, void* dist, void* bx, void* by, void* bz,
+        void* tri, void* inst, void* steps, void* int_steps, void* ins_steps,
+        int n_rays, int n_nodes, int n_rows, int row_words, int lmax,
+        int num_tlas, int tri_bits, int stack_n, int max_steps, int occlusion,
+        void* stream) {
+    if (n_rays <= 0) return 0;
+    if (!walk_sizes_ok(n_nodes, n_rows, row_words, lmax, stack_n)
+            || int_steps == nullptr || ins_steps == nullptr) {
+        return (int)cudaErrorInvalidValue;
+    }
+    WalkArgs a = walk_args(
+        nodes, rows, o, d, limit, dist, bx, by, bz, tri, inst, steps, n_rays,
+        n_nodes, n_rows, row_words, lmax, num_tlas, tri_bits, stack_n,
+        max_steps, occlusion);
+    a.int_out = (int*)int_steps;
+    a.ins_out = (int*)ins_steps;
+    return launch<false, true>(a, stack_n, stream);
+}
+
+extern "C" int vrt_packet_walk_alpha_stats(
+        const void* nodes, const void* rows, const void* o, const void* d,
+        const void* limit, void* dist, void* bx, void* by, void* bz,
+        void* tri, void* inst, void* steps, const void* alpha_rows,
+        const void* alpha_pool, void* int_steps, void* ins_steps,
+        int n_rays, int n_nodes, int n_rows, int row_words, int lmax,
+        int num_tlas, int tri_bits, int stack_n, int max_steps, int occlusion,
+        int alpha_words, int n_pool, float thr, void* stream) {
+    if (n_rays <= 0) return 0;
+    if (!walk_sizes_ok(n_nodes, n_rows, row_words, lmax, stack_n)
+            || !alpha_sizes_ok(lmax, alpha_words, n_pool)
+            || int_steps == nullptr || ins_steps == nullptr) {
+        return (int)cudaErrorInvalidValue;
+    }
+    WalkArgs a = walk_args(
+        nodes, rows, o, d, limit, dist, bx, by, bz, tri, inst, steps, n_rays,
+        n_nodes, n_rows, row_words, lmax, num_tlas, tri_bits, stack_n,
+        max_steps, occlusion);
+    a.alpha_rows = (const float4*)alpha_rows;
+    a.alpha_vec4 = alpha_words / 4;
+    a.alpha_pool = (const float*)alpha_pool;
+    a.n_pool = n_pool;
+    a.alpha_thr = thr;
+    a.int_out = (int*)int_steps;
+    a.ins_out = (int*)ins_steps;
+    return launch<true, true>(a, stack_n, stream);
 }

@@ -68,6 +68,15 @@
 // path's kernel, its steps and its launches are those of the build
 // without alpha.
 //
+// Statistics (`vrt_traverse_packet_stats`, `vrt_traverse_packet_alpha_stats`:
+// the STATS = true instantiations of either mode) replace the PacketStats
+// the JAX loop carries (traverse_packet.py:179-199, :1181-1193).  Each
+// thread also writes its ray's count of internal steps (int32); its leaf
+// steps are its steps less those, and the wave's counters are reductions
+// over the two per-ray counts (ops/traverse_packet.py).  A register and
+// one 4-B store a ray; with STATS = false the count is compiled out and
+// the kernel is the one above.
+//
 // Numerics match the JAX body and the plain PyTorch version bit for bit:
 // the f32 slab test of `_slab_test` (corners g + f*s), the |d| < 1e-20
 // reciprocal clamp of `_rcp_lane`, Moller-Trumbore in the op order of the
@@ -119,6 +128,8 @@ struct WalkArgs {
     int n_pool, alpha_vec4;
     float alpha_thr;
     const uint32_t* alpha_cls;
+    // STATS only: each ray's internal steps (R,) int32
+    int* int_out;
 };
 
 __device__ __forceinline__ float rcp_clamped(float d) {
@@ -153,7 +164,7 @@ __device__ __forceinline__ int pop_deferred(int2* stk, int& sc, int stack_n) {
 }
 
 // Walks ray i; `stk` is this thread's first stack entry in shared memory.
-template <bool ALPHA>
+template <bool ALPHA, bool STATS>
 __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
     const float lim = a.limit[i];
     const bool on = a.active[i] != 0;
@@ -163,6 +174,7 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
     float best_t = on ? lim : -VRT_LARGE;
     float bx = 0.0f, by = 0.0f;
     int tri = 0, sc = 0, steps = 0;
+    int n_int = 0;  // STATS: internal steps
     bool alive = best_t > 0.0f;
     float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
     float ivx = 0.0f, ivy = 0.0f, ivz = 0.0f;
@@ -247,6 +259,7 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
                 alive = false;  // empty stack: the ray is done
             }
             ++steps;
+            if (STATS) ++n_int;
             if (steps >= a.max_steps) alive = false;
             if (alive) {
                 node = min(max(nxt, 0), a.n_nodes - 1);
@@ -330,6 +343,7 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
     }
 
     a.steps_out[i] = steps;
+    if (STATS) a.int_out[i] = n_int;
     a.bx_out[i] = bx;
     a.by_out[i] = by;
     a.bz_out[i] = 1.0f - bx - by;
@@ -345,18 +359,82 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
     a.inst_out[i] = tri >> a.tri_bits;
 }
 
-template <bool ALPHA>
+template <bool ALPHA, bool STATS>
 __global__ void __launch_bounds__(VRT_BLOCK) traverse_packet_kernel(
         const __grid_constant__ WalkArgs a) {
     // deferred-children stack: entry e of thread t at
     // stack_smem[e * VRT_STK_STRIDE + t] as (left << 4 | count, 7 x 3-bit ids)
     extern __shared__ int2 stack_smem[];
     const int i = blockIdx.x * VRT_BLOCK + threadIdx.x;
-    if (i < a.n_rays) walk_ray<ALPHA>(a, i, stack_smem + threadIdx.x);
+    if (i < a.n_rays) walk_ray<ALPHA, STATS>(a, i, stack_smem + threadIdx.x);
 }
 
 size_t stack_bytes(int stack_n) {
     return (size_t)stack_n * sizeof(int2) * VRT_BLOCK;
+}
+
+// The walk without alpha; STATS also writes `int_steps`.
+template <bool STATS>
+int launch_plain(
+        const void* fused, const void* o, const void* d, const void* limit,
+        const void* active, void* dist, void* bx, void* by, void* bz,
+        void* tri, void* inst, void* steps, void* int_steps,
+        int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
+        int stack_n, int max_steps, int occl_split, void* stream) {
+    if (n_rays <= 0) return 0;
+    if (stack_n < 1 || stack_n > VRT_STACK_MAX
+            || row_words < VRT_ROW_WORDS + 16 * lmax
+            || (row_words - VRT_ROW_WORDS) % 16 != 0 || n_nodes <= 0
+            || tri_bits <= 0 || tri_bits > 30
+            || (STATS && int_steps == nullptr)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const WalkArgs a = {
+        (const uint4*)fused, (const float*)o, (const float*)d,
+        (const float*)limit, (const uint8_t*)active,
+        (float*)dist, (float*)bx, (float*)by, (float*)bz,
+        (int*)tri, (int*)inst, (int*)steps,
+        n_rays, n_nodes, row_words / 4, lmax, tri_bits, stack_n, max_steps,
+        occl_split, nullptr, 0, 0, 0.0f, nullptr, (int*)int_steps};
+    const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
+    traverse_packet_kernel<false, STATS><<<grid, VRT_BLOCK,
+                                           stack_bytes(stack_n),
+                                           (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// The alpha mode; STATS also writes `int_steps`.
+template <bool STATS>
+int launch_alpha(
+        const void* fused, const void* o, const void* d, const void* limit,
+        const void* active, void* dist, void* bx, void* by, void* bz,
+        void* tri, void* inst, void* steps, const void* alpha_pool,
+        const void* alpha_cls, void* int_steps,
+        int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
+        int stack_n, int max_steps, int occl_split, int n_pool, int slots,
+        float thr, void* stream) {
+    if (n_rays <= 0) return 0;
+    if (stack_n < 1 || stack_n > VRT_STACK_MAX || slots < lmax || lmax < 1
+            || row_words != VRT_ROW_WORDS + 24 * slots
+            || n_nodes <= 0 || n_pool <= 0 || tri_bits <= 0 || tri_bits > 30
+            || (alpha_cls != nullptr && slots > 16)
+            || (STATS && int_steps == nullptr)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const WalkArgs a = {
+        (const uint4*)fused, (const float*)o, (const float*)d,
+        (const float*)limit, (const uint8_t*)active,
+        (float*)dist, (float*)bx, (float*)by, (float*)bz,
+        (int*)tri, (int*)inst, (int*)steps,
+        n_rays, n_nodes, row_words / 4, lmax, tri_bits, stack_n, max_steps,
+        occl_split, (const float*)alpha_pool, n_pool,
+        (VRT_ROW_WORDS + 16 * slots) / 4, thr, (const uint32_t*)alpha_cls,
+        (int*)int_steps};
+    const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
+    traverse_packet_kernel<true, STATS><<<grid, VRT_BLOCK,
+                                          stack_bytes(stack_n),
+                                          (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -376,24 +454,10 @@ extern "C" int vrt_traverse_packet(
         void* tri, void* inst, void* steps,
         int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
         int stack_n, int max_steps, int occl_split, void* stream) {
-    if (n_rays <= 0) return 0;
-    if (stack_n < 1 || stack_n > VRT_STACK_MAX
-            || row_words < VRT_ROW_WORDS + 16 * lmax
-            || (row_words - VRT_ROW_WORDS) % 16 != 0 || n_nodes <= 0
-            || tri_bits <= 0 || tri_bits > 30) {
-        return (int)cudaErrorInvalidValue;
-    }
-    const WalkArgs a = {
-        (const uint4*)fused, (const float*)o, (const float*)d,
-        (const float*)limit, (const uint8_t*)active,
-        (float*)dist, (float*)bx, (float*)by, (float*)bz,
-        (int*)tri, (int*)inst, (int*)steps,
-        n_rays, n_nodes, row_words / 4, lmax, tri_bits, stack_n, max_steps,
-        occl_split, nullptr, 0, 0, 0.0f, nullptr};
-    const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
-    traverse_packet_kernel<false><<<grid, VRT_BLOCK, stack_bytes(stack_n),
-                                    (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    return launch_plain<false>(
+        fused, o, d, limit, active, dist, bx, by, bz, tri, inst, steps,
+        nullptr, n_rays, n_nodes, row_words, lmax, tri_bits, stack_n,
+        max_steps, occl_split, stream);
 }
 
 // The alpha mode: as vrt_traverse_packet over fused rows of
@@ -409,23 +473,37 @@ extern "C" int vrt_traverse_packet_alpha(
         int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
         int stack_n, int max_steps, int occl_split, int n_pool, int slots,
         float thr, void* stream) {
-    if (n_rays <= 0) return 0;
-    if (stack_n < 1 || stack_n > VRT_STACK_MAX || slots < lmax || lmax < 1
-            || row_words != VRT_ROW_WORDS + 24 * slots
-            || n_nodes <= 0 || n_pool <= 0 || tri_bits <= 0 || tri_bits > 30
-            || (alpha_cls != nullptr && slots > 16)) {
-        return (int)cudaErrorInvalidValue;
-    }
-    const WalkArgs a = {
-        (const uint4*)fused, (const float*)o, (const float*)d,
-        (const float*)limit, (const uint8_t*)active,
-        (float*)dist, (float*)bx, (float*)by, (float*)bz,
-        (int*)tri, (int*)inst, (int*)steps,
-        n_rays, n_nodes, row_words / 4, lmax, tri_bits, stack_n, max_steps,
-        occl_split, (const float*)alpha_pool, n_pool,
-        (VRT_ROW_WORDS + 16 * slots) / 4, thr, (const uint32_t*)alpha_cls};
-    const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
-    traverse_packet_kernel<true><<<grid, VRT_BLOCK, stack_bytes(stack_n),
-                                   (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    return launch_alpha<false>(
+        fused, o, d, limit, active, dist, bx, by, bz, tri, inst, steps,
+        alpha_pool, alpha_cls, nullptr, n_rays, n_nodes, row_words, lmax,
+        tri_bits, stack_n, max_steps, occl_split, n_pool, slots, thr, stream);
+}
+
+// The counting instantiations: as vrt_traverse_packet and
+// vrt_traverse_packet_alpha, and each ray's internal steps into
+// `int_steps` ((n_rays,) int32).
+extern "C" int vrt_traverse_packet_stats(
+        const void* fused, const void* o, const void* d, const void* limit,
+        const void* active, void* dist, void* bx, void* by, void* bz,
+        void* tri, void* inst, void* steps, void* int_steps,
+        int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
+        int stack_n, int max_steps, int occl_split, void* stream) {
+    return launch_plain<true>(
+        fused, o, d, limit, active, dist, bx, by, bz, tri, inst, steps,
+        int_steps, n_rays, n_nodes, row_words, lmax, tri_bits, stack_n,
+        max_steps, occl_split, stream);
+}
+
+extern "C" int vrt_traverse_packet_alpha_stats(
+        const void* fused, const void* o, const void* d, const void* limit,
+        const void* active, void* dist, void* bx, void* by, void* bz,
+        void* tri, void* inst, void* steps, const void* alpha_pool,
+        const void* alpha_cls, void* int_steps,
+        int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
+        int stack_n, int max_steps, int occl_split, int n_pool, int slots,
+        float thr, void* stream) {
+    return launch_alpha<true>(
+        fused, o, d, limit, active, dist, bx, by, bz, tri, inst, steps,
+        alpha_pool, alpha_cls, int_steps, n_rays, n_nodes, row_words, lmax,
+        tri_bits, stack_n, max_steps, occl_split, n_pool, slots, thr, stream);
 }

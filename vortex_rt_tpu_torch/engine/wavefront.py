@@ -56,13 +56,33 @@ Any-hit shaders (``ShaderTable.anyhit``) take one of two routes:
 compacted live-first before each bounce and only its live prefix traced
 (K3), default shaders without shadows.
 
-Not ported yet, and refused rather than ignored: per-wave statistics and
-staged profiling, and multi-device rendering.
+Observability (the RT unit's PerfStats and the scope, as in the JAX
+package): ``frame_body(collect_stats=True)`` also returns each wave's
+``PacketStats`` (keys ``trace<k>`` and ``shadow<k>``; the counters'
+definitions over the port's per-ray walk are in ``PacketStats``'s
+docstring), traced by the walks' counting instantiations on a card;
+``stage_limit=s`` stops the frame after stage ``s`` (0 camera only,
+1 + 3k bounce k's trace, 2 + 3k its shadow wave, 3 + 3k its shade and
+spawn).  Either one runs the sequential pipeline (no merged wave), as
+the JAX frame does.  The pool path collects no statistics, as in the JAX
+package.  ``render_stats``, ``render_profile_burst`` and the renderer's
+``perf_trace``, ``frame_profile`` and ``scope_trace`` are built on them.
+The JAX frame adds a checksum of the truncated waves to its image so
+that XLA keeps them; PyTorch runs every operation it is given, so the
+port adds none.
+
+``RTConfig(tex_filter="bilinear")`` filters textures bilinearly in
+``WavefrontRenderer.render`` only: the JAX package passes it nowhere
+else (``render_burst``'s frames, ``render_accum`` and the statistics
+frames sample texels by point; ``render_burst``'s image is ``render``'s).
+
+Not ported yet, and refused rather than ignored: multi-device rendering.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -79,12 +99,15 @@ from vortex_rt_tpu_torch.models.scene import (
 from vortex_rt_tpu_torch.ops.packet_walk import trace_packets_walk
 from vortex_rt_tpu_torch.ops.shade_lanes import ShadeArrays, shade_point
 from vortex_rt_tpu_torch.ops.traverse2 import Hits
-from vortex_rt_tpu_torch.ops.traverse_packet import trace_packets
+from vortex_rt_tpu_torch.ops.traverse_packet import (
+    WARP, PacketStats, packet_stats, trace_packets,
+)
 from vortex_rt_tpu_torch.ops.traverse_wide import (
     WideArrays, commit, init_state_lanes, lanes_hits, walk_lanes,
 )
 from vortex_rt_tpu_torch.utils import sampling
 from vortex_rt_tpu_torch.utils.config import COMMIT_CONT, LARGE_FLOAT, RTConfig
+from vortex_rt_tpu_torch.utils.trace import Tracer, maybe_span
 
 _U32 = 0xFFFFFFFF
 
@@ -242,14 +265,18 @@ def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
                    table: ShaderTable, light: LightArrays, lanes, pix, samp,
                    alive, max_depth: int, shadow: bool,
                    walk: Optional[Callable],
-                   alpha_ref: Optional[float] = None, pool: bool = False):
+                   alpha_ref: Optional[float] = None, pool: bool = False,
+                   bilinear: bool = False, stage_limit: Optional[int] = None,
+                   collect_stats: bool = False):
     """The bounce pipeline over one lane set: trace, shadow occlusion,
     shade, spawn — ``max_depth`` waves, with the merged shadow+bounce
     wave on the 8-wide route.  Traces go through ``walk`` (with
     ``alpha_ref`` when given), or through ``_trace_pool`` (the per-ray
-    walk, any-hit by suspension) when ``pool``.  Returns (rad_r, rad_g,
-    rad_b, rays traced, walk steps), the counts as 0-dim int64
-    tensors."""
+    walk, any-hit by suspension) when ``pool``.  ``collect_stats`` has
+    every walk wave count (``PacketStats`` by wave name; the pool
+    counts none); ``stage_limit`` stops after that stage (the module
+    docstring).  Returns (rad_r, rad_g, rad_b, rays traced, walk steps,
+    {wave: PacketStats}), the counts as 0-dim int64 tensors."""
     ox, oy, oz, dx, dy, dz = lanes
     r = ox.shape[0]
     dev = ox.device
@@ -268,10 +295,15 @@ def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
     n_inst = sa.inst_shade.shape[0]
     pending = None  # this bounce's hits, traced by the previous merged wave
     akw = {} if alpha_ref is None else {"alpha_ref": alpha_ref}
+    wave_stats = {}
 
-    def trace(o, d, act, t_max=None, **kw):
+    def run(stage):
+        return stage_limit is None or stage <= stage_limit
+
+    def trace(name, o, d, act, t_max=None, **kw):
         """One wave through the walk, or through the pool; the pool's
-        payload is this bounce's (read when called)."""
+        payload is this bounce's (read when called).  A counted walk
+        wave's stats go under ``name``."""
         if pool:
             payload = ((thr_r + thr_g + thr_b) * (1.0 / 3.0), bounce_ct,
                         pix, samp)
@@ -279,18 +311,27 @@ def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
                                                     *d.unbind(1)))
             return _trace_pool(wa, sa, ctx, table, lanes6, act, payload,
                                t_clamp=t_max)
-        h, st = walk(wa, o, d, active=act, t_max=t_max, **kw, **akw)
+        if collect_stats:
+            h, st, kinds = walk(wa, o, d, active=act, t_max=t_max,
+                                stats=True, **kw, **akw)
+            wave_stats[name] = packet_stats(st, kinds)
+        else:
+            h, st = walk(wa, o, d, active=act, t_max=t_max, **kw, **akw)
         return h, st.sum()
 
     for bounce in range(max_depth):
+        if not run(1 + 3 * bounce):
+            break
         rays = rays + alive.sum()
         if pending is None:
-            h, n_steps = trace(torch.stack([ox, oy, oz], 1),
+            h, n_steps = trace(f"trace{bounce}", torch.stack([ox, oy, oz], 1),
                                torch.stack([dx, dy, dz], 1), alive)
             steps = steps + n_steps
         else:
             h, pending = pending, None
         dist, bx, by = h.dist, h.bx, h.by
+        if shadow and not run(2 + 3 * bounce):
+            break
         hit = alive & (dist < LARGE_FLOAT)
         miss = alive & ~hit
         tri_c = h.tri.clamp(0, n_tri - 1).to(torch.int64)
@@ -299,7 +340,7 @@ def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
         # (engine/wavefront.py:572-579): never at bounce 0
         merge = (shadow and bounce >= 1 and bounce + 1 < max_depth
                  and table.lit_independent_spawn and wa.width == 8
-                 and not pool)
+                 and not pool and stage_limit is None and not collect_stats)
         if shadow:
             # shadow rays need the hit point only; full shading follows
             # the occlusion result
@@ -320,12 +361,15 @@ def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
             if not merge:
                 # (the pool traces them closest-hit, clamped: any hit
                 # inside the clamp occludes)
-                sh, sh_steps = trace(sh_o, sh_d, sh_act, t_max=clamp,
-                                     occlusion=True)
+                sh, sh_steps = trace(f"shadow{bounce}", sh_o, sh_d, sh_act,
+                                     t_max=clamp, occlusion=True)
                 steps = steps + sh_steps
                 occluded = sh_act & (sh.dist < clamp)
+        if not run(3 + 3 * bounce):
+            break
         sp = shade_point(sa, ox, oy, oz, dx, dy, dz,
-                         dist, bx, by, 1.0 - bx - by, tri_c, inst_c)
+                         dist, bx, by, 1.0 - bx - by, tri_c, inst_c,
+                         bilinear=bilinear)
         ray = RayLanes(ox, oy, oz, dx, dy, dz)
         pl = PayloadLanes((thr_r + thr_g + thr_b) * (1.0 / 3.0),
                           bounce_ct, pix, samp)
@@ -343,7 +387,7 @@ def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
                                torch.where(spawn, co1.sdy, dy),
                                torch.where(spawn, co1.sdz, dz)], 1)
             hm, m_steps = trace(
-                torch.cat([sh_o, n_o]), torch.cat([sh_d, n_d]),
+                None, torch.cat([sh_o, n_o]), torch.cat([sh_d, n_d]),
                 torch.cat([sh_act, spawn]),
                 t_max=torch.cat([clamp, torch.full_like(clamp, LARGE_FLOAT)]),
                 occl_split=r)
@@ -389,7 +433,15 @@ def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
         alive = spawn
         bounce_ct = torch.where(spawn, bounce_ct + 1, bounce_ct)
 
-    return rad_r, rad_g, rad_b, rays, steps
+    return rad_r, rad_g, rad_b, rays, steps, wave_stats
+
+
+def _add_stats(acc: dict, ws: dict) -> dict:
+    """Wave stats of two passes added wave by wave."""
+    out = dict(acc)
+    for k, v in ws.items():
+        out[k] = out[k] + v if k in out else v
+    return out
 
 
 def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
@@ -400,20 +452,23 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
                walk: Optional[Callable] = None,
                collect_stats: bool = False,
                stage_limit: Optional[int] = None,
-               total_spp: Optional[int] = None, packet: int = 256):
+               total_spp: Optional[int] = None, packet: int = 256,
+               bilinear: bool = False):
     """One frame -> ((3, H*W) radiance planes in row-major pixel order,
     rays traced, walk steps), the counts as 0-dim int64 tensors on the
-    tables' device.  ``walk`` defaults to ``default_walk(wa)``.
-    ``total_spp`` is the stratification denominator, ``spp`` unless
-    given: accumulation passes (``render_accum``) spread ``spp`` samples
-    per pass over ``spp * n_passes`` strata.  ``packet=0``, or an
-    any-hit shader the walks cannot run inside, takes the pool path (see
-    the module docstring).  Nothing here waits for the device, except
-    the pool path's suspension rounds (one read a round)."""
-    if collect_stats or stage_limit is not None:
-        raise NotImplementedError(
-            "collect_stats/stage_limit: per-wave statistics and staged "
-            "profiling are not ported yet (ROADMAP Queue 1, item 10)")
+    tables' device, and with ``collect_stats`` a fourth item, the
+    {wave: PacketStats} of the frame (summed over its sample passes).
+    ``walk`` defaults to ``default_walk(wa)`` (with ``collect_stats`` it
+    must take ``stats=True``, as ``trace_packets`` and
+    ``trace_packets_walk`` do).  ``stage_limit`` stops each pass after
+    that stage (the module docstring).  ``total_spp`` is the
+    stratification denominator, ``spp`` unless given: accumulation
+    passes (``render_accum``) spread ``spp`` samples per pass over
+    ``spp * n_passes`` strata.  ``packet=0``, or an any-hit shader the
+    walks cannot run inside, takes the pool path (see the module
+    docstring).  ``bilinear`` filters textures bilinearly.  Nothing here
+    waits for the device, except the pool path's suspension rounds (one
+    read a round)."""
     table = table or ShaderTable()
     route, alpha_ref = _route(table, wa, packet)
     walk = walk or default_walk(wa)
@@ -434,10 +489,12 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
                 tile_h = th
                 break
     tiled = width % tile_w == 0 and rows % tile_h == 0
+    opts = dict(bilinear=bilinear, stage_limit=stage_limit,
+                collect_stats=collect_stats)
     if route == "pool":
         return _pool_frame(wa, sa, ctx, table, cam, light, width, height,
                            max_depth, spp, seed, shadow, tile_w, tile_h,
-                           tiled, total_spp)
+                           tiled, total_spp, opts)
     lane = torch.arange(n_pix, dtype=torch.int64, device=dev)
     if tiled:
         pxi, pyi = _tile_pixel_ids(lane, width, tile_w, tile_h)
@@ -450,18 +507,20 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
            for _ in range(3)]
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     steps = torch.zeros((), dtype=torch.int64, device=dev)
+    wstats = {}
     for p in range(spp):
         # global sample index of this pass (u32 arithmetic)
         samp_val = (((int(seed) & _U32) * spp) + p) & _U32
         samp = torch.full((n_pix,), samp_val, dtype=torch.int64, device=dev)
         lanes6 = _camera_from_pix(cam, width, height, pxi, pyi, pix, samp,
                                   total_spp)
-        rr, rg, rb, n_rays, n_steps = _wave_pipeline(
+        rr, rg, rb, n_rays, n_steps, ws = _wave_pipeline(
             wa, sa, ctx, table, light, lanes6, pix, samp, alive,
-            max_depth, shadow, walk, alpha_ref=alpha_ref)
+            max_depth, shadow, walk, alpha_ref=alpha_ref, **opts)
         acc = [acc[0] + rr, acc[1] + rg, acc[2] + rb]
         rays = rays + n_rays
         steps = steps + n_steps
+        wstats = _add_stats(wstats, ws)
 
     inv_spp = 1.0 / spp
     if tiled:
@@ -470,6 +529,8 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
             .reshape(n_pix) for c in acc])
     else:
         img = torch.stack(acc) * inv_spp
+    if collect_stats:
+        return img, rays, steps, wstats
     return img, rays, steps
 
 
@@ -477,7 +538,7 @@ def _pool_frame(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
                 table: ShaderTable, cam: CameraArrays, light: LightArrays,
                 width: int, height: int, max_depth: int, spp: int,
                 seed: int, shadow: bool, tile_w: int, tile_h: int,
-                tiled: bool, total_spp: int):
+                tiled: bool, total_spp: int, opts: dict):
     """The monolithic pool frame (the JAX ``frame_body``'s pool branch):
     the ``spp`` samples of every pixel folded into one pool of lanes, a
     pixel's samples adjacent, lane k's sample index ``seed * spp + k %
@@ -497,9 +558,9 @@ def _pool_frame(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
     lanes6 = _camera_from_pix(cam, width, height, pxi, pyi, pix, samp,
                               total_spp)
     alive = torch.ones(n_real, dtype=torch.bool, device=dev)
-    rr, rg, rb, rays, steps = _wave_pipeline(
+    rr, rg, rb, rays, steps, ws = _wave_pipeline(
         wa, sa, ctx, table, light, lanes6, pix, samp, alive, max_depth,
-        shadow, None, pool=True)
+        shadow, None, pool=True, **opts)
     if tiled:
         img = torch.stack([
             _resolve_tiled(c, width, height, tile_w, tile_h, spp)
@@ -507,6 +568,8 @@ def _pool_frame(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
     else:
         img = torch.stack([c.reshape(n_pix, spp).mean(1)
                            for c in (rr, rg, rb)])
+    if opts["collect_stats"]:
+        return img, rays, steps, ws
     return img, rays, steps
 
 
@@ -534,6 +597,47 @@ def render_accum(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
         img, rays, steps = img + f_img, rays + f_rays, steps + f_steps
     out = (img * (1.0 / n_passes)).reshape(3, height, width)
     return out.permute(1, 2, 0), rays, steps
+
+
+def render_profile_burst(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
+                         light: LightArrays, width: int, height: int,
+                         n_frames: int = 8, seed0: int = 0,
+                         max_depth: int = 2, spp: int = 1,
+                         table: Optional[ShaderTable] = None,
+                         shadow: bool = False, tile_w: int = 16,
+                         tile_h: int = 16, walk: Optional[Callable] = None,
+                         stage_limit: int = 0, packet: int = 256
+                         ) -> torch.Tensor:
+    """``n_frames`` frames (seeds ``seed0``..) each stopped after
+    ``stage_limit`` (0 = camera only; 1 + 3k / 2 + 3k / 3 + 3k = bounce
+    k's trace / shadow / shade): the total rays as a 0-dim int64 tensor.
+    Timing consecutive limits attributes the frame's time to its stages
+    (``WavefrontRenderer.frame_profile``).  Nothing here waits for the
+    device."""
+    total = torch.zeros((), dtype=torch.int64, device=wa.device)
+    for i in range(n_frames):
+        _, rays, _ = frame_body(
+            wa, sa, cam, light, width, height, max_depth=max_depth, spp=spp,
+            table=table, seed=seed0 + i, shadow=shadow, tile_w=tile_w,
+            tile_h=tile_h, walk=walk, stage_limit=stage_limit, packet=packet)
+        total = total + rays
+    return total
+
+
+def render_stats(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
+                 light: LightArrays, width: int, height: int,
+                 max_depth: int = 2, spp: int = 1,
+                 table: Optional[ShaderTable] = None, seed: int = 0,
+                 shadow: bool = False, tile_w: int = 16, tile_h: int = 16,
+                 walk: Optional[Callable] = None, packet: int = 256):
+    """One frame with per-wave statistics: (rays, steps, {wave:
+    PacketStats}), on the tables' device (the whole-frame PerfStats of
+    the RT unit, per wave: primary, shadow and bounce k)."""
+    _, rays, steps, wstats = frame_body(
+        wa, sa, cam, light, width, height, max_depth=max_depth, spp=spp,
+        table=table, seed=seed, shadow=shadow, tile_w=tile_w, tile_h=tile_h,
+        walk=walk, collect_stats=True, packet=packet)
+    return rays, steps, wstats
 
 
 class _Pool(NamedTuple):
@@ -712,14 +816,15 @@ class WavefrontRenderer:
         return self.table
 
     def _frame(self, cam: Camera, params: RenderParams, w: int, h: int,
-               seed: int):
+               seed: int, bilinear: bool = False):
         return frame_body(
             self.wa, self.sa, CameraArrays.from_camera(cam, self.device),
             LightArrays.from_params(params, self.device), w, h,
             max_depth=params.max_depth, spp=params.spp,
             table=self._table_for(params), seed=seed, shadow=params.shadow,
             tile_w=self.config.tile_w, tile_h=self.config.tile_h,
-            walk=self.walk, packet=self.config.packet_size)
+            walk=self.walk, packet=self.config.packet_size,
+            bilinear=bilinear)
 
     @staticmethod
     def _to_image(img: torch.Tensor, w: int, h: int) -> np.ndarray:
@@ -746,7 +851,9 @@ class WavefrontRenderer:
                     stacklevel=2)
             else:
                 return self._render_chunked(cam, params, w, h)
-        img, rays, _ = self._frame(cam, params, w, h, 0)
+        img, rays, _ = self._frame(
+            cam, params, w, h, 0,
+            bilinear=self.config.tex_filter == "bilinear")
         return self._to_image(img, w, h), int(rays.item())
 
     def _render_chunked(self, cam: Camera, params: RenderParams, w: int,
@@ -765,17 +872,143 @@ class WavefrontRenderer:
         nrays = 0
         for bounce in range(params.max_depth):
             if bounce > 0:
-                pool = _compact_pool(pool)
+                with maybe_span("compact", bounce=bounce, alive=n_alive):
+                    pool = _compact_pool(pool)
             nrays += n_alive
             if n_alive == 0:
                 break
-            hits = _trace_prefix(self.wa, pool, n_alive)
-            pool = _shade_pool_default(self.sa, light, params.max_depth,
-                                       pool, hits)
+            with maybe_span("trace", bounce=bounce, alive=n_alive):
+                hits = _trace_prefix(self.wa, pool, n_alive)
+            with maybe_span("shade", bounce=bounce):
+                pool = _shade_pool_default(self.sa, light, params.max_depth,
+                                           pool, hits)
             if bounce + 1 < params.max_depth:
                 n_alive = int(pool.alive.sum().item())
         img = _resolve(pool, w * h, params.spp)
         return img.reshape(h, w, 3).cpu().numpy(), nrays
+
+    def perf_trace(self, cam: Camera, params: RenderParams,
+                   width: Optional[int] = None,
+                   height: Optional[int] = None) -> dict:
+        """Whole-frame walk statistics (the RT unit's PerfStats): one
+        frame (seed 0) with ``PacketStats`` counted in every walk wave —
+        primary, bounce and shadow waves — as a dict with the JAX
+        method's keys: ``rays``, ``steps``, ``packet_size`` (``WARP``:
+        the port's packets are warps) and per wave ``steps``,
+        ``packet_steps``, ``ray_steps``, ``rays_per_live_packet``,
+        ``int_steps``, ``tri_steps``, ``ins_steps``.  Reads the device
+        once, at the end."""
+        w = width or self.config.width
+        h = height or self.config.height
+        rays, steps, wstats = render_stats(
+            self.wa, self.sa, CameraArrays.from_camera(cam, self.device),
+            LightArrays.from_params(params, self.device), w, h,
+            max_depth=params.max_depth, spp=params.spp,
+            table=self._table_for(params), shadow=params.shadow,
+            tile_w=self.config.tile_w, tile_h=self.config.tile_h,
+            walk=self.walk, packet=self.config.packet_size)
+        names = sorted(wstats)
+        vals = torch.stack([rays, steps] + [
+            f for n in names for f in wstats[n]]).tolist()
+        out = dict(rays=vals[0], steps=vals[1], packet_size=WARP)
+        k = len(PacketStats._fields)
+        for i, name in enumerate(names):
+            st = PacketStats(*vals[2 + k * i: 2 + k * (i + 1)])
+            out[name] = dict(
+                steps=st.steps, packet_steps=st.packet_steps,
+                ray_steps=st.ray_steps,
+                rays_per_live_packet=round(
+                    st.ray_steps / max(st.packet_steps, 1), 2),
+                int_steps=st.int_steps, tri_steps=st.tri_steps,
+                ins_steps=st.ins_steps)
+        return out
+
+    def frame_profile(self, cam: Camera, params: RenderParams,
+                      width: Optional[int] = None,
+                      height: Optional[int] = None,
+                      n_frames: int = 8) -> list:
+        """Wall-clock ms per stage: times bursts of ``n_frames`` frames
+        stopped after each stage in turn (camera -> +trace0 -> +shadow0
+        -> +shade0 -> +trace1 ...), each after a warm-up burst, by the
+        host clock around work that ends in a read of the device, and
+        reports the deltas: [{stage, cum_ms, ms}], the JAX method's
+        labels and keys."""
+        w = width or self.config.width
+        h = height or self.config.height
+        ca = CameraArrays.from_camera(cam, self.device)
+        light = LightArrays.from_params(params, self.device)
+        table = self._table_for(params)
+        labels = ["camera"]
+        for k in range(params.max_depth):
+            labels.append(f"trace{k}")
+            if params.shadow:
+                labels.append(f"shadow{k}")
+            labels.append(f"shade{k}")
+
+        def run(limit, seed0):
+            return int(render_profile_burst(
+                self.wa, self.sa, ca, light, w, h, n_frames=n_frames,
+                seed0=seed0, max_depth=params.max_depth, spp=params.spp,
+                table=table, shadow=params.shadow,
+                tile_w=self.config.tile_w, tile_h=self.config.tile_h,
+                walk=self.walk, stage_limit=limit,
+                packet=self.config.packet_size).item())
+
+        stage_ids = []
+        for lab in labels:
+            if lab == "camera":
+                stage_ids.append(0)
+            else:
+                k = int(lab[-1])
+                op = {"trace": 1, "shadow": 2, "shade": 3}[lab[:-1]]
+                stage_ids.append(op + 3 * k)
+        out = []
+        prev_ms = 0.0
+        for lab, sid in zip(labels, stage_ids):
+            run(sid, 0)  # warm-up
+            t0 = time.perf_counter()
+            run(sid, n_frames)
+            ms = (time.perf_counter() - t0) * 1e3 / n_frames
+            out.append(dict(stage=lab, cum_ms=round(ms, 2),
+                            ms=round(ms - prev_ms, 2)))
+            prev_ms = ms
+        return out
+
+    def scope_trace(self, cam: Camera, params: RenderParams,
+                    width: Optional[int] = None,
+                    height: Optional[int] = None,
+                    n_frames: int = 4) -> Tracer:
+        """One Perfetto timeline of ``frame_profile``'s stage ms (spans
+        laid end to end on a synthetic frame timeline) and
+        ``perf_trace``'s per-wave counters (counter tracks stepped at
+        each wave's span, the wave's stats in its span's args).  Returns
+        a ``Tracer``; ``.save(path)`` writes it."""
+        tr = Tracer()
+        prof = self.frame_profile(cam, params, width, height,
+                                  n_frames=n_frames)
+        stats = self.perf_trace(cam, params, width, height)
+        tr.instant("frame", rays=stats.get("rays"),
+                   steps=stats.get("steps"),
+                   packet_size=stats.get("packet_size"))
+        t = 0.0
+        for row in prof:
+            dur = max(float(row["ms"]), 0.0) * 1e3  # us
+            st = stats.get(row["stage"])
+            tr.complete_at(row["stage"], t, dur, **(st or {}))
+            if st:
+                # counter tracks step at the wave's start
+                tr.counter_at("loop_iterations", t, value=st["steps"])
+                tr.counter_at("live_packet_steps", t,
+                              value=st["packet_steps"])
+                tr.counter_at("live_ray_steps", t, value=st["ray_steps"])
+                tr.counter_at("rays_per_live_packet", t,
+                              value=st["rays_per_live_packet"])
+                tr.counter_at("node_kind_mix", t,
+                              internal=st["int_steps"],
+                              triangle=st["tri_steps"],
+                              instance=st["ins_steps"])
+            t += dur
+        return tr
 
     def render_burst(self, cam: Camera, params: RenderParams,
                      width: Optional[int] = None,

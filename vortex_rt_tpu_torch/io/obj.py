@@ -1,11 +1,23 @@
-"""Texture loading (port of the texture part of ``vortex_rt_tpu/io/obj.py``:
-``_rgb_to_texels``, ``load_texture`` and ``_decode_png``; host-side NumPy).
+"""OBJ + MTL asset loading (port of ``vortex_rt_tpu/io/obj.py``;
+host-side NumPy).
 
-Images decode to (H, W) uint32 0xRRGGBB texels, the packing of the
+Wavefront OBJ geometry with per-face vertex / texcoord / normal indices,
+polygon-fan triangulation (a face of n corners gives the triangles
+(0, k, k + 1), k = 1 .. n - 2), negative (relative) indices, material
+libraries and per-face materials.  A face corner without a normal takes
+the face's flat normal, one without a texcoord (0, 0); faces before the
+first ``usemtl`` get a default material of their own.
+
+Materials map to ``models.scene.Material`` (the reference's
+material_info_t): Ka/Kd/Ks/Ke -> ambient/diffuse/specular/emissive, Ns
+shininess, Ni ior, d dissolve (Tr = 1 - d), illum, map_Kd -> diffuse
+texture, its path resolved relative to the MTL file.
+
+Textures decode to (H, W) uint32 0xRRGGBB texels, the packing of the
 scene's texel pool.  PPM (binary P6, through ``utils/image.read_ppm``)
 and PNG (8-bit gray / RGB / RGBA, non-interlaced, stdlib ``zlib``) are
-read; other formats raise.  The OBJ and MTL loaders of that module are
-not ported yet (ROADMAP Queue 1, item 10a).
+read; other formats raise (an MTL's texture in another format falls back
+to its Kd color).
 """
 
 from __future__ import annotations
@@ -13,8 +25,13 @@ from __future__ import annotations
 import os
 import struct
 import zlib
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from vortex_rt_tpu_torch.models.scene import (
+    Material, MeshData, Scene, flat_normals, make_mesh,
+)
 
 
 def _rgb_to_texels(rgb: np.ndarray) -> np.ndarray:
@@ -106,3 +123,176 @@ def _decode_png(path: str) -> np.ndarray:
     if nch == 1:
         px = np.repeat(px, 3, axis=-1)
     return px[..., :3].copy()
+
+
+# ---------------------------------------------------------------------------
+# MTL
+# ---------------------------------------------------------------------------
+
+def load_mtl(path: str) -> Dict[str, Material]:
+    """Parse a .mtl library into Material objects."""
+    mats: Dict[str, Material] = {}
+    cur: Optional[dict] = None
+    name = None
+    base = os.path.dirname(path)
+
+    def flush():
+        if name is not None:
+            tex = None
+            if cur.get("map_kd"):
+                tpath = os.path.join(base, cur["map_kd"])
+                if os.path.exists(tpath):
+                    try:
+                        tex = load_texture(tpath)
+                    except ValueError:
+                        tex = None  # unsupported format: fall back to Kd
+            mats[name] = Material(
+                ambient=tuple(cur.get("ka", (0, 0, 0))),
+                diffuse=tuple(cur.get("kd", (0.8, 0.8, 0.8))),
+                specular=tuple(cur.get("ks", (0, 0, 0))),
+                emissive=tuple(cur.get("ke", (0, 0, 0))),
+                shininess=cur.get("ns", 0.0),
+                ior=cur.get("ni", 1.0),
+                dissolve=cur.get("d", 1.0),
+                illum=int(cur.get("illum", 2)),
+                diffuse_tex=tex,
+            )
+
+    with open(path, "r", errors="replace") as f:
+        for line in f:
+            tok = line.split()
+            if not tok or tok[0].startswith("#"):
+                continue
+            key = tok[0].lower()
+            if key == "newmtl":
+                flush()
+                name = " ".join(tok[1:])
+                cur = {}
+            elif cur is None:
+                continue
+            elif key in ("ka", "kd", "ks", "ke"):
+                cur[key] = [float(v) for v in tok[1:4]]
+            elif key in ("ns", "ni", "d", "illum"):
+                cur[key] = float(tok[1])
+            elif key == "tr":  # transparency = 1 - d
+                cur["d"] = 1.0 - float(tok[1])
+            elif key == "map_kd":
+                cur["map_kd"] = tok[-1]
+    flush()
+    return mats
+
+
+# ---------------------------------------------------------------------------
+# OBJ
+# ---------------------------------------------------------------------------
+
+def _parse_index(token: str, count: int) -> Optional[int]:
+    """A face index token -> 0-based index (negative: relative to the
+    ``count`` entries read so far); None for an empty token."""
+    if not token:
+        return None
+    i = int(token)
+    return i - 1 if i > 0 else count + i
+
+
+def load_obj(path: str) -> MeshData:
+    """Load an OBJ file into a MeshData (one mesh, packed materials)."""
+    positions: List[Tuple[float, float, float]] = []
+    texcoords: List[Tuple[float, float]] = []
+    normals: List[Tuple[float, float, float]] = []
+    faces: List[Tuple] = []  # ((vi, ti, ni) x3, mat_index)
+    mat_lib: Dict[str, Material] = {}
+    mat_names: List[str] = []
+    cur_mat = -1
+    base = os.path.dirname(path)
+
+    with open(path, "r", errors="replace") as f:
+        for line in f:
+            tok = line.split()
+            if not tok or tok[0].startswith("#"):
+                continue
+            key = tok[0]
+            if key == "v":
+                positions.append(tuple(float(v) for v in tok[1:4]))
+            elif key == "vt":
+                texcoords.append(tuple(float(v) for v in tok[1:3]))
+            elif key == "vn":
+                normals.append(tuple(float(v) for v in tok[1:4]))
+            elif key == "mtllib":
+                mpath = os.path.join(base, " ".join(tok[1:]))
+                if os.path.exists(mpath):
+                    mat_lib.update(load_mtl(mpath))
+            elif key == "usemtl":
+                mname = " ".join(tok[1:])
+                if mname not in mat_names:
+                    mat_names.append(mname)
+                cur_mat = mat_names.index(mname)
+            elif key == "f":
+                verts = []
+                for vtok in tok[1:]:
+                    parts = vtok.split("/")
+                    vi = _parse_index(parts[0], len(positions))
+                    ti = (_parse_index(parts[1], len(texcoords))
+                          if len(parts) > 1 else None)
+                    ni = (_parse_index(parts[2], len(normals))
+                          if len(parts) > 2 else None)
+                    verts.append((vi, ti, ni))
+                for k in range(1, len(verts) - 1):  # fan triangulation
+                    faces.append((verts[0], verts[k], verts[k + 1], cur_mat))
+
+    if not faces:
+        raise ValueError(f"no faces in {path}")
+    pos = np.asarray(positions, np.float32)
+    tex = (np.asarray(texcoords, np.float32)
+           if texcoords else np.zeros((1, 2), np.float32))
+    nrm = (np.asarray(normals, np.float32)
+           if normals else np.zeros((1, 3), np.float32))
+
+    t = len(faces)
+    vidx = np.zeros((t, 3), np.int64)
+    tidx = np.full((t, 3), -1, np.int64)
+    nidx = np.full((t, 3), -1, np.int64)
+    mat_id = np.zeros(t, np.int32)
+    for i, (a, b, c, m) in enumerate(faces):
+        for j, (vi, ti, ni) in enumerate((a, b, c)):
+            vidx[i, j] = vi
+            tidx[i, j] = -1 if ti is None else ti
+            nidx[i, j] = -1 if ni is None else ni
+        mat_id[i] = m  # -1 = before any usemtl, rebased below
+
+    v0, v1, v2 = pos[vidx[:, 0]], pos[vidx[:, 1]], pos[vidx[:, 2]]
+    # normals: per-vertex where present, the flat face normal elsewhere
+    flat = np.asarray(flat_normals(v0, v1, v2), np.float32)
+
+    def pick_n(col):
+        has = nidx[:, col] >= 0
+        out = flat.copy()
+        out[has] = nrm[nidx[has, col]]
+        return out
+
+    def pick_t(col):
+        has = tidx[:, col] >= 0
+        out = np.zeros((t, 2), np.float32)
+        out[has] = tex[tidx[has, col]]
+        return out
+
+    materials = [mat_lib.get(n, Material()) for n in mat_names] or [Material()]
+    if (mat_id < 0).any():
+        # faces before the first usemtl get a default material of their
+        # own, not whichever material is declared first
+        materials.append(Material())
+        mat_id = np.where(mat_id < 0, len(materials) - 1, mat_id)
+    return make_mesh(
+        v0, v1, v2,
+        pick_n(0), pick_n(1), pick_n(2),
+        pick_t(0), pick_t(1), pick_t(2),
+        mat_id=mat_id, materials=materials,
+    )
+
+
+def load_obj_scene(path: str, scene: Optional[Scene] = None) -> Scene:
+    """Load an OBJ as a one-instance scene."""
+    sc = scene or Scene()
+    mi = sc.add_mesh(load_obj(path))
+    sc.add_instance(mi)
+    return sc

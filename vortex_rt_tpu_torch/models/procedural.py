@@ -1,6 +1,6 @@
 """Procedural test geometry (port of ``vortex_rt_tpu/models/procedural.py``:
-``quad``, ``box``, ``uv_sphere``, ``random_soup`` and ``cornell_box``,
-unchanged).
+``quad``, ``box``, ``uv_sphere``, ``random_soup``,
+``checkerboard_texture`` and ``cornell_box``, unchanged).
 
 The reference ships binary OBJ assets (teapot/sphere/torus/... under
 tests/regression/raytracing/assets).  We generate equivalent geometry
@@ -103,6 +103,13 @@ def random_soup(rng: np.random.Generator, n_tris: int, extent: float = 10.0,
     e1 = rng.normal(0, tri_size, (n_tris, 3)).astype(np.float32)
     e2 = rng.normal(0, tri_size, (n_tris, 3)).astype(np.float32)
     return make_mesh(base, base + e1, base + e2)
+
+
+def checkerboard_texture(n: int = 8, c0: int = 0xFFFFFF, c1: int = 0x202020,
+                         cell: int = 4) -> np.ndarray:
+    """(n*cell, n*cell) uint32 0xRRGGBB checker texture."""
+    yy, xx = np.meshgrid(np.arange(n * cell), np.arange(n * cell), indexing="ij")
+    return np.where(((xx // cell) + (yy // cell)) % 2 == 0, c0, c1).astype(np.uint32)
 
 
 def cornell_box(reflective_sphere: bool = True):

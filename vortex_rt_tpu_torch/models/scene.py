@@ -401,6 +401,34 @@ class Scene:
             tri_inst=tri_inst,
         )
 
+    def arrange_around_y(self, margin: float = 0.0) -> None:
+        """Position each instance on a circle around Y
+        (Scene::arrangeMeshesAroundY): circle radius chosen so adjacent
+        footprints don't overlap."""
+        n = len(self._instances)
+        if n <= 1:
+            return
+        radii = []
+        for mi, T, _ in self._instances:
+            lo, hi = self._meshes[mi].aabb()
+            corners = vm.transform_point(T, vm.aabb_corners(lo, hi))
+            d = corners.max(0) - corners.min(0)
+            radii.append(0.5 * float(np.hypot(d[0], d[2])) + margin)
+        max_pair = max(radii[i] + radii[(i + 1) % n] for i in range(n))
+        step = 2.0 * np.pi / n
+        big_r = max_pair / (2.0 * np.sin(step / 2.0))
+        for i, (mi, T, refl) in enumerate(self._instances):
+            theta = step * i
+            shift = vm.mat4_translate(
+                [big_r * np.cos(theta), 0.0, big_r * np.sin(theta)])
+            self._instances[i] = (mi, (shift @ T).astype(np.float32), refl)
+
+    def apply_transform(self, transform: np.ndarray) -> None:
+        """Pre-multiply every instance (Scene::applyTransform)."""
+        t = np.asarray(transform, np.float32)
+        for i, (mi, T, refl) in enumerate(self._instances):
+            self._instances[i] = (mi, (t @ T).astype(np.float32), refl)
+
     @staticmethod
     def framing_camera(buffers: SceneBuffers, vfov_deg: float, aspect: float,
                        zoom: float = 1.0) -> Camera:

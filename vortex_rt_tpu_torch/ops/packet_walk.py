@@ -12,6 +12,10 @@ the same per-ray walk.  There is no fallback between the two.
 what a walk computes, for its bound.
 
 Semantics (shared with the JAX package's ``trace_packets_pallas``):
+``stats=True`` also returns each ray's steps by node kind
+(``StepKinds``): CUDA tensors launch the kernel's counting
+instantiation (counted as ``packet_walk_stats``), CPU tensors count in
+the plain walk (``walk_work_4``).
 ``active`` masks dead rays (they report a miss), ``t_max`` (at most
 LARGE_FLOAT: past it the plain version folds a missed candidate into the
 record, which no kernel does) clamps the search interval, and
@@ -100,6 +104,22 @@ class WalkWork(NamedTuple):
                             .to(torch.int64))
         if is_inst is not None:
             self.instance.add_(is_inst.to(torch.int64))
+
+
+class StepKinds(NamedTuple):
+    """A counting walk's per-ray steps by node kind ((R,) int32 each):
+    steps at internal nodes and at instance nodes.  A ray's steps at
+    triangle leaves are its steps less both.  The kernels' counting
+    instantiations write them; on CPU tensors they come from the plain
+    walk's ``WalkWork``."""
+
+    internal: torch.Tensor
+    instance: torch.Tensor
+
+    @staticmethod
+    def from_work(work: WalkWork) -> "StepKinds":
+        return StepKinds(work.internal.to(torch.int32),
+                         work.instance.to(torch.int32))
 
 
 # bytes of a leaf slot's alpha fields (uv triple, texture offset and size)
@@ -226,31 +246,37 @@ def trace_packets_walk(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                        t_max: Optional[torch.Tensor] = None,
                        occlusion: bool = False,
                        max_steps: int = MAX_STEPS,
-                       alpha_ref: Optional[float] = None
-                       ) -> Tuple[Hits, torch.Tensor]:
+                       alpha_ref: Optional[float] = None,
+                       stats: bool = False):
     """Closest-hit (or bounded occlusion) trace of (R, 3) rays over the
-    4-wide tables.  Returns (Hits, per-ray step counts (R,) int32).
+    4-wide tables.  Returns (Hits, per-ray step counts (R,) int32), and
+    the rays' ``StepKinds`` third with ``stats=True``.
 
     CUDA tensors launch the hand-written kernel; CPU tensors run the
     plain PyTorch version."""
     if o.device.type == "cpu":
+        if stats:
+            hits, steps, work = walk_work_4(wa, o, d, active, t_max,
+                                            occlusion, max_steps, alpha_ref)
+            return hits, steps, StepKinds.from_work(work)
         return trace_packets_walk_ref(wa, o, d, active, t_max, occlusion,
                                       max_steps, alpha_ref)
     return kernel_call(wa, o, d, active, t_max, occlusion, max_steps,
-                       alpha_ref)()
+                       alpha_ref, stats)()
 
 
 def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                 active: Optional[torch.Tensor] = None,
                 t_max: Optional[torch.Tensor] = None,
                 occlusion: bool = False, max_steps: int = MAX_STEPS,
-                alpha_ref: Optional[float] = None
-                ) -> Callable[[], Tuple[Hits, torch.Tensor]]:
+                alpha_ref: Optional[float] = None, stats: bool = False
+                ) -> Callable[[], tuple]:
     """The kernel launch of ``trace_packets_walk`` for CUDA tensors, with
     the inputs checked and the search limits and outputs made once.  Each
     call of the returned function launches the kernel into the same
     outputs and returns them, and does nothing else: CUDA events around
-    many calls time the kernel alone."""
+    many calls time the kernel alone.  ``stats=True`` launches the
+    counting instantiation, which also returns the ``StepKinds``."""
     _check(wa, o, d, active, t_max)
     if alpha_ref is not None:
         check_alpha(wa)
@@ -276,6 +302,8 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     i32 = dict(dtype=torch.int32, device=dev)
     dist, bx, by, bz = (torch.empty(r, **f32) for _ in range(4))
     tri, inst, steps = (torch.empty(r, **i32) for _ in range(3))
+    kinds = (StepKinds(torch.empty(r, **i32), torch.empty(r, **i32))
+             if stats else None)
 
     # the closure holds the tensors (not only their addresses), so the
     # inputs made here live as long as the launcher
@@ -285,25 +313,33 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
              wa.tri_rows.shape[1], max(int(wa.max_leaf_tris), 1),
              int(wa.num_tlas), int(wa.tri_bits), stack_n, int(max_steps),
              int(bool(occlusion)))
-    name = "packet_walk" if alpha_ref is None else "packet_walk_alpha"
+    name = ("packet_walk_stats" if stats else "packet_walk"
+            if alpha_ref is None else "packet_walk_alpha")
 
-    def launch() -> Tuple[Hits, torch.Tensor]:
+    def launch() -> tuple:
         common = [t.data_ptr() for t in tensors]
+        if alpha_ref is not None:
+            common += [wa.alpha_rows.data_ptr(), wa.alpha_pool.data_ptr()]
+        if stats:
+            common += [kinds.internal.data_ptr(), kinds.instance.data_ptr()]
+        alpha_sizes = (() if alpha_ref is None else
+                       (wa.alpha_rows.shape[1], wa.alpha_pool.shape[0],
+                        float(alpha_ref)))
+        fn = {(False, False): lib.lib.vrt_packet_walk,
+              (True, False): lib.lib.vrt_packet_walk_alpha,
+              (False, True): lib.lib.vrt_packet_walk_stats,
+              (True, True): lib.lib.vrt_packet_walk_alpha_stats}[
+                  (alpha_ref is not None, stats)]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            if alpha_ref is None:
-                err = lib.lib.vrt_packet_walk(*common, *sizes, stream)
-            else:
-                err = lib.lib.vrt_packet_walk_alpha(
-                    *common, wa.alpha_rows.data_ptr(),
-                    wa.alpha_pool.data_ptr(), *sizes,
-                    wa.alpha_rows.shape[1], wa.alpha_pool.shape[0],
-                    float(alpha_ref), stream)
+            err = fn(*common, *sizes, *alpha_sizes, stream)
         if err != 0:
             raise RuntimeError(f"packet_walk launch failed: "
                                f"{lib.error_string(err)} ({err})")
         if r > 0:
             kernels.LAUNCHES[name] += 1
+        if stats:
+            return Hits(dist, bx, by, bz, tri, inst), steps, kinds
         return Hits(dist, bx, by, bz, tri, inst), steps
 
     return launch

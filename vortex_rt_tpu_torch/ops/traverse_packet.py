@@ -25,8 +25,15 @@ visit order and step counts, not hits: the closest hit is a min-fold
 over a ray's own candidates with the lexicographic (t, packed tid)
 tie-break, up to exact-t ties that strict ``tmin < best_t`` pruning
 resolves by visit order (ROADMAP hazard H3).  The JAX knobs ``packet``,
-``fronts``, ``lax_sort``, ``array_stack``, ``unroll``, ``bf16_slab`` and
-``stats`` batch XLA's lockstep loop and are not carried.
+``fronts``, ``lax_sort``, ``array_stack``, ``unroll`` and ``bf16_slab``
+batch XLA's lockstep loop and are not carried.
+
+``stats=True`` also returns each ray's internal steps (``StepKinds``;
+no instance steps on flat tables): CUDA tensors launch the kernel's
+counting instantiation (counted as ``traverse_packet_stats``), CPU
+tensors count in the plain walk (``walk_work``).  ``packet_stats``
+reduces a wave's per-ray counts to the JAX ``PacketStats`` counters
+(their definitions over the port's walk are in its docstring).
 
 ``alpha_ref=thr`` is the JAX in-walk alpha-cutout any-hit over the tables
 of ``WideArrays.with_alpha`` (the fused rows then carry each leaf's alpha
@@ -47,13 +54,13 @@ them on flattened builds (ROADMAP Queue 1, item 8b).
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from vortex_rt_tpu_torch.ops.packet_walk import (
-    ALPHA_SLOT_BYTES, TRI_SLOT_BYTES, WalkWork, _rcp, alpha_fields,
-    alpha_keep, check_alpha, check_rays,
+    ALPHA_SLOT_BYTES, TRI_SLOT_BYTES, StepKinds, WalkWork, _rcp,
+    alpha_fields, alpha_keep, check_alpha, check_rays,
 )
 from vortex_rt_tpu_torch.ops.traverse2 import Hits
 from vortex_rt_tpu_torch.ops.traverse_wide import (
@@ -77,6 +84,55 @@ _LEFT_MASK = (1 << LEFT_BITS8) - 1
 _SORT_NET8 = ((0, 2), (1, 3), (4, 6), (5, 7), (0, 4), (1, 5), (2, 6),
               (3, 7), (0, 1), (2, 3), (4, 5), (6, 7), (2, 4), (3, 5),
               (1, 4), (3, 6), (1, 2), (3, 4), (5, 6))
+
+
+# lanes of a warp: the group over which packet_steps takes its maximum
+WARP = 32
+
+
+class PacketStats(NamedTuple):
+    """A wave's walk statistics under the JAX ``PacketStats`` names, each a
+    0-dim int64 tensor.  The JAX counters count XLA packets of P rays
+    walking in lockstep; the port walks one ray a thread, so each is
+    defined over its own walk:
+
+    steps         the wave's longest walk (the max over rays of steps)
+    packet_steps  warp-steps: over each group of ``WARP`` consecutive
+                  lanes (a warp of the kernel), the group's longest walk,
+                  summed (the JAX ``packet_size`` is reported as WARP)
+    ray_steps     the sum of the rays' steps (exact; JAX carries f32)
+    int_steps     ray-steps at internal nodes
+    tri_steps     ray-steps at triangle leaves
+    ins_steps     ray-steps at instance nodes
+
+    Summing two waves' stats (spp passes) adds every counter, ``steps``
+    too, as the JAX frame adds its slabs' and passes'."""
+
+    steps: torch.Tensor
+    packet_steps: torch.Tensor
+    ray_steps: torch.Tensor
+    int_steps: torch.Tensor
+    tri_steps: torch.Tensor
+    ins_steps: torch.Tensor
+
+    def __add__(self, other: "PacketStats") -> "PacketStats":
+        return PacketStats(*(a + b for a, b in zip(self, other)))
+
+
+def packet_stats(steps: torch.Tensor, kinds: StepKinds) -> PacketStats:
+    """A wave's ``PacketStats`` from its per-ray steps and ``StepKinds``
+    (torch reductions on their device; nothing is read to the host)."""
+    s = steps.to(torch.int64)
+    n_int = kinds.internal.to(torch.int64)
+    n_ins = kinds.instance.to(torch.int64)
+    pad = (-s.shape[0]) % WARP
+    warps = torch.cat([s, s.new_zeros(pad)]).reshape(-1, WARP)
+    zero = s.new_zeros(())
+    return PacketStats(
+        steps=s.max() if s.numel() else zero,
+        packet_steps=warps.max(1).values.sum() if s.numel() else zero,
+        ray_steps=s.sum(), int_steps=n_int.sum(),
+        tri_steps=(s - n_int - n_ins).sum(), ins_steps=n_ins.sum())
 
 
 def qbyte(w: torch.Tensor, sh: int) -> torch.Tensor:
@@ -237,19 +293,24 @@ def trace_packets(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                   t_max: Optional[torch.Tensor] = None,
                   occlusion: bool = False, occl_split: int = 0,
                   max_steps: int = MAX_STEPS,
-                  alpha_ref: Optional[float] = None
-                  ) -> Tuple[Hits, torch.Tensor]:
+                  alpha_ref: Optional[float] = None,
+                  stats: bool = False):
     """Closest-hit, occlusion or mixed trace of (R, 3) rays over the
     8-wide fused table, with the alpha cutout when ``alpha_ref`` is
-    given.  Returns (Hits, per-ray step counts (R,) int32).
+    given.  Returns (Hits, per-ray step counts (R,) int32), and the
+    rays' ``StepKinds`` third with ``stats=True``.
 
     CUDA tensors launch the hand-written kernel; CPU tensors run the
     plain PyTorch version."""
     if o.device.type == "cpu":
+        if stats:
+            hits, steps, work = walk_work(wa, o, d, active, t_max, occlusion,
+                                          occl_split, max_steps, alpha_ref)
+            return hits, steps, StepKinds.from_work(work)
         return trace_packets_ref(wa, o, d, active, t_max, occlusion,
                                  occl_split, max_steps, alpha_ref)
     return kernel_call(wa, o, d, active, t_max, occlusion, occl_split,
-                       max_steps, alpha_ref)()
+                       max_steps, alpha_ref, stats)()
 
 
 def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
@@ -257,13 +318,14 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                 t_max: Optional[torch.Tensor] = None,
                 occlusion: bool = False, occl_split: int = 0,
                 max_steps: int = MAX_STEPS,
-                alpha_ref: Optional[float] = None
-                ) -> Callable[[], Tuple[Hits, torch.Tensor]]:
+                alpha_ref: Optional[float] = None, stats: bool = False
+                ) -> Callable[[], tuple]:
     """The kernel launch of ``trace_packets`` for CUDA tensors, with the
     inputs checked and the outputs allocated once.  Each call of the
     returned function launches the kernel into the same outputs and
     returns them, and does nothing else: CUDA events around many calls
-    time the kernel alone."""
+    time the kernel alone.  ``stats=True`` launches the counting
+    instantiation, which also returns the ``StepKinds``."""
     _check(wa, o, d, active, t_max, occl_split)
     if alpha_ref is not None:
         classes = alpha_classes(wa, alpha_ref)
@@ -292,6 +354,9 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     i32 = dict(dtype=torch.int32, device=dev)
     dist, bx, by, bz = (torch.empty(r, **f32) for _ in range(4))
     tri, inst, steps = (torch.empty(r, **i32) for _ in range(3))
+    # (flat tables hold no instance nodes: the instance count stays 0)
+    kinds = (StepKinds(torch.empty(r, **i32), torch.zeros(r, **i32))
+             if stats else None)
     split = _split(r, occlusion, occl_split)
     # the closure holds the tensors (not only their addresses), so the
     # inputs made here live as long as the launcher
@@ -299,25 +364,34 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     sizes = (r, wa.fused.shape[0], wa.fused.shape[1],
              max(int(wa.max_leaf_tris), 1), int(wa.tri_bits), stack_n,
              int(max_steps), split)
-    name = "traverse_packet" if alpha_ref is None else "traverse_packet_alpha"
+    name = ("traverse_packet_stats" if stats else "traverse_packet"
+            if alpha_ref is None else "traverse_packet_alpha")
 
-    def launch() -> Tuple[Hits, torch.Tensor]:
+    def launch() -> tuple:
         ptrs = [t.data_ptr() for t in tensors]
+        alpha_sizes = ()
+        if alpha_ref is not None:
+            ptrs += [wa.alpha_pool.data_ptr(),
+                     0 if classes is None else classes.data_ptr()]
+            alpha_sizes = (wa.alpha_pool.shape[0], wa.tri_rows.shape[1] // 16,
+                           float(alpha_ref))
+        if stats:
+            ptrs.append(kinds.internal.data_ptr())
+        fn = {(False, False): lib.lib.vrt_traverse_packet,
+              (True, False): lib.lib.vrt_traverse_packet_alpha,
+              (False, True): lib.lib.vrt_traverse_packet_stats,
+              (True, True): lib.lib.vrt_traverse_packet_alpha_stats}[
+                  (alpha_ref is not None, stats)]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            if alpha_ref is None:
-                err = lib.lib.vrt_traverse_packet(*ptrs, *sizes, stream)
-            else:
-                err = lib.lib.vrt_traverse_packet_alpha(
-                    *ptrs, wa.alpha_pool.data_ptr(),
-                    0 if classes is None else classes.data_ptr(), *sizes,
-                    wa.alpha_pool.shape[0], wa.tri_rows.shape[1] // 16,
-                    float(alpha_ref), stream)
+            err = fn(*ptrs, *sizes, *alpha_sizes, stream)
         if err != 0:
             raise RuntimeError(f"traverse_packet launch failed: "
                                f"{lib.error_string(err)} ({err})")
         if r > 0:
             kernels.LAUNCHES[name] += 1
+        if stats:
+            return Hits(dist, bx, by, bz, tri, inst), steps, kinds
         return Hits(dist, bx, by, bz, tri, inst), steps
 
     return launch

@@ -12,9 +12,10 @@ Nothing here runs at import: the CPU-only test machine imports every
 module and has no ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by library name (and ``ploc_pack``,
-``lbvh_pack``'s two kernels in their PLOC mode, and
+``lbvh_pack``'s two kernels in their PLOC mode,
 ``traverse_packet_alpha`` and ``packet_walk_alpha``, the alpha-cutout
-instantiations of K1 and K2).  Each wrapper adds one per
+instantiations of K1 and K2, and ``traverse_packet_stats`` and
+``packet_walk_stats``, their counting instantiations in either mode).  Each wrapper adds one per
 ``__global__`` function it launches (an LBVH or PLOC entry point may
 launch several), where it launches and nowhere else, so a caller can
 reset the counts, drive the main path and see which kernels it went
@@ -54,12 +55,19 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     "packet_walk": {
         "vrt_packet_walk": ([_P] * 12 + [_I] * 10 + [_P], _I),
         "vrt_packet_walk_alpha": ([_P] * 14 + [_I] * 12 + [_F, _P], _I),
+        # the counting instantiations (per-wave statistics)
+        "vrt_packet_walk_stats": ([_P] * 14 + [_I] * 10 + [_P], _I),
+        "vrt_packet_walk_alpha_stats": ([_P] * 16 + [_I] * 12 + [_F, _P],
+                                        _I),
         "vrt_packet_walk_stack_max": ([], _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
     "traverse_packet": {
         "vrt_traverse_packet": ([_P] * 12 + [_I] * 8 + [_P], _I),
         "vrt_traverse_packet_alpha": ([_P] * 14 + [_I] * 10 + [_F, _P], _I),
+        "vrt_traverse_packet_stats": ([_P] * 13 + [_I] * 8 + [_P], _I),
+        "vrt_traverse_packet_alpha_stats": ([_P] * 15 + [_I] * 10
+                                            + [_F, _P], _I),
         "vrt_traverse_packet_stack_max": ([], _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
@@ -129,9 +137,11 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
 
 # launch counts: one per kernel library, and "ploc_pack", lbvh_pack's
 # survivor records and the leaf rows it writes from explicit triangle ids,
-# and the alpha-cutout instantiations of K1 and K2
+# the alpha-cutout instantiations of K1 and K2, and their counting
+# instantiations (with or without alpha)
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
-    *_SIGNATURES, "ploc_pack", "traverse_packet_alpha", "packet_walk_alpha")}
+    *_SIGNATURES, "ploc_pack", "traverse_packet_alpha", "packet_walk_alpha",
+    "traverse_packet_stats", "packet_walk_stats")}
 
 
 def reset_launches() -> None:
@@ -229,13 +239,19 @@ def _build(src_path: Path) -> Tuple[Path, float, str]:
     return so, seconds, log
 
 
-def load_file(name: str, src_path: Path) -> KernelLibrary:
+def load_file(name: str, src_path: Path,
+              require_all: bool = False) -> KernelLibrary:
     """Build and load another source of kernel library ``name`` (another
     version of the kernel, with the same C interface, for comparing the
-    two) with the same flags; not cached here."""
+    two) with the same flags; not cached here.  The functions of
+    ``name``'s C interface that the source defines are declared; with
+    ``require_all`` a missing one raises (an earlier version may lack
+    an entry point added since)."""
     so, seconds, log = _build(Path(src_path))
     lib = ctypes.CDLL(str(so))
     for fn, (argtypes, restype) in _SIGNATURES[name].items():
+        if not require_all and not hasattr(lib, fn):
+            continue
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = restype
@@ -250,7 +266,8 @@ def load(name: str) -> KernelLibrary:
         raise KeyError(f"unknown kernel library {name!r}")
     with _locks[name]:
         if name not in _loaded:
-            _loaded[name] = load_file(name, SRC_DIR / f"{name}.cu")
+            _loaded[name] = load_file(name, SRC_DIR / f"{name}.cu",
+                                      require_all=True)
         return _loaded[name]
 
 

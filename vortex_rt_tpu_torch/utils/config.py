@@ -1,6 +1,11 @@
 """Framework configuration (port of ``vortex_rt_tpu/utils/config.py``).
 
-Only the knobs this port reads are carried.  ``packet_size`` is carried
+Only the knobs this port reads are carried, and the reference's knobs
+the JAX package carries as fields without a reader of its own
+(``stack_size``, ``max_trail``, ``epsilon``, ``t_max``): they are kept so
+that ``as_dict`` and ``from_overrides`` take the same names, and wired
+nowhere the JAX package does not wire them.  ``mesh_axes`` waits for
+multi-device rendering (ROADMAP Queue 1, item 11).  ``packet_size`` is carried
 with one meaning of the JAX knob only: 0 selects the per-ray engine (the
 pool path: ``ops/traverse_wide.trace_lanes``, K3, with any-hit
 suspension), and any other value keeps the default route (K1 or K2 over
@@ -17,7 +22,7 @@ builds (the JAX default).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Dict, Optional
 
 # Sentinel "no hit" distance (the reference's LARGE_FLOAT).
 LARGE_FLOAT = 1e30
@@ -39,6 +44,8 @@ class RTConfig:
     bvh_width: int = 0          # children per wide-BVH node, 4 or 8;
                                 # 0 = auto: 8 on flattened builds, else 4
                                 # (the JAX package's rule)
+    stack_size: int = 5         # RT_STACK_SIZE (no reader, as in JAX)
+    max_trail: int = 32         # MAX_TRAIL_LEVEL (no reader, as in JAX)
     max_leaf_tris: int = 4      # leaf size target for the binary BVH
     sah_bins: int = 8           # bins of the binned-SAH build
     flatten: bool = False       # ONE world-space BVH over all instances
@@ -50,12 +57,23 @@ class RTConfig:
     packet_size: int = 256      # 0 = the per-ray engine for every wave
                                 # (K3, any-hit by suspension); any other
                                 # value = K1 / K2 over whole waves
+    queue_capacity: int = 1024  # ShaderQueue capacity of the RT-unit
+                                # facade (engine/rtu.py)
 
     # ---- render parameters ----
     width: int = 256
     height: int = 256
+    spp: int = 1
+    max_depth: int = 2          # bounce budget (the reference's -d flag)
+    tex_filter: str = "point"   # 'point' or 'bilinear' (texSampleBi):
+                                # read by WavefrontRenderer.render only,
+                                # as in the JAX package
     tile_w: int = 16            # pixel tile of the tile-major lane order
     tile_h: int = 16
+
+    # ---- numerics (no reader in the engine, as in the JAX package) ----
+    epsilon: float = MT_EPSILON
+    t_max: float = LARGE_FLOAT
 
     def __post_init__(self):
         if self.bvh_width == 0:
@@ -74,6 +92,18 @@ class RTConfig:
             raise ValueError("packet_size must be >= 0")
         if self.max_leaf_tris < 1:
             raise ValueError("max_leaf_tris must be >= 1")
+        if self.tex_filter not in ("point", "bilinear"):
+            raise ValueError(f"tex_filter must be 'point' or 'bilinear', "
+                             f"got {self.tex_filter!r}")
 
     def replace(self, **kw: Any) -> "RTConfig":
         return dataclasses.replace(self, **kw)
+
+    def as_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+def from_overrides(base: Optional[RTConfig] = None, **kw: Any) -> RTConfig:
+    """``CONFIGS="-DNAME=val"``-style overrides of ``base`` (the default
+    configuration when None)."""
+    return (base or RTConfig()).replace(**kw)
