@@ -260,6 +260,30 @@ and so exits non-zero, on failure):
     equal the pool path's (``walk_lanes`` rounds, same action) to the
     bit; rays/s, rounds, K3 launches; the device API (``dev_open``,
     copy, start, ready_wait, dump_perf) once;
+18a. multi-device rendering by row blocks (``parallel/tiles.py``), every
+    rank a process on this one card through gloo and a ``file://``
+    store (``parallel/launch.spawn``): ladder config 3's render (blob,
+    1920x1080, spp 4, depth 3, path traced, 8-wide fused through K1)
+    over 2 ranks, ``render_tiled_wavefront`` once with each rank's launch
+    counts reset before it and read after (K1 launched on every rank);
+    the gathered image equals one device's ``render`` of the frame
+    (max diff <= 1e-5) with the same rays; each rank's frame ms (its
+    step after a warm-up; ranks sharing one card measure no scaling);
+18b. the tiled megakernel (``render_tiled``, K6 every wave) on MK-A's
+    scene at 512x512, depth 3, over the same 2 ranks against one
+    device's megakernel frame at spp 1 (the tiled step renders pixel
+    centres, as the JAX one does);
+18c. scene shards (``parallel/shards.py``), ``render_sharded`` with the
+    ``replicate`` schedule: the atrium (259,594 triangles, 29 instances,
+    4-wide TLAS, K2 on every shard) at 1920x1080, spp 1, depth 2, shadow
+    rays, at dp=1 x sp=2 (2 ranks) and dp=2 x sp=2 (4 ranks): RMSE below
+    1e-5 against one device's 4-wide frame, equal rays, K2 launched on
+    every rank; ``memory_table`` at sp=2 and sp=4;
+18d. the ``alltoall`` schedule at dp=1 x sp=2 (in 18c's launch): the
+    same gates, its per-ray walk steps below ``replicate``'s, the bytes
+    gloo moved through host memory for the CUDA tensors printed (gloo
+    runs each collective on them itself: nothing is staged by the port,
+    ``tools/gloo_cuda_probe.py``);
 16. prints the kernels' JSON line (per kernel: launches on its main-path
     run and per frame, K1's being config 4's frame with the other paths'
     counts beside it, the LBVH kernels' being row 5's run, the PLOC
@@ -3695,6 +3719,262 @@ def phase_rtu(device, sb, size: int = 512) -> dict:
                 pool_rounds=pool_rounds, dump_perf=perf)
 
 
+# ------------------------------- multi-device rendering (18a-18d)
+#
+# Each phase starts its ranks with torch.multiprocessing (spawn), every
+# rank on the same card through gloo and a file:// store in a temporary
+# directory (parallel/launch.spawn); a rank returns its readings and its
+# kernels.LAUNCHES, and one that raises fails the launch.  Frame times of
+# several ranks sharing one card measure no scaling.
+
+MD_RANKS_LABEL = "ranks on one H100"
+
+
+def _md_step_ms(step, args, device) -> float:
+    """Wall ms of one ``step`` after a warm-up, both ranks starting
+    together (a barrier), device-synchronised."""
+    import torch.distributed as dist
+
+    step(*args)
+    _sync(device)
+    dist.barrier()
+    t0 = time.perf_counter()
+    step(*args)
+    _sync(device)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def md_rank_tiles(rank: int, device: str, c3, mk_a) -> dict:
+    """18a and 18b on one rank: each host API once (launch counts reset
+    before it and read after; the image gathered), then the frame's
+    step timed after a warm-up.  ``c3`` and ``mk_a``: (buffers, camera,
+    params, width, height)."""
+    import torch
+
+    from vortex_rt_tpu_torch import RTConfig, WavefrontRenderer
+    from vortex_rt_tpu_torch.engine.megakernel import (
+        CameraArrays, LightArrays, MegakernelRenderer,
+    )
+    from vortex_rt_tpu_torch.parallel import tiles
+    from vortex_rt_tpu_torch.parallel.mesh import Mesh
+    from vortex_rt_tpu_torch.runtime import kernels
+
+    dev = torch.device(device)
+    mesh = Mesh.create(("tiles",), device=dev)
+    out = dict(rank=rank, device=str(mesh.device), backend=mesh.backend)
+    for key, api, (sb, cam, p, w, h), kernel in (
+            ("18a", tiles.render_tiled_wavefront, c3, "traverse_packet"),
+            ("18b", tiles.render_tiled, mk_a, "traverse2")):
+        host0 = mesh.host_bytes
+        _sync(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        img, rays = api(sb, cam, p, w, h, mesh=mesh)
+        _sync(dev)
+        api_s = time.perf_counter() - t0
+        host_bytes = mesh.host_bytes - host0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        _check(dev.type != "cuda" or launches.get(kernel, 0) > 0,
+               f"{key} rank {rank}: no {kernel} launch ({launches})")
+        cam_t = CameraArrays.from_camera(cam, dev)
+        light = LightArrays.from_params(p, dev)
+        if key == "18a":
+            r = WavefrontRenderer.from_buffers(
+                sb, RTConfig(flatten=bool(sb.flat)), device=dev)
+            step = tiles.make_tiled_wavefront(
+                mesh, w, h, p.max_depth, p.spp, shadow=p.shadow,
+                pathtrace=p.pathtrace, walk=r.walk)
+            args = (r.wa, r.sa, cam_t, light)
+        else:
+            r = MegakernelRenderer.from_buffers(sb, device=dev)
+            step = tiles.make_tiled_renderer(mesh, w, h, p.max_depth)
+            args = (r.ta, r.st, cam_t, light)
+        out[key] = dict(rays=rays, api_s=api_s, launches=launches,
+                        frame_ms=_md_step_ms(step, args, dev),
+                        rows=h // mesh.shape["tiles"],
+                        host_bytes=host_bytes,
+                        img=img if rank == 0 else None)
+        del r, step, args
+    return out
+
+
+def md_rank_shards(rank: int, device: str, scene, cam, p, w: int, h: int,
+                   n_dp: int, n_sp: int, schedules) -> dict:
+    """18c / 18d on one rank: ``render_sharded`` over a (dp, sp) mesh
+    with each schedule in turn (launch counts reset before and read
+    after, per-ray steps with ``accounting``), its wall time with the
+    host build, the bytes gloo moved through host memory."""
+    import torch
+
+    from vortex_rt_tpu_torch.parallel import shards
+    from vortex_rt_tpu_torch.parallel.mesh import Mesh
+    from vortex_rt_tpu_torch.runtime import kernels
+
+    dev = torch.device(device)
+    mesh = Mesh.create(("dp", "sp"), (n_dp, n_sp), device=dev)
+    out = dict(rank=rank, coords=dict(mesh.coords), backend=mesh.backend)
+    for schedule in schedules:
+        host0 = mesh.host_bytes
+        _sync(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        img, rays, steps = shards.render_sharded(
+            scene, cam, p, w, h, n_sp, mesh=mesh, schedule=schedule,
+            return_steps=True, accounting=True)
+        _sync(dev)
+        wall_s = time.perf_counter() - t0
+        host_bytes = mesh.host_bytes - host0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        _check(dev.type != "cuda" or launches.get("packet_walk", 0) > 0,
+               f"{schedule} rank {rank}: no packet_walk launch "
+               f"({launches})")
+        out[schedule] = dict(rays=rays, steps=steps, wall_s=wall_s,
+                             launches=launches,
+                             host_bytes=host_bytes,
+                             img=img if rank == 0 else None)
+    return out
+
+
+def _md_compare(label: str, got, rays, ref, ref_rays, rmse_tol=None) -> dict:
+    """Image and ray count of a multi-rank frame against one device's."""
+    import numpy as np
+
+    diff = float(np.abs(got - ref).max())
+    rmse = float(np.sqrt(((got - ref) ** 2).mean()))
+    ok = rays == ref_rays and (diff <= IMG_ATOL if rmse_tol is None
+                               else rmse < rmse_tol)
+    _check(got.shape == ref.shape and ok,
+           f"{label}: {rays} vs {ref_rays} rays, image max diff {diff}, "
+           f"RMSE {rmse}")
+    return dict(max_abs_diff=diff, rmse=rmse)
+
+
+def phase_multi_device(device, blob_scene, hd=(1920, 1080), size=512
+                       ) -> dict:
+    """18a-18d (see the module docstring)."""
+    from vortex_rt_tpu_torch import (
+        RenderParams, RTConfig, Scene, WavefrontRenderer,
+    )
+    from vortex_rt_tpu_torch.engine.megakernel import MegakernelRenderer
+    from vortex_rt_tpu_torch.models.bigscenes import atrium
+    from vortex_rt_tpu_torch.parallel import launch, shards
+
+    dev = str(device)
+    res = {}
+    w, h = hd
+    _phase("phase 18a the tiled wavefront frame: ladder config 3 (blob "
+           f"n=187, {w}x{h}, spp 4, depth 3, path traced, 8-wide through "
+           f"K1) over 2 {MD_RANKS_LABEL}; 18b the tiled megakernel: MK-A's "
+           f"scene ({size}x{size}, depth 3) through K6")
+    sb3, cfg3 = blob_scene
+    cam3 = Scene.framing_camera(sb3, 45.0, w / h)
+    p3 = RenderParams(max_depth=3, spp=4, shadow=True, pathtrace=True)
+    ref3, rays3 = WavefrontRenderer.from_buffers(sb3, cfg3, device=device
+                                                 ).render(cam3, p3, w, h)
+    sb_a, _ = config2_scene(sphere_refl=0.6, flatten=False)
+    cam_a = config2_camera()
+    p_a = RenderParams(light_pos=LIGHT2, max_depth=3, spp=1)
+    ref_a, rays_a = MegakernelRenderer.from_buffers(
+        sb_a, device=device).render(cam_a, p_a, size, size)
+    t0 = time.perf_counter()
+    ranks = launch.spawn(md_rank_tiles, 2,
+                         (dev, (sb3, cam3, p3, w, h),
+                          (sb_a, cam_a, p_a, size, size)))
+    spawn_s = time.perf_counter() - t0
+    for key, ref, ref_rays, kernel in (
+            ("18a", ref3, rays3, "traverse_packet"),
+            ("18b", ref_a, rays_a, "traverse2")):
+        per = [r[key] for r in ranks]
+        _check(all(q["rays"] == per[0]["rays"] for q in per),
+               f"{key}: the ranks' totals differ")
+        cmp_ = _md_compare(f"{key} 2 ranks", per[0]["img"], per[0]["rays"],
+                           ref, ref_rays)
+        res[key] = dict(
+            ranks=2, rays=per[0]["rays"], **cmp_,
+            frame_ms=[q["frame_ms"] for q in per],
+            api_s=[q["api_s"] for q in per],
+            launches=[q["launches"].get(kernel, 0) for q in per],
+            host_bytes=[q["host_bytes"] for q in per],
+            rows_per_rank=per[0]["rows"], spawn_s=spawn_s)
+        print(f"  {key}: 2 {MD_RANKS_LABEL} (gloo, {ranks[0]['device']}), "
+              f"{per[0]['rows']} rows each: the gathered image equals one "
+              f"device's render (max diff {cmp_['max_abs_diff']:.3g}), "
+              f"{per[0]['rays']} rays both; frame ms per rank "
+              f"{[round(x, 3) for x in res[key]['frame_ms']]}, "
+              f"{kernel} launches per rank {res[key]['launches']}, host API "
+              f"s per rank {[round(x, 2) for x in res[key]['api_s']]}, "
+              f"through host memory {res[key]['host_bytes']} B (gloo) (no "
+              f"scaling claimed)")
+    del ref3, ref_a
+
+    _phase("phase 18c scene shards, replicate: the atrium (29 instances, "
+           f"4-wide TLAS through K2), {w}x{h}, spp 1, depth 2, shadow rays, "
+           f"at dp=1 x sp=2 and dp=2 x sp=2 ({MD_RANKS_LABEL}); 18d "
+           "alltoall at dp=1 x sp=2")
+    sc = Scene()
+    for mesh_, refl in atrium():
+        sc.add_instance(sc.add_mesh(mesh_), reflectivity=refl)
+    sb = sc.build(RTConfig())
+    cam = Scene.framing_camera(sb, 45.0, w / h, zoom=1.0)
+    p = RenderParams(spp=1, max_depth=2, shadow=True)
+    rr = WavefrontRenderer.from_buffers(sb, RTConfig(), device=device)
+    ref, ref_rays = rr.render(cam, p, w, h)
+    tables = {}
+    for s in (2, 4):
+        t0 = time.perf_counter()
+        sharded, sb_full = shards.build_sharded(sc, s)
+        tables[s] = dict(shards.memory_table(sharded, sb_full),
+                         build_s=time.perf_counter() - t0,
+                         instances=[int((sharded.inst_owner == k).sum())
+                                    for k in range(s)])
+        print(f"  memory_table sp={s}: {tables[s]}")
+    del sharded, sb_full
+    # dp=1 x sp=2: replicate then alltoall, in one launch
+    t0 = time.perf_counter()
+    two = launch.spawn(md_rank_shards, 2, (dev, sc, cam, p, w, h, 1, 2,
+                                           ("replicate", "alltoall")))
+    two_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    four = launch.spawn(md_rank_shards, 4, (dev, sc, cam, p, w, h, 2, 2,
+                                            ("replicate",)))
+    four_s = time.perf_counter() - t0
+    for key, ranks_, sched, spawn_s in (
+            ("18c_dp1_sp2", two, "replicate", two_s),
+            ("18c_dp2_sp2", four, "replicate", four_s),
+            ("18d_dp1_sp2", two, "alltoall", two_s)):
+        per = [r[sched] for r in ranks_]
+        cmp_ = _md_compare(key, per[0]["img"], per[0]["rays"], ref,
+                           ref_rays, rmse_tol=1e-5)
+        res[key] = dict(ranks=len(per), rays=per[0]["rays"],
+                        steps=per[0]["steps"], **cmp_,
+                        wall_s=[q["wall_s"] for q in per],
+                        launches=[q["launches"].get("packet_walk", 0)
+                                  for q in per],
+                        host_bytes=[q["host_bytes"] for q in per],
+                        spawn_s=spawn_s)
+        print(f"  {key}: {len(per)} {MD_RANKS_LABEL} ({sched}): RMSE "
+              f"{cmp_['rmse']:.3g} (max diff {cmp_['max_abs_diff']:.3g}) "
+              f"against one device's 4-wide frame, {per[0]['rays']} rays "
+              f"both; per-ray walk steps of every rank {per[0]['steps']}; "
+              f"K2 launches per rank {res[key]['launches']}; render_sharded "
+              f"s per rank (host build included) "
+              f"{[round(x, 2) for x in res[key]['wall_s']]}; through host "
+              f"memory {res[key]['host_bytes']} B (gloo)")
+    a2a, rep = res["18d_dp1_sp2"], res["18c_dp1_sp2"]
+    _check(a2a["rays"] == rep["rays"],
+           f"18d: alltoall {a2a['rays']} rays, replicate {rep['rays']}")
+    _check(a2a["steps"] < rep["steps"],
+           f"18d: alltoall's steps {a2a['steps']} not below replicate's "
+           f"{rep['steps']}")
+    print(f"  18d: alltoall steps / replicate steps = "
+          f"{a2a['steps'] / rep['steps']:.4f}; bytes gloo moved through host "
+          f"memory per rank {a2a['host_bytes']} (replicate "
+          f"{rep['host_bytes']}): gloo runs every collective on CUDA "
+          f"tensors itself, so the port stages none")
+    res["memory_table"] = tables
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3826,6 +4106,7 @@ def main() -> int:
     _phase("phase 17e the RT-unit facade and the device API (the atrium's "
            "4-wide TLAS, 512x512)")
     rtu17 = phase_rtu(device, mk.pop("atrium_tlas"))
+    md = phase_multi_device(device, blob_scene)
     _phase("phase 16 results")
     print(f"  summary: config2 {c2['mrays']:.3f} Mrays/s, scale "
           f"{sc['mrays']:.3f} Mrays/s, peak {sc['peak_bytes']} B; config 3 "
@@ -3852,12 +4133,17 @@ def main() -> int:
         "config2": c2["launches"], "config3": c3["k1_launches"],
         "config4": c4["k1_launches"],
         "config3_device_tree": c3d["launches"]["traverse_packet"],
-        "config5": c5["launches_k1"], "cli_config3": cli3["k1_launches"]})
+        "config5": c5["launches_k1"], "cli_config3": cli3["k1_launches"],
+        "tiled_wavefront_per_rank": md["18a"]["launches"]})
     for name in LBVH_KERNELS:
         _check(lbvh_checked[name] > 0, f"phases 11a-11c checked no {name}")
         c5["kernels"][name]["launches_by_path"]["config3_device_tree"] = \
             c3d["launches"][name]
     rows = []
+    c2k2["launches_by_path"] = {
+        "config2_4wide": c2k2["launches"],
+        **{f"sharded_{k}_per_rank": md[k]["launches"]
+           for k in ("18c_dp1_sp2", "18c_dp2_sp2", "18d_dp1_sp2")}}
     c2k2["other_waves"] = {"atrium_tlas_1080p": {
         k: mk["k2_hd"].get(k) for k in ("ms", "plain_ms_crop", "bound_ms",
                                         "bound_by", "rays", "mean_steps")}}
@@ -3966,7 +4252,8 @@ def main() -> int:
                  "launches_per_frame": mk["mk_a"]["k6_launches_per_frame"],
                  "launches_by_path": {
                      "mk_a": mk["mk_a"]["k6_launches"],
-                     "mk_b": mk["mk_b"]["k6_launches"]},
+                     "mk_b": mk["mk_b"]["k6_launches"],
+                     "tiled_megakernel_per_rank": md["18b"]["launches"]},
                  "max_abs_err": mk["max_abs_err"], "ms": t6["ms"],
                  "plain_ms": t6["plain_ms"], "bound_ms": t6["bound_ms"],
                  "bound_by": t6["bound_by"],
@@ -4054,6 +4341,10 @@ def main() -> int:
           f"{rtu17['rays_per_s'] / 1e6:.3f} Mrays/s, {rtu17['rounds']} "
           f"rounds, {rtu17['k3_launches']} K3 launches; scope stages "
           f"{scope17['scope_ms']}")
+    print("  multi-device (" + MD_RANKS_LABEL + "; no scaling claimed): "
+          + json.dumps(_json_safe({k: {f: v for f, v in r.items()
+                                       if f != "img"}
+                                   for k, r in md.items()})))
     print(json.dumps(_json_safe({"kernels": rows})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

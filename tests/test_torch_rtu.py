@@ -253,3 +253,44 @@ def test_device_open_refuses_without_card(monkeypatch):
             dev_open(backend)
     with pytest.raises(DeviceError):
         dev_open("tpu")
+
+
+def test_rtu_reuses_terminated_rows():
+    """TERM frees a ray's rows and ``trace_ray`` reuses them: over 50
+    batches of 2,000 rays, each batch's rays terminated one batch later
+    (so 2,000-4,000 live), the rows never exceed twice the peak of live
+    rays plus one batch, and the ids still run from 1 with no gap."""
+    _, tu = _units(_quad, anyhit=False, lanes=4096)
+    n, batches = 2000, 50
+    rng = np.random.default_rng(7)
+    ids_all, prev, peak = [], None, 0
+    for _ in range(batches):
+        o = np.zeros((n, 3), np.float32)
+        o[:, :2] = rng.uniform(-2, 2, (n, 2))
+        o[:, 2] = -1
+        d = np.tile(np.array([[0, 0, 1]], np.float32), (n, 1))
+        ids = tu.trace_ray(o, d)
+        ids_all.append(ids)
+        while tu.get_work().size:
+            pass
+        peak = max(peak, tu.active_rays())
+        assert tu.capacity <= 2 * peak + n
+        if prev is not None:
+            tu.commit(prev, trtu.VX_RT_COMMIT_TERM)
+        prev = ids
+    tu.commit(prev, trtu.VX_RT_COMMIT_TERM)
+    assert tu.active_rays() == 0 and peak == 2 * n
+    assert tu.capacity <= 2 * peak + n
+    ids_all = np.concatenate(ids_all)
+    assert ids_all.dtype == np.uint32
+    np.testing.assert_array_equal(ids_all, np.arange(1, batches * n + 1))
+    # a reused row reads as the new ray's, a freed id raises
+    o = np.array([[0.5, 0.5, -1.0]], np.float32)
+    d = np.array([[0.0, 0.0, 1.0]], np.float32)
+    rid = tu.trace_ray(o, d)
+    assert int(rid[0]) == batches * n + 1
+    work = tu.get_work()
+    assert abs(float(tu.get_attr(work, trtu.VX_RT_HIT_DIST)[0]) - 3.0) < 1e-5
+    assert float(tu.get_attr(work, trtu.VX_RT_RAY_RO_X)[0]) == 0.5
+    with pytest.raises(KeyError):
+        tu.get_attr(ids_all[:1], trtu.VX_RT_HIT_DIST)

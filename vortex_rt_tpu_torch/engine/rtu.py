@@ -12,15 +12,22 @@ code shaped like the reference's persistent kernel loop ports directly.
 The wavefront engine is the fast path; this facade is the programmable
 one and the executable specification of the queue and commit semantics.
 
-Ray ids start at 1; 0 means "no work".  Unlike the JAX facade, which
-keeps a Python record per ray, the ray state lives in tensors on the
-tables' device, indexed by ray id - 1: origins and directions, the
-per-ray walk state (``WideState``), the last walk's hit.  Only the queues
-(NumPy id arrays) and three per-ray flags (walked, alive, hit pending)
-are on the host.  Each batch of walks is one ``trace_lanes`` call — K3
-on a card — over a copy of the rays' state, written back after it, and
-one read of the suspended and missed flags to route the rays to their
-queues.  Fresh and resumed rays walk in separate batches, in queue order.
+Ray ids start at 1 and grow by one a ray, as the JAX facade allocates
+them; 0 means "no work".  Unlike the JAX facade, which keeps a Python
+record per ray, the ray state lives in tensors on the tables' device, one
+row a live ray: origins and directions, the per-ray walk state
+(``WideState``), the last walk's hit.  An id maps to its row through a
+table on the host (``_row_of``, the window of ids from the oldest live
+one); TERM frees the row onto a free list, ``trace_ray`` takes rows from
+the free list first, and the tensors grow only when a batch needs more
+rows than are free, by doubling, with one copy.  So the rows stay within
+twice the peak of live rays and one batch, as the JAX facade's records
+stay with its live rays.  Only the queues (NumPy id arrays), the id table
+and three fields a row (walked, hit pending, payload) are on the host.
+Each batch of walks is one ``trace_lanes`` call — K3 on a card — over a
+copy of the rays' state, written back after it, and one read of the
+suspended and missed flags to route the rays to their queues.  Fresh and
+resumed rays walk in separate batches, in queue order.
 """
 
 from __future__ import annotations
@@ -105,6 +112,11 @@ class RTUnit:
         # it
         self.queue_capacity = int(queue_capacity)
         self._next_id = 1  # 0 is invalid
+        # id -> row of the ids [_id_base, _next_id); -1 once terminated
+        self._id_base = 1
+        self._row_of = np.zeros(0, np.int64)
+        self._free = np.zeros(0, np.int64)  # rows freed by TERM
+        self._used = 0  # rows [0, _used) were handed out at least once
         dev = wa.device
         self._o = torch.zeros((0, 3), dtype=torch.float32, device=dev)
         self._d = torch.zeros((0, 3), dtype=torch.float32, device=dev)
@@ -118,9 +130,9 @@ class RTUnit:
         self._bz = torch.zeros_like(self._dist)
         self._blas = torch.zeros(0, dtype=torch.int32, device=dev)
         self._tri = torch.zeros_like(self._blas)
+        # per row
         self._payload = np.zeros(0, np.int64)
         self._walked = np.zeros(0, bool)    # has a walk state
-        self._alive = np.zeros(0, bool)     # allocated and not terminated
         self._has_pend = np.zeros(0, bool)  # suspended at a candidate
         self._queues: List[np.ndarray] = [_empty_ids()
                                           for _ in range(NUM_SHADER_TYPES)]
@@ -135,21 +147,63 @@ class RTUnit:
         self._queues[ty] = np.concatenate([self._queues[ty], ids[:room]])
         self._spill[ty] = np.concatenate([self._spill[ty], ids[room:]])
 
-    def _grow(self, n: int) -> None:
-        dev = self.wa.device
+    @property
+    def capacity(self) -> int:
+        """Rows of per-ray state held on the device."""
+        return int(self._dist.shape[0])
 
-        def more(a: torch.Tensor) -> torch.Tensor:
-            return torch.cat([a, a.new_zeros((n, *a.shape[1:]))])
+    def _reserve(self, n: int) -> None:
+        """Make room for ``n`` rows beyond those ever handed out: double
+        the capacity (or more, to what is needed), copying once."""
+        cap = self.capacity
+        need = self._used + n
+        if need <= cap:
+            return
+        new_cap = max(need, 2 * cap)
 
+        def more(a: torch.Tensor, fill=0) -> torch.Tensor:
+            out = a.new_full((new_cap, *a.shape[1:]), fill)
+            out[:cap] = a
+            return out
+
+        self._o, self._d = more(self._o), more(self._d)
         self._state = WideState(*(more(a) for a in self._state))
-        self._dist = torch.cat([self._dist, torch.full(
-            (n,), LARGE_FLOAT, dtype=torch.float32, device=dev)])
+        self._dist = more(self._dist, LARGE_FLOAT)
         self._bx, self._by, self._bz = (more(a) for a in (self._bx, self._by,
                                                           self._bz))
         self._blas, self._tri = more(self._blas), more(self._tri)
-        self._walked = np.concatenate([self._walked, np.zeros(n, bool)])
-        self._alive = np.concatenate([self._alive, np.ones(n, bool)])
-        self._has_pend = np.concatenate([self._has_pend, np.zeros(n, bool)])
+        pad = new_cap - cap
+        self._payload = np.concatenate([self._payload,
+                                        np.zeros(pad, np.int64)])
+        self._walked = np.concatenate([self._walked, np.zeros(pad, bool)])
+        self._has_pend = np.concatenate([self._has_pend,
+                                         np.zeros(pad, bool)])
+
+    def _alloc(self, n: int) -> np.ndarray:
+        """``n`` rows for new rays: freed rows first, then fresh ones.  A
+        reused row's walk state and hit are reset to a fresh row's."""
+        k = min(n, len(self._free))
+        reused, self._free = self._free[:k], self._free[k:]
+        self._reserve(n - k)
+        fresh = np.arange(self._used, self._used + n - k, dtype=np.int64)
+        self._used += n - k
+        if k:
+            idx = torch.as_tensor(reused, device=self.wa.device)
+            for f in self._state:
+                f[idx] = 0
+            self._dist[idx] = LARGE_FLOAT
+            for a in (self._bx, self._by, self._bz, self._blas, self._tri):
+                a[idx] = 0
+        return np.concatenate([reused, fresh])
+
+    def _rows(self, ids: np.ndarray) -> np.ndarray:
+        """Row of each id; -1 for an id that was terminated or never
+        allocated."""
+        k = ids - self._id_base
+        ok = (k >= 0) & (ids < self._next_id)
+        rows = np.full(ids.shape, -1, np.int64)
+        rows[ok] = self._row_of[k[ok]]
+        return rows
 
     # ---- traceRay ----
 
@@ -166,11 +220,14 @@ class RTUnit:
             payload_addr = np.zeros(n, np.int64)
         ids = np.arange(self._next_id, self._next_id + n, dtype=np.int64)
         self._next_id += n
-        self._o = torch.cat([self._o, o])
-        self._d = torch.cat([self._d, d])
-        self._payload = np.concatenate(
-            [self._payload, np.asarray(payload_addr, np.int64).reshape(n)])
-        self._grow(n)
+        rows = self._alloc(n)
+        self._row_of = np.concatenate([self._row_of, rows])
+        idx = torch.as_tensor(rows, device=dev)
+        self._o[idx] = o
+        self._d[idx] = d
+        self._payload[rows] = np.asarray(payload_addr, np.int64).reshape(n)
+        self._walked[rows] = False
+        self._has_pend[rows] = False
         self._pending_trace.append(ids)
         return ids.astype(np.uint32)
 
@@ -181,11 +238,11 @@ class RTUnit:
             return
         pend = np.concatenate(self._pending_trace)
         self._pending_trace = []
-        pend = pend[self._alive[pend - 1]]  # (terminated since queued)
+        pend = pend[self._rows(pend) >= 0]  # (terminated since queued)
         if not len(pend):
             return
         # fresh and resumed rays walk in separate batches
-        walked = self._walked[pend - 1]
+        walked = self._walked[self._rows(pend)]
         fresh, resumed = pend[~walked], pend[walked]
         if len(fresh) and len(resumed):
             self._run_batch(fresh, False)
@@ -196,7 +253,8 @@ class RTUnit:
     def _run_batch(self, ids: np.ndarray, resume: bool) -> None:
         if not len(ids):
             return
-        idx = torch.as_tensor(ids - 1, device=self.wa.device)
+        rows = self._rows(ids)
+        idx = torch.as_tensor(rows, device=self.wa.device)
         o, d = self._o[idx], self._d[idx]
         lanes = tuple(a[:, k].contiguous() for a in (o, d) for k in range(3))
         state = (WideState(*(f[idx] for f in self._state)) if resume
@@ -211,10 +269,10 @@ class RTUnit:
         self._bz[idx] = hits.bz
         self._blas[idx] = hits.inst
         self._tri[idx] = hits.tri
-        self._walked[ids - 1] = True
+        self._walked[rows] = True
         sus, miss = torch.stack([st.suspended,
                                  hits.dist >= LARGE_FLOAT]).cpu().numpy()
-        self._has_pend[ids - 1] = sus
+        self._has_pend[rows] = sus
         ty = np.where(sus, SHADER_ANY,
                       np.where(miss, SHADER_MISS, SHADER_CLOSEST))
         for t in (SHADER_MISS, SHADER_CLOSEST, SHADER_ANY):
@@ -252,11 +310,9 @@ class RTUnit:
         suspended at one, else its walk's hit.  Hit distances and
         barycentrics come back as float64 and ids as int64, as the JAX
         facade's; a terminated or unknown id raises KeyError."""
-        ids = self._ids(ray_ids)
-        known = (ids >= 1) & (ids < self._next_id)
-        if not known.all() or not self._alive[ids - 1].all():
+        k = self._rows(self._ids(ray_ids))
+        if (k < 0).any():
             raise KeyError("get_attr of an unknown or terminated ray id")
-        k = ids - 1
         if attr == VX_RT_RAY_PAYLOAD_ADDR:
             return self._payload[k]
         idx = torch.as_tensor(k, device=self.wa.device)
@@ -294,31 +350,42 @@ class RTUnit:
         them to resume.  Unknown and terminated ids are skipped."""
         act = _COMMIT_MAP.get(action, action)
         ids = self._ids(ray_ids)
-        ids = ids[(ids >= 1) & (ids < self._next_id)]
-        ids = ids[self._alive[ids - 1]]
+        rows = self._rows(ids)
+        ids, rows = ids[rows >= 0], rows[rows >= 0]
         if not len(ids):
             return
         if act == COMMIT_TERM:
-            self._alive[ids - 1] = False  # free all per-ray state
+            self._terminate(ids, rows)  # free all per-ray state
             return
         dev = self.wa.device
-        idx = torch.as_tensor(ids - 1, device=dev)
-        rows = WideState(*(f[idx] for f in self._state))
-        new = _commit_state(rows, torch.full((len(ids),), act,
-                                             dtype=torch.int32, device=dev))
+        idx = torch.as_tensor(rows, device=dev)
+        old = WideState(*(f[idx] for f in self._state))
+        new = _commit_state(old, torch.full((len(ids),), act,
+                                            dtype=torch.int32, device=dev))
         if act == COMMIT_ACCEPT:
-            pend = torch.as_tensor(self._has_pend[ids - 1], device=dev)
-            for rec, p in ((self._dist, rows.pend_t), (self._bx, rows.pend_bx),
-                           (self._by, rows.pend_by),
-                           (self._blas, rows.pend_inst),
-                           (self._tri, rows.pend_tri)):
+            pend = torch.as_tensor(self._has_pend[rows], device=dev)
+            for rec, p in ((self._dist, old.pend_t), (self._bx, old.pend_bx),
+                           (self._by, old.pend_by),
+                           (self._blas, old.pend_inst),
+                           (self._tri, old.pend_tri)):
                 rec[idx] = torch.where(pend, p, rec[idx])
         for f, v in zip(self._state, new):
             f[idx] = v
-        self._has_pend[ids - 1] = False
+        self._has_pend[rows] = False
         self._pending_trace.append(ids)  # resume the walk
+
+    def _terminate(self, ids: np.ndarray, rows: np.ndarray) -> None:
+        """Free the rows of live ``ids`` (an id given twice is freed once)
+        and drop the id table's prefix of terminated ids."""
+        self._row_of[ids - self._id_base] = -1
+        self._free = np.concatenate([self._free, np.unique(rows)])
+        live = np.flatnonzero(self._row_of >= 0)
+        cut = int(live[0]) if len(live) else len(self._row_of)
+        if cut:
+            self._row_of = self._row_of[cut:].copy()
+            self._id_base += cut
 
     # ---- convenience ----
 
     def active_rays(self) -> int:
-        return int(self._alive.sum())
+        return int((self._row_of >= 0).sum())

@@ -76,7 +76,13 @@ port adds none.
 else (``render_burst``'s frames, ``render_accum`` and the statistics
 frames sample texels by point; ``render_burst``'s image is ``render``'s).
 
-Not ported yet, and refused rather than ignored: multi-device rendering.
+``frame_body(n_pix=, pix_offset=)`` renders a block of rows of the frame
+with the frame's global pixel ids, the block one device renders in
+``parallel.tiles`` and ``parallel.shards``; a ``walk`` given to it may
+combine its hits across devices (``parallel.shards``).
+``render_wavefront``, ``render_frame`` and ``render_burst`` are the JAX
+package's functional entry points over the whole frame, and
+``tile_pixel_perm`` its table of the tile-major lane order.
 """
 
 from __future__ import annotations
@@ -112,10 +118,27 @@ from vortex_rt_tpu_torch.utils.trace import Tracer, maybe_span
 _U32 = 0xFFFFFFFF
 
 
-def _tile_pixel_ids(q: torch.Tensor, width: int, tile_w: int, tile_h: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def tile_pixel_perm(width: int, height: int, tile_w: int = 16,
+                    tile_h: int = 8) -> Optional[np.ndarray]:
+    """Lane -> image pixel id of the tile-major lane order, as an (H*W,)
+    int32 table (the JAX package's ``tile_pixel_perm``); None when the
+    frame does not divide into tiles.  The frame computes the same
+    mapping per lane (``_tile_pixel_ids``); the table is for tests and
+    host-side tools."""
+    if width % tile_w or height % tile_h:
+        return None
+    ty, tx = np.meshgrid(np.arange(height // tile_h),
+                         np.arange(width // tile_w), indexing="ij")
+    py, px = np.meshgrid(np.arange(tile_h), np.arange(tile_w), indexing="ij")
+    yy = ty[:, :, None, None] * tile_h + py[None, None]
+    xx = tx[:, :, None, None] * tile_w + px[None, None]
+    return (yy * width + xx).reshape(-1).astype(np.int32)
+
+
+def _tile_pixel_ids(q: torch.Tensor, width: int, tile_w: int, tile_h: int,
+                    row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Tile-major lane index ``q`` -> (px, py) image coordinates, pure
-    integer arithmetic."""
+    integer arithmetic; ``row0`` is the first image row of the block."""
     lane_n = tile_w * tile_h
     t = q // lane_n
     l = q % lane_n
@@ -123,7 +146,7 @@ def _tile_pixel_ids(q: torch.Tensor, width: int, tile_w: int, tile_h: int
     tx = t % ntx
     ty = t // ntx
     px = tx * tile_w + l % tile_w
-    py = ty * tile_h + l // tile_w
+    py = row0 + ty * tile_h + l // tile_w
     return px, py
 
 
@@ -453,11 +476,17 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
                collect_stats: bool = False,
                stage_limit: Optional[int] = None,
                total_spp: Optional[int] = None, packet: int = 256,
-               bilinear: bool = False):
-    """One frame -> ((3, H*W) radiance planes in row-major pixel order,
-    rays traced, walk steps), the counts as 0-dim int64 tensors on the
-    tables' device, and with ``collect_stats`` a fourth item, the
-    {wave: PacketStats} of the frame (summed over its sample passes).
+               bilinear: bool = False, n_pix: Optional[int] = None,
+               pix_offset: int = 0):
+    """One frame, or the block of ``n_pix`` pixels from pixel
+    ``pix_offset`` (the whole frame by default) -> ((3, n_pix) radiance
+    planes in row-major pixel order, rays traced, walk steps), the counts
+    as 0-dim int64 tensors on the tables' device, and with
+    ``collect_stats`` a fourth item, the {wave: PacketStats} of the frame
+    (summed over its sample passes).  A block keeps the frame's global
+    pixel ids, jitter, sampler streams and camera rows, so a block of
+    whole rows gives exactly the whole frame's pixels there (a block that
+    is not whole rows takes the row-major lane order).
     ``walk`` defaults to ``default_walk(wa)`` (with ``collect_stats`` it
     must take ``stats=True``, as ``trace_packets`` and
     ``trace_packets_walk`` do).  ``stage_limit`` stops each pass after
@@ -479,28 +508,26 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
         max_depth=max_depth)
 
     total_spp = spp if total_spp is None else total_spp
-    n_pix = width * height
-    rows = height
-    # adaptive tile height: fall back through 8/4/2 so odd frame heights
+    n_pix = width * height if n_pix is None else int(n_pix)
+    rows = n_pix // width
+    whole_rows = n_pix % width == 0 and pix_offset % width == 0
+    # adaptive tile height: fall back through 8/4/2 so odd block heights
     # (1080) still get the tile-major lane order
-    if width % tile_w == 0:
+    if width % tile_w == 0 and whole_rows:
         for th in (tile_h, 8, 4, 2):
             if rows % th == 0:
                 tile_h = th
                 break
-    tiled = width % tile_w == 0 and rows % tile_h == 0
+    tiled = width % tile_w == 0 and whole_rows and rows % tile_h == 0
     opts = dict(bilinear=bilinear, stage_limit=stage_limit,
                 collect_stats=collect_stats)
     if route == "pool":
         return _pool_frame(wa, sa, ctx, table, cam, light, width, height,
                            max_depth, spp, seed, shadow, tile_w, tile_h,
-                           tiled, total_spp, opts)
+                           tiled, total_spp, opts, n_pix, pix_offset)
     lane = torch.arange(n_pix, dtype=torch.int64, device=dev)
-    if tiled:
-        pxi, pyi = _tile_pixel_ids(lane, width, tile_w, tile_h)
-        pix = pyi * width + pxi
-    else:
-        pxi, pyi, pix = lane % width, lane // width, lane
+    pxi, pyi, pix = _block_pixels(lane, width, tile_w, tile_h, tiled,
+                                  pix_offset)
     alive = torch.ones(n_pix, dtype=torch.bool, device=dev)
 
     acc = [torch.zeros(n_pix, dtype=torch.float32, device=dev)
@@ -534,27 +561,36 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
     return img, rays, steps
 
 
+def _block_pixels(q: torch.Tensor, width: int, tile_w: int, tile_h: int,
+                  tiled: bool, pix_offset: int):
+    """Block lane (pixel) index ``q`` -> (px, py, global pixel id):
+    tile-major from the block's first row, or row-major from
+    ``pix_offset``."""
+    if tiled:
+        pxi, pyi = _tile_pixel_ids(q, width, tile_w, tile_h,
+                                   pix_offset // width)
+        return pxi, pyi, pyi * width + pxi
+    p = pix_offset + q
+    return p % width, p // width, p
+
+
 def _pool_frame(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
                 table: ShaderTable, cam: CameraArrays, light: LightArrays,
                 width: int, height: int, max_depth: int, spp: int,
                 seed: int, shadow: bool, tile_w: int, tile_h: int,
-                tiled: bool, total_spp: int, opts: dict):
+                tiled: bool, total_spp: int, opts: dict, n_pix: int,
+                pix_offset: int):
     """The monolithic pool frame (the JAX ``frame_body``'s pool branch):
-    the ``spp`` samples of every pixel folded into one pool of lanes, a
-    pixel's samples adjacent, lane k's sample index ``seed * spp + k %
-    spp``; one bounce pipeline over the pool, every wave through the
-    per-ray walk; the samples averaged per pixel."""
+    the ``spp`` samples of every pixel of the block folded into one pool
+    of lanes, a pixel's samples adjacent, lane k's sample index ``seed *
+    spp + k % spp``; one bounce pipeline over the pool, every wave
+    through the per-ray walk; the samples averaged per pixel."""
     dev = wa.device
-    n_pix = width * height
     n_real = n_pix * spp
     lane = torch.arange(n_real, dtype=torch.int64, device=dev)
     samp = ((int(seed) & _U32) * spp + lane % spp) & _U32
-    q = lane // spp
-    if tiled:
-        pxi, pyi = _tile_pixel_ids(q, width, tile_w, tile_h)
-        pix = pyi * width + pxi
-    else:
-        pxi, pyi, pix = q % width, q // width, q
+    pxi, pyi, pix = _block_pixels(lane // spp, width, tile_w, tile_h, tiled,
+                                  pix_offset)
     lanes6 = _camera_from_pix(cam, width, height, pxi, pyi, pix, samp,
                               total_spp)
     alive = torch.ones(n_real, dtype=torch.bool, device=dev)
@@ -563,7 +599,7 @@ def _pool_frame(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
         shadow, None, pool=True, **opts)
     if tiled:
         img = torch.stack([
-            _resolve_tiled(c, width, height, tile_w, tile_h, spp)
+            _resolve_tiled(c, width, n_pix // width, tile_w, tile_h, spp)
             .reshape(n_pix) for c in (rr, rg, rb)])
     else:
         img = torch.stack([c.reshape(n_pix, spp).mean(1)
@@ -571,6 +607,59 @@ def _pool_frame(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
     if opts["collect_stats"]:
         return img, rays, steps, ws
     return img, rays, steps
+
+
+def render_wavefront(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
+                     light: LightArrays, width: int, height: int,
+                     max_depth: int = 2, spp: int = 1,
+                     table: Optional[ShaderTable] = None, seed: int = 0,
+                     packet: int = 256, shadow: bool = False,
+                     tile_w: int = 16, tile_h: int = 16,
+                     bilinear: bool = False,
+                     walk: Optional[Callable] = None):
+    """The whole frame -> ((H, W, 3) radiance, rays traced, walk steps),
+    on the tables' device; nothing here waits for it."""
+    img, rays, steps = frame_body(
+        wa, sa, cam, light, width, height, max_depth=max_depth, spp=spp,
+        table=table, seed=seed, shadow=shadow, tile_w=tile_w, tile_h=tile_h,
+        walk=walk, packet=packet, bilinear=bilinear)
+    return img.reshape(3, height, width).permute(1, 2, 0), rays, steps
+
+
+def render_frame(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
+                 light: LightArrays, width: int, height: int,
+                 max_depth: int = 2, spp: int = 1,
+                 table: Optional[ShaderTable] = None, seed: int = 0,
+                 packet: int = 256, tile_w: int = 16, tile_h: int = 16,
+                 shadow: bool = False, bilinear: bool = False,
+                 walk: Optional[Callable] = None):
+    """``render_wavefront`` under the JAX package's stable name."""
+    return render_wavefront(
+        wa, sa, cam, light, width, height, max_depth=max_depth, spp=spp,
+        table=table, seed=seed, packet=packet, shadow=shadow, tile_w=tile_w,
+        tile_h=tile_h, bilinear=bilinear, walk=walk)
+
+
+def render_burst(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
+                 light: LightArrays, width: int, height: int,
+                 n_frames: int = 16, seed0: int = 0, max_depth: int = 2,
+                 spp: int = 1, table: Optional[ShaderTable] = None,
+                 packet: int = 256, shadow: bool = False, tile_w: int = 16,
+                 tile_h: int = 16, walk: Optional[Callable] = None
+                 ) -> torch.Tensor:
+    """``n_frames`` frames (seeds ``seed0``..) -> the exact total of rays
+    traced, a 0-dim int64 tensor on the tables' device; no image.  The
+    JAX function also folds a zero made from the radiance into its count
+    so that XLA keeps the shading; PyTorch runs every operation it is
+    given, so the port adds none.  Nothing here waits for the device."""
+    total = torch.zeros((), dtype=torch.int64, device=wa.device)
+    for i in range(n_frames):
+        _, rays, _ = frame_body(
+            wa, sa, cam, light, width, height, max_depth=max_depth, spp=spp,
+            table=table, seed=seed0 + i, shadow=shadow, tile_w=tile_w,
+            tile_h=tile_h, walk=walk, packet=packet)
+        total = total + rays
+    return total
 
 
 def render_accum(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
@@ -786,8 +875,10 @@ class WavefrontRenderer:
         route runs (``frame_body``'s routing) raise here."""
         if isinstance(device, (list, tuple)):
             raise NotImplementedError(
-                "multi-device rendering is not ported yet (ROADMAP Queue "
-                "1, item 11)")
+                "a renderer lives on one device, as the JAX class does: "
+                "render over several devices with parallel.tiles (image row "
+                "blocks: render_tiled_wavefront) or parallel.shards (scene "
+                "shards: render_sharded), one process per device")
         device = torch.device(device)
         cfg = config or RTConfig()
         table = table or ShaderTable()
@@ -1023,11 +1114,14 @@ class WavefrontRenderer:
         end."""
         w = width or self.config.width
         h = height or self.config.height
-        total = torch.zeros((), dtype=torch.int64, device=self.device)
-        for i in range(n_frames):
-            _, rays, _ = self._frame(cam, params, w, h, seed0 + i)
-            total = total + rays
-        n = int(total.item())
+        n = int(render_burst(
+            self.wa, self.sa, CameraArrays.from_camera(cam, self.device),
+            LightArrays.from_params(params, self.device), w, h,
+            n_frames=n_frames, seed0=seed0, max_depth=params.max_depth,
+            spp=params.spp, table=self._table_for(params),
+            packet=self.config.packet_size, shadow=params.shadow,
+            tile_w=self.config.tile_w, tile_h=self.config.tile_h,
+            walk=self.walk).item())
         if rays_only:
             return n
         return self.render(cam, params, w, h)[0], n

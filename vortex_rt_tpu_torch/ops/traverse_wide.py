@@ -153,6 +153,55 @@ class WideArrays:
             self, fused=fuse_rows(self.nodes, self.tri_rows, self.width,
                                   self.alpha_rows))
 
+    # ---- host-side unpacked views of the node rows (tests, debugging),
+    # the JAX package's, as NumPy arrays of the same dtypes ----
+    def _words(self) -> np.ndarray:
+        """(N, 32) the node rows' words as uint32 on the host."""
+        return self.nodes.cpu().numpy().view(np.uint32)
+
+    @property
+    def kind(self) -> np.ndarray:
+        meta = self._words()[:, row_layout(self.width)[2]]
+        return (meta >> 29).astype(np.int32)
+
+    @property
+    def nchild(self) -> np.ndarray:
+        meta = self._words()[:, row_layout(self.width)[2]]
+        mask = 7 if self.width == 4 else 15
+        return ((meta >> left_bits(self.width)) & mask).astype(np.int32)
+
+    @property
+    def left_first(self) -> np.ndarray:
+        meta = self._words()[:, row_layout(self.width)[2]]
+        return (meta & ((1 << left_bits(self.width)) - 1)).astype(np.int32)
+
+    @property
+    def leaf_data(self) -> np.ndarray:
+        return self._words()[:, row_layout(self.width)[3]].view(np.int32)
+
+    @property
+    def origin(self) -> np.ndarray:
+        return np.ascontiguousarray(self._words()[:, 0:3]).view(np.float32)
+
+    @property
+    def scale(self) -> np.ndarray:
+        return np.ascontiguousarray(self._words()[:, 3:6]).view(np.float32)
+
+    def _quant(self, lo: int, hi: int) -> np.ndarray:
+        q = self._words()[:, lo:hi]
+        return np.stack([(q >> s) & 255 for s in (0, 8, 16)], axis=-1
+                        ).reshape(-1, self.width * 3).astype(np.uint8)
+
+    @property
+    def qlo(self) -> np.ndarray:
+        qoff, hoff = row_layout(self.width)[:2]
+        return self._quant(qoff, hoff)
+
+    @property
+    def qhi(self) -> np.ndarray:
+        _, hoff, moff = row_layout(self.width)[:3]
+        return self._quant(hoff, moff)
+
     @property
     def leaf_tids(self) -> np.ndarray:
         """(L, slots) global triangle id of each leaf slot (-1 = empty;

@@ -234,7 +234,11 @@ def _build(src_path: Path) -> Tuple[Path, float, str]:
             raise RuntimeError(
                 f"nvcc failed building {src_path} "
                 f"(rc {proc.returncode}):\n{log}")
-        log_path.write_text(log)
+        # (ranks that build at once each write their own files and
+        # replace the shared ones whole: a reader never sees half a file)
+        tmp_log = log_path.with_name(f"{log_path.name}.{os.getpid()}.tmp")
+        tmp_log.write_text(log)
+        os.replace(tmp_log, log_path)
         os.replace(tmp, so)
     return so, seconds, log
 

@@ -4,8 +4,10 @@ Only the knobs this port reads are carried, and the reference's knobs
 the JAX package carries as fields without a reader of its own
 (``stack_size``, ``max_trail``, ``epsilon``, ``t_max``): they are kept so
 that ``as_dict`` and ``from_overrides`` take the same names, and wired
-nowhere the JAX package does not wire them.  ``mesh_axes`` waits for
-multi-device rendering (ROADMAP Queue 1, item 11).  ``packet_size`` is carried
+nowhere the JAX package does not wire them.  ``mesh_axes`` is such a
+field too: multi-device rendering takes its axes from the mesh it is
+given (``parallel.tiles`` for image row blocks, ``parallel.shards`` for
+scene shards, on ``torch.distributed``).  ``packet_size`` is carried
 with one meaning of the JAX knob only: 0 selects the per-ray engine (the
 pool path: ``ops/traverse_wide.trace_lanes``, K3, with any-hit
 suspension), and any other value keeps the default route (K1 or K2 over
@@ -22,7 +24,7 @@ builds (the JAX default).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 # Sentinel "no hit" distance (the reference's LARGE_FLOAT).
 LARGE_FLOAT = 1e30
@@ -74,6 +76,9 @@ class RTConfig:
     # ---- numerics (no reader in the engine, as in the JAX package) ----
     epsilon: float = MT_EPSILON
     t_max: float = LARGE_FLOAT
+
+    # ---- multi-device (no reader, as in the JAX package) ----
+    mesh_axes: Tuple[str, ...] = ("tiles",)
 
     def __post_init__(self):
         if self.bvh_width == 0:
