@@ -284,6 +284,34 @@ and so exits non-zero, on failure):
     gloo moved through host memory for the CUDA tensors printed (gloo
     runs each collective on them itself: nothing is staged by the port,
     ``tools/gloo_cuda_probe.py``);
+19a. the stateless any-hit predicate of row 6 (``bench_ladder.
+    checker_pred``, a uv checker that also drops near-black surfaces)
+    compiled by ``ops/anyhit_pred.py`` into a CUDA header: its hash and
+    operations; K1's and K2's sources built with it (``kernels.load_pred``,
+    both nvcc started together), nvcc's seconds and the predicate
+    entries' ptxas lines beside the default libraries' (which build as
+    before: their own lines are phase 2's); a second load builds nothing;
+19b. K1's and K2's predicate modes against their plain versions (which
+    call the predicate on tensors) on a 1-in-31 crop of row 6's 1080p
+    camera rays, their shadow rays and (K1) the mixed ``occl_split``
+    wave of both: every hit field and per-ray step equal to the bit;
+    then each whole 512x512 wave (primary, shadow; K1 also mixed) through
+    the bare launch, held to the bit against the plain walk of the same
+    wave, and timed by CUDA events in predicate mode, in alpha mode and
+    without any-hit on the same rays, beside the predicate mode's bound
+    (``walk_bounds``, the predicate's operations added to each test) and
+    the plain walk's time;
+19c. ladder row 6's scene with ``stateless_anyhit(checker_pred)``, launch
+    counts reset before and read after: the 512x512 and 1080p frames
+    through K1's predicate mode (8 ``traverse_packet_pred`` launches a
+    frame), then, after a warm-up, one 512x512 frame on the 4-wide TLAS
+    build through K2's (8 ``packet_walk_pred`` launches); ms a frame,
+    rays; no K3 launch; both 512x512 frames against the suspension
+    engine's (K3, the shader's callable) and K1's 1080p frame against
+    K2's: equal rays, images within 2e-6;
+19d. the 192x192 parity frame against the suspension engine
+    (``packet_size=0``, K3 running the same shader's callable by rounds):
+    the same rays and an image within 2e-6;
 16. prints the kernels' JSON line (per kernel: launches on its main-path
     run and per frame, K1's being config 4's frame with the other paths'
     counts beside it, the LBVH kernels' being row 5's run, the PLOC
@@ -305,7 +333,10 @@ and so exits non-zero, on failure):
     ``traverse_packet_stats`` and ``packet_walk_stats`` the counting
     instantiations' launches on the CLI's and ``perf_trace``'s paths,
     their time on the CLI's config-2 primary wave beside the default
-    instantiation's) and, last, the device JSON line.
+    instantiation's; ``traverse_packet_pred`` and ``packet_walk_pred``
+    the predicate modes' launches on 19c's frames, their time on row 6's
+    512x512 primary wave, the alpha mode's and the walk's without any-hit
+    beside) and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -363,6 +394,11 @@ SOURCES = {
                               "vortex_rt_tpu/ops/traverse_packet.py:1181"),
     "packet_walk_stats": ("vortex_rt_tpu_torch/csrc/packet_walk.cu",
                           "vortex_rt_tpu/ops/traverse_packet.py:1181"),
+    # the predicate modes of K1 and K2: the JAX in-loop anyhit_pred
+    "traverse_packet_pred": ("vortex_rt_tpu_torch/csrc/traverse_packet.cu",
+                             "vortex_rt_tpu/ops/traverse_packet.py:723"),
+    "packet_walk_pred": ("vortex_rt_tpu_torch/csrc/packet_walk.cu",
+                         "vortex_rt_tpu/ops/traverse_packet.py:1057"),
 }
 LBVH_KERNELS = ("lbvh_karras", "lbvh_collapse", "lbvh_refit", "lbvh_pack")
 PLOC_KERNELS = ("ploc_merge", "ploc_collapse", "ploc_refit", "ploc_pack")
@@ -2682,6 +2718,316 @@ def phase_chunked(device, r_tlas, cam, p, size: int = 128) -> dict:
     return dict(rays=rays, launches=launches, max_abs_err=err)
 
 
+# ------------------------------ stateless any-hit predicates (19a-19d)
+
+PRED_TOL = 2e-6   # the parity frame's bound (tests/test_anyhit_inline.py)
+
+
+def _same_hits(label: str, got, want, steps_got, steps_want) -> None:
+    """Every hit field and per-ray step of a kernel equal to the plain
+    version's, to the bit."""
+    import torch
+
+    for name, a, b in zip(("dist", "bx", "by", "bz", "tri", "inst",
+                           "steps"), (*got, steps_got), (*want, steps_want)):
+        _check(torch.equal(a, b), f"{label}: {name} differs from the plain "
+               f"version")
+    print(f"  {label}: rays {got.dist.numel()}, hits or occluded "
+          f"{int((got.dist < 1e30).sum())}: every field and step equal")
+
+
+def phase_pred_build(device) -> dict:
+    """19a: the predicate compiled and K1's and K2's variants built."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vortex_rt_tpu_torch.ops.anyhit_pred import compile_predicate
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import bench_ladder
+
+    pred = compile_predicate(bench_ladder.checker_pred)
+    print(f"  checker_pred: header {pred.header_name} ({pred.n_ops} "
+          f"operations: {', '.join(pred.ops)})")
+    names = ("traverse_packet", "packet_walk")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futures = {n: pool.submit(kernels.load_pred, n, pred) for n in names}
+        libs = {n: f.result() for n, f in futures.items()}
+    rebuilt = {}
+    for n, lib in libs.items():
+        print(f"  {lib.path.name}: nvcc {lib.build_seconds:.2f} s at first "
+              f"use; ptxas: " + "; ".join(
+                  line.split("ptxas info    : ")[-1].strip()
+                  for line in lib.build_log.splitlines()
+                  if "registers" in line or "spill" in line))
+        # a second use: the process's library, and without it the build
+        # on disk (no nvcc)
+        _check(kernels.load_pred(n, pred) is lib,
+               f"{n}: a second load_pred loaded again")
+        kernels._loaded.pop(f"{n}+pred-{pred.digest}")
+        again = kernels.load_pred(n, pred)
+        rebuilt[n] = again.build_seconds
+        _check(again.build_seconds == 0.0 and again.path == lib.path,
+               f"{n}: the predicate variant was built twice")
+    print(f"  second use: nvcc seconds {rebuilt} (0: the builds were reused)")
+    return dict(pred=pred, digest=pred.digest, n_ops=pred.n_ops,
+                build_s={n: lib.build_seconds for n, lib in libs.items()})
+
+
+def phase_pred_walks(device, r_flat, r_tlas, plain_wa, cam6, pred,
+                     size: int = 512, reps: int = 20) -> dict:
+    """19b: K1's and K2's predicate modes against their plain versions (to
+    the bit) on a crop of row 6's 1080p waves through the wrappers, then on
+    each whole 512x512 wave through the bare launch it times (in predicate
+    mode, alpha mode and without any-hit, beside the bound)."""
+    import torch
+
+    from vortex_rt_tpu_torch.ops import packet_walk as pw
+    from vortex_rt_tpu_torch.ops import traverse_packet as tp
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
+    from vortex_rt_tpu_torch.tools.bench_ladder import ALPHA6, LIGHT6
+    from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT
+
+    def waves(wa, walk, o, d, mixed: bool):
+        """(mode, o, d, kwargs): camera rays, the shadow rays from their
+        predicate-mode hits, and (``mixed``) both in one occl_split wave."""
+        base, _ = walk(wa, o, d, anyhit_pred=pred)
+        hit = base.dist < LARGE_FLOAT
+        light = torch.tensor(LIGHT6, dtype=torch.float32, device=device)
+        hp = o + d * base.dist.clamp_max(1e18).unsqueeze(1)
+        sl = light - hp
+        dist_l = torch.sqrt((sl * sl).sum(1) + 1e-20)
+        sd = sl / dist_l.unsqueeze(1)
+        so, clamp = hp + sd * 1e-3, dist_l * (1.0 - 1e-3)
+        out = [("primary", o, d, {}),
+               ("shadow", so, sd, dict(active=hit, t_max=clamp,
+                                       occlusion=True))]
+        if mixed:
+            out.append(("mixed", torch.cat([so, o]), torch.cat([sd, d]),
+                        dict(active=torch.cat([hit, torch.ones_like(hit)]),
+                             t_max=torch.cat([clamp, torch.full_like(
+                                 clamp, LARGE_FLOAT)]),
+                             occl_split=o.shape[0])))
+        return out
+
+    oh, dh = camera_rays(cam6, 1920, 1080, device)
+    oh, dh = oh[::31].contiguous(), dh[::31].contiguous()
+    o, d = camera_rays(cam6, size, size, device)
+    rec = {}
+    for name, r, walk, ref, work_fn, mod in (
+            ("traverse_packet_pred", r_flat, tp.trace_packets,
+             tp.trace_packets_ref, tp.walk_work, tp),
+            ("packet_walk_pred", r_tlas, pw.trace_packets_walk,
+             pw.trace_packets_walk_ref, pw.walk_work_4, pw)):
+        k1 = mod is tp
+        for mode, co, cd, kw in waves(r.wa, walk, oh, dh, k1):
+            k, ks = walk(r.wa, co, cd, anyhit_pred=pred, **kw)
+            _sync(device)
+            pp, ps = ref(r.wa, co, cd, anyhit_pred=pred, **kw)
+            _same_hits(f"{name} {mode} (1080p crop)", k, pp, ks, ps)
+        if device.type != "cuda":  # (a CPU rehearsal has no device time)
+            rec[name] = dict(max_abs_err=0.0)
+            continue
+        none_wa = plain_wa if k1 else r.wa
+        out, got = {}, {}
+        for mode, co, cd, kw in waves(r.wa, walk, o, d, k1):
+            calls = {
+                "pred": mod.kernel_call(r.wa, co, cd, anyhit_pred=pred, **kw),
+                "alpha": mod.kernel_call(r.wa, co, cd, alpha_ref=ALPHA6,
+                                         **kw),
+                "none": mod.kernel_call(none_wa, co, cd, **kw)}
+            got[mode] = calls["pred"]()
+            _sync(device)
+            # the plain walk of the whole wave, counting its work
+            want, steps, work = work_fn(r.wa, co, cd, anyhit_pred=pred, **kw)
+            _same_hits(f"{name} {mode} {size}x{size}", got[mode][0], want,
+                       got[mode][1], steps)
+            del want
+            ms = {n: [] for n in calls}
+            for n in [*calls, *reversed(list(calls))]:  # in turns
+                ms[n].append(_device_ms(calls[n], reps))
+            ms = {n: sum(v) / len(v) for n, v in ms.items()}
+            b = (wb.k1_bound(work, lookups=False, pred_ops=pred.n_ops) if k1
+                 else wb.k2_bound(work, pred_ops=pred.n_ops))
+            out[mode] = dict(ms=ms["pred"], alpha_ms=ms["alpha"],
+                             no_anyhit_ms=ms["none"], bound_ms=b.ms,
+                             bound_by=b.bound_by,
+                             pred_tests=int(work.alpha_tests.sum()),
+                             mean_steps=float(steps.float().mean()))
+            print(f"  {name} {mode} {size}x{size} ({co.shape[0]} rays): "
+                  f"predicate {ms['pred']:.4f} ms, alpha {ms['alpha']:.4f} "
+                  f"ms, without any-hit {ms['none']:.4f} ms (events, mean "
+                  f"of {reps} launches, in turns); bound {b.ms:.4f} ms "
+                  f"({b.bound_by}) = {b.ms / ms['pred']:.1%}; "
+                  f"{out[mode]['pred_tests']} predicate tests, steps mean "
+                  f"{out[mode]['mean_steps']:.3f}")
+        _sync(device)
+        t0 = time.perf_counter()
+        want, steps = ref(r.wa, o, d, anyhit_pred=pred)
+        _sync(device)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        _same_hits(f"{name} primary {size}x{size} (the plain version)",
+                   got["primary"][0], want, got["primary"][1], steps)
+        del got, want, steps
+        prim = out["primary"]
+        rec[name] = dict(max_abs_err=0.0, ms=prim["ms"], plain_ms=plain_ms,
+                         bound_ms=prim["bound_ms"], bound_by=prim["bound_by"],
+                         alpha_ms=prim["alpha_ms"],
+                         no_anyhit_ms=prim["no_anyhit_ms"],
+                         pred_tests=prim["pred_tests"],
+                         other_waves={k: v for k, v in out.items()
+                                      if k != "primary"})
+        print(f"  {name}: the plain walk's primary wave {plain_ms:.2f} ms")
+    return rec
+
+
+def phase_pred_frames(device, r_flat, r_tlas, r_pool, cam, p,
+                      res=(512, 512), res_hd=(1920, 1080)) -> dict:
+    """19c: row 6's scene with the checker predicate through K1's
+    predicate mode (512x512 and 1080p) and K2's (the TLAS build), launch
+    counts reset before and read after each: ms a frame, rays, launches,
+    no K3.  The 512x512 frames of both against the suspension engine's
+    (``r_pool``: K3 running the shader's callable), the 1080p frame of K1
+    against K2's: equal rays, images within ``PRED_TOL``."""
+    import numpy as np
+
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import bench_ladder
+
+    def err(a, b) -> float:
+        return float(np.abs(a - b).max())
+
+    cuda = device.type == "cuda"
+    frames = 6  # bench_frames: a warm-up and two timed frames a size
+    kernels.reset_launches()
+    rec = dict(bench_ladder.bench_frames(r_flat, cam, p, *res))
+    hd = bench_ladder.bench_frames(r_flat, cam, p, *res_hd)
+    _sync(device)
+    k1 = dict(kernels.LAUNCHES)
+    _check(not cuda or k1["traverse_packet_pred"] == 8 * frames,
+           f"row 6 with the predicate launched K1's predicate mode "
+           f"{k1['traverse_packet_pred']} times for {frames} frames")
+    _check(k1["traverse_wide"] == 0 and k1["traverse_packet"] == 0
+           and k1["traverse_packet_alpha"] == 0,
+           f"the predicate frames launched other walks: {k1}")
+    w, h = res
+    img, rays = r_flat.render(cam, p, w, h)
+    _check(img.shape == (h, w, 3) and np.isfinite(img).all()
+           and rays >= w * h * p.spp, "the predicate frame is not finite")
+    img_s, rays_s = r_pool.render(cam, p, w, h)
+    err_s = err(img, img_s)
+    _check(rays == rays_s and err_s <= PRED_TOL,
+           f"the {w}x{h} predicate frame through K1: {rays} rays, the "
+           f"suspension engine's {rays_s}; max abs err {err_s}")
+    r_tlas.render(cam, p, 64, 64)  # warm-up
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    img4, rays4 = r_tlas.render(cam, p, w, h)
+    ms4 = (time.perf_counter() - t0) * 1e3
+    k2 = dict(kernels.LAUNCHES)
+    _check(not cuda or (k2["packet_walk_pred"] == 8
+                        and k2["traverse_wide"] == 0
+                        and k2["traverse_packet_pred"] == 0),
+           f"the 4-wide predicate frame launched {k2}")
+    err4 = err(img4, img_s)
+    off = int((np.abs(img4 - img).max(-1) > IMG_ATOL).sum())
+    _check(rays4 == rays and np.isfinite(img4).all() and err4 <= PRED_TOL
+           and off == 0,
+           f"the 4-wide predicate frame traced {rays4} rays (8-wide {rays}),"
+           f" max abs err {err4} against the suspension engine's, {off} "
+           f"pixels off the 8-wide frame")
+    img_hd, rays_hd = r_flat.render(cam, p, *res_hd)
+    img4_hd, rays4_hd = r_tlas.render(cam, p, *res_hd)
+    err_hd = err(img_hd, img4_hd)
+    _check(rays_hd == rays4_hd and np.isfinite(img_hd).all()
+           and np.isfinite(img4_hd).all() and err_hd <= PRED_TOL,
+           f"the 1080p predicate frames: K1 {rays_hd} rays, K2 {rays4_hd}; "
+           f"max abs err {err_hd}")
+    rec.update(res_hd=f"{res_hd[0]}x{res_hd[1]}",
+               rays_per_frame_hd=hd["rays_per_frame"], mrays_hd=hd["mrays"],
+               ms_per_frame_hd=hd["ms_per_frame"],
+               k1_pred_launches=k1["traverse_packet_pred"],
+               k1_pred_launches_per_frame=k1["traverse_packet_pred"]
+               // frames, k2_pred_launches=k2["packet_walk_pred"],
+               k3_launches=k1["traverse_wide"] + k2["traverse_wide"],
+               tlas_frame_ms=ms4, tlas_pixels_off=off,
+               max_abs_err_vs_suspension=err_s,
+               tlas_max_abs_err_vs_suspension=err4,
+               hd_max_abs_err_k1_vs_k2=err_hd)
+    print(f"  row 6 + checker predicate, K1: {rec['ms_per_frame']:.3f} ms a "
+          f"{w}x{h} frame ({rec['rays_per_frame']} rays, "
+          f"{rec['mrays']:.3f} Mrays/s), {rec['ms_per_frame_hd']:.3f} ms at "
+          f"1080p ({rec['rays_per_frame_hd']} rays, {rec['mrays_hd']:.3f} "
+          f"Mrays/s); traverse_packet_pred launches {k1['traverse_packet_pred']}"
+          f" for {frames} frames; K3 launches 0")
+    print(f"  {w}x{h} against the suspension engine (TLAS, packet_size=0): "
+          f"{rays} rays each, max abs err {err_s}")
+    print(f"  4-wide TLAS (K2): {ms4:.3f} ms a {w}x{h} frame, {rays4} rays; "
+          f"packet_walk_pred launches {k2['packet_walk_pred']}; max abs err "
+          f"{err4} against the suspension engine; {off} pixels differ from "
+          f"the 8-wide frame by more than {IMG_ATOL}")
+    print(f"  1080p: K1's frame against K2's, {rays_hd} rays each, max abs "
+          f"err {err_hd}")
+    return rec
+
+
+def phase_pred_parity(device, sc6, r_flat, cam, p, table, size: int = 192
+                      ) -> dict:
+    """19d: the parity frame against the suspension engine (K3 running the
+    shader's callable), launch counts reset before."""
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import bench_ladder
+
+    kernels.reset_launches()
+    rec = bench_ladder.parity6(sc6, r_flat, cam, p, table, size)
+    _sync(device)
+    launches = dict(kernels.LAUNCHES)
+    _check(device.type != "cuda"
+           or (launches["traverse_wide"] == rec["k3_launches"] > 0
+               and launches["traverse_packet_pred"] > 0),
+           f"the parity frames launched {launches}")
+    _check(rec["rays_parity"] == rec["rays_suspension"]
+           and rec["parity_max_abs"] <= PRED_TOL,
+           f"the predicate's parity frame: {json.dumps(rec)}")
+    print(f"  parity {size}x{size}: {json.dumps(rec)}")
+    return dict(rec, k1_launches=launches["traverse_packet_pred"])
+
+
+def phase_pred(device, sc6, sb6, sb6_tlas, cam6, p6) -> dict:
+    """19a-19d on row 6's scene, from its host builds (13c's)."""
+    import torch
+
+    from vortex_rt_tpu_torch import RTConfig, WavefrontRenderer
+    from vortex_rt_tpu_torch.engine.shaders import (
+        ShaderTable, stateless_anyhit,
+    )
+    from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays
+    from vortex_rt_tpu_torch.tools import bench_ladder
+
+    _phase("phase 19a the checker predicate compiled into K1 and K2")
+    built = phase_pred_build(device)
+    pred = built["pred"]
+    table = ShaderTable(anyhit=stateless_anyhit(bench_ladder.checker_pred,
+                                                "checker"))
+    r_flat = WavefrontRenderer.from_buffers(sb6, RTConfig(flatten=True),
+                                            table, device=device)
+    r_tlas = WavefrontRenderer.from_buffers(sb6_tlas, RTConfig(), table,
+                                            device=device)
+    r_pool = WavefrontRenderer.from_buffers(
+        sb6_tlas, RTConfig(packet_size=0), table, device=device)
+    plain_wa = WideArrays.from_scene(sb6, width=8).fuse().to(device)
+    _phase("phase 19b K1's and K2's predicate modes vs their plain versions "
+           "(row 6's waves)")
+    walks = phase_pred_walks(device, r_flat, r_tlas, plain_wa, cam6, pred)
+    del plain_wa
+    torch.cuda.empty_cache()
+    _phase("phase 19c row 6 with the checker predicate: 512x512 and 1080p "
+           "through K1, the 4-wide TLAS frame through K2")
+    frames = phase_pred_frames(device, r_flat, r_tlas, r_pool, cam6, p6)
+    _phase("phase 19d the predicate's parity frame against the suspension "
+           "engine (K3)")
+    parity = phase_pred_parity(device, sc6, r_flat, cam6, p6, table)
+    return dict(build=built, walks=walks, frames=frames, parity=parity)
+
+
 # ------------------------------------- the sweep-SAH tree (12d, 12e)
 
 SAH_KERNEL_NAMES = ("sweep_kernel",)
@@ -4098,6 +4444,7 @@ def main() -> int:
     _phase("phase 17b the CLI's --perf on the card: per-wave statistics "
            "through K1's and K2's counting instantiations")
     perf17 = phase_cli_perf(device, r6, r6_tlas, cam6)
+    sb6, sb6_tlas = r6.sb, r6_tlas.sb  # (host tables; phase 19's scene)
     del r6, r6_tlas
     _phase("phase 17c the CLI's --scope-out and frame_profile")
     scope17 = phase_cli_scope(device)
@@ -4107,6 +4454,8 @@ def main() -> int:
            "4-wide TLAS, 512x512)")
     rtu17 = phase_rtu(device, mk.pop("atrium_tlas"))
     md = phase_multi_device(device, blob_scene)
+    pred19 = phase_pred(device, sc6, sb6, sb6_tlas, cam6, p6)
+    del sb6, sb6_tlas
     _phase("phase 16 results")
     print(f"  summary: config2 {c2['mrays']:.3f} Mrays/s, scale "
           f"{sc['mrays']:.3f} Mrays/s, peak {sc['peak_bytes']} B; config 3 "
@@ -4333,6 +4682,43 @@ def main() -> int:
                          "default", "stats", "live")}
                          for k, v in perf17[key]["waves"].items()
                          if k != "trace0"}})
+    # the predicate modes of K1 and K2: launches on 19c's frames (K1's six
+    # row-6 frames, K2's TLAS frame), time on row 6's 512x512 primary wave
+    for name, launches, per_frame in (
+            ("traverse_packet_pred", pred19["frames"]["k1_pred_launches"],
+             pred19["frames"]["k1_pred_launches_per_frame"]),
+            ("packet_walk_pred", pred19["frames"]["k2_pred_launches"],
+             pred19["frames"]["k2_pred_launches"])):
+        res = pred19["walks"][name]
+        src, replaces = SOURCES[name]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches,
+                     "launches_per_frame": per_frame,
+                     "launches_by_path": (
+                         {"row6_pred": launches,
+                          "parity6_pred": pred19["parity"]["k1_launches"]}
+                         if name == "traverse_packet_pred" else
+                         {"row6_pred_tlas": launches}),
+                     "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                     "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                     "bound_by": res["bound_by"],
+                     "bound_share": res["bound_ms"] / res["ms"],
+                     # no one PyTorch call walks a BVH
+                     "library_ms": None, "ms_source": "cuda_events_launch",
+                     "alpha_ms": res["alpha_ms"],
+                     "no_anyhit_ms": res["no_anyhit_ms"],
+                     "pred_tests": res["pred_tests"],
+                     "pred_ops": pred19["build"]["n_ops"],
+                     "pred_digest": pred19["build"]["digest"],
+                     "nvcc_s": pred19["build"]["build_s"][
+                         name.rsplit("_", 1)[0]],
+                     "other_waves": res["other_waves"]})
+    print(f"  row 6 with the checker predicate: "
+          f"{pred19['frames']['ms_per_frame']:.3f} ms/frame at 512x512, "
+          f"{pred19['frames']['ms_per_frame_hd']:.3f} at 1080p (K1), TLAS "
+          f"{pred19['frames']['tlas_frame_ms']:.3f} ms (K2); parity max abs "
+          f"{pred19['parity']['parity_max_abs']:.3g}, "
+          f"{pred19['parity']['k3_launches']} K3 launches")
     print(f"  CLI: config 3 from an OBJ {cli3['frame_ms']:.3f} ms/frame "
           f"({cli3['mrays']:.3f} Mrays/s; the CLI's own reading "
           f"{cli3['cli_ms']:.1f} ms with its table build), OBJ load "

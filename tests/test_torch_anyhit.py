@@ -13,7 +13,7 @@ surfaces before an accepted hit).
 * 48x48 frames with shadows, depth 2, against the JAX frames (in
   process, atol 1e-5, equal ray counts): ``alpha_test_anyhit`` in the
   walk (8-wide flattened and 4-wide TLAS) and ``stateless_anyhit``
-  through the port's suspension engine (K3 on the TLAS build) against
+  through the port's suspension engine (``packet_size=0``, K3 on the TLAS build) against
   the JAX in-walk predicate; and the port's in-walk frame against its own
   suspension frame (``packet_size=0``) within 2e-6, the JAX test's bound.
 * ``render(mode="chunked")`` against the JAX chunked frame.
@@ -197,53 +197,33 @@ np.savez(sys.argv[1], **out)
 """
 
 
-@pytest.fixture(scope="module")
-def jax_walks(tmp_path_factory):
+@pytest.fixture(scope="module", autouse=True)
+def _jax_walks_started(tmp_path_factory):
+    """Starts the JAX walks' subprocess when the module's first test
+    starts (it runs beside the table and frame tests, which come first);
+    ``jax_walks`` waits for it."""
     path = tmp_path_factory.mktemp("alpha") / "jax_alpha.npz"
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_cpu_max_isa=AVX")
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-c", _JAX_WALKS, str(path),
          os.path.join(REPO, "tests")], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=900)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        yield proc, path
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def jax_walks(_jax_walks_started):
+    proc, path = _jax_walks_started
+    out, _ = proc.communicate(timeout=900)
+    assert proc.returncode == 0, out
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
-
-
-@pytest.mark.parametrize("case", WALKS)
-def test_alpha_walk_matches_jax(jax_walks, case):
-    """K1's (8-wide) and K2's (4-wide) plain alpha modes against the JAX
-    ``trace_packets(alpha_ref)``: every hit field to the bit; the cutout
-    rejects many candidates."""
-    ref = jax_walks
-    build, mode = case.split("/")
-    wa = bridge.wide_arrays(
-        ref[f"{build}/nodes"], ref[f"{build}/tri_rows"], device="cpu",
-        fused=ref.get(f"{build}/fused"),
-        alpha_rows=ref[f"{build}/alpha_rows"],
-        alpha_pool=ref[f"{build}/alpha_pool"],
-        **{k: int(ref[f"{build}/{k}"]) for k in (
-            "num_tlas", "max_leaf_tris", "depth", "tri_bits", "width")})
-    pre = f"{build}/{mode}/arg/"
-    kw = {k[len(pre):]: torch.from_numpy(v) for k, v in ref.items()
-          if k.startswith(pre)}
-    if mode == "occlusion":
-        kw["occlusion"] = True
-    if mode == "occl_split":
-        kw["occl_split"] = ref["o"].shape[0] // 2
-    walk = trace_packets_ref if wa.width == 8 else trace_packets_walk_ref
-    o, d = torch.from_numpy(ref["o"]), torch.from_numpy(ref["d"])
-    hits, _ = walk(wa, o, d, alpha_ref=THR, **kw)
-    for k in ("dist", "bx", "by", "tri", "inst"):
-        got = getattr(hits, k).numpy()
-        want = ref[f"{build}/{mode}/{k}"]
-        if mode != "closest" and k != "dist":
-            continue  # occlusion lanes carry no hit record
-        assert np.array_equal(got.view(np.int32), want.view(np.int32)), k
-    changed = (ref[f"{build}/{mode}/dist"]
-               != ref[f"{build}/{mode}/dist_solid"]).sum()
-    assert changed > 50
 
 
 def _frames(builds, jtable, ttable, flat, **tkw):
@@ -314,11 +294,13 @@ def test_alpha_frame_matches_jax(builds, build, monkeypatch):
 
 def test_stateless_frame_through_suspension_matches_jax(builds):
     """``stateless_anyhit`` with a uv-checker predicate: the port runs it
-    through the suspension engine (K3 on the TLAS build), the JAX package
-    inside its walk; the same image and ray count."""
+    through the suspension engine (``packet_size=0``: K3 on the TLAS
+    build), the JAX package inside its walk; the same image and ray
+    count.  (The port's in-walk frames: tests/test_torch_anyhit_pred.py.)"""
     jimg, jrays, timg, trays = _frames(
         builds, jsh.stateless_anyhit(_checker_pred_jax, "checker"),
-        tsh.stateless_anyhit(_checker_pred, "checker"), False)
+        tsh.stateless_anyhit(_checker_pred, "checker"), False,
+        packet_size=0)
     assert trays == jrays
     np.testing.assert_allclose(timg, jimg, atol=1e-5)
 
@@ -365,13 +347,20 @@ def test_any_hit_routes_and_refusals(builds):
         twf._route(alpha, r.wa, 0)  # the per-ray walk is 4-wide
     t = pt.WavefrontRenderer.from_buffers(tlas_sb, _tcfg(False), pred,
                                           device="cpu")
-    assert twf._route(pred, t.wa, 256) == ("pool", None)
+    # a stateless predicate runs inside the walk (K2's predicate mode) on
+    # the TLAS build, as in the JAX package, and by suspension at packet 0
+    route, inline = twf._route(pred, t.wa, 256)
+    assert route == "walk" and inline.fn is _checker_pred
+    assert twf._route(pred, t.wa, 0) == ("pool", None)
     assert twf._route(alpha, t.wa, 0) == ("pool", None)
     assert twf._route(alpha, t.wa, 256) == ("walk", THR)
     assert twf._route(plain, t.wa, 256) == ("pool", None)
-    with pytest.raises(NotImplementedError, match="8b"):
-        pt.WavefrontRenderer.from_buffers(flat_sb, _tcfg(True), pred,
+    # and inside K1's predicate mode on the flattened build
+    f = pt.WavefrontRenderer.from_buffers(flat_sb, _tcfg(True), pred,
                                           device="cpu")
+    assert f.wa.alpha_rows is not None
+    route, inline = twf._route(pred, f.wa, 256)
+    assert route == "walk" and inline.fn is _checker_pred
     with pytest.raises(ValueError, match="TLAS"):
         pt.WavefrontRenderer.from_buffers(
             flat_sb, _tcfg(True, bvh_width=4), plain, device="cpu")
@@ -480,3 +469,38 @@ def test_kernel_digest_follows_included_headers(tmp_path):
     for name in ("traverse_packet", "packet_walk"):
         assert header in kernels.includes(kernels.SRC_DIR / f"{name}.cu")
     assert kernels.includes(kernels.SRC_DIR / "traverse_wide.cu") == []
+
+
+@pytest.mark.parametrize("case", WALKS)
+def test_alpha_walk_matches_jax(jax_walks, case):
+    """K1's (8-wide) and K2's (4-wide) plain alpha modes against the JAX
+    ``trace_packets(alpha_ref)``: every hit field to the bit; the cutout
+    rejects many candidates."""
+    ref = jax_walks
+    build, mode = case.split("/")
+    wa = bridge.wide_arrays(
+        ref[f"{build}/nodes"], ref[f"{build}/tri_rows"], device="cpu",
+        fused=ref.get(f"{build}/fused"),
+        alpha_rows=ref[f"{build}/alpha_rows"],
+        alpha_pool=ref[f"{build}/alpha_pool"],
+        **{k: int(ref[f"{build}/{k}"]) for k in (
+            "num_tlas", "max_leaf_tris", "depth", "tri_bits", "width")})
+    pre = f"{build}/{mode}/arg/"
+    kw = {k[len(pre):]: torch.from_numpy(v) for k, v in ref.items()
+          if k.startswith(pre)}
+    if mode == "occlusion":
+        kw["occlusion"] = True
+    if mode == "occl_split":
+        kw["occl_split"] = ref["o"].shape[0] // 2
+    walk = trace_packets_ref if wa.width == 8 else trace_packets_walk_ref
+    o, d = torch.from_numpy(ref["o"]), torch.from_numpy(ref["d"])
+    hits, _ = walk(wa, o, d, alpha_ref=THR, **kw)
+    for k in ("dist", "bx", "by", "tri", "inst"):
+        got = getattr(hits, k).numpy()
+        want = ref[f"{build}/{mode}/{k}"]
+        if mode != "closest" and k != "dist":
+            continue  # occlusion lanes carry no hit record
+        assert np.array_equal(got.view(np.int32), want.view(np.int32)), k
+    changed = (ref[f"{build}/{mode}/dist"]
+               != ref[f"{build}/{mode}/dist_solid"]).sum()
+    assert changed > 50

@@ -10,6 +10,7 @@ the port, so both trees bound the same floats (torch's and XLA's sin and
 cos differ in the last bits: H5).
 """
 
+import functools
 import json
 
 import jax
@@ -100,16 +101,26 @@ def test_cli_row5_small(capsys):
     assert recs[0]["refit_ms"] > 0.0
 
 
-def test_row3_hits_equal_host_tree():
+def _one_timed_frame(monkeypatch):
+    """Row 3's timing turns with one timed frame a turn (on the CPU they
+    time nothing that a test reads; the frames they render are the
+    tool's)."""
+    monkeypatch.setattr(bl, "bench_frames", functools.partial(
+        bl.bench_frames, n_timed=1))
+
+
+def test_row3_hits_equal_host_tree(monkeypatch):
+    _one_timed_frame(monkeypatch)
     rec = bl.config3("cpu", method="karras", blob_n=10, res=(16, 16))
     assert rec["parity_ok"] and rec["hits"]["hits"] > 0
     assert rec["rays_device_tree"] == rec["rays_host_tree"]
     assert rec["image_max_abs_vs_host_tree"] == 0.0
 
 
-def test_row3_ploc_hits_equal_host_tree(capsys):
+def test_row3_ploc_hits_equal_host_tree(capsys, monkeypatch):
     """Row 3 as the ladder defines it: the tree built by PLOC (the
     default), at blob(n=10), 16x16."""
+    _one_timed_frame(monkeypatch)
     recs = bl.main(["--configs", "3", "--device", "cpu", "--blob", "10",
                     "--res", "16x16"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

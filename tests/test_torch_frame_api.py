@@ -17,6 +17,8 @@ against the JAX package's, and the frame's row blocks.
   (NumPy builder on both sides).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -59,7 +61,10 @@ def _fill(sc, proc):
     return sc
 
 
+@functools.lru_cache(maxsize=None)
 def _tables(flatten: bool):
+    """The port's tables of the scene, built once a module (the port
+    never edits a table in place)."""
     cfg = pt.RTConfig(flatten=flatten, use_native_build=False)
     sb = _fill(pt.Scene(), tproc).build(cfg)
     wa = TWide.from_scene(sb, width=cfg.bvh_width)
@@ -73,23 +78,39 @@ def _cam_light(params):
             tmk.LightArrays.from_params(params, "cpu"))
 
 
+@pytest.fixture(scope="module")
+def whole_frames():
+    """``whole(route)`` -> the route's frame arguments and its whole
+    frame (image, rays), rendered once a module for the block cases."""
+    cache = {}
+
+    def whole(route):
+        if route not in cache:
+            flatten = route == "walk"
+            _, wa, sa = _tables(flatten)
+            params = pt.RenderParams(light_pos=LIGHT, max_depth=3,
+                                     shadow=True, spp=2, pathtrace=flatten)
+            cam, light = _cam_light(params)
+            table = ShaderTable(closest=pathtrace_closest) if flatten else None
+            kw = dict(max_depth=3, spp=2, table=table, shadow=True,
+                      packet=256 if flatten else 0)
+            img, rays, _ = twf.frame_body(wa, sa, cam, light, W, H, **kw)
+            cache[route] = (wa, sa, cam, light, kw, img, rays)
+        return cache[route]
+
+    return whole
+
+
 @pytest.mark.parametrize("route,blocks", [
     ("walk", (8, 8, 8, 8)), ("walk", (12, 20)), ("pool", (16, 16)),
     ("walk", None)])
-def test_row_blocks_equal_the_whole_frame(route, blocks):
+def test_row_blocks_equal_the_whole_frame(whole_frames, route, blocks):
     """Blocks of whole rows give the whole frame's rows and rays exactly
     (a block of 12 rows keeps its tiles at height 4, one of 20 at 4 as
     well); ``None``: blocks of 100 and 924 pixels, not whole rows
-    (row-major lanes from the offset)."""
-    flatten = route == "walk"
-    _, wa, sa = _tables(flatten)
-    params = pt.RenderParams(light_pos=LIGHT, max_depth=3, shadow=True,
-                             spp=2, pathtrace=flatten)
-    cam, light = _cam_light(params)
-    table = ShaderTable(closest=pathtrace_closest) if flatten else None
-    kw = dict(max_depth=3, spp=2, table=table, shadow=True,
-              packet=256 if flatten else 0)
-    img, rays, steps = twf.frame_body(wa, sa, cam, light, W, H, **kw)
+    (row-major lanes from the offset).  The whole frame of a route is
+    rendered once for its cases."""
+    wa, sa, cam, light, kw, img, rays = whole_frames(route)
     sizes = [W * b for b in blocks] if blocks else [100, W * H - 100]
     off, parts, n_rays = 0, [], 0
     for n in sizes:
@@ -103,7 +124,9 @@ def test_row_blocks_equal_the_whole_frame(route, blocks):
     assert torch.equal(torch.cat(parts, 1), img)
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_tables(flatten: bool):
+    """The JAX package's tables of the scene, built once a module."""
     jcfg = JCfg(flatten=flatten, use_native_build=False)
     jsb = _fill(JScene(), jproc).build(jcfg)
     jwa = JWide.from_scene(jsb, width=jcfg.bvh_width)
@@ -112,14 +135,22 @@ def _jax_tables(flatten: bool):
     return jwa, JShade.from_scene(jsb)
 
 
-@pytest.mark.parametrize("fn", ["render_wavefront", "render_frame"])
-def test_render_wavefront_matches_jax(fn):
+@pytest.fixture(scope="module")
+def jax_wavefront_frame():
+    """The JAX ``render_wavefront`` frame, once a module (the JAX
+    ``render_frame`` returns ``render_wavefront`` of its arguments)."""
     jwa, jsa = _jax_tables(True)
     jparams = JParams(light_pos=LIGHT, max_depth=3, shadow=True, spp=2)
-    jimg, jrays, _ = getattr(jwf, fn)(
+    jimg, jrays, _ = jwf.render_wavefront(
         jwa, jsa, jmk.CameraArrays.from_camera(JCam.look_at(*EYE)),
         jmk.LightArrays.from_params(jparams), W, H, max_depth=3, spp=2,
         seed=1, shadow=True)
+    return np.asarray(jimg), int(jrays)
+
+
+@pytest.mark.parametrize("fn", ["render_wavefront", "render_frame"])
+def test_render_wavefront_matches_jax(jax_wavefront_frame, fn):
+    jimg, jrays = jax_wavefront_frame
     _, wa, sa = _tables(True)
     params = pt.RenderParams(light_pos=LIGHT, max_depth=3, shadow=True,
                              spp=2)
@@ -128,8 +159,8 @@ def test_render_wavefront_matches_jax(fn):
                                         max_depth=3, spp=2, seed=1,
                                         shadow=True)
     assert img.shape == (H, W, 3) and int(steps) > 0
-    assert int(rays) == int(jrays)
-    np.testing.assert_allclose(img.numpy(), np.asarray(jimg), atol=1e-5)
+    assert int(rays) == jrays
+    np.testing.assert_allclose(img.numpy(), jimg, atol=1e-5)
 
 
 def test_render_burst_matches_jax():

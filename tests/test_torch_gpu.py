@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the 4-wide walk (K2), the 8-wide fused walk (K1), both in their
-alpha-cutout modes, the per-ray walk with any-hit suspension (K3), the
+alpha-cutout and predicate modes (and every op case of the predicate
+compiler, built by nvcc and run on the card, against torch on the CPU),
+the per-ray walk with any-hit suspension (K3), the
 chained row-fetch probe (K7), the four kernels of the on-device LBVH build
 and refit (K5) and those of the on-device PLOC build and level refit (K4),
 the binary TLAS+BLAS walk of the megakernel (K6, over its packed records,
@@ -36,6 +38,8 @@ from vortex_rt_tpu_torch.ops.traverse_packet import (
 from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays
 from vortex_rt_tpu_torch.runtime import kernels
 from vortex_rt_tpu_torch.tools import exp_hbm_walk as hw
+
+from tests.torch_pred_cases import OPS, grid
 
 pytestmark = pytest.mark.gpu
 
@@ -1155,6 +1159,160 @@ def test_anyhit_frames_match_plain_route(cuda, route, monkeypatch):
         name = "traverse_packet_alpha" if flat else "packet_walk_alpha"
         assert launches[name] > 0 and launches["traverse_wide"] == 0
     img_p, rays_p = rp.render(cam, p, 64, 64)
+    assert rays_k == rays_p
+    np.testing.assert_allclose(img_k, img_p, atol=1e-5)
+
+
+def _checker_pred(u, v, alpha):
+    """A uv checkerboard cutout that also drops near-black surfaces
+    (tests/test_anyhit_inline.py::_checker_pred, in torch)."""
+    cu = torch.floor(u * 6.0).to(torch.int32)
+    cv = torch.floor(v * 6.0).to(torch.int32)
+    return (((cu + cv) % 2) == 0) & (alpha >= 0.05)
+
+
+# the op cases of the predicate compiler (tests/torch_pred_cases.py)
+PRED_OPS = {**OPS, "checker": _checker_pred}
+
+
+@pytest.fixture(scope="module")
+def card_preds(tmp_path_factory):
+    """Every op case's ``vrt_pred`` run on the card over the seeded grid
+    (one nvcc build with the kernels' flags, every header in a namespace
+    of its own; a thread a grid point): {case: (R,) bool}, and the grid."""
+    import ctypes
+
+    from vortex_rt_tpu_torch.ops import anyhit_pred as ap
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    d = tmp_path_factory.mktemp("pred_card")
+    compiled = [ap.compile_predicate(fn) for fn in PRED_OPS.values()]
+    src = [f'namespace c{i} {{\n#include "{c.header_name}"\n}}\n'
+           for i, c in enumerate(compiled)]
+    calls = "\n".join(f"    out[{i} * n + i] = c{i}::vrt_pred(uu, vv, aa);"
+                      for i in range(len(compiled)))
+    src.append(f"""
+__global__ void eval_preds(const float* u, const float* v, const float* a,
+                           unsigned char* out, long n) {{
+    const long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float uu = u[i], vv = v[i], aa = a[i];
+{calls}
+}}
+
+extern "C" int vrt_eval_preds(const void* u, const void* v, const void* a,
+                              void* out, long n) {{
+    eval_preds<<<(unsigned)((n + 255) / 256), 256>>>(
+        (const float*)u, (const float*)v, (const float*)a,
+        (unsigned char*)out, n);
+    return (int)cudaDeviceSynchronize();
+}}
+""")
+    cu = d / "eval_preds.cu"
+    cu.write_text("".join(src))
+    so, _, _ = kernels._build(cu, include_dirs=(d,), headers=tuple(
+        c.write(d) for c in compiled))
+    lib = ctypes.CDLL(str(so))
+    lib.vrt_eval_preds.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_long]
+    lib.vrt_eval_preds.restype = ctypes.c_int
+    u, v, a = grid()
+    n = u.shape[0]
+    uva = [torch.from_numpy(x).cuda() for x in (u, v, a)]
+    out = torch.empty(len(compiled) * n, dtype=torch.uint8, device="cuda")
+    err = lib.vrt_eval_preds(*(t.data_ptr() for t in uva), out.data_ptr(), n)
+    assert err == 0, f"CUDA error {err}"
+    got = out.cpu().numpy().reshape(len(compiled), n).astype(bool)
+    return dict(zip(PRED_OPS, got)), (u, v, a)
+
+
+@pytest.mark.parametrize("op", list(PRED_OPS))
+def test_emitted_predicate_on_card_equals_torch(card_preds, op):
+    """Each op case of the predicate compiler, its ``vrt_pred`` built by
+    nvcc with the kernels' flags and run on the card, decides as the
+    torch callable does on the CPU, on every point of the seeded grid
+    (negative values, values past 1, exact cell edges, values past
+    int32)."""
+    import numpy as np
+
+    got, (u, v, a) = card_preds
+    want = PRED_OPS[op](*(torch.from_numpy(x) for x in (u, v, a)))
+    assert want.dtype == torch.bool
+    want = want.numpy()
+    bad = np.flatnonzero(got[op] != want)
+    assert bad.size == 0, (f"{op}: {bad.size} of {want.size} differ, e.g. "
+                           f"u={u[bad[:3]]} v={v[bad[:3]]} a={a[bad[:3]]}")
+
+
+@pytest.mark.parametrize("case", ["k1/closest", "k1/occlusion",
+                                  "k1/occl_split", "k2tlas/closest",
+                                  "k2tlas/occlusion", "k1/stats"])
+def test_pred_walks_match_plain_version(cuda, case):
+    """K1's and K2's predicate modes (the library built with the compiled
+    checker predicate) against their plain versions, which call the
+    predicate on tensors: hits and per-ray steps equal; the launches
+    count as the predicate mode (the counting one as ``_stats``)."""
+    walk_name, mode = case.split("/")
+    flat = walk_name == "k1"
+    width = 8 if flat else 4
+    sb = _cutout(flat, width)
+    wa = WideArrays.from_scene(sb, width=width)
+    if width == 8:
+        wa = wa.fuse()
+    wa = wa.with_alpha(sb).to(cuda)
+    lanes = _camera_lanes(cuda, 80)
+    o, d = torch.stack(lanes[:3], 1), torch.stack(lanes[3:], 1)
+    n = o.shape[0]
+    t = torch.full((n,), 6.0, device=cuda)
+    kw = {"closest": {}, "stats": dict(stats=True),
+          "occlusion": dict(t_max=t, occlusion=True),
+          "occl_split": dict(t_max=torch.where(
+              torch.arange(n, device=cuda) < n // 2, t,
+              torch.full_like(t, 1e30)), occl_split=n // 2)}[mode]
+    walk, ref, name = ((trace_packets, trace_packets_ref,
+                        "traverse_packet_pred") if flat else
+                       (trace_packets_walk, trace_packets_walk_ref,
+                        "packet_walk_pred"))
+    if mode == "stats":
+        name = "traverse_packet_stats"
+    before = kernels.LAUNCHES[name]
+    out = walk(wa, o, d, anyhit_pred=_checker_pred, **kw)
+    torch.cuda.synchronize()
+    kw.pop("stats", None)
+    hp, sp = ref(wa, o, d, anyhit_pred=_checker_pred, **kw)
+    assert kernels.LAUNCHES[name] == before + 1
+    hk, sk = out[0], out[1]
+    for a, b in zip((*hk, sk), (*hp, sp)):
+        assert torch.equal(a, b)
+    h0, _ = walk(wa, o, d, **kw)
+    assert bool((h0.dist != hk.dist).any())  # the predicate rejects hits
+
+
+@pytest.mark.parametrize("flat", [True, False])
+def test_pred_frames_match_plain_route(cuda, flat):
+    """``stateless_anyhit`` frames through K1's (flattened) and K2's (TLAS)
+    predicate modes against the plain route, and no K3 launch."""
+    import numpy as np
+
+    from vortex_rt_tpu_torch.engine.shaders import (
+        ShaderTable, stateless_anyhit,
+    )
+
+    cfg = pt.RTConfig(flatten=flat)
+    table = ShaderTable(anyhit=stateless_anyhit(_checker_pred, "checker"))
+    rk = pt.WavefrontRenderer.from_buffers(_cutout(flat), cfg, table,
+                                           device=cuda)
+    cam = pt.Camera.look_at([0.15, -0.1, -3.0], [0, 0, 1], [0, 1, 0], 50.0,
+                            1.0)
+    p = pt.RenderParams(light_pos=(0.5, 1.5, -1.0), max_depth=3, spp=2,
+                        shadow=True)
+    kernels.reset_launches()
+    img_k, rays_k = rk.render(cam, p, 64, 64)
+    launches = dict(kernels.LAUNCHES)
+    name = "traverse_packet_pred" if flat else "packet_walk_pred"
+    assert launches[name] > 0 and launches["traverse_wide"] == 0
+    ref = trace_packets_ref if flat else trace_packets_walk_ref
+    img_p, rays_p = dataclasses.replace(rk, walk=ref).render(cam, p, 64, 64)
     assert rays_k == rays_p
     np.testing.assert_allclose(img_k, img_p, atol=1e-5)
 

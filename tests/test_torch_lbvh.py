@@ -520,8 +520,11 @@ np.savez(sys.argv[1], **out)
 SAH_MESHES = ("soup", "ties")
 
 
-@pytest.fixture(scope="module")
-def sah_reference(tmp_path_factory):
+@pytest.fixture(scope="module", autouse=True)
+def _sah_reference_started(tmp_path_factory):
+    """Starts the JAX reference's subprocess when the module's first test
+    starts, so that it runs beside the tests before the sweep-SAH ones;
+    ``sah_reference`` waits for it."""
     import os
     import subprocess
     import sys
@@ -530,10 +533,22 @@ def sah_reference(tmp_path_factory):
     path = tmp_path_factory.mktemp("sah") / "jax_sah.npz"
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_cpu_max_isa=AVX")
-    proc = subprocess.run([sys.executable, "-c", _SAH_REFERENCE, str(path)],
-                          cwd=repo, env=env, capture_output=True, text=True,
-                          timeout=900)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
+    proc = subprocess.Popen([sys.executable, "-c", _SAH_REFERENCE, str(path)],
+                            cwd=repo, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        yield proc, path
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def sah_reference(_sah_reference_started):
+    proc, path = _sah_reference_started
+    out, _ = proc.communicate(timeout=900)
+    assert proc.returncode == 0, out
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
 

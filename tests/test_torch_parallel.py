@@ -102,22 +102,22 @@ def jax_images():
 
 @pytest.fixture(scope="module")
 def launches(port, tmp_path_factory):
-    """world -> every rank's results of every case, one launch a world
-    (made at its first use, then kept)."""
-    done = {}
+    """world -> every rank's results of every case, one launch a world.
+    Both launches start here, each in a thread that waits on its ranks,
+    so that they run beside the JAX frames; ``get`` waits for one."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    def get(world):
-        if world not in done:
-            calls = [(f, a, {"device": "cpu"}) for _, f, a, _ in port]
-            if world == 2:
-                calls.append((tiles.dryrun, (2,), {"device": "cpu"}))
-            done[world] = launch.spawn(
-                launch.call_all, world, (calls,), threads=1,
-                store_dir=str(tmp_path_factory.mktemp("store")),
-                timeout=600)
-        return done[world]
+    def run(world):
+        calls = [(f, a, {"device": "cpu"}) for _, f, a, _ in port]
+        if world == 2:
+            calls.append((tiles.dryrun, (2,), {"device": "cpu"}))
+        return launch.spawn(
+            launch.call_all, world, (calls,), threads=1,
+            store_dir=str(tmp_path_factory.mktemp("store")), timeout=600)
 
-    return get
+    with ThreadPoolExecutor(max_workers=len(WORLDS)) as pool:
+        futures = {world: pool.submit(run, world) for world in WORLDS}
+        yield lambda world: futures[world].result()
 
 
 def _case(res, port, name):

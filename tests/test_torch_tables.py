@@ -250,17 +250,24 @@ def test_unported_options_raise(option):
             pt.WavefrontRenderer.from_buffers(tsb, cfg,
                                               device=["cpu", "cpu"])
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if option == "anyhit":
-            # any-hit shaders run now; an arbitrary stateless predicate
-            # inside the walk of a flattened build does not (item 8b)
-            from vortex_rt_tpu_torch.engine.shaders import stateless_anyhit
+    if option == "anyhit":
+        # ported since ROADMAP Queue 1 item 8b: a stateless predicate runs
+        # inside the walk of a flattened build (K1's predicate mode;
+        # tests/test_torch_anyhit_pred.py holds it to JAX); what its
+        # compiler refuses still raises, naming the op
+        from vortex_rt_tpu_torch.engine.shaders import stateless_anyhit
 
+        r = pt.WavefrontRenderer.from_buffers(
+            tsb, cfg, ShaderTable(anyhit=stateless_anyhit(
+                lambda u, v, a: a > 0.5)), device="cpu")
+        img, rays = r.render(cam, pt.RenderParams(), 16, 16)
+        assert rays >= 16 * 16 and np.isfinite(img).all()
+        with pytest.raises(NotImplementedError, match="sqrt"):
             pt.WavefrontRenderer.from_buffers(
                 tsb, cfg, ShaderTable(anyhit=stateless_anyhit(
-                    lambda u, v, a: a > 0.5)), device="cpu")
-        else:
-            raise AssertionError(f"unknown option {option}")
+                    lambda u, v, a: a.sqrt() > 0.5)), device="cpu")
+        return
+    raise AssertionError(f"unknown option {option}")
 
 
 _NO_JAX = r"""

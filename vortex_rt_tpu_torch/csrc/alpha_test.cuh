@@ -4,7 +4,9 @@
 // Replaces the in-loop any-hit predicate of the XLA loop `trace_packets`
 // with `alpha_ref` (vortex_rt_tpu/ops/traverse_packet.py:723-761): a
 // Moller-Trumbore candidate whose surface alpha is below the threshold is
-// rejected before the closest-hit fold (COMMIT_CONT without suspension).
+// rejected before the closest-hit fold (COMMIT_CONT without suspension);
+// with `anyhit_pred` (the predicate mode, 8b), a candidate whose
+// compiled predicate of (u, v, alpha) is false.
 // The alpha is the luminance of the colour `shade_point` computes at the
 // candidate: the point-sampled texel, or the material's diffuse colour (a
 // 1x1 texture), looked up in the pool of `WideArrays.with_alpha`.  The uv
@@ -28,17 +30,20 @@ __device__ __forceinline__ int vrt_floor_mod(int x, int m) {
     return ((x % m) + m) % m;
 }
 
-// The slot's alpha fields are two float4: (u0, v0, u1, v1) and
-// (u2, v2, texture offset bits, tw << 16 | th bits).  Returns whether the
-// candidate at barycentrics (w1, w2) is kept: !(alpha < thr).  A texture
-// side of 0 is read as 1, as shade_point clamps it (with_alpha writes
-// none).
-__device__ __forceinline__ bool vrt_alpha_keep(float4 f0, float4 f1, float w1,
-                                               float w2, const float* pool,
-                                               int n_pool, float thr) {
+// The candidate's surface at barycentrics (w1, w2): its interpolated uv
+// (uv1*w1 + uv2*w2 + uv0*bz, closest.cpp:77 order) and its alpha, the
+// pool entry of the point-sampled texel (a texture side of 0 is read as
+// 1, as shade_point clamps it; with_alpha writes none).  The slot's alpha
+// fields are two float4: (u0, v0, u1, v1) and (u2, v2, texture offset
+// bits, tw << 16 | th bits).  The alpha mode compares the alpha with its
+// threshold (vrt_alpha_keep); the predicate mode hands all three to the
+// compiled predicate (ops/anyhit_pred.py).
+__device__ __forceinline__ void vrt_candidate_surface(
+        float4 f0, float4 f1, float w1, float w2, const float* pool,
+        int n_pool, float& u, float& v, float& alpha) {
     const float bz = 1.0f - w1 - w2;
-    const float u = f0.z * w1 + f1.x * w2 + f0.x * bz;
-    const float v = f0.w * w1 + f1.y * w2 + f0.y * bz;
+    u = f0.z * w1 + f1.x * w2 + f0.x * bz;
+    v = f0.w * w1 + f1.y * w2 + f0.y * bz;
     const int toff = __float_as_int(f1.z);
     const int twh = __float_as_int(f1.w);
     const int tw = max(twh >> 16, 1);
@@ -46,5 +51,14 @@ __device__ __forceinline__ bool vrt_alpha_keep(float4 f0, float4 f1, float w1,
     const int iu = vrt_floor_mod((int)floorf(u * (float)tw), tw);
     const int iv = vrt_floor_mod((int)floorf(v * (float)th), th);
     const int idx = min(max(toff + iu + iv * tw, 0), n_pool - 1);
-    return !(__ldg(pool + idx) < thr);
+    alpha = __ldg(pool + idx);
+}
+
+// Whether the alpha mode keeps the candidate: !(alpha < thr).
+__device__ __forceinline__ bool vrt_alpha_keep(float4 f0, float4 f1, float w1,
+                                               float w2, const float* pool,
+                                               int n_pool, float thr) {
+    float u, v, alpha;
+    vrt_candidate_surface(f0, f1, w1, w2, pool, n_pool, u, v, alpha);
+    return !(alpha < thr);
 }

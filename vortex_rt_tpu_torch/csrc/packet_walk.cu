@@ -46,17 +46,27 @@
 // - the nearest child comes out of the sorted slot ids packed 2 bits each
 //   by one mask, the next one by a shift.
 //
-// Alpha mode (`vrt_packet_walk_alpha`, the kernel's ALPHA = true
+// Alpha mode (`vrt_packet_walk_alpha`, the kernel's MODE = VRT_MODE_ALPHA
 // instantiation): a candidate that passes Moller-Trumbore is kept only if
 // its surface alpha is not below the threshold (alpha_test.cuh), read from
 // the leaf's alpha row `alpha_rows[left]` (32 B a slot) and the alpha pool.
 // The TPU kernel refused any-hit, and the JAX frame ran its 4-wide alpha
 // waves through the XLA `trace_packets(alpha_ref)` (engine/wavefront.py:
 // 384-390, traverse_packet.py:1057-1085); this is that test in this walk.
-// The ALPHA = false instantiation is the walk above, unchanged.
+// The VRT_MODE_NONE instantiation is the walk above, unchanged.
 //
-// Statistics (`vrt_packet_walk_stats`, `vrt_packet_walk_alpha_stats`: the
-// STATS = true instantiations of either mode) replace the PacketStats the
+// Predicate mode (`vrt_packet_walk_pred`, MODE = VRT_MODE_PRED, 8b): a
+// stateless any-hit predicate compiled from torch (ops/anyhit_pred.py)
+// into `vrt_pred(u, v, alpha)`, in a header the build names with
+// -DVRT_PRED_HEADER; the entry points exist only in such a build
+// (runtime/kernels.load_pred).  Every candidate that passes
+// Moller-Trumbore is tested on its surface (u, v, alpha) as the alpha
+// mode computes it, before it counts: the JAX frame's width-4 waves with
+// `anyhit_pred` (traverse_packet.py:1057-1085).
+//
+// Statistics (`vrt_packet_walk_stats`, `vrt_packet_walk_alpha_stats`,
+// `vrt_packet_walk_pred_stats`: the STATS = true instantiations of each
+// mode) replace the PacketStats the
 // JAX loop carries (traverse_packet.py:179-199): each thread also writes
 // its ray's counts of internal and of instance steps (int32); its leaf
 // steps are its steps less both, and the wave's counters are reductions
@@ -75,6 +85,12 @@
 #include <stdint.h>
 
 #include "alpha_test.cuh"
+#ifdef VRT_PRED_HEADER
+// the generated predicate header, named without quotes by the build
+#define VRT_STR_(x) #x
+#define VRT_STR(x) VRT_STR_(x)
+#include VRT_STR(VRT_PRED_HEADER)
+#endif
 
 // 48 entries x 8 B x 128 threads = 48 KB, the shared memory a block gets
 // without opting in (a depth-44 tree)
@@ -84,6 +100,10 @@
 #define VRT_LEFT_MASK ((1u << 26) - 1u)
 #define VRT_BLOCK 128
 #define VRT_STK_STRIDE VRT_BLOCK  // entries between a thread's stack levels
+// the walk's any-hit modes: none, the alpha cutout, a compiled predicate
+#define VRT_MODE_NONE 0
+#define VRT_MODE_ALPHA 1
+#define VRT_MODE_PRED 2
 
 namespace {
 
@@ -102,8 +122,8 @@ struct WalkArgs {
     int* steps_out;
     int n_rays, n_nodes, n_rows, row_vec4, lmax, num_tlas, tri_bits;
     int stack_n, max_steps, occlusion;
-    // alpha mode only: the (L, alpha_words) alpha rows, the pool and its
-    // length, and the threshold
+    // alpha and predicate modes: the (L, alpha_words) alpha rows, the pool
+    // and its length; alpha mode only: the threshold
     const float4* alpha_rows;
     int alpha_vec4;
     const float* alpha_pool;
@@ -146,8 +166,9 @@ __device__ __forceinline__ int pop_deferred(int2* stk, int& sc, int stack_n) {
 }
 
 // Walks ray i; `stk` is this thread's first stack entry in shared memory.
-template <bool ALPHA, bool STATS>
+template <int MODE, bool STATS>
 __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
+    constexpr bool ALPHA = MODE == VRT_MODE_ALPHA;
     // best_t doubles as the liveness/clamp register: dead rays enter with
     // -1 and never walk; in occlusion mode a hit sets it to -1
     float best_t = a.limit[i], bx = 0.0f, by = 0.0f;
@@ -287,6 +308,17 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
                                             a.alpha_pool, a.n_pool,
                                             a.alpha_thr);
                     }
+#ifdef VRT_PRED_HEADER
+                    if (MODE == VRT_MODE_PRED && ok) {
+                        const float4* al = a.alpha_rows
+                            + (size_t)row_i * a.alpha_vec4 + 2 * c;
+                        float su, sv, salpha;
+                        vrt_candidate_surface(__ldg(al), __ldg(al + 1), w1, w2,
+                                              a.alpha_pool, a.n_pool, su, sv,
+                                              salpha);
+                        ok = vrt_pred(su, sv, salpha);
+                    }
+#endif
                     t = ok ? t : VRT_LARGE;
                     if (a.occlusion) {
                         if (t < best_t) best_t = -1.0f;
@@ -368,14 +400,14 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
     }
 }
 
-template <bool ALPHA, bool STATS>
+template <int MODE, bool STATS>
 __global__ void __launch_bounds__(VRT_BLOCK) packet_walk_kernel(
         const __grid_constant__ WalkArgs a) {
     // deferred-children stack: entry e of thread t at
     // stack_smem[e * VRT_STK_STRIDE + t] as (left << 2 | count, 3 x 2-bit ids)
     extern __shared__ int2 stack_smem[];
     const int i = blockIdx.x * VRT_BLOCK + threadIdx.x;
-    if (i < a.n_rays) walk_ray<ALPHA, STATS>(a, i, stack_smem + threadIdx.x);
+    if (i < a.n_rays) walk_ray<MODE, STATS>(a, i, stack_smem + threadIdx.x);
 }
 
 size_t stack_bytes(int stack_n) {
@@ -408,12 +440,44 @@ bool alpha_sizes_ok(int lmax, int alpha_words, int n_pool) {
     return alpha_words % 4 == 0 && lmax * 8 <= alpha_words && n_pool > 0;
 }
 
-template <bool ALPHA, bool STATS>
+template <int MODE, bool STATS>
 int launch(const WalkArgs& a, int stack_n, void* stream) {
     const int grid = (a.n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
-    packet_walk_kernel<ALPHA, STATS><<<grid, VRT_BLOCK, stack_bytes(stack_n),
-                                       (cudaStream_t)stream>>>(a);
+    packet_walk_kernel<MODE, STATS><<<grid, VRT_BLOCK, stack_bytes(stack_n),
+                                      (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
+}
+
+// The alpha mode (threshold `thr`) or, MODE == VRT_MODE_PRED, the
+// predicate mode (`thr` unused); STATS also writes `int_steps` and
+// `ins_steps`.
+template <int MODE, bool STATS>
+int launch_anyhit(
+        const void* nodes, const void* rows, const void* o, const void* d,
+        const void* limit, void* dist, void* bx, void* by, void* bz,
+        void* tri, void* inst, void* steps, const void* alpha_rows,
+        const void* alpha_pool, void* int_steps, void* ins_steps,
+        int n_rays, int n_nodes, int n_rows, int row_words, int lmax,
+        int num_tlas, int tri_bits, int stack_n, int max_steps, int occlusion,
+        int alpha_words, int n_pool, float thr, void* stream) {
+    if (n_rays <= 0) return 0;
+    if (!walk_sizes_ok(n_nodes, n_rows, row_words, lmax, stack_n)
+            || !alpha_sizes_ok(lmax, alpha_words, n_pool)
+            || (STATS && (int_steps == nullptr || ins_steps == nullptr))) {
+        return (int)cudaErrorInvalidValue;
+    }
+    WalkArgs a = walk_args(
+        nodes, rows, o, d, limit, dist, bx, by, bz, tri, inst, steps, n_rays,
+        n_nodes, n_rows, row_words, lmax, num_tlas, tri_bits, stack_n,
+        max_steps, occlusion);
+    a.alpha_rows = (const float4*)alpha_rows;
+    a.alpha_vec4 = alpha_words / 4;
+    a.alpha_pool = (const float*)alpha_pool;
+    a.n_pool = n_pool;
+    a.alpha_thr = thr;
+    a.int_out = (int*)int_steps;
+    a.ins_out = (int*)ins_steps;
+    return launch<MODE, STATS>(a, stack_n, stream);
 }
 
 }  // namespace
@@ -442,7 +506,7 @@ extern "C" int vrt_packet_walk(
         nodes, rows, o, d, limit, dist, bx, by, bz, tri, inst, steps, n_rays,
         n_nodes, n_rows, row_words, lmax, num_tlas, tri_bits, stack_n,
         max_steps, occlusion);
-    return launch<false, false>(a, stack_n, stream);
+    return launch<VRT_MODE_NONE, false>(a, stack_n, stream);
 }
 
 // The alpha mode: as vrt_packet_walk, with the (n_rows, alpha_words) alpha
@@ -456,21 +520,11 @@ extern "C" int vrt_packet_walk_alpha(
         int n_rays, int n_nodes, int n_rows, int row_words, int lmax,
         int num_tlas, int tri_bits, int stack_n, int max_steps, int occlusion,
         int alpha_words, int n_pool, float thr, void* stream) {
-    if (n_rays <= 0) return 0;
-    if (!walk_sizes_ok(n_nodes, n_rows, row_words, lmax, stack_n)
-            || !alpha_sizes_ok(lmax, alpha_words, n_pool)) {
-        return (int)cudaErrorInvalidValue;
-    }
-    WalkArgs a = walk_args(
-        nodes, rows, o, d, limit, dist, bx, by, bz, tri, inst, steps, n_rays,
-        n_nodes, n_rows, row_words, lmax, num_tlas, tri_bits, stack_n,
-        max_steps, occlusion);
-    a.alpha_rows = (const float4*)alpha_rows;
-    a.alpha_vec4 = alpha_words / 4;
-    a.alpha_pool = (const float*)alpha_pool;
-    a.n_pool = n_pool;
-    a.alpha_thr = thr;
-    return launch<true, false>(a, stack_n, stream);
+    return launch_anyhit<VRT_MODE_ALPHA, false>(
+        nodes, rows, o, d, limit, dist, bx, by, bz, tri, inst, steps,
+        alpha_rows, alpha_pool, nullptr, nullptr, n_rays, n_nodes, n_rows,
+        row_words, lmax, num_tlas, tri_bits, stack_n, max_steps, occlusion,
+        alpha_words, n_pool, thr, stream);
 }
 
 // The counting instantiations: as vrt_packet_walk and
@@ -494,7 +548,7 @@ extern "C" int vrt_packet_walk_stats(
         max_steps, occlusion);
     a.int_out = (int*)int_steps;
     a.ins_out = (int*)ins_steps;
-    return launch<false, true>(a, stack_n, stream);
+    return launch<VRT_MODE_NONE, true>(a, stack_n, stream);
 }
 
 extern "C" int vrt_packet_walk_alpha_stats(
@@ -505,22 +559,43 @@ extern "C" int vrt_packet_walk_alpha_stats(
         int n_rays, int n_nodes, int n_rows, int row_words, int lmax,
         int num_tlas, int tri_bits, int stack_n, int max_steps, int occlusion,
         int alpha_words, int n_pool, float thr, void* stream) {
-    if (n_rays <= 0) return 0;
-    if (!walk_sizes_ok(n_nodes, n_rows, row_words, lmax, stack_n)
-            || !alpha_sizes_ok(lmax, alpha_words, n_pool)
-            || int_steps == nullptr || ins_steps == nullptr) {
-        return (int)cudaErrorInvalidValue;
-    }
-    WalkArgs a = walk_args(
-        nodes, rows, o, d, limit, dist, bx, by, bz, tri, inst, steps, n_rays,
-        n_nodes, n_rows, row_words, lmax, num_tlas, tri_bits, stack_n,
-        max_steps, occlusion);
-    a.alpha_rows = (const float4*)alpha_rows;
-    a.alpha_vec4 = alpha_words / 4;
-    a.alpha_pool = (const float*)alpha_pool;
-    a.n_pool = n_pool;
-    a.alpha_thr = thr;
-    a.int_out = (int*)int_steps;
-    a.ins_out = (int*)ins_steps;
-    return launch<true, true>(a, stack_n, stream);
+    return launch_anyhit<VRT_MODE_ALPHA, true>(
+        nodes, rows, o, d, limit, dist, bx, by, bz, tri, inst, steps,
+        alpha_rows, alpha_pool, int_steps, ins_steps, n_rays, n_nodes, n_rows,
+        row_words, lmax, num_tlas, tri_bits, stack_n, max_steps, occlusion,
+        alpha_words, n_pool, thr, stream);
 }
+
+#ifdef VRT_PRED_HEADER
+// The predicate mode: as vrt_packet_walk_alpha without the threshold;
+// every candidate is tested by the compiled predicate.
+extern "C" int vrt_packet_walk_pred(
+        const void* nodes, const void* rows, const void* o, const void* d,
+        const void* limit, void* dist, void* bx, void* by, void* bz,
+        void* tri, void* inst, void* steps, const void* alpha_rows,
+        const void* alpha_pool,
+        int n_rays, int n_nodes, int n_rows, int row_words, int lmax,
+        int num_tlas, int tri_bits, int stack_n, int max_steps, int occlusion,
+        int alpha_words, int n_pool, void* stream) {
+    return launch_anyhit<VRT_MODE_PRED, false>(
+        nodes, rows, o, d, limit, dist, bx, by, bz, tri, inst, steps,
+        alpha_rows, alpha_pool, nullptr, nullptr, n_rays, n_nodes, n_rows,
+        row_words, lmax, num_tlas, tri_bits, stack_n, max_steps, occlusion,
+        alpha_words, n_pool, 0.0f, stream);
+}
+
+extern "C" int vrt_packet_walk_pred_stats(
+        const void* nodes, const void* rows, const void* o, const void* d,
+        const void* limit, void* dist, void* bx, void* by, void* bz,
+        void* tri, void* inst, void* steps, const void* alpha_rows,
+        const void* alpha_pool, void* int_steps, void* ins_steps,
+        int n_rays, int n_nodes, int n_rows, int row_words, int lmax,
+        int num_tlas, int tri_bits, int stack_n, int max_steps, int occlusion,
+        int alpha_words, int n_pool, void* stream) {
+    return launch_anyhit<VRT_MODE_PRED, true>(
+        nodes, rows, o, d, limit, dist, bx, by, bz, tri, inst, steps,
+        alpha_rows, alpha_pool, int_steps, ins_steps, n_rays, n_nodes, n_rows,
+        row_words, lmax, num_tlas, tri_bits, stack_n, max_steps, occlusion,
+        alpha_words, n_pool, 0.0f, stream);
+}
+#endif

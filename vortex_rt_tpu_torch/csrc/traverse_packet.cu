@@ -48,12 +48,12 @@
 //   a global counter (Aila & Laine, HPG 2009) walked no faster on the
 //   frame's waves, and refilling idle lanes early walked slower (PERF.md).
 //
-// Alpha mode (`vrt_traverse_packet_alpha`, the kernel's ALPHA = true
-// instantiation): the fused rows carry each leaf's alpha fields after its
-// triangle slots (WideArrays.with_alpha), and a candidate that passes
-// Moller-Trumbore is kept only if its surface alpha is not below the
-// threshold (alpha_test.cuh: a 32-B read from the row in hand, then a
-// dependent 4-B read from the alpha pool).  This replaces the in-loop
+// Alpha mode (`vrt_traverse_packet_alpha`, the kernel's MODE =
+// VRT_MODE_ALPHA instantiation): the fused rows carry each leaf's alpha
+// fields after its triangle slots (WideArrays.with_alpha), and a candidate
+// that passes Moller-Trumbore is kept only if its surface alpha is not
+// below the threshold (alpha_test.cuh: a 32-B read from the row in hand,
+// then a dependent 4-B read from the alpha pool).  This replaces the in-loop
 // `alpha_ref` of the JAX body (:723-761).  A test is a chain of two
 // dependent L2 trips, so the walk skips those whose answer is known: a
 // slot whose every reachable texel keeps (cuts) is kept (cut out)
@@ -64,12 +64,25 @@
 // candidates that could win the leaf's fold and the ray's, and stopping
 // an occlusion ray at its first kept candidate, bought nothing: most
 // candidates lie before the ray's hit, PERF.md section 6.)  The
-// ALPHA = false instantiation is the walk above, unchanged: the main
+// VRT_MODE_NONE instantiation is the walk above, unchanged: the main
 // path's kernel, its steps and its launches are those of the build
 // without alpha.
 //
-// Statistics (`vrt_traverse_packet_stats`, `vrt_traverse_packet_alpha_stats`:
-// the STATS = true instantiations of either mode) replace the PacketStats
+// Predicate mode (`vrt_traverse_packet_pred`, the MODE = VRT_MODE_PRED
+// instantiation, 8b): a stateless any-hit predicate compiled from torch
+// (ops/anyhit_pred.py) into `vrt_pred(u, v, alpha)`, in a header the
+// build names with -DVRT_PRED_HEADER; the entry points exist only in such
+// a build (runtime/kernels.load_pred), so the default library is the one
+// above.  This replaces the in-loop `anyhit_pred` of the JAX body
+// (:723-761, :1057-1085).  Every candidate that passes Moller-Trumbore
+// is tested, with no slot classes (they belong to a threshold, ROADMAP
+// H17): its surface (u, v, alpha) as the alpha mode computes it
+// (alpha_test.cuh), then the predicate, before the leaf's fold, and so
+// before an occlusion ray retires.
+//
+// Statistics (`vrt_traverse_packet_stats`, `vrt_traverse_packet_alpha_stats`,
+// `vrt_traverse_packet_pred_stats`: the STATS = true instantiations of
+// each mode) replace the PacketStats
 // the JAX loop carries (traverse_packet.py:179-199, :1181-1193).  Each
 // thread also writes its ray's count of internal steps (int32); its leaf
 // steps are its steps less those, and the wave's counters are reductions
@@ -91,6 +104,12 @@
 #include <stdint.h>
 
 #include "alpha_test.cuh"
+#ifdef VRT_PRED_HEADER
+// the generated predicate header, named without quotes by the build
+#define VRT_STR_(x) #x
+#define VRT_STR(x) VRT_STR_(x)
+#include VRT_STR(VRT_PRED_HEADER)
+#endif
 
 // 48 entries x 8 B x 128 threads = 48 KB, the shared memory a block gets
 // without opting in (a depth-44 tree; the shipped ones are 7-9 deep)
@@ -102,6 +121,10 @@
 #define VRT_ROW_WORDS 32
 #define VRT_BLOCK 128
 #define VRT_STK_STRIDE VRT_BLOCK  // entries between a thread's stack levels
+// the walk's any-hit modes: none, the alpha cutout, a compiled predicate
+#define VRT_MODE_NONE 0
+#define VRT_MODE_ALPHA 1
+#define VRT_MODE_PRED 2
 
 namespace {
 
@@ -120,10 +143,10 @@ struct WalkArgs {
     int* steps_out;
     int n_rays, n_nodes, row_vec4, lmax, tri_bits, stack_n, max_steps;
     int occl_split;
-    // alpha mode only: the pool, its length, the float4 offset of a row's
-    // alpha fields, the threshold, and each row's slot classes (2 bits a
-    // slot: 0 test, 1 kept and 2 cut out wherever the triangle is hit;
-    // null: every slot is tested)
+    // alpha and predicate modes: the pool, its length, the float4 offset
+    // of a row's alpha fields; alpha mode only: the threshold, and each
+    // row's slot classes (2 bits a slot: 0 test, 1 kept and 2 cut out
+    // wherever the triangle is hit; null: every slot is tested)
     const float* alpha_pool;
     int n_pool, alpha_vec4;
     float alpha_thr;
@@ -164,8 +187,9 @@ __device__ __forceinline__ int pop_deferred(int2* stk, int& sc, int stack_n) {
 }
 
 // Walks ray i; `stk` is this thread's first stack entry in shared memory.
-template <bool ALPHA, bool STATS>
+template <int MODE, bool STATS>
 __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
+    constexpr bool ALPHA = MODE == VRT_MODE_ALPHA;
     const float lim = a.limit[i];
     const bool on = a.active[i] != 0;
     const bool occ = i < a.occl_split;
@@ -310,6 +334,17 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
                         ok = vrt_alpha_keep(__ldg(al), __ldg(al + 1), w1, w2,
                                             a.alpha_pool, a.n_pool, a.alpha_thr);
                     }
+#ifdef VRT_PRED_HEADER
+                    if (MODE == VRT_MODE_PRED && ok) {
+                        const float4* al = reinterpret_cast<const float4*>(row)
+                            + a.alpha_vec4 + 2 * c;
+                        float su, sv, salpha;
+                        vrt_candidate_surface(__ldg(al), __ldg(al + 1), w1, w2,
+                                              a.alpha_pool, a.n_pool, su, sv,
+                                              salpha);
+                        ok = vrt_pred(su, sv, salpha);
+                    }
+#endif
                     t = ok ? t : VRT_LARGE;
                     const bool better = (t < t_min)
                         || ((t == t_min) && (t < VRT_LARGE) && (tid < tid_sel));
@@ -359,14 +394,14 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
     a.inst_out[i] = tri >> a.tri_bits;
 }
 
-template <bool ALPHA, bool STATS>
+template <int MODE, bool STATS>
 __global__ void __launch_bounds__(VRT_BLOCK) traverse_packet_kernel(
         const __grid_constant__ WalkArgs a) {
     // deferred-children stack: entry e of thread t at
     // stack_smem[e * VRT_STK_STRIDE + t] as (left << 4 | count, 7 x 3-bit ids)
     extern __shared__ int2 stack_smem[];
     const int i = blockIdx.x * VRT_BLOCK + threadIdx.x;
-    if (i < a.n_rays) walk_ray<ALPHA, STATS>(a, i, stack_smem + threadIdx.x);
+    if (i < a.n_rays) walk_ray<MODE, STATS>(a, i, stack_smem + threadIdx.x);
 }
 
 size_t stack_bytes(int stack_n) {
@@ -397,14 +432,16 @@ int launch_plain(
         n_rays, n_nodes, row_words / 4, lmax, tri_bits, stack_n, max_steps,
         occl_split, nullptr, 0, 0, 0.0f, nullptr, (int*)int_steps};
     const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
-    traverse_packet_kernel<false, STATS><<<grid, VRT_BLOCK,
-                                           stack_bytes(stack_n),
-                                           (cudaStream_t)stream>>>(a);
+    traverse_packet_kernel<VRT_MODE_NONE, STATS><<<grid, VRT_BLOCK,
+                                                   stack_bytes(stack_n),
+                                                   (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }
 
-// The alpha mode; STATS also writes `int_steps`.
-template <bool STATS>
+// The alpha mode (`thr` and the slot classes `alpha_cls`, null: test every
+// slot) or, MODE == VRT_MODE_PRED, the predicate mode (no threshold, no
+// classes); STATS also writes `int_steps`.
+template <int MODE, bool STATS>
 int launch_alpha(
         const void* fused, const void* o, const void* d, const void* limit,
         const void* active, void* dist, void* bx, void* by, void* bz,
@@ -431,7 +468,7 @@ int launch_alpha(
         (VRT_ROW_WORDS + 16 * slots) / 4, thr, (const uint32_t*)alpha_cls,
         (int*)int_steps};
     const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
-    traverse_packet_kernel<true, STATS><<<grid, VRT_BLOCK,
+    traverse_packet_kernel<MODE, STATS><<<grid, VRT_BLOCK,
                                           stack_bytes(stack_n),
                                           (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
@@ -473,7 +510,7 @@ extern "C" int vrt_traverse_packet_alpha(
         int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
         int stack_n, int max_steps, int occl_split, int n_pool, int slots,
         float thr, void* stream) {
-    return launch_alpha<false>(
+    return launch_alpha<VRT_MODE_ALPHA, false>(
         fused, o, d, limit, active, dist, bx, by, bz, tri, inst, steps,
         alpha_pool, alpha_cls, nullptr, n_rays, n_nodes, row_words, lmax,
         tri_bits, stack_n, max_steps, occl_split, n_pool, slots, thr, stream);
@@ -502,8 +539,39 @@ extern "C" int vrt_traverse_packet_alpha_stats(
         int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
         int stack_n, int max_steps, int occl_split, int n_pool, int slots,
         float thr, void* stream) {
-    return launch_alpha<true>(
+    return launch_alpha<VRT_MODE_ALPHA, true>(
         fused, o, d, limit, active, dist, bx, by, bz, tri, inst, steps,
         alpha_pool, alpha_cls, int_steps, n_rays, n_nodes, row_words, lmax,
         tri_bits, stack_n, max_steps, occl_split, n_pool, slots, thr, stream);
 }
+
+#ifdef VRT_PRED_HEADER
+// The predicate mode: as vrt_traverse_packet_alpha without the threshold
+// and the classes; every candidate is tested by the compiled predicate.
+extern "C" int vrt_traverse_packet_pred(
+        const void* fused, const void* o, const void* d, const void* limit,
+        const void* active, void* dist, void* bx, void* by, void* bz,
+        void* tri, void* inst, void* steps, const void* alpha_pool,
+        int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
+        int stack_n, int max_steps, int occl_split, int n_pool, int slots,
+        void* stream) {
+    return launch_alpha<VRT_MODE_PRED, false>(
+        fused, o, d, limit, active, dist, bx, by, bz, tri, inst, steps,
+        alpha_pool, nullptr, nullptr, n_rays, n_nodes, row_words, lmax,
+        tri_bits, stack_n, max_steps, occl_split, n_pool, slots, 0.0f, stream);
+}
+
+extern "C" int vrt_traverse_packet_pred_stats(
+        const void* fused, const void* o, const void* d, const void* limit,
+        const void* active, void* dist, void* bx, void* by, void* bz,
+        void* tri, void* inst, void* steps, const void* alpha_pool,
+        void* int_steps,
+        int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
+        int stack_n, int max_steps, int occl_split, int n_pool, int slots,
+        void* stream) {
+    return launch_alpha<VRT_MODE_PRED, true>(
+        fused, o, d, limit, active, dist, bx, by, bz, tri, inst, steps,
+        alpha_pool, nullptr, int_steps, n_rays, n_nodes, row_words, lmax,
+        tri_bits, stack_n, max_steps, occl_split, n_pool, slots, 0.0f, stream);
+}
+#endif

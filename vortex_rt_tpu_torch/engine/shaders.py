@@ -13,7 +13,9 @@ anyhit(ctx, sp, ray, payload) -> (R,) int32 commit action
 ``alpha_test_anyhit(thr)`` and ``stateless_anyhit(pred)`` carry markers
 (``alpha_threshold``, ``inline_predicate``) that tell the renderer the
 decision is a pure function of the candidate: the alpha test then runs
-inside K1 / K2 (``alpha_ref``).  Every any-hit shader also runs through
+inside K1 / K2 (``alpha_ref``), and the predicate, compiled by
+``ops/anyhit_pred.py``, inside their predicate modes (``anyhit_pred``).
+Every any-hit shader also runs through
 the suspension protocol of the per-ray walk (K3), which is what an
 unmarked (possibly stateful) shader always takes.
 """
@@ -190,12 +192,13 @@ def stateless_anyhit(pred: Callable, name: str = "stateless"):
     (COMMIT_CONT), keep=True accepts it.  ``pred`` takes and returns
     torch tensors, elementwise.
 
-    Marked with ``inline_predicate``.  The JAX package inlines the
-    predicate into its traversal loop; a CUDA kernel cannot take an
-    arbitrary Python callable, so the port runs it through the
-    suspension protocol of the per-ray walk (K3, TLAS builds), which
-    accepts the same hits, and refuses it on flattened builds (ROADMAP
-    Queue 1, item 8b)."""
+    Marked with ``inline_predicate``.  As the JAX package inlines the
+    predicate into its traversal loop, the renderer compiles it
+    (``ops.anyhit_pred.compile_predicate``, which raises
+    ``NotImplementedError`` for an op outside its set) and runs it inside
+    K1's or K2's predicate mode over the ``with_alpha`` tables, flat or
+    TLAS; through the per-ray engine (``RTConfig(packet_size=0)``, TLAS
+    builds) this callable runs by suspension, with the same hits."""
 
     def shader(ctx: ShaderContext, sp: ShadePoint, ray: RayLanes,
                payload: PayloadLanes) -> torch.Tensor:

@@ -38,9 +38,15 @@ continuation does not read ``lit``, so the merged wave applies.
 
 Any-hit shaders (``ShaderTable.anyhit``) take one of two routes:
 
-* ``alpha_test_anyhit`` (marked ``alpha_threshold``) stays on the route
-  above: ``from_buffers`` builds the ``with_alpha`` tables and every wave
-  runs K1 or K2 in alpha mode (``alpha_ref``), shadow rays included;
+* ``alpha_test_anyhit`` (marked ``alpha_threshold``) and
+  ``stateless_anyhit`` (marked ``inline_predicate``) stay on the route
+  above, as the JAX package's ``_inline_anyhit`` keeps them:
+  ``from_buffers`` builds the ``with_alpha`` tables and every wave runs
+  K1 or K2 in alpha mode (``alpha_ref``) or in predicate mode
+  (``anyhit_pred``: the predicate compiled by ``ops/anyhit_pred.py``,
+  which raises ``NotImplementedError`` at ``from_buffers`` for an op
+  outside its set), shadow rays and the merged wave included, flat or
+  TLAS;
 * every other any-hit shader, and every frame with
   ``RTConfig(packet_size=0)``, takes the pool path, the JAX monolithic
   frame: all samples of all pixels in one pool of lanes, each wave traced
@@ -48,9 +54,7 @@ Any-hit shaders (``ShaderTable.anyhit``) take one of two routes:
   host loop of suspension rounds when an any-hit shader is bound (walk to
   the next candidate, ``shade_point`` at it, the shader, ``commit``),
   shadow rays as closest-hit traces clamped at the light.  The suspension
-  protocol needs the TLAS build; ``stateless_anyhit`` on a flattened
-  build is refused (ROADMAP Queue 1, item 8b: the JAX package inlines
-  its predicate into the walk, which a CUDA kernel cannot take).
+  protocol needs the TLAS build.
 
 ``render(mode="chunked")`` is the JAX host-orchestrated frame: the pool
 compacted live-first before each bounce and only its live prefix traced
@@ -101,6 +105,9 @@ from vortex_rt_tpu_torch.engine.shaders import (
 )
 from vortex_rt_tpu_torch.models.scene import (
     Camera, RenderParams, Scene, SceneBuffers,
+)
+from vortex_rt_tpu_torch.ops.anyhit_pred import (
+    CompiledPredicate, compile_predicate,
 )
 from vortex_rt_tpu_torch.ops.packet_walk import trace_packets_walk
 from vortex_rt_tpu_torch.ops.shade_lanes import ShadeArrays, shade_point
@@ -202,34 +209,43 @@ def _resolve_tiled(lanes: torch.Tensor, width: int, rows: int,
     return a.permute(0, 2, 1, 3).reshape(rows, width)
 
 
-def _inline_alpha(table: ShaderTable, wa: WideArrays) -> Optional[float]:
-    """Threshold of an alpha-test any-hit the walks can run inside K1 or
-    K2 (``alpha_test_anyhit``'s marker, with the ``with_alpha`` tables),
-    else None."""
+def _inline_anyhit(table: ShaderTable, wa: WideArrays):
+    """The any-hit test the walks run inside K1 or K2 (the JAX
+    ``_inline_anyhit``): the compiled predicate of a ``stateless_anyhit``
+    (``inline_predicate``; it wins over a threshold), the threshold of an
+    ``alpha_test_anyhit`` (``alpha_threshold``), or None: unmarked
+    shaders, and tables without the ``with_alpha`` fields.  Compiling
+    raises ``NotImplementedError`` for an op outside the compiler's
+    set."""
+    if getattr(wa, "alpha_rows", None) is None:
+        return None
+    pred = getattr(table.anyhit, "inline_predicate", None)
+    if pred is not None:
+        return compile_predicate(pred)
     thr = getattr(table.anyhit, "alpha_threshold", None)
-    if thr is not None and wa.alpha_rows is not None:
-        return float(thr)
-    return None
+    return None if thr is None else float(thr)
+
+
+def _walk_anyhit(anyhit) -> dict:
+    """The walk's keyword for the in-walk any-hit test."""
+    if anyhit is None:
+        return {}
+    if isinstance(anyhit, CompiledPredicate):
+        return {"anyhit_pred": anyhit}
+    return {"alpha_ref": anyhit}
 
 
 def _route(table: ShaderTable, wa: WideArrays, packet: int):
-    """('walk', alpha_ref) for the wave route through K1 / K2, or
-    ('pool', None) for the per-ray walk (K3); raises for what no route
-    runs."""
-    alpha = _inline_alpha(table, wa)
-    if packet != 0 and (table.anyhit is None or alpha is not None):
-        return "walk", alpha
-    if (table.anyhit is not None and wa.tri_bits and alpha is None
-            and getattr(table.anyhit, "inline_predicate", None) is not None):
-        raise NotImplementedError(
-            "stateless_anyhit on a flattened build: its predicate runs "
-            "inside the walk in the JAX package, and a CUDA kernel "
-            "cannot take an arbitrary Python callable (ROADMAP Queue 1, "
-            "item 8b); build with RTConfig(flatten=False) to run it "
-            "through the suspension engine")
+    """('walk', in-walk any-hit) for the wave route through K1 / K2 (the
+    threshold, the compiled predicate, or None), or ('pool', None) for
+    the per-ray walk (K3); raises for what no route runs."""
+    if packet != 0:
+        inline = _inline_anyhit(table, wa)
+        if table.anyhit is None or inline is not None:
+            return "walk", inline
     if wa.width != 4:
         raise ValueError("the per-ray walk (packet_size=0, or an "
-                         "any-hit shader without an alpha marker) needs "
+                         "any-hit shader without an in-walk marker) needs "
                          "4-wide tables: RTConfig(bvh_width=4)")
     if table.anyhit is not None and wa.tri_bits:
         raise ValueError("any-hit suspension needs the TLAS build "
@@ -288,13 +304,14 @@ def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
                    table: ShaderTable, light: LightArrays, lanes, pix, samp,
                    alive, max_depth: int, shadow: bool,
                    walk: Optional[Callable],
-                   alpha_ref: Optional[float] = None, pool: bool = False,
+                   anyhit=None, pool: bool = False,
                    bilinear: bool = False, stage_limit: Optional[int] = None,
                    collect_stats: bool = False):
     """The bounce pipeline over one lane set: trace, shadow occlusion,
     shade, spawn — ``max_depth`` waves, with the merged shadow+bounce
-    wave on the 8-wide route.  Traces go through ``walk`` (with
-    ``alpha_ref`` when given), or through ``_trace_pool`` (the per-ray
+    wave on the 8-wide route.  Traces go through ``walk`` (with the
+    in-walk any-hit test ``anyhit`` of ``_route``: a threshold or a
+    compiled predicate), or through ``_trace_pool`` (the per-ray
     walk, any-hit by suspension) when ``pool``.  ``collect_stats`` has
     every walk wave count (``PacketStats`` by wave name; the pool
     counts none); ``stage_limit`` stops after that stage (the module
@@ -317,7 +334,7 @@ def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
     n_tri = sa.shade_rows.shape[0]
     n_inst = sa.inst_shade.shape[0]
     pending = None  # this bounce's hits, traced by the previous merged wave
-    akw = {} if alpha_ref is None else {"alpha_ref": alpha_ref}
+    akw = _walk_anyhit(anyhit)
     wave_stats = {}
 
     def run(stage):
@@ -499,7 +516,7 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
     waits for the device, except the pool path's suspension rounds (one
     read a round)."""
     table = table or ShaderTable()
-    route, alpha_ref = _route(table, wa, packet)
+    route, anyhit = _route(table, wa, packet)
     walk = walk or default_walk(wa)
     dev = wa.device
     ctx = ShaderContext(
@@ -543,7 +560,7 @@ def frame_body(wa: WideArrays, sa: ShadeArrays, cam: CameraArrays,
                                   total_spp)
         rr, rg, rb, n_rays, n_steps, ws = _wave_pipeline(
             wa, sa, ctx, table, light, lanes6, pix, samp, alive,
-            max_depth, shadow, walk, alpha_ref=alpha_ref, **opts)
+            max_depth, shadow, walk, anyhit=anyhit, **opts)
         acc = [acc[0] + rr, acc[1] + rg, acc[2] + rb]
         rays = rays + n_rays
         steps = steps + n_steps

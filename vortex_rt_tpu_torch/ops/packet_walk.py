@@ -25,7 +25,15 @@ inside the clamp: occluded rays return dist 0.0, the others LARGE_FLOAT.
 candidate whose surface alpha is below ``thr`` before it counts, as the
 JAX ``trace_packets(alpha_ref=thr)`` does on 4-wide tables (the Pallas
 kernel had no any-hit mode); CUDA tensors launch the kernel's alpha
-instantiation, counted as ``packet_walk_alpha``.
+instantiation, counted as ``packet_walk_alpha``.  ``anyhit_pred=pred`` (a
+stateless predicate ``pred(u, v, alpha) -> keep``, or its
+``ops.anyhit_pred.CompiledPredicate``; the same tables) rejects every
+candidate whose predicate is false, as the JAX
+``trace_packets(anyhit_pred=pred)`` does; it wins over ``alpha_ref``.
+CUDA tensors launch the predicate mode of a library built with the
+compiled predicate (``kernels.load_pred``), counted as
+``packet_walk_pred``; the plain version calls ``pred`` itself on the
+candidates' (u, v, alpha).
 The TPU kernel walked the union of a 1024-ray packet's paths; both
 versions here walk each ray's own path, which gives the same hits (the
 closest hit is a min over a ray's own candidates with a lexicographic
@@ -39,6 +47,9 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from vortex_rt_tpu_torch.ops.anyhit_pred import (
+    CompiledPredicate, compile_predicate,
+)
 from vortex_rt_tpu_torch.ops.traverse2 import Hits
 from vortex_rt_tpu_torch.ops.traverse_wide import (
     INST_ROOT, INST_XFORM, LEAF, LEFT_BITS, LEFT_MASK, META, QHI, QLO,
@@ -136,12 +147,13 @@ def alpha_fields(rows_f: torch.Tensor, c: int):
             + [ints[:, b + 6].to(torch.int64), ints[:, b + 7].to(torch.int64)])
 
 
-def alpha_keep(f, w1, w2, pool: torch.Tensor, thr: float):
-    """The plain version of ``csrc/alpha_test.cuh``: keep a candidate at
-    barycentrics (w1, w2) unless its surface alpha is below ``thr``; the
-    pool index and the pool read for every lane (the caller masks).
-    Returns (keep, pool index).  The JAX body's operations in its order
-    (traverse_packet.py:723-761); ``%`` is floored, as jnp's."""
+def candidate_surface(f, w1, w2, pool: torch.Tensor):
+    """The plain version of ``csrc/alpha_test.cuh::vrt_candidate_surface``:
+    a candidate's interpolated uv at barycentrics (w1, w2) and its surface
+    alpha, the pool entry of the point-sampled texel, for every lane (the
+    caller masks).  Returns (u, v, alpha, pool index).  The JAX body's
+    operations in its order (traverse_packet.py:723-761); ``%`` is
+    floored, as jnp's."""
     u0, v0, u1, v1, u2, v2, toff, twh = f
     bz = 1.0 - w1 - w2
     u = u1 * w1 + u2 * w2 + u0 * bz
@@ -151,15 +163,45 @@ def alpha_keep(f, w1, w2, pool: torch.Tensor, thr: float):
     iu = torch.floor(u * tw.to(torch.float32)).to(torch.int64) % tw
     iv = torch.floor(v * th.to(torch.float32)).to(torch.int64) % th
     idx = (toff + iu + iv * tw).clamp(0, pool.shape[0] - 1)
+    return u, v, pool[idx], idx
+
+
+def alpha_keep(f, w1, w2, pool: torch.Tensor, thr: float):
+    """The plain version of ``csrc/alpha_test.cuh::vrt_alpha_keep``: keep
+    a candidate at barycentrics (w1, w2) unless its surface alpha is
+    below ``thr``.  Returns (keep, pool index) for every lane."""
+    _, _, alpha, idx = candidate_surface(f, w1, w2, pool)
     thr_t = torch.tensor(thr, dtype=torch.float32, device=pool.device)
-    return ~(pool[idx] < thr_t), idx
+    return ~(alpha < thr_t), idx
+
+
+def pred_keep(pred: CompiledPredicate, f, w1, w2, pool: torch.Tensor,
+              mask: torch.Tensor):
+    """The predicate mode's test in the plain walks: the user's callable
+    on the surface (u, v, alpha) of the candidates in ``mask``; True
+    elsewhere.  Returns (keep, pool index)."""
+    u, v, alpha, idx = candidate_surface(f, w1, w2, pool)
+    keep = torch.ones_like(mask)
+    keep[mask] = pred.fn(u[mask], v[mask], alpha[mask])
+    return keep, idx
+
+
+def anyhit_mode(alpha_ref: Optional[float], anyhit_pred
+                ) -> Tuple[Optional[float], Optional[CompiledPredicate]]:
+    """(alpha_ref, compiled predicate) of a walk: a predicate wins over
+    the threshold, as in the JAX ``trace_packets``; compiling it raises
+    ``NotImplementedError`` for what the kernels cannot run."""
+    if anyhit_pred is None:
+        return alpha_ref, None
+    return None, compile_predicate(anyhit_pred)
 
 
 def check_alpha(wa: WideArrays) -> None:
-    """An alpha-mode walk needs the tables of ``WideArrays.with_alpha``."""
+    """An alpha- or predicate-mode walk needs the tables of
+    ``WideArrays.with_alpha``."""
     if wa.alpha_rows is None or wa.alpha_pool is None:
-        raise ValueError("alpha_ref needs the alpha tables: "
-                         "WideArrays.with_alpha(sb)")
+        raise ValueError("alpha_ref and anyhit_pred need the alpha "
+                         "tables: WideArrays.with_alpha(sb)")
     k = wa.tri_rows.shape[1] // 16
     if (wa.alpha_rows.dtype != torch.float32
             or wa.alpha_rows.shape != (wa.tri_rows.shape[0], 8 * k)
@@ -247,43 +289,48 @@ def trace_packets_walk(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                        occlusion: bool = False,
                        max_steps: int = MAX_STEPS,
                        alpha_ref: Optional[float] = None,
-                       stats: bool = False):
+                       stats: bool = False, anyhit_pred=None):
     """Closest-hit (or bounded occlusion) trace of (R, 3) rays over the
     4-wide tables.  Returns (Hits, per-ray step counts (R,) int32), and
     the rays' ``StepKinds`` third with ``stats=True``.
 
     CUDA tensors launch the hand-written kernel; CPU tensors run the
     plain PyTorch version."""
+    alpha_ref, pred = anyhit_mode(alpha_ref, anyhit_pred)
     if o.device.type == "cpu":
         if stats:
             hits, steps, work = walk_work_4(wa, o, d, active, t_max,
-                                            occlusion, max_steps, alpha_ref)
+                                            occlusion, max_steps, alpha_ref,
+                                            pred)
             return hits, steps, StepKinds.from_work(work)
         return trace_packets_walk_ref(wa, o, d, active, t_max, occlusion,
-                                      max_steps, alpha_ref)
+                                      max_steps, alpha_ref, pred)
     return kernel_call(wa, o, d, active, t_max, occlusion, max_steps,
-                       alpha_ref, stats)()
+                       alpha_ref, stats, pred)()
 
 
 def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                 active: Optional[torch.Tensor] = None,
                 t_max: Optional[torch.Tensor] = None,
                 occlusion: bool = False, max_steps: int = MAX_STEPS,
-                alpha_ref: Optional[float] = None, stats: bool = False
-                ) -> Callable[[], tuple]:
+                alpha_ref: Optional[float] = None, stats: bool = False,
+                anyhit_pred=None) -> Callable[[], tuple]:
     """The kernel launch of ``trace_packets_walk`` for CUDA tensors, with
     the inputs checked and the search limits and outputs made once.  Each
     call of the returned function launches the kernel into the same
     outputs and returns them, and does nothing else: CUDA events around
     many calls time the kernel alone.  ``stats=True`` launches the
-    counting instantiation, which also returns the ``StepKinds``."""
+    counting instantiation, which also returns the ``StepKinds``;
+    ``anyhit_pred`` the predicate mode of the library built with it."""
     _check(wa, o, d, active, t_max)
-    if alpha_ref is not None:
+    alpha_ref, pred = anyhit_mode(alpha_ref, anyhit_pred)
+    if alpha_ref is not None or pred is not None:
         check_alpha(wa)
     stack_n = check_stack(wa)
     if o.device.type != "cuda":
         raise ValueError(f"no CUDA walk for device {o.device}")
-    lib = kernels.load("packet_walk")
+    lib = (kernels.load("packet_walk") if pred is None
+           else kernels.load_pred("packet_walk", pred))
     cap = int(lib.lib.vrt_packet_walk_stack_max())
     if cap != STACK_MAX:
         raise RuntimeError(f"the kernel holds {cap} stack entries, "
@@ -313,23 +360,22 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
              wa.tri_rows.shape[1], max(int(wa.max_leaf_tris), 1),
              int(wa.num_tlas), int(wa.tri_bits), stack_n, int(max_steps),
              int(bool(occlusion)))
-    name = ("packet_walk_stats" if stats else "packet_walk"
-            if alpha_ref is None else "packet_walk_alpha")
+    mode = ("pred" if pred is not None else
+            "alpha" if alpha_ref is not None else "")
+    name = ("packet_walk_stats" if stats else
+            f"packet_walk_{mode}" if mode else "packet_walk")
 
     def launch() -> tuple:
         common = [t.data_ptr() for t in tensors]
-        if alpha_ref is not None:
+        if mode:
             common += [wa.alpha_rows.data_ptr(), wa.alpha_pool.data_ptr()]
         if stats:
             common += [kinds.internal.data_ptr(), kinds.instance.data_ptr()]
-        alpha_sizes = (() if alpha_ref is None else
-                       (wa.alpha_rows.shape[1], wa.alpha_pool.shape[0],
-                        float(alpha_ref)))
-        fn = {(False, False): lib.lib.vrt_packet_walk,
-              (True, False): lib.lib.vrt_packet_walk_alpha,
-              (False, True): lib.lib.vrt_packet_walk_stats,
-              (True, True): lib.lib.vrt_packet_walk_alpha_stats}[
-                  (alpha_ref is not None, stats)]
+        alpha_sizes = (() if not mode else
+                       (wa.alpha_rows.shape[1], wa.alpha_pool.shape[0])
+                       + ((float(alpha_ref),) if mode == "alpha" else ()))
+        fn = getattr(lib.lib, "vrt_packet_walk" + (f"_{mode}" if mode else "")
+                     + ("_stats" if stats else ""))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(*common, *sizes, *alpha_sizes, stream)
@@ -357,8 +403,8 @@ def trace_packets_walk_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                            t_max: Optional[torch.Tensor] = None,
                            occlusion: bool = False,
                            max_steps: int = MAX_STEPS,
-                           alpha_ref: Optional[float] = None
-                           ) -> Tuple[Hits, torch.Tensor]:
+                           alpha_ref: Optional[float] = None,
+                           anyhit_pred=None) -> Tuple[Hits, torch.Tensor]:
     """Plain PyTorch version of the per-ray walk, on any device.
 
     All rays step together: each step gathers every live ray's node row,
@@ -367,7 +413,7 @@ def trace_packets_walk_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     and the same arithmetic order as the kernel, so both give the same
     hits and the same per-ray step counts to the bit."""
     hits, steps, _ = _walk_ref(wa, o, d, active, t_max, occlusion,
-                               max_steps, False, alpha_ref)
+                               max_steps, False, alpha_ref, anyhit_pred)
     return hits, steps
 
 
@@ -375,21 +421,24 @@ def walk_work_4(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                 active: Optional[torch.Tensor] = None,
                 t_max: Optional[torch.Tensor] = None,
                 occlusion: bool = False, max_steps: int = MAX_STEPS,
-                alpha_ref: Optional[float] = None
+                alpha_ref: Optional[float] = None, anyhit_pred=None
                 ) -> Tuple[Hits, torch.Tensor, WalkWork]:
     """The plain 4-wide walk of these rays, with what it computes per
     ray: (Hits, steps, WalkWork).  ``tools/walk_bounds.py`` turns the
     work into a bound.  Its rows are the nodes, then the triangle rows,
-    and in alpha mode the alpha rows and the alpha pool's entries."""
+    and in alpha or predicate mode the alpha rows and the alpha pool's
+    entries."""
     return _walk_ref(wa, o, d, active, t_max, occlusion, max_steps, True,
-                     alpha_ref)
+                     alpha_ref, anyhit_pred)
 
 
 def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
-              max_steps: int, count: bool, alpha_ref: Optional[float] = None):
+              max_steps: int, count: bool, alpha_ref: Optional[float] = None,
+              anyhit_pred=None):
     """(Hits, steps, WalkWork or None) of the plain 4-wide walk."""
     _check(wa, o, d, active, t_max)
-    alpha = alpha_ref is not None
+    alpha_ref, pred = anyhit_mode(alpha_ref, anyhit_pred)
+    alpha = alpha_ref is not None or pred is not None
     if alpha:
         check_alpha(wa)
     dev = o.device
@@ -528,8 +577,11 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
             ok = (~small & (w1 >= 0.0) & (w1 <= 1.0) & (w2 >= 0.0)
                   & (w1 + w2 <= 1.0) & (t > eps) & (c < leaf_n) & is_leaf)
             if alpha:
-                keep, idx = alpha_keep(alpha_fields(ar, c), w1, w2,
-                                       wa.alpha_pool, alpha_ref)
+                keep, idx = (alpha_keep(alpha_fields(ar, c), w1, w2,
+                                        wa.alpha_pool, alpha_ref)
+                             if pred is None else
+                             pred_keep(pred, alpha_fields(ar, c), w1, w2,
+                                       wa.alpha_pool, ok))
                 if count:
                     n_alpha += ok.to(torch.int64)
                     work.read(n_nodes + 2 * n_rows + idx,

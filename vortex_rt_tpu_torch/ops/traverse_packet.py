@@ -46,10 +46,19 @@ hit and no step (``walk_work`` counts both the tests the kernel makes,
 ``alpha_lookups``, and the candidates, ``alpha_tests``).  CUDA tensors
 launch the kernel's
 alpha instantiation (counted as ``traverse_packet_alpha``; the walk
-without alpha is unchanged).  The JAX ``anyhit_pred``, an arbitrary
-traced predicate, cannot enter a CUDA kernel: the frame runs such
-shaders through the suspension engine (K3) on TLAS builds and refuses
-them on flattened builds (ROADMAP Queue 1, item 8b).
+without alpha is unchanged).
+
+``anyhit_pred=pred`` is the JAX in-walk stateless any-hit over the same
+tables: ``pred(u, v, alpha) -> keep`` (or its
+``ops.anyhit_pred.CompiledPredicate``) on every candidate that passes
+Moller-Trumbore, before the fold, in the three modes; it wins over
+``alpha_ref``, as in the JAX ``trace_packets``.  ``compile_predicate``
+turns it into a CUDA device function (and raises
+``NotImplementedError`` for what it refuses, on any device); CUDA
+tensors launch the predicate mode of the library built with it
+(``kernels.load_pred``, counted as ``traverse_packet_pred``), which
+tests every candidate (no slot classes); the plain version calls
+``pred`` itself on the candidates' (u, v, alpha).
 """
 
 from __future__ import annotations
@@ -60,7 +69,8 @@ import torch
 
 from vortex_rt_tpu_torch.ops.packet_walk import (
     ALPHA_SLOT_BYTES, TRI_SLOT_BYTES, StepKinds, WalkWork, _rcp,
-    alpha_fields, alpha_keep, check_alpha, check_rays,
+    alpha_fields, alpha_keep, anyhit_mode, check_alpha, check_rays,
+    pred_keep,
 )
 from vortex_rt_tpu_torch.ops.traverse2 import Hits
 from vortex_rt_tpu_torch.ops.traverse_wide import (
@@ -158,8 +168,9 @@ def alpha_offset(wa: WideArrays) -> int:
     check_alpha(wa)
     k = wa.tri_rows.shape[1] // 16
     if wa.fused is None or wa.fused.shape[1] != ROW_WORDS + 24 * k:
-        raise ValueError("alpha_ref needs fused rows that carry the alpha "
-                         "fields (WideArrays.with_alpha on a fused table)")
+        raise ValueError("alpha_ref and anyhit_pred need fused rows that "
+                         "carry the alpha fields (WideArrays.with_alpha on "
+                         "a fused table)")
     return ROW_WORDS + 16 * k
 
 
@@ -294,23 +305,26 @@ def trace_packets(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                   occlusion: bool = False, occl_split: int = 0,
                   max_steps: int = MAX_STEPS,
                   alpha_ref: Optional[float] = None,
-                  stats: bool = False):
+                  stats: bool = False, anyhit_pred=None):
     """Closest-hit, occlusion or mixed trace of (R, 3) rays over the
     8-wide fused table, with the alpha cutout when ``alpha_ref`` is
-    given.  Returns (Hits, per-ray step counts (R,) int32), and the
-    rays' ``StepKinds`` third with ``stats=True``.
+    given, or the stateless predicate ``anyhit_pred``.  Returns (Hits,
+    per-ray step counts (R,) int32), and the rays' ``StepKinds`` third
+    with ``stats=True``.
 
     CUDA tensors launch the hand-written kernel; CPU tensors run the
     plain PyTorch version."""
+    alpha_ref, pred = anyhit_mode(alpha_ref, anyhit_pred)
     if o.device.type == "cpu":
         if stats:
             hits, steps, work = walk_work(wa, o, d, active, t_max, occlusion,
-                                          occl_split, max_steps, alpha_ref)
+                                          occl_split, max_steps, alpha_ref,
+                                          pred)
             return hits, steps, StepKinds.from_work(work)
         return trace_packets_ref(wa, o, d, active, t_max, occlusion,
-                                 occl_split, max_steps, alpha_ref)
+                                 occl_split, max_steps, alpha_ref, pred)
     return kernel_call(wa, o, d, active, t_max, occlusion, occl_split,
-                       max_steps, alpha_ref, stats)()
+                       max_steps, alpha_ref, stats, pred)()
 
 
 def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
@@ -318,20 +332,25 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                 t_max: Optional[torch.Tensor] = None,
                 occlusion: bool = False, occl_split: int = 0,
                 max_steps: int = MAX_STEPS,
-                alpha_ref: Optional[float] = None, stats: bool = False
-                ) -> Callable[[], tuple]:
+                alpha_ref: Optional[float] = None, stats: bool = False,
+                anyhit_pred=None) -> Callable[[], tuple]:
     """The kernel launch of ``trace_packets`` for CUDA tensors, with the
     inputs checked and the outputs allocated once.  Each call of the
     returned function launches the kernel into the same outputs and
     returns them, and does nothing else: CUDA events around many calls
     time the kernel alone.  ``stats=True`` launches the counting
-    instantiation, which also returns the ``StepKinds``."""
+    instantiation, which also returns the ``StepKinds``;
+    ``anyhit_pred`` the predicate mode of the library built with it."""
     _check(wa, o, d, active, t_max, occl_split)
+    alpha_ref, pred = anyhit_mode(alpha_ref, anyhit_pred)
     if alpha_ref is not None:
         classes = alpha_classes(wa, alpha_ref)
+    if pred is not None:
+        alpha_offset(wa)
     if o.device.type != "cuda":
         raise ValueError(f"no CUDA walk for device {o.device}")
-    lib = kernels.load("traverse_packet")
+    lib = (kernels.load("traverse_packet") if pred is None
+           else kernels.load_pred("traverse_packet", pred))
     stack_n = stack_entries(wa)
     cap = int(lib.lib.vrt_traverse_packet_stack_max())
     if stack_n > cap:
@@ -364,24 +383,25 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     sizes = (r, wa.fused.shape[0], wa.fused.shape[1],
              max(int(wa.max_leaf_tris), 1), int(wa.tri_bits), stack_n,
              int(max_steps), split)
-    name = ("traverse_packet_stats" if stats else "traverse_packet"
-            if alpha_ref is None else "traverse_packet_alpha")
+    mode = ("pred" if pred is not None else
+            "alpha" if alpha_ref is not None else "")
+    name = ("traverse_packet_stats" if stats else
+            f"traverse_packet_{mode}" if mode else "traverse_packet")
 
     def launch() -> tuple:
         ptrs = [t.data_ptr() for t in tensors]
         alpha_sizes = ()
-        if alpha_ref is not None:
-            ptrs += [wa.alpha_pool.data_ptr(),
-                     0 if classes is None else classes.data_ptr()]
-            alpha_sizes = (wa.alpha_pool.shape[0], wa.tri_rows.shape[1] // 16,
-                           float(alpha_ref))
+        if mode:
+            ptrs.append(wa.alpha_pool.data_ptr())
+            alpha_sizes = (wa.alpha_pool.shape[0], wa.tri_rows.shape[1] // 16)
+        if mode == "alpha":
+            ptrs.append(0 if classes is None else classes.data_ptr())
+            alpha_sizes += (float(alpha_ref),)
         if stats:
             ptrs.append(kinds.internal.data_ptr())
-        fn = {(False, False): lib.lib.vrt_traverse_packet,
-              (True, False): lib.lib.vrt_traverse_packet_alpha,
-              (False, True): lib.lib.vrt_traverse_packet_stats,
-              (True, True): lib.lib.vrt_traverse_packet_alpha_stats}[
-                  (alpha_ref is not None, stats)]
+        fn = getattr(lib.lib, "vrt_traverse_packet"
+                     + (f"_{mode}" if mode else "")
+                     + ("_stats" if stats else ""))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(*ptrs, *sizes, *alpha_sizes, stream)
@@ -402,8 +422,8 @@ def trace_packets_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                       t_max: Optional[torch.Tensor] = None,
                       occlusion: bool = False, occl_split: int = 0,
                       max_steps: int = MAX_STEPS,
-                      alpha_ref: Optional[float] = None
-                      ) -> Tuple[Hits, torch.Tensor]:
+                      alpha_ref: Optional[float] = None,
+                      anyhit_pred=None) -> Tuple[Hits, torch.Tensor]:
     """Plain PyTorch version of the per-ray 8-wide walk, on any device.
 
     All rays step together: each step gathers every live ray's fused row,
@@ -413,7 +433,8 @@ def trace_packets_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
     order as the kernel, so both give the same hits and the same per-ray
     step counts to the bit."""
     hits, steps, _ = _walk_ref(wa, o, d, active, t_max, occlusion,
-                               occl_split, max_steps, False, alpha_ref)
+                               occl_split, max_steps, False, alpha_ref,
+                               anyhit_pred)
     return hits, steps
 
 
@@ -422,28 +443,32 @@ def walk_work(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
               t_max: Optional[torch.Tensor] = None,
               occlusion: bool = False, occl_split: int = 0,
               max_steps: int = MAX_STEPS,
-              alpha_ref: Optional[float] = None
+              alpha_ref: Optional[float] = None, anyhit_pred=None
               ) -> Tuple[Hits, torch.Tensor, WalkWork]:
     """The plain walk of these rays, with what it computes per ray:
     (Hits, steps, WalkWork of internal steps and their child slots, leaf
-    steps and their triangle slots, the alpha tests the kernel makes and
-    the candidates that passed Moller-Trumbore).  ``tools/walk_bounds.py``
-    turns the work into a bound.  In alpha mode the rows are the fused
-    rows, then the alpha pool's entries."""
+    steps and their triangle slots, the alpha or predicate tests the
+    kernel makes and the candidates that passed Moller-Trumbore).
+    ``tools/walk_bounds.py`` turns the work into a bound.  In alpha or
+    predicate mode the rows are the fused rows, then the alpha pool's
+    entries."""
     return _walk_ref(wa, o, d, active, t_max, occlusion, occl_split,
-                     max_steps, True, alpha_ref)
+                     max_steps, True, alpha_ref, anyhit_pred)
 
 
 def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
               occl_split: int, max_steps: int, count: bool,
-              alpha_ref: Optional[float] = None):
+              alpha_ref: Optional[float] = None, anyhit_pred=None):
     """(Hits, steps, WalkWork or None) of the plain walk."""
     _check(wa, o, d, active, t_max, occl_split)
-    alpha = alpha_ref is not None
+    alpha_ref, pred = anyhit_mode(alpha_ref, anyhit_pred)
+    # alpha: the surface of every candidate is read (either mode)
+    alpha = alpha_ref is not None or pred is not None
     a_off = alpha_offset(wa) if alpha else 0
-    # the kernel's classes, for its count of tests only: the hits come
-    # from testing every candidate
-    classes = alpha_classes(wa, alpha_ref) if alpha and count else None
+    # the kernel's classes (alpha mode), for its count of tests only: the
+    # hits come from testing every candidate
+    classes = (alpha_classes(wa, alpha_ref)
+               if alpha_ref is not None and count else None)
     dev = o.device
     r = o.shape[0]
     occ = torch.arange(r, device=dev) < _split(r, occlusion, occl_split)
@@ -580,8 +605,11 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
             ok = (~small & (w1 >= 0.0) & (w1 <= 1.0) & (w2 >= 0.0)
                   & (w1 + w2 <= 1.0) & (t > eps) & (c < leaf_n))
             if alpha:
-                keep, idx = alpha_keep(alpha_fields(ar, c), w1, w2,
-                                       wa.alpha_pool, alpha_ref)
+                keep, idx = (alpha_keep(alpha_fields(ar, c), w1, w2,
+                                        wa.alpha_pool, alpha_ref)
+                             if pred is None else
+                             pred_keep(pred, alpha_fields(ar, c), w1, w2,
+                                       wa.alpha_pool, ok & is_tri))
                 if count:
                     # the kernel looks up the candidates of the slots its
                     # classes leave to the test (every slot, without them)
@@ -618,7 +646,8 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
             # fields of each candidate the kernel tests
             work.read(node_c, torch.where(is_int, 96, torch.where(
                 is_tri, 16 + TRI_SLOT_BYTES * slots
-                + ALPHA_SLOT_BYTES * n_looked + (4 if alpha else 0), 16)),
+                + ALPHA_SLOT_BYTES * n_looked
+                + (4 if alpha_ref is not None else 0), 16)),
                 alive)
             work.alpha_tests.add_(n_alpha)
             work.alpha_lookups.add_(n_looked)

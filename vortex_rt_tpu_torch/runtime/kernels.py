@@ -11,11 +11,26 @@ header is rebuilt and an unchanged one is reused.
 Nothing here runs at import: the CPU-only test machine imports every
 module and has no ``nvcc``.
 
+Variant libraries: ``load_pred(name, compiled)`` builds K1's or K2's
+source (``traverse_packet``, ``packet_walk``) with a stateless any-hit
+predicate compiled by ``ops/anyhit_pred.py``: its header is written into
+``build/torch_kernels/pred/`` under a name that carries its hash, and
+the source is built with ``-DVRT_PRED_HEADER=<that name>`` (no quotes:
+the source stringizes it) and ``-I``
+that directory, which compiles the walk's predicate-mode entry points
+(``vrt_traverse_packet_pred``, ``vrt_packet_walk_pred`` and their
+``_stats`` forms) beside the default ones.  The build key also hashes
+the defines, the include directories and the generated header's bytes,
+so each predicate gets its own library, built at its first use and
+reused after (ROADMAP hazard H22); a failed nvcc raises with its log.
+
 ``LAUNCHES`` counts kernel launches by library name (and ``ploc_pack``,
 ``lbvh_pack``'s two kernels in their PLOC mode,
 ``traverse_packet_alpha`` and ``packet_walk_alpha``, the alpha-cutout
-instantiations of K1 and K2, and ``traverse_packet_stats`` and
-``packet_walk_stats``, their counting instantiations in either mode).  Each wrapper adds one per
+instantiations of K1 and K2, ``traverse_packet_pred`` and
+``packet_walk_pred``, their predicate modes, and
+``traverse_packet_stats`` and ``packet_walk_stats``, their counting
+instantiations in any mode).  Each wrapper adds one per
 ``__global__`` function it launches (an LBVH or PLOC entry point may
 launch several), where it launches and nowhere else, so a caller can
 reset the counts, drive the main path and see which kernels it went
@@ -135,13 +150,29 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     },
 }
 
+# the predicate-mode entry points of a variant library (load_pred), beside
+# the default ones
+_PRED_SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
+    "traverse_packet": {
+        "vrt_traverse_packet_pred": ([_P] * 13 + [_I] * 10 + [_P], _I),
+        "vrt_traverse_packet_pred_stats": ([_P] * 14 + [_I] * 10 + [_P],
+                                           _I),
+    },
+    "packet_walk": {
+        "vrt_packet_walk_pred": ([_P] * 14 + [_I] * 12 + [_P], _I),
+        "vrt_packet_walk_pred_stats": ([_P] * 16 + [_I] * 12 + [_P], _I),
+    },
+}
+PRED_DIR = BUILD_DIR / "pred"
+
 # launch counts: one per kernel library, and "ploc_pack", lbvh_pack's
 # survivor records and the leaf rows it writes from explicit triangle ids,
-# the alpha-cutout instantiations of K1 and K2, and their counting
-# instantiations (with or without alpha)
+# the alpha-cutout and predicate modes of K1 and K2, and their counting
+# instantiations (in any mode)
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     *_SIGNATURES, "ploc_pack", "traverse_packet_alpha", "packet_walk_alpha",
-    "traverse_packet_stats", "packet_walk_stats")}
+    "traverse_packet_pred", "packet_walk_pred", "traverse_packet_stats",
+    "packet_walk_stats")}
 
 
 def reset_launches() -> None:
@@ -202,19 +233,32 @@ def includes(src_path: Path) -> List[Path]:
     return sorted(found)
 
 
-def _digest(src_path: Path) -> str:
-    """Hash of a source, every header it includes, and the flags."""
+def _digest(src_path: Path, extra: Tuple[str, ...] = (),
+            headers: Tuple[Path, ...] = ()) -> str:
+    """Hash of a source, every header it includes, the flags, and a
+    variant's extra flags and the headers they name (a generated
+    header)."""
     h = hashlib.sha256(Path(src_path).read_bytes())
     for hdr in includes(src_path):
         h.update(b"\0" + hdr.name.encode() + b"\0" + hdr.read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
+    if extra or headers:
+        h.update(b"\0variant\0" + "\0".join(extra).encode())
+        for hdr in headers:
+            h.update(b"\0" + Path(hdr).read_bytes())
     return h.hexdigest()[:16]
 
 
-def _build(src_path: Path) -> Tuple[Path, float, str]:
-    """Compile ``src_path`` unless its build is up to date; returns the
-    library's path, nvcc's seconds (0.0 when reused) and its output."""
-    so = BUILD_DIR / f"{src_path.stem}-{_digest(src_path)}.so"
+def _build(src_path: Path, defines: Tuple[str, ...] = (),
+           include_dirs: Tuple[Path, ...] = (),
+           headers: Tuple[Path, ...] = ()) -> Tuple[Path, float, str]:
+    """Compile ``src_path`` (with ``-D`` ``defines`` and ``-I``
+    ``include_dirs``, whose generated ``headers`` the build key hashes)
+    unless its build is up to date; returns the library's path, nvcc's
+    seconds (0.0 when reused) and its output."""
+    extra = (*(f"-D{d}" for d in defines),
+             *(f"-I{Path(p)}" for p in include_dirs))
+    so = BUILD_DIR / f"{src_path.stem}-{_digest(src_path, extra, headers)}.so"
     log_path = so.with_name(so.name + ".log")
     seconds, log = 0.0, ""
     if so.exists():
@@ -223,7 +267,8 @@ def _build(src_path: Path) -> Tuple[Path, float, str]:
     else:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src_path)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(tmp),
+               str(src_path)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=900)
@@ -243,18 +288,24 @@ def _build(src_path: Path) -> Tuple[Path, float, str]:
     return so, seconds, log
 
 
-def load_file(name: str, src_path: Path,
-              require_all: bool = False) -> KernelLibrary:
+def load_file(name: str, src_path: Path, require_all: bool = False,
+              defines: Tuple[str, ...] = (),
+              include_dirs: Tuple[Path, ...] = (),
+              headers: Tuple[Path, ...] = ()) -> KernelLibrary:
     """Build and load another source of kernel library ``name`` (another
     version of the kernel, with the same C interface, for comparing the
-    two) with the same flags; not cached here.  The functions of
-    ``name``'s C interface that the source defines are declared; with
-    ``require_all`` a missing one raises (an earlier version may lack
-    an entry point added since)."""
-    so, seconds, log = _build(Path(src_path))
+    two; or a variant built with ``defines`` and ``include_dirs``) with
+    the same flags; not cached here.  The functions of ``name``'s C
+    interface (and its predicate-mode entry points) that the library
+    defines are declared; with ``require_all`` a missing one of its
+    default interface raises (an earlier version may lack an entry point
+    added since)."""
+    so, seconds, log = _build(Path(src_path), defines, include_dirs, headers)
     lib = ctypes.CDLL(str(so))
-    for fn, (argtypes, restype) in _SIGNATURES[name].items():
-        if not require_all and not hasattr(lib, fn):
+    for fn, (argtypes, restype) in {**_SIGNATURES[name],
+                                    **_PRED_SIGNATURES.get(name, {})}.items():
+        required = require_all and fn in _SIGNATURES[name]
+        if not required and not hasattr(lib, fn):
             continue
         f = getattr(lib, fn)
         f.argtypes = argtypes
@@ -273,6 +324,29 @@ def load(name: str) -> KernelLibrary:
             _loaded[name] = load_file(name, SRC_DIR / f"{name}.cu",
                                       require_all=True)
         return _loaded[name]
+
+
+def load_pred(name: str, compiled) -> KernelLibrary:
+    """K1's or K2's library (``traverse_packet``, ``packet_walk``) built
+    with the predicate ``compiled`` (an ``ops.anyhit_pred.
+    CompiledPredicate``): its header written under ``PRED_DIR``, the
+    source built with ``-DVRT_PRED_HEADER`` naming it, at first use, and
+    loaded once a process.  Its predicate-mode entry points are
+    required."""
+    if name not in _PRED_SIGNATURES:
+        raise KeyError(f"kernel library {name!r} has no predicate mode")
+    key = f"{name}+pred-{compiled.digest}"
+    with _locks[name]:
+        if key not in _loaded:
+            hdr = compiled.write(PRED_DIR)
+            lib = load_file(name, SRC_DIR / f"{name}.cu", require_all=True,
+                            defines=(f"VRT_PRED_HEADER={hdr.name}",),
+                            include_dirs=(PRED_DIR,), headers=(hdr,))
+            for fn in _PRED_SIGNATURES[name]:
+                if not hasattr(lib.lib, fn):
+                    raise RuntimeError(f"{lib.path.name} lacks {fn}")
+            _loaded[key] = lib
+        return _loaded[key]
 
 
 def load_all(names=None) -> Dict[str, KernelLibrary]:

@@ -60,7 +60,9 @@ import numpy as np
 import torch
 
 from vortex_rt_tpu_torch.accel import lbvh, ploc
-from vortex_rt_tpu_torch.engine.shaders import ShaderTable, alpha_test_anyhit
+from vortex_rt_tpu_torch.engine.shaders import (
+    ShaderTable, alpha_test_anyhit, stateless_anyhit,
+)
 from vortex_rt_tpu_torch.engine.wavefront import WavefrontRenderer
 from vortex_rt_tpu_torch.models import bigscenes
 from vortex_rt_tpu_torch.models.scene import (
@@ -360,12 +362,25 @@ def params6() -> RenderParams:
     return RenderParams(max_depth=2, spp=2, shadow=True, light_pos=LIGHT6)
 
 
-def setup6(device, target_tris: int = 260_000, n_cols: int = 12):
-    """Row 6's scene, its flat 8-wide renderer with the alpha test, camera
-    and parameters: (scene, renderer, camera, params, table)."""
+def checker_pred(u, v, alpha):
+    """Row 6's stateless any-hit predicate (ROADMAP Queue 1 item 8b): a uv
+    checkerboard cutout of six cells a unit that also drops near-black
+    surfaces (tests/test_anyhit_inline.py::_checker_pred, in torch)."""
+    cu = torch.floor(u * 6.0).to(torch.int32)
+    cv = torch.floor(v * 6.0).to(torch.int32)
+    return (((cu + cv) % 2) == 0) & (alpha >= 0.05)
+
+
+def setup6(device, target_tris: int = 260_000, n_cols: int = 12,
+           pred: bool = False):
+    """Row 6's scene, its flat 8-wide renderer with the alpha test (with
+    ``pred``: ``stateless_anyhit(checker_pred)``, in K1's predicate
+    mode), camera and parameters: (scene, renderer, camera, params,
+    table)."""
     sc = atrium6(target_tris, n_cols)
     cfg = RTConfig(flatten=True)
-    table = ShaderTable(anyhit=alpha_test_anyhit(ALPHA6))
+    table = ShaderTable(anyhit=stateless_anyhit(checker_pred, "checker")
+                        if pred else alpha_test_anyhit(ALPHA6))
     r = WavefrontRenderer.from_buffers(sc.build(cfg), cfg, table,
                                        device=torch.device(device))
     return sc, r, Scene.framing_camera(r.sb, 45.0, 1.0), params6(), table
@@ -409,6 +424,7 @@ def parity6(sc: Scene, r: WavefrontRenderer, cam, p, table,
     slow_ms = (time.perf_counter() - t0) * 1e3
     rmse = float(np.sqrt(((img - img_slow) ** 2).mean()))
     return dict(parity_res=f"{parity_res}x{parity_res}", parity_rmse=rmse,
+                parity_max_abs=float(np.abs(img - img_slow).max()),
                 parity_vs="per-ray suspension engine (TLAS, packet_size=0)",
                 rays_parity=rays, rays_suspension=rays_slow,
                 suspension_ms=slow_ms,

@@ -27,7 +27,11 @@ most they could need:
   in the first figure of K1 (``k1_bound(lookups=False)``), every
   candidate that passed Moller-Trumbore), ``OPS_PER_ALPHA`` = 17: 2 for bz, 5 each
   for u and v, 2 products by the texture's sides, 2 floors, 1
-  comparison.
+  comparison;
+- a predicate test (K1's and K2's predicate mode, every candidate that
+  passed Moller-Trumbore: no classes), ``OPS_PER_ALPHA`` and the compiled
+  predicate's own operations (``CompiledPredicate.n_ops``: one a node
+  of its graph, ``pred_ops`` of ``k1_bound`` and ``k2_bound``).
 
 Bytes: per walking ray o and d (24 B), t_max (4 B) and the active flag
 (1 B) in; a ray that takes no step (inactive, or t_max <= 0) needs only
@@ -38,7 +42,8 @@ K1 96 B of an internal row, 16 B of a leaf row's meta and 40 B per
 triangle slot; K2 64 B of an internal node, 16 B of a leaf node, 80 B
 of an instance node, 40 B per triangle slot; in alpha mode 32 B of
 alpha fields per slot whose candidate is tested and 4 B per alpha-pool
-entry read, and in K1 4 B of slot classes per leaf step).  A wave in
+entry read, and in K1's alpha mode 4 B of slot classes per leaf step;
+the predicate mode reads the same 36 B a test, without classes).  A wave in
 which no ray walks reads none of the tables.
 
 K3 (``k3_bound``), per launch, given the walk's state before and after
@@ -141,38 +146,44 @@ class Bound:
         return "operations" if self.ops_ms >= self.bytes_ms else "bytes"
 
 
-def walk_ops(work, sort_ops: int, lookups: bool = False) -> int:
+def walk_ops(work, sort_ops: int, lookups: bool = False,
+             pred_ops: int = 0) -> int:
     """FP32 operations of a walk from its per-ray ``WalkWork``: the alpha
     tests the kernel makes (``work.alpha_lookups``) or every candidate's
-    (``work.alpha_tests``)."""
+    (``work.alpha_tests``), each with ``pred_ops`` more operations in
+    predicate mode."""
     tests = work.alpha_lookups if lookups else work.alpha_tests
     return int(OPS_PER_CHILD * work.child_slots.sum()
                + sort_ops * work.internal.sum()
                + OPS_PER_TRI * work.tri_slots.sum()
                + OPS_PER_INSTANCE * work.instance.sum()
-               + OPS_PER_ALPHA * tests.sum())
+               + (OPS_PER_ALPHA + pred_ops) * tests.sum())
 
 
-def walk_bound(work, sort_ops: int, lookups: bool = False) -> Bound:
+def walk_bound(work, sort_ops: int, lookups: bool = False,
+               pred_ops: int = 0) -> Bound:
     """Bound of a walk of ``len(work.internal)`` rays from its
     ``WalkWork``."""
     r = int(work.internal.numel())
     walking = int(((work.internal + work.leaf + work.instance) > 0).sum())
-    return Bound(ops=walk_ops(work, sort_ops, lookups),
+    return Bound(ops=walk_ops(work, sort_ops, lookups, pred_ops),
                  bytes=(walking * RAY_IN_BYTES
                         + (r - walking) * IDLE_RAY_IN_BYTES
                         + r * HIT_OUT_BYTES + int(work.row_bytes.sum())))
 
 
-def k1_bound(work, lookups: bool = True) -> Bound:
+def k1_bound(work, lookups: bool = True, pred_ops: int = 0) -> Bound:
     """K1: the 8-wide walk over the fused table; in alpha mode the tests
-    it makes (``lookups=False``: every candidate's, the first figure)."""
-    return walk_bound(work, OPS_SORT8, lookups)
+    it makes (``lookups=False``: every candidate's, the first figure); in
+    predicate mode every candidate's, each with the predicate's
+    ``pred_ops``."""
+    return walk_bound(work, OPS_SORT8, lookups, pred_ops)
 
 
-def k2_bound(work) -> Bound:
-    """K2: the 4-wide walk over the node and triangle rows."""
-    return walk_bound(work, OPS_SORT4)
+def k2_bound(work, pred_ops: int = 0) -> Bound:
+    """K2: the 4-wide walk over the node and triangle rows (in predicate
+    mode with the predicate's ``pred_ops`` a test)."""
+    return walk_bound(work, OPS_SORT4, pred_ops=pred_ops)
 
 
 def k3_bound(work, before=None, after=None, suspend: bool = False

@@ -17,6 +17,17 @@ Waves, each captured from a real frame of that tree's renderer:
   the atrium's 4-wide TLAS build (MK-B's scene) at 1920x1080, 2,073,600
   rays;
 - K1, unchanged, for the spread: config 2's 8-wide primary wave;
+- K1's and K2's predicate modes (``--parts k1p,k2p``) on ladder row 6's
+  scene with ``stateless_anyhit(bench_ladder.checker_pred)``: the waves of
+  its first sample pass at 512x512 (closest, shadow, bounce, second
+  shadow; for K1 also the mixed wave of its shadow and primary rays) and
+  K1's 1080p primary wave, captured from the predicate frame (K1: the
+  flat 8-wide build; K2: the 4-wide TLAS build), each timed in turns
+  (forwards, backwards) in predicate mode, in alpha mode
+  (``alpha_ref=0.30``) and without any-hit (K1: the fused rows without
+  alpha fields, as ``k1a``'s) on the same rays, beside the predicate
+  mode's bound (``k1_bound`` / ``k2_bound`` with the predicate's
+  operations) and its tests;
 - K3 (``--parts k3``), on ladder row 6's scene (the textured atrium,
   ``alpha_test_anyhit(0.30)``) in the 4-wide TLAS build: the first
   suspension round of the 192x192 parity frame's primary wave (73,728
@@ -42,6 +53,9 @@ show whether they gave the same records.  Prints each kernel's ptxas line
 renderer made and one frame) and, last, one JSON line with the card's
 name and power limit.
 
+``--parts ptxas`` only builds K1 and K2 and prints their ptxas lines by
+entry (two trees' builds compared line by line).
+
 ``--variants`` (this tree only) also builds copies of ``traverse2.cu``,
 ``packet_walk.cu``, ``traverse_wide.cu`` and ``traverse_packet.cu`` with
 one design piece changed each (``VARIANTS``: K1's alpha mode without its
@@ -60,7 +74,7 @@ outputs (the hashes) and times it beside the kernel in turns on the same
 waves, and on the sum of config 2's 8 waves.
 
     python vortex_rt_tpu_torch/tools/walk_timing.py [--root DIR]
-        [--parts k6,k2,k3,k1a] [--reps 20] [--frames 4] [--variants]
+        [--parts k6,k2,k3,k1a,k1p,k2p] [--reps 20] [--frames 4] [--variants]
         [--out FILE]
 
 (run as a file, so that the package imported is the one at ``--root``).
@@ -73,6 +87,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -84,7 +99,9 @@ KERNEL = {"traverse2": "traverse2_kernel", "packet_walk": "packet_walk_kernel",
           "traverse_packet": "traverse_packet_kernel",
           "traverse_wide": "traverse_wide_kernel"}
 PART_LIBS = {"k6": ("traverse2",), "k2": ("packet_walk", "traverse_packet"),
-             "k3": ("traverse_wide",), "k1a": ("traverse_packet",)}
+             "k3": ("traverse_wide",), "k1a": ("traverse_packet",),
+             "k1p": ("traverse_packet",), "k2p": ("packet_walk",),
+             "ptxas": ("traverse_packet", "packet_walk")}
 # variants whose outputs differ from the kernel's by design (timing copies)
 TIMING_ONLY = {"k1a_rows"}
 _ONE_LOOP_K6 = [("while (live && rec.h.x == KIND_INTERNAL) {",
@@ -313,7 +330,9 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--parts", default="k6,k2,k3",
                     help="k6 (MK-A, MK-B), k2 (with K1's wave), k3, k1a "
-                         "(K1's alpha mode)")
+                         "(K1's alpha mode), k1p, k2p (K1's and K2's "
+                         "predicate modes), ptxas (K1's and K2's ptxas "
+                         "lines by entry, no timing)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--frames", type=int, default=4)
     ap.add_argument("--variants", action="store_true",
@@ -329,9 +348,6 @@ def main(argv=None) -> int:
     from vortex_rt_tpu_torch.ops import traverse_packet as tp
     from vortex_rt_tpu_torch.runtime import kernels
     from vortex_rt_tpu_torch.tools import walk_bounds as wb
-    from vortex_rt_tpu_torch.tools.profile_frames import (
-        kernel_events, ms_by_name,
-    )
 
     if not Path(t2.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"imported {t2.__file__}, not the tree at {root}")
@@ -349,7 +365,10 @@ def main(argv=None) -> int:
     out = {"root": str(root), "card": card, "packed_k6": packs,
            "reps": args.reps, "parts": parts,
            "ptxas": {n: _ptxas(lib.build_log) for n, lib in libs.items()},
-           "k6": {}, "k2": {}, "k1": {}, "k3": {}, "k1a": {}}
+           "ptxas_entries": {n: _ptxas_entries(lib.build_log)
+                             for n, lib in libs.items()},
+           "k6": {}, "k2": {}, "k1": {}, "k3": {}, "k1a": {}, "k1p": {},
+           "k2p": {}}
     variants = _variant_libs(kernels, lib_names) if args.variants else {}
     for n, lib in variants.items():
         out["ptxas"][n] = _ptxas(lib.build_log)
@@ -374,18 +393,7 @@ def main(argv=None) -> int:
                     digests[n] = got
                 elif got != want:
                     raise RuntimeError(f"{n}: outputs differ from the kernel")
-        kname = KERNEL[lib_name]
-        times = {n: dict(ms=[], events_ms=[]) for n in calls}
-        for n in list(calls) + list(reversed(list(calls))):
-            call = calls[n]
-            call()
-            torch.cuda.synchronize()
-            times[n]["ms"].append(ms_by_name(kernel_events(
-                lambda: [call() for _ in range(args.reps)]), [kname],
-                args.reps)[kname])
-            times[n]["events_ms"].append(_events_ms(torch, call, args.reps))
-        rec = {n: dict(ms=sum(t["ms"]) / 2, events_ms=sum(t["events_ms"]) / 2,
-                       turns=t["ms"]) for n, t in times.items()}
+        rec = _in_turns(calls, KERNEL[lib_name], args.reps)
         for n, dg in digests.items():
             rec[n]["digest"] = dg
         return rec, first
@@ -425,6 +433,9 @@ def main(argv=None) -> int:
 
     if "k1a" in parts:
         k1a_part(args, out, dev, timed)
+    for kind in ("k1p", "k2p"):
+        if kind in parts:
+            pred_part(args, out, dev, kind)
     if "k3" in parts:
         k3_part(args, out, dev, timed, variants)
     if "k6" in parts:
@@ -440,6 +451,107 @@ def main(argv=None) -> int:
     return 0
 
 
+def _in_turns(calls: dict, kname: str, reps: int) -> dict:
+    """Each launcher of ``calls`` timed in turns, forwards then backwards:
+    the profiler's time of kernel ``kname`` over ``reps`` launches, CUDA
+    events beside: {name: {ms, events_ms, turns}}."""
+    import torch
+
+    from vortex_rt_tpu_torch.tools.profile_frames import (
+        kernel_events, ms_by_name,
+    )
+
+    times = {n: dict(ms=[], events_ms=[]) for n in calls}
+    for n in list(calls) + list(reversed(list(calls))):
+        call = calls[n]
+        call()
+        torch.cuda.synchronize()
+        times[n]["ms"].append(ms_by_name(kernel_events(
+            lambda: [call() for _ in range(reps)]), [kname], reps)[kname])
+        times[n]["events_ms"].append(_events_ms(torch, call, reps))
+    return {n: dict(ms=sum(t["ms"]) / 2, events_ms=sum(t["events_ms"]) / 2,
+                    turns=t["ms"]) for n, t in times.items()}
+
+
+def pred_part(args, out, dev, kind: str) -> None:
+    """K1's (``k1p``) or K2's (``k2p``) predicate mode on ladder row 6's
+    scene (the module docstring): each wave in predicate mode, alpha mode
+    and without any-hit, in turns, beside the predicate mode's bound."""
+    import torch
+
+    from vortex_rt_tpu_torch import RTConfig, WavefrontRenderer
+    from vortex_rt_tpu_torch.engine.shaders import (
+        ShaderTable, stateless_anyhit,
+    )
+    from vortex_rt_tpu_torch.ops import anyhit_pred
+    from vortex_rt_tpu_torch.ops import packet_walk as pw
+    from vortex_rt_tpu_torch.ops import traverse_packet as tp
+    from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import bench_ladder
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
+    from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT
+
+    k1 = kind == "k1p"
+    pred = anyhit_pred.compile_predicate(bench_ladder.checker_pred)
+    sc6, r, cam6, p6, _ = bench_ladder.setup6(dev, pred=True)
+    if not k1:
+        cfg = RTConfig()
+        r = WavefrontRenderer.from_buffers(
+            sc6.build(cfg), cfg, ShaderTable(anyhit=stateless_anyhit(
+                bench_ladder.checker_pred, "checker")), device=dev)
+    plain_wa = (WideArrays.from_scene(r.sb, width=8).fuse().to(dev) if k1
+                else r.wa)
+    mod, work_fn, bound_fn, lib_name = (
+        (tp, tp.walk_work, wb.k1_bound, "traverse_packet") if k1 else
+        (pw, pw.walk_work_4, wb.k2_bound, "packet_walk"))
+    lib = kernels.load_pred(lib_name, pred)
+    out[kind].update(pred_digest=pred.digest, pred_ops=pred.n_ops,
+                     pred_build_s=lib.build_seconds,
+                     ptxas_entries=_ptxas_entries(lib.build_log))
+    waves = _capture(r, cam6, p6, 512, 512)
+    cases = dict(zip(("row6_512_closest", "row6_512_shadow",
+                      "row6_512_bounce", "row6_512_shadow1"), waves[:4]))
+    if k1:
+        (o0, d0, k0), (o1, d1, k_1) = waves[:2]
+        n = o0.shape[0]
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        act0, act1 = (ones if kw.get("active") is None else kw["active"]
+                      for kw in (k0, k_1))
+        cases["row6_512_mixed"] = (
+            torch.cat([o1, o0]), torch.cat([d1, d0]),
+            dict(active=torch.cat([act1, act0]), t_max=torch.cat(
+                [k_1["t_max"], torch.full_like(k_1["t_max"], LARGE_FLOAT)]),
+                occl_split=n))
+        cases["row6_1080p_closest"] = _capture(r, cam6, p6, 1920, 1080)[0]
+    del waves
+    for label, (o, d, kw) in cases.items():
+        kw = {k: v for k, v in kw.items() if k != "anyhit_pred"}
+        calls = {
+            "pred": mod.kernel_call(r.wa, o, d, anyhit_pred=pred, **kw),
+            "alpha": mod.kernel_call(r.wa, o, d, alpha_ref=bench_ladder.ALPHA6,
+                                     **kw),
+            "none": mod.kernel_call(plain_wa, o, d, **kw)}
+        hits, steps = calls["pred"]()
+        ref, ref_steps, work = work_fn(r.wa, o, d, anyhit_pred=pred, **kw)
+        same = all(torch.equal(a, b) for a, b in zip((*hits, steps),
+                                                     (*ref, ref_steps)))
+        times = _in_turns(calls, KERNEL[lib_name], args.reps)
+        b = (bound_fn(work, lookups=False, pred_ops=pred.n_ops) if k1
+             else bound_fn(work, pred_ops=pred.n_ops))
+        rec = dict(rays=int(o.shape[0]), **times["pred"],
+                   alpha=times["alpha"], none=times["none"],
+                   bound_ms=b.ms, bound_by=b.bound_by, bound_bytes=b.bytes,
+                   pred_tests=int(work.alpha_tests.sum()),
+                   mean_steps=float(steps.float().mean()),
+                   equals_plain=same, digest=_digest((*hits, steps)))
+        out[kind][label] = rec
+        print(f"{kind.upper()} {label}: {rec}", file=sys.stderr)
+        if not same:
+            raise RuntimeError(f"{kind} {label}: the predicate mode's hits "
+                               f"or steps differ from the plain walk's")
+
+
 def _ptxas_entries(log: str) -> dict:
     """ptxas's registers, stack frame and spills by kernel entry (the
     mangled name shortened: ``<...>`` for a template argument)."""
@@ -447,8 +559,10 @@ def _ptxas_entries(log: str) -> dict:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
-            name = (name.replace("ILb1EE", "<true>").replace("ILb0EE", "<false>")
-                    .replace("_Z", "").lstrip("0123456789N"))
+            # template arguments (a mode number, a bool) in brackets
+            name = re.sub(r"I((?:L[bi]\d+E)+)E", lambda m: "<" + ",".join(
+                re.findall(r"L[bi](\d+)E", m.group(1))) + ">", name)
+            name = name.replace("_Z", "").lstrip("0123456789N")
             out[name] = []
         elif name and ("registers" in ln or "stack frame" in ln):
             out[name].append(ln.split("ptxas info    : ")[-1].strip())
