@@ -312,6 +312,18 @@ and so exits non-zero, on failure):
 19d. the 192x192 parity frame against the suspension engine
     (``packet_size=0``, K3 running the same shader's callable by rounds):
     the same rays and an image within 2e-6;
+19e. ``bench_ladder.perforated_pred`` (round holes on a 12-cell uv grid,
+    a ``sin`` x ``cos`` band and ``alpha ** 2.2``: ``sqrt``, ``sin``,
+    ``cos`` and ``**`` correctly rounded, float64 rounded once) on 19's
+    renderers: its variants built (nvcc seconds, the predicate entries'
+    ptxas lines, its operations weighted by ``walk_bounds.pred_ops``),
+    19b's checks and timings (every timed 512x512 wave, K1 primary,
+    shadow and mixed, K2 primary and shadow, held to the plain walk of
+    the same wave to the bit; a 1-in-61 crop of the 1080p waves through
+    the wrappers) and 19c's frames (launch counts, the 512x512 frames
+    against the suspension engine's, K1's 1080p frame against K2's:
+    equal rays, within 2e-6), the waves' times beside the checker
+    predicate's and the alpha mode's;
 16. prints the kernels' JSON line (per kernel: launches on its main-path
     run and per frame, K1's being config 4's frame with the other paths'
     counts beside it, the LBVH kernels' being row 5's run, the PLOC
@@ -2718,7 +2730,7 @@ def phase_chunked(device, r_tlas, cam, p, size: int = 128) -> dict:
     return dict(rays=rays, launches=launches, max_abs_err=err)
 
 
-# ------------------------------ stateless any-hit predicates (19a-19d)
+# ------------------------------ stateless any-hit predicates (19a-19e)
 
 PRED_TOL = 2e-6   # the parity frame's bound (tests/test_anyhit_inline.py)
 
@@ -2736,28 +2748,32 @@ def _same_hits(label: str, got, want, steps_got, steps_want) -> None:
           f"{int((got.dist < 1e30).sum())}: every field and step equal")
 
 
-def phase_pred_build(device) -> dict:
-    """19a: the predicate compiled and K1's and K2's variants built."""
+def phase_pred_build(device, name: str = "checker_pred") -> dict:
+    """19a (19e): the predicate ``bench_ladder.<name>`` compiled and K1's
+    and K2's variants built; the predicate entries' ptxas lines."""
     from concurrent.futures import ThreadPoolExecutor
 
     from vortex_rt_tpu_torch.ops.anyhit_pred import compile_predicate
     from vortex_rt_tpu_torch.runtime import kernels
     from vortex_rt_tpu_torch.tools import bench_ladder
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
+    from vortex_rt_tpu_torch.tools.walk_timing import _ptxas_entries
 
-    pred = compile_predicate(bench_ladder.checker_pred)
-    print(f"  checker_pred: header {pred.header_name} ({pred.n_ops} "
-          f"operations: {', '.join(pred.ops)})")
+    pred = compile_predicate(getattr(bench_ladder, name))
+    print(f"  {name}: header {pred.header_name} ({pred.n_ops} operations, "
+          f"{wb.pred_ops(pred)} weighted: {', '.join(pred.ops)})")
     names = ("traverse_packet", "packet_walk")
     with ThreadPoolExecutor(max_workers=2) as pool:
         futures = {n: pool.submit(kernels.load_pred, n, pred) for n in names}
         libs = {n: f.result() for n, f in futures.items()}
-    rebuilt = {}
+    rebuilt, ptxas = {}, {}
     for n, lib in libs.items():
+        # (the predicate mode is the kernels' template mode 2)
+        ptxas[n] = {e.split(">")[0] + ">": line for e, line in
+                    _ptxas_entries(lib.build_log).items() if "<2," in e}
         print(f"  {lib.path.name}: nvcc {lib.build_seconds:.2f} s at first "
-              f"use; ptxas: " + "; ".join(
-                  line.split("ptxas info    : ")[-1].strip()
-                  for line in lib.build_log.splitlines()
-                  if "registers" in line or "spill" in line))
+              f"use; ptxas of the predicate entries: " + "; ".join(
+                  f"{e}: {line}" for e, line in ptxas[n].items()))
         # a second use: the process's library, and without it the build
         # on disk (no nvcc)
         _check(kernels.load_pred(n, pred) is lib,
@@ -2769,11 +2785,13 @@ def phase_pred_build(device) -> dict:
                f"{n}: the predicate variant was built twice")
     print(f"  second use: nvcc seconds {rebuilt} (0: the builds were reused)")
     return dict(pred=pred, digest=pred.digest, n_ops=pred.n_ops,
+                pred_ops=wb.pred_ops(pred), ptxas=ptxas,
                 build_s={n: lib.build_seconds for n, lib in libs.items()})
 
 
 def phase_pred_walks(device, r_flat, r_tlas, plain_wa, cam6, pred,
-                     size: int = 512, reps: int = 20) -> dict:
+                     size: int = 512, reps: int = 20, crop: int = 31
+                     ) -> dict:
     """19b: K1's and K2's predicate modes against their plain versions (to
     the bit) on a crop of row 6's 1080p waves through the wrappers, then on
     each whole 512x512 wave through the bare launch it times (in predicate
@@ -2809,7 +2827,7 @@ def phase_pred_walks(device, r_flat, r_tlas, plain_wa, cam6, pred,
         return out
 
     oh, dh = camera_rays(cam6, 1920, 1080, device)
-    oh, dh = oh[::31].contiguous(), dh[::31].contiguous()
+    oh, dh = oh[::crop].contiguous(), dh[::crop].contiguous()
     o, d = camera_rays(cam6, size, size, device)
     rec = {}
     for name, r, walk, ref, work_fn, mod in (
@@ -2845,8 +2863,8 @@ def phase_pred_walks(device, r_flat, r_tlas, plain_wa, cam6, pred,
             for n in [*calls, *reversed(list(calls))]:  # in turns
                 ms[n].append(_device_ms(calls[n], reps))
             ms = {n: sum(v) / len(v) for n, v in ms.items()}
-            b = (wb.k1_bound(work, lookups=False, pred_ops=pred.n_ops) if k1
-                 else wb.k2_bound(work, pred_ops=pred.n_ops))
+            b = (wb.k1_bound(work, lookups=False, pred_ops=wb.pred_ops(pred))
+                 if k1 else wb.k2_bound(work, pred_ops=wb.pred_ops(pred)))
             out[mode] = dict(ms=ms["pred"], alpha_ms=ms["alpha"],
                              no_anyhit_ms=ms["none"], bound_ms=b.ms,
                              bound_by=b.bound_by,
@@ -2880,7 +2898,8 @@ def phase_pred_walks(device, r_flat, r_tlas, plain_wa, cam6, pred,
 
 
 def phase_pred_frames(device, r_flat, r_tlas, r_pool, cam, p,
-                      res=(512, 512), res_hd=(1920, 1080)) -> dict:
+                      res=(512, 512), res_hd=(1920, 1080),
+                      label: str = "checker") -> dict:
     """19c: row 6's scene with the checker predicate through K1's
     predicate mode (512x512 and 1080p) and K2's (the TLAS build), launch
     counts reset before and read after each: ms a frame, rays, launches,
@@ -2952,7 +2971,7 @@ def phase_pred_frames(device, r_flat, r_tlas, r_pool, cam, p,
                max_abs_err_vs_suspension=err_s,
                tlas_max_abs_err_vs_suspension=err4,
                hd_max_abs_err_k1_vs_k2=err_hd)
-    print(f"  row 6 + checker predicate, K1: {rec['ms_per_frame']:.3f} ms a "
+    print(f"  row 6 + {label} predicate, K1: {rec['ms_per_frame']:.3f} ms a "
           f"{w}x{h} frame ({rec['rays_per_frame']} rays, "
           f"{rec['mrays']:.3f} Mrays/s), {rec['ms_per_frame_hd']:.3f} ms at "
           f"1080p ({rec['rays_per_frame_hd']} rays, {rec['mrays_hd']:.3f} "
@@ -2992,7 +3011,7 @@ def phase_pred_parity(device, sc6, r_flat, cam, p, table, size: int = 192
 
 
 def phase_pred(device, sc6, sb6, sb6_tlas, cam6, p6) -> dict:
-    """19a-19d on row 6's scene, from its host builds (13c's)."""
+    """19a-19e on row 6's scene, from its host builds (13c's)."""
     import torch
 
     from vortex_rt_tpu_torch import RTConfig, WavefrontRenderer
@@ -3025,7 +3044,61 @@ def phase_pred(device, sc6, sb6, sb6_tlas, cam6, p6) -> dict:
     _phase("phase 19d the predicate's parity frame against the suspension "
            "engine (K3)")
     parity = phase_pred_parity(device, sc6, r_flat, cam6, p6, table)
-    return dict(build=built, walks=walks, frames=frames, parity=parity)
+    _phase("phase 19e the perforated predicate (sqrt, sin, cos and ** "
+           "correctly rounded) in K1 and K2 on row 6's scene")
+    perf = phase_pred_perforated(device, r_flat, r_tlas, r_pool, sb6, cam6,
+                                 p6, walks)
+    return dict(build=built, walks=walks, frames=frames, parity=parity,
+                perforated=perf)
+
+
+def phase_pred_perforated(device, r_flat, r_tlas, r_pool, sb6, cam6, p6,
+                          checker: dict, crop: int = 61) -> dict:
+    """19e: ``bench_ladder.perforated_pred`` through 19b's and 19c's
+    checks and timings on 19's renderers with its table: K1's and K2's
+    variants built (nvcc seconds, the predicate entries' ptxas lines),
+    every timed 512x512 wave held to the plain walk of the same wave
+    (hits and per-ray steps to the bit), the 512x512 frames to the
+    suspension engine's and K1's 1080p frame to K2's (equal rays, within
+    ``PRED_TOL``), launch counts; the waves' times beside the checker
+    predicate's (``checker``: 19b's) and the alpha mode's."""
+    import torch
+
+    from vortex_rt_tpu_torch.engine.shaders import (
+        ShaderTable, stateless_anyhit,
+    )
+    from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays
+    from vortex_rt_tpu_torch.tools import bench_ladder
+
+    t0 = time.perf_counter()
+    built = phase_pred_build(device, "perforated_pred")
+    table = ShaderTable(anyhit=stateless_anyhit(bench_ladder.perforated_pred,
+                                                "perforated"))
+    r_flat, r_tlas, r_pool = (dataclasses.replace(r, table=table)
+                              for r in (r_flat, r_tlas, r_pool))
+    plain_wa = WideArrays.from_scene(sb6, width=8).fuse().to(device)
+    walks = phase_pred_walks(device, r_flat, r_tlas, plain_wa, cam6,
+                             built["pred"], crop=crop)
+    del plain_wa
+    torch.cuda.empty_cache()
+    frames = phase_pred_frames(device, r_flat, r_tlas, r_pool, cam6, p6,
+                               label="perforated")
+    for name, rec in walks.items():
+        if "ms" not in rec:
+            continue
+        waves = {"primary": rec, **rec["other_waves"]}
+        ref = {"primary": checker[name], **checker[name]["other_waves"]}
+        for mode, w in waves.items():
+            print(f"  {name} {mode} 512x512: perforated {w['ms']:.4f} ms, "
+                  f"checker {ref[mode]['ms']:.4f} ms, alpha "
+                  f"{w['alpha_ms']:.4f} ms, without any-hit "
+                  f"{w['no_anyhit_ms']:.4f} ms; bound {w['bound_ms']:.4f} "
+                  f"ms ({w['bound_by']}, {built['pred_ops']} operations a "
+                  f"test) = {w['bound_ms'] / w['ms']:.1%}")
+    seconds = time.perf_counter() - t0
+    print(f"  phase 19e: {seconds:.1f} s")
+    return dict(build={k: v for k, v in built.items() if k != "pred"},
+                walks=walks, frames=frames, seconds=seconds)
 
 
 # ------------------------------------- the sweep-SAH tree (12d, 12e)
@@ -4684,6 +4757,7 @@ def main() -> int:
                          if k != "trace0"}})
     # the predicate modes of K1 and K2: launches on 19c's frames (K1's six
     # row-6 frames, K2's TLAS frame), time on row 6's 512x512 primary wave
+    perf = pred19["perforated"]
     for name, launches, per_frame in (
             ("traverse_packet_pred", pred19["frames"]["k1_pred_launches"],
              pred19["frames"]["k1_pred_launches_per_frame"]),
@@ -4712,7 +4786,20 @@ def main() -> int:
                      "pred_digest": pred19["build"]["digest"],
                      "nvcc_s": pred19["build"]["build_s"][
                          name.rsplit("_", 1)[0]],
-                     "other_waves": res["other_waves"]})
+                     "other_waves": res["other_waves"],
+                     # 19e: the same waves with the perforated predicate
+                     "perforated": {
+                         **{k: perf["walks"][name].get(k) for k in (
+                             "ms", "plain_ms", "bound_ms", "bound_by",
+                             "alpha_ms", "pred_tests", "other_waves")},
+                         "launches": perf["frames"][
+                             "k1_pred_launches" if name ==
+                             "traverse_packet_pred" else "k2_pred_launches"],
+                         "pred_ops": perf["build"]["pred_ops"],
+                         "ptxas": perf["build"]["ptxas"][
+                             name.rsplit("_", 1)[0]],
+                         "nvcc_s": perf["build"]["build_s"][
+                             name.rsplit("_", 1)[0]]}})
     print(f"  row 6 with the checker predicate: "
           f"{pred19['frames']['ms_per_frame']:.3f} ms/frame at 512x512, "
           f"{pred19['frames']['ms_per_frame_hd']:.3f} at 1080p (K1), TLAS "

@@ -256,6 +256,16 @@ def _checker_pred(u, v, alpha):
     return (((cu + cv) % 2) == 0) & (alpha >= 0.05)
 
 
+def _perforated_pred_jax(u, v, alpha):
+    """``bench_ladder.perforated_pred`` in jnp (XLA's float32 sqrt, sin,
+    cos and pow, which are not all correctly rounded)."""
+    du = (u * 12.0) % 1.0 - 0.5
+    dv = (v * 12.0) % 1.0 - 0.5
+    holes = jnp.sqrt(du * du + dv * dv) > 0.3
+    band = jnp.sin(u * 25.0) * jnp.cos(v * 25.0) < 0.8
+    return holes & band & (alpha ** 2.2 > 0.002)
+
+
 @pytest.mark.parametrize("build", ["flat8", "tlas4"])
 def test_alpha_frame_matches_jax(builds, build, monkeypatch):
     """``alpha_test_anyhit`` frames: the port's in-walk alpha (K1 or K2

@@ -1,28 +1,38 @@
 """Stateless any-hit predicates inside the walks (K1's and K2's predicate
 modes) against the JAX package, on the CPU.
 
-* The compiler (``ops/anyhit_pred.py``): one case per op of its set, the
-  emitted ``vrt_pred`` compiled as host C++ with ``$CXX`` (a shim defines
-  the CUDA qualifiers and ``__fdiv_rn`` away; ``-ffp-contract=off``, so
-  no FMA) equal bit for bit to the torch callable, on a seeded grid of u,
-  v and alpha with negative values, values past 1, exact cell edges and
-  values past int32 (all cases in one program, one compile); and its
-  refusals: ``sin``, ``sqrt``, a captured tensor, a value-dependent
-  ``if``, a result that is not a bool, and at ``from_buffers``.
+* The compiler (``ops/anyhit_pred.py``): one case per op and form of its
+  set (``tests/torch_pred_cases.py``), the emitted ``vrt_pred`` compiled
+  as host C++ with ``$CXX`` (a shim defines the CUDA qualifiers,
+  ``__fdiv_rn``, ``__fsqrt_rn`` and ``__double2float_rn`` away; the
+  double functions are the C library's; ``-ffp-contract=off``, so no
+  FMA) equal bit for bit to the compiled predicate's plain version and,
+  for a case of exact ops, to the torch callable, on a seeded grid of u,
+  v and alpha with negative values, values past 1, exact cell edges,
+  values past int32 and past 1e5, values near exp's overflow, signed
+  zeros, subnormals, infinities and NaN (all cases in one program, one
+  compile); and its refusals: ``cumsum``, ``rand_like``, a captured
+  tensor that is not 0-dim, a value-dependent ``if``, a result that is
+  not a bool, and at ``from_buffers``.
 * The plain walks with ``anyhit_pred=_checker_pred``: K1's (8-wide
   flattened: closest, occlusion, ``occl_split``) and K2's (4-wide TLAS:
   closest, occlusion) against the JAX ``trace_packets(anyhit_pred=...)``
   on the cutout scene of ``tests/test_anyhit_inline.py``, every hit field
   to the bit (the JAX side in a subprocess with
   ``XLA_FLAGS=--xla_cpu_max_isa=AVX``, ROADMAP hazard H2, started when
-  the module's first test starts, so that it runs beside the frames).
+  the module's first test starts, so that it runs beside the frames);
+  and with ``bench_ladder.perforated_pred`` (``sqrt``, ``sin``, ``cos``,
+  ``**``: K1 closest, occlusion and ``occl_split``, K2 TLAS closest),
+  where XLA's float32 functions are not correctly rounded: a ray whose
+  hit differs from JAX's must be traced to a candidate whose compared
+  value lies within 4 float32 ulps of its threshold (printed).
 * 48x48 ``stateless_anyhit`` frames with shadows, depth 2, flat 8-wide
   and 4-wide TLAS through the walks' predicate modes: against the JAX
   in-walk frame (in process, atol 1e-5, equal rays) and against the
   port's own suspension frame (``packet_size=0``, K3's plain rounds)
   within 2e-6, the JAX test's bound; and a depth-3 flat frame (the merged
   wave) against the JAX frame (atol 1e-5, equal rays) and the suspension
-  frame (2e-6).
+  frame (2e-6); and a perforated flat frame at depth 2 against both.
 * A ``collect_stats`` frame whose rays and wave keys equal the JAX
   frame's.
 """
@@ -52,15 +62,21 @@ from vortex_rt_tpu_torch.ops.packet_walk import trace_packets_walk_ref
 from vortex_rt_tpu_torch.ops.traverse_packet import trace_packets_ref
 from vortex_rt_tpu_torch.runtime import native
 
+from vortex_rt_tpu_torch.tools.bench_ladder import perforated_pred
+
 from tests.test_torch_anyhit import (
-    EYE, LIGHT, _checker_pred, _checker_pred_jax, builds,  # noqa: F401
+    EYE, LIGHT, _checker_pred, _checker_pred_jax,  # noqa: F401
+    _perforated_pred_jax, builds,
 )
 from tests.torch_pred_cases import OPS as _OPS, grid
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W = H = 48
 WALKS = ("flat8/closest", "flat8/occlusion", "flat8/occl_split",
-         "tlas4/closest", "tlas4/occlusion")
+         "tlas4/closest", "tlas4/occlusion", "perf/flat8/closest",
+         "perf/flat8/occlusion", "perf/flat8/occl_split",
+         "perf/tlas4/closest")
+ULPS = 4  # the disagreement with XLA's float32 functions a test may have
 
 
 OPS = {**_OPS, "checker": _checker_pred}
@@ -73,6 +89,8 @@ _SHIM = r"""
 #define __device__
 #define __forceinline__ inline
 static inline float __fdiv_rn(float a, float b) { return a / b; }
+static inline float __fsqrt_rn(float a) { return sqrtf(a); }
+static inline float __double2float_rn(double a) { return (float)a; }
 static inline float __int_as_float(int x) {
     float f;
     memcpy(&f, &x, sizeof f);
@@ -133,17 +151,22 @@ int main(int argc, char** argv) {{
 
 @pytest.mark.parametrize("op", list(OPS))
 def test_emitted_predicate_equals_torch(host_preds, op):
-    """The emitted C (compiled for the host) decides as the torch callable
-    does, on every point of the grid."""
+    """The emitted C (compiled for the host) decides as the compiled
+    predicate's plain version does (its correctly rounded ops in float64,
+    rounded once), on every point of the grid; for a case of exact ops
+    that is the torch callable's decision too."""
     got, (u, v, a), compiled = host_preds
-    want = OPS[op](*(torch.from_numpy(x) for x in (u, v, a)))
+    c = compiled[op]
+    uva = [torch.from_numpy(x) for x in (u, v, a)]
+    want = c.plain(*uva)
     assert want.dtype == torch.bool
     want = want.numpy()
     bad = np.flatnonzero(got[op] != want)
     assert bad.size == 0, (f"{op}: {bad.size} of {want.size} differ, e.g. "
                            f"u={u[bad[:3]]} v={v[bad[:3]]} a={a[bad[:3]]}")
     assert 0 < want.sum() < want.size  # the grid reaches both answers
-    c = compiled[op]
+    if c.exact:
+        assert np.array_equal(OPS[op](*uva).numpy(), want)
     assert c.n_ops == len(c.ops) > 0 and "vrt_pred" in c.text
     assert c.header_name == f"vrt_pred_{c.digest}.cuh"
 
@@ -158,8 +181,10 @@ def _branch(u, v, a):
 
 
 @pytest.mark.parametrize("fn,match", [
-    pytest.param(lambda u, v, a: torch.sin(u) > 0.5, "sin", id="sin"),
-    pytest.param(lambda u, v, a: u.sqrt() < a, "sqrt", id="sqrt"),
+    pytest.param(lambda u, v, a: torch.cumsum(u, 0) > 0.5, "cumsum",
+                 id="cumsum"),
+    pytest.param(lambda u, v, a: torch.rand_like(u) < a, "rand_like",
+                 id="rand_like"),
     pytest.param(lambda u, v, a: u < _CAPTURED, "captured tensor",
                  id="captured"),
     pytest.param(_branch, "value-dependent Python branch", id="branch"),
@@ -198,24 +223,23 @@ def test_compiled_once_and_predicate_wins():
     assert anyhit_mode(0.3, None) == (0.3, None)
 
 
-def _jax_frame(builds, flat: bool, render: bool = True, **params):
-    """The JAX renderer with the checker's ``stateless_anyhit``, and its
-    frame (when ``render``)."""
+def _jax_frame(builds, flat: bool, render: bool = True,
+               pred=_checker_pred_jax, **params):
+    """The JAX renderer with ``stateless_anyhit(pred)`` (the checker's by
+    default), and its frame (when ``render``)."""
     jsb, _ = builds[flat]
     jr = jwf.WavefrontRenderer.from_buffers(
         jsb, JCfg(flatten=flat, use_native_build=False),
-        table=jsh.ShaderTable(anyhit=jsh.stateless_anyhit(
-            _checker_pred_jax, "checker")))
+        table=jsh.ShaderTable(anyhit=jsh.stateless_anyhit(pred, "pred")))
     return jr, (jr.render(JCam.look_at(*EYE), JParams(**params), W, H)
                 if render else None)
 
 
-def _port(builds, flat: bool, **cfg):
+def _port(builds, flat: bool, pred=_checker_pred, **cfg):
     _, tsb = builds[flat]
     return pt.WavefrontRenderer.from_buffers(
         tsb, pt.RTConfig(flatten=flat, use_native_build=False, **cfg),
-        tsh.ShaderTable(anyhit=tsh.stateless_anyhit(_checker_pred,
-                                                    "checker")),
+        tsh.ShaderTable(anyhit=tsh.stateless_anyhit(pred, "pred")),
         device="cpu")
 
 
@@ -277,6 +301,35 @@ def test_merged_wave_frame_matches_suspension(builds, pool_frames):
     np.testing.assert_allclose(img, img_s, atol=2e-6)
 
 
+def test_perforated_frame_matches_jax_and_suspension(builds):
+    """A 48x48 flat frame (K1's predicate mode, depth 2, shadows) with
+    ``perforated_pred`` (correctly rounded ``sqrt``, ``sin``, ``cos``,
+    ``**``) against the JAX in-walk frame (atol 1e-5, equal rays) and the
+    port's suspension frame (the TLAS build at ``packet_size=0``, K3's
+    plain rounds, the shader deciding with the compiled predicate's plain
+    version) within 2e-6."""
+    params = dict(light_pos=LIGHT, max_depth=2, shadow=True)
+    _, (jimg, jrays) = _jax_frame(builds, True, pred=_perforated_pred_jax,
+                                  **params)
+    r = _port(builds, True, pred=perforated_pred)
+    route, inline = twf._route(r.table, r.wa, r.config.packet_size)
+    assert route == "walk" and inline is ap.compile_predicate(
+        perforated_pred)
+    cam, p = pt.Camera.look_at(*EYE), pt.RenderParams(**params)
+    img, rays = r.render(cam, p, W, H)
+    assert rays == jrays
+    np.testing.assert_allclose(img, np.asarray(jimg), atol=1e-5)
+    slow = _port(builds, False, pred=perforated_pred, packet_size=0)
+    assert twf._route(slow.table, slow.wa, 0) == ("pool", None)
+    img_s, rays_s = slow.render(cam, p, W, H)
+    assert rays_s == rays
+    np.testing.assert_allclose(img, img_s, atol=2e-6)
+    solid, _ = pt.WavefrontRenderer.from_buffers(
+        builds[True][1], pt.RTConfig(flatten=True, use_native_build=False),
+        device="cpu").render(cam, p, W, H)
+    assert np.abs(img - solid).max() > 0.1  # the predicate cuts out
+
+
 def test_stats_frame_matches_jax(builds):
     """A ``collect_stats`` frame (``perf_trace``: the sequential pipeline
     through the counting walks, in predicate mode) whose rays and wave
@@ -322,7 +375,7 @@ def test_header_written_whole_by_concurrent_writers(tmp_path):
 
 # Runs in a fresh interpreter: the cutout scene's tables with the alpha
 # fields, camera rays, and trace_packets(anyhit_pred=_checker_pred_jax) in
-# each mode.
+# each mode (and with _perforated_pred_jax, keys under "perf/").
 _JAX_WALKS = r"""
 import sys
 import jax
@@ -330,7 +383,8 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 sys.path.insert(0, sys.argv[2])
-from test_torch_anyhit import EYE, _checker_pred_jax, cutout_scene
+from test_torch_anyhit import (EYE, _checker_pred_jax, _perforated_pred_jax,
+                               cutout_scene)
 from vortex_rt_tpu.golden.renderer import generate_rays
 from vortex_rt_tpu.models import procedural as proc
 from vortex_rt_tpu.models.scene import Camera, Material, Scene
@@ -360,15 +414,17 @@ for build, flat, width, names in (
         out[f"{build}/{k}"] = np.asarray(getattr(wa, k))
     for k in ("num_tlas", "max_leaf_tris", "depth", "tri_bits", "width"):
         out[f"{build}/{k}"] = np.int64(getattr(wa, k))
-    for mode in names:
-        kw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v)
-              for k, v in modes[mode].items()}
-        for name, v in modes[mode].items():
-            out[f"{build}/{mode}/arg/{name}"] = np.asarray(v)
-        h, _ = trace_packets(wa, o, d, packet=64,
-                             anyhit_pred=_checker_pred_jax, **kw)
-        for k in ("dist", "bx", "by", "tri", "inst"):
-            out[f"{build}/{mode}/{k}"] = np.asarray(getattr(h, k))
+    for pre, pred, pred_names in (
+            ("", _checker_pred_jax, names),
+            ("perf/", _perforated_pred_jax, names if flat else ("closest",))):
+        for mode in pred_names:
+            kw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v)
+                  for k, v in modes[mode].items()}
+            for name, v in modes[mode].items():
+                out[f"{build}/{mode}/arg/{name}"] = np.asarray(v)
+            h, _ = trace_packets(wa, o, d, packet=64, anyhit_pred=pred, **kw)
+            for k in ("dist", "bx", "by", "tri", "inst"):
+                out[f"{pre}{build}/{mode}/{k}"] = np.asarray(getattr(h, k))
 np.savez(sys.argv[1], **out)
 """
 
@@ -402,13 +458,67 @@ def jax_walks(_jax_walks_started):
         return {k: z[k] for k in z.files}
 
 
+def _margin_ulps(u, v, a) -> np.ndarray:
+    """Per candidate, the least distance of ``perforated_pred``'s three
+    compared values (the hole's radius, the band's product, alpha**2.2),
+    evaluated in float64, from their float32 thresholds, in float32 ulps
+    of the threshold."""
+    u, v, a = (np.asarray(x, np.float32) for x in (u, v, a))
+    du = ((u * np.float32(12)) % np.float32(1) - np.float32(0.5)).astype(
+        np.float64)
+    dv = ((v * np.float32(12)) % np.float32(1) - np.float32(0.5)).astype(
+        np.float64)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        vals = [(np.sqrt(du * du + dv * dv), 0.3),
+                (np.sin(np.float64(u * np.float32(25)))
+                 * np.cos(np.float64(v * np.float32(25))), 0.8),
+                (np.float64(a) ** np.float64(np.float32(2.2)), 0.002)]
+        return np.fmin.reduce([np.abs(x - np.float32(t))
+                               / np.spacing(np.float32(t)) for x, t in vals])
+
+
+def _explain(walk, wa, o, d, kw, rays) -> list:
+    """The rays whose hits differ from JAX's, each walked alone with a
+    plain version that records every candidate it decides: (ray, the
+    closest any candidate's compared value comes to its threshold, in
+    float32 ulps, that candidate's u, v, alpha)."""
+    comp = ap.compile_predicate(perforated_pred)
+    out = []
+    for i in rays:
+        seen = []
+
+        def record(u, v, a):
+            seen.append(torch.stack([u, v, a], 1))
+            return comp.plain(u, v, a)
+
+        one = {k: (x[i:i + 1] if torch.is_tensor(x) else x)
+               for k, x in kw.items()}
+        if "occl_split" in one:
+            one["occl_split"] = int(i < kw["occl_split"])
+        walk(wa, o[i:i + 1], d[i:i + 1],
+             anyhit_pred=dataclasses.replace(comp, plain=record), **one)
+        cands = torch.cat(seen).numpy() if seen else np.zeros((0, 3))
+        m = _margin_ulps(*cands.T) if len(cands) else np.array([np.inf])
+        j = int(np.argmin(m))
+        out.append((int(i), float(m[j]),
+                    tuple(cands[j]) if len(cands) else None))
+    return out
+
+
 @pytest.mark.parametrize("case", WALKS)
 def test_pred_walk_matches_jax(jax_walks, case):
     """K1's (8-wide) and K2's (4-wide TLAS) plain predicate modes against
-    the JAX ``trace_packets(anyhit_pred=_checker_pred)``: every hit field
-    to the bit; the predicate changes many hits."""
+    the JAX ``trace_packets(anyhit_pred=...)``: every hit field to the
+    bit; the predicate changes many hits.  With the perforated predicate
+    a ray may differ only where a candidate's compared value lies within
+    ``ULPS`` float32 ulps of its threshold (XLA's float32 ``sin``, ``cos``
+    and ``pow`` are not correctly rounded; the port's are): each such ray
+    is traced to that candidate and printed."""
     ref = jax_walks
-    build, mode = case.split("/")
+    perf = case.startswith("perf/")
+    build, mode = case.split("/")[-2:]
+    pre = "perf/" if perf else ""
+    pred = perforated_pred if perf else _checker_pred
     wa = bridge.wide_arrays(
         ref[f"{build}/nodes"], ref[f"{build}/tri_rows"], device="cpu",
         fused=ref.get(f"{build}/fused"),
@@ -416,21 +526,77 @@ def test_pred_walk_matches_jax(jax_walks, case):
         alpha_pool=ref[f"{build}/alpha_pool"],
         **{k: int(ref[f"{build}/{k}"]) for k in (
             "num_tlas", "max_leaf_tris", "depth", "tri_bits", "width")})
-    pre = f"{build}/{mode}/arg/"
-    kw = {k[len(pre):]: torch.from_numpy(v) for k, v in ref.items()
-          if k.startswith(pre)}
+    arg = f"{build}/{mode}/arg/"
+    kw = {k[len(arg):]: torch.from_numpy(v) for k, v in ref.items()
+          if k.startswith(arg)}
     if mode == "occlusion":
         kw["occlusion"] = True
     if mode == "occl_split":
         kw["occl_split"] = ref["o"].shape[0] // 2
     walk = trace_packets_ref if wa.width == 8 else trace_packets_walk_ref
     o, d = torch.from_numpy(ref["o"]), torch.from_numpy(ref["d"])
-    hits, _ = walk(wa, o, d, anyhit_pred=_checker_pred, **kw)
+    hits, _ = walk(wa, o, d, anyhit_pred=pred, **kw)
+    differ = np.zeros(o.shape[0], bool)
     for k in ("dist", "bx", "by", "tri", "inst"):
         if mode != "closest" and k != "dist":
             continue  # occlusion lanes carry no hit record
         got = getattr(hits, k).numpy()
-        want = ref[f"{build}/{mode}/{k}"]
-        assert np.array_equal(got.view(np.int32), want.view(np.int32)), k
+        want = ref[f"{pre}{build}/{mode}/{k}"]
+        differ |= got.view(np.int32) != want.view(np.int32)
+    if differ.any():
+        assert perf, f"{case}: {int(differ.sum())} rays differ from JAX's"
+        traced = _explain(walk, wa, o, d, kw, np.flatnonzero(differ))
+        for ray, ulps, cand in traced:
+            print(f"{case}: ray {ray} differs from JAX's; its nearest "
+                  f"candidate to a decision (u, v, alpha) = {cand}, "
+                  f"{ulps:.2f} ulps from its threshold")
+        far = [t for t in traced if not t[1] <= ULPS]
+        assert not far, f"{case}: rays differ beyond {ULPS} ulps: {far}"
     solid, _ = walk(wa, o, d, **kw)
-    assert (solid.dist.numpy() != ref[f"{build}/{mode}/dist"]).sum() > 50
+    assert (solid.dist.numpy() != ref[f"{pre}{build}/{mode}/dist"]).sum() > 50
+
+
+def test_op_weights_and_sass_counts():
+    """``walk_bounds.pred_ops`` weighs each correctly rounded op by its
+    ``PRED_OP_WEIGHTS`` entry (every such op has one) and counts one for
+    every other node; ``tools/pred_op_sass`` emits each such op as the
+    compiler does, and counts a SASS listing's common path (to the first
+    unpredicated ``EXIT``), its FP64 arithmetic, its whole code and its
+    calls."""
+    from vortex_rt_tpu_torch.tools import pred_op_sass
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
+
+    assert set(wb.PRED_OP_WEIGHTS) == set(ap._CORRECTLY_ROUNDED)
+    c = ap.compile_predicate(perforated_pred)
+    rounded = ("sqrt", "sin", "cos", "pow")
+    assert sorted(k for k in c.ops if k in rounded) == sorted(rounded)
+    assert wb.pred_ops(c) == len(c.ops) - 4 + sum(
+        wb.PRED_OP_WEIGHTS[k] for k in rounded)
+    assert wb.pred_ops(ap.compile_predicate(_checker_pred)) == 11
+    src = pred_op_sass.source()
+    assert src.count("__global__") == len(ap._CORRECTLY_ROUNDED) + 1
+    assert "out[i] = __fsqrt_rn(x[i]);" in src
+    assert ("out[i] = __double2float_rn(pow((double)(x[i]), "
+            "(double)(y[i])));") in src
+    sass = """
+        Function : k_x
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   ISETP.GE.AND P0, PT, R0, c[0x0][0x218], PT ;
+        /*0020*/               @P0 EXIT ;
+        /*0030*/                   DADD R2, R2, R4 ;
+        /*0040*/                   CALL.REL.NOINC 0xa0 ;
+        /*0050*/               @P1 BRA 0x70 ;
+        /*0060*/                   CALL.REL.NOINC 0xc0 ;
+        /*0070*/                   EXIT ;
+        /*0080*/                   BRA 0x80;
+        /*0090*/                   NOP;
+        /*00a0*/                   DMUL R2, R2, R2 ;
+        /*00b0*/                   RET.REL.NODEC R20 0x0 ;
+        /*00c0*/                   DFMA R2, R2, R2, R4 ;
+        /*00d0*/                   DFMA R2, R2, R2, R4 ;
+        /*00e0*/                   RET.REL.NODEC R20 0x0 ;
+    """
+    # the call at 0x40 always runs (its body: 2), the one at 0x60 is
+    # jumped over by the branch at 0x50
+    assert pred_op_sass.counts(sass) == {
+        "k_x": dict(main=10, dp=2, total=14, calls=2)}

@@ -1223,20 +1223,35 @@ extern "C" int vrt_eval_preds(const void* u, const void* v, const void* a,
     err = lib.vrt_eval_preds(*(t.data_ptr() for t in uva), out.data_ptr(), n)
     assert err == 0, f"CUDA error {err}"
     got = out.cpu().numpy().reshape(len(compiled), n).astype(bool)
-    return dict(zip(PRED_OPS, got)), (u, v, a)
+    return dict(zip(PRED_OPS, got)), (u, v, a), uva
 
 
 @pytest.mark.parametrize("op", list(PRED_OPS))
 def test_emitted_predicate_on_card_equals_torch(card_preds, op):
     """Each op case of the predicate compiler, its ``vrt_pred`` built by
-    nvcc with the kernels' flags and run on the card, decides as the
-    torch callable does on the CPU, on every point of the seeded grid
-    (negative values, values past 1, exact cell edges, values past
-    int32)."""
+    nvcc with the kernels' flags and run on the card, on every point of
+    the seeded grid (negative values, values past 1, exact cell edges,
+    values past int32 and 1e5, near exp's overflow, signed zeros,
+    subnormals, infinities, NaN): a case of exact ops decides as the
+    torch callable does on the CPU; a case with correctly rounded ops as
+    the compiled predicate's plain version does on the card, to the bit
+    (both call the CUDA math library's double functions).  The points
+    where the plain version on the CPU (torch's float64 kernels) decides
+    otherwise are counted and printed (expected 0)."""
     import numpy as np
 
-    got, (u, v, a) = card_preds
-    want = PRED_OPS[op](*(torch.from_numpy(x) for x in (u, v, a)))
+    from vortex_rt_tpu_torch.ops import anyhit_pred as ap
+
+    got, (u, v, a), uva = card_preds
+    c = ap.compile_predicate(PRED_OPS[op])
+    cpu = [torch.from_numpy(x) for x in (u, v, a)]
+    if c.exact:
+        want = PRED_OPS[op](*cpu)
+    else:
+        want = c.plain(*uva).cpu()
+        off_cpu = int((c.plain(*cpu) != want).sum())
+        print(f"{op}: the plain version on the CPU differs from the card's "
+              f"at {off_cpu} of {want.numel()} points")
     assert want.dtype == torch.bool
     want = want.numpy()
     bad = np.flatnonzero(got[op] != want)
@@ -1246,13 +1261,23 @@ def test_emitted_predicate_on_card_equals_torch(card_preds, op):
 
 @pytest.mark.parametrize("case", ["k1/closest", "k1/occlusion",
                                   "k1/occl_split", "k2tlas/closest",
-                                  "k2tlas/occlusion", "k1/stats"])
+                                  "k2tlas/occlusion", "k1/stats",
+                                  "perforated/k1/closest",
+                                  "perforated/k1/occl_split",
+                                  "perforated/k2tlas/closest",
+                                  "perforated/k2tlas/occlusion"])
 def test_pred_walks_match_plain_version(cuda, case):
     """K1's and K2's predicate modes (the library built with the compiled
-    checker predicate) against their plain versions, which call the
-    predicate on tensors: hits and per-ray steps equal; the launches
-    count as the predicate mode (the counting one as ``_stats``)."""
-    walk_name, mode = case.split("/")
+    checker predicate, or ``bench_ladder.perforated_pred``: correctly
+    rounded ``sqrt``, ``sin``, ``cos``, ``**``) against their plain
+    versions, which call the predicate's plain version on tensors: hits
+    and per-ray steps equal; the launches count as the predicate mode
+    (the counting one as ``_stats``)."""
+    from vortex_rt_tpu_torch.tools.bench_ladder import perforated_pred
+
+    pred = perforated_pred if case.startswith("perforated/") \
+        else _checker_pred
+    walk_name, mode = case.split("/")[-2:]
     flat = walk_name == "k1"
     width = 8 if flat else 4
     sb = _cutout(flat, width)
@@ -1276,10 +1301,10 @@ def test_pred_walks_match_plain_version(cuda, case):
     if mode == "stats":
         name = "traverse_packet_stats"
     before = kernels.LAUNCHES[name]
-    out = walk(wa, o, d, anyhit_pred=_checker_pred, **kw)
+    out = walk(wa, o, d, anyhit_pred=pred, **kw)
     torch.cuda.synchronize()
     kw.pop("stats", None)
-    hp, sp = ref(wa, o, d, anyhit_pred=_checker_pred, **kw)
+    hp, sp = ref(wa, o, d, anyhit_pred=pred, **kw)
     assert kernels.LAUNCHES[name] == before + 1
     hk, sk = out[0], out[1]
     for a, b in zip((*hk, sk), (*hp, sp)):
@@ -1288,18 +1313,24 @@ def test_pred_walks_match_plain_version(cuda, case):
     assert bool((h0.dist != hk.dist).any())  # the predicate rejects hits
 
 
-@pytest.mark.parametrize("flat", [True, False])
-def test_pred_frames_match_plain_route(cuda, flat):
+@pytest.mark.parametrize("pred_name,flat", [
+    ("checker", True), ("checker", False), ("perforated", True),
+    ("perforated", False)])
+def test_pred_frames_match_plain_route(cuda, pred_name, flat):
     """``stateless_anyhit`` frames through K1's (flattened) and K2's (TLAS)
-    predicate modes against the plain route, and no K3 launch."""
+    predicate modes against the plain route, and no K3 launch; with the
+    checker predicate and with ``bench_ladder.perforated_pred``."""
     import numpy as np
 
     from vortex_rt_tpu_torch.engine.shaders import (
         ShaderTable, stateless_anyhit,
     )
+    from vortex_rt_tpu_torch.tools.bench_ladder import perforated_pred
 
     cfg = pt.RTConfig(flatten=flat)
-    table = ShaderTable(anyhit=stateless_anyhit(_checker_pred, "checker"))
+    table = ShaderTable(anyhit=stateless_anyhit(
+        perforated_pred if pred_name == "perforated" else _checker_pred,
+        pred_name))
     rk = pt.WavefrontRenderer.from_buffers(_cutout(flat), cfg, table,
                                            device=cuda)
     cam = pt.Camera.look_at([0.15, -0.1, -3.0], [0, 0, 1], [0, 1, 0], 50.0,

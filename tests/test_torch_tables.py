@@ -251,21 +251,22 @@ def test_unported_options_raise(option):
                                               device=["cpu", "cpu"])
         return
     if option == "anyhit":
-        # ported since ROADMAP Queue 1 item 8b: a stateless predicate runs
+        # ported since ROADMAP Queue 1 items 8b and 8c: a stateless
+        # predicate (sqrt and the transcendentals correctly rounded) runs
         # inside the walk of a flattened build (K1's predicate mode;
         # tests/test_torch_anyhit_pred.py holds it to JAX); what its
-        # compiler refuses still raises, naming the op
+        # compiler refuses (a non-elementwise op) still raises, naming it
         from vortex_rt_tpu_torch.engine.shaders import stateless_anyhit
 
         r = pt.WavefrontRenderer.from_buffers(
             tsb, cfg, ShaderTable(anyhit=stateless_anyhit(
-                lambda u, v, a: a > 0.5)), device="cpu")
+                lambda u, v, a: a.sqrt() > 0.5)), device="cpu")
         img, rays = r.render(cam, pt.RenderParams(), 16, 16)
         assert rays >= 16 * 16 and np.isfinite(img).all()
-        with pytest.raises(NotImplementedError, match="sqrt"):
+        with pytest.raises(NotImplementedError, match="cumsum"):
             pt.WavefrontRenderer.from_buffers(
                 tsb, cfg, ShaderTable(anyhit=stateless_anyhit(
-                    lambda u, v, a: a.sqrt() > 0.5)), device="cpu")
+                    lambda u, v, a: a.cumsum(0) > 0.5)), device="cpu")
         return
     raise AssertionError(f"unknown option {option}")
 

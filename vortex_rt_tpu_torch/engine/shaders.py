@@ -27,6 +27,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from vortex_rt_tpu_torch.ops.anyhit_pred import compile_predicate
 from vortex_rt_tpu_torch.ops.shade_lanes import (
     ShadeArrays, ShadePoint, diffuse_lighting_lanes, reflect_lanes,
 )
@@ -197,12 +198,20 @@ def stateless_anyhit(pred: Callable, name: str = "stateless"):
     (``ops.anyhit_pred.compile_predicate``, which raises
     ``NotImplementedError`` for an op outside its set) and runs it inside
     K1's or K2's predicate mode over the ``with_alpha`` tables, flat or
-    TLAS; through the per-ray engine (``RTConfig(packet_size=0)``, TLAS
-    builds) this callable runs by suspension, with the same hits."""
+    TLAS.  Through the per-ray engine (``RTConfig(packet_size=0)``, TLAS
+    builds) the shader runs by suspension and decides with the compiled
+    predicate's plain version (its correctly rounded ops in float64,
+    rounded once, as the kernels evaluate them), so the suspension frame,
+    the plain walks and the kernels give the same hits; a predicate the
+    compiler refuses runs as this callable there."""
+    try:
+        decide = compile_predicate(pred).plain
+    except NotImplementedError:
+        decide = pred
 
     def shader(ctx: ShaderContext, sp: ShadePoint, ray: RayLanes,
                payload: PayloadLanes) -> torch.Tensor:
-        keep = pred(sp.u, sp.v, _luminance(sp))
+        keep = decide(sp.u, sp.v, _luminance(sp))
         return torch.where(keep, COMMIT_ACCEPT, COMMIT_CONT).to(torch.int32)
 
     shader.inline_predicate = pred

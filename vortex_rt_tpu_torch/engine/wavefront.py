@@ -44,9 +44,10 @@ Any-hit shaders (``ShaderTable.anyhit``) take one of two routes:
   ``from_buffers`` builds the ``with_alpha`` tables and every wave runs
   K1 or K2 in alpha mode (``alpha_ref``) or in predicate mode
   (``anyhit_pred``: the predicate compiled by ``ops/anyhit_pred.py``,
-  which raises ``NotImplementedError`` at ``from_buffers`` for an op
-  outside its set), shadow rays and the merged wave included, flat or
-  TLAS;
+  its ``sqrt`` and transcendentals correctly rounded, which raises
+  ``NotImplementedError`` at ``from_buffers`` for an op outside its
+  set: a non-elementwise or random op, a captured tensor that is not
+  0-dim), shadow rays and the merged wave included, flat or TLAS;
 * every other any-hit shader, and every frame with
   ``RTConfig(packet_size=0)``, takes the pool path, the JAX monolithic
   frame: all samples of all pixels in one pool of lanes, each wave traced
@@ -215,8 +216,9 @@ def _inline_anyhit(table: ShaderTable, wa: WideArrays):
     (``inline_predicate``; it wins over a threshold), the threshold of an
     ``alpha_test_anyhit`` (``alpha_threshold``), or None: unmarked
     shaders, and tables without the ``with_alpha`` fields.  Compiling
-    raises ``NotImplementedError`` for an op outside the compiler's
-    set."""
+    raises ``NotImplementedError`` for an op outside the compiler's set
+    (its correctly rounded ``sqrt`` and transcendentals are inside
+    it)."""
     if getattr(wa, "alpha_rows", None) is None:
         return None
     pred = getattr(table.anyhit, "inline_predicate", None)

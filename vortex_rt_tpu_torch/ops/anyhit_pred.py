@@ -19,38 +19,68 @@ its text.  ``runtime/kernels.load_pred`` builds K1's or K2's source with
 passes Moller-Trumbore, with the (u, v, alpha) that
 ``csrc/alpha_test.cuh::vrt_candidate_surface`` computes.
 
-The op set is closed, and each op is emitted to give torch's CPU result
-to the bit (the header is built without FMA contraction):
+Exact ops are emitted to give torch's CPU float32 result to the bit (the
+header is built without FMA contraction), as tensor methods, ``torch.*``
+functions and operators:
 
-- ``+ - *`` and unary ``-`` (integers wrap, as torch's do); ``/`` as a
-  correctly rounded ``__fdiv_rn``, never a multiply by the reciprocal
-  (ROADMAP hazard H6: torch on a card multiplies by the reciprocal of a
-  Python-scalar divisor, so a plain walk on the card may differ there);
-- ``abs``, ``floor``, ``ceil``, ``trunc``, ``torch.round`` (half to even,
-  ``rintf``); ``%`` and ``//`` (``torch.remainder``,
-  ``torch.floor_divide``) with torch's floored formulas on integers and
-  floats (C's ``%`` truncates, hazard H10);
+- ``+ - *`` (``add``, ``sub``, ``mul`` without ``alpha``), unary ``-``
+  and ``square`` (integers wrap, as torch's do); ``/`` (``div``,
+  ``true_divide``) and ``reciprocal`` as a correctly rounded
+  ``__fdiv_rn``, never a multiply by the reciprocal (ROADMAP hazard H6:
+  torch on a card multiplies by the reciprocal of a Python-scalar
+  divisor, so a plain walk on the card may differ there);
+  ``div(rounding_mode="trunc" | "floor")``;
+- ``abs``, ``sign``, ``floor``, ``ceil``, ``trunc``, ``frac``,
+  ``torch.round`` (half to even, ``rintf``); ``%`` and ``//``
+  (``torch.remainder``, ``torch.floor_divide``) with torch's floored
+  formulas on integers and floats (C's ``%`` truncates, hazard H10);
+  ``fmod`` (truncated), ``copysign``;
 - ``minimum``, ``maximum`` and ``clamp`` (a NaN operand gives NaN),
   ``where``;
-- the six comparisons, ``& | ^ ~``, ``logical_and``, ``logical_or``,
-  ``logical_not``;
+- the six comparisons, ``isnan``, ``isinf``, ``isfinite``, ``signbit``;
+  ``& | ^ ~`` and the ``bitwise_*`` functions, ``<<`` and ``>>`` on
+  integers (a count past the width gives torch's result: 0 to the
+  left, the sign to the right), ``logical_and``, ``logical_or``,
+  ``logical_xor``, ``logical_not``;
 - ``.to(dtype)``, ``.int()``, ``.long()``, ``.float()`` and ``.bool()``
   to int32, int64, float32 and bool (a float is truncated to an integer;
   NaN and values out of range give the type's minimum, as x86 does).
 
+Correctly rounded ops (ROADMAP hazard H23): ``sqrt``, ``rsqrt``, the
+trigonometric, hyperbolic, exponential and logarithmic functions and
+their inverses, ``pow`` (``**``) on floats, ``sigmoid``, ``erf``,
+``erfc``, ``atan2`` and ``hypot`` (``_CORRECTLY_ROUNDED``).  torch's CPU
+float32 results for these are not correctly rounded (hazards H5, H14),
+so no CUDA function could match them on every input; each means instead
+the float32 rounding of its float64 evaluation on the float32 operands
+(integer operands promote to float32 first, as torch promotes them):
+``__fsqrt_rn`` for ``sqrt`` (exact), ``__double2float_rn(f((double)x,
+...))`` with the CUDA math library's double ``f`` for the others,
+``rsqrt`` as ``1/sqrt(x)`` and ``sigmoid`` as ``1/(1 + exp(-x))`` in
+float64.  ``pow`` on integers is exact (torch's ``powi``, wrapping).
+
 An operation's compute type is the node's type, and a comparison's is
 ``torch.result_type`` of its operands; Python scalars follow torch's
 promotion (a Python float against float32 or integer operands rounds to
-float32) and are emitted as exact hex literals.  Refused, each with a
-``NotImplementedError`` that names the op: ``sqrt`` and the
-transcendentals (ROADMAP H5 and H14: torch's CPU results are not
-correctly rounded, so the plain walk and the kernel would differ;
-Queue 1 item 8c), any other op outside the set, a captured tensor, a
+float32) and are emitted as exact hex literals, as is a captured 0-dim
+tensor of a supported type (it promotes as torch promotes a 0-dim
+tensor).  Refused, each with a ``NotImplementedError`` that names it:
+any other op (non-elementwise ones such as ``cumsum``, random ones such
+as ``rand_like``), a captured tensor of any other shape, a
 value-dependent Python branch (fx cannot trace it) and a result that is
 not a bool of the inputs' shape.
 
-The plain version of a compiled predicate is the user's callable itself
-(``CompiledPredicate.fn``): the plain walks call it on tensors.
+The plain version of a compiled predicate (``CompiledPredicate.plain``,
+which the plain walks and the suspension shader call on tensors) is the
+traced graph with each correctly rounded op replaced by its float64 form
+rounded once to float32, in the kernel's order, every operand a full
+tensor (so torch takes none of its Python-scalar shortcuts, such as
+``x**2`` as ``x*x``).  The kernel and the plain version on a card call
+the same CUDA math library function; on the CPU, torch's float64
+kernels and the host C library are within about a double ulp, so they
+round to different floats only where a float32 rounding midpoint falls
+between them (about 1 input in 10^8).  ``CompiledPredicate.fn`` stays
+the user's callable.
 """
 
 from __future__ import annotations
@@ -74,7 +104,40 @@ _UTYPE = {torch.int32: "unsigned int", torch.int64: "unsigned long long"}
 _CAST_METHODS = {"int": torch.int32, "long": torch.int64,
                  "float": torch.float32, "bool": torch.bool}
 
-# the op set: fx targets (functions, and method names) -> the op's kind
+# the correctly rounded ops: kind -> the CUDA math library's double
+# function (and its arity); rsqrt and sigmoid are formulas of sqrt and exp
+_CORRECTLY_ROUNDED = {
+    "sqrt": ("sqrt", 1), "rsqrt": ("sqrt", 1), "sin": ("sin", 1),
+    "cos": ("cos", 1), "tan": ("tan", 1), "asin": ("asin", 1),
+    "acos": ("acos", 1), "atan": ("atan", 1), "sinh": ("sinh", 1),
+    "cosh": ("cosh", 1), "tanh": ("tanh", 1), "asinh": ("asinh", 1),
+    "acosh": ("acosh", 1), "atanh": ("atanh", 1), "exp": ("exp", 1),
+    "exp2": ("exp2", 1), "expm1": ("expm1", 1), "log": ("log", 1),
+    "log2": ("log2", 1), "log10": ("log10", 1), "log1p": ("log1p", 1),
+    "sigmoid": ("exp", 1), "erf": ("erf", 1), "erfc": ("erfc", 1),
+    "atan2": ("atan2", 2), "hypot": ("hypot", 2), "pow": ("pow", 2),
+}
+_ALIASES = {"arcsin": "asin", "arccos": "acos", "arctan": "atan",
+            "arctan2": "atan2", "arcsinh": "asinh", "arccosh": "acosh",
+            "arctanh": "atanh", "absolute": "abs", "negative": "neg",
+            "clip": "clamp", "fix": "trunc", "subtract": "sub",
+            "multiply": "mul", "divide": "div", "true_divide": "div",
+            "less": "lt", "less_equal": "le", "greater": "gt",
+            "greater_equal": "ge", "not_equal": "ne", "remainder": "mod",
+            "floor_divide": "floordiv", "bitwise_and": "and",
+            "bitwise_or": "or", "bitwise_xor": "xor",
+            "bitwise_not": "invert", "bitwise_left_shift": "lshift",
+            "bitwise_right_shift": "rshift", "expit": "sigmoid"}
+_EXACT = ("neg", "abs", "floor", "ceil", "trunc", "round", "minimum",
+          "maximum", "clamp", "clamp_min", "clamp_max", "where",
+          "logical_and", "logical_or", "logical_xor", "logical_not", "add",
+          "sub", "mul", "div", "lt", "le", "gt", "ge", "eq", "ne", "square",
+          "reciprocal", "sign", "frac", "fmod", "copysign", "isnan", "isinf",
+          "isfinite", "signbit")
+# tensor methods and torch functions of these names (and aliases) -> kind
+_METHODS = {**{k: k for k in (*_EXACT, *_CORRECTLY_ROUNDED)
+               if k != "where"}, **_ALIASES, "to": "to",
+            **{k: "to" for k in _CAST_METHODS}}
 _FUNCTIONS = {
     operator.add: "add", operator.sub: "sub", operator.mul: "mul",
     operator.truediv: "div", operator.floordiv: "floordiv",
@@ -82,31 +145,24 @@ _FUNCTIONS = {
     operator.lt: "lt", operator.le: "le", operator.gt: "gt",
     operator.ge: "ge", operator.eq: "eq", operator.ne: "ne",
     operator.and_: "and", operator.or_: "or", operator.xor: "xor",
-    operator.invert: "invert",
-    torch.neg: "neg", torch.abs: "abs", torch.floor: "floor",
-    torch.ceil: "ceil", torch.trunc: "trunc", torch.round: "round",
-    torch.remainder: "mod", torch.floor_divide: "floordiv",
-    torch.minimum: "minimum", torch.maximum: "maximum",
-    torch.clamp: "clamp", torch.clamp_min: "clamp_min",
-    torch.clamp_max: "clamp_max", torch.where: "where",
-    torch.logical_and: "logical_and", torch.logical_or: "logical_or",
-    torch.logical_not: "logical_not",
+    operator.invert: "invert", operator.lshift: "lshift",
+    operator.rshift: "rshift", operator.pow: "pow",
+    torch.where: "where",
+    **{getattr(torch, k): v for k, v in _METHODS.items()
+       if v != "to" and callable(getattr(torch, k, None))},
+    **{getattr(torch.special, k): _ALIASES.get(k, k)
+       for k in ("expit", "erf", "erfc", "expm1", "exp2", "log1p")},
 }
-_METHODS = {"neg", "abs", "floor", "ceil", "trunc", "round", "remainder",
-            "floor_divide", "minimum", "maximum", "clamp", "clamp_min",
-            "clamp_max", "logical_and", "logical_or", "logical_not", "to",
-            *_CAST_METHODS}
 _COMPARE = {"lt": "<", "le": "<=", "gt": ">", "ge": ">=", "eq": "==",
             "ne": "!="}
-_TRANSCENDENTAL = {"sqrt", "rsqrt", "sin", "cos", "tan", "asin", "acos",
-                   "atan", "atan2", "sinh", "cosh", "tanh", "exp", "exp2",
-                   "expm1", "log", "log2", "log10", "log1p", "pow", "sigmoid",
-                   "erf", "erfc", "hypot"}
+_LOGICAL = {"logical_and": "&&", "logical_or": "||", "logical_xor": "!="}
+_INF = "__int_as_float(0x7f800000)"
 
 # Helpers the emitted function may call.  Their formulas are torch's CPU
 # kernels' (c10 div_floor_floating / div_floor_integer, the remainder
 # kernel's fmod form, maximum's NaN propagation, x86's conversion of an
-# out-of-range float), so the kernel decides as the user's callable does.
+# out-of-range float, the integer div_trunc, fmod, shift and pow
+# kernels), so the kernel decides as the user's callable does.
 _HELPERS = r"""
 __device__ __forceinline__ float vrt_p_fmax(float a, float b) {
     return (a != a) ? a : (b != b) ? b : (a > b ? a : b);
@@ -160,6 +216,41 @@ __device__ __forceinline__ long long vrt_p_f2l(float x) {
     return (x >= -9223372036854775808.0f && x < 9223372036854775808.0f)
         ? (long long)x : (-9223372036854775807LL - 1);
 }
+// torch's div_trunc and fmod on integers (they raise on a zero divisor;
+// the kernel gives 0) and its shifts: a count below 0 or past the width
+// gives 0 to the left and the sign to the right (lshift_kernel,
+// rshift_kernel)
+template <typename T, typename U>
+__device__ __forceinline__ T vrt_p_idiv(T a, T b) {
+    if (b == 0) return 0;
+    return b == -1 ? (T)((U)0 - (U)a) : (T)(a / b);
+}
+template <typename T>
+__device__ __forceinline__ T vrt_p_ifmod(T a, T b) {
+    return (b == 0 || b == -1) ? (T)0 : (T)(a % b);
+}
+template <typename T, typename U>
+__device__ __forceinline__ T vrt_p_shl(T a, T b) {
+    return (b < 0 || b >= (T)(8 * sizeof(T))) ? (T)0 : (T)((U)a << b);
+}
+template <typename T>
+__device__ __forceinline__ T vrt_p_shr(T a, T b) {
+    const T top = (T)(8 * sizeof(T) - 1);
+    return (b < 0 || b >= top) ? (T)(a >> top) : (T)(a >> b);
+}
+// torch's powi on integers: wrapping products; a negative exponent gives
+// 0 but for a base of 1 or -1
+template <typename T, typename U>
+__device__ __forceinline__ T vrt_p_ipow(T a, T b) {
+    if (b < 0) return a == 1 ? (T)1 : a == -1 ? (T)((b % 2) ? -1 : 1) : (T)0;
+    U r = 1, x = (U)a;
+    while (b) {
+        if (b & 1) r *= x;
+        b /= 2;
+        x *= x;
+    }
+    return (T)r;
+}
 """
 
 
@@ -167,20 +258,31 @@ __device__ __forceinline__ long long vrt_p_f2l(float x) {
 class CompiledPredicate:
     """A predicate compiled for the walks' predicate modes.
 
-    ``fn`` is the user's callable (the plain version), ``text`` the
-    header that defines ``vrt_pred``, ``digest`` a hash of the text (the
-    header's name and part of its kernels' build key) and ``ops`` the
-    kinds of the emitted function's operations in graph order."""
+    ``fn`` is the user's callable, ``plain`` the plain version (the
+    traced graph with the correctly rounded ops in float64, rounded
+    once; the module docstring), ``text`` the header that defines
+    ``vrt_pred``, ``digest`` a hash of the text (the header's name and
+    part of its kernels' build key) and ``ops`` the kinds of the emitted
+    function's operations in graph order."""
 
     fn: Callable
+    plain: Callable
     text: str
     digest: str
     ops: Tuple[str, ...]
 
     @property
     def n_ops(self) -> int:
-        """The emitted function's operations (``tools/walk_bounds``)."""
+        """The emitted function's operations, one a node of the graph
+        (``tools/walk_bounds.pred_ops`` weighs each correctly rounded one
+        by its instruction count)."""
         return len(self.ops)
+
+    @property
+    def exact(self) -> bool:
+        """No correctly rounded op: the kernel gives the user's callable's
+        torch CPU result to the bit."""
+        return not any(k in _CORRECTLY_ROUNDED for k in self.ops)
 
     @property
     def header_name(self) -> str:
@@ -233,6 +335,15 @@ def _op_name(node) -> str:
     return t if isinstance(t, str) else getattr(t, "__name__", str(t))
 
 
+def _kind(node) -> str:
+    """The op kind of a call node, or "" for a call outside the set."""
+    if node.op == "call_function":
+        return _FUNCTIONS.get(node.target, "")
+    if node.op == "call_method":
+        return _METHODS.get(node.target, "")
+    return ""
+
+
 def _trace(pred):
     import torch.fx
     from torch.fx.passes.shape_prop import ShapeProp
@@ -251,19 +362,18 @@ def _trace(pred):
                       f"u, v, alpha)")
     for n in nodes:
         if n.op == "get_attr":
-            raise _refuse(f"a captured tensor ({n.target})")
-        if n.op == "call_module":
+            t = getattr(gm, n.target, None)
+            if not torch.is_tensor(t) or t.dim() != 0 \
+                    or t.dtype not in _CTYPE:
+                raise _refuse(
+                    f"a captured tensor ({n.target}: "
+                    f"{tuple(t.shape) if torch.is_tensor(t) else t!r} "
+                    f"{getattr(t, 'dtype', '')}; only a 0-dim float32, "
+                    f"int32, int64 or bool tensor is a constant)")
+        elif n.op == "call_module":
             raise _refuse(f"a module call ({n.target})")
-        name = _op_name(n)
-        if n.op == "call_function" and n.target not in _FUNCTIONS \
-                or n.op == "call_method" and n.target not in _METHODS:
-            if name in _TRANSCENDENTAL:
-                raise NotImplementedError(
-                    f"stateless any-hit predicate: {name} is refused: "
-                    f"torch's CPU result is not correctly rounded, so the "
-                    f"plain walk and the kernel would differ (ROADMAP H5, "
-                    f"H14; Queue 1 item 8c)")
-            raise _refuse(name)
+        elif n.op in ("call_function", "call_method") and not _kind(n):
+            raise _refuse(_op_name(n))
     samples = [torch.empty(8, dtype=torch.float32, device="meta")
                for _ in range(3)]
     try:
@@ -284,6 +394,13 @@ def _dtype(node) -> torch.dtype:
     if dt not in _CTYPE:
         raise _refuse(f"the type {dt} (of {node.name})")
     return dt
+
+
+def _zero_dim(a) -> bool:
+    """A node whose value is 0-dim (a captured constant, or an operation
+    on such constants alone): it promotes as a 0-dim tensor."""
+    return isinstance(a, torch.fx.Node) \
+        and tuple(a.meta["tensor_meta"].shape) == ()
 
 
 def _hexf(x: float) -> str:
@@ -320,12 +437,28 @@ def _cast(expr: str, src: torch.dtype, dst: torch.dtype) -> str:
     return f"(({_CTYPE[dst]})({expr}))"
 
 
+def _correctly_rounded(kind: str, ops) -> str:
+    """The correctly rounded op ``kind`` on float32 operand expressions:
+    its float64 evaluation rounded once to float32."""
+    if kind == "sqrt":
+        return f"__fsqrt_rn({ops[0]})"
+    x = [f"(double)({o})" for o in ops]
+    fn = _CORRECTLY_ROUNDED[kind][0]
+    if kind == "rsqrt":
+        expr = f"1.0 / sqrt({x[0]})"
+    elif kind == "sigmoid":
+        expr = f"1.0 / (1.0 + exp(-{x[0]}))"
+    else:
+        expr = f"{fn}({', '.join(x)})"
+    return f"__double2float_rn({expr})"
+
+
 def _compile(pred) -> CompiledPredicate:
     gm, holders = _trace(pred)
     env: Dict[str, Tuple[str, torch.dtype]] = {}
     for node, cname in zip(holders, ("u", "v", "alpha")):
         env[node.name] = (cname, torch.float32)
-    lines, kinds = [], []
+    lines, kinds, rounded = [], [], {}
 
     def operand(a, dt: torch.dtype) -> str:
         """Argument ``a`` (a node or a Python scalar) as type ``dt``."""
@@ -337,8 +470,9 @@ def _compile(pred) -> CompiledPredicate:
         raise _refuse(f"the argument {a!r}")
 
     def result_type(args) -> torch.dtype:
-        """torch's promotion of the operands (nodes are (8,) tensors)."""
-        ts = [torch.empty(1, dtype=env[a.name][1])
+        """torch's promotion of the operands (nodes are (8,) tensors, or
+        0-dim ones)."""
+        ts = [torch.empty(() if _zero_dim(a) else 1, dtype=env[a.name][1])
               if isinstance(a, torch.fx.Node) else a for a in args]
         if not any(torch.is_tensor(t) for t in ts):
             raise _refuse("an operation on Python scalars alone")
@@ -351,19 +485,35 @@ def _compile(pred) -> CompiledPredicate:
     for node in gm.graph.nodes:
         if node.op in ("placeholder", "output"):
             continue
+        if node.op == "get_attr":  # a captured 0-dim tensor: a literal
+            t = getattr(gm, node.target)
+            env[node.name] = (_literal(t.item(), t.dtype), t.dtype)
+            continue
         name = _op_name(node)
-        kind = (_FUNCTIONS[node.target] if node.op == "call_function"
-                else {"remainder": "mod", "floor_divide": "floordiv"}.get(
-                    name, name))
-        if kind in _CAST_METHODS:
-            kind = "to"
+        kind = _kind(node)
         out_dt = _dtype(node)
         args, kw = list(node.args), dict(node.kwargs)
-        if kw and kind not in ("to", "clamp", "clamp_min", "clamp_max"):
+        allowed = {"to": {"dtype"}, "clamp": {"min", "max"},
+                   "clamp_min": {"min"}, "clamp_max": {"max"},
+                   "div": {"rounding_mode"}}.get(kind, set())
+        if set(kw) - allowed:
             raise _refuse(f"{name} with keyword arguments {kw}")
         ct, u_t = _CTYPE[out_dt], _UTYPE.get(out_dt)
         fl = out_dt == torch.float32
-        if kind == "to":
+        integer = out_dt in (torch.int32, torch.int64)
+        if kind == "pow" and not fl:
+            if not integer:
+                raise _refuse(f"{name} to {out_dt}")
+            a, b = (operand(x, out_dt) for x in args)
+            expr = f"vrt_p_ipow<{ct}, {u_t}>({a}, {b})"
+            kind = "ipow"  # (exact)
+        elif kind in _CORRECTLY_ROUNDED:
+            if not fl or len(args) != _CORRECTLY_ROUNDED[kind][1]:
+                raise _refuse(f"{name} of {len(args)} operands to {out_dt}")
+            expr = _correctly_rounded(kind, [operand(x, out_dt)
+                                             for x in args])
+            rounded[node.name] = kind
+        elif kind == "to":
             src = args[0]
             target = (_CAST_METHODS[name] if name in _CAST_METHODS
                       else kw.pop("dtype", args[1] if len(args) > 1 else None))
@@ -372,19 +522,33 @@ def _compile(pred) -> CompiledPredicate:
                 raise _refuse(f".{name}({', '.join(map(str, args[1:]))}"
                               f"{', ' if kw else ''}{kw or ''})")
             expr = _cast(*env[src.name], target)
-        elif kind in ("add", "sub", "mul"):
-            op = {"add": "+", "sub": "-", "mul": "*"}[kind]
+        elif kind in ("add", "sub", "mul", "square"):
+            if kind == "square":
+                args = [args[0], args[0]]
+            op = {"add": "+", "sub": "-"}.get(kind, "*")
             a, b = (operand(x, out_dt) for x in args)
             if out_dt == torch.bool:
                 raise _refuse(f"{name} on bool operands")
             expr = (f"({a} {op} {b})" if fl else
                     f"(({ct})(({u_t})({a}) {op} ({u_t})({b})))")
-        elif kind == "div":
-            if out_dt != torch.float32 or kw:
+        elif kind == "div" and kw.get("rounding_mode") is not None:
+            mode = kw["rounding_mode"]
+            a, b = (operand(x, out_dt) for x in args)
+            if out_dt == torch.bool or mode not in ("trunc", "floor"):
+                raise _refuse(f"{name} with rounding_mode={mode!r} to "
+                              f"{out_dt}")
+            expr = (f"truncf(__fdiv_rn({a}, {b}))" if fl and mode == "trunc"
+                    else f"vrt_p_idiv<{ct}, {u_t}>({a}, {b})"
+                    if mode == "trunc" else f"vrt_p_ffloordiv({a}, {b})"
+                    if fl else f"vrt_p_ifloordiv<{ct}, {u_t}>({a}, {b})")
+        elif kind in ("div", "reciprocal"):
+            if not fl:
                 raise _refuse(f"{name} to {out_dt}")
+            if kind == "reciprocal":
+                args = [1.0, args[0]]
             a, b = (operand(x, out_dt) for x in args)
             expr = f"__fdiv_rn({a}, {b})"
-        elif kind in ("mod", "floordiv"):
+        elif kind in ("mod", "floordiv", "fmod"):
             a, b = (operand(x, out_dt) for x in args)
             if out_dt == torch.bool:
                 raise _refuse(f"{name} on bool operands")
@@ -392,9 +556,22 @@ def _compile(pred) -> CompiledPredicate:
                     and int(args[1]) == 0:
                 raise _refuse(f"{name} by a constant integer 0 (torch "
                               f"raises)")
-            expr = (f"vrt_p_f{kind}({a}, {b})" if fl else
+            expr = (f"fmodf({a}, {b})" if fl and kind == "fmod" else
+                    f"vrt_p_f{kind}({a}, {b})" if fl else
+                    f"vrt_p_ifmod<{ct}>({a}, {b})" if kind == "fmod" else
                     f"vrt_p_imod<{ct}>({a}, {b})" if kind == "mod" else
                     f"vrt_p_ifloordiv<{ct}, {u_t}>({a}, {b})")
+        elif kind == "copysign":
+            if not fl:
+                raise _refuse(f"{name} to {out_dt}")
+            a, b = (operand(x, out_dt) for x in args)
+            expr = f"copysignf({a}, {b})"
+        elif kind in ("lshift", "rshift"):
+            if not integer:
+                raise _refuse(f"{name} on {out_dt} operands")
+            a, b = (operand(x, out_dt) for x in args)
+            expr = (f"vrt_p_shl<{ct}, {u_t}>({a}, {b})" if kind == "lshift"
+                    else f"vrt_p_shr<{ct}>({a}, {b})")
         elif kind == "neg":
             a = operand(args[0], out_dt)
             if out_dt == torch.bool:
@@ -404,14 +581,35 @@ def _compile(pred) -> CompiledPredicate:
             a = operand(args[0], out_dt)
             expr = (f"fabsf({a})" if fl else a if out_dt == torch.bool
                     else f"vrt_p_iabs<{ct}, {u_t}>({a})")
-        elif kind in ("floor", "ceil", "trunc", "round"):
-            if kw or len(args) > 1:
-                raise _refuse(f"{name} with arguments "
-                              f"{args[1:] or ''}{kw or ''}")
+        elif kind == "sign":
+            a = operand(args[0], out_dt)
+            expr = (a if out_dt == torch.bool else
+                    f"(({ct})(({a} > 0) - ({a} < 0)))")
+        elif kind in ("floor", "ceil", "trunc", "round", "frac"):
+            if kw or len(args) > 1 or (kind == "frac" and not fl):
+                raise _refuse(f"{name} with arguments {args[1:] or ''}"
+                              f"{kw or ''} to {out_dt}")
             a = operand(args[0], out_dt)
             fn = {"floor": "floorf", "ceil": "ceilf", "trunc": "truncf",
-                  "round": "rintf"}[kind]
-            expr = f"{fn}({a})" if fl else a
+                  "round": "rintf"}.get(kind)
+            expr = (f"({a} - truncf({a}))" if kind == "frac" else
+                    f"{fn}({a})" if fl else a)
+        elif kind in ("isnan", "isinf", "isfinite", "signbit"):
+            src = args[0]
+            sdt = env[src.name][1] if isinstance(src, torch.fx.Node) \
+                else None
+            if sdt is None:
+                raise _refuse(f"{name} of a Python scalar")
+            a = env[src.name][0]
+            if sdt == torch.float32:
+                expr = {"isnan": f"({a} != {a})",
+                        "isinf": f"(fabsf({a}) == {_INF})",
+                        "isfinite": f"(fabsf({a}) < {_INF})",
+                        "signbit": f"(copysignf(1.0f, {a}) < 0.0f)"}[kind]
+            elif kind == "signbit" and sdt != torch.bool:
+                expr = f"({a} < 0)"
+            else:
+                expr = "true" if kind == "isfinite" else "false"
         elif kind in ("minimum", "maximum", "clamp", "clamp_min",
                       "clamp_max"):
             mx = "vrt_p_fmax" if fl else f"vrt_p_max<{ct}>"
@@ -425,14 +623,14 @@ def _compile(pred) -> CompiledPredicate:
                 bounds = dict(zip(names, args[1:]))
                 bounds.update(kw)
                 expr = operand(args[0], out_dt)
-                if set(bounds) - {"min", "max"}:
-                    raise _refuse(f"{name} with {sorted(bounds)}")
+                if len(args) > len(names) + 1:
+                    raise _refuse(f"{name} with {len(args)} operands")
                 if bounds.get("min") is not None:
                     expr = f"{mx}({expr}, {operand(bounds['min'], out_dt)})"
                 if bounds.get("max") is not None:
                     expr = f"{mn}({expr}, {operand(bounds['max'], out_dt)})"
         elif kind == "where":
-            if len(args) != 3 or kw:
+            if len(args) != 3:
                 raise _refuse("where without three operands")
             c, a, b = args
             if not isinstance(c, torch.fx.Node) \
@@ -457,14 +655,14 @@ def _compile(pred) -> CompiledPredicate:
             if fl:
                 raise _refuse("~ on a float operand")
             expr = f"(!{a})" if out_dt == torch.bool else f"(({ct})~{a})"
-        elif kind in ("logical_and", "logical_or", "logical_not"):
+        elif kind in ("logical_and", "logical_or", "logical_xor",
+                      "logical_not"):
             ops = [_cast(env[x.name][0], env[x.name][1], torch.bool)
                    if isinstance(x, torch.fx.Node)
                    else _literal(x, torch.bool) for x in args]
             expr = (f"(!{ops[0]})" if kind == "logical_not" else
-                    f"({ops[0]} {'&&' if kind == 'logical_and' else '||'} "
-                    f"{ops[1]})")
-        else:  # (every kind of the table is handled above)
+                    f"({ops[0]} {_LOGICAL[kind]} {ops[1]})")
+        else:  # (every kind of the tables is handled above)
             raise _refuse(name)
         cname = f"p{len(lines)}"
         lines.append(f"    const {ct} {cname} = {expr};  // {node.name}")
@@ -480,5 +678,56 @@ def _compile(pred) -> CompiledPredicate:
             f"float alpha) {{\n    (void)u; (void)v; (void)alpha;\n"
             f"{body}\n    return {env[out.name][0]};\n}}\n")
     digest = hashlib.sha256(text.encode()).hexdigest()[:16]
-    return CompiledPredicate(fn=pred, text=text, digest=digest,
-                             ops=tuple(kinds))
+    return CompiledPredicate(fn=pred, plain=_plain(gm, rounded), text=text,
+                             digest=digest, ops=tuple(kinds))
+
+
+def _plain(gm, rounded: Dict[str, str]):
+    """The plain version: ``gm``'s graph with each correctly rounded node
+    (``rounded``: name -> kind) replaced by its float64 evaluation on the
+    float32 operands, rounded once to float32, in the kernel's order.
+    Every operand is a full float64 tensor, so torch takes none of its
+    shortcuts for a Python-scalar or 0-dim operand (``x**2`` as ``x*x``,
+    ``x**0.5`` as ``sqrt``)."""
+    import torch.fx
+
+    g = torch.fx.Graph()
+    env = {}
+    f64 = torch.float64
+    for node in gm.graph.nodes:
+        kind = rounded.get(node.name)
+        if kind is None:
+            env[node] = g.node_copy(node, lambda n: env[n])
+            continue
+        full = [a for a in node.args
+                if isinstance(a, torch.fx.Node) and not _zero_dim(a)]
+        ops = []
+        for a in node.args:
+            if isinstance(a, torch.fx.Node):
+                x = env[a]
+                if a.meta["tensor_meta"].dtype != torch.float32:
+                    x = g.call_method("to", (x, torch.float32))
+                ops.append(g.call_method("to", (x, f64)))
+            else:
+                ops.append(float(np.float32(a)))
+        ref = next((o for o, a in zip(ops, node.args) if a in full), ops[0])
+        if full and len(ops) > 1:  # Python scalars and 0-dim tensors: full
+            ops = [o if a in full else
+                   g.call_function(torch.full_like, (ref, o))
+                   if isinstance(o, float) else
+                   g.call_function(torch.add, (g.call_function(
+                       torch.zeros_like, (ref,)), o))
+                   for o, a in zip(ops, node.args)]
+        if kind == "rsqrt":
+            x = g.call_function(torch.reciprocal, (g.call_function(
+                torch.sqrt, (ops[0],)),))
+        elif kind == "sigmoid":
+            e = g.call_function(torch.exp, (g.call_function(
+                torch.neg, (ops[0],)),))
+            x = g.call_function(torch.reciprocal, (g.call_function(
+                torch.add, (e, 1.0)),))
+        else:
+            x = g.call_function(getattr(torch, _CORRECTLY_ROUNDED[kind][0]),
+                                tuple(ops))
+        env[node] = g.call_method("to", (x, torch.float32))
+    return torch.fx.GraphModule(gm, g)

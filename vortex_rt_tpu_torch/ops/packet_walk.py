@@ -32,7 +32,9 @@ candidate whose predicate is false, as the JAX
 ``trace_packets(anyhit_pred=pred)`` does; it wins over ``alpha_ref``.
 CUDA tensors launch the predicate mode of a library built with the
 compiled predicate (``kernels.load_pred``), counted as
-``packet_walk_pred``; the plain version calls ``pred`` itself on the
+``packet_walk_pred``; the plain version calls the compiled predicate's
+plain version (``CompiledPredicate.plain``: its correctly rounded ops
+in float64, rounded once, as the kernel evaluates them) on the
 candidates' (u, v, alpha).
 The TPU kernel walked the union of a 1024-ray packet's paths; both
 versions here walk each ray's own path, which gives the same hits (the
@@ -177,12 +179,14 @@ def alpha_keep(f, w1, w2, pool: torch.Tensor, thr: float):
 
 def pred_keep(pred: CompiledPredicate, f, w1, w2, pool: torch.Tensor,
               mask: torch.Tensor):
-    """The predicate mode's test in the plain walks: the user's callable
-    on the surface (u, v, alpha) of the candidates in ``mask``; True
-    elsewhere.  Returns (keep, pool index)."""
+    """The predicate mode's test in the plain walks: the predicate's
+    plain version (``CompiledPredicate.plain``: its correctly rounded ops
+    in float64, rounded once, as the kernel evaluates them) on the
+    surface (u, v, alpha) of the candidates in ``mask``; True elsewhere.
+    Returns (keep, pool index)."""
     u, v, alpha, idx = candidate_surface(f, w1, w2, pool)
     keep = torch.ones_like(mask)
-    keep[mask] = pred.fn(u[mask], v[mask], alpha[mask])
+    keep[mask] = pred.plain(u[mask], v[mask], alpha[mask])
     return keep, idx
 
 

@@ -53,12 +53,15 @@ tables: ``pred(u, v, alpha) -> keep`` (or its
 ``ops.anyhit_pred.CompiledPredicate``) on every candidate that passes
 Moller-Trumbore, before the fold, in the three modes; it wins over
 ``alpha_ref``, as in the JAX ``trace_packets``.  ``compile_predicate``
-turns it into a CUDA device function (and raises
-``NotImplementedError`` for what it refuses, on any device); CUDA
-tensors launch the predicate mode of the library built with it
+turns it into a CUDA device function, its ``sqrt`` and transcendentals
+correctly rounded (the float32 rounding of their float64 evaluation),
+and raises ``NotImplementedError`` for what it refuses, on any device;
+CUDA tensors launch the predicate mode of the library built with it
 (``kernels.load_pred``, counted as ``traverse_packet_pred``), which
-tests every candidate (no slot classes); the plain version calls
-``pred`` itself on the candidates' (u, v, alpha).
+tests every candidate (no slot classes); the plain version calls the
+compiled predicate's plain version (``CompiledPredicate.plain``: the
+same float64 evaluations, rounded once) on the candidates' (u, v,
+alpha).
 """
 
 from __future__ import annotations

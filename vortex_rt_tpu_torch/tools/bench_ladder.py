@@ -371,15 +371,34 @@ def checker_pred(u, v, alpha):
     return (((cu + cv) % 2) == 0) & (alpha >= 0.05)
 
 
+def perforated_pred(u, v, alpha):
+    """A perforated-panel cutout (ROADMAP Queue 1 item 8c; perforated
+    metal, speaker grilles, procedural foliage masks): round holes of
+    radius 0.3 on a 12-cell uv grid, a band where ``sin(25u) cos(25v)``
+    reaches 0.8, and surfaces with ``alpha ** 2.2`` at or below 0.002
+    cut out.  Its ``sqrt``, ``sin``, ``cos`` and ``**`` run correctly
+    rounded in the walks (``ops/anyhit_pred.py``)."""
+    du = (u * 12.0) % 1.0 - 0.5
+    dv = (v * 12.0) % 1.0 - 0.5
+    holes = torch.sqrt(du * du + dv * dv) > 0.3
+    band = torch.sin(u * 25.0) * torch.cos(v * 25.0) < 0.8
+    return holes & band & (alpha ** 2.2 > 0.002)
+
+
+PREDICATES = {"checker": checker_pred, "perforated": perforated_pred}
+
+
 def setup6(device, target_tris: int = 260_000, n_cols: int = 12,
-           pred: bool = False):
+           pred=False):
     """Row 6's scene, its flat 8-wide renderer with the alpha test (with
-    ``pred``: ``stateless_anyhit(checker_pred)``, in K1's predicate
-    mode), camera and parameters: (scene, renderer, camera, params,
-    table)."""
+    ``pred``, True or a name of ``PREDICATES``:
+    ``stateless_anyhit(checker_pred)`` or the named predicate, in K1's
+    predicate mode), camera and parameters: (scene, renderer, camera,
+    params, table)."""
     sc = atrium6(target_tris, n_cols)
     cfg = RTConfig(flatten=True)
-    table = ShaderTable(anyhit=stateless_anyhit(checker_pred, "checker")
+    name = "checker" if pred is True else pred
+    table = ShaderTable(anyhit=stateless_anyhit(PREDICATES[name], name)
                         if pred else alpha_test_anyhit(ALPHA6))
     r = WavefrontRenderer.from_buffers(sc.build(cfg), cfg, table,
                                        device=torch.device(device))

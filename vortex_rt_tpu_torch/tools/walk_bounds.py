@@ -30,8 +30,13 @@ most they could need:
   comparison;
 - a predicate test (K1's and K2's predicate mode, every candidate that
   passed Moller-Trumbore: no classes), ``OPS_PER_ALPHA`` and the compiled
-  predicate's own operations (``CompiledPredicate.n_ops``: one a node
-  of its graph, ``pred_ops`` of ``k1_bound`` and ``k2_bound``).
+  predicate's own operations (``pred_ops(compiled)``, the ``pred_ops``
+  of ``k1_bound`` and ``k2_bound``): one a node of its graph, and for a
+  correctly rounded op (``sqrt``, the transcendentals, ``pow`` on
+  floats: float64 library sequences) its weight in ``PRED_OP_WEIGHTS``,
+  the instructions of its sequence's common path with each FP64
+  arithmetic instruction counted twice (they issue at half the FP32
+  rate), read from the SASS ``tools/pred_op_sass.py`` prints.
 
 Bytes: per walking ray o and d (24 B), t_max (4 B) and the active flag
 (1 B) in; a ray that takes no step (inactive, or t_max <= 0) needs only
@@ -110,6 +115,18 @@ OPS_SORT4 = 5
 OPS_PER_TRI = 53
 OPS_PER_INSTANCE = 36
 OPS_PER_ALPHA = 17
+# the correctly rounded ops' weights in FP32 operations: ``weight`` of
+# ``python -m vortex_rt_tpu_torch.tools.pred_op_sass`` (nvcc 12.9 for
+# sm_90a with the kernels' flags; run on an NVIDIA H100 80GB HBM3 at
+# 700.00 W): each sequence's common path, FP64 arithmetic counted twice
+PRED_OP_WEIGHTS = {
+    "sqrt": 13, "rsqrt": 53, "sin": 70, "cos": 71, "tan": 123, "asin": 161,
+    "acos": 179, "atan": 110, "sinh": 163, "cosh": 83, "tanh": 137,
+    "asinh": 377, "acosh": 340, "atanh": 233, "exp": 80, "exp2": 82,
+    "expm1": 95, "log": 116, "log2": 124, "log10": 124, "log1p": 194,
+    "sigmoid": 106, "erf": 166, "erfc": 233, "atan2": 173, "hypot": 63,
+    "pow": 341,
+}
 RAY_IN_BYTES = 29
 IDLE_RAY_IN_BYTES = 5
 HIT_OUT_BYTES = 28
@@ -144,6 +161,13 @@ class Bound:
     @property
     def bound_by(self) -> str:
         return "operations" if self.ops_ms >= self.bytes_ms else "bytes"
+
+
+def pred_ops(compiled) -> int:
+    """The operations of one test of a compiled predicate
+    (``ops.anyhit_pred.CompiledPredicate``): one per node of its graph,
+    ``PRED_OP_WEIGHTS`` for each correctly rounded one."""
+    return sum(PRED_OP_WEIGHTS.get(kind, 1) for kind in compiled.ops)
 
 
 def walk_ops(work, sort_ops: int, lookups: bool = False,

@@ -18,10 +18,12 @@ Waves, each captured from a real frame of that tree's renderer:
   rays;
 - K1, unchanged, for the spread: config 2's 8-wide primary wave;
 - K1's and K2's predicate modes (``--parts k1p,k2p``) on ladder row 6's
-  scene with ``stateless_anyhit(bench_ladder.checker_pred)``: the waves of
-  its first sample pass at 512x512 (closest, shadow, bounce, second
-  shadow; for K1 also the mixed wave of its shadow and primary rays) and
-  K1's 1080p primary wave, captured from the predicate frame (K1: the
+  scene with ``stateless_anyhit`` of the predicate ``--pred`` names
+  (``bench_ladder.PREDICATES``: ``checker``, the default, or
+  ``perforated``): the waves of its first sample pass at 512x512
+  (closest, shadow, bounce, second shadow; for K1 also the mixed wave
+  of its shadow and primary rays) and the 1080p primary wave, captured
+  from the predicate frame (K1: the
   flat 8-wide build; K2: the 4-wide TLAS build), each timed in turns
   (forwards, backwards) in predicate mode, in alpha mode
   (``alpha_ref=0.30``) and without any-hit (K1: the fused rows without
@@ -333,6 +335,9 @@ def main(argv=None) -> int:
                          "(K1's alpha mode), k1p, k2p (K1's and K2's "
                          "predicate modes), ptxas (K1's and K2's ptxas "
                          "lines by entry, no timing)")
+    ap.add_argument("--pred", default="checker",
+                    help="the predicate of k1p and k2p: checker or "
+                         "perforated (bench_ladder.PREDICATES)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--frames", type=int, default=4)
     ap.add_argument("--variants", action="store_true",
@@ -493,20 +498,22 @@ def pred_part(args, out, dev, kind: str) -> None:
     from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT
 
     k1 = kind == "k1p"
-    pred = anyhit_pred.compile_predicate(bench_ladder.checker_pred)
-    sc6, r, cam6, p6, _ = bench_ladder.setup6(dev, pred=True)
+    fn = bench_ladder.PREDICATES[args.pred]
+    pred = anyhit_pred.compile_predicate(fn)
+    sc6, r, cam6, p6, _ = bench_ladder.setup6(dev, pred=args.pred)
     if not k1:
         cfg = RTConfig()
         r = WavefrontRenderer.from_buffers(
             sc6.build(cfg), cfg, ShaderTable(anyhit=stateless_anyhit(
-                bench_ladder.checker_pred, "checker")), device=dev)
+                fn, args.pred)), device=dev)
     plain_wa = (WideArrays.from_scene(r.sb, width=8).fuse().to(dev) if k1
                 else r.wa)
     mod, work_fn, bound_fn, lib_name = (
         (tp, tp.walk_work, wb.k1_bound, "traverse_packet") if k1 else
         (pw, pw.walk_work_4, wb.k2_bound, "packet_walk"))
     lib = kernels.load_pred(lib_name, pred)
-    out[kind].update(pred_digest=pred.digest, pred_ops=pred.n_ops,
+    out[kind].update(pred=args.pred, pred_digest=pred.digest,
+                     pred_ops=wb.pred_ops(pred), pred_nodes=pred.n_ops,
                      pred_build_s=lib.build_seconds,
                      ptxas_entries=_ptxas_entries(lib.build_log))
     waves = _capture(r, cam6, p6, 512, 512)
@@ -523,7 +530,7 @@ def pred_part(args, out, dev, kind: str) -> None:
             dict(active=torch.cat([act1, act0]), t_max=torch.cat(
                 [k_1["t_max"], torch.full_like(k_1["t_max"], LARGE_FLOAT)]),
                 occl_split=n))
-        cases["row6_1080p_closest"] = _capture(r, cam6, p6, 1920, 1080)[0]
+    cases["row6_1080p_closest"] = _capture(r, cam6, p6, 1920, 1080)[0]
     del waves
     for label, (o, d, kw) in cases.items():
         kw = {k: v for k, v in kw.items() if k != "anyhit_pred"}
@@ -537,8 +544,8 @@ def pred_part(args, out, dev, kind: str) -> None:
         same = all(torch.equal(a, b) for a, b in zip((*hits, steps),
                                                      (*ref, ref_steps)))
         times = _in_turns(calls, KERNEL[lib_name], args.reps)
-        b = (bound_fn(work, lookups=False, pred_ops=pred.n_ops) if k1
-             else bound_fn(work, pred_ops=pred.n_ops))
+        b = (bound_fn(work, lookups=False, pred_ops=wb.pred_ops(pred)) if k1
+             else bound_fn(work, pred_ops=wb.pred_ops(pred)))
         rec = dict(rays=int(o.shape[0]), **times["pred"],
                    alpha=times["alpha"], none=times["none"],
                    bound_ms=b.ms, bound_by=b.bound_by, bound_bytes=b.bytes,
