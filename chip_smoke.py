@@ -324,6 +324,32 @@ and so exits non-zero, on failure):
     against the suspension engine's, K1's 1080p frame against K2's:
     equal rays, within 2e-6), the waves' times beside the checker
     predicate's and the alpha mode's;
+20a. K1 at width 16 (``RTConfig(bvh_width=16, flatten=True)``, 40-word
+    rows, host-built): the ptxas lines of its six width-16 entries (the
+    default library's four, the checker predicate build's two), and its
+    8-wide entries' lines equal to those before the width-16 entries
+    existed (``K1_PTXAS_W8``);
+20b. config 3's 1080p primary wave and the five waves of a config-4
+    sample pass (``PT_WAVES``), captured from the 16-wide frame: K1 at
+    width 16 against the plain walk on the card (hits and per-ray steps
+    equal; the counting instantiation's internal steps equal the plain
+    count), against the 8-wide K1 on the same rays (a ray that differs
+    must be an exact-t tie, counted), both widths timed in turns (CUDA
+    events around the bare launch) beside their bounds, with steps, and
+    internal and leaf steps, a walking ray (``k1_timing.
+    width_pair_wave``); the plain walk timed on each primary wave;
+20c. the config-4 (and config-3) 1080p path-traced frame at width 16,
+    launch counts reset before and read after (40 / 20
+    ``traverse_packet16`` launches, no other walk), against the 8-wide
+    frame: equal rays, the image within 1e-5; both widths' ms a frame in
+    turns; ``perf_trace`` at width 16 (4 ``traverse_packet16_stats``
+    launches) and the counting instantiation's time on config 4's primary
+    wave;
+20d. row 6's scene at width 16 with ``alpha_test_anyhit(0.30)`` and with
+    ``stateless_anyhit(checker_pred)``: the 512x512 frame through the
+    16-wide alpha and predicate modes (8 launches, no K3) against the
+    suspension engine's (equal rays, within ``PRED_TOL``), each mode's
+    primary wave against the plain walk, timed beside its bound;
 16. prints the kernels' JSON line (per kernel: launches on its main-path
     run and per frame, K1's being config 4's frame with the other paths'
     counts beside it, the LBVH kernels' being row 5's run, the PLOC
@@ -348,7 +374,11 @@ and so exits non-zero, on failure):
     instantiation's; ``traverse_packet_pred`` and ``packet_walk_pred``
     the predicate modes' launches on 19c's frames, their time on row 6's
     512x512 primary wave, the alpha mode's and the walk's without any-hit
-    beside) and, last, the device JSON line.
+    beside; ``traverse_packet16`` and its ``_alpha``, ``_pred`` and
+    ``_stats`` modes K1's width-16 entries: launches on 20c's config-4
+    frame, 20d's row-6 frames and 20c's ``perf_trace``, times on config
+    4's primary wave and row 6's 512x512 primary wave, the 8-wide
+    entry's beside) and, last, the device JSON line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -411,6 +441,16 @@ SOURCES = {
                              "vortex_rt_tpu/ops/traverse_packet.py:723"),
     "packet_walk_pred": ("vortex_rt_tpu_torch/csrc/packet_walk.cu",
                          "vortex_rt_tpu/ops/traverse_packet.py:1057"),
+    # K1's width-16 entries (the JAX loop at w_ == 16: its three-word
+    # stack and Batcher's network, :337-343, :78-102), in each mode
+    "traverse_packet16": ("vortex_rt_tpu_torch/csrc/traverse_packet.cu",
+                          "vortex_rt_tpu/ops/traverse_packet.py:202"),
+    "traverse_packet16_alpha": ("vortex_rt_tpu_torch/csrc/traverse_packet.cu",
+                                "vortex_rt_tpu/ops/traverse_packet.py:723"),
+    "traverse_packet16_pred": ("vortex_rt_tpu_torch/csrc/traverse_packet.cu",
+                               "vortex_rt_tpu/ops/traverse_packet.py:723"),
+    "traverse_packet16_stats": ("vortex_rt_tpu_torch/csrc/traverse_packet.cu",
+                                "vortex_rt_tpu/ops/traverse_packet.py:1181"),
 }
 LBVH_KERNELS = ("lbvh_karras", "lbvh_collapse", "lbvh_refit", "lbvh_pack")
 PLOC_KERNELS = ("ploc_merge", "ploc_collapse", "ploc_refit", "ploc_pack")
@@ -1010,29 +1050,38 @@ def phase_scale(device, scene, w: int = 1920, h: int = 1080) -> dict:
     return out, r
 
 
-def scale_waves(device, r, cam, p, w: int, h: int, reps: int = 10,
-                names=None, label: str = "scale") -> dict:
-    """The waves of the first sample pass of a frame (``names``; the
-    Whitted scale frame's four unless given): K1 against the plain
-    version on each (hits and steps), and its device time per wave beside
-    the bound."""
+def capture_waves(r, cam, p, w: int, h: int, n: int) -> list:
+    """The first ``n`` walk calls of one frame of ``r`` (``render_burst``,
+    seed 0): [(o, d, kwargs)]."""
     import torch
 
-    from vortex_rt_tpu_torch.ops.traverse_packet import kernel_call
-    from vortex_rt_tpu_torch.tools import k1_timing
-
-    names = names or k1_timing.SCALE_WAVES
     waves = []
 
     def capture(wa, o, d, **kw):
-        if len(waves) < len(names):
+        if len(waves) < n:
             waves.append((o.clone(), d.clone(), {
                 k: (v.clone() if torch.is_tensor(v) else v)
                 for k, v in kw.items()}))
         return r.walk(wa, o, d, **kw)
 
     dataclasses.replace(r, walk=capture).render_burst(cam, p, w, h,
-                                                      n_frames=1)
+                                                      n_frames=1,
+                                                      rays_only=True)
+    _sync(r.device)
+    return waves
+
+
+def scale_waves(device, r, cam, p, w: int, h: int, reps: int = 10,
+                names=None, label: str = "scale") -> dict:
+    """The waves of the first sample pass of a frame (``names``; the
+    Whitted scale frame's four unless given): K1 against the plain
+    version on each (hits and steps), and its device time per wave beside
+    the bound."""
+    from vortex_rt_tpu_torch.ops.traverse_packet import kernel_call
+    from vortex_rt_tpu_torch.tools import k1_timing
+
+    names = names or k1_timing.SCALE_WAVES
+    waves = capture_waves(r, cam, p, w, h, len(names))
     _check(len(waves) == len(names),
            f"a {label} pass made {len(waves)} waves")
     out = {}
@@ -4394,6 +4443,350 @@ def phase_multi_device(device, blob_scene, hd=(1920, 1080), size=512
     return res
 
 
+# K1's 8-wide entries as they compiled before the width-16 entries
+# existed (commit a133c53), in the default library and in the one built
+# with row 6's checker predicate (nvcc 12.8 for sm_90a with the kernels'
+# flags; tools/walk_timing.py --parts ptxas on that commit's tree, NVIDIA
+# H100 80GB HBM3 at 700.00 W): phase 20a holds this tree's lines to them,
+# so the width-16 entries leave the main path's kernel as it was
+K1_PTXAS_W8 = {
+    f"traverse_packet_kernel<{m},{st}>": (
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | "
+        "Used 64 registers, used 0 barriers")
+    for m in (0, 1, 2) for st in (0, 1)}
+WIDE16_ENTRIES = ("traverse_packet16", "traverse_packet16_alpha",
+                  "traverse_packet16_pred", "traverse_packet16_stats")
+
+
+def k1_ptxas(log: str) -> dict:
+    """K1's ptxas lines by kernel entry, named ``traverse_packet_kernel<m,s>``
+    or ``traverse_packet16_kernel<m,s>`` (mode, stats)."""
+    import re
+
+    from vortex_rt_tpu_torch.tools.walk_timing import _ptxas_entries
+
+    out = {}
+    for name, line in _ptxas_entries(log).items():
+        m = re.search(r"(traverse_packet(?:16)?_kernel<\d+,\d+>)", name)
+        if m:
+            out[m.group(1)] = line
+    return out
+
+
+def phase_wide16_build(libs, pred) -> dict:
+    """20a: ptxas lines of K1's width-16 entries (the default library's
+    and the checker predicate's build) and its 8-wide entries, which must
+    equal ``K1_PTXAS_W8``."""
+    from vortex_rt_tpu_torch.runtime import kernels
+
+    built = {"default": k1_ptxas(libs["traverse_packet"].build_log),
+             "checker": k1_ptxas(kernels.load_pred("traverse_packet",
+                                                   pred).build_log)}
+    for lib, lines in built.items():
+        for name, line in sorted(lines.items()):
+            if "16_kernel" not in name:
+                _check(line == K1_PTXAS_W8[name],
+                       f"{lib} {name}: ptxas {line!r}, before the width-16 "
+                       f"entries {K1_PTXAS_W8[name]!r}")
+            print(f"  {lib} {name}: {line}"
+                  + ("" if "16_kernel" in name else "  (as before)"))
+    wide = {k: v for lines in built.values() for k, v in lines.items()
+            if "16_kernel" in k}
+    _check(len(wide) == 6 and len(built["default"]) == 8
+           and len(built["checker"]) == 12,
+           f"K1's entries built: {built}")
+    return dict(wide16=wide, w8_equal_pr18=True)
+
+
+def phase_wide16_waves(device, blob_scene, atr_scene, wa8s: dict,
+                       reps: int = 10) -> dict:
+    """20b: K1 at width 16 on config 3's 1080p primary wave and the five
+    waves of a config-4 sample pass, captured from the 16-wide frame: hits
+    and steps equal to the plain walk on the card, the counting
+    instantiation's internal steps equal to its count, the 8-wide K1's
+    hits on the same rays (a difference must be an exact-t tie, H3), both
+    widths timed in turns beside their bounds (``k1_timing.
+    width_pair_wave``); the plain walk timed on each primary wave."""
+    from vortex_rt_tpu_torch import RenderParams, RTConfig, Scene
+    from vortex_rt_tpu_torch import WavefrontRenderer
+    from vortex_rt_tpu_torch.ops.traverse_packet import (
+        trace_packets, trace_packets_ref,
+    )
+    from vortex_rt_tpu_torch.tools.k1_timing import width_pair_wave
+
+    out = {}
+    for label, (sb, _), spp, n in (("config3", blob_scene, 4, 1),
+                                   ("config4", atr_scene, 8, 5)):
+        t0 = time.perf_counter()
+        r16 = WavefrontRenderer.from_buffers(
+            sb, RTConfig(flatten=True, bvh_width=16), device=device)
+        tables_s = time.perf_counter() - t0
+        _check(r16.wa.width == 16 and r16.wa.fused is not None
+               and r16.walk is trace_packets,
+               f"{label} at width 16 is not on K1's route")
+        r8 = dataclasses.replace(r16, wa=wa8s[label].to(device))
+        cam = Scene.framing_camera(sb, 45.0, 1920 / 1080)
+        p = RenderParams(max_depth=3, spp=spp, shadow=True, pathtrace=True)
+        rec = dict(tables_s=tables_s, depth16=r16.wa.depth,
+                   depth8=r8.wa.depth, nodes16=int(r16.wa.nodes.shape[0]),
+                   nodes8=int(r8.wa.nodes.shape[0]),
+                   fused_bytes16=r16.wa.fused.numel() * 4,
+                   fused_bytes8=r8.wa.fused.numel() * 4, waves={})
+        waves = capture_waves(r16, cam, p, 1920, 1080, n)
+        _check(len(waves) == n, f"{label}: {len(waves)} waves captured")
+        for name, (o, d, kw) in zip(PT_WAVES, waves):
+            w = width_pair_wave(r16.wa, r8.wa, o, d, kw, reps)
+            if name == "closest0":
+                w["plain_ms"] = _elapsed_ms(
+                    lambda: trace_packets_ref(r16.wa, o, d, **kw), 1, device)
+            rec["waves"][name] = w
+            a, b = w["w16"], w["w8"]
+            print(f"  {label} {name}: {w['rays']} lanes ({w['live']} live); "
+                  f"width 16 {a['ms']:.4f} ms, width 8 {b['ms']:.4f} ms "
+                  f"(x{a['ms'] / b['ms']:.3f}); steps a walking ray "
+                  f"{a['mean_steps']:.3f} vs {b['mean_steps']:.3f} (internal "
+                  f"{a['internal_per_ray']:.3f} vs {b['internal_per_ray']:.3f},"
+                  f" leaf {a['leaf_per_ray']:.3f} vs {b['leaf_per_ray']:.3f});"
+                  f" bound {a['bound_ms']:.4f} ({a['bound_by']}) = "
+                  f"{a['bound_share']:.1%} vs {b['bound_ms']:.4f} = "
+                  f"{b['bound_share']:.1%}; hits vs 8-wide "
+                  f"{w['hits_vs_8wide']}"
+                  + (f"; plain {w['plain_ms']:.1f} ms" if "plain_ms" in w
+                     else ""))
+        rec["r16"], rec["r8"], rec["cam"], rec["p"] = r16, r8, cam, p
+        print(f"  {label}: tables at width 16 in {tables_s:.2f} s; depth "
+              f"{rec['depth16']} (8-wide {rec['depth8']}), {rec['nodes16']} "
+              f"nodes ({rec['nodes8']}), fused {rec['fused_bytes16']} B "
+              f"({rec['fused_bytes8']})")
+        out[label] = rec
+    return out
+
+
+def wide16_frame_pair(label: str, r16, r8, cam, p, w: int, h: int) -> dict:
+    """The seed-0 frame at width 16, each of its waves also walked by the
+    8-wide K1 (hits equal up to ties: the same triangle distance within
+    ``k1_timing.TIE_ULPS`` ulps, H3 and H24, counted), against the 8-wide
+    frame: equal rays and the image within ``IMG_ATOL``; where ties were
+    counted, at most one pixel off a tie."""
+    import numpy as np
+
+    from vortex_rt_tpu_torch.ops.traverse_packet import trace_packets
+    from vortex_rt_tpu_torch.tools.k1_timing import tie_split
+
+    ties = []
+
+    def walk(wa, o, d, **kw):
+        out = trace_packets(wa, o, d, **kw)
+        t = tie_split(out[0], trace_packets(r8.wa, o, d, **kw)[0])
+        _check(t["other"] == 0, f"{label}: a wave's hits at width 16 differ "
+               f"from width 8's beyond ties: {t}")
+        ties.append(t["ties"])
+        return out
+
+    img16, rays16 = dataclasses.replace(r16, walk=walk).render(cam, p, w, h)
+    img8, rays8 = r8.render(cam, p, w, h)
+    diff = float(np.abs(img16 - img8).max())
+    off = int((np.abs(img16 - img8).max(-1) > IMG_ATOL).sum())
+    _check(np.isfinite(img16).all() and float(img16.std()) > 0.0,
+           f"{label}: the 16-wide frame is not a finite, non-constant image")
+    if sum(ties) == 0:
+        _check(rays16 == rays8 and diff <= IMG_ATOL,
+               f"{label}: the 16-wide frame ({rays16} rays) against the "
+               f"8-wide ({rays8}): max abs diff {diff}")
+    else:
+        _check(off <= sum(ties), f"{label}: {off} pixels off the 8-wide "
+               f"frame for {sum(ties)} exact-t ties")
+    return dict(rays16=int(rays16), rays8=int(rays8), max_abs_diff=diff,
+                pixels_off=off, ties=sum(ties), waves=len(ties))
+
+
+def phase_wide16_frames(device, waves: dict) -> dict:
+    """20c: the config-4 frame at width 16 through the entry point, launch
+    counts reset before and read after (40 ``traverse_packet16``
+    launches, no other walk), both widths' ms a frame in turns, at
+    configs 3 and 4; the seed-0 frame against the 8-wide frame
+    (``wide16_frame_pair``); then ``perf_trace`` at width 16 (the
+    counting instantiation, ``traverse_packet16_stats``) on config 3's
+    renderer."""
+    from vortex_rt_tpu_torch import RenderParams
+    from vortex_rt_tpu_torch.ops import traverse_packet as tp
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools.k1_timing import device_ms
+
+    w, h = 1920, 1080
+    out = {}
+    for label in ("config3", "config4"):
+        rec = waves[label]
+        r16, r8, cam, p = rec["r16"], rec["r8"], rec["cam"], rec["p"]
+        for r in (r16, r8):  # warm-up
+            r.render_burst(cam, p, w, h, n_frames=1, seed0=100,
+                           rays_only=True)
+        ms = {16: [], 8: []}
+        rays = {16: [], 8: []}
+        launches = {}
+        for width in (16, 8, 8, 16):
+            r = r16 if width == 16 else r8
+            _sync(device)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rays[width].append(r.render_burst(cam, p, w, h, n_frames=1,
+                                              seed0=200, rays_only=True))
+            _sync(device)
+            ms[width].append((time.perf_counter() - t0) * 1e3)
+            launches[width] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            _check(launches[width] == {
+                "traverse_packet16" if width == 16 else "traverse_packet":
+                5 * p.spp}, f"{label} at width {width} launched "
+                f"{launches[width]}")
+        pair = wide16_frame_pair(label, r16, r8, cam, p, w, h)
+        out[label] = dict(ms16=ms[16], ms8=ms[8], rays16=rays[16][0],
+                          rays8=rays[8][0],
+                          k1_16_launches=launches[16]["traverse_packet16"],
+                          seed0=pair)
+        print(f"  {label} 1920x1080 spp {p.spp} d3 path traced: width 16 "
+              f"{ms[16]} ms a frame, width 8 {ms[8]} ms; rays "
+              f"{rays[16][0]} / {rays[8][0]}; K1 launches {launches[16]} / "
+              f"{launches[8]}; the seed-0 frame against the 8-wide one: "
+              f"{json.dumps(pair)}")
+    # the counting instantiation on perf_trace's path (config 3, 16-wide)
+    r16 = waves["config3"]["r16"]
+    kernels.reset_launches()
+    st = r16.perf_trace(waves["config3"]["cam"],
+                        RenderParams(max_depth=2, shadow=True), 960, 540)
+    _sync(device)
+    stats_launches = kernels.LAUNCHES["traverse_packet16_stats"]
+    _check(stats_launches == 4 and kernels.LAUNCHES["traverse_packet16"] == 0,
+           f"perf_trace at width 16 launched {dict(kernels.LAUNCHES)}")
+    o, d, kw = capture_waves(waves["config4"]["r16"], waves["config4"]["cam"],
+                             waves["config4"]["p"], w, h, 1)[0]
+    wa16 = waves["config4"]["r16"].wa
+    stats_ms = device_ms(tp.kernel_call(wa16, o, d, stats=True, **kw), 10)
+    out["stats"] = dict(launches=stats_launches, rays=int(st["rays"]),
+                        int_steps=int(st["trace0"]["int_steps"]),
+                        ms=stats_ms,
+                        default_ms=device_ms(tp.kernel_call(wa16, o, d, **kw),
+                                             10))
+    print(f"  perf_trace at width 16 (config 3, 960x540, depth 2): "
+          f"{stats_launches} traverse_packet16_stats launches, trace0 "
+          f"int_steps {out['stats']['int_steps']}; config 4's primary wave "
+          f"{stats_ms:.4f} ms counting, {out['stats']['default_ms']:.4f} ms "
+          f"without")
+    return out
+
+
+def phase_wide16_row6(device, sb6, sb6_tlas, cam6, p6, size: int = 512
+                      ) -> dict:
+    """20d: ladder row 6's scene at width 16, with ``alpha_test_anyhit
+    (0.30)`` and with ``stateless_anyhit(checker_pred)``: the 512x512 frame
+    through K1's 16-wide alpha and predicate modes (launch counts reset
+    before: 8 launches, no K3, no 8-wide walk) against the suspension
+    engine's (K3 on the TLAS build, the shader's callable): equal rays,
+    images within ``PRED_TOL``; each mode's 512x512 primary wave through
+    the bare launch against the plain walk (hits and steps), timed beside
+    its bound and the plain walk."""
+    import numpy as np
+
+    from vortex_rt_tpu_torch import RTConfig, WavefrontRenderer
+    from vortex_rt_tpu_torch.engine.shaders import (
+        ShaderTable, alpha_test_anyhit, stateless_anyhit,
+    )
+    from vortex_rt_tpu_torch.ops import traverse_packet as tp
+    from vortex_rt_tpu_torch.ops.anyhit_pred import compile_predicate
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import bench_ladder
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
+    from vortex_rt_tpu_torch.tools.k1_timing import device_ms, same
+
+    tables = {
+        "alpha": ShaderTable(anyhit=alpha_test_anyhit(bench_ladder.ALPHA6)),
+        "pred": ShaderTable(anyhit=stateless_anyhit(
+            bench_ladder.checker_pred, "checker"))}
+    t0 = time.perf_counter()
+    r16 = WavefrontRenderer.from_buffers(
+        sb6, RTConfig(flatten=True, bvh_width=16), tables["alpha"],
+        device=device)
+    pool = WavefrontRenderer.from_buffers(
+        sb6_tlas, RTConfig(packet_size=0), tables["alpha"], device=device)
+    build_s = time.perf_counter() - t0
+    out = dict(build_s=build_s, depth16=r16.wa.depth)
+    for kind, table in tables.items():
+        r = dataclasses.replace(r16, table=table)
+        rp = dataclasses.replace(pool, table=table)
+        name = f"traverse_packet16_{kind}"
+        r.render(cam6, p6, 64, 64)  # warm-up
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        img, rays = r.render(cam6, p6, size, size)
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        _check(launches == {name: 8}, f"row 6 + {kind} at width 16 "
+               f"launched {launches}")
+        img_s, rays_s = rp.render(cam6, p6, size, size)
+        err = float(np.abs(img - img_s).max())
+        _check(rays == rays_s and np.isfinite(img).all() and err <= PRED_TOL,
+               f"row 6 + {kind} at width 16: {rays} rays, the suspension "
+               f"engine's {rays_s}; max abs err {err}")
+        o, d, kw = capture_waves(r, cam6, p6, size, size, 1)[0]
+        walk_kw = dict(kw)
+        hk, sk = tp.kernel_call(r.wa, o, d, **walk_kw)()
+        _sync(device)
+        hp, sp, work = tp.walk_work(r.wa, o, d, **walk_kw)
+        _check(same(hk, sk, hp, sp), f"row 6 + {kind}: the 16-wide wave "
+               f"differs from the plain walk")
+        pred_ops = (wb.pred_ops(compile_predicate(bench_ladder.checker_pred))
+                    if kind == "pred" else 0)
+        b = wb.k1_bound(work, lookups=kind == "alpha", pred_ops=pred_ops,
+                        width=16)
+        wave_ms = device_ms(tp.kernel_call(r.wa, o, d, **walk_kw), 10)
+        plain_ms = _elapsed_ms(lambda: tp.trace_packets_ref(r.wa, o, d,
+                                                            **walk_kw),
+                               1, device)
+        out[kind] = dict(launches=launches[name], frame_ms=ms, rays=rays,
+                         max_abs_err_vs_suspension=err, ms=wave_ms,
+                         plain_ms=plain_ms, bound_ms=b.ms,
+                         bound_by=b.bound_by, bound_share=b.ms / wave_ms,
+                         tests=int(work.alpha_tests.sum()),
+                         lookups=int(work.alpha_lookups.sum()),
+                         mean_steps=float(sp.float().mean()))
+        print(f"  row 6 + {kind} at width 16, {size}x{size}: {ms:.3f} ms a "
+              f"frame, {rays} rays, {name} launches {launches[name]}, max abs "
+              f"err vs the suspension engine {err:.3g}; primary wave "
+              f"{wave_ms:.4f} ms (plain {plain_ms:.1f} ms), bound "
+              f"{b.ms:.4f} ms ({b.bound_by}) = {b.ms / wave_ms:.1%}, mean "
+              f"steps {out[kind]['mean_steps']:.3f}")
+    print(f"  row 6's tables at width 16 (with alpha fields) and the "
+          f"suspension engine's TLAS in {build_s:.2f} s; depth "
+          f"{out['depth16']}")
+    return out
+
+
+def phase_wide16(device, libs, blob_scene, atr_scene, wa8s, sb6, sb6_tlas,
+                 cam6, p6) -> dict:
+    """20a-20d: K1 at width 16 (``RTConfig(bvh_width=16, flatten=True)``,
+    host-built) on ladder configs 3 and 4 and row 6."""
+    from vortex_rt_tpu_torch.ops.anyhit_pred import compile_predicate
+    from vortex_rt_tpu_torch.tools import bench_ladder
+
+    _phase("phase 20a K1's width-16 entries built; the 8-wide entries' "
+           "ptxas lines as before")
+    built = phase_wide16_build(
+        libs, compile_predicate(bench_ladder.checker_pred))
+    _phase("phase 20b K1 at width 16 on config 3's primary wave and config "
+           "4's five waves, beside width 8")
+    waves = phase_wide16_waves(device, blob_scene, atr_scene, wa8s)
+    _phase("phase 20c the config-4 (and config-3) frame at width 16 against "
+           "the 8-wide frame")
+    frames = phase_wide16_frames(device, waves)
+    for rec in waves.values():
+        for k in ("r16", "r8", "cam", "p"):
+            rec.pop(k)
+    _phase("phase 20d row 6 at width 16: alpha and the checker predicate "
+           "against the suspension engine")
+    row6 = phase_wide16_row6(device, sb6, sb6_tlas, cam6, p6)
+    return dict(build=built, waves=waves, frames=frames, row6=row6)
+
+
 def main() -> int:
     import torch
 
@@ -4456,6 +4849,8 @@ def main() -> int:
     c3, r3, cam3, p3 = phase_pathtraced(device, "config 3", blob_scene, 4)
     c3["waves"] = scale_waves(device, r3, cam3, p3, 1920, 1080,
                               names=PT_WAVES, label="config 3")
+    # (the 8-wide tables wait on the host for phase 20)
+    wa8s = {"config3": r3.wa.to("cpu")}
     del r3
     _phase("phase 9d ladder config 4 (atrium)")
     c4, r4, cam4, p4 = phase_pathtraced(device, "config 4", atr_scene, 8)
@@ -4464,6 +4859,7 @@ def main() -> int:
                               names=PT_WAVES, label="config 4")
     _phase("phase 9f render_accum (config 4's scene)")
     phase_render_accum(device, r4, cam4, p4)
+    wa8s["config4"] = r4.wa.to("cpu")
     del r4
     _phase("phase 10 K7 chained row-fetch probe")
     k7 = phase_k7(device)
@@ -4528,7 +4924,9 @@ def main() -> int:
     rtu17 = phase_rtu(device, mk.pop("atrium_tlas"))
     md = phase_multi_device(device, blob_scene)
     pred19 = phase_pred(device, sc6, sb6, sb6_tlas, cam6, p6)
-    del sb6, sb6_tlas
+    w16 = phase_wide16(device, libs, blob_scene, atr_scene, wa8s, sb6,
+                       sb6_tlas, cam6, p6)
+    del sb6, sb6_tlas, wa8s
     _phase("phase 16 results")
     print(f"  summary: config2 {c2['mrays']:.3f} Mrays/s, scale "
           f"{sc['mrays']:.3f} Mrays/s, peak {sc['peak_bytes']} B; config 3 "
@@ -4800,6 +5198,52 @@ def main() -> int:
                              name.rsplit("_", 1)[0]],
                          "nvcc_s": perf["build"]["build_s"][
                              name.rsplit("_", 1)[0]]}})
+    # K1's width-16 entries: the plain walk's launches on the config-4
+    # frame at width 16 (20c), the alpha and predicate modes' on row 6's
+    # 16-wide frames (20d), the counting one's on perf_trace (20c); times
+    # on config 4's primary wave (the modes': row 6's 512x512 primary
+    # wave, the 8-wide mode's time of 13b / 19b beside)
+    c4w = w16["waves"]["config4"]["waves"]["closest0"]
+    for name, mode, res, launches, extra in (
+            ("traverse_packet16", "0,0", dict(
+                c4w["w16"], plain_ms=c4w["plain_ms"]),
+             w16["frames"]["config4"]["k1_16_launches"], dict(
+                 w8_ms=c4w["w8"]["ms"], w8_bound_ms=c4w["w8"]["bound_ms"],
+                 waves={f"{cfg}/{k}": {"w16_ms": v["w16"]["ms"],
+                                       "w8_ms": v["w8"]["ms"]}
+                        for cfg in ("config3", "config4")
+                        for k, v in w16["waves"][cfg]["waves"].items()})),
+            ("traverse_packet16_alpha", "1,0", w16["row6"]["alpha"],
+             w16["row6"]["alpha"]["launches"],
+             dict(w8_ms=alpha["traverse_packet_alpha"]["ms"])),
+            ("traverse_packet16_pred", "2,0", w16["row6"]["pred"],
+             w16["row6"]["pred"]["launches"],
+             dict(w8_ms=pred19["walks"]["traverse_packet_pred"]["ms"])),
+            ("traverse_packet16_stats", "0,1", dict(
+                c4w["w16"], ms=w16["frames"]["stats"]["ms"],
+                plain_ms=c4w["plain_ms"]),
+             w16["frames"]["stats"]["launches"], dict(
+                 default_ms=w16["frames"]["stats"]["default_ms"]))):
+        src, replaces = SOURCES[name]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches,
+                     "launches_per_frame": launches,
+                     # 20b and 20d hold every wave to the plain walk to
+                     # the bit (they raise on any difference)
+                     "max_abs_err": 0.0,
+                     "ms": res["ms"], "plain_ms": res["plain_ms"],
+                     "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+                     "bound_share": res["bound_ms"] / res["ms"],
+                     # no one PyTorch call walks a BVH
+                     "library_ms": None, "ms_source": "cuda_events_launch",
+                     "ptxas": w16["build"]["wide16"][
+                         f"traverse_packet16_kernel<{mode}>"],
+                     **extra})
+    print(f"  K1 at width 16: config 4 {w16['frames']['config4']['ms16']} ms "
+          f"a frame (8-wide {w16['frames']['config4']['ms8']}), config 3 "
+          f"{w16['frames']['config3']['ms16']} "
+          f"({w16['frames']['config3']['ms8']}); primary wave "
+          f"{c4w['w16']['ms']:.4f} ms (8-wide {c4w['w8']['ms']:.4f})")
     print(f"  row 6 with the checker predicate: "
           f"{pred19['frames']['ms_per_frame']:.3f} ms/frame at 512x512, "
           f"{pred19['frames']['ms_per_frame_hd']:.3f} at 1080p (K1), TLAS "

@@ -23,10 +23,14 @@ import vortex_rt_tpu_torch as pt
 from vortex_rt_tpu_torch.models.procedural import box, quad, uv_sphere
 from vortex_rt_tpu_torch.models.scene import Material
 from vortex_rt_tpu_torch.ops import traverse_packet as tp
-from vortex_rt_tpu_torch.ops.traverse_wide import ROW_WORDS, WideArrays
+from vortex_rt_tpu_torch.ops.traverse_wide import (
+    ROW_WORDS, WideArrays, row_layout,
+)
 from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT, MT_EPSILON
 
 THR = 0.35
+# the 8-wide row's quantized boxes, meta word and leaf count
+QLO, QHI, META, LEAF, _ = row_layout(8)
 F = np.float32
 
 
@@ -118,7 +122,7 @@ def _scalar_walk(wa, o, d, t_max, occ):
     pool = wa.alpha_pool.numpy()
     lmax = max(int(wa.max_leaf_tris), 1)
     a_off = tp.alpha_offset(wa)
-    qlo, qhi, meta_w, leaf_w = tp._QLO, tp._QHI, tp._META, tp._LEAF
+    qlo, qhi, meta_w, leaf_w = QLO, QHI, META, LEAF
     ox, oy, oz = o
     dx, dy, dz = d
     iv = [F(1.0) / (c if abs(c) >= F(1e-20) else F(-1e-20 if c < 0 else
@@ -146,7 +150,7 @@ def _scalar_walk(wa, o, d, t_max, occ):
                 hit = tmax >= tmin and tmax > 0 and tmin < best and c < nch
                 ds.append(tmin if hit else F(-LARGE_FLOAT))
                 ix.append(c)
-            for a, b in tp._SORT_NET8:
+            for a, b in tp.SORT_NETS[8]:
                 if ds[a] < ds[b]:
                     ds[a], ds[b], ix[a], ix[b] = ds[b], ds[a], ix[b], ix[a]
             m = sum(x > F(-LARGE_FLOAT) for x in ds)
@@ -231,9 +235,9 @@ def test_alpha_classes_match_brute_force(thr):
     assert tp.alpha_classes(wa, thr) is tp.alpha_classes(wa, thr)
     seen = set()
     for node in range(rows.shape[0]):
-        if int(rows[node].view(np.uint32)[tp._META]) >> 29 != 1:
+        if int(rows[node].view(np.uint32)[META]) >> 29 != 1:
             continue
-        for c in range(min(int(wa.max_leaf_tris), int(rows[node][tp._LEAF]))):
+        for c in range(min(int(wa.max_leaf_tris), int(rows[node][LEAF]))):
             fields = rows[node][a_off + 8 * c:a_off + 8 * c + 8]
             want = _slot_class(fields, pool, thr)
             assert (int(cls[node]) >> (2 * c)) & 3 == want, (node, c)

@@ -1839,3 +1839,165 @@ def test_cli_runs_on_the_card_by_default(cuda, tmp_path, capsys):
     assert rc == 0 and "PASS" in out and "PERF.trace: trace0=" in out
     assert kernels.LAUNCHES["traverse_packet"] > 0
     assert kernels.LAUNCHES["traverse_packet_stats"] == 4
+
+
+# ---- K1 at width 16 (RTConfig(bvh_width=16)): every entry point against
+# the plain walk
+
+def _wide16(sb, alpha=False):
+    wa = WideArrays.from_scene(sb, width=16).fuse()
+    return (wa.with_alpha(sb) if alpha else wa)
+
+
+def _wide16_kw(cuda, mode, n, stats=False):
+    t = torch.full((n,), 6.0, device=cuda)
+    kw = {"closest": {}, "active": dict(
+              active=torch.arange(n, device=cuda) % 5 != 2),
+          "occlusion": dict(t_max=t, occlusion=True),
+          "occl_split": dict(t_max=torch.where(
+              torch.arange(n, device=cuda) < n // 2 + 3, t,
+              torch.full_like(t, 1e30)), occl_split=n // 2 + 3)}[mode]
+    return dict(kw, stats=True) if stats else kw
+
+
+def _wide16_same(cuda, wa, o, d, name, kw, **mode):
+    """The walk at width 16 through its kernel (one launch counted as
+    ``name``) against the plain walk: hits, steps and, with stats, each
+    ray's internal steps equal.  Returns the plain hits."""
+    from vortex_rt_tpu_torch.ops.traverse_packet import walk_work
+
+    stats = kw.pop("stats", False)
+    before = dict(kernels.LAUNCHES)
+    out = trace_packets(wa, o, d, stats=stats, **kw, **mode)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before[name] + 1
+    assert all(kernels.LAUNCHES[k] == before[k] for k in before
+               if k != name)
+    hp, sp, work = walk_work(wa, o, d, **kw, **mode)
+    for a, b in zip((*out[0], out[1]), (*hp, sp)):
+        assert torch.equal(a, b)
+    if stats:
+        assert torch.equal(out[2].internal, work.internal.to(torch.int32))
+        assert not bool(out[2].instance.any())
+    return hp
+
+
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("mode", ["closest", "active", "occlusion",
+                                  "occl_split"])
+def test_wide16_k1_matches_plain_version(cuda, mode, stats):
+    """``vrt_traverse_packet16`` and its counting instantiation against
+    the plain walk on 5,000 rays (not a multiple of the block size), and
+    the 8-wide kernel's hits on the same rays."""
+    sb = _scene(True)
+    wa = _wide16(sb).to(cuda)
+    assert wa.width == 16 and wa.fused.shape[1] == 40 + 16 * 4
+    o, d = _rays(cuda)
+    kw = _wide16_kw(cuda, mode, o.shape[0], stats)
+    hp = _wide16_same(cuda, wa, o, d, "traverse_packet16_stats" if stats
+                      else "traverse_packet16", dict(kw))
+    kw.pop("stats", None)
+    h8, _ = trace_packets(WideArrays.from_scene(sb, 8).fuse().to(cuda), o, d,
+                          **kw)
+    for a, b in zip(h8, hp):
+        assert torch.equal(a, b)
+    assert bool((hp.dist < 1e30).any())
+
+
+@pytest.mark.parametrize("count", ["33", "many_blocks"])
+@pytest.mark.parametrize("mode", ["closest", "occlusion", "occl_split"])
+def test_wide16_deep_tree_matches_plain_version(cuda, deep_build, count,
+                                                mode):
+    """K1 at width 16 on the blob's tree (51,200 triangles), for a ray
+    count past a warp and past what the card holds at once."""
+    wa = _wide16(deep_build).to(cuda)
+    n = 4 * 132 * 8 * 128 + 17 if count == "many_blocks" else int(count)
+    o, d, active, t_max = _deep_rays(cuda, n)
+    kw = dict(active=active)
+    if mode == "occlusion":
+        kw.update(t_max=t_max, occlusion=True)
+    elif mode == "occl_split":
+        split = max(n // 3, 1) + 1
+        kw.update(t_max=torch.where(torch.arange(n, device=cuda) < split,
+                                    t_max, torch.full_like(t_max, 1e30)),
+                  occl_split=split)
+    hp = _wide16_same(cuda, wa, o, d, "traverse_packet16", kw)
+    assert bool((hp.dist < 1e30).any())
+
+
+@pytest.mark.parametrize("case", ["alpha/closest", "alpha/occlusion",
+                                  "alpha/occl_split", "alpha/stats",
+                                  "pred/closest", "pred/occlusion",
+                                  "pred/occl_split", "pred/stats",
+                                  "perforated/closest",
+                                  "perforated/occl_split"])
+def test_wide16_anyhit_walks_match_plain_version(cuda, case):
+    """The alpha and predicate modes at width 16 (``_alpha``, ``_pred``
+    and their counting instantiations) against the plain walk on the
+    cutout scene's 80x80 camera rays."""
+    from vortex_rt_tpu_torch.tools.bench_ladder import perforated_pred
+
+    kind, mode = case.split("/")
+    sb = _cutout(True, 16)
+    wa = _wide16(sb, alpha=True).to(cuda)
+    lanes = _camera_lanes(cuda, 80)
+    o, d = torch.stack(lanes[:3], 1), torch.stack(lanes[3:], 1)
+    stats = mode == "stats"
+    kw = _wide16_kw(cuda, "active" if stats else mode, o.shape[0], stats)
+    anyhit = (dict(alpha_ref=0.35) if kind == "alpha" else dict(
+        anyhit_pred=perforated_pred if kind == "perforated"
+        else _checker_pred))
+    name = "traverse_packet16_" + ("stats" if stats else
+                                   "alpha" if kind == "alpha" else "pred")
+    hp = _wide16_same(cuda, wa, o, d, name, kw, **anyhit)
+    kw.pop("stats", None)
+    h0, _ = trace_packets(wa, o, d, **kw)
+    assert bool((h0.dist != hp.dist).any())  # the test rejects hits
+
+
+def test_wide16_rejects_a_tree_deeper_than_its_stack(cuda, deep_build):
+    """At width 16 the shared-memory stack holds 32 entries of 12 B (48 KB
+    a block): depth 28 walks, depth 29 raises before any launch; the
+    library reports both widths' capacities."""
+    from vortex_rt_tpu_torch.ops import traverse_packet as tp
+
+    lib = kernels.load("traverse_packet").lib
+    assert int(lib.vrt_traverse_packet16_stack_max()) == tp.STACK_MAX16
+    assert int(lib.vrt_traverse_packet_stack_max()) == tp.STACK_MAX
+    wa = _wide16(deep_build).to(cuda)
+    o, d, _, _ = _deep_rays(cuda, 64)
+    trace_packets(dataclasses.replace(wa, depth=28), o, d)
+    before = kernels.LAUNCHES["traverse_packet16"]
+    with pytest.raises(ValueError, match="stack entries"):
+        trace_packets(dataclasses.replace(wa, depth=29), o, d)
+    assert kernels.LAUNCHES["traverse_packet16"] == before
+
+
+@pytest.mark.parametrize("pathtrace", [False, True])
+def test_wide16_frame_matches_plain_route(cuda, pathtrace):
+    """A 48x32 spp-2 depth-3 frame with ``RTConfig(bvh_width=16,
+    flatten=True)``: 5 K1 launches a sample pass at width 16 (the merged
+    wave among them), the plain route's rays and image within 1e-5, and
+    the 8-wide frame's."""
+    import numpy as np
+
+    cfg = pt.RTConfig(flatten=True, bvh_width=16)
+    sb = _scene(True)
+    rk = pt.WavefrontRenderer.from_buffers(sb, cfg, device=cuda)
+    assert rk.walk is trace_packets and rk.wa.width == 16
+    rp = dataclasses.replace(rk, walk=trace_packets_ref)
+    r8 = pt.WavefrontRenderer.from_buffers(sb, pt.RTConfig(flatten=True),
+                                           device=cuda)
+    cam = pt.Camera.look_at([0.05, 0.02, -3.2], [0, -0.05, 0], [0, 1, 0],
+                            45.0, 1.0)
+    p = pt.RenderParams(light_pos=(0, 0.8, -0.5), shadow=True, spp=2,
+                        max_depth=3, pathtrace=pathtrace)
+    kernels.reset_launches()
+    img_k, rays_k = rk.render(cam, p, 48, 32)
+    assert kernels.LAUNCHES["traverse_packet16"] == 5 * p.spp
+    assert kernels.LAUNCHES["traverse_packet"] == 0
+    img_p, rays_p = rp.render(cam, p, 48, 32)
+    img_8, rays_8 = r8.render(cam, p, 48, 32)
+    assert rays_k == rays_p == rays_8
+    np.testing.assert_allclose(img_k, img_p, atol=1e-5)
+    np.testing.assert_allclose(img_k, img_8, atol=1e-5)

@@ -139,7 +139,13 @@ def test_bridge_refuses_unported_tables():
     common = dict(num_tlas=jwa.num_tlas, max_leaf_tris=jwa.max_leaf_tris,
                   depth=jwa.depth, tri_bits=jwa.tri_bits, device="cpu")
     nodes, rows = np.asarray(jwa.nodes), np.asarray(jwa.tri_rows)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # 16-wide tables are carried (tests/test_torch_wide16.py holds them
+    # word for word), but only with their 40-word node rows
+    j16 = JWide.from_scene(jsb, width=16)
+    got = bridge.wide_arrays(np.asarray(j16.nodes), np.asarray(j16.tri_rows),
+                             width=16, **{**common, "depth": j16.depth})
+    assert got.width == 16 and got.nodes.shape[1] == 40
+    with pytest.raises(ValueError, match="40"):
         bridge.wide_arrays(nodes, rows, width=16, **common)
     with pytest.raises(ValueError, match="fused"):  # wrong row width
         bridge.wide_arrays(nodes, rows, width=4, fused=nodes, **common)
@@ -217,12 +223,14 @@ def test_unported_options_raise(option):
     from vortex_rt_tpu_torch.engine.shaders import ShaderTable
 
     if option == "bvh_width8":
-        # 8-wide needs the flattened build, as in the JAX package; 16-wide
-        # is not ported
+        # 8- and 16-wide need the flattened build, as in the JAX package;
+        # 16-wide is ported (tests/test_torch_wide16.py)
         with pytest.raises(ValueError, match="flatten"):
             pt.RTConfig(bvh_width=8)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt.RTConfig(bvh_width=16, flatten=True)
+        with pytest.raises(ValueError, match="flatten"):
+            pt.RTConfig(bvh_width=16)
+        assert pt.RTConfig(bvh_width=16, flatten=True).bvh_width == 16
+        assert JCfg(bvh_width=16, flatten=True).bvh_width == 16
         return
     _, tsb = build_pair("flat")
     cfg = pt.RTConfig(flatten=True)

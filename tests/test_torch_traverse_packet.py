@@ -35,7 +35,7 @@ from vortex_rt_tpu_torch.ops.packet_walk import (
 from vortex_rt_tpu_torch.ops.traverse_packet import (
     trace_packets, trace_packets_ref,
 )
-from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays
+from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays, row_layout
 from vortex_rt_tpu_torch.runtime import kernels
 from vortex_rt_tpu_torch.tools import walk_bounds as wb
 from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT
@@ -265,11 +265,12 @@ def test_walk_work_and_bound_match_a_count_by_hand():
     # the tree: a root with two children, a leaf holding the quad at -6
     # (2 triangles) and a leaf holding the quads at 0 and 6 (4 triangles)
     words = wa.fused.to(torch.int64) & 0xFFFFFFFF
-    meta = words[:, tp._META]
+    _, _, meta_at, leaf_at, _ = row_layout(8)
+    meta = words[:, meta_at]
     assert wa.fused.shape == (3, 96)
     assert (meta >> 29).tolist() == [0, 1, 1]
     assert int((meta[0] >> 25) & 15) == 2
-    assert words[1:, tp._LEAF].tolist() == [2, 4]
+    assert words[1:, leaf_at].tolist() == [2, 4]
     # rays down +z at x = -6, 0, 6 (hits), 1.5 (inside the second leaf's
     # box, between its quads: a miss), above everything (y = 3), and an
     # inactive one

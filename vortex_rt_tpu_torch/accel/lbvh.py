@@ -67,7 +67,7 @@ from vortex_rt_tpu_torch.accel.qbvh import (
 from vortex_rt_tpu_torch.ops import packet_walk, traverse_packet
 from vortex_rt_tpu_torch.ops.traverse_wide import (
     INST_ROOT, INST_XFORM, ROW_WORDS, WideArrays, fuse_rows, left_bits,
-    row_layout,
+    nchild_mask, row_layout,
 )
 from vortex_rt_tpu_torch.runtime import kernels
 
@@ -905,7 +905,7 @@ def _pack_wide(topo: LBVHTopo, bmin, bmax, l: int, leaf_size: int,
     dev = bmin.device
     w = width
     lb = left_bits(w)
-    qoff, hoff, moff, loff = row_layout(w)
+    qoff, hoff, moff, loff, _ = row_layout(w)
     n_nodes = pool_rows if pool_rows else 2 * l - 1
     if surv_idx is not None:
         si = surv_idx.to(_I64).clamp(0, l - 2)
@@ -1227,7 +1227,7 @@ def tree_surface_area(nodes, width: int = 4) -> float:
     n = nodes.detach().cpu().numpy().view(np.uint32)
     scale = n[:, 3:6].view(np.float32)
     meta = n[:, row_layout(width)[2]]
-    nch = (meta >> left_bits(width)) & (7 if width == 4 else 15)
+    nch = (meta >> left_bits(width)) & nchild_mask(width)
     total = 0.0
     for c in range(width):
         ql = n[:, 6 + c]

@@ -6,7 +6,7 @@ The inputs are NumPy arrays (``np.asarray`` of the JAX package's
 the port's tables on a given device.  This module imports neither JAX
 nor ``vortex_rt_tpu``: it only reads arrays.
 
-4- and 8-wide ``nodes``/``tri_rows``, the fused node+leaf rows and the
+4-, 8- and 16-wide ``nodes``/``tri_rows``, the fused node+leaf rows and the
 alpha-cutout tables (``alpha_rows``, ``alpha_pool``) are carried, and the
 LBVH and PLOC topologies (``lbvh_topo``, ``ploc_topo``: the arrays of the
 JAX package's ``LBVHTopo`` and ``PLOCTopo``), so both packages can refit
@@ -14,7 +14,7 @@ one tree, and a per-ray walk's state (``wide_state``: the JAX
 ``WideState``), so a walk the JAX package suspended can resume in the
 port, and the merged TLAS+BLAS pool of the binary walk
 (``traversal_arrays``: the JAX ``TraversalArrays``), so both packages walk
-one pool; 16-wide rows are refused (ROADMAP Queue 1, "Not ported").
+one pool.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from vortex_rt_tpu_torch.engine.megakernel import CameraArrays, LightArrays
 from vortex_rt_tpu_torch.ops.shade_lanes import ShadeArrays
 from vortex_rt_tpu_torch.ops.traverse2 import TraversalArrays
 from vortex_rt_tpu_torch.ops.traverse_wide import (
-    ROW_WORDS, WideArrays, WideState, state_dtype,
+    WideArrays, WideState, row_words, state_dtype,
 )
 
 
@@ -54,15 +54,13 @@ def wide_arrays(nodes: np.ndarray, tri_rows: np.ndarray, *, num_tlas: int,
                 device, fused: Optional[np.ndarray] = None,
                 alpha_rows: Optional[np.ndarray] = None,
                 alpha_pool: Optional[np.ndarray] = None) -> WideArrays:
-    """JAX ``WideArrays`` fields -> the port's ``WideArrays``."""
-    if width == 16:
-        raise NotImplementedError(
-            "width=16: 16-wide rows are not ported (ROADMAP Queue 1, "
-            "'Not ported')")
-    if width not in (4, 8):
+    """JAX ``WideArrays`` fields -> the port's ``WideArrays`` (node rows
+    of 32 words at widths 4 and 8, 40 at width 16)."""
+    if width not in (4, 8, 16):
         raise ValueError(f"unsupported BVH width {width}")
-    if nodes.ndim != 2 or nodes.shape[1] != ROW_WORDS:
-        raise ValueError(f"nodes must be (N, {ROW_WORDS}), got {nodes.shape}")
+    nw = row_words(width)
+    if nodes.ndim != 2 or nodes.shape[1] != nw:
+        raise ValueError(f"nodes must be (N, {nw}), got {nodes.shape}")
     if (alpha_rows is None) != (alpha_pool is None):
         raise ValueError("alpha_rows and alpha_pool come together")
     alpha_words = 0
@@ -76,8 +74,8 @@ def wide_arrays(nodes: np.ndarray, tri_rows: np.ndarray, *, num_tlas: int,
         alpha_words = alpha_rows.shape[1]
     if fused is not None and (fused.ndim != 2 or fused.shape[0] !=
                               nodes.shape[0] or fused.shape[1] !=
-                              ROW_WORDS + tri_rows.shape[1] + alpha_words):
-        raise ValueError(f"fused must be (N, {ROW_WORDS} + leaf row words "
+                              nw + tri_rows.shape[1] + alpha_words):
+        raise ValueError(f"fused must be (N, {nw} + leaf row words "
                          f"(+ alpha words)), got {fused.shape}")
     return WideArrays(nodes=_as_i32(nodes), tri_rows=_as_f32(tri_rows),
                       num_tlas=int(num_tlas),

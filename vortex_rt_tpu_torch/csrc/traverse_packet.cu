@@ -1,9 +1,11 @@
-// traverse_packet.cu — per-ray walk of the 8-wide fused BVH on Hopper (K1).
+// traverse_packet.cu — per-ray walk of the 8- and 16-wide fused BVH on
+// Hopper (K1).
 //
 // Replaces the XLA while_loop `trace_packets` of
 // vortex_rt_tpu/ops/traverse_packet.py:202 (loop body :543-894) on the JAX
 // main path's tables: flat 8-wide builds with fused node+leaf rows
-// (WideArrays.fuse, ops/traverse_wide.py:208).  Same hits in the three
+// (WideArrays.fuse, ops/traverse_wide.py:208), and flat 16-wide ones
+// (RTConfig(bvh_width=16)).  Same hits in the three
 // modes: closest hit, bounded occlusion (the first hit inside t_max retires
 // the ray) and the mixed wave of `occl_split` (rays below the split trace
 // in occlusion mode, the rest closest-hit: the frame loop's merged
@@ -90,6 +92,23 @@
 // one 4-B store a ray; with STATS = false the count is compiled out and
 // the kernel is the one above.
 //
+// Width 16 (`vrt_traverse_packet16*`, the traverse_packet16_kernel
+// instantiations of every mode above): the walk is templated on WIDTH.
+// A 16-wide row is 40 node words (160 B, the meta word at word 38, so the
+// meta quarter is the row's tenth 16-B vector), then the leaf slots; a
+// step reads the meta quarter first, then at an internal node the other
+// nine vectors, decodes and slab-tests up to 16 children with the same
+// byte decode, and orders them by the JAX body's 16-slot network
+// (Batcher's odd-even merge, 63 comparators, traverse_packet.py:78-102).
+// A deferred-children entry is three words, `left << 4 | count`, sorted
+// slots 0..7 and sorted slots 8..14 at 4 bits each (:337-343, :654-655):
+// the first two in the int2 plane of the 8-wide stack, the third in an
+// int plane after it, 12 B an entry, so 32 entries (a depth-28 tree) fill
+// the 48 KB a block of 128 threads gets without opting in.  Node ids are
+// 24 bits (a pool below 2^24 nodes).  A row spans two 128-B lines; the
+// walk reads only the row's own words.  The 8-wide instantiations are the
+// kernel above, unchanged.
+//
 // Numerics match the JAX body and the plain PyTorch version bit for bit:
 // the f32 slab test of `_slab_test` (corners g + f*s), the |d| < 1e-20
 // reciprocal clamp of `_rcp_lane`, Moller-Trumbore in the op order of the
@@ -112,13 +131,17 @@
 #endif
 
 // 48 entries x 8 B x 128 threads = 48 KB, the shared memory a block gets
-// without opting in (a depth-44 tree; the shipped ones are 7-9 deep)
+// without opting in (a depth-44 tree; the shipped ones are 7-9 deep); at
+// width 16, 32 entries x 12 B x 128 threads = 48 KB (a depth-28 tree)
 #define VRT_STACK_MAX 48
+#define VRT_STACK_MAX16 32
 #define VRT_LARGE 1e30f
 #define VRT_EPS 1e-6f
 #define VRT_INT_MAX 2147483647
 #define VRT_LEFT_MASK8 ((1u << 25) - 1u)
+#define VRT_LEFT_MASK16 ((1u << 24) - 1u)
 #define VRT_ROW_WORDS 32
+#define VRT_ROW_WORDS16 40
 #define VRT_BLOCK 128
 #define VRT_STK_STRIDE VRT_BLOCK  // entries between a thread's stack levels
 // the walk's any-hit modes: none, the alpha cutout, a compiled predicate
@@ -178,18 +201,142 @@ __device__ __forceinline__ void cswap_desc(float* ds, int* ix, int a, int b) {
 }
 
 // Pops the nearest deferred child off the stack (sc > 0): its node index.
-__device__ __forceinline__ int pop_deferred(int2* stk, int& sc, int stack_n) {
+// Width 16 reads sorted slots 8..14 from the third word's plane `stk2`.
+template <int WIDTH>
+__device__ __forceinline__ int pop_deferred(int2* stk, const int* stk2,
+                                            int& sc, int stack_n) {
     const int at = min(sc - 1, stack_n - 1) * VRT_STK_STRIDE;
     const int2 top = stk[at];
     const int c_top = top.x & 15;
     if (c_top > 1) stk[at].x = top.x - 1; else --sc;
-    return (top.x >> 4) + ((top.y >> (3 * max(c_top - 1, 0))) & 7);
+    if constexpr (WIDTH == 16) {
+        const int j = max(c_top - 1, 0);
+        const uint32_t w = j < 8 ? (uint32_t)top.y : (uint32_t)stk2[at];
+        return (top.x >> 4) + (int)((w >> (4 * (j & 7))) & 15u);
+    } else {
+        return (top.x >> 4) + ((top.y >> (3 * max(c_top - 1, 0))) & 7);
+    }
 }
 
-// Walks ray i; `stk` is this thread's first stack entry in shared memory.
-template <int MODE, bool STATS>
-__device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
+// An internal step at width 16: the node's 16 quantized child boxes
+// (words 6..37 of the row; w9 is its meta quarter, words 36..39) decoded
+// and slab-tested, the hit children ordered far -> near by the JAX body's
+// 16-slot network (culled ones keyed -LARGE), the nearest returned and the
+// others deferred in one three-word stack entry; with none hit, the
+// nearest deferred child is popped, or the ray ends (`alive` false) on an
+// empty stack.
+__device__ __forceinline__ int internal_step16(
+        const uint4* row, uint4 w9, float ox, float oy, float oz, float ivx,
+        float ivy, float ivz, float best_t, int2* stk, int* stk2, int& sc,
+        int stack_n, bool& alive) {
+    const uint4 w0 = __ldg(row + 0), w1 = __ldg(row + 1);
+    const uint4 w2 = __ldg(row + 2), w3 = __ldg(row + 3);
+    const uint4 w4 = __ldg(row + 4), w5 = __ldg(row + 5);
+    const uint4 w6 = __ldg(row + 6), w7 = __ldg(row + 7);
+    const uint4 w8 = __ldg(row + 8);
+    const uint32_t meta = w9.z;
+    const int nch = (int)((meta >> 24) & 31u);
+    const int left = (int)(meta & VRT_LEFT_MASK16);
+    const float gx = __uint_as_float(w0.x), gy = __uint_as_float(w0.y);
+    const float gz = __uint_as_float(w0.z), sx = __uint_as_float(w0.w);
+    const float sy = __uint_as_float(w1.x), sz = __uint_as_float(w1.y);
+    const uint32_t ql[16] = {w1.z, w1.w, w2.x, w2.y, w2.z, w2.w, w3.x, w3.y,
+                             w3.z, w3.w, w4.x, w4.y, w4.z, w4.w, w5.x, w5.y};
+    const uint32_t qh[16] = {w5.z, w5.w, w6.x, w6.y, w6.z, w6.w, w7.x, w7.y,
+                             w7.z, w7.w, w8.x, w8.y, w8.z, w8.w, w9.x, w9.y};
+    float ds[16];
+    int ix[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+        const float lx = gx + qbyte(ql[c], 0) * sx;
+        const float ly = gy + qbyte(ql[c], 1) * sy;
+        const float lz = gz + qbyte(ql[c], 2) * sz;
+        const float hx = gx + qbyte(qh[c], 0) * sx;
+        const float hy = gy + qbyte(qh[c], 1) * sy;
+        const float hz = gz + qbyte(qh[c], 2) * sz;
+        const float t1x = (lx - ox) * ivx, t2x = (hx - ox) * ivx;
+        const float t1y = (ly - oy) * ivy, t2y = (hy - oy) * ivy;
+        const float t1z = (lz - oz) * ivz, t2z = (hz - oz) * ivz;
+        const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
+                                 fminf(t1z, t2z));
+        const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
+                                 fmaxf(t1z, t2z));
+        const bool hit = (tmax >= tmin) && (tmax > 0.0f) && (tmin < best_t)
+            && (c < nch);
+        ds[c] = hit ? tmin : -VRT_LARGE;
+        ix[c] = c;
+    }
+    // the JAX body's 16-slot network (traverse_packet.py:78-102: Batcher's
+    // odd-even merge, 63 comparators)
+    cswap_desc(ds, ix, 0, 1); cswap_desc(ds, ix, 2, 3);
+    cswap_desc(ds, ix, 4, 5); cswap_desc(ds, ix, 6, 7);
+    cswap_desc(ds, ix, 8, 9); cswap_desc(ds, ix, 10, 11);
+    cswap_desc(ds, ix, 12, 13); cswap_desc(ds, ix, 14, 15);
+    cswap_desc(ds, ix, 0, 2); cswap_desc(ds, ix, 1, 3);
+    cswap_desc(ds, ix, 4, 6); cswap_desc(ds, ix, 5, 7);
+    cswap_desc(ds, ix, 8, 10); cswap_desc(ds, ix, 9, 11);
+    cswap_desc(ds, ix, 12, 14); cswap_desc(ds, ix, 13, 15);
+    cswap_desc(ds, ix, 1, 2); cswap_desc(ds, ix, 5, 6);
+    cswap_desc(ds, ix, 9, 10); cswap_desc(ds, ix, 13, 14);
+    cswap_desc(ds, ix, 0, 4); cswap_desc(ds, ix, 1, 5);
+    cswap_desc(ds, ix, 2, 6); cswap_desc(ds, ix, 3, 7);
+    cswap_desc(ds, ix, 8, 12); cswap_desc(ds, ix, 9, 13);
+    cswap_desc(ds, ix, 10, 14); cswap_desc(ds, ix, 11, 15);
+    cswap_desc(ds, ix, 2, 4); cswap_desc(ds, ix, 3, 5);
+    cswap_desc(ds, ix, 10, 12); cswap_desc(ds, ix, 11, 13);
+    cswap_desc(ds, ix, 1, 2); cswap_desc(ds, ix, 3, 4);
+    cswap_desc(ds, ix, 5, 6); cswap_desc(ds, ix, 9, 10);
+    cswap_desc(ds, ix, 11, 12); cswap_desc(ds, ix, 13, 14);
+    cswap_desc(ds, ix, 0, 8); cswap_desc(ds, ix, 1, 9);
+    cswap_desc(ds, ix, 2, 10); cswap_desc(ds, ix, 3, 11);
+    cswap_desc(ds, ix, 4, 12); cswap_desc(ds, ix, 5, 13);
+    cswap_desc(ds, ix, 6, 14); cswap_desc(ds, ix, 7, 15);
+    cswap_desc(ds, ix, 4, 8); cswap_desc(ds, ix, 5, 9);
+    cswap_desc(ds, ix, 6, 10); cswap_desc(ds, ix, 7, 11);
+    cswap_desc(ds, ix, 2, 4); cswap_desc(ds, ix, 3, 5);
+    cswap_desc(ds, ix, 6, 8); cswap_desc(ds, ix, 7, 9);
+    cswap_desc(ds, ix, 10, 12); cswap_desc(ds, ix, 11, 13);
+    cswap_desc(ds, ix, 1, 2); cswap_desc(ds, ix, 3, 4);
+    cswap_desc(ds, ix, 5, 6); cswap_desc(ds, ix, 7, 8);
+    cswap_desc(ds, ix, 9, 10); cswap_desc(ds, ix, 11, 12);
+    cswap_desc(ds, ix, 13, 14);
+    // the sorted slot ids, 4 bits each: the stack entry's second word
+    // holds slots 0..7, its third slots 8..14
+    int m = 0;
+    uint64_t perm = 0;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+        m += (ds[c] > -VRT_LARGE) ? 1 : 0;
+        perm |= (uint64_t)ix[c] << (4 * c);
+    }
+    int nxt = 0;
+    if (m >= 1) {
+        // sorted far -> near: the nearest hit child sits at m - 1
+        nxt = left + (int)((perm >> (4 * (m - 1))) & 15u);
+        if (m >= 2) {
+            const int at = min(sc, stack_n - 1) * VRT_STK_STRIDE;
+            stk[at] = make_int2((left << 4) | (m - 1), (int)(uint32_t)perm);
+            stk2[at] = (int)((uint32_t)(perm >> 32) & 0x0FFFFFFFu);
+            ++sc;
+        }
+    } else if (sc > 0) {
+        nxt = pop_deferred<16>(stk, stk2, sc, stack_n);  // nothing hit
+    } else {
+        alive = false;  // empty stack: the ray is done
+    }
+    return nxt;
+}
+
+// Walks ray i; `stk` is this thread's first stack entry in shared memory
+// (width 16: `stk2` its first third word).
+template <int WIDTH, int MODE, bool STATS>
+__device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk,
+                                         int* stk2) {
     constexpr bool ALPHA = MODE == VRT_MODE_ALPHA;
+    // the row's meta quarter (the last two child boxes, meta, leaf_n) and
+    // its first leaf slot, in 16-B vectors
+    constexpr int META_V4 = WIDTH == 16 ? 9 : 5;
+    constexpr int NODE_V4 = (WIDTH == 16 ? VRT_ROW_WORDS16 : VRT_ROW_WORDS) / 4;
     const float lim = a.limit[i];
     const bool on = a.active[i] != 0;
     const bool occ = i < a.occl_split;
@@ -204,83 +351,90 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
     float ivx = 0.0f, ivy = 0.0f, ivz = 0.0f;
     const uint4* row = a.fused;
     int node = 0;  // (its index: the alpha mode's slot classes)
-    uint4 w5 = make_uint4(0u, 0u, 0u, 0u);  // words 20..23: boxes, meta, leaf_n
+    // (words 20..23, or 36..39 at width 16: boxes, meta, leaf_n)
+    uint4 w5 = make_uint4(0u, 0u, 0u, 0u);
     if (alive) {  // a ray that never walks needs no o, d or row
         ox = a.o[3 * i + 0]; oy = a.o[3 * i + 1]; oz = a.o[3 * i + 2];
         dx = a.d[3 * i + 0]; dy = a.d[3 * i + 1]; dz = a.d[3 * i + 2];
         ivx = rcp_clamped(dx); ivy = rcp_clamped(dy); ivz = rcp_clamped(dz);
-        w5 = __ldg(row + 5);
+        w5 = __ldg(row + META_V4);
     }
 
     while (alive) {
         // ---- while-while: internal steps while any lane is at an
         // internal node, then leaf steps while any lane is at a leaf
         while (alive && (w5.z >> 29) == 0u) {
-            const uint4 w0 = __ldg(row + 0), w1 = __ldg(row + 1);
-            const uint4 w2 = __ldg(row + 2), w3 = __ldg(row + 3);
-            const uint4 w4 = __ldg(row + 4);
-            const uint32_t meta = w5.z;
-            const int nch = (int)((meta >> 25) & 15u);
-            const int left = (int)(meta & VRT_LEFT_MASK8);
-            const float gx = __uint_as_float(w0.x), gy = __uint_as_float(w0.y);
-            const float gz = __uint_as_float(w0.z), sx = __uint_as_float(w0.w);
-            const float sy = __uint_as_float(w1.x), sz = __uint_as_float(w1.y);
-            const uint32_t ql[8] = {w1.z, w1.w, w2.x, w2.y, w2.z, w2.w, w3.x, w3.y};
-            const uint32_t qh[8] = {w3.z, w3.w, w4.x, w4.y, w4.z, w4.w, w5.x, w5.y};
-            float ds[8];
-            int ix[8];
-#pragma unroll
-            for (int c = 0; c < 8; ++c) {
-                const float lx = gx + qbyte(ql[c], 0) * sx;
-                const float ly = gy + qbyte(ql[c], 1) * sy;
-                const float lz = gz + qbyte(ql[c], 2) * sz;
-                const float hx = gx + qbyte(qh[c], 0) * sx;
-                const float hy = gy + qbyte(qh[c], 1) * sy;
-                const float hz = gz + qbyte(qh[c], 2) * sz;
-                const float t1x = (lx - ox) * ivx, t2x = (hx - ox) * ivx;
-                const float t1y = (ly - oy) * ivy, t2y = (hy - oy) * ivy;
-                const float t1z = (lz - oz) * ivz, t2z = (hz - oz) * ivz;
-                const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
-                                         fminf(t1z, t2z));
-                const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                                         fmaxf(t1z, t2z));
-                const bool hit = (tmax >= tmin) && (tmax > 0.0f) && (tmin < best_t)
-                    && (c < nch);
-                ds[c] = hit ? tmin : -VRT_LARGE;
-                ix[c] = c;
-            }
-            // the JAX body's 19-comparator network (traverse_packet.py:100)
-            cswap_desc(ds, ix, 0, 2); cswap_desc(ds, ix, 1, 3);
-            cswap_desc(ds, ix, 4, 6); cswap_desc(ds, ix, 5, 7);
-            cswap_desc(ds, ix, 0, 4); cswap_desc(ds, ix, 1, 5);
-            cswap_desc(ds, ix, 2, 6); cswap_desc(ds, ix, 3, 7);
-            cswap_desc(ds, ix, 0, 1); cswap_desc(ds, ix, 2, 3);
-            cswap_desc(ds, ix, 4, 5); cswap_desc(ds, ix, 6, 7);
-            cswap_desc(ds, ix, 2, 4); cswap_desc(ds, ix, 3, 5);
-            cswap_desc(ds, ix, 1, 4); cswap_desc(ds, ix, 3, 6);
-            cswap_desc(ds, ix, 1, 2); cswap_desc(ds, ix, 3, 4);
-            cswap_desc(ds, ix, 5, 6);
-            // the sorted slot ids, 3 bits each: the low 21 bits are the
-            // stack entry's second word
-            int m = 0, perm = 0;
-#pragma unroll
-            for (int c = 0; c < 8; ++c) {
-                m += (ds[c] > -VRT_LARGE) ? 1 : 0;
-                perm |= ix[c] << (3 * c);
-            }
             int nxt = 0;
-            if (m >= 1) {
-                // sorted far -> near: the nearest hit child sits at m - 1
-                nxt = left + ((perm >> (3 * (m - 1))) & 7);
-                if (m >= 2) {
-                    stk[min(sc, a.stack_n - 1) * VRT_STK_STRIDE] =
-                        make_int2((left << 4) | (m - 1), perm & 0x1FFFFF);
-                    ++sc;
-                }
-            } else if (sc > 0) {
-                nxt = pop_deferred(stk, sc, a.stack_n);  // nothing hit
+            if constexpr (WIDTH == 16) {
+                nxt = internal_step16(row, w5, ox, oy, oz, ivx, ivy, ivz,
+                                      best_t, stk, stk2, sc, a.stack_n,
+                                      alive);
             } else {
-                alive = false;  // empty stack: the ray is done
+                const uint4 w0 = __ldg(row + 0), w1 = __ldg(row + 1);
+                const uint4 w2 = __ldg(row + 2), w3 = __ldg(row + 3);
+                const uint4 w4 = __ldg(row + 4);
+                const uint32_t meta = w5.z;
+                const int nch = (int)((meta >> 25) & 15u);
+                const int left = (int)(meta & VRT_LEFT_MASK8);
+                const float gx = __uint_as_float(w0.x), gy = __uint_as_float(w0.y);
+                const float gz = __uint_as_float(w0.z), sx = __uint_as_float(w0.w);
+                const float sy = __uint_as_float(w1.x), sz = __uint_as_float(w1.y);
+                const uint32_t ql[8] = {w1.z, w1.w, w2.x, w2.y, w2.z, w2.w, w3.x, w3.y};
+                const uint32_t qh[8] = {w3.z, w3.w, w4.x, w4.y, w4.z, w4.w, w5.x, w5.y};
+                float ds[8];
+                int ix[8];
+#pragma unroll
+                for (int c = 0; c < 8; ++c) {
+                    const float lx = gx + qbyte(ql[c], 0) * sx;
+                    const float ly = gy + qbyte(ql[c], 1) * sy;
+                    const float lz = gz + qbyte(ql[c], 2) * sz;
+                    const float hx = gx + qbyte(qh[c], 0) * sx;
+                    const float hy = gy + qbyte(qh[c], 1) * sy;
+                    const float hz = gz + qbyte(qh[c], 2) * sz;
+                    const float t1x = (lx - ox) * ivx, t2x = (hx - ox) * ivx;
+                    const float t1y = (ly - oy) * ivy, t2y = (hy - oy) * ivy;
+                    const float t1z = (lz - oz) * ivz, t2z = (hz - oz) * ivz;
+                    const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
+                                             fminf(t1z, t2z));
+                    const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
+                                             fmaxf(t1z, t2z));
+                    const bool hit = (tmax >= tmin) && (tmax > 0.0f) && (tmin < best_t)
+                        && (c < nch);
+                    ds[c] = hit ? tmin : -VRT_LARGE;
+                    ix[c] = c;
+                }
+                // the JAX body's 19-comparator network (traverse_packet.py:100)
+                cswap_desc(ds, ix, 0, 2); cswap_desc(ds, ix, 1, 3);
+                cswap_desc(ds, ix, 4, 6); cswap_desc(ds, ix, 5, 7);
+                cswap_desc(ds, ix, 0, 4); cswap_desc(ds, ix, 1, 5);
+                cswap_desc(ds, ix, 2, 6); cswap_desc(ds, ix, 3, 7);
+                cswap_desc(ds, ix, 0, 1); cswap_desc(ds, ix, 2, 3);
+                cswap_desc(ds, ix, 4, 5); cswap_desc(ds, ix, 6, 7);
+                cswap_desc(ds, ix, 2, 4); cswap_desc(ds, ix, 3, 5);
+                cswap_desc(ds, ix, 1, 4); cswap_desc(ds, ix, 3, 6);
+                cswap_desc(ds, ix, 1, 2); cswap_desc(ds, ix, 3, 4);
+                cswap_desc(ds, ix, 5, 6);
+                // the sorted slot ids, 3 bits each: the low 21 bits are the
+                // stack entry's second word
+                int m = 0, perm = 0;
+#pragma unroll
+                for (int c = 0; c < 8; ++c) {
+                    m += (ds[c] > -VRT_LARGE) ? 1 : 0;
+                    perm |= ix[c] << (3 * c);
+                }
+                if (m >= 1) {
+                    // sorted far -> near: the nearest hit child sits at m - 1
+                    nxt = left + ((perm >> (3 * (m - 1))) & 7);
+                    if (m >= 2) {
+                        stk[min(sc, a.stack_n - 1) * VRT_STK_STRIDE] =
+                            make_int2((left << 4) | (m - 1), perm & 0x1FFFFF);
+                        ++sc;
+                    }
+                } else if (sc > 0) {
+                    nxt = pop_deferred<8>(stk, stk2, sc, a.stack_n);  // nothing hit
+                } else {
+                    alive = false;  // empty stack: the ray is done
+                }
             }
             ++steps;
             if (STATS) ++n_int;
@@ -288,7 +442,7 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
             if (alive) {
                 node = min(max(nxt, 0), a.n_nodes - 1);
                 row = a.fused + (size_t)node * a.row_vec4;
-                w5 = __ldg(row + 5);
+                w5 = __ldg(row + META_V4);
             }
         }
         while (alive && (w5.z >> 29) != 0u) {
@@ -297,7 +451,7 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
                 // tests (slots past leaf_n never win the fold), folded to
                 // the leaf's best, then into the ray's
                 const float4* tr =
-                    reinterpret_cast<const float4*>(row) + VRT_ROW_WORDS / 4;
+                    reinterpret_cast<const float4*>(row) + NODE_V4;
                 const int n_slots = min(a.lmax, (int)w5.w);
                 const uint32_t cls_w =
                     ALPHA && a.alpha_cls != nullptr ? __ldg(a.alpha_cls + node) : 0u;
@@ -365,14 +519,14 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
             }
             // (flat builds hold no instance nodes; any other kind pops)
             int nxt = 0;
-            if (sc > 0) nxt = pop_deferred(stk, sc, a.stack_n);
+            if (sc > 0) nxt = pop_deferred<WIDTH>(stk, stk2, sc, a.stack_n);
             else alive = false;
             ++steps;
             if (steps >= a.max_steps || (occ && !(best_t > 0.0f))) alive = false;
             if (alive) {
                 node = min(max(nxt, 0), a.n_nodes - 1);
                 row = a.fused + (size_t)node * a.row_vec4;
-                w5 = __ldg(row + 5);
+                w5 = __ldg(row + META_V4);
             }
         }
     }
@@ -401,15 +555,57 @@ __global__ void __launch_bounds__(VRT_BLOCK) traverse_packet_kernel(
     // stack_smem[e * VRT_STK_STRIDE + t] as (left << 4 | count, 7 x 3-bit ids)
     extern __shared__ int2 stack_smem[];
     const int i = blockIdx.x * VRT_BLOCK + threadIdx.x;
-    if (i < a.n_rays) walk_ray<MODE, STATS>(a, i, stack_smem + threadIdx.x);
+    if (i < a.n_rays) {
+        walk_ray<8, MODE, STATS>(a, i, stack_smem + threadIdx.x, nullptr);
+    }
 }
 
+// The 16-wide walk: entry e of thread t at stack_smem[e * VRT_STK_STRIDE +
+// t] as (left << 4 | count, sorted slots 0..7 x 4 bits), its third word
+// (sorted slots 8..14 x 4 bits) at the same index of the int plane after
+// the stack_n entries of the first
+template <int MODE, bool STATS>
+__global__ void __launch_bounds__(VRT_BLOCK) traverse_packet16_kernel(
+        const __grid_constant__ WalkArgs a) {
+    extern __shared__ int2 stack_smem[];
+    const int i = blockIdx.x * VRT_BLOCK + threadIdx.x;
+    if (i < a.n_rays) {
+        int* plane2 = reinterpret_cast<int*>(stack_smem
+                                             + a.stack_n * VRT_STK_STRIDE);
+        walk_ray<16, MODE, STATS>(a, i, stack_smem + threadIdx.x,
+                                  plane2 + threadIdx.x);
+    }
+}
+
+template <int WIDTH>
 size_t stack_bytes(int stack_n) {
-    return (size_t)stack_n * sizeof(int2) * VRT_BLOCK;
+    return (size_t)stack_n * (WIDTH == 16 ? 12 : sizeof(int2)) * VRT_BLOCK;
+}
+
+template <int WIDTH>
+constexpr int stack_cap() { return WIDTH == 16 ? VRT_STACK_MAX16 : VRT_STACK_MAX; }
+
+template <int WIDTH>
+constexpr int node_words() { return WIDTH == 16 ? VRT_ROW_WORDS16 : VRT_ROW_WORDS; }
+
+// Launches the instantiation of WIDTH, MODE and STATS.
+template <int WIDTH, int MODE, bool STATS>
+int launch(const WalkArgs& a, int stack_n, void* stream) {
+    const int grid = (a.n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
+    if constexpr (WIDTH == 16) {
+        traverse_packet16_kernel<MODE, STATS><<<grid, VRT_BLOCK,
+                                                stack_bytes<16>(stack_n),
+                                                (cudaStream_t)stream>>>(a);
+    } else {
+        traverse_packet_kernel<MODE, STATS><<<grid, VRT_BLOCK,
+                                              stack_bytes<8>(stack_n),
+                                              (cudaStream_t)stream>>>(a);
+    }
+    return (int)cudaGetLastError();
 }
 
 // The walk without alpha; STATS also writes `int_steps`.
-template <bool STATS>
+template <int WIDTH, bool STATS>
 int launch_plain(
         const void* fused, const void* o, const void* d, const void* limit,
         const void* active, void* dist, void* bx, void* by, void* bz,
@@ -417,9 +613,11 @@ int launch_plain(
         int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
         int stack_n, int max_steps, int occl_split, void* stream) {
     if (n_rays <= 0) return 0;
-    if (stack_n < 1 || stack_n > VRT_STACK_MAX
-            || row_words < VRT_ROW_WORDS + 16 * lmax
-            || (row_words - VRT_ROW_WORDS) % 16 != 0 || n_nodes <= 0
+    constexpr int NW = node_words<WIDTH>();
+    if (stack_n < 1 || stack_n > stack_cap<WIDTH>()
+            || row_words < NW + 16 * lmax
+            || (row_words - NW) % 16 != 0 || n_nodes <= 0
+            || (WIDTH == 16 && n_nodes > (int)VRT_LEFT_MASK16)
             || tri_bits <= 0 || tri_bits > 30
             || (STATS && int_steps == nullptr)) {
         return (int)cudaErrorInvalidValue;
@@ -431,17 +629,13 @@ int launch_plain(
         (int*)tri, (int*)inst, (int*)steps,
         n_rays, n_nodes, row_words / 4, lmax, tri_bits, stack_n, max_steps,
         occl_split, nullptr, 0, 0, 0.0f, nullptr, (int*)int_steps};
-    const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
-    traverse_packet_kernel<VRT_MODE_NONE, STATS><<<grid, VRT_BLOCK,
-                                                   stack_bytes(stack_n),
-                                                   (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    return launch<WIDTH, VRT_MODE_NONE, STATS>(a, stack_n, stream);
 }
 
 // The alpha mode (`thr` and the slot classes `alpha_cls`, null: test every
 // slot) or, MODE == VRT_MODE_PRED, the predicate mode (no threshold, no
 // classes); STATS also writes `int_steps`.
-template <int MODE, bool STATS>
+template <int WIDTH, int MODE, bool STATS>
 int launch_alpha(
         const void* fused, const void* o, const void* d, const void* limit,
         const void* active, void* dist, void* bx, void* by, void* bz,
@@ -451,9 +645,11 @@ int launch_alpha(
         int stack_n, int max_steps, int occl_split, int n_pool, int slots,
         float thr, void* stream) {
     if (n_rays <= 0) return 0;
-    if (stack_n < 1 || stack_n > VRT_STACK_MAX || slots < lmax || lmax < 1
-            || row_words != VRT_ROW_WORDS + 24 * slots
-            || n_nodes <= 0 || n_pool <= 0 || tri_bits <= 0 || tri_bits > 30
+    constexpr int NW = node_words<WIDTH>();
+    if (stack_n < 1 || stack_n > stack_cap<WIDTH>() || slots < lmax
+            || lmax < 1 || row_words != NW + 24 * slots
+            || n_nodes <= 0 || (WIDTH == 16 && n_nodes > (int)VRT_LEFT_MASK16)
+            || n_pool <= 0 || tri_bits <= 0 || tri_bits > 30
             || (alpha_cls != nullptr && slots > 16)
             || (STATS && int_steps == nullptr)) {
         return (int)cudaErrorInvalidValue;
@@ -465,113 +661,97 @@ int launch_alpha(
         (int*)tri, (int*)inst, (int*)steps,
         n_rays, n_nodes, row_words / 4, lmax, tri_bits, stack_n, max_steps,
         occl_split, (const float*)alpha_pool, n_pool,
-        (VRT_ROW_WORDS + 16 * slots) / 4, thr, (const uint32_t*)alpha_cls,
+        (NW + 16 * slots) / 4, thr, (const uint32_t*)alpha_cls,
         (int*)int_steps};
-    const int grid = (n_rays + VRT_BLOCK - 1) / VRT_BLOCK;
-    traverse_packet_kernel<MODE, STATS><<<grid, VRT_BLOCK,
-                                          stack_bytes(stack_n),
-                                          (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    return launch<WIDTH, MODE, STATS>(a, stack_n, stream);
 }
 
 }  // namespace
 
 extern "C" int vrt_traverse_packet_stack_max(void) { return VRT_STACK_MAX; }
+extern "C" int vrt_traverse_packet16_stack_max(void) {
+    return VRT_STACK_MAX16;
+}
 
 extern "C" const char* vrt_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }
 
+// The C entry points, each defined at width 8 (`vrt_traverse_packet*`,
+// 32-word node rows) and width 16 (`vrt_traverse_packet16*`, 40-word node
+// rows) with the same arguments.
+#define VRT_PLAIN_ARGS                                                       \
+        const void* fused, const void* o, const void* d, const void* limit, \
+        const void* active, void* dist, void* bx, void* by, void* bz,       \
+        void* tri, void* inst, void* steps
+#define VRT_SIZE_ARGS                                                        \
+        int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,     \
+        int stack_n, int max_steps, int occl_split
+#define VRT_PLAIN_PASS                                                       \
+        fused, o, d, limit, active, dist, bx, by, bz, tri, inst, steps
+#define VRT_SIZE_PASS                                                        \
+        n_rays, n_nodes, row_words, lmax, tri_bits, stack_n, max_steps,     \
+        occl_split
+
 // Launches the walk on `stream` and returns the first CUDA error (0 = ok).
 // Pointers are device pointers of contiguous tensors; the caller
 // allocates every output.
-extern "C" int vrt_traverse_packet(
-        const void* fused, const void* o, const void* d, const void* limit,
-        const void* active, void* dist, void* bx, void* by, void* bz,
-        void* tri, void* inst, void* steps,
-        int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
-        int stack_n, int max_steps, int occl_split, void* stream) {
-    return launch_plain<false>(
-        fused, o, d, limit, active, dist, bx, by, bz, tri, inst, steps,
-        nullptr, n_rays, n_nodes, row_words, lmax, tri_bits, stack_n,
-        max_steps, occl_split, stream);
+// The alpha mode (`_alpha`): as the walk over fused rows of
+// NW + 24 * slots words (NW node words, slots triangle slots, then their
+// alpha fields), with the alpha pool of n_pool floats, the threshold `thr`
+// and the rows' slot classes for it (n_nodes uint32, slots <= 16; null:
+// test every slot).
+// The counting instantiations (`_stats`): as the walk and its alpha mode,
+// and each ray's internal steps into `int_steps` ((n_rays,) int32).
+#define VRT_ENTRIES(SUFFIX, W)                                               \
+extern "C" int vrt_traverse_packet##SUFFIX(                                  \
+        VRT_PLAIN_ARGS, VRT_SIZE_ARGS, void* stream) {                      \
+    return launch_plain<W, false>(VRT_PLAIN_PASS, nullptr, VRT_SIZE_PASS,   \
+                                  stream);                                  \
+}                                                                            \
+extern "C" int vrt_traverse_packet##SUFFIX##_alpha(                          \
+        VRT_PLAIN_ARGS, const void* alpha_pool, const void* alpha_cls,      \
+        VRT_SIZE_ARGS, int n_pool, int slots, float thr, void* stream) {    \
+    return launch_alpha<W, VRT_MODE_ALPHA, false>(                           \
+        VRT_PLAIN_PASS, alpha_pool, alpha_cls, nullptr, VRT_SIZE_PASS,      \
+        n_pool, slots, thr, stream);                                        \
+}                                                                            \
+extern "C" int vrt_traverse_packet##SUFFIX##_stats(                          \
+        VRT_PLAIN_ARGS, void* int_steps, VRT_SIZE_ARGS, void* stream) {     \
+    return launch_plain<W, true>(VRT_PLAIN_PASS, int_steps, VRT_SIZE_PASS,  \
+                                 stream);                                   \
+}                                                                            \
+extern "C" int vrt_traverse_packet##SUFFIX##_alpha_stats(                    \
+        VRT_PLAIN_ARGS, const void* alpha_pool, const void* alpha_cls,      \
+        void* int_steps, VRT_SIZE_ARGS, int n_pool, int slots, float thr,   \
+        void* stream) {                                                      \
+    return launch_alpha<W, VRT_MODE_ALPHA, true>(                            \
+        VRT_PLAIN_PASS, alpha_pool, alpha_cls, int_steps, VRT_SIZE_PASS,    \
+        n_pool, slots, thr, stream);                                        \
 }
 
-// The alpha mode: as vrt_traverse_packet over fused rows of
-// 32 + 24 * slots words (slots triangle slots, then their alpha fields),
-// with the alpha pool of n_pool floats, the threshold `thr` and the rows'
-// slot classes for it (n_nodes uint32, slots <= 16; null: test every
-// slot).
-extern "C" int vrt_traverse_packet_alpha(
-        const void* fused, const void* o, const void* d, const void* limit,
-        const void* active, void* dist, void* bx, void* by, void* bz,
-        void* tri, void* inst, void* steps, const void* alpha_pool,
-        const void* alpha_cls,
-        int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
-        int stack_n, int max_steps, int occl_split, int n_pool, int slots,
-        float thr, void* stream) {
-    return launch_alpha<VRT_MODE_ALPHA, false>(
-        fused, o, d, limit, active, dist, bx, by, bz, tri, inst, steps,
-        alpha_pool, alpha_cls, nullptr, n_rays, n_nodes, row_words, lmax,
-        tri_bits, stack_n, max_steps, occl_split, n_pool, slots, thr, stream);
-}
-
-// The counting instantiations: as vrt_traverse_packet and
-// vrt_traverse_packet_alpha, and each ray's internal steps into
-// `int_steps` ((n_rays,) int32).
-extern "C" int vrt_traverse_packet_stats(
-        const void* fused, const void* o, const void* d, const void* limit,
-        const void* active, void* dist, void* bx, void* by, void* bz,
-        void* tri, void* inst, void* steps, void* int_steps,
-        int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
-        int stack_n, int max_steps, int occl_split, void* stream) {
-    return launch_plain<true>(
-        fused, o, d, limit, active, dist, bx, by, bz, tri, inst, steps,
-        int_steps, n_rays, n_nodes, row_words, lmax, tri_bits, stack_n,
-        max_steps, occl_split, stream);
-}
-
-extern "C" int vrt_traverse_packet_alpha_stats(
-        const void* fused, const void* o, const void* d, const void* limit,
-        const void* active, void* dist, void* bx, void* by, void* bz,
-        void* tri, void* inst, void* steps, const void* alpha_pool,
-        const void* alpha_cls, void* int_steps,
-        int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
-        int stack_n, int max_steps, int occl_split, int n_pool, int slots,
-        float thr, void* stream) {
-    return launch_alpha<VRT_MODE_ALPHA, true>(
-        fused, o, d, limit, active, dist, bx, by, bz, tri, inst, steps,
-        alpha_pool, alpha_cls, int_steps, n_rays, n_nodes, row_words, lmax,
-        tri_bits, stack_n, max_steps, occl_split, n_pool, slots, thr, stream);
-}
+VRT_ENTRIES(, 8)
+VRT_ENTRIES(16, 16)
 
 #ifdef VRT_PRED_HEADER
-// The predicate mode: as vrt_traverse_packet_alpha without the threshold
+// The predicate mode (`_pred`): as the alpha mode without the threshold
 // and the classes; every candidate is tested by the compiled predicate.
-extern "C" int vrt_traverse_packet_pred(
-        const void* fused, const void* o, const void* d, const void* limit,
-        const void* active, void* dist, void* bx, void* by, void* bz,
-        void* tri, void* inst, void* steps, const void* alpha_pool,
-        int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
-        int stack_n, int max_steps, int occl_split, int n_pool, int slots,
-        void* stream) {
-    return launch_alpha<VRT_MODE_PRED, false>(
-        fused, o, d, limit, active, dist, bx, by, bz, tri, inst, steps,
-        alpha_pool, nullptr, nullptr, n_rays, n_nodes, row_words, lmax,
-        tri_bits, stack_n, max_steps, occl_split, n_pool, slots, 0.0f, stream);
+#define VRT_PRED_ENTRIES(SUFFIX, W)                                          \
+extern "C" int vrt_traverse_packet##SUFFIX##_pred(                           \
+        VRT_PLAIN_ARGS, const void* alpha_pool, VRT_SIZE_ARGS, int n_pool,  \
+        int slots, void* stream) {                                           \
+    return launch_alpha<W, VRT_MODE_PRED, false>(                            \
+        VRT_PLAIN_PASS, alpha_pool, nullptr, nullptr, VRT_SIZE_PASS,        \
+        n_pool, slots, 0.0f, stream);                                       \
+}                                                                            \
+extern "C" int vrt_traverse_packet##SUFFIX##_pred_stats(                     \
+        VRT_PLAIN_ARGS, const void* alpha_pool, void* int_steps,            \
+        VRT_SIZE_ARGS, int n_pool, int slots, void* stream) {               \
+    return launch_alpha<W, VRT_MODE_PRED, true>(                             \
+        VRT_PLAIN_PASS, alpha_pool, nullptr, int_steps, VRT_SIZE_PASS,      \
+        n_pool, slots, 0.0f, stream);                                       \
 }
 
-extern "C" int vrt_traverse_packet_pred_stats(
-        const void* fused, const void* o, const void* d, const void* limit,
-        const void* active, void* dist, void* bx, void* by, void* bz,
-        void* tri, void* inst, void* steps, const void* alpha_pool,
-        void* int_steps,
-        int n_rays, int n_nodes, int row_words, int lmax, int tri_bits,
-        int stack_n, int max_steps, int occl_split, int n_pool, int slots,
-        void* stream) {
-    return launch_alpha<VRT_MODE_PRED, true>(
-        fused, o, d, limit, active, dist, bx, by, bz, tri, inst, steps,
-        alpha_pool, nullptr, int_steps, n_rays, n_nodes, row_words, lmax,
-        tri_bits, stack_n, max_steps, occl_split, n_pool, slots, 0.0f, stream);
-}
+VRT_PRED_ENTRIES(, 8)
+VRT_PRED_ENTRIES(16, 16)
 #endif

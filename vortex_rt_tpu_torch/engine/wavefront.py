@@ -13,8 +13,10 @@ camera rays in tile-major lane order and runs the bounce pipeline
 
 Both traces go through ``walk``, chosen by the table width unless given:
 8-wide fused tables (the default for flattened builds, as in the JAX
-package) go to ``ops.traverse_packet.trace_packets`` (K1), 4-wide tables
-to ``ops.packet_walk.trace_packets_walk`` (K2).  Each launches its CUDA
+package) and 16-wide ones (``RTConfig(bvh_width=16, flatten=True)``, built
+on the host) go to ``ops.traverse_packet.trace_packets`` (K1, at the
+table's width), 4-wide tables to ``ops.packet_walk.trace_packets_walk``
+(K2).  Each launches its CUDA
 walk on the card and runs its plain PyTorch version on CPU tensors.
 
 On the K1 route the frame also runs the JAX package's merged wave: from
@@ -194,8 +196,9 @@ def _camera_from_pix(cam: CameraArrays, width: int, height: int,
 
 
 def default_walk(wa: WideArrays) -> Callable:
-    """The trace function for a table: K1 for 8-wide, K2 for 4-wide."""
-    return trace_packets if wa.width == 8 else trace_packets_walk
+    """The trace function for a table: K1 for 8- and 16-wide, K2 for
+    4-wide."""
+    return trace_packets_walk if wa.width == 4 else trace_packets
 
 
 def _resolve_tiled(lanes: torch.Tensor, width: int, rows: int,
@@ -381,7 +384,7 @@ def _wave_pipeline(wa: WideArrays, sa: ShadeArrays, ctx: ShaderContext,
         # the JAX package's merged-wave rule under its default packets
         # (engine/wavefront.py:572-579): never at bounce 0
         merge = (shadow and bounce >= 1 and bounce + 1 < max_depth
-                 and table.lit_independent_spawn and wa.width == 8
+                 and table.lit_independent_spawn and wa.width != 4
                  and not pool and stage_limit is None and not collect_stats)
         if shadow:
             # shadow rays need the hit point only; full shading follows
@@ -885,12 +888,13 @@ class WavefrontRenderer:
                      walk: Optional[Callable] = None
                      ) -> "WavefrontRenderer":
         """Build the tables on the host and move them to ``device``:
-        8-wide builds are fused (the JAX package's default), and a marked
-        any-hit shader (``alpha_test_anyhit``, ``stateless_anyhit``) gets
-        the ``with_alpha`` tables.  ``walk`` is the trace function,
-        ``default_walk`` of the tables when None; a plain PyTorch version
-        (``trace_packets_ref`` for 8-wide, ``trace_packets_walk_ref`` for
-        4-wide) forces the plain route on a card.  A shader and build no
+        8- and 16-wide builds are fused (the JAX package's default), and
+        a marked any-hit shader (``alpha_test_anyhit``,
+        ``stateless_anyhit``) gets the ``with_alpha`` tables.  ``walk`` is
+        the trace function, ``default_walk`` of the tables when None; a
+        plain PyTorch version (``trace_packets_ref`` for 8- and 16-wide,
+        ``trace_packets_walk_ref`` for 4-wide) forces the plain route on a
+        card.  A shader and build no
         route runs (``frame_body``'s routing) raise here."""
         if isinstance(device, (list, tuple)):
             raise NotImplementedError(
@@ -902,7 +906,7 @@ class WavefrontRenderer:
         cfg = config or RTConfig()
         table = table or ShaderTable()
         wa = WideArrays.from_scene(sb_host, width=cfg.bvh_width)
-        if wa.width == 8:
+        if wa.width != 4:
             wa = wa.fuse()
         if (getattr(table.anyhit, "alpha_threshold", None) is not None
                 or getattr(table.anyhit, "inline_predicate", None)

@@ -1,9 +1,15 @@
-"""8-wide BVH walk over fused node+leaf rows: the CUDA kernel's wrapper
-and its plain PyTorch version (port of
+"""8- and 16-wide BVH walk over fused node+leaf rows: the CUDA kernel's
+wrapper and its plain PyTorch version (port of
 ``vortex_rt_tpu/ops/traverse_packet.py::trace_packets`` on the JAX main
-path's tables: flat 8-wide builds after ``WideArrays.fuse``).
+path's tables: flat 8-wide builds after ``WideArrays.fuse``, and flat
+16-wide ones, ``RTConfig(bvh_width=16)``).
 
-``trace_packets`` is what the frame calls for 8-wide tables.  For CUDA
+``trace_packets`` is what the frame calls for 8- and 16-wide tables.
+The width is the table's: 8-wide rows launch the kernel's 8-wide entry
+points, 16-wide rows (40 node words, the meta word at word 38) its
+16-wide ones (``vrt_traverse_packet16*``, counted as
+``traverse_packet16``, ``traverse_packet16_alpha``,
+``traverse_packet16_pred`` and ``traverse_packet16_stats``).  For CUDA
 tensors it launches ``csrc/traverse_packet.cu`` (one thread per ray) or
 raises; for CPU tensors it runs ``trace_packets_ref``, the plain PyTorch
 version of the same per-ray walk.  There is no fallback between the two.
@@ -17,6 +23,13 @@ rays (they report a miss), ``t_max`` clamps the search interval,
 ``occl_split=k`` runs a mixed wave: rays ``< k`` in occlusion mode, the
 rest closest-hit (the merged shadow+bounce wave of the frame loop).
 Occlusion lanes report bx = by = 0, tri = inst = 0.
+
+At width 16 a node's children are ordered by Batcher's odd-even merge
+network over 16 slots (63 comparators, the JAX ``_SORT_NET[16]``, of
+which the port keeps its own copy), and a deferred-children stack entry
+is three words: ``left << 4 | count``, sorted slots 0..7 at 4 bits each,
+sorted slots 8..14 at 4 bits each.  The stack still holds depth + 4
+entries; the kernel keeps at most ``STACK_MAX16`` of them (12 B each).
 
 The JAX loop walked packets of rays over the union of their paths,
 near-first by the packet-minimum child distance; both versions here walk
@@ -77,26 +90,56 @@ from vortex_rt_tpu_torch.ops.packet_walk import (
 )
 from vortex_rt_tpu_torch.ops.traverse2 import Hits
 from vortex_rt_tpu_torch.ops.traverse_wide import (
-    LEFT_BITS8, ROW_WORDS, WideArrays, row_layout,
+    LEFT_BITS16, WideArrays, left_bits, nchild_mask, row_layout, row_words,
 )
 from vortex_rt_tpu_torch.runtime import kernels
 from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT, MT_EPSILON
 
 MAX_STEPS = 400_000
-# stack entries the kernel holds (VRT_STACK_MAX of csrc/traverse_packet.cu; the
-# library reports it and kernel_call refuses a deeper tree)
+# stack entries the kernel holds, by width (VRT_STACK_MAX and
+# VRT_STACK_MAX16 of csrc/traverse_packet.cu: 48 entries of 8 B, 32 of
+# 12 B, each 48 KB for a block of 128 threads; the library reports them
+# and check_stack refuses a deeper tree before any launch)
 STACK_MAX = 48
-WIDTH = 8
+STACK_MAX16 = 32
+WIDTHS = (8, 16)
 _F23 = 0x4B000000  # 2**23 as float32 bits
 _INT_MAX = 2**31 - 1
 _MISS = -LARGE_FLOAT  # sort key of a culled child (descending sort)
-_QLO, _QHI, _META, _LEAF = row_layout(WIDTH)
-_LEFT_MASK = (1 << LEFT_BITS8) - 1
-# the JAX body's descending sorting network over 8 child slots
-# (traverse_packet.py:100, 19 comparators): swap when d[a] < d[b]
-_SORT_NET8 = ((0, 2), (1, 3), (4, 6), (5, 7), (0, 4), (1, 5), (2, 6),
-              (3, 7), (0, 1), (2, 3), (4, 5), (6, 7), (2, 4), (3, 5),
-              (1, 4), (3, 6), (1, 2), (3, 4), (5, 6))
+
+
+def batcher_pairs(n: int) -> tuple:
+    """Batcher's odd-even merge sorting network over ``n`` inputs (a
+    power of two) as (a, b) comparators in order: 63 at n = 16.  Used
+    descending (swap when d[a] < d[b]), as the JAX ``_batcher_pairs``."""
+    pairs = []
+    p = 1
+    while p < n:
+        k = p
+        while k >= 1:
+            for j in range(k % p, n - k, 2 * k):
+                for i in range(min(k, n - j - k)):
+                    if (i + j) // (2 * p) == (i + j + k) // (2 * p):
+                        pairs.append((i + j, i + j + k))
+            k //= 2
+        p *= 2
+    return tuple(pairs)
+
+
+# the JAX body's descending sorting networks over the child slots
+# (traverse_packet.py:78-102): swap when d[a] < d[b].  8 slots: 19
+# comparators; 16 slots: Batcher's odd-even merge, 63
+SORT_NETS = {
+    8: ((0, 2), (1, 3), (4, 6), (5, 7), (0, 4), (1, 5), (2, 6), (3, 7),
+        (0, 1), (2, 3), (4, 5), (6, 7), (2, 4), (3, 5), (1, 4), (3, 6),
+        (1, 2), (3, 4), (5, 6)),
+    16: batcher_pairs(16),
+}
+
+
+def stack_max(width: int) -> int:
+    """Stack entries the kernel holds at ``width``."""
+    return STACK_MAX16 if width == 16 else STACK_MAX
 
 
 # lanes of a warp: the group over which packet_steps takes its maximum
@@ -165,16 +208,29 @@ def stack_entries(wa: WideArrays) -> int:
     return int(wa.depth) + 4
 
 
+def check_stack(wa: WideArrays) -> int:
+    """``stack_entries(wa)``, or ``ValueError`` where the kernel at the
+    table's width holds fewer (ROADMAP H8: a clamped push would lose
+    hits): at width 16 a tree deeper than 28 levels."""
+    n = stack_entries(wa)
+    cap = stack_max(wa.width)
+    if n > cap:
+        raise ValueError(f"BVH depth {wa.depth} needs {n} stack entries; "
+                         f"the {wa.width}-wide kernel is compiled for {cap}")
+    return n
+
+
 def alpha_offset(wa: WideArrays) -> int:
     """Word offset of a fused row's alpha fields: after its triangle
     slots.  Raises unless the fused rows carry them."""
     check_alpha(wa)
     k = wa.tri_rows.shape[1] // 16
-    if wa.fused is None or wa.fused.shape[1] != ROW_WORDS + 24 * k:
+    nw = row_words(wa.width)
+    if wa.fused is None or wa.fused.shape[1] != nw + 24 * k:
         raise ValueError("alpha_ref and anyhit_pred need fused rows that "
                          "carry the alpha fields (WideArrays.with_alpha on "
                          "a fused table)")
-    return ROW_WORDS + 16 * k
+    return nw + 16 * k
 
 
 # the slot classes of alpha_classes (2 bits a slot of a fused row)
@@ -278,20 +334,27 @@ def _classes(f, a_off: int, n: int, k: int, pool, thr: float):
 
 
 def _check(wa: WideArrays, o, d, active, t_max, occl_split: int) -> None:
-    if wa.width != WIDTH or wa.fused is None:
-        raise ValueError("trace_packets walks 8-wide fused tables "
-                         "(WideArrays.from_scene(sb, 8).fuse()); 4-wide "
-                         "tables go to ops.packet_walk.trace_packets_walk")
+    if wa.width not in WIDTHS or wa.fused is None:
+        raise ValueError("trace_packets walks 8- and 16-wide fused tables "
+                         "(WideArrays.from_scene(sb, 8 or 16).fuse()); "
+                         "4-wide tables go to "
+                         "ops.packet_walk.trace_packets_walk")
     if not (wa.num_tlas == 0 and wa.tri_bits > 0):
-        raise ValueError("8-wide fused rows require the flattened build")
+        raise ValueError(f"{wa.width}-wide fused rows require the flattened "
+                         f"build")
     f = wa.fused
+    nw = row_words(wa.width)
     lmax = max(int(wa.max_leaf_tris), 1)
     if f.dtype != torch.int32 or f.dim() != 2 \
-            or (f.shape[1] - ROW_WORDS) % 8 \
-            or f.shape[1] < ROW_WORDS + 16 * lmax \
+            or (f.shape[1] - nw) % 8 \
+            or f.shape[1] < nw + 16 * lmax \
             or not f.is_contiguous():
-        raise ValueError("fused must be a contiguous (N, 32 + 16*k) or (N, "
-                         "32 + 24*k) int32 tensor with k >= max_leaf_tris")
+        raise ValueError(f"fused must be a contiguous (N, {nw} + 16*k) or "
+                         f"(N, {nw} + 24*k) int32 tensor with k >= "
+                         f"max_leaf_tris")
+    if wa.width == 16 and f.shape[0] >= 1 << LEFT_BITS16:
+        raise ValueError(f"a 16-wide pool of {f.shape[0]} nodes exceeds the "
+                         f"walk's {LEFT_BITS16}-bit node ids")
     check_rays(f.device, o, d, active, t_max)
     if not 0 <= int(occl_split) <= o.shape[0]:
         raise ValueError(f"occl_split={occl_split} outside [0, {o.shape[0]}]")
@@ -310,7 +373,7 @@ def trace_packets(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                   alpha_ref: Optional[float] = None,
                   stats: bool = False, anyhit_pred=None):
     """Closest-hit, occlusion or mixed trace of (R, 3) rays over the
-    8-wide fused table, with the alpha cutout when ``alpha_ref`` is
+    8- or 16-wide fused table, with the alpha cutout when ``alpha_ref`` is
     given, or the stateless predicate ``anyhit_pred``.  Returns (Hits,
     per-ray step counts (R,) int32), and the rays' ``StepKinds`` third
     with ``stats=True``.
@@ -352,13 +415,17 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
         alpha_offset(wa)
     if o.device.type != "cuda":
         raise ValueError(f"no CUDA walk for device {o.device}")
+    stack_n = check_stack(wa)
     lib = (kernels.load("traverse_packet") if pred is None
            else kernels.load_pred("traverse_packet", pred))
-    stack_n = stack_entries(wa)
-    cap = int(lib.lib.vrt_traverse_packet_stack_max())
-    if stack_n > cap:
-        raise ValueError(f"BVH depth {wa.depth} needs {stack_n} stack "
-                         f"entries; the kernel is compiled for {cap}")
+    # the entry points of the table's width: vrt_traverse_packet* or
+    # vrt_traverse_packet16*
+    entry = "traverse_packet" + ("16" if wa.width == 16 else "")
+    cap = int(getattr(lib.lib, f"vrt_{entry}_stack_max")())
+    if cap != stack_max(wa.width):
+        raise RuntimeError(f"{lib.path.name} holds {cap} stack entries at "
+                           f"width {wa.width}; ops/traverse_packet.py says "
+                           f"{stack_max(wa.width)}")
     r = o.shape[0]
     if r >= 2**31:
         raise ValueError("ray count exceeds the kernel's int32 index")
@@ -388,8 +455,8 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
              int(max_steps), split)
     mode = ("pred" if pred is not None else
             "alpha" if alpha_ref is not None else "")
-    name = ("traverse_packet_stats" if stats else
-            f"traverse_packet_{mode}" if mode else "traverse_packet")
+    name = (f"{entry}_stats" if stats else
+            f"{entry}_{mode}" if mode else entry)
 
     def launch() -> tuple:
         ptrs = [t.data_ptr() for t in tensors]
@@ -402,7 +469,7 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
             alpha_sizes += (float(alpha_ref),)
         if stats:
             ptrs.append(kinds.internal.data_ptr())
-        fn = getattr(lib.lib, "vrt_traverse_packet"
+        fn = getattr(lib.lib, f"vrt_{entry}"
                      + (f"_{mode}" if mode else "")
                      + ("_stats" if stats else ""))
         with torch.cuda.device(dev):
@@ -427,11 +494,13 @@ def trace_packets_ref(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                       max_steps: int = MAX_STEPS,
                       alpha_ref: Optional[float] = None,
                       anyhit_pred=None) -> Tuple[Hits, torch.Tensor]:
-    """Plain PyTorch version of the per-ray 8-wide walk, on any device.
+    """Plain PyTorch version of the per-ray 8- or 16-wide walk, on any
+    device.
 
     All rays step together: each step gathers every live ray's fused row,
     evaluates the internal and leaf paths with masks, and keeps per-ray
-    stacks of packed deferred-children entries in two (R, S) tensors.
+    stacks of packed deferred-children entries in two (R, S) tensors
+    (three at width 16).
     The same sorting network, stack words, byte decode and arithmetic
     order as the kernel, so both give the same hits and the same per-ray
     step counts to the bit."""
@@ -484,6 +553,11 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
     lmax = max(int(wa.max_leaf_tris), 1)
     stack_n = stack_entries(wa)
     eps = MT_EPSILON
+    width = int(wa.width)
+    q_lo, q_hi, m_off, l_off, base = row_layout(width)
+    nw = row_words(width)
+    lb, n_mask = left_bits(width), nchild_mask(width)
+    wide16 = width == 16
 
     def f32(v):
         return torch.full((r,), v, dtype=torch.float32, device=dev)
@@ -503,6 +577,9 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
     steps = torch.zeros(r, dtype=torch.int32, device=dev)
     st0 = torch.zeros((r, stack_n), dtype=torch.int64, device=dev)
     st1 = torch.zeros((r, stack_n), dtype=torch.int64, device=dev)
+    # width 16: sorted slots 8..14 in a third word
+    st2 = (torch.zeros((r, stack_n), dtype=torch.int64, device=dev)
+           if wide16 else None)
     alive = best_t > 0.0
     work = (WalkWork.zeros(r, n_nodes + (wa.alpha_pool.shape[0] if alpha
                                          else 0), dev) if count else None)
@@ -512,21 +589,24 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
         raw = fused[node_c]
         row_f = raw.view(torch.float32)
         row = raw.to(torch.int64) & 0xFFFFFFFF  # the u32 words
-        meta = row[:, _META]
+        meta = row[:, m_off]
         kind = meta >> 29
-        nch = (meta >> LEFT_BITS8) & 15
-        left = meta & _LEFT_MASK
-        leaf_n = raw[:, _LEAF].to(torch.int64)
+        nch = (meta >> lb) & n_mask
+        left = meta & ((1 << lb) - 1)
+        leaf_n = raw[:, l_off].to(torch.int64)
         is_int = alive & (kind == 0)
         is_tri = alive & (kind == 1)
 
-        # ---- internal: 8 slab tests, far->near network, push deferred ----
+        # ---- internal: 8 or 16 slab tests, far->near network, push the
+        # deferred children.  (R,) tensors a child, as the kernel's
+        # thread computes them: small CPU waves then run each op on one
+        # thread, which keeps the CPU tests' worker processes apart ----
         gx, gy, gz = row_f[:, 0], row_f[:, 1], row_f[:, 2]
         sx, sy, sz = row_f[:, 3], row_f[:, 4], row_f[:, 5]
         ds, ix = [], []
-        for c in range(WIDTH):
-            ql = row[:, _QLO + c]
-            qh = row[:, _QHI + c]
+        for c in range(width):
+            ql = row[:, q_lo + c]
+            qh = row[:, q_hi + c]
             lx = gx + qbyte(ql, 0) * sx
             ly = gy + qbyte(ql, 8) * sy
             lz = gz + qbyte(ql, 16) * sz
@@ -548,7 +628,7 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
             hit = (tmax >= tmin) & (tmax > 0.0) & (tmin < best_t) & (c < nch)
             ds.append(torch.where(hit, tmin, miss_key))
             ix.append(torch.full((r,), c, dtype=torch.int64, device=dev))
-        for a, b in _SORT_NET8:
+        for a, b in SORT_NETS[width]:
             swap = ds[a] < ds[b]
             ds[a], ds[b] = (torch.where(swap, ds[b], ds[a]),
                             torch.where(swap, ds[a], ds[b]))
@@ -557,25 +637,33 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
         m = sum((dc > _MISS).to(torch.int64) for dc in ds)
         descend = is_int & (m >= 1)
         child = torch.stack(ix, 1).gather(
-            1, (m - 1).clamp(0, WIDTH - 1).unsqueeze(1)).squeeze(1)
-        cnt_def = (m - 1).clamp(0, 7)
+            1, (m - 1).clamp(0, width - 1).unsqueeze(1)).squeeze(1)
+        cnt_def = (m - 1).clamp(0, width - 1)
         word0 = (left << 4) | cnt_def
-        word1 = ix[0] & 7
-        for j in range(1, 7):
-            word1 = word1 | ((ix[j] & 7) << (3 * j))
+        if wide16:  # slots 0..7 and 8..14, 4 bits each
+            word1 = ix[0] & 15
+            for j in range(1, 8):
+                word1 = word1 | ((ix[j] & 15) << (4 * j))
+            word2 = ix[8] & 15
+            for j in range(9, 15):
+                word2 = word2 | ((ix[j] & 15) << (4 * (j - 8)))
+        else:  # slots 0..6, 3 bits each
+            word1 = ix[0] & 7
+            for j in range(1, 7):
+                word1 = word1 | ((ix[j] & 7) << (3 * j))
         push = descend & (cnt_def >= 1)
         slot = sc.clamp(max=stack_n - 1).unsqueeze(1)
-        st0.scatter_(1, slot, torch.where(
-            push, word0, st0.gather(1, slot).squeeze(1)).unsqueeze(1))
-        st1.scatter_(1, slot, torch.where(
-            push, word1, st1.gather(1, slot).squeeze(1)).unsqueeze(1))
+        for st, word in ((st0, word0), (st1, word1)) + (
+                ((st2, word2),) if wide16 else ()):
+            st.scatter_(1, slot, torch.where(
+                push, word, st.gather(1, slot).squeeze(1)).unsqueeze(1))
         sc = sc + push.to(torch.int64)
         nxt = torch.where(descend, left + child, node)
 
         # ---- triangle leaf: up to lmax Moller-Trumbore tests over the
         # row's own slots, folded to the leaf's best, then into the ray's
-        tr = row_f[:, ROW_WORDS:]
-        tr_i = raw[:, ROW_WORDS:].to(torch.int64)
+        tr = row_f[:, nw:]
+        tr_i = raw[:, nw:].to(torch.int64)
         ar = row_f[:, a_off:] if alpha else None
         cls_w = (None if classes is None
                  else classes[node_c].to(torch.int64) & 0xFFFFFFFF)
@@ -642,12 +730,13 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
         if count:
             slots = leaf_n.clamp(0, lmax)
             work.add(is_int, nch, is_tri, slots)
-            # the kernel's reads: the row's words 20..23 (the last child
-            # boxes, meta, leaf_n) at every step, words 0..19 (the other
-            # boxes) at an internal node, the triangle slots at a leaf and
-            # in alpha mode the row's slot classes (4 B) and the alpha
-            # fields of each candidate the kernel tests
-            work.read(node_c, torch.where(is_int, 96, torch.where(
+            # the kernel's reads: the row's meta quarter (the last two
+            # child boxes, meta, leaf_n: words 20..23, or 36..39 at width
+            # 16) at every step, the words before it (the other boxes) at
+            # an internal node (96 B in all, or 160 B), the triangle slots
+            # at a leaf and in alpha mode the row's slot classes (4 B) and
+            # the alpha fields of each candidate the kernel tests
+            work.read(node_c, torch.where(is_int, 4 * base, torch.where(
                 is_tri, 16 + TRI_SLOT_BYTES * slots
                 + ALPHA_SLOT_BYTES * n_looked
                 + (4 if alpha_ref is not None else 0), 16)),
@@ -661,8 +750,14 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
         top_at = (sc - 1).clamp(0, stack_n - 1).unsqueeze(1)
         top = st0.gather(1, top_at).squeeze(1)
         c_top = top & 15
-        slot_id = (st1.gather(1, top_at).squeeze(1)
-                   >> (3 * (c_top - 1).clamp(min=0))) & 7
+        j = (c_top - 1).clamp(min=0)
+        top1 = st1.gather(1, top_at).squeeze(1)
+        if wide16:
+            top2 = st2.gather(1, top_at).squeeze(1)
+            slot_id = torch.where(j < 8, (top1 >> (4 * j.clamp(max=7))) & 15,
+                                  (top2 >> (4 * (j - 8).clamp(min=0))) & 15)
+        else:
+            slot_id = (top1 >> (3 * j)) & 7
         partial = do_pop & (c_top > 1)
         st0.scatter_(1, top_at, torch.where(partial, top - 1, top)
                      .unsqueeze(1))

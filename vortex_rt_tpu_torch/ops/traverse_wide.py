@@ -1,29 +1,33 @@
-"""4- and 8-wide packed node and leaf tables (port of ``WideArrays``,
-``WideArrays.from_scene`` and ``WideArrays.fuse`` of
+"""4-, 8- and 16-wide packed node and leaf tables (port of
+``WideArrays``, ``WideArrays.from_scene`` and ``WideArrays.fuse`` of
 ``vortex_rt_tpu/ops/traverse_wide.py``).
 
 The tables are built on the host with NumPy, bit-identical to the JAX
 package's, and held as torch tensors:
 
-* ``nodes`` (N, 32) int32 — one 128-byte row per node, the u32 words
-  stored as int32: words 0..2 fp32 origin, 3..5 fp32 power-of-two scale,
-  then per-child quantized lo / hi boxes (3 bytes each), the meta word
-  and the leaf count at the offsets of ``row_layout(width)``:
+* ``nodes`` (N, W) int32 — one row per node of ``row_words(width)``
+  words (W = 32, 128 B, at widths 4 and 8; 40, 160 B, at width 16), the
+  u32 words stored as int32: words 0..2 fp32 origin, 3..5 fp32
+  power-of-two scale, then per-child quantized lo / hi boxes (3 bytes
+  each), the meta word and the leaf count at the offsets of
+  ``row_layout(width)``:
 
   ========  ======  ======  =====  =====  ===========================
   width     lo      hi      meta   leaf   meta word
   ========  ======  ======  =====  =====  ===========================
   4         6..9    10..13  14     15     left | nchild<<26 | kind<<29
   8         6..13   14..21  22     23     left | nchild<<25 | kind<<29
+  16        6..21   22..37  38     39     left | nchild<<24 | kind<<29
   ========  ======  ======  =====  =====  ===========================
 
   4-wide instance nodes carry their inverse transform in words 16..27
-  and their BLAS root in word 28 (8-wide builds are flat: no instance
-  nodes).  Float fields are read through ``nodes.view(torch.float32)``.
+  and their BLAS root in word 28 (8- and 16-wide builds are flat: no
+  instance nodes).  Float fields are read through
+  ``nodes.view(torch.float32)``.
 * ``tri_rows`` (L, 16*lmax) float32 — one row per triangle leaf, up to
   lmax slots of (v0, e1, e2, tid bits, pad) 16 floats.  Flat builds pack
   the tid as ``(inst << tri_bits) | tri``.
-* ``fused`` (N, 32 + 16*lmax) int32, flat builds only (``fuse()``):
+* ``fused`` (N, W + 16*lmax) int32, flat builds only (``fuse()``):
   each node row followed by its own leaf slots (zeros for internal
   nodes), so one row read serves both node kinds.
 * ``alpha_rows`` (L, 8*lmax) float32 and ``alpha_pool`` (X + M,) float32
@@ -33,14 +37,16 @@ package's, and held as torch tensors:
   texel, then of every material's diffuse colour (an untextured
   material reads as a 1x1 texture).  A fused table built with them
   carries each leaf's alpha fields after its triangle slots:
-  (N, 32 + 24*lmax) words.
+  (N, W + 24*lmax) words.
 
 The 4-wide walk over ``nodes``/``tri_rows`` is ``ops/packet_walk.py``
-(K2); the 8-wide walk over ``fused`` is ``ops/traverse_packet.py`` (K1);
-both test the alpha cutout in the walk when asked.  The per-ray walk with
-a restart trail and any-hit suspension (``trace_lanes`` and ``commit``,
-K3) is below; its kernel is ``csrc/traverse_wide.cu``.  16-wide rows are
-not ported.
+(K2); the 8- and 16-wide walks over ``fused`` are
+``ops/traverse_packet.py`` (K1); both test the alpha cutout in the walk
+when asked.  The per-ray walk with a restart trail and any-hit
+suspension (``trace_lanes`` and ``commit``, K3) is below; its kernel is
+``csrc/traverse_wide.cu``.  The on-device builds (``accel/lbvh.py``,
+``accel/ploc.py``) and the scene shards write 4- and 8-wide rows only, as
+the JAX package's do: 16-wide tables are built on the host.
 """
 
 from __future__ import annotations
@@ -61,6 +67,8 @@ from vortex_rt_tpu_torch.utils.config import (
 )
 
 WIDTH = 4
+# words of a node row at widths 4 and 8 (the on-device builds, the scene
+# shards and the bridge's 4- and 8-wide tables); row_words(width) for any
 ROW_WORDS = 32
 # 4-wide meta word layout (word 14): left_first | nchild << 26 | kind << 29
 LEFT_BITS = 26
@@ -69,28 +77,52 @@ QLO, QHI, META, LEAF = 6, 10, 14, 15
 INST_XFORM, INST_ROOT = 16, 28
 # 8-wide meta word (word 22): left_first | nchild << 25 | kind << 29
 LEFT_BITS8 = 25
+# 16-wide meta word (word 38): left_first | nchild << 24 | kind << 29
+# (nchild takes 5 bits; left_first 24 bits, 16M nodes)
+LEFT_BITS16 = 24
+# (left_first bits, nchild mask) of the meta word, and words of a node
+# row, by width
+_META_BITS = {4: (LEFT_BITS, 7), 8: (LEFT_BITS8, 15), 16: (LEFT_BITS16, 31)}
+_ROW_WORDS = {4: 32, 8: 32, 16: 40}
 
 
 def row_layout(width: int):
-    """(qlo_off, qhi_off, meta_off, leaf_off) of a packed node row."""
+    """(qlo_off, qhi_off, meta_off, leaf_off, base) of a packed node row:
+    ``base`` is the first word after the node fields (a fused row's leaf
+    slots start there at widths 8 and 16)."""
     if width == 4:
-        return QLO, QHI, META, LEAF
+        return QLO, QHI, META, LEAF, 16
     if width == 8:
-        return 6, 14, 22, 23
+        return 6, 14, 22, 23, 24
+    if width == 16:
+        return 6, 22, 38, 39, 40
     raise ValueError(f"no row layout for width {width}")
+
+
+def row_words(width: int) -> int:
+    """Words of a packed node row: 32 at widths 4 and 8, 40 at 16."""
+    if width not in _ROW_WORDS:
+        raise ValueError(f"no row layout for width {width}")
+    return _ROW_WORDS[width]
 
 
 def left_bits(width: int) -> int:
     """Bits of left_first in the meta word (nchild sits above them)."""
-    return LEFT_BITS if width == 4 else LEFT_BITS8
+    return _META_BITS[width][0]
+
+
+def nchild_mask(width: int) -> int:
+    """Mask of the meta word's child count, above its left_first bits."""
+    return _META_BITS[width][1]
 
 
 def fuse_rows(nodes: torch.Tensor, tri_rows: torch.Tensor,
               width: int, alpha_rows: Optional[torch.Tensor] = None
               ) -> torch.Tensor:
-    """(N, 32 + 16*lmax) int32: each node row of a flat build followed by
-    its own leaf slots (zeros for internal nodes), and by its leaf's
-    alpha fields when ``alpha_rows`` is given: (N, 32 + 24*lmax)."""
+    """(N, W + 16*lmax) int32 (W = ``row_words(width)``): each node row
+    of a flat build followed by its own leaf slots (zeros for internal
+    nodes), and by its leaf's alpha fields when ``alpha_rows`` is given:
+    (N, W + 24*lmax)."""
     meta = nodes[:, row_layout(width)[2]]
     kind = (meta >> 29) & 7
     left = (meta & ((1 << left_bits(width)) - 1)).to(torch.int64)
@@ -109,14 +141,14 @@ def fuse_rows(nodes: torch.Tensor, tri_rows: torch.Tensor,
 class WideArrays:
     """Packed wide TLAS+BLAS pool + slot-ordered triangle rows."""
 
-    nodes: torch.Tensor     # (N, 32) int32 packed node records
+    nodes: torch.Tensor     # (N, row_words(width)) int32 node records
     tri_rows: torch.Tensor  # (L, 16*lmax) float32 leaf rows
     num_tlas: int           # nodes [0, num_tlas) are TLAS nodes
     max_leaf_tris: int      # triangles tested per leaf row
     depth: int              # max descend depth (TLAS + BLAS)
     tri_bits: int = 0       # flat builds: leaf tids pack (inst << bits) | tri
     width: int = WIDTH
-    fused: Optional[torch.Tensor] = None  # (N, 32 + 16*lmax) int32,
+    fused: Optional[torch.Tensor] = None  # (N, W + 16*lmax) int32,
                                           # + 8*lmax with alpha fields
     alpha_rows: Optional[torch.Tensor] = None  # (L, 8*lmax) float32
     alpha_pool: Optional[torch.Tensor] = None  # (X + M,) float32
@@ -156,7 +188,7 @@ class WideArrays:
     # ---- host-side unpacked views of the node rows (tests, debugging),
     # the JAX package's, as NumPy arrays of the same dtypes ----
     def _words(self) -> np.ndarray:
-        """(N, 32) the node rows' words as uint32 on the host."""
+        """(N, W) the node rows' words as uint32 on the host."""
         return self.nodes.cpu().numpy().view(np.uint32)
 
     @property
@@ -167,8 +199,8 @@ class WideArrays:
     @property
     def nchild(self) -> np.ndarray:
         meta = self._words()[:, row_layout(self.width)[2]]
-        mask = 7 if self.width == 4 else 15
-        return ((meta >> left_bits(self.width)) & mask).astype(np.int32)
+        return ((meta >> left_bits(self.width)) & nchild_mask(self.width)
+                ).astype(np.int32)
 
     @property
     def left_first(self) -> np.ndarray:
@@ -266,16 +298,13 @@ class WideArrays:
     @staticmethod
     def from_scene(sb: SceneBuffers, width: int = WIDTH) -> "WideArrays":
         """Build the tables on the CPU (move them with ``.to(device)``).
-        Width 8 needs the flattened build."""
-        if width == 16:
-            raise NotImplementedError(
-                "width=16: 16-wide rows are not ported (ROADMAP Queue 1, "
-                "'Not ported')")
-        if width not in (4, 8):
+        Widths 8 and 16 need the flattened build; a 16-wide pool holds
+        fewer than 2**24 nodes (the walk's 24-bit node ids)."""
+        if width not in (4, 8, 16):
             raise ValueError(f"unsupported BVH width {width}")
         flat = bool(sb.flat)
-        if width == 8 and not flat:
-            raise ValueError("8-wide nodes require the flattened build "
+        if width != 4 and not flat:
+            raise ValueError("8/16-wide nodes require the flattened build "
                              "(RTConfig.flatten)")
         tri_bits = 0
         if flat:
@@ -376,9 +405,12 @@ class WideArrays:
         if not ((left >= 0).all() and (left < (1 << lb)).all()):
             raise ValueError(
                 f"node/leaf pool exceeds the {lb}-bit left_first budget")
+        if width == 16 and n >= 1 << LEFT_BITS16:
+            raise ValueError(f"a 16-wide pool of {n} nodes exceeds the "
+                             f"walk's {LEFT_BITS16}-bit node ids")
 
-        qoff, hoff, moff, loff = row_layout(width)
-        nodes = np.zeros((n, ROW_WORDS), np.uint32)
+        qoff, hoff, moff, loff, _ = row_layout(width)
+        nodes = np.zeros((n, row_words(width)), np.uint32)
         nodes[:, 0:3] = origin.view(np.uint32)
         nodes[:, 3:6] = scale.view(np.uint32)
         for c in range(width):

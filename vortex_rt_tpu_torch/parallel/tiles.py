@@ -18,7 +18,7 @@ Two steps, as in the JAX package: the megakernel's waves
 (``make_tiled_renderer``; K6 each wave on a card) and the whole wavefront
 frame on each block (``make_tiled_wavefront``: ``frame_body`` with
 ``n_pix`` and ``pix_offset``, shadow rays, path tracing and spp; K1 on
-8-wide fused tables, K2 on 4-wide ones).  Both give each rank's rows
+8- and 16-wide fused tables, K2 on 4-wide ones).  Both give each rank's rows
 exactly as one device renders them.  Scene shards are
 ``parallel.shards``.
 """
@@ -123,8 +123,8 @@ def make_tiled_wavefront(mesh: Mesh, width: int, height: int,
     """The whole wavefront frame body on each rank's block of rows:
     step(wa, sa, cam, light) -> ((rows, W, 3) radiance of this rank's
     block, the rays traced by every rank as a 0-dim int64 tensor).  The
-    tables are replicated; ``walk`` is ``frame_body``'s (K1 on 8-wide
-    fused tables, K2 on 4-wide ones, by default)."""
+    tables are replicated; ``walk`` is ``frame_body``'s (K1 on 8- and
+    16-wide fused tables, K2 on 4-wide ones, by default)."""
     rows_local = _rows_local(mesh, axis, height)
     n_pix_local = rows_local * width
     table = (ShaderTable(closest=pathtrace_closest) if pathtrace
@@ -150,7 +150,8 @@ def render_tiled_wavefront(sb_host: SceneBuffers, cam: Camera,
     """Host API of the multi-device wavefront frame: the tables built as
     ``WavefrontRenderer.from_buffers`` builds them (``config`` defaults
     to the build's own layout: 8-wide fused rows through K1 for a
-    flattened build, 4-wide through K2 otherwise) on every rank, the
+    flattened build, 4-wide through K2 otherwise; ``RTConfig(bvh_width=
+    16, flatten=True)`` 16-wide rows through K1) on every rank, the
     frame rendered by row blocks, the image gathered: ((H, W, 3) image,
     rays) on every rank."""
     mesh = mesh or Mesh.create(("tiles",), device=device)

@@ -77,13 +77,16 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
         "vrt_packet_walk_stack_max": ([], _I),
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
+    # K1 at width 8 (vrt_traverse_packet*) and width 16
+    # (vrt_traverse_packet16*), the same arguments
     "traverse_packet": {
-        "vrt_traverse_packet": ([_P] * 12 + [_I] * 8 + [_P], _I),
-        "vrt_traverse_packet_alpha": ([_P] * 14 + [_I] * 10 + [_F, _P], _I),
-        "vrt_traverse_packet_stats": ([_P] * 13 + [_I] * 8 + [_P], _I),
-        "vrt_traverse_packet_alpha_stats": ([_P] * 15 + [_I] * 10
-                                            + [_F, _P], _I),
-        "vrt_traverse_packet_stack_max": ([], _I),
+        **{f"vrt_traverse_packet{w}{fn}": sig for w in ("", "16")
+           for fn, sig in (
+               ("", ([_P] * 12 + [_I] * 8 + [_P], _I)),
+               ("_alpha", ([_P] * 14 + [_I] * 10 + [_F, _P], _I)),
+               ("_stats", ([_P] * 13 + [_I] * 8 + [_P], _I)),
+               ("_alpha_stats", ([_P] * 15 + [_I] * 10 + [_F, _P], _I)),
+               ("_stack_max", ([], _I)))},
         "vrt_error_string": ([_I], ctypes.c_char_p),
     },
     # K3, the per-ray walk with any-hit suspension (ops/traverse_wide.py)
@@ -154,9 +157,10 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
 # the default ones
 _PRED_SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     "traverse_packet": {
-        "vrt_traverse_packet_pred": ([_P] * 13 + [_I] * 10 + [_P], _I),
-        "vrt_traverse_packet_pred_stats": ([_P] * 14 + [_I] * 10 + [_P],
-                                           _I),
+        **{f"vrt_traverse_packet{w}{fn}": sig for w in ("", "16")
+           for fn, sig in (
+               ("_pred", ([_P] * 13 + [_I] * 10 + [_P], _I)),
+               ("_pred_stats", ([_P] * 14 + [_I] * 10 + [_P], _I)))},
     },
     "packet_walk": {
         "vrt_packet_walk_pred": ([_P] * 14 + [_I] * 12 + [_P], _I),
@@ -168,11 +172,13 @@ PRED_DIR = BUILD_DIR / "pred"
 # launch counts: one per kernel library, and "ploc_pack", lbvh_pack's
 # survivor records and the leaf rows it writes from explicit triangle ids,
 # the alpha-cutout and predicate modes of K1 and K2, and their counting
-# instantiations (in any mode)
+# instantiations (in any mode); K1's 16-wide entry points apart
+# ("traverse_packet16" and its modes)
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     *_SIGNATURES, "ploc_pack", "traverse_packet_alpha", "packet_walk_alpha",
     "traverse_packet_pred", "packet_walk_pred", "traverse_packet_stats",
-    "packet_walk_stats")}
+    "packet_walk_stats", "traverse_packet16", "traverse_packet16_alpha",
+    "traverse_packet16_pred", "traverse_packet16_stats")}
 
 
 def reset_launches() -> None:

@@ -223,7 +223,7 @@ def time_wave(wa, o, d, kw, versions: Dict[str, Callable], reps: int
     """Check every version against the plain walk, then time them in
     turns, forwards then backwards."""
     ref, ref_steps, work = tp.walk_work(wa, o, d, **kw)
-    bound = wb.k1_bound(work)
+    bound = wb.k1_bound(work, width=wa.width)
     calls = {}
     for name, make in versions.items():
         calls[name] = make(wa, o, d, **kw)
@@ -247,6 +247,78 @@ def time_wave(wa, o, d, kw, versions: Dict[str, Callable], reps: int
         ms = sum(ts) / len(ts)
         out["versions"][name] = dict(ms=ms, turns=ts,
                                      bound_share=bound.ms / ms)
+    return out
+
+
+# ulps of a hit's dist within which two trees' walks may pick different
+# triangles (ROADMAP hazards H3, H24)
+TIE_ULPS = 4
+
+
+def tie_split(a: Hits, b: Hits) -> Dict[str, int]:
+    """Rays whose hits differ between two walks of one scene's two trees,
+    split by cause: ``ties`` where both found a hit and their ``dist``
+    are within ``TIE_ULPS`` float32 ulps (an exact-t tie resolved by visit
+    order, H3, or a near tie on an edge two leaves share, where one
+    tree's leaf box enters at the other triangle's t after rounding and
+    is pruned, H24), else ``other`` (a fault)."""
+    diff = torch.zeros_like(a.dist, dtype=torch.bool)
+    for x, y in zip(a, b):
+        diff |= x != y
+    ulp = torch.nextafter(a.dist, torch.full_like(a.dist, float("inf"))) \
+        - a.dist
+    tie = (diff & (a.dist < LARGE_FLOAT) & (b.dist < LARGE_FLOAT)
+           & ((a.dist - b.dist).abs() <= TIE_ULPS * ulp))
+    return dict(differ=int(diff.sum()), ties=int(tie.sum()),
+                other=int((diff & ~tie).sum()))
+
+
+def width_pair_wave(wa16, wa8, o, d, kw, reps: int) -> Dict:
+    """One wave walked by K1 over a 16-wide and an 8-wide table of one
+    scene, on the same rays.  Each width's kernel against its plain walk
+    (hits and per-ray steps equal, else raises), and its counting
+    instantiation's internal steps against the plain walk's count; the
+    16-wide hits against the 8-wide ones (``tie_split``: a ray that
+    differs must be an exact-t tie); device ms of both by CUDA events
+    around the bare launch, in turns (16, 8, 8, 16); per width the mean
+    steps, internal and leaf steps a walking ray, and the bound
+    (``walk_bounds.k1_bound`` at that width) and its share."""
+    out: Dict = dict(rays=int(o.shape[0]),
+                     live=int(kw["active"].sum()) if "active" in kw
+                     else int(o.shape[0]))
+    calls, hits = {}, {}
+    for name, wa in (("w16", wa16), ("w8", wa8)):
+        ref, ref_steps, work = tp.walk_work(wa, o, d, **kw)
+        calls[name] = tp.kernel_call(wa, o, d, **kw)
+        h, s = calls[name]()
+        hs, ss, kinds = tp.kernel_call(wa, o, d, stats=True, **kw)()
+        torch.cuda.synchronize()
+        if not (same(h, s, ref, ref_steps) and same(hs, ss, ref, ref_steps)):
+            raise RuntimeError(f"K1 at width {wa.width}: hits or steps "
+                               f"differ from the plain walk")
+        if not torch.equal(kinds.internal, work.internal.to(torch.int32)):
+            raise RuntimeError(f"K1's counting instantiation at width "
+                               f"{wa.width}: internal steps differ")
+        hits[name] = Hits(*(x.clone() for x in h))
+        walking = max(int(((work.internal + work.leaf) > 0).sum()), 1)
+        b = wb.k1_bound(work, width=wa.width)
+        out[name] = dict(**steps_stats(ref_steps),
+                         internal_per_ray=int(work.internal.sum()) / walking,
+                         leaf_per_ray=int(work.leaf.sum()) / walking,
+                         internal_steps=int(work.internal.sum()),
+                         leaf_steps=int(work.leaf.sum()),
+                         child_slots=int(work.child_slots.sum()),
+                         bound_ms=b.ms, bound_by=b.bound_by, turns=[])
+    out["hits_vs_8wide"] = tie_split(hits["w16"], hits["w8"])
+    if out["hits_vs_8wide"]["other"]:
+        raise RuntimeError(f"K1 at width 16 finds other hits than at width "
+                           f"8: {out['hits_vs_8wide']}")
+    for name in ("w16", "w8", "w8", "w16"):
+        out[name]["turns"].append(device_ms(calls[name], reps))
+    for name in ("w16", "w8"):
+        rec = out[name]
+        rec["ms"] = sum(rec["turns"]) / len(rec["turns"])
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     return out
 
 

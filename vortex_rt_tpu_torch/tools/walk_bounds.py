@@ -14,7 +14,8 @@ most they could need:
   6 FADD for the corners g + q*s, 6 FSUB and 6 FMUL for the slab
   distances, 6 min/max of the pairs, 4 min/max folds, 3 comparisons;
 - the child sort of an internal step: one comparison per comparator,
-  ``OPS_SORT8`` = 19 (K1), ``OPS_SORT4`` = 5 (K2);
+  ``OPS_SORT8`` = 19 (K1), ``OPS_SORT16`` = 63 (K1 at width 16: Batcher's
+  odd-even merge), ``OPS_SORT4`` = 5 (K2);
 - a triangle slot of a leaf step, ``OPS_PER_TRI`` = 53 (Moller-Trumbore
   in the kernels' op order: 9 for h, 5 for a, 1 test and 1 reciprocal,
   3 for s, 6 for u, 9 for q, 6 for v, 6 for t, 6 for the five tests,
@@ -43,8 +44,8 @@ Bytes: per walking ray o and d (24 B), t_max (4 B) and the active flag
 its flag and t_max (5 B); every ray writes dist, bx, by, bz, tri, inst
 and steps (28 B); of the tables, each row that some ray visits is read
 once, and only the words the walk uses of it (``WalkWork.row_bytes``:
-K1 96 B of an internal row, 16 B of a leaf row's meta and 40 B per
-triangle slot; K2 64 B of an internal node, 16 B of a leaf node, 80 B
+K1 96 B of an internal row (160 B at width 16: the 40 node words), 16 B
+of a leaf row's meta and 40 B per triangle slot; K2 64 B of an internal node, 16 B of a leaf node, 80 B
 of an instance node, 40 B per triangle slot; in alpha mode 32 B of
 alpha fields per slot whose candidate is tested and 4 B per alpha-pool
 entry read, and in K1's alpha mode 4 B of slot classes per leaf step;
@@ -111,6 +112,7 @@ H100_FP32_OPS_PER_S = 67e12
 
 OPS_PER_CHILD = 37
 OPS_SORT8 = 19
+OPS_SORT16 = 63
 OPS_SORT4 = 5
 OPS_PER_TRI = 53
 OPS_PER_INSTANCE = 36
@@ -196,12 +198,16 @@ def walk_bound(work, sort_ops: int, lookups: bool = False,
                         + r * HIT_OUT_BYTES + int(work.row_bytes.sum())))
 
 
-def k1_bound(work, lookups: bool = True, pred_ops: int = 0) -> Bound:
-    """K1: the 8-wide walk over the fused table; in alpha mode the tests
-    it makes (``lookups=False``: every candidate's, the first figure); in
-    predicate mode every candidate's, each with the predicate's
-    ``pred_ops``."""
-    return walk_bound(work, OPS_SORT8, lookups, pred_ops)
+def k1_bound(work, lookups: bool = True, pred_ops: int = 0,
+             width: int = 8) -> Bound:
+    """K1: the 8-wide (or ``width``-wide: 16) walk over the fused table;
+    in alpha mode the tests it makes (``lookups=False``: every
+    candidate's, the first figure); in predicate mode every candidate's,
+    each with the predicate's ``pred_ops``.  The rows' bytes are in
+    ``work`` (``ops/traverse_packet.walk_work`` of a table of that
+    width)."""
+    return walk_bound(work, OPS_SORT16 if width == 16 else OPS_SORT8,
+                      lookups, pred_ops)
 
 
 def k2_bound(work, pred_ops: int = 0) -> Bound:

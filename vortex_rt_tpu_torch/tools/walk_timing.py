@@ -30,6 +30,17 @@ Waves, each captured from a real frame of that tree's renderer:
   alpha fields, as ``k1a``'s) on the same rays, beside the predicate
   mode's bound (``k1_bound`` / ``k2_bound`` with the predicate's
   operations) and its tests;
+- K1 at width 16 beside width 8 (``--parts w16``): ladder config 3's
+  1080p primary wave (``blob(n=187)``) and the five waves of the first
+  sample pass of config 4 (``atrium()``, 1920x1080, spp 8, depth 3,
+  shadow rays, path traced), captured from the 16-wide frame
+  (``RTConfig(bvh_width=16, flatten=True)``, host-built) and walked by
+  both tables' K1 on the same rays (``k1_timing.width_pair_wave``: each
+  against its plain walk, the counting instantiations' internal steps,
+  the 16-wide hits against the 8-wide ones up to exact-t ties, CUDA
+  events around the bare launch in turns, steps a ray and each width's
+  bound); then both widths' frames of each config (ms a frame after a
+  warm-up, in turns 16, 8, 8, 16, and their rays);
 - K3 (``--parts k3``), on ladder row 6's scene (the textured atrium,
   ``alpha_test_anyhit(0.30)``) in the 4-wide TLAS build: the first
   suspension round of the 192x192 parity frame's primary wave (73,728
@@ -55,7 +66,8 @@ show whether they gave the same records.  Prints each kernel's ptxas line
 renderer made and one frame) and, last, one JSON line with the card's
 name and power limit.
 
-``--parts ptxas`` only builds K1 and K2 and prints their ptxas lines by
+``--parts ptxas`` only builds K1 and K2, and their variants with row 6's
+checker predicate (``kernels.load_pred``), and prints their ptxas lines by
 entry (two trees' builds compared line by line).
 
 ``--variants`` (this tree only) also builds copies of ``traverse2.cu``,
@@ -76,7 +88,7 @@ outputs (the hashes) and times it beside the kernel in turns on the same
 waves, and on the sum of config 2's 8 waves.
 
     python vortex_rt_tpu_torch/tools/walk_timing.py [--root DIR]
-        [--parts k6,k2,k3,k1a,k1p,k2p] [--reps 20] [--frames 4] [--variants]
+        [--parts k6,k2,k3,k1a,k1p,k2p,w16] [--reps 20] [--frames 4] [--variants]
         [--out FILE]
 
 (run as a file, so that the package imported is the one at ``--root``).
@@ -103,6 +115,7 @@ KERNEL = {"traverse2": "traverse2_kernel", "packet_walk": "packet_walk_kernel",
 PART_LIBS = {"k6": ("traverse2",), "k2": ("packet_walk", "traverse_packet"),
              "k3": ("traverse_wide",), "k1a": ("traverse_packet",),
              "k1p": ("traverse_packet",), "k2p": ("packet_walk",),
+             "w16": ("traverse_packet",),
              "ptxas": ("traverse_packet", "packet_walk")}
 # variants whose outputs differ from the kernel's by design (timing copies)
 TIMING_ONLY = {"k1a_rows"}
@@ -280,18 +293,19 @@ def _ptxas(log: str) -> str:
                       or "spill" in ln)
 
 
-def _capture(r, cam, p, w: int, h: int):
-    """The walk calls of one frame of wavefront renderer ``r``:
-    [(o, d, kwargs)]."""
+def _capture(r, cam, p, w: int, h: int, limit: int = 0):
+    """The walk calls of one frame of wavefront renderer ``r`` (its first
+    ``limit``, or all): [(o, d, kwargs)]."""
     import torch
 
     waves = []
     walk = r.walk
 
     def capture(wa, o, d, **kw):
-        waves.append((o.clone(), d.clone(), {
-            k: (v.clone() if torch.is_tensor(v) else v)
-            for k, v in kw.items()}))
+        if not limit or len(waves) < limit:
+            waves.append((o.clone(), d.clone(), {
+                k: (v.clone() if torch.is_tensor(v) else v)
+                for k, v in kw.items()}))
         return walk(wa, o, d, **kw)
 
     dataclasses.replace(r, walk=capture).render(cam, p, w, h)
@@ -333,8 +347,9 @@ def main(argv=None) -> int:
     ap.add_argument("--parts", default="k6,k2,k3",
                     help="k6 (MK-A, MK-B), k2 (with K1's wave), k3, k1a "
                          "(K1's alpha mode), k1p, k2p (K1's and K2's "
-                         "predicate modes), ptxas (K1's and K2's ptxas "
-                         "lines by entry, no timing)")
+                         "predicate modes), w16 (K1 at width 16 beside "
+                         "width 8, configs 3 and 4), ptxas (K1's and K2's "
+                         "ptxas lines by entry, no timing)")
     ap.add_argument("--pred", default="checker",
                     help="the predicate of k1p and k2p: checker or "
                          "perforated (bench_ladder.PREDICATES)")
@@ -373,10 +388,19 @@ def main(argv=None) -> int:
            "ptxas_entries": {n: _ptxas_entries(lib.build_log)
                              for n, lib in libs.items()},
            "k6": {}, "k2": {}, "k1": {}, "k3": {}, "k1a": {}, "k1p": {},
-           "k2p": {}}
+           "k2p": {}, "w16": {}}
     variants = _variant_libs(kernels, lib_names) if args.variants else {}
     for n, lib in variants.items():
         out["ptxas"][n] = _ptxas(lib.build_log)
+    if "ptxas" in parts:
+        from vortex_rt_tpu_torch.ops.anyhit_pred import compile_predicate
+        from vortex_rt_tpu_torch.tools.bench_ladder import checker_pred
+
+        pred = compile_predicate(checker_pred)
+        for n in PART_LIBS["ptxas"]:
+            log = kernels.load_pred(n, pred).build_log
+            out["ptxas"][f"{n}+checker"] = _ptxas(log)
+            out["ptxas_entries"][f"{n}+checker"] = _ptxas_entries(log)
     for n, line in out["ptxas"].items():
         print(f"{n}: {line}", file=sys.stderr)
 
@@ -436,6 +460,8 @@ def main(argv=None) -> int:
         out[kind][label] = rec
         print(f"{kind.upper()} {label}: {rec}", file=sys.stderr)
 
+    if "w16" in parts:
+        w16_part(args, out, dev)
     if "k1a" in parts:
         k1a_part(args, out, dev, timed)
     for kind in ("k1p", "k2p"):
@@ -574,6 +600,59 @@ def _ptxas_entries(log: str) -> dict:
         elif name and ("registers" in ln or "stack frame" in ln):
             out[name].append(ln.split("ptxas info    : ")[-1].strip())
     return {k: " | ".join(v) for k, v in out.items()}
+
+
+def w16_part(args, out, dev) -> None:
+    """K1 at width 16 beside width 8 on ladder configs 3 and 4 (module
+    docstring)."""
+    import time
+
+    import torch
+
+    from vortex_rt_tpu_torch import (
+        RenderParams, RTConfig, Scene, WavefrontRenderer,
+    )
+    from vortex_rt_tpu_torch.models.bigscenes import atrium, blob
+    from vortex_rt_tpu_torch.tools.k1_timing import width_pair_wave
+
+    names = ("closest0", "shadow0", "closest1", "merged1", "shadow2")
+    for label, meshes, spp, n_waves in (
+            ("config3", [(blob(n=187), 0.0)], 4, 1),
+            ("config4", list(atrium()), 8, 5)):
+        sc = Scene()
+        for mesh, refl in meshes:
+            sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
+        sb = sc.build(RTConfig(flatten=True))
+        rs = {w: WavefrontRenderer.from_buffers(
+            sb, RTConfig(flatten=True, bvh_width=w), device=dev)
+            for w in (16, 8)}
+        cam = Scene.framing_camera(sb, 45.0, HD[0] / HD[1])
+        p = RenderParams(max_depth=3, spp=spp, shadow=True, pathtrace=True)
+        rec = out["w16"][label] = dict(
+            tris=sb.num_tris, depth={w: r.wa.depth for w, r in rs.items()},
+            nodes={w: int(r.wa.nodes.shape[0]) for w, r in rs.items()},
+            fused_bytes={w: r.wa.fused.numel() * 4 for w, r in rs.items()})
+        for name, (o, d, kw) in zip(names, _capture(rs[16], cam, p, *HD,
+                                                   limit=n_waves)):
+            rec[name] = width_pair_wave(rs[16].wa, rs[8].wa, o, d, kw,
+                                        args.reps)
+            print(f"w16 {label} {name}: {rec[name]}", file=sys.stderr)
+        frames = {16: [], 8: []}
+        for w in (16, 8):
+            rs[w].render_burst(cam, p, *HD, n_frames=1, rays_only=True)
+        for w in (16, 8, 8, 16):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rays = rs[w].render_burst(cam, p, *HD, n_frames=1,
+                                      rays_only=True)
+            torch.cuda.synchronize()
+            frames[w].append(((time.perf_counter() - t0) * 1e3, rays))
+        # (the two trees may split a tie on an edge two leaves share
+        # differently, H24: a frame's rays can differ by a few)
+        rec["frame_ms"] = {w: [t for t, _ in f] for w, f in frames.items()}
+        rec["rays"] = {w: f[0][1] for w, f in frames.items()}
+        print(f"w16 {label} frames: {rec['frame_ms']}", file=sys.stderr)
+        del rs
 
 
 def k1a_part(args, out, dev, timed) -> None:

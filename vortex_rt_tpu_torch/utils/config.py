@@ -17,8 +17,8 @@ itself has no meaning.  The JAX package's other TPU tuning knobs
 ``bounce_sort_seg``, ``shadow_packet``, ``pallas_waves``) shape how XLA
 batches a lockstep loop and change no hit; the port's pool runs whole
 and has no use for them (README, "The PyTorch/CUDA port").
-``fused_rows`` is not carried either: the port always fuses 8-wide flat
-builds (the JAX default).
+``fused_rows`` is not carried either: the port always fuses 8- and
+16-wide flat builds (the JAX default).
 """
 
 from __future__ import annotations
@@ -43,9 +43,11 @@ class RTConfig:
     """Static knobs of the port's tracer."""
 
     # ---- acceleration structure ----
-    bvh_width: int = 0          # children per wide-BVH node, 4 or 8;
-                                # 0 = auto: 8 on flattened builds, else 4
-                                # (the JAX package's rule)
+    bvh_width: int = 0          # children per wide-BVH node, 4, 8 or
+                                # 16 (8 and 16 need flatten=True; 16 is
+                                # built on the host only); 0 = auto: 8 on
+                                # flattened builds, else 4 (the JAX
+                                # package's rule)
     stack_size: int = 5         # RT_STACK_SIZE (no reader, as in JAX)
     max_trail: int = 32         # MAX_TRAIL_LEVEL (no reader, as in JAX)
     max_leaf_tris: int = 4      # leaf size target for the binary BVH
@@ -83,16 +85,12 @@ class RTConfig:
     def __post_init__(self):
         if self.bvh_width == 0:
             object.__setattr__(self, "bvh_width", 8 if self.flatten else 4)
-        if self.bvh_width == 16:
-            raise NotImplementedError(
-                "bvh_width=16: 16-wide rows are not ported (ROADMAP Queue "
-                "1, 'Not ported')")
-        if self.bvh_width not in (4, 8):
+        if self.bvh_width not in (4, 8, 16):
             raise ValueError(
-                f"bvh_width must be 0, 4 or 8, got {self.bvh_width}")
-        if self.bvh_width == 8 and not self.flatten:
-            raise ValueError("bvh_width=8 requires flatten=True (no "
-                             "instance-node rows)")
+                f"bvh_width must be 0, 4, 8 or 16, got {self.bvh_width}")
+        if self.bvh_width != 4 and not self.flatten:
+            raise ValueError(f"bvh_width={self.bvh_width} requires "
+                             f"flatten=True (no instance-node rows)")
         if self.packet_size < 0:
             raise ValueError("packet_size must be >= 0")
         if self.max_leaf_tris < 1:
