@@ -337,7 +337,10 @@ and so exits non-zero, on failure):
     must be an exact-t tie, counted), both widths timed in turns (CUDA
     events around the bare launch) beside their bounds, with steps, and
     internal and leaf steps, a walking ray (``k1_timing.
-    width_pair_wave``); the plain walk timed on each primary wave;
+    width_pair_wave``); the plain walk timed on each primary wave; the
+    counters of a counting copy of the 16-wide step
+    (``walk_timing.W16_COUNTS``): children a step, hit children m and
+    ties between two hit keys, a lane's mean and a warp's maximum;
 20c. the config-4 (and config-3) 1080p path-traced frame at width 16,
     launch counts reset before and read after (40 / 20
     ``traverse_packet16`` launches, no other walk), against the 8-wide
@@ -4448,7 +4451,8 @@ def phase_multi_device(device, blob_scene, hd=(1920, 1080), size=512
 # with row 6's checker predicate (nvcc 12.8 for sm_90a with the kernels'
 # flags; tools/walk_timing.py --parts ptxas on that commit's tree, NVIDIA
 # H100 80GB HBM3 at 700.00 W): phase 20a holds this tree's lines to them,
-# so the width-16 entries leave the main path's kernel as it was
+# so the width-16 entries, and the redesign of their internal step, leave
+# the main path's kernel as it was
 K1_PTXAS_W8 = {
     f"traverse_packet_kernel<{m},{st}>": (
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | "
@@ -4510,10 +4514,14 @@ def phase_wide16_waves(device, blob_scene, atr_scene, wa8s: dict,
     from vortex_rt_tpu_torch import RenderParams, RTConfig, Scene
     from vortex_rt_tpu_torch import WavefrontRenderer
     from vortex_rt_tpu_torch.ops.traverse_packet import (
-        trace_packets, trace_packets_ref,
+        kernel_call, trace_packets, trace_packets_ref,
     )
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import walk_timing as wt
     from vortex_rt_tpu_torch.tools.k1_timing import width_pair_wave
 
+    counting = wt.w16_build(kernels, {"w16_counts": wt.W16_COUNTS})[
+        "w16_counts"]
     out = {}
     for label, (sb, _), spp, n in (("config3", blob_scene, 4, 1),
                                    ("config4", atr_scene, 8, 5)):
@@ -4539,6 +4547,9 @@ def phase_wide16_waves(device, blob_scene, atr_scene, wa8s: dict,
             if name == "closest0":
                 w["plain_ms"] = _elapsed_ms(
                     lambda: trace_packets_ref(r16.wa, o, d, **kw), 1, device)
+            w["step0"] = s0 = wt.w16_counts(counting[""], wt.w16_through(
+                kernels, None, counting,
+                lambda: kernel_call(r16.wa, o, d, **kw)))
             rec["waves"][name] = w
             a, b = w["w16"], w["w8"]
             print(f"  {label} {name}: {w['rays']} lanes ({w['live']} live); "
@@ -4552,7 +4563,11 @@ def phase_wide16_waves(device, blob_scene, atr_scene, wa8s: dict,
                   f"{b['bound_share']:.1%}; hits vs 8-wide "
                   f"{w['hits_vs_8wide']}"
                   + (f"; plain {w['plain_ms']:.1f} ms" if "plain_ms" in w
-                     else ""))
+                     else "")
+                  + f"; a lane's internal step (a warp's maximum): children "
+                  f"{s0['nch_mean']:.2f} ({s0['nch_warp_max_mean']:.2f}), hit "
+                  f"{s0['m_mean']:.2f} ({s0['m_warp_max_mean']:.2f}), a tie "
+                  f"{s0['tie_share']:.2%} ({s0['warp_tie_share']:.2%})")
         rec["r16"], rec["r8"], rec["cam"], rec["p"] = r16, r8, cam, p
         print(f"  {label}: tables at width 16 in {tables_s:.2f} s; depth "
               f"{rec['depth16']} (8-wide {rec['depth8']}), {rec['nodes16']} "
@@ -5210,7 +5225,11 @@ def main() -> int:
              w16["frames"]["config4"]["k1_16_launches"], dict(
                  w8_ms=c4w["w8"]["ms"], w8_bound_ms=c4w["w8"]["bound_ms"],
                  waves={f"{cfg}/{k}": {"w16_ms": v["w16"]["ms"],
-                                       "w8_ms": v["w8"]["ms"]}
+                                       "w8_ms": v["w8"]["ms"],
+                                       **{f: v["step0"][f] for f in (
+                                           "nch_mean", "m_mean",
+                                           "m_warp_max_mean",
+                                           "tie_share")}}
                         for cfg in ("config3", "config4")
                         for k, v in w16["waves"][cfg]["waves"].items()})),
             ("traverse_packet16_alpha", "1,0", w16["row6"]["alpha"],

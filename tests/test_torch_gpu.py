@@ -1973,6 +1973,106 @@ def test_wide16_rejects_a_tree_deeper_than_its_stack(cuda, deep_build):
     assert kernels.LAUNCHES["traverse_packet16"] == before
 
 
+def _tie_scene():
+    """tests/test_wide16.py's flat scene (seed 0): a box, a sphere and a
+    300-triangle random soup as three instances of one flattened build."""
+    import numpy as np
+
+    from vortex_rt_tpu_torch.utils import vecmath as vm
+
+    rng = np.random.default_rng(0)
+    sc = pt.Scene()
+    mb = sc.add_mesh(box((0, 0, 0), 1.0))
+    ms = sc.add_mesh(uv_sphere((0, 0, 0), 1.0, 10, 14))
+    mr = sc.add_mesh(random_soup(rng, 300))
+    sc.add_instance(mb, vm.mat4_translate([-3, 0, 0]))
+    sc.add_instance(ms, vm.mat4_translate([3, 0, 0]) @ vm.mat4_scale(1.5))
+    sc.add_instance(mr, vm.mat4_translate([0, 0, 4]))
+    return sc.build(pt.RTConfig(flatten=True))
+
+
+def _tie_rays(cuda):
+    """Rays whose hit children often enter at one distance: axis-aligned
+    rays on a 24x24 grid over the scene from both ends of each axis (a
+    child's entry plane lies on its node's quantization grid, shared with
+    its siblings), and 2,000 seeded incoherent rays."""
+    import numpy as np
+
+    g = torch.linspace(-6.0, 7.0, 24)
+    u, v = (x.reshape(-1) for x in torch.meshgrid(g, g, indexing="ij"))
+    os, ds = [], []
+    for axis in range(3):
+        for sign in (1.0, -1.0):
+            o = torch.zeros(u.shape[0], 3)
+            o[:, axis] = -20.0 * sign
+            o[:, (axis + 1) % 3] = u
+            o[:, (axis + 2) % 3] = v
+            d = torch.zeros_like(o)
+            d[:, axis] = sign
+            os.append(o)
+            ds.append(d)
+    rng = np.random.default_rng(3)
+    o = torch.from_numpy(rng.uniform(-10, 10, (2000, 3)).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(2000, 3)).astype(np.float32))
+    os.append(o)
+    ds.append(d / d.norm(dim=1, keepdim=True))
+    return torch.cat(os).to(cuda), torch.cat(ds).to(cuda)
+
+
+def _root_ties(wa, o, d) -> int:
+    """Rays with two hit children of the root at one entry distance (the
+    slab test of the walks, best_t unbounded)."""
+    from vortex_rt_tpu_torch.ops.traverse_packet import qbyte
+    from vortex_rt_tpu_torch.ops.traverse_wide import row_layout
+
+    q_lo, q_hi, m_off, _, _ = row_layout(16)
+    row = wa.fused[0].to(torch.int64) & 0xFFFFFFFF
+    f = wa.fused[0].view(torch.float32)
+    nch = int((row[m_off] >> 24) & 31)
+    dd = torch.where(d.abs() < 1e-20, torch.where(d < 0, -1e-20, 1e-20), d)
+    iv = 1.0 / dd
+    keys = []
+    for c in range(nch):
+        lo = torch.stack([f[k] + qbyte(row[q_lo + c], 8 * k) * f[3 + k]
+                          for k in range(3)])
+        hi = torch.stack([f[k] + qbyte(row[q_hi + c], 8 * k) * f[3 + k]
+                          for k in range(3)])
+        t1 = (lo[None, :] - o) * iv
+        t2 = (hi[None, :] - o) * iv
+        tmin = torch.minimum(t1, t2).max(1).values
+        tmax = torch.maximum(t1, t2).min(1).values
+        keys.append(torch.where((tmax >= tmin) & (tmax > 0), tmin,
+                                torch.full_like(tmin, float("nan"))))
+    k = torch.stack(keys, 1).sort(1).values
+    return int(((k[:, 1:] == k[:, :-1]).any(1)).sum())
+
+
+@pytest.mark.parametrize("case", ["closest", "closest/stats", "occl_split",
+                                  "alpha", "alpha/stats", "pred",
+                                  "pred/stats"])
+def test_wide16_order_matches_plain_version_on_ties(cuda, case):
+    """Every mode of K1 at width 16 against the plain walk (hits, steps
+    and, with stats, internal steps to the bit) on rays whose hit children
+    tie: the step orders the hit children by a selection, and by Batcher's
+    network when two keys agree above their 4 low bits
+    (``csrc/sort16.cuh``); the plain walk runs the network always."""
+    mode, _, stats = case.partition("/")
+    sb = _tie_scene()
+    wa = _wide16(sb, alpha=mode != "closest" and mode != "occl_split")
+    wa = wa.to(cuda)
+    o, d = _tie_rays(cuda)
+    assert _root_ties(wa, o, d) > 100
+    n = o.shape[0]
+    kw = _wide16_kw(cuda, "occl_split" if mode == "occl_split" else
+                    "closest", n, bool(stats))
+    anyhit = (dict(alpha_ref=0.5) if mode == "alpha" else
+              dict(anyhit_pred=_checker_pred) if mode == "pred" else {})
+    name = "traverse_packet16_" + ("stats" if stats else mode
+                                   if mode in ("alpha", "pred") else "")
+    hp = _wide16_same(cuda, wa, o, d, name.rstrip("_"), kw, **anyhit)
+    assert bool((hp.dist < 1e30).any())
+
+
 @pytest.mark.parametrize("pathtrace", [False, True])
 def test_wide16_frame_matches_plain_route(cuda, pathtrace):
     """A 48x32 spp-2 depth-3 frame with ``RTConfig(bvh_width=16,

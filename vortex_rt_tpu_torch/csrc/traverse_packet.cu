@@ -98,8 +98,16 @@
 // meta quarter is the row's tenth 16-B vector), then the leaf slots; a
 // step reads the meta quarter first, then at an internal node the other
 // nine vectors, decodes and slab-tests up to 16 children with the same
-// byte decode, and orders them by the JAX body's 16-slot network
-// (Batcher's odd-even merge, 63 comparators, traverse_packet.py:78-102).
+// byte decode, and orders the hit children as the JAX body's 16-slot
+// network (Batcher's odd-even merge, 63 comparators,
+// traverse_packet.py:78-102) orders them (sort16.cuh): nothing to sort
+// at one hit child or none, which is most steps on the shipped scenes; a
+// selection of the two nearest remaining keys a pass otherwise; the
+// network itself where two hit keys agree above their 4 low bits, as its
+// order of equal keys is its own, so the walk visits the nodes the
+// network's order visits.  The slab tests stay 16 a step: the nodes a
+// walk visits hold 12.8-15.2 children on the shipped scenes, and tests
+// skipped by groups of four bought nothing (PERF.md).
 // A deferred-children entry is three words, `left << 4 | count`, sorted
 // slots 0..7 and sorted slots 8..14 at 4 bits each (:337-343, :654-655):
 // the first two in the int2 plane of the 8-wide stack, the third in an
@@ -123,6 +131,7 @@
 #include <stdint.h>
 
 #include "alpha_test.cuh"
+#include "sort16.cuh"
 #ifdef VRT_PRED_HEADER
 // the generated predicate header, named without quotes by the build
 #define VRT_STR_(x) #x
@@ -220,8 +229,9 @@ __device__ __forceinline__ int pop_deferred(int2* stk, const int* stk2,
 
 // An internal step at width 16: the node's 16 quantized child boxes
 // (words 6..37 of the row; w9 is its meta quarter, words 36..39) decoded
-// and slab-tested, the hit children ordered far -> near by the JAX body's
-// 16-slot network (culled ones keyed -LARGE), the nearest returned and the
+// and slab-tested, the hit children ordered far -> near as the JAX body's
+// 16-slot network orders them (sort16.cuh: a selection over the hit
+// children, the network itself on a tie), the nearest returned and the
 // others deferred in one three-word stack entry; with none hit, the
 // nearest deferred child is popped, or the ray ends (`alive` false) on an
 // empty stack.
@@ -244,8 +254,10 @@ __device__ __forceinline__ int internal_step16(
                              w3.z, w3.w, w4.x, w4.y, w4.z, w4.w, w5.x, w5.y};
     const uint32_t qh[16] = {w5.z, w5.w, w6.x, w6.y, w6.z, w6.w, w7.x, w7.y,
                              w7.z, w7.w, w8.x, w8.y, w8.z, w8.w, w9.x, w9.y};
+    // the network's keys (culled slots -LARGE) and the hit children: the
+    // keys above -LARGE, which the network puts at positions 0..m-1
     float ds[16];
-    int ix[16];
+    uint32_t hits = 0u;
 #pragma unroll
     for (int c = 0; c < 16; ++c) {
         const float lx = gx + qbyte(ql[c], 0) * sx;
@@ -262,61 +274,23 @@ __device__ __forceinline__ int internal_step16(
         const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
                                  fmaxf(t1z, t2z));
         const bool hit = (tmax >= tmin) && (tmax > 0.0f) && (tmin < best_t)
-            && (c < nch);
+            && (c < nch) && (tmin > -VRT_LARGE);
         ds[c] = hit ? tmin : -VRT_LARGE;
-        ix[c] = c;
+        hits |= hit ? (1u << c) : 0u;
     }
-    // the JAX body's 16-slot network (traverse_packet.py:78-102: Batcher's
-    // odd-even merge, 63 comparators)
-    cswap_desc(ds, ix, 0, 1); cswap_desc(ds, ix, 2, 3);
-    cswap_desc(ds, ix, 4, 5); cswap_desc(ds, ix, 6, 7);
-    cswap_desc(ds, ix, 8, 9); cswap_desc(ds, ix, 10, 11);
-    cswap_desc(ds, ix, 12, 13); cswap_desc(ds, ix, 14, 15);
-    cswap_desc(ds, ix, 0, 2); cswap_desc(ds, ix, 1, 3);
-    cswap_desc(ds, ix, 4, 6); cswap_desc(ds, ix, 5, 7);
-    cswap_desc(ds, ix, 8, 10); cswap_desc(ds, ix, 9, 11);
-    cswap_desc(ds, ix, 12, 14); cswap_desc(ds, ix, 13, 15);
-    cswap_desc(ds, ix, 1, 2); cswap_desc(ds, ix, 5, 6);
-    cswap_desc(ds, ix, 9, 10); cswap_desc(ds, ix, 13, 14);
-    cswap_desc(ds, ix, 0, 4); cswap_desc(ds, ix, 1, 5);
-    cswap_desc(ds, ix, 2, 6); cswap_desc(ds, ix, 3, 7);
-    cswap_desc(ds, ix, 8, 12); cswap_desc(ds, ix, 9, 13);
-    cswap_desc(ds, ix, 10, 14); cswap_desc(ds, ix, 11, 15);
-    cswap_desc(ds, ix, 2, 4); cswap_desc(ds, ix, 3, 5);
-    cswap_desc(ds, ix, 10, 12); cswap_desc(ds, ix, 11, 13);
-    cswap_desc(ds, ix, 1, 2); cswap_desc(ds, ix, 3, 4);
-    cswap_desc(ds, ix, 5, 6); cswap_desc(ds, ix, 9, 10);
-    cswap_desc(ds, ix, 11, 12); cswap_desc(ds, ix, 13, 14);
-    cswap_desc(ds, ix, 0, 8); cswap_desc(ds, ix, 1, 9);
-    cswap_desc(ds, ix, 2, 10); cswap_desc(ds, ix, 3, 11);
-    cswap_desc(ds, ix, 4, 12); cswap_desc(ds, ix, 5, 13);
-    cswap_desc(ds, ix, 6, 14); cswap_desc(ds, ix, 7, 15);
-    cswap_desc(ds, ix, 4, 8); cswap_desc(ds, ix, 5, 9);
-    cswap_desc(ds, ix, 6, 10); cswap_desc(ds, ix, 7, 11);
-    cswap_desc(ds, ix, 2, 4); cswap_desc(ds, ix, 3, 5);
-    cswap_desc(ds, ix, 6, 8); cswap_desc(ds, ix, 7, 9);
-    cswap_desc(ds, ix, 10, 12); cswap_desc(ds, ix, 11, 13);
-    cswap_desc(ds, ix, 1, 2); cswap_desc(ds, ix, 3, 4);
-    cswap_desc(ds, ix, 5, 6); cswap_desc(ds, ix, 7, 8);
-    cswap_desc(ds, ix, 9, 10); cswap_desc(ds, ix, 11, 12);
-    cswap_desc(ds, ix, 13, 14);
     // the sorted slot ids, 4 bits each: the stack entry's second word
-    // holds slots 0..7, its third slots 8..14
-    int m = 0;
-    uint64_t perm = 0;
-#pragma unroll
-    for (int c = 0; c < 16; ++c) {
-        m += (ds[c] > -VRT_LARGE) ? 1 : 0;
-        perm |= (uint64_t)ix[c] << (4 * c);
-    }
+    // holds positions 0..7, its third 8..14
+    uint32_t p1, p2;
+    const int near = vrt_order16(ds, hits, p1, p2);
+    const int m = __popc(hits);
     int nxt = 0;
     if (m >= 1) {
-        // sorted far -> near: the nearest hit child sits at m - 1
-        nxt = left + (int)((perm >> (4 * (m - 1))) & 15u);
+        // the nearest hit child (position m - 1 of the far -> near order)
+        nxt = left + near;
         if (m >= 2) {
             const int at = min(sc, stack_n - 1) * VRT_STK_STRIDE;
-            stk[at] = make_int2((left << 4) | (m - 1), (int)(uint32_t)perm);
-            stk2[at] = (int)((uint32_t)(perm >> 32) & 0x0FFFFFFFu);
+            stk[at] = make_int2((left << 4) | (m - 1), (int)p1);
+            stk2[at] = (int)(p2 & 0x0FFFFFFFu);
             ++sc;
         }
     } else if (sc > 0) {

@@ -273,7 +273,9 @@ def tie_split(a: Hits, b: Hits) -> Dict[str, int]:
                 other=int((diff & ~tie).sum()))
 
 
-def width_pair_wave(wa16, wa8, o, d, kw, reps: int) -> Dict:
+def width_pair_wave(wa16, wa8, o, d, kw, reps: int,
+                    extra: Optional[Dict] = None,
+                    bound_kw: Optional[Dict] = None) -> Dict:
     """One wave walked by K1 over a 16-wide and an 8-wide table of one
     scene, on the same rays.  Each width's kernel against its plain walk
     (hits and per-ray steps equal, else raises), and its counting
@@ -282,10 +284,15 @@ def width_pair_wave(wa16, wa8, o, d, kw, reps: int) -> Dict:
     differs must be an exact-t tie); device ms of both by CUDA events
     around the bare launch, in turns (16, 8, 8, 16); per width the mean
     steps, internal and leaf steps a walking ray, and the bound
-    (``walk_bounds.k1_bound`` at that width) and its share."""
+    (``walk_bounds.k1_bound`` at that width, with ``bound_kw``) and its
+    share.  ``extra`` ({name: (launcher, exact)}: other versions of the
+    16-wide walk on these rays) joins the turns after width 8; an
+    ``exact`` one must give the 16-wide kernel's hits and steps (else
+    raises), the others (timing copies) report their mean steps."""
     out: Dict = dict(rays=int(o.shape[0]),
                      live=int(kw["active"].sum()) if "active" in kw
                      else int(o.shape[0]))
+    extra = extra or {}
     calls, hits = {}, {}
     for name, wa in (("w16", wa16), ("w8", wa8)):
         ref, ref_steps, work = tp.walk_work(wa, o, d, **kw)
@@ -300,8 +307,10 @@ def width_pair_wave(wa16, wa8, o, d, kw, reps: int) -> Dict:
             raise RuntimeError(f"K1's counting instantiation at width "
                                f"{wa.width}: internal steps differ")
         hits[name] = Hits(*(x.clone() for x in h))
+        if name == "w16":
+            steps16 = s.clone()
         walking = max(int(((work.internal + work.leaf) > 0).sum()), 1)
-        b = wb.k1_bound(work, width=wa.width)
+        b = wb.k1_bound(work, width=wa.width, **(bound_kw or {}))
         out[name] = dict(**steps_stats(ref_steps),
                          internal_per_ray=int(work.internal.sum()) / walking,
                          leaf_per_ray=int(work.leaf.sum()) / walking,
@@ -313,12 +322,25 @@ def width_pair_wave(wa16, wa8, o, d, kw, reps: int) -> Dict:
     if out["hits_vs_8wide"]["other"]:
         raise RuntimeError(f"K1 at width 16 finds other hits than at width "
                            f"8: {out['hits_vs_8wide']}")
-    for name in ("w16", "w8", "w8", "w16"):
+    for name, (call, exact) in extra.items():
+        h, s = call()
+        torch.cuda.synchronize()
+        calls[name] = call
+        out[name] = dict(equal=same(h, s, hits["w16"], steps16),
+                         mean_steps=steps_stats(s)["mean_steps"], turns=[])
+        if exact and not out[name]["equal"]:
+            raise RuntimeError(f"{name}: hits or steps differ from the "
+                               f"16-wide kernel's")
+    order = ["w16", "w8", *extra]
+    for name in order + order[::-1]:
         out[name]["turns"].append(device_ms(calls[name], reps))
-    for name in ("w16", "w8"):
+    for name in order:
         rec = out[name]
         rec["ms"] = sum(rec["turns"]) / len(rec["turns"])
-        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        if name in ("w16", "w8"):
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        else:
+            rec["vs_w16"] = rec["ms"] / out["w16"]["ms"]
     return out
 
 

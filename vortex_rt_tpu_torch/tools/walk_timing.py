@@ -40,7 +40,17 @@ Waves, each captured from a real frame of that tree's renderer:
   the 16-wide hits against the 8-wide ones up to exact-t ties, CUDA
   events around the bare launch in turns, steps a ray and each width's
   bound); then both widths' frames of each config (ms a frame after a
-  warm-up, in turns 16, 8, 8, 16, and their rays);
+  warm-up, in turns 16, 8, 8, 16, and their rays); and ladder row 6's
+  512x512 primary waves in alpha mode and with the checker predicate
+  (the textured atrium, flat 16- and 8-wide builds).  On every wave the
+  counters of a counting copy of the 16-wide step (``W16_COUNTS``:
+  children a step, hit children, ties between two hit keys, a lane's mean
+  and a warp's maximum).  ``--old FILE`` (another ``traverse_packet.cu``
+  with the same C interface, e.g. the tree's before a redesign of the
+  16-wide step; repeat it for more) and ``--w16-variants``
+  (``W16_VARIANTS``: copies with one design piece changed) join each
+  wave's turns, held to the 16-wide kernel's hits and steps (timing
+  copies excepted), and ``--old`` the frames' turns;
 - K3 (``--parts k3``), on ladder row 6's scene (the textured atrium,
   ``alpha_test_anyhit(0.30)``) in the 4-wide TLAS build: the first
   suspension round of the 192x192 parity frame's primary wave (73,728
@@ -89,7 +99,7 @@ waves, and on the sum of config 2's 8 waves.
 
     python vortex_rt_tpu_torch/tools/walk_timing.py [--root DIR]
         [--parts k6,k2,k3,k1a,k1p,k2p,w16] [--reps 20] [--frames 4] [--variants]
-        [--out FILE]
+        [--old FILE] [--w16-variants NAME,...] [--out FILE]
 
 (run as a file, so that the package imported is the one at ``--root``).
 Needs the card; the kernels build under ``DIR/build/torch_kernels/``.
@@ -206,6 +216,239 @@ VARIANTS = {
         "__global__ void __launch_bounds__(VRT_BLOCK) traverse_wide_kernel(",
         "__global__ void __launch_bounds__(VRT_BLOCK, 6) traverse_wide_kernel(")]),
 }
+
+
+def _span(start: str, end: str, new: str):
+    """An edit of a source: the text from ``start`` (once in it) to the
+    end of the first ``end`` after it, replaced by ``new``."""
+    def edit(text: str) -> str:
+        if text.count(start) != 1:
+            raise RuntimeError(f"{start!r} is not in the source once")
+        i = text.index(start)
+        j = text.index(end, i) + len(end)
+        return text[:i] + new + text[j:]
+    return edit
+
+
+# K1 at width 16 (``--parts w16 --w16-variants ...``): copies of
+# ``traverse_packet.cu`` with one design piece changed, built from
+# ``--old`` (the tree before the redesign of the 16-wide internal step)
+# or from this tree's source: {name: (base "old" or "this", edits)}.
+# Those of the old step split its instruction issue: no network (the hit
+# children in slot order, timing only: another visit order), the slab
+# tests of a group of four children only where a lane of the warp has
+# them, and registers bounded for 8 blocks of 128 an SM (64).
+_W16_NET = ("    // the JAX body's 16-slot network (traverse_packet.py:78-102: "
+            "Batcher's\n")
+_W16_PACKED = "        perm |= (uint64_t)ix[c] << (4 * c);\n    }\n"
+_W16_BOUNDS = ("__global__ void __launch_bounds__(VRT_BLOCK) "
+               "traverse_packet16_kernel(")
+W16_VARIANTS = {
+    "w16_no_net": ("old", [_span(_W16_NET, _W16_PACKED, """\
+    int m = 0;
+    uint64_t perm = 0;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+        if (ds[c] > -VRT_LARGE) {
+            perm |= (uint64_t)c << (4 * m);
+            ++m;
+        }
+    }
+""")]),
+    "w16_slab_nch": ("old", [
+        ("""#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+        const float lx = gx + qbyte(ql[c], 0) * sx;""", """#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+    const bool need = __any_sync(__activemask(), nch > 4 * g);
+#pragma unroll
+    for (int c = 4 * g; c < 4 * g + 4; ++c) {
+        ds[c] = -VRT_LARGE;
+        ix[c] = c;
+        if (!need) continue;
+        const float lx = gx + qbyte(ql[c], 0) * sx;"""),
+        ("""        ds[c] = hit ? tmin : -VRT_LARGE;
+        ix[c] = c;
+    }
+""", """        ds[c] = hit ? tmin : -VRT_LARGE;
+        ix[c] = c;
+    }
+    }
+""")]),
+    "w16_regs64": ("old", [(_W16_BOUNDS, _W16_BOUNDS.replace(
+        "(VRT_BLOCK)", "(VRT_BLOCK, 8)"))]),
+}
+# and of this tree's step, each with one piece taken back or added
+W16_VARIANTS.update({
+    "w16n_regs64": ("this", [(_W16_BOUNDS, _W16_BOUNDS.replace(
+        "(VRT_BLOCK)", "(VRT_BLOCK, 8)"))]),
+    "w16n_regs72": ("this", [(_W16_BOUNDS, _W16_BOUNDS.replace(
+        "(VRT_BLOCK)", "(VRT_BLOCK, 7)"))]),
+    "w16n_slab_nch": ("this", [
+        ("""#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+        const float lx = gx + qbyte(ql[c], 0) * sx;""", """#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+    const bool need = __any_sync(__activemask(), nch > 4 * g);
+#pragma unroll
+    for (int c = 4 * g; c < 4 * g + 4; ++c) {
+        ds[c] = -VRT_LARGE;
+        if (!need) continue;
+        const float lx = gx + qbyte(ql[c], 0) * sx;"""),
+        ("""        hits |= hit ? (1u << c) : 0u;
+    }
+""", """        hits |= hit ? (1u << c) : 0u;
+    }
+    }
+""")]),
+})
+
+
+def _sort16_edit(edits):
+    """An edit of ``traverse_packet.cu`` that inlines ``sort16.cuh`` with
+    ``edits`` ([(text, new text)], each once in the header) in place of
+    its include."""
+    def edit(text: str) -> str:
+        hdr = (Path(__file__).resolve().parents[1] / "csrc"
+               / "sort16.cuh").read_text()
+        for a, b in edits:
+            if hdr.count(a) != 1:
+                raise RuntimeError(f"{a!r} is not in sort16.cuh once")
+            hdr = hdr.replace(a, b)
+        inc = '#include "sort16.cuh"\n'
+        if text.count(inc) != 1:
+            raise RuntimeError("traverse_packet.cu includes sort16.cuh "
+                               "other than once")
+        return text.replace(inc, hdr)
+    return edit
+
+
+# the ordering's drafts: one key a pass (15 fminf, then the slot taken
+# out of the keys), and the exact keys dropped after packing (their low
+# 4 bits kept for the network, so `ds` need not stay live)
+_W16_TWO_A_PASS = """\
+    float a, b;
+    vrt_least2<false>(pk, 0.0f, a, b);
+    int near = vrt_slot16(a);
+    bool tie = false;
+    for (int k = 0;; k += 2) {
+        vrt_put16(w1, w2, m - 1 - k, vrt_slot16(a));
+        if (k + 1 == m) break;
+        if (vrt_trunc16(b) == vrt_trunc16(a)) {
+            tie = true;
+            break;
+        }
+        vrt_put16(w1, w2, m - 2 - k, vrt_slot16(b));
+        if (k + 2 == m) break;
+        const float last = b;
+        vrt_least2<true>(pk, last, a, b);
+        if (vrt_trunc16(a) == vrt_trunc16(last)) {
+            tie = true;
+            break;
+        }
+    }
+"""
+W16_VARIANTS.update({
+    "w16n_one_key": ("this", [_sort16_edit([(_W16_TWO_A_PASS, """\
+    int near = 0;
+    float prev = 0.0f;
+    bool tie = false;
+    for (int k = 0; k < m; ++k) {
+        float mn = pk[0];
+#pragma unroll
+        for (int c = 1; c < 16; ++c) mn = fminf(mn, pk[c]);
+        const int s = vrt_slot16(mn);
+        const float tv = vrt_trunc16(mn);
+        if (k > 0 && tv == prev) {
+            tie = true;
+            break;
+        }
+        prev = tv;
+        if (k == 0) near = s;
+        vrt_put16(w1, w2, m - 1 - k, s);
+#pragma unroll
+        for (int c = 0; c < 16; ++c) pk[c] = (c == s) ? VRT_SORT16_INF : pk[c];
+    }
+""")])]),
+    "w16n_exact_lo": ("this", [_sort16_edit([
+        ("""    float pk[16];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+        pk[c] = ((hits >> c) & 1u)
+            ? vrt_u2f((vrt_f2u(ds[c]) & ~15u) | (uint32_t)c)
+            : VRT_SORT16_INF;
+    }""", """    float pk[16];
+    uint32_t lo1 = 0u, lo2 = 0u;
+#pragma unroll
+    for (int c = 15; c >= 0; --c) {
+        const uint32_t u = vrt_f2u(ds[c]);
+        pk[c] = ((hits >> c) & 1u) ? vrt_u2f((u & ~15u) | (uint32_t)c)
+                                   : VRT_SORT16_INF;
+        if (c >= 8) lo2 = (lo2 << 4) | (u & 15u);
+        else lo1 = (lo1 << 4) | (u & 15u);
+    }"""),
+        ("""            d2[c] = ds[c];""", """            const uint32_t lo = ((c < 8 ? lo1 : lo2) >> (4 * (c & 7))) & 15u;
+            d2[c] = ((hits >> c) & 1u)
+                ? vrt_u2f((vrt_f2u(pk[c]) & ~15u) | lo) : -1e30f;""")])]),
+})
+W16_TIMING_ONLY = {"w16_no_net"}
+# the counters of a copy of this tree's step (``w16_counts``, not timed;
+# they count the walk, the same in every version that orders as the
+# network does): per internal step of a lane and per warp's internal step
+# (the lanes at an internal node that step together), the node's
+# children, the hit children m (keys above -LARGE), ties between two hit
+# keys, and m's histogram over lanes' steps
+W16_COUNTERS = ("lane_steps", "nch", "warp_steps", "warp_max_nch", "m",
+                "warp_max_m", "lane_ties", "warp_ties", "lane_m2",
+                "warp_m2", "warp_max_groups", "lane_groups")
+_W16_ORDER = "    uint32_t p1, p2;\n"
+W16_COUNTS = ("this", [
+    ("__device__ __forceinline__ int internal_step16(",
+     "__device__ unsigned long long vrt_w16_cnt[32];\n\n"
+     "__device__ __forceinline__ int internal_step16("),
+    (_W16_ORDER, """\
+    {
+        const unsigned act = __activemask();
+        int mh = 0, tie = 0;
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+            mh += ds[c] > -VRT_LARGE ? 1 : 0;
+#pragma unroll
+            for (int e = c + 1; e < 16; ++e)
+                tie |= (ds[c] > -VRT_LARGE && ds[c] == ds[e]) ? 1 : 0;
+        }
+        const unsigned grp = (unsigned)(nch + 3) >> 2;
+        const unsigned v[12] = {
+            (unsigned)__popc(act), __reduce_add_sync(act, (unsigned)nch), 1u,
+            __reduce_max_sync(act, (unsigned)nch),
+            __reduce_add_sync(act, (unsigned)mh),
+            __reduce_max_sync(act, (unsigned)mh),
+            __reduce_add_sync(act, (unsigned)tie),
+            __reduce_or_sync(act, (unsigned)tie),
+            __reduce_add_sync(act, mh >= 2 ? 1u : 0u),
+            __reduce_or_sync(act, mh >= 2 ? 1u : 0u),
+            __reduce_max_sync(act, grp), __reduce_add_sync(act, grp)};
+        if ((int)(threadIdx.x & 31) == __ffs(act) - 1) {
+#pragma unroll
+            for (int k = 0; k < 12; ++k)
+                atomicAdd(&vrt_w16_cnt[k], (unsigned long long)v[k]);
+        }
+        atomicAdd(&vrt_w16_cnt[12 + mh], 1ull);
+    }
+""" + _W16_ORDER),
+    ('extern "C" int vrt_traverse_packet_stack_max(void)', """\
+extern "C" int vrt_w16_counts(unsigned long long* out, int reset) {
+    cudaError_t e = cudaDeviceSynchronize();
+    if (e == cudaSuccess)
+        e = cudaMemcpyFromSymbol(out, vrt_w16_cnt, sizeof(vrt_w16_cnt));
+    if (e == cudaSuccess && reset) {
+        static const unsigned long long zero[32] = {0};
+        e = cudaMemcpyToSymbol(vrt_w16_cnt, zero, sizeof(zero));
+    }
+    return (int)e;
+}
+
+extern "C" int vrt_traverse_packet_stack_max(void)""")])
 
 
 def _events_ms(torch, fn, reps: int) -> float:
@@ -357,6 +600,12 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=4)
     ap.add_argument("--variants", action="store_true",
                     help="also time VARIANTS (this tree only)")
+    ap.add_argument("--old", action="append", default=[],
+                    help="w16: another traverse_packet.cu with the same C "
+                         "interface, timed in turns with this tree's "
+                         "(repeat for more: old, old2, ...)")
+    ap.add_argument("--w16-variants", default="",
+                    help="w16: names of W16_VARIANTS to time in turns")
     ap.add_argument("--out", default=None, help="write the JSON line here too")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
@@ -602,9 +851,110 @@ def _ptxas_entries(log: str) -> dict:
     return {k: " | ".join(v) for k, v in out.items()}
 
 
+def w16_build(kernels, specs: dict, olds=(), pred=None) -> dict:
+    """Copies of ``traverse_packet.cu`` ({name: (base, edits)}, as
+    ``W16_VARIANTS``; base "this" is this tree's source, "old" the first
+    of the sources ``olds`` (this tree's when none), "old<i>" the i-th),
+    each built as the default library and, with predicate ``pred``, with
+    its header too, one nvcc a build, all at once: {name: {"": library,
+    "pred": library}}."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    this = kernels.SRC_DIR / "traverse_packet.cu"
+    bases = {"this": this, "old": Path(olds[0]).resolve() if olds else this}
+    for i, old in enumerate(olds[1:], 2):
+        bases[f"old{i}"] = Path(old).resolve()
+    out_dir = kernels.BUILD_DIR.parent / "walk_variants"
+    srcs = {}
+    for base, src in bases.items():
+        d = out_dir / base
+        d.mkdir(parents=True, exist_ok=True)
+        for hdr in src.parent.glob("*.cuh"):
+            shutil.copy(hdr, d / hdr.name)
+    for name, (base, edits) in specs.items():
+        text = bases[base].read_text()
+        for edit in edits:
+            if callable(edit):
+                text = edit(text)
+                continue
+            a, b = edit
+            if text.count(a) != 1:
+                raise RuntimeError(f"{name}: {a!r} is not in the source once")
+            text = text.replace(a, b)
+        srcs[name] = out_dir / base / f"{name}.cu"
+        srcs[name].write_text(text)
+    modes = {"": {}}
+    if pred is not None:
+        hdr = pred.write(kernels.PRED_DIR)
+        modes["pred"] = dict(defines=(f"VRT_PRED_HEADER={hdr.name}",),
+                             include_dirs=(kernels.PRED_DIR,), headers=(hdr,))
+    with ThreadPoolExecutor(8) as ex:
+        futs = {(n, m): ex.submit(kernels.load_file, "traverse_packet", src,
+                                  **kw)
+                for n, src in srcs.items() for m, kw in modes.items()}
+        return {n: {m: futs[(n, m)].result() for m in modes} for n in srcs}
+
+
+def _w16_libs(kernels, args, pred) -> dict:
+    """The 16-wide walk's other versions for ``--parts w16``: ``--old``
+    as ``old``, ``--w16-variants``, and ``w16_counts``."""
+    names = ["old", *(f"old{i}" for i in range(2, len(args.old) + 1))]
+    specs = {n: (n, []) for n in names[:len(args.old)]}
+    for n in filter(None, args.w16_variants.split(",")):
+        specs[n] = W16_VARIANTS[n]
+    specs["w16_counts"] = W16_COUNTS
+    return w16_build(kernels, specs, args.old, pred)
+
+
+def w16_through(kernels, pred, libs: dict, make):
+    """``make()`` with K1's default library (and, with ``pred``, the one
+    built with it) taken from ``libs`` (``w16_build``'s pair) during it."""
+    keys = {"traverse_packet": libs[""]}
+    if pred is not None:
+        keys[f"traverse_packet+pred-{pred.digest}"] = libs["pred"]
+    saved = {k: kernels._loaded[k] for k in keys}
+    kernels._loaded.update(keys)
+    try:
+        return make()
+    finally:
+        kernels._loaded.update(saved)
+
+
+def w16_counts(lib, run) -> dict:
+    """Step 0's counters (``W16_COUNTERS``) over one ``run()`` of the
+    counting copy ``lib``: means a lane's internal step and a warp's, the
+    shares with ties and with m >= 2, and m's histogram."""
+    import ctypes
+
+    buf = (ctypes.c_ulonglong * 32)()
+    fn = lib.lib.vrt_w16_counts
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    for reset in (1, 0):
+        if reset == 0:
+            run()
+        err = fn(ctypes.addressof(buf), reset)
+        if err:
+            raise RuntimeError(f"vrt_w16_counts: {lib.error_string(err)}")
+    c = dict(zip(W16_COUNTERS, list(buf)))
+    lanes, warps = max(c["lane_steps"], 1), max(c["warp_steps"], 1)
+    return dict(counts=c, m_hist=list(buf)[12:29],
+                nch_mean=c["nch"] / lanes,
+                nch_warp_max_mean=c["warp_max_nch"] / warps,
+                m_mean=c["m"] / lanes, m_warp_max_mean=c["warp_max_m"] / warps,
+                groups_mean=c["lane_groups"] / lanes,
+                groups_warp_max_mean=c["warp_max_groups"] / warps,
+                lanes_per_warp_step=c["lane_steps"] / warps,
+                tie_share=c["lane_ties"] / lanes,
+                warp_tie_share=c["warp_ties"] / warps,
+                m2_share=c["lane_m2"] / lanes,
+                warp_m2_share=c["warp_m2"] / warps)
+
+
 def w16_part(args, out, dev) -> None:
-    """K1 at width 16 beside width 8 on ladder configs 3 and 4 (module
-    docstring)."""
+    """K1 at width 16 beside width 8 on ladder configs 3 and 4 and row 6
+    (module docstring)."""
     import time
 
     import torch
@@ -612,8 +962,68 @@ def w16_part(args, out, dev) -> None:
     from vortex_rt_tpu_torch import (
         RenderParams, RTConfig, Scene, WavefrontRenderer,
     )
+    from vortex_rt_tpu_torch.engine.shaders import (
+        ShaderTable, stateless_anyhit,
+    )
     from vortex_rt_tpu_torch.models.bigscenes import atrium, blob
+    from vortex_rt_tpu_torch.ops import traverse_packet as tp
+    from vortex_rt_tpu_torch.ops.anyhit_pred import compile_predicate
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import bench_ladder
+    from vortex_rt_tpu_torch.tools import walk_bounds as wb
     from vortex_rt_tpu_torch.tools.k1_timing import width_pair_wave
+
+    pred = compile_predicate(bench_ladder.checker_pred)
+    kernels.load_pred("traverse_packet", pred)
+    libs = _w16_libs(kernels, args, pred)
+    out["w16"]["ptxas_entries"] = {
+        f"{n}{'+checker' if m else ''}": _ptxas_entries(lib.build_log)
+        for n, pair in libs.items() for m, lib in pair.items()}
+    for n, e in out["w16"]["ptxas_entries"].items():
+        print(f"w16 build {n}: " + json.dumps(
+            {k: v for k, v in e.items() if "16_kernel" in k}),
+            file=sys.stderr)
+
+    def wave(label, name, wa16, wa8, o, d, kw, bound_kw=None):
+        extra = {n: (w16_through(kernels, pred, pair, lambda: tp.kernel_call(
+            wa16, o, d, **kw)), n not in W16_TIMING_ONLY)
+            for n, pair in libs.items() if n != "w16_counts"}
+        rec = width_pair_wave(wa16, wa8, o, d, kw, args.reps, extra,
+                              bound_kw)
+        rec["step0"] = w16_counts(
+            libs["w16_counts"]["pred" if "anyhit_pred" in kw else ""],
+            w16_through(kernels, pred, libs["w16_counts"],
+                         lambda: tp.kernel_call(wa16, o, d, **kw)))
+        out["w16"][label][name] = rec
+        print(f"w16 {label} {name}: {rec}", file=sys.stderr)
+
+    def frames(label, rs, cam, p, w, h):
+        walks = {"w16": (rs[16], None), "w8": (rs[8], None)}
+        for n in libs:
+            if n.startswith("old"):
+                walks[n] = (rs[16], libs[n])
+        ms = {n: [] for n in walks}
+        rays = {}
+
+        def render(n):
+            r, lib = walks[n]
+            run = lambda: r.render_burst(cam, p, w, h, n_frames=1,  # noqa
+                                         rays_only=True)
+            return run() if lib is None else w16_through(kernels, pred,
+                                                          lib, run)
+        for n in walks:
+            render(n)
+        for n in list(walks) + list(walks)[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rays[n] = render(n)
+            torch.cuda.synchronize()
+            ms[n].append((time.perf_counter() - t0) * 1e3)
+        # (the two trees may split a tie on an edge two leaves share
+        # differently, H24: a frame's rays can differ by a few)
+        out["w16"][label]["frame_ms"] = ms
+        out["w16"][label]["rays"] = rays
+        print(f"w16 {label} frames: {ms}", file=sys.stderr)
 
     names = ("closest0", "shadow0", "closest1", "merged1", "shadow2")
     for label, meshes, spp, n_waves in (
@@ -628,31 +1038,28 @@ def w16_part(args, out, dev) -> None:
             for w in (16, 8)}
         cam = Scene.framing_camera(sb, 45.0, HD[0] / HD[1])
         p = RenderParams(max_depth=3, spp=spp, shadow=True, pathtrace=True)
-        rec = out["w16"][label] = dict(
+        out["w16"][label] = dict(
             tris=sb.num_tris, depth={w: r.wa.depth for w, r in rs.items()},
             nodes={w: int(r.wa.nodes.shape[0]) for w, r in rs.items()},
             fused_bytes={w: r.wa.fused.numel() * 4 for w, r in rs.items()})
         for name, (o, d, kw) in zip(names, _capture(rs[16], cam, p, *HD,
                                                    limit=n_waves)):
-            rec[name] = width_pair_wave(rs[16].wa, rs[8].wa, o, d, kw,
-                                        args.reps)
-            print(f"w16 {label} {name}: {rec[name]}", file=sys.stderr)
-        frames = {16: [], 8: []}
-        for w in (16, 8):
-            rs[w].render_burst(cam, p, *HD, n_frames=1, rays_only=True)
-        for w in (16, 8, 8, 16):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            rays = rs[w].render_burst(cam, p, *HD, n_frames=1,
-                                      rays_only=True)
-            torch.cuda.synchronize()
-            frames[w].append(((time.perf_counter() - t0) * 1e3, rays))
-        # (the two trees may split a tie on an edge two leaves share
-        # differently, H24: a frame's rays can differ by a few)
-        rec["frame_ms"] = {w: [t for t, _ in f] for w, f in frames.items()}
-        rec["rays"] = {w: f[0][1] for w, f in frames.items()}
-        print(f"w16 {label} frames: {rec['frame_ms']}", file=sys.stderr)
+            wave(label, name, rs[16].wa, rs[8].wa, o, d, kw)
+        frames(label, rs, cam, p, *HD)
         del rs
+    # row 6: the alpha and checker-predicate primary waves at 512x512
+    _, r6, cam6, p6, table_a = bench_ladder.setup6(dev)
+    tables = {"alpha": table_a, "pred": ShaderTable(anyhit=stateless_anyhit(
+        bench_ladder.checker_pred, "checker"))}
+    r16 = WavefrontRenderer.from_buffers(
+        r6.sb, RTConfig(flatten=True, bvh_width=16), table_a, device=dev)
+    out["w16"]["row6"] = dict(depth={16: r16.wa.depth, 8: r6.wa.depth})
+    for kind, table in tables.items():
+        rk = dataclasses.replace(r16, table=table)
+        o, d, kw = _capture(rk, cam6, p6, 512, 512, limit=1)[0]
+        wave("row6", f"{kind}_512_closest", r16.wa, r6.wa, o, d, kw,
+             dict(lookups=True) if kind == "alpha" else
+             dict(lookups=False, pred_ops=wb.pred_ops(pred)))
 
 
 def k1a_part(args, out, dev, timed) -> None:
