@@ -296,11 +296,15 @@ and so exits non-zero, on failure):
     camera rays, their shadow rays and (K1) the mixed ``occl_split``
     wave of both: every hit field and per-ray step equal to the bit;
     then each whole 512x512 wave (primary, shadow; K1 also mixed) through
-    the bare launch, held to the bit against the plain walk of the same
-    wave, and timed by CUDA events in predicate mode, in alpha mode and
+    the bare launch, with the predicate's slot classes
+    (``ops/pred_classes.py``, made once a table on the host: their counts
+    printed) and with every slot forced to ``CLS_TEST`` (the parent's
+    tests), both held to the bit against the plain walk of the same wave,
+    and timed by CUDA events in turns with the alpha mode and the walk
     without any-hit on the same rays, beside the predicate mode's bound
-    (``walk_bounds``, the predicate's operations added to each test) and
-    the plain walk's time;
+    (``walk_bounds``: the tests and texel reads the classes leave, each
+    with the predicate's operations; every candidate's beside), the
+    candidates' shares by class and the plain walk's time;
 19c. ladder row 6's scene with ``stateless_anyhit(checker_pred)``, launch
     counts reset before and read after: the 512x512 and 1080p frames
     through K1's predicate mode (8 ``traverse_packet_pred`` launches a
@@ -327,8 +331,9 @@ and so exits non-zero, on failure):
 20a. K1 at width 16 (``RTConfig(bvh_width=16, flatten=True)``, 40-word
     rows, host-built): the ptxas lines of its six width-16 entries (the
     default library's four, the checker predicate build's two), and its
-    8-wide entries' lines equal to those before the width-16 entries
-    existed (``K1_PTXAS_W8``);
+    8-wide default and alpha entries' lines equal to those before the
+    width-16 entries existed (``K1_PTXAS_W8``; the predicate entries'
+    lines printed);
 20b. config 3's 1080p primary wave and the five waves of a config-4
     sample pass (``PT_WAVES``), captured from the 16-wide frame: K1 at
     width 16 against the plain walk on the card (hits and per-ray steps
@@ -2847,7 +2852,10 @@ def phase_pred_walks(device, r_flat, r_tlas, plain_wa, cam6, pred,
     """19b: K1's and K2's predicate modes against their plain versions (to
     the bit) on a crop of row 6's 1080p waves through the wrappers, then on
     each whole 512x512 wave through the bare launch it times (in predicate
-    mode, alpha mode and without any-hit, beside the bound)."""
+    mode with its slot classes and with every slot forced to ``CLS_TEST``,
+    the parent's tests, in alpha mode and without any-hit, beside the
+    bound of the tests the classes leave and of every candidate's), with
+    the candidates' shares by slot class."""
     import torch
 
     from vortex_rt_tpu_torch.ops import packet_walk as pw
@@ -2888,6 +2896,13 @@ def phase_pred_walks(device, r_flat, r_tlas, plain_wa, cam6, pred,
             ("packet_walk_pred", r_tlas, pw.trace_packets_walk,
              pw.trace_packets_walk_ref, pw.walk_work_4, pw)):
         k1 = mod is tp
+        t0 = time.perf_counter()
+        classes = mod.pred_classes(r.wa, pred)
+        class_s = time.perf_counter() - t0
+        all_test = classes._replace(cls=torch.zeros_like(classes.cls))
+        print(f"  {name}: slot classes {classes.counts}, representative "
+              f"alpha {classes.rep:.6g}, ops without a rule "
+              f"{list(classes.no_rule)}; made in {class_s:.2f} s on the host")
         for mode, co, cd, kw in waves(r.wa, walk, oh, dh, k1):
             k, ks = walk(r.wa, co, cd, anyhit_pred=pred, **kw)
             _sync(device)
@@ -2901,33 +2916,50 @@ def phase_pred_walks(device, r_flat, r_tlas, plain_wa, cam6, pred,
         for mode, co, cd, kw in waves(r.wa, walk, o, d, k1):
             calls = {
                 "pred": mod.kernel_call(r.wa, co, cd, anyhit_pred=pred, **kw),
+                "all_test": mod.kernel_call(r.wa, co, cd, anyhit_pred=pred,
+                                            pred_cls=all_test, **kw),
                 "alpha": mod.kernel_call(r.wa, co, cd, alpha_ref=ALPHA6,
                                          **kw),
                 "none": mod.kernel_call(none_wa, co, cd, **kw)}
             got[mode] = calls["pred"]()
+            every = calls["all_test"]()
             _sync(device)
             # the plain walk of the whole wave, counting its work
             want, steps, work = work_fn(r.wa, co, cd, anyhit_pred=pred, **kw)
             _same_hits(f"{name} {mode} {size}x{size}", got[mode][0], want,
                        got[mode][1], steps)
-            del want
+            _same_hits(f"{name} {mode} {size}x{size}, every slot tested",
+                       every[0], want, every[1], steps)
+            del want, every
             ms = {n: [] for n in calls}
             for n in [*calls, *reversed(list(calls))]:  # in turns
                 ms[n].append(_device_ms(calls[n], reps))
             ms = {n: sum(v) / len(v) for n, v in ms.items()}
-            b = (wb.k1_bound(work, lookups=False, pred_ops=wb.pred_ops(pred))
-                 if k1 else wb.k2_bound(work, pred_ops=wb.pred_ops(pred)))
-            out[mode] = dict(ms=ms["pred"], alpha_ms=ms["alpha"],
-                             no_anyhit_ms=ms["none"], bound_ms=b.ms,
-                             bound_by=b.bound_by,
-                             pred_tests=int(work.alpha_tests.sum()),
+            p_ops = wb.pred_ops(pred)
+            b, b0 = ((wb.k1_bound if k1 else wb.k2_bound)(
+                work, lookups=lk, pred_ops=p_ops) for lk in (True, False))
+            cand = int(work.alpha_tests.sum())
+            share = {c: n / max(cand, 1) for c, n in zip(
+                ("test", "kept", "cut", "uv"), work.by_class.tolist())}
+            out[mode] = dict(ms=ms["pred"], all_test_ms=ms["all_test"],
+                             alpha_ms=ms["alpha"], no_anyhit_ms=ms["none"],
+                             bound_ms=b.ms, bound_by=b.bound_by,
+                             bound_every_ms=b0.ms, pred_tests=cand,
+                             tests_made=int(work.alpha_lookups.sum()),
+                             texel_reads=int(work.texel_reads.sum()),
+                             class_share=share,
                              mean_steps=float(steps.float().mean()))
             print(f"  {name} {mode} {size}x{size} ({co.shape[0]} rays): "
-                  f"predicate {ms['pred']:.4f} ms, alpha {ms['alpha']:.4f} "
-                  f"ms, without any-hit {ms['none']:.4f} ms (events, mean "
-                  f"of {reps} launches, in turns); bound {b.ms:.4f} ms "
-                  f"({b.bound_by}) = {b.ms / ms['pred']:.1%}; "
-                  f"{out[mode]['pred_tests']} predicate tests, steps mean "
+                  f"predicate {ms['pred']:.4f} ms, every slot tested "
+                  f"{ms['all_test']:.4f} ms, alpha {ms['alpha']:.4f} ms, "
+                  f"without any-hit {ms['none']:.4f} ms (events, mean of "
+                  f"{reps} launches, in turns); bound {b.ms:.4f} ms "
+                  f"({b.bound_by}) = {b.ms / ms['pred']:.1%} (every "
+                  f"candidate tested: {b0.ms:.4f} ms); {cand} candidates, "
+                  f"by class " + ", ".join(f"{c} {v:.1%}" for c, v in
+                                           share.items())
+                  + f"; {out[mode]['tests_made']} tests, "
+                  f"{out[mode]['texel_reads']} texel reads; steps mean "
                   f"{out[mode]['mean_steps']:.3f}")
         _sync(device)
         t0 = time.perf_counter()
@@ -2940,9 +2972,13 @@ def phase_pred_walks(device, r_flat, r_tlas, plain_wa, cam6, pred,
         prim = out["primary"]
         rec[name] = dict(max_abs_err=0.0, ms=prim["ms"], plain_ms=plain_ms,
                          bound_ms=prim["bound_ms"], bound_by=prim["bound_by"],
+                         bound_every_ms=prim["bound_every_ms"],
+                         all_test_ms=prim["all_test_ms"],
                          alpha_ms=prim["alpha_ms"],
                          no_anyhit_ms=prim["no_anyhit_ms"],
                          pred_tests=prim["pred_tests"],
+                         class_share=prim["class_share"],
+                         slot_classes=classes.counts, class_build_s=class_s,
                          other_waves={k: v for k, v in out.items()
                                       if k != "primary"})
         print(f"  {name}: the plain walk's primary wave {plain_ms:.2f} ms")
@@ -3141,7 +3177,8 @@ def phase_pred_perforated(device, r_flat, r_tlas, r_pool, sb6, cam6, p6,
         waves = {"primary": rec, **rec["other_waves"]}
         ref = {"primary": checker[name], **checker[name]["other_waves"]}
         for mode, w in waves.items():
-            print(f"  {name} {mode} 512x512: perforated {w['ms']:.4f} ms, "
+            print(f"  {name} {mode} 512x512: perforated {w['ms']:.4f} ms "
+                  f"(every slot tested {w['all_test_ms']:.4f}), "
                   f"checker {ref[mode]['ms']:.4f} ms, alpha "
                   f"{w['alpha_ms']:.4f} ms, without any-hit "
                   f"{w['no_anyhit_ms']:.4f} ms; bound {w['bound_ms']:.4f} "
@@ -4457,7 +4494,7 @@ K1_PTXAS_W8 = {
     f"traverse_packet_kernel<{m},{st}>": (
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | "
         "Used 64 registers, used 0 barriers")
-    for m in (0, 1, 2) for st in (0, 1)}
+    for m in (0, 1) for st in (0, 1)}
 WIDE16_ENTRIES = ("traverse_packet16", "traverse_packet16_alpha",
                   "traverse_packet16_pred", "traverse_packet16_stats")
 
@@ -4488,12 +4525,13 @@ def phase_wide16_build(libs, pred) -> dict:
                                                    pred).build_log)}
     for lib, lines in built.items():
         for name, line in sorted(lines.items()):
-            if "16_kernel" not in name:
+            held = name in K1_PTXAS_W8  # (the 8-wide default and alpha ones)
+            if held:
                 _check(line == K1_PTXAS_W8[name],
                        f"{lib} {name}: ptxas {line!r}, before the width-16 "
                        f"entries {K1_PTXAS_W8[name]!r}")
-            print(f"  {lib} {name}: {line}"
-                  + ("" if "16_kernel" in name else "  (as before)"))
+            print(f"  {lib} {name}: {line}" + ("  (as before)" if held
+                                               else ""))
     wide = {k: v for lines in built.values() for k, v in lines.items()
             if "16_kernel" in k}
     _check(len(wide) == 6 and len(built["default"]) == 8
@@ -4751,8 +4789,8 @@ def phase_wide16_row6(device, sb6, sb6_tlas, cam6, p6, size: int = 512
                f"differs from the plain walk")
         pred_ops = (wb.pred_ops(compile_predicate(bench_ladder.checker_pred))
                     if kind == "pred" else 0)
-        b = wb.k1_bound(work, lookups=kind == "alpha", pred_ops=pred_ops,
-                        width=16)
+        b = wb.k1_bound(work, pred_ops=pred_ops, width=16)
+        b0 = wb.k1_bound(work, lookups=False, pred_ops=pred_ops, width=16)
         wave_ms = device_ms(tp.kernel_call(r.wa, o, d, **walk_kw), 10)
         plain_ms = _elapsed_ms(lambda: tp.trace_packets_ref(r.wa, o, d,
                                                             **walk_kw),
@@ -4761,6 +4799,7 @@ def phase_wide16_row6(device, sb6, sb6_tlas, cam6, p6, size: int = 512
                          max_abs_err_vs_suspension=err, ms=wave_ms,
                          plain_ms=plain_ms, bound_ms=b.ms,
                          bound_by=b.bound_by, bound_share=b.ms / wave_ms,
+                         bound_every_ms=b0.ms,
                          tests=int(work.alpha_tests.sum()),
                          lookups=int(work.alpha_lookups.sum()),
                          mean_steps=float(sp.float().mean()))
@@ -5194,6 +5233,9 @@ def main() -> int:
                      "library_ms": None, "ms_source": "cuda_events_launch",
                      "alpha_ms": res["alpha_ms"],
                      "no_anyhit_ms": res["no_anyhit_ms"],
+                     "all_test_ms": res["all_test_ms"],
+                     "bound_every_ms": res["bound_every_ms"],
+                     "class_share": res["class_share"],
                      "pred_tests": res["pred_tests"],
                      "pred_ops": pred19["build"]["n_ops"],
                      "pred_digest": pred19["build"]["digest"],
@@ -5204,7 +5246,8 @@ def main() -> int:
                      "perforated": {
                          **{k: perf["walks"][name].get(k) for k in (
                              "ms", "plain_ms", "bound_ms", "bound_by",
-                             "alpha_ms", "pred_tests", "other_waves")},
+                             "bound_every_ms", "all_test_ms", "alpha_ms",
+                             "class_share", "pred_tests", "other_waves")},
                          "launches": perf["frames"][
                              "k1_pred_launches" if name ==
                              "traverse_packet_pred" else "k2_pred_launches"],

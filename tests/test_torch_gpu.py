@@ -2101,3 +2101,75 @@ def test_wide16_frame_matches_plain_route(cuda, pathtrace):
     assert rays_k == rays_p == rays_8
     np.testing.assert_allclose(img_k, img_p, atol=1e-5)
     np.testing.assert_allclose(img_k, img_8, atol=1e-5)
+
+
+# ---- the predicate modes' slot classes (ops/pred_classes.py): K1 at
+# widths 8 and 16 and K2 (flat and TLAS) with the computed classes and
+# with every slot forced to CLS_TEST, against the plain walk
+
+@pytest.fixture(scope="module")
+def pred_class_tables():
+    """The textured table of ``tests/test_torch_pred_classes.py`` (texels
+    on both sides of the predicates' thresholds, negative and wrapped uv)
+    in each walk's layout, on the card."""
+    from tests.test_torch_pred_classes import table_scene
+    from vortex_rt_tpu_torch.models import procedural as tproc
+    from vortex_rt_tpu_torch.models.scene import Material as TMat
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    sc = table_scene(pt.Scene, tproc, TMat)
+    out = {}
+    for name, flat, width in (("k1w8", True, 8), ("k1w16", True, 16),
+                              ("k2flat", True, 4), ("k2tlas", False, 4)):
+        sb = sc.build(pt.RTConfig(flatten=flat))
+        wa = WideArrays.from_scene(sb, width=width)
+        out[name] = (wa.fuse() if width > 4 else wa).with_alpha(sb).to(dev)
+    return out
+
+
+@pytest.mark.parametrize("pred_name", ["checker", "perforated", "noalpha",
+                                       "norule"])
+@pytest.mark.parametrize("walk_name", ["k1w8", "k1w16", "k2flat",
+                                       "k2tlas"])
+def test_pred_classes_match_plain_version(cuda, pred_class_tables,
+                                          walk_name, pred_name):
+    """The predicate mode with its slot classes (kept, cut out, tested on
+    the uv alone with the representative alpha, tested) and with every
+    slot forced to ``CLS_TEST``: hits and per-ray steps equal to the
+    plain walk's, which tests every candidate, in closest-hit and
+    occlusion (K1: ``occl_split``) waves; one launch each."""
+    from tests.test_torch_pred_classes import PREDS
+    from vortex_rt_tpu_torch.ops import packet_walk as pw
+    from vortex_rt_tpu_torch.ops import traverse_packet as tp
+
+    wa = pred_class_tables[walk_name]
+    pred = PREDS[pred_name]
+    k1 = walk_name.startswith("k1")
+    mod = tp if k1 else pw
+    ref = tp.trace_packets_ref if k1 else pw.trace_packets_walk_ref
+    name = ("traverse_packet16_pred" if walk_name == "k1w16" else
+            "traverse_packet_pred" if k1 else "packet_walk_pred")
+    cls = mod.pred_classes(wa, pred)
+    assert sum(cls.counts[c] for c in ("kept", "cut", "uv")) > 0
+    lanes = _camera_lanes(cuda, 72)
+    o, d = torch.stack(lanes[:3], 1), torch.stack(lanes[3:], 1)
+    n = o.shape[0]
+    t = torch.full((n,), 6.0, device=cuda)
+    for kw in ({}, dict(t_max=torch.where(
+            torch.arange(n, device=cuda) < n // 2, t,
+            torch.full_like(t, 1e30)), occl_split=n // 2) if k1 else
+            dict(t_max=t, occlusion=True)):
+        hp, sp = ref(wa, o, d, anyhit_pred=pred, **kw)
+        for forced in (None, cls._replace(cls=torch.zeros_like(cls.cls))):
+            before = kernels.LAUNCHES[name]
+            hk, sk = mod.kernel_call(wa, o, d, anyhit_pred=pred,
+                                     pred_cls=forced, **kw)()
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES[name] == before + 1
+            for a, b in zip((*hk, sk), (*hp, sp)):
+                assert torch.equal(a, b), (walk_name, pred_name, kw.keys(),
+                                           forced is None)
+    h0, _ = ref(wa, o, d)
+    assert bool((h0.dist != hp.dist).any())  # the predicate rejects hits

@@ -30,20 +30,25 @@ __device__ __forceinline__ int vrt_floor_mod(int x, int m) {
     return ((x % m) + m) % m;
 }
 
-// The candidate's surface at barycentrics (w1, w2): its interpolated uv
-// (uv1*w1 + uv2*w2 + uv0*bz, closest.cpp:77 order) and its alpha, the
-// pool entry of the point-sampled texel (a texture side of 0 is read as
-// 1, as shade_point clamps it; with_alpha writes none).  The slot's alpha
-// fields are two float4: (u0, v0, u1, v1) and (u2, v2, texture offset
-// bits, tw << 16 | th bits).  The alpha mode compares the alpha with its
-// threshold (vrt_alpha_keep); the predicate mode hands all three to the
-// compiled predicate (ops/anyhit_pred.py).
-__device__ __forceinline__ void vrt_candidate_surface(
-        float4 f0, float4 f1, float w1, float w2, const float* pool,
-        int n_pool, float& u, float& v, float& alpha) {
+// The candidate's interpolated uv at barycentrics (w1, w2) (uv1*w1 +
+// uv2*w2 + uv0*bz, closest.cpp:77 order) from its slot's uv corners,
+// (u0, v0, u1, v1) and (u2, v2): all that the predicate mode reads of a
+// slot whose answer no texel it can reach changes (ops/pred_classes.py).
+__device__ __forceinline__ void vrt_candidate_uv(float4 f0, float2 f1,
+                                                 float w1, float w2,
+                                                 float& u, float& v) {
     const float bz = 1.0f - w1 - w2;
     u = f0.z * w1 + f1.x * w2 + f0.x * bz;
     v = f0.w * w1 + f1.y * w2 + f0.y * bz;
+}
+
+// The pool entry of the texel point-sampled at (u, v) (a texture side of
+// 0 is read as 1, as shade_point clamps it; with_alpha writes none); `f1`
+// is the slot's second alpha field, (u2, v2, texture offset bits,
+// tw << 16 | th bits).
+__device__ __forceinline__ float vrt_texel_alpha(float4 f1, float u, float v,
+                                                 const float* pool,
+                                                 int n_pool) {
     const int toff = __float_as_int(f1.z);
     const int twh = __float_as_int(f1.w);
     const int tw = max(twh >> 16, 1);
@@ -51,7 +56,20 @@ __device__ __forceinline__ void vrt_candidate_surface(
     const int iu = vrt_floor_mod((int)floorf(u * (float)tw), tw);
     const int iv = vrt_floor_mod((int)floorf(v * (float)th), th);
     const int idx = min(max(toff + iu + iv * tw, 0), n_pool - 1);
-    alpha = __ldg(pool + idx);
+    return __ldg(pool + idx);
+}
+
+// The candidate's surface at barycentrics (w1, w2): its interpolated uv
+// and its alpha, the pool entry of the point-sampled texel.  The slot's
+// alpha fields are two float4: (u0, v0, u1, v1) and (u2, v2, texture
+// offset bits, tw << 16 | th bits).  The alpha mode compares the alpha
+// with its threshold (vrt_alpha_keep); the predicate mode hands all three
+// to the compiled predicate (ops/anyhit_pred.py).
+__device__ __forceinline__ void vrt_candidate_surface(
+        float4 f0, float4 f1, float w1, float w2, const float* pool,
+        int n_pool, float& u, float& v, float& alpha) {
+    vrt_candidate_uv(f0, make_float2(f1.x, f1.y), w1, w2, u, v);
+    alpha = vrt_texel_alpha(f1, u, v, pool, n_pool);
 }
 
 // Whether the alpha mode keeps the candidate: !(alpha < thr).

@@ -59,10 +59,15 @@
 // stateless any-hit predicate compiled from torch (ops/anyhit_pred.py)
 // into `vrt_pred(u, v, alpha)`, in a header the build names with
 // -DVRT_PRED_HEADER; the entry points exist only in such a build
-// (runtime/kernels.load_pred).  Every candidate that passes
-// Moller-Trumbore is tested on its surface (u, v, alpha) as the alpha
-// mode computes it, before it counts: the JAX frame's width-4 waves with
-// `anyhit_pred` (traverse_packet.py:1057-1085).
+// (runtime/kernels.load_pred).  A candidate that passes Moller-Trumbore
+// is decided before it counts (the JAX frame's width-4 waves with
+// `anyhit_pred`, traverse_packet.py:1057-1085) by its slot's class for
+// the predicate, one class word a triangle row (`pred_cls`; the BLAS rows
+// on a TLAS build; ops/pred_classes.py, ROADMAP H25): kept or cut out
+// untested, tested on its uv alone with the representative alpha (no
+// texel read), or tested on its surface (u, v, alpha) as the alpha mode
+// computes it, as K1's predicate mode does.  The alpha mode has no
+// classes.
 //
 // Statistics (`vrt_packet_walk_stats`, `vrt_packet_walk_alpha_stats`,
 // `vrt_packet_walk_pred_stats`: the STATS = true instantiations of each
@@ -123,7 +128,8 @@ struct WalkArgs {
     int n_rays, n_nodes, n_rows, row_vec4, lmax, num_tlas, tri_bits;
     int stack_n, max_steps, occlusion;
     // alpha and predicate modes: the (L, alpha_words) alpha rows, the pool
-    // and its length; alpha mode only: the threshold
+    // and its length; the threshold (predicate mode: the representative
+    // alpha class-3 slots are tested with)
     const float4* alpha_rows;
     int alpha_vec4;
     const float* alpha_pool;
@@ -132,6 +138,10 @@ struct WalkArgs {
     // STATS only: each ray's internal and instance steps, (R,) int32
     int* int_out;
     int* ins_out;
+    // predicate mode: each triangle row's slot classes (2 bits a slot: 0
+    // test, 1 kept and 2 cut out wherever the triangle is hit, 3 tested on
+    // its uv alone; null: every slot is tested)
+    const uint32_t* pred_cls;
 };
 
 __device__ __forceinline__ float rcp_clamped(float d) {
@@ -278,6 +288,10 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
                 const int n_slots = min(a.lmax, (int)w3.w);
                 const int row_i = min(max(left, 0), a.n_rows - 1);
                 const float4* tr = a.rows + (size_t)row_i * a.row_vec4;
+#ifdef VRT_PRED_HEADER
+                const uint32_t cls_w = MODE == VRT_MODE_PRED
+                    && a.pred_cls != nullptr ? __ldg(a.pred_cls + row_i) : 0u;
+#endif
                 for (int c = 0; c < n_slots; ++c) {
                     const float4 a4 = __ldg(tr + 4 * c + 0);  // v0x v0y v0z e1x
                     const float4 b4 = __ldg(tr + 4 * c + 1);  // e1y e1z e2x e2y
@@ -309,13 +323,21 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk) {
                                             a.alpha_thr);
                     }
 #ifdef VRT_PRED_HEADER
-                    if (MODE == VRT_MODE_PRED && ok) {
+                    // kept (1) untested; cut out (2); tested on the uv
+                    // alone with the representative alpha, no texel read
+                    // (3); or tested (0)
+                    const uint32_t cls = (cls_w >> (2 * c)) & 3u;
+                    if (MODE == VRT_MODE_PRED && ok && cls == 2u) ok = false;
+                    if (MODE == VRT_MODE_PRED && ok && cls != 1u) {
                         const float4* al = a.alpha_rows
                             + (size_t)row_i * a.alpha_vec4 + 2 * c;
-                        float su, sv, salpha;
-                        vrt_candidate_surface(__ldg(al), __ldg(al + 1), w1, w2,
-                                              a.alpha_pool, a.n_pool, su, sv,
-                                              salpha);
+                        const float4 f1 = __ldg(al + 1);
+                        float su, sv;
+                        vrt_candidate_uv(__ldg(al), make_float2(f1.x, f1.y),
+                                         w1, w2, su, sv);
+                        const float salpha = cls == 3u ? a.alpha_thr
+                            : vrt_texel_alpha(f1, su, sv, a.alpha_pool,
+                                              a.n_pool);
                         ok = vrt_pred(su, sv, salpha);
                     }
 #endif
@@ -427,7 +449,7 @@ WalkArgs walk_args(const void* nodes, const void* rows, const void* o,
         (int*)tri, (int*)inst, (int*)steps,
         n_rays, n_nodes, n_rows, row_words / 4, lmax, num_tlas, tri_bits,
         stack_n, max_steps, occlusion, nullptr, 0, nullptr, 0, 0.0f,
-        nullptr, nullptr};
+        nullptr, nullptr, nullptr};
 }
 
 bool walk_sizes_ok(int n_nodes, int n_rows, int row_words, int lmax,
@@ -449,14 +471,16 @@ int launch(const WalkArgs& a, int stack_n, void* stream) {
 }
 
 // The alpha mode (threshold `thr`) or, MODE == VRT_MODE_PRED, the
-// predicate mode (`thr` unused); STATS also writes `int_steps` and
-// `ins_steps`.
+// predicate mode (the rows' slot classes `pred_cls`, null: test every
+// slot, and in `thr` the representative alpha of class-3 slots); STATS
+// also writes `int_steps` and `ins_steps`.
 template <int MODE, bool STATS>
 int launch_anyhit(
         const void* nodes, const void* rows, const void* o, const void* d,
         const void* limit, void* dist, void* bx, void* by, void* bz,
         void* tri, void* inst, void* steps, const void* alpha_rows,
-        const void* alpha_pool, void* int_steps, void* ins_steps,
+        const void* alpha_pool, const void* pred_cls, void* int_steps,
+        void* ins_steps,
         int n_rays, int n_nodes, int n_rows, int row_words, int lmax,
         int num_tlas, int tri_bits, int stack_n, int max_steps, int occlusion,
         int alpha_words, int n_pool, float thr, void* stream) {
@@ -477,6 +501,7 @@ int launch_anyhit(
     a.alpha_thr = thr;
     a.int_out = (int*)int_steps;
     a.ins_out = (int*)ins_steps;
+    a.pred_cls = (const uint32_t*)pred_cls;
     return launch<MODE, STATS>(a, stack_n, stream);
 }
 
@@ -522,9 +547,9 @@ extern "C" int vrt_packet_walk_alpha(
         int alpha_words, int n_pool, float thr, void* stream) {
     return launch_anyhit<VRT_MODE_ALPHA, false>(
         nodes, rows, o, d, limit, dist, bx, by, bz, tri, inst, steps,
-        alpha_rows, alpha_pool, nullptr, nullptr, n_rays, n_nodes, n_rows,
-        row_words, lmax, num_tlas, tri_bits, stack_n, max_steps, occlusion,
-        alpha_words, n_pool, thr, stream);
+        alpha_rows, alpha_pool, nullptr, nullptr, nullptr, n_rays, n_nodes,
+        n_rows, row_words, lmax, num_tlas, tri_bits, stack_n, max_steps,
+        occlusion, alpha_words, n_pool, thr, stream);
 }
 
 // The counting instantiations: as vrt_packet_walk and
@@ -561,41 +586,45 @@ extern "C" int vrt_packet_walk_alpha_stats(
         int alpha_words, int n_pool, float thr, void* stream) {
     return launch_anyhit<VRT_MODE_ALPHA, true>(
         nodes, rows, o, d, limit, dist, bx, by, bz, tri, inst, steps,
-        alpha_rows, alpha_pool, int_steps, ins_steps, n_rays, n_nodes, n_rows,
-        row_words, lmax, num_tlas, tri_bits, stack_n, max_steps, occlusion,
-        alpha_words, n_pool, thr, stream);
+        alpha_rows, alpha_pool, nullptr, int_steps, ins_steps, n_rays,
+        n_nodes, n_rows, row_words, lmax, num_tlas, tri_bits, stack_n,
+        max_steps, occlusion, alpha_words, n_pool, thr, stream);
 }
 
 #ifdef VRT_PRED_HEADER
-// The predicate mode: as vrt_packet_walk_alpha without the threshold;
-// every candidate is tested by the compiled predicate.
+// The predicate mode: as vrt_packet_walk_alpha, with the triangle rows'
+// slot classes for the predicate in `pred_cls` ((n_rows,) uint32, 2 bits a
+// slot, ops/pred_classes.py; null: test every slot) and the representative
+// alpha of its class-3 slots in `pred_alpha`; the compiled predicate tests
+// the candidates of slots classed 0 and 3.
 extern "C" int vrt_packet_walk_pred(
         const void* nodes, const void* rows, const void* o, const void* d,
         const void* limit, void* dist, void* bx, void* by, void* bz,
         void* tri, void* inst, void* steps, const void* alpha_rows,
-        const void* alpha_pool,
+        const void* alpha_pool, const void* pred_cls,
         int n_rays, int n_nodes, int n_rows, int row_words, int lmax,
         int num_tlas, int tri_bits, int stack_n, int max_steps, int occlusion,
-        int alpha_words, int n_pool, void* stream) {
+        int alpha_words, int n_pool, float pred_alpha, void* stream) {
     return launch_anyhit<VRT_MODE_PRED, false>(
         nodes, rows, o, d, limit, dist, bx, by, bz, tri, inst, steps,
-        alpha_rows, alpha_pool, nullptr, nullptr, n_rays, n_nodes, n_rows,
-        row_words, lmax, num_tlas, tri_bits, stack_n, max_steps, occlusion,
-        alpha_words, n_pool, 0.0f, stream);
+        alpha_rows, alpha_pool, pred_cls, nullptr, nullptr, n_rays, n_nodes,
+        n_rows, row_words, lmax, num_tlas, tri_bits, stack_n, max_steps,
+        occlusion, alpha_words, n_pool, pred_alpha, stream);
 }
 
 extern "C" int vrt_packet_walk_pred_stats(
         const void* nodes, const void* rows, const void* o, const void* d,
         const void* limit, void* dist, void* bx, void* by, void* bz,
         void* tri, void* inst, void* steps, const void* alpha_rows,
-        const void* alpha_pool, void* int_steps, void* ins_steps,
+        const void* alpha_pool, const void* pred_cls, void* int_steps,
+        void* ins_steps,
         int n_rays, int n_nodes, int n_rows, int row_words, int lmax,
         int num_tlas, int tri_bits, int stack_n, int max_steps, int occlusion,
-        int alpha_words, int n_pool, void* stream) {
+        int alpha_words, int n_pool, float pred_alpha, void* stream) {
     return launch_anyhit<VRT_MODE_PRED, true>(
         nodes, rows, o, d, limit, dist, bx, by, bz, tri, inst, steps,
-        alpha_rows, alpha_pool, int_steps, ins_steps, n_rays, n_nodes, n_rows,
-        row_words, lmax, num_tlas, tri_bits, stack_n, max_steps, occlusion,
-        alpha_words, n_pool, 0.0f, stream);
+        alpha_rows, alpha_pool, pred_cls, int_steps, ins_steps, n_rays,
+        n_nodes, n_rows, row_words, lmax, num_tlas, tri_bits, stack_n,
+        max_steps, occlusion, alpha_words, n_pool, pred_alpha, stream);
 }
 #endif

@@ -76,11 +76,18 @@
 // build names with -DVRT_PRED_HEADER; the entry points exist only in such
 // a build (runtime/kernels.load_pred), so the default library is the one
 // above.  This replaces the in-loop `anyhit_pred` of the JAX body
-// (:723-761, :1057-1085).  Every candidate that passes Moller-Trumbore
-// is tested, with no slot classes (they belong to a threshold, ROADMAP
-// H17): its surface (u, v, alpha) as the alpha mode computes it
-// (alpha_test.cuh), then the predicate, before the leaf's fold, and so
-// before an occlusion ray retires.
+// (:723-761, :1057-1085).  A candidate that passes Moller-Trumbore is
+// decided before the leaf's fold, and so before an occlusion ray retires,
+// by its slot's class for the predicate (ops/pred_classes.py: 2 bits a
+// slot in `alpha_cls`, made once a table and predicate by interval
+// arithmetic over the compiled graph, ROADMAP H25): kept (1) or cut out
+// (2) wherever its triangle is hit, untested; tested on its uv alone with
+// the table's representative alpha (3: no texel the slot can reach
+// changes the answer, so no pool read, and only the uv corners of its
+// fields); or tested (0): its surface (u, v, alpha) as the alpha mode
+// computes it (alpha_test.cuh), then the predicate.  On row 6's scene
+// no slot is of class 0 (its texels pass both shipped predicates' alpha
+// terms); the checker's classes decide a third of the candidates (PERF.md).
 //
 // Statistics (`vrt_traverse_packet_stats`, `vrt_traverse_packet_alpha_stats`,
 // `vrt_traverse_packet_pred_stats`: the STATS = true instantiations of
@@ -176,9 +183,11 @@ struct WalkArgs {
     int n_rays, n_nodes, row_vec4, lmax, tri_bits, stack_n, max_steps;
     int occl_split;
     // alpha and predicate modes: the pool, its length, the float4 offset
-    // of a row's alpha fields; alpha mode only: the threshold, and each
-    // row's slot classes (2 bits a slot: 0 test, 1 kept and 2 cut out
-    // wherever the triangle is hit; null: every slot is tested)
+    // of a row's alpha fields; the threshold (predicate mode: the
+    // representative alpha class-3 slots are tested with), and each row's
+    // slot classes (2 bits a slot: 0 test, 1 kept and 2 cut out wherever
+    // the triangle is hit, 3 (predicate mode) tested on its uv alone;
+    // null: every slot is tested)
     const float* alpha_pool;
     int n_pool, alpha_vec4;
     float alpha_thr;
@@ -307,6 +316,7 @@ template <int WIDTH, int MODE, bool STATS>
 __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk,
                                          int* stk2) {
     constexpr bool ALPHA = MODE == VRT_MODE_ALPHA;
+    constexpr bool CLASSED = ALPHA || MODE == VRT_MODE_PRED;
     // the row's meta quarter (the last two child boxes, meta, leaf_n) and
     // its first leaf slot, in 16-B vectors
     constexpr int META_V4 = WIDTH == 16 ? 9 : 5;
@@ -428,7 +438,7 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk,
                     reinterpret_cast<const float4*>(row) + NODE_V4;
                 const int n_slots = min(a.lmax, (int)w5.w);
                 const uint32_t cls_w =
-                    ALPHA && a.alpha_cls != nullptr ? __ldg(a.alpha_cls + node) : 0u;
+                    CLASSED && a.alpha_cls != nullptr ? __ldg(a.alpha_cls + node) : 0u;
                 float t_min = VRT_LARGE, w1_sel = 0.0f, w2_sel = 0.0f;
                 int tid_sel = VRT_INT_MAX;
                 for (int c = 0; c < n_slots; ++c) {
@@ -463,13 +473,20 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& a, int i, int2* stk,
                                             a.alpha_pool, a.n_pool, a.alpha_thr);
                     }
 #ifdef VRT_PRED_HEADER
-                    if (MODE == VRT_MODE_PRED && ok) {
+                    // kept (1) untested; cut out (2); tested on the uv
+                    // alone with the representative alpha, no texel read
+                    // (3); or tested (0)
+                    if (MODE == VRT_MODE_PRED && ok && cls == 2u) ok = false;
+                    if (MODE == VRT_MODE_PRED && ok && cls != 1u) {
                         const float4* al = reinterpret_cast<const float4*>(row)
                             + a.alpha_vec4 + 2 * c;
-                        float su, sv, salpha;
-                        vrt_candidate_surface(__ldg(al), __ldg(al + 1), w1, w2,
-                                              a.alpha_pool, a.n_pool, su, sv,
-                                              salpha);
+                        const float4 f1 = __ldg(al + 1);
+                        float su, sv;
+                        vrt_candidate_uv(__ldg(al), make_float2(f1.x, f1.y),
+                                         w1, w2, su, sv);
+                        const float salpha = cls == 3u ? a.alpha_thr
+                            : vrt_texel_alpha(f1, su, sv, a.alpha_pool,
+                                              a.n_pool);
                         ok = vrt_pred(su, sv, salpha);
                     }
 #endif
@@ -607,8 +624,9 @@ int launch_plain(
 }
 
 // The alpha mode (`thr` and the slot classes `alpha_cls`, null: test every
-// slot) or, MODE == VRT_MODE_PRED, the predicate mode (no threshold, no
-// classes); STATS also writes `int_steps`.
+// slot) or, MODE == VRT_MODE_PRED, the predicate mode (its classes, and in
+// `thr` the representative alpha of class-3 slots); STATS also writes
+// `int_steps`.
 template <int WIDTH, int MODE, bool STATS>
 int launch_alpha(
         const void* fused, const void* o, const void* d, const void* limit,
@@ -708,22 +726,27 @@ VRT_ENTRIES(, 8)
 VRT_ENTRIES(16, 16)
 
 #ifdef VRT_PRED_HEADER
-// The predicate mode (`_pred`): as the alpha mode without the threshold
-// and the classes; every candidate is tested by the compiled predicate.
+// The predicate mode (`_pred`): as the alpha mode, with the rows' slot
+// classes for the predicate in `pred_cls` (ops/pred_classes.py; null: test
+// every slot) and the representative alpha of its class-3 slots in
+// `pred_alpha`; the compiled predicate tests the candidates of slots
+// classed 0 and 3.
 #define VRT_PRED_ENTRIES(SUFFIX, W)                                          \
 extern "C" int vrt_traverse_packet##SUFFIX##_pred(                           \
-        VRT_PLAIN_ARGS, const void* alpha_pool, VRT_SIZE_ARGS, int n_pool,  \
-        int slots, void* stream) {                                           \
+        VRT_PLAIN_ARGS, const void* alpha_pool, const void* pred_cls,       \
+        VRT_SIZE_ARGS, int n_pool, int slots, float pred_alpha,             \
+        void* stream) {                                                      \
     return launch_alpha<W, VRT_MODE_PRED, false>(                            \
-        VRT_PLAIN_PASS, alpha_pool, nullptr, nullptr, VRT_SIZE_PASS,        \
-        n_pool, slots, 0.0f, stream);                                       \
+        VRT_PLAIN_PASS, alpha_pool, pred_cls, nullptr, VRT_SIZE_PASS,       \
+        n_pool, slots, pred_alpha, stream);                                 \
 }                                                                            \
 extern "C" int vrt_traverse_packet##SUFFIX##_pred_stats(                     \
-        VRT_PLAIN_ARGS, const void* alpha_pool, void* int_steps,            \
-        VRT_SIZE_ARGS, int n_pool, int slots, void* stream) {               \
+        VRT_PLAIN_ARGS, const void* alpha_pool, const void* pred_cls,       \
+        void* int_steps, VRT_SIZE_ARGS, int n_pool, int slots,              \
+        float pred_alpha, void* stream) {                                    \
     return launch_alpha<W, VRT_MODE_PRED, true>(                             \
-        VRT_PLAIN_PASS, alpha_pool, nullptr, int_steps, VRT_SIZE_PASS,      \
-        n_pool, slots, 0.0f, stream);                                       \
+        VRT_PLAIN_PASS, alpha_pool, pred_cls, int_steps, VRT_SIZE_PASS,     \
+        n_pool, slots, pred_alpha, stream);                                 \
 }
 
 VRT_PRED_ENTRIES(, 8)

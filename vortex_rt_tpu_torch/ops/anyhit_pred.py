@@ -93,7 +93,7 @@ import os
 import tempfile
 import weakref
 from pathlib import Path
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -254,6 +254,23 @@ __device__ __forceinline__ T vrt_p_ipow(T a, T b) {
 """
 
 
+class PredStep(NamedTuple):
+    """One operation of the emitted function, as the kernel computes it:
+    node ``name``, op ``kind`` (``_kind``'s, with ``ipow`` for ``pow`` on
+    integers, ``const`` for a captured 0-dim tensor), result type
+    ``out``, and its operands in order, each ``(ref, dtype)``: ``ref`` a
+    node name (str) or a Python scalar, converted to ``dtype`` as
+    ``_cast`` / ``_literal`` convert it; ``params``: the rounding mode of
+    a ``div``, the bounds a ``clamp`` has (``("min", "max")`` or one of
+    them).  ``ops/pred_classes.py`` evaluates these over intervals."""
+
+    name: str
+    kind: str
+    out: torch.dtype
+    args: tuple
+    params: tuple = ()
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class CompiledPredicate:
     """A predicate compiled for the walks' predicate modes.
@@ -263,13 +280,26 @@ class CompiledPredicate:
     once; the module docstring), ``text`` the header that defines
     ``vrt_pred``, ``digest`` a hash of the text (the header's name and
     part of its kernels' build key) and ``ops`` the kinds of the emitted
-    function's operations in graph order."""
+    function's operations in graph order; ``steps`` the same operations
+    with their types and operands (``PredStep``), ``inputs`` the node
+    names of u, v and alpha and ``output`` the result's node name."""
 
     fn: Callable
     plain: Callable
     text: str
     digest: str
     ops: Tuple[str, ...]
+    steps: Tuple[PredStep, ...] = ()
+    inputs: Tuple[str, str, str] = ("u", "v", "alpha")
+    output: str = ""
+
+    @property
+    def reads_alpha(self) -> bool:
+        """Whether any operation reads the alpha argument: a predicate
+        that does not decides on (u, v) alone (its slot classes test
+        every undecided slot without a texel read)."""
+        a = self.inputs[2]
+        return any(ref == a for st in self.steps for ref, _ in st.args)
 
     @property
     def n_ops(self) -> int:
@@ -458,10 +488,12 @@ def _compile(pred) -> CompiledPredicate:
     env: Dict[str, Tuple[str, torch.dtype]] = {}
     for node, cname in zip(holders, ("u", "v", "alpha")):
         env[node.name] = (cname, torch.float32)
-    lines, kinds, rounded = [], [], {}
+    lines, kinds, rounded, steps = [], [], {}, []
+    used = []  # the node's operands, (ref, dtype) in order
 
     def operand(a, dt: torch.dtype) -> str:
         """Argument ``a`` (a node or a Python scalar) as type ``dt``."""
+        used.append((a.name if isinstance(a, torch.fx.Node) else a, dt))
         if isinstance(a, torch.fx.Node):
             expr, src = env[a.name]
             return _cast(expr, src, dt)
@@ -488,7 +520,11 @@ def _compile(pred) -> CompiledPredicate:
         if node.op == "get_attr":  # a captured 0-dim tensor: a literal
             t = getattr(gm, node.target)
             env[node.name] = (_literal(t.item(), t.dtype), t.dtype)
+            steps.append(PredStep(node.name, "const", t.dtype,
+                                  ((t.item(), t.dtype),)))
             continue
+        used.clear()
+        params = ()
         name = _op_name(node)
         kind = _kind(node)
         out_dt = _dtype(node)
@@ -522,6 +558,7 @@ def _compile(pred) -> CompiledPredicate:
                 raise _refuse(f".{name}({', '.join(map(str, args[1:]))}"
                               f"{', ' if kw else ''}{kw or ''})")
             expr = _cast(*env[src.name], target)
+            used.append((src.name, env[src.name][1]))
         elif kind in ("add", "sub", "mul", "square"):
             if kind == "square":
                 args = [args[0], args[0]]
@@ -537,6 +574,7 @@ def _compile(pred) -> CompiledPredicate:
             if out_dt == torch.bool or mode not in ("trunc", "floor"):
                 raise _refuse(f"{name} with rounding_mode={mode!r} to "
                               f"{out_dt}")
+            params = (mode,)
             expr = (f"truncf(__fdiv_rn({a}, {b}))" if fl and mode == "trunc"
                     else f"vrt_p_idiv<{ct}, {u_t}>({a}, {b})"
                     if mode == "trunc" else f"vrt_p_ffloordiv({a}, {b})"
@@ -601,6 +639,7 @@ def _compile(pred) -> CompiledPredicate:
             if sdt is None:
                 raise _refuse(f"{name} of a Python scalar")
             a = env[src.name][0]
+            used.append((src.name, sdt))
             if sdt == torch.float32:
                 expr = {"isnan": f"({a} != {a})",
                         "isinf": f"(fabsf({a}) == {_INF})",
@@ -629,6 +668,8 @@ def _compile(pred) -> CompiledPredicate:
                     expr = f"{mx}({expr}, {operand(bounds['min'], out_dt)})"
                 if bounds.get("max") is not None:
                     expr = f"{mn}({expr}, {operand(bounds['max'], out_dt)})"
+                params = tuple(k for k in ("min", "max")
+                               if bounds.get(k) is not None)
         elif kind == "where":
             if len(args) != 3:
                 raise _refuse("where without three operands")
@@ -636,6 +677,7 @@ def _compile(pred) -> CompiledPredicate:
             if not isinstance(c, torch.fx.Node) \
                     or env[c.name][1] != torch.bool:
                 raise _refuse("where with a condition that is not bool")
+            used.append((c.name, torch.bool))
             expr = (f"({env[c.name][0]} ? {operand(a, out_dt)} : "
                     f"{operand(b, out_dt)})")
         elif kind in _COMPARE:
@@ -660,6 +702,8 @@ def _compile(pred) -> CompiledPredicate:
             ops = [_cast(env[x.name][0], env[x.name][1], torch.bool)
                    if isinstance(x, torch.fx.Node)
                    else _literal(x, torch.bool) for x in args]
+            used.extend((x.name if isinstance(x, torch.fx.Node) else x,
+                         torch.bool) for x in args)
             expr = (f"(!{ops[0]})" if kind == "logical_not" else
                     f"({ops[0]} {_LOGICAL[kind]} {ops[1]})")
         else:  # (every kind of the tables is handled above)
@@ -667,6 +711,7 @@ def _compile(pred) -> CompiledPredicate:
         cname = f"p{len(lines)}"
         lines.append(f"    const {ct} {cname} = {expr};  // {node.name}")
         kinds.append(kind)
+        steps.append(PredStep(node.name, kind, out_dt, tuple(used), params))
         env[node.name] = (cname, out_dt)
     out = list(gm.graph.nodes)[-1].args[0]
     body = "\n".join(lines)
@@ -679,7 +724,10 @@ def _compile(pred) -> CompiledPredicate:
             f"{body}\n    return {env[out.name][0]};\n}}\n")
     digest = hashlib.sha256(text.encode()).hexdigest()[:16]
     return CompiledPredicate(fn=pred, plain=_plain(gm, rounded), text=text,
-                             digest=digest, ops=tuple(kinds))
+                             digest=digest, ops=tuple(kinds),
+                             steps=tuple(steps),
+                             inputs=tuple(h.name for h in holders),
+                             output=out.name)
 
 
 def _plain(gm, rounded: Dict[str, str]):

@@ -32,10 +32,12 @@ candidate whose predicate is false, as the JAX
 ``trace_packets(anyhit_pred=pred)`` does; it wins over ``alpha_ref``.
 CUDA tensors launch the predicate mode of a library built with the
 compiled predicate (``kernels.load_pred``), counted as
-``packet_walk_pred``; the plain version calls the compiled predicate's
-plain version (``CompiledPredicate.plain``: its correctly rounded ops
-in float64, rounded once, as the kernel evaluates them) on the
-candidates' (u, v, alpha).
+``packet_walk_pred``, which decides a slot's candidates by its class
+(``pred_classes``, a class word a triangle row; ``ops/pred_classes.py``);
+the plain version tests every candidate: it calls the compiled
+predicate's plain version (``CompiledPredicate.plain``: its correctly
+rounded ops in float64, rounded once, as the kernel evaluates them) on
+the candidates' (u, v, alpha).
 The TPU kernel walked the union of a 1024-ray packet's paths; both
 versions here walk each ray's own path, which gives the same hits (the
 closest hit is a min over a ray's own candidates with a lexicographic
@@ -51,6 +53,9 @@ import torch
 
 from vortex_rt_tpu_torch.ops.anyhit_pred import (
     CompiledPredicate, compile_predicate,
+)
+from vortex_rt_tpu_torch.ops.pred_classes import (
+    CLS_TEST, CLS_UV, PredClasses, build as build_classes, check_classes,
 )
 from vortex_rt_tpu_torch.ops.traverse2 import Hits
 from vortex_rt_tpu_torch.ops.traverse_wide import (
@@ -80,9 +85,13 @@ class WalkWork(NamedTuple):
     instance nodes (TLAS builds), and alpha tests (candidates that
     passed Moller-Trumbore in an alpha-mode walk); per table row
     ((rows,) int64), the bytes of it the walk reads (0 for a row no ray
-    visits); and the alpha tests the kernel makes (K1's: the candidates
-    of slots its classes leave to the test; K2 tests every candidate).  An alpha-mode walk's rows
-    include the alpha pool's entries, 4 B each."""
+    visits); and the alpha tests the kernel makes (K1's alpha mode: the
+    candidates of slots its classes leave to the test; the predicate
+    modes: the candidates of slots classed ``CLS_TEST`` or ``CLS_UV``, of
+    which only the first read a texel, ``texel_reads``; K2's alpha mode
+    tests every candidate), and in a predicate walk the candidates by
+    slot class (``by_class``, (4,): test, kept, cut, uv).  An alpha-mode
+    walk's rows include the alpha pool's entries, 4 B each."""
 
     internal: torch.Tensor
     child_slots: torch.Tensor
@@ -92,6 +101,8 @@ class WalkWork(NamedTuple):
     alpha_tests: torch.Tensor
     row_bytes: torch.Tensor
     alpha_lookups: torch.Tensor
+    texel_reads: Optional[torch.Tensor] = None
+    by_class: Optional[torch.Tensor] = None
 
     @staticmethod
     def zeros(r: int, rows: int, device) -> "WalkWork":
@@ -100,7 +111,17 @@ class WalkWork(NamedTuple):
 
         return WalkWork(*(per_ray() for _ in range(6)),
                         torch.zeros(rows, dtype=torch.int64, device=device),
-                        per_ray())
+                        per_ray(), per_ray(),
+                        torch.zeros(4, dtype=torch.int64, device=device))
+
+    def classify(self, cand, cls, looked, texel) -> None:
+        """Count the candidates ``cand`` of one slot column by class
+        ``cls`` (per ray), the tests (``looked``) and texel reads
+        (``texel``) the kernel makes of them."""
+        self.alpha_lookups.add_(looked.to(torch.int64))
+        self.texel_reads.add_(texel.to(torch.int64))
+        if cls is not None:
+            self.by_class.add_(torch.bincount(cls[cand], minlength=4))
 
     def read(self, row, nbytes, mask) -> None:
         """Rays in ``mask`` read ``nbytes`` of table row ``row`` (a row
@@ -188,6 +209,30 @@ def pred_keep(pred: CompiledPredicate, f, w1, w2, pool: torch.Tensor,
     keep = torch.ones_like(mask)
     keep[mask] = pred.plain(u[mask], v[mask], alpha[mask])
     return keep, idx
+
+
+def pred_classes(wa: WideArrays, pred) -> PredClasses:
+    """The slot classes of K2's predicate mode for ``pred`` over the
+    4-wide tables' alpha rows (one class word a triangle row: the BLAS
+    rows on a TLAS build; ``ops/pred_classes.py``), made once per table
+    and predicate on the CPU and kept with ``wa`` keyed by the
+    predicate's header hash (ROADMAP hazard H25).  Raises for rows of
+    more than 16 slots."""
+    compiled = compile_predicate(pred)
+    kept = wa.__dict__.setdefault("_pred_classes", {})
+    if compiled.digest not in kept:
+        check_alpha(wa)
+        n, k = wa.tri_rows.shape[0], wa.tri_rows.shape[1] // 16
+        nodes = wa.nodes.cpu().long() & 0xFFFFFFFF
+        leaf = (nodes[:, META] >> 29) == 1
+        row = (nodes[:, META] & LEFT_MASK)[leaf].clamp(0, n - 1)
+        cnt = torch.zeros(n, dtype=torch.int64)
+        cnt[row] = nodes[:, LEAF][leaf]
+        real = torch.arange(k) < cnt.unsqueeze(1)
+        kept[compiled.digest] = build_classes(
+            compiled, wa.alpha_rows.cpu().reshape(n, k, 8), wa.alpha_pool,
+            real, wa.nodes.device)
+    return kept[compiled.digest]
 
 
 def anyhit_mode(alpha_ref: Optional[float], anyhit_pred
@@ -318,18 +363,25 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                 t_max: Optional[torch.Tensor] = None,
                 occlusion: bool = False, max_steps: int = MAX_STEPS,
                 alpha_ref: Optional[float] = None, stats: bool = False,
-                anyhit_pred=None) -> Callable[[], tuple]:
+                anyhit_pred=None,
+                pred_cls: Optional[PredClasses] = None
+                ) -> Callable[[], tuple]:
     """The kernel launch of ``trace_packets_walk`` for CUDA tensors, with
     the inputs checked and the search limits and outputs made once.  Each
     call of the returned function launches the kernel into the same
     outputs and returns them, and does nothing else: CUDA events around
     many calls time the kernel alone.  ``stats=True`` launches the
     counting instantiation, which also returns the ``StepKinds``;
-    ``anyhit_pred`` the predicate mode of the library built with it."""
+    ``anyhit_pred`` the predicate mode of the library built with it, with
+    the slot classes ``pred_classes`` makes (``pred_cls``: others, for
+    measuring and testing the kernel, e.g. every slot ``CLS_TEST``)."""
     _check(wa, o, d, active, t_max)
     alpha_ref, pred = anyhit_mode(alpha_ref, anyhit_pred)
     if alpha_ref is not None or pred is not None:
         check_alpha(wa)
+    if pred is not None:
+        pred_cls = pred_cls or pred_classes(wa, pred)
+        check_classes(pred_cls.cls, wa.tri_rows.shape[0], o.device)
     stack_n = check_stack(wa)
     if o.device.type != "cuda":
         raise ValueError(f"no CUDA walk for device {o.device}")
@@ -373,11 +425,14 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
         common = [t.data_ptr() for t in tensors]
         if mode:
             common += [wa.alpha_rows.data_ptr(), wa.alpha_pool.data_ptr()]
+        if mode == "pred":
+            common.append(pred_cls.cls.data_ptr())
         if stats:
             common += [kinds.internal.data_ptr(), kinds.instance.data_ptr()]
         alpha_sizes = (() if not mode else
-                       (wa.alpha_rows.shape[1], wa.alpha_pool.shape[0])
-                       + ((float(alpha_ref),) if mode == "alpha" else ()))
+                       (wa.alpha_rows.shape[1], wa.alpha_pool.shape[0],
+                        float(alpha_ref if mode == "alpha"
+                              else pred_cls.rep)))
         fn = getattr(lib.lib, "vrt_packet_walk" + (f"_{mode}" if mode else "")
                      + ("_stats" if stats else ""))
         with torch.cuda.device(dev):
@@ -445,6 +500,9 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
     alpha = alpha_ref is not None or pred is not None
     if alpha:
         check_alpha(wa)
+    # the kernel's classes (predicate mode), for its count of tests only
+    classes = pred_classes(wa, pred).cls if pred is not None and count \
+        else None
     dev = o.device
     r = o.shape[0]
     limit = _limit(r, dev, active, t_max)
@@ -555,7 +613,10 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
         tr = rows[row_i]
         tr_i = rows_i[row_i]
         ar = wa.alpha_rows[row_i] if alpha else None
+        cls_w = (None if classes is None
+                 else classes[row_i].to(torch.int64) & 0xFFFFFFFF)
         n_alpha = torch.zeros(r, dtype=torch.int64, device=dev)
+        n_looked = torch.zeros(r, dtype=torch.int64, device=dev)
         t_b, bx_b, by_b, tri_b, bi_b = best_t, bx, by, tri, binst
         for c in range(lmax):
             b0 = 16 * c
@@ -587,9 +648,18 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
                              pred_keep(pred, alpha_fields(ar, c), w1, w2,
                                        wa.alpha_pool, ok))
                 if count:
+                    # the predicate mode tests the slots its classes leave
+                    # to the test, reading a texel for "test" ones; the
+                    # alpha mode tests every candidate
+                    cls = None if cls_w is None else (cls_w >> (2 * c)) & 3
+                    texel = ok if cls is None else ok & (cls == CLS_TEST)
+                    looked = texel if cls is None else (
+                        texel | (ok & (cls == CLS_UV)))
                     n_alpha += ok.to(torch.int64)
+                    n_looked += looked.to(torch.int64)
+                    work.classify(ok, cls, looked, texel)
                     work.read(n_nodes + 2 * n_rows + idx,
-                              torch.full_like(idx, 4), ok)
+                              torch.full_like(idx, 4), texel)
                 ok = ok & keep
             t = torch.where(ok, t, large)
             if occlusion:
@@ -613,11 +683,13 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
                 is_inst, 80, 16)), alive)
             work.read(n_nodes + row_i, TRI_SLOT_BYTES * slots, is_leaf)
             if alpha:
-                # the alpha fields of the slots whose candidates it tests
+                # the alpha fields of the slots whose candidates it tests,
+                # and in predicate mode the leaf row's class word (4 B)
                 work.alpha_tests.add_(n_alpha)
-                work.alpha_lookups.add_(n_alpha)  # (K2 has no classes)
-                work.read(n_nodes + n_rows + row_i, ALPHA_SLOT_BYTES * n_alpha,
-                          is_leaf & (n_alpha > 0))
+                cw = 4 if classes is not None else 0
+                work.read(n_nodes + n_rows + row_i,
+                          ALPHA_SLOT_BYTES * n_looked + cw,
+                          is_leaf & ((n_looked > 0) | (cw > 0)))
 
         # ---- instance: world ray -> instance space, descend to BLAS ----
         mm = [row_f[:, INST_XFORM + k] for k in range(12)]

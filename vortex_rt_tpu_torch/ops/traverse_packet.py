@@ -71,10 +71,14 @@ correctly rounded (the float32 rounding of their float64 evaluation),
 and raises ``NotImplementedError`` for what it refuses, on any device;
 CUDA tensors launch the predicate mode of the library built with it
 (``kernels.load_pred``, counted as ``traverse_packet_pred``), which
-tests every candidate (no slot classes); the plain version calls the
-compiled predicate's plain version (``CompiledPredicate.plain``: the
-same float64 evaluations, rounded once) on the candidates' (u, v,
-alpha).
+decides a slot's candidates by its class for the predicate
+(``pred_classes``: kept, cut out, tested on the uv alone with no texel
+read, or tested; ``ops/pred_classes.py``); the plain version tests every
+candidate: it calls the compiled predicate's plain version
+(``CompiledPredicate.plain``: the same float64 evaluations, rounded
+once) on the candidates' (u, v, alpha), so its hits check the classes
+(``walk_work`` counts the kernel's tests, texel reads and the
+candidates by class).
 """
 
 from __future__ import annotations
@@ -83,10 +87,15 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from vortex_rt_tpu_torch.ops.anyhit_pred import compile_predicate
 from vortex_rt_tpu_torch.ops.packet_walk import (
     ALPHA_SLOT_BYTES, TRI_SLOT_BYTES, StepKinds, WalkWork, _rcp,
     alpha_fields, alpha_keep, anyhit_mode, check_alpha, check_rays,
     pred_keep,
+)
+from vortex_rt_tpu_torch.ops.pred_classes import (  # noqa: F401
+    _CLS_MARGIN, _CLS_SPAN, CLS_CUT, CLS_KEPT, CLS_TEST, CLS_UV, PredClasses,
+    build as build_classes, check_classes, texel_box,
 )
 from vortex_rt_tpu_torch.ops.traverse2 import Hits
 from vortex_rt_tpu_torch.ops.traverse_wide import (
@@ -233,14 +242,12 @@ def alpha_offset(wa: WideArrays) -> int:
     return nw + 16 * k
 
 
-# the slot classes of alpha_classes (2 bits a slot of a fused row)
-CLS_TEST, CLS_KEPT, CLS_CUT = 0, 1, 2
-# the classes' texel boxes: a slot's uv triangle spans at most this many
-# texels along an axis (times its largest |uv|), so that the walk's float32
-# uv interpolation lands within _CLS_MARGIN of a texel coordinate of the
-# triangle's corners (its rounding: about 1e-6 of that span)
-_CLS_SPAN = 2048.0
-_CLS_MARGIN = 2.0**-8
+# the slot classes of alpha_classes and pred_classes (2 bits a slot of a
+# fused row); the texel boxes of both: a slot's uv triangle spans at most
+# _CLS_SPAN texels along an axis (times its largest |uv|), so that the
+# walk's float32 uv interpolation lands within _CLS_MARGIN of a texel
+# coordinate of the triangle's corners (its rounding: about 1e-6 of that
+# span); ops/pred_classes.texel_box
 
 
 def alpha_classes(wa: WideArrays, thr: float) -> Optional[torch.Tensor]:
@@ -280,24 +287,8 @@ def _classes(f, a_off: int, n: int, k: int, pool, thr: float):
     th = (twh & 0xFFFF).clamp_min(1)
     keep = ~(pool < torch.tensor(thr, dtype=torch.float32, device=dev))
 
-    def texels(c, side):
-        """The texel range [lo, hi] of corners c (n, k, 3) along an axis
-        of ``side`` texels, after the floored modulo (the whole side
-        where the range wraps)."""
-        lo = torch.floor(c.amin(-1) * side - _CLS_MARGIN)
-        hi = torch.floor(c.amax(-1) * side + _CLS_MARGIN)
-        fit = (torch.isfinite(c).all(-1)
-               & (c.abs().amax(-1) * side <= _CLS_SPAN))
-        lo = torch.where(fit, lo, 0.0)
-        hi = torch.where(fit, hi, 0.0)
-        shift = torch.floor(lo / side) * side
-        lo, hi = lo - shift, hi - shift
-        fit = fit & (hi <= side - 1)
-        return (torch.where(fit, lo, 0).long(),
-                torch.where(fit, hi, side - 1).long())
-
-    ulo, uhi = texels(uv[..., 0::2], tw.double())
-    vlo, vhi = texels(uv[..., 1::2], th.double())
+    ulo, uhi = texel_box(uv[..., 0::2], tw.double())
+    vlo, vhi = texel_box(uv[..., 1::2], th.double())
     # each texture's summed-area table of kept texels, one flat array
     tex, inv = torch.unique(torch.stack([toff, tw, th], -1).reshape(-1, 3),
                             dim=0, return_inverse=True)
@@ -331,6 +322,32 @@ def _classes(f, a_off: int, n: int, k: int, pool, thr: float):
     packed = (cls << shift).sum(-1)
     return torch.where(packed >= 2**31, packed - 2**32,
                        packed).to(torch.int32)
+
+
+def pred_classes(wa: WideArrays, pred) -> PredClasses:
+    """The slot classes of K1's predicate mode for ``pred`` (a callable
+    or its ``CompiledPredicate``) over the fused rows' alpha fields
+    (``ops/pred_classes.py``: 2 bits a slot, ``CLS_TEST``, ``CLS_KEPT``,
+    ``CLS_CUT`` or ``CLS_UV``, and the representative alpha of class-3
+    tests), made once per table and predicate on the CPU and kept with
+    ``wa`` keyed by the predicate's header hash, as the alpha classes are
+    per threshold (ROADMAP hazards H17, H25).  Raises for rows of more
+    than 16 slots."""
+    compiled = compile_predicate(pred)
+    kept = wa.__dict__.setdefault("_pred_classes", {})
+    if compiled.digest not in kept:
+        f = wa.fused
+        n, k = f.shape[0], wa.tri_rows.shape[1] // 16
+        a_off = alpha_offset(wa)
+        _, _, m_off, l_off, _ = row_layout(wa.width)
+        rows = f.cpu()
+        leaf = (rows[:, m_off].long() & 0xFFFFFFFF) >> 29 == 1
+        real = leaf.unsqueeze(1) & (torch.arange(k) < rows[:, l_off].long()
+                                    .unsqueeze(1))
+        kept[compiled.digest] = build_classes(
+            compiled, rows[:, a_off:a_off + 8 * k].reshape(n, k, 8),
+            wa.alpha_pool, real, f.device)
+    return kept[compiled.digest]
 
 
 def _check(wa: WideArrays, o, d, active, t_max, occl_split: int) -> None:
@@ -399,20 +416,26 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
                 occlusion: bool = False, occl_split: int = 0,
                 max_steps: int = MAX_STEPS,
                 alpha_ref: Optional[float] = None, stats: bool = False,
-                anyhit_pred=None) -> Callable[[], tuple]:
+                anyhit_pred=None,
+                pred_cls: Optional[PredClasses] = None
+                ) -> Callable[[], tuple]:
     """The kernel launch of ``trace_packets`` for CUDA tensors, with the
     inputs checked and the outputs allocated once.  Each call of the
     returned function launches the kernel into the same outputs and
     returns them, and does nothing else: CUDA events around many calls
     time the kernel alone.  ``stats=True`` launches the counting
     instantiation, which also returns the ``StepKinds``;
-    ``anyhit_pred`` the predicate mode of the library built with it."""
+    ``anyhit_pred`` the predicate mode of the library built with it, with
+    the slot classes ``pred_classes`` makes (``pred_cls``: others, for
+    measuring and testing the kernel, e.g. every slot ``CLS_TEST``)."""
     _check(wa, o, d, active, t_max, occl_split)
     alpha_ref, pred = anyhit_mode(alpha_ref, anyhit_pred)
     if alpha_ref is not None:
         classes = alpha_classes(wa, alpha_ref)
     if pred is not None:
         alpha_offset(wa)
+        pred_cls = pred_cls or pred_classes(wa, pred)
+        check_classes(pred_cls.cls, wa.fused.shape[0], o.device)
     if o.device.type != "cuda":
         raise ValueError(f"no CUDA walk for device {o.device}")
     stack_n = check_stack(wa)
@@ -467,6 +490,9 @@ def kernel_call(wa: WideArrays, o: torch.Tensor, d: torch.Tensor,
         if mode == "alpha":
             ptrs.append(0 if classes is None else classes.data_ptr())
             alpha_sizes += (float(alpha_ref),)
+        if mode == "pred":
+            ptrs.append(pred_cls.cls.data_ptr())
+            alpha_sizes += (float(pred_cls.rep),)
         if stats:
             ptrs.append(kinds.internal.data_ptr())
         fn = getattr(lib.lib, f"vrt_{entry}"
@@ -537,10 +563,11 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
     # alpha: the surface of every candidate is read (either mode)
     alpha = alpha_ref is not None or pred is not None
     a_off = alpha_offset(wa) if alpha else 0
-    # the kernel's classes (alpha mode), for its count of tests only: the
-    # hits come from testing every candidate
-    classes = (alpha_classes(wa, alpha_ref)
-               if alpha_ref is not None and count else None)
+    # the kernel's classes (alpha and predicate modes), for its count of
+    # tests only: the hits come from testing every candidate
+    classes = (alpha_classes(wa, alpha_ref) if alpha_ref is not None
+               and count else pred_classes(wa, pred).cls if pred is not None
+               and count else None)
     dev = o.device
     r = o.shape[0]
     occ = torch.arange(r, device=dev) < _split(r, occlusion, occl_split)
@@ -702,14 +729,20 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
                              pred_keep(pred, alpha_fields(ar, c), w1, w2,
                                        wa.alpha_pool, ok & is_tri))
                 if count:
-                    # the kernel looks up the candidates of the slots its
-                    # classes leave to the test (every slot, without them)
+                    # the kernel tests the candidates of the slots its
+                    # classes leave to the test (every slot, without
+                    # them), reading a texel for those classed "test"
                     tested = ok & is_tri
                     n_alpha += tested.to(torch.int64)
-                    looked = tested if cls_w is None else (
-                        tested & (((cls_w >> (2 * c)) & 3) == CLS_TEST))
+                    cls = None if cls_w is None else (cls_w >> (2 * c)) & 3
+                    texel = tested if cls is None else (
+                        tested & (cls == CLS_TEST))
+                    looked = texel if pred is None or cls is None else (
+                        texel | (tested & (cls == CLS_UV)))
                     n_looked += looked.to(torch.int64)
-                    work.read(n_nodes + idx, torch.full_like(idx, 4), looked)
+                    work.classify(tested, None if pred is None else cls,
+                                  looked, texel)
+                    work.read(n_nodes + idx, torch.full_like(idx, 4), texel)
                 ok = ok & keep
             t = torch.where(ok, t, large)
             better = (t < t_min) | ((t == t_min) & (t < LARGE_FLOAT)
@@ -734,15 +767,14 @@ def _walk_ref(wa: WideArrays, o, d, active, t_max, occlusion: bool,
             # child boxes, meta, leaf_n: words 20..23, or 36..39 at width
             # 16) at every step, the words before it (the other boxes) at
             # an internal node (96 B in all, or 160 B), the triangle slots
-            # at a leaf and in alpha mode the row's slot classes (4 B) and
-            # the alpha fields of each candidate the kernel tests
+            # at a leaf and in an any-hit mode the row's slot classes
+            # (4 B) and the alpha fields of each candidate the kernel tests
             work.read(node_c, torch.where(is_int, 4 * base, torch.where(
                 is_tri, 16 + TRI_SLOT_BYTES * slots
                 + ALPHA_SLOT_BYTES * n_looked
-                + (4 if alpha_ref is not None else 0), 16)),
+                + (4 if classes is not None else 0), 16)),
                 alive)
             work.alpha_tests.add_(n_alpha)
-            work.alpha_lookups.add_(n_looked)
 
         # ---- pop when we didn't descend; an empty stack ends the ray ----
         can_pop = sc > 0

@@ -159,12 +159,13 @@ _PRED_SIGNATURES: Dict[str, Dict[str, Tuple[List, object]]] = {
     "traverse_packet": {
         **{f"vrt_traverse_packet{w}{fn}": sig for w in ("", "16")
            for fn, sig in (
-               ("_pred", ([_P] * 13 + [_I] * 10 + [_P], _I)),
-               ("_pred_stats", ([_P] * 14 + [_I] * 10 + [_P], _I)))},
+               ("_pred", ([_P] * 14 + [_I] * 10 + [_F, _P], _I)),
+               ("_pred_stats", ([_P] * 15 + [_I] * 10 + [_F, _P], _I)))},
     },
     "packet_walk": {
-        "vrt_packet_walk_pred": ([_P] * 14 + [_I] * 12 + [_P], _I),
-        "vrt_packet_walk_pred_stats": ([_P] * 16 + [_I] * 12 + [_P], _I),
+        "vrt_packet_walk_pred": ([_P] * 15 + [_I] * 12 + [_F, _P], _I),
+        "vrt_packet_walk_pred_stats": ([_P] * 17 + [_I] * 12 + [_F, _P],
+                                       _I),
     },
 }
 PRED_DIR = BUILD_DIR / "pred"

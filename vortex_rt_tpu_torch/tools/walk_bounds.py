@@ -29,9 +29,14 @@ most they could need:
   candidate that passed Moller-Trumbore), ``OPS_PER_ALPHA`` = 17: 2 for bz, 5 each
   for u and v, 2 products by the texture's sides, 2 floors, 1
   comparison;
-- a predicate test (K1's and K2's predicate mode, every candidate that
-  passed Moller-Trumbore: no classes), ``OPS_PER_ALPHA`` and the compiled
-  predicate's own operations (``pred_ops(compiled)``, the ``pred_ops``
+- a predicate test (K1's and K2's predicate mode: since PR 21 the
+  candidates of slots their classes leave to the test,
+  ``WalkWork.alpha_lookups``, ``OPS_UV`` = 12 for bz, u and v, and
+  ``OPS_TEXEL`` = 5 more for each that reads a texel,
+  ``WalkWork.texel_reads``; in the first figure, ``lookups=False``,
+  every candidate that passed Moller-Trumbore at ``OPS_PER_ALPHA``),
+  and the compiled predicate's own operations a test
+  (``pred_ops(compiled)``, the ``pred_ops``
   of ``k1_bound`` and ``k2_bound``): one a node of its graph, and for a
   correctly rounded op (``sqrt``, the transcendentals, ``pow`` on
   floats: float64 library sequences) its weight in ``PRED_OP_WEIGHTS``,
@@ -49,7 +54,8 @@ of a leaf row's meta and 40 B per triangle slot; K2 64 B of an internal node, 16
 of an instance node, 40 B per triangle slot; in alpha mode 32 B of
 alpha fields per slot whose candidate is tested and 4 B per alpha-pool
 entry read, and in K1's alpha mode 4 B of slot classes per leaf step;
-the predicate mode reads the same 36 B a test, without classes).  A wave in
+the predicate modes 4 B of classes per leaf step, 32 B of fields a test
+and 4 B a texel read; the first figure 36 B every candidate).  A wave in
 which no ray walks reads none of the tables.
 
 K3 (``k3_bound``), per launch, given the walk's state before and after
@@ -117,6 +123,8 @@ OPS_SORT4 = 5
 OPS_PER_TRI = 53
 OPS_PER_INSTANCE = 36
 OPS_PER_ALPHA = 17
+OPS_UV = 12
+OPS_TEXEL = OPS_PER_ALPHA - OPS_UV
 # the correctly rounded ops' weights in FP32 operations: ``weight`` of
 # ``python -m vortex_rt_tpu_torch.tools.pred_op_sass`` (nvcc 12.9 for
 # sm_90a with the kernels' flags; run on an NVIDIA H100 80GB HBM3 at
@@ -178,12 +186,15 @@ def walk_ops(work, sort_ops: int, lookups: bool = False,
     tests the kernel makes (``work.alpha_lookups``) or every candidate's
     (``work.alpha_tests``), each with ``pred_ops`` more operations in
     predicate mode."""
-    tests = work.alpha_lookups if lookups else work.alpha_tests
+    if lookups:  # the uv of each test, the texel of those that read one
+        tests = ((OPS_UV + pred_ops) * work.alpha_lookups.sum()
+                 + OPS_TEXEL * work.texel_reads.sum())
+    else:
+        tests = (OPS_PER_ALPHA + pred_ops) * work.alpha_tests.sum()
     return int(OPS_PER_CHILD * work.child_slots.sum()
                + sort_ops * work.internal.sum()
                + OPS_PER_TRI * work.tri_slots.sum()
-               + OPS_PER_INSTANCE * work.instance.sum()
-               + (OPS_PER_ALPHA + pred_ops) * tests.sum())
+               + OPS_PER_INSTANCE * work.instance.sum() + tests)
 
 
 def walk_bound(work, sort_ops: int, lookups: bool = False,
@@ -201,19 +212,21 @@ def walk_bound(work, sort_ops: int, lookups: bool = False,
 def k1_bound(work, lookups: bool = True, pred_ops: int = 0,
              width: int = 8) -> Bound:
     """K1: the 8-wide (or ``width``-wide: 16) walk over the fused table;
-    in alpha mode the tests it makes (``lookups=False``: every
-    candidate's, the first figure); in predicate mode every candidate's,
-    each with the predicate's ``pred_ops``.  The rows' bytes are in
-    ``work`` (``ops/traverse_packet.walk_work`` of a table of that
-    width)."""
+    in alpha and predicate mode the tests it makes (``lookups=False``:
+    every candidate's, the first figure), in predicate mode each with the
+    predicate's ``pred_ops``.  The rows' bytes are in ``work``
+    (``ops/traverse_packet.walk_work`` of a table of that width; its
+    bytes are the tests the classes leave in either figure)."""
     return walk_bound(work, OPS_SORT16 if width == 16 else OPS_SORT8,
                       lookups, pred_ops)
 
 
-def k2_bound(work, pred_ops: int = 0) -> Bound:
+def k2_bound(work, pred_ops: int = 0, lookups: bool = False) -> Bound:
     """K2: the 4-wide walk over the node and triangle rows (in predicate
-    mode with the predicate's ``pred_ops`` a test)."""
-    return walk_bound(work, OPS_SORT4, pred_ops=pred_ops)
+    mode with the predicate's ``pred_ops`` a test: the tests its classes
+    leave with ``lookups=True``, every candidate's without, the first
+    figure)."""
+    return walk_bound(work, OPS_SORT4, lookups, pred_ops=pred_ops)
 
 
 def k3_bound(work, before=None, after=None, suspend: bool = False

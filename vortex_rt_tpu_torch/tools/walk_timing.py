@@ -20,16 +20,23 @@ Waves, each captured from a real frame of that tree's renderer:
 - K1's and K2's predicate modes (``--parts k1p,k2p``) on ladder row 6's
   scene with ``stateless_anyhit`` of the predicate ``--pred`` names
   (``bench_ladder.PREDICATES``: ``checker``, the default, or
-  ``perforated``): the waves of its first sample pass at 512x512
-  (closest, shadow, bounce, second shadow; for K1 also the mixed wave
-  of its shadow and primary rays) and the 1080p primary wave, captured
-  from the predicate frame (K1: the
-  flat 8-wide build; K2: the 4-wide TLAS build), each timed in turns
-  (forwards, backwards) in predicate mode, in alpha mode
+  ``perforated``): the closest and shadow waves of its first sample
+  pass at 512x512 (for K1 also the mixed wave of its shadow and primary
+  rays; the bounce waves hold no live ray) and the 1080p primary wave,
+  captured from the predicate frame (K1: the flat 8-wide build; K2: the
+  4-wide TLAS build), each timed in turns (forwards, backwards) in
+  predicate mode, with its slot classes less class 3 (``cls_no_uv``)
+  and with every slot tested (``cls_all_test``), in alpha mode
   (``alpha_ref=0.30``) and without any-hit (K1: the fused rows without
   alpha fields, as ``k1a``'s) on the same rays, beside the predicate
   mode's bound (``k1_bound`` / ``k2_bound`` with the predicate's
-  operations) and its tests;
+  operations: the tests the classes leave, and every candidate's), its
+  tests, texel reads and candidates by slot class, and the counters of
+  a counting copy (``pred_counts``: candidates a lane's and a warp's
+  leaf step, the warp-steps that test, the lanes testing and the
+  distinct slots tested in them); ``--pred-variants`` (``PRED_VARIANTS``:
+  the test skipped, the texel read skipped, float32 functions for the
+  correctly rounded ops) join the turns;
 - K1 at width 16 beside width 8 (``--parts w16``): ladder config 3's
   1080p primary wave (``blob(n=187)``) and the five waves of the first
   sample pass of config 4 (``atrium()``, 1920x1080, spp 8, depth 3,
@@ -99,7 +106,8 @@ waves, and on the sum of config 2's 8 waves.
 
     python vortex_rt_tpu_torch/tools/walk_timing.py [--root DIR]
         [--parts k6,k2,k3,k1a,k1p,k2p,w16] [--reps 20] [--frames 4] [--variants]
-        [--old FILE] [--w16-variants NAME,...] [--out FILE]
+        [--old FILE] [--w16-variants NAME,...] [--pred checker|perforated]
+        [--pred-variants NAME,...] [--out FILE]
 
 (run as a file, so that the package imported is the one at ``--root``).
 Needs the card; the kernels build under ``DIR/build/torch_kernels/``.
@@ -451,6 +459,245 @@ extern "C" int vrt_w16_counts(unsigned long long* out, int reset) {
 extern "C" int vrt_traverse_packet_stack_max(void)""")])
 
 
+# K1's and K2's predicate modes (``--parts k1p,k2p --pred-variants
+# NAME,...``): copies of this tree's ``traverse_packet.cu`` or
+# ``packet_walk.cu`` built with the predicate's header (or an edit of it),
+# {name: (source edits, header edit or None)}.  Timing copies: the test
+# skipped (every candidate kept: another walk, its hits differ; the
+# ceiling of any design of the test), the texel read skipped (alpha 0.5:
+# row 6's predicates keep every texel of its checker texture, so its hits
+# stay), and the float64 sequences of the correctly rounded ops replaced
+# by the float32 functions (sinf, cosf, powf ...; its hits may differ).
+PRED_TIMING_ONLY = {"pred_no_test", "pred_f32"}
+_CR_NAMES = ("sqrt", "sin", "cos", "tan", "asin", "acos", "atan", "sinh",
+             "cosh", "tanh", "asinh", "acosh", "atanh", "exp", "exp2",
+             "expm1", "log", "log2", "log10", "log1p", "erf", "erfc",
+             "atan2", "hypot", "pow")
+
+
+def _pred_no_texel(text: str, src_dir: Path) -> str:
+    hdr = (src_dir / "alpha_test.cuh").read_text()
+    for a, b in (("    alpha = __ldg(pool + idx);\n",
+                  "    (void)idx; alpha = 0.5f;\n"),
+                 ("    return __ldg(pool + idx);\n",
+                  "    (void)idx; return 0.5f;\n")):
+        if hdr.count(a) == 1:
+            return text.replace('#include "alpha_test.cuh"',
+                                hdr.replace(a, b))
+    raise RuntimeError("alpha_test.cuh: the texel read is not there once")
+
+
+def _pred_f32_header(text: str) -> str:
+    text = re.sub(r"\b(%s)\(\(double\)" % "|".join(_CR_NAMES),
+                  lambda m: f"{m.group(1)}f((float)", text)
+    return text.replace("__double2float_rn(", "(")
+
+
+_PREFETCH = """\
+                if (MODE == VRT_MODE_PRED && (~(CLSW ^ (CLSW >> 1))
+                        & 0x55555555u & (n_slots >= 16 ? 0xFFFFFFFFu
+                                          : (1u << (2 * n_slots)) - 1u))) {
+                    const char* p = reinterpret_cast<const char*>(FIELDS);
+                    for (int b = 0; b < 32 * n_slots; b += 128)
+                        asm volatile("prefetch.global.L1 [%0];" :: "l"(p + b));
+                }
+"""
+
+
+def _prefetch_edits(lib_name: str):
+    """(c) as an early load: the leaf row's alpha-field lines prefetched
+    into L1 at the leaf step's start where a slot of the row is tested
+    (classes 0 and 3), so each test's field load meets them there."""
+    if lib_name == "traverse_packet":
+        at = ("CLASSED && a.alpha_cls != nullptr ? "
+              "__ldg(a.alpha_cls + node) : 0u;\n")
+        fields = "reinterpret_cast<const float4*>(row) + a.alpha_vec4"
+        return [(at, at + "#ifdef VRT_PRED_HEADER\n" + _PREFETCH.replace(
+            "FIELDS", fields).replace("CLSW", "cls_w") + "#endif\n")]
+    at = "&& a.pred_cls != nullptr ? __ldg(a.pred_cls + row_i) : 0u;\n"
+    fields = "a.alpha_rows + (size_t)row_i * a.alpha_vec4"
+    return [(at, at + _PREFETCH.replace("FIELDS", fields).replace(
+        "CLSW", "cls_w"))]
+
+
+# K1's predicate mode reading each slot's class byte in the slot loop (a
+# load beside the slot's) instead of the row's class word once a leaf
+# step, held in a register across the predicate's calls
+_K1_CLS_BYTE = [
+    ("const uint32_t cls = (cls_w >> (2 * c)) & 3u;\n",
+     "uint32_t cls = (cls_w >> (2 * c)) & 3u;\n"
+     "                    if (MODE == VRT_MODE_PRED && a.alpha_cls != nullptr)"
+     "\n                        cls = (__ldg(reinterpret_cast<const uint8_t*>("
+     "a.alpha_cls + node) + (c >> 2)) >> (2 * (c & 3))) & 3u;\n"),
+    ("CLASSED && a.alpha_cls != nullptr ? __ldg(a.alpha_cls + node) : 0u;",
+     "ALPHA && a.alpha_cls != nullptr ? __ldg(a.alpha_cls + node) : 0u;")]
+
+# (variants of one library only)
+PRED_VARIANT_LIB = {"pred_cls_byte": "traverse_packet"}
+PRED_VARIANTS = {
+    "pred_cls_byte": (_K1_CLS_BYTE, None),
+    "pred_no_test": ([lambda t, d: re.sub(
+        r"vrt_pred\(su, sv, [a-z_.]+\)", "true", t)], None),
+    "pred_no_texel": ([_pred_no_texel], None),
+    "pred_f32": ([], _pred_f32_header),
+}
+# the counters of a copy of the walk (``pred_counts``, not timed): per
+# leaf step of a lane and per warp's leaf step (the lanes at a triangle
+# leaf that step together), the candidates (triangles that pass
+# Moller-Trumbore), the tests (predicate calls) and texel reads, the
+# warp-steps holding a test, the lanes testing in them, the distinct
+# slots tested in a warp-step (the chains of dependent reads the warp
+# waits on) and the slot iterations
+PRED_COUNTERS = ("lane_steps", "cand", "warp_steps", "warp_max_cand",
+                 "warp_test_steps", "lanes_testing", "test_slots", "tests",
+                 "texels", "warp_multi_slot", "slot_iters",
+                 "warp_cand_steps")
+_PRED_CNT_BLOCK = """\
+                if (MODE == VRT_MODE_PRED) {
+                    const unsigned act = __activemask();
+                    const unsigned tst = vrt_tests > 0 ? 1u : 0u;
+                    const unsigned orm = __reduce_or_sync(act, vrt_tmask);
+                    const unsigned v[12] = {
+                        (unsigned)__popc(act),
+                        __reduce_add_sync(act, (unsigned)vrt_cand), 1u,
+                        __reduce_max_sync(act, (unsigned)vrt_cand),
+                        __reduce_or_sync(act, tst),
+                        __reduce_add_sync(act, tst), (unsigned)__popc(orm),
+                        __reduce_add_sync(act, (unsigned)vrt_tests),
+                        __reduce_add_sync(act, (unsigned)vrt_texels),
+                        __popc(orm) >= 2 ? 1u : 0u,
+                        __reduce_max_sync(act, (unsigned)n_slots),
+                        __reduce_or_sync(act, vrt_cand > 0 ? 1u : 0u)};
+                    if ((int)(threadIdx.x & 31) == __ffs(act) - 1) {
+#pragma unroll
+                        for (int k = 0; k < 12; ++k)
+                            atomicAdd(&vrt_pc_cnt[k],
+                                      (unsigned long long)v[k]);
+                    }
+                }
+"""
+_PRED_CNT_EXPORT = """\
+extern "C" int vrt_pc_counts(unsigned long long* out, int reset) {
+    cudaError_t e = cudaDeviceSynchronize();
+    if (e == cudaSuccess)
+        e = cudaMemcpyFromSymbol(out, vrt_pc_cnt, sizeof(vrt_pc_cnt));
+    if (e == cudaSuccess && reset) {
+        static const unsigned long long zero[16] = {0};
+        e = cudaMemcpyToSymbol(vrt_pc_cnt, zero, sizeof(zero));
+    }
+    return (int)e;
+}
+
+extern "C" const char* vrt_error_string(int err) {"""
+
+
+def _pred_counts_edits(lib_name: str):
+    k1 = lib_name == "traverse_packet"
+    slots = ("const int n_slots = min(a.lmax, (int)w5.w);\n" if k1 else
+             "const int n_slots = min(a.lmax, (int)w3.w);\n")
+    after = ("                if (occ) {\n" if k1 else
+             "            } else {\n"
+             "                // ---- instance: world ray -> instance space")
+    return [
+        ("// Walks ray i;",
+         "__device__ unsigned long long vrt_pc_cnt[16];\n\n// Walks ray i;"),
+        (slots, slots + "                int vrt_cand = 0, vrt_tests = 0, "
+         "vrt_texels = 0;\n                unsigned vrt_tmask = 0u;\n"),
+        ("&& (t > VRT_EPS);\n", "&& (t > VRT_EPS);\n"
+         "                    if (ok) ++vrt_cand;\n"),
+        (after, _PRED_CNT_BLOCK + after),
+        ('extern "C" const char* vrt_error_string(int err) {',
+         _PRED_CNT_EXPORT),
+        ("vrt_pred(su, sv, salpha)", "(vrt_tmask |= 1u << c, ++vrt_tests, "
+         "vrt_pred(su, sv, salpha))"),
+        lambda t, d: t.replace(
+            "vrt_candidate_surface(__ldg(al),",
+            "++vrt_texels; vrt_candidate_surface(__ldg(al),").replace(
+            ": vrt_texel_alpha(f1, su, sv,",
+            ": (++vrt_texels, vrt_texel_alpha)(f1, su, sv,"),
+    ]
+
+
+def pred_build(kernels, lib_name: str, names, pred) -> dict:
+    """Copies of this tree's ``lib_name`` source (``PRED_VARIANTS`` and
+    ``pred_counts`` of ``names``) built with predicate ``pred``'s header
+    (or its edit), one nvcc a build, all at once: {name: library}."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    src = kernels.SRC_DIR / f"{lib_name}.cu"
+    out_dir = kernels.BUILD_DIR.parent / "walk_variants" / "pred"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for hdr in src.parent.glob("*.cuh"):
+        shutil.copy(hdr, out_dir / hdr.name)
+    jobs = {}
+    for name in names:
+        edits, hdr_edit = ((_pred_counts_edits(lib_name), None)
+                           if name == "pred_counts" else
+                           (_prefetch_edits(lib_name), None)
+                           if name == "pred_prefetch" else PRED_VARIANTS[name])
+        text = src.read_text()
+        for edit in edits:
+            if callable(edit):
+                text = edit(text, src.parent)
+                continue
+            a, b = edit
+            if text.count(a) != 1:
+                raise RuntimeError(f"{name}: {a!r} is not in {src.name} once")
+            text = text.replace(a, b)
+        path = out_dir / f"{lib_name}_{name}.cu"
+        path.write_text(text)
+        hdr = pred.write(kernels.PRED_DIR)
+        if hdr_edit is not None:
+            hdr = kernels.PRED_DIR / f"vrt_pred_{pred.digest}_{name}.cuh"
+            hdr.write_text(hdr_edit(pred.text))
+        jobs[name] = (path, hdr)
+    with ThreadPoolExecutor(8) as ex:
+        futs = {n: ex.submit(kernels.load_file, lib_name, path,
+                             defines=(f"VRT_PRED_HEADER={hdr.name}",),
+                             include_dirs=(kernels.PRED_DIR,), headers=(hdr,))
+                for n, (path, hdr) in jobs.items()}
+        return {n: f.result() for n, f in futs.items()}
+
+
+def pred_through(kernels, lib_name: str, pred, lib, make):
+    """``make()`` with ``lib`` as ``lib_name``'s library built with
+    ``pred`` during it."""
+    return _through(kernels, f"{lib_name}+pred-{pred.digest}", lib, make)
+
+
+def pred_counts(lib, run) -> dict:
+    """The counters (``PRED_COUNTERS``) over one ``run()`` of the
+    counting copy ``lib``, and the means a lane's leaf step and a warp's
+    that step 0 reads."""
+    import ctypes
+
+    buf = (ctypes.c_ulonglong * 16)()
+    fn = lib.lib.vrt_pc_counts
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    for reset in (1, 0):
+        if reset == 0:
+            run()
+        err = fn(ctypes.addressof(buf), reset)
+        if err:
+            raise RuntimeError(f"vrt_pc_counts: {lib.error_string(err)}")
+    c = dict(zip(PRED_COUNTERS, list(buf)))
+    lanes, warps = max(c["lane_steps"], 1), max(c["warp_steps"], 1)
+    tw = max(c["warp_test_steps"], 1)
+    return dict(counts=c, cand_per_lane_step=c["cand"] / lanes,
+                cand_per_warp_step=c["cand"] / warps,
+                warp_max_cand=c["warp_max_cand"] / warps,
+                lanes_per_warp_step=c["lane_steps"] / warps,
+                test_warp_share=c["warp_test_steps"] / warps,
+                lanes_testing_per_test_step=c["lanes_testing"] / tw,
+                test_slots_per_test_step=c["test_slots"] / tw,
+                multi_slot_share=c["warp_multi_slot"] / tw,
+                tests_per_cand=c["tests"] / max(c["cand"], 1),
+                texels_per_cand=c["texels"] / max(c["cand"], 1),
+                slot_iters_per_warp_step=c["slot_iters"] / warps)
+
+
 def _events_ms(torch, fn, reps: int) -> float:
     for _ in range(3):
         fn()
@@ -606,6 +853,8 @@ def main(argv=None) -> int:
                          "(repeat for more: old, old2, ...)")
     ap.add_argument("--w16-variants", default="",
                     help="w16: names of W16_VARIANTS to time in turns")
+    ap.add_argument("--pred-variants", default="",
+                    help="k1p, k2p: names of PRED_VARIANTS to time in turns")
     ap.add_argument("--out", default=None, help="write the JSON line here too")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
@@ -753,10 +1002,20 @@ def _in_turns(calls: dict, kname: str, reps: int) -> dict:
                     turns=t["ms"]) for n, t in times.items()}
 
 
+def _drop_uv(cls):
+    """Packed slot classes with class 3 (uv only) made 0 (tested)."""
+    x = cls.long() & 0xFFFFFFFF
+    m = x & (x >> 1) & 0x55555555
+    x = x & ~(m | (m << 1))
+    return (x - ((x >> 31) << 32)).int()  # (u32 values as int32 bits)
+
+
 def pred_part(args, out, dev, kind: str) -> None:
     """K1's (``k1p``) or K2's (``k2p``) predicate mode on ladder row 6's
     scene (the module docstring): each wave in predicate mode, alpha mode
     and without any-hit, in turns, beside the predicate mode's bound."""
+    import time
+
     import torch
 
     from vortex_rt_tpu_torch import RTConfig, WavefrontRenderer
@@ -787,13 +1046,25 @@ def pred_part(args, out, dev, kind: str) -> None:
         (tp, tp.walk_work, wb.k1_bound, "traverse_packet") if k1 else
         (pw, pw.walk_work_4, wb.k2_bound, "packet_walk"))
     lib = kernels.load_pred(lib_name, pred)
+    names = ["pred_counts", *(n for n in args.pred_variants.split(",")
+                              if n and PRED_VARIANT_LIB.get(n, lib_name)
+                              == lib_name)]
+    vlibs = pred_build(kernels, lib_name, names, pred)
     out[kind].update(pred=args.pred, pred_digest=pred.digest,
                      pred_ops=wb.pred_ops(pred), pred_nodes=pred.n_ops,
                      pred_build_s=lib.build_seconds,
-                     ptxas_entries=_ptxas_entries(lib.build_log))
+                     ptxas_entries=_ptxas_entries(lib.build_log),
+                     ptxas_variants={n: {e: v for e, v in _ptxas_entries(
+                         vl.build_log).items() if "<2," in e}
+                         for n, vl in vlibs.items()})
+    t0 = time.perf_counter()
+    classes = mod.pred_classes(r.wa, pred)
+    out[kind].update(class_build_s=time.perf_counter() - t0,
+                     slot_classes=classes.counts, rep_alpha=classes.rep,
+                     no_rule=classes.no_rule)
     waves = _capture(r, cam6, p6, 512, 512)
-    cases = dict(zip(("row6_512_closest", "row6_512_shadow",
-                      "row6_512_bounce", "row6_512_shadow1"), waves[:4]))
+    # (row 6's bounce waves hold no live ray: mirror-free)
+    cases = dict(zip(("row6_512_closest", "row6_512_shadow"), waves[:2]))
     if k1:
         (o0, d0, k0), (o1, d1, k_1) = waves[:2]
         n = o0.shape[0]
@@ -809,24 +1080,61 @@ def pred_part(args, out, dev, kind: str) -> None:
     del waves
     for label, (o, d, kw) in cases.items():
         kw = {k: v for k, v in kw.items() if k != "anyhit_pred"}
+        def make(**extra):
+            return lambda: mod.kernel_call(r.wa, o, d, anyhit_pred=pred,
+                                           **kw, **extra)
+
         calls = {
-            "pred": mod.kernel_call(r.wa, o, d, anyhit_pred=pred, **kw),
+            "pred": make()(),
             "alpha": mod.kernel_call(r.wa, o, d, alpha_ref=bench_ladder.ALPHA6,
                                      **kw),
             "none": mod.kernel_call(plain_wa, o, d, **kw)}
+        for n in names[1:]:
+            calls[n] = pred_through(kernels, lib_name, pred, vlibs[n], make())
+        # the classes with one piece taken back: class 3 tested as 0 (the
+        # texel read), every slot tested (the parent's tests, with the
+        # class word read)
+        calls["cls_no_uv"] = make(pred_cls=classes._replace(
+            cls=_drop_uv(classes.cls)))()
+        calls["cls_all_test"] = make(pred_cls=classes._replace(
+            cls=torch.zeros_like(classes.cls)))()
         hits, steps = calls["pred"]()
+        want = _digest((*hits, steps))
+        same_variants = {}
+        for n in [*names[1:], "cls_no_uv", "cls_all_test"]:
+            got = calls[n]()
+            same_variants[n] = _digest((*got[0], got[1])) == want
+        bad = [n for n, ok in same_variants.items()
+               if not ok and n not in PRED_TIMING_ONLY]
+        if bad:
+            raise RuntimeError(f"{kind} {label}: {bad} differ from the "
+                               f"kernel's hits or steps")
+        counts = pred_counts(vlibs["pred_counts"], pred_through(
+            kernels, lib_name, pred, vlibs["pred_counts"], make()))
         ref, ref_steps, work = work_fn(r.wa, o, d, anyhit_pred=pred, **kw)
         same = all(torch.equal(a, b) for a, b in zip((*hits, steps),
                                                      (*ref, ref_steps)))
         times = _in_turns(calls, KERNEL[lib_name], args.reps)
-        b = (bound_fn(work, lookups=False, pred_ops=wb.pred_ops(pred)) if k1
-             else bound_fn(work, pred_ops=wb.pred_ops(pred)))
+        p_ops = wb.pred_ops(pred)
+        b0 = bound_fn(work, lookups=False, pred_ops=p_ops)
+        b = bound_fn(work, lookups=True, pred_ops=p_ops)
+        cand = int(work.alpha_tests.sum())
         rec = dict(rays=int(o.shape[0]), **times["pred"],
                    alpha=times["alpha"], none=times["none"],
+                   variants={n: times[n] for n in [*names[1:], "cls_no_uv",
+                                                   "cls_all_test"]},
+                   variants_equal=same_variants,
                    bound_ms=b.ms, bound_by=b.bound_by, bound_bytes=b.bytes,
-                   pred_tests=int(work.alpha_tests.sum()),
+                   bound_every_ms=b0.ms, bound_every_by=b0.bound_by,
+                   pred_tests=cand,
+                   tests_made=int(work.alpha_lookups.sum()),
+                   texel_reads=int(work.texel_reads.sum()),
+                   class_share={c: int(x) / max(cand, 1) for c, x in zip(
+                       ("test", "kept", "cut", "uv"),
+                       work.by_class.tolist())},
+                   step0=counts,
                    mean_steps=float(steps.float().mean()),
-                   equals_plain=same, digest=_digest((*hits, steps)))
+                   equals_plain=same, digest=want)
         out[kind][label] = rec
         print(f"{kind.upper()} {label}: {rec}", file=sys.stderr)
         if not same:
