@@ -36,10 +36,17 @@ and so exits non-zero, on failure):
 6. a 64x64 spp-2 frame at depth 3 (reflective sphere) through K1 and
    through the plain version: equal ray counts, images within 1e-5, K1
    launched 5 times per sample pass, one of them the mixed wave;
-7. config 2 as ``bench.py`` renders it (8-wide fused, 512x512, spp 2,
-   depth 2, shadow rays): the main path's run (launch counts reset
-   before it), checked against the plain version; 3 x 16-frame bursts
-   timed after a warm-up (Mrays/s as bench.py defines it); one primary
+7. config 2 as ``bench.py`` renders it (``models/config2.py``, where the
+   bench entry and the ladder take it from; 8-wide fused, 512x512, spp
+   2, depth 2, shadow rays): the main path's run (launch counts reset
+   before it), checked against the plain version; then ladder row 2 on
+   the same renderer (``bench_ladder.run_row``, launch counts reset
+   before it: 3 x 16-frame bursts timed after a warm-up, Mrays/s as
+   bench.py defines it, K1 8 times a frame and nothing else, the golden
+   parity at 16 pixels); the bench entry (``tools/bench.py``) on the same
+   renderer (one build serving both; launch counts reset before it), its
+   JSON line parsed (``vs_baseline`` = value / 200, the card's line in
+   ``gpu``), K1 launched 8 times a frame; one primary
    wave timed through K1 (bare kernel call, CUDA events) and plain, with
    its bound.  Then one frame at depth 3 with a reflective sphere
    (merged wave with live bounce lanes) against the plain route;
@@ -81,6 +88,13 @@ and so exits non-zero, on failure):
    lanes, steps per ray (mean, warp maximum), SIMT efficiency, bound;
 9f. ``render_accum(n_passes=2, spp=2)`` of config 4 at ``PT_SMALL``
    against the mean of two ``frame_body(total_spp=4)`` frames (1e-6);
+9g. ladder rows 1 and 4 as ``tools/bench_ladder.run_row`` runs them (row
+   1: the Cornell box, 256x256, spp 2, depth 1; row 4: config 4 on phase
+   9d's renderer, one build serving both; row 2 is phase 7's), launch
+   counts reset before each: K1 2 and 40 times a frame and no other
+   kernel, the golden parity (``parity_ok``, RMSE below 3e-3 at 16 and 8
+   sampled pixels), row 1's frame against the plain route at full size
+   (row 4's is 9d's); the bench entry is phase 7's;
 10. K7: ``run_walks`` against ``run_walks_ref`` at 29,140 rows (sums
     equal) for 16-, 96- and 512-byte row fetches, then the probe's entry
     point (launch counts reset before it) at 29,140 rows (14.2 MiB,
@@ -400,6 +414,10 @@ import subprocess
 import sys
 import time
 
+from vortex_rt_tpu_torch.models.config2 import (
+    LIGHT2, config2_camera, config2_scene,
+)
+
 SOURCES = {
     "packet_walk": ("vortex_rt_tpu_torch/csrc/packet_walk.cu",
                     "vortex_rt_tpu/ops/pallas/packet_walk.py:66"),
@@ -504,8 +522,6 @@ EARLIER = ("before the redesigns: row 3's PLOC build 6.4-12.96 ms with the "
            "LBVH build 3.02-3.13 ms with K5 B in three kernels, two "
            "torch.cumsum and four fills and the refit plan's torch ops at "
            "the first refit, K5 A's scene box in six torch ops")
-EYE2 = ([0.05, 0.02, -3.2], [0.0, -0.05, 0.0], [0, 1, 0], 45.0, 1.0)
-LIGHT2 = (0.0, 0.8, -0.5)
 REL_TOL = 1e-6
 IMG_ATOL = 1e-5
 K7_ROWS = (29140, 1048576)
@@ -641,25 +657,6 @@ def _kind(kw) -> str:
 
 # ---------------------------------------------------------------- scenes
 
-def config2_scene(width: int = 0, sphere_refl: float = 0.0,
-                  flatten: bool = True):
-    """BASELINE config 2: Cornell box + sphere (bench.py's bench_scene
-    without the reference teapot asset), flattened; width 0 is the
-    default (8-wide, as bench.py builds it).  ``flatten=False`` keeps the
-    TLAS layout (instances over BLASes, 4-wide), as the megakernel
-    engine renders it."""
-    from vortex_rt_tpu_torch import RTConfig, Scene
-    from vortex_rt_tpu_torch.models.procedural import cornell_box, uv_sphere
-
-    sc = Scene()
-    for mesh, refl in cornell_box():
-        sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
-    sc.add_instance(sc.add_mesh(uv_sphere((0, -0.3, 0), 0.35, 24, 48)),
-                    reflectivity=sphere_refl)
-    cfg = RTConfig(flatten=flatten, bvh_width=width)
-    return sc.build(cfg), cfg
-
-
 def tlas_scene():
     """Two meshes, two instances: a TLAS over BLASes with instance nodes."""
     from vortex_rt_tpu_torch import RTConfig, Scene
@@ -716,13 +713,6 @@ def instances_scene():
     sc.add_instance(ms, sphere_at)
     cfg = RTConfig()
     return sc.build(cfg), cfg
-
-
-def config2_camera():
-    """bench.py's camera."""
-    from vortex_rt_tpu_torch import Camera
-
-    return Camera.look_at(*EYE2)
 
 
 def camera_rays(cam, w: int, h: int, device):
@@ -950,37 +940,24 @@ def main_path_run(label, rk, rp, params, size, device, name) -> int:
     return launches[name]
 
 
-def phase_config2(device, size: int = 512, burst: int = 16, reps: int = 3,
-                  wave_reps: int = 20) -> dict:
-    from vortex_rt_tpu_torch import RenderParams
+def phase_config2(device, size: int = 512, wave_reps: int = 20) -> dict:
     from vortex_rt_tpu_torch.ops.traverse_packet import (
         kernel_call, trace_packets, trace_packets_ref, walk_work,
     )
+    from vortex_rt_tpu_torch.tools import bench_ladder
     from vortex_rt_tpu_torch.tools import walk_bounds as wb
 
-    rk, rp = renderer_pair(device, config2_scene(), trace_packets_ref)
-    _check(rk.wa.width == 8 and rk.wa.fused is not None
-           and rk.walk is trace_packets,
-           "config 2 is not on bench.py's 8-wide fused route")
-    p = RenderParams(light_pos=LIGHT2, max_depth=2, shadow=True, spp=2)
+    row = bench_ladder.setup2(device, (size, size))
+    rk, p, cam = row.r, row.p, row.cam
+    rp = dataclasses.replace(rk, walk=trace_packets_ref)
     launches = main_path_run(f"config 2 {size}x{size} spp2 d2", rk, rp, p,
                              size, device, "traverse_packet")
 
-    # ---- sustained throughput: 3 x 16-frame bursts after a warm-up
-    cam = config2_camera()
-    rk.render_burst(cam, p, size, size, n_frames=burst, seed0=0,
-                    rays_only=True)
-    _sync(device)
-    total = 0
-    t0 = time.perf_counter()
-    for i in range(reps):
-        total += rk.render_burst(cam, p, size, size, n_frames=burst,
-                                 seed0=(i + 1) * burst, rays_only=True)
-    dt = time.perf_counter() - t0
-    mrays = total / dt / 1e6
-    print(f"  config 2 {size}x{size} spp2 d2 shadow: {total} rays in "
-          f"{dt:.4f} s = {mrays:.3f} Mrays/s ({dt * 1e3 / (reps * burst):.3f}"
-          f" ms/frame)")
+    # ---- ladder row 2 on the same renderer: 3 x 16-frame bursts after a
+    # warm-up (Mrays/s as the bench entry times it) and the golden parity
+    row2 = ladder_row(device, row)
+    mrays = row2["mrays"]
+    bench_rec = bench_entry(device, row)
     timed = (kernel_call if device.type == "cuda"
              else lambda wa, o, d: lambda: trace_packets(wa, o, d))
     wave = primary_wave(device, rk.wa, timed, trace_packets_ref, walk_work,
@@ -995,7 +972,7 @@ def phase_config2(device, size: int = 512, burst: int = 16, reps: int = 3,
     ms3 = _elapsed_ms(lambda: rk3.render(cam, p3, size, size), 3, device)
     print(f"  depth-3 frame {ms3:.3f} ms ({rays3} rays)")
     return dict(launches=launches, launches_per_frame=launches, mrays=mrays,
-                **wave)
+                row2=row2, bench=bench_rec, **wave)
 
 
 def phase_config2_k2(device, size: int = 512, wave_reps: int = 20) -> dict:
@@ -1302,6 +1279,89 @@ def phase_render_accum(device, r, cam, p, size=PT_SMALL) -> None:
            "render_accum: ray count is not the sum of its passes'")
     print(f"  render_accum {w}x{h} n_passes 2 spp 2: rays {rays}, max diff "
           f"vs the mean of two frame_body(total_spp=4) frames {diff:.3g}")
+
+
+ROW_K1_PER_FRAME = {1: 2, 2: 8, 4: 40}  # waves a sample pass x spp
+
+
+def ladder_row(device, row) -> dict:
+    """A ladder row as ``bench_ladder.run_row`` runs it (timing, launches a
+    frame, golden parity), launch counts reset just before and read just
+    after: K1 ``ROW_K1_PER_FRAME`` times a frame and no other kernel,
+    ``parity_ok``."""
+    from vortex_rt_tpu_torch.ops.traverse_packet import trace_packets
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import bench_ladder as bl
+
+    label = f"row {row.num}"
+    _check(row.r.wa.width == 8 and row.r.wa.fused is not None
+           and row.r.walk is trace_packets,
+           f"{label} is not on the 8-wide fused K1 route")
+    kernels.reset_launches()
+    rec = bl.run_row(row)
+    _sync(device)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    want = ROW_K1_PER_FRAME[row.num]
+    if device.type == "cuda":  # (a CPU rehearsal launches nothing)
+        _check(rec["launches_per_frame"] == {"traverse_packet": want},
+               f"{label}: launches a frame {rec['launches_per_frame']}, "
+               f"expected {want} of K1 and nothing else")
+        _check(set(launches) == {"traverse_packet"},
+               f"{label}: the run launched {launches}")
+    _check(rec["parity_ok"], f"{label}: golden parity RMSE "
+           f"{rec['parity_rmse']} (limit {bl.PARITY_RMSE})")
+    rec["launches"] = launches.get("traverse_packet", 0)
+    print(f"  {json.dumps(rec)}")
+    return rec
+
+
+def bench_entry(device, row) -> dict:
+    """The bench entry (``tools/bench.py``, on the card: the default) on
+    row 2's renderer, its counts reset before it: its JSON line parsed,
+    K1 its only kernel, 8 launches a frame."""
+    import contextlib
+    import io
+
+    from vortex_rt_tpu_torch.runtime import kernels
+    from vortex_rt_tpu_torch.tools import bench
+    from vortex_rt_tpu_torch.tools import bench_ladder as bl
+
+    kernels.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rec = bench.main([], row=row)
+    _sync(device)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"  bench entry: {json.dumps(line)}")
+    _check(line == rec and {"metric", "value", "unit", "vs_baseline", "gpu",
+                            "scene", "knobs"} <= set(line)
+           and line["unit"] == "Mrays/s" and line["value"] > 0
+           and line["vs_baseline"] == line["value"] / 200
+           and (line["gpu"] is not None or device.type != "cuda"),
+           f"the bench entry's line {line}")
+    _check(device.type != "cuda" or launches == {
+        "traverse_packet": 8 * bl.BURST * (bl.REPS + 1)},
+        f"the bench entry launched {launches}")
+    return dict(line, launches=launches.get("traverse_packet", 0))
+
+
+def phase_ladder_rows(device, r4) -> dict:
+    """Ladder rows 1 and 4 through ``ladder_row`` (row 2 is phase 7's):
+    row 1's frame against the plain route at full size (equal rays, within
+    1e-5); row 4 renders with phase 9d's renderer, whose frame phase 9d
+    held to the plain route."""
+    from vortex_rt_tpu_torch.ops.traverse_packet import trace_packets_ref
+    from vortex_rt_tpu_torch.tools import bench_ladder as bl
+
+    row1 = bl.setup1(device)
+    out = {"row1": ladder_row(device, row1)}
+    frame_vs_plain(f"row 1 {row1.res[0]}x{row1.res[1]}", row1.r,
+                   dataclasses.replace(row1.r, walk=trace_packets_ref),
+                   row1.p, row1.res, device, cam=row1.cam)
+    del row1
+    out["row4"] = ladder_row(device, bl.setup4(device, r=r4))
+    return out
 
 
 def lbvh_test_meshes(big: bool = True):
@@ -4913,6 +4973,10 @@ def main() -> int:
                               names=PT_WAVES, label="config 4")
     _phase("phase 9f render_accum (config 4's scene)")
     phase_render_accum(device, r4, cam4, p4)
+    _phase("phase 9g ladder rows 1 and 4 (row 4 on phase 9d's renderer; row "
+           "2 and the bench entry are phase 7's)")
+    rows9 = {"row2": c2.pop("row2"), "bench": c2.pop("bench"),
+             **phase_ladder_rows(device, r4)}
     wa8s["config4"] = r4.wa.to("cpu")
     del r4
     _phase("phase 10 K7 chained row-fetch probe")
@@ -4988,6 +5052,11 @@ def main() -> int:
           f"4 {c4['frame_ms']:.3f} ms/frame {c4['mrays']:.3f} Mrays/s, peak "
           f"{c4['peak_bytes']} B")
 
+    print("  ladder: " + "; ".join(
+        f"{k} {v['ms_per_frame']:.3f} ms/frame {v['mrays']:.3f} Mrays/s "
+        f"parity RMSE {v['parity_rmse']:.3g}"
+        for k, v in rows9.items() if k != "bench")
+        + f"; bench entry {rows9['bench']['value']:.3f} Mrays/s")
     print(f"  config 3 on the device-built tree "
           f"{c3d['ms_per_frame']:.3f} ms/frame (build "
           f"{c3d['lbvh_build_ms']:.4f} ms); config 5 "
@@ -5008,6 +5077,7 @@ def main() -> int:
         "config4": c4["k1_launches"],
         "config3_device_tree": c3d["launches"]["traverse_packet"],
         "config5": c5["launches_k1"], "cli_config3": cli3["k1_launches"],
+        **{f"ladder_{k}": v["launches"] for k, v in rows9.items()},
         "tiled_wavefront_per_rank": md["18a"]["launches"]})
     for name in LBVH_KERNELS:
         _check(lbvh_checked[name] > 0, f"phases 11a-11c checked no {name}")

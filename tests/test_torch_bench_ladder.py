@@ -1,6 +1,7 @@
 """The port's ladder tool (``tools/bench_ladder.py``) on the CPU at a small
 size: row 5's recipe on ``wavy_grid(n=24)`` at 32x32 (and rows 3 and 6
-through the tool's command line).  The t = 0 frame and
+through the tool's command line; rows 1, 2 and 4 are
+``test_torch_bench.py``'s).  The t = 0 frame and
 one moved frame, rendered from the port's on-device build + per-frame
 refit, against the frames the JAX package renders from its own
 ``build_lbvh_topo`` / ``refit_lbvh`` tree of the same vertices: equal ray
@@ -154,7 +155,7 @@ def test_row6_small_on_cpu(capsys):
 
 @pytest.mark.parametrize("argv,exc", [
     (["--configs", "3", "--lbvh", "sah", "--device", "cpu"], ValueError),
-    (["--configs", "4", "--device", "cpu"], NotImplementedError),
+    (["--configs", "7", "--device", "cpu"], ValueError),
     (["--configs", "3", "--lbvh", "median", "--device", "cpu"], ValueError),
 ])
 def test_unported_rows_are_refused(argv, exc):

@@ -15,8 +15,9 @@ shadow rays and the path-traced frame (``RenderParams(pathtrace=True)``,
 ``render_accum``); the native host BVH builder (``runtime/native.py``);
 the on-device LBVH build and per-frame refit for moving meshes
 (``accel/lbvh.py`` over ``csrc/lbvh_karras.cu``, ``lbvh_collapse.cu``,
-``lbvh_refit.cu`` and ``lbvh_pack.cu``, K5) with the ladder's rows 3 and 5
-(``tools/bench_ladder.py``); any-hit shaders — the alpha cutout tested
+``lbvh_refit.cu`` and ``lbvh_pack.cu``, K5); the ladder's six rows
+(``tools/bench_ladder.py``) and config 2's bench entry (``tools/bench.py``);
+any-hit shaders — the alpha cutout tested
 inside K1 and K2, every other shader through the per-ray walk with
 suspension ``csrc/traverse_wide.cu`` (K3) — with ladder row 6; and the
 chained row-fetch probe ``tools/exp_hbm_walk.py`` over

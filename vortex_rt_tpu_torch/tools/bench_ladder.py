@@ -1,9 +1,29 @@
-"""Ladder rows 3, 5 and 6 on the port (port of ``tools/bench_ladder.py``
-``_scale_cfg(lbvh=True)``, ``config5`` and ``config6``): the two rows that
-need an on-device build (``accel/ploc.py``, ``accel/lbvh.py``) and refit,
-and the alpha-cutout any-hit row.
+"""The ladder's six rows on the port (port of ``tools/bench_ladder.py``:
+``config1``, ``config2``, ``_scale_cfg`` for rows 3 and 4, ``config5`` and
+``config6``), one JSON line a row.
 
-    python -m vortex_rt_tpu_torch.tools.bench_ladder --configs 3,5,6
+    python -m vortex_rt_tpu_torch.tools.bench_ladder --configs 1,2,3,4,5,6
+
+- **row 1**: the Cornell box alone, flattened (8-wide fused, leaf 4),
+  256x256, ``framing_camera(sb, 45, 1)``, spp 2, depth 1, no shadow rays,
+  Whitted.
+- **row 2**: config 2 as ``bench.py`` renders it (``models/config2.py``:
+  the Cornell box with ``bench.py``'s sphere; its camera and light),
+  512x512, spp 2, depth 2, shadow rays.
+- **row 4**: ``atrium()`` (259,594 triangles in 29 meshes, each with its
+  reflectivity), flattened, native host build, 1920x1080, spp 8, depth 3,
+  shadow rays, path traced, ``framing_camera(sb, 45, 1920/1080)``.
+
+Rows 1 and 2 are timed as the bench entry times config 2
+(``bench_bursts``: a 16-frame ``render_burst`` warm-up, then 3 timed
+16-frame bursts, wall time); row 4 one frame a call after a warm-up
+frame (``bench_frames``).  Each keeps the JAX row's golden parity
+through the port's oracle (``golden/renderer.py``): rows 1 and 2 the
+spp-1 image at 16 pixels drawn with seed 7 (``sample_pixel_parity``),
+row 4 the bench-spp frame at 8 pixels (``render_golden_pt``), RMSE below
+3e-3 (``parity_rmse``, ``parity_ok``).  ``launches_per_frame`` counts
+each kernel's launches a frame over a row's timed calls (none on the
+CPU, whose walks are the plain versions).
 
 - **row 5**, the animated mesh: ``wavy_grid(n=708)`` (999,698 triangles),
   1920x1080, spp 2, depth 2, shadow rays, Whitted, light (0, 14, 0), flat
@@ -28,7 +48,7 @@ the same mesh: row 5 renders its t = 0 frame from both (images within
 1e-5, ray counts equal); row 3 traces the camera rays over both (same
 hit mask, triangle ids and distances to the bit; mean and largest steps
 per ray on both) and prints the difference of the two path-traced
-frames.  One JSON line per row.
+frames.
 
 - **row 6**, textured alpha-cutout any-hit: ``textured_atrium()``
   (259,594 triangles; the procedural checker stands in for absent
@@ -40,9 +60,13 @@ frames.  One JSON line per row.
   (``RTConfig(packet_size=0)`` on the TLAS build, K3 and ``commit``):
   RMSE below 1e-4, as the JAX row's gate, and equal ray counts.
 
-``--grid``, ``--blob``, ``--res``, ``--res6``, ``--atrium``,
-``--atrium-cols`` and ``--parity-res`` shrink the meshes and the frames
-(the CPU tests run row 5 on ``wavy_grid(n=24)`` at 32x32).
+A row that fails raises (the JAX ladder records the error and goes on);
+the command exits 1 when a row fails its parity.  ``--res1``, ``--res2``,
+``--atrium4``, ``--grid``, ``--blob``, ``--res``, ``--res6``,
+``--atrium``, ``--atrium-cols`` and ``--parity-res`` shrink the meshes
+and the frames (the CPU tests run row 5 on ``wavy_grid(n=24)`` at 32x32),
+and change nothing at their defaults.  Runs on the card unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -64,11 +88,13 @@ from vortex_rt_tpu_torch.engine.shaders import (
     ShaderTable, alpha_test_anyhit, stateless_anyhit,
 )
 from vortex_rt_tpu_torch.engine.wavefront import WavefrontRenderer
-from vortex_rt_tpu_torch.models import bigscenes
+from vortex_rt_tpu_torch.models import bigscenes, config2
+from vortex_rt_tpu_torch.models.procedural import cornell_box
 from vortex_rt_tpu_torch.models.scene import (
     Camera, RenderParams, Scene, SceneBuffers,
 )
 from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays
+from vortex_rt_tpu_torch.runtime import kernels
 from vortex_rt_tpu_torch.utils.config import LARGE_FLOAT, RTConfig
 
 IMG_ATOL = 1e-5
@@ -78,6 +104,9 @@ ALPHA6 = 0.30         # row 6's alpha_test_anyhit threshold
 PARITY6_RMSE = 1e-4   # the JAX row's gate against the suspension engine
 MOVED_TS = (0.1, 0.2, 0.3, 0.4)  # the four timed refit frames
 BUILD_REPS = 10  # row 5's timed topology builds (the median is reported)
+BURST, REPS = 16, 3   # rows 1 and 2: frames a burst, timed bursts
+PARITY_RMSE = 3e-3    # rows 1, 2 and 4: the JAX rows' golden gate
+HD = (1920, 1080)
 
 
 def timed_ms(fn: Callable[[], object], device, reps: int = 1) -> List[float]:
@@ -206,6 +235,130 @@ def bench_frames(r: WavefrontRenderer, cam, params, w: int, h: int,
     dt = time.perf_counter() - t0
     return dict(rays_per_frame=total // n_timed, mrays=total / dt / 1e6,
                 ms_per_frame=dt * 1e3 / n_timed)
+
+
+def bench_bursts(r: WavefrontRenderer, cam, params, w: int, h: int,
+                 burst: int = BURST, reps: int = REPS) -> dict:
+    """One ``burst``-frame warm-up, then ``reps`` timed bursts (wall time;
+    a burst waits for the device once, when it reads its ray count)."""
+    r.render_burst(cam, params, w, h, n_frames=burst, seed0=0,
+                   rays_only=True)
+    total = 0
+    t0 = time.perf_counter()
+    for i in range(reps):
+        total += r.render_burst(cam, params, w, h, n_frames=burst,
+                                seed0=(i + 1) * burst, rays_only=True)
+    dt = time.perf_counter() - t0
+    return dict(rays_per_frame=total // (reps * burst),
+                mrays=total / dt / 1e6,
+                ms_per_frame=dt * 1e3 / (reps * burst))
+
+
+@dataclasses.dataclass
+class Row:
+    """A golden-gated ladder row (1, 2 or 4): its scene on the host, its
+    renderer, camera, parameters and frame size."""
+
+    num: int
+    scene: str
+    sb: SceneBuffers
+    r: WavefrontRenderer
+    cam: Camera
+    p: RenderParams
+    res: Tuple[int, int]
+
+
+def _flat_scene(meshes, cfg: RTConfig) -> SceneBuffers:
+    sc = Scene()
+    for mesh, refl in meshes:
+        sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
+    return sc.build(cfg)
+
+
+def setup1(device, res=(256, 256)) -> Row:
+    """Row 1: the Cornell box alone, primary rays only."""
+    cfg = RTConfig(flatten=True)
+    sb = _flat_scene(cornell_box(), cfg)
+    r = WavefrontRenderer.from_buffers(sb, cfg, device=torch.device(device))
+    return Row(1, "cornell", sb, r, Scene.framing_camera(sb, 45.0, 1.0),
+               RenderParams(max_depth=1, spp=2), tuple(res))
+
+
+def setup2(device, res=None, width: int = 0, leaf: int = 4) -> Row:
+    """Row 2: config 2 as ``bench.py`` renders it, at ``res`` (default
+    ``config2.SIZE2`` square; ``width``, ``leaf``: the build's, as the
+    bench entry's flags set them)."""
+    res = res or (config2.SIZE2, config2.SIZE2)
+    sb, cfg = config2.config2_scene(width=width, leaf=leaf)
+    r = WavefrontRenderer.from_buffers(sb, cfg, device=torch.device(device))
+    return Row(2, config2.SCENE2, sb, r,
+               config2.config2_camera(), config2.config2_params(), tuple(res))
+
+
+def setup4(device, res=HD, target_tris: int = 260_000,
+           r: Optional[WavefrontRenderer] = None) -> Row:
+    """Row 4: the atrium, path traced (``r``: its renderer, made already
+    from ``atrium(target_tris)`` with ``RTConfig(flatten=True)``)."""
+    if r is None:
+        cfg = RTConfig(flatten=True)
+        sb = _flat_scene(bigscenes.atrium(target_tris=target_tris), cfg)
+        r = WavefrontRenderer.from_buffers(sb, cfg,
+                                           device=torch.device(device))
+    w, h = res
+    return Row(4, "atrium", r.sb, r, Scene.framing_camera(r.sb, 45.0, w / h),
+               RenderParams(max_depth=3, spp=8, shadow=True, pathtrace=True),
+               tuple(res))
+
+
+def golden_parity(row: Row, n: int, seed: int = 7) -> dict:
+    """The JAX ladder's ``_parity`` through the port's oracle: a Whitted
+    row's spp-1 image at ``n`` pixels drawn with ``seed``
+    (``sample_pixel_parity``), a path-traced row's frame at the bench spp
+    at ``n`` pixels (``render_golden_pt`` replays its samples); RMSE
+    below ``PARITY_RMSE``."""
+    from vortex_rt_tpu_torch.golden.renderer import (
+        render_golden_pt, sample_pixel_parity,
+    )
+
+    (w, h), p = row.res, row.p
+    if p.pathtrace:
+        img, _ = row.r.render(row.cam, p, w, h)
+        pix = np.random.default_rng(seed).choice(w * h, size=n,
+                                                 replace=False)
+        ref = render_golden_pt(row.sb, row.cam, p, w, h, seed=0, pixels=pix)
+        got = np.asarray(img, np.float32).reshape(-1, 3)[pix]
+        rmse = float(np.sqrt(((got - ref) ** 2).mean()))
+    else:
+        p = dataclasses.replace(p, spp=1)
+        img, _ = row.r.render(row.cam, p, w, h)
+        rmse, _, _ = sample_pixel_parity(row.sb, row.cam, p, w, h, img, n=n,
+                                         seed=seed)
+    return dict(parity_rmse=rmse, parity_pixels=n, parity_seed=seed,
+                parity_ok=bool(rmse < PARITY_RMSE and np.isfinite(img).all()))
+
+
+def run_row(row: Row) -> dict:
+    """A row's record: the frame's rays, Mrays/s and ms/frame, the
+    launches a frame of each kernel over the timed calls, and the golden
+    parity."""
+    (w, h), p = row.res, row.p
+    rec = dict(config=row.num, scene=row.scene, tris=row.sb.num_tris,
+               res=f"{w}x{h}", spp=p.spp, depth=p.max_depth, shadow=p.shadow,
+               pathtrace=p.pathtrace, bvh_width=row.r.config.bvh_width,
+               max_leaf_tris=row.r.config.max_leaf_tris,
+               fused=row.r.wa.fused is not None)
+    before = dict(kernels.LAUNCHES)
+    if row.num == 4:
+        n_frames = 3  # bench_frames: a warm-up and two timed frames
+        rec.update(bench_frames(row.r, row.cam, p, w, h))
+    else:
+        n_frames = BURST * (REPS + 1)
+        rec.update(bench_bursts(row.r, row.cam, p, w, h, BURST, REPS))
+    rec["launches_per_frame"] = {
+        k: (v - before.get(k, 0)) / n_frames
+        for k, v in kernels.LAUNCHES.items() if v != before.get(k, 0)}
+    rec.update(golden_parity(row, 8 if row.num == 4 else 16))
+    return rec
 
 
 def config5(device, grid: int = 708, res=(1920, 1080),
@@ -463,7 +616,8 @@ def config6(device, res=(512, 512), res_hd=(1920, 1080), parity_res=192,
     return rec
 
 
-def _gpu_line() -> Optional[str]:
+def gpu_line() -> Optional[str]:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
     try:
         out = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -474,17 +628,28 @@ def _gpu_line() -> Optional[str]:
     return out.stdout.strip() if out.returncode == 0 else None
 
 
+def _size(text: str) -> Tuple[int, int]:
+    w, h = (int(x) for x in text.split("x"))
+    return w, h
+
+
 def main(argv=None) -> List[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--configs", default="3,5")
+    ap.add_argument("--configs", default="1,2,3,4,5,6")
     ap.add_argument("--lbvh", default="ploc",
                     help="row 3's on-device build: ploc (radius 16, the "
                          "ladder's) or karras")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu (the plain versions)")
+    ap.add_argument("--res1", default="256x256", help="row 1's frame")
+    ap.add_argument("--res2", default="512x512", help="row 2's frame")
+    ap.add_argument("--atrium4", type=int, default=260_000,
+                    help="row 4's atrium(target_tris)")
     ap.add_argument("--grid", type=int, default=708,
                     help="row 5's wavy_grid(n)")
     ap.add_argument("--blob", type=int, default=187, help="row 3's blob(n)")
-    ap.add_argument("--res", default="1920x1080")
+    ap.add_argument("--res", default="1920x1080",
+                    help="the frame of rows 3, 4 and 5, row 6's second")
     ap.add_argument("--res6", default="512x512",
                     help="row 6's first frame (its second is --res)")
     ap.add_argument("--parity-res", type=int, default=192,
@@ -494,19 +659,21 @@ def main(argv=None) -> List[dict]:
     ap.add_argument("--atrium-cols", type=int, default=12,
                     help="row 6's textured_atrium(n_cols)")
     a = ap.parse_args(argv)
-    res = tuple(int(x) for x in a.res.split("x"))
-    res6 = tuple(int(x) for x in a.res6.split("x"))
-    fns = {3: lambda: config3(a.device, a.lbvh, a.blob, res),
+    res = _size(a.res)
+    fns = {1: lambda: run_row(setup1(a.device, _size(a.res1))),
+           2: lambda: run_row(setup2(a.device, _size(a.res2))),
+           3: lambda: config3(a.device, a.lbvh, a.blob, res),
+           4: lambda: run_row(setup4(a.device, res, a.atrium4)),
            5: lambda: config5(a.device, a.grid, res),
-           6: lambda: config6(a.device, res6, res, a.parity_res, a.atrium,
-                              a.atrium_cols)}
-    gpu = _gpu_line() if a.device.startswith("cuda") else None
+           6: lambda: config6(a.device, _size(a.res6), res, a.parity_res,
+                              a.atrium, a.atrium_cols)}
+    rows = [int(x) for x in a.configs.split(",")]
+    unknown = [c for c in rows if c not in fns]
+    if unknown:
+        raise ValueError(f"ladder rows {unknown}: the ladder has rows 1-6")
+    gpu = gpu_line() if a.device.startswith("cuda") else None
     out = []
-    for c in (int(x) for x in a.configs.split(",")):
-        if c not in fns:
-            raise NotImplementedError(
-                f"ladder row {c}: only rows 3, 5 and 6 are ported (ROADMAP "
-                f"Queue 1, item 7)")
+    for c in rows:
         rec = fns[c]()
         rec["gpu"] = gpu
         print(json.dumps(rec), flush=True)

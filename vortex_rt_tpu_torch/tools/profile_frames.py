@@ -51,8 +51,6 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
-CONFIG2_EYE = ([0.05, 0.02, -3.2], [0.0, -0.05, 0.0], [0, 1, 0], 45.0, 1.0)
-CONFIG2_LIGHT = (0.0, 0.8, -0.5)
 TOP = 12  # kernels listed, by device time
 # kernels reported by name even below the top: the walk and the refit's
 WATCHED = ("traverse_packet_kernel", "refit_tile_kernel",
@@ -79,22 +77,16 @@ class MegakernelFrames:
 def build(scene: str, device):
     """(renderer, camera, params, frame width, frame height)."""
     from vortex_rt_tpu_torch import (
-        Camera, RenderParams, RTConfig, Scene, WavefrontRenderer,
+        RenderParams, RTConfig, Scene, WavefrontRenderer,
     )
-    from vortex_rt_tpu_torch.models import bigscenes, procedural
+    from vortex_rt_tpu_torch.models import bigscenes, config2
 
     sc = Scene()
     cfg = RTConfig(flatten=True)
     if scene == "config2":
-        for mesh, refl in procedural.cornell_box():
-            sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
-        sc.add_instance(sc.add_mesh(
-            procedural.uv_sphere((0, -0.3, 0), 0.35, 24, 48)))
-        sb = sc.build(cfg)
-        cam = Camera.look_at(*CONFIG2_EYE)
-        p = RenderParams(light_pos=CONFIG2_LIGHT, max_depth=2, shadow=True,
-                         spp=2)
-        w = h = 512
+        sb, cfg = config2.config2_scene()
+        cam, p = config2.config2_camera(), config2.config2_params()
+        w = h = config2.SIZE2
     elif scene in ("scale", "config3", "config4"):
         if scene == "config4":
             for mesh, refl in bigscenes.atrium():
@@ -113,15 +105,10 @@ def build(scene: str, device):
         from vortex_rt_tpu_torch.engine.megakernel import MegakernelRenderer
 
         if scene == "mk_a":
-            for mesh, refl in procedural.cornell_box():
-                sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
-            sc.add_instance(sc.add_mesh(
-                procedural.uv_sphere((0, -0.3, 0), 0.35, 24, 48)),
-                reflectivity=0.6)
-            sb = sc.build(RTConfig())
-            cam = Camera.look_at(*CONFIG2_EYE)
-            p = RenderParams(light_pos=CONFIG2_LIGHT, max_depth=3, spp=4)
-            w = h = 512
+            sb, _ = config2.config2_scene(sphere_refl=0.6, flatten=False)
+            cam = config2.config2_camera()
+            p = RenderParams(light_pos=config2.LIGHT2, max_depth=3, spp=4)
+            w = h = config2.SIZE2
         else:
             for mesh, refl in bigscenes.atrium():
                 sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)

@@ -58,6 +58,16 @@ Waves, each captured from a real frame of that tree's renderer:
   (``W16_VARIANTS``: copies with one design piece changed) join each
   wave's turns, held to the 16-wide kernel's hits and steps (timing
   copies excepted), and ``--old`` the frames' turns;
+- K1's and K2's counting entries (``--parts stats``, the ``STATS``
+  instantiations ``perf_trace`` and the CLI's ``--perf`` launch) against
+  their default entries on the same rays: K1 at width 8 on the five
+  waves of the first sample pass of ladder configs 3 and 4 (1080p, path
+  traced), K1 at width 16 on config 4's primary wave, and K2 on the
+  atrium's 4-wide TLAS build at 1920x1080 (primary rays); each STATS
+  launch's hits and steps held to the default entry's, both timed in
+  four turns each (default, stats, stats, default, twice; the profiler's
+  kernel time of ``--reps`` launches and its launch count, CUDA events
+  beside; medians), and the STATS entry's time over the default's;
 - K3 (``--parts k3``), on ladder row 6's scene (the textured atrium,
   ``alpha_test_anyhit(0.30)``) in the 4-wide TLAS build: the first
   suspension round of the 192x192 parity frame's primary wave (73,728
@@ -105,11 +115,14 @@ outputs (the hashes) and times it beside the kernel in turns on the same
 waves, and on the sum of config 2's 8 waves.
 
     python vortex_rt_tpu_torch/tools/walk_timing.py [--root DIR]
-        [--parts k6,k2,k3,k1a,k1p,k2p,w16] [--reps 20] [--frames 4] [--variants]
+        [--parts k6,k2,k3,k1a,k1p,k2p,w16,stats] [--reps 20] [--frames 4]
+        [--variants]
         [--old FILE] [--w16-variants NAME,...] [--pred checker|perforated]
         [--pred-variants NAME,...] [--out FILE]
 
-(run as a file, so that the package imported is the one at ``--root``).
+(run as a file, so that the package imported is the one at ``--root``;
+the parts ``k1a``, ``k2`` and ``k6`` take config 2 from
+``models/config2.py`` and refuse a tree without it).
 Needs the card; the kernels build under ``DIR/build/torch_kernels/``.
 """
 
@@ -124,16 +137,18 @@ import subprocess
 import sys
 from pathlib import Path
 
-EYE2 = ([0.05, 0.02, -3.2], [0.0, -0.05, 0.0], [0, 1, 0], 45.0, 1.0)
-LIGHT2 = (0.0, 0.8, -0.5)
 HD = (1920, 1080)
 KERNEL = {"traverse2": "traverse2_kernel", "packet_walk": "packet_walk_kernel",
           "traverse_packet": "traverse_packet_kernel",
           "traverse_wide": "traverse_wide_kernel"}
+# the parts whose scenes import ``models/config2.py``, which a tree before
+# that module lacks
+CONFIG2_PARTS = ("k1a", "k2", "k6")
 PART_LIBS = {"k6": ("traverse2",), "k2": ("packet_walk", "traverse_packet"),
              "k3": ("traverse_wide",), "k1a": ("traverse_packet",),
              "k1p": ("traverse_packet",), "k2p": ("packet_walk",),
              "w16": ("traverse_packet",),
+             "stats": ("traverse_packet", "packet_walk"),
              "ptxas": ("traverse_packet", "packet_walk")}
 # variants whose outputs differ from the kernel's by design (timing copies)
 TIMING_ONLY = {"k1a_rows"}
@@ -838,8 +853,10 @@ def main(argv=None) -> int:
                     help="k6 (MK-A, MK-B), k2 (with K1's wave), k3, k1a "
                          "(K1's alpha mode), k1p, k2p (K1's and K2's "
                          "predicate modes), w16 (K1 at width 16 beside "
-                         "width 8, configs 3 and 4), ptxas (K1's and K2's "
-                         "ptxas lines by entry, no timing)")
+                         "width 8, configs 3 and 4), stats (K1's and K2's "
+                         "STATS entries against their default entries on "
+                         "1080p waves), ptxas (K1's and K2's ptxas lines "
+                         "by entry, no timing)")
     ap.add_argument("--pred", default="checker",
                     help="the predicate of k1p and k2p: checker or "
                          "perforated (bench_ladder.PREDICATES)")
@@ -858,6 +875,14 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="write the JSON line here too")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
+    parts = args.parts.split(",")
+    need2 = [p for p in parts if p in CONFIG2_PARTS]
+    if need2 and not (root / "vortex_rt_tpu_torch" / "models"
+                      / "config2.py").is_file():
+        raise RuntimeError(
+            f"--parts {','.join(need2)} take config 2 from "
+            f"vortex_rt_tpu_torch/models/config2.py, which the tree at "
+            f"{root} lacks: time those parts with that tree's own tool")
     sys.path.insert(0, str(root))
     import torch
 
@@ -876,7 +901,6 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip().splitlines()[0]
-    parts = args.parts.split(",")
     lib_names = [n for p in parts for n in PART_LIBS[p]]
     libs = kernels.load_all(lib_names)
     packs = hasattr(t2, "pack_walk_tables")
@@ -886,7 +910,7 @@ def main(argv=None) -> int:
            "ptxas_entries": {n: _ptxas_entries(lib.build_log)
                              for n, lib in libs.items()},
            "k6": {}, "k2": {}, "k1": {}, "k3": {}, "k1a": {}, "k1p": {},
-           "k2p": {}, "w16": {}}
+           "k2p": {}, "w16": {}, "stats": {}}
     variants = _variant_libs(kernels, lib_names) if args.variants else {}
     for n, lib in variants.items():
         out["ptxas"][n] = _ptxas(lib.build_log)
@@ -958,6 +982,8 @@ def main(argv=None) -> int:
         out[kind][label] = rec
         print(f"{kind.upper()} {label}: {rec}", file=sys.stderr)
 
+    if "stats" in parts:
+        stats_part(args, out, dev)
     if "w16" in parts:
         w16_part(args, out, dev)
     if "k1a" in parts:
@@ -1260,6 +1286,98 @@ def w16_counts(lib, run) -> dict:
                 warp_m2_share=c["warp_m2"] / warps)
 
 
+STATS_TURNS = ("default", "stats", "stats", "default") * 2  # 4 turns each
+
+
+def stats_part(args, out, dev) -> None:
+    """K1's and K2's counting (``STATS``) entries against their default
+    entries on the same rays (module docstring): hits and steps held to
+    the default entry's, then both timed in ``STATS_TURNS`` (the
+    profiler's kernel time of ``--reps`` launches, its launch count and
+    CUDA events beside; the medians of the turns)."""
+    import statistics
+
+    import torch
+
+    from vortex_rt_tpu_torch import (
+        RenderParams, RTConfig, Scene, WavefrontRenderer,
+    )
+    from vortex_rt_tpu_torch.models.bigscenes import atrium, blob
+    from vortex_rt_tpu_torch.ops import packet_walk as pw
+    from vortex_rt_tpu_torch.ops import traverse_packet as tp
+    from vortex_rt_tpu_torch.tools.profile_frames import kernel_events
+
+    def wave(label, mod, kname, wa, o, d, kw):
+        calls = {"default": mod.kernel_call(wa, o, d, **kw),
+                 "stats": mod.kernel_call(wa, o, d, stats=True, **kw)}
+        hits, steps = calls["default"]()
+        hits_s, steps_s = calls["stats"]()[:2]
+        if not (torch.equal(steps, steps_s) and all(
+                torch.equal(a, b) for a, b in zip(hits, hits_s))):
+            raise RuntimeError(f"stats {label}: the STATS entry's hits or "
+                               f"steps differ from the default entry's")
+        times = {n: dict(ms=[], events_ms=[], launches=[]) for n in calls}
+        for n in STATS_TURNS:
+            call = calls[n]
+            call()
+            torch.cuda.synchronize()
+            ev = [e for e in kernel_events(
+                lambda: [call() for _ in range(args.reps)]) if kname in e.key]
+            times[n]["ms"].append(sum(e.self_device_time_total for e in ev)
+                                  / 1e3 / args.reps)
+            times[n]["launches"].append(sum(e.count for e in ev))
+            times[n]["events_ms"].append(_events_ms(torch, call, args.reps))
+        rec = {n: dict(ms=statistics.median(t["ms"]),
+                       events_ms=statistics.median(t["events_ms"]),
+                       turns=t["ms"], launches=t["launches"])
+               for n, t in times.items()}
+        live = kw.get("active")
+        rec.update(rays=int(o.shape[0]),
+                   live=int(o.shape[0] if live is None else live.sum()),
+                   mean_steps=float(steps.float().mean()),
+                   stats_over_default=rec["stats"]["ms"]
+                   / rec["default"]["ms"] - 1.0,
+                   events_over_default=rec["stats"]["events_ms"]
+                   / rec["default"]["events_ms"] - 1.0)
+        out["stats"][label] = rec
+        print(f"stats {label}: default {rec['default']['ms']:.4f} ms, STATS "
+              f"{rec['stats']['ms']:.4f} ms ({rec['stats_over_default']:+.2%};"
+              f" events {rec['events_over_default']:+.2%}), {rec['live']} "
+              f"live of {rec['rays']}", file=sys.stderr)
+
+    names = ("closest0", "shadow0", "closest1", "merged1", "shadow2")
+    for label, meshes, spp in (("config3", [(blob(n=187), 0.0)], 4),
+                               ("config4", list(atrium()), 8)):
+        sc = Scene()
+        for mesh, refl in meshes:
+            sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
+        sb = sc.build(RTConfig(flatten=True))
+        cam = Scene.framing_camera(sb, 45.0, HD[0] / HD[1])
+        p = RenderParams(max_depth=3, spp=spp, shadow=True, pathtrace=True)
+        for width in ((8, 16) if label == "config4" else (8,)):
+            r = WavefrontRenderer.from_buffers(
+                sb, RTConfig(flatten=True, bvh_width=width), device=dev)
+            kname = ("traverse_packet16_kernel" if width == 16
+                     else "traverse_packet_kernel")
+            waves = _capture(r, cam, p, *HD, limit=5 if width == 8 else 1)
+            for name, (o, d, kw) in zip(names, waves):
+                wave(f"k1_w{width}_{label}_{name}", tp, kname, r.wa, o, d,
+                     kw)
+            del r, waves
+    sc = Scene()
+    for mesh, refl in atrium():
+        sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
+    sb = sc.build(RTConfig())
+    cam = Scene.framing_camera(sb, 45.0, HD[0] / HD[1], zoom=1.0)
+    r = WavefrontRenderer.from_buffers(sb, RTConfig(), device=dev)
+    o, d, kw = _capture(r, cam, RenderParams(spp=1, max_depth=1), *HD)[0]
+    wave("k2_atrium_tlas_1080p_primary", pw, "packet_walk_kernel", r.wa, o,
+         d, kw)
+    spread = [v["stats_over_default"] for v in out["stats"].values()]
+    out["stats"]["largest_over_default"] = max(spread)
+    out["stats"]["smallest_over_default"] = min(spread)
+
+
 def w16_part(args, out, dev) -> None:
     """K1 at width 16 beside width 8 on ladder configs 3 and 4 and row 6
     (module docstring)."""
@@ -1382,9 +1500,8 @@ def k1a_part(args, out, dev, timed) -> None:
     tested) and its alpha tests (made, and every candidate)."""
     import torch
 
-    from vortex_rt_tpu_torch import Camera, RenderParams, RTConfig, Scene
     from vortex_rt_tpu_torch import WavefrontRenderer
-    from vortex_rt_tpu_torch.models import procedural
+    from vortex_rt_tpu_torch.models import config2
     from vortex_rt_tpu_torch.ops import traverse_packet as tp
     from vortex_rt_tpu_torch.ops.traverse_wide import WideArrays
     from vortex_rt_tpu_torch.runtime import kernels
@@ -1443,16 +1560,10 @@ def k1a_part(args, out, dev, timed) -> None:
             plain = {k: v for k, v in kw.items() if k != "alpha_ref"}
             wave(f"{label}_no_alpha", plain_wa, o, d, plain, False)
     del cases
-    cam2 = Camera.look_at(*EYE2)
-    sc = Scene()
-    for mesh, refl in procedural.cornell_box():
-        sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
-    sc.add_instance(sc.add_mesh(procedural.uv_sphere((0, -0.3, 0), 0.35, 24,
-                                                     48)))
-    cfg = RTConfig(flatten=True)
-    r2 = WavefrontRenderer.from_buffers(sc.build(cfg), cfg, device=dev)
-    o, d, kw = _capture(r2, cam2, RenderParams(
-        light_pos=LIGHT2, max_depth=2, shadow=True, spp=2), 512, 512)[0]
+    sb2, cfg = config2.config2_scene()
+    r2 = WavefrontRenderer.from_buffers(sb2, cfg, device=dev)
+    o, d, kw = _capture(r2, config2.config2_camera(),
+                        config2.config2_params(), 512, 512)[0]
     wave("config2_primary", r2.wa, o, d, kw, False)
 
 
@@ -1460,23 +1571,18 @@ def k6_part(args, out, dev, k6_wave) -> None:
     """K6 on MK-A's and MK-B's waves, and in MK-A's frames."""
     import torch
 
-    from vortex_rt_tpu_torch import Camera, RenderParams, RTConfig, Scene
+    from vortex_rt_tpu_torch import RenderParams, RTConfig, Scene
     from vortex_rt_tpu_torch.engine.megakernel import MegakernelRenderer
-    from vortex_rt_tpu_torch.models import bigscenes, procedural
+    from vortex_rt_tpu_torch.models import bigscenes, config2
     from vortex_rt_tpu_torch.ops import traverse2 as t2
     from vortex_rt_tpu_torch.tools.profile_frames import (
         kernel_events, ms_by_name,
     )
 
     packs = hasattr(t2, "pack_walk_tables")
-    sc = Scene()
-    for mesh, refl in procedural.cornell_box():
-        sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
-    sc.add_instance(sc.add_mesh(procedural.uv_sphere((0, -0.3, 0), 0.35, 24,
-                                                     48)), reflectivity=0.6)
-    sb_a = sc.build(RTConfig())
-    cam2 = Camera.look_at(*EYE2)
-    p_a = RenderParams(light_pos=LIGHT2, max_depth=3, spp=4)
+    sb_a, _ = config2.config2_scene(sphere_refl=0.6, flatten=False)
+    cam2 = config2.config2_camera()
+    p_a = RenderParams(light_pos=config2.LIGHT2, max_depth=3, spp=4)
     ra = MegakernelRenderer.from_buffers(sb_a, device=dev)
     waves = megakernel_waves(ra, cam2, p_a, 512, 512)
     k6_wave("mk_a_primary", ra.ta, waves[0][0], waves[0][1], None)
@@ -1515,25 +1621,20 @@ def k2_part(args, out, dev, walk_wave) -> None:
     import torch
 
     from vortex_rt_tpu_torch import (
-        Camera, RenderParams, RTConfig, Scene, WavefrontRenderer,
+        RenderParams, RTConfig, Scene, WavefrontRenderer,
     )
-    from vortex_rt_tpu_torch.models import bigscenes, procedural
+    from vortex_rt_tpu_torch.models import bigscenes, config2
     from vortex_rt_tpu_torch.ops import packet_walk as pw
     from vortex_rt_tpu_torch.tools import bench_ladder
     from vortex_rt_tpu_torch.tools.profile_frames import (
         kernel_events, ms_by_name,
     )
 
-    cam2 = Camera.look_at(*EYE2)
-    sc = Scene()
-    for mesh, refl in procedural.cornell_box():
-        sc.add_instance(sc.add_mesh(mesh), reflectivity=refl)
-    sc.add_instance(sc.add_mesh(procedural.uv_sphere((0, -0.3, 0), 0.35, 24,
-                                                     48)))
-    p2 = RenderParams(light_pos=LIGHT2, max_depth=2, shadow=True, spp=2)
+    cam2 = config2.config2_camera()
+    p2 = config2.config2_params()
     for kind, width in (("k1", 0), ("k2", 4)):  # the 4-wide one stays
-        cfg = RTConfig(flatten=True, bvh_width=width)
-        r2 = WavefrontRenderer.from_buffers(sc.build(cfg), cfg, device=dev)
+        r2 = WavefrontRenderer.from_buffers(
+            *config2.config2_scene(width=width), device=dev)
         waves = _capture(r2, cam2, p2, 512, 512)
         walk_wave(kind, "config2_primary", r2.wa, *waves[0])
     for k, wave in enumerate(waves[1:], 1):
